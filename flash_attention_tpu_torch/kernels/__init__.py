@@ -1,0 +1,33 @@
+"""Kernel layer: the hand-written Hopper kernels, their wrappers and plain
+PyTorch versions, and the dense references."""
+
+from .block_sizes import (
+    MIN_BLOCK,
+    BlockSizes,
+    auto_num_chunks,
+    blocks_from_chunks,
+    default_blocks,
+    resolve_bwd_blocks,
+)
+from .flash_attention import (
+    KERNEL_LAUNCHES,
+    flash_attention,
+    flash_attention_reference,
+    flash_attention_with_lse,
+)
+from .vanilla import vanilla_attention, vanilla_attention_with_lse
+
+__all__ = [
+    "KERNEL_LAUNCHES",
+    "MIN_BLOCK",
+    "BlockSizes",
+    "auto_num_chunks",
+    "blocks_from_chunks",
+    "default_blocks",
+    "flash_attention",
+    "flash_attention_reference",
+    "flash_attention_with_lse",
+    "resolve_bwd_blocks",
+    "vanilla_attention",
+    "vanilla_attention_with_lse",
+]

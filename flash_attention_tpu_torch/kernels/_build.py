@@ -1,0 +1,94 @@
+"""Build and load the port's CUDA kernels.
+
+The `.cu` sources under `flash_attention_tpu_torch/csrc/` have a plain C
+interface.  They are compiled with `nvcc` for `sm_90a` into one shared
+library on first use, under `build/torch_kernels/`, named by a hash of the
+sources and flags so that an edited source is rebuilt, and loaded with
+ctypes.  Nothing here runs at import time: the CPU tests import the
+package on machines that have neither `nvcc` nor a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+from ..config import BUILD_DIR
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+]
+
+_lib: ctypes.CDLL | None = None
+# What the last build did: library path, seconds spent in nvcc (0.0 when the
+# library was already built), and the compiler's register/spill report.
+build_info: dict = {}
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")) + glob.glob(os.path.join(_CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels can only be built where the CUDA toolkit is installed")
+    return found
+
+
+def _library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libfa_torch_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels unless the library for these sources exists;
+    returns its path.  Raises with nvcc's output when compilation fails."""
+    path = _library_path()
+    if os.path.exists(path):
+        build_info.update(path=path, seconds=0.0)
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cus = [s for s in _sources() if s.endswith(".cu")]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus], capture_output=True, text=True
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+    build_info.update(path=path, seconds=seconds, ptxas=proc.stderr)
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.fa_flash_fwd.argtypes = [
+            p, p, p, p, p,  # q, k, v, o, lse
+            i, i, i, i, i, i, i,  # dtype, batch, hq, hkv, lq, lk, head_dim
+            ll, ll, ll, ll, ll, ll, ll, ll, ll, ll, ll, ll,  # q/k/v/o strides
+            ctypes.c_float, i, p,  # scale_log2, causal, stream
+        ]
+        lib.fa_flash_fwd.restype = i
+        _lib = lib
+    return _lib

@@ -1,0 +1,124 @@
+"""Block-size selection: the chunk counts of the attention tile loop.
+
+Port of `flash_attention_tpu/kernels/block_sizes.py`.  `BlockSizes`,
+`MIN_BLOCK`, `auto_num_chunks`, `blocks_from_chunks` and
+`resolve_bwd_blocks` are carried over exactly, so the chunk-count API means
+the same thing in both packages.  `default_blocks` is chosen afresh for
+Hopper: the TPU's 1024-row tiles were sized for many megabytes of VMEM,
+while an H100 block has at most 227 KB of shared memory and registers are
+the scarcer resource.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+MIN_BLOCK = 128
+MAX_BLOCK_Q = 1024
+MAX_BLOCK_KV = 1024
+
+# The CUDA forward kernel's tile (csrc/flash_fwd.cu): 64 query rows (four
+# warps of 16 rows for mma.sync) by 64 KV rows.  At D=128 in bf16 the Q, K
+# and V tiles take 3 x 64 x 136 x 2 = 52 KB of shared memory, which leaves
+# room for two or more blocks on an SM.
+KERNEL_BLOCK_Q = 64
+KERNEL_BLOCK_KV = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSizes:
+    """Static tiling configuration for the flash attention tile loop."""
+
+    block_q: int = 128
+    block_kv: int = 128
+    # Backward pass tiles (dKV iterates q inside kv; dQ the reverse).
+    block_q_dkv: int | None = None
+    block_kv_dkv: int | None = None
+    block_q_dq: int | None = None
+    block_kv_dq: int | None = None
+
+    _BWD_CAP = 512
+
+    def bwd_dkv(self) -> tuple[int, int]:
+        return (
+            self.block_q_dkv or min(self.block_q, self._BWD_CAP),
+            self.block_kv_dkv or min(self.block_kv, self._BWD_CAP),
+        )
+
+    def bwd_dq(self) -> tuple[int, int]:
+        return (
+            self.block_q_dq or min(self.block_q, self._BWD_CAP),
+            self.block_kv_dq or min(self.block_kv, self._BWD_CAP),
+        )
+
+
+def _clamp_pow2(x: int, lo: int, hi: int) -> int:
+    return max(lo, min(hi, x))
+
+
+def _divisor_block(padded_len: int, desired: int) -> int:
+    """Largest multiple of MIN_BLOCK that divides `padded_len` and is
+    <= `desired` (MIN_BLOCK itself is the floor)."""
+    best = MIN_BLOCK
+    b = MIN_BLOCK
+    cap = min(desired, padded_len)
+    while b <= cap:
+        if padded_len % b == 0:
+            best = b
+        b += MIN_BLOCK
+    return best
+
+
+def resolve_bwd_blocks(
+    blocks: BlockSizes, lq_padded: int, lk_padded: int
+) -> BlockSizes:
+    """Pin the backward block sizes to exact divisors of the padded lengths,
+    so that no backward grid drops tail rows."""
+    q_dkv, kv_dkv = blocks.bwd_dkv()
+    q_dq, kv_dq = blocks.bwd_dq()
+    return dataclasses.replace(
+        blocks,
+        block_q_dkv=_divisor_block(lq_padded, q_dkv),
+        block_kv_dkv=_divisor_block(lk_padded, kv_dkv),
+        block_q_dq=_divisor_block(lq_padded, q_dq),
+        block_kv_dq=_divisor_block(lk_padded, kv_dq),
+    )
+
+
+def auto_num_chunks(seq_len: int, head_dim: int) -> tuple[int, int]:
+    """Reference-parity auto-chunking heuristic:
+    num_chunks_q = 2^ceil(log2(max(L, D) // D) / 2),
+    num_chunks_kv = 2^floor(log2(max(L, D) // D) / 2),
+    so that a scores chunk has at most as many elements as Q."""
+    ratio = max(seq_len, head_dim) // head_dim
+    log2 = math.log2(ratio) if ratio > 0 else 0.0
+    return 2 ** math.ceil(log2 / 2), 2 ** math.floor(log2 / 2)
+
+
+def blocks_from_chunks(
+    q_len: int,
+    kv_len: int,
+    num_chunks_q: int,
+    num_chunks_kv: int,
+) -> BlockSizes:
+    """Map reference chunk counts to block sizes (block = L / chunks),
+    clamped to [MIN_BLOCK, MAX_BLOCK]."""
+    bq = _clamp_pow2(q_len // max(num_chunks_q, 1), MIN_BLOCK, MAX_BLOCK_Q)
+    bkv = _clamp_pow2(kv_len // max(num_chunks_kv, 1), MIN_BLOCK, MAX_BLOCK_KV)
+    return BlockSizes(block_q=bq, block_kv=bkv)
+
+
+def default_blocks(
+    q_len: int, kv_len: int, head_dim: int, group: int = 1
+) -> BlockSizes:
+    """Tiling of the Hopper forward kernel, which the plain tile loop
+    follows by default so that both skip the same blocks.
+
+    The tile is fixed at 64 x 64 for every supported head dim (64, 128)
+    and GQA group: the group's query heads run in separate thread blocks
+    that read the same KV head, so the group does not grow the tile as it
+    did on the TPU.  Arguments are taken for signature parity with the JAX
+    package."""
+    del q_len, kv_len, head_dim, group
+    return BlockSizes(block_q=KERNEL_BLOCK_Q, block_kv=KERNEL_BLOCK_KV)

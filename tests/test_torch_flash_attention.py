@@ -1,0 +1,145 @@
+"""Flash attention forward: the port's plain tile loop against the JAX
+package's Pallas kernel (interpret mode), same numpy inputs, fp32, 1e-5 for
+out and lse; the block-size functions against JAX's; the device routing.
+
+The CUDA kernel itself runs only on the card (`python3 chip_smoke.py`
+compares it there with `flash_attention_reference` and with vanilla)."""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import n, randn, t
+from flash_attention_tpu.kernels import block_sizes as jbs
+from flash_attention_tpu_torch import config
+from flash_attention_tpu_torch.kernels import block_sizes as tbs
+from flash_attention_tpu_torch.kernels.vanilla import vanilla_attention_with_lse
+
+# The packages' kernels/__init__ re-export functions named like the modules.
+jfa = importlib.import_module("flash_attention_tpu.kernels.flash_attention")
+tfa = importlib.import_module("flash_attention_tpu_torch.kernels.flash_attention")
+
+
+def _qkv(lq, lk, hq=4, hkv=2, d=16, b=1, seed=0):
+    return (
+        randn(seed, b, hq, lq, d),
+        randn(seed + 1, b, hkv, lk, d),
+        randn(seed + 2, b, hkv, lk, d),
+    )
+
+
+# (lq, lk, causal): lengths at and above MIN_BLOCK, ragged, below MIN_BLOCK
+# (the dense route on the CPU), queries shorter than KV, and non-causal.
+SHAPES = [
+    (128, 128, True),
+    (200, 200, True),
+    (384, 384, True),
+    (40, 40, True),
+    (128, 384, True),
+    (200, 200, False),
+]
+
+
+@pytest.mark.parametrize("lq,lk,causal", SHAPES)
+def test_flash_attention_matches_jax(lq, lk, causal):
+    q, k, v = _qkv(lq, lk)
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+    got = tfa.flash_attention(t(q), t(k), t(v), causal=causal)
+    np.testing.assert_allclose(n(got), n(want), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("lq,lk", [(128, 128), (200, 200), (40, 40), (128, 384)])
+def test_flash_attention_with_lse_matches_jax(lq, lk):
+    q, k, v = _qkv(lq, lk, seed=3)
+    jo, jl = jfa.flash_attention_with_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    to, tl = tfa.flash_attention_with_lse(t(q), t(k), t(v))
+    np.testing.assert_allclose(n(to), n(jo), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(n(tl), n(jl), atol=1e-5, rtol=0)
+
+
+def test_window_and_segments_match_jax():
+    """The plain version keeps the window and segment masks (the CUDA
+    kernel does not take them yet)."""
+    q, k, v = _qkv(200, 200, seed=6)
+    ids = np.repeat(np.arange(4, dtype=np.int32), 50)[None]
+    for kw_j, kw_t in (
+        (dict(window=70), dict(window=70)),
+        (dict(segment_ids=jnp.asarray(ids)), dict(segment_ids=t(ids))),
+    ):
+        want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw_j)
+        got = tfa.flash_attention(t(q), t(k), t(v), **kw_t)
+        np.testing.assert_allclose(n(got), n(want), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("block", [(64, 64), (128, 32), (32, 128)])
+def test_reference_tiling_does_not_change_result(block):
+    """Any tiling of the plain loop gives dense attention's out and lse."""
+    q, k, v = _qkv(150, 150, hq=2, hkv=1, seed=9)
+    bs = tbs.BlockSizes(block_q=block[0], block_kv=block[1])
+    out, lse = tfa.flash_attention_reference(t(q), t(k), t(v), block_sizes=bs)
+    kr, vr = (t(x).repeat_interleave(2, dim=1) for x in (k, v))
+    vo, vl = vanilla_attention_with_lse(t(q), kr, vr, sm_scale=16 ** -0.5)
+    np.testing.assert_allclose(n(out), n(vo), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(n(lse), n(vl), atol=1e-5, rtol=0)
+
+
+BLOCK_CASES = [
+    ("MIN_BLOCK", lambda m: m.MIN_BLOCK),
+    ("auto_num_chunks", lambda m: [m.auto_num_chunks(L, D) for L in (1, 64, 128, 1000, 4096, 65536) for D in (64, 128)]),
+    ("blocks_from_chunks", lambda m: [
+        m.blocks_from_chunks(lq, lk, cq, ck) for lq, lk, cq, ck in ((1024, 1024, 4, 2), (100, 5000, 1, 64), (65536, 65536, 64, 64))
+    ]),
+    ("resolve_bwd_blocks", lambda m: [
+        m.resolve_bwd_blocks(m.BlockSizes(block_q=bq, block_kv=bk), lqp, lkp)
+        for bq, bk, lqp, lkp in ((1024, 1024, 3072, 2048), (128, 640, 384, 1280), (512, 512, 512, 1536))
+    ]),
+    ("bwd_defaults", lambda m: [m.BlockSizes(1024, 256).bwd_dkv(), m.BlockSizes(1024, 256).bwd_dq(), m.BlockSizes()]),
+]
+
+
+@pytest.mark.parametrize("name,fn", BLOCK_CASES, ids=[c[0] for c in BLOCK_CASES])
+def test_block_sizes_match_jax(name, fn):
+    def norm(x):
+        if isinstance(x, list):
+            return [norm(y) for y in x]
+        if hasattr(x, "block_q"):
+            return (x.block_q, x.block_kv, x.bwd_dkv(), x.bwd_dq())
+        return x
+
+    assert norm(fn(tbs)) == norm(fn(jbs))
+
+
+def test_default_blocks_is_the_kernel_tile():
+    assert tbs.default_blocks(1024, 1024, 64) == tbs.BlockSizes(64, 64)
+    assert tbs.default_blocks(40, 384, 128, group=4) == tbs.BlockSizes(64, 64)
+
+
+def test_cpu_route_counts_no_kernel_launch():
+    q, k, v = _qkv(128, 128)
+    before = dict(tfa.KERNEL_LAUNCHES)
+    tfa.flash_attention(t(q), t(k), t(v))
+    tfa.flash_attention_with_lse(t(q), t(k), t(v))
+    assert tfa.KERNEL_LAUNCHES == before
+
+
+def test_routing_rejects_other_and_mixed_devices():
+    cpu = torch.zeros(1, 1, 8, 16)
+    meta = torch.zeros(1, 1, 8, 16, device="meta")
+    assert config.kernel_route(cpu, cpu) == "plain"
+    with pytest.raises(ValueError, match="unsupported or mixed"):
+        tfa.flash_attention(meta, meta, meta)
+    with pytest.raises(ValueError, match="unsupported or mixed"):
+        tfa.flash_attention_with_lse(cpu, meta, meta)
+
+
+def test_argument_errors_match_jax():
+    q, k, v = (t(x) for x in _qkv(40, 40))
+    with pytest.raises(ValueError, match="divisible"):
+        tfa.flash_attention(q[:, :3], k, v)
+    with pytest.raises(ValueError, match="requires causal"):
+        tfa.flash_attention(q, k, v, causal=False, window=4)
+    with pytest.raises(ValueError, match="k and v shapes"):
+        tfa.flash_attention(q, k, v[:, :, :20])
