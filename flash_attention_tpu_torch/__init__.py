@@ -3,10 +3,14 @@
 The JAX package `flash_attention_tpu` is the reference; this package keeps
 its module names.  Plain tensor code is PyTorch; each Pallas kernel on a
 ported path is a kernel written by hand for sm_90a (`csrc/`), built on
-first use.  This slice covers the GPT-2 serving path: flash-attention
-forward (prefill), einsum decode, sampling and the continuous-batching
-engine.
+first use.  Ported so far: the GPT-2 serving path (flash-attention
+forward, einsum decode, sampling, the continuous-batching engine) and the
+GPT-2 training path (flash-attention backward, dropout, remat, AdamW,
+checkpoints, the trainer and its demo), with the packed-QKV op and the
+SDPA drop-in.
 """
+
+import importlib
 
 from .kernels import (
     BlockSizes,
@@ -14,13 +18,37 @@ from .kernels import (
     flash_attention_with_lse,
     vanilla_attention,
 )
+from .ops import dot_product_attention, flash_attention_qkv_packed
 
 __version__ = "0.1.0"
 
+# Lazily importable subsystems (keeps `import flash_attention_tpu_torch`
+# light).
+_SUBMODULES = (
+    "kernels",
+    "ops",
+    "models",
+    "training",
+    "inference",
+    "data",
+    "utils",
+    "config",
+)
+
+
+def __getattr__(name: str):
+    if name in _SUBMODULES:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "BlockSizes",
+    "dot_product_attention",
     "flash_attention",
     "flash_attention_with_lse",
+    "flash_attention_qkv_packed",
     "vanilla_attention",
     "__version__",
+    *_SUBMODULES,
 ]

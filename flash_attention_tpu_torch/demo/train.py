@@ -1,0 +1,154 @@
+"""Char-level GPT training demo on the PyTorch/CUDA port.
+
+Port of the JAX package's `demo/train.py`: a shakespeare-char-class config
+with overrides, char tokenizer and random-crop batches, AdamW with 2-D-only
+decay and the warmup + cosine schedule, periodic eval, the flash-vs-dense
+switch, checkpoint/resume, and a short sample at the end.
+
+Run:  python -m flash_attention_tpu_torch.demo.train --max-iters 200 --data corpus.txt
+      python -m flash_attention_tpu_torch.demo.train --attention dense
+      python -m flash_attention_tpu_torch.demo.train --device cpu --max-iters 3
+
+`--device` defaults to cuda, which raises without a card.  Without --data a
+deterministic synthetic corpus is generated.  Not ported yet: --cp and
+--cp-zigzag (parallel slice), --profile (measurement slice), --plot;
+--compile-cache is XLA-only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import time
+
+import numpy as np
+import torch
+
+from ..config import resolve_device
+from ..data import CharTokenizer, batch_iterator, load_bin, synthetic_corpus
+from ..models import gpt
+from ..training import Trainer, TrainerConfig
+
+
+def train(**overrides):
+    """Programmatic entry point: train(**config_overrides) with the flags'
+    names (underscored).  Returns (trainer, history)."""
+    args = argparse.Namespace(**{**vars(default_args()), **overrides})
+    return _run(args)
+
+
+def default_args() -> argparse.Namespace:
+    return build_parser().parse_args([])
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--data", type=str, default=None, help="text corpus path, or a uint16 .bin")
+    p.add_argument("--out-dir", type=str, default="out-demo")
+    p.add_argument("--block-size", type=int, default=256)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--n-layer", type=int, default=6)
+    p.add_argument("--n-head", type=int, default=6)
+    p.add_argument("--n-embd", type=int, default=384)
+    p.add_argument("--dropout", type=float, default=0.2)
+    p.add_argument("--max-iters", type=int, default=2000)
+    p.add_argument("--eval-interval", type=int, default=250)
+    p.add_argument("--eval-iters", type=int, default=20)
+    p.add_argument("--learning-rate", type=float, default=3e-4)
+    p.add_argument("--attention", choices=["flash", "dense"], default="flash")
+    p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16")
+    p.add_argument(
+        "--vocab-size", type=int, default=None,
+        help=".bin corpora: vocab size (skips the full-mmap max() scan and covers ids absent from the data)",
+    )
+    p.add_argument("--remat", action="store_true", help="recompute each block in the backward pass")
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--resume", action="store_true", help="continue from the latest step_* checkpoint under --out-dir")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", type=str, default="cuda", help="cuda (default; raises without a card) or cpu")
+    return p
+
+
+def _run(args: argparse.Namespace):
+    device = resolve_device(args.device)
+    text = tok = None
+    if args.data and args.data.endswith(".bin"):
+        # pre-tokenized uint16 corpus, memory-mapped; no tokenizer, no sample
+        data = load_bin(args.data)
+        vocab = args.vocab_size or int(data.max()) + 1
+        print(f"corpus: {len(data)} tokens (mmap), vocab {vocab}")
+    else:
+        if args.data:
+            text = pathlib.Path(args.data).read_text()
+        else:
+            print("no --data given; using synthetic corpus")
+            text = synthetic_corpus()
+        tok = CharTokenizer(text)
+        data = tok.encode(text)
+        vocab = tok.vocab_size
+        print(f"corpus: {len(data)} tokens, vocab {vocab}")
+    split = int(0.9 * len(data))
+    train_data, val_data = data[:split], data[split:]
+
+    cfg = gpt.GPTConfig(
+        vocab_size=max(vocab, 8),
+        block_size=args.block_size,
+        n_layer=args.n_layer,
+        n_head=args.n_head,
+        n_embd=args.n_embd,
+        dropout=args.dropout,
+        dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
+        use_flash=args.attention == "flash",
+        remat=args.remat,
+    )
+    outdir = pathlib.Path(args.out_dir)
+    tcfg = TrainerConfig(
+        max_iters=args.max_iters,
+        eval_interval=args.eval_interval,
+        eval_iters=args.eval_iters,
+        learning_rate=args.learning_rate,
+        checkpoint_every=args.checkpoint_every,
+        checkpoint_dir=str(outdir) if args.checkpoint_every else None,
+    )
+    trainer = Trainer(cfg, tcfg, seed=args.seed, device=device)
+    print(f"model: {gpt.num_params(trainer.model) / 1e6:.2f}M params, attention={args.attention}, device={device}")
+    if args.resume:
+        step = trainer.resume(str(outdir))
+        if step is None:
+            print(f"--resume: no step_* checkpoint under {outdir}; starting fresh")
+        else:
+            print(f"resumed from step {step}")
+
+    train_iter = batch_iterator(train_data, args.batch_size, cfg.block_size, seed=args.seed, device=device)
+    for _ in range(trainer.step):
+        # skip the batches the pre-checkpoint run consumed, so the resumed
+        # run sees the same data sequence as an uninterrupted one
+        next(train_iter)
+
+    def val_batches():
+        return batch_iterator(val_data, args.batch_size, cfg.block_size, seed=1234, device=device)
+
+    start_step = trainer.step
+    t0 = time.time()
+    history = trainer.fit(train_iter, val_batches=val_batches)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.time() - t0
+    tokens = (args.max_iters - start_step) * args.batch_size * cfg.block_size
+    print(f"done: {wall:.1f}s, {tokens / wall:.0f} tokens/s")
+
+    outdir.mkdir(parents=True, exist_ok=True)
+    (outdir / "history.json").write_text(json.dumps(history, indent=1))
+    if tok is not None:
+        start = torch.as_tensor(tok.encode(text[:8])[None, :].astype(np.int64), device=device)
+        sample_ids = gpt.generate(
+            trainer.model, start, max_new_tokens=100, temperature=0.8, top_k=20,
+            generator=torch.Generator(device=device).manual_seed(42),
+        )
+        print("sample:", tok.decode(sample_ids[0].cpu().numpy().astype(np.uint16)))
+    return trainer, history
+
+
+if __name__ == "__main__":
+    _run(build_parser().parse_args())

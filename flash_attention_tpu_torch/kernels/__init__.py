@@ -12,6 +12,7 @@ from .block_sizes import (
 from .flash_attention import (
     KERNEL_LAUNCHES,
     flash_attention,
+    flash_attention_bwd_reference,
     flash_attention_reference,
     flash_attention_with_lse,
 )
@@ -25,6 +26,7 @@ __all__ = [
     "blocks_from_chunks",
     "default_blocks",
     "flash_attention",
+    "flash_attention_bwd_reference",
     "flash_attention_reference",
     "flash_attention_with_lse",
     "resolve_bwd_blocks",

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 The `.cu` sources under `flash_attention_tpu_torch/csrc/` have a plain C
-interface.  They are compiled with `nvcc` for `sm_90a` into one shared
-library on first use, under `build/torch_kernels/`, named by a hash of the
-sources and flags so that an edited source is rebuilt, and loaded with
+interface.  On first use each is compiled with `nvcc` for `sm_90a` into an
+object file, all of them at once in parallel, and the objects are linked
+into one shared library under `build/torch_kernels/`, named by a hash of
+the sources and flags so that an edited source is rebuilt, and loaded with
 ctypes.  Nothing here runs at import time: the CPU tests import the
 package on machines that have neither `nvcc` nor a card.
 """
@@ -24,7 +25,7 @@ from ..config import BUILD_DIR
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
 _lib: ctypes.CDLL | None = None
@@ -61,19 +62,29 @@ def build() -> str:
         build_info.update(path=path, seconds=0.0)
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     cus = [s for s in _sources() if s.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus], capture_output=True, text=True
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-    build_info.update(path=path, seconds=seconds, ptxas=proc.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        t0 = time.perf_counter()
+        objs = [os.path.join(tmpdir, os.path.basename(cu) + ".o") for cu in cus]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, cu],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for cu, obj in zip(cus, objs)
+        ]
+        outs = [proc.communicate() for proc in procs]
+        for cu, proc, (out, err) in zip(cus, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(cu)} ({proc.returncode}):\n{out}\n{err}")
+        so = os.path.join(tmpdir, "lib.so")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+        seconds = time.perf_counter() - t0
+        os.replace(so, path)  # atomic: a concurrent loader sees all or nothing
+    build_info.update(path=path, seconds=seconds, ptxas="".join(err for _, err in outs))
     return path
 
 
@@ -83,12 +94,23 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        f = ctypes.c_float
         lib.fa_flash_fwd.argtypes = [
-            p, p, p, p, p,  # q, k, v, o, lse
+            p, p, p, p, p, p, p,  # q, k, v, o, lse, q_ids, kv_ids
             i, i, i, i, i, i, i,  # dtype, batch, hq, hkv, lq, lk, head_dim
             ll, ll, ll, ll, ll, ll, ll, ll, ll, ll, ll, ll,  # q/k/v/o strides
-            ctypes.c_float, i, p,  # scale_log2, causal, stream
+            f, i, i, p,  # scale_log2, causal, window, stream
         ]
         lib.fa_flash_fwd.restype = i
+        bwd_tail = [
+            i, i, i, i, i, i, i,  # dtype, batch, hq, hkv, lq, lk, head_dim
+            ctypes.POINTER(ll),  # 21 strides: q, k, v, dout, dq, dk, dv
+            f, f, i, i, p,  # scale, scale_log2, causal, window, stream
+        ]
+        # q, k, v, dout, lse, di, q_ids, kv_ids, then dk, dv / dq
+        lib.fa_flash_bwd_dkv.argtypes = [p] * 10 + bwd_tail
+        lib.fa_flash_bwd_dkv.restype = i
+        lib.fa_flash_bwd_dq.argtypes = [p] * 9 + bwd_tail
+        lib.fa_flash_bwd_dq.restype = i
         _lib = lib
     return _lib

@@ -1,16 +1,25 @@
-"""Flash attention forward: the Hopper kernel's wrapper and its plain version.
+"""Flash attention: the Hopper kernels' wrappers, their autograd Functions
+and their plain versions.
 
-Port of `flash_attention_tpu/kernels/flash_attention.py` (forward only).
-`flash_attention` and `flash_attention_with_lse` look at the device of
-their inputs (`config.kernel_route`):
+Port of `flash_attention_tpu/kernels/flash_attention.py`.  `flash_attention`
+and `flash_attention_with_lse` look at the device of their inputs
+(`config.kernel_route`):
 
-* CUDA tensors go to the hand-written kernel in `csrc/flash_fwd.cu`, for
-  every sequence length.  What the kernel does not take yet (sliding
-  window, segment ids, inputs that require grad) raises
-  `NotImplementedError`; nothing falls back.
-* CPU tensors go to `flash_attention_reference`, a blockwise tile loop in
-  plain PyTorch with the kernel's masks, block-skip bounds and lse.  Below
-  `MIN_BLOCK` the CPU route takes dense attention, as the JAX package does.
+* CUDA tensors go to the hand-written kernels, for every sequence length:
+  the forward in `csrc/flash_fwd.cu` (K1) and, for inputs that require
+  grad, the backward in `csrc/flash_bwd.cu` (K2 dK/dV, K3 dQ).  Nothing
+  falls back: what the kernels do not take raises.
+* CPU tensors go to the plain versions: `flash_attention_reference` (a tile
+  loop with the forward kernel's masks, block-skip bounds and lse) and
+  `flash_attention_bwd_reference` (the same for the backward).  Below
+  `MIN_BLOCK` the CPU route takes dense attention, differentiated by
+  autograd, as the JAX package does.
+
+The three `torch.autograd.Function`s mirror the JAX package's three
+`custom_vjp`s: plain (`_flash`), lse-differentiable (`_flash_lse`, whose
+backward shifts di by the lse cotangent) and segmented (`_flash_seg`, no
+grad for the ids).  Each forward saves (q, k, v, o, lse); di = rowsum(o *
+dO) is computed in fp32 outside the kernels, as JAX does.
 
 Layout at the public functions is the JAX package's: q [B, Hq, Lq, D],
 k/v [B, Hkv, Lkv, D] with Hq % Hkv == 0 (GQA), queries aligned to the end
@@ -19,17 +28,22 @@ of KV under the causal mask.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import math
 
 import torch
 
 from ..config import kernel_route
-from .block_sizes import MIN_BLOCK, BlockSizes, default_blocks
+from .block_sizes import MIN_BLOCK, BlockSizes, blocks_from_chunks, default_blocks
 from .vanilla import vanilla_attention
 
 __all__ = [
     "KERNEL_LAUNCHES",
     "flash_attention",
+    "flash_attention_bwd_dkv_reference",
+    "flash_attention_bwd_dq_reference",
+    "flash_attention_bwd_reference",
     "flash_attention_reference",
     "flash_attention_with_lse",
 ]
@@ -41,7 +55,17 @@ SUPPORTED_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # Launches of each CUDA kernel, counted by its wrapper where it launches.
-KERNEL_LAUNCHES = {"flash_fwd": 0}
+KERNEL_LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Spec:
+    """What the kernels compute besides their tensors (JAX's `_Params`)."""
+
+    causal: bool
+    sm_scale: float
+    window: int | None
+    blocks: BlockSizes
 
 
 def _shapes(q, k, v):
@@ -56,6 +80,45 @@ def _shapes(q, k, v):
     if hq % hkv != 0:
         raise ValueError(f"num_q_heads ({hq}) must be divisible by num_kv_heads ({hkv})")
     return b, hq, hkv, lq, lk, d
+
+
+def _tile_mask(i0, i1, c0, c1, lq, lk, causal, window, segment_ids, device):
+    """Bool mask of the (q rows [i0, i1)) x (KV columns [c0, c1)) tile,
+    broadcastable to [B, Hkv, G, rows, cols]: `_mask_for_block` and
+    `_seg_mask` of the JAX package."""
+    rows = torch.arange(i0, i1, device=device)[:, None]
+    cols = torch.arange(c0, c1, device=device)[None, :]
+    ok = torch.ones(i1 - i0, c1 - c0, dtype=torch.bool, device=device)
+    if causal:
+        offset = lk - lq
+        ok = ok & (cols <= rows + offset)
+        if window is not None:
+            ok = ok & (cols >= rows + offset - (window - 1))
+    if segment_ids is not None:
+        q_ids, kv_ids = segment_ids
+        seg = q_ids[:, i0:i1, None] == kv_ids[:, None, c0:c1]
+        ok = ok & seg[:, None, None]
+    return ok
+
+
+def _kv_range(i0, i1, lq, lk, bkv, causal, window):
+    """KV tiles (as column starts) that the q rows [i0, i1) reach: the
+    forward's and dQ's loop bounds (`_causal_cells_qmajor`)."""
+    offset = lk - lq
+    kv_end = min(lk, i1 + offset) if causal else lk
+    j0 = max(0, i0 + offset - (window - 1)) // bkv if causal and window is not None else 0
+    return range(j0 * bkv, kv_end, bkv) if kv_end > 0 else range(0)
+
+
+def _q_range(c0, c1, lq, lk, bq, causal, window):
+    """q tiles (as row starts) that reach the KV columns [c0, c1): dK/dV's
+    loop bounds (`_causal_cells_kvmajor`)."""
+    if not causal:
+        return range(0, lq, bq)
+    offset = lk - lq
+    i0 = max(c0 - offset, 0) // bq
+    end = lq if window is None else min(lq, c1 - 1 - offset + window)
+    return range(i0 * bq, end, bq)
 
 
 def flash_attention_reference(
@@ -90,32 +153,16 @@ def flash_attention_reference(
     vf = v[:, :, None]
     out = torch.empty(b, hkv, group, lq, d, dtype=torch.float32, device=q.device)
     lse = torch.empty(b, hkv, group, lq, dtype=torch.float32, device=q.device)
-    offset = lk - lq
     for i0 in range(0, lq, bq):
         i1 = min(i0 + bq, lq)
-        rows = torch.arange(i0, i1, device=q.device)[:, None]
-        kv_end = min(lk, i1 + offset) if causal else lk
-        j0 = 0
-        if causal and window is not None:
-            j0 = max(0, i0 + offset - (window - 1)) // bkv
-        n_tiles = (kv_end + bkv - 1) // bkv if kv_end > 0 else 0
         shape = (b, hkv, group, i1 - i0, 1)
         m = torch.full(shape, -math.inf, device=q.device)
         l = torch.zeros(shape, device=q.device)
         acc = torch.zeros(b, hkv, group, i1 - i0, d, device=q.device)
-        for j in range(j0, n_tiles):
-            c0, c1 = j * bkv, min((j + 1) * bkv, lk)
+        for c0 in _kv_range(i0, i1, lq, lk, bkv, causal, window):
+            c1 = min(c0 + bkv, lk)
             s = torch.matmul(qs[..., i0:i1, :], kf[..., c0:c1, :].transpose(-1, -2))
-            cols = torch.arange(c0, c1, device=q.device)[None, :]
-            ok = torch.ones(i1 - i0, c1 - c0, dtype=torch.bool, device=q.device)
-            if causal:
-                ok = ok & (cols <= rows + offset)
-                if window is not None:
-                    ok = ok & (cols >= rows + offset - (window - 1))
-            if segment_ids is not None:
-                q_ids, kv_ids = segment_ids
-                seg = q_ids[:, i0:i1, None] == kv_ids[:, None, c0:c1]
-                ok = ok & seg[:, None, None]
+            ok = _tile_mask(i0, i1, c0, c1, lq, lk, causal, window, segment_ids, q.device)
             s = torch.where(ok, s, -math.inf)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             base = torch.where(m_new == -math.inf, 0.0, m_new)
@@ -128,6 +175,122 @@ def flash_attention_reference(
         out[..., i0:i1, :] = acc / l_safe
         lse[..., i0:i1] = ((m + torch.log2(l_safe)) * _LN2)[..., 0]
     return out.reshape(b, hq, lq, d).to(q.dtype), lse.reshape(b, hq, lq)
+
+
+def _bwd_operands(q, k, v, o, lse, do, dlse, causal, sm_scale, window, segment_ids, block_sizes):
+    """What both plain backward loops read: the tiling and a function of a
+    (q rows, KV columns) tile giving (P, dS) in fp32, shaped [B, Hkv, G,
+    rows, cols], with the kernels' roundings and P = 0 where masked."""
+    b, hq, hkv, lq, lk, d = _shapes(q, k, v)
+    group = hq // hkv
+    if sm_scale is None:
+        sm_scale = float(d) ** -0.5
+    blocks = block_sizes or default_blocks(lq, lk, d, group)
+
+    def grouped(x):
+        return x.reshape(b, hkv, group, *x.shape[2:])
+
+    di = (o.float() * do.float()).sum(-1)
+    if dlse is not None:
+        di = di - dlse.float()
+    qs = grouped((q.float() * (sm_scale * _LOG2E)).to(q.dtype).float())
+    kf = k.float()[:, :, None]
+    vf = v.float()[:, :, None]
+    dof = grouped(do.float())
+    lse2 = grouped(lse.float() * _LOG2E)[..., None]
+    di = grouped(di)[..., None]
+
+    def p_and_ds(i0, i1, c0, c1):
+        s = torch.matmul(qs[..., i0:i1, :], kf[..., c0:c1, :].transpose(-1, -2))
+        ok = _tile_mask(i0, i1, c0, c1, lq, lk, causal, window, segment_ids, q.device)
+        p = torch.where(ok, torch.exp2(s - lse2[..., i0:i1, :]), 0.0)
+        dp = torch.matmul(dof[..., i0:i1, :], vf[..., c0:c1, :].transpose(-1, -2))
+        return p, p * (dp - di[..., i0:i1, :])
+
+    return blocks, sm_scale, grouped, dof, p_and_ds
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, o, lse, do, *, dlse=None, causal=True, sm_scale=None,
+                                      window=None, segment_ids=None, block_sizes=None):
+    """Plain version of K2 (`_dkv_kernel`): (dk, dv).  Arguments as in
+    `flash_attention_bwd_reference`."""
+    b, hq, hkv, lq, lk, d = _shapes(q, k, v)
+    blocks, sm_scale, grouped, dof, p_and_ds = _bwd_operands(
+        q, k, v, o, lse, do, dlse, causal, sm_scale, window, segment_ids, block_sizes
+    )
+    qk = grouped((q.float() * sm_scale).to(q.dtype).float())
+    dk = torch.zeros(b, hkv, lk, d, device=q.device)
+    dv = torch.zeros(b, hkv, lk, d, device=q.device)
+    bq, bkv = blocks.bwd_dkv()
+    for c0 in range(0, lk, bkv):
+        c1 = min(c0 + bkv, lk)
+        for i0 in _q_range(c0, c1, lq, lk, bq, causal, window):
+            i1 = min(i0 + bq, lq)
+            p, ds = p_and_ds(i0, i1, c0, c1)
+            pt = p.to(do.dtype).float().transpose(-1, -2)
+            dv[..., c0:c1, :] += torch.matmul(pt, dof[..., i0:i1, :]).sum(2)
+            dst = ds.to(q.dtype).float().transpose(-1, -2)
+            dk[..., c0:c1, :] += torch.matmul(dst, qk[..., i0:i1, :]).sum(2)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_dq_reference(q, k, v, o, lse, do, *, dlse=None, causal=True, sm_scale=None,
+                                     window=None, segment_ids=None, block_sizes=None):
+    """Plain version of K3 (`_dq_kernel`): dq.  Arguments as in
+    `flash_attention_bwd_reference`."""
+    b, hq, hkv, lq, lk, d = _shapes(q, k, v)
+    blocks, sm_scale, _, _, p_and_ds = _bwd_operands(
+        q, k, v, o, lse, do, dlse, causal, sm_scale, window, segment_ids, block_sizes
+    )
+    ks = (k.float() * sm_scale).to(k.dtype).float()[:, :, None]
+    dq = torch.zeros(b, hkv, hq // hkv, lq, d, device=q.device)
+    bq, bkv = blocks.bwd_dq()
+    for i0 in range(0, lq, bq):
+        i1 = min(i0 + bq, lq)
+        for c0 in _kv_range(i0, i1, lq, lk, bkv, causal, window):
+            c1 = min(c0 + bkv, lk)
+            _, ds = p_and_ds(i0, i1, c0, c1)
+            dq[..., i0:i1, :] += torch.matmul(ds.to(k.dtype).float(), ks[..., c0:c1, :])
+    return dq.reshape(b, hq, lq, d).to(q.dtype)
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    dlse: torch.Tensor | None = None,
+    causal: bool = True,
+    sm_scale: float | None = None,
+    window: int | None = None,
+    segment_ids: tuple[torch.Tensor, torch.Tensor] | None = None,
+    block_sizes: BlockSizes | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernels: (dq, dk, dv).
+
+    Tile loops with the kernels' arithmetic (`_recompute_p`, `_dkv_kernel`,
+    `_dq_kernel` of the JAX package): di = rowsum(o * do) - dlse in fp32;
+    P = exp2(qs K^T - lse * log2 e) with qs rounded to q's dtype, and P = 0
+    where masked, so a row that sees no key (lse = -inf) gives no NaN;
+    dV += P^T dO with P rounded to dO's dtype; dS = P (dO V^T - di);
+    dK += dS^T (q * scale) and dQ += dS (k * scale), dS and the scaled
+    operands rounded to their dtype; sums in fp32.  dK/dV walk the q tiles
+    that reach each KV tile, dQ the KV tiles each q tile reaches, in
+    `block_sizes.bwd_dkv()` / `bwd_dq()` tiles (default the kernels' 64).
+    The GQA group's rows sum into their KV head.
+    """
+    kw = dict(dlse=dlse, causal=causal, sm_scale=sm_scale, window=window, segment_ids=segment_ids,
+              block_sizes=block_sizes)
+    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, o, lse, do, **kw)
+    return flash_attention_bwd_dq_reference(q, k, v, o, lse, do, **kw), dk, dv
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -143,29 +306,28 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
-def _reject_unported(q, k, v, window, segment_ids) -> None:
-    if window is not None:
-        raise NotImplementedError("sliding window on CUDA comes with a later port PR (CPU tensors support it)")
-    if segment_ids is not None:
-        raise NotImplementedError("segment ids on CUDA come with a later port PR (CPU tensors support them)")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            "flash attention backward on CUDA (kernels K2/K3) comes with the training port PR; "
-            "call under torch.no_grad()"
+def _check_kernel_inputs(*ts: torch.Tensor) -> None:
+    dtype, d = ts[0].dtype, ts[0].shape[-1]
+    if dtype not in _DTYPE_CODES or any(t.dtype != dtype for t in ts):
+        raise TypeError(
+            f"the flash kernels take float32/bfloat16/float16 inputs of one dtype, got {[t.dtype for t in ts]}"
         )
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise NotImplementedError(f"the flash kernels are built for head dims {SUPPORTED_HEAD_DIMS}, got {d}")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"inputs on different devices: {[str(t.device) for t in ts]}")
 
 
-def _launch(q, k, v, causal: bool, sm_scale: float, need_lse: bool):
+def _ids_ptrs(segs):
+    return (segs[0].data_ptr(), segs[1].data_ptr()) if segs is not None else (None, None)
+
+
+def _launch(q, k, v, spec: _Spec, segs, need_lse: bool):
     """Run csrc/flash_fwd.cu on CUDA tensors: (out, lse or None)."""
     from ._build import library
 
     b, hq, hkv, lq, lk, d = _shapes(q, k, v)
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_fwd takes float32/bfloat16/float16 q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise NotImplementedError(f"flash_fwd is built for head dims {SUPPORTED_HEAD_DIMS}, got {d}")
-    if not (q.device == k.device == v.device):
-        raise ValueError(f"q/k/v on different devices: {q.device}, {k.device}, {v.device}")
+    _check_kernel_inputs(q, k, v)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     # [B, Lq, Hq, D] memory: the caller's transpose back to [B, Lq, Hq*D]
     # is then a free view.
@@ -174,10 +336,11 @@ def _launch(q, k, v, causal: bool, sm_scale: float, need_lse: bool):
     with torch.cuda.device(q.device):
         err = library().fa_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if lse is not None else None,
+            lse.data_ptr() if lse is not None else None, *_ids_ptrs(segs),
             _DTYPE_CODES[q.dtype], b, hq, hkv, lq, lk, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            sm_scale * _LOG2E, int(causal), torch.cuda.current_stream(q.device).cuda_stream,
+            spec.sm_scale * _LOG2E, int(spec.causal), spec.window or 0,
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed with cudaError {err}")
@@ -185,17 +348,168 @@ def _launch(q, k, v, causal: bool, sm_scale: float, need_lse: bool):
     return out, lse
 
 
-def _segments(segment_ids, b: int, lq: int, lk: int):
+def _bwd_args(q, k, v, o, lse, do, dlse, spec: _Spec, segs):
+    """The backward kernels' common arguments (one dict per call, shared
+    by K2 and K3): inputs read through their strides, di = rowsum(o * dO)
+    - dlse in fp32, and outputs in [B, L, H, D] memory, as the forward's
+    output, so that the grads of the fused projection's q/k/v views are
+    free views too."""
+    b, hq, hkv, lq, lk, d = _shapes(q, k, v)
+    _check_kernel_inputs(q, k, v, do)
+    di = (o.float() * do.float()).sum(-1)
+    if dlse is not None:
+        di = di - dlse.float()
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
+    dq = torch.empty(b, lq, hq, d, dtype=q.dtype, device=q.device).transpose(1, 2)
+    dk = torch.empty(b, lk, hkv, d, dtype=k.dtype, device=q.device).transpose(1, 2)
+    dv = torch.empty(b, lk, hkv, d, dtype=v.dtype, device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 21)(*(s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]))
+    # keep every tensor whose pointer the kernels read alive in the dict
+    return dict(
+        tensors=(q, k, v, do, lse.contiguous(), di.contiguous()), segs=segs, dq=dq, dk=dk, dv=dv,
+        tail=(_DTYPE_CODES[q.dtype], b, hq, hkv, lq, lk, d, strides, spec.sm_scale, spec.sm_scale * _LOG2E,
+              int(spec.causal), spec.window or 0),
+    )
+
+
+def _bwd_launch(name: str, args: dict, outs: tuple[torch.Tensor, ...]) -> None:
+    from ._build import library
+
+    ins = [*(t.data_ptr() for t in args["tensors"]), *_ids_ptrs(args["segs"])]
+    q = args["tensors"][0]
+    with torch.cuda.device(q.device):
+        err = getattr(library(), f"fa_{name}")(
+            *ins, *(t.data_ptr() for t in outs), *args["tail"], torch.cuda.current_stream(q.device).cuda_stream
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with cudaError {err}")
+    KERNEL_LAUNCHES[name] += 1
+
+
+def _launch_bwd_dkv(args: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run K2 (csrc/flash_bwd.cu, fa_flash_bwd_dkv): (dk, dv)."""
+    _bwd_launch("flash_bwd_dkv", args, (args["dk"], args["dv"]))
+    return args["dk"], args["dv"]
+
+
+def _launch_bwd_dq(args: dict) -> torch.Tensor:
+    """Run K3 (csrc/flash_bwd.cu, fa_flash_bwd_dq): dq."""
+    _bwd_launch("flash_bwd_dq", args, (args["dq"],))
+    return args["dq"]
+
+
+def _launch_bwd(q, k, v, o, lse, do, dlse, spec: _Spec, segs):
+    """The CUDA backward, K2 then K3: (dq, dk, dv)."""
+    args = _bwd_args(q, k, v, o, lse, do, dlse, spec, segs)
+    dk, dv = _launch_bwd_dkv(args)
+    return _launch_bwd_dq(args), dk, dv
+
+
+# ---------------------------------------------------------------------------
+# autograd Functions (the JAX package's custom_vjp glue)
+# ---------------------------------------------------------------------------
+
+
+def _forward(q, k, v, spec: _Spec, segs, need_lse: bool):
+    if kernel_route(q, k, v) == "cuda":
+        return _launch(q, k, v, spec, segs, need_lse)
+    return flash_attention_reference(
+        q, k, v, causal=spec.causal, sm_scale=spec.sm_scale, window=spec.window,
+        segment_ids=segs, block_sizes=spec.blocks,
+    )
+
+
+def _backward(ctx, do, dlse, segs):
+    q, k, v, o, lse = ctx.saved_tensors[:5]
+    spec = ctx.spec
+    if kernel_route(q, k, v, do) == "cuda":
+        return _launch_bwd(q, k, v, o, lse, do, dlse, spec, segs)
+    return flash_attention_bwd_reference(
+        q, k, v, o, lse, do, dlse=dlse, causal=spec.causal, sm_scale=spec.sm_scale,
+        window=spec.window, segment_ids=segs, block_sizes=spec.blocks,
+    )
+
+
+class _Flash(torch.autograd.Function):
+    """Plain variant (`_flash`): out."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, spec):
+        o, lse = _forward(q, k, v, spec, None, need_lse=True)
+        ctx.spec = spec
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        return (*_backward(ctx, do, None, None), None)
+
+
+class _FlashLse(torch.autograd.Function):
+    """lse-differentiable variant (`_flash_lse`): (out, lse).  d lse / d s
+    is softmax(s) = P, so the lse cotangent folds into the kernels as
+    di -> di - dlse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, spec):
+        o, lse = _forward(q, k, v, spec, None, need_lse=True)
+        ctx.spec = spec
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        return (*_backward(ctx, do, dlse, None), None)
+
+
+class _FlashSeg(torch.autograd.Function):
+    """Segmented variant (`_flash_seg`): out; the ids take no grad."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_ids, kv_ids, spec):
+        o, lse = _forward(q, k, v, spec, (q_ids, kv_ids), need_lse=True)
+        ctx.spec = spec
+        ctx.save_for_backward(q, k, v, o, lse, q_ids, kv_ids)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        segs = tuple(ctx.saved_tensors[5:])
+        return (*_backward(ctx, do, None, segs), None, None, None)
+
+
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+
+def _segments(segment_ids, b: int, lq: int, lk: int, device):
     if isinstance(segment_ids, (tuple, list)):
         q_ids, kv_ids = segment_ids
     else:
         q_ids = kv_ids = segment_ids
-    q_ids, kv_ids = torch.as_tensor(q_ids), torch.as_tensor(kv_ids)
+    q_ids = torch.as_tensor(q_ids, device=device).to(torch.int32).contiguous()
+    kv_ids = torch.as_tensor(kv_ids, device=device).to(torch.int32).contiguous()
     if tuple(q_ids.shape) != (b, lq) or tuple(kv_ids.shape) != (b, lk):
         raise ValueError(
             f"segment_ids shapes {tuple(q_ids.shape)}/{tuple(kv_ids.shape)} must be ({b}, {lq}) / ({b}, {lk})"
         )
     return q_ids, kv_ids
+
+
+def _blocks(lq, lk, d, group, block_sizes, num_chunks_q, num_chunks_kv) -> BlockSizes:
+    """The tiling of the plain versions, chosen as the JAX package chooses
+    it: explicit block_sizes, else the chunk counts (`blocks_from_chunks`),
+    else the kernels' own tile."""
+    if block_sizes is not None:
+        return block_sizes
+    if num_chunks_q is not None or num_chunks_kv is not None:
+        return blocks_from_chunks(lq, lk, num_chunks_q or 1, num_chunks_kv or 1)
+    return default_blocks(lq, lk, d, group)
 
 
 def flash_attention(
@@ -207,8 +521,11 @@ def flash_attention(
     sm_scale: float | None = None,
     window: int | None = None,
     segment_ids=None,
+    block_sizes: BlockSizes | None = None,
+    num_chunks_q: int | None = None,
+    num_chunks_kv: int | None = None,
 ) -> torch.Tensor:
-    """Memory-efficient attention, forward.
+    """Memory-efficient (flash) attention, differentiable.
 
     Args:
       q: [batch, num_q_heads, q_len, head_dim].
@@ -217,9 +534,15 @@ def flash_attention(
       causal: causal mask with queries aligned to the end of kv.
       sm_scale: softmax scale; default 1/sqrt(head_dim).
       window: attend only to the last `window` positions, self included.
-        Requires causal.  CPU tensors only in this version.
+        Requires causal.
       segment_ids: an int tensor [batch, seq] or a (q_ids, kv_ids) pair;
-        tokens attend only within their segment.  CPU tensors only.
+        tokens attend only within their segment.
+      block_sizes: explicit tiling; overrides num_chunks_*.
+      num_chunks_q / num_chunks_kv: reference-style chunk counts mapped to
+        block sizes (`blocks_from_chunks`).
+      The tiling sets the tiles of the plain versions (CPU tensors).  The
+      CUDA kernels keep their own 64 x 64 tile whatever is passed, which
+      changes only the order of summation.
 
     Returns [batch, num_q_heads, q_len, head_dim] in q's dtype.  On CUDA,
     float32, bfloat16 and float16 run natively, at head dims 64 and 128.
@@ -234,20 +557,21 @@ def flash_attention(
             raise ValueError(f"window must be >= 1, got {window}")
         if window >= lk:
             window = None  # no window constraint binds
-    segs = _segments(segment_ids, b, lq, lk) if segment_ids is not None else None
-    if kernel_route(q, k, v) == "cuda":
-        _reject_unported(q, k, v, window, segs)
-        return _launch(q, k, v, causal, sm_scale, need_lse=False)[0]
-    if lq < MIN_BLOCK or lk < MIN_BLOCK:
+    segs = _segments(segment_ids, b, lq, lk, q.device) if segment_ids is not None else None
+    if kernel_route(q, k, v) == "plain" and (lq < MIN_BLOCK or lk < MIN_BLOCK):
         group = hq // hkv
         k_r = k.repeat_interleave(group, dim=1) if group > 1 else k
         v_r = v.repeat_interleave(group, dim=1) if group > 1 else v
         return vanilla_attention(
             q, k_r, v_r, causal=causal, sm_scale=sm_scale, window=window, segment_ids=segs
         )
-    return flash_attention_reference(
-        q, k, v, causal=causal, sm_scale=sm_scale, window=window, segment_ids=segs
-    )[0]
+    blocks = _blocks(lq, lk, d, hq // hkv, block_sizes, num_chunks_q, num_chunks_kv)
+    spec = _Spec(causal, float(sm_scale), window, blocks)
+    if not _needs_grad(q, k, v):
+        return _forward(q, k, v, spec, segs, need_lse=False)[0]
+    if segs is not None:
+        return _FlashSeg.apply(q, k, v, *segs, spec)
+    return _Flash.apply(q, k, v, spec)
 
 
 def flash_attention_with_lse(
@@ -257,13 +581,15 @@ def flash_attention_with_lse(
     *,
     causal: bool = True,
     sm_scale: float | None = None,
+    block_sizes: BlockSizes | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Flash attention returning (out, logsumexp [batch, num_q_heads, q_len],
-    fp32, natural log).  Forward only in this version."""
-    d = q.shape[-1]
+    """Flash attention returning (out, logsumexp [batch, num_q_heads,
+    q_len], fp32, natural log), differentiable in both."""
+    b, hq, hkv, lq, lk, d = _shapes(q, k, v)
     if sm_scale is None:
         sm_scale = float(d) ** -0.5
-    if kernel_route(q, k, v) == "cuda":
-        _reject_unported(q, k, v, None, None)
-        return _launch(q, k, v, causal, sm_scale, need_lse=True)
-    return flash_attention_reference(q, k, v, causal=causal, sm_scale=sm_scale)
+    blocks = _blocks(lq, lk, d, hq // hkv, block_sizes, None, None)
+    spec = _Spec(causal, float(sm_scale), None, blocks)
+    if not _needs_grad(q, k, v):
+        return _forward(q, k, v, spec, None, need_lse=True)
+    return _FlashLse.apply(q, k, v, spec)

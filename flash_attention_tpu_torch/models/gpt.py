@@ -1,16 +1,24 @@
 """GPT-2-class causal transformer as a PyTorch module.
 
-Port of `flash_attention_tpu/models/gpt.py` (forward only: training, with
-its dropout and rematerialisation, comes with the training slice).  The
-parameter names follow the JAX params pytree (`blocks[i].attn.wqkv`, ...),
-so that `params_from_jax` is a rename and a transpose.
+Port of `flash_attention_tpu/models/gpt.py`: the forward with dropout and
+per-block rematerialisation, `loss_fn` and `generate`.  The parameter names
+follow the JAX params pytree (`blocks[i].attn.wqkv`, ...), so that
+`params_from_jax` is a rename and a transpose and `grads_to_jax_layout`
+its inverse.
 
-Storage dtypes: the JAX package keeps every parameter in fp32 and casts the
-matmul weights to the compute dtype at each use.  Here the matmul weights
-and biases are stored in the compute dtype (`cfg.dtype`) once, which gives
-the same products without re-casting 124M weights on every decode step;
-the LayerNorm parameters and both embedding tables stay fp32, as the JAX
-forward uses them in fp32.
+Storage dtypes (`param_dtype`): the JAX package keeps every parameter in
+fp32 and casts the matmul weights to the compute dtype at each use, which
+is what training needs (fp32 master weights under AdamW):
+`GPT(cfg, param_dtype=torch.float32)` does the same.  By default the matmul
+weights and biases are stored in the compute dtype (`cfg.dtype`) once,
+which gives the same products without re-casting 124M weights on every
+decode step: the serving engine's storage.  The LayerNorm parameters and
+both embedding tables are fp32 either way, as the JAX forward uses them in
+fp32.
+
+Dropout draws its masks from a `torch.Generator` seeded from (the step's
+seed, the site) inside each block, so a block that
+`torch.utils.checkpoint` recomputes draws the same masks again.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import resolve_device
 from ..kernels.flash_attention import flash_attention
@@ -39,10 +48,11 @@ class GPTConfig:
     n_head: int = 12
     n_embd: int = 768
     n_kv_head: int | None = None  # GQA: None means MHA
-    dropout: float = 0.0  # used by training, which this slice does not port
+    dropout: float = 0.0
     bias: bool = True
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     use_flash: bool = True  # False = dense attention
+    remat: bool = False  # recompute each block in the backward pass
     fast_ln: bool = True  # LayerNorm variance as E[x^2] - mu^2
 
     @property
@@ -85,25 +95,54 @@ class LayerNorm(nn.Module):
         return _layer_norm(x, self.g, self.b, fast=self.fast)
 
 
-def _linear(n_in: int, n_out: int, bias: bool, std: float, cfg: GPTConfig, gen, device) -> nn.Linear:
-    """nn.Linear in the compute dtype with N(0, std) weights drawn from
-    `gen` on the CPU (so a seed gives the same weights on every device)."""
-    lin = nn.Linear(n_in, n_out, bias=bias, device="meta")
+def _dropout(x: torch.Tensor, rate: float, seed: int | None) -> torch.Tensor:
+    """Inverted dropout (JAX `_dropout`): keep with probability 1 - rate
+    and scale kept values by 1 / (1 - rate); identity when seed is None.
+    The mask comes from a generator seeded here, on x's device."""
+    if seed is None or rate == 0.0:
+        return x
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def _site_seed(rng: int, site: int) -> int:
+    """Seed of one dropout site (0: embedding, 1 + 2l / 2 + 2l: layer l's
+    attention / MLP output) for the step seed `rng`."""
+    return int(np.random.SeedSequence([rng, site]).generate_state(1, np.uint64)[0] >> 1)
+
+
+class Linear(nn.Linear):
+    """nn.Linear whose weight and bias are cast to the input's dtype at
+    each use (no-ops when stored in it), as the JAX forward casts its fp32
+    params."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = self.bias.to(x.dtype) if self.bias is not None else None
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+def _linear(n_in: int, n_out: int, bias: bool, std: float, dtype: torch.dtype, gen, device) -> Linear:
+    """Linear stored in `dtype` with N(0, std) weights drawn from `gen` on
+    the CPU (so a seed gives the same weights on every device)."""
+    lin = Linear(n_in, n_out, bias=bias, device="meta")
     w = torch.randn(n_out, n_in, generator=gen) * std
-    lin.weight = nn.Parameter(w.to(device=device, dtype=cfg.dtype))
+    lin.weight = nn.Parameter(w.to(device=device, dtype=dtype))
     if bias:
-        lin.bias = nn.Parameter(torch.zeros(n_out, device=device, dtype=cfg.dtype))
+        lin.bias = nn.Parameter(torch.zeros(n_out, device=device, dtype=dtype))
     return lin
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: GPTConfig, gen, device):
+    def __init__(self, cfg: GPTConfig, gen, device, dtype: torch.dtype | None = None):
         super().__init__()
+        dtype = dtype or cfg.dtype
         self.cfg = cfg
         d = cfg.head_dim
         proj_std = 0.02 / math.sqrt(2 * cfg.n_layer)
-        self.wqkv = _linear(cfg.n_embd, (cfg.n_head + 2 * cfg.kv_heads) * d, cfg.bias, 0.02, cfg, gen, device)
-        self.wo = _linear(cfg.n_embd, cfg.n_embd, cfg.bias, proj_std, cfg, gen, device)
+        self.wqkv = _linear(cfg.n_embd, (cfg.n_head + 2 * cfg.kv_heads) * d, cfg.bias, 0.02, dtype, gen, device)
+        self.wo = _linear(cfg.n_embd, cfg.n_embd, cfg.bias, proj_std, dtype, gen, device)
 
     def split_heads(self, x: torch.Tensor):
         """x [B, T, E] -> q [B, H, T, D], k/v [B, Hkv, T, D] (views of one
@@ -138,11 +177,12 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: GPTConfig, gen, device):
+    def __init__(self, cfg: GPTConfig, gen, device, dtype: torch.dtype | None = None):
         super().__init__()
+        dtype = dtype or cfg.dtype
         proj_std = 0.02 / math.sqrt(2 * cfg.n_layer)
-        self.wfc = _linear(cfg.n_embd, 4 * cfg.n_embd, cfg.bias, 0.02, cfg, gen, device)
-        self.wproj = _linear(4 * cfg.n_embd, cfg.n_embd, cfg.bias, proj_std, cfg, gen, device)
+        self.wfc = _linear(cfg.n_embd, 4 * cfg.n_embd, cfg.bias, 0.02, dtype, gen, device)
+        self.wproj = _linear(4 * cfg.n_embd, cfg.n_embd, cfg.bias, proj_std, dtype, gen, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # jax.nn.gelu defaults to the tanh approximation; F.gelu does not.
@@ -150,16 +190,18 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: GPTConfig, gen, device):
+    def __init__(self, cfg: GPTConfig, gen, device, dtype: torch.dtype | None = None):
         super().__init__()
+        self.rate = cfg.dropout
         self.ln1 = LayerNorm(cfg.n_embd, cfg.fast_ln, device)
-        self.attn = Attention(cfg, gen, device)
+        self.attn = Attention(cfg, gen, device, dtype)
         self.ln2 = LayerNorm(cfg.n_embd, cfg.fast_ln, device)
-        self.mlp = MLP(cfg, gen, device)
+        self.mlp = MLP(cfg, gen, device, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x: torch.Tensor, seeds: tuple[int | None, int | None] = (None, None)) -> torch.Tensor:
+        """seeds: the dropout seeds of the attention and MLP outputs."""
+        x = x + _dropout(self.attn(self.ln1(x)), self.rate, seeds[0])
+        return x + _dropout(self.mlp(self.ln2(x)), self.rate, seeds[1])
 
 
 class GPT(nn.Module):
@@ -168,14 +210,25 @@ class GPT(nn.Module):
 
     generator: the torch.Generator all weights are drawn from (CPU);
     default a fresh one seeded 0.  device: where the weights live.
+    param_dtype: storage of the matmul weights and biases, cast to
+    cfg.dtype at each use; default cfg.dtype (serving).  Training passes
+    torch.float32, as the JAX package trains fp32 params.
     """
 
-    def __init__(self, cfg: GPTConfig, *, generator: torch.Generator | None = None, device=None):
+    def __init__(
+        self,
+        cfg: GPTConfig,
+        *,
+        generator: torch.Generator | None = None,
+        device=None,
+        param_dtype: torch.dtype | None = None,
+    ):
         super().__init__()
         device = resolve_device(device)
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        dtype = param_dtype or cfg.dtype
         self.cfg = cfg
-        self.blocks = nn.ModuleList(Block(cfg, gen, device) for _ in range(cfg.n_layer))
+        self.blocks = nn.ModuleList(Block(cfg, gen, device, dtype) for _ in range(cfg.n_layer))
         self.wte = nn.Parameter((torch.randn(cfg.vocab_size, cfg.n_embd, generator=gen) * 0.02).to(device))
         self.wpe = nn.Parameter((torch.randn(cfg.block_size, cfg.n_embd, generator=gen) * 0.02).to(device))
         self.lnf = LayerNorm(cfg.n_embd, cfg.fast_ln, device)
@@ -192,14 +245,28 @@ class GPT(nn.Module):
         """Final LayerNorm and the tied LM head, in the compute dtype."""
         return F.linear(self.lnf(x), self.wte.to(x.dtype))
 
-    def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        """Token ids [B, T] -> logits [B, T, vocab] in the compute dtype."""
+    def forward(self, idx: torch.Tensor, *, rng: int | None = None, deterministic: bool = True) -> torch.Tensor:
+        """Token ids [B, T] -> logits [B, T, vocab] in the compute dtype.
+
+        Dropout applies when deterministic is False and cfg.dropout > 0;
+        `rng` is then the step's seed, from which every site draws its
+        mask.  With cfg.remat each block is recomputed in the backward."""
+        cfg = self.cfg
         t = idx.shape[1]
-        if t > self.cfg.block_size:
-            raise ValueError(f"sequence length {t} > block_size {self.cfg.block_size}")
-        x = self.embed(idx, torch.arange(t, device=idx.device))
-        for blk in self.blocks:
-            x = blk(x)
+        if t > cfg.block_size:
+            raise ValueError(f"sequence length {t} > block_size {cfg.block_size}")
+        drop = not deterministic and cfg.dropout > 0.0
+        if drop and rng is None:
+            raise ValueError("dropout needs a seed: pass rng= with deterministic=False")
+
+        def seed(site: int) -> int | None:
+            return _site_seed(rng, site) if drop else None
+
+        x = _dropout(self.embed(idx, torch.arange(t, device=idx.device)), cfg.dropout, seed(0))
+        remat = cfg.remat and torch.is_grad_enabled()
+        for li, blk in enumerate(self.blocks):
+            seeds = (seed(1 + 2 * li), seed(2 + 2 * li))
+            x = checkpoint(blk, x, seeds, use_reentrant=False) if remat else blk(x, seeds)
         return self.head(x)
 
 
@@ -207,15 +274,73 @@ def num_params(model: GPT) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def params_from_jax(tree: dict[str, Any], cfg: GPTConfig, *, device=None) -> GPT:
+def loss_fn(
+    model: GPT,
+    idx: torch.Tensor,
+    targets: torch.Tensor,
+    *,
+    rng: int | None = None,
+    deterministic: bool = True,
+) -> torch.Tensor:
+    """Mean next-token cross-entropy, as logsumexp(logits) - logits[target]
+    (JAX `loss_fn`): the logits stay in the compute dtype and the fp32 cast
+    happens inside the reductions, so bf16 training keeps bf16 logit grads
+    rounded as JAX rounds them."""
+    logits = model(idx, rng=rng, deterministic=deterministic)
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = m[..., 0].float() + torch.log(torch.exp((logits - m).float()).sum(dim=-1))
+    picked = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return (lse - picked.float()).mean()
+
+
+@torch.no_grad()
+def generate(
+    model: GPT,
+    idx: torch.Tensor,
+    *,
+    max_new_tokens: int,
+    temperature: float = 1.0,
+    top_k: int | None = None,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Naive full-recompute sampling (nanoGPT generate parity); the
+    inference engine is the serving path with a KV cache.  `generator`
+    lives on idx's device; default a fresh one seeded 0."""
+    if generator is None:
+        generator = torch.Generator(device=idx.device).manual_seed(0)
+    for _ in range(max_new_tokens):
+        ctx = idx[:, -model.cfg.block_size:]
+        logits = model(ctx)[:, -1, :].float() / max(temperature, 1e-6)
+        if top_k is not None:
+            kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+            logits = torch.where(logits < kth, -math.inf, logits)
+        nxt = torch.multinomial(torch.softmax(logits, dim=-1), 1, generator=generator)
+        idx = torch.cat([idx, nxt.to(idx.dtype)], dim=1)
+    return idx
+
+
+# (module, JAX group, JAX weight name, JAX bias name) of each block linear
+def _block_linears(blk: Block):
+    return (
+        (blk.attn.wqkv, "attn", "wqkv", "bqkv"),
+        (blk.attn.wo, "attn", "wo", "bo"),
+        (blk.mlp.wfc, "mlp", "wfc", "bfc"),
+        (blk.mlp.wproj, "mlp", "wproj", "bproj"),
+    )
+
+
+def params_from_jax(
+    tree: dict[str, Any], cfg: GPTConfig, *, param_dtype: torch.dtype | None = None, device=None
+) -> GPT:
     """Build a GPT from the JAX package's params pytree, with its leaves
     already numpy arrays (`jax.tree.map(np.asarray, params)`).
 
     JAX stores linear weights [in, out]; nn.Linear wants [out, in].  Absent
     biases are None in the tree (cfg.bias False).  The LM head is tied to
-    `wte` in both packages, so the tree has no separate head.
+    `wte` in both packages, so the tree has no separate head.  param_dtype
+    as in `GPT` (torch.float32 for a trainable model).
     """
-    model = GPT(cfg, device=resolve_device(device))
+    model = GPT(cfg, device=resolve_device(device), param_dtype=param_dtype)
 
     def put(param: nn.Parameter, value, transpose: bool = False) -> None:
         arr = np.array(value, dtype=np.float32)
@@ -235,15 +360,32 @@ def params_from_jax(tree: dict[str, Any], cfg: GPTConfig, *, device=None) -> GPT
         for ln in ("ln1", "ln2"):
             put(getattr(blk, ln).g, src[ln]["g"])
             put(getattr(blk, ln).b, src[ln]["b"])
-        for mod, group, w, bname in (
-            (blk.attn.wqkv, "attn", "wqkv", "bqkv"),
-            (blk.attn.wo, "attn", "wo", "bo"),
-            (blk.mlp.wfc, "mlp", "wfc", "bfc"),
-            (blk.mlp.wproj, "mlp", "wproj", "bproj"),
-        ):
+        for mod, group, w, bname in _block_linears(blk):
             put(mod.weight, src[group][w], transpose=True)
             if (src[group][bname] is None) != (mod.bias is None):
                 raise ValueError(f"bias {group}.{bname} presence does not match cfg.bias={cfg.bias}")
             if mod.bias is not None:
                 put(mod.bias, src[group][bname])
     return model
+
+
+def grads_to_jax_layout(model: GPT) -> dict[str, Any]:
+    """The parameters' .grad as the JAX params pytree (numpy fp32 leaves,
+    linear weights [in, out], absent biases None): the inverse of
+    `params_from_jax`'s naming, for comparing with `jax.grad`."""
+
+    def g(param: nn.Parameter, transpose: bool = False):
+        arr = param.grad.detach().float().cpu().numpy()
+        return np.ascontiguousarray(arr.T) if transpose else arr
+
+    def ln(mod: LayerNorm):
+        return {"g": g(mod.g), "b": g(mod.b)}
+
+    blocks = []
+    for blk in model.blocks:
+        src = {"ln1": ln(blk.ln1), "ln2": ln(blk.ln2), "attn": {}, "mlp": {}}
+        for mod, group, w, bname in _block_linears(blk):
+            src[group][w] = g(mod.weight, transpose=True)
+            src[group][bname] = g(mod.bias) if mod.bias is not None else None
+        blocks.append(src)
+    return {"wte": g(model.wte), "wpe": g(model.wpe), "blocks": blocks, "lnf": ln(model.lnf)}
