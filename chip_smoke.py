@@ -16,22 +16,40 @@ non-zero and never prints the final `"ok": true` line:
               tolerance.
 4. k2k3     - gradients of K1+K2+K3 through the autograd Function against
               the plain backward and against autograd of fp32 vanilla.
-5. serving  - GPT-2 124M (bf16, random weights from --seed) behind the
+5. k4       - quantized-KV flash attention (int8/fp8 K/V) against its plain
+              version and fp32 vanilla on the dequantized K/V; then the
+              quant op's path (quantize_kv + flash_attention_kv_quant for
+              12 layers at b8 x T1024), which must launch K4 12 times.
+6. decode   - K5 (paged) and K6 (slot-major) decode against their plain
+              versions on bf16, fp32, int8 and fp8 caches with ragged
+              lengths, K5 with a permuted page table and NaN past the
+              lengths, GQA 32/8 at D128.
+7. serving  - GPT-2 124M (bf16, random weights from --seed) behind the
               continuous-batching engine: 16 requests, every one finishing
               with its exact budget; K1's launch count during the run
               equals n_layer x prefill dispatches.
-6. parity   - GPT-2 124M in fp32: prefill logits and 8 teacher-forced
+8. serving-quant - the same burst through an int8-cache engine decoding
+              with attn_impl="paged" and an fp8-cache engine with "fused":
+              exact budgets; K5 / K6 launched n_layer x decode steps, K1
+              n_layer x prefill dispatches; tokens/s and TTFT beside 7's.
+9. parity   - GPT-2 124M in fp32: prefill logits and 8 teacher-forced
               decode steps against the model's forward on dense attention.
-7. training - the port's Trainer on GPT-2 124M (bf16 compute, fp32 master
+10. parity-quant - GPT-2 124M in fp32 with an int8 cache, 8 teacher-forced
+              decode steps: paged and fused logits against einsum on the
+              same cache contents within 1e-3; the quantization error
+              against the unquantized forward is printed.
+11. training - the port's Trainer on GPT-2 124M (bf16 compute, fp32 master
               weights) for 20 steps at b8 x T1024: losses finite and
               falling by more than 1 nat; K1, K2 and K3 each launched
               n_layer x steps times; step time, tokens/s, peak memory.
-8. train-parity - GPT-2 124M in fp32, 5 steps at b2 x T512 on flash and on
+12. train-parity - GPT-2 124M in fp32, 5 steps at b2 x T512 on flash and on
               dense attention from the same weights and batches: losses
               within 2e-3.
-9. timing   - K1, and one backward (K2, K3, both with the di reduction),
-              against the plain versions and vanilla at GPT-2 shapes, CUDA
-              events, median of 20 runs.
+13. timing  - K1, and one backward (K2, K3, both with the di reduction),
+              against the plain versions and vanilla at GPT-2 shapes; K4 at
+              b1/b8, K5 and K6 at 8 slots with contexts near 512 of 1024,
+              int8 and bf16, against their plain versions, each beside its
+              floor at 3.35 TB/s (and 989 TFLOP/s).  CUDA events, medians.
 
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -41,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import importlib
 import json
 import os
@@ -64,13 +83,23 @@ from flash_attention_tpu_torch.models.gpt import GPT, GPT2_124M  # noqa: E402
 from flash_attention_tpu_torch.training import Trainer, TrainerConfig  # noqa: E402
 from flash_attention_tpu_torch.utils.devices import device_info  # noqa: E402
 
-# the module, not the function that kernels/__init__ re-exports under its name
+# the modules, not the functions that the packages re-export under their names
 FA = importlib.import_module("flash_attention_tpu_torch.kernels.flash_attention")
+QK = importlib.import_module("flash_attention_tpu_torch.quant.kv")
+KVC = importlib.import_module("flash_attention_tpu_torch.inference.kv_cache")
+PA = importlib.import_module("flash_attention_tpu_torch.inference.paged_attention")
+DA = importlib.import_module("flash_attention_tpu_torch.inference.decode_attention")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "flash_fwd": ("flash_attention_tpu_torch/csrc/flash_fwd.cu", "flash_attention_tpu/kernels/flash_attention.py:269"),
     "flash_bwd_dkv": ("flash_attention_tpu_torch/csrc/flash_bwd.cu", "flash_attention_tpu/kernels/flash_attention.py:637"),
     "flash_bwd_dq": ("flash_attention_tpu_torch/csrc/flash_bwd.cu", "flash_attention_tpu/kernels/flash_attention.py:765"),
+    "flash_fwd_kv_quant": ("flash_attention_tpu_torch/csrc/flash_fwd_kv_quant.cu", "flash_attention_tpu/quant/kv.py:98"),
+    "paged_decode": ("flash_attention_tpu_torch/csrc/decode.cu", "flash_attention_tpu/inference/paged_attention.py:34"),
+    "fused_decode": ("flash_attention_tpu_torch/csrc/decode.cu", "flash_attention_tpu/inference/decode_attention.py:195"),
 }
+TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOPS = 989e12
 
 
 def say(*parts) -> None:
@@ -97,27 +126,45 @@ def phase_device() -> tuple[str, str]:
     return name, smi
 
 
+def _demangle(names: list[str]) -> list[str]:
+    """C++ names through c++filt where the toolkit's binutils have it."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True, timeout=60)
+    except OSError:
+        return names
+    lines = out.stdout.splitlines()
+    return lines if out.returncode == 0 and len(lines) == len(names) else names
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     _build.library()
     say(f"[build] {os.path.relpath(_build.build_info['path'])} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_info['seconds']:.1f} s)")
+    per = _build.build_info.get("per_source", {})
+    if per:
+        say("[build] nvcc per source, all started together: " + ", ".join(f"{k} {v:.1f} s" for k, v in per.items()))
     # ptxas -v: one "Compiling entry function" line per instantiation, then
     # its spills and registers
-    kernel = ""
+    entries, kernel, spills = [], "", ""
     for line in _build.build_info.get("ptxas", "").splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(flash_(?:fwd|bwd_dkv|bwd_dq)_(?:mma|simt)_kernel)I(\w+?)E", line)
-            if m:
-                args = m.group(2)
-                dtype = "bf16" if "bfloat16" in args else "fp16" if "half" in args else "fp32"
-                kernel = f"{m.group(1)} {dtype} D{re.search(r'Li(\d+)', args).group(1)}"
-            else:
-                kernel = line.split("'")[1]
+            kernel = line.split("'")[1]
         elif "spill stores" in line:
             spills = line.strip()
         elif "Used" in line and "registers" in line:
-            say(f"[build] ptxas {kernel}: {line.split(':', 1)[1].strip()}; {spills}")
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            entries.append((kernel, regs, spills))
+    decode = []
+    for name, (_, regs, spill) in zip(_demangle([e[0] for e in entries]), entries):
+        spilled = not spill.startswith("0 bytes stack frame, 0 bytes spill stores")
+        if "decode_kernel" in name and not spilled:
+            decode.append(regs)
+        else:
+            say(f"[build] ptxas {name.replace('(fa::FwdParams)', '').replace('fa::', '')}: {regs} registers; {spill}")
+    if decode:
+        say(f"[build] ptxas decode_kernel: {len(decode)} instantiations without spills, "
+            f"{min(decode)}-{max(decode)} registers")
 
 
 def _rand(gen, shape, dtype):
@@ -268,19 +315,209 @@ def phase_k2k3(seed: int) -> dict:
     }
 
 
-def phase_serving(seed: int) -> None:
-    cfg = GPT2_124M
-    t0 = time.perf_counter()
-    model = GPT(cfg, generator=torch.Generator().manual_seed(seed), device="cuda")
-    say(f"[serving] GPT-2 124M {cfg.dtype} vocab {cfg.vocab_size} layers {cfg.n_layer} heads {cfg.n_head} "
-        f"width {cfg.n_embd}, random weights (seed {seed}) in {time.perf_counter() - t0:.1f} s")
+def _dense_on(q, k, v, **kw) -> torch.Tensor:
+    """fp32 vanilla attention of q over k/v (GQA expanded)."""
+    g = q.shape[1] // k.shape[1]
+    return vanilla_attention_with_lse(q.float(), k.float().repeat_interleave(g, 1), v.float().repeat_interleave(g, 1),
+                                      sm_scale=q.shape[-1] ** -0.5, **kw)[0]
+
+
+def check_k4(label, gen, b, hq, hkv, lq, lk, d, dtype, qdt, atol, window=None, segments=False) -> float:
+    """K4 vs its plain version (K1's tile loop on K/V dequantized the
+    kernel's way, payload.to(T) * scale.to(T)) vs fp32 vanilla on the same
+    dequantized K/V; returns the kernel's max error against the plain
+    version."""
+    q = _rand(gen, (b, hq, lq, d), dtype)
+    kv = QK.quantize_kv(_rand(gen, (b, hkv, lk, d), torch.float32), _rand(gen, (b, hkv, lk, d), torch.float32),
+                        dtype=qdt)
+    segs = (_segment_ids(b, lq), _segment_ids(b, lk)) if segments else None
+    with torch.no_grad():
+        out = QK.flash_attention_kv_quant(q, kv, window=window, segment_ids=segs)
+        plain = QK.flash_attention_kv_quant_reference(q, kv, window=window, segment_ids=segs)
+        k_t, v_t = (QK._dequantize_like_kernel(x, sc, dtype) for x, sc in ((kv.k, kv.k_scale), (kv.v, kv.v_scale)))
+        dense = _dense_on(q, k_t, v_t, window=window, segment_ids=segs)
+    torch.cuda.synchronize()
+    if out.shape != q.shape or out.dtype != dtype or not torch.isfinite(out).all():
+        raise AssertionError(f"[k4] {label}: bad output {out.shape} {out.dtype}")
+    e_plain = (out.float() - plain.float()).abs().max().item()
+    e_dense = (out.float() - dense).abs().max().item()
+    ok = e_plain <= atol and e_dense <= atol
+    say(f"[k4] {label:<38} vs plain {e_plain:.3e}  vs vanilla {e_dense:.3e}  atol {atol:g}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[k4] {label} outside tolerance")
+    return e_plain
+
+
+def phase_k4(seed: int) -> tuple[float, int]:
+    """Returns K4's worst error against its plain version and its launches
+    on the quant op's path."""
+    gen = torch.Generator().manual_seed(seed + 5)
+    bf16, i8, f8 = torch.bfloat16, torch.int8, torch.float8_e4m3fn
+    say("[k4] tolerance: bf16/fp16 2e-2 (K1's tier); fp32 5e-5, the JAX package's quantized-KV tier.  The vanilla "
+        "reference reads K/V dequantized as the kernel does it, in q's dtype")
+    worst = 0.0
+    for b in (1, 8):
+        for name, qdt in (("int8", i8), ("fp8", f8)):
+            err = check_k4(f"gpt2 b{b} h12 L1024 D64 bf16 {name}", gen, b, 12, 12, 1024, 1024, 64, bf16, qdt, 2e-2)
+            worst = max(worst, err)
+    runs = [
+        check_k4("q128 vs kv1024 b2 h12 D64 bf16 int8", gen, 2, 12, 12, 128, 1024, 64, bf16, i8, 2e-2),
+        check_k4("gqa hq32 hkv8 L1024 D128 bf16 int8", gen, 1, 32, 8, 1024, 1024, 128, bf16, i8, 2e-2),
+        check_k4("window 256 b2 h12 L1024 D64 bf16 int8", gen, 2, 12, 12, 1024, 1024, 64, bf16, i8, 2e-2, window=256),
+        check_k4("3 segments b2 h12 L1024 D64 bf16 fp8", gen, 2, 12, 12, 1024, 1024, 64, bf16, f8, 2e-2, segments=True),
+        check_k4("fp16 b2 h12 L300 D64 int8", gen, 2, 12, 12, 300, 300, 64, torch.float16, i8, 2e-2),
+        check_k4("fp32 b1 h4 L384 D64 int8", gen, 1, 4, 4, 384, 384, 64, torch.float32, i8, 5e-5),
+        check_k4("fp32 gqa hq4 hkv2 L384 D128 fp8 window 100", gen, 1, 4, 2, 384, 384, 128, torch.float32, f8, 5e-5,
+                 window=100),
+        check_k4("fp32 b2 h4 L300 D64 int8 3 segments", gen, 2, 4, 4, 300, 300, 64, torch.float32, i8, 5e-5,
+                 segments=True),
+    ]
+    worst = max(worst, *runs)
+    # The quant op's path: each of GPT-2's 12 layers quantizes its K/V and
+    # attends over them, at b8 x T1024.
+    layers = [tuple(_rand(gen, (8, 12, 1024, 64), bf16) for _ in range(3)) for _ in range(12)]
+    torch.cuda.synchronize()
+    for key in FA.KERNEL_LAUNCHES:
+        FA.KERNEL_LAUNCHES[key] = 0
+    with torch.no_grad():
+        outs = [QK.flash_attention_kv_quant(q, QK.quantize_kv(k, v, dtype=i8)) for q, k, v in layers]
+    torch.cuda.synchronize()
+    launches = FA.KERNEL_LAUNCHES["flash_fwd_kv_quant"]
+    others = {k: n for k, n in FA.KERNEL_LAUNCHES.items() if k != "flash_fwd_kv_quant" and n}
+    if launches != 12 or others or not all(o.shape == (8, 12, 1024, 64) and torch.isfinite(o).all() for o in outs):
+        raise AssertionError(f"[k4] quant op path: {launches} launches of 12 (others {others}), or bad outputs")
+    say(f"[k4] quant op path, 12 layers at b8 h12 T1024 D64 bf16 int8: flash_fwd_kv_quant launches {launches}, "
+        f"outputs finite")
+    return worst, launches
+
+
+def _error(out: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> tuple[float, bool]:
+    """(max |out - ref|, whether |out - ref| <= atol + rtol |ref| everywhere)."""
+    diff = (out.float() - ref.float()).abs()
+    return diff.max().item(), bool((diff <= atol + rtol * ref.float().abs()).all())
+
+
+def _filled_cache(gen, slots, hkv, max_len, d, store, q_dtype, lengths) -> "KVC.KVCache":
+    """A one-layer cache on the card with random contents (quantized when
+    `store` is int8/fp8) and the given lengths (current token excluded)."""
+    quant = store in QK.QUANT_DTYPES
+    cache = KVC.init_cache(1, slots, hkv, max_len, d, dtype=q_dtype if quant else store,
+                           quant_dtype=store if quant else None, device="cuda")
+    for dst, scale in ((cache.k, cache.k_scale), (cache.v, cache.v_scale)):
+        x = _rand(gen, dst.shape, torch.float32)
+        if quant:
+            payload, sc = QK.quantize_tokens(x, store)
+            dst.copy_(payload)
+            scale.copy_(sc)
+        else:
+            dst.copy_(x)
+    cache.lengths.copy_(torch.as_tensor(lengths, dtype=torch.int32))
+    return cache
+
+
+def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths, atol) -> tuple[float, float]:
+    """K5 (through decode_attention_paged) and K6 vs their plain versions on
+    one cache; returns their max errors."""
+    cache = _filled_cache(gen, slots, hkv, max_len, d, store, q_dtype, lengths)
+    q = _rand(gen, (slots, hq, d), q_dtype)
+    with torch.no_grad():
+        out5 = DA.decode_attention_paged(q, cache, 0, page_size=128)
+        kp, vp, ks, vs = KVC.page_view(cache, 0, 128)
+        pi = KVC.identity_page_indices(slots, max_len, 128, device="cuda")
+        plain5 = PA.paged_attention_ref(q, kp, vp, cache.lengths + 1, pi, k_scales=ks, v_scales=vs)
+        out6 = DA.decode_attention_fused(q, cache, 0)
+        plain6 = DA.decode_attention(q, cache, 0)
+    torch.cuda.synchronize()
+    for o in (out5, out6):
+        if o.shape != q.shape or o.dtype != q_dtype or not torch.isfinite(o).all():
+            raise AssertionError(f"[decode] {label}: bad output {o.shape} {o.dtype}")
+    rtol = 0.0 if q_dtype == torch.float32 else 1e-2
+    e5, ok5 = _error(out5, plain5, atol, rtol)
+    e6, ok6 = _error(out6, plain6, atol, rtol)
+    ok = ok5 and ok6
+    say(f"[decode] {label:<42} K5 vs plain {e5:.3e}  K6 vs plain {e6:.3e}  atol {atol:g} rtol {rtol:g}  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[decode] {label} outside tolerance")
+    return e5, e6
+
+
+def check_paged_permuted(label, gen, batch, hq, hkv, d, page_size, pps, store, q_dtype, lengths, atol) -> float:
+    """K5 over a permuted page table with NaN in every page row past each
+    sequence's length (payload, or the scales of a quantized cache)."""
+    n_pages = batch * pps + 5
+    quant = store in QK.QUANT_DTYPES
+    shape = (hkv, n_pages, page_size, d)
+    kp, vp = _rand(gen, shape, torch.float32), _rand(gen, shape, torch.float32)
+    ks = vs = None
+    if quant:
+        (kp, ks), (vp, vs) = QK.quantize_tokens(kp, store), QK.quantize_tokens(vp, store)
+    else:
+        kp, vp = kp.to(store), vp.to(store)
+    pi = torch.randperm(n_pages, generator=gen)[: batch * pps].view(batch, pps).to(torch.int32).cuda()
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    row = torch.arange(pps * page_size, device="cuda").view(1, pps, page_size)
+    past = torch.zeros(n_pages, page_size, dtype=torch.bool, device="cuda")
+    past[pi.long()] = row >= lens.clamp(min=1)[:, None, None]
+    for t_ in ((ks, vs) if quant else (kp, vp)):
+        t_[:, past] = float("nan")
+    q = _rand(gen, (batch, hq, d), q_dtype)
+    with torch.no_grad():
+        out = PA.paged_attention(q, kp, vp, lens, pi, k_scales=ks, v_scales=vs)
+        plain = PA.paged_attention_ref(q, kp, vp, lens, pi, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    if out.shape != q.shape or not torch.isfinite(out).all() or not torch.isfinite(plain).all():
+        raise AssertionError(f"[decode] {label}: NaN past the length leaked")
+    rtol = 0.0 if q_dtype == torch.float32 else 1e-2
+    err, ok = _error(out, plain, atol, rtol)
+    say(f"[decode] {label:<42} K5 vs plain {err:.3e}  atol {atol:g} rtol {rtol:g}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[decode] {label} outside tolerance")
+    return err
+
+
+def phase_decode(seed: int) -> dict:
+    """Returns K5's and K6's worst errors against their plain versions."""
+    gen = torch.Generator().manual_seed(seed + 6)
+    bf16, f32, i8, f8 = torch.bfloat16, torch.float32, torch.int8, torch.float8_e4m3fn
+    say("[decode] tolerance: bf16 q atol 2e-2 + rtol 1e-2 (P * v_scale and the output are rounded to bf16, 2^-8 "
+        "relative each; the plain versions round P elsewhere or not at all); fp32 q atol 1e-5 (sums in another order)")
+    ragged = [0, 16, 299, 1022, 511, 63, 799, 127]  # cache lengths: the kernels read lengths + 1 tokens
+    k5, k6 = [], []
+    for name, store, q_dtype, atol in (
+        ("bf16", bf16, bf16, 2e-2), ("fp32", f32, f32, 1e-5), ("int8", i8, bf16, 2e-2), ("fp8", f8, bf16, 2e-2),
+        ("int8 fp32 q", i8, f32, 1e-5),
+    ):
+        e5, e6 = check_decode(f"8 slots h12 D64 L1024 {name} cache", gen, 8, 12, 12, 64, 1024, store, q_dtype,
+                              ragged, atol)
+        k5.append(e5)
+        k6.append(e6)
+    for name, store in (("int8", i8), ("bf16", bf16)):
+        e5, e6 = check_decode(f"gqa hq32 hkv8 D128 L1024 {name} cache", gen, 4, 32, 8, 128, 1024, store, bf16,
+                              [5, 1023, 200, 640], 2e-2)
+        k5.append(e5)
+        k6.append(e6)
+    lens = [1, 17, 300, 1023, 512, 0, 800, 1024]
+    for name, store, q_dtype, atol in (("int8", i8, bf16, 2e-2), ("fp8", f8, bf16, 2e-2), ("bf16", bf16, bf16, 2e-2),
+                                       ("fp32", f32, f32, 1e-5)):
+        k5.append(check_paged_permuted(f"paged permuted ps16 NaN past length {name}", gen, 8, 12, 12, 64, 16, 64,
+                                       store, q_dtype, lens, atol))
+    return {"paged_decode": max(k5), "fused_decode": max(k6)}
+
+
+def _burst(seed: int, tag: str, model: GPT, **engine_kw) -> dict:
+    """The serving burst: 16 requests (prompt lengths 16-900, budgets 32-64, half
+    greedy, half sampled; all from `seed`) through an engine on `model`.
+    Every request must finish with its exact budget and in-range ids.
+    Returns the run's numbers and the kernels' launches during it."""
+    cfg = model.cfg
     rng = np.random.default_rng(seed)
     lengths = np.concatenate([
         rng.integers(16, 65, 2), rng.integers(129, 901, 4), rng.integers(16, 901, 10)
     ])
     rng.shuffle(lengths)
     budgets = rng.integers(32, 65, 16)
-    eng = InferenceEngine(model, slots=8, max_len=1024, scan_steps=8, device="cuda", rng_seed=seed)
+    eng = InferenceEngine(model, slots=8, max_len=1024, scan_steps=8, device="cuda", rng_seed=seed, **engine_kw)
     # warm-up: cuBLAS handles, allocator; not counted
     eng.submit(rng.integers(0, cfg.vocab_size, 200).tolist(), max_new_tokens=4)
     eng.run()
@@ -301,27 +538,73 @@ def phase_serving(seed: int) -> None:
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = FA.KERNEL_LAUNCHES["flash_fwd"]
+    launches = dict(FA.KERNEL_LAUNCHES)
 
     by_uid = {r.uid: r for r in done}
     if len(done) != 16 or set(by_uid) != {u for u, _ in reqs}:
-        raise AssertionError(f"[serving] {len(done)} of 16 requests finished")
+        raise AssertionError(f"[{tag}] {len(done)} of 16 requests finished")
     for uid, budget in reqs:
         out = by_uid[uid].output
         if len(out) != budget:
-            raise AssertionError(f"[serving] request {uid}: {len(out)} tokens, budget {budget}")
+            raise AssertionError(f"[{tag}] request {uid}: {len(out)} tokens, budget {budget}")
         if not all(0 <= tok < cfg.vocab_size for tok in out):
-            raise AssertionError(f"[serving] request {uid}: token id out of range")
+            raise AssertionError(f"[{tag}] request {uid}: token id out of range")
     dispatches = eng.stats["prefill_dispatches"]
-    if launches <= 0 or launches != cfg.n_layer * dispatches:
-        raise AssertionError(f"[serving] flash_fwd launches {launches} != {cfg.n_layer} x {dispatches} prefill dispatches")
+    if launches["flash_fwd"] <= 0 or launches["flash_fwd"] != cfg.n_layer * dispatches:
+        raise AssertionError(f"[{tag}] flash_fwd launches {launches['flash_fwd']} != {cfg.n_layer} x {dispatches} "
+                             f"prefill dispatches")
     toks = sum(len(r.output) for r in done)
     ttft = sorted(r.ttft for r in done)
-    p50, p95 = statistics.median(ttft), ttft[min(len(ttft) - 1, int(0.95 * len(ttft)))]
-    say(f"[serving] 16/16 requests finished with their exact budgets; prompt lengths {sorted(lengths.tolist())}")
-    say(f"[serving] flash_fwd launches {launches} = {cfg.n_layer} layers x {dispatches} prefill dispatches")
-    say(f"[serving] {toks} tokens in {wall:.3f} s wall: {toks / wall:.1f} tokens/s, TTFT p50 {p50 * 1e3:.1f} ms "
-        f"p95 {p95 * 1e3:.1f} ms, decode steps {eng.stats['decode_steps']}")
+    return dict(
+        lengths=sorted(lengths.tolist()), launches=launches, dispatches=dispatches, steps=eng.stats["decode_steps"],
+        toks=toks, wall=wall, tokens_s=toks / wall, p50=statistics.median(ttft),
+        p95=ttft[min(len(ttft) - 1, int(0.95 * len(ttft)))],
+    )
+
+
+def _gpt2(seed: int) -> GPT:
+    cfg = GPT2_124M
+    t0 = time.perf_counter()
+    model = GPT(cfg, generator=torch.Generator().manual_seed(seed), device="cuda")
+    say(f"[serving] GPT-2 124M {cfg.dtype} vocab {cfg.vocab_size} layers {cfg.n_layer} heads {cfg.n_head} "
+        f"width {cfg.n_embd}, random weights (seed {seed}) in {time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def phase_serving(seed: int, model: GPT) -> dict:
+    cfg = model.cfg
+    r = _burst(seed, "serving", model)
+    say(f"[serving] 16/16 requests finished with their exact budgets; prompt lengths {r['lengths']}")
+    say(f"[serving] flash_fwd launches {r['launches']['flash_fwd']} = {cfg.n_layer} layers x {r['dispatches']} "
+        f"prefill dispatches")
+    say(f"[serving] {r['toks']} tokens in {r['wall']:.3f} s wall: {r['tokens_s']:.1f} tokens/s, TTFT p50 "
+        f"{r['p50'] * 1e3:.1f} ms p95 {r['p95'] * 1e3:.1f} ms, decode steps {r['steps']}")
+    return r
+
+
+def phase_serving_quant(seed: int, model: GPT, base: dict, smi: str) -> dict:
+    """The serving burst on an int8 cache decoding through K5 and on an fp8
+    cache decoding through K6; returns each decode kernel's launches."""
+    cfg = model.cfg
+    launches = {}
+    for name, qdt, impl, kernel in (("int8", torch.int8, "paged", "paged_decode"),
+                                    ("fp8", torch.float8_e4m3fn, "fused", "fused_decode")):
+        tag = "serving-quant"
+        r = _burst(seed, tag, model, kv_quant_dtype=qdt, decode_fn=functools.partial(decode_step, attn_impl=impl))
+        want = cfg.n_layer * r["steps"]
+        got = r["launches"][kernel]
+        others = {k: v for k, v in r["launches"].items() if k not in (kernel, "flash_fwd") and v}
+        if got != want or others:
+            raise AssertionError(f"[{tag}] {name}/{impl}: {kernel} launched {got} times, want {cfg.n_layer} x "
+                                 f"{r['steps']} = {want}; other kernels {others}")
+        launches[kernel] = got
+        say(f"[{tag}] {name} cache, attn_impl={impl}: 16/16 requests finished with their exact budgets; {kernel} "
+            f"launches {got} = {cfg.n_layer} layers x {r['steps']} decode steps, flash_fwd "
+            f"{r['launches']['flash_fwd']} = {cfg.n_layer} x {r['dispatches']} prefill dispatches")
+        say(f"[{tag}] {smi} | {name} cache, {impl}: {r['tokens_s']:.1f} tokens/s, TTFT p50 {r['p50'] * 1e3:.1f} ms "
+            f"p95 {r['p95'] * 1e3:.1f} ms (bf16 cache, einsum, from [serving]: {base['tokens_s']:.1f} tokens/s, "
+            f"p50 {base['p50'] * 1e3:.1f} ms, p95 {base['p95'] * 1e3:.1f} ms)")
+    return launches
 
 
 def phase_parity(seed: int) -> None:
@@ -347,17 +630,54 @@ def phase_parity(seed: int) -> None:
         raise AssertionError("[parity] outside tolerance")
 
 
-def time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
+def phase_parity_quant(seed: int) -> None:
+    """fp32 GPT-2 124M with an int8 cache: 8 teacher-forced decode steps on
+    each decode path; paged and fused against einsum on the same cache
+    contents (each path fills its own cache with the same prompt and feed)."""
+    cfg = dataclasses.replace(GPT2_124M, dtype=torch.float32)
+    model = GPT(cfg, generator=torch.Generator().manual_seed(seed + 1), device="cuda")
+    dense = GPT(dataclasses.replace(cfg, use_flash=False), generator=torch.Generator().manual_seed(seed + 1), device="cuda")
+    rng = np.random.default_rng(seed + 1)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, 300), device="cuda")
+    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, 8), device="cuda", dtype=torch.int32)
+    impls = ("einsum", "paged", "fused")
+    with torch.no_grad():
+        ref = dense(torch.cat([prompt, feed.long()])[None])[0].float()
+        caches = {}
+        for impl in impls:
+            caches[impl] = init_cache(cfg.n_layer, 1, cfg.kv_heads, 1024, cfg.head_dim, dtype=cfg.dtype,
+                                      quant_dtype=torch.int8, device="cuda")
+            prefill(model, prompt, caches[impl], 0)
+        errs = {impl: 0.0 for impl in impls[1:]}
+        qerr = 0.0
+        for i in range(8):
+            logits = {impl: decode_step(model, feed[i:i + 1], caches[impl], attn_impl=impl)[1][0] for impl in impls}
+            for impl in impls[1:]:
+                errs[impl] = max(errs[impl], (logits[impl] - logits["einsum"]).abs().max().item())
+            qerr = max(qerr, (logits["einsum"] - ref[prompt.numel() + i]).abs().max().item())
+    torch.cuda.synchronize()
+    worst = max(errs.values())
+    say(f"[parity-quant] fp32 GPT-2 124M, int8 cache, prompt 300 + 8 teacher-forced decode steps: paged vs einsum "
+        f"{errs['paged']:.3e}, fused vs einsum {errs['fused']:.3e} (atol 1e-3) {'ok' if worst <= 1e-3 else 'FAIL'}; "
+        f"int8 quantization error vs the unquantized dense forward: {qerr:.3e}")
+    if worst > 1e-3:
+        raise AssertionError("[parity-quant] outside tolerance")
+
+
+def time_ms(fn, runs: int = 20, warmup: int = 3, inner: int = 1) -> float:
+    """Median over `runs` of the ms per call of `inner` back-to-back calls
+    between two CUDA events."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -388,10 +708,10 @@ def phase_training(seed: int, smi: str, data: np.ndarray) -> dict:
     if not ok:
         raise AssertionError("[training] loss did not fall by more than 1 nat")
     want = cfg.n_layer * steps
-    for key in KERNELS:
+    for key in TRAINING_KERNELS:
         if launches[key] != want:
             raise AssertionError(f"[training] {key} launched {launches[key]} times, want {cfg.n_layer} x {steps} = {want}")
-    say(f"[training] launches {launches} = {cfg.n_layer} layers x {steps} steps each")
+    say(f"[training] launches { {k: launches[k] for k in TRAINING_KERNELS} } = {cfg.n_layer} layers x {steps} steps each")
     step_ms = np.diff([0.0] + [r["wall_s"] for r in history]) * 1e3
     med = float(np.median(step_ms[5:]))
     say(f"[training] {smi} | step {med:.2f} ms (median of steps 6-{steps}), {batch * seq / med * 1e3:.0f} tokens/s, "
@@ -461,6 +781,80 @@ def phase_timing(seed: int, smi: str) -> dict:
     return result
 
 
+def graph_ms(fn, calls: int = 20, runs: int = 10) -> float:
+    """Device time per call: `calls` calls captured in one CUDA graph and
+    replayed between two CUDA events (median of `runs`), so that the host's
+    time to enqueue a call (the Python wrapper, ctypes) is not counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, runs=runs) / calls
+
+
+def _floor_ms(nbytes: float, flops: float = 0.0) -> float:
+    """The least time the card could take: bytes at 3.35 TB/s or FLOPs at
+    989 TFLOP/s, whichever is larger."""
+    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+
+
+def phase_timing_quant(seed: int, smi: str) -> dict:
+    """K4, K5 and K6 against their plain versions, each as a call costs its
+    caller (CUDA events around back-to-back calls, which includes the host's
+    enqueue time where that is longer) and as device time (graph_ms);
+    returns {kernel: (device ms, plain device ms)} at b8 (K4) and on the
+    int8 cache (K5, K6)."""
+    gen = torch.Generator().manual_seed(seed + 7)
+    result = {}
+    for b in (1, 8):
+        q = _rand(gen, (b, 12, 1024, 64), torch.bfloat16)
+        kv = QK.quantize_kv(_rand(gen, (b, 12, 1024, 64), torch.float32), _rand(gen, (b, 12, 1024, 64), torch.float32))
+        with torch.no_grad():
+            kern = time_ms(lambda: QK.flash_attention_kv_quant(q, kv))
+            kern_dev = graph_ms(lambda: QK.flash_attention_kv_quant(q, kv))
+            plain = time_ms(lambda: QK.flash_attention_kv_quant_reference(q, kv))
+            plain_dev = graph_ms(lambda: QK.flash_attention_kv_quant_reference(q, kv), calls=2, runs=5)
+        tokens = b * 12 * 1024
+        nbytes = tokens * (64 * (2 + 2 + 1 + 1) + 8)  # q, out, K and V payloads, two scales
+        flops = 4 * tokens * 1024 * 64 / 2
+        say(f"[timing] {smi} | K4 b{b} h12 L1024 D64 bf16 q, int8 K/V, causal: kernel {kern:.4f} ms a call, "
+            f"{kern_dev:.4f} ms on the device ({flops / kern_dev / 1e9:.1f} TFLOP/s); plain tile loop {plain:.4f} ms "
+            f"a call, {plain_dev:.4f} ms on the device; floor {_floor_ms(nbytes, flops):.4f} ms")
+        result["flash_fwd_kv_quant"] = (kern_dev, plain_dev)
+    lengths = torch.randint(480, 545, (8,), generator=gen).tolist()
+    for name, store in (("int8", torch.int8), ("bf16", torch.bfloat16)):
+        cache = _filled_cache(gen, 8, 12, 1024, 64, store, torch.bfloat16, lengths)
+        q = _rand(gen, (8, 12, 64), torch.bfloat16)
+        kp, vp, ks, vs = KVC.page_view(cache, 0, 128)
+        pi = KVC.identity_page_indices(8, 1024, 128, device="cuda")
+        total = cache.lengths + 1
+        fns = {
+            "K5": lambda: PA.paged_attention(q, kp, vp, total, pi, k_scales=ks, v_scales=vs),
+            "K5 plain": lambda: PA.paged_attention_ref(q, kp, vp, total, pi, k_scales=ks, v_scales=vs),
+            "K6": lambda: DA.decode_attention_fused(q, cache, 0),
+            "K6 plain": lambda: DA.decode_attention(q, cache, 0),
+        }
+        with torch.no_grad():
+            call = {k: time_ms(fn, inner=20) for k, fn in fns.items()}
+            dev = {k: graph_ms(fn) for k, fn in fns.items()}
+        live = sum(x + 1 for x in lengths) * 12  # tokens x heads read
+        nbytes = live * 64 * cache.k.element_size() * 2 + (live * 8 if store == torch.int8 else 0) + 8 * 12 * 64 * 4
+        say(f"[timing] {smi} | decode 8 slots h12 D64 max_len 1024, contexts {min(lengths) + 1}-{max(lengths) + 1}, "
+            f"{name} cache, bf16 q, ms on the device (a call): "
+            + ", ".join(f"{k} {dev[k]:.4f} ({call[k]:.4f})" for k in fns)
+            + f"; floor {_floor_ms(nbytes):.4f} ms ({nbytes / 1e6:.2f} MB)")
+        if store == torch.int8:
+            result["paged_decode"] = (dev["K5"], dev["K5 plain"])
+            result["fused_decode"] = (dev["K6"], dev["K6 plain"])
+    return result
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -468,13 +862,20 @@ def main() -> None:
     name, smi = phase_device()
     phase_build()
     errors = {"flash_fwd": phase_k1(args.seed), **phase_k2k3(args.seed)}
-    phase_serving(args.seed)
+    errors["flash_fwd_kv_quant"], k4_launches = phase_k4(args.seed)
+    errors.update(phase_decode(args.seed))
+    model = _gpt2(args.seed)
+    base = phase_serving(args.seed, model)
+    decode_launches = phase_serving_quant(args.seed, model, base, smi)
+    del model
     phase_parity(args.seed)
+    phase_parity_quant(args.seed)
     text = synthetic_corpus()
     data = CharTokenizer(text).encode(text)
     launches = phase_training(args.seed, smi, data)
+    launches.update(flash_fwd_kv_quant=k4_launches, **decode_launches)
     phase_train_parity(args.seed, data)
-    times = phase_timing(args.seed, smi)
+    times = {**phase_timing(args.seed, smi), **phase_timing_quant(args.seed, smi)}
     say(json.dumps({"kernels": [
         {"name": key, "route": "cuda", "source": src, "replaces": rep, "launches": launches[key],
          "max_abs_err": errors[key], "ms": times[key][0], "plain_ms": times[key][1]}

@@ -4,10 +4,11 @@ The JAX package `flash_attention_tpu` is the reference; this package keeps
 its module names.  Plain tensor code is PyTorch; each Pallas kernel on a
 ported path is a kernel written by hand for sm_90a (`csrc/`), built on
 first use.  Ported so far: the GPT-2 serving path (flash-attention
-forward, einsum decode, sampling, the continuous-batching engine) and the
+forward, einsum decode, sampling, the continuous-batching engine), the
 GPT-2 training path (flash-attention backward, dropout, remat, AdamW,
 checkpoints, the trainer and its demo), with the packed-QKV op and the
-SDPA drop-in.
+SDPA drop-in, and quantized-KV serving (int8/fp8 cache, quantized-KV flash
+attention, the paged and slot-major decode kernels).
 """
 
 import importlib
@@ -30,6 +31,7 @@ _SUBMODULES = (
     "models",
     "training",
     "inference",
+    "quant",
     "data",
     "utils",
     "config",

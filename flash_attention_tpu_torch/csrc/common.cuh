@@ -1,19 +1,46 @@
-// Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// bf16/fp16 packing, the mma.sync m16n8k16 instruction, tile staging and
+// Helpers shared by the port's kernels (flash_fwd*.cu, flash_bwd.cu,
+// decode.cu): conversions to and from float, bf16/fp16 packing, the
+// mma.sync m16n8k16 instruction, tile staging (plain and dequantizing) and
 // the attention mask of the JAX package (_mask_for_block and _seg_mask in
 // flash_attention_tpu/kernels/flash_attention.py).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace fa {
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// Element types of the kernels: float, bf16, fp16, and the 1-byte payloads
+// of a quantized KV cache (int8, fp8 e4m3).  Every value of a payload type
+// is exact in float, bf16 and fp16.
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
+
+// float -> T, rounded to nearest even.
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ __half from_float<__half>(float x) { return __float2half_rn(x); }
+
+// x rounded to T and read back as float.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
 
 template <typename T> struct Pack;
 template <> struct Pack<__nv_bfloat16> {
@@ -162,6 +189,41 @@ __device__ __forceinline__ void load_tile_f32(float* __restrict__ s, const float
   for (int i = threadIdx.x; i < ROWS * D; i += NTHREADS) {
     int r = i / D, c = i % D;
     s[r * LDS + c] = row0 + r < nrows ? g[(long long)(row0 + r) * ld + c] * scale : 0.f;
+  }
+}
+
+// A [ROWS, D] K or V tile into shared memory as T, rows past the end zero.
+// KV == T copies (load_tile).  A 1-byte payload is dequantized as the TPU
+// kernel does it (flash_attention_tpu/quant/kv.py:149-151, :175-177):
+// payload.to(T) * scale.to(T), the product rounded to T; `scales` holds one
+// fp32 scale per row of `g`.
+template <typename T, typename KV, int ROWS, int D, int LDS, int NTHREADS>
+__device__ __forceinline__ void load_kv_tile(T* __restrict__ s, const KV* __restrict__ g, long long ld,
+                                             const float* __restrict__ scales, int row0, int nrows) {
+  if constexpr (std::is_same<T, KV>::value) {
+    load_tile<T, ROWS, D, LDS, NTHREADS>(s, g, ld, row0, nrows);
+  } else {
+    static_assert(sizeof(KV) == 1, "quantized payloads are 1 byte");
+    constexpr int kVec = 16;
+    constexpr int kChunksPerRow = D / kVec;
+    for (int c = threadIdx.x; c < ROWS * kChunksPerRow; c += NTHREADS) {
+      const int r = c / kChunksPerRow;
+      const int col = (c % kChunksPerRow) * kVec;
+      alignas(16) T y[kVec];
+      if (row0 + r < nrows) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(g + (long long)(row0 + r) * ld + col);
+        const KV* x = reinterpret_cast<const KV*>(&raw);
+        const float sc = round_to<T>(scales[row0 + r]);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) y[e] = from_float<T>(to_float(x[e]) * sc);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) y[e] = from_float<T>(0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < kVec * (int)sizeof(T) / 16; ++i)
+        reinterpret_cast<uint4*>(s + r * LDS + col)[i] = reinterpret_cast<const uint4*>(y)[i];
+    }
   }
 }
 

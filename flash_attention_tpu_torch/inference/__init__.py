@@ -1,17 +1,21 @@
-"""Inference: KV cache, prefill/decode, sampling, continuous batching."""
+"""Inference: KV cache (plain or int8/fp8), prefill/decode, paged and
+slot-major decode kernels, sampling, continuous batching."""
 
-from .decode_attention import decode_attention
+from .decode_attention import decode_attention, decode_attention_paged
 from .engine import InferenceEngine, Request
 from .kv_cache import (
     KVCache,
     advance_lengths,
     decode_write,
+    identity_page_indices,
     init_cache,
     layer_kv,
+    page_view,
     prefill_write,
     set_length,
 )
 from .model_runner import decode_loop, decode_step, prefill, prefill_many
+from .paged_attention import paged_attention, paged_attention_ref
 from .sampling import sample, sample_tokens
 
 __all__ = [
@@ -20,11 +24,16 @@ __all__ = [
     "Request",
     "advance_lengths",
     "decode_attention",
+    "decode_attention_paged",
     "decode_loop",
     "decode_step",
     "decode_write",
+    "identity_page_indices",
     "init_cache",
     "layer_kv",
+    "page_view",
+    "paged_attention",
+    "paged_attention_ref",
     "prefill",
     "prefill_many",
     "prefill_write",

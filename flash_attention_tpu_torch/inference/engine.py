@@ -12,11 +12,13 @@ Port of `flash_attention_tpu/inference/engine.py`, GPT path:
        [steps, slots] token block;
     3. retire finished requests (eos, max_new_tokens, cache full).
 
-Options of the JAX engine that this slice does not port are absent from
-the constructor (quantized KV, custom prefill/decode functions, chunked
-prefill, scan_tokens_target, pipelined scans, speculative decoding,
-autotune warm-up), so passing one is a TypeError.  The drain after each
-scan is synchronous.
+The engine takes the JAX engine's `kv_quant_dtype` (an int8 or fp8 KV
+cache) and `decode_fn` (e.g. `partial(decode_step, attn_impl="paged")`).
+Options of the JAX engine that the port does not have yet are absent from
+the constructor (a custom prefill function, chunked prefill,
+scan_tokens_target, pipelined scans, speculative decoding, autotune
+warm-up), so passing one is a TypeError.  The drain after each scan is
+synchronous.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from ..config import resolve_device
 from ..models.gpt import GPT
+from ..quant.kv import QUANT_DTYPES
 from . import kv_cache as kvc
 from .model_runner import decode_step, prefill, prefill_many
 from .sampling import sample_tokens
@@ -60,6 +63,16 @@ class Request:
         return self.first_token_time - self.submit_time
 
 
+def _quant_dtype(dtype: torch.dtype | str | None) -> torch.dtype | None:
+    """A KV payload dtype given as a torch dtype or by its name."""
+    if dtype is None or dtype in QUANT_DTYPES:
+        return dtype
+    by_name = {str(d).removeprefix("torch."): d for d in QUANT_DTYPES}
+    if dtype not in by_name:
+        raise ValueError(f"kv_quant_dtype must be one of {sorted(by_name)} or None, got {dtype!r}")
+    return by_name[dtype]
+
+
 def _buckets(max_len: int) -> list[int]:
     out, b = [], 64
     while b < max_len:
@@ -78,15 +91,22 @@ class InferenceEngine:
         *,
         slots: int = 8,
         max_len: int | None = None,
+        kv_quant_dtype: torch.dtype | str | None = None,
         rng_seed: int = 0,
+        decode_fn: Callable | None = None,
         scan_steps: int = 8,
         device=None,
     ):
         """model: the GPT to serve; its weights must already lie on `device`
         (default: the model's own device).  A "cuda" device without a card
-        raises.  scan_steps: decode steps per scan, with one host sync per
-        scan; 1 gives per-token stepping.  rng_seed seeds the engine's
-        torch.Generator, which draws every sampled token."""
+        raises.  kv_quant_dtype: store the KV cache as int8 or fp8 payloads
+        with per-token scales (torch.int8 / torch.float8_e4m3fn, or their
+        names "int8" / "float8_e4m3fn").  decode_fn(model, tokens, cache,
+        active) -> (cache, logits) replaces `decode_step`, e.g.
+        `functools.partial(decode_step, attn_impl="fused")`.  scan_steps:
+        decode steps per scan, with one host sync per scan; 1 gives per-token
+        stepping.  rng_seed seeds the engine's torch.Generator, which draws
+        every sampled token."""
         if device is not None:
             want = resolve_device(device)
             if want.type != model.device.type or (want.index is not None and want != model.device):
@@ -98,8 +118,9 @@ class InferenceEngine:
         self.max_len = max_len or self.cfg.block_size
         self.cache = kvc.init_cache(
             self.cfg.n_layer, slots, self.cfg.kv_heads, self.max_len, self.cfg.head_dim,
-            dtype=self.cfg.dtype, device=model.device,
+            dtype=self.cfg.dtype, quant_dtype=_quant_dtype(kv_quant_dtype), device=model.device,
         )
+        self._decode = decode_fn or decode_step
         self.buckets = _buckets(self.max_len)
         self.scan_steps = max(1, scan_steps)
         self.queue: deque[Request] = deque()
@@ -315,7 +336,7 @@ class InferenceEngine:
         toks = self._next_tokens_dev
         block = []
         for _ in range(steps):
-            self.cache, logits = decode_step(self.model, toks, self.cache, active)
+            self.cache, logits = self._decode(self.model, toks, self.cache, active)
             if sampling:
                 nxt = sample_tokens(logits, self._gen, temps, topks, topps if use_top_p else None)
             else:

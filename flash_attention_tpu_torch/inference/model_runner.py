@@ -1,12 +1,13 @@
 """GPT forward passes against a KV cache: prefill and decode.
 
 Port of `flash_attention_tpu/inference/model_runner.py` (prefill,
-prefill_many, the einsum decode_step and decode_loop).  Prefill runs the
+prefill_many, decode_step and decode_loop).  Prefill runs the
 flash-attention kernel over the prompt (a fresh slot's cache is empty, so
 prompt tokens attend causally among themselves) and writes K/V into the
-cache as it goes; decode runs one token per slot through
-`decode_attention`.  The functions take the `GPT` module where the JAX
-package took its params pytree and config; the cache is updated in place.
+cache as it goes, quantized when the cache is; decode runs one token per
+slot through the decode attention that `attn_impl` names.  The functions
+take the `GPT` module where the JAX package took its params pytree and
+config; the cache is updated in place.
 """
 
 from __future__ import annotations
@@ -18,7 +19,15 @@ import torch
 from ..kernels.flash_attention import flash_attention
 from ..models.gpt import GPT
 from . import kv_cache as kvc
-from .decode_attention import decode_attention
+from .decode_attention import decode_attention, decode_attention_fused, decode_attention_paged
+
+# decode_step's attn_impl.  The JAX package's "chunked" worked around an XLA
+# strategy of the TPU toolchain and is not ported.
+DECODE_ATTENTION = {
+    "einsum": decode_attention,
+    "paged": decode_attention_paged,
+    "fused": decode_attention_fused,
+}
 
 
 def _prefill_blocks(model: GPT, tokens: torch.Tensor, cache: kvc.KVCache, slots: Sequence[int]) -> torch.Tensor:
@@ -90,6 +99,8 @@ def decode_step(
     tokens: torch.Tensor,
     cache: kvc.KVCache,
     active: torch.Tensor | None = None,
+    *,
+    attn_impl: str = "einsum",
 ) -> tuple[kvc.KVCache, torch.Tensor]:
     """One decode step for every slot: tokens [slots] -> fp32 logits
     [slots, vocab].
@@ -100,8 +111,13 @@ def decode_step(
     shapes); `active` [slots] bool gates their length advance.  Lengths
     stop advancing at max_len - 1, so a full slot overwrites its last
     entry instead of corrupting the mask; the engine retires sequences
-    before that.
+    before that.  attn_impl: "einsum" (plain PyTorch over the whole cache,
+    the default), "paged" (K5 over the cache's page view) or "fused" (K6,
+    slot-major); the kernels read each slot only up to its length.
     """
+    if attn_impl not in DECODE_ATTENTION:
+        raise ValueError(f"attn_impl must be one of {sorted(DECODE_ATTENTION)}, got {attn_impl!r}")
+    attend = DECODE_ATTENTION[attn_impl]
     cfg = model.cfg
     s = cache.slots
     h, hkv, d = cfg.n_head, cfg.kv_heads, cfg.head_dim
@@ -110,7 +126,7 @@ def decode_step(
     for li, blk in enumerate(model.blocks):
         q, k, v = blk.attn.split_heads(blk.ln1(x))  # [S, H, 1, D]
         kvc.decode_write(cache, li, k.reshape(s, hkv, d), v.reshape(s, hkv, d), positions)
-        y = decode_attention(q.reshape(s, h, d), cache, li)
+        y = attend(q.reshape(s, h, d), cache, li)
         x = x + blk.attn.merge_heads(y[:, :, None])
         x = x + blk.mlp(blk.ln2(x))
     logits = model.head(x[:, 0]).float()
@@ -126,6 +142,8 @@ def decode_loop(
     cache: kvc.KVCache,
     first_tokens: torch.Tensor,
     n_steps: int,
+    *,
+    attn_impl: str = "einsum",
 ) -> tuple[kvc.KVCache, torch.Tensor]:
     """Greedy decoding of `n_steps` chained decode steps on the device (a
     Python loop in place of the JAX package's lax.scan).  Returns (cache,
@@ -133,7 +151,7 @@ def decode_loop(
     toks = first_tokens
     out = []
     for _ in range(n_steps):
-        cache, logits = decode_step(model, toks, cache)
+        cache, logits = decode_step(model, toks, cache, attn_impl=attn_impl)
         toks = torch.argmax(logits, dim=-1).to(torch.int32)
         out.append(toks)
     return cache, torch.stack(out)

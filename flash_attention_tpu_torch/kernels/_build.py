@@ -30,7 +30,8 @@ NVCC_FLAGS = [
 
 _lib: ctypes.CDLL | None = None
 # What the last build did: library path, seconds spent in nvcc (0.0 when the
-# library was already built), and the compiler's register/spill report.
+# library was already built), the seconds each source's nvcc took (all
+# started together), and the compiler's register/spill report.
 build_info: dict = {}
 
 
@@ -67,24 +68,33 @@ def build() -> str:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         t0 = time.perf_counter()
         objs = [os.path.join(tmpdir, os.path.basename(cu) + ".o") for cu in cus]
-        procs = [
-            subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, cu],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            )
-            for cu, obj in zip(cus, objs)
-        ]
-        outs = [proc.communicate() for proc in procs]
-        for cu, proc, (out, err) in zip(cus, procs, outs):
+        # Output goes to files, not pipes: a compiler blocked on a full pipe
+        # would wait for its turn to be read and serialise the build.
+        logs = [os.path.join(tmpdir, os.path.basename(cu) + ".log") for cu in cus]
+        procs = []
+        for cu, obj, log in zip(cus, objs, logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, cu], stdout=f, stderr=f))
+        per_source = {}
+        while len(per_source) < len(procs):
+            for cu, proc in zip(cus, procs):
+                if os.path.basename(cu) not in per_source and proc.poll() is not None:
+                    per_source[os.path.basename(cu)] = time.perf_counter() - t0
+            time.sleep(0.05)
+        outs = []
+        for log in logs:
+            with open(log) as f:
+                outs.append(f.read())
+        for cu, proc, out in zip(cus, procs, outs):
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {os.path.basename(cu)} ({proc.returncode}):\n{out}\n{err}")
+                raise RuntimeError(f"nvcc failed on {os.path.basename(cu)} ({proc.returncode}):\n{out}")
         so = os.path.join(tmpdir, "lib.so")
         link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs], capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
         seconds = time.perf_counter() - t0
         os.replace(so, path)  # atomic: a concurrent loader sees all or nothing
-    build_info.update(path=path, seconds=seconds, ptxas="".join(err for _, err in outs))
+    build_info.update(path=path, seconds=seconds, per_source=per_source, ptxas="".join(outs))
     return path
 
 
@@ -112,5 +122,24 @@ def library() -> ctypes.CDLL:
         lib.fa_flash_bwd_dkv.restype = i
         lib.fa_flash_bwd_dq.argtypes = [p] * 9 + bwd_tail
         lib.fa_flash_bwd_dq.restype = i
+        lib.fa_flash_fwd_kv_quant.argtypes = [
+            p, p, p, p, p, p, p, p,  # q, k, k_scale, v, v_scale, o, q_ids, kv_ids
+            i, i, i, i, i, i, i, i,  # dtype, kv_dtype, batch, hq, hkv, lq, lk, head_dim
+            ctypes.POINTER(ll),  # 14 strides: q, k, v, o, scales
+            f, i, i, p,  # scale_log2, causal, window, stream
+        ]
+        lib.fa_flash_fwd_kv_quant.restype = i
+        lib.fa_paged_decode.argtypes = [
+            p, p, p, p, p, p, p, p,  # q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices, out
+            i, i, i, i, i, i, i, i, i,  # q_dtype, kv_dtype, batch, hq, hkv, head_dim, page_size, pages_per_seq, len_add
+            ctypes.POINTER(ll), f, p,  # 12 strides, sm_scale, stream
+        ]
+        lib.fa_paged_decode.restype = i
+        lib.fa_fused_decode.argtypes = [
+            p, p, p, p, p, p, p,  # q, k, v, k_scales, v_scales, lengths, out
+            i, i, i, i, i, i, i,  # q_dtype, kv_dtype, slots, hq, hkv, head_dim, max_len
+            ctypes.POINTER(ll), f, p,  # 12 strides, sm_scale, stream
+        ]
+        lib.fa_fused_decode.restype = i
         _lib = lib
     return _lib

@@ -54,8 +54,17 @@ _LN2 = 0.6931471805599453
 SUPPORTED_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-# Launches of each CUDA kernel, counted by its wrapper where it launches.
-KERNEL_LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+# Launches of each CUDA kernel of the port, counted by its wrapper where it
+# launches: K1-K3 here, K4 in quant/kv.py, K5 and K6 in
+# inference/paged_attention.py.
+KERNEL_LAUNCHES = {
+    "flash_fwd": 0,
+    "flash_bwd_dkv": 0,
+    "flash_bwd_dq": 0,
+    "flash_fwd_kv_quant": 0,
+    "paged_decode": 0,
+    "fused_decode": 0,
+}
 
 
 @dataclasses.dataclass(frozen=True)

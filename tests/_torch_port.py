@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from flash_attention_tpu.models import gpt as jgpt
+from flash_attention_tpu_torch.inference import kv_cache as tkv
 from flash_attention_tpu_torch.models import gpt as tgpt
 
 # The tier-1 run uses several pytest workers; keep each one's intra-op
@@ -53,3 +54,27 @@ def n(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def from_jax(a) -> torch.Tensor:
+    """A JAX array as a torch tensor (a copy).  numpy has no fp8, so fp8
+    e4m3 travels as a uint8 view and is viewed back as torch's fp8."""
+    a = np.asarray(a)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8).copy()).view(torch.float8_e4m3fn)
+    return torch.from_numpy(a.copy())
+
+
+def bits(x) -> np.ndarray:
+    """The raw bytes of a 1-byte payload (int8 or fp8, JAX or torch) as
+    uint8, for bit-exact comparison."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().view(torch.uint8).numpy()
+    return np.asarray(x).view(np.uint8)
+
+
+def torch_cache(jc) -> tkv.KVCache:
+    """The port's KVCache holding a JAX KVCache's contents, with separate
+    k_scale and v_scale tensors."""
+    scales = (from_jax(jc.k_scale), from_jax(jc.v_scale)) if jc.k_scale is not None else (None, None)
+    return tkv.KVCache(from_jax(jc.k), from_jax(jc.v), *scales, from_jax(jc.lengths))

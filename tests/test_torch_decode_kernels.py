@@ -1,0 +1,189 @@
+"""Decode kernels' plain versions against the JAX package: K5
+(`paged_attention`, plain route = `paged_attention_ref`) against JAX's
+`paged_attention` in Pallas interpret mode and its reference; the page view
+of the cache; the quantized einsum `decode_attention` (K6's plain version)
+and `decode_attention_paged` / `decode_attention_fused` on the same cache
+contents as JAX's `decode_attention`.  Inputs are numpy from a seed; fp8
+payloads cross as uint8 views."""
+
+import dataclasses
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import bits, from_jax, n, randn, t, torch_cache
+from flash_attention_tpu.inference import kv_cache as jkvc
+from flash_attention_tpu.quant import kv as jq
+from flash_attention_tpu_torch.inference import kv_cache as tkvc
+from flash_attention_tpu_torch.kernels.flash_attention import KERNEL_LAUNCHES
+
+# the modules, not the functions that the packages re-export under their names
+jda = importlib.import_module("flash_attention_tpu.inference.decode_attention")
+jpa = importlib.import_module("flash_attention_tpu.inference.paged_attention")
+tda = importlib.import_module("flash_attention_tpu_torch.inference.decode_attention")
+tpa = importlib.import_module("flash_attention_tpu_torch.inference.paged_attention")
+
+QUANT = {None: None, "int8": jnp.int8, "fp8": jnp.float8_e4m3fn}
+
+# fp32 tolerance of the JAX package's own quantized-page test
+# (tests/test_paged_attention.py): atol 5e-5, rtol 1e-4.
+ATOL, RTOL = 5e-5, 1e-4
+
+
+def _pages(quant, batch=4, hq=8, hkv=2, d=64, page_size=16, pps=8, seed=0):
+    """q, a permuted page table over more pages than the sequences use, and
+    pages (quantized with the JAX package's quantize_tokens when `quant`)."""
+    n_pages = batch * pps + 3
+    rng = np.random.default_rng(seed)
+    q = randn(seed, batch, hq, d)
+    kp, vp = randn(seed + 1, hkv, n_pages, page_size, d), randn(seed + 2, hkv, n_pages, page_size, d)
+    pi = rng.permutation(n_pages)[: batch * pps].reshape(batch, pps).astype(np.int32)
+    if quant is None:
+        return q, pi, (jnp.asarray(kp), jnp.asarray(vp), None, None)
+    kq, ks = jq.quantize_tokens(jnp.asarray(kp), QUANT[quant])
+    vq, vs = jq.quantize_tokens(jnp.asarray(vp), QUANT[quant])
+    return q, pi, (kq, vq, ks, vs)
+
+
+def _torch_pages(pages):
+    return tuple(None if a is None else from_jax(a) for a in pages)
+
+
+@pytest.mark.parametrize("quant", QUANT)
+def test_paged_matches_jax_kernel_and_reference(quant):
+    """Ragged lengths including 0 (counts as 1) and 1, a permuted page
+    table, GQA (8 q heads on 2 KV heads)."""
+    q, pi, pages = _pages(quant)
+    lengths = np.array([1, 17, 100, 0], np.int32)
+    kw = dict(k_scales=pages[2], v_scales=pages[3])
+    jout = jpa.paged_attention(jnp.asarray(q), pages[0], pages[1], jnp.asarray(lengths), jnp.asarray(pi),
+                               pages_per_compute_block=2, **kw)
+    jref = jpa.paged_attention_ref(jnp.asarray(q), pages[0], pages[1], jnp.asarray(lengths), jnp.asarray(pi), **kw)
+    kp, vp, ks, vs = _torch_pages(pages)
+    before = dict(KERNEL_LAUNCHES)
+    tout = tpa.paged_attention(t(q), kp, vp, t(lengths), t(pi), k_scales=ks, v_scales=vs)
+    assert KERNEL_LAUNCHES == before  # the plain route launches nothing
+    assert tout.shape == q.shape and tout.dtype == torch.float32
+    np.testing.assert_allclose(n(tout), np.asarray(jout), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(n(tout), np.asarray(jref), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("quant", QUANT)
+def test_paged_garbage_past_length_does_not_leak(quant):
+    """NaN in every page slot past a sequence's length (payload, or scales
+    for a quantized cache) leaves the output finite and unchanged."""
+    q, pi, pages = _pages(quant, batch=2, pps=4)
+    lengths = np.array([5, 40], np.int32)
+    kp, vp, ks, vs = _torch_pages(pages)
+    clean = tpa.paged_attention(t(q), kp, vp, t(lengths), t(pi), k_scales=ks, v_scales=vs)
+    page_size = kp.shape[2]
+    for b, length in enumerate(lengths):
+        for j, page in enumerate(pi[b]):
+            start = max(0, int(length) - j * page_size)
+            if start >= page_size:
+                continue
+            if quant is None:
+                kp[:, page, start:] = float("nan")
+                vp[:, page, start:] = float("nan")
+            else:
+                ks[:, page, start:] = float("nan")
+                vs[:, page, start:] = float("nan")
+    dirty = tpa.paged_attention(t(q), kp, vp, t(lengths), t(pi), k_scales=ks, v_scales=vs)
+    assert torch.isfinite(dirty).all()
+    assert torch.equal(dirty, clean)
+
+
+def _jax_cache(quant, lengths=(0, 16, 139), hkv=2, max_len=256, d=64, n_layer=2, seed=20):
+    """A JAX cache filled by its own prefill_write/decode_write with ragged
+    lengths: the current token of slot s sits at lengths[s], and every slot
+    holds data (garbage to the mask) up to the longest length."""
+    slots, fill = len(lengths), max(lengths) + 1
+    c = jkvc.init_cache(n_layer, slots, hkv, max_len, d, dtype=jnp.float32, quant_dtype=QUANT[quant])
+    for layer in range(n_layer):
+        for s in range(slots):
+            c = jkvc.prefill_write(c, layer, jnp.int32(s), jnp.asarray(randn(seed + 10 * layer + s, hkv, fill, d)),
+                                   jnp.asarray(randn(seed + 10 * layer + s + 5, hkv, fill, d)))
+    pos = jnp.asarray(lengths, jnp.int32)
+    c = jkvc.decode_write(c, 1, jnp.asarray(randn(seed + 99, slots, hkv, d)),
+                          jnp.asarray(randn(seed + 98, slots, hkv, d)), pos)
+    return dataclasses.replace(c, lengths=pos)
+
+
+@pytest.mark.parametrize("quant", QUANT)
+def test_page_view_and_identity_indices_match_jax(quant):
+    jc = _jax_cache(quant)
+    tc = torch_cache(jc)
+    for a, b in zip(tkvc.page_view(tc, 1, 64), jkvc.page_view(jc, 1, 64)):
+        if b is None:
+            assert a is None
+            continue
+        assert a.shape == b.shape
+        raw = bits if a.element_size() == 1 else n
+        np.testing.assert_array_equal(raw(a), raw(b))
+    k_pages = tkvc.page_view(tc, 1, 64)[0]
+    assert k_pages.data_ptr() == tc.k[1].data_ptr()  # a view, not a copy
+    np.testing.assert_array_equal(n(tkvc.identity_page_indices(3, 256, 64)),
+                                  np.asarray(jkvc.identity_page_indices(3, 256, 64)))
+    with pytest.raises(ValueError, match="page_size"):
+        tkvc.page_view(tc, 0, 100)
+
+
+@pytest.mark.parametrize("impl", ["einsum", "paged", "fused"])
+@pytest.mark.parametrize("quant", QUANT)
+def test_decode_attention_matches_jax_einsum(quant, impl):
+    """Every decode path's plain route against JAX's einsum
+    `decode_attention` on the same cache contents, GQA 8 on 2, fp32."""
+    jc = _jax_cache(quant)
+    tc = torch_cache(jc)
+    q = randn(30, 3, 8, 64)
+    jout = jda.decode_attention(jnp.asarray(q), jc, 1)
+    fn = {"einsum": tda.decode_attention, "paged": tda.decode_attention_paged, "fused": tda.decode_attention_fused}
+    tout = fn[impl](t(q), tc, 1)
+    assert tout.shape == q.shape
+    np.testing.assert_allclose(n(tout), np.asarray(jout), atol=ATOL, rtol=RTOL)
+
+
+def test_jax_fused_kernel_interpret_small_case():
+    """One small case of JAX's fused kernel in interpret mode (int8, MHA)
+    against the port's fused decode (plain route).  atol 1e-2: the TPU kernel
+    rounds P to bf16 before its PV product for an int8 cache (pv_dtype,
+    decode_attention.py:361), the port to q's dtype (fp32 here).  The same
+    cache with fp8 payloads measures that defect: JAX's fused fp8 output lies
+    further from its own einsum than the port's does."""
+    small = dict(lengths=(0, 70), hkv=4, max_len=128, d=32, seed=40)
+    jc = _jax_cache("int8", **small)
+    q = randn(41, 2, 4, 32)
+    jout = jda.decode_attention_fused(jnp.asarray(q), jc, 1, block=64)
+    tout = tda.decode_attention_fused(t(q), torch_cache(jc), 1)
+    print(f"int8 cache, fp32 q: |JAX fused - port fused| = {np.abs(n(tout) - np.asarray(jout)).max():.3e}")
+    np.testing.assert_allclose(n(tout), np.asarray(jout), atol=1e-2, rtol=0)
+
+    jc8 = _jax_cache("fp8", **small)
+    ref = np.asarray(jda.decode_attention(jnp.asarray(q), jc8, 1))
+    jax_fused_err = np.abs(np.asarray(jda.decode_attention_fused(jnp.asarray(q), jc8, 1, block=64)) - ref).max()
+    port_fused_err = np.abs(n(tda.decode_attention_fused(t(q), torch_cache(jc8), 1)) - ref).max()
+    print(f"fp8 cache, fp32 q: |JAX fused - JAX einsum| = {jax_fused_err:.3e}, "
+          f"|port fused - JAX einsum| = {port_fused_err:.3e}")
+    assert port_fused_err <= ATOL < jax_fused_err
+
+
+def test_decode_launchers_raise_without_a_card():
+    """K5/K6's launcher never falls back: CPU tensors, an unsupported head
+    dim, a GQA group over 8 or an fp16 q raise."""
+    q, pi, pages = _pages("int8")
+    kp, vp, ks, vs = _torch_pages(pages)
+    lengths = t(np.array([3, 4, 5, 6], np.int32))
+    with pytest.raises(RuntimeError, match="CUDA tensors only"):
+        tpa._launch_decode("paged_decode", t(q), kp, vp, ks, vs, lengths, t(pi), sm_scale=0.125, len_add=0)
+    with pytest.raises(NotImplementedError, match="head dims"):
+        tpa._launch_decode("paged_decode", t(q)[..., :32], kp[..., :32], vp[..., :32], ks, vs, lengths, t(pi),
+                           sm_scale=0.125, len_add=0)
+    q18 = t(randn(1, 4, 18, 64))
+    with pytest.raises(NotImplementedError, match="groups"):
+        tpa._launch_decode("paged_decode", q18, kp[:1], vp[:1], ks[:1], vs[:1], lengths, t(pi), sm_scale=0.1,
+                           len_add=0)
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        tpa._launch_decode("paged_decode", t(q).half(), kp, vp, ks, vs, lengths, t(pi), sm_scale=0.1, len_add=0)

@@ -1,16 +1,18 @@
-"""Serving path: KV cache writes, prefill / prefill_many / decode_step
-against the JAX package's model_runner (1e-4, fp32), the engine's greedy
-outputs against the JAX engine's, sampling support, and the CUDA-only
-paths that must raise where there is no card."""
+"""Serving path: KV cache writes (plain and int8/fp8), prefill /
+prefill_many / decode_step (every attn_impl) against the JAX package's
+model_runner (1e-4, fp32), the engine's greedy outputs (plain and int8
+cache) against the JAX engine's, sampling support, and the CUDA-only paths
+that must raise where there is no card."""
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_port import JAX_CFG, TORCH_CFG, jax_tree, n, numpy_params, randn, t
+from _torch_port import JAX_CFG, TORCH_CFG, bits, jax_tree, n, numpy_params, randn, t
 from flash_attention_tpu.inference import engine as jengine
 from flash_attention_tpu.inference import kv_cache as jkv
 from flash_attention_tpu.inference import model_runner as jmr
@@ -29,9 +31,14 @@ def models():
     return jax_tree(tree), tgpt.params_from_jax(tree, TORCH_CFG)
 
 
-def _caches():
+QUANT = {"int8": (jnp.int8, torch.int8), "fp8": (jnp.float8_e4m3fn, torch.float8_e4m3fn)}
+
+
+def _caches(quant: str | None = None):
     args = (JAX_CFG.n_layer, SLOTS, JAX_CFG.kv_heads, MAX_LEN, JAX_CFG.head_dim)
-    return jkv.init_cache(*args, dtype=jnp.float32), tkv.init_cache(*args, dtype=torch.float32)
+    jq, tq = QUANT[quant] if quant else (None, None)
+    return (jkv.init_cache(*args, dtype=jnp.float32, quant_dtype=jq),
+            tkv.init_cache(*args, dtype=torch.float32, quant_dtype=tq))
 
 
 def _assert_cache_equal(jc, tc, atol=1e-4):
@@ -61,6 +68,32 @@ def test_cache_writes_match_jax_and_happen_in_place():
     tk, tv = tkv.layer_kv(tc, 1, dtype=torch.float32)
     np.testing.assert_array_equal(n(tk), np.asarray(jk))
     np.testing.assert_array_equal(n(tv), np.asarray(jv))
+
+
+@pytest.mark.parametrize("quant", QUANT)
+def test_quantized_cache_writes_match_jax_in_place(quant):
+    """prefill_write and decode_write store JAX's payloads (bit for bit) and
+    scales, in place; k_scale and v_scale are separate tensors, where the
+    JAX package's init_cache gives both one array."""
+    jc, tc = _caches(quant)
+    assert tc.quantized and tc.k_scale is not tc.v_scale
+    h, d = JAX_CFG.kv_heads, JAX_CFG.head_dim
+    k0, v0 = randn(11, h, 9, d), randn(12, h, 9, d)
+    jc = jkv.prefill_write(jc, 1, jnp.int32(2), jnp.asarray(k0), jnp.asarray(v0))
+    tensors = (tc.k, tc.v, tc.k_scale, tc.v_scale)
+    tkv.prefill_write(tc, 1, 2, t(k0), t(v0))
+    kn, vn = randn(13, SLOTS, h, d), randn(14, SLOTS, h, d) * 5.0
+    pos = np.array([3, 0, 9], np.int32)
+    jc = jkv.decode_write(jc, 0, jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(pos))
+    tkv.decode_write(tc, 0, t(kn), t(vn), t(pos))
+    assert all(a is b for a, b in zip((tc.k, tc.v, tc.k_scale, tc.v_scale), tensors))
+    np.testing.assert_array_equal(bits(tc.k), bits(jc.k))
+    np.testing.assert_array_equal(bits(tc.v), bits(jc.v))
+    np.testing.assert_array_equal(n(tc.k_scale), np.asarray(jc.k_scale))
+    np.testing.assert_array_equal(n(tc.v_scale), np.asarray(jc.v_scale))
+    for layer in (0, 1):
+        for a, b in zip(tkv.layer_kv(tc, layer, torch.float32), jkv.layer_kv(jc, layer, jnp.float32)):
+            np.testing.assert_array_equal(n(a), np.asarray(b))
 
 
 @pytest.mark.parametrize("t_len,length", [(160, None), (64, 41)])
@@ -112,6 +145,38 @@ def test_chained_decode_steps_match_jax(models):
         np.testing.assert_allclose(n(tl)[:2], np.asarray(jl)[:2], atol=1e-4, rtol=0)
     assert n(tc.lengths).tolist() == [28, 13, 0]
     _assert_cache_equal(jc, tc)
+
+
+@pytest.mark.parametrize("attn_impl", ["einsum", "paged", "fused"])
+def test_chained_quantized_decode_steps_match_jax(models, attn_impl):
+    """An int8 cache: prefill, then 8 teacher-forced decode steps.  The
+    port's attn_impl path against the JAX package's einsum path at 1e-4, the
+    fp32 tier of the unquantized test; the payloads stay bit-equal (K/V the
+    two packages compute 1e-7 apart round to the same int8 here) and the
+    scales equal to 1e-6 relative.  Against
+    the port's own einsum path on the same cache, at 1e-5."""
+    jp, tm = models
+    prompt = np.arange(1, 21, dtype=np.int32)
+    jc, tc = _caches("int8")
+    _, ref_cache = _caches("int8")
+    for cache in (tc, ref_cache):
+        tmr.prefill(tm, t(prompt), cache, 0)
+        tmr.prefill(tm, t(prompt[:5]), cache, 1)
+    jc, _ = jmr.prefill(jp, jnp.asarray(prompt), JAX_CFG, jc, jnp.int32(0))
+    jc, _ = jmr.prefill(jp, jnp.asarray(prompt[:5]), JAX_CFG, jc, jnp.int32(1))
+    active = np.array([True, True, False])
+    feed = np.random.default_rng(5).integers(0, 64, (8, SLOTS)).astype(np.int32)
+    for step in range(8):
+        jc, jl = jmr.decode_step(jp, jnp.asarray(feed[step]), JAX_CFG, jc, jnp.asarray(active))
+        tc, tl = tmr.decode_step(tm, t(feed[step]), tc, t(active), attn_impl=attn_impl)
+        _, el = tmr.decode_step(tm, t(feed[step]), ref_cache, t(active))
+        np.testing.assert_allclose(n(tl)[:2], np.asarray(jl)[:2], atol=1e-4, rtol=0)
+        np.testing.assert_allclose(n(tl)[:2], n(el)[:2], atol=1e-5, rtol=0)
+    assert n(tc.lengths).tolist() == [28, 13, 0]
+    np.testing.assert_array_equal(bits(tc.k), bits(jc.k))
+    np.testing.assert_allclose(n(tc.v_scale), np.asarray(jc.v_scale), rtol=1e-6, atol=0)
+    with pytest.raises(ValueError, match="attn_impl"):
+        tmr.decode_step(tm, t(feed[0]), tc, attn_impl="chunked")
 
 
 def test_decode_stops_advancing_at_capacity(models):
@@ -181,6 +246,48 @@ def test_engine_greedy_matches_jax_engine(scaled_models):
     assert teng.stats["tokens_out"] == sum(len(o) for o in tout.values())
 
 
+def test_engine_int8_greedy_matches_jax_int8_engine(scaled_models):
+    """An int8 KV cache: the port's engine, on each decode path, gives the
+    JAX int8 engine's greedy outputs token for token; kv_quant_dtype may be
+    given by name, as the JAX README does."""
+    jp, tm = scaled_models
+    rng = np.random.default_rng(8)
+    lens_budgets = [(5, 6), (150, 5), (30, 9), (12, 1), (9, 12)]
+    prompts = [(rng.integers(0, 64, m).tolist(), b) for m, b in lens_budgets]
+    jeng = jengine.InferenceEngine(jp, JAX_CFG, slots=2, max_len=MAX_LEN, scan_steps=4, pipeline_scans=False,
+                                   kv_quant_dtype=jnp.int8)
+    for p, b in prompts:
+        jeng.submit(p, max_new_tokens=b)
+    jout = {r.uid: r.output for r in jeng.run()}
+    for attn_impl, dtype in (("einsum", "int8"), ("paged", torch.int8), ("fused", "int8")):
+        teng = tengine.InferenceEngine(tm, slots=2, max_len=MAX_LEN, scan_steps=4, kv_quant_dtype=dtype,
+                                       decode_fn=functools.partial(tmr.decode_step, attn_impl=attn_impl))
+        assert teng.cache.k.dtype == torch.int8 and teng.cache.quantized
+        for p, b in prompts:
+            teng.submit(p, max_new_tokens=b)
+        assert {r.uid: r.output for r in teng.run()} == jout, attn_impl
+
+
+def test_engine_honours_decode_fn_and_checks_quant_dtype(models):
+    _, tm = models
+    calls = []
+
+    def decode_fn(model, tokens, cache, active):
+        calls.append(tokens.shape)
+        return tmr.decode_step(model, tokens, cache, active)
+
+    eng = tengine.InferenceEngine(tm, slots=2, max_len=MAX_LEN, scan_steps=4, decode_fn=decode_fn)
+    eng.submit([1, 2, 3], max_new_tokens=6)
+    ref = tengine.InferenceEngine(tm, slots=2, max_len=MAX_LEN, scan_steps=4)
+    ref.submit([1, 2, 3], max_new_tokens=6)
+    assert eng.run()[0].output == ref.run()[0].output
+    assert len(calls) == eng.stats["decode_steps"] > 0
+    assert tengine.InferenceEngine(tm, kv_quant_dtype="float8_e4m3fn").cache.k.dtype == torch.float8_e4m3fn
+    for bad in ("int4", torch.float16):
+        with pytest.raises(ValueError, match="kv_quant_dtype|quant_dtype"):
+            tengine.InferenceEngine(tm, kv_quant_dtype=bad)
+
+
 def test_engine_eos_and_single_token(models):
     _, tm = models
     eng = tengine.InferenceEngine(tm, slots=1, max_len=MAX_LEN, scan_steps=4)
@@ -240,8 +347,8 @@ def test_top_k_top_p_restrict_support():
 
 @pytest.mark.parametrize(
     "option",
-    ["kv_quant_dtype", "prefill_fn", "decode_fn", "chunk_prefill", "prefill_chunk_fn",
-     "scan_tokens_target", "pipeline_scans", "draft_params", "spec_k"],
+    ["prefill_fn", "chunk_prefill", "prefill_chunk_fn", "scan_tokens_target", "pipeline_scans", "draft_params",
+     "spec_k"],
 )
 def test_engine_rejects_unported_options(models, option):
     _, tm = models
