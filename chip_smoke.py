@@ -12,12 +12,14 @@ non-zero and never prints the final `"ok": true` line:
               registers and spills per kernel.
 3. k1       - the flash-attention forward kernel against its plain PyTorch
               tile loop and against dense (vanilla) attention, at the GPT-2
-              shapes and more (window, segment ids), each error beside its
+              shapes and more (window, segment ids, the tile's ragged edges
+              with a GQA group crossing the diagonal), each error beside its
               tolerance.
 4. k2k3     - gradients of K1+K2+K3 through the autograd Function against
               the plain backward and against autograd of fp32 vanilla.
 5. k4       - quantized-KV flash attention (int8/fp8 K/V) against its plain
-              version and fp32 vanilla on the dequantized K/V; then the
+              version and fp32 vanilla on the dequantized K/V (Lk % 4 != 0
+              among them, so the scales' rows are unaligned); then the
               quant op's path (quantize_kv + flash_attention_kv_quant for
               12 layers at b8 x T1024), which must launch K4 12 times.
 6. decode   - K5 (paged) and K6 (slot-major) decode against their plain
@@ -46,13 +48,19 @@ non-zero and never prints the final `"ok": true` line:
               dense attention from the same weights and batches: losses
               within 2e-3.
 13. timing  - K1, and one backward (K2, K3, both with the di reduction),
-              against the plain versions and vanilla at GPT-2 shapes; K4 at
-              b1/b8, K5 and K6 at 8 slots with contexts near 512 of 1024,
-              int8 and bf16, against their plain versions, each beside its
-              floor at 3.35 TB/s (and 989 TFLOP/s).  CUDA events, medians.
+              against the plain versions and vanilla at GPT-2 shapes, and
+              torch SDPA forward / backward as the one library call for the
+              same function; K4 at b1/b8 (SDPA forward on bf16 K/V beside it,
+              the same FLOPs but not the same function), K5 and K6 at 8
+              slots with contexts near 512 of 1024, int8 and bf16, against
+              their plain versions.  Device time: a CUDA graph of 20 calls
+              between CUDA events (graph_ms); "a call" adds the host's
+              enqueue.  Each kernel beside its bound: the larger of its bytes
+              at 3.35 TB/s and its FLOPs at 989 TFLOP/s.
 
-The line before the last is a JSON summary of the kernels; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is a JSON summary of the kernels (launches on the
+main path, max error, device ms, plain ms, bound ms and what sets it,
+library ms or null); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -224,6 +232,11 @@ def phase_k1(seed: int) -> float:
     check_k1("3 segments b2 h12 L1024 D64 bf16", gen, 2, 12, 12, 1024, 1024, 64, bf16, True, 2e-2, segments=True)
     check_k1("window 100 fp32 b1 h4 L384 D128", gen, 1, 4, 4, 384, 384, 128, torch.float32, True, 1e-5, window=100)
     check_k1("3 segments fp32 b2 h4 L300 D64", gen, 2, 4, 2, 300, 300, 64, torch.float32, True, 1e-5, segments=True)
+    # the forward tile's edges: lq 129 (one row past two consumer
+    # warpgroups' 64 rows), lk 257 (one row past four 64-row KV tiles), a
+    # GQA group of 4 whose q tiles cross the end-aligned diagonal, window 100
+    check_k1("edges q129 kv257 gqa 8/2 window 100 bf16", gen, 2, 8, 2, 129, 257, 64, bf16, True, 2e-2, window=100)
+    check_k1("edges q129 kv257 gqa 8/2 D128 fp16", gen, 2, 8, 2, 129, 257, 128, torch.float16, True, 2e-2)
     # lse (fp32, natural log) against dense attention's
     q, k, v = (_rand(gen, (1, 4, 300, 64), torch.float32) for _ in range(3))
     with torch.no_grad():
@@ -366,6 +379,9 @@ def phase_k4(seed: int) -> tuple[float, int]:
         check_k4("window 256 b2 h12 L1024 D64 bf16 int8", gen, 2, 12, 12, 1024, 1024, 64, bf16, i8, 2e-2, window=256),
         check_k4("3 segments b2 h12 L1024 D64 bf16 fp8", gen, 2, 12, 12, 1024, 1024, 64, bf16, f8, 2e-2, segments=True),
         check_k4("fp16 b2 h12 L300 D64 int8", gen, 2, 12, 12, 300, 300, 64, torch.float16, i8, 2e-2),
+        # Lk % 4 != 0: the scales' rows are not 16-byte aligned, so they are
+        # loaded without TMA
+        check_k4("lk%4=3 q1023 kv1023 gqa 8/2 D128 bf16 fp8", gen, 1, 8, 2, 1023, 1023, 128, bf16, f8, 2e-2),
         check_k4("fp32 b1 h4 L384 D64 int8", gen, 1, 4, 4, 384, 384, 64, torch.float32, i8, 5e-5),
         check_k4("fp32 gqa hq4 hkv2 L384 D128 fp8 window 100", gen, 1, 4, 2, 384, 384, 128, torch.float32, f8, 5e-5,
                  window=100),
@@ -738,70 +754,104 @@ def phase_train_parity(seed: int, data: np.ndarray) -> None:
         raise AssertionError("[train-parity] flash and dense losses disagree")
 
 
+def _grad_fn(attn, q, k, v, do):
+    """A call that runs only the backward of `attn(q, k, v)` with cotangent
+    `do`.  The forward runs once, at the first call, on the stream that
+    makes it (graph_ms's side stream), so that the backward, which autograd
+    runs on the forward's stream, can be captured there."""
+    inputs = tuple(t.detach().requires_grad_() for t in (q, k, v))
+    out = []
+
+    def run():
+        if not out:
+            out.append(attn(*inputs))
+        return torch.autograd.grad(out[0], inputs, do, retain_graph=True)
+
+    return run
+
+
 def phase_timing(seed: int, smi: str) -> dict:
-    """Kernels against their plain versions at GPT-2 shapes; returns
-    {kernel: (ms, plain_ms)} at b8."""
+    """K1, K2 and K3 against their plain versions and torch's one call for
+    the same function (SDPA forward / backward) at GPT-2 shapes, as device
+    time (graph_ms) and, for the kernels, as a call costs its caller
+    (time_ms); returns {kernel: row} at b8, a row holding the device ms, the
+    plain version's device ms, the bound and the library call's device ms."""
     gen = torch.Generator().manual_seed(seed + 2)
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, is_causal=True)
     result = {}
     for b in (1, 8):
         q, k, v, do = (_rand(gen, (b, 12, 1024, 64), torch.bfloat16) for _ in range(4))
         with torch.no_grad():
             kern = time_ms(lambda: FA.flash_attention(q, k, v))
+            kern_dev = graph_ms(lambda: FA.flash_attention(q, k, v))
             plain = time_ms(lambda: FA.flash_attention_reference(q, k, v))
+            plain_dev = graph_ms(lambda: FA.flash_attention_reference(q, k, v), calls=2, runs=5)
             dense = time_ms(lambda: vanilla_attention_with_lse(q, k, v, sm_scale=0.125))
-            sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True))
+            sdpa_dev = graph_ms(lambda: sdpa(q, k, v))
+        elems = b * 12 * 1024 * 64  # one [b, 12, 1024, 64] tensor
         flops = 4 * b * 12 * 1024 * 1024 * 64 / 2  # causal half of QK^T and PV
-        say(f"[timing] {smi} | K1 b{b} h12 L1024 D64 bf16 causal: kernel {kern:.4f} ms "
-            f"({flops / kern / 1e9:.1f} TFLOP/s), plain tile loop {plain:.4f} ms, vanilla {dense:.4f} ms; "
-            f"yardstick torch SDPA {sdpa:.4f} ms")
+        bound, by = _floor_ms(4 * elems * 2, flops)  # q, k, v read, o written
+        say(f"[timing] {smi} | K1 b{b} h12 L1024 D64 bf16 causal: kernel {kern_dev:.4f} ms on the device "
+            f"({flops / kern_dev / 1e9:.1f} TFLOP/s, {bound / kern_dev:.1%} of the bound {bound:.4f} ms, "
+            f"{by}), {kern:.4f} ms a call; plain tile loop {plain_dev:.4f} ms on the device, {plain:.4f} ms a "
+            f"call; vanilla {dense:.4f} ms a call; library torch SDPA forward {sdpa_dev:.4f} ms on the device "
+            f"(K1 / SDPA {kern_dev / sdpa_dev:.2f}x)")
+        row = dict(bound_ms=bound, bound_by=by)
+        result["flash_fwd"] = dict(ms=kern_dev, plain_ms=plain_dev, library_ms=sdpa_dev, **row)
 
         # one backward: K2 + K3 (+ the di reduction), the plain backward,
-        # autograd of vanilla, and torch SDPA's backward as a yardstick
+        # autograd of vanilla, and torch SDPA's backward as the library call
         with torch.no_grad():
             o, lse = FA.flash_attention_with_lse(q, k, v)
         spec = FA._Spec(causal=True, sm_scale=0.125, window=None, blocks=FA.default_blocks(1024, 1024, 64))
         args = FA._bwd_args(q, k, v, o, lse, do, None, spec, None)
-        k2 = time_ms(lambda: FA._launch_bwd_dkv(args))
-        k3 = time_ms(lambda: FA._launch_bwd_dq(args))
-        bwd = time_ms(lambda: FA._launch_bwd(q, k, v, o, lse, do, None, spec, None))
+        k2 = graph_ms(lambda: FA._launch_bwd_dkv(args))
+        k3 = graph_ms(lambda: FA._launch_bwd_dq(args))
+        bwd = graph_ms(lambda: FA._launch_bwd(q, k, v, o, lse, do, None, spec, None))
+        bwd_call = time_ms(lambda: FA._launch_bwd(q, k, v, o, lse, do, None, spec, None))
         with torch.no_grad():
-            p2 = time_ms(lambda: FA.flash_attention_bwd_dkv_reference(q, k, v, o, lse, do))
-            p3 = time_ms(lambda: FA.flash_attention_bwd_dq_reference(q, k, v, o, lse, do))
-        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        out_v = vanilla_attention_with_lse(qg, kg, vg, sm_scale=0.125)[0]
-        van = time_ms(lambda: torch.autograd.grad(out_v, (qg, kg, vg), do, retain_graph=True))
-        out_s = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        sdpa_b = time_ms(lambda: torch.autograd.grad(out_s, (qg, kg, vg), do, retain_graph=True))
-        flops_b = 2.5 * flops  # five products of the forward's size, causal half
-        say(f"[timing] {smi} | backward b{b} h12 L1024 D64 bf16 causal: K2+K3+di {bwd:.4f} ms "
-            f"({flops_b / bwd / 1e9:.1f} TFLOP/s; K2 {k2:.4f} ms, K3 {k3:.4f} ms), plain {p2 + p3:.4f} ms "
-            f"(dK/dV {p2:.4f}, dQ {p3:.4f}), autograd of vanilla {van:.4f} ms; yardstick torch SDPA backward "
-            f"{sdpa_b:.4f} ms")
-        result = {"flash_fwd": (kern, plain), "flash_bwd_dkv": (k2, p2), "flash_bwd_dq": (k3, p3)}
+            p2 = graph_ms(lambda: FA.flash_attention_bwd_dkv_reference(q, k, v, o, lse, do), calls=2, runs=5)
+            p3 = graph_ms(lambda: FA.flash_attention_bwd_dq_reference(q, k, v, o, lse, do), calls=2, runs=5)
+        van = time_ms(_grad_fn(lambda *t: vanilla_attention_with_lse(*t, sm_scale=0.125)[0], q, k, v, do))
+        sdpa_b = graph_ms(_grad_fn(sdpa, q, k, v, do))
+        # K2 does four products of the forward's size (S, dP, dV, dK) and K3
+        # three (S, dP, dQ); both read q, k, v, dO and lse, di (fp32); K2
+        # writes dK, dV and K3 dQ
+        b2, by2 = _floor_ms((4 + 2) * elems * 2 + 2 * elems // 64 * 4, 2 * flops)
+        b3, by3 = _floor_ms((4 + 1) * elems * 2 + 2 * elems // 64 * 4, 1.5 * flops)
+        say(f"[timing] {smi} | backward b{b} h12 L1024 D64 bf16 causal, on the device: K2+K3+di {bwd:.4f} ms "
+            f"({2.5 * flops / bwd / 1e9:.1f} TFLOP/s; {bwd_call:.4f} ms a call), K2 {k2:.4f} ms ({b2 / k2:.1%} of "
+            f"the bound {b2:.4f} ms, {by2}), K3 {k3:.4f} ms ({b3 / k3:.1%} of {b3:.4f} ms, {by3}); plain dK/dV "
+            f"{p2:.4f} ms, dQ {p3:.4f} ms; autograd of vanilla {van:.4f} ms a call; library torch SDPA backward "
+            f"{sdpa_b:.4f} ms (K2+K3+di / SDPA {bwd / sdpa_b:.2f}x)")
+        result["flash_bwd_dkv"] = dict(ms=k2, plain_ms=p2, bound_ms=b2, bound_by=by2, library_ms=sdpa_b)
+        result["flash_bwd_dq"] = dict(ms=k3, plain_ms=p3, bound_ms=b3, bound_by=by3, library_ms=sdpa_b)
     return result
 
 
 def graph_ms(fn, calls: int = 20, runs: int = 10) -> float:
     """Device time per call: `calls` calls captured in one CUDA graph and
     replayed between two CUDA events (median of `runs`), so that the host's
-    time to enqueue a call (the Python wrapper, ctypes) is not counted."""
+    time to enqueue a call (the Python wrapper, ctypes) is not counted.
+    Warm-up and capture share one side stream."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
-    torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
             fn()
+    torch.cuda.current_stream().wait_stream(side)
     return time_ms(graph.replay, runs=runs) / calls
 
 
-def _floor_ms(nbytes: float, flops: float = 0.0) -> float:
-    """The least time the card could take: bytes at 3.35 TB/s or FLOPs at
-    989 TFLOP/s, whichever is larger."""
-    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+def _floor_ms(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
+    """The least time the card could take, and what sets it: the bytes at
+    3.35 TB/s or the FLOPs at 989 TFLOP/s (bf16), whichever takes longer."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def phase_timing_quant(seed: int, smi: str) -> dict:
@@ -809,24 +859,32 @@ def phase_timing_quant(seed: int, smi: str) -> dict:
     caller (CUDA events around back-to-back calls, which includes the host's
     enqueue time where that is longer) and as device time (graph_ms);
     returns {kernel: (device ms, plain device ms)} at b8 (K4) and on the
-    int8 cache (K5, K6)."""
+    int8 cache (K5, K6).  K4 has no one library call for its function;
+    torch SDPA forward on K/V already dequantized to bf16 is printed beside
+    it as a yardstick of the same FLOPs, not of the same function."""
     gen = torch.Generator().manual_seed(seed + 7)
     result = {}
     for b in (1, 8):
         q = _rand(gen, (b, 12, 1024, 64), torch.bfloat16)
         kv = QK.quantize_kv(_rand(gen, (b, 12, 1024, 64), torch.float32), _rand(gen, (b, 12, 1024, 64), torch.float32))
+        k_t, v_t = QK.dequantize_kv(kv, dtype=torch.bfloat16)
         with torch.no_grad():
             kern = time_ms(lambda: QK.flash_attention_kv_quant(q, kv))
             kern_dev = graph_ms(lambda: QK.flash_attention_kv_quant(q, kv))
             plain = time_ms(lambda: QK.flash_attention_kv_quant_reference(q, kv))
             plain_dev = graph_ms(lambda: QK.flash_attention_kv_quant_reference(q, kv), calls=2, runs=5)
+            sdpa_dev = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k_t, v_t, is_causal=True))
         tokens = b * 12 * 1024
         nbytes = tokens * (64 * (2 + 2 + 1 + 1) + 8)  # q, out, K and V payloads, two scales
         flops = 4 * tokens * 1024 * 64 / 2
-        say(f"[timing] {smi} | K4 b{b} h12 L1024 D64 bf16 q, int8 K/V, causal: kernel {kern:.4f} ms a call, "
-            f"{kern_dev:.4f} ms on the device ({flops / kern_dev / 1e9:.1f} TFLOP/s); plain tile loop {plain:.4f} ms "
-            f"a call, {plain_dev:.4f} ms on the device; floor {_floor_ms(nbytes, flops):.4f} ms")
-        result["flash_fwd_kv_quant"] = (kern_dev, plain_dev)
+        bound, by = _floor_ms(nbytes, flops)
+        say(f"[timing] {smi} | K4 b{b} h12 L1024 D64 bf16 q, int8 K/V, causal: kernel {kern_dev:.4f} ms on the "
+            f"device ({flops / kern_dev / 1e9:.1f} TFLOP/s, {bound / kern_dev:.1%} of the bound {bound:.4f} ms, "
+            f"{by}), {kern:.4f} ms a call; plain tile loop {plain_dev:.4f} ms on the device, {plain:.4f} ms a call; "
+            f"torch SDPA forward on bf16 K/V {sdpa_dev:.4f} ms on the device, the same FLOPs but not the same "
+            f"function (K4 / SDPA {kern_dev / sdpa_dev:.2f}x)")
+        result["flash_fwd_kv_quant"] = dict(ms=kern_dev, plain_ms=plain_dev, bound_ms=bound, bound_by=by,
+                                            library_ms=None)
     lengths = torch.randint(480, 545, (8,), generator=gen).tolist()
     for name, store in (("int8", torch.int8), ("bf16", torch.bfloat16)):
         cache = _filled_cache(gen, 8, 12, 1024, 64, store, torch.bfloat16, lengths)
@@ -845,13 +903,15 @@ def phase_timing_quant(seed: int, smi: str) -> dict:
             dev = {k: graph_ms(fn) for k, fn in fns.items()}
         live = sum(x + 1 for x in lengths) * 12  # tokens x heads read
         nbytes = live * 64 * cache.k.element_size() * 2 + (live * 8 if store == torch.int8 else 0) + 8 * 12 * 64 * 4
+        bound, by = _floor_ms(nbytes, 4 * live * 64)  # q.k and p.v per token read
         say(f"[timing] {smi} | decode 8 slots h12 D64 max_len 1024, contexts {min(lengths) + 1}-{max(lengths) + 1}, "
             f"{name} cache, bf16 q, ms on the device (a call): "
             + ", ".join(f"{k} {dev[k]:.4f} ({call[k]:.4f})" for k in fns)
-            + f"; floor {_floor_ms(nbytes):.4f} ms ({nbytes / 1e6:.2f} MB)")
+            + f"; bound {bound:.4f} ms ({by}, {nbytes / 1e6:.2f} MB)")
         if store == torch.int8:
-            result["paged_decode"] = (dev["K5"], dev["K5 plain"])
-            result["fused_decode"] = (dev["K6"], dev["K6 plain"])
+            for kernel, key in (("paged_decode", "K5"), ("fused_decode", "K6")):
+                result[kernel] = dict(ms=dev[key], plain_ms=dev[f"{key} plain"], bound_ms=bound, bound_by=by,
+                                      library_ms=None)
     return result
 
 
@@ -878,7 +938,9 @@ def main() -> None:
     times = {**phase_timing(args.seed, smi), **phase_timing_quant(args.seed, smi)}
     say(json.dumps({"kernels": [
         {"name": key, "route": "cuda", "source": src, "replaces": rep, "launches": launches[key],
-         "max_abs_err": errors[key], "ms": times[key][0], "plain_ms": times[key][1]}
+         "max_abs_err": errors[key], "ms": times[key]["ms"], "plain_ms": times[key]["plain_ms"],
+         "bound_ms": times[key]["bound_ms"], "bound_by": times[key]["bound_by"],
+         "floor_ms": times[key]["bound_ms"], "library_ms": times[key]["library_ms"]}
         for key, (src, rep) in KERNELS.items()
     ]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

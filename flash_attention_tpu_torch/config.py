@@ -31,11 +31,13 @@ def kernel_route(*tensors: torch.Tensor) -> str:
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
-    """The device a module or engine was asked for.  "cuda" without a
-    usable card raises: the port never carries on on the CPU in its place."""
-    dev = torch.device(device if device is not None else "cpu")
+    """The device a module or engine was asked for; None means the card
+    ("cuda").  "cuda" without a usable card raises: the port runs on the
+    CPU only when the caller asks for it, never in the card's place."""
+    dev = torch.device(device if device is not None else "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' was requested but no CUDA device is available")
+        raise RuntimeError("no CUDA device is available for device 'cuda' (the default); pass device='cpu' "
+                           "to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -28,5 +28,5 @@ extern "C" int fa_flash_fwd(const void* q, const void* k, const void* v, void* o
   const long long strides[12] = {q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl, o_sb, o_sh, o_sl};
   if (!fa::fill_fwd_params(p, batch, hq, hkv, lq, lk, strides, scale_log2, causal, window))
     return (int)cudaErrorInvalidValue;
-  return (int)fa::launch_fwd_for<void>(dtype, head_dim, batch, p, static_cast<cudaStream_t>(stream));
+  return (int)fa::launch_fwd_for<void>(dtype, head_dim, p, static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,4 @@
-// FlashAttention-2 forward for Hopper (sm_90a): the kernel templates behind
+// FlashAttention forward for Hopper (sm_90a): the kernel templates behind
 // two C entry points, fa_flash_fwd (flash_fwd.cu, K1) and
 // fa_flash_fwd_kv_quant (flash_fwd_kv_quant.cu, K4).  Both are loaded
 // through ctypes (flash_attention_tpu_torch/kernels/_build.py).
@@ -10,49 +10,72 @@
 // fp8 K/V with one fp32 scale per token.  It computes the same function, not
 // a block-by-block copy: online softmax in the exp2 domain, q scaled by
 // sm_scale*log2(e) and rounded back to its dtype before QK^T, m / l / the
-// accumulator in fp32, one final division with the l == 0 guard, causal
-// masking with queries aligned to the end of KV, the sliding window and
-// segment ids (_mask_for_block, _seg_mask), GQA by reading KV head
-// hq / group (KV is never copied), and an optional lse output (fp32, natural
-// log) that the backward kernels (flash_bwd.cu) read.  The kernels are
-// templated on the K/V element type KV: KV == T is K1; a 1-byte KV is K4,
-// whose K/V tiles are dequantized into shared memory in q's type T as the
-// TPU kernel does it (payload.to(T) * scale.to(T), rounded to T;
-// load_kv_tile in common.cuh), so from there on K4 is K1.
+// accumulator in fp32, P rounded to T before PV, one final division with the
+// l == 0 guard, causal masking with queries aligned to the end of KV, the
+// sliding window and segment ids (_mask_for_block, _seg_mask), GQA by
+// reading KV head hq / group (KV is never copied), ragged Lq / Lk, inputs
+// read through their strides, and an optional lse output (fp32, natural log)
+// that the backward kernels (flash_bwd.cu) read.  K4's K/V tiles are
+// dequantized in q's type T as the TPU kernel does it (payload.to(T) *
+// scale.to(T), rounded to T), so from there on K4 is K1.
 //
-// What bounds it on this card: at the GPT-2 shapes (D = 64, L <= 1024)
-// attention is compute-bound in principle (~L/2 FLOPs per byte of Q/K/V
-// read with causal skipping), so the limit is the rate at which the tensor
-// cores are fed.  K4's 1-byte payload halves the K/V bytes, which leaves it
-// as compute-bound as K1.  This first version feeds the tensor cores with
-// warp-level mma.sync (m16n8k16, bf16/fp16 in, fp32 out) from tiles staged
-// in shared memory by plain 16-byte loads, with no overlap of loads and
-// math: it reaches a fraction of the card's 989 TFLOP/s.  The wgmma/TMA
-// pipeline that the rate needs is later work.  What the design does about
-// the bound it can see:
-//   * one thread block per (batch * q head, 64-row q tile), so a GPT-2
-//     prefill at b1 L1024 already launches 12 x 16 = 192 blocks for 132 SMs;
-//   * the KV loop runs from the first tile the window admits to the last
-//     tile the causal rule admits, so masked tiles are never loaded (this
-//     replaces the TPU's scalar-prefetched cell tables), and only tiles that
-//     cross the diagonal, the window edge or the ragged KV end, or carry
-//     segment ids, pay for the element mask;
-//   * ragged Lq / Lkv are masked in the kernel: no host-side padding copy;
-//   * inputs are read through their strides, so q/k/v sliced out of the
-//     fused QKV projection are never copied;
-//   * K4 dequantizes each K/V tile once, in shared memory, where all 64 query
-//     rows of the block reuse it (the TPU kernel made the same choice over
-//     scaling the scores, kv.py:143-148).
+// What bounds it on this card: at the GPT-2 shapes (h12, L1024, D64, causal)
+// the two products need 12.9 GFLOP at b8 (13.0 us at 989 TFLOP/s) and q, k, v
+// and o 50 MB (15.0 us at 3.35 TB/s), so at D = 64 the bytes set the bound by
+// a hair, and the FLOPs at any larger head dim or longer sequence.  In
+// practice the limit is the softmax: at D = 64 the exp2 of each score costs
+// the special-function unit as long as the score's 256 FLOPs of products
+// cost the tensor cores.  What feeds the tensor cores at their rate on
+// Hopper is wgmma fed by TMA, so the bf16 / fp16 kernel (flash_fwd_ws_kernel)
+// is warp-specialised:
+//   * one producer warpgroup: one thread issues the TMA loads of the q tile
+//     (once) and of each K/V tile into a ring of kStages shared-memory slots,
+//     each slot with a "full" mbarrier (TMA transaction bytes) and an
+//     "empty" one (one arrival per consumer thread), so that loads run ahead
+//     of the math.  Segment ids are staged into the slot beside K and V by
+//     the warpgroup's threads.  K4: TMA lands the 1-byte payload tiles in two
+//     staging slots one tile ahead, and the 128 threads dequantize them into
+//     the ring slot with integer and fp32 adds (not the conversion unit,
+//     which the consumers' exp2 needs), fp32 scales by plain loads (their row
+//     stride of Lk * 4 bytes breaks TMA's 16-byte rule), then arrive on
+//     "full";
+//   * kConsumers consumer warpgroups (3 at D = 64, 2 at D = 128, as the
+//     registers allow), each owning 64 query rows: S = Q K^T by wgmma from
+//     shared memory (K stored [Bc, D], K-major), the online softmax on the
+//     accumulator's registers (a thread holds parts of two rows; quad
+//     shuffles reduce them), and O += P V by wgmma with P from registers (the
+//     accumulator's layout is the A operand's) and V as an MN-major
+//     (transposed) B operand.  Three warpgroups at D = 64 give each
+//     scheduler three softmaxes to interleave;
+//   * setmaxnreg moves registers from the producer to the consumers; every
+//     wgmma operand is ready before wgmma.fence, and every branch around a
+//     wgmma is uniform by construction, else ptxas serialises all of them;
+//   * tiles are kBr x 64 (kBr = 64 kConsumers) with 128-byte swizzled rows, as
+//     TMA writes them and wgmma's descriptors read them; q/k/v tensor maps
+//     are 4-D (D, L, H, B), so rows past Lq or Lk read as zero, never as the
+//     next head's rows;
+//   * the KV loop of each warpgroup runs from the first tile the window
+//     admits to the last the causal rule admits (the block loads the union
+//     of its warpgroups' ranges), and only tiles that cross the diagonal, the
+//     window edge or the ragged end, or carry segment ids, pay for the
+//     element mask: two compares against each row's visible key range;
+//   * blocks are issued longest causal KV loop first.
 // fp32 inputs take a SIMT path (one thread per query row, fp32 FMA), since
-// the tensor cores' TF32 would miss the fp32 tolerance of 1e-5.  ptxas -v
-// (sm_90a, CUDA 12.8): the mma path uses 128 registers at D = 64 and 228 at
-// D = 128, the SIMT path 202 and 255 (88 bytes spilled at D = 128).
+// the tensor cores' TF32 would miss the fp32 tolerance of 1e-5.
+// ptxas -v (sm_90a, CUDA 12.8) reports the registers at launch, 65,536 /
+// threads: 128 at D = 64 (512 threads; setmaxnreg: producer 32, K4's 40,
+// consumers 160, K4's 152) and 168 at D = 128 (384 threads; producer 32,
+// K4's 56, consumers 232, K4's 224); no spills, except 8 bytes in each of
+// K4's four D = 128 instantiations.  The SIMT path uses 202 registers at
+// D = 64 and 255 at D = 128 (88 bytes spilled), K4's 192 and 255.
 //
 // The kernels allocate nothing and launch on the caller's stream; the C
-// entry points return cudaGetLastError() so that the wrapper can raise.
+// entry points return cudaGetLastError() so that the wrapper can raise (and
+// cudaErrorInvalidValue when a tensor map cannot be made).
 #pragma once
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace fa {
 
@@ -71,18 +94,9 @@ struct FwdParams {
   long long v_sb, v_sh, v_sl;
   long long o_sb, o_sh, o_sl;
   long long s_sb, s_sh;  // strides of ks and vs
-  int hq, group;
+  int batch, hq, hkv, group;
   Mask mask;
   float scale_log2;  // sm_scale * log2(e)
-};
-
-template <typename T, int D>
-struct MmaCfg {
-  static constexpr int kBr = 64;   // 4 warps x 16 rows
-  static constexpr int kBc = 64;
-  static constexpr int kThreads = 128;
-  static constexpr int kLds = D + 8;  // padded row: spreads rows over banks
-  static constexpr int kSmemBytes = (kBr + 2 * kBc) * kLds * sizeof(T);
 };
 
 // This block's K and V (and, for a quantized cache, their scales).
@@ -99,166 +113,442 @@ struct KvRows {
         vs(p.vs ? p.vs + b * p.s_sb + hk * p.s_sh : nullptr) {}
 };
 
-template <typename T, typename KV, int D>
-__global__ void __launch_bounds__(128)
-flash_fwd_mma_kernel(const FwdParams p) {
-  using C = MmaCfg<T, D>;
-  constexpr int kBr = C::kBr, kBc = C::kBc, kLds = C::kLds;
-  constexpr int kNB = kBc / 8;   // score n-blocks per warp
-  constexpr int kKS = D / 16;    // k-steps over the head dim
-  constexpr int kND = D / 8;     // output n-blocks
+// ---------------------------------------------------------------------------
+// bf16 / fp16: the warp-specialised TMA + wgmma kernel
+// ---------------------------------------------------------------------------
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);
-  T* sK = sQ + kBr * kLds;
-  T* sV = sK + kBc * kLds;
-  __shared__ int sKvIds[kBc];
+// Its tile and shared memory.  The Python side mirrors kBr, kBc, kStages
+// and the layout (kernels/block_sizes.py::forward_smem_bytes).
+template <typename T, typename KV, int D>
+struct WsCfg {
+  static_assert(D == 64 || D == 128, "head dims 64 and 128");
+  static constexpr bool kQuant = !std::is_same<T, KV>::value;
+  static constexpr int kConsumers = D == 64 ? 3 : 2;  // consumer warpgroups, 64 query rows each
+  static constexpr int kBr = 64 * kConsumers;
+  static constexpr int kBc = 64;
+  static constexpr int kStages = 4;  // K/V ring slots
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kTileBytes = kBc * D * 2;  // a K or V slot
+  static constexpr int kPayloadBytes = kQuant ? kBc * D : 0;  // K4: one K or V payload tile
+  static constexpr int kOffK = kBr * D * 2;  // the q tile sits at 0
+  static constexpr int kOffV = kOffK + kStages * kTileBytes;
+  static constexpr int kOffPayload = kOffV + kStages * kTileBytes;  // K4: two staging slots of (K, V)
+  static constexpr int kOffIds = kOffPayload + 2 * 2 * kPayloadBytes;
+  static constexpr int kOffBars = kOffIds + kStages * kBc * 4;
+  static constexpr int kBars = 1 + 2 * kStages + 2;  // q; full and empty per slot; landed per staging slot
+  // + 1024 to align the base for the 128-byte swizzle
+  static constexpr int kSmemBytes = kOffBars + kBars * 8 + 1024;
+  static_assert(kSmemBytes <= 232448, "an H100 block has at most 227 KB of shared memory");
+  // setmaxnreg: the producer warpgroup hands registers to the consumers.
+  // At launch a thread has 65,536 / kThreads (to a multiple of 8); K4's
+  // producer converts tiles and keeps more.
+  static constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;
+  static constexpr int kProducerRegs = kQuant ? (kConsumers == 2 ? 56 : 40) : 32;
+  static constexpr int kConsumerRegs =
+      (kLaunchRegs + (kLaunchRegs - kProducerRegs) / kConsumers) / 8 * 8 < 240
+          ? (kLaunchRegs + (kLaunchRegs - kProducerRegs) / kConsumers) / 8 * 8
+          : 240;
+};
+
+struct FwdMaps {
+  CUtensorMap q, k, v;  // K4: k and v map the 1-byte payloads
+};
+
+// Byte offset of the 16-byte chunk `col8` (columns 8 col8 .. 8 col8 + 7) of
+// row r in a [rows, D] tile of 2-byte elements laid out as TMA's 128-byte
+// swizzle writes it: 64-column blocks one after the other, each `rows` rows
+// of 128 bytes whose eight chunks are permuted by XOR with r % 8.
+__device__ __forceinline__ int swizzle128(int r, int col8, int rows) {
+  return (col8 / 8) * rows * 128 + r * 128 + (((col8 % 8) ^ (r % 8)) * 16);
+}
+
+// K4: 16 payload values (int8 or fp8 e4m3) to 16 T in two uint4, each
+// payload.to(T) * scale.to(T) rounded to T, as the TPU kernel does it
+// (quant/kv.py:149-151, :175-177); scale2 holds the scale, already rounded
+// to T, in both halves of a T pair.  Every payload value is exact in T, so
+// the conversion is exact and the pairwise T multiply rounds once, as the
+// TPU's does.  int8 goes through the float 2^23 + 128 + x, built with a
+// byte permute (full-rate integer and fp32 adds instead of the conversion
+// unit, which the consumers' exp2 needs); fp8 through the hardware's fp8x2
+// to half2 conversion.
+template <typename T, typename KV>
+__device__ __forceinline__ void dequant16(const uint4& raw, uint32_t scale2, uint4 (&out)[2]) {
+  using T2 = typename std::conditional<std::is_same<T, __half>::value, __half2, __nv_bfloat162>::type;
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
+  uint32_t* y = reinterpret_cast<uint32_t*>(out);
+  const T2 sc = *reinterpret_cast<const T2*>(&scale2);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t pair[2];  // payload bytes 4i .. 4i + 3 as two exact T pairs
+    if constexpr (std::is_same<KV, int8_t>::value) {
+      const uint32_t u = w[i] ^ 0x80808080u;  // x + 128, a byte each
+      float f[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + e)) - 8388736.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) pair[h] = Pack<T>::two(f[2 * h], f[2 * h + 1]);
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const __half2 x2(__nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(w[i] >> (16 * h)), __NV_E4M3));
+        if constexpr (std::is_same<T, __half>::value) {
+          pair[h] = *reinterpret_cast<const uint32_t*>(&x2);
+        } else {
+          const float2 f = __half22float2(x2);
+          pair[h] = Pack<T>::two(f.x, f.y);
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const T2 prod = __hmul2(*reinterpret_cast<const T2*>(&pair[h]), sc);
+      y[2 * i + h] = *reinterpret_cast<const uint32_t*>(&prod);
+    }
+  }
+}
+
+// K4: pieces [part * PIECES, (part + 1) * PIECES) (16 payload bytes each)
+// of row r of a payload tile (row-major, one byte an element) into row r of
+// a T tile laid out as swizzle128 says, dequantized with `scale2` (the row's
+// scale rounded to T, in both halves of a pair); `valid` false (past the end
+// of KV) writes zeros.  A thread converts whole pieces of one row, so that
+// it needs one scale; it starts at its own piece to spread its neighbours'
+// shared-memory reads over the banks.
+template <typename T, typename KV, int D, int ROWS, int PIECES>
+__device__ __forceinline__ void dequant_row(T* dst, const uint8_t* src, int r, int part, uint32_t scale2,
+                                            bool valid) {
+  static_assert(sizeof(KV) == 1, "quantized payloads are 1 byte");
+#pragma unroll
+  for (int i = 0; i < PIECES; ++i) {
+    const int piece = part * PIECES + (i + r) % PIECES;  // output chunks 2 piece, 2 piece + 1
+    uint4 out[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
+    if (valid) dequant16<T, KV>(*reinterpret_cast<const uint4*>(src + r * D + piece * 16), scale2, out);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(dst) + swizzle128(r, 2 * piece + h, ROWS)) = out[h];
+  }
+}
+
+// exp2 on the special-function unit, subnormal results flushed to zero
+// (P values below 2^-126, which no sum of them can see).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <typename T, typename KV, int D>
+__global__ void __launch_bounds__(WsCfg<T, KV, D>::kThreads, 1)
+flash_fwd_ws_kernel(const __grid_constant__ FwdParams p, const __grid_constant__ FwdMaps maps) {
+  using C = WsCfg<T, KV, D>;
+  constexpr int kBr = C::kBr, kBc = C::kBc, kS = C::kStages;
+  constexpr int kTile = kBc * D;  // elements of a K or V slot
+  constexpr int kRowThreads = 128 / kBc;  // K4: producer threads converting one KV row
+  static_assert(kBc <= 128 && 128 % kBc == 0, "KV rows spread evenly over the producer's 128 threads");
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sK = reinterpret_cast<T*>(smem + C::kOffK);  // kS slots
+  T* sV = reinterpret_cast<T*>(smem + C::kOffV);
+  uint8_t* sPay = smem + C::kOffPayload;  // K4: 2 x (K, V) payload tiles
+  int* sIds = reinterpret_cast<int*>(smem + C::kOffIds);  // kS x kBc KV segment ids
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::kOffBars);
+  uint64_t* full = q_full + 1;        // slot s holds its K/V tile
+  uint64_t* empty = full + kS;        // every consumer warpgroup is done with slot s
+  uint64_t* landed = empty + kS;      // K4: staging slot i's payloads have arrived
 
   const Mask mk = p.mask;
-  const int tile = blockIdx.x;
+  const int tile = gridDim.x - 1 - blockIdx.x;  // the longest causal KV loops first
   const int bh = blockIdx.y;
   const int b = bh / p.hq;
   const int h = bh % p.hq;
   const int hk = h / p.group;
   const int r0 = tile * kBr;
-  const int r1 = min(r0 + kBr, mk.lq);
-
-  const T* gq = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const KvRows<KV> kv(p, b, hk);
-  T* go = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
   const int* kv_ids = p.kv_ids ? p.kv_ids + (long long)b * mk.lk : nullptr;
+  // The block's KV tiles [j_lo, j_hi): the union of its warpgroups' ranges.
+  const int j_lo = mk.kv_first(r0) / kBc;
+  const int kv_end = mk.kv_end(min(r0 + kBr, mk.lq));
+  const int j_hi = kv_end > 0 ? (kv_end + kBc - 1) / kBc : 0;
+  // Producer threads that write into a slot (segment ids, K4's tiles) arrive
+  // on its "full" barrier; otherwise only the TMA thread does.
+  const bool all_produce = C::kQuant || kv_ids != nullptr;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // row within the 8-row group
-  const int t = lane % 4;  // column pair
-  const int row_a = r0 + warp * 16 + g;  // this thread's rows: row_a, row_a + 8
-  int q_id[2] = {0, 0};
-  if (p.q_ids != nullptr) {
-    for (int r = 0; r < 2; ++r) {
-      const int row = row_a + 8 * r;
-      q_id[r] = row < mk.lq ? p.q_ids[(long long)b * mk.lq + row] : 0;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < kS; ++s) {
+      sm90::mbar_init(&full[s], all_produce ? 128 : 1);
+      sm90::mbar_init(&empty[s], 128 * C::kConsumers);
     }
+    sm90::mbar_init(&landed[0], 1);
+    sm90::mbar_init(&landed[1], 1);
+    sm90::fence_barrier_init();
   }
-
-  // Q tile: scale by sm_scale*log2(e) and round back to T, as the TPU
-  // kernel does before its QK^T.
-  load_tile_scaled2<T, kBr, D, kLds, C::kThreads>(sQ, p.scale_log2, nullptr, 0.f, gq, p.q_sl, r0, mk.lq);
   __syncthreads();
 
-  // Q fragments stay in registers for the whole KV loop.
-  uint32_t qf[kKS][4];
-#pragma unroll
-  for (int ks = 0; ks < kKS; ++ks) load_a<T>(qf[ks], sQ + warp * 16 * kLds + ks * 16, kLds, g, t);
+  // The warpgroup's index broadcast from lane 0, so that ptxas sees every
+  // branch on it (and on values made from it) as uniform in each warp:
+  // a wgmma under a branch it takes for divergent makes it serialise every
+  // wgmma of the kernel.
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int tid = threadIdx.x % 128;
+  if (wg == 0) {
+    // ---------------- producer warpgroup ----------------
+    sm90::reg_dealloc<C::kProducerRegs>();
+    if (!all_produce && tid != 0) return;
+    if (tid == 0) {
+      sm90::mbar_arrive_expect_tx(q_full, kBr * D * 2);
+      for (int c = 0; c < D / 64; ++c) sm90::tma_load_4d(sQ + c * kBr * 64, &maps.q, q_full, c * 64, r0, h, b);
+    }
+    const bool has_row = tid < kBc;  // the KV row of the tile this thread stages
+    if constexpr (!C::kQuant) {
+      for (int j = j_lo, it = 0; j < j_hi; ++j, ++it) {
+        const int s = it % kS;
+        sm90::mbar_wait(&empty[s], ((it / kS) & 1) ^ 1);
+        if (kv_ids != nullptr && has_row) sIds[s * kBc + tid] = j * kBc + tid < mk.lk ? kv_ids[j * kBc + tid] : -1;
+        if (tid == 0) {
+          sm90::mbar_arrive_expect_tx(&full[s], 2 * C::kTileBytes);
+          for (int c = 0; c < D / 64; ++c) {
+            sm90::tma_load_4d(sK + s * kTile + c * kBc * 64, &maps.k, &full[s], c * 64, j * kBc, hk, b);
+            sm90::tma_load_4d(sV + s * kTile + c * kBc * 64, &maps.v, &full[s], c * 64, j * kBc, hk, b);
+          }
+        } else {
+          sm90::mbar_arrive(&full[s]);
+        }
+      }
+    } else {
+      // K4: TMA lands tile j's payloads in staging slot it % 2 one tile
+      // ahead of the conversion.  Only this warpgroup reads the staging, so
+      // a named barrier among its 128 threads at the end of each tile frees
+      // the slot for the load after next.
+      const KvRows<KV> kv(p, b, hk);
+      auto fetch = [&](int it, int j) {
+        uint64_t* bar = &landed[it % 2];
+        uint8_t* dst = sPay + 2 * (it % 2) * C::kPayloadBytes;
+        sm90::mbar_arrive_expect_tx(bar, 2 * C::kPayloadBytes);
+        sm90::tma_load_4d(dst, &maps.k, bar, 0, j * kBc, hk, b);
+        sm90::tma_load_4d(dst + C::kPayloadBytes, &maps.v, bar, 0, j * kBc, hk, b);
+      };
+      // this thread's row's scales, as T pairs, loaded a tile ahead
+      auto scales = [&](int j, uint32_t& k_sc, uint32_t& v_sc) {
+        const int row = j * kBc + tid / kRowThreads;
+        const bool ok = j < j_hi && row < mk.lk;
+        const float k = ok ? __ldg(kv.ks + row) : 0.f;
+        const float v = ok ? __ldg(kv.vs + row) : 0.f;
+        k_sc = Pack<T>::two(k, k);
+        v_sc = Pack<T>::two(v, v);
+      };
+      if (tid == 0 && j_lo < j_hi) fetch(0, j_lo);
+      uint32_t k_sc, v_sc;
+      scales(j_lo, k_sc, v_sc);
+      for (int j = j_lo, it = 0; j < j_hi; ++j, ++it) {
+        const int s = it % kS;
+        const int row = j * kBc + tid / kRowThreads;  // the row this thread converts
+        if (tid == 0 && j + 1 < j_hi) fetch(it + 1, j + 1);
+        uint32_t k_next, v_next;
+        scales(j + 1, k_next, v_next);
+        sm90::mbar_wait(&empty[s], ((it / kS) & 1) ^ 1);
+        if (kv_ids != nullptr && has_row) sIds[s * kBc + tid] = j * kBc + tid < mk.lk ? kv_ids[j * kBc + tid] : -1;
+        sm90::mbar_wait(&landed[it % 2], (it / 2) & 1);
+        {
+          constexpr int kPieces = D / 16 / kRowThreads;
+          const uint8_t* pay = sPay + 2 * (it % 2) * C::kPayloadBytes;
+          const int r = tid / kRowThreads, part = tid % kRowThreads;
+          dequant_row<T, KV, D, kBc, kPieces>(sK + s * kTile, pay, r, part, k_sc, row < mk.lk);
+          dequant_row<T, KV, D, kBc, kPieces>(sV + s * kTile, pay + C::kPayloadBytes, r, part, v_sc, row < mk.lk);
+        }
+        sm90::fence_proxy_async();  // the generic writes, before wgmma reads them
+        sm90::mbar_arrive(&full[s]);
+        sm90::named_bar_sync(1, 128);  // every producer thread is done with staging slot it % 2
+        k_sc = k_next;
+        v_sc = v_next;
+      }
+    }
+    return;
+  }
 
-  float acc[kND][4];
+  // ---------------- consumer warpgroups ----------------
+  sm90::reg_alloc<C::kConsumerRegs>();
+  const int cw = wg - 1;  // this warpgroup's 64 rows of the tile
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;  // row within the 8-row group
+  const int t = lane % 4;  // column pair
+  const int wr0 = r0 + 64 * cw;
+  const bool active = wr0 < mk.lq;
+  int my_lo = 0, my_hi = 0;  // this warpgroup's KV tiles
+  if (active) {
+    my_lo = mk.kv_first(wr0) / kBc;
+    const int end = mk.kv_end(min(wr0 + 64, mk.lq));
+    my_hi = end > 0 ? (end + kBc - 1) / kBc : 0;
+  }
+  const int row_a = wr0 + warp * 16 + g;  // this thread's rows: row_a, row_a + 8
+  // The keys [lo, hi] each of them sees (Mask::visible: causal, window,
+  // ragged ends; empty past Lq), and its segment id.
+  int lo[2], hi[2], q_id[2] = {0, 0};
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    lo[r] = mk.kv_first(row);
+    hi[r] = row < mk.lq ? mk.kv_end(row + 1) - 1 : -1;
+    if (p.q_ids != nullptr && row < mk.lq) q_id[r] = p.q_ids[(long long)b * mk.lq + row];
+  }
+
+  // q scaled by sm_scale*log2(e) and rounded back to T, as the TPU kernel
+  // does before its QK^T: in place, this warpgroup's rows of each 64-column
+  // block (the swizzle permutes chunks within a row, which an elementwise
+  // pass does not see).
+  sm90::mbar_wait(q_full, 0);
+  if (active) {
+    for (int c = 0; c < D / 64; ++c) {
+      uint4* rows = reinterpret_cast<uint4*>(sQ + c * kBr * 64 + cw * 64 * 64);
+      for (int i = tid; i < 64 * 8; i += 128) {
+        uint4 v = rows[i];
+        T* x = reinterpret_cast<T*>(&v);
 #pragma unroll
-  for (int nd = 0; nd < kND; ++nd)
+        for (int e = 0; e < 8; ++e) x[e] = from_float<T>(to_float(x[e]) * p.scale_log2);
+        rows[i] = v;
+      }
+    }
+    sm90::fence_proxy_async();
+  }
+  sm90::named_bar_sync(2 + cw, 128);
+
+  // K-major descriptors: a k16 step moves 32 bytes along a 128-byte row, and
+  // every fourth one to the next 64-column block.
+  uint64_t dq[D / 16];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+  for (int kk = 0; kk < D / 16; ++kk)
+    dq[kk] = sm90::smem_desc(sQ + (kk / 4) * kBr * 64 + cw * 64 * 64 + (kk % 4) * 16, 16, 1024);
+
+  float acc[D / 2];
+  float sc[kBc / 2];  // S = Qs K^T: [64, kBc], as kBc / 8 blocks of 8 columns x 4 registers
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kBc / 2; ++i) sc[i] = 0.f;
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
   float l[2] = {0.f, 0.f};
 
-  const int kv_end = mk.kv_end(r1);
-  const int j0 = mk.kv_first(r0) / kBc;
-  const int n_tiles = kv_end > 0 ? (kv_end + kBc - 1) / kBc : 0;
+  for (int j = j_lo, it = 0; j < j_hi; ++j, ++it) {
+    const int s = it % kS;
+    sm90::mbar_wait(&full[s], (it / kS) & 1);
+    if (j >= my_lo && j < my_hi) {
+      const T* k_s = sK + s * kTile;
+      const T* v_s = sV + s * kTile;
+      const int c0 = j * kBc;
 
-  for (int jt = j0; jt < n_tiles; ++jt) {
-    const int c0 = jt * kBc;
-    __syncthreads();  // previous tile fully consumed
-    load_kv_tile<T, KV, kBc, D, kLds, C::kThreads>(sK, kv.k, p.k_sl, kv.ks, c0, mk.lk);
-    load_kv_tile<T, KV, kBc, D, kLds, C::kThreads>(sV, kv.v, p.v_sl, kv.vs, c0, mk.lk);
-    load_ids<kBc, C::kThreads>(sKvIds, kv_ids, c0, mk.lk, 0);
-    __syncthreads();
+      // S = Qs K^T.  Descriptors, like every operand, are ready before
+      // wgmma.fence (fence_regs).
+      uint64_t dk[D / 16];
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) dk[kk] = sm90::smem_desc(k_s + (kk / 4) * kBc * 64 + (kk % 4) * 16, 16, 1024);
+      sm90::fence_regs(dk);
+      sm90::fence_regs(sc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) sm90::wgmma_ss<T, kBc>(sc, dq[kk], dk[kk], kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
 
-    // S = Qs K^T for this warp's 16 rows: [16, kBc] as kNB 16x8 blocks.
-    float s[kNB][4];
+      // Element mask only where the tile crosses the diagonal, the window
+      // edge or the KV end, or where segment ids apply.
+      if (kv_ids != nullptr || !mk.tile_visible(wr0, 64, c0, kBc)) {
+        const int* ids = sIds + s * kBc;
 #pragma unroll
-    for (int nb = 0; nb < kNB; ++nb) {
+        for (int nb = 0; nb < kBc / 8; ++nb)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < kKS; ++ks) {
-        uint32_t b0, b1;
-        load_b_t<T>(b0, b1, sK + nb * 8 * kLds + ks * 16, kLds, g, t);
-        mma16816<T>(s[nb], qf[ks], b0, b1);
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const int cl = nb * 8 + 2 * t + (e & 1);
+            bool ok = c0 + cl >= lo[r] && c0 + cl <= hi[r];
+            if (kv_ids != nullptr) ok = ok && q_id[r] == ids[cl];
+            if (!ok) sc[4 * nb + e] = -CUDART_INF_F;
+          }
       }
-    }
 
-    // Element mask only where the tile crosses the diagonal, the window
-    // edge or the KV end, or where segment ids apply.
-    if (kv_ids != nullptr || !mk.tile_visible(r0, kBr, c0, kBc)) {
+      // Online softmax for rows g (e = 0, 1) and g + 8 (e = 2, 3); the four
+      // threads of a quad hold one row between them.  Four partial maxima
+      // and sums a row shorten the dependency chains.
+      float mx[2][4], sum[2][4];
 #pragma unroll
-      for (int nb = 0; nb < kNB; ++nb)
+      for (int q = 0; q < 4; ++q) {
+        mx[0][q] = fmaxf(sc[4 * q], sc[4 * q + 1]);
+        mx[1][q] = fmaxf(sc[4 * q + 2], sc[4 * q + 3]);
+      }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const int cl = nb * 8 + 2 * t + (e & 1);
-          bool ok = mk.visible(row_a + 8 * r, c0 + cl);
-          if (kv_ids != nullptr) ok = ok && q_id[r] == sKvIds[cl];
-          if (!ok) s[nb][e] = -CUDART_INF_F;
+      for (int nb = 4; nb < kBc / 8; ++nb) {
+        mx[0][nb % 4] = fmaxf(mx[0][nb % 4], fmaxf(sc[4 * nb], sc[4 * nb + 1]));
+        mx[1][nb % 4] = fmaxf(mx[1][nb % 4], fmaxf(sc[4 * nb + 2], sc[4 * nb + 3]));
+      }
+      float base[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float row_max = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+        row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 1));
+        row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 2));
+        const float m_new = fmaxf(m[r], row_max);
+        base[r] = m_new == -CUDART_INF_F ? 0.f : m_new;  // fully masked so far
+        alpha[r] = exp2_ftz(m[r] - base[r]);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int nb = 0; nb < kBc / 8; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[4 * nb + e] = exp2_ftz(sc[4 * nb + e] - base[e >> 1]);
+        if (nb < 4) {
+          sum[0][nb] = sc[4 * nb] + sc[4 * nb + 1];
+          sum[1][nb] = sc[4 * nb + 2] + sc[4 * nb + 3];
+        } else {
+          sum[0][nb % 4] += sc[4 * nb] + sc[4 * nb + 1];
+          sum[1][nb % 4] += sc[4 * nb + 2] + sc[4 * nb + 3];
         }
-    }
-
-    // Online softmax for rows g (e = 0, 1) and g + 8 (e = 2, 3); the four
-    // threads of a quad hold one row between them.
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int nb = 0; nb < kNB; ++nb) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nb][0], s[nb][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nb][2], s[nb][3]));
-    }
-    float base[2], alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      float m_new = fmaxf(m[r], mx[r]);
-      base[r] = m_new == -CUDART_INF_F ? 0.f : m_new;  // fully masked so far
-      alpha[r] = exp2f(m[r] - base[r]);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int nd = 0; nd < kND; ++nd) {
-      acc[nd][0] *= alpha[0];
-      acc[nd][1] *= alpha[0];
-      acc[nd][2] *= alpha[1];
-      acc[nd][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int nb = 0; nb < kNB; ++nb) {
-      s[nb][0] = exp2f(s[nb][0] - base[0]);
-      s[nb][1] = exp2f(s[nb][1] - base[0]);
-      s[nb][2] = exp2f(s[nb][2] - base[1]);
-      s[nb][3] = exp2f(s[nb][3] - base[1]);
-      l[0] += s[nb][0] + s[nb][1];  // per-thread partial; quad-summed at the end
-      l[1] += s[nb][2] + s[nb][3];
-    }
-
-    // acc += P V, P rounded to T: two adjacent score blocks form one A
-    // fragment of the k = 16 product.
-#pragma unroll
-    for (int kk = 0; kk < kBc / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = Pack<T>::two(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = Pack<T>::two(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = Pack<T>::two(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = Pack<T>::two(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int nd = 0; nd < kND; ++nd) {
-        uint32_t b0, b1;
-        load_b<T>(b0, b1, sV + kk * 16 * kLds + nd * 8, kLds, g, t);
-        mma16816<T>(acc[nd], pa, b0, b1);
       }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)  // per-thread partial; quad-summed at the end
+        l[r] = l[r] * alpha[r] + ((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        acc[4 * nd] *= alpha[0];
+        acc[4 * nd + 1] *= alpha[0];
+        acc[4 * nd + 2] *= alpha[1];
+        acc[4 * nd + 3] *= alpha[1];
+      }
+
+      // acc += P V, P rounded to T: the accumulator's two 8-column blocks
+      // 2kk, 2kk + 1 are the A fragment of k16 step kk.  V is the MN-major B
+      // operand: a step moves 16 rows (2 KB) down its 64-column blocks, which
+      // lie kBc rows (kBc * 128 bytes) apart.
+      uint32_t pa[kBc / 16][4];
+      uint64_t dv[kBc / 16];
+#pragma unroll
+      for (int kk = 0; kk < kBc / 16; ++kk) {
+        pa[kk][0] = Pack<T>::two(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = Pack<T>::two(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = Pack<T>::two(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = Pack<T>::two(sc[8 * kk + 6], sc[8 * kk + 7]);
+        dv[kk] = sm90::smem_desc(v_s + kk * 16 * 64, kBc * 128, 1024);
+      }
+      sm90::fence_regs(pa);
+      sm90::fence_regs(dv);
+      sm90::fence_regs(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBc / 16; ++kk) sm90::wgmma_rs<T, D>(acc, pa[kk], dv[kk]);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
     }
+    sm90::mbar_arrive(&empty[s]);
   }
+  if (!active) return;
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
+  T* go = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row_a + 8 * r;
@@ -267,9 +557,9 @@ flash_fwd_mma_kernel(const FwdParams p) {
     const float inv = 1.f / l_safe;
     T* orow = go + (long long)row * p.o_sl + 2 * t;
 #pragma unroll
-    for (int nd = 0; nd < kND; ++nd) {
+    for (int nd = 0; nd < D / 8; ++nd) {
       *reinterpret_cast<uint32_t*>(orow + nd * 8) =
-          Pack<T>::two(acc[nd][2 * r] * inv, acc[nd][2 * r + 1] * inv);
+          Pack<T>::two(acc[4 * nd + 2 * r] * inv, acc[4 * nd + 2 * r + 1] * inv);
     }
     if (p.lse != nullptr && t == 0) {
       p.lse[(long long)bh * mk.lq + row] = (m[r] + log2f(l_safe)) * kLn2;
@@ -378,13 +668,45 @@ flash_fwd_simt_kernel(const FwdParams p) {
   }
 }
 
-template <typename Kernel>
-cudaError_t launch_fwd(Kernel kernel, int smem, int threads, int br, int batch, const FwdParams& p,
-                       cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <typename T, typename KV, int D>
+cudaError_t launch_ws(const FwdParams& p, cudaStream_t stream) {
+  using C = WsCfg<T, KV, D>;
+  constexpr CUtensorMapDataType kType =
+      std::is_same<T, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  constexpr CUtensorMapSwizzle kSw = CU_TENSOR_MAP_SWIZZLE_128B;
+  const Mask& mk = p.mask;
+  FwdMaps maps;
+  bool ok = sm90::make_map_4d(&maps.q, kType, 2, p.q, D, mk.lq, p.hq, p.batch, p.q_sl, p.q_sh, p.q_sb, 64,
+                              C::kBr, kSw);
+  if constexpr (C::kQuant) {  // whole payload rows into the staging buffer, unswizzled
+    constexpr CUtensorMapDataType kU8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+    ok = ok && sm90::make_map_4d(&maps.k, kU8, 1, p.k, D, mk.lk, p.hkv, p.batch, p.k_sl, p.k_sh, p.k_sb, D, C::kBc,
+                                 CU_TENSOR_MAP_SWIZZLE_NONE);
+    ok = ok && sm90::make_map_4d(&maps.v, kU8, 1, p.v, D, mk.lk, p.hkv, p.batch, p.v_sl, p.v_sh, p.v_sb, D, C::kBc,
+                                 CU_TENSOR_MAP_SWIZZLE_NONE);
+  } else {
+    ok = ok && sm90::make_map_4d(&maps.k, kType, 2, p.k, D, mk.lk, p.hkv, p.batch, p.k_sl, p.k_sh, p.k_sb, 64,
+                                 C::kBc, kSw);
+    ok = ok && sm90::make_map_4d(&maps.v, kType, 2, p.v, D, mk.lk, p.hkv, p.batch, p.v_sl, p.v_sh, p.v_sb, 64,
+                                 C::kBc, kSw);
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_ws_kernel<T, KV, D>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.mask.lq + br - 1) / br, batch * p.hq);
-  kernel<<<grid, threads, smem, stream>>>(p);
+  const dim3 grid((mk.lq + C::kBr - 1) / C::kBr, p.batch * p.hq);
+  kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(p, maps);
+  return cudaGetLastError();
+}
+
+template <typename KV, int D>
+cudaError_t launch_simt(const FwdParams& p, cudaStream_t stream) {
+  using C = SimtCfg<D>;
+  auto kernel = flash_fwd_simt_kernel<KV, D>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.mask.lq + C::kBr - 1) / C::kBr, p.batch * p.hq);
+  kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -392,25 +714,16 @@ cudaError_t launch_fwd(Kernel kernel, int smem, int threads, int br, int batch, 
 // element type KV (KV = void: q's own type) and head dim (64 or 128);
 // cudaErrorInvalidValue for a combination that is not instantiated.
 template <typename KV>
-cudaError_t launch_fwd_for(int dtype, int head_dim, int batch, const FwdParams& p, cudaStream_t s) {
+cudaError_t launch_fwd_for(int dtype, int head_dim, const FwdParams& p, cudaStream_t s) {
   using F32 = typename std::conditional<std::is_void<KV>::value, float, KV>::type;
   using BF16 = typename std::conditional<std::is_void<KV>::value, __nv_bfloat16, KV>::type;
   using F16 = typename std::conditional<std::is_void<KV>::value, __half, KV>::type;
-  if (dtype == 0 && head_dim == 64)
-    return launch_fwd(flash_fwd_simt_kernel<F32, 64>, SimtCfg<64>::kSmemBytes, 64, 64, batch, p, s);
-  if (dtype == 0 && head_dim == 128)
-    return launch_fwd(flash_fwd_simt_kernel<F32, 128>, SimtCfg<128>::kSmemBytes, 64, 64, batch, p, s);
-  if (dtype == 1 && head_dim == 64)
-    return launch_fwd(flash_fwd_mma_kernel<__nv_bfloat16, BF16, 64>, MmaCfg<__nv_bfloat16, 64>::kSmemBytes, 128,
-                      64, batch, p, s);
-  if (dtype == 1 && head_dim == 128)
-    return launch_fwd(flash_fwd_mma_kernel<__nv_bfloat16, BF16, 128>, MmaCfg<__nv_bfloat16, 128>::kSmemBytes,
-                      128, 64, batch, p, s);
-  if (dtype == 2 && head_dim == 64)
-    return launch_fwd(flash_fwd_mma_kernel<__half, F16, 64>, MmaCfg<__half, 64>::kSmemBytes, 128, 64, batch, p, s);
-  if (dtype == 2 && head_dim == 128)
-    return launch_fwd(flash_fwd_mma_kernel<__half, F16, 128>, MmaCfg<__half, 128>::kSmemBytes, 128, 64, batch, p,
-                      s);
+  if (dtype == 0 && head_dim == 64) return launch_simt<F32, 64>(p, s);
+  if (dtype == 0 && head_dim == 128) return launch_simt<F32, 128>(p, s);
+  if (dtype == 1 && head_dim == 64) return launch_ws<__nv_bfloat16, BF16, 64>(p, s);
+  if (dtype == 1 && head_dim == 128) return launch_ws<__nv_bfloat16, BF16, 128>(p, s);
+  if (dtype == 2 && head_dim == 64) return launch_ws<__half, F16, 64>(p, s);
+  if (dtype == 2 && head_dim == 128) return launch_ws<__half, F16, 128>(p, s);
   return cudaErrorInvalidValue;
 }
 
@@ -424,7 +737,9 @@ inline bool fill_fwd_params(FwdParams& p, int batch, int hq, int hkv, int lq, in
   p.k_sb = st[3]; p.k_sh = st[4]; p.k_sl = st[5];
   p.v_sb = st[6]; p.v_sh = st[7]; p.v_sl = st[8];
   p.o_sb = st[9]; p.o_sh = st[10]; p.o_sl = st[11];
+  p.batch = batch;
   p.hq = hq;
+  p.hkv = hkv;
   p.group = hq / hkv;
   p.mask = Mask{lq, lk, causal, causal ? window : 0};
   p.scale_log2 = scale_log2;

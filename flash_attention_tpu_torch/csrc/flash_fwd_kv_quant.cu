@@ -33,7 +33,7 @@ extern "C" int fa_flash_fwd_kv_quant(const void* q, const void* k, const void* k
   p.s_sb = strides[12];
   p.s_sh = strides[13];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv_dtype == 1) return (int)fa::launch_fwd_for<int8_t>(dtype, head_dim, batch, p, s);
-  if (kv_dtype == 2) return (int)fa::launch_fwd_for<__nv_fp8_e4m3>(dtype, head_dim, batch, p, s);
+  if (kv_dtype == 1) return (int)fa::launch_fwd_for<int8_t>(dtype, head_dim, p, s);
+  if (kv_dtype == 2) return (int)fa::launch_fwd_for<__nv_fp8_e4m3>(dtype, head_dim, p, s);
   return (int)cudaErrorInvalidValue;
 }

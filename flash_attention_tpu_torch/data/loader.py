@@ -19,6 +19,8 @@ import pathlib
 import numpy as np
 import torch
 
+from ..config import resolve_device
+
 logger = logging.getLogger(__name__)
 
 _LIB = None
@@ -170,16 +172,23 @@ def sample_batch(
 
 
 def batch_iterator(data: np.ndarray, batch: int, block: int, *, seed: int = 0, device=None):
-    """Infinite iterator of (x, y) torch.long batches on `device` (default
-    the CPU) for Trainer.fit: step i crops with seed + i."""
-    step = 0
-    while True:
-        x, y = sample_batch(data, seed + step, batch, block)
-        yield (
-            torch.from_numpy(x).to(device=device, dtype=torch.long),
-            torch.from_numpy(y).to(device=device, dtype=torch.long),
-        )
-        step += 1
+    """Infinite iterator of (x, y) torch.long batches on `device` for
+    Trainer.fit: step i crops with seed + i.  device: default the card
+    ("cuda", which raises here, at the call, without one); "cpu" when asked
+    for."""
+    device = resolve_device(device)
+
+    def batches():
+        step = 0
+        while True:
+            x, y = sample_batch(data, seed + step, batch, block)
+            yield (
+                torch.from_numpy(x).to(device=device, dtype=torch.long),
+                torch.from_numpy(y).to(device=device, dtype=torch.long),
+            )
+            step += 1
+
+    return batches()
 
 
 def synthetic_corpus(n_chars: int = 200_000, seed: int = 0) -> str:

@@ -70,7 +70,8 @@ def init_cache(
     device=None,
 ) -> KVCache:
     """An empty cache in `dtype`, or with int8/fp8 payloads and fp32 scales
-    (ones) when `quant_dtype` is given."""
+    (ones) when `quant_dtype` is given, on `device` (default the card,
+    "cuda", which raises without one; "cpu" when asked for)."""
     if quant_dtype is not None and quant_dtype not in QUANT_DTYPES:
         raise ValueError(f"quant_dtype must be one of {list(QUANT_DTYPES)}, got {quant_dtype}")
     device = resolve_device(device)
@@ -174,6 +175,7 @@ def page_view(cache: KVCache, layer: int, page_size: int):
 
 def identity_page_indices(slots: int, max_len: int, page_size: int, device=None) -> torch.Tensor:
     """[slots, max_len / page_size] int32 page table of the slot-contiguous
-    cache: slot s owns pages s * pps ... (s + 1) * pps - 1."""
+    cache: slot s owns pages s * pps ... (s + 1) * pps - 1.  device as in
+    `init_cache` (default the card)."""
     pps = max_len // page_size
     return torch.arange(slots * pps, dtype=torch.int32, device=resolve_device(device)).view(slots, pps)

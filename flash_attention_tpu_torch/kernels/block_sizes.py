@@ -18,12 +18,34 @@ MIN_BLOCK = 128
 MAX_BLOCK_Q = 1024
 MAX_BLOCK_KV = 1024
 
-# The CUDA forward kernel's tile (csrc/flash_fwd.cu): 64 query rows (four
-# warps of 16 rows for mma.sync) by 64 KV rows.  At D=128 in bf16 the Q, K
-# and V tiles take 3 x 64 x 136 x 2 = 52 KB of shared memory, which leaves
-# room for two or more blocks on an SM.
-KERNEL_BLOCK_Q = 64
+# The CUDA forward kernel's tile (csrc/flash_fwd.cuh, WsCfg): 64 query rows
+# per consumer warpgroup (three at head dim 64, two at 128, as the registers
+# allow) by 64 KV rows, the K/V tiles in a ring of KERNEL_STAGES
+# shared-memory slots.  The backward kernels (csrc/flash_bwd.cu) keep their
+# own 64 x 64 tiles.
 KERNEL_BLOCK_KV = 64
+KERNEL_STAGES = 4
+# Shared memory an H100 thread block can use (227 KB).
+SMEM_PER_BLOCK = 232_448
+
+
+def kernel_block_q(head_dim: int) -> int:
+    """Query rows of the forward kernel's tile: 192 (three consumer
+    warpgroups) at head dim 64 and below, 128 (two) above."""
+    return 192 if head_dim <= 64 else 128
+
+
+def forward_smem_bytes(head_dim: int, quantized: bool) -> int:
+    """Shared memory of the bf16/fp16 forward kernel, as WsCfg::kSmemBytes
+    lays it out: the q tile; per ring slot a K and a V tile (2-byte
+    elements) and the KV segment ids; K4's two staging slots of 1-byte K
+    and V payloads; the mbarriers (q, full and empty per slot, one per
+    staging slot); 1024 bytes to align the base for the 128-byte swizzle."""
+    tile = KERNEL_BLOCK_KV * head_dim * 2
+    staging = 2 * 2 * KERNEL_BLOCK_KV * head_dim if quantized else 0
+    barriers = (1 + 2 * KERNEL_STAGES + 2) * 8
+    return (kernel_block_q(head_dim) * head_dim * 2 + KERNEL_STAGES * (2 * tile + KERNEL_BLOCK_KV * 4) + staging
+            + barriers + 1024)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,10 +137,12 @@ def default_blocks(
     """Tiling of the Hopper forward kernel, which the plain tile loop
     follows by default so that both skip the same blocks.
 
-    The tile is fixed at 64 x 64 for every supported head dim (64, 128)
-    and GQA group: the group's query heads run in separate thread blocks
-    that read the same KV head, so the group does not grow the tile as it
-    did on the TPU.  Arguments are taken for signature parity with the JAX
-    package."""
-    del q_len, kv_len, head_dim, group
-    return BlockSizes(block_q=KERNEL_BLOCK_Q, block_kv=KERNEL_BLOCK_KV)
+    The tile is `kernel_block_q(head_dim)` x 64 (192 x 64 at head dim 64,
+    128 x 64 at 128) for any GQA group: the group's query heads run in
+    separate thread blocks that read the same KV head, so the group does not
+    grow the tile as it did on the TPU.  The plain backward tiles follow it
+    too (`bwd_dkv`, `bwd_dq`); the CUDA backward keeps 64 x 64, which
+    changes only the order of summation.  q_len, kv_len and group are taken
+    for signature parity with the JAX package."""
+    del q_len, kv_len, group
+    return BlockSizes(block_q=kernel_block_q(head_dim), block_kv=KERNEL_BLOCK_KV)

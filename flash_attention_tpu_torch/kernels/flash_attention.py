@@ -303,9 +303,12 @@ def flash_attention_bwd_reference(
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t itself when the kernel's 16-byte vector loads can read it through
-    its strides (unit last stride, 16-byte aligned base and rows), else a
-    contiguous copy."""
+    """t itself when the kernels can read it through its strides, else a
+    contiguous copy: a unit last stride, a 16-byte aligned base, and every
+    other stride a multiple of 16 bytes (TMA's rule for the forward's tensor
+    maps; the backward's 16-byte vector loads need the same).  The fused
+    QKV projection's q/k/v views pass uncopied.  The only place q, k, v
+    and dO are copied on their way to a kernel."""
     vec = 16 // t.element_size()
     ok = (
         t.stride(-1) == 1
@@ -550,8 +553,9 @@ def flash_attention(
       num_chunks_q / num_chunks_kv: reference-style chunk counts mapped to
         block sizes (`blocks_from_chunks`).
       The tiling sets the tiles of the plain versions (CPU tensors).  The
-      CUDA kernels keep their own 64 x 64 tile whatever is passed, which
-      changes only the order of summation.
+      CUDA kernels keep their own tiles whatever is passed (the forward
+      192 x 64 at head dim 64 and 128 x 64 at 128, the backward 64 x 64),
+      which changes only the order of summation.
 
     Returns [batch, num_q_heads, q_len, head_dim] in q's dtype.  On CUDA,
     float32, bfloat16 and float16 run natively, at head dims 64 and 128.

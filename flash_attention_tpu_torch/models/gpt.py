@@ -209,7 +209,8 @@ class GPT(nn.Module):
     1/sqrt(2 n_layer), zero biases; the LM head is tied to `wte`.
 
     generator: the torch.Generator all weights are drawn from (CPU);
-    default a fresh one seeded 0.  device: where the weights live.
+    default a fresh one seeded 0.  device: where the weights live, default
+    the card ("cuda", which raises without one; "cpu" when asked for).
     param_dtype: storage of the matmul weights and biases, cast to
     cfg.dtype at each use; default cfg.dtype (serving).  Training passes
     torch.float32, as the JAX package trains fp32 params.
@@ -338,7 +339,8 @@ def params_from_jax(
     JAX stores linear weights [in, out]; nn.Linear wants [out, in].  Absent
     biases are None in the tree (cfg.bias False).  The LM head is tied to
     `wte` in both packages, so the tree has no separate head.  param_dtype
-    as in `GPT` (torch.float32 for a trainable model).
+    and device as in `GPT` (torch.float32 for a trainable model; default
+    the card).
     """
     model = GPT(cfg, device=resolve_device(device), param_dtype=param_dtype)
 

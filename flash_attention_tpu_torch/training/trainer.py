@@ -150,8 +150,8 @@ class Trainer:
 
     cfg: a GPTConfig.  model: a GPT to train (its weights are trained in
     place); default a fresh one with fp32 master weights, drawn from
-    `seed`.  device: where a fresh model lives (default the CPU; "cuda"
-    without a card raises).
+    `seed`.  device: where a fresh model lives (default the card, "cuda",
+    which raises without one; "cpu" when asked for).
     """
 
     def __init__(self, cfg, tcfg: TrainerConfig, *, model=None, seed: int = 0, device=None):

@@ -125,7 +125,7 @@ def test_page_view_and_identity_indices_match_jax(quant):
         np.testing.assert_array_equal(raw(a), raw(b))
     k_pages = tkvc.page_view(tc, 1, 64)[0]
     assert k_pages.data_ptr() == tc.k[1].data_ptr()  # a view, not a copy
-    np.testing.assert_array_equal(n(tkvc.identity_page_indices(3, 256, 64)),
+    np.testing.assert_array_equal(n(tkvc.identity_page_indices(3, 256, 64, device="cpu")),
                                   np.asarray(jkvc.identity_page_indices(3, 256, 64)))
     with pytest.raises(ValueError, match="page_size"):
         tkvc.page_view(tc, 0, 100)

@@ -113,8 +113,51 @@ def test_block_sizes_match_jax(name, fn):
 
 
 def test_default_blocks_is_the_kernel_tile():
-    assert tbs.default_blocks(1024, 1024, 64) == tbs.BlockSizes(64, 64)
-    assert tbs.default_blocks(40, 384, 128, group=4) == tbs.BlockSizes(64, 64)
+    """The plain loop's default tile is the Hopper forward kernel's: 192 x 64
+    at head dim 64 (three consumer warpgroups), 128 x 64 at 128 (two), for
+    any GQA group."""
+    assert tbs.KERNEL_BLOCK_KV == 64
+    assert tbs.default_blocks(1024, 1024, 64) == tbs.BlockSizes(192, 64)
+    assert tbs.default_blocks(40, 384, 128, group=4) == tbs.BlockSizes(128, 64)
+
+
+@pytest.mark.parametrize("lq,lk", [(300, 300), (200, 330)])
+def test_plain_loop_at_the_kernel_tile_matches_jax(lq, lk):
+    """The plain loop at the kernel's tile (ragged ends, a GQA group of 4
+    whose 192-row tiles cross the causal diagonal) against the JAX
+    package's kernel in interpret mode, fp32, 1e-5."""
+    q, k, v = _qkv(lq, lk, hq=8, hkv=2, d=64, seed=11)
+    jo, jl = jfa.flash_attention_with_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    to, tl = tfa.flash_attention_reference(t(q), t(k), t(v), block_sizes=tbs.default_blocks(lq, lk, 64, 4))
+    np.testing.assert_allclose(n(to), n(jo), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(n(tl), n(jl), atol=1e-5, rtol=0)
+
+
+def test_aligned_copies_only_what_the_kernels_cannot_read():
+    """q/k/v sliced out of a fused [B, L, 3 H D] bf16 projection pass
+    uncopied; a row stride that is not a multiple of 16 bytes, or a base
+    2 bytes off, is copied."""
+    b, length, h, d = 2, 40, 4, 64
+    qkv = torch.zeros(b, length, 3 * h * d, dtype=torch.bfloat16)
+    for i in range(3):
+        view = qkv[..., i * h * d:(i + 1) * h * d].view(b, length, h, d).transpose(1, 2)
+        assert tfa._aligned(view) is view
+    odd_rows = torch.zeros(b, h, length, d + 1, dtype=torch.bfloat16)[..., :d]
+    shifted = torch.zeros(b * h * length * d + 1, dtype=torch.bfloat16)[1:].view(b, h, length, d)
+    for x in (odd_rows, shifted):
+        y = tfa._aligned(x)
+        assert y is not x and y.is_contiguous() and torch.equal(y, x) and y.data_ptr() % 16 == 0
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("kv", ["same", "int8", "float8_e4m3fn"])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_forward_kernel_fits_in_shared_memory(dtype, kv, head_dim):
+    """Every instantiation of the bf16/fp16 forward (q dtype, K/V payload,
+    head dim) fits an H100 block's 227 KB; the 2-byte types share a layout."""
+    used = tbs.forward_smem_bytes(head_dim, quantized=kv != "same")
+    assert used <= tbs.SMEM_PER_BLOCK == 232_448
+    assert used >= (tbs.kernel_block_q(head_dim) + 2 * tbs.KERNEL_STAGES * tbs.KERNEL_BLOCK_KV) * head_dim * 2
 
 
 def test_cpu_route_counts_no_kernel_launch():

@@ -20,7 +20,7 @@ def test_logits_match_jax_forward(use_flash):
     idx = np.random.default_rng(1).integers(0, JAX_CFG.vocab_size, (2, 160)).astype(np.int32)
     want = jgpt.forward(jax_tree(tree), jnp.asarray(idx), JAX_CFG)
     cfg = tgpt.GPTConfig(**{**TORCH_CFG.__dict__, "use_flash": use_flash})
-    model = tgpt.params_from_jax(tree, cfg)
+    model = tgpt.params_from_jax(tree, cfg, device="cpu")
     with torch.no_grad():
         got = model(t(idx))
     assert got.shape == (2, 160, JAX_CFG.vocab_size)
@@ -29,7 +29,7 @@ def test_logits_match_jax_forward(use_flash):
 
 def test_params_from_jax_transposes_and_ties():
     tree = numpy_params(seed=2)
-    model = tgpt.params_from_jax(tree, TORCH_CFG)
+    model = tgpt.params_from_jax(tree, TORCH_CFG, device="cpu")
     w = tree["blocks"][1]["attn"]["wqkv"]  # JAX [in, out]
     np.testing.assert_array_equal(n(model.blocks[1].attn.wqkv.weight), w.T)
     np.testing.assert_array_equal(n(model.blocks[0].mlp.wproj.weight), tree["blocks"][0]["mlp"]["wproj"].T)
@@ -44,14 +44,14 @@ def test_params_from_jax_without_biases():
     tcfg = tgpt.GPTConfig(**{**TORCH_CFG.__dict__, "bias": False})
     tree = jax.tree.map(np.asarray, jgpt.init_params(jax.random.PRNGKey(3), jcfg))
     assert tree["blocks"][0]["attn"]["bqkv"] is None
-    model = tgpt.params_from_jax(tree, tcfg)
+    model = tgpt.params_from_jax(tree, tcfg, device="cpu")
     assert model.blocks[0].attn.wqkv.bias is None
     idx = np.arange(20, dtype=np.int32)[None] % 64
     with torch.no_grad():
         got = model(t(idx))
     np.testing.assert_allclose(n(got), np.asarray(jgpt.forward(jax_tree(tree), jnp.asarray(idx), jcfg)), atol=1e-4)
     with pytest.raises(ValueError, match="bias"):
-        tgpt.params_from_jax(tree, TORCH_CFG)
+        tgpt.params_from_jax(tree, TORCH_CFG, device="cpu")
 
 
 def test_gelu_is_the_tanh_approximation():
@@ -76,14 +76,14 @@ def test_layer_norm_matches_jax(fast):
 
 
 def test_init_is_seeded_and_gpt2_scaled():
-    a = tgpt.GPT(TORCH_CFG, generator=torch.Generator().manual_seed(5))
-    b = tgpt.GPT(TORCH_CFG, generator=torch.Generator().manual_seed(5))
+    a = tgpt.GPT(TORCH_CFG, generator=torch.Generator().manual_seed(5), device="cpu")
+    b = tgpt.GPT(TORCH_CFG, generator=torch.Generator().manual_seed(5), device="cpu")
     for (na, pa), (_, pb) in zip(a.named_parameters(), b.named_parameters()):
         assert torch.equal(pa, pb), na
     w = a.blocks[0].attn.wo.weight
     assert abs(w.std().item() - 0.02 / np.sqrt(2 * TORCH_CFG.n_layer)) < 2e-3
     assert torch.all(a.blocks[0].attn.wqkv.bias == 0)
-    bf = tgpt.GPT(tgpt.GPTConfig(**{**TORCH_CFG.__dict__, "dtype": torch.bfloat16}))
+    bf = tgpt.GPT(tgpt.GPTConfig(**{**TORCH_CFG.__dict__, "dtype": torch.bfloat16}), device="cpu")
     assert bf.blocks[0].mlp.wfc.weight.dtype == torch.bfloat16
     assert bf.wte.dtype == torch.float32 and bf.lnf.g.dtype == torch.float32
     with torch.no_grad():
@@ -98,6 +98,6 @@ def test_configs_match_jax_presets():
 
 
 def test_forward_rejects_too_long_sequence():
-    model = tgpt.GPT(TORCH_CFG)
+    model = tgpt.GPT(TORCH_CFG, device="cpu")
     with pytest.raises(ValueError, match="block_size"):
         model(torch.zeros(1, TORCH_CFG.block_size + 1, dtype=torch.long))

@@ -28,7 +28,7 @@ SLOTS, MAX_LEN = 3, 256
 @pytest.fixture(scope="module")
 def models():
     tree = numpy_params(seed=0)
-    return jax_tree(tree), tgpt.params_from_jax(tree, TORCH_CFG)
+    return jax_tree(tree), tgpt.params_from_jax(tree, TORCH_CFG, device="cpu")
 
 
 QUANT = {"int8": (jnp.int8, torch.int8), "fp8": (jnp.float8_e4m3fn, torch.float8_e4m3fn)}
@@ -38,7 +38,7 @@ def _caches(quant: str | None = None):
     args = (JAX_CFG.n_layer, SLOTS, JAX_CFG.kv_heads, MAX_LEN, JAX_CFG.head_dim)
     jq, tq = QUANT[quant] if quant else (None, None)
     return (jkv.init_cache(*args, dtype=jnp.float32, quant_dtype=jq),
-            tkv.init_cache(*args, dtype=torch.float32, quant_dtype=tq))
+            tkv.init_cache(*args, dtype=torch.float32, quant_dtype=tq, device="cpu"))
 
 
 def _assert_cache_equal(jc, tc, atol=1e-4):
@@ -209,7 +209,7 @@ def scaled_models():
     """Weights at std ~0.5 so that greedy top-2 logit gaps sit far above the
     1e-4 parity tier: a flipped token then reads as a bug, not a tie."""
     tree = numpy_params(seed=1, scale=25.0)
-    return jax_tree(tree), tgpt.params_from_jax(tree, TORCH_CFG)
+    return jax_tree(tree), tgpt.params_from_jax(tree, TORCH_CFG, device="cpu")
 
 
 def _min_top2_gap(tm, prompt, output):

@@ -67,7 +67,7 @@ def test_loss_and_grads_match_jax(variant):
     want_loss, want = jax.value_and_grad(lambda p: jgpt.loss_fn(p, jnp.asarray(idx), jnp.asarray(tgt), jcfg))(
         jax_tree(tree)
     )
-    model = tgpt.params_from_jax(tree, tcfg, param_dtype=torch.float32)
+    model = tgpt.params_from_jax(tree, tcfg, param_dtype=torch.float32, device="cpu")
     loss = tgpt.loss_fn(model, t(idx).long(), t(tgt).long())
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(want_loss), atol=1e-5, rtol=0)
@@ -81,11 +81,11 @@ def test_loss_and_grads_match_jax(variant):
 def test_params_from_jax_keeps_fp32_master_weights():
     tree = numpy_params(seed=2)
     bf = dataclasses.replace(TORCH_CFG, dtype=torch.bfloat16)
-    model = tgpt.params_from_jax(tree, bf, param_dtype=torch.float32)
+    model = tgpt.params_from_jax(tree, bf, param_dtype=torch.float32, device="cpu")
     w = model.blocks[0].attn.wqkv.weight
     assert w.dtype == torch.float32
     np.testing.assert_array_equal(n(w), tree["blocks"][0]["attn"]["wqkv"].T)
-    serving = tgpt.params_from_jax(tree, bf)
+    serving = tgpt.params_from_jax(tree, bf, device="cpu")
     assert serving.blocks[0].attn.wqkv.weight.dtype == torch.bfloat16
     idx = torch.arange(20)[None] % 64
     with torch.no_grad():
@@ -102,7 +102,7 @@ def test_remat_gradients_equal_no_remat_under_dropout():
     grads, losses = [], []
     for remat in (False, True):
         model = tgpt.GPT(dataclasses.replace(cfg, remat=remat), generator=torch.Generator().manual_seed(4),
-                         param_dtype=torch.float32)
+                         param_dtype=torch.float32, device="cpu")
         loss = tgpt.loss_fn(model, idx, idx, rng=123, deterministic=False)
         loss.backward()
         losses.append(loss.item())
@@ -124,11 +124,12 @@ def test_dropout_keep_share_and_scale():
     assert not torch.equal(tgpt._dropout(x, 0.2, seed=8), y)
     assert tgpt._dropout(x, 0.2, seed=None) is x
     with pytest.raises(ValueError, match="seed"):
-        tgpt.GPT(dataclasses.replace(TORCH_CFG, dropout=0.1))(torch.zeros(1, 4, dtype=torch.long), deterministic=False)
+        model = tgpt.GPT(dataclasses.replace(TORCH_CFG, dropout=0.1), device="cpu")
+        model(torch.zeros(1, 4, dtype=torch.long), deterministic=False)
 
 
 def test_generate_greedy_and_seeded():
-    model = tgpt.GPT(TORCH_CFG, generator=torch.Generator().manual_seed(5))
+    model = tgpt.GPT(TORCH_CFG, generator=torch.Generator().manual_seed(5), device="cpu")
     start = torch.tensor([[1, 2, 3]])
     greedy = tgpt.generate(model, start, max_new_tokens=5, top_k=1)
     ids = start
@@ -200,7 +201,7 @@ def test_updates_match_optax(accumulation):
 
 
 def test_optimizer_groups_decay_only_matrices():
-    model = tgpt.GPT(TORCH_CFG, param_dtype=torch.float32)
+    model = tgpt.GPT(TORCH_CFG, param_dtype=torch.float32, device="cpu")
     opt, _ = make_optimizer(model, 1e-3)
     decayed, plain = opt.param_groups
     assert decayed["weight_decay"] == 0.1 and plain["weight_decay"] == 0.0
@@ -227,7 +228,8 @@ def _tiny(use_flash=True, max_iters=8):
 
 def _port_trainer(use_flash=True, max_iters=8, **extra):
     data, shape, tkw = _tiny(use_flash, max_iters)
-    trainer = Trainer(tgpt.GPTConfig(**shape, dtype=torch.float32), TrainerConfig(**{**tkw, **extra}), seed=0)
+    trainer = Trainer(tgpt.GPTConfig(**shape, dtype=torch.float32), TrainerConfig(**{**tkw, **extra}), seed=0,
+                      device="cpu")
     return trainer, data
 
 
@@ -243,10 +245,10 @@ def test_trainer_matches_jax_trainer():
     jtrainer = JTrainer(jgpt.GPTConfig(**shape, dtype=jnp.float32), JTrainerConfig(**tkw), seed=0)
     tree = jax.tree.map(np.asarray, jtrainer.params)
     tcfg = tgpt.GPTConfig(**shape, dtype=torch.float32)
-    model = tgpt.params_from_jax(tree, tcfg, param_dtype=torch.float32)
+    model = tgpt.params_from_jax(tree, tcfg, param_dtype=torch.float32, device="cpu")
     trainer = Trainer(tcfg, TrainerConfig(**tkw), model=model)
     want = _losses(jtrainer.fit(jloader.batch_iterator(data, 8, 128, seed=0), log=lambda s: None))
-    got = _losses(trainer.fit(tloader.batch_iterator(data, 8, 128, seed=0), log=lambda s: None))
+    got = _losses(trainer.fit(tloader.batch_iterator(data, 8, 128, seed=0, device="cpu"), log=lambda s: None))
     assert len(got) == len(want) == 8
     np.testing.assert_allclose(got[:2], want[:2], atol=1e-5, rtol=0)
     np.testing.assert_allclose(got, want, atol=2e-3, rtol=0)
@@ -256,8 +258,8 @@ def test_flash_vs_dense_loss_curves_match():
     """tests/test_training_e2e.py's flash-vs-dense experiment on the port."""
     t_flash, data = _port_trainer(use_flash=True)
     t_dense, _ = _port_trainer(use_flash=False)
-    h_flash = t_flash.fit(tloader.batch_iterator(data, 8, 128, seed=0), log=lambda s: None)
-    h_dense = t_dense.fit(tloader.batch_iterator(data, 8, 128, seed=0), log=lambda s: None)
+    h_flash = t_flash.fit(tloader.batch_iterator(data, 8, 128, seed=0, device="cpu"), log=lambda s: None)
+    h_dense = t_dense.fit(tloader.batch_iterator(data, 8, 128, seed=0, device="cpu"), log=lambda s: None)
     assert len(h_flash) == 8 and _losses(h_flash)[-1] < _losses(h_flash)[0]
     np.testing.assert_allclose(_losses(h_flash), _losses(h_dense), rtol=2e-3, atol=2e-3)
 
@@ -265,8 +267,8 @@ def test_flash_vs_dense_loss_curves_match():
 def test_history_records_and_eval_cadence():
     trainer, data = _port_trainer(max_iters=4, eval_interval=2, log_interval=3)
     history = trainer.fit(
-        tloader.batch_iterator(data, 8, 128, seed=0),
-        val_batches=lambda: tloader.batch_iterator(data, 8, 128, seed=9),
+        tloader.batch_iterator(data, 8, 128, seed=0, device="cpu"),
+        val_batches=lambda: tloader.batch_iterator(data, 8, 128, seed=9, device="cpu"),
         log=lambda s: None,
     )
     assert [r["iter"] for r in history] == [0, 2, 3]
@@ -283,7 +285,7 @@ def test_trainer_takes_no_sharding_arguments():
 
 def test_checkpoint_roundtrip(tmp_path):
     trainer, data = _port_trainer(max_iters=4)
-    trainer.fit(tloader.batch_iterator(data, 8, 128, seed=0), log=lambda s: None)
+    trainer.fit(tloader.batch_iterator(data, 8, 128, seed=0, device="cpu"), log=lambda s: None)
     save_checkpoint(tmp_path / "step_4", {"model": trainer.model.state_dict(), "step": 4})
     state = restore_checkpoint(tmp_path / "step_4")
     assert state["step"] == 4
@@ -300,15 +302,15 @@ def test_resume_matches_uninterrupted(tmp_path, accumulation):
     accumulation 3 the checkpoint falls mid-accumulation and carries the
     accumulated gradients): same parameters, atol 1e-6."""
     straight, data = _port_trainer(gradient_accumulation=accumulation)
-    straight.fit(tloader.batch_iterator(data, 8, 128, seed=0), log=lambda s: None)
+    straight.fit(tloader.batch_iterator(data, 8, 128, seed=0, device="cpu"), log=lambda s: None)
 
     first, _ = _port_trainer(gradient_accumulation=accumulation)
     first.tcfg.max_iters, first.tcfg.checkpoint_every, first.tcfg.checkpoint_dir = 4, 4, str(tmp_path)
-    first.fit(tloader.batch_iterator(data, 8, 128, seed=0), log=lambda s: None)
+    first.fit(tloader.batch_iterator(data, 8, 128, seed=0, device="cpu"), log=lambda s: None)
 
     resumed, _ = _port_trainer(gradient_accumulation=accumulation)
     assert resumed.resume(str(tmp_path)) == 4
-    batches = tloader.batch_iterator(data, 8, 128, seed=0)
+    batches = tloader.batch_iterator(data, 8, 128, seed=0, device="cpu")
     for _ in range(4):
         next(batches)
     history = resumed.fit(batches, log=lambda s: None)
@@ -319,7 +321,7 @@ def test_resume_matches_uninterrupted(tmp_path, accumulation):
 
 def test_emergency_checkpoint_on_crash(tmp_path):
     crashed, data = _port_trainer(checkpoint_dir=str(tmp_path))
-    batches = tloader.batch_iterator(data, 8, 128, seed=0)
+    batches = tloader.batch_iterator(data, 8, 128, seed=0, device="cpu")
 
     def crashing():
         for i, b in enumerate(batches):
@@ -362,7 +364,8 @@ def test_data_matches_jax():
     for seed in (0, 7):
         for a, b in zip(tloader.sample_batch(ids, seed, 4, 64), jloader.sample_batch(ids, seed, 4, 64)):
             np.testing.assert_array_equal(a, b)
-    (tx, ty), (jx, jy) = next(tloader.batch_iterator(ids, 4, 64, seed=3)), next(jloader.batch_iterator(ids, 4, 64, seed=3))
+    tx, ty = next(tloader.batch_iterator(ids, 4, 64, seed=3, device="cpu"))
+    jx, jy = next(jloader.batch_iterator(ids, 4, 64, seed=3))
     assert tx.dtype == torch.long and tx.device.type == "cpu"
     np.testing.assert_array_equal(n(tx), np.asarray(jx))
     np.testing.assert_array_equal(n(ty), np.asarray(jy))
