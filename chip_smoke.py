@@ -9,14 +9,18 @@ non-zero and never prints the final `"ok": true` line:
               limit from nvidia-smi; TF32 off for fp32 matmuls.
 2. build    - compile the port's CUDA kernels from this checkout's sources
               (one nvcc per source, in parallel) and print ptxas's
-              registers and spills per kernel.
+              registers and spills per kernel, and any wgmma it serialises
+              (C7518).
 3. k1       - the flash-attention forward kernel against its plain PyTorch
               tile loop and against dense (vanilla) attention, at the GPT-2
               shapes and more (window, segment ids, the tile's ragged edges
               with a GQA group crossing the diagonal), each error beside its
               tolerance.
-4. k2k3     - gradients of K1+K2+K3 through the autograd Function against
-              the plain backward and against autograd of fp32 vanilla.
+4. k2k3     - the backward's pre-pass (di and qs) against its plain
+              expression; gradients of K1 + pre-pass + K2 + K3 through the
+              autograd Function against the plain backward and against
+              autograd of fp32 vanilla, at the tiles' edges (q129 x kv257,
+              GQA 8/2, window 100; Lq 1023; rows that see no key) and more.
 5. k4       - quantized-KV flash attention (int8/fp8 K/V) against its plain
               version and fp32 vanilla on the dequantized K/V (Lk % 4 != 0
               among them, so the scales' rows are unaligned); then the
@@ -42,18 +46,22 @@ non-zero and never prints the final `"ok": true` line:
               against the unquantized forward is printed.
 11. training - the port's Trainer on GPT-2 124M (bf16 compute, fp32 master
               weights) for 20 steps at b8 x T1024: losses finite and
-              falling by more than 1 nat; K1, K2 and K3 each launched
-              n_layer x steps times; step time, tokens/s, peak memory.
+              falling by more than 1 nat; K1, the pre-pass, K2 and K3 each
+              launched n_layer x steps times; step time, tokens/s, peak
+              memory; then a torch.profiler trace of 3 more steps: device
+              busy ms a step by kind of kernel, and the idle share.
 12. train-parity - GPT-2 124M in fp32, 5 steps at b2 x T512 on flash and on
               dense attention from the same weights and batches: losses
               within 2e-3.
-13. timing  - K1, and one backward (K2, K3, both with the di reduction),
-              against the plain versions and vanilla at GPT-2 shapes, and
-              torch SDPA forward / backward as the one library call for the
-              same function; K4 at b1/b8 (SDPA forward on bf16 K/V beside it,
-              the same FLOPs but not the same function), K5 and K6 at 8
-              slots with contexts near 512 of 1024, int8 and bf16, against
-              their plain versions.  Device time: a CUDA graph of 20 calls
+13. timing  - K1, and the backward (pre-pass, K2, K3, and the three
+              together) at b1 and b8 (D64) and b8 D128, against the plain
+              versions and vanilla at GPT-2 shapes, and torch SDPA forward /
+              backward as the one library call for the same function; K4 at
+              b1/b8 (SDPA forward on bf16 K/V beside it, the same FLOPs but
+              not the same function), K5 and K6 at 8 slots with contexts near
+              512 of 1024, int8 and bf16, against their plain versions and,
+              on the bf16 cache, SDPA with a length mask over the slot-major
+              cache.  Device time: a CUDA graph of 20 calls
               between CUDA events (graph_ms); "a call" adds the host's
               enqueue.  Each kernel beside its bound: the larger of its bytes
               at 3.35 TB/s and its FLOPs at 989 TFLOP/s.
@@ -99,13 +107,16 @@ PA = importlib.import_module("flash_attention_tpu_torch.inference.paged_attentio
 DA = importlib.import_module("flash_attention_tpu_torch.inference.decode_attention")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "flash_fwd": ("flash_attention_tpu_torch/csrc/flash_fwd.cu", "flash_attention_tpu/kernels/flash_attention.py:269"),
+    # no Pallas kernel: the di and qs that JAX computes outside its backward
+    # kernels (_flash_bwd_rule :1112, _recompute_p :618)
+    "flash_bwd_prep": ("flash_attention_tpu_torch/csrc/flash_bwd.cu", "flash_attention_tpu/kernels/flash_attention.py:1112"),
     "flash_bwd_dkv": ("flash_attention_tpu_torch/csrc/flash_bwd.cu", "flash_attention_tpu/kernels/flash_attention.py:637"),
     "flash_bwd_dq": ("flash_attention_tpu_torch/csrc/flash_bwd.cu", "flash_attention_tpu/kernels/flash_attention.py:765"),
     "flash_fwd_kv_quant": ("flash_attention_tpu_torch/csrc/flash_fwd_kv_quant.cu", "flash_attention_tpu/quant/kv.py:98"),
     "paged_decode": ("flash_attention_tpu_torch/csrc/decode.cu", "flash_attention_tpu/inference/paged_attention.py:34"),
     "fused_decode": ("flash_attention_tpu_torch/csrc/decode.cu", "flash_attention_tpu/inference/decode_attention.py:195"),
 }
-TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+TRAINING_KERNELS = ("flash_fwd", "flash_bwd_prep", "flash_bwd_dkv", "flash_bwd_dq")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12
 
@@ -169,10 +180,17 @@ def phase_build() -> None:
         if "decode_kernel" in name and not spilled:
             decode.append(regs)
         else:
-            say(f"[build] ptxas {name.replace('(fa::FwdParams)', '').replace('fa::', '')}: {regs} registers; {spill}")
+            short = name.replace("(anonymous namespace)::", "").replace("(fa::FwdParams)", "").replace("fa::", "")
+            say(f"[build] ptxas {short}: {regs} registers; {spill}")
     if decode:
         say(f"[build] ptxas decode_kernel: {len(decode)} instantiations without spills, "
             f"{min(decode)}-{max(decode)} registers")
+    # ptxas reports a kernel whose wgmma it serialises only as an info line
+    serial = [line.strip() for line in _build.build_info.get("ptxas", "").splitlines() if "C7518" in line]
+    names = _demangle([m.group(1) for line in serial for m in [re.search(r"function '([^']+)'", line)] if m])
+    say(f"[build] ptxas C7518 (wgmma serialised): {len(serial)} line(s)"
+        + "".join(f"\n[build]   {line}" for line in serial)
+        + ("\n[build]   in " + ", ".join(sorted(set(names))) if names else ""))
 
 
 def _rand(gen, shape, dtype):
@@ -252,19 +270,51 @@ def phase_k1(seed: int) -> float:
     return worst
 
 
+def check_prep(label, gen, b, hq, lq, d, dtype, with_lse=False) -> float:
+    """The backward's pre-pass against its plain expression on the same
+    inputs (o from the forward, read through its [B, L, H, D] strides): di
+    against (o.float() * do.float()).sum(-1) - dlse, fp32, absolute 1e-5
+    (D products summed in another order); qs against (q.float() * sm_scale
+    * log2 e).to(dtype), bit for bit (fp32 writes no qs).  Returns di's
+    error."""
+    q, k, v, do = (_rand(gen, (b, hq, lq, d), dtype) for _ in range(4))
+    dlse = _rand(gen, (b, hq, lq), torch.float32) if with_lse else None
+    with torch.no_grad():
+        o, lse = FA.flash_attention_with_lse(q, k, v)
+    spec = FA._Spec(causal=True, sm_scale=d ** -0.5, window=None, blocks=FA.default_blocks(lq, lq, d))
+    args = FA._bwd_args(q, k, v, o, lse, do, dlse, spec, None)
+    FA._launch_bwd_prep(args)
+    di_ref, qs_ref = FA.flash_attention_bwd_prep_reference(q, o, do, dlse=dlse, sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    di, qs = args["tensors"][5], args["qs"]
+    err = (di - di_ref).abs().max().item()
+    same = qs is None or torch.equal(qs.view(torch.int16), qs_ref.contiguous().view(torch.int16))
+    ok = err <= 1e-5 and same and bool(torch.isfinite(di).all())
+    say(f"[k2k3] pre-pass {label:<34} di vs plain {err:.2e} (atol 1e-5), qs "
+        f"{'bit-equal' if qs is not None and same else 'not written (fp32)' if qs is None else 'DIFFERS'}  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[k2k3] pre-pass {label} disagrees with its plain expression")
+    return err
+
+
 def check_grads(label, gen, b, hq, hkv, lq, lk, d, dtype, causal=True, window=None, segments=False,
-                with_lse=False) -> dict:
-    """Gradients of K1+K2+K3 through the autograd Function against the plain
-    backward (on the plain forward's o and lse) and against autograd of fp32
-    vanilla attention, on the same inputs and one random dO (and dlse).
-    fp32: absolute 1e-4, the source repo's backward tier.  bf16/fp16: max
-    error <= 2e-2 x max |grad| of the fp32 reference, since P and dS are
-    rounded to the 16-bit type before their products.  Returns the worst
+                with_lse=False, no_key_rows=0) -> dict:
+    """Gradients of K1 + pre-pass + K2 + K3 through the autograd Function
+    against the plain backward (on the plain forward's o and lse) and
+    against autograd of fp32 vanilla attention, on the same inputs and one
+    random dO (and dlse).  fp32: absolute 1e-4, the source repo's backward
+    tier.  bf16/fp16: max error <= 2e-2 x max |grad| of the fp32 reference,
+    since P and dS are rounded to the 16-bit type before their products.
+    `no_key_rows`: the first rows see no key (lse = -inf); their dO is 0,
+    since vanilla spreads such a row over every key where the kernels give
+    it P = 0; a P of inf there would turn 0 into NaN.  Returns the worst
     error of each grad against the plain backward."""
     q = _rand(gen, (b, hq, lq, d), dtype).requires_grad_()
     k = _rand(gen, (b, hkv, lk, d), dtype).requires_grad_()
     v = _rand(gen, (b, hkv, lk, d), dtype).requires_grad_()
     do = _rand(gen, (b, hq, lq, d), dtype)
+    do[:, :, :no_key_rows] = 0
     dlse = _rand(gen, (b, hq, lq), torch.float32) if with_lse else None
     segs = (_segment_ids(b, lq), _segment_ids(b, lk)) if segments else None
     kw = dict(causal=causal, window=window, segment_ids=segs)
@@ -303,12 +353,29 @@ def check_grads(label, gen, b, hq, hkv, lq, lk, d, dtype, causal=True, window=No
 
 
 def phase_k2k3(seed: int) -> dict:
-    """Returns K2's and K3's worst errors against the plain backward."""
+    """Returns the pre-pass's, K2's and K3's worst errors against their plain
+    versions."""
     gen = torch.Generator().manual_seed(seed + 3)
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    prep = [
+        check_prep("gpt2 b4 h12 L1024 D64 bf16", gen, 4, 12, 1024, 64, bf16),
+        check_prep("lse cotangent b2 h12 L256 D64 bf16", gen, 2, 12, 256, 64, bf16, with_lse=True),
+        check_prep("lq1023 b1 h8 D128 fp16", gen, 1, 8, 1023, 128, f16, with_lse=True),
+        check_prep("fp32 b1 h4 L300 D64", gen, 1, 4, 300, 64, f32),
+    ]
     say("[k2k3] tolerance: fp32 absolute 1e-4 (the source repo's backward tier); bf16/fp16 2e-2 x max |grad| of "
         "the fp32 reference, since P and dS are rounded to the 16-bit type before their products")
     runs = [
+        # the tiles' edges: q129 (one row past two 64-row warpgroups), kv257
+        # (one row past two 128-row KV blocks), a GQA group of 4 whose q
+        # tiles cross the end-aligned diagonal, window 100
+        check_grads("edges q129 kv257 gqa 8/2 window 100 bf16", gen, 2, 8, 2, 129, 257, 64, bf16, window=100),
+        check_grads("edges q129 kv257 gqa 8/2 w100 D128 fp16", gen, 2, 8, 2, 129, 257, 128, f16, window=100),
+        # lse and di rows of 1023 floats: not 16-byte aligned
+        check_grads("lq1023 gqa 8/2 D128 bf16", gen, 1, 8, 2, 1023, 1023, 128, bf16),
+        # queries aligned to the end of 200 keys: the first 100 see none
+        check_grads("no-key rows q300 kv200 D64 bf16", gen, 2, 12, 12, 300, 200, 64, bf16, no_key_rows=100),
+        check_grads("no-key rows fp32 q300 kv200 D64", gen, 1, 4, 4, 300, 200, 64, f32, no_key_rows=100),
         check_grads("gpt2 train b4 h12 L1024 D64 bf16", gen, 4, 12, 12, 1024, 1024, 64, bf16),
         *(check_grads(f"b2 h12 L{L} D64 bf16", gen, 2, 12, 12, L, L, 64, bf16) for L in (40, 200)),
         check_grads("fp32 b1 h4 L384 D64", gen, 1, 4, 4, 384, 384, 64, f32),
@@ -323,6 +390,7 @@ def phase_k2k3(seed: int) -> dict:
         check_grads("fp16 b2 h12 L300 D64", gen, 2, 12, 12, 300, 300, 64, torch.float16),
     ]
     return {
+        "flash_bwd_prep": max(prep),
         "flash_bwd_dkv": max(max(r["dk"], r["dv"]) for r in runs),
         "flash_bwd_dq": max(r["dq"] for r in runs),
     }
@@ -732,7 +800,65 @@ def phase_training(seed: int, smi: str, data: np.ndarray) -> dict:
     med = float(np.median(step_ms[5:]))
     say(f"[training] {smi} | step {med:.2f} ms (median of steps 6-{steps}), {batch * seq / med * 1e3:.0f} tokens/s, "
         f"peak allocated {peak / 2**30:.2f} GiB")
+    _trace_steps(trainer, batches, smi, med)
     return launches
+
+
+# Kinds of device work in a training step, by kernel name (first match).
+STEP_KINDS = (
+    ("K1", re.compile(r"flash_fwd_ws_kernel")),
+    ("K2/K3 + pre-pass", re.compile(r"flash_bwd_")),
+    ("cuBLAS", re.compile(r"gemm|xmma|cutlass|nvjet|cublas", re.I)),
+    ("copies", re.compile(r"^mem(cpy|set)", re.I)),
+)
+
+
+def _trace_steps(trainer: Trainer, batches, smi: str, step_ms: float, steps: int = 3) -> dict:
+    """torch.profiler over `steps` more training steps (the run before is
+    the warm-up): device-busy ms a step (the union of the device's kernel
+    and copy intervals), that time by kind of kernel, and the idle share of
+    the untraced median step `step_ms` (the profiler's own host time
+    lengthens the traced steps' wall time, printed beside it).  Prints them
+    and returns them (an empty dict when no device event was recorded)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.tcfg.max_iters = trainer.step + steps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.fit(batches, log=lambda line: None)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    # device-side copies of CPU ranges (user annotations such as the
+    # optimizer step's) span kernels and gaps: only kernels, copies and sets
+    cpu_names = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in cpu_names]
+    if not dev:
+        say(f"[training] trace: torch.profiler recorded no device events over {steps} steps ({wall:.2f} ms a step)")
+        return {}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:  # the union of the intervals, in us
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    kinds = {name: 0.0 for name, _ in STEP_KINDS}
+    kinds["elementwise and other"] = 0.0
+    top: dict[str, float] = {}
+    for e in dev:
+        us = e.time_range.end - e.time_range.start
+        kind = next((name for name, rx in STEP_KINDS if rx.search(e.name)), "elementwise and other")
+        kinds[kind] += us
+        top[e.name] = top.get(e.name, 0.0) + us
+    busy_ms = busy / 1e3 / steps
+    say(f"[training] {smi} | trace of {steps} steps after {trainer.step - steps}: device busy {busy_ms:.2f} ms a "
+        f"step, idle share {1 - busy_ms / step_ms:.1%} of the untraced median step {step_ms:.2f} ms (traced wall "
+        f"{wall:.2f} ms a step); by kind, ms a step: "
+        + ", ".join(f"{k} {v / 1e3 / steps:.3f}" for k, v in kinds.items()))
+    say("[training] trace: longest kernels, ms a step: " + "; ".join(
+        f"{name[:60]} {us / 1e3 / steps:.3f}" for name, us in sorted(top.items(), key=lambda x: -x[1])[:8]))
+    return dict(device_busy_ms=busy_ms, idle_share=1 - busy_ms / step_ms, traced_wall_ms=wall,
+                kernel_ms_by_kind={k: v / 1e3 / steps for k, v in kinds.items()})
 
 
 def phase_train_parity(seed: int, data: np.ndarray) -> None:
@@ -771,61 +897,81 @@ def _grad_fn(attn, q, k, v, do):
 
 
 def phase_timing(seed: int, smi: str) -> dict:
-    """K1, K2 and K3 against their plain versions and torch's one call for
-    the same function (SDPA forward / backward) at GPT-2 shapes, as device
-    time (graph_ms) and, for the kernels, as a call costs its caller
-    (time_ms); returns {kernel: row} at b8, a row holding the device ms, the
-    plain version's device ms, the bound and the library call's device ms."""
+    """K1, the backward's pre-pass, K2 and K3 against their plain versions
+    and torch's one call for the same function (SDPA forward / backward) at
+    GPT-2 shapes, as device time (graph_ms) and, for the kernels, as a call
+    costs its caller (time_ms); returns {kernel: row} at b8 D64, a row
+    holding the device ms, the plain version's device ms, the bound and the
+    library call's device ms."""
     gen = torch.Generator().manual_seed(seed + 2)
     sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, is_causal=True)
     result = {}
-    for b in (1, 8):
-        q, k, v, do = (_rand(gen, (b, 12, 1024, 64), torch.bfloat16) for _ in range(4))
-        with torch.no_grad():
-            kern = time_ms(lambda: FA.flash_attention(q, k, v))
-            kern_dev = graph_ms(lambda: FA.flash_attention(q, k, v))
-            plain = time_ms(lambda: FA.flash_attention_reference(q, k, v))
-            plain_dev = graph_ms(lambda: FA.flash_attention_reference(q, k, v), calls=2, runs=5)
-            dense = time_ms(lambda: vanilla_attention_with_lse(q, k, v, sm_scale=0.125))
-            sdpa_dev = graph_ms(lambda: sdpa(q, k, v))
-        elems = b * 12 * 1024 * 64  # one [b, 12, 1024, 64] tensor
-        flops = 4 * b * 12 * 1024 * 1024 * 64 / 2  # causal half of QK^T and PV
-        bound, by = _floor_ms(4 * elems * 2, flops)  # q, k, v read, o written
-        say(f"[timing] {smi} | K1 b{b} h12 L1024 D64 bf16 causal: kernel {kern_dev:.4f} ms on the device "
-            f"({flops / kern_dev / 1e9:.1f} TFLOP/s, {bound / kern_dev:.1%} of the bound {bound:.4f} ms, "
-            f"{by}), {kern:.4f} ms a call; plain tile loop {plain_dev:.4f} ms on the device, {plain:.4f} ms a "
-            f"call; vanilla {dense:.4f} ms a call; library torch SDPA forward {sdpa_dev:.4f} ms on the device "
-            f"(K1 / SDPA {kern_dev / sdpa_dev:.2f}x)")
-        row = dict(bound_ms=bound, bound_by=by)
-        result["flash_fwd"] = dict(ms=kern_dev, plain_ms=plain_dev, library_ms=sdpa_dev, **row)
+    for b, d in ((1, 64), (8, 64), (8, 128)):
+        q, k, v, do = (_rand(gen, (b, 12, 1024, d), torch.bfloat16) for _ in range(4))
+        scale = d ** -0.5
+        elems = b * 12 * 1024 * d  # one [b, 12, 1024, d] tensor
+        rows = b * 12 * 1024  # one fp32 [b, 12, 1024] row statistic has rows * 4 bytes
+        flops = 4 * b * 12 * 1024 * 1024 * d / 2  # causal half of QK^T and PV
+        if d == 64:
+            with torch.no_grad():
+                kern = time_ms(lambda: FA.flash_attention(q, k, v))
+                kern_dev = graph_ms(lambda: FA.flash_attention(q, k, v))
+                plain = time_ms(lambda: FA.flash_attention_reference(q, k, v))
+                plain_dev = graph_ms(lambda: FA.flash_attention_reference(q, k, v), calls=2, runs=5)
+                dense = time_ms(lambda: vanilla_attention_with_lse(q, k, v, sm_scale=scale))
+                sdpa_dev = graph_ms(lambda: sdpa(q, k, v))
+            bound, by = _floor_ms(4 * elems * 2, flops)  # q, k, v read, o written
+            say(f"[timing] {smi} | K1 b{b} h12 L1024 D64 bf16 causal: kernel {kern_dev:.4f} ms on the device "
+                f"({flops / kern_dev / 1e9:.1f} TFLOP/s, {bound / kern_dev:.1%} of the bound {bound:.4f} ms, "
+                f"{by}), {kern:.4f} ms a call; plain tile loop {plain_dev:.4f} ms on the device, {plain:.4f} ms a "
+                f"call; vanilla {dense:.4f} ms a call; library torch SDPA forward {sdpa_dev:.4f} ms on the device "
+                f"(K1 / SDPA {kern_dev / sdpa_dev:.2f}x)")
+            result["flash_fwd"] = dict(ms=kern_dev, plain_ms=plain_dev, library_ms=sdpa_dev, bound_ms=bound,
+                                       bound_by=by)
 
-        # one backward: K2 + K3 (+ the di reduction), the plain backward,
-        # autograd of vanilla, and torch SDPA's backward as the library call
+        # The backward: the pre-pass, K2, K3 and the three together, their
+        # plain versions, autograd of vanilla, and torch SDPA's backward as
+        # the library call for the whole.
         with torch.no_grad():
             o, lse = FA.flash_attention_with_lse(q, k, v)
-        spec = FA._Spec(causal=True, sm_scale=0.125, window=None, blocks=FA.default_blocks(1024, 1024, 64))
+        spec = FA._Spec(causal=True, sm_scale=scale, window=None, blocks=FA.default_blocks(1024, 1024, d))
         args = FA._bwd_args(q, k, v, o, lse, do, None, spec, None)
+        FA._launch_bwd_prep(args)
+        pre = graph_ms(lambda: FA._launch_bwd_prep(args))
         k2 = graph_ms(lambda: FA._launch_bwd_dkv(args))
         k3 = graph_ms(lambda: FA._launch_bwd_dq(args))
         bwd = graph_ms(lambda: FA._launch_bwd(q, k, v, o, lse, do, None, spec, None))
         bwd_call = time_ms(lambda: FA._launch_bwd(q, k, v, o, lse, do, None, spec, None))
         with torch.no_grad():
+            p1 = graph_ms(lambda: FA.flash_attention_bwd_prep_reference(q, o, do, sm_scale=scale))
             p2 = graph_ms(lambda: FA.flash_attention_bwd_dkv_reference(q, k, v, o, lse, do), calls=2, runs=5)
             p3 = graph_ms(lambda: FA.flash_attention_bwd_dq_reference(q, k, v, o, lse, do), calls=2, runs=5)
-        van = time_ms(_grad_fn(lambda *t: vanilla_attention_with_lse(*t, sm_scale=0.125)[0], q, k, v, do))
+        van = time_ms(_grad_fn(lambda *t: vanilla_attention_with_lse(*t, sm_scale=scale)[0], q, k, v, do))
         sdpa_b = graph_ms(_grad_fn(sdpa, q, k, v, do))
-        # K2 does four products of the forward's size (S, dP, dV, dK) and K3
-        # three (S, dP, dQ); both read q, k, v, dO and lse, di (fp32); K2
-        # writes dK, dV and K3 dQ
-        b2, by2 = _floor_ms((4 + 2) * elems * 2 + 2 * elems // 64 * 4, 2 * flops)
-        b3, by3 = _floor_ms((4 + 1) * elems * 2 + 2 * elems // 64 * 4, 1.5 * flops)
-        say(f"[timing] {smi} | backward b{b} h12 L1024 D64 bf16 causal, on the device: K2+K3+di {bwd:.4f} ms "
-            f"({2.5 * flops / bwd / 1e9:.1f} TFLOP/s; {bwd_call:.4f} ms a call), K2 {k2:.4f} ms ({b2 / k2:.1%} of "
-            f"the bound {b2:.4f} ms, {by2}), K3 {k3:.4f} ms ({b3 / k3:.1%} of {b3:.4f} ms, {by3}); plain dK/dV "
-            f"{p2:.4f} ms, dQ {p3:.4f} ms; autograd of vanilla {van:.4f} ms a call; library torch SDPA backward "
-            f"{sdpa_b:.4f} ms (K2+K3+di / SDPA {bwd / sdpa_b:.2f}x)")
-        result["flash_bwd_dkv"] = dict(ms=k2, plain_ms=p2, bound_ms=b2, bound_by=by2, library_ms=sdpa_b)
-        result["flash_bwd_dq"] = dict(ms=k3, plain_ms=p3, bound_ms=b3, bound_by=by3, library_ms=sdpa_b)
+        # The pre-pass reads q, o, dO and writes qs and di.  K2 does four
+        # products of the forward's size (S, dP, dV, dK); its function needs
+        # q (or qs), k, v, dO, lse, di read and dK, dV written (the kernel
+        # also reads qs beside q: its choice, not counted).  K3 does three
+        # (S, dP, dQ), reads qs, k, v, dO, lse, di and writes dQ.  The
+        # backward as one function reads q, k, v, o, dO, lse and writes dQ,
+        # dK, dV, with five products (2.5 x the forward's); its TFLOP/s and
+        # SDPA's count those.
+        b1, by1 = _floor_ms(4 * elems * 2 + rows * 4)
+        b2, by2 = _floor_ms(6 * elems * 2 + 2 * rows * 4, 2 * flops)
+        b3, by3 = _floor_ms(5 * elems * 2 + 2 * rows * 4, 1.5 * flops)
+        ball, byall = _floor_ms(8 * elems * 2 + rows * 4, 2.5 * flops)
+        say(f"[timing] {smi} | backward b{b} h12 L1024 D{d} bf16 causal, on the device: pre-pass {pre:.4f} ms "
+            f"({(4 * elems * 2 + rows * 4) / pre / 1e6:.0f} GB/s, {b1 / pre:.1%} of the bound {b1:.4f} ms, {by1}); "
+            f"K2 {k2:.4f} ms ({2 * flops / k2 / 1e9:.1f} TFLOP/s, {b2 / k2:.1%} of {b2:.4f} ms, {by2}); K3 {k3:.4f} "
+            f"ms ({1.5 * flops / k3 / 1e9:.1f} TFLOP/s, {b3 / k3:.1%} of {b3:.4f} ms, {by3}); pre-pass+K2+K3 "
+            f"{bwd:.4f} ms ({2.5 * flops / bwd / 1e9:.1f} TFLOP/s, {ball / bwd:.1%} of {ball:.4f} ms, {byall}; "
+            f"{bwd_call:.4f} ms a call); plain pre-pass {p1:.4f} ms, dK/dV {p2:.4f} ms, dQ {p3:.4f} ms; autograd of "
+            f"vanilla {van:.4f} ms a call; library torch SDPA backward {sdpa_b:.4f} ms ({2.5 * flops / sdpa_b / 1e9:.1f}"
+            f" TFLOP/s, {ball / sdpa_b:.1%} of {ball:.4f} ms; pre-pass+K2+K3 / SDPA {bwd / sdpa_b:.2f}x)")
+        if b == 8 and d == 64:
+            result["flash_bwd_prep"] = dict(ms=pre, plain_ms=p1, bound_ms=b1, bound_by=by1, library_ms=None)
+            result["flash_bwd_dkv"] = dict(ms=k2, plain_ms=p2, bound_ms=b2, bound_by=by2, library_ms=sdpa_b)
+            result["flash_bwd_dq"] = dict(ms=k3, plain_ms=p3, bound_ms=b3, bound_by=by3, library_ms=sdpa_b)
     return result
 
 
@@ -858,10 +1004,13 @@ def phase_timing_quant(seed: int, smi: str) -> dict:
     """K4, K5 and K6 against their plain versions, each as a call costs its
     caller (CUDA events around back-to-back calls, which includes the host's
     enqueue time where that is longer) and as device time (graph_ms);
-    returns {kernel: (device ms, plain device ms)} at b8 (K4) and on the
-    int8 cache (K5, K6).  K4 has no one library call for its function;
-    torch SDPA forward on K/V already dequantized to bf16 is printed beside
-    it as a yardstick of the same FLOPs, not of the same function."""
+    returns {kernel: row} at b8 (K4) and on the int8 cache (K5, K6, with
+    the bf16 cache's device ms beside them).  K4 has no one library call
+    for its function; torch SDPA forward on K/V already dequantized to bf16
+    is printed beside it as a yardstick of the same FLOPs, not of the same
+    function.  On the bf16 cache, SDPA with a boolean length mask over the
+    slot-major cache is one call for K5's and K6's function; on the int8
+    cache there is none."""
     gen = torch.Generator().manual_seed(seed + 7)
     result = {}
     for b in (1, 8):
@@ -898,6 +1047,20 @@ def phase_timing_quant(seed: int, smi: str) -> dict:
             "K6": lambda: DA.decode_attention_fused(q, cache, 0),
             "K6 plain": lambda: DA.decode_attention(q, cache, 0),
         }
+        lib = ""
+        if store == torch.bfloat16:
+            # one call for the same function: [slots, heads, 1, D] queries
+            # over the layer's [heads, slots, max_len, D] cache, viewed
+            # slot-major, keys past each slot's length masked out
+            k_c, v_c = (x[0].transpose(0, 1) for x in (cache.k, cache.v))
+            mask = (torch.arange(1024, device="cuda") <= cache.lengths[:, None])[:, None, None, :]
+            fns["SDPA"] = lambda: torch.nn.functional.scaled_dot_product_attention(q[:, :, None], k_c, v_c,
+                                                                                     attn_mask=mask)[:, :, 0]
+            with torch.no_grad():
+                err, ok = _error(fns["SDPA"](), fns["K6 plain"](), 2e-2, 1e-2)
+            if not ok:
+                raise AssertionError(f"[timing] SDPA over the bf16 cache is {err:.3e} from the plain decode")
+            lib = f"; SDPA computes the same function within {err:.1e} of the plain decode"
         with torch.no_grad():
             call = {k: time_ms(fn, inner=20) for k, fn in fns.items()}
             dev = {k: graph_ms(fn) for k, fn in fns.items()}
@@ -907,11 +1070,14 @@ def phase_timing_quant(seed: int, smi: str) -> dict:
         say(f"[timing] {smi} | decode 8 slots h12 D64 max_len 1024, contexts {min(lengths) + 1}-{max(lengths) + 1}, "
             f"{name} cache, bf16 q, ms on the device (a call): "
             + ", ".join(f"{k} {dev[k]:.4f} ({call[k]:.4f})" for k in fns)
-            + f"; bound {bound:.4f} ms ({by}, {nbytes / 1e6:.2f} MB)")
-        if store == torch.int8:
-            for kernel, key in (("paged_decode", "K5"), ("fused_decode", "K6")):
-                result[kernel] = dict(ms=dev[key], plain_ms=dev[f"{key} plain"], bound_ms=bound, bound_by=by,
-                                      library_ms=None)
+            + f"; bound {bound:.4f} ms ({by}, {nbytes / 1e6:.2f} MB){lib}")
+        for kernel, key in (("paged_decode", "K5"), ("fused_decode", "K6")):
+            row = result.setdefault(kernel, {})
+            if store == torch.int8:
+                row.update(ms=dev[key], plain_ms=dev[f"{key} plain"], bound_ms=bound, bound_by=by, library_ms=None)
+            else:
+                row.update(bf16_ms=dev[key], bf16_plain_ms=dev[f"{key} plain"], bf16_bound_ms=bound,
+                           bf16_library_ms=dev["SDPA"])
     return result
 
 
@@ -936,11 +1102,13 @@ def main() -> None:
     launches.update(flash_fwd_kv_quant=k4_launches, **decode_launches)
     phase_train_parity(args.seed, data)
     times = {**phase_timing(args.seed, smi), **phase_timing_quant(args.seed, smi)}
+    # K5/K6: the int8 cache's times, which the serving-quant path runs (no
+    # library call), with the bf16 cache's beside them (bf16_ms,
+    # bf16_plain_ms, bf16_bound_ms, and SDPA with a length mask as
+    # bf16_library_ms)
     say(json.dumps({"kernels": [
         {"name": key, "route": "cuda", "source": src, "replaces": rep, "launches": launches[key],
-         "max_abs_err": errors[key], "ms": times[key]["ms"], "plain_ms": times[key]["plain_ms"],
-         "bound_ms": times[key]["bound_ms"], "bound_by": times[key]["bound_by"],
-         "floor_ms": times[key]["bound_ms"], "library_ms": times[key]["library_ms"]}
+         "max_abs_err": errors[key], "floor_ms": times[key]["bound_ms"], **times[key]}
         for key, (src, rep) in KERNELS.items()
     ]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 // Helpers shared by the port's kernels (flash_fwd*.cu, flash_bwd.cu,
-// decode.cu): conversions to and from float, bf16/fp16 packing, the
-// mma.sync m16n8k16 instruction, tile staging (plain and dequantizing) and
-// the attention mask of the JAX package (_mask_for_block and _seg_mask in
+// decode.cu): conversions to and from float, bf16/fp16 packing, exp2, tile
+// staging for the SIMT kernels (plain and dequantizing) and the attention
+// mask of the JAX package (_mask_for_block and _seg_mask in
 // flash_attention_tpu/kernels/flash_attention.py).
 #pragma once
 
@@ -36,6 +36,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 }
 template <> __device__ __forceinline__ __half from_float<__half>(float x) { return __float2half_rn(x); }
 
+// exp2 on the special-function unit, subnormal results flushed to zero
+// (P values below 2^-126, which no sum of them can see).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // x rounded to T and read back as float.
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
@@ -48,87 +56,13 @@ template <> struct Pack<__nv_bfloat16> {
     __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&h);
   }
-  static __device__ __forceinline__ uint32_t halves(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-    __nv_bfloat162 h;
-    h.x = lo;
-    h.y = hi;
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-  static __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-  static __device__ __forceinline__ __nv_bfloat16 from_f(float x) { return __float2bfloat16_rn(x); }
 };
 template <> struct Pack<__half> {
   static __device__ __forceinline__ uint32_t two(float lo, float hi) {
     __half2 h = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&h);
   }
-  static __device__ __forceinline__ uint32_t halves(__half lo, __half hi) {
-    __half2 h;
-    h.x = lo;
-    h.y = hi;
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-  static __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-  static __device__ __forceinline__ __half from_f(float x) { return __float2half_rn(x); }
 };
-
-// c += a * b for one 16x8 output block: a is a 16x16 row-major fragment, b a
-// 16x8 column-major one (b0: k rows 2t, 2t+1; b1: k rows 2t+8, 2t+9 of
-// column g), c as the PTX manual lays it out (c0, c1: row g, columns 2t and
-// 2t+1; c2, c3: row g + 8).
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1);
-
-template <>
-__device__ __forceinline__ void mma16816<__nv_bfloat16>(float (&c)[4], const uint32_t (&a)[4],
-                                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <>
-__device__ __forceinline__ void mma16816<__half>(float (&c)[4], const uint32_t (&a)[4],
-                                                 uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of a 16x16 row-major tile whose element (0, 0) is `base`, in
-// shared memory with row stride `lds` (elements).
-template <typename T>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const T* base, int lds, int g, int t) {
-  const T* p = base + g * lds + 2 * t;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * lds);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * lds + 8);
-}
-
-// B fragment (k = 16, n = 8) of X^T where X is stored row-major [n, k]
-// from `base` with row stride `lds`: both k values of a register are
-// adjacent in memory.
-template <typename T>
-__device__ __forceinline__ void load_b_t(uint32_t& b0, uint32_t& b1, const T* base, int lds, int g, int t) {
-  const T* p = base + g * lds + 2 * t;
-  b0 = *reinterpret_cast<const uint32_t*>(p);
-  b1 = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// B fragment (k = 16, n = 8) of X stored row-major [k, n] from `base`:
-// the two k values of a register lie in consecutive rows.
-template <typename T>
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1, const T* base, int lds, int g, int t) {
-  const T* p = base + (2 * t) * lds + g;
-  b0 = Pack<T>::halves(p[0], p[lds]);
-  b1 = Pack<T>::halves(p[8 * lds], p[9 * lds]);
-}
 
 // Copy a [ROWS, D] tile (rows from `row0`, `nrows` of them valid) from global
 // memory with row stride `ld` into shared memory with row stride LDS.  Rows
@@ -147,37 +81,6 @@ __device__ __forceinline__ void load_tile(T* __restrict__ s, const T* __restrict
       val = *reinterpret_cast<const uint4*>(g + (long long)(row0 + r) * ld + col);
     }
     *reinterpret_cast<uint4*>(s + r * LDS + col) = val;
-  }
-}
-
-// load_tile writing two copies (the second only if s2 is not null), each
-// element multiplied by its copy's scale in fp32 and rounded back to T (a
-// scale of 1 copies exactly).
-template <typename T, int ROWS, int D, int LDS, int NTHREADS>
-__device__ __forceinline__ void load_tile_scaled2(T* __restrict__ s1, float scale1, T* __restrict__ s2,
-                                                  float scale2, const T* __restrict__ g, long long ld,
-                                                  int row0, int nrows) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunksPerRow = D / kVec;
-  for (int c = threadIdx.x; c < ROWS * kChunksPerRow; c += NTHREADS) {
-    int r = c / kChunksPerRow;
-    int col = (c % kChunksPerRow) * kVec;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < nrows) {
-      val = *reinterpret_cast<const uint4*>(g + (long long)(row0 + r) * ld + col);
-    }
-    uint4 o1, o2;
-    const T* x = reinterpret_cast<const T*>(&val);
-    T* y1 = reinterpret_cast<T*>(&o1);
-    T* y2 = reinterpret_cast<T*>(&o2);
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      const float f = Pack<T>::to_f(x[e]);
-      y1[e] = Pack<T>::from_f(f * scale1);
-      y2[e] = Pack<T>::from_f(f * scale2);
-    }
-    *reinterpret_cast<uint4*>(s1 + r * LDS + col) = o1;
-    if (s2 != nullptr) *reinterpret_cast<uint4*>(s2 + r * LDS + col) = o2;
   }
 }
 

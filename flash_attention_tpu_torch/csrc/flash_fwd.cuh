@@ -229,14 +229,6 @@ __device__ __forceinline__ void dequant_row(T* dst, const uint8_t* src, int r, i
   }
 }
 
-// exp2 on the special-function unit, subnormal results flushed to zero
-// (P values below 2^-126, which no sum of them can see).
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(WsCfg<T, KV, D>::kThreads, 1)
 flash_fwd_ws_kernel(const __grid_constant__ FwdParams p, const __grid_constant__ FwdMaps maps) {

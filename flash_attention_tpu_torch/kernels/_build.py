@@ -117,11 +117,17 @@ def library() -> ctypes.CDLL:
             ctypes.POINTER(ll),  # 21 strides: q, k, v, dout, dq, dk, dv
             f, f, i, i, p,  # scale, scale_log2, causal, window, stream
         ]
-        # q, k, v, dout, lse, di, q_ids, kv_ids, then dk, dv / dq
-        lib.fa_flash_bwd_dkv.argtypes = [p] * 10 + bwd_tail
+        # q, k, v, dout, lse, di, qs, q_ids, kv_ids, then dk, dv / dq
+        lib.fa_flash_bwd_dkv.argtypes = [p] * 11 + bwd_tail
         lib.fa_flash_bwd_dkv.restype = i
-        lib.fa_flash_bwd_dq.argtypes = [p] * 9 + bwd_tail
+        lib.fa_flash_bwd_dq.argtypes = [p] * 10 + bwd_tail
         lib.fa_flash_bwd_dq.restype = i
+        lib.fa_flash_bwd_prep.argtypes = [
+            p, p, p, p, p, p,  # q, o, dout, dlse, qs, di
+            i, i, i, i, i,  # dtype, batch, hq, lq, head_dim
+            ctypes.POINTER(ll), f, p,  # 9 strides: q, o, dout; scale_log2, stream
+        ]
+        lib.fa_flash_bwd_prep.restype = i
         lib.fa_flash_fwd_kv_quant.argtypes = [
             p, p, p, p, p, p, p, p,  # q, k, k_scale, v, v_scale, o, q_ids, kv_ids
             i, i, i, i, i, i, i, i,  # dtype, kv_dtype, batch, hq, hkv, lq, lk, head_dim

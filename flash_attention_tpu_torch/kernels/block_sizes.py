@@ -21,10 +21,15 @@ MAX_BLOCK_KV = 1024
 # The CUDA forward kernel's tile (csrc/flash_fwd.cuh, WsCfg): 64 query rows
 # per consumer warpgroup (three at head dim 64, two at 128, as the registers
 # allow) by 64 KV rows, the K/V tiles in a ring of KERNEL_STAGES
-# shared-memory slots.  The backward kernels (csrc/flash_bwd.cu) keep their
-# own 64 x 64 tiles.
+# shared-memory slots.
 KERNEL_BLOCK_KV = 64
 KERNEL_STAGES = 4
+# The CUDA backward kernels' tiles (csrc/flash_bwd.cu, BwdWs, DkvCfg,
+# DqCfg): two consumer warpgroups of 64 pinned rows each (KV rows for dK/dV,
+# query rows for dQ) against streamed tiles of 64 rows (query rows for
+# dK/dV, KV rows for dQ) in a ring of `backward_stages` slots.
+KERNEL_BWD_PINNED = 128
+KERNEL_BWD_STREAM = 64
 # Shared memory an H100 thread block can use (227 KB).
 SMEM_PER_BLOCK = 232_448
 
@@ -46,6 +51,29 @@ def forward_smem_bytes(head_dim: int, quantized: bool) -> int:
     barriers = (1 + 2 * KERNEL_STAGES + 2) * 8
     return (kernel_block_q(head_dim) * head_dim * 2 + KERNEL_STAGES * (2 * tile + KERNEL_BLOCK_KV * 4) + staging
             + barriers + 1024)
+
+
+def backward_stages(head_dim: int, kernel: str) -> int:
+    """Ring slots of the bf16/fp16 backward kernel `kernel` ("dkv" or "dq"):
+    dK/dV streams three tiles a slot (qs, q, dO) and keeps three slots at
+    head dim 128 to fit; dQ streams two (K, V) and keeps four."""
+    if kernel not in ("dkv", "dq"):
+        raise ValueError(f"kernel must be 'dkv' or 'dq', got {kernel!r}")
+    return 3 if kernel == "dkv" and head_dim > 64 else 4
+
+
+def backward_smem_bytes(head_dim: int, kernel: str) -> int:
+    """Shared memory of the bf16/fp16 backward kernel `kernel`, as
+    DkvCfg / DqCfg::kSmemBytes lay it out: two pinned tiles (dK/dV: K and V;
+    dQ: qs and dO); per ring slot the streamed tiles (dK/dV: qs, q and dO
+    with the query rows' lse, di and segment ids, 4 bytes each; dQ: K and V
+    with the KV segment ids); the mbarriers (one for the pinned tiles, full
+    and empty per slot); 1024 bytes to align the base for the 128-byte
+    swizzle."""
+    stages = backward_stages(head_dim, kernel)
+    tile = KERNEL_BWD_STREAM * head_dim * 2
+    per_slot = 3 * tile + 3 * KERNEL_BWD_STREAM * 4 if kernel == "dkv" else 2 * tile + KERNEL_BWD_STREAM * 4
+    return 2 * KERNEL_BWD_PINNED * head_dim * 2 + stages * per_slot + (1 + 2 * stages) * 8 + 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,15 +162,19 @@ def blocks_from_chunks(
 def default_blocks(
     q_len: int, kv_len: int, head_dim: int, group: int = 1
 ) -> BlockSizes:
-    """Tiling of the Hopper forward kernel, which the plain tile loop
-    follows by default so that both skip the same blocks.
+    """Tiling of the Hopper kernels, which the plain tile loops follow by
+    default so that both skip the same blocks.
 
-    The tile is `kernel_block_q(head_dim)` x 64 (192 x 64 at head dim 64,
-    128 x 64 at 128) for any GQA group: the group's query heads run in
-    separate thread blocks that read the same KV head, so the group does not
-    grow the tile as it did on the TPU.  The plain backward tiles follow it
-    too (`bwd_dkv`, `bwd_dq`); the CUDA backward keeps 64 x 64, which
-    changes only the order of summation.  q_len, kv_len and group are taken
-    for signature parity with the JAX package."""
+    The forward's tile is `kernel_block_q(head_dim)` x 64 (192 x 64 at head
+    dim 64, 128 x 64 at 128) for any GQA group: the group's query heads run
+    in separate thread blocks that read the same KV head, so the group does
+    not grow the tile as it did on the TPU.  The backward's: dK/dV pins 128
+    KV rows and walks 64-row query tiles (`bwd_dkv` = (64, 128)), dQ pins
+    128 query rows and walks 64-row KV tiles (`bwd_dq` = (128, 64)).  q_len,
+    kv_len and group are taken for signature parity with the JAX package."""
     del q_len, kv_len, group
-    return BlockSizes(block_q=kernel_block_q(head_dim), block_kv=KERNEL_BLOCK_KV)
+    return BlockSizes(
+        block_q=kernel_block_q(head_dim), block_kv=KERNEL_BLOCK_KV,
+        block_q_dkv=KERNEL_BWD_STREAM, block_kv_dkv=KERNEL_BWD_PINNED,
+        block_q_dq=KERNEL_BWD_PINNED, block_kv_dq=KERNEL_BWD_STREAM,
+    )

@@ -7,8 +7,9 @@ and `flash_attention_with_lse` look at the device of their inputs
 
 * CUDA tensors go to the hand-written kernels, for every sequence length:
   the forward in `csrc/flash_fwd.cu` (K1) and, for inputs that require
-  grad, the backward in `csrc/flash_bwd.cu` (K2 dK/dV, K3 dQ).  Nothing
-  falls back: what the kernels do not take raises.
+  grad, the backward in `csrc/flash_bwd.cu` (a pre-pass writing di and
+  qs, then K2 dK/dV and K3 dQ).  Nothing falls back: what the kernels do
+  not take raises.
 * CPU tensors go to the plain versions: `flash_attention_reference` (a tile
   loop with the forward kernel's masks, block-skip bounds and lse) and
   `flash_attention_bwd_reference` (the same for the backward).  Below
@@ -18,8 +19,10 @@ and `flash_attention_with_lse` look at the device of their inputs
 The three `torch.autograd.Function`s mirror the JAX package's three
 `custom_vjp`s: plain (`_flash`), lse-differentiable (`_flash_lse`, whose
 backward shifts di by the lse cotangent) and segmented (`_flash_seg`, no
-grad for the ids).  Each forward saves (q, k, v, o, lse); di = rowsum(o *
-dO) is computed in fp32 outside the kernels, as JAX does.
+grad for the ids).  Each forward saves (q, k, v, o, lse).  di = rowsum(o *
+dO) - dlse (fp32) and qs = q * sm_scale * log2(e) (rounded to q's dtype),
+which JAX computes outside its kernels, come from the pre-pass kernel on
+CUDA and from `flash_attention_bwd_prep_reference` on the CPU.
 
 Layout at the public functions is the JAX package's: q [B, Hq, Lq, D],
 k/v [B, Hkv, Lkv, D] with Hq % Hkv == 0 (GQA), queries aligned to the end
@@ -43,6 +46,7 @@ __all__ = [
     "flash_attention",
     "flash_attention_bwd_dkv_reference",
     "flash_attention_bwd_dq_reference",
+    "flash_attention_bwd_prep_reference",
     "flash_attention_bwd_reference",
     "flash_attention_reference",
     "flash_attention_with_lse",
@@ -55,10 +59,11 @@ SUPPORTED_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # Launches of each CUDA kernel of the port, counted by its wrapper where it
-# launches: K1-K3 here, K4 in quant/kv.py, K5 and K6 in
-# inference/paged_attention.py.
+# launches: K1-K3 and the backward's pre-pass here, K4 in quant/kv.py, K5
+# and K6 in inference/paged_attention.py.
 KERNEL_LAUNCHES = {
     "flash_fwd": 0,
+    "flash_bwd_prep": 0,
     "flash_bwd_dkv": 0,
     "flash_bwd_dq": 0,
     "flash_fwd_kv_quant": 0,
@@ -186,6 +191,24 @@ def flash_attention_reference(
     return out.reshape(b, hq, lq, d).to(q.dtype), lse.reshape(b, hq, lq)
 
 
+def flash_attention_bwd_prep_reference(
+    q: torch.Tensor, o: torch.Tensor, do: torch.Tensor, *, dlse: torch.Tensor | None = None,
+    sm_scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the backward's pre-pass (`fa_flash_bwd_prep`): (di,
+    qs).  di = rowsum(o * do) - dlse in fp32, [B, Hq, Lq], as the JAX package
+    computes it outside its kernels (`_flash_bwd_rule`,
+    `_flash_lse_bwd_rule`); qs = q * sm_scale * log2(e) rounded to q's
+    dtype, as `_recompute_p` makes it on every tile (and the forward before
+    its QK^T)."""
+    if sm_scale is None:
+        sm_scale = float(q.shape[-1]) ** -0.5
+    di = (o.float() * do.float()).sum(-1)
+    if dlse is not None:
+        di = di - dlse.float()
+    return di, (q.float() * (sm_scale * _LOG2E)).to(q.dtype)
+
+
 def _bwd_operands(q, k, v, o, lse, do, dlse, causal, sm_scale, window, segment_ids, block_sizes):
     """What both plain backward loops read: the tiling and a function of a
     (q rows, KV columns) tile giving (P, dS) in fp32, shaped [B, Hkv, G,
@@ -199,10 +222,8 @@ def _bwd_operands(q, k, v, o, lse, do, dlse, causal, sm_scale, window, segment_i
     def grouped(x):
         return x.reshape(b, hkv, group, *x.shape[2:])
 
-    di = (o.float() * do.float()).sum(-1)
-    if dlse is not None:
-        di = di - dlse.float()
-    qs = grouped((q.float() * (sm_scale * _LOG2E)).to(q.dtype).float())
+    di, qs = flash_attention_bwd_prep_reference(q, o, do, dlse=dlse, sm_scale=sm_scale)
+    qs = grouped(qs.float())
     kf = k.float()[:, :, None]
     vf = v.float()[:, :, None]
     dof = grouped(do.float())
@@ -281,14 +302,16 @@ def flash_attention_bwd_reference(
     """Plain PyTorch version of the backward kernels: (dq, dk, dv).
 
     Tile loops with the kernels' arithmetic (`_recompute_p`, `_dkv_kernel`,
-    `_dq_kernel` of the JAX package): di = rowsum(o * do) - dlse in fp32;
-    P = exp2(qs K^T - lse * log2 e) with qs rounded to q's dtype, and P = 0
+    `_dq_kernel` of the JAX package): di = rowsum(o * do) - dlse in fp32
+    and qs = q * sm_scale * log2(e) rounded to q's dtype
+    (`flash_attention_bwd_prep_reference`); P = exp2(qs K^T - lse * log2 e),
+    and P = 0
     where masked, so a row that sees no key (lse = -inf) gives no NaN;
     dV += P^T dO with P rounded to dO's dtype; dS = P (dO V^T - di);
     dK += dS^T (q * scale) and dQ += dS (k * scale), dS and the scaled
     operands rounded to their dtype; sums in fp32.  dK/dV walk the q tiles
     that reach each KV tile, dQ the KV tiles each q tile reaches, in
-    `block_sizes.bwd_dkv()` / `bwd_dq()` tiles (default the kernels' 64).
+    `block_sizes.bwd_dkv()` / `bwd_dq()` tiles (default the kernels' own).
     The GQA group's rows sum into their KV head.
     """
     kw = dict(dlse=dlse, causal=causal, sm_scale=sm_scale, window=window, segment_ids=segment_ids,
@@ -306,8 +329,8 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     """t itself when the kernels can read it through its strides, else a
     contiguous copy: a unit last stride, a 16-byte aligned base, and every
     other stride a multiple of 16 bytes (TMA's rule for the forward's tensor
-    maps; the backward's 16-byte vector loads need the same).  The fused
-    QKV projection's q/k/v views pass uncopied.  The only place q, k, v
+    maps, the backward's too, and the pre-pass's 16-byte loads).  The fused
+    QKV projection's q/k/v views pass uncopied.  The only place q, k, v, o
     and dO are copied on their way to a kernel."""
     vec = 16 // t.element_size()
     ok = (
@@ -362,32 +385,56 @@ def _launch(q, k, v, spec: _Spec, segs, need_lse: bool):
 
 def _bwd_args(q, k, v, o, lse, do, dlse, spec: _Spec, segs):
     """The backward kernels' common arguments (one dict per call, shared
-    by K2 and K3): inputs read through their strides, di = rowsum(o * dO)
-    - dlse in fp32, and outputs in [B, L, H, D] memory, as the forward's
-    output, so that the grads of the fused projection's q/k/v views are
-    free views too."""
+    by the pre-pass, K2 and K3): inputs read through their strides; the
+    pre-pass's outputs, di (fp32 [B, Hq, Lq]) and, for bf16/fp16, qs
+    ([B, Hq, Lq, D] contiguous); and the grads in [B, L, H, D] memory, as
+    the forward's output, so that the grads of the fused projection's q/k/v
+    views are free views too."""
     b, hq, hkv, lq, lk, d = _shapes(q, k, v)
-    _check_kernel_inputs(q, k, v, do)
-    di = (o.float() * do.float()).sum(-1)
-    if dlse is not None:
-        di = di - dlse.float()
-    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
+    _check_kernel_inputs(q, k, v, o, do)
+    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+    di = torch.empty(b, hq, lq, dtype=torch.float32, device=q.device)
+    qs = None if q.dtype == torch.float32 else torch.empty(b, hq, lq, d, dtype=q.dtype, device=q.device)
     dq = torch.empty(b, lq, hq, d, dtype=q.dtype, device=q.device).transpose(1, 2)
     dk = torch.empty(b, lk, hkv, d, dtype=k.dtype, device=q.device).transpose(1, 2)
     dv = torch.empty(b, lk, hkv, d, dtype=v.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 21)(*(s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]))
+    prep_strides = (ctypes.c_longlong * 9)(*(s for t in (q, o, do) for s in t.stride()[:3]))
     # keep every tensor whose pointer the kernels read alive in the dict
     return dict(
-        tensors=(q, k, v, do, lse.contiguous(), di.contiguous()), segs=segs, dq=dq, dk=dk, dv=dv,
+        tensors=(q, k, v, do, lse.contiguous(), di), qs=qs, segs=segs, dq=dq, dk=dk, dv=dv,
+        prep=(o, None if dlse is None else dlse.float().contiguous(), prep_strides),
         tail=(_DTYPE_CODES[q.dtype], b, hq, hkv, lq, lk, d, strides, spec.sm_scale, spec.sm_scale * _LOG2E,
               int(spec.causal), spec.window or 0),
     )
 
 
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_bwd_prep(args: dict) -> None:
+    """Run the pre-pass (csrc/flash_bwd.cu, fa_flash_bwd_prep): di and, for
+    bf16/fp16, qs, into the tensors of `args`."""
+    from ._build import library
+
+    q, _, _, do, _, di = args["tensors"]
+    o, dlse, strides = args["prep"]
+    dtype, b, hq, _, lq, _, d = args["tail"][:7]
+    with torch.cuda.device(q.device):
+        err = library().fa_flash_bwd_prep(
+            q.data_ptr(), o.data_ptr(), do.data_ptr(), _ptr(dlse), _ptr(args["qs"]), di.data_ptr(),
+            dtype, b, hq, lq, d, strides, args["tail"][9], torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_prep launch failed with cudaError {err}")
+    KERNEL_LAUNCHES["flash_bwd_prep"] += 1
+
+
 def _bwd_launch(name: str, args: dict, outs: tuple[torch.Tensor, ...]) -> None:
     from ._build import library
 
-    ins = [*(t.data_ptr() for t in args["tensors"]), *_ids_ptrs(args["segs"])]
+    ins = [*(t.data_ptr() for t in args["tensors"]), _ptr(args["qs"]), *_ids_ptrs(args["segs"])]
     q = args["tensors"][0]
     with torch.cuda.device(q.device):
         err = getattr(library(), f"fa_{name}")(
@@ -411,8 +458,9 @@ def _launch_bwd_dq(args: dict) -> torch.Tensor:
 
 
 def _launch_bwd(q, k, v, o, lse, do, dlse, spec: _Spec, segs):
-    """The CUDA backward, K2 then K3: (dq, dk, dv)."""
+    """The CUDA backward, the pre-pass, K2, then K3: (dq, dk, dv)."""
     args = _bwd_args(q, k, v, o, lse, do, dlse, spec, segs)
+    _launch_bwd_prep(args)
     dk, dv = _launch_bwd_dkv(args)
     return _launch_bwd_dq(args), dk, dv
 
@@ -554,8 +602,9 @@ def flash_attention(
         block sizes (`blocks_from_chunks`).
       The tiling sets the tiles of the plain versions (CPU tensors).  The
       CUDA kernels keep their own tiles whatever is passed (the forward
-      192 x 64 at head dim 64 and 128 x 64 at 128, the backward 64 x 64),
-      which changes only the order of summation.
+      192 x 64 at head dim 64 and 128 x 64 at 128; the backward 128 pinned
+      KV rows by 64 query rows for dK/dV, 128 pinned query rows by 64 KV
+      rows for dQ), which changes only the order of summation.
 
     Returns [batch, num_q_heads, q_len, head_dim] in q's dtype.  On CUDA,
     float32, bfloat16 and float16 run natively, at head dims 64 and 128.

@@ -113,12 +113,17 @@ def test_block_sizes_match_jax(name, fn):
 
 
 def test_default_blocks_is_the_kernel_tile():
-    """The plain loop's default tile is the Hopper forward kernel's: 192 x 64
-    at head dim 64 (three consumer warpgroups), 128 x 64 at 128 (two), for
-    any GQA group."""
+    """The plain loops' default tiles are the Hopper kernels': the forward
+    192 x 64 at head dim 64 (three consumer warpgroups), 128 x 64 at 128
+    (two), for any GQA group; the backward (two consumer warpgroups at both
+    head dims) 64 query rows against 128 pinned KV rows for dK/dV, 128
+    pinned query rows against 64 KV rows for dQ."""
     assert tbs.KERNEL_BLOCK_KV == 64
-    assert tbs.default_blocks(1024, 1024, 64) == tbs.BlockSizes(192, 64)
-    assert tbs.default_blocks(40, 384, 128, group=4) == tbs.BlockSizes(128, 64)
+    bwd = dict(block_q_dkv=64, block_kv_dkv=128, block_q_dq=128, block_kv_dq=64)
+    assert tbs.default_blocks(1024, 1024, 64) == tbs.BlockSizes(192, 64, **bwd)
+    assert tbs.default_blocks(40, 384, 128, group=4) == tbs.BlockSizes(128, 64, **bwd)
+    assert tbs.default_blocks(1024, 1024, 64).bwd_dkv() == (64, 128)
+    assert tbs.default_blocks(1024, 1024, 128).bwd_dq() == (128, 64)
 
 
 @pytest.mark.parametrize("lq,lk", [(300, 300), (200, 330)])

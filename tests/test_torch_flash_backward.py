@@ -51,7 +51,10 @@ def _jax_grads(q, k, v, do, **kw):
     return jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
 
 
-# (id, (b, hq, hkv, lq, lk), torch kwargs, jax kwargs)
+# (id, (b, hq, hkv, lq, lk[, d]), torch kwargs, jax kwargs).  The plain
+# backward runs at the CUDA kernels' tiles by default (dK/dV: 64 query rows
+# against 128 KV rows; dQ: 128 query rows against 64 KV rows), whose block
+# skips the causal rule and the window decide.
 CASES = [
     ("L128", (1, 2, 2, 128, 128), {}, {}),
     ("L200", (1, 2, 2, 200, 200), {}, {}),
@@ -66,13 +69,18 @@ CASES = [
      dict(block_sizes=jbs.BlockSizes(128, 256))),
     ("num_chunks", (1, 2, 2, 256, 256), dict(num_chunks_q=2, num_chunks_kv=2),
      dict(num_chunks_q=2, num_chunks_kv=2)),
+    ("tiles-gqa-8-2-d64", (1, 8, 2, 300, 300, 64), {}, {}),
+    ("tiles-ragged-q129-kv257-d64", (1, 4, 4, 129, 257, 64), {}, {}),
+    ("tiles-window-d64", (1, 4, 2, 257, 257, 64), dict(window=100), dict(window=100)),
+    ("tiles-segments-d64", (2, 4, 1, 200, 200, 64), "segments", "segments"),
+    ("tiles-d128-non-causal", (1, 2, 2, 200, 200, 128), dict(causal=False), dict(causal=False)),
 ]
 
 
 @pytest.mark.parametrize("shape,kw_t,kw_j", [c[1:] for c in CASES], ids=[c[0] for c in CASES])
 def test_grads_match_jax(shape, kw_t, kw_j):
-    b, hq, hkv, lq, lk = shape
-    q, k, v, do = _inputs(b, hq, hkv, lq, lk)
+    b, hq, hkv, lq, lk, *d = shape
+    q, k, v, do = _inputs(b, hq, hkv, lq, lk, *d)
     if kw_t == "segments":
         ids = _segment_ids(b, lq)
         kw_t, kw_j = dict(segment_ids=t(ids)), dict(segment_ids=jnp.asarray(ids))
@@ -84,7 +92,8 @@ def test_grads_match_jax(shape, kw_t, kw_j):
 
 def test_lse_cotangent_matches_jax():
     """flash_attention_with_lse is differentiable in both outputs: the lse
-    cotangent shifts di (JAX `_flash_lse_bwd_rule`)."""
+    cotangent shifts di (JAX `_flash_lse_bwd_rule`); the plain backward runs
+    at the CUDA kernels' tiles."""
     q, k, v, do = _inputs(1, 4, 2, 200, 200, seed=5)
     dlse = randn(9, 1, 4, 200)
 
@@ -146,3 +155,68 @@ def test_forward_records_a_graph_only_when_grad_is_needed():
     with torch.no_grad():
         assert tfa.flash_attention(q, k, v).grad_fn is None
     assert type(tfa.flash_attention(q, k, v).grad_fn).__name__ == "_FlashBackward"
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_backward_kernel_fits_in_shared_memory(dtype, kernel, head_dim):
+    """Every instantiation of the bf16/fp16 backward (dtype, kernel, head
+    dim) fits an H100 block's 227 KB; the 2-byte types share a layout.  The
+    pinned tiles and each slot's streamed tiles are a lower bound."""
+    used = tbs.backward_smem_bytes(head_dim, kernel)
+    streamed = 3 if kernel == "dkv" else 2
+    tiles = 2 * tbs.KERNEL_BWD_PINNED + tbs.backward_stages(head_dim, kernel) * streamed * tbs.KERNEL_BWD_STREAM
+    assert tiles * head_dim * 2 <= used <= tbs.SMEM_PER_BLOCK == 232_448
+
+
+@pytest.mark.parametrize("with_dlse", [False, True], ids=["di", "di-minus-dlse"])
+def test_prep_di_matches_the_jax_backward_rules(with_dlse, monkeypatch):
+    """The pre-pass's plain di is the di that the JAX package's backward
+    rules hand to their kernels (`_flash_bwd_rule`, and `_flash_lse_bwd_rule`
+    with the lse cotangent): captured by standing in for `_bwd_dkv` and
+    `_bwd_dq`, fp32, 1e-5 (64 products summed in another order)."""
+    b, h, length, d = 2, 3, 40, 64
+    q, k, v, o = (randn(31 + i, b, h, length, d) for i in range(4))
+    do = randn(35, b, h, length, d)
+    lse = randn(36, b, h, length)
+    dlse = randn(37, b, h, length)
+    seen = []
+
+    def capture(params, q, k, v, do, lse, di):
+        seen.append(np.asarray(di))
+        zeros = jnp.zeros_like(q)
+        return (zeros, zeros) if len(seen) % 2 else zeros
+
+    monkeypatch.setattr(jfa, "_bwd_dkv", capture)
+    monkeypatch.setattr(jfa, "_bwd_dq", capture)
+    res = tuple(jnp.asarray(x) for x in (q, k, v, o, lse))
+    if with_dlse:
+        jfa._flash_lse_bwd_rule(None, res, (jnp.asarray(do), jnp.asarray(dlse)))
+    else:
+        jfa._flash_bwd_rule(None, res, jnp.asarray(do))
+    assert len(seen) == 2 and np.array_equal(seen[0], seen[1])
+    di, _ = tfa.flash_attention_bwd_prep_reference(t(q), t(o), t(do), dlse=t(dlse) if with_dlse else None)
+    assert di.dtype == torch.float32 and tuple(di.shape) == (b, h, length)
+    np.testing.assert_allclose(n(di), seen[0], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_prep_qs_matches_the_jax_recompute_p(dtype):
+    """The pre-pass's plain qs is the qs that `_recompute_p` makes: with K
+    the identity and lse 0 the JAX kernel's P is exp2(qs) entry by entry,
+    which tells apart qs values one 16-bit ulp apart; and qs is rounded to
+    q's dtype, as the forward kernel rounds it."""
+    rows = d = 64
+    sm_scale = d ** -0.5
+    q = randn(41, rows, d) * 4
+    jdt = getattr(jnp, dtype)
+    params = jfa._Params(sm_scale=sm_scale, causal=False, q_len=rows, kv_len=d, blocks=jbs.BlockSizes())
+    p, _, _ = jfa._recompute_p(
+        params, jnp.asarray(q, jdt)[None], jnp.eye(d, dtype=jdt)[None], jnp.zeros((1, 1, rows), jnp.float32),
+        0, 0, rows, d, rows, d, False, False,
+    )
+    qt = t(q).to(getattr(torch, dtype))
+    _, qs = tfa.flash_attention_bwd_prep_reference(qt, qt, qt, sm_scale=sm_scale)
+    assert qs.dtype == qt.dtype
+    np.testing.assert_allclose(n(torch.exp2(qs.float())), np.asarray(p), rtol=1e-6, atol=0)

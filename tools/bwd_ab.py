@@ -1,0 +1,108 @@
+"""Time the flash-attention backward and a traced GPT-2 training step of one
+checkout of the PyTorch port on the card, for an A/B between checkouts.
+
+    python3 tools/bwd_ab.py <checkout dir> <label>
+
+Imports `flash_attention_tpu_torch` from <checkout dir>, builds its kernels
+there (its own build/torch_kernels/), and prints lines of results, the last
+`RESULT {json}`:
+
+* the backward at h12 L1024 bf16 causal, b1 and b8 at D64 and b8 at D128,
+  as device time (a CUDA graph of 20 calls between CUDA events): di (the
+  pre-pass kernel where the checkout has one, else the eager reduction
+  `_bwd_args` ran before it), K2, K3, the whole backward as the autograd
+  Function runs it (`_launch_bwd`), and torch SDPA's backward;
+* GPT-2 124M training at b8 x T1024 (bf16 compute, fp32 master weights):
+  5 warm-up steps, the median wall time of 15 more, then torch.profiler
+  over 3 more: device-busy ms a step and kernel ms a step by kind.
+
+The timers and the trace are this checkout's `chip_smoke.py` (`graph_ms`,
+`_grad_fn`, `_trace_steps`), so both sides of an A/B, and the proof run,
+are measured alike.  Compare two checkouts in one call, in turns (A, B, B,
+A): times on the host's clock spread between calls and between processes.
+"""
+
+from __future__ import annotations
+
+import functools
+import importlib
+import importlib.util
+import json
+import os
+import sys
+import time
+
+tree, label = sys.argv[1], sys.argv[2]
+sys.path.insert(0, os.path.abspath(tree))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+# the checkout under test first: chip_smoke.py's own imports then resolve to it
+FA = importlib.import_module("flash_attention_tpu_torch.kernels.flash_attention")
+if not FA.__file__.startswith(os.path.abspath(tree)):
+    raise RuntimeError(f"imported {FA.__file__}, not the checkout in {tree}")
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py"))
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+
+from flash_attention_tpu_torch.data import CharTokenizer, batch_iterator, synthetic_corpus  # noqa: E402
+from flash_attention_tpu_torch.kernels import _build  # noqa: E402
+from flash_attention_tpu_torch.models.gpt import GPT2_124M  # noqa: E402
+from flash_attention_tpu_torch.training import Trainer, TrainerConfig  # noqa: E402
+
+
+def backward_times(gen) -> dict:
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, is_causal=True)
+    out = {}
+    for b, d in ((1, 64), (8, 64), (8, 128)):
+        q, k, v, do = (torch.randn((b, 12, 1024, d), generator=gen).to("cuda", torch.bfloat16) for _ in range(4))
+        with torch.no_grad():
+            o, lse = FA.flash_attention_with_lse(q, k, v)
+        spec = FA._Spec(causal=True, sm_scale=d ** -0.5, window=None, blocks=FA.default_blocks(1024, 1024, d))
+        args = FA._bwd_args(q, k, v, o, lse, do, None, spec, None)
+        row = {}
+        if hasattr(FA, "_launch_bwd_prep"):
+            FA._launch_bwd_prep(args)
+            row["di"] = smoke.graph_ms(lambda: FA._launch_bwd_prep(args))
+        else:  # di as the checkout's _bwd_args computes it
+            row["di"] = smoke.graph_ms(lambda: (o.float() * do.float()).sum(-1).contiguous())
+        row["k2"] = smoke.graph_ms(lambda: FA._launch_bwd_dkv(args))
+        row["k3"] = smoke.graph_ms(lambda: FA._launch_bwd_dq(args))
+        row["backward"] = smoke.graph_ms(lambda: FA._launch_bwd(q, k, v, o, lse, do, None, spec, None))
+        row["sdpa_backward"] = smoke.graph_ms(smoke._grad_fn(sdpa, q, k, v, do))
+        out[f"b{b}_d{d}"] = row
+        print(label, f"b{b} D{d} device ms", {key: round(x, 4) for key, x in row.items()}, flush=True)
+    return out
+
+
+def training_times(smi: str, seed: int = 0) -> dict:
+    text = synthetic_corpus()
+    data = CharTokenizer(text).encode(text)
+    trainer = Trainer(GPT2_124M, TrainerConfig(max_iters=5, log_interval=1, learning_rate=6e-4, warmup_iters=5),
+                      seed=seed, device="cuda")
+    batches = batch_iterator(data, 8, 1024, seed=seed, device="cuda")
+    trainer.fit(batches, log=lambda line: None)  # warm-up
+    trainer.tcfg.max_iters = 20
+    history = trainer.fit(batches, log=lambda line: None)
+    walls = np.diff([r["wall_s"] for r in history[-15:]]) * 1e3  # wall_s restarts with each fit
+    med = float(np.median(walls))
+    out = dict(step_wall_median_ms=med, step_wall_min_ms=float(walls.min()), step_wall_max_ms=float(walls.max()),
+               **smoke._trace_steps(trainer, batches, smi, med))
+    print(label, "training", out, flush=True)
+    return out
+
+
+def main() -> None:
+    name, smi = smoke.phase_device()
+    t0 = time.perf_counter()
+    _build.library()
+    res = {"label": label, "checkout": tree, "device": name, "smi": smi, "build_s": time.perf_counter() - t0}
+    res["backward"] = backward_times(torch.Generator().manual_seed(11))
+    res["training"] = training_times(smi)
+    print("RESULT " + json.dumps(res), flush=True)
+
+
+if __name__ == "__main__":
+    main()
