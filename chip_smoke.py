@@ -26,10 +26,11 @@ non-zero and never prints the final `"ok": true` line:
               among them, so the scales' rows are unaligned); then the
               quant op's path (quantize_kv + flash_attention_kv_quant for
               12 layers at b8 x T1024), which must launch K4 12 times.
-6. decode   - K5 (paged) and K6 (slot-major) decode against their plain
-              versions on bf16, fp32, int8 and fp8 caches with ragged
-              lengths, K5 with a permuted page table and NaN past the
-              lengths, GQA 32/8 at D128.
+6. decode   - K5 (paged) and K6 (slot-major) split-KV decode against their
+              plain versions on bf16, fp32, int8 and fp8 caches with ragged
+              lengths and at the split's edges (cache lengths 0, chunk - 1,
+              chunk, chunk + 1, capacity - 1), K5 with a permuted page
+              table and NaN past the lengths, GQA 32/8 at D128.
 7. serving  - GPT-2 124M (bf16, random weights from --seed) behind the
               continuous-batching engine: 16 requests, every one finishing
               with its exact budget; K1's launch count during the run
@@ -58,10 +59,12 @@ non-zero and never prints the final `"ok": true` line:
               versions and vanilla at GPT-2 shapes, and torch SDPA forward /
               backward as the one library call for the same function; K4 at
               b1/b8 (SDPA forward on bf16 K/V beside it, the same FLOPs but
-              not the same function), K5 and K6 at 8 slots with contexts near
-              512 of 1024, int8 and bf16, against their plain versions and,
-              on the bf16 cache, SDPA with a length mask over the slot-major
-              cache.  Device time: a CUDA graph of 20 calls
+              not the same function), K5 and K6 at DECODE_SHAPES (8 slots
+              with contexts near 512 of 1024 on one layer, L2-hot; GPT-2's
+              12 layers, a long context at 32 slots and a Llama-shaped GQA
+              layer, L2-cold), int8 and bf16, against their plain versions
+              and, on a bf16 cache, SDPA with a length mask over the
+              slot-major cache.  Device time: a CUDA graph of 20 calls
               between CUDA events (graph_ms); "a call" adds the host's
               enqueue.  Each kernel beside its bound: the larger of its bytes
               at 3.35 TB/s and its FLOPs at 989 TFLOP/s.
@@ -255,18 +258,27 @@ def phase_k1(seed: int) -> float:
     # GQA group of 4 whose q tiles cross the end-aligned diagonal, window 100
     check_k1("edges q129 kv257 gqa 8/2 window 100 bf16", gen, 2, 8, 2, 129, 257, 64, bf16, True, 2e-2, window=100)
     check_k1("edges q129 kv257 gqa 8/2 D128 fp16", gen, 2, 8, 2, 129, 257, 128, torch.float16, True, 2e-2)
-    # lse (fp32, natural log) against dense attention's
-    q, k, v = (_rand(gen, (1, 4, 300, 64), torch.float32) for _ in range(3))
-    with torch.no_grad():
-        out, lse = FA.flash_attention_with_lse(q, k, v)
-        d_out, d_lse = vanilla_attention_with_lse(q, k, v, sm_scale=64 ** -0.5)
-    torch.cuda.synchronize()
-    e_out = (out - d_out).abs().max().item()
-    e_lse = (lse - d_lse).abs().max().item()
-    say(f"[k1] {'lse fp32 b1 h4 L300 D64':<34} out {e_out:.3e}  lse {e_lse:.3e}  atol 1e-05  "
-        f"{'ok' if max(e_out, e_lse) <= 1e-5 else 'FAIL'}")
-    if max(e_out, e_lse) > 1e-5:
-        raise AssertionError("[k1] lse outside tolerance")
+    # head dims the kernels are not built for: zero-padded to 64 / 128 by
+    # the entry point, the output sliced back
+    check_k1("padded D32 b2 h12 L300 bf16", gen, 2, 12, 12, 300, 300, 32, bf16, True, 2e-2)
+    check_k1("padded D96 gqa 8/2 L384 window 100 bf16", gen, 1, 8, 2, 384, 384, 96, bf16, True, 2e-2, window=100)
+    check_k1("padded D32 fp32 b1 h4 L200", gen, 1, 4, 4, 200, 200, 32, torch.float32, True, 1e-5)
+    check_k1("padded D96 fp32 b1 h4 L300 3 segments", gen, 1, 4, 4, 300, 300, 96, torch.float32, True, 1e-5,
+             segments=True)
+    # lse (fp32, natural log) against dense attention's, at D64 and padded
+    for d in (64, 96):
+        q, k, v = (_rand(gen, (1, 4, 300, d), torch.float32) for _ in range(3))
+        with torch.no_grad():
+            out, lse = FA.flash_attention_with_lse(q, k, v)
+            d_out, d_lse = vanilla_attention_with_lse(q, k, v, sm_scale=d ** -0.5)
+        torch.cuda.synchronize()
+        e_out = (out - d_out).abs().max().item()
+        e_lse = (lse - d_lse).abs().max().item()
+        label = f"lse fp32 b1 h4 L300 D{d}"
+        say(f"[k1] {label:<34} out {e_out:.3e}  lse {e_lse:.3e}  atol 1e-05  "
+            f"{'ok' if max(e_out, e_lse) <= 1e-5 and out.shape == q.shape else 'FAIL'}")
+        if max(e_out, e_lse) > 1e-5 or out.shape != q.shape:
+            raise AssertionError("[k1] lse outside tolerance")
     return worst
 
 
@@ -388,6 +400,12 @@ def phase_k2k3(seed: int) -> dict:
         check_grads("lse cotangent b2 h12 L256 D64 bf16", gen, 2, 12, 12, 256, 256, 64, bf16, with_lse=True),
         check_grads("fp32 gqa hq4 hkv2 L200 D128 window 64", gen, 1, 4, 2, 200, 200, 128, f32, window=64),
         check_grads("fp16 b2 h12 L300 D64", gen, 2, 12, 12, 300, 300, 64, torch.float16),
+        # head dims padded to 64 / 128 by the entry points; autograd slices
+        # the grads back
+        check_grads("padded D32 b2 h12 L300 bf16", gen, 2, 12, 12, 300, 300, 32, bf16),
+        check_grads("padded D96 gqa 8/2 L257 window 100 bf16", gen, 1, 8, 2, 257, 257, 96, bf16, window=100),
+        check_grads("padded D32 fp32 b1 h4 L200 3 segments", gen, 1, 4, 4, 200, 200, 32, f32, segments=True),
+        check_grads("padded D96 lse cotangent fp32 b1 h4 L300", gen, 1, 4, 2, 300, 300, 96, f32, with_lse=True),
     ]
     return {
         "flash_bwd_prep": max(prep),
@@ -455,6 +473,11 @@ def phase_k4(seed: int) -> tuple[float, int]:
                  window=100),
         check_k4("fp32 b2 h4 L300 D64 int8 3 segments", gen, 2, 4, 4, 300, 300, 64, torch.float32, i8, 5e-5,
                  segments=True),
+        # head dims padded to 64 / 128 (payloads with zero bytes)
+        check_k4("padded D32 b2 h12 L1024 bf16 int8", gen, 2, 12, 12, 1024, 1024, 32, bf16, i8, 2e-2),
+        check_k4("padded D96 gqa 8/2 L384 bf16 fp8 window 100", gen, 1, 8, 2, 384, 384, 96, bf16, f8, 2e-2,
+                 window=100),
+        check_k4("padded D96 fp32 b1 h4 L300 int8", gen, 1, 4, 4, 300, 300, 96, torch.float32, i8, 5e-5),
     ]
     worst = max(worst, *runs)
     # The quant op's path: each of GPT-2's 12 layers quantizes its K/V and
@@ -481,20 +504,22 @@ def _error(out: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> tu
     return diff.max().item(), bool((diff <= atol + rtol * ref.float().abs()).all())
 
 
-def _filled_cache(gen, slots, hkv, max_len, d, store, q_dtype, lengths) -> "KVC.KVCache":
-    """A one-layer cache on the card with random contents (quantized when
-    `store` is int8/fp8) and the given lengths (current token excluded)."""
+def _filled_cache(gen, slots, hkv, max_len, d, store, q_dtype, lengths, layers=1) -> "KVC.KVCache":
+    """A cache of `layers` layers on the card with random contents drawn from
+    `gen` on its own device (quantized when `store` is int8/fp8) and the
+    given lengths (current token excluded)."""
     quant = store in QK.QUANT_DTYPES
-    cache = KVC.init_cache(1, slots, hkv, max_len, d, dtype=q_dtype if quant else store,
+    cache = KVC.init_cache(layers, slots, hkv, max_len, d, dtype=q_dtype if quant else store,
                            quant_dtype=store if quant else None, device="cuda")
-    for dst, scale in ((cache.k, cache.k_scale), (cache.v, cache.v_scale)):
-        x = _rand(gen, dst.shape, torch.float32)
-        if quant:
-            payload, sc = QK.quantize_tokens(x, store)
-            dst.copy_(payload)
-            scale.copy_(sc)
-        else:
-            dst.copy_(x)
+    for layer in range(layers):
+        for dst, scale in ((cache.k, cache.k_scale), (cache.v, cache.v_scale)):
+            x = torch.randn(dst.shape[1:], generator=gen, device=gen.device).to("cuda")
+            if quant:
+                payload, sc = QK.quantize_tokens(x, store)
+                dst[layer].copy_(payload)
+                scale[layer].copy_(sc)
+            else:
+                dst[layer].copy_(x)
     cache.lengths.copy_(torch.as_tensor(lengths, dtype=torch.int32))
     return cache
 
@@ -586,6 +611,22 @@ def phase_decode(seed: int) -> dict:
                                        ("fp32", f32, f32, 1e-5)):
         k5.append(check_paged_permuted(f"paged permuted ps16 NaN past length {name}", gen, 8, 12, 12, 64, 16, 64,
                                        store, q_dtype, lens, atol))
+    # The split's edges: cache lengths 0, chunk - 1, chunk, chunk + 1 (for
+    # K5's chunk and K6's) and capacity - 1, so that a sequence reads one
+    # token, exactly one or two whole splits, one token of a next split, or
+    # every split; most splits of the short ones are empty.
+    sms = PA._sm_count(0)
+    for slots, hq, hkv, d in ((8, 12, 12, 64), (8, 32, 8, 128)):
+        c5, _ = PA.decode_split(1024, slots * hkv, 128, sms)
+        c6, _ = PA.decode_split(1024, slots * hkv, PA.DECODE_TILE, sms)
+        edges = [0, c5 - 1, c5, c5 + 1, c6 - 1, c6 + 1, 2 * c6, 1023]
+        for name, store, q_dtype, atol in (("bf16", bf16, bf16, 2e-2), ("fp32", f32, f32, 1e-5),
+                                           ("int8", i8, bf16, 2e-2), ("fp8", f8, bf16, 2e-2)):
+            e5, e6 = check_decode(f"split edges K5 chunk {c5} K6 {c6} hq{hq} hkv{hkv} D{d} {name}", gen, slots, hq,
+                                  hkv, d, 1024, store, q_dtype, edges, atol)
+            k5.append(e5)
+            k6.append(e6)
+        say(f"[decode] split edges hq{hq} hkv{hkv} D{d}: cache lengths {edges}")
     return {"paged_decode": max(k5), "fused_decode": max(k6)}
 
 
@@ -666,11 +707,12 @@ def phase_serving(seed: int, model: GPT) -> dict:
     return r
 
 
-def phase_serving_quant(seed: int, model: GPT, base: dict, smi: str) -> dict:
+def phase_serving_quant(seed: int, model: GPT, base: dict, smi: str) -> tuple[dict, dict]:
     """The serving burst on an int8 cache decoding through K5 and on an fp8
-    cache decoding through K6; returns each decode kernel's launches."""
+    cache decoding through K6; returns each decode kernel's launches and
+    each engine's tokens/s."""
     cfg = model.cfg
-    launches = {}
+    launches, rates = {}, {}
     for name, qdt, impl, kernel in (("int8", torch.int8, "paged", "paged_decode"),
                                     ("fp8", torch.float8_e4m3fn, "fused", "fused_decode")):
         tag = "serving-quant"
@@ -682,13 +724,14 @@ def phase_serving_quant(seed: int, model: GPT, base: dict, smi: str) -> dict:
             raise AssertionError(f"[{tag}] {name}/{impl}: {kernel} launched {got} times, want {cfg.n_layer} x "
                                  f"{r['steps']} = {want}; other kernels {others}")
         launches[kernel] = got
+        rates[f"{name} {impl}"] = r["tokens_s"]
         say(f"[{tag}] {name} cache, attn_impl={impl}: 16/16 requests finished with their exact budgets; {kernel} "
             f"launches {got} = {cfg.n_layer} layers x {r['steps']} decode steps, flash_fwd "
             f"{r['launches']['flash_fwd']} = {cfg.n_layer} x {r['dispatches']} prefill dispatches")
         say(f"[{tag}] {smi} | {name} cache, {impl}: {r['tokens_s']:.1f} tokens/s, TTFT p50 {r['p50'] * 1e3:.1f} ms "
             f"p95 {r['p95'] * 1e3:.1f} ms (bf16 cache, einsum, from [serving]: {base['tokens_s']:.1f} tokens/s, "
             f"p50 {base['p50'] * 1e3:.1f} ms, p95 {base['p95'] * 1e3:.1f} ms)")
-    return launches
+    return launches, rates
 
 
 def phase_parity(seed: int) -> None:
@@ -1004,13 +1047,14 @@ def phase_timing_quant(seed: int, smi: str) -> dict:
     """K4, K5 and K6 against their plain versions, each as a call costs its
     caller (CUDA events around back-to-back calls, which includes the host's
     enqueue time where that is longer) and as device time (graph_ms);
-    returns {kernel: row} at b8 (K4) and on the int8 cache (K5, K6, with
-    the bf16 cache's device ms beside them).  K4 has no one library call
-    for its function; torch SDPA forward on K/V already dequantized to bf16
-    is printed beside it as a yardstick of the same FLOPs, not of the same
-    function.  On the bf16 cache, SDPA with a boolean length mask over the
-    slot-major cache is one call for K5's and K6's function; on the int8
-    cache there is none."""
+    returns {kernel: row} at b8 (K4) and, for K5 and K6 (`time_decode` at
+    every DECODE_SHAPES entry), at the 8-slot L2-hot shape on the int8
+    cache, with that shape's bf16 numbers and the 12-layer L2-cold int8
+    ones beside them.  K4 has no one library call for its function; torch
+    SDPA forward on K/V already dequantized to bf16 is printed beside it as
+    a yardstick of the same FLOPs, not of the same function.  On a bf16
+    cache, SDPA with a boolean length mask over the slot-major cache is one
+    call for K5's and K6's function; on an int8 cache there is none."""
     gen = torch.Generator().manual_seed(seed + 7)
     result = {}
     for b in (1, 8):
@@ -1034,51 +1078,105 @@ def phase_timing_quant(seed: int, smi: str) -> dict:
             f"function (K4 / SDPA {kern_dev / sdpa_dev:.2f}x)")
         result["flash_fwd_kv_quant"] = dict(ms=kern_dev, plain_ms=plain_dev, bound_ms=bound, bound_by=by,
                                             library_ms=None)
-    lengths = torch.randint(480, 545, (8,), generator=gen).tolist()
-    for name, store in (("int8", torch.int8), ("bf16", torch.bfloat16)):
-        cache = _filled_cache(gen, 8, 12, 1024, 64, store, torch.bfloat16, lengths)
-        q = _rand(gen, (8, 12, 64), torch.bfloat16)
-        kp, vp, ks, vs = KVC.page_view(cache, 0, 128)
-        pi = KVC.identity_page_indices(8, 1024, 128, device="cuda")
-        total = cache.lengths + 1
-        fns = {
-            "K5": lambda: PA.paged_attention(q, kp, vp, total, pi, k_scales=ks, v_scales=vs),
-            "K5 plain": lambda: PA.paged_attention_ref(q, kp, vp, total, pi, k_scales=ks, v_scales=vs),
-            "K6": lambda: DA.decode_attention_fused(q, cache, 0),
-            "K6 plain": lambda: DA.decode_attention(q, cache, 0),
-        }
-        lib = ""
-        if store == torch.bfloat16:
-            # one call for the same function: [slots, heads, 1, D] queries
-            # over the layer's [heads, slots, max_len, D] cache, viewed
-            # slot-major, keys past each slot's length masked out
-            k_c, v_c = (x[0].transpose(0, 1) for x in (cache.k, cache.v))
-            mask = (torch.arange(1024, device="cuda") <= cache.lengths[:, None])[:, None, None, :]
-            fns["SDPA"] = lambda: torch.nn.functional.scaled_dot_product_attention(q[:, :, None], k_c, v_c,
-                                                                                     attn_mask=mask)[:, :, 0]
-            with torch.no_grad():
-                err, ok = _error(fns["SDPA"](), fns["K6 plain"](), 2e-2, 1e-2)
-            if not ok:
-                raise AssertionError(f"[timing] SDPA over the bf16 cache is {err:.3e} from the plain decode")
-            lib = f"; SDPA computes the same function within {err:.1e} of the plain decode"
-        with torch.no_grad():
-            call = {k: time_ms(fn, inner=20) for k, fn in fns.items()}
-            dev = {k: graph_ms(fn) for k, fn in fns.items()}
-        live = sum(x + 1 for x in lengths) * 12  # tokens x heads read
-        nbytes = live * 64 * cache.k.element_size() * 2 + (live * 8 if store == torch.int8 else 0) + 8 * 12 * 64 * 4
-        bound, by = _floor_ms(nbytes, 4 * live * 64)  # q.k and p.v per token read
-        say(f"[timing] {smi} | decode 8 slots h12 D64 max_len 1024, contexts {min(lengths) + 1}-{max(lengths) + 1}, "
-            f"{name} cache, bf16 q, ms on the device (a call): "
-            + ", ".join(f"{k} {dev[k]:.4f} ({call[k]:.4f})" for k in fns)
-            + f"; bound {bound:.4f} ms ({by}, {nbytes / 1e6:.2f} MB){lib}")
-        for kernel, key in (("paged_decode", "K5"), ("fused_decode", "K6")):
-            row = result.setdefault(kernel, {})
-            if store == torch.int8:
-                row.update(ms=dev[key], plain_ms=dev[f"{key} plain"], bound_ms=bound, bound_by=by, library_ms=None)
-            else:
-                row.update(bf16_ms=dev[key], bf16_plain_ms=dev[f"{key} plain"], bf16_bound_ms=bound,
-                           bf16_library_ms=dev["SDPA"])
+    rows = {}
+    for shape in DECODE_SHAPES:
+        for store in shape[-1]:
+            rows[shape[0], store] = time_decode(gen, smi, shape, store)
+    hot, hot16 = rows[DECODE_SHAPES[0][0], "int8"], rows[DECODE_SHAPES[0][0], "bf16"]
+    cold = rows[DECODE_SHAPES[1][0], "int8"]
+    for kernel, key in (("paged_decode", "K5"), ("fused_decode", "K6")):
+        result[kernel] = dict(
+            ms=hot[key], plain_ms=hot[f"{key} plain"], bound_ms=hot["bound"], bound_by=hot["by"], library_ms=None,
+            bf16_ms=hot16[key], bf16_plain_ms=hot16[f"{key} plain"], bf16_bound_ms=hot16["bound"],
+            bf16_library_ms=hot16["SDPA"], l2_cold_ms=cold[key], l2_cold_bound_ms=cold["bound"],
+        )
     return result
+
+
+# K5/K6 timing shapes: (label, layers, slots, q heads, KV heads, head dim,
+# max_len, contexts (tokens read, current one included) lo-hi, caches).  The
+# first is one layer, which stays in the card's 50 MB L2 between graph
+# replays (L2-hot; PERF.md's history is at this shape).  The others walk
+# their layers with one call each, enough of them (over 100 MB) that every
+# call finds its layer evicted from L2 (L2-cold): the 12 layers of GPT-2
+# serving's cache (76 MB at int8), a long context at GPT-2's width (50 MB a
+# layer at int8, 100 MB at bf16) and a Llama-shaped layer (GQA 32/8, D128,
+# 134 MB at int8).
+DECODE_SHAPES = (
+    ("gpt2 8 slots 1 layer L2-hot", 1, 8, 12, 12, 64, 1024, (481, 545), ("int8", "bf16")),
+    ("gpt2 8 slots 12 layers L2-cold", 12, 8, 12, 12, 64, 1024, (485, 534), ("int8", "bf16")),
+    ("h12 D64 32 slots 3 layers L2-cold", 3, 32, 12, 12, 64, 1024, (960, 1024), ("int8", "bf16")),
+    ("llama hq32 hkv8 D128 16 slots 2 layers L2-cold", 2, 16, 32, 8, 128, 4096, (3800, 4096), ("int8",)),
+)
+STORES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn, "bf16": torch.bfloat16}
+
+
+def time_decode(gen: torch.Generator, smi: str, shape: tuple, store: str) -> dict:
+    """K5 and K6 at one of DECODE_SHAPES: device ms a call (a CUDA graph of
+    20 walks over the layers, one call a layer, between CUDA events, per
+    call), beside the plain versions and, on a bf16 cache, SDPA with a
+    boolean length mask over the slot-major cache (one library call for the
+    same function; GQA expanded by SDPA itself), and the byte bound; and ms
+    a call as the engine calls them (`decode_attention_paged` /
+    `decode_attention_fused`, CUDA events around back-to-back calls, which
+    counts the host's enqueue where it is longer).  K5's device time is
+    `paged_attention`'s, the kernel alone.  Returns {name: device ms,
+    "<name> call": ms a call, "bound": ms, "by": what sets it}."""
+    label, layers, slots, hq, hkv, d, max_len, (lo, hi), _ = shape
+    dev_gen = torch.Generator(device="cuda").manual_seed(int(torch.randint(1 << 30, (1,), generator=gen)))
+    contexts = torch.randint(lo, hi + 1, (slots,), generator=gen)
+    cache = _filled_cache(dev_gen, slots, hkv, max_len, d, STORES[store], torch.bfloat16, contexts - 1, layers)
+    q = torch.randn(slots, hq, d, generator=dev_gen, device="cuda").to(torch.bfloat16)
+    views = [KVC.page_view(cache, layer, 128) for layer in range(layers)]
+    pi = KVC.identity_page_indices(slots, max_len, 128, device="cuda")
+    total = cache.lengths + 1
+
+    def walk(f):
+        return lambda: [f(layer) for layer in range(layers)]
+
+    dev_fns = {
+        "K5": walk(lambda i: PA.paged_attention(q, *views[i][:2], total, pi, k_scales=views[i][2],
+                                                v_scales=views[i][3])),
+        "K6": walk(lambda i: DA.decode_attention_fused(q, cache, i)),
+        "K5 plain": walk(lambda i: PA.paged_attention_ref(q, *views[i][:2], total, pi, k_scales=views[i][2],
+                                                          v_scales=views[i][3])),
+        "K6 plain": walk(lambda i: DA.decode_attention(q, cache, i)),
+    }
+    call_fns = {
+        "K5": walk(lambda i: DA.decode_attention_paged(q, cache, i, page_size=128)),
+        "K6": dev_fns["K6"],
+    }
+    lib = ""
+    if store == "bf16":
+        mask = (torch.arange(max_len, device="cuda") <= cache.lengths[:, None])[:, None, None, :]
+
+        def sdpa(i):
+            k_c, v_c = (x[i].transpose(0, 1) for x in (cache.k, cache.v))
+            return torch.nn.functional.scaled_dot_product_attention(q[:, :, None], k_c, v_c, attn_mask=mask,
+                                                                    enable_gqa=hq != hkv)[:, :, 0]
+
+        dev_fns["SDPA"] = walk(sdpa)
+        with torch.no_grad():
+            err, ok = _error(sdpa(0), DA.decode_attention(q, cache, 0), 2e-2, 1e-2)
+        if not ok:
+            raise AssertionError(f"[timing] SDPA over the bf16 cache is {err:.3e} from the plain decode")
+        lib = f"; SDPA computes the same function within {err:.1e} of the plain decode"
+    res = {}
+    with torch.no_grad():
+        for k, fn in dev_fns.items():
+            plain = "plain" in k
+            res[k] = graph_ms(fn, calls=2 if plain else 20, runs=3 if plain else 10) / layers
+        for k, fn in call_fns.items():
+            res[f"{k} call"] = time_ms(fn, inner=20) / layers
+    live = int(contexts.sum()) * hkv  # tokens x KV heads read
+    nbytes = live * d * cache.k.element_size() * 2 + (live * 8 if cache.quantized else 0) + slots * hq * d * 2 * 2
+    res["bound"], res["by"] = _floor_ms(nbytes, 4 * live * (hq // hkv) * d)  # q.k and p.v per row read
+    say(f"[timing] {smi} | decode {label}, contexts {int(contexts.min())}-{int(contexts.max())} of {max_len}, "
+        f"{store} cache, bf16 q, ms a call on the device (share of the bound; ms a call as the engine calls it): "
+        + ", ".join(f"{k} {res[k]:.4f}" + (f" ({res['bound'] / res[k]:.1%}; {res[k + ' call']:.4f})"
+                                           if k in call_fns else "") for k in dev_fns)
+        + f"; bound {res['bound']:.4f} ms ({res['by']}, {nbytes / 1e6:.2f} MB a layer){lib}")
+    return res
 
 
 def main() -> None:
@@ -1092,7 +1190,7 @@ def main() -> None:
     errors.update(phase_decode(args.seed))
     model = _gpt2(args.seed)
     base = phase_serving(args.seed, model)
-    decode_launches = phase_serving_quant(args.seed, model, base, smi)
+    decode_launches, _ = phase_serving_quant(args.seed, model, base, smi)
     del model
     phase_parity(args.seed)
     phase_parity_quant(args.seed)
@@ -1102,10 +1200,11 @@ def main() -> None:
     launches.update(flash_fwd_kv_quant=k4_launches, **decode_launches)
     phase_train_parity(args.seed, data)
     times = {**phase_timing(args.seed, smi), **phase_timing_quant(args.seed, smi)}
-    # K5/K6: the int8 cache's times, which the serving-quant path runs (no
-    # library call), with the bf16 cache's beside them (bf16_ms,
-    # bf16_plain_ms, bf16_bound_ms, and SDPA with a length mask as
-    # bf16_library_ms)
+    # K5/K6: the int8 cache's times at the 8-slot L2-hot shape (no library
+    # call), with the bf16 cache's beside them (bf16_ms, bf16_plain_ms,
+    # bf16_bound_ms, and SDPA with a length mask as bf16_library_ms) and
+    # the int8 cache's over GPT-2's 12 layers, L2-cold (l2_cold_ms,
+    # l2_cold_bound_ms), which is what the serving-quant path reads
     say(json.dumps({"kernels": [
         {"name": key, "route": "cuda", "source": src, "replaces": rep, "launches": launches[key],
          "max_abs_err": errors[key], "floor_ms": times[key]["bound_ms"], **times[key]}

@@ -23,6 +23,8 @@ raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..config import kernel_route
@@ -68,6 +70,14 @@ def decode_attention(
     return out.reshape(s, hq, d).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=64)
+def identity_table(slots: int, max_len: int, page_size: int, device: torch.device) -> torch.Tensor:
+    """`kv_cache.identity_page_indices`, made once per (slots, max_len,
+    page_size, device) instead of once per layer and decode step.  Callers
+    read it and never write it."""
+    return kvc.identity_page_indices(slots, max_len, page_size, device=device)
+
+
 def decode_attention_paged(
     q: torch.Tensor,
     cache: KVCache,
@@ -82,7 +92,7 @@ def decode_attention_paged(
     if sm_scale is None:
         sm_scale = float(q.shape[-1]) ** -0.5
     kp, vp, ks, vs = kvc.page_view(cache, layer, page_size)
-    pi = kvc.identity_page_indices(cache.slots, cache.max_len, page_size, device=q.device)
+    pi = identity_table(cache.slots, cache.max_len, page_size, q.device)
     if kernel_route(q, kp) == "cuda":
         # lengths + 1 inside the kernel (len_add): no extra launch per layer
         return _launch_decode(

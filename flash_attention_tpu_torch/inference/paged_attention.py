@@ -5,23 +5,33 @@ as pages [kv_heads, total_pages, page_size, head_dim]; each sequence owns a
 `page_indices` row mapping its logical blocks to physical pages.
 `paged_attention` looks at the device of its inputs:
 
-* CUDA tensors go to K5, `fa_paged_decode` (`csrc/decode.cu`): one thread
-  block per (sequence, KV head) reads the sequence's page-table row itself
-  and stops at its length, so a decode step's bytes track the live context,
-  with int8/fp8 pages dequantized by their per-token scales in registers.
-  Nothing falls back: what the kernel does not take raises.
+* CUDA tensors go to K5, `fa_paged_decode` (`csrc/decode.cu`), a split-KV
+  kernel: each (sequence, KV head) is split into chunks of whole pages
+  (`decode_split`, from the cache's capacity and the SM count), one thread
+  block each; a block stages its chunk's page ids once, streams its rows
+  through a shared-memory ring with `cp.async`, stops at the length (so a
+  decode step's bytes track the live context) and dequantizes int8/fp8
+  rows by their per-token scales; the last block of a sequence to finish
+  merges the chunks' softmax states in the same launch, through a
+  workspace this module allocates once per device and size.  Nothing falls
+  back: what the kernel does not take raises.
 * CPU tensors go to the plain version, `paged_attention_ref` (gather +
   dequantize + dense masked softmax, a port of the JAX reference).
+  `paged_attention_split_ref` is the kernels' chunk-and-merge arithmetic
+  in plain PyTorch, which the tests hold against the JAX package.
 
 `_launch_decode` is also K6's launcher (`decode_attention.decode_attention_fused`):
 both kernels are one template in `csrc/decode.cu`, with two entry points.
 The TPU kernel's `pages_per_compute_block` (pages per DMA step) has no
-counterpart: the CUDA kernel walks tokens, not page blocks.
+counterpart: the CUDA kernel's chunks are set by the split.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -30,10 +40,18 @@ from ..kernels.flash_attention import _DTYPE_CODES, KERNEL_LAUNCHES, SUPPORTED_H
 from ..kernels.vanilla import DEFAULT_MASK_VALUE
 from ..quant.kv import QUANT_DTYPES
 
-__all__ = ["paged_attention", "paged_attention_ref"]
+__all__ = ["decode_split", "paged_attention", "paged_attention_ref", "paged_attention_split_ref"]
 
 _Q_DTYPES = (torch.float32, torch.bfloat16)  # what csrc/decode.cu instantiates
 _MAX_GROUP = 8
+# csrc/decode.cu's split: tokens of a ring tile (kTile), warps of a block
+# (kWarps; each takes every fourth tile of its block's chunk), splits a
+# sequence may have (kMaxSplits), page ids a chunk may hold (kMaxPages)
+DECODE_TILE = 16
+DECODE_WARPS = 4
+MAX_SPLITS = 64
+MAX_CHUNK_UNITS = 256
+BLOCKS_PER_SM = 4  # the blocks per SM the split aims at over the whole capacity
 
 
 def paged_attention_ref(
@@ -76,13 +94,142 @@ def paged_attention_ref(
     return o.reshape(batch, hq, d).to(q.dtype)
 
 
+def paged_attention_split_ref(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,
+    page_indices: torch.Tensor,
+    *,
+    chunk: int,
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
+    sm_scale: float | None = None,
+    prescale_q: bool = False,
+) -> torch.Tensor:
+    """Plain version of the decode kernels' split-KV arithmetic: each
+    sequence's first max(lengths, 1) tokens in chunks of `chunk` tokens
+    (the kernels' splits), each chunk's softmax state (m, l, acc) taken
+    alone in fp32, then merged with the lse rule, out = sum_s acc_s
+    e^(m_s - M) / sum_s l_s e^(m_s - M), with the l == 0 guard.  A chunk at
+    or past a sequence's length is empty (m = -inf, l = 0) and adds nothing.
+    `prescale_q` False scores as K5 does, (q . k) * sm_scale * k_scale; True
+    as K6 does, with q * sm_scale rounded to q's dtype first (K6 over the
+    slot-major cache is this function over `page_view(cache, layer,
+    max_len)` and its identity page table, with lengths + 1).  p * v_scale
+    is rounded to q's dtype before the PV product; rows past the length are
+    never read (masked before any product, so NaN there cannot leak)."""
+    batch, hq, d = q.shape
+    hkv, _, page_size, _ = k_pages.shape
+    group = hq // hkv
+    if sm_scale is None:
+        sm_scale = float(d) ** -0.5
+    pi = page_indices.long()
+    cap = pi.shape[1] * page_size
+    k = k_pages[:, pi].movedim(1, 0).float().reshape(batch, hkv, cap, d)
+    v = v_pages[:, pi].movedim(1, 0).float().reshape(batch, hkv, cap, d)
+    ones = torch.ones(batch, hkv, cap, device=q.device)
+    ks = k_scales[:, pi].movedim(1, 0).reshape(batch, hkv, cap) if k_scales is not None else ones
+    vs = v_scales[:, pi].movedim(1, 0).reshape(batch, hkv, cap) if v_scales is not None else ones
+    if prescale_q:
+        q4, score_scale = (q.float() * sm_scale).to(q.dtype).float(), 1.0
+    else:
+        q4, score_scale = q.float(), sm_scale
+    q4 = q4.reshape(batch, hkv, group, d)
+    n = lengths.long().clamp(min=1, max=cap)
+    pos = torch.arange(cap, device=q.device)
+    ms, ls, accs = [], [], []
+    for c0 in range(0, cap, chunk):
+        c1 = min(c0 + chunk, cap)
+        valid = (pos[c0:c1][None, :] < n[:, None])[:, None, :]  # [batch, 1, c]
+        s = torch.einsum("bhgd,bhld->bhgl", q4, torch.where(valid[..., None], k[:, :, c0:c1], 0.0))
+        s = (s * score_scale) * ks[:, :, None, c0:c1]
+        s = torch.where(valid[:, :, None], s, -math.inf)
+        m = s.amax(dim=-1)  # -inf for an empty chunk
+        p = torch.exp(s - torch.where(m == -math.inf, 0.0, m)[..., None])  # 0 where masked
+        pr = torch.where(valid[:, :, None], p * vs[:, :, None, c0:c1], 0.0).to(q.dtype).float()
+        vc = torch.where(valid[..., None], v[:, :, c0:c1], 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhgl,bhld->bhgd", pr, vc))
+    m = torch.stack(ms)
+    top = m.amax(dim=0)
+    w = torch.where(m == -math.inf, 0.0, torch.exp(m - top))
+    l = (torch.stack(ls) * w).sum(dim=0)
+    o = (torch.stack(accs) * w[..., None]).sum(dim=0) / torch.where(l == 0.0, 1.0, l)[..., None]
+    return o.reshape(batch, hq, d).to(q.dtype)
+
+
+def decode_split(capacity: int, pairs: int, unit: int, sms: int) -> tuple[int, int]:
+    """(chunk, splits) of the decode kernels: the tokens each thread block
+    takes, and the blocks per (sequence, KV head).  Chosen from the cache's
+    capacity, the number of (sequence, KV head) pairs and the SM count, never
+    from the lengths (they live on the card: reading them would cost a
+    sync).  The chunk is the largest power of two, at least one ring tile
+    per warp, of at most capacity * pairs / (BLOCKS_PER_SM * sms) tokens, rounded up to
+    whole `unit`s (K5's page size; K6 passes the tile) and capped at
+    MAX_CHUNK_UNITS units (K5 stages a chunk's page ids in shared memory);
+    splits * chunk covers the capacity.  At half the capacity live that
+    leaves about two blocks with work per SM: at 8 slots x 12 heads over
+    1024 tokens, chunks of 128 and 8 splits, of which 4-5 hold live tokens
+    at contexts near 512."""
+    want = capacity * pairs / (BLOCKS_PER_SM * sms)
+    chunk = DECODE_WARPS * DECODE_TILE
+    while chunk * 2 <= want:
+        chunk *= 2
+    chunk = max(chunk, -(-capacity // MAX_SPLITS))
+    chunk = min(-(-chunk // unit), -(-capacity // unit), MAX_CHUNK_UNITS) * unit
+    splits = -(-capacity // chunk)
+    if splits > MAX_SPLITS:
+        raise NotImplementedError(
+            f"the decode kernels split a sequence into at most {MAX_SPLITS} chunks of at most {MAX_CHUNK_UNITS} "
+            f"pages; a capacity of {capacity} tokens in pages of {unit} needs {splits}"
+        )
+    return chunk, splits
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_WORKSPACES: dict = {}
+
+
+def _workspace(device: torch.device, floats: int, pairs: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 partials and the int32 arrival counters (zero) of the
+    kernels' in-launch merge, allocated once per (device, size) and reused
+    by every later call of that size, so that a call allocates only its
+    output.  They are never freed: a CUDA graph that captured a call keeps
+    their addresses.  Launches that share them must not run concurrently
+    (two streams must not share one workspace)."""
+    key = (device, floats, pairs)
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode kernels: call once at this size before capturing a CUDA graph, so that "
+                               "their workspace is allocated outside the graph")
+        ws = _WORKSPACES[key] = (torch.empty(floats, dtype=torch.float32, device=device),
+                                 torch.zeros(pairs, dtype=torch.int32, device=device))
+    return ws
+
+
+@functools.lru_cache(maxsize=256)
+def _stride_array(*strides: int):
+    return (ctypes.c_longlong * len(strides))(*strides)
+
+
 def _check_rows(name: str, t: torch.Tensor) -> None:
-    """The decode kernels read payload rows with 16-byte loads through the
+    """The decode kernels read payload rows with 16-byte copies through the
     tensor's strides.  A cache view that breaks that raises: copying the
     cache on every call would hide its whole cost."""
     vec = 16 // t.element_size()
     if t.stride(-1) != 1 or t.data_ptr() % 16 or any(st % vec for st in t.stride()[:-1]):
         raise ValueError(f"{name}: rows must be contiguous and 16-byte aligned, got strides {t.stride()}")
+
+
+def _int32(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == torch.int32 and t.is_contiguous() else t.to(torch.int32).contiguous()
 
 
 def _launch_decode(
@@ -102,7 +249,8 @@ def _launch_decode(
     page_indices [batch, pages_per_seq]) or K6 (entry "fused_decode": k/v one
     layer [hkv, slots, max_len, d], page_indices None) on CUDA tensors;
     returns [batch, hq, d] in q's dtype.  Each sequence reads max(lengths +
-    len_add, 1) tokens (K6 always adds 1)."""
+    len_add, 1) tokens (K6 always adds 1), split across blocks as
+    `decode_split` chooses."""
     batch, hq, d = q.shape
     hkv = k.shape[0]
     quantized = k_scales is not None
@@ -130,30 +278,50 @@ def _launch_decode(
     if quantized:
         if k_scales.dtype != torch.float32 or k_scales.stride() != v_scales.stride() or k_scales.stride(-1) != 1:
             raise ValueError("k_scales/v_scales must be fp32 with equal strides and contiguous rows")
-    lengths = lengths.to(torch.int32).contiguous()
-    out = torch.empty(batch, hq, d, dtype=q.dtype, device=q.device)
+    lengths = _int32(lengths)
+    paged = entry == "paged_decode"
+    if paged:
+        page_indices = _int32(page_indices)
+        capacity, unit = k.shape[2] * page_indices.shape[1], k.shape[2]
+    else:
+        capacity, unit = k.shape[2], DECODE_TILE
+    device = q.device
+    chunk, splits = decode_split(capacity, batch * hkv, unit, _sm_count(device.index))
+    ws, counters = (None, None)
+    if splits > 1:
+        ws, counters = _workspace(device, batch * hkv * splits * (hq // hkv) * (d + 2), batch * hkv)
+    out = torch.empty(batch, hq, d, dtype=q.dtype, device=device)
     sc = k_scales.stride()[:2] if quantized else (0, 0)
-    strides = (ctypes.c_longlong * 12)(*q.stride()[:2], *out.stride()[:2], *k.stride()[:3], *v.stride()[:3], *sc)
-    kv_code = QUANT_DTYPES[k.dtype] if quantized else 0
-    scale_ptrs = (k_scales.data_ptr(), v_scales.data_ptr()) if quantized else (None, None)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        if entry == "paged_decode":
-            page_indices = page_indices.to(torch.int32).contiguous()
+    strides = _stride_array(*q.stride()[:2], *out.stride()[:2], *k.stride()[:3], *v.stride()[:3], *sc)
+    ptrs = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scales.data_ptr() if quantized else None,
+        v_scales.data_ptr() if quantized else None, lengths.data_ptr(),
+    )
+    work = (None if ws is None else ws.data_ptr(), None if counters is None else counters.data_ptr())
+    codes = (_DTYPE_CODES[q.dtype], QUANT_DTYPES[k.dtype] if quantized else 0, batch, hq, hkv, d)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    with _on(device):
+        if paged:
             err = library().fa_paged_decode(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), *scale_ptrs, lengths.data_ptr(), page_indices.data_ptr(),
-                out.data_ptr(), _DTYPE_CODES[q.dtype], kv_code, batch, hq, hkv, d, k.shape[2], page_indices.shape[1],
-                len_add, strides, sm_scale, stream,
+                *ptrs, page_indices.data_ptr(), out.data_ptr(), *work, *codes, k.shape[2], page_indices.shape[1],
+                len_add, chunk, splits, strides, sm_scale, stream,
             )
         else:
             err = library().fa_fused_decode(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), *scale_ptrs, lengths.data_ptr(), out.data_ptr(),
-                _DTYPE_CODES[q.dtype], kv_code, batch, hq, hkv, d, k.shape[2], strides, sm_scale, stream,
+                *ptrs, out.data_ptr(), *work, *codes, k.shape[2], chunk, splits, strides, sm_scale, stream,
             )
     if err != 0:
         raise RuntimeError(f"{entry} launch failed with cudaError {err}")
     KERNEL_LAUNCHES[entry] += 1
     return out
+
+
+def _on(device: torch.device):
+    """The device context of a launch, entered only when `device` is not
+    the current one already (it costs more than the launch's own work)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def paged_attention(

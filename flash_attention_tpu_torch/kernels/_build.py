@@ -137,13 +137,16 @@ def library() -> ctypes.CDLL:
         lib.fa_flash_fwd_kv_quant.restype = i
         lib.fa_paged_decode.argtypes = [
             p, p, p, p, p, p, p, p,  # q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices, out
+            p, p,  # workspace, counters
             i, i, i, i, i, i, i, i, i,  # q_dtype, kv_dtype, batch, hq, hkv, head_dim, page_size, pages_per_seq, len_add
+            i, i,  # chunk, splits
             ctypes.POINTER(ll), f, p,  # 12 strides, sm_scale, stream
         ]
         lib.fa_paged_decode.restype = i
         lib.fa_fused_decode.argtypes = [
-            p, p, p, p, p, p, p,  # q, k, v, k_scales, v_scales, lengths, out
+            p, p, p, p, p, p, p, p, p,  # q, k, v, k_scales, v_scales, lengths, out, workspace, counters
             i, i, i, i, i, i, i,  # q_dtype, kv_dtype, slots, hq, hkv, head_dim, max_len
+            i, i,  # chunk, splits
             ctypes.POINTER(ll), f, p,  # 12 strides, sm_scale, stream
         ]
         lib.fa_fused_decode.restype = i

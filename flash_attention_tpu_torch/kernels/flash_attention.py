@@ -8,8 +8,10 @@ and `flash_attention_with_lse` look at the device of their inputs
 * CUDA tensors go to the hand-written kernels, for every sequence length:
   the forward in `csrc/flash_fwd.cu` (K1) and, for inputs that require
   grad, the backward in `csrc/flash_bwd.cu` (a pre-pass writing di and
-  qs, then K2 dK/dV and K3 dQ).  Nothing falls back: what the kernels do
-  not take raises.
+  qs, then K2 dK/dV and K3 dQ).  The kernels are built for head dims 64
+  and 128; the entry points zero-pad any other head dim up to 128 to the
+  next of them and slice the results back (`padded_head_dim`).  Nothing
+  falls back: what the kernels do not take raises.
 * CPU tensors go to the plain versions: `flash_attention_reference` (a tile
   loop with the forward kernel's masks, block-skip bounds and lse) and
   `flash_attention_bwd_reference` (the same for the backward).  Below
@@ -50,6 +52,7 @@ __all__ = [
     "flash_attention_bwd_reference",
     "flash_attention_reference",
     "flash_attention_with_lse",
+    "padded_head_dim",
 ]
 
 _LOG2E = 1.4426950408889634
@@ -57,6 +60,26 @@ _LN2 = 0.6931471805599453
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim the CUDA kernels run a head dim `d` at: 64 for d <= 64,
+    128 for 64 < d <= 128.  Above 128, `d` itself, which they do not take.
+    (The JAX package pads to a multiple of 8, which its TPU kernels take.)"""
+    return next((dp for dp in SUPPORTED_HEAD_DIMS if d <= dp), d)
+
+
+def _pad_head_dim(x: torch.Tensor, dp: int) -> torch.Tensor:
+    """`x` zero-padded in its last dim to `dp`.  Zero q/k columns add nothing
+    to the scores and zero v columns give zero output columns, so slicing
+    the output back is exact; `torch.nn.functional.pad` lets autograd slice
+    the grads back too.  1-byte payloads (int8, fp8) are padded as bytes: a
+    zero byte is 0 in both."""
+    pad = (0, dp - x.shape[-1])
+    if x.element_size() == 1:
+        return torch.nn.functional.pad(x.view(torch.uint8), pad).view(x.dtype)
+    return torch.nn.functional.pad(x, pad)
+
 
 # Launches of each CUDA kernel of the port, counted by its wrapper where it
 # launches: K1-K3 and the backward's pre-pass here, K4 in quant/kv.py, K5
@@ -607,7 +630,8 @@ def flash_attention(
       rows for dQ), which changes only the order of summation.
 
     Returns [batch, num_q_heads, q_len, head_dim] in q's dtype.  On CUDA,
-    float32, bfloat16 and float16 run natively, at head dims 64 and 128.
+    float32, bfloat16 and float16 run natively, at any head dim up to 128
+    (zero-padded to 64 or 128, as the JAX package pads to a multiple of 8).
     """
     b, hq, hkv, lq, lk, d = _shapes(q, k, v)
     if sm_scale is None:
@@ -620,6 +644,13 @@ def flash_attention(
         if window >= lk:
             window = None  # no window constraint binds
     segs = _segments(segment_ids, b, lq, lk, q.device) if segment_ids is not None else None
+    dp = padded_head_dim(d)
+    if dp != d and kernel_route(q, k, v) == "cuda":
+        q, k, v = (_pad_head_dim(x, dp) for x in (q, k, v))
+        return flash_attention(
+            q, k, v, causal=causal, sm_scale=sm_scale, window=window, segment_ids=segs, block_sizes=block_sizes,
+            num_chunks_q=num_chunks_q, num_chunks_kv=num_chunks_kv,
+        )[..., :d]
     if kernel_route(q, k, v) == "plain" and (lq < MIN_BLOCK or lk < MIN_BLOCK):
         group = hq // hkv
         k_r = k.repeat_interleave(group, dim=1) if group > 1 else k
@@ -646,10 +677,16 @@ def flash_attention_with_lse(
     block_sizes: BlockSizes | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Flash attention returning (out, logsumexp [batch, num_q_heads,
-    q_len], fp32, natural log), differentiable in both."""
+    q_len], fp32, natural log), differentiable in both.  Head dims as in
+    `flash_attention`; the padding leaves the lse unchanged."""
     b, hq, hkv, lq, lk, d = _shapes(q, k, v)
     if sm_scale is None:
         sm_scale = float(d) ** -0.5
+    dp = padded_head_dim(d)
+    if dp != d and kernel_route(q, k, v) == "cuda":
+        q, k, v = (_pad_head_dim(x, dp) for x in (q, k, v))
+        out, lse = flash_attention_with_lse(q, k, v, causal=causal, sm_scale=sm_scale, block_sizes=block_sizes)
+        return out[..., :d], lse
     blocks = _blocks(lq, lk, d, hq // hkv, block_sizes, None, None)
     spec = _Spec(causal, float(sm_scale), None, blocks)
     if not _needs_grad(q, k, v):

@@ -38,9 +38,11 @@ from ..kernels.flash_attention import (
     SUPPORTED_HEAD_DIMS,
     _aligned,
     _ids_ptrs,
+    _pad_head_dim,
     _segments,
     _shapes,
     flash_attention_reference,
+    padded_head_dim,
 )
 from ..kernels.vanilla import vanilla_attention
 
@@ -192,7 +194,9 @@ def flash_attention_kv_quant(
     main op's feature set: causal with queries aligned to the end of KV,
     sliding window, segment ids (an int tensor [B, L] or a (q_ids, kv_ids)
     pair).  block_sizes sets the plain version's tiles only.  Returns
-    [B, Hq, Lq, D] in q's dtype.
+    [B, Hq, Lq, D] in q's dtype.  On CUDA any head dim up to 128 runs: q and
+    the payloads are zero-padded to 64 or 128 (`padded_head_dim`; the
+    scales stay as they are) and the output is sliced back.
     """
     b, hq, hkv, lq, lk, d = _check_kv(q, kv)
     if sm_scale is None:
@@ -204,6 +208,11 @@ def flash_attention_kv_quant(
             window = None
     segs = _segments(segment_ids, b, lq, lk, q.device) if segment_ids is not None else None
     if kernel_route(q, kv.k, kv.v, kv.k_scale, kv.v_scale) == "cuda":
+        dp = padded_head_dim(d)
+        if dp != d:
+            q = _pad_head_dim(q, dp)
+            kv = QuantizedKV(_pad_head_dim(kv.k, dp), kv.k_scale, _pad_head_dim(kv.v, dp), kv.v_scale)
+            return _launch(q, kv, causal, float(sm_scale), window, segs)[..., :d]
         return _launch(q, kv, causal, float(sm_scale), window, segs)
     if lq < MIN_BLOCK // 8 or lk < MIN_BLOCK:
         # dense fallback for tiny shapes, on the plain route only

@@ -57,11 +57,13 @@ def n(x) -> np.ndarray:
 
 
 def from_jax(a) -> torch.Tensor:
-    """A JAX array as a torch tensor (a copy).  numpy has no fp8, so fp8
-    e4m3 travels as a uint8 view and is viewed back as torch's fp8."""
+    """A JAX array as a torch tensor (a copy).  numpy has no fp8 or bf16,
+    so they travel as uint8 / int16 views and are viewed back as torch's."""
     a = np.asarray(a)
     if a.dtype.name == "float8_e4m3fn":
         return torch.from_numpy(a.view(np.uint8).copy()).view(torch.float8_e4m3fn)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     return torch.from_numpy(a.copy())
 
 

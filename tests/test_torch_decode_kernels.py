@@ -187,3 +187,114 @@ def test_decode_launchers_raise_without_a_card():
                            len_add=0)
     with pytest.raises(TypeError, match="float32/bfloat16"):
         tpa._launch_decode("paged_decode", t(q).half(), kp, vp, ks, vs, lengths, t(pi), sm_scale=0.1, len_add=0)
+
+
+# Sequence lengths (current token included) against a split of `chunk`
+# tokens over a capacity of 128: every split but one empty, a split's
+# edges, ragged.
+def _split_lengths(case: str, chunk: int) -> np.ndarray:
+    return {
+        "one-split": np.array([0, 1, 1, 0]),
+        "edges": np.array([chunk - 1, chunk, chunk + 1, 128]),
+        "ragged": np.array([1, 17, 100, 127]),
+    }[case].astype(np.int32)
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+@pytest.mark.parametrize("case", ["one-split", "edges", "ragged"])
+@pytest.mark.parametrize("quant", [None, "bf16", "int8", "fp8"])
+def test_split_merge_matches_jax_paged_reference(quant, case, chunk):
+    """The decode kernels' chunk-and-merge arithmetic in plain PyTorch
+    (`paged_attention_split_ref`, K5's scoring) against JAX's
+    `paged_attention_ref` and the port's, on a permuted page table over
+    more pages than the sequences use, GQA 8/2, pages of 16 tokens, chunks
+    of one or two pages: fp32 at the JAX package's quantized-page tolerance
+    (atol 5e-5, rtol 1e-4); bf16 q and pages at the bf16 tier (atol 2e-2),
+    since P and the output are rounded to bf16 at other points."""
+    q, pi, pages = _pages(None if quant == "bf16" else quant, seed=chunk)
+    lengths = _split_lengths(case, chunk)
+    kw = dict(k_scales=pages[2], v_scales=pages[3])
+    if quant == "bf16":
+        q = jnp.asarray(q, jnp.bfloat16)
+        pages = tuple(None if a is None else jnp.asarray(a, jnp.bfloat16) for a in pages)
+    jref = jpa.paged_attention_ref(jnp.asarray(q), pages[0], pages[1], jnp.asarray(lengths), jnp.asarray(pi), **kw)
+    kp, vp, ks, vs = _torch_pages(pages)
+    tq = from_jax(q)
+    got = tpa.paged_attention_split_ref(tq, kp, vp, t(lengths), t(pi), chunk=chunk, k_scales=ks, v_scales=vs)
+    plain = tpa.paged_attention_ref(tq, kp, vp, t(lengths), t(pi), k_scales=ks, v_scales=vs)
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    atol, rtol = (2e-2, 0) if quant == "bf16" else (ATOL, RTOL)
+    np.testing.assert_allclose(n(got.float()), np.asarray(jref, np.float32), atol=atol, rtol=rtol)
+    np.testing.assert_allclose(n(got.float()), n(plain.float()), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("lengths", [(0, 16, 139), (31, 32, 63)], ids=["ragged", "edges"])
+@pytest.mark.parametrize("quant", QUANT)
+def test_split_merge_k6_matches_jax_einsum(quant, lengths):
+    """K6's chunk-and-merge over the slot-major cache: the split reference
+    over `page_view(cache, layer, max_len)` (one page per slot) and its
+    identity table, with K6's pre-scaled q and lengths + 1, against JAX's
+    einsum `decode_attention` on the same cache contents, chunks of 32 over
+    a capacity of 256 (so most splits are empty), GQA 8/2, fp32."""
+    jc = _jax_cache(quant, lengths=lengths)
+    tc = torch_cache(jc)
+    q = randn(33, 3, 8, 64)
+    jout = jda.decode_attention(jnp.asarray(q), jc, 1)
+    kp, vp, ks, vs = tkvc.page_view(tc, 1, tc.max_len)
+    pi = tkvc.identity_page_indices(tc.slots, tc.max_len, tc.max_len, device="cpu")
+    got = tpa.paged_attention_split_ref(t(q), kp, vp, tc.lengths + 1, pi, chunk=32, k_scales=ks, v_scales=vs,
+                                        prescale_q=True)
+    np.testing.assert_allclose(n(got), np.asarray(jout), atol=ATOL, rtol=RTOL)
+
+
+def test_split_merge_gives_nan_no_way_in():
+    """NaN in every row past the lengths (scales of a quantized cache)
+    leaves the chunk-and-merge output finite and equal to the clean one."""
+    q, pi, pages = _pages("int8", batch=2, pps=4)
+    lengths = np.array([5, 40], np.int32)
+    kp, vp, ks, vs = _torch_pages(pages)
+    clean = tpa.paged_attention_split_ref(t(q), kp, vp, t(lengths), t(pi), chunk=16, k_scales=ks, v_scales=vs)
+    for b, length in enumerate(lengths):
+        for j, page in enumerate(pi[b]):
+            start = max(0, int(length) - j * kp.shape[2])
+            ks[:, page, start:] = float("nan")
+            vs[:, page, start:] = float("nan")
+    dirty = tpa.paged_attention_split_ref(t(q), kp, vp, t(lengths), t(pi), chunk=16, k_scales=ks, v_scales=vs)
+    assert torch.isfinite(dirty).all() and torch.equal(dirty, clean)
+
+
+@pytest.mark.parametrize(
+    "capacity,pairs,unit,want",
+    [
+        (1024, 96, 128, (128, 8)),  # GPT-2 serving: 8 slots x 12 heads, K5 pages of 128
+        (1024, 96, 16, (128, 8)),  # the same through K6 (its unit is the ring tile), or pages of 16
+        (1024, 96, 32, (128, 8)),  # pages of 32: 4 pages a chunk
+        (1024, 384, 16, (512, 2)),  # 32 slots x 12 heads
+        (4096, 128, 16, (512, 8)),  # Llama-shaped: 16 slots x 8 KV heads
+        (1024, 12, 16, (64, 16)),  # one sequence: the smallest chunk, a ring tile per warp
+        (1024, 4096, 128, (1024, 1)),  # many sequences: one block each
+        (65536, 8, 16, (1024, 64)),  # a long capacity: at most 64 splits
+    ],
+)
+def test_decode_split_choice(capacity, pairs, unit, want):
+    """The host's split (chunk, splits) for 132 SMs: whole units, the
+    capacity covered, at most 64 splits."""
+    chunk, splits = tpa.decode_split(capacity, pairs, unit, 132)
+    assert (chunk, splits) == want
+    assert chunk % unit == 0 and chunk * splits >= capacity > chunk * (splits - 1) and splits <= tpa.MAX_SPLITS
+
+
+def test_decode_split_gives_two_waves_at_the_serving_shape():
+    """At GPT-2 serving's shape (8 slots x 12 heads, contexts 485-534 of
+    1024) the live blocks fill 132 SMs at least twice over."""
+    chunk, _ = tpa.decode_split(1024, 96, 128, 132)
+    live = sum(-(-n // chunk) for n in range(486, 536, 7)) * 12 * 8 / len(range(486, 536, 7))
+    assert live >= 2 * 132
+    with pytest.raises(NotImplementedError, match="at most"):
+        tpa.decode_split(1 << 20, 8, 1, 132)
+
+
+def test_identity_table_is_made_once():
+    a = tda.identity_table(3, 256, 64, torch.device("cpu"))
+    assert a is tda.identity_table(3, 256, 64, torch.device("cpu"))
+    np.testing.assert_array_equal(n(a), n(tkvc.identity_page_indices(3, 256, 64, device="cpu")))

@@ -60,6 +60,31 @@ def test_flash_attention_with_lse_matches_jax(lq, lk):
     np.testing.assert_allclose(n(tl), n(jl), atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("d", [16, 96])
+def test_padded_head_dim_route_matches_jax(d):
+    """The CUDA route's padding on the plain version: q/k/v zero-padded to
+    D64 (d <= 64) or D128, the plain loop there with the true sm_scale, the
+    output sliced back.  Out and lse against JAX at d itself (which pads to
+    a multiple of 8), fp32, 1e-5."""
+    dp = tfa.padded_head_dim(d)
+    assert dp == (64 if d <= 64 else 128)
+    q, k, v = _qkv(200, 200, d=d, seed=21)
+    jo, jl = jfa.flash_attention_with_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    padded = [tfa._pad_head_dim(t(x), dp) for x in (q, k, v)]
+    assert all(x.shape[-1] == dp and not x[..., d:].any() for x in padded)
+    to, tl = tfa.flash_attention_with_lse(*padded, sm_scale=d ** -0.5)
+    assert not to[..., d:].any()  # zero v columns give zero output columns
+    np.testing.assert_allclose(n(to[..., :d]), n(jo), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(n(tl), n(jl), atol=1e-5, rtol=0)
+    jout = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=70)
+    tout = tfa.flash_attention(*padded, sm_scale=d ** -0.5, window=70)[..., :d]
+    np.testing.assert_allclose(n(tout), n(jout), atol=1e-5, rtol=0)
+
+
+def test_padded_head_dim_is_64_or_128_up_to_128():
+    assert [tfa.padded_head_dim(d) for d in (8, 16, 32, 64, 65, 96, 128, 160)] == [64, 64, 64, 64, 128, 128, 128, 160]
+
+
 def test_window_and_segments_match_jax():
     """The plain version keeps the window and segment masks (the CUDA
     kernel does not take them yet)."""

@@ -7,6 +7,7 @@ tier).
 K2/K3 themselves run only on the card (`python3 chip_smoke.py` holds them
 against this plain backward there)."""
 
+import functools
 import importlib
 
 import jax
@@ -220,3 +221,78 @@ def test_prep_qs_matches_the_jax_recompute_p(dtype):
     _, qs = tfa.flash_attention_bwd_prep_reference(qt, qt, qt, sm_scale=sm_scale)
     assert qs.dtype == qt.dtype
     np.testing.assert_allclose(n(torch.exp2(qs.float())), np.asarray(p), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("d", [16, 96])
+def test_padded_head_dim_grads_match_jax(d):
+    """The CUDA route's padding on the plain versions: q/k/v zero-padded to
+    D64 or D128 with `torch.nn.functional.pad`, the autograd Function there
+    with the true sm_scale, out sliced back.  Autograd slices the grads back;
+    out, lse and the q/k/v grads (out and lse cotangents) against
+    `jax.grad` of the JAX package at d itself: fp32, forward 1e-5, backward
+    1e-4."""
+    q, k, v, do = _inputs(1, 4, 2, 200, 200, d=d, seed=51)
+    dlse = randn(55, 1, 4, 200)
+
+    def loss(q, k, v):
+        o, lse = jfa.flash_attention_with_lse(q, k, v)
+        return jnp.sum(o * do) + jnp.sum(lse * dlse), (o, lse)
+
+    (_, (jo, jl)), want = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    dp = tfa.padded_head_dim(d)
+    qt, kt, vt = (t(x).requires_grad_() for x in (q, k, v))
+    o, lse = tfa.flash_attention_with_lse(*(tfa._pad_head_dim(x, dp) for x in (qt, kt, vt)), sm_scale=d ** -0.5)
+    o = o[..., :d]
+    np.testing.assert_allclose(n(o), np.asarray(jo), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(n(lse), np.asarray(jl), atol=1e-5, rtol=0)
+    torch.autograd.backward((o, lse), (t(do), t(dlse)))
+    for name, g, w in zip(("dq", "dk", "dv"), (qt.grad, kt.grad, vt.grad), want):
+        assert g.shape[-1] == d
+        np.testing.assert_allclose(n(g), np.asarray(w), atol=1e-4, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("entry", ["flash_attention", "with_lse", "segments"])
+@pytest.mark.parametrize("d", [16, 96])
+def test_cuda_route_launches_padded_head_dims(d, entry, monkeypatch):
+    """On the CUDA route the entry points hand the kernels' launchers q/k/v
+    (and dO) padded to D64 or D128, with sm_scale from the true d, and slice
+    the results back.  The launchers are stood in for by recorders that run
+    the plain versions, so no card is needed; the results are held against
+    JAX at d (fp32, forward 1e-5, backward 1e-4)."""
+    seen = []
+
+    def launch(q, k, v, spec, segs, need_lse):
+        seen.append(("fwd", q.shape[-1], k.shape[-1], v.shape[-1], spec.sm_scale))
+        return tfa.flash_attention_reference(q, k, v, causal=spec.causal, sm_scale=spec.sm_scale,
+                                             window=spec.window, segment_ids=segs, block_sizes=spec.blocks)
+
+    def launch_bwd(q, k, v, o, lse, do, dlse, spec, segs):
+        seen.append(("bwd", q.shape[-1], k.shape[-1], v.shape[-1], do.shape[-1], spec.sm_scale))
+        return tfa.flash_attention_bwd_reference(q, k, v, o, lse, do, dlse=dlse, causal=spec.causal,
+                                                 sm_scale=spec.sm_scale, window=spec.window, segment_ids=segs,
+                                                 block_sizes=spec.blocks)
+
+    monkeypatch.setattr(tfa, "kernel_route", lambda *ts: "cuda")
+    monkeypatch.setattr(tfa, "_launch", launch)
+    monkeypatch.setattr(tfa, "_launch_bwd", launch_bwd)
+    q, k, v, do = _inputs(2, 4, 2, 130, 130, d=d, seed=61)
+    kw_t = kw_j = {}
+    if entry == "segments":
+        ids = _segment_ids(2, 130)
+        kw_t, kw_j = dict(segment_ids=t(ids)), dict(segment_ids=jnp.asarray(ids))
+    qt, kt, vt = (t(x).requires_grad_() for x in (q, k, v))
+    if entry == "with_lse":
+        out, _ = tfa.flash_attention_with_lse(qt, kt, vt)
+        jfn = lambda *a: jfa.flash_attention_with_lse(*a)[0]  # noqa: E731
+    else:
+        out = tfa.flash_attention(qt, kt, vt, **kw_t)
+        jfn = functools.partial(jfa.flash_attention, **kw_j)
+    out.backward(t(do))
+    dp = 64 if d <= 64 else 128
+    assert seen == [("fwd", dp, dp, dp, d ** -0.5), ("bwd", dp, dp, dp, dp, d ** -0.5)]
+    want, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (q, k, v)))
+    assert out.shape == q.shape
+    np.testing.assert_allclose(n(out), np.asarray(want), atol=1e-5, rtol=0)
+    for name, g, w in zip(("dq", "dk", "dv"), (qt.grad, kt.grad, vt.grad), vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(n(g), np.asarray(w), atol=1e-4, rtol=0, err_msg=name)

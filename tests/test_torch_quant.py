@@ -3,6 +3,8 @@
 whose K4 runs in Pallas interpret mode here.  Inputs are numpy from a seed;
 fp8 payloads cross between the packages as uint8 views."""
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +14,8 @@ from _torch_port import bits, from_jax, n, randn, t
 from flash_attention_tpu.quant import kv as jkv
 from flash_attention_tpu_torch.kernels.flash_attention import KERNEL_LAUNCHES
 from flash_attention_tpu_torch.quant import kv as tkv
+
+tfa = importlib.import_module("flash_attention_tpu_torch.kernels.flash_attention")
 
 DTYPES = {"int8": (jnp.int8, torch.int8), "fp8": (jnp.float8_e4m3fn, torch.float8_e4m3fn)}
 
@@ -145,3 +149,50 @@ def test_cuda_route_raises_without_a_card():
     plain = tkv.QuantizedKV(tq.k.float(), tq.k_scale, tq.v.float(), tq.v_scale)
     with pytest.raises(TypeError, match="payloads"):
         tkv.flash_attention_kv_quant(q, plain)
+
+
+@pytest.mark.parametrize("d", [16, 96])
+@pytest.mark.parametrize("name", DTYPES)
+def test_kv_quant_padded_head_dim_matches_jax(name, d):
+    """K4's CUDA-route padding on its plain version: q zero-padded to D64 or
+    D128, the int8/fp8 payloads padded with zero bytes (0 in both formats),
+    the scales unchanged, the plain version there with the true sm_scale,
+    the output sliced back; against JAX at d itself, fp32, atol 5e-5 /
+    rtol 1e-4 (the JAX tests' quantized tier)."""
+    jdt, _ = DTYPES[name]
+    q, k, v = randn(21, 1, 4, 256, d), randn(22, 1, 2, 256, d), randn(23, 1, 2, 256, d)
+    jq = jkv.quantize_kv(jnp.asarray(k), jnp.asarray(v), dtype=jdt)
+    jout = jkv.flash_attention_kv_quant(jnp.asarray(q), jq)
+    dp = tfa.padded_head_dim(d)
+    kp, vp = (tfa._pad_head_dim(from_jax(x), dp) for x in (jq.k, jq.v))
+    assert kp.dtype == from_jax(jq.k).dtype and not bits(kp)[..., d:].any()
+    np.testing.assert_array_equal(bits(kp)[..., :d], bits(jq.k))
+    tq = tkv.QuantizedKV(kp, from_jax(jq.k_scale), vp, from_jax(jq.v_scale))
+    tout = tkv.flash_attention_kv_quant(tfa._pad_head_dim(t(q), dp), tq, sm_scale=d ** -0.5)[..., :d]
+    np.testing.assert_allclose(n(tout), np.asarray(jout), atol=5e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("d", [16, 96])
+def test_kv_quant_cuda_route_launches_padded_head_dims(d, monkeypatch):
+    """On the CUDA route `flash_attention_kv_quant` hands K4's launcher q and
+    payloads padded to D64 or D128 with the scales unchanged and sm_scale
+    from the true d, and slices the output back.  The launcher is stood in
+    for by a recorder that runs the plain version (no card needed); the
+    result is held against JAX at d."""
+    seen = []
+
+    def launch(q, kv, causal, sm_scale, window, segs):
+        seen.append((q.shape[-1], kv.k.shape[-1], kv.v.shape[-1], tuple(kv.k_scale.shape), sm_scale))
+        return tkv.flash_attention_kv_quant_reference(q, kv, causal=causal, sm_scale=sm_scale, window=window,
+                                                      segment_ids=segs)
+
+    monkeypatch.setattr(tkv, "kernel_route", lambda *ts: "cuda")
+    monkeypatch.setattr(tkv, "_launch", launch)
+    q, k, v = randn(24, 1, 4, 256, d), randn(25, 1, 2, 256, d), randn(26, 1, 2, 256, d)
+    jq = jkv.quantize_kv(jnp.asarray(k), jnp.asarray(v), dtype=jnp.float8_e4m3fn)
+    tq = tkv.QuantizedKV(from_jax(jq.k), from_jax(jq.k_scale), from_jax(jq.v), from_jax(jq.v_scale))
+    out = tkv.flash_attention_kv_quant(t(q), tq, window=100)
+    dp = 64 if d <= 64 else 128
+    assert seen == [(dp, dp, dp, (1, 2, 256), d ** -0.5)] and out.shape == q.shape
+    jout = jkv.flash_attention_kv_quant(jnp.asarray(q), jq, window=100)
+    np.testing.assert_allclose(n(out), np.asarray(jout), atol=2e-5, rtol=1e-5)

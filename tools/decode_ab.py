@@ -1,0 +1,72 @@
+"""Time the decode kernels (K5 paged, K6 slot-major) and the quantized
+serving engines of one checkout of the PyTorch port on the card, for an A/B
+between checkouts.
+
+    python3 tools/decode_ab.py <checkout dir> <label>
+
+Imports `flash_attention_tpu_torch` from <checkout dir>, builds its kernels
+there (its own build/torch_kernels/), and prints lines of results, the last
+`RESULT {json}`:
+
+* K5 and K6 at every shape of this checkout's `chip_smoke.DECODE_SHAPES`
+  (8 slots on one layer, L2-hot; GPT-2's 12 layers, a long context at 32
+  slots and a Llama-shaped GQA layer, L2-cold), int8 and bf16 caches: device
+  ms a call, ms a call as the engine calls them, the plain versions, SDPA
+  with a length mask on a bf16 cache, the byte bound (`time_decode`);
+* the serving-quant bursts of `chip_smoke.py` (GPT-2 124M, 16 requests; an
+  int8 cache through K5 and an fp8 cache through K6): tokens/s each.
+
+The timers are this checkout's `chip_smoke.py`, so both sides of an A/B,
+and the proof run, are measured alike.  Compare two checkouts in one call,
+in turns (A, B, B, A): times on the host's clock spread between calls and
+between processes.
+"""
+
+from __future__ import annotations
+
+import importlib
+import importlib.util
+import json
+import os
+import sys
+import time
+
+tree, label = sys.argv[1], sys.argv[2]
+sys.path.insert(0, os.path.abspath(tree))
+
+import torch  # noqa: E402
+
+# the checkout under test first: chip_smoke.py's own imports then resolve to it
+FA = importlib.import_module("flash_attention_tpu_torch.kernels.flash_attention")
+if not FA.__file__.startswith(os.path.abspath(tree)):
+    raise RuntimeError(f"imported {FA.__file__}, not the checkout in {tree}")
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py"))
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+
+from flash_attention_tpu_torch.kernels import _build  # noqa: E402
+
+
+def main() -> None:
+    name, smi = smoke.phase_device()
+    t0 = time.perf_counter()
+    _build.library()
+    res = {"label": label, "checkout": tree, "device": name, "smi": smi, "build_s": time.perf_counter() - t0}
+    gen = torch.Generator().manual_seed(7)
+    for shape in smoke.DECODE_SHAPES:
+        for store in shape[-1]:
+            row = smoke.time_decode(gen, smi, shape, store)
+            res[f"{shape[0]} {store}"] = row
+            print(label, shape[0], store, {k: v if isinstance(v, str) else round(v, 5) for k, v in row.items()},
+                  flush=True)
+    model = smoke._gpt2(0)
+    base = smoke._burst(0, "serving", model)
+    _, rates = smoke.phase_serving_quant(0, model, base, smi)
+    res["serving tokens/s"] = {"bf16 einsum": base["tokens_s"], **rates}
+    print(label, "serving tokens/s", res["serving tokens/s"], flush=True)
+    print("RESULT " + json.dumps(res), flush=True)
+
+
+if __name__ == "__main__":
+    main()
