@@ -13,14 +13,15 @@ non-zero and never prints the final `"ok": true` line:
               (C7518).
 3. k1       - the flash-attention forward kernel against its plain PyTorch
               tile loop and against dense (vanilla) attention, at the GPT-2
-              shapes and more (window, segment ids, the tile's ragged edges
-              with a GQA group crossing the diagonal), each error beside its
-              tolerance.
+              and Llama-3 8B prefill shapes and more (window, segment ids,
+              the tile's ragged edges with a GQA group crossing the
+              diagonal), each error beside its tolerance.
 4. k2k3     - the backward's pre-pass (di and qs) against its plain
               expression; gradients of K1 + pre-pass + K2 + K3 through the
               autograd Function against the plain backward and against
               autograd of fp32 vanilla, at the tiles' edges (q129 x kv257,
-              GQA 8/2, window 100; Lq 1023; rows that see no key) and more.
+              GQA 8/2, window 100; Lq 1023; rows that see no key), at the
+              llama-train shape (b4, GQA 32/8, L1024, D128) and more.
 5. k4       - quantized-KV flash attention (int8/fp8 K/V) against its plain
               version and fp32 vanilla on the dequantized K/V (Lk % 4 != 0
               among them, so the scales' rows are unaligned); then the
@@ -31,31 +32,73 @@ non-zero and never prints the final `"ok": true` line:
               lengths and at the split's edges (cache lengths 0, chunk - 1,
               chunk, chunk + 1, capacity - 1), K5 with a permuted page
               table and NaN past the lengths, GQA 32/8 at D128.
-7. serving  - GPT-2 124M (bf16, random weights from --seed) behind the
+7. d256     - head dims 160 (padded to 256) and 256, the SIMT kernels of
+              csrc/flash_d256.cuh: K1 (and lse), the pre-pass, K2/K3 and K4
+              (int8, fp8) against their plain versions and fp32 vanilla,
+              with GQA 8/2, windows, segment ids and ragged edges.
+8. d256-path - the D256 route through the entry points: a 2-layer GPT at
+              GPT-2's width with 3 heads of 256, 4 Trainer steps at b4 x
+              T1024 (K1, the pre-pass, K2 and K3 at D256 launched n_layer x
+              steps times each, nothing at 64 / 128), then the quant op at
+              D256 over 4 layers (K4 at D256 launched 4 times).
+9. llama    - the slice: Llama-3 8B at full width and depth (32 layers,
+              4096 wide, GQA 32/8 D128, vocab 128256), bf16, random weights
+              drawn on the card from the seed, behind the engine with
+              prefill_fn=llama.prefill / decode_fn=llama.decode_step: the
+              serving burst of 16 on bf16 weights and a bf16 cache, then on
+              int4 weight-only (quantized in place) and an fp8 cache.
+              Budgets exact, ids in range, K1 launched n_layer x prefill
+              dispatches (one prompt each) and nothing else; tokens/s and
+              TTFT.  The fp8 burst's first greedy tokens each equal to the
+              argmax of llama.prefill's logits on the same bucket-padded
+              prompt, those logits against a full forward of the same
+              weights; then 4 teacher-forced decode steps of one prompt on
+              an fp8 and a bf16 cache, against each other and against full
+              recompute.
+10. llama-parity - fp32 Llama-3 8B widths at 2 layers: prefill logits
+              within 1e-3 of a full forward, 6 greedy tokens of cached
+              decode equal to full recompute; int8 / int4 weight-only
+              forwards finite, their error against fp32 printed and bounded
+              (relative L2 0.1 / 0.8), two broken int4 forwards (nibble
+              halves swapped, scales zeroed) outside the int4 bound, and
+              the JAX test's bounds (0.05 / 1.0) at its own config,
+              TINY_LLAMA.
+11. llama-train - Llama-3 8B widths and vocab at 2 layers through the
+              Trainer (bf16 compute, fp32 masters), 10 steps at b4 x T1024:
+              losses finite, the last 3 more than 0.5 nat below the first;
+              K1, the pre-pass, K2 and K3 launched n_layer x steps times.
+12. serving - GPT-2 124M (bf16, random weights from --seed) behind the
               continuous-batching engine: 16 requests, every one finishing
               with its exact budget; K1's launch count during the run
               equals n_layer x prefill dispatches.
-8. serving-quant - the same burst through an int8-cache engine decoding
+13. serving-quant - the same burst through an int8-cache engine decoding
               with attn_impl="paged" and an fp8-cache engine with "fused":
               exact budgets; K5 / K6 launched n_layer x decode steps, K1
-              n_layer x prefill dispatches; tokens/s and TTFT beside 7's.
-9. parity   - GPT-2 124M in fp32: prefill logits and 8 teacher-forced
+              n_layer x prefill dispatches; tokens/s and TTFT beside 12's.
+14. serving-wquant - the same model with int8 weight-only projections
+              (quantized in place) on an fp8 cache through K6: one prompt's
+              prefill logits within relative L2 0.05 of the bf16 model's,
+              then the burst, K6 launched n_layer x decode steps.
+15. parity  - GPT-2 124M in fp32: prefill logits and 8 teacher-forced
               decode steps against the model's forward on dense attention.
-10. parity-quant - GPT-2 124M in fp32 with an int8 cache, 8 teacher-forced
+16. parity-quant - GPT-2 124M in fp32 with an int8 cache, 8 teacher-forced
               decode steps: paged and fused logits against einsum on the
               same cache contents within 1e-3; the quantization error
               against the unquantized forward is printed.
-11. training - the port's Trainer on GPT-2 124M (bf16 compute, fp32 master
+17. training - the port's Trainer on GPT-2 124M (bf16 compute, fp32 master
               weights) for 20 steps at b8 x T1024: losses finite and
               falling by more than 1 nat; K1, the pre-pass, K2 and K3 each
               launched n_layer x steps times; step time, tokens/s, peak
               memory; then a torch.profiler trace of 3 more steps: device
               busy ms a step by kind of kernel, and the idle share.
-12. train-parity - GPT-2 124M in fp32, 5 steps at b2 x T512 on flash and on
+18. train-parity - GPT-2 124M in fp32, 5 steps at b2 x T512 on flash and on
               dense attention from the same weights and batches: losses
               within 2e-3.
-13. timing  - K1, and the backward (pre-pass, K2, K3, and the three
-              together) at b1 and b8 (D64) and b8 D128, against the plain
+19. timing  - K1 at the Llama prefill shape (b1, GQA 32/8, L1024, D128) and
+              the D256 kernels at b8 h12 L1024, beside their plain
+              versions, bounds and torch SDPA forward / backward; then K1,
+              and the backward (pre-pass, K2, K3, and the three together)
+              at b1 and b8 (D64) and b8 D128, against the plain
               versions and vanilla at GPT-2 shapes, and torch SDPA forward /
               backward as the one library call for the same function; K4 at
               b1/b8 (SDPA forward on bf16 K/V beside it, the same FLOPs but
@@ -69,14 +112,17 @@ non-zero and never prints the final `"ok": true` line:
               enqueue.  Each kernel beside its bound: the larger of its bytes
               at 3.35 TB/s and its FLOPs at 989 TFLOP/s.
 
-The line before the last is a JSON summary of the kernels (launches on the
-main path, max error, device ms, plain ms, bound ms and what sets it,
-library ms or null); the last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON summary of the kernels, the D256 ones as
+rows of their own (launches on their path, max error, device ms, plain ms,
+bound ms and what sets it, library ms or null; K1's row also carries its
+launches on the Llama path and its times at the Llama prefill shape); the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import functools
 import importlib
@@ -98,7 +144,13 @@ from flash_attention_tpu_torch.inference import InferenceEngine, init_cache  # n
 from flash_attention_tpu_torch.inference.model_runner import decode_step, prefill  # noqa: E402
 from flash_attention_tpu_torch.kernels import _build  # noqa: E402
 from flash_attention_tpu_torch.kernels.vanilla import vanilla_attention_with_lse  # noqa: E402
+from flash_attention_tpu_torch.models import llama  # noqa: E402
 from flash_attention_tpu_torch.models.gpt import GPT, GPT2_124M  # noqa: E402
+from flash_attention_tpu_torch.quant.weights import (  # noqa: E402
+    QuantizedLinear,
+    quantize_gpt_params,
+    quantize_llama_params,
+)
 from flash_attention_tpu_torch.training import Trainer, TrainerConfig  # noqa: E402
 from flash_attention_tpu_torch.utils.devices import device_info  # noqa: E402
 
@@ -118,8 +170,20 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "flash_fwd_kv_quant": ("flash_attention_tpu_torch/csrc/flash_fwd_kv_quant.cu", "flash_attention_tpu/quant/kv.py:98"),
     "paged_decode": ("flash_attention_tpu_torch/csrc/decode.cu", "flash_attention_tpu/inference/paged_attention.py:34"),
     "fused_decode": ("flash_attention_tpu_torch/csrc/decode.cu", "flash_attention_tpu/inference/decode_attention.py:195"),
+    # head dims 129-256, padded to 256: the SIMT family of flash_d256.cuh
+    # (the pre-pass is flash_bwd.cu's own, instantiated at 256)
+    "flash_fwd_d256": ("flash_attention_tpu_torch/csrc/flash_d256.cuh",
+                       "flash_attention_tpu/kernels/flash_attention.py:269"),
+    "flash_bwd_prep_d256": ("flash_attention_tpu_torch/csrc/flash_bwd.cu",
+                            "flash_attention_tpu/kernels/flash_attention.py:1112"),
+    "flash_bwd_dkv_d256": ("flash_attention_tpu_torch/csrc/flash_d256.cuh",
+                           "flash_attention_tpu/kernels/flash_attention.py:637"),
+    "flash_bwd_dq_d256": ("flash_attention_tpu_torch/csrc/flash_d256.cuh",
+                          "flash_attention_tpu/kernels/flash_attention.py:765"),
+    "flash_fwd_kv_quant_d256": ("flash_attention_tpu_torch/csrc/flash_d256.cuh", "flash_attention_tpu/quant/kv.py:98"),
 }
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd_prep", "flash_bwd_dkv", "flash_bwd_dq")
+D256_TRAINING_KERNELS = tuple(f"{k}_d256" for k in TRAINING_KERNELS)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12
 
@@ -246,6 +310,10 @@ def phase_k1(seed: int) -> float:
             worst = max(worst, err)
     check_k1("fp32 b1 h4 L384 D64", gen, 1, 4, 4, 384, 384, 64, torch.float32, True, 1e-5)
     check_k1("gqa hq8 hkv2 L384 D128 bf16", gen, 1, 8, 2, 384, 384, 128, bf16, True, 2e-2)
+    # the Llama-3 8B prefill's shape: GQA 32/8 at D128, a full bucket and a
+    # ragged prompt length
+    for L in (1024, 900):
+        check_k1(f"llama prefill b1 hq32 hkv8 L{L} D128 bf16", gen, 1, 32, 8, L, L, 128, bf16, True, 2e-2)
     check_k1("lq<lkv q128 kv384 D64 bf16", gen, 2, 12, 12, 128, 384, 64, bf16, True, 2e-2)
     check_k1("non-causal L200 D64 bf16", gen, 2, 12, 12, 200, 200, 64, bf16, False, 2e-2)
     check_k1("fp16 native b2 h12 L200 D64", gen, 2, 12, 12, 200, 200, 64, torch.float16, True, 2e-2)
@@ -392,6 +460,8 @@ def phase_k2k3(seed: int) -> dict:
         *(check_grads(f"b2 h12 L{L} D64 bf16", gen, 2, 12, 12, L, L, 64, bf16) for L in (40, 200)),
         check_grads("fp32 b1 h4 L384 D64", gen, 1, 4, 4, 384, 384, 64, f32),
         check_grads("gqa hq8 hkv2 L384 D128 bf16", gen, 1, 8, 2, 384, 384, 128, bf16),
+        # the llama-train shape
+        check_grads("llama train b4 hq32 hkv8 L1024 D128 bf16", gen, 4, 32, 8, 1024, 1024, 128, bf16),
         check_grads("lq<lkv q128 kv384 D64 bf16", gen, 2, 12, 12, 128, 384, 64, bf16),
         check_grads("non-causal L200 D64 bf16", gen, 2, 12, 12, 200, 200, 64, bf16, causal=False),
         check_grads("window 128 L512 D64 bf16", gen, 2, 12, 12, 512, 512, 64, bf16, window=128),
@@ -484,8 +554,7 @@ def phase_k4(seed: int) -> tuple[float, int]:
     # attends over them, at b8 x T1024.
     layers = [tuple(_rand(gen, (8, 12, 1024, 64), bf16) for _ in range(3)) for _ in range(12)]
     torch.cuda.synchronize()
-    for key in FA.KERNEL_LAUNCHES:
-        FA.KERNEL_LAUNCHES[key] = 0
+    _reset_launches()
     with torch.no_grad():
         outs = [QK.flash_attention_kv_quant(q, QK.quantize_kv(k, v, dtype=i8)) for q, k, v in layers]
     torch.cuda.synchronize()
@@ -630,11 +699,18 @@ def phase_decode(seed: int) -> dict:
     return {"paged_decode": max(k5), "fused_decode": max(k6)}
 
 
-def _burst(seed: int, tag: str, model: GPT, **engine_kw) -> dict:
+def _reset_launches() -> None:
+    for key in FA.KERNEL_LAUNCHES:
+        FA.KERNEL_LAUNCHES[key] = 0
+
+
+def _burst(seed: int, tag: str, model: torch.nn.Module, **engine_kw) -> dict:
     """The serving burst: 16 requests (prompt lengths 16-900, budgets 32-64, half
-    greedy, half sampled; all from `seed`) through an engine on `model`.
-    Every request must finish with its exact budget and in-range ids.
-    Returns the run's numbers and the kernels' launches during it."""
+    greedy, half sampled; all from `seed`) through an engine on `model` (a
+    GPT, or a Llama with prefill_fn / decode_fn in engine_kw).  Every
+    request must finish with its exact budget and in-range ids.  Returns the
+    run's numbers, the kernels' launches during it and each request's
+    (prompt, greedy, output) in submission order."""
     cfg = model.cfg
     rng = np.random.default_rng(seed)
     lengths = np.concatenate([
@@ -650,14 +726,14 @@ def _burst(seed: int, tag: str, model: GPT, **engine_kw) -> dict:
     eng.reset_stats()
     torch.cuda.synchronize()
 
-    for key in FA.KERNEL_LAUNCHES:
-        FA.KERNEL_LAUNCHES[key] = 0
-    reqs = []
+    _reset_launches()
+    reqs, prompts = [], []
     for i in range(16):
         kw = {}
         if i % 2:
             kw = dict(temperature=0.8, top_k=50) if i % 4 == 1 else dict(temperature=0.8, top_p=0.95)
         prompt = rng.integers(0, cfg.vocab_size, int(lengths[i])).tolist()
+        prompts.append(prompt)
         reqs.append((eng.submit(prompt, max_new_tokens=int(budgets[i]), **kw), int(budgets[i])))
     t0 = time.perf_counter()
     done = eng.run()
@@ -684,6 +760,7 @@ def _burst(seed: int, tag: str, model: GPT, **engine_kw) -> dict:
         lengths=sorted(lengths.tolist()), launches=launches, dispatches=dispatches, steps=eng.stats["decode_steps"],
         toks=toks, wall=wall, tokens_s=toks / wall, p50=statistics.median(ttft),
         p95=ttft[min(len(ttft) - 1, int(0.95 * len(ttft)))],
+        requests=[(prompt, i % 2 == 0, by_uid[uid].output) for i, (prompt, (uid, _)) in enumerate(zip(prompts, reqs))],
     )
 
 
@@ -816,8 +893,7 @@ def phase_training(seed: int, smi: str, data: np.ndarray) -> dict:
     tcfg = TrainerConfig(max_iters=steps, log_interval=1, learning_rate=6e-4, warmup_iters=5)
     trainer = Trainer(cfg, tcfg, seed=seed, device="cuda")
     batches = batch_iterator(data, batch, seq, seed=seed, device="cuda")
-    for key in FA.KERNEL_LAUNCHES:
-        FA.KERNEL_LAUNCHES[key] = 0
+    _reset_launches()
     torch.cuda.reset_peak_memory_stats()
     history = trainer.fit(batches, log=lambda line: None)
     torch.cuda.synchronize()
@@ -851,9 +927,36 @@ def phase_training(seed: int, smi: str, data: np.ndarray) -> dict:
 STEP_KINDS = (
     ("K1", re.compile(r"flash_fwd_ws_kernel")),
     ("K2/K3 + pre-pass", re.compile(r"flash_bwd_")),
-    ("cuBLAS", re.compile(r"gemm|xmma|cutlass|nvjet|cublas", re.I)),
+    ("cuBLAS", re.compile(r"gemm|gemv|xmma|cutlass|nvjet|cublas", re.I)),
     ("copies", re.compile(r"^mem(cpy|set)", re.I)),
 )
+
+
+def _device_time(prof, steps: int) -> tuple[float, dict, dict] | None:
+    """From a torch.profiler run over `steps` steps: device-busy ms a step
+    (the union of the device's kernel and copy intervals), ms a step by kind
+    (STEP_KINDS) and by kernel name; None when no device event was
+    recorded.  Device-side copies of CPU ranges (user annotations such as
+    the optimizer step's) span kernels and gaps, so only kernels, copies and
+    sets count."""
+    from torch.autograd import DeviceType
+
+    cpu_names = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in cpu_names]
+    if not dev:
+        return None
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):  # the union of the intervals, in us
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    kinds = {name: 0.0 for name, _ in STEP_KINDS}
+    kinds["elementwise and other"] = 0.0
+    top: dict[str, float] = {}
+    for e in dev:
+        ms = (e.time_range.end - e.time_range.start) / 1e3 / steps
+        kinds[next((name for name, rx in STEP_KINDS if rx.search(e.name)), "elementwise and other")] += ms
+        top[e.name] = top.get(e.name, 0.0) + ms
+    return busy / 1e3 / steps, kinds, top
 
 
 def _trace_steps(trainer: Trainer, batches, smi: str, step_ms: float, steps: int = 3) -> dict:
@@ -863,7 +966,6 @@ def _trace_steps(trainer: Trainer, batches, smi: str, step_ms: float, steps: int
     the untraced median step `step_ms` (the profiler's own host time
     lengthens the traced steps' wall time, printed beside it).  Prints them
     and returns them (an empty dict when no device event was recorded)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     trainer.tcfg.max_iters = trainer.step + steps
@@ -873,35 +975,18 @@ def _trace_steps(trainer: Trainer, batches, smi: str, step_ms: float, steps: int
         trainer.fit(batches, log=lambda line: None)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    # device-side copies of CPU ranges (user annotations such as the
-    # optimizer step's) span kernels and gaps: only kernels, copies and sets
-    cpu_names = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in cpu_names]
-    if not dev:
+    found = _device_time(prof, steps)
+    if found is None:
         say(f"[training] trace: torch.profiler recorded no device events over {steps} steps ({wall:.2f} ms a step)")
         return {}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:  # the union of the intervals, in us
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    kinds = {name: 0.0 for name, _ in STEP_KINDS}
-    kinds["elementwise and other"] = 0.0
-    top: dict[str, float] = {}
-    for e in dev:
-        us = e.time_range.end - e.time_range.start
-        kind = next((name for name, rx in STEP_KINDS if rx.search(e.name)), "elementwise and other")
-        kinds[kind] += us
-        top[e.name] = top.get(e.name, 0.0) + us
-    busy_ms = busy / 1e3 / steps
+    busy_ms, kinds, top = found
     say(f"[training] {smi} | trace of {steps} steps after {trainer.step - steps}: device busy {busy_ms:.2f} ms a "
         f"step, idle share {1 - busy_ms / step_ms:.1%} of the untraced median step {step_ms:.2f} ms (traced wall "
-        f"{wall:.2f} ms a step); by kind, ms a step: "
-        + ", ".join(f"{k} {v / 1e3 / steps:.3f}" for k, v in kinds.items()))
+        f"{wall:.2f} ms a step); by kind, ms a step: " + ", ".join(f"{k} {v:.3f}" for k, v in kinds.items()))
     say("[training] trace: longest kernels, ms a step: " + "; ".join(
-        f"{name[:60]} {us / 1e3 / steps:.3f}" for name, us in sorted(top.items(), key=lambda x: -x[1])[:8]))
+        f"{name[:60]} {ms:.3f}" for name, ms in sorted(top.items(), key=lambda x: -x[1])[:8]))
     return dict(device_busy_ms=busy_ms, idle_share=1 - busy_ms / step_ms, traced_wall_ms=wall,
-                kernel_ms_by_kind={k: v / 1e3 / steps for k, v in kinds.items()})
+                kernel_ms_by_kind=kinds)
 
 
 def phase_train_parity(seed: int, data: np.ndarray) -> None:
@@ -1179,6 +1264,552 @@ def time_decode(gen: torch.Generator, smi: str, shape: tuple, store: str) -> dic
     return res
 
 
+# ---------------------------------------------------------------------------
+# Head dims 129-256 (csrc/flash_d256.cuh)
+# ---------------------------------------------------------------------------
+
+
+def phase_d256(seed: int) -> dict:
+    """K1, the pre-pass, K2/K3 and K4 at head dims 160 (padded to 256) and
+    256 against their plain versions and fp32 vanilla, with GQA 8/2, a
+    window, segment ids, the tiles' ragged edges and K4 on int8 and fp8;
+    returns each D256 kernel's worst error against its plain version."""
+    gen = torch.Generator().manual_seed(seed + 9)
+    bf16, f16, f32, i8, f8 = torch.bfloat16, torch.float16, torch.float32, torch.int8, torch.float8_e4m3fn
+    say("[d256] head dims 160 (zero-padded to 256) and 256: the SIMT kernels of flash_d256.cuh, tolerances as at "
+        "64 / 128")
+    fwd = [
+        check_k1("d256 gqa 8/2 q129 kv257 window 100 bf16", gen, 2, 8, 2, 129, 257, 256, bf16, True, 2e-2, window=100),
+        check_k1("d256 b2 h12 L1024 3 segments bf16", gen, 2, 12, 12, 1024, 1024, 256, bf16, True, 2e-2,
+                 segments=True),
+        check_k1("d160 gqa 8/2 L384 window 100 fp16", gen, 1, 8, 2, 384, 384, 160, f16, True, 2e-2, window=100),
+        check_k1("d160 fp32 b1 h4 L300 3 segments", gen, 1, 4, 4, 300, 300, 160, f32, True, 1e-5, segments=True),
+        check_k1("d256 fp32 non-causal q200 kv300", gen, 1, 4, 2, 200, 300, 256, f32, False, 1e-5),
+    ]
+    for d in (160, 256):
+        q, k, v = (_rand(gen, (1, 4, 300, d), f32) for _ in range(3))
+        with torch.no_grad():
+            out, lse = FA.flash_attention_with_lse(q, k, v)
+            d_out, d_lse = vanilla_attention_with_lse(q, k, v, sm_scale=d ** -0.5)
+        torch.cuda.synchronize()
+        e = max((out - d_out).abs().max().item(), (lse - d_lse).abs().max().item())
+        say(f"[d256] lse fp32 b1 h4 L300 D{d}: out and lse vs vanilla {e:.3e} atol 1e-05 {'ok' if e <= 1e-5 else 'FAIL'}")
+        if e > 1e-5 or out.shape != q.shape:
+            raise AssertionError("[d256] lse outside tolerance")
+    prep = [check_prep("d256 b2 h12 L1024 bf16", gen, 2, 12, 1024, 256, bf16, with_lse=True),
+            check_prep("d256 fp32 b1 h4 L300", gen, 1, 4, 300, 256, f32)]
+    grads = [
+        check_grads("d256 gqa 8/2 q129 kv257 w100 bf16", gen, 2, 8, 2, 129, 257, 256, bf16, window=100),
+        check_grads("d256 b1 h4 L512 3 segments bf16", gen, 1, 4, 4, 512, 512, 256, bf16, segments=True),
+        check_grads("d160 gqa 8/2 L300 fp16", gen, 1, 8, 2, 300, 300, 160, f16),
+        check_grads("d160 fp32 gqa 4/2 L200 window 64", gen, 1, 4, 2, 200, 200, 160, f32, window=64),
+        check_grads("d256 lse cotangent fp32 b1 h4 L300", gen, 1, 4, 2, 300, 300, 256, f32, with_lse=True),
+        check_grads("d256 no-key rows fp32 q300 kv200", gen, 1, 4, 4, 300, 200, 256, f32, no_key_rows=100),
+    ]
+    k4 = [
+        check_k4("d256 gqa 8/2 L1024 bf16 int8 window 256", gen, 1, 8, 2, 1024, 1024, 256, bf16, i8, 2e-2,
+                 window=256),
+        check_k4("d256 b2 h4 L300 bf16 fp8 3 segments", gen, 2, 4, 4, 300, 300, 256, bf16, f8, 2e-2, segments=True),
+        check_k4("d160 lk%4=3 q1023 gqa 8/2 fp16 fp8", gen, 1, 8, 2, 1023, 1023, 160, f16, f8, 2e-2),
+        check_k4("d256 fp32 b1 h4 L384 int8", gen, 1, 4, 4, 384, 384, 256, f32, i8, 5e-5),
+        check_k4("d160 fp32 gqa 4/2 L300 fp8 window 100", gen, 1, 4, 2, 300, 300, 160, f32, f8, 5e-5, window=100),
+    ]
+    return {
+        "flash_fwd_d256": max(fwd), "flash_bwd_prep_d256": max(prep),
+        "flash_bwd_dkv_d256": max(max(r["dk"], r["dv"]) for r in grads),
+        "flash_bwd_dq_d256": max(r["dq"] for r in grads), "flash_fwd_kv_quant_d256": max(k4),
+    }
+
+
+def phase_d256_path(seed: int, data: np.ndarray) -> dict:
+    """The D256 route through the entry points: a GPT at GPT-2's width with
+    3 heads of 256 (the head dim of Gemma-7B), 2 layers, trained 4 steps
+    at b4 x T1024 by the port's Trainer, which must launch K1, the pre-pass,
+    K2 and K3 at D256 n_layer x steps times each and nothing at 64 / 128;
+    then quantize_kv + flash_attention_kv_quant over 4 layers at b4 h3
+    T1024 D256 (int8 and fp8), which must launch K4 at D256 4 times.
+    Returns the launches."""
+    cfg = dataclasses.replace(GPT2_124M, n_layer=2, n_head=3)
+    steps = 4
+    tcfg = TrainerConfig(max_iters=steps, log_interval=1, learning_rate=6e-4, warmup_iters=1)
+    trainer = Trainer(cfg, tcfg, seed=seed, device="cuda")
+    batches = batch_iterator(data, 4, 1024, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    history = trainer.fit(batches, log=lambda line: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(FA.KERNEL_LAUNCHES)
+    losses = [r["train_loss"] for r in history]
+    want = cfg.n_layer * steps
+    others = {k: n for k, n in launches.items() if k not in D256_TRAINING_KERNELS and n}
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"[d256-path] losses {losses}")
+    if any(launches[k] != want for k in D256_TRAINING_KERNELS) or others:
+        raise AssertionError(f"[d256-path] launches {launches}, want {want} of each D256 training kernel only")
+    say(f"[d256-path] GPT width {cfg.n_embd}, {cfg.n_head} heads of D{cfg.head_dim}, {cfg.n_layer} layers, "
+        f"{steps} Trainer steps at b4 x T1024 in {wall:.2f} s: losses {' '.join(f'{x:.3f}' for x in losses)}; "
+        f"launches { {k: launches[k] for k in D256_TRAINING_KERNELS} } = {cfg.n_layer} layers x {steps} steps each")
+    gen = torch.Generator().manual_seed(seed + 10)
+    layers = [tuple(_rand(gen, (4, 3, 1024, 256), torch.bfloat16) for _ in range(3)) for _ in range(4)]
+    torch.cuda.synchronize()
+    _reset_launches()
+    with torch.no_grad():
+        outs = [QK.flash_attention_kv_quant(q, QK.quantize_kv(k, v, dtype=(torch.int8, torch.float8_e4m3fn)[i % 2]))
+                for i, (q, k, v) in enumerate(layers)]
+    torch.cuda.synchronize()
+    n4 = FA.KERNEL_LAUNCHES["flash_fwd_kv_quant_d256"]
+    others = {k: n for k, n in FA.KERNEL_LAUNCHES.items() if k != "flash_fwd_kv_quant_d256" and n}
+    if n4 != 4 or others or not all(torch.isfinite(o).all() for o in outs):
+        raise AssertionError(f"[d256-path] quant op path: {n4} K4 launches of 4 (others {others}), or bad outputs")
+    say(f"[d256-path] quant op path, 4 layers at b4 h3 T1024 D256 bf16 (int8, fp8): flash_fwd_kv_quant_d256 "
+        f"launches {n4}, outputs finite")
+    launches["flash_fwd_kv_quant_d256"] = n4
+    return {k: launches[k] for k in (*D256_TRAINING_KERNELS, "flash_fwd_kv_quant_d256")}
+
+
+# ---------------------------------------------------------------------------
+# The Llama slice
+# ---------------------------------------------------------------------------
+
+
+def _llama3_8b(seed: int) -> llama.Llama:
+    cfg = llama.LLAMA3_8B
+    t0 = time.perf_counter()
+    model = llama.Llama(cfg, generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    say(f"[llama] Llama-3 8B: {cfg.dtype} weights, vocab {cfg.vocab_size}, {cfg.n_layer} layers, heads "
+        f"{cfg.n_head}/{cfg.n_kv_head} (GQA group {cfg.n_head // cfg.n_kv_head}) of D{cfg.head_dim}, width "
+        f"{cfg.n_embd}, MLP {cfg.intermediate}: {llama.num_params(model) / 1e9:.3f} B parameters drawn on the card "
+        f"(seed {seed}) in {time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    return model
+
+
+def _trace_llama_decode(model: llama.Llama, smi: str, label: str, cache_dtype=None, steps: int = 4) -> dict:
+    """torch.profiler over `steps` Llama decode steps at the bursts' shape (8
+    slots, max_len 1024, every slot at length 512, greedy tokens fed back)
+    after 4 untraced ones: device-busy ms a step (the union of kernel and
+    copy intervals), that time by kind of kernel, the longest kernels, and
+    the idle share of the untraced step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = model.cfg
+    cache = init_cache(cfg.n_layer, 8, cfg.n_kv_head, 1024, cfg.head_dim, dtype=cfg.dtype, quant_dtype=cache_dtype,
+                       device="cuda")
+    toks = torch.zeros(8, dtype=torch.int32, device="cuda")
+
+    def run(n):
+        nonlocal toks
+        for _ in range(n):
+            cache.lengths.fill_(512)
+            toks = llama.decode_step(model, toks, cache)[1].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+
+    run(4)
+    t0 = time.perf_counter()
+    run(steps)
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(steps)
+    found = _device_time(prof, steps)
+    if found is None:
+        say(f"[llama] trace: torch.profiler recorded no device events ({label})")
+        return {}
+    busy_ms, kinds, top = found
+    say(f"[llama] {smi} | decode step trace, {label}, 8 slots at length 512: wall {wall:.2f} ms a step untraced, "
+        f"device busy {busy_ms:.2f} ms (idle share {1 - busy_ms / wall:.1%}); by kind, ms a step: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in kinds.items())
+        + "; longest: " + "; ".join(f"{n[:50]} {ms:.3f}" for n, ms in sorted(top.items(), key=lambda x: -x[1])[:5]))
+    return dict(wall_ms=wall, busy_ms=busy_ms, kinds=kinds)
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Relative L2 error of a against b."""
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+# Bounds of the fp8 burst's checks.  Logits, relative L2 in fp32: the
+# engine's prefill and a full forward of the same bucket-padded prompt run
+# the same kernels on the same shapes but for the LM head (one row against
+# all), a bf16 ulp of a logit at most.  Every other logit comparison takes
+# other matmul shapes (the unpadded forward, decode against recompute) or
+# another cache through 32 layers of random weights, which spread a bf16
+# ulp to a few percent (0.04-0.05 on an H100 for prompts whose unpadded
+# forward takes other GEMM kernels; decode against recompute 0.06), and
+# the fp8 cache's rounding, a few percent of each K/V element at every
+# layer, spreads the same way (0.26-0.35 against a bf16 cache); logits of
+# the wrong position read about 1.4.  So the fp8 cache is checked layer by
+# layer as well: every K/V element stored by prefill (and, in layer 0,
+# whose input is the same on both caches, by the first decode step)
+# within half an e4m3 step of its bf16 value (at most
+# 16 / 448 of its row's amax, which a bf16 value on a midpoint of the top
+# step reaches; 1e-3 more for the fp32 rounding of the scale and of the
+# check itself), and decode's attention over the cache
+# against fp32 attention over the dequantized rows (bf16 probabilities:
+# a few 1e-3).
+LLAMA_PREFILL_VS_PADDED_FORWARD = 0.01
+LLAMA_OTHER_SHAPES = 0.25
+LLAMA_FP8_VS_BF16_CACHE = 0.5
+LLAMA_FP8_WRITE = 16 / 448 * 1.001
+LLAMA_FP8_READ = 0.01
+
+
+def _check_llama_fp8(model: llama.Llama, fp8: dict, steps: int = 4) -> None:
+    """The fp8 burst against the same (int4) weights.  Each greedy request's
+    first token must be the argmax of llama.prefill's fp32 logits on its
+    prompt padded to the engine's bucket (the same call the engine makes),
+    and those logits agree with a full forward of the padded prompt (and,
+    within the spread of bf16 rounding, of the unpadded one).  The first
+    token reads no cache, so one prompt is then prefilled into an fp8 and a
+    bf16 cache: their stored K/V compared (every layer's prompt rows, layer
+    0's first decoded row), `steps` tokens decoded
+    teacher-forced (its own output fed back) on both and against full
+    recompute, and every layer's decode attention over the fp8 cache
+    against fp32 attention over its dequantized rows."""
+    cfg = model.cfg
+    greedy = [(prompt, out) for prompt, is_greedy, out in fp8["requests"] if is_greedy]
+
+    def padded(prompt):
+        n = len(prompt)
+        toks = torch.full((min(1024, max(64, 1 << (n - 1).bit_length())),), prompt[-1], device="cuda")
+        toks[:n] = torch.as_tensor(prompt, device="cuda")
+        return toks
+
+    def prefilled(prompt, quant_dtype):
+        cache = init_cache(cfg.n_layer, 1, cfg.n_kv_head, 1024, cfg.head_dim, dtype=cfg.dtype,
+                           quant_dtype=quant_dtype, device="cuda")
+        return llama.prefill(model, padded(prompt), cache, 0, len(prompt))
+
+    def forward(seq, pos=-1):
+        return model(torch.as_tensor(seq, device="cuda")[None])[0, pos].float()
+
+    same, other = [], []
+    with torch.no_grad():
+        for prompt, out in greedy:
+            logits = prefilled(prompt, torch.float8_e4m3fn)[1]
+            if out[0] != int(logits.argmax()):
+                raise AssertionError(f"[llama] first token {out[0]} is not the argmax {int(logits.argmax())} of "
+                                     f"llama.prefill's logits on the same prompt")
+            same.append(_rel(logits, forward(padded(prompt), len(prompt) - 1)))
+            other.append(_rel(logits, forward(prompt)))
+    ok = max(same) <= LLAMA_PREFILL_VS_PADDED_FORWARD and max(other) <= LLAMA_OTHER_SHAPES
+    say(f"[llama] fp8 burst, {len(greedy)} greedy requests: first token = argmax of llama.prefill's logits on the "
+        f"bucket-padded prompt on all; those logits vs a full forward of the same int4 weights, relative L2: padded "
+        f"{' '.join(f'{r:.4f}' for r in same)} (bound {LLAMA_PREFILL_VS_PADDED_FORWARD}), unpadded "
+        f"{' '.join(f'{r:.4f}' for r in other)} (bound {LLAMA_OTHER_SHAPES}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[llama] prefill logits disagree with the full forward")
+
+    prompt, out = min(greedy, key=lambda r: abs(len(r[0]) - 512))
+    n = len(prompt)
+    (c8, _), (c16, _) = prefilled(prompt, torch.float8_e4m3fn), prefilled(prompt, None)
+
+    def write_error(layers, lo, hi):
+        """Worst |stored fp8 K/V - bf16 cache's| / row amax over rows [lo, hi)."""
+        worst = 0.0
+        for pay, scale, ref in ((c8.k, c8.k_scale, c16.k), (c8.v, c8.v_scale, c16.v)):
+            ref = ref[layers, :, 0, lo:hi].float()  # [layers, head, rows, D]
+            err = (pay[layers, :, 0, lo:hi].float() * scale[layers, :, 0, lo:hi, None] - ref).abs()
+            worst = max(worst, (err / ref.abs().amax(-1, keepdim=True)).max().item())
+        return worst
+
+    write = write_error(slice(None), 0, n)
+    r16, r8 = [], []
+    with torch.no_grad():
+        for i in range(steps):
+            tok = torch.tensor([out[i]], dtype=torch.int32, device="cuda")
+            c16, l16 = llama.decode_step(model, tok, c16)
+            c8, l8 = llama.decode_step(model, tok, c8)
+            if i == 0:
+                write = max(write, write_error(slice(0, 1), n, n + 1))
+            r16.append(_rel(l16[0], forward(prompt + out[:i + 1])))
+            r8.append(_rel(l8[0], l16[0]))
+        # decode attention of every layer over the fp8 cache as decode_step
+        # reads it: lengths + 1 rows, GQA 32/8
+        q = _rand(torch.Generator().manual_seed(n), (1, cfg.n_head, cfg.head_dim), cfg.dtype)
+        rows = int(c8.lengths[0]) + 1
+        read = 0.0
+        for li in range(cfg.n_layer):
+            k, v = ((pay[li, :, 0, :rows].float() * scale[li, :, 0, :rows, None]).repeat_interleave(
+                cfg.n_head // cfg.n_kv_head, 0) for pay, scale in ((c8.k, c8.k_scale), (c8.v, c8.v_scale)))
+            p = torch.softmax(torch.einsum("hd,hld->hl", q[0].float(), k) * cfg.head_dim ** -0.5, -1)
+            read = max(read, _rel(DA.decode_attention(q, c8, li)[0], torch.einsum("hl,hld->hd", p, v)))
+    ok = (write <= LLAMA_FP8_WRITE and read <= LLAMA_FP8_READ and max(r16) <= LLAMA_OTHER_SHAPES
+          and max(r8) <= LLAMA_FP8_VS_BF16_CACHE)
+    say(f"[llama] fp8 cache of a {n}-token prompt, int4 weights, {cfg.n_layer} layers: stored K/V vs the bf16 "
+        f"cache's, worst error / row amax {write:.6f} (bound 16/448 + 0.1%, {LLAMA_FP8_WRITE:.6f}); decode attention over "
+        f"{rows} rows vs fp32 attention on the dequantized rows, worst relative L2 {read:.2e} (bound "
+        f"{LLAMA_FP8_READ}); {steps} teacher-forced decode steps, relative L2: bf16 cache vs full recompute "
+        f"{' '.join(f'{r:.4f}' for r in r16)} (bound {LLAMA_OTHER_SHAPES}), fp8 cache vs bf16 cache "
+        f"{' '.join(f'{r:.4f}' for r in r8)} (bound {LLAMA_FP8_VS_BF16_CACHE}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[llama] the fp8 cache or decode over it outside its bounds")
+
+
+def phase_llama(seed: int, smi: str) -> dict:
+    """The slice's path: Llama-3 8B at full width and depth behind the
+    engine (prefill_fn=llama.prefill, decode_fn=llama.decode_step), the
+    serving burst twice: bf16 weights on a bf16 cache, then int4
+    weight-only (quantized in place) on an fp8 cache, each followed by a
+    profiler trace of its decode step.  K1 launched n_layer x prefill
+    dispatches (one prompt each), nothing else (decode is the einsum).  The
+    fp8 burst is then checked against the same int4 model
+    (_check_llama_fp8).  Returns K1's launches in each burst."""
+    model = _llama3_8b(seed)
+    cfg = model.cfg
+    kw = dict(prefill_fn=llama.prefill, decode_fn=llama.decode_step)
+    runs = {}
+    for name, cache in (("bf16 weights, bf16 cache", None), ("int4 weights, fp8 cache", torch.float8_e4m3fn)):
+        if cache is not None:
+            t0 = time.perf_counter()
+            quantize_llama_params(model, bits=4)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            say(f"[llama] int4 weight-only (split-halves packing, per-channel scales) of every projection and the LM "
+                f"head in {time.perf_counter() - t0:.1f} s: {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+        r = _burst(seed, "llama", model, kv_quant_dtype=cache, **kw)
+        others = {k: n for k, n in r["launches"].items() if k != "flash_fwd" and n}
+        if r["dispatches"] != 16 or others:
+            raise AssertionError(f"[llama] {r['dispatches']} prefill dispatches of 16, other kernels {others}")
+        runs[name] = r
+        _trace_llama_decode(model, smi, name, cache)
+        say(f"[llama] {name}: 16/16 requests finished with their exact budgets, ids in range; flash_fwd (K1, GQA "
+            f"{cfg.n_head}/{cfg.n_kv_head} D{cfg.head_dim}) launches {r['launches']['flash_fwd']} = {cfg.n_layer} "
+            f"layers x {r['dispatches']} prefill dispatches; prompt lengths {r['lengths']}")
+        say(f"[llama] {smi} | {name}: {r['toks']} tokens in {r['wall']:.3f} s wall: {r['tokens_s']:.1f} tokens/s, "
+            f"TTFT p50 {r['p50'] * 1e3:.1f} ms p95 {r['p95'] * 1e3:.1f} ms, decode steps {r['steps']}, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    _check_llama_fp8(model, runs["int4 weights, fp8 cache"])
+    del model
+    torch.cuda.empty_cache()
+    return {name: r["launches"]["flash_fwd"] for name, r in runs.items()}
+
+
+def phase_llama_parity(seed: int) -> None:
+    """fp32 Llama-3 8B widths at 2 layers: prefill logits against a full
+    forward (1e-3); 6 greedy tokens of cached decode equal full recompute;
+    int8 / int4 weight-only forwards finite, against fp32 (printed; bounded
+    between the readings of random weights at this width and those of two
+    broken int4 forwards, which must fail it), and held to the JAX test's
+    bounds (0.05 / 1.0) at its own config, TINY_LLAMA."""
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layer=2, dtype=torch.float32)
+    model = llama.Llama(cfg, generator=torch.Generator(device="cuda").manual_seed(seed + 1), device="cuda")
+    rng = np.random.default_rng(seed + 1)
+    prompt = rng.integers(0, cfg.vocab_size, 300).tolist()
+    with torch.no_grad():
+        ref = model(torch.as_tensor(prompt, device="cuda")[None])[0, -1]
+        cache = init_cache(cfg.n_layer, 1, cfg.n_kv_head, 1024, cfg.head_dim, dtype=cfg.dtype, device="cuda")
+        cache, logits = llama.prefill(model, torch.as_tensor(prompt, device="cuda"), cache, 0)
+        e_prefill = (logits - ref).abs().max().item()
+        cached = [int(logits.argmax())]
+        for _ in range(5):
+            cache, lg = llama.decode_step(model, torch.tensor([cached[-1]], dtype=torch.int32, device="cuda"), cache)
+            cached.append(int(lg[0].argmax()))
+        seq = list(prompt)
+        for _ in range(6):
+            seq.append(int(model(torch.as_tensor(seq, device="cuda")[None])[0, -1].argmax()))
+    torch.cuda.synchronize()
+    ok = e_prefill <= 1e-3 and cached == seq[len(prompt):]
+    say(f"[llama-parity] fp32 Llama-3 8B widths, 2 layers, prompt 300: prefill logits vs full forward "
+        f"{e_prefill:.3e} (atol 1e-3); 6 greedy tokens of cached decode {cached} vs full recompute "
+        f"{seq[len(prompt):]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[llama-parity] cached path disagrees with full recompute")
+    # int8 / int4: copies of the fp32 model quantized in place.  Bounds on
+    # the logits' relative L2, above the readings of random weights at this
+    # width (0.041 / 0.674 on the H100) and, for int4, below those of the two
+    # broken int4 forwards checked after it: an all-zero forward reads 1.0
+    idx = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 32)), device="cuda")
+    bounds = {8: 0.1, 4: 0.8}
+    parts = []
+
+    def broken(q, how):
+        """A copy of the int4 model q with every packed byte's nibble halves
+        swapped, or every scale zeroed."""
+        q = copy.deepcopy(q)
+        for m in q.modules():
+            if isinstance(m, QuantizedLinear):
+                if how == "nibble halves swapped":
+                    m.values.copy_(((m.values & 0x0F) << 4) | ((m.values >> 4) & 0x0F))
+                else:
+                    m.scales.zero_()
+        return q
+
+    with torch.no_grad():
+        ref = model(idx)
+        for bits in (8, 4):
+            q = quantize_llama_params(copy.deepcopy(model), bits=bits)
+            out = q(idx)
+            rel = _rel(out, ref)
+            ok = bool(torch.isfinite(out).all()) and rel <= bounds[bits]
+            parts.append(f"int{bits} max |err| {(out - ref).abs().max().item():.3f}, relative L2 {rel:.3f} "
+                         f"(bound {bounds[bits]}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"[llama-parity] int{bits} forward outside its bound")
+        for how in ("nibble halves swapped", "scales zeroed"):
+            rel = _rel(broken(q, how)(idx), ref)
+            caught = rel > bounds[4]
+            parts.append(f"int4 with {how} relative L2 {rel:.3f} ({'outside' if caught else 'INSIDE'} the bound)")
+            if not caught:
+                raise AssertionError(f"[llama-parity] an int4 forward with {how} passes the int4 bound")
+        del q
+    del model
+    torch.cuda.empty_cache()
+    tiny = llama.Llama(llama.TINY_LLAMA, generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    idx = torch.as_tensor(rng.integers(0, tiny.cfg.vocab_size, (1, 32)), device="cuda")
+    with torch.no_grad():
+        ref = tiny(idx)
+        for bits, tol in ((8, 0.05), (4, 1.0)):
+            err = (quantize_llama_params(copy.deepcopy(tiny), bits=bits)(idx) - ref).abs().max().item()
+            parts.append(f"TINY_LLAMA int{bits} max |err| {err:.4f} (the JAX test's bound {tol}) "
+                         f"{'ok' if err < tol else 'FAIL'}")
+            if not err < tol:
+                raise AssertionError(f"[llama-parity] TINY_LLAMA int{bits} outside the JAX test's bound")
+    say("[llama-parity] weight-only vs fp32 logits, 32 tokens: " + "; ".join(parts))
+
+
+def phase_llama_train(seed: int, smi: str, data: np.ndarray) -> dict:
+    """Llama-3 8B's width and vocab at 2 layers through the port's Trainer
+    (bf16 compute, fp32 master weights drawn on the card): 10 steps at
+    b4 x T1024, losses finite and falling; K1, the pre-pass, K2 and K3
+    launched n_layer x steps times each.  Returns the launches."""
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layer=2)
+    steps = 10
+    tcfg = TrainerConfig(max_iters=steps, log_interval=1, learning_rate=6e-4, warmup_iters=2)
+    trainer = Trainer(cfg, tcfg, seed=seed, device="cuda")
+    batches = batch_iterator(data, 4, 1024, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    history = trainer.fit(batches, log=lambda line: None)
+    torch.cuda.synchronize()
+    launches = dict(FA.KERNEL_LAUNCHES)
+    losses = [r["train_loss"] for r in history]
+    say(f"[llama-train] Llama-3 8B widths (vocab {cfg.vocab_size}, width {cfg.n_embd}, GQA "
+        f"{cfg.n_head}/{cfg.n_kv_head} D{cfg.head_dim}), {cfg.n_layer} layers, bf16 compute, fp32 master weights; "
+        f"synthetic_corpus char ids at b4 x T1024, {steps} steps: losses {' '.join(f'{x:.3f}' for x in losses)}")
+    ok = len(losses) == steps and all(np.isfinite(losses)) and float(np.mean(losses[-3:])) < losses[0] - 0.5
+    if not ok:
+        raise AssertionError("[llama-train] losses not finite, or the last 3 not 0.5 nat below the first")
+    want = cfg.n_layer * steps
+    for key in TRAINING_KERNELS:
+        if launches[key] != want:
+            raise AssertionError(f"[llama-train] {key} launched {launches[key]} times, want {want}")
+    step_ms = np.diff([0.0] + [r["wall_s"] for r in history]) * 1e3
+    med = float(np.median(step_ms[2:]))
+    say(f"[llama-train] mean of the last 3 losses {np.mean(losses[-3:]):.3f} < first {losses[0]:.3f} - 0.5: ok; "
+        f"launches { {k: launches[k] for k in TRAINING_KERNELS} } = {cfg.n_layer} layers x {steps} steps each")
+    say(f"[llama-train] {smi} | step {med:.2f} ms (median of steps 3-{steps}), {4 * 1024 / med * 1e3:.0f} tokens/s, "
+        f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del trainer
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in TRAINING_KERNELS}
+
+
+def phase_serving_wquant(seed: int, model: GPT, smi: str) -> int:
+    """GPT-2 124M with int8 weight-only projections (quantized in place) on
+    an fp8 cache decoding through K6: one prompt's prefill logits against
+    the bf16 model's within the quantization's error (relative L2 <= 0.05:
+    int8 per-channel rounding puts about 1-2% relative noise on each
+    product), then the serving burst, K6 launched n_layer x decode steps.
+    Returns K6's launches."""
+    cfg = model.cfg
+    prompt = torch.as_tensor(np.random.default_rng(seed + 11).integers(0, cfg.vocab_size, 300), device="cuda")
+
+    def logits():
+        cache = init_cache(cfg.n_layer, 1, cfg.kv_heads, 1024, cfg.head_dim, dtype=cfg.dtype, device="cuda")
+        return prefill(model, prompt, cache, 0)[1]
+
+    ref = logits()
+    quantize_gpt_params(model, bits=8)
+    out = logits()
+    rel = ((out - ref).norm() / ref.norm()).item()
+    ok = rel <= 0.05 and bool(torch.isfinite(out).all())
+    say(f"[serving-wquant] GPT-2 124M int8 weight-only (wqkv, wo, wfc, wproj): prefill logits of a 300-token prompt "
+        f"vs the bf16 model: max |err| {(out - ref).abs().max().item():.4f}, relative L2 {rel:.4f} (bound 0.05), "
+        f"argmax {'equal' if int(out.argmax()) == int(ref.argmax()) else 'differs'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[serving-wquant] int8 logits outside the quantization's error")
+    r = _burst(seed, "serving-wquant", model, kv_quant_dtype=torch.float8_e4m3fn,
+               decode_fn=functools.partial(decode_step, attn_impl="fused"))
+    want = cfg.n_layer * r["steps"]
+    got = r["launches"]["fused_decode"]
+    others = {k: v for k, v in r["launches"].items() if k not in ("fused_decode", "flash_fwd") and v}
+    if got != want or others:
+        raise AssertionError(f"[serving-wquant] fused_decode launched {got} times, want {want}; others {others}")
+    say(f"[serving-wquant] int8 weights, fp8 cache, attn_impl=fused: 16/16 requests finished with their exact "
+        f"budgets; fused_decode launches {got} = {cfg.n_layer} layers x {r['steps']} decode steps, flash_fwd "
+        f"{r['launches']['flash_fwd']} = {cfg.n_layer} x {r['dispatches']} prefill dispatches")
+    say(f"[serving-wquant] {smi} | {r['tokens_s']:.1f} tokens/s, TTFT p50 {r['p50'] * 1e3:.1f} ms p95 "
+        f"{r['p95'] * 1e3:.1f} ms")
+    return got
+
+
+def phase_timing_llama_d256(seed: int, smi: str) -> dict:
+    """K1 at the Llama prefill shape (b1, GQA 32/8, L1024, D128, bf16), and
+    the D256 kernels at b8 h12 L1024 bf16 (K4 on int8 K/V), each as device
+    time (graph_ms) beside its plain version, its bound and torch SDPA's
+    forward / backward at the same shape.  Returns {"llama": K1's row,
+    kernel: row} for the D256 kernels."""
+    gen = torch.Generator().manual_seed(seed + 12)
+    bf16 = torch.bfloat16
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, is_causal=True)
+    result = {}
+    q = _rand(gen, (1, 32, 1024, 128), bf16)
+    k, v = (_rand(gen, (1, 8, 1024, 128), bf16) for _ in range(2))
+    flops = 4 * 32 * 1024 * 1024 * 128 / 2
+    with torch.no_grad():
+        kern = graph_ms(lambda: FA.flash_attention(q, k, v))
+        plain = graph_ms(lambda: FA.flash_attention_reference(q, k, v), calls=2, runs=5)
+        lib = graph_ms(lambda: sdpa(q, k, v, enable_gqa=True))
+    bound, by = _floor_ms((2 * 32 + 2 * 8) * 1024 * 128 * 2, flops)
+    say(f"[timing] {smi} | K1 llama prefill b1 hq32 hkv8 L1024 D128 bf16 causal: kernel {kern:.4f} ms on the device "
+        f"({flops / kern / 1e9:.1f} TFLOP/s, {bound / kern:.1%} of the bound {bound:.4f} ms, {by}); plain tile loop "
+        f"{plain:.4f} ms; library torch SDPA forward (enable_gqa) {lib:.4f} ms (K1 / SDPA {kern / lib:.2f}x)")
+    result["llama"] = dict(ms=kern, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib)
+
+    b, h, L, d = 8, 12, 1024, 256
+    q, k, v, do = (_rand(gen, (b, h, L, d), bf16) for _ in range(4))
+    elems, rows = b * h * L * d, b * h * L
+    flops = 4 * b * h * L * L * d / 2
+    with torch.no_grad():
+        f_ms = graph_ms(lambda: FA.flash_attention(q, k, v), calls=5, runs=5)
+        f_plain = graph_ms(lambda: FA.flash_attention_reference(q, k, v), calls=1, runs=3)
+        f_lib = graph_ms(lambda: sdpa(q, k, v))
+        o, lse = FA.flash_attention_with_lse(q, k, v)
+    spec = FA._Spec(causal=True, sm_scale=d ** -0.5, window=None, blocks=FA.default_blocks(L, L, d))
+    args = FA._bwd_args(q, k, v, o, lse, do, None, spec, None)
+    FA._launch_bwd_prep(args)
+    pre = graph_ms(lambda: FA._launch_bwd_prep(args))
+    k2 = graph_ms(lambda: FA._launch_bwd_dkv(args), calls=3, runs=5)
+    k3 = graph_ms(lambda: FA._launch_bwd_dq(args), calls=3, runs=5)
+    with torch.no_grad():
+        p1 = graph_ms(lambda: FA.flash_attention_bwd_prep_reference(q, o, do, sm_scale=d ** -0.5))
+        p2 = graph_ms(lambda: FA.flash_attention_bwd_dkv_reference(q, k, v, o, lse, do), calls=1, runs=3)
+        p3 = graph_ms(lambda: FA.flash_attention_bwd_dq_reference(q, k, v, o, lse, do), calls=1, runs=3)
+    b_lib = graph_ms(_grad_fn(sdpa, q, k, v, do), calls=5, runs=5)
+    kv = QK.quantize_kv(k.float(), v.float())
+    with torch.no_grad():
+        k4 = graph_ms(lambda: QK.flash_attention_kv_quant(q, kv), calls=5, runs=5)
+        k4_plain = graph_ms(lambda: QK.flash_attention_kv_quant_reference(q, kv), calls=1, runs=3)
+    rows_ = {
+        "flash_fwd_d256": (f_ms, f_plain, _floor_ms(4 * elems * 2, flops), f_lib),
+        "flash_bwd_prep_d256": (pre, p1, _floor_ms(4 * elems * 2 + rows * 4), None),
+        "flash_bwd_dkv_d256": (k2, p2, _floor_ms(6 * elems * 2 + 2 * rows * 4, 2 * flops), b_lib),
+        "flash_bwd_dq_d256": (k3, p3, _floor_ms(5 * elems * 2 + 2 * rows * 4, 1.5 * flops), b_lib),
+        "flash_fwd_kv_quant_d256": (k4, k4_plain, _floor_ms(rows * (d * (2 + 2 + 1 + 1) + 8), flops), None),
+    }
+    for key, (ms, plain_ms, (bound, by), lib_ms) in rows_.items():
+        result[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms)
+    say(f"[timing] {smi} | D256 b8 h12 L1024 bf16 causal, ms on the device (share of the bound; plain version): "
+        + "; ".join(f"{k} {ms:.4f} ({bd / ms:.1%} of {bd:.4f} ms, {by}; plain {pl:.4f})"
+                    for k, (ms, pl, (bd, by), _) in rows_.items())
+        + f"; library torch SDPA forward {f_lib:.4f} ms, backward {b_lib:.4f} ms (K1 D256 / SDPA {f_ms / f_lib:.1f}x, "
+          f"K2 + K3 + pre-pass / SDPA backward {(k2 + k3 + pre) / b_lib:.1f}x)")
+    return result
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1188,18 +1819,32 @@ def main() -> None:
     errors = {"flash_fwd": phase_k1(args.seed), **phase_k2k3(args.seed)}
     errors["flash_fwd_kv_quant"], k4_launches = phase_k4(args.seed)
     errors.update(phase_decode(args.seed))
+    errors.update(phase_d256(args.seed))
+    text = synthetic_corpus()
+    data = CharTokenizer(text).encode(text)
+    d256_launches = phase_d256_path(args.seed, data)
+    llama_k1 = phase_llama(args.seed, smi)
+    phase_llama_parity(args.seed)
+    llama_train = phase_llama_train(args.seed, smi, data)
     model = _gpt2(args.seed)
     base = phase_serving(args.seed, model)
     decode_launches, _ = phase_serving_quant(args.seed, model, base, smi)
+    wquant_k6 = phase_serving_wquant(args.seed, model, smi)
     del model
     phase_parity(args.seed)
     phase_parity_quant(args.seed)
-    text = synthetic_corpus()
-    data = CharTokenizer(text).encode(text)
     launches = phase_training(args.seed, smi, data)
-    launches.update(flash_fwd_kv_quant=k4_launches, **decode_launches)
+    launches.update(flash_fwd_kv_quant=k4_launches, **decode_launches, **d256_launches)
     phase_train_parity(args.seed, data)
-    times = {**phase_timing(args.seed, smi), **phase_timing_quant(args.seed, smi)}
+    llama_times = phase_timing_llama_d256(args.seed, smi)
+    times = {**phase_timing(args.seed, smi), **phase_timing_quant(args.seed, smi), **llama_times}
+    # K1 on the Llama path: its launches in the two bursts and in Llama
+    # training, and its time at the Llama prefill shape
+    times["flash_fwd"].update(
+        llama_serving_launches=llama_k1, llama_train_launches=llama_train,
+        **{f"llama_{k}": v for k, v in llama_times["llama"].items()},
+    )
+    times["fused_decode"]["serving_wquant_launches"] = wquant_k6
     # K5/K6: the int8 cache's times at the 8-slot L2-hot shape (no library
     # call), with the bf16 cache's beside them (bf16_ms, bf16_plain_ms,
     # bf16_bound_ms, and SDPA with a length mask as bf16_library_ms) and

@@ -7,8 +7,9 @@ first use.  Ported so far: the GPT-2 serving path (flash-attention
 forward, einsum decode, sampling, the continuous-batching engine), the
 GPT-2 training path (flash-attention backward, dropout, remat, AdamW,
 checkpoints, the trainer and its demo), with the packed-QKV op and the
-SDPA drop-in, and quantized-KV serving (int8/fp8 cache, quantized-KV flash
-attention, the paged and slot-major decode kernels).
+SDPA drop-in, quantized-KV serving (int8/fp8 cache, quantized-KV flash
+attention, the paged and slot-major decode kernels), and the Llama family
+with weight-only int8/int4 (`models.llama`, `quant.weights`).
 """
 
 import importlib

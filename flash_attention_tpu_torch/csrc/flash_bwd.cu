@@ -97,6 +97,7 @@
 // cudaErrorInvalidValue when a tensor map cannot be made).
 
 #include "common.cuh"
+#include "flash_d256.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -144,12 +145,14 @@ struct PrepParams {
   float scale_log2;
 };
 
-// D / (16 / sizeof(T)) threads a row, each one 16-byte chunk of q, o and dO.
+// min(D / (16 / sizeof(T)), 32) threads a row, each kChunks 16-byte chunks
+// of q, o and dO (one, except fp32 at D = 256: two).
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_prep_kernel(const PrepParams p) {
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kLanes = D / kVec;  // 8 or 16 (2-byte types), 16 or 32 (fp32): a divisor of 32
+  constexpr int kLanes = D / kVec < 32 ? D / kVec : 32;  // 8, 16 or 32: a divisor of 32
+  constexpr int kChunks = D / kVec / kLanes;
   constexpr int kRows = 256 / kLanes;
   const int lane = threadIdx.x % kLanes;
   const long long row = (long long)blockIdx.x * kRows + threadIdx.x / kLanes;
@@ -159,21 +162,25 @@ flash_bwd_prep_kernel(const PrepParams p) {
   const long long b = bh / p.hq, h = bh % p.hq;
   float sum = 0.f;
   if (in) {
-    const T* o = static_cast<const T*>(p.o) + b * p.so.sb + h * p.so.sh + r * p.so.sl + lane * kVec;
-    const T* dout = static_cast<const T*>(p.dout) + b * p.sdo.sb + h * p.sdo.sh + r * p.sdo.sl + lane * kVec;
-    const uint4 ov = *reinterpret_cast<const uint4*>(o);
-    const uint4 dv = *reinterpret_cast<const uint4*>(dout);
-    const T* x = reinterpret_cast<const T*>(&ov);
-    const T* y = reinterpret_cast<const T*>(&dv);
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) sum = fmaf(to_float(x[e]), to_float(y[e]), sum);
-    if (p.qs != nullptr) {
-      const T* q = static_cast<const T*>(p.q) + b * p.sq.sb + h * p.sq.sh + r * p.sq.sl + lane * kVec;
-      uint4 qv = *reinterpret_cast<const uint4*>(q);
-      T* z = reinterpret_cast<T*>(&qv);
+    for (int c = 0; c < kChunks; ++c) {
+      const int col = (c * kLanes + lane) * kVec;
+      const T* o = static_cast<const T*>(p.o) + b * p.so.sb + h * p.so.sh + r * p.so.sl + col;
+      const T* dout = static_cast<const T*>(p.dout) + b * p.sdo.sb + h * p.sdo.sh + r * p.sdo.sl + col;
+      const uint4 ov = *reinterpret_cast<const uint4*>(o);
+      const uint4 dv = *reinterpret_cast<const uint4*>(dout);
+      const T* x = reinterpret_cast<const T*>(&ov);
+      const T* y = reinterpret_cast<const T*>(&dv);
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) z[e] = from_float<T>(to_float(z[e]) * p.scale_log2);
-      *reinterpret_cast<uint4*>(static_cast<T*>(p.qs) + row * D + lane * kVec) = qv;
+      for (int e = 0; e < kVec; ++e) sum = fmaf(to_float(x[e]), to_float(y[e]), sum);
+      if (p.qs != nullptr) {
+        const T* q = static_cast<const T*>(p.q) + b * p.sq.sb + h * p.sq.sh + r * p.sq.sl + col;
+        uint4 qv = *reinterpret_cast<const uint4*>(q);
+        T* z = reinterpret_cast<T*>(&qv);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) z[e] = from_float<T>(to_float(z[e]) * p.scale_log2);
+        *reinterpret_cast<uint4*>(static_cast<T*>(p.qs) + row * D + col) = qv;
+      }
     }
   }
 #pragma unroll
@@ -1024,12 +1031,18 @@ int run(int which, const void* q, const void* k, const void* v, const void* dout
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return (int)dispatch<64>(which, dtype, p, s);
   if (head_dim == 128) return (int)dispatch<128>(which, dtype, p, s);
+  if (head_dim == 256) {  // the SIMT family of flash_d256.cuh, every dtype
+    if (dtype == 0) return (int)d256::launch_bwd<float>(which, p, s);
+    if (dtype == 1) return (int)d256::launch_bwd<__nv_bfloat16>(which, p, s);
+    if (dtype == 2) return (int)d256::launch_bwd<__half>(which, p, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int D>
 cudaError_t launch_prep(const PrepParams& p, cudaStream_t stream) {
-  constexpr int kRows = 256 / (D / (16 / (int)sizeof(T)));
+  constexpr int kLanes = D / (16 / (int)sizeof(T)) < 32 ? D / (16 / (int)sizeof(T)) : 32;
+  constexpr int kRows = 256 / kLanes;
   const long long blocks = (p.rows + kRows - 1) / kRows;
   if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
   flash_bwd_prep_kernel<T, D><<<(unsigned)blocks, 256, 0, stream>>>(p);
@@ -1046,7 +1059,8 @@ cudaError_t dispatch_prep(int dtype, const PrepParams& p, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim: 64 or 128.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim: 64, 128 or 256
+// (256: the SIMT kernels of flash_d256.cuh, which do not read qs).
 // lse and di are fp32 [batch, hq, lq] contiguous (lse as flash_fwd wrote
 // it, di as fa_flash_bwd_prep wrote it).  qs is fa_flash_bwd_prep's qs
 // ([batch, hq, lq, head_dim] contiguous, q's dtype): required for bf16 /
@@ -1103,5 +1117,6 @@ extern "C" int fa_flash_bwd_prep(const void* q, const void* o, const void* dout,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return (int)dispatch_prep<64>(dtype, p, s);
   if (head_dim == 128) return (int)dispatch_prep<128>(dtype, p, s);
+  if (head_dim == 256) return (int)dispatch_prep<256>(dtype, p, s);
   return (int)cudaErrorInvalidValue;
 }

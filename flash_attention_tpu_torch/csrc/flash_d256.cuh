@@ -1,0 +1,388 @@
+// Head dim 256: the forward (K1, and K4 over an int8 / fp8 K/V payload),
+// dK/dV (K2) and dQ (K3), all SIMT in fp32 arithmetic, for fp32, bf16 and
+// fp16 inputs.  flash_fwd.cuh instantiates the forward with its FwdParams,
+// flash_bwd.cu the backward with its BwdParams; the backward's pre-pass
+// (di, qs) is flash_bwd.cu's own at every head dim.
+//
+// Replaces, at head dims 129-256 (the entry points zero-pad them to 256, as
+// the JAX package pads any head dim to a multiple of 8):
+//   * flash_attention_tpu/kernels/flash_attention.py::_fwd_kernel (K1);
+//   * flash_attention_tpu/quant/kv.py::_fwd_quant_kernel (K4);
+//   * flash_attention_tpu/kernels/flash_attention.py::_dkv_kernel (K2) and
+//     ::_dq_kernel (K3).
+// They compute what the plain versions in kernels/flash_attention.py
+// compute, with the same roundings: q scaled by sm_scale * log2(e) and
+// rounded to T before QK^T, the online softmax in the exp2 domain with m / l
+// / the accumulator in fp32, P rounded to T before PV, one final division
+// with the l == 0 guard, lse = (m + log2 l) ln 2; K4's K/V tiles
+// dequantized as payload.to(T) * scale.to(T) rounded to T; the backward in
+// the operand form, dK += round_T(dS) round_T(q * scale) and dQ +=
+// round_T(dS) round_T(k * scale), with P rounded to T before P^T dO and P =
+// 0 where masked.  Causal (queries aligned to the end of KV), window and
+// segment masks, GQA by reading KV head hq / group, ragged lengths, inputs
+// read through their strides.
+//
+// What bounds it on this card: at b8 h12 L1024 causal the forward's two
+// products are 51.5 GFLOP (0.052 ms at 989 TFLOP/s) against 201 MB of q, k,
+// v and o (0.060 ms at 3.35 TB/s), so the bytes bound it by a hair, and the
+// operations bound the backward.  These kernels do not reach the tensor
+// cores: they are the simple, correct first version, fp32 FMA at most 67
+// TFLOP/s, kept so that a D256 CUDA tensor reaches a kernel (about 100x their
+// bound and 50x torch SDPA at that shape).  What the design does about the
+// width: the warp-specialised templates (flash_fwd.cuh, flash_bwd.cu) keep a
+// 64 x D fp32 accumulator in a warpgroup's registers, 128 a thread at D =
+// 256, beside Q and the K/V ring in shared memory; here each pinned row is
+// split over kSplit = 8 lanes, each owning 32 of its columns (4 contiguous
+// columns at 32 i + 4 u, so that a row's lanes read 128 contiguous bytes of
+// a shared row and the four rows of a warp read the same one, a broadcast),
+// so a thread keeps 32 columns of each pinned row and each sum.  A dot
+// product is each lane's partial sum over its columns, reduced by three
+// xor-shuffles inside the row's 8 lanes; every lane then holds the full
+// score and updates its own columns.  Blocks pin kRows = 32 rows (256
+// threads) and stream 32-row tiles, staged in shared memory as fp32
+// (64 KB for the forward's K and V, 96 KB for the backward's three tiles).
+#pragma once
+
+#include "common.cuh"
+
+namespace fa {
+namespace d256 {
+
+constexpr int kD = 256;
+constexpr int kRows = 32;                 // pinned rows of a block
+constexpr int kSplit = 8;                 // lanes of a pinned row
+constexpr int kThreads = kRows * kSplit;  // 256
+constexpr int kBc = 32;                   // rows of each streamed tile
+constexpr int kCols = kD / kSplit;        // columns a lane owns
+constexpr int kTile = kBc * kD;           // floats of a staged tile
+constexpr int kFwdSmem = 2 * kTile * 4;   // K, V
+constexpr int kBwdSmem = 3 * kTile * 4;   // dK/dV: qs, q * scale, dO; dQ: K, K * scale, V
+
+// Column of this lane's element i (i < kCols): 4 contiguous columns at
+// 32 (i / 4) + 4 u.
+__device__ __forceinline__ int col_of(int u, int i) { return 32 * (i / 4) + 4 * u + i % 4; }
+
+// A [ROWS, kD] tile of g (rows from row0, those at or past nrows zero) into
+// shared memory as fp32 rows of kD floats: round_T(x * mul) for a tile of
+// T, and for a 1-byte payload round_T(payload.to(T) * round_T(scale)), the
+// TPU kernel's dequantization.  16-byte loads: the wrapper keeps every row
+// 16-byte aligned.
+template <typename T, typename KV, int ROWS>
+__device__ __forceinline__ void stage(float* __restrict__ s, const KV* __restrict__ g, long long ld,
+                                      const float* __restrict__ scales, int row0, int nrows, float mul) {
+  constexpr int kVec = 16 / sizeof(KV);
+  constexpr int kChunks = kD / kVec;
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * kVec;
+    float y[kVec];
+    if (row0 + r < nrows) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(g + (long long)(row0 + r) * ld + col);
+      const KV* x = reinterpret_cast<const KV*>(&raw);
+      if constexpr (std::is_same<T, KV>::value) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) y[e] = round_to<T>(to_float(x[e]) * mul);
+      } else {
+        static_assert(sizeof(KV) == 1, "quantized payloads are 1 byte");
+        const float sc = round_to<T>(scales[row0 + r]);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) y[e] = round_to<T>(to_float(x[e]) * sc);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) y[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < kVec; e += 4)
+      *reinterpret_cast<float4*>(s + r * kD + col + e) = make_float4(y[e], y[e + 1], y[e + 2], y[e + 3]);
+  }
+}
+
+// This lane's columns of one row of T in global memory, round_T(x * mul);
+// zeros when `in` is false.
+template <typename T>
+__device__ __forceinline__ void load_row(float (&dst)[kCols], const T* g, int u, bool in, float mul) {
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) dst[i] = in ? round_to<T>(to_float(g[col_of(u, i)]) * mul) : 0.f;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_row(T* g, const float (&src)[kCols], int u, float div) {
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) g[col_of(u, i)] = from_float<T>(src[i] / div);
+}
+
+// Partial dot product of this lane's columns with row `r` of a staged tile.
+__device__ __forceinline__ float dot_row(const float (&a)[kCols], const float* __restrict__ r, int u) {
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < kCols; i += 4) {
+    const float4 b = *reinterpret_cast<const float4*>(r + 32 * (i / 4) + 4 * u);
+    acc = fmaf(a[i], b.x, acc);
+    acc = fmaf(a[i + 1], b.y, acc);
+    acc = fmaf(a[i + 2], b.z, acc);
+    acc = fmaf(a[i + 3], b.w, acc);
+  }
+  return acc;
+}
+
+// acc += w * (this lane's columns of row `r` of a staged tile).
+__device__ __forceinline__ void axpy_row(float (&acc)[kCols], float w, const float* __restrict__ r, int u) {
+#pragma unroll
+  for (int i = 0; i < kCols; i += 4) {
+    const float4 b = *reinterpret_cast<const float4*>(r + 32 * (i / 4) + 4 * u);
+    acc[i] = fmaf(w, b.x, acc[i]);
+    acc[i + 1] = fmaf(w, b.y, acc[i + 1]);
+    acc[i + 2] = fmaf(w, b.z, acc[i + 2]);
+    acc[i + 3] = fmaf(w, b.w, acc[i + 3]);
+  }
+}
+
+// The sum of x over a pinned row's kSplit lanes (consecutive lanes of one
+// warp); every lane executes it, so the full mask holds.
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = 1; off < kSplit; off *= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// ---------------------------------------------------------------------------
+// Forward (K1; K4 when KV is a 1-byte payload).  P is FwdParams.
+// ---------------------------------------------------------------------------
+
+template <typename T, typename KV, typename P>
+__global__ void __launch_bounds__(kThreads) fwd_kernel(const P p) {
+  extern __shared__ float4 smem_f4[];
+  float* sK = reinterpret_cast<float*>(smem_f4);
+  float* sV = sK + kTile;
+  __shared__ int sIds[kBc];
+
+  const Mask mk = p.mask;
+  const int tile = gridDim.x - 1 - blockIdx.x;  // the longest causal KV loops first
+  const int bh = blockIdx.y;
+  const int b = bh / p.hq;
+  const int h = bh % p.hq;
+  const int hk = h / p.group;
+  const int r0 = tile * kRows;
+  const int r1 = min(r0 + kRows, mk.lq);
+  const int u = threadIdx.x % kSplit;
+  const int row = r0 + threadIdx.x / kSplit;
+  const bool in = row < mk.lq;
+
+  const KV* gk = static_cast<const KV*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const KV* gv = static_cast<const KV*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const float* ks = p.ks ? p.ks + b * p.s_sb + hk * p.s_sh : nullptr;
+  const float* vs = p.vs ? p.vs + b * p.s_sb + hk * p.s_sh : nullptr;
+  const int* kv_ids = p.kv_ids ? p.kv_ids + (long long)b * mk.lk : nullptr;
+  const int q_id = p.q_ids != nullptr && in ? p.q_ids[(long long)b * mk.lq + row] : 0;
+
+  float q[kCols], acc[kCols];
+  load_row<T>(q, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + (long long)row * p.q_sl, u, in,
+              p.scale_log2);
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) acc[i] = 0.f;
+  float m = -CUDART_INF_F, l = 0.f;
+
+  const int kv_end = mk.kv_end(r1);
+  const int j0 = mk.kv_first(r0) / kBc;
+  const int n_tiles = kv_end > 0 ? (kv_end + kBc - 1) / kBc : 0;
+  for (int jt = j0; jt < n_tiles; ++jt) {
+    const int c0 = jt * kBc;
+    __syncthreads();
+    stage<T, KV, kBc>(sK, gk, p.k_sl, ks, c0, mk.lk, 1.f);
+    stage<T, KV, kBc>(sV, gv, p.v_sl, vs, c0, mk.lk, 1.f);
+    load_ids<kBc, kThreads>(sIds, kv_ids, c0, mk.lk, 0);
+    __syncthreads();
+
+    float s[kBc];
+    float mx = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < kBc; ++j) {
+      const float dot = row_sum(dot_row(q, sK + j * kD, u));
+      const bool ok = mk.visible(row, c0 + j) && (kv_ids == nullptr || q_id == sIds[j]);
+      s[j] = ok ? dot : -CUDART_INF_F;
+      mx = fmaxf(mx, s[j]);
+    }
+    const float m_new = fmaxf(m, mx);
+    const float base = m_new == -CUDART_INF_F ? 0.f : m_new;
+    const float alpha = exp2f(m - base);
+    m = m_new;
+    l *= alpha;
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) acc[i] *= alpha;
+#pragma unroll
+    for (int j = 0; j < kBc; ++j) {
+      const float pj = exp2f(s[j] - base);
+      l += pj;
+      axpy_row(acc, round_to<T>(pj), sV + j * kD, u);
+    }
+  }
+
+  if (in) {
+    const float l_safe = l == 0.f ? 1.f : l;
+    store_row<T>(static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + (long long)row * p.o_sl, acc, u, l_safe);
+    if (p.lse != nullptr && u == 0) p.lse[(long long)bh * mk.lq + row] = (m + log2f(l_safe)) * kLn2;
+  }
+}
+
+template <typename T, typename KV, typename P>
+cudaError_t launch_fwd(const P& p, cudaStream_t stream) {
+  auto kernel = fwd_kernel<T, KV, P>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.mask.lq + kRows - 1) / kRows, p.batch * p.hq);
+  kernel<<<grid, kThreads, kFwdSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Backward (K2, K3).  P is BwdParams; the pre-pass's di and the forward's
+// lse are read, its qs is not (the kernels round q * scale_log2 as they
+// stage it).
+// ---------------------------------------------------------------------------
+
+// K2: a block pins kRows KV rows of one KV head and walks the q tiles of
+// every q head of its GQA group that reach them, so the group sums into the
+// KV head inside the block.
+template <typename T, typename P>
+__global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(const P p) {
+  extern __shared__ float4 smem_f4[];
+  float* sQs = reinterpret_cast<float*>(smem_f4);  // round_T(q * scale_log2)
+  float* sQk = sQs + kTile;                        // round_T(q * scale)
+  float* sDo = sQk + kTile;
+  __shared__ float sLse[kBc], sDi[kBc];
+  __shared__ int sIds[kBc];
+
+  const Mask mk = p.mask;
+  const int hkv = p.hq / p.group;
+  const int b = blockIdx.y / hkv;
+  const int hk = blockIdx.y % hkv;
+  const int c0 = blockIdx.x * kRows;
+  const int c1 = min(c0 + kRows, mk.lk);
+  const int u = threadIdx.x % kSplit;
+  const int kv = c0 + threadIdx.x / kSplit;
+  const bool in = kv < mk.lk;
+  const bool segmented = p.q_ids != nullptr;
+  const int kv_id = segmented && in ? p.kv_ids[(long long)b * mk.lk + kv] : 0;
+
+  float k[kCols], v[kCols], dk[kCols], dv[kCols];
+  load_row<T>(k, static_cast<const T*>(p.k) + b * p.sk.sb + hk * p.sk.sh + (long long)kv * p.sk.sl, u, in, 1.f);
+  load_row<T>(v, static_cast<const T*>(p.v) + b * p.sv.sb + hk * p.sv.sh + (long long)kv * p.sv.sl, u, in, 1.f);
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) dk[i] = dv[i] = 0.f;
+
+  const int i0 = mk.q_first(c0) / kBc;
+  const int q_end = mk.q_end(c1);
+  const int n_q = q_end > 0 ? (q_end + kBc - 1) / kBc : 0;
+  for (int gi = 0; gi < p.group; ++gi) {
+    const int h = hk * p.group + gi;
+    const T* gq = static_cast<const T*>(p.q) + b * p.sq.sb + h * p.sq.sh;
+    const T* gdo = static_cast<const T*>(p.dout) + b * p.sdo.sb + h * p.sdo.sh;
+    const long long stat = ((long long)b * p.hq + h) * mk.lq;
+    for (int it = i0; it < n_q; ++it) {
+      const int r0 = it * kBc;
+      __syncthreads();
+      stage<T, T, kBc>(sQs, gq, p.sq.sl, nullptr, r0, mk.lq, p.scale_log2);
+      stage<T, T, kBc>(sQk, gq, p.sq.sl, nullptr, r0, mk.lq, p.scale);
+      stage<T, T, kBc>(sDo, gdo, p.sdo.sl, nullptr, r0, mk.lq, 1.f);
+      for (int i = threadIdx.x; i < kBc; i += kThreads) {
+        const bool q_in = r0 + i < mk.lq;
+        sLse[i] = q_in ? p.lse[stat + r0 + i] * kLog2e : 0.f;
+        sDi[i] = q_in ? p.di[stat + r0 + i] : 0.f;
+      }
+      if (segmented) load_ids<kBc, kThreads>(sIds, p.q_ids + (long long)b * mk.lq, r0, mk.lq, 0);
+      __syncthreads();
+
+      for (int j = 0; j < kBc; ++j) {
+        const float s = row_sum(dot_row(k, sQs + j * kD, u));
+        const float dp = row_sum(dot_row(v, sDo + j * kD, u));
+        const bool ok = mk.visible(r0 + j, kv) && (!segmented || sIds[j] == kv_id);
+        const float pj = ok ? exp2f(s - sLse[j]) : 0.f;
+        const float ds = pj * (dp - sDi[j]);
+        axpy_row(dv, round_to<T>(pj), sDo + j * kD, u);
+        axpy_row(dk, round_to<T>(ds), sQk + j * kD, u);
+      }
+    }
+  }
+
+  if (in) {
+    store_row<T>(static_cast<T*>(p.dk) + b * p.sdk.sb + hk * p.sdk.sh + (long long)kv * p.sdk.sl, dk, u, 1.f);
+    store_row<T>(static_cast<T*>(p.dv) + b * p.sdv.sb + hk * p.sdv.sh + (long long)kv * p.sdv.sl, dv, u, 1.f);
+  }
+}
+
+// K3: a block pins kRows query rows of one q head and walks the KV tiles
+// they reach.
+template <typename T, typename P>
+__global__ void __launch_bounds__(kThreads) bwd_dq_kernel(const P p) {
+  extern __shared__ float4 smem_f4[];
+  float* sK = reinterpret_cast<float*>(smem_f4);
+  float* sKs = sK + kTile;  // round_T(k * scale)
+  float* sV = sKs + kTile;
+  __shared__ int sIds[kBc];
+
+  const Mask mk = p.mask;
+  const int b = blockIdx.y / p.hq;
+  const int h = blockIdx.y % p.hq;
+  const int hk = h / p.group;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // the longest causal KV loops first
+  const int r1 = min(r0 + kRows, mk.lq);
+  const int u = threadIdx.x % kSplit;
+  const int row = r0 + threadIdx.x / kSplit;
+  const bool in = row < mk.lq;
+  const bool segmented = p.q_ids != nullptr;
+  const long long stat = ((long long)b * p.hq + h) * mk.lq;
+  const float lse_l2 = in ? p.lse[stat + row] * kLog2e : 0.f;
+  const float di = in ? p.di[stat + row] : 0.f;
+  const int q_id = segmented && in ? p.q_ids[(long long)b * mk.lq + row] : 0;
+
+  float qs[kCols], dout[kCols], dq[kCols];
+  const long long q_off = (long long)row * p.sq.sl;
+  load_row<T>(qs, static_cast<const T*>(p.q) + b * p.sq.sb + h * p.sq.sh + q_off, u, in, p.scale_log2);
+  load_row<T>(dout, static_cast<const T*>(p.dout) + b * p.sdo.sb + h * p.sdo.sh + (long long)row * p.sdo.sl, u,
+              in, 1.f);
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) dq[i] = 0.f;
+  const T* gk = static_cast<const T*>(p.k) + b * p.sk.sb + hk * p.sk.sh;
+  const T* gv = static_cast<const T*>(p.v) + b * p.sv.sb + hk * p.sv.sh;
+
+  const int kv_end = mk.kv_end(r1);
+  const int j0 = mk.kv_first(r0) / kBc;
+  const int n_tiles = kv_end > 0 ? (kv_end + kBc - 1) / kBc : 0;
+  for (int jt = j0; jt < n_tiles; ++jt) {
+    const int c0 = jt * kBc;
+    __syncthreads();
+    stage<T, T, kBc>(sK, gk, p.sk.sl, nullptr, c0, mk.lk, 1.f);
+    stage<T, T, kBc>(sKs, gk, p.sk.sl, nullptr, c0, mk.lk, p.scale);
+    stage<T, T, kBc>(sV, gv, p.sv.sl, nullptr, c0, mk.lk, 1.f);
+    if (segmented) load_ids<kBc, kThreads>(sIds, p.kv_ids + (long long)b * mk.lk, c0, mk.lk, 0);
+    __syncthreads();
+
+    for (int j = 0; j < kBc; ++j) {
+      const float s = row_sum(dot_row(qs, sK + j * kD, u));
+      const float dp = row_sum(dot_row(dout, sV + j * kD, u));
+      const bool ok = mk.visible(row, c0 + j) && (!segmented || sIds[j] == q_id);
+      const float ds = ok ? exp2f(s - lse_l2) * (dp - di) : 0.f;
+      axpy_row(dq, round_to<T>(ds), sKs + j * kD, u);
+    }
+  }
+
+  if (in) store_row<T>(static_cast<T*>(p.dq) + b * p.sdq.sb + h * p.sdq.sh + (long long)row * p.sdq.sl, dq, u, 1.f);
+}
+
+// which: 0 = dK/dV (grid over KV tiles and KV heads), 1 = dQ (grid over q
+// tiles and q heads).
+template <typename T, typename P>
+cudaError_t launch_bwd(int which, const P& p, cudaStream_t stream) {
+  const int hkv = p.hq / p.group;
+  auto kernel = which == 0 ? bwd_dkv_kernel<T, P> : bwd_dq_kernel<T, P>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(which == 0 ? (p.mask.lk + kRows - 1) / kRows : (p.mask.lq + kRows - 1) / kRows,
+                  p.batch * (which == 0 ? hkv : p.hq));
+  kernel<<<grid, kThreads, kBwdSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace d256
+}  // namespace fa

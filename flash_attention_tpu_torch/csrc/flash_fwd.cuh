@@ -75,6 +75,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "flash_d256.cuh"
 #include "sm90.cuh"
 
 namespace fa {
@@ -703,8 +704,9 @@ cudaError_t launch_simt(const FwdParams& p, cudaStream_t stream) {
 }
 
 // The kernel for q's dtype (0 = float32, 1 = bfloat16, 2 = float16), K/V
-// element type KV (KV = void: q's own type) and head dim (64 or 128);
-// cudaErrorInvalidValue for a combination that is not instantiated.
+// element type KV (KV = void: q's own type) and head dim (64 or 128, and
+// 256 through the SIMT family of flash_d256.cuh); cudaErrorInvalidValue for
+// a combination that is not instantiated.
 template <typename KV>
 cudaError_t launch_fwd_for(int dtype, int head_dim, const FwdParams& p, cudaStream_t s) {
   using F32 = typename std::conditional<std::is_void<KV>::value, float, KV>::type;
@@ -716,6 +718,9 @@ cudaError_t launch_fwd_for(int dtype, int head_dim, const FwdParams& p, cudaStre
   if (dtype == 1 && head_dim == 128) return launch_ws<__nv_bfloat16, BF16, 128>(p, s);
   if (dtype == 2 && head_dim == 64) return launch_ws<__half, F16, 64>(p, s);
   if (dtype == 2 && head_dim == 128) return launch_ws<__half, F16, 128>(p, s);
+  if (dtype == 0 && head_dim == 256) return d256::launch_fwd<float, F32>(p, s);
+  if (dtype == 1 && head_dim == 256) return d256::launch_fwd<__nv_bfloat16, BF16>(p, s);
+  if (dtype == 2 && head_dim == 256) return d256::launch_fwd<__half, F16>(p, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,8 @@
-"""Inference: KV cache (plain or int8/fp8), prefill/decode, paged and
-slot-major decode kernels, sampling, continuous batching."""
+"""Inference: KV cache (plain or int8/fp8), prefill/decode (the GPT path
+here, the Llama one in `models.llama`), paged and slot-major decode
+kernels, sampling, continuous batching over a GPT or a Llama."""
 
-from .decode_attention import decode_attention, decode_attention_paged
+from .decode_attention import decode_attention, decode_attention_fused, decode_attention_paged
 from .engine import InferenceEngine, Request
 from .kv_cache import (
     KVCache,
@@ -24,6 +25,7 @@ __all__ = [
     "Request",
     "advance_lengths",
     "decode_attention",
+    "decode_attention_fused",
     "decode_attention_paged",
     "decode_loop",
     "decode_step",

@@ -1,21 +1,24 @@
 """Inference engine: continuous batching over prefill and decode scans.
 
-Port of `flash_attention_tpu/inference/engine.py`, GPT path:
+Port of `flash_attention_tpu/inference/engine.py`, for a `GPT` or a
+`Llama` module:
 
   submit(prompt) -> request queue
   step():
     1. admit queued requests into free slots: same-bucket prompts are
-       prefilled together (prefill_many) and their first tokens sampled in
-       one batch;
+       prefilled together (prefill_many, GPT only; with a custom prefill_fn
+       one prompt per dispatch) and their first tokens sampled in one
+       batch;
     2. one decode scan of up to `scan_steps` steps across all running
        slots, sampling on the device, then one host sync for the scan's
        [steps, slots] token block;
     3. retire finished requests (eos, max_new_tokens, cache full).
 
 The engine takes the JAX engine's `kv_quant_dtype` (an int8 or fp8 KV
-cache) and `decode_fn` (e.g. `partial(decode_step, attn_impl="paged")`).
-Options of the JAX engine that the port does not have yet are absent from
-the constructor (a custom prefill function, chunked prefill,
+cache), `prefill_fn` and `decode_fn` (e.g. `prefill_fn=llama.prefill,
+decode_fn=llama.decode_step` for a Llama, or `partial(decode_step,
+attn_impl="paged")` for a GPT).  Options of the JAX engine that the port
+does not have yet are absent from the constructor (chunked prefill,
 scan_tokens_target, pipelined scans, speculative decoding, autotune
 warm-up), so passing one is a TypeError.  The drain after each scan is
 synchronous.
@@ -30,9 +33,9 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..config import resolve_device
-from ..models.gpt import GPT
 from ..quant.kv import QUANT_DTYPES
 from . import kv_cache as kvc
 from .model_runner import decode_step, prefill, prefill_many
@@ -83,27 +86,34 @@ def _buckets(max_len: int) -> list[int]:
 
 
 class InferenceEngine:
-    """Continuous-batching engine over a `GPT` module."""
+    """Continuous-batching engine over a `GPT` or `Llama` module."""
 
     def __init__(
         self,
-        model: GPT,
+        model: nn.Module,
         *,
         slots: int = 8,
         max_len: int | None = None,
         kv_quant_dtype: torch.dtype | str | None = None,
         rng_seed: int = 0,
+        prefill_fn: Callable | None = None,
         decode_fn: Callable | None = None,
         scan_steps: int = 8,
         device=None,
     ):
-        """model: the GPT to serve; its weights must already lie on `device`
-        (default: the model's own device).  A "cuda" device without a card
-        raises.  kv_quant_dtype: store the KV cache as int8 or fp8 payloads
-        with per-token scales (torch.int8 / torch.float8_e4m3fn, or their
-        names "int8" / "float8_e4m3fn").  decode_fn(model, tokens, cache,
-        active) -> (cache, logits) replaces `decode_step`, e.g.
-        `functools.partial(decode_step, attn_impl="fused")`.  scan_steps:
+        """model: the GPT or Llama to serve; its weights must already lie on
+        `device` (default: the model's own device).  A "cuda" device without
+        a card raises.  max_len: the cache's capacity per slot, default the
+        config's block_size (GPT) or max_seq (Llama).  kv_quant_dtype: store
+        the KV cache as int8 or fp8 payloads with per-token scales
+        (torch.int8 / torch.float8_e4m3fn, or their names "int8" /
+        "float8_e4m3fn").  prefill_fn(model, tokens, cache, slot, length) ->
+        (cache, logits) replaces `prefill`, and then every prompt is admitted
+        in a dispatch of its own (batched admission is GPT's
+        `prefill_many`).  decode_fn(model, tokens, cache, active) -> (cache,
+        logits) replaces `decode_step`, e.g. `functools.partial(decode_step,
+        attn_impl="fused")`.  A Llama needs both (`llama.prefill`,
+        `llama.decode_step`).  scan_steps:
         decode steps per scan, with one host sync per scan; 1 gives per-token
         stepping.  rng_seed seeds the engine's torch.Generator, which draws
         every sampled token."""
@@ -115,11 +125,15 @@ class InferenceEngine:
         self.model = model
         self.cfg = model.cfg
         self.slots = slots
-        self.max_len = max_len or self.cfg.block_size
+        self.max_len = max_len or getattr(self.cfg, "block_size", None) or self.cfg.max_seq
+        kv_heads = self.cfg.kv_heads if hasattr(self.cfg, "kv_heads") else self.cfg.n_kv_head
         self.cache = kvc.init_cache(
-            self.cfg.n_layer, slots, self.cfg.kv_heads, self.max_len, self.cfg.head_dim,
+            self.cfg.n_layer, slots, kv_heads, self.max_len, self.cfg.head_dim,
             dtype=self.cfg.dtype, quant_dtype=_quant_dtype(kv_quant_dtype), device=model.device,
         )
+        self._prefill = prefill_fn or prefill
+        # batched same-bucket admission: the GPT path only
+        self._batched_admission = prefill_fn is None
         self._decode = decode_fn or decode_step
         self.buckets = _buckets(self.max_len)
         self.scan_steps = max(1, scan_steps)
@@ -222,7 +236,8 @@ class InferenceEngine:
             groups.setdefault(item[3], []).append(item)
         for bucket, items in groups.items():
             while items:
-                m = 1 << (len(items).bit_length() - 1)  # largest power of two
+                # the largest power of two, or one prompt a dispatch
+                m = 1 << (len(items).bit_length() - 1) if self._batched_admission else 1
                 chunk, items = items[:m], items[m:]
                 # Right-pad with the last token; logits come from the true
                 # last position and the cache length is set directly.
@@ -234,7 +249,7 @@ class InferenceEngine:
                 slot_list = [it[0] for it in chunk]
                 len_list = [it[2] for it in chunk]
                 if m == 1:
-                    self.cache, logits = prefill(self.model, toks_dev[0], self.cache, slot_list[0], len_list[0])
+                    self.cache, logits = self._prefill(self.model, toks_dev[0], self.cache, slot_list[0], len_list[0])
                     logits = logits[None]
                 else:
                     self.cache, logits = prefill_many(self.model, toks_dev, self.cache, slot_list, len_list)

@@ -7,7 +7,11 @@ prompt tokens attend causally among themselves) and writes K/V into the
 cache as it goes, quantized when the cache is; decode runs one token per
 slot through the decode attention that `attn_impl` names.  The functions
 take the `GPT` module where the JAX package took its params pytree and
-config; the cache is updated in place.
+config; the cache is updated in place.  Weight-only quantized projections
+(`quant.weights.quantize_gpt_params`, which swaps the linears for
+`QuantizedLinear`s) run through every function here unchanged, as the JAX
+package's `_matmul` takes QuantizedTensor leaves.  The Llama family's
+prefill and decode live in `models/llama.py`, as in the JAX package.
 """
 
 from __future__ import annotations

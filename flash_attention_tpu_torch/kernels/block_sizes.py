@@ -30,6 +30,9 @@ KERNEL_STAGES = 4
 # dK/dV, KV rows for dQ) in a ring of `backward_stages` slots.
 KERNEL_BWD_PINNED = 128
 KERNEL_BWD_STREAM = 64
+# Head dim 256 (csrc/flash_d256.cuh): every kernel pins 32 rows and streams
+# 32-row tiles.
+KERNEL_D256_TILE = 32
 # Shared memory an H100 thread block can use (227 KB).
 SMEM_PER_BLOCK = 232_448
 
@@ -170,9 +173,13 @@ def default_blocks(
     in separate thread blocks that read the same KV head, so the group does
     not grow the tile as it did on the TPU.  The backward's: dK/dV pins 128
     KV rows and walks 64-row query tiles (`bwd_dkv` = (64, 128)), dQ pins
-    128 query rows and walks 64-row KV tiles (`bwd_dq` = (128, 64)).  q_len,
-    kv_len and group are taken for signature parity with the JAX package."""
+    128 query rows and walks 64-row KV tiles (`bwd_dq` = (128, 64)).  Above
+    head dim 128 (the D256 family) every tile is 32 x 32.  q_len, kv_len and
+    group are taken for signature parity with the JAX package."""
     del q_len, kv_len, group
+    if head_dim > 128:
+        t = KERNEL_D256_TILE
+        return BlockSizes(block_q=t, block_kv=t, block_q_dkv=t, block_kv_dkv=t, block_q_dq=t, block_kv_dq=t)
     return BlockSizes(
         block_q=kernel_block_q(head_dim), block_kv=KERNEL_BLOCK_KV,
         block_q_dkv=KERNEL_BWD_STREAM, block_kv_dkv=KERNEL_BWD_PINNED,

@@ -8,10 +8,11 @@ and `flash_attention_with_lse` look at the device of their inputs
 * CUDA tensors go to the hand-written kernels, for every sequence length:
   the forward in `csrc/flash_fwd.cu` (K1) and, for inputs that require
   grad, the backward in `csrc/flash_bwd.cu` (a pre-pass writing di and
-  qs, then K2 dK/dV and K3 dQ).  The kernels are built for head dims 64
-  and 128; the entry points zero-pad any other head dim up to 128 to the
-  next of them and slice the results back (`padded_head_dim`).  Nothing
-  falls back: what the kernels do not take raises.
+  qs, then K2 dK/dV and K3 dQ).  The kernels are built for head dims 64,
+  128 and 256 (256: the SIMT family of `csrc/flash_d256.cuh`); the entry
+  points zero-pad any other head dim up to 256 to the next of them and
+  slice the results back (`padded_head_dim`).  Nothing falls back: what the
+  kernels do not take raises, a head dim above 256 among it.
 * CPU tensors go to the plain versions: `flash_attention_reference` (a tile
   loop with the forward kernel's masks, block-skip bounds and lse) and
   `flash_attention_bwd_reference` (the same for the backward).  Below
@@ -58,14 +59,15 @@ __all__ = [
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def padded_head_dim(d: int) -> int:
     """The head dim the CUDA kernels run a head dim `d` at: 64 for d <= 64,
-    128 for 64 < d <= 128.  Above 128, `d` itself, which they do not take.
-    (The JAX package pads to a multiple of 8, which its TPU kernels take.)"""
+    128 for 64 < d <= 128, 256 for 128 < d <= 256.  Above 256, `d` itself,
+    which they do not take.  (The JAX package pads to a multiple of 8, which
+    its TPU kernels take.)"""
     return next((dp for dp in SUPPORTED_HEAD_DIMS if d <= dp), d)
 
 
@@ -83,7 +85,8 @@ def _pad_head_dim(x: torch.Tensor, dp: int) -> torch.Tensor:
 
 # Launches of each CUDA kernel of the port, counted by its wrapper where it
 # launches: K1-K3 and the backward's pre-pass here, K4 in quant/kv.py, K5
-# and K6 in inference/paged_attention.py.
+# and K6 in inference/paged_attention.py.  Head dim 256 runs other kernels
+# (csrc/flash_d256.cuh), counted under the same name + "_d256".
 KERNEL_LAUNCHES = {
     "flash_fwd": 0,
     "flash_bwd_prep": 0,
@@ -92,7 +95,17 @@ KERNEL_LAUNCHES = {
     "flash_fwd_kv_quant": 0,
     "paged_decode": 0,
     "fused_decode": 0,
+    "flash_fwd_d256": 0,
+    "flash_bwd_prep_d256": 0,
+    "flash_bwd_dkv_d256": 0,
+    "flash_bwd_dq_d256": 0,
+    "flash_fwd_kv_quant_d256": 0,
 }
+
+
+def launch_key(name: str, head_dim: int) -> str:
+    """The KERNEL_LAUNCHES entry of kernel `name` launched at `head_dim`."""
+    return f"{name}_d256" if head_dim == 256 else name
 
 
 @dataclasses.dataclass(frozen=True)
@@ -371,7 +384,9 @@ def _check_kernel_inputs(*ts: torch.Tensor) -> None:
             f"the flash kernels take float32/bfloat16/float16 inputs of one dtype, got {[t.dtype for t in ts]}"
         )
     if d not in SUPPORTED_HEAD_DIMS:
-        raise NotImplementedError(f"the flash kernels are built for head dims {SUPPORTED_HEAD_DIMS}, got {d}")
+        raise NotImplementedError(
+            f"the flash kernels are built for head dims {SUPPORTED_HEAD_DIMS} (entry points pad up to 256), got {d}"
+        )
     if len({t.device for t in ts}) != 1:
         raise ValueError(f"inputs on different devices: {[str(t.device) for t in ts]}")
 
@@ -402,7 +417,7 @@ def _launch(q, k, v, spec: _Spec, segs, need_lse: bool):
         )
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed with cudaError {err}")
-    KERNEL_LAUNCHES["flash_fwd"] += 1
+    KERNEL_LAUNCHES[launch_key("flash_fwd", d)] += 1
     return out, lse
 
 
@@ -451,7 +466,7 @@ def _launch_bwd_prep(args: dict) -> None:
         )
     if err != 0:
         raise RuntimeError(f"flash_bwd_prep launch failed with cudaError {err}")
-    KERNEL_LAUNCHES["flash_bwd_prep"] += 1
+    KERNEL_LAUNCHES[launch_key("flash_bwd_prep", d)] += 1
 
 
 def _bwd_launch(name: str, args: dict, outs: tuple[torch.Tensor, ...]) -> None:
@@ -465,7 +480,7 @@ def _bwd_launch(name: str, args: dict, outs: tuple[torch.Tensor, ...]) -> None:
         )
     if err != 0:
         raise RuntimeError(f"{name} launch failed with cudaError {err}")
-    KERNEL_LAUNCHES[name] += 1
+    KERNEL_LAUNCHES[launch_key(name, args["tail"][6])] += 1
 
 
 def _launch_bwd_dkv(args: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -627,11 +642,13 @@ def flash_attention(
       CUDA kernels keep their own tiles whatever is passed (the forward
       192 x 64 at head dim 64 and 128 x 64 at 128; the backward 128 pinned
       KV rows by 64 query rows for dK/dV, 128 pinned query rows by 64 KV
-      rows for dQ), which changes only the order of summation.
+      rows for dQ; 32 x 32 everywhere at 256), which changes only the order
+      of summation.
 
     Returns [batch, num_q_heads, q_len, head_dim] in q's dtype.  On CUDA,
-    float32, bfloat16 and float16 run natively, at any head dim up to 128
-    (zero-padded to 64 or 128, as the JAX package pads to a multiple of 8).
+    float32, bfloat16 and float16 run natively, at any head dim up to 256
+    (zero-padded to 64, 128 or 256, as the JAX package pads to a multiple
+    of 8); above 256 the CUDA route raises NotImplementedError.
     """
     b, hq, hkv, lq, lk, d = _shapes(q, k, v)
     if sm_scale is None:

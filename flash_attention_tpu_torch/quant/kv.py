@@ -42,6 +42,7 @@ from ..kernels.flash_attention import (
     _segments,
     _shapes,
     flash_attention_reference,
+    launch_key,
     padded_head_dim,
 )
 from ..kernels.vanilla import vanilla_attention
@@ -173,7 +174,7 @@ def _launch(q: torch.Tensor, kv: QuantizedKV, causal: bool, sm_scale: float, win
         )
     if err != 0:
         raise RuntimeError(f"flash_fwd_kv_quant launch failed with cudaError {err}")
-    KERNEL_LAUNCHES["flash_fwd_kv_quant"] += 1
+    KERNEL_LAUNCHES[launch_key("flash_fwd_kv_quant", d)] += 1
     return out
 
 
@@ -194,9 +195,10 @@ def flash_attention_kv_quant(
     main op's feature set: causal with queries aligned to the end of KV,
     sliding window, segment ids (an int tensor [B, L] or a (q_ids, kv_ids)
     pair).  block_sizes sets the plain version's tiles only.  Returns
-    [B, Hq, Lq, D] in q's dtype.  On CUDA any head dim up to 128 runs: q and
-    the payloads are zero-padded to 64 or 128 (`padded_head_dim`; the
-    scales stay as they are) and the output is sliced back.
+    [B, Hq, Lq, D] in q's dtype.  On CUDA any head dim up to 256 runs: q and
+    the payloads are zero-padded to 64, 128 or 256 (`padded_head_dim`; the
+    scales stay as they are) and the output is sliced back; above 256 the
+    CUDA route raises NotImplementedError.
     """
     b, hq, hkv, lq, lk, d = _check_kv(q, kv)
     if sm_scale is None:

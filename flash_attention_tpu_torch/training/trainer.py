@@ -11,9 +11,12 @@
   records, periodic checkpoints, `resume`, and an emergency checkpoint
   when `fit` fails.
 
-Left for later slices: `autotune_blocks` (measurement), the sharding
-arguments (parallel) and the Llama family (`models/llama.py` is not ported
-yet).
+The model family is dispatched on the config's type, as in the JAX
+package: a GPTConfig builds a `GPT` and trains with the dropout-aware GPT
+loss, a LlamaConfig a `Llama` with `llama.loss_fn`.
+
+Left for later slices: `autotune_blocks` (measurement) and the sharding
+arguments (parallel).
 """
 
 from __future__ import annotations
@@ -27,13 +30,16 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from ..models import gpt
+from ..models import gpt, llama
 from .optimizer import make_optimizer
 
 
 def _default_loss(cfg) -> Callable:
-    """(model, idx, targets, rng, train) -> scalar loss for a GPTConfig:
-    the dropout-aware gpt loss."""
+    """(model, idx, targets, rng, train) -> scalar loss for `cfg`'s model
+    family: the dropout-aware gpt loss for a GPTConfig, the llama one (no
+    dropout in the architecture) for a LlamaConfig."""
+    if isinstance(cfg, llama.LlamaConfig):
+        return lambda m, i, t, rng, train: llama.loss_fn(m, i, t)
     if not isinstance(cfg, gpt.GPTConfig):
         raise TypeError(f"no default loss for {type(cfg).__name__}: pass loss=")
     return lambda m, i, t, rng, train: gpt.loss_fn(m, i, t, rng=rng if train else None, deterministic=not train)
@@ -148,10 +154,12 @@ class TrainerConfig:
 class Trainer:
     """Single-device training loop with periodic eval.
 
-    cfg: a GPTConfig.  model: a GPT to train (its weights are trained in
-    place); default a fresh one with fp32 master weights, drawn from
-    `seed`.  device: where a fresh model lives (default the card, "cuda",
-    which raises without one; "cpu" when asked for).
+    cfg: a GPTConfig or a LlamaConfig.  model: the GPT or Llama to train
+    (its weights are trained in place); default a fresh one of cfg's family
+    with fp32 master weights, drawn from `seed` (a GPT's on the CPU, a
+    Llama's by a generator on `device`).  device: where a fresh model lives
+    (default the card, "cuda", which raises without one; "cpu" when asked
+    for).
     """
 
     def __init__(self, cfg, tcfg: TrainerConfig, *, model=None, seed: int = 0, device=None):
@@ -159,11 +167,13 @@ class Trainer:
         self.tcfg = tcfg
         init_seed, rng_seed = np.random.SeedSequence(seed).generate_state(2)
         if model is None:
-            model = gpt.GPT(
-                cfg,
-                generator=torch.Generator().manual_seed(int(init_seed)),
-                device=resolve_device(device),
-                param_dtype=torch.float32,
+            device = resolve_device(device)
+            if isinstance(cfg, llama.LlamaConfig):
+                model_cls, gen = llama.Llama, torch.Generator(device=device)
+            else:
+                model_cls, gen = gpt.GPT, torch.Generator()
+            model = model_cls(
+                cfg, generator=gen.manual_seed(int(init_seed)), device=device, param_dtype=torch.float32
             )
         self.model = model
         # The host generator that draws each step's dropout seed.

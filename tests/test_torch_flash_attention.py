@@ -60,14 +60,14 @@ def test_flash_attention_with_lse_matches_jax(lq, lk):
     np.testing.assert_allclose(n(tl), n(jl), atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("d", [16, 96])
+@pytest.mark.parametrize("d", [16, 96, 160, 256])
 def test_padded_head_dim_route_matches_jax(d):
     """The CUDA route's padding on the plain version: q/k/v zero-padded to
-    D64 (d <= 64) or D128, the plain loop there with the true sm_scale, the
-    output sliced back.  Out and lse against JAX at d itself (which pads to
-    a multiple of 8), fp32, 1e-5."""
+    D64 (d <= 64), D128 (d <= 128) or D256, the plain loop there with the
+    true sm_scale, the output sliced back.  Out and lse against JAX at d
+    itself (which pads to a multiple of 8), fp32, 1e-5."""
     dp = tfa.padded_head_dim(d)
-    assert dp == (64 if d <= 64 else 128)
+    assert dp == next(p for p in (64, 128, 256) if d <= p)
     q, k, v = _qkv(200, 200, d=d, seed=21)
     jo, jl = jfa.flash_attention_with_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     padded = [tfa._pad_head_dim(t(x), dp) for x in (q, k, v)]
@@ -81,8 +81,9 @@ def test_padded_head_dim_route_matches_jax(d):
     np.testing.assert_allclose(n(tout), n(jout), atol=1e-5, rtol=0)
 
 
-def test_padded_head_dim_is_64_or_128_up_to_128():
-    assert [tfa.padded_head_dim(d) for d in (8, 16, 32, 64, 65, 96, 128, 160)] == [64, 64, 64, 64, 128, 128, 128, 160]
+def test_padded_head_dim_is_64_128_or_256_up_to_256():
+    ds = (8, 16, 32, 64, 65, 96, 128, 129, 160, 192, 256, 288)
+    assert [tfa.padded_head_dim(d) for d in ds] == [64, 64, 64, 64, 128, 128, 128, 256, 256, 256, 256, 288]
 
 
 def test_window_and_segments_match_jax():
@@ -149,6 +150,9 @@ def test_default_blocks_is_the_kernel_tile():
     assert tbs.default_blocks(40, 384, 128, group=4) == tbs.BlockSizes(128, 64, **bwd)
     assert tbs.default_blocks(1024, 1024, 64).bwd_dkv() == (64, 128)
     assert tbs.default_blocks(1024, 1024, 128).bwd_dq() == (128, 64)
+    # the D256 family (csrc/flash_d256.cuh): 32 pinned rows, 32-row tiles
+    d256 = tbs.default_blocks(1024, 1024, 256)
+    assert (d256.block_q, d256.block_kv, d256.bwd_dkv(), d256.bwd_dq()) == (32, 32, (32, 32), (32, 32))
 
 
 @pytest.mark.parametrize("lq,lk", [(300, 300), (200, 330)])

@@ -24,6 +24,7 @@ from flash_attention_tpu_torch.kernels.vanilla import vanilla_attention
 # The packages' kernels/__init__ re-export functions named like the modules.
 jfa = importlib.import_module("flash_attention_tpu.kernels.flash_attention")
 tfa = importlib.import_module("flash_attention_tpu_torch.kernels.flash_attention")
+tkv = importlib.import_module("flash_attention_tpu_torch.quant.kv")
 
 
 def _segment_ids(b, length, n_seg=3):
@@ -223,10 +224,10 @@ def test_prep_qs_matches_the_jax_recompute_p(dtype):
     np.testing.assert_allclose(n(torch.exp2(qs.float())), np.asarray(p), rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("d", [16, 96])
+@pytest.mark.parametrize("d", [16, 96, 160, 256])
 def test_padded_head_dim_grads_match_jax(d):
     """The CUDA route's padding on the plain versions: q/k/v zero-padded to
-    D64 or D128 with `torch.nn.functional.pad`, the autograd Function there
+    D64, D128 or D256 with `torch.nn.functional.pad`, the autograd Function there
     with the true sm_scale, out sliced back.  Autograd slices the grads back;
     out, lse and the q/k/v grads (out and lse cotangents) against
     `jax.grad` of the JAX package at d itself: fp32, forward 1e-5, backward
@@ -253,10 +254,10 @@ def test_padded_head_dim_grads_match_jax(d):
 
 
 @pytest.mark.parametrize("entry", ["flash_attention", "with_lse", "segments"])
-@pytest.mark.parametrize("d", [16, 96])
+@pytest.mark.parametrize("d", [16, 96, 160, 256])
 def test_cuda_route_launches_padded_head_dims(d, entry, monkeypatch):
     """On the CUDA route the entry points hand the kernels' launchers q/k/v
-    (and dO) padded to D64 or D128, with sm_scale from the true d, and slice
+    (and dO) padded to D64, D128 or D256, with sm_scale from the true d, and slice
     the results back.  The launchers are stood in for by recorders that run
     the plain versions, so no card is needed; the results are held against
     JAX at d (fp32, forward 1e-5, backward 1e-4)."""
@@ -289,10 +290,31 @@ def test_cuda_route_launches_padded_head_dims(d, entry, monkeypatch):
         out = tfa.flash_attention(qt, kt, vt, **kw_t)
         jfn = functools.partial(jfa.flash_attention, **kw_j)
     out.backward(t(do))
-    dp = 64 if d <= 64 else 128
+    dp = next(p for p in (64, 128, 256) if d <= p)
     assert seen == [("fwd", dp, dp, dp, d ** -0.5), ("bwd", dp, dp, dp, dp, d ** -0.5)]
     want, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (q, k, v)))
     assert out.shape == q.shape
     np.testing.assert_allclose(n(out), np.asarray(want), atol=1e-5, rtol=0)
     for name, g, w in zip(("dq", "dk", "dv"), (qt.grad, kt.grad, vt.grad), vjp(jnp.asarray(do))):
         np.testing.assert_allclose(n(g), np.asarray(w), atol=1e-4, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("entry", ["flash_attention", "with_lse", "kv_quant"])
+def test_cuda_route_raises_above_head_dim_256(entry, monkeypatch):
+    """No model in the repo has a head dim above 256 and the kernels are not
+    built for one: on the CUDA route D288 raises before any launch (the
+    real launchers check the head dim before they build or load the
+    kernels, so no card is needed to see it)."""
+    monkeypatch.setattr(tfa, "kernel_route", lambda *ts: "cuda")
+    monkeypatch.setattr(tkv, "kernel_route", lambda *ts: "cuda")
+    before = dict(tfa.KERNEL_LAUNCHES)
+    q = torch.zeros(1, 4, 130, 288)
+    kv = torch.zeros(1, 2, 130, 288)
+    with pytest.raises(NotImplementedError, match="288"):
+        if entry == "flash_attention":
+            tfa.flash_attention(q, kv, kv)
+        elif entry == "with_lse":
+            tfa.flash_attention_with_lse(q, kv, kv)
+        else:
+            tkv.flash_attention_kv_quant(q, tkv.quantize_kv(kv, kv))
+    assert tfa.KERNEL_LAUNCHES == before

@@ -347,7 +347,7 @@ def test_top_k_top_p_restrict_support():
 
 @pytest.mark.parametrize(
     "option",
-    ["prefill_fn", "chunk_prefill", "prefill_chunk_fn", "scan_tokens_target", "pipeline_scans", "draft_params",
+    ["spec_adaptive", "chunk_prefill", "prefill_chunk_fn", "scan_tokens_target", "pipeline_scans", "draft_params",
      "spec_k"],
 )
 def test_engine_rejects_unported_options(models, option):
