@@ -3,7 +3,8 @@
     python3 chip_smoke.py [--seed 0]
 
 Phases, each printing its lines; any failure raises, so the script exits
-non-zero and never prints the final `"ok": true` line:
+non-zero and never prints the final `"ok": true` line (the d256 phases
+are 7-9):
 
 1. device   - a CUDA card of capability 9.0 (Hopper), its name and power
               limit from nvidia-smi; TF32 off for fp32 matmuls.
@@ -32,15 +33,29 @@ non-zero and never prints the final `"ok": true` line:
               lengths and at the split's edges (cache lengths 0, chunk - 1,
               chunk, chunk + 1, capacity - 1), K5 with a permuted page
               table and NaN past the lengths, GQA 32/8 at D128.
-7. d256     - head dims 160 (padded to 256) and 256, the SIMT kernels of
-              csrc/flash_d256.cuh: K1 (and lse), the pre-pass, K2/K3 and K4
-              (int8, fp8) against their plain versions and fp32 vanilla,
-              with GQA 8/2, windows, segment ids and ragged edges.
+7. d256     - head dims 160 and 256 (run at 256: the wgmma K1, K4 and K2
+              for bf16/fp16, the SIMT family of csrc/flash_d256.cuh for fp32
+              and for K3), 288 and 520 (padded to 512 and 1024, the SIMT
+              family): K1, its lse (fp32, against vanilla), the pre-pass,
+              K2/K3 and K4 (int8, fp8) against their plain versions and fp32
+              vanilla, with GQA 8/2 at q129 x kv257 and window 100, 3
+              segments, rows that see no key, the lse cotangent and fp32
+              non-causal, and K1 and the grads at the d256-path's shape (b4
+              h3 L1024, causal only, so most tiles take the unmasked
+              branch); then the bf16 wgmma K1 (out, lse), K2 and K4 at b2
+              GQA 8/2 L1024 against the SIMT kernels they replaced, and
+              both against the plain versions.
 8. d256-path - the D256 route through the entry points: a 2-layer GPT at
-              GPT-2's width with 3 heads of 256, 4 Trainer steps at b4 x
-              T1024 (K1, the pre-pass, K2 and K3 at D256 launched n_layer x
-              steps times each, nothing at 64 / 128), then the quant op at
-              D256 over 4 layers (K4 at D256 launched 4 times).
+              GPT-2's width with 3 heads of 256, 6 Trainer steps at b4 x
+              T1024 in bf16 (the "_d256" keys, the wgmma K1 and K2, the
+              SIMT K3 and the pre-pass, launched n_layer x steps times
+              each, nothing else; the median step ms), then the quant op at
+              D256 over 4 layers (the wgmma K4 launched 4 times).
+   simt-path - the SIMT family through the entry points: forward and
+              backward of flash_attention and K4 (int8) at b2 h4 L1024 for
+              D288 and D520 bf16 and D256 fp32; the "_wide" and
+              "_d256_simt" keys launched as SIMT_PATH_LAUNCHES says; every
+              output and grad against its plain version and fp32 vanilla.
 9. llama    - the slice: Llama-3 8B at full width and depth (32 layers,
               4096 wide, GQA 32/8 D128, vocab 128256), bf16, random weights
               drawn on the card from the seed, behind the engine with
@@ -96,7 +111,8 @@ non-zero and never prints the final `"ok": true` line:
               within 2e-3.
 19. timing  - K1 at the Llama prefill shape (b1, GQA 32/8, L1024, D128) and
               the D256 kernels at b8 h12 L1024, beside their plain
-              versions, bounds and torch SDPA forward / backward; then K1,
+              versions, bounds, torch SDPA forward / backward and the SIMT
+              kernels the wgmma K1, K2 and K4 replaced; then K1,
               and the backward (pre-pass, K2, K3, and the three together)
               at b1 and b8 (D64) and b8 D128, against the plain
               versions and vanilla at GPT-2 shapes, and torch SDPA forward /
@@ -110,13 +126,17 @@ non-zero and never prints the final `"ok": true` line:
               slot-major cache.  Device time: a CUDA graph of 20 calls
               between CUDA events (graph_ms); "a call" adds the host's
               enqueue.  Each kernel beside its bound: the larger of its bytes
-              at 3.35 TB/s and its FLOPs at 989 TFLOP/s.
+              at 3.35 TB/s and its FLOPs at 989 TFLOP/s (67 for fp32).  Last,
+              the SIMT family at b8 h12 L1024: fp32 D256 and bf16 D512 (and
+              D1024, no plain versions).
 
-The line before the last is a JSON summary of the kernels, the D256 ones as
-rows of their own (launches on their path, max error, device ms, plain ms,
-bound ms and what sets it, library ms or null; K1's row also carries its
-launches on the Llama path and its times at the Llama prefill shape); the
-last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON summary of the kernels, the D256, the
+"_d256_simt" and the "_wide" ones as rows of their own (launches on their
+path, max error, device ms, plain ms, bound ms and what sets it, library ms
+or null; K1's row also carries its launches on the Llama path and its
+times at the Llama prefill shape, the wgmma D256 rows the SIMT kernel's
+time as simt_ms, the wide rows D1024's times as d1024_*); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -127,6 +147,7 @@ import dataclasses
 import functools
 import importlib
 import json
+import math
 import os
 import re
 import statistics
@@ -170,22 +191,43 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "flash_fwd_kv_quant": ("flash_attention_tpu_torch/csrc/flash_fwd_kv_quant.cu", "flash_attention_tpu/quant/kv.py:98"),
     "paged_decode": ("flash_attention_tpu_torch/csrc/decode.cu", "flash_attention_tpu/inference/paged_attention.py:34"),
     "fused_decode": ("flash_attention_tpu_torch/csrc/decode.cu", "flash_attention_tpu/inference/decode_attention.py:195"),
-    # head dims 129-256, padded to 256: the SIMT family of flash_d256.cuh
-    # (the pre-pass is flash_bwd.cu's own, instantiated at 256)
-    "flash_fwd_d256": ("flash_attention_tpu_torch/csrc/flash_d256.cuh",
+    # head dims 129-256, padded to 256, bf16/fp16: the wgmma K1, K4 and K2
+    # (flash_fwd_d256.cu, flash_bwd_d256.cu), the SIMT K3 (flash_d256.cuh)
+    # and flash_bwd.cu's pre-pass instantiated at 256
+    "flash_fwd_d256": ("flash_attention_tpu_torch/csrc/flash_fwd_d256.cu",
                        "flash_attention_tpu/kernels/flash_attention.py:269"),
     "flash_bwd_prep_d256": ("flash_attention_tpu_torch/csrc/flash_bwd.cu",
                             "flash_attention_tpu/kernels/flash_attention.py:1112"),
-    "flash_bwd_dkv_d256": ("flash_attention_tpu_torch/csrc/flash_d256.cuh",
+    "flash_bwd_dkv_d256": ("flash_attention_tpu_torch/csrc/flash_bwd_d256.cu",
                            "flash_attention_tpu/kernels/flash_attention.py:637"),
-    "flash_bwd_dq_d256": ("flash_attention_tpu_torch/csrc/flash_d256.cuh",
+    "flash_bwd_dq_d256": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
                           "flash_attention_tpu/kernels/flash_attention.py:765"),
-    "flash_fwd_kv_quant_d256": ("flash_attention_tpu_torch/csrc/flash_d256.cuh", "flash_attention_tpu/quant/kv.py:98"),
+    "flash_fwd_kv_quant_d256": ("flash_attention_tpu_torch/csrc/flash_fwd_d256.cu",
+                                "flash_attention_tpu/quant/kv.py:98"),
+    # fp32 at 256: the SIMT family of flash_d256.cuh
+    "flash_fwd_d256_simt": ("flash_attention_tpu_torch/csrc/flash_simt_fwd.cu",
+                            "flash_attention_tpu/kernels/flash_attention.py:269"),
+    "flash_bwd_dkv_d256_simt": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
+                                "flash_attention_tpu/kernels/flash_attention.py:637"),
+    "flash_fwd_kv_quant_d256_simt": ("flash_attention_tpu_torch/csrc/flash_simt_fwd_kv_quant.cu",
+                                     "flash_attention_tpu/quant/kv.py:98"),
+    # head dims 257-1024, padded to 512 or 1024: the SIMT family
+    "flash_fwd_wide": ("flash_attention_tpu_torch/csrc/flash_simt_fwd.cu",
+                       "flash_attention_tpu/kernels/flash_attention.py:269"),
+    "flash_bwd_prep_wide": ("flash_attention_tpu_torch/csrc/flash_bwd.cu",
+                            "flash_attention_tpu/kernels/flash_attention.py:1112"),
+    "flash_bwd_dkv_wide": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
+                           "flash_attention_tpu/kernels/flash_attention.py:637"),
+    "flash_bwd_dq_wide": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
+                          "flash_attention_tpu/kernels/flash_attention.py:765"),
+    "flash_fwd_kv_quant_wide": ("flash_attention_tpu_torch/csrc/flash_simt_fwd_kv_quant.cu",
+                                "flash_attention_tpu/quant/kv.py:98"),
 }
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd_prep", "flash_bwd_dkv", "flash_bwd_dq")
 D256_TRAINING_KERNELS = tuple(f"{k}_d256" for k in TRAINING_KERNELS)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12  # fp32 FMA outside the tensor cores
 
 
 def say(*parts) -> None:
@@ -355,8 +397,8 @@ def check_prep(label, gen, b, hq, lq, d, dtype, with_lse=False) -> float:
     inputs (o from the forward, read through its [B, L, H, D] strides): di
     against (o.float() * do.float()).sum(-1) - dlse, fp32, absolute 1e-5
     (D products summed in another order); qs against (q.float() * sm_scale
-    * log2 e).to(dtype), bit for bit (fp32 writes no qs).  Returns di's
-    error."""
+    * log2 e).to(dtype), bit for bit (fp32 and head dims above 256, whose
+    kernels do not read it, write no qs).  Returns di's error."""
     q, k, v, do = (_rand(gen, (b, hq, lq, d), dtype) for _ in range(4))
     dlse = _rand(gen, (b, hq, lq), torch.float32) if with_lse else None
     with torch.no_grad():
@@ -371,7 +413,7 @@ def check_prep(label, gen, b, hq, lq, d, dtype, with_lse=False) -> float:
     same = qs is None or torch.equal(qs.view(torch.int16), qs_ref.contiguous().view(torch.int16))
     ok = err <= 1e-5 and same and bool(torch.isfinite(di).all())
     say(f"[k2k3] pre-pass {label:<34} di vs plain {err:.2e} (atol 1e-5), qs "
-        f"{'bit-equal' if qs is not None and same else 'not written (fp32)' if qs is None else 'DIFFERS'}  "
+        f"{'bit-equal' if qs is not None and same else 'not written (fp32, D > 256)' if qs is None else 'DIFFERS'}  "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"[k2k3] pre-pass {label} disagrees with its plain expression")
@@ -1121,10 +1163,11 @@ def graph_ms(fn, calls: int = 20, runs: int = 10) -> float:
     return time_ms(graph.replay, runs=runs) / calls
 
 
-def _floor_ms(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
+def _floor_ms(nbytes: float, flops: float = 0.0, peak: float = BF16_FLOPS) -> tuple[float, str]:
     """The least time the card could take, and what sets it: the bytes at
-    3.35 TB/s or the FLOPs at 989 TFLOP/s (bf16), whichever takes longer."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    3.35 TB/s or the FLOPs at the inputs' peak rate (989 TFLOP/s for bf16,
+    67 for fp32 outside the tensor cores), whichever takes longer."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -1269,24 +1312,97 @@ def time_decode(gen: torch.Generator, smi: str, shape: tuple, store: str) -> dic
 # ---------------------------------------------------------------------------
 
 
+def _key(name: str, d: int, dtype: torch.dtype) -> str:
+    """The KERNEL_LAUNCHES key of kernel `name` for an input of head dim d."""
+    return FA._route(name, FA.padded_head_dim(d), dtype)[0]
+
+
+def _keep_worst(worst: dict, key: str, err: float) -> None:
+    worst[key] = max(worst.get(key, 0.0), err)
+
+
+def compare_simt_d256(gen, b, hq, hkv, L, dtype) -> dict:
+    """The wgmma K1 (with lse), K2 and K4 at head dim 256 against the SIMT
+    kernels they replaced (the `simt` route), and both against the plain
+    versions, on the same inputs: out and lse within 2e-2 (K1's bf16
+    tier), dK and dV within 2e-2 x the largest |grad| (the backward's), K4
+    on int8 within 2e-2.  Returns the errors of the wgmma kernels against
+    the SIMT ones."""
+    d = 256
+    q = _rand(gen, (b, hq, L, d), dtype)
+    k, v = (_rand(gen, (b, hkv, L, d), dtype) for _ in range(2))
+    do = _rand(gen, (b, hq, L, d), dtype)
+    spec = FA._Spec(causal=True, sm_scale=d ** -0.5, window=None, blocks=FA.default_blocks(L, L, d, dtype=dtype))
+    o, lse = FA._launch(q, k, v, spec, None, True)
+    o_s, lse_s = FA._launch(q, k, v, spec, None, True, simt=True)
+    args = FA._bwd_args(q, k, v, o, lse, do, None, spec, None)
+    FA._launch_bwd_prep(args)
+    dk, dv = (x.clone() for x in FA._launch_bwd_dkv(args))
+    dk_s, dv_s = FA._launch_bwd_dkv(args, simt=True)
+    kv = QK.quantize_kv(k.float(), v.float())
+    o4 = QK._launch(q, kv, True, spec.sm_scale, None, None)
+    o4_s = QK._launch(q, kv, True, spec.sm_scale, None, None, simt=True)
+    with torch.no_grad():
+        o_p, lse_p = FA.flash_attention_reference(q, k, v)
+        dk_p, dv_p = FA.flash_attention_bwd_dkv_reference(q, k, v, o_p, lse_p, do)
+        o4_p = QK.flash_attention_kv_quant_reference(q, kv)
+    torch.cuda.synchronize()
+
+    def errors(o, lse, dk, dv, o4, o_r, lse_r, dk_r, dv_r, o4_r) -> dict:
+        return {
+            "flash_fwd_d256": max((o.float() - o_r.float()).abs().max().item(), (lse - lse_r).abs().max().item()),
+            "flash_bwd_dkv_d256": max(
+                (dk.float() - dk_r.float()).abs().max().item() / dk_r.float().abs().max().item(),
+                (dv.float() - dv_r.float()).abs().max().item() / dv_r.float().abs().max().item()),
+            "flash_fwd_kv_quant_d256": (o4.float() - o4_r.float()).abs().max().item(),
+        }
+
+    errs = errors(o, lse, dk, dv, o4, o_s, lse_s, dk_s, dv_s, o4_s)
+    plain = (o_p, lse_p, dk_p, dv_p, o4_p)
+    vs_plain = (errors(o, lse, dk, dv, o4, *plain), errors(o_s, lse_s, dk_s, dv_s, o4_s, *plain))
+    ok = all(e <= 2e-2 and math.isfinite(e) for r in (errs, *vs_plain) for e in r.values())
+    say(f"[d256] wgmma vs the SIMT kernels it replaced, b{b} gqa {hq}/{hkv} L{L} D256 {dtype}: K1 out/lse "
+        f"{errs['flash_fwd_d256']:.3e}, K2 dK/dV {errs['flash_bwd_dkv_d256']:.3e} of max |grad|, K4 int8 "
+        f"{errs['flash_fwd_kv_quant_d256']:.3e}; against the plain versions, wgmma / SIMT: " + ", ".join(
+            f"{name} {a:.3e} / {vs_plain[1][name]:.3e}" for name, a in vs_plain[0].items())
+        + f" (2e-2)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[d256] the wgmma kernels, the SIMT ones and the plain versions disagree")
+    return errs
+
+
 def phase_d256(seed: int) -> dict:
-    """K1, the pre-pass, K2/K3 and K4 at head dims 160 (padded to 256) and
-    256 against their plain versions and fp32 vanilla, with GQA 8/2, a
-    window, segment ids, the tiles' ragged edges and K4 on int8 and fp8;
-    returns each D256 kernel's worst error against its plain version."""
+    """K1, the pre-pass, K2/K3 and K4 at head dims 160 and 256 (both run at
+    256: bf16/fp16 on the wgmma K1, K4 and K2, fp32 and every K3 on the SIMT
+    family), 288 and 520 (padded to 512 and 1024, the SIMT family) against
+    their plain versions and fp32 vanilla, with GQA 8/2, windows, segment
+    ids, rows that see no key, the tiles' ragged edges and K4 on int8 and
+    fp8; then the bf16 wgmma kernels against the SIMT ones they replaced.
+    Returns each kernel's worst error against its plain version, by
+    KERNEL_LAUNCHES key."""
     gen = torch.Generator().manual_seed(seed + 9)
     bf16, f16, f32, i8, f8 = torch.bfloat16, torch.float16, torch.float32, torch.int8, torch.float8_e4m3fn
-    say("[d256] head dims 160 (zero-padded to 256) and 256: the SIMT kernels of flash_d256.cuh, tolerances as at "
-        "64 / 128")
-    fwd = [
-        check_k1("d256 gqa 8/2 q129 kv257 window 100 bf16", gen, 2, 8, 2, 129, 257, 256, bf16, True, 2e-2, window=100),
-        check_k1("d256 b2 h12 L1024 3 segments bf16", gen, 2, 12, 12, 1024, 1024, 256, bf16, True, 2e-2,
-                 segments=True),
-        check_k1("d160 gqa 8/2 L384 window 100 fp16", gen, 1, 8, 2, 384, 384, 160, f16, True, 2e-2, window=100),
-        check_k1("d160 fp32 b1 h4 L300 3 segments", gen, 1, 4, 4, 300, 300, 160, f32, True, 1e-5, segments=True),
-        check_k1("d256 fp32 non-causal q200 kv300", gen, 1, 4, 2, 200, 300, 256, f32, False, 1e-5),
-    ]
-    for d in (160, 256):
+    say("[d256] head dims 160 and 256 (the wgmma K1, K4, K2 for bf16/fp16; the SIMT family for fp32 and K3), 288 "
+        "and 520 (zero-padded to 512 and 1024, the SIMT family): tolerances as at 64 / 128")
+    worst: dict = {}
+    for label, b, hq, hkv, lq, lk, d, dtype, causal, atol, kw in (
+        ("d256 gqa 8/2 q129 kv257 window 100 bf16", 2, 8, 2, 129, 257, 256, bf16, True, 2e-2, dict(window=100)),
+        ("d256 b2 h12 L1024 3 segments bf16", 2, 12, 12, 1024, 1024, 256, bf16, True, 2e-2, dict(segments=True)),
+        # the d256-path's shape with no mask but causality: every tile below
+        # the diagonal takes the kernel's unmasked branch
+        ("d256 b4 h3 L1024 bf16 (d256-path)", 4, 3, 3, 1024, 1024, 256, bf16, True, 2e-2, {}),
+        ("d256 b4 h3 L1024 fp16", 4, 3, 3, 1024, 1024, 256, f16, True, 2e-2, {}),
+        ("d160 gqa 8/2 L384 window 100 fp16", 1, 8, 2, 384, 384, 160, f16, True, 2e-2, dict(window=100)),
+        ("d160 fp32 b1 h4 L300 3 segments", 1, 4, 4, 300, 300, 160, f32, True, 1e-5, dict(segments=True)),
+        ("d256 fp32 non-causal q200 kv300", 1, 4, 2, 200, 300, 256, f32, False, 1e-5, {}),
+        ("d288 gqa 8/2 q129 kv257 window 100 bf16", 2, 8, 2, 129, 257, 288, bf16, True, 2e-2, dict(window=100)),
+        ("d520 b1 h4 L300 3 segments fp16", 1, 4, 4, 300, 300, 520, f16, True, 2e-2, dict(segments=True)),
+        ("d288 fp32 non-causal q200 kv300", 1, 4, 2, 200, 300, 288, f32, False, 1e-5, {}),
+        ("d520 fp32 gqa 4/2 L200 window 64", 1, 4, 2, 200, 200, 520, f32, True, 1e-5, dict(window=64)),
+    ):
+        _keep_worst(worst, _key("flash_fwd", d, dtype),
+                    check_k1(label, gen, b, hq, hkv, lq, lk, d, dtype, causal, atol, **kw))
+    for d in (160, 256, 288, 520):
         q, k, v = (_rand(gen, (1, 4, 300, d), f32) for _ in range(3))
         with torch.no_grad():
             out, lse = FA.flash_attention_with_lse(q, k, v)
@@ -1296,41 +1412,58 @@ def phase_d256(seed: int) -> dict:
         say(f"[d256] lse fp32 b1 h4 L300 D{d}: out and lse vs vanilla {e:.3e} atol 1e-05 {'ok' if e <= 1e-5 else 'FAIL'}")
         if e > 1e-5 or out.shape != q.shape:
             raise AssertionError("[d256] lse outside tolerance")
-    prep = [check_prep("d256 b2 h12 L1024 bf16", gen, 2, 12, 1024, 256, bf16, with_lse=True),
-            check_prep("d256 fp32 b1 h4 L300", gen, 1, 4, 300, 256, f32)]
-    grads = [
-        check_grads("d256 gqa 8/2 q129 kv257 w100 bf16", gen, 2, 8, 2, 129, 257, 256, bf16, window=100),
-        check_grads("d256 b1 h4 L512 3 segments bf16", gen, 1, 4, 4, 512, 512, 256, bf16, segments=True),
-        check_grads("d160 gqa 8/2 L300 fp16", gen, 1, 8, 2, 300, 300, 160, f16),
-        check_grads("d160 fp32 gqa 4/2 L200 window 64", gen, 1, 4, 2, 200, 200, 160, f32, window=64),
-        check_grads("d256 lse cotangent fp32 b1 h4 L300", gen, 1, 4, 2, 300, 300, 256, f32, with_lse=True),
-        check_grads("d256 no-key rows fp32 q300 kv200", gen, 1, 4, 4, 300, 200, 256, f32, no_key_rows=100),
-    ]
-    k4 = [
-        check_k4("d256 gqa 8/2 L1024 bf16 int8 window 256", gen, 1, 8, 2, 1024, 1024, 256, bf16, i8, 2e-2,
-                 window=256),
-        check_k4("d256 b2 h4 L300 bf16 fp8 3 segments", gen, 2, 4, 4, 300, 300, 256, bf16, f8, 2e-2, segments=True),
-        check_k4("d160 lk%4=3 q1023 gqa 8/2 fp16 fp8", gen, 1, 8, 2, 1023, 1023, 160, f16, f8, 2e-2),
-        check_k4("d256 fp32 b1 h4 L384 int8", gen, 1, 4, 4, 384, 384, 256, f32, i8, 5e-5),
-        check_k4("d160 fp32 gqa 4/2 L300 fp8 window 100", gen, 1, 4, 2, 300, 300, 160, f32, f8, 5e-5, window=100),
-    ]
-    return {
-        "flash_fwd_d256": max(fwd), "flash_bwd_prep_d256": max(prep),
-        "flash_bwd_dkv_d256": max(max(r["dk"], r["dv"]) for r in grads),
-        "flash_bwd_dq_d256": max(r["dq"] for r in grads), "flash_fwd_kv_quant_d256": max(k4),
-    }
+    for label, b, hq, lq, d, dtype, kw in (
+        ("d256 b2 h12 L1024 bf16", 2, 12, 1024, 256, bf16, dict(with_lse=True)),
+        ("d256 fp32 b1 h4 L300", 1, 4, 300, 256, f32, {}),
+        ("d512 b1 h4 L300 bf16", 1, 4, 300, 512, bf16, dict(with_lse=True)),
+        ("d1024 fp32 b1 h4 L300", 1, 4, 300, 1024, f32, {}),
+    ):
+        _keep_worst(worst, _key("flash_bwd_prep", d, dtype), check_prep(label, gen, b, hq, lq, d, dtype, **kw))
+    for label, b, hq, hkv, lq, lk, d, dtype, kw in (
+        ("d256 gqa 8/2 q129 kv257 w100 bf16", 2, 8, 2, 129, 257, 256, bf16, dict(window=100)),
+        ("d256 b1 h4 L512 3 segments bf16", 1, 4, 4, 512, 512, 256, bf16, dict(segments=True)),
+        ("d256 no-key rows q300 kv200 bf16", 1, 4, 4, 300, 200, 256, bf16, dict(no_key_rows=100)),
+        ("d256 lse cotangent b2 h4 L1024 bf16", 2, 4, 2, 1024, 1024, 256, bf16, dict(with_lse=True)),
+        ("d256 b4 h3 L1024 bf16 (d256-path)", 4, 3, 3, 1024, 1024, 256, bf16, {}),
+        ("d160 gqa 8/2 L300 fp16", 1, 8, 2, 300, 300, 160, f16, {}),
+        ("d160 fp32 gqa 4/2 L200 window 64", 1, 4, 2, 200, 200, 160, f32, dict(window=64)),
+        ("d256 lse cotangent fp32 b1 h4 L300", 1, 4, 2, 300, 300, 256, f32, dict(with_lse=True)),
+        ("d256 no-key rows fp32 q300 kv200", 1, 4, 4, 300, 200, 256, f32, dict(no_key_rows=100)),
+        ("d288 gqa 8/2 q129 kv257 w100 bf16", 2, 8, 2, 129, 257, 288, bf16, dict(window=100)),
+        ("d520 b1 h4 L300 3 segments fp16", 1, 4, 4, 300, 300, 520, f16, dict(segments=True)),
+        ("d288 lse cotangent fp32 b1 h4 L300", 1, 4, 2, 300, 300, 288, f32, dict(with_lse=True)),
+        ("d520 no-key rows fp32 q300 kv200", 1, 4, 4, 300, 200, 520, f32, dict(no_key_rows=100)),
+    ):
+        r = check_grads(label, gen, b, hq, hkv, lq, lk, d, dtype, **kw)
+        _keep_worst(worst, _key("flash_bwd_dkv", d, dtype), max(r["dk"], r["dv"]))
+        _keep_worst(worst, _key("flash_bwd_dq", d, dtype), r["dq"])
+    for label, b, hq, hkv, lq, lk, d, dtype, qdt, atol, kw in (
+        ("d256 gqa 8/2 L1024 bf16 int8 window 256", 1, 8, 2, 1024, 1024, 256, bf16, i8, 2e-2, dict(window=256)),
+        ("d256 b2 h4 L300 bf16 fp8 3 segments", 2, 4, 4, 300, 300, 256, bf16, f8, 2e-2, dict(segments=True)),
+        ("d160 lk%4=3 q1023 gqa 8/2 fp16 fp8", 1, 8, 2, 1023, 1023, 160, f16, f8, 2e-2, {}),
+        ("d256 fp32 b1 h4 L384 int8", 1, 4, 4, 384, 384, 256, f32, i8, 5e-5, {}),
+        ("d160 fp32 gqa 4/2 L300 fp8 window 100", 1, 4, 2, 300, 300, 160, f32, f8, 5e-5, dict(window=100)),
+        ("d288 gqa 8/2 L1024 bf16 int8 window 256", 1, 8, 2, 1024, 1024, 288, bf16, i8, 2e-2, dict(window=256)),
+        ("d520 b2 h4 L300 fp16 fp8 3 segments", 2, 4, 4, 300, 300, 520, f16, f8, 2e-2, dict(segments=True)),
+        ("d520 fp32 b1 h4 L384 int8", 1, 4, 4, 384, 384, 520, f32, i8, 5e-5, {}),
+    ):
+        _keep_worst(worst, _key("flash_fwd_kv_quant", d, dtype),
+                    check_k4(label, gen, b, hq, hkv, lq, lk, d, dtype, qdt, atol, **kw))
+    compare_simt_d256(gen, 2, 8, 2, 1024, bf16)
+    return worst
 
 
 def phase_d256_path(seed: int, data: np.ndarray) -> dict:
     """The D256 route through the entry points: a GPT at GPT-2's width with
-    3 heads of 256 (the head dim of Gemma-7B), 2 layers, trained 4 steps
-    at b4 x T1024 by the port's Trainer, which must launch K1, the pre-pass,
-    K2 and K3 at D256 n_layer x steps times each and nothing at 64 / 128;
-    then quantize_kv + flash_attention_kv_quant over 4 layers at b4 h3
-    T1024 D256 (int8 and fp8), which must launch K4 at D256 4 times.
+    3 heads of 256 (the head dim of Gemma-7B), 2 layers, trained 6 steps
+    at b4 x T1024 by the port's Trainer in bf16, which must launch the
+    "_d256" keys (the wgmma K1 and K2, the SIMT K3, the pre-pass) n_layer x
+    steps times each and nothing else; the median step.  Then
+    quantize_kv + flash_attention_kv_quant over 4 layers at b4 h3 T1024
+    D256 (int8 and fp8), which must launch the wgmma K4 at D256 4 times.
     Returns the launches."""
     cfg = dataclasses.replace(GPT2_124M, n_layer=2, n_head=3)
-    steps = 4
+    steps = 6
     tcfg = TrainerConfig(max_iters=steps, log_interval=1, learning_rate=6e-4, warmup_iters=1)
     trainer = Trainer(cfg, tcfg, seed=seed, device="cuda")
     batches = batch_iterator(data, 4, 1024, seed=seed, device="cuda")
@@ -1348,9 +1481,11 @@ def phase_d256_path(seed: int, data: np.ndarray) -> dict:
         raise AssertionError(f"[d256-path] losses {losses}")
     if any(launches[k] != want for k in D256_TRAINING_KERNELS) or others:
         raise AssertionError(f"[d256-path] launches {launches}, want {want} of each D256 training kernel only")
+    step_ms = np.diff([0.0] + [r["wall_s"] for r in history]) * 1e3
     say(f"[d256-path] GPT width {cfg.n_embd}, {cfg.n_head} heads of D{cfg.head_dim}, {cfg.n_layer} layers, "
         f"{steps} Trainer steps at b4 x T1024 in {wall:.2f} s: losses {' '.join(f'{x:.3f}' for x in losses)}; "
-        f"launches { {k: launches[k] for k in D256_TRAINING_KERNELS} } = {cfg.n_layer} layers x {steps} steps each")
+        f"launches { {k: launches[k] for k in D256_TRAINING_KERNELS} } = {cfg.n_layer} layers x {steps} steps each; "
+        f"step {float(np.median(step_ms[1:])):.2f} ms (median of steps 2-{steps})")
     gen = torch.Generator().manual_seed(seed + 10)
     layers = [tuple(_rand(gen, (4, 3, 1024, 256), torch.bfloat16) for _ in range(3)) for _ in range(4)]
     torch.cuda.synchronize()
@@ -1367,6 +1502,79 @@ def phase_d256_path(seed: int, data: np.ndarray) -> dict:
         f"launches {n4}, outputs finite")
     launches["flash_fwd_kv_quant_d256"] = n4
     return {k: launches[k] for k in (*D256_TRAINING_KERNELS, "flash_fwd_kv_quant_d256")}
+
+
+# The SIMT family's path (`phase_simt_path`): what it must launch.
+SIMT_PATH_LAUNCHES = {
+    "flash_fwd_wide": 2, "flash_bwd_prep_wide": 2, "flash_bwd_dkv_wide": 2, "flash_bwd_dq_wide": 2,
+    "flash_fwd_kv_quant_wide": 2, "flash_fwd_d256_simt": 1, "flash_bwd_prep_d256": 1, "flash_bwd_dkv_d256_simt": 1,
+    "flash_bwd_dq_d256": 1, "flash_fwd_kv_quant_d256_simt": 1,
+}
+
+
+def _hold(label: str, name: str, got: torch.Tensor, plain: torch.Tensor, dense: torch.Tensor, tol: float) -> str:
+    """`got` against its plain version and fp32 vanilla within `tol`, of
+    their shape and finite; returns the two errors and the tolerance."""
+    if got.shape != dense.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"[simt-path] {label}: bad {name} {tuple(got.shape)}")
+    e_p = (got.float() - plain.float()).abs().max().item()
+    e_d = (got.float() - dense.float()).abs().max().item()
+    if not (e_p <= tol and e_d <= tol):
+        raise AssertionError(f"[simt-path] {label}: {name} vs plain {e_p:.3e}, vs vanilla {e_d:.3e}, tol {tol:.3e}")
+    return f"{name} {e_p:.2e}/{e_d:.2e} tol {tol:.2e}"
+
+
+def phase_simt_path(seed: int) -> dict:
+    """The SIMT family through the entry points, as a caller with a head dim
+    above 256 or fp32 at 256 reaches it: a forward and backward step of
+    flash_attention at b2 h4 L1024 for head dims 288 (padded to 512) and
+    520 (to 1024) in bf16 and 256 in fp32, and flash_attention_kv_quant
+    (int8) at each.  Each "_wide" and "_d256_simt" key must launch as
+    SIMT_PATH_LAUNCHES says, and nothing else.  Then every output against
+    its plain version (flash_attention_reference, flash_attention_bwd_reference,
+    flash_attention_kv_quant_reference) and fp32 vanilla on the same inputs
+    (K4's on the K/V dequantized the kernel's way): bf16 out and K4 2e-2,
+    grads 2e-2 x max |grad| of the fp32 reference; fp32 out 1e-5, grads
+    1e-4, K4 5e-5.  Returns the launches."""
+    gen = torch.Generator().manual_seed(seed + 11)
+    cases = [(288, torch.bfloat16), (520, torch.bfloat16), (256, torch.float32)]
+    inputs = [tuple(_rand(gen, (2, 4, 1024, d), dtype) for _ in range(4)) for d, dtype in cases]
+    torch.cuda.synchronize()
+    _reset_launches()
+    results = []
+    for q, k, v, do in inputs:
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        out = FA.flash_attention(q, k, v)
+        out.backward(do)
+        with torch.no_grad():
+            kv = QK.quantize_kv(k.detach(), v.detach())
+            o4 = QK.flash_attention_kv_quant(q.detach(), kv)
+        results.append((q, k, v, do, kv, out.detach(), o4, (q.grad, k.grad, v.grad)))
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in FA.KERNEL_LAUNCHES.items() if n}
+    if launches != SIMT_PATH_LAUNCHES:
+        raise AssertionError(f"[simt-path] launches {launches}, want {SIMT_PATH_LAUNCHES}")
+    for (d, dtype), (q, k, v, do, kv, out, o4, grads) in zip(cases, results):
+        label = f"b2 h4 L1024 D{d} {dtype}"
+        fp32 = dtype == torch.float32
+        q, k, v = (x.detach() for x in (q, k, v))
+        with torch.no_grad():
+            o_p, lse_p = FA.flash_attention_reference(q, k, v)
+            g_p = FA.flash_attention_bwd_reference(q, k, v, o_p, lse_p, do)
+            o4_p = QK.flash_attention_kv_quant_reference(q, kv)
+            k_t, v_t = (QK._dequantize_like_kernel(x, sc, dtype) for x, sc in ((kv.k, kv.k_scale), (kv.v, kv.v_scale)))
+            o4_d = _dense_on(q, k_t, v_t)
+        qf, kf, vf = (x.float().requires_grad_() for x in (q, k, v))
+        o_d, _ = vanilla_attention_with_lse(qf, kf, vf, sm_scale=d ** -0.5)
+        g_d = torch.autograd.grad((o_d * do.float()).sum(), (qf, kf, vf))
+        errs = [_hold(label, "out", out, o_p, o_d.detach(), 1e-5 if fp32 else 2e-2)]
+        errs += [_hold(label, n, a, p_, r, 1e-4 if fp32 else 2e-2 * r.abs().max().item())
+                 for n, a, p_, r in zip(("dq", "dk", "dv"), grads, g_p, g_d)]
+        errs.append(_hold(label, "K4 int8", o4, o4_p, o4_d, 5e-5 if fp32 else 2e-2))
+        say(f"[simt-path] {label} vs plain/vanilla: {'  '.join(errs)}  ok")
+    say(f"[simt-path] forward + backward + K4 (int8) at b2 h4 L1024 D288 / D520 bf16 and D256 fp32: launches "
+        f"{launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1748,10 +1956,10 @@ def phase_serving_wquant(seed: int, model: GPT, smi: str) -> int:
 
 def phase_timing_llama_d256(seed: int, smi: str) -> dict:
     """K1 at the Llama prefill shape (b1, GQA 32/8, L1024, D128, bf16), and
-    the D256 kernels at b8 h12 L1024 bf16 (K4 on int8 K/V), each as device
-    time (graph_ms) beside its plain version, its bound and torch SDPA's
-    forward / backward at the same shape.  Returns {"llama": K1's row,
-    kernel: row} for the D256 kernels."""
+    the D256 kernels at b8 h12 L1024 bf16 (K4 on int8 K/V, `_time_family`),
+    each as device time (graph_ms) beside its plain version, its bound and
+    torch SDPA's forward / backward at the same shape.  Returns {"llama":
+    K1's row, kernel: row} for the D256 kernels."""
     gen = torch.Generator().manual_seed(seed + 12)
     bf16 = torch.bfloat16
     sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, is_causal=True)
@@ -1769,44 +1977,97 @@ def phase_timing_llama_d256(seed: int, smi: str) -> dict:
         f"{plain:.4f} ms; library torch SDPA forward (enable_gqa) {lib:.4f} ms (K1 / SDPA {kern / lib:.2f}x)")
     result["llama"] = dict(ms=kern, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib)
 
-    b, h, L, d = 8, 12, 1024, 256
-    q, k, v, do = (_rand(gen, (b, h, L, d), bf16) for _ in range(4))
+    for name, row in _time_family(gen, smi, "D256", 8, 12, 1024, 256, bf16, BF16_FLOPS, True).items():
+        result[f"{name}_d256"] = row
+    return result
+
+
+def _time_family(gen, smi: str, label: str, b: int, h: int, L: int, d: int, dtype, peak: float, plain: bool) -> dict:
+    """K1, the pre-pass, K2, K3 and K4 (int8) at [b, h, L, d] causal (d one
+    of the padded head dims), device ms (graph_ms), beside the plain
+    versions (when `plain`), the bounds at `peak` FLOP/s and torch SDPA's
+    forward / backward; at D256 in bf16/fp16 also the SIMT kernels that the
+    wgmma K1, K2 and K4 replaced, on the same inputs (simt_ms).  Returns
+    {kernel: row}."""
+    q, k, v, do = (_rand(gen, (b, h, L, d), dtype) for _ in range(4))
     elems, rows = b * h * L * d, b * h * L
     flops = 4 * b * h * L * L * d / 2
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, is_causal=True)
+    spec = FA._Spec(causal=True, sm_scale=d ** -0.5, window=None, blocks=FA.default_blocks(L, L, d, dtype=dtype))
+    kv = QK.quantize_kv(k.float(), v.float())
+    replaced = d == 256 and dtype != torch.float32
+    simt = {}
     with torch.no_grad():
-        f_ms = graph_ms(lambda: FA.flash_attention(q, k, v), calls=5, runs=5)
-        f_plain = graph_ms(lambda: FA.flash_attention_reference(q, k, v), calls=1, runs=3)
-        f_lib = graph_ms(lambda: sdpa(q, k, v))
-        o, lse = FA.flash_attention_with_lse(q, k, v)
-    spec = FA._Spec(causal=True, sm_scale=d ** -0.5, window=None, blocks=FA.default_blocks(L, L, d))
+        o, lse = FA._launch(q, k, v, spec, None, True)
+        f_ms = graph_ms(lambda: FA._launch(q, k, v, spec, None, False), calls=5, runs=5)
+        k4 = graph_ms(lambda: QK._launch(q, kv, True, d ** -0.5, None, None), calls=5, runs=5)
+        f_lib = graph_ms(lambda: sdpa(q, k, v), calls=5, runs=5)
+        if replaced:
+            simt["flash_fwd"] = graph_ms(lambda: FA._launch(q, k, v, spec, None, False, simt=True), calls=2, runs=3)
+            simt["flash_fwd_kv_quant"] = graph_ms(
+                lambda: QK._launch(q, kv, True, d ** -0.5, None, None, simt=True), calls=2, runs=3)
     args = FA._bwd_args(q, k, v, o, lse, do, None, spec, None)
     FA._launch_bwd_prep(args)
     pre = graph_ms(lambda: FA._launch_bwd_prep(args))
     k2 = graph_ms(lambda: FA._launch_bwd_dkv(args), calls=3, runs=5)
-    k3 = graph_ms(lambda: FA._launch_bwd_dq(args), calls=3, runs=5)
-    with torch.no_grad():
-        p1 = graph_ms(lambda: FA.flash_attention_bwd_prep_reference(q, o, do, sm_scale=d ** -0.5))
-        p2 = graph_ms(lambda: FA.flash_attention_bwd_dkv_reference(q, k, v, o, lse, do), calls=1, runs=3)
-        p3 = graph_ms(lambda: FA.flash_attention_bwd_dq_reference(q, k, v, o, lse, do), calls=1, runs=3)
-    b_lib = graph_ms(_grad_fn(sdpa, q, k, v, do), calls=5, runs=5)
-    kv = QK.quantize_kv(k.float(), v.float())
-    with torch.no_grad():
-        k4 = graph_ms(lambda: QK.flash_attention_kv_quant(q, kv), calls=5, runs=5)
-        k4_plain = graph_ms(lambda: QK.flash_attention_kv_quant_reference(q, kv), calls=1, runs=3)
+    k3 = graph_ms(lambda: FA._launch_bwd_dq(args), calls=2, runs=3)
+    if replaced:
+        simt["flash_bwd_dkv"] = graph_ms(lambda: FA._launch_bwd_dkv(args, simt=True), calls=1, runs=3)
+    b_lib = graph_ms(_grad_fn(sdpa, q, k, v, do), calls=2, runs=3)
+    p = [None] * 5
+    if plain:
+        with torch.no_grad():
+            p = [graph_ms(fn, calls=1, runs=3) for fn in (
+                lambda: FA.flash_attention_reference(q, k, v),
+                lambda: FA.flash_attention_bwd_prep_reference(q, o, do, sm_scale=d ** -0.5),
+                lambda: FA.flash_attention_bwd_dkv_reference(q, k, v, o, lse, do),
+                lambda: FA.flash_attention_bwd_dq_reference(q, k, v, o, lse, do),
+                lambda: QK.flash_attention_kv_quant_reference(q, kv),
+            )]
+    eb = q.element_size()
     rows_ = {
-        "flash_fwd_d256": (f_ms, f_plain, _floor_ms(4 * elems * 2, flops), f_lib),
-        "flash_bwd_prep_d256": (pre, p1, _floor_ms(4 * elems * 2 + rows * 4), None),
-        "flash_bwd_dkv_d256": (k2, p2, _floor_ms(6 * elems * 2 + 2 * rows * 4, 2 * flops), b_lib),
-        "flash_bwd_dq_d256": (k3, p3, _floor_ms(5 * elems * 2 + 2 * rows * 4, 1.5 * flops), b_lib),
-        "flash_fwd_kv_quant_d256": (k4, k4_plain, _floor_ms(rows * (d * (2 + 2 + 1 + 1) + 8), flops), None),
+        "flash_fwd": (f_ms, p[0], _floor_ms(4 * elems * eb, flops, peak), f_lib),
+        # o and dO read, di written; q read and qs written where the
+        # backward reads qs (16-bit inputs up to head dim 256)
+        "flash_bwd_prep": (pre, p[1], _floor_ms((2 + 2 * (args["qs"] is not None)) * elems * eb + rows * 4), None),
+        "flash_bwd_dkv": (k2, p[2], _floor_ms(6 * elems * eb + 2 * rows * 4, 2 * flops, peak), b_lib),
+        "flash_bwd_dq": (k3, p[3], _floor_ms(5 * elems * eb + 2 * rows * 4, 1.5 * flops, peak), b_lib),
+        "flash_fwd_kv_quant": (k4, p[4], _floor_ms(rows * (d * (2 * eb + 2) + 8), flops, peak), None),
     }
-    for key, (ms, plain_ms, (bound, by), lib_ms) in rows_.items():
-        result[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms)
-    say(f"[timing] {smi} | D256 b8 h12 L1024 bf16 causal, ms on the device (share of the bound; plain version): "
-        + "; ".join(f"{k} {ms:.4f} ({bd / ms:.1%} of {bd:.4f} ms, {by}; plain {pl:.4f})"
-                    for k, (ms, pl, (bd, by), _) in rows_.items())
-        + f"; library torch SDPA forward {f_lib:.4f} ms, backward {b_lib:.4f} ms (K1 D256 / SDPA {f_ms / f_lib:.1f}x, "
-          f"K2 + K3 + pre-pass / SDPA backward {(k2 + k3 + pre) / b_lib:.1f}x)")
+    say(f"[timing] {smi} | {label} b{b} h{h} L{L} D{d} {dtype} causal, ms on the device (share of the bound; plain "
+        f"version): " + "; ".join(
+            f"{name} {ms:.4f} ({bd / ms:.1%} of {bd:.4f} ms, {by}; plain "
+            f"{'not measured' if pl is None else f'{pl:.4f}'})" for name, (ms, pl, (bd, by), _) in rows_.items())
+        + f"; library torch SDPA forward {f_lib:.4f} ms, backward {b_lib:.4f} ms (K1 / SDPA {f_ms / f_lib:.2f}x, "
+          f"K2 / SDPA backward {k2 / b_lib:.2f}x, pre-pass + K2 + K3 / SDPA backward {(pre + k2 + k3) / b_lib:.2f}x)")
+    if replaced:
+        say(f"[timing] {smi} | {label} b{b} h{h} L{L} D{d} {dtype} causal, the SIMT kernels the wgmma ones replaced, "
+            f"same inputs: " + ", ".join(f"{name} {ms:.4f} ms (wgmma {rows_[name][0]:.4f}, {ms / rows_[name][0]:.1f}x)"
+                                         for name, ms in simt.items()))
+    out = {name: dict(ms=ms, plain_ms=pl, bound_ms=bd, bound_by=by, library_ms=lib)
+           for name, (ms, pl, (bd, by), lib) in rows_.items()}
+    for name, ms in simt.items():
+        out[name]["simt_ms"] = ms
+    return out
+
+
+def phase_timing_simt(seed: int, smi: str) -> dict:
+    """The SIMT family at b8 h12 L1024 (every tensor above L2's 50 MB, as
+    at the D256 timing shape): fp32 at D256 (the "_d256_simt" rows) and
+    bf16 at D512 (the "_wide" rows, which carry the D1024 times beside them
+    as d1024_*); returns {kernel: row}."""
+    gen = torch.Generator().manual_seed(seed + 13)
+    result = {}
+    f32 = _time_family(gen, smi, "SIMT family, fp32", 8, 12, 1024, 256, torch.float32, FP32_FLOPS, True)
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_fwd_kv_quant"):
+        result[f"{name}_d256_simt"] = f32[name]
+    wide = _time_family(gen, smi, "SIMT family, padded head dim 512", 8, 12, 1024, 512, torch.bfloat16, BF16_FLOPS,
+                        True)
+    wide1024 = _time_family(gen, smi, "SIMT family, padded head dim 1024", 8, 12, 1024, 1024, torch.bfloat16,
+                            BF16_FLOPS, False)
+    for name, row in wide.items():
+        row.update({f"d1024_{k}": v for k, v in wide1024[name].items() if k != "plain_ms"})
+        result[f"{name}_wide"] = row
     return result
 
 
@@ -1823,6 +2084,7 @@ def main() -> None:
     text = synthetic_corpus()
     data = CharTokenizer(text).encode(text)
     d256_launches = phase_d256_path(args.seed, data)
+    simt_launches = phase_simt_path(args.seed)
     llama_k1 = phase_llama(args.seed, smi)
     phase_llama_parity(args.seed)
     llama_train = phase_llama_train(args.seed, smi, data)
@@ -1835,9 +2097,11 @@ def main() -> None:
     phase_parity_quant(args.seed)
     launches = phase_training(args.seed, smi, data)
     launches.update(flash_fwd_kv_quant=k4_launches, **decode_launches, **d256_launches)
+    launches.update({k: n for k, n in simt_launches.items() if k not in d256_launches})
     phase_train_parity(args.seed, data)
     llama_times = phase_timing_llama_d256(args.seed, smi)
-    times = {**phase_timing(args.seed, smi), **phase_timing_quant(args.seed, smi), **llama_times}
+    times = {**phase_timing(args.seed, smi), **phase_timing_quant(args.seed, smi), **llama_times,
+             **phase_timing_simt(args.seed, smi)}
     # K1 on the Llama path: its launches in the two bursts and in Llama
     # training, and its time at the Llama prefill shape
     times["flash_fwd"].update(

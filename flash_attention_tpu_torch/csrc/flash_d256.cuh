@@ -1,78 +1,90 @@
-// Head dim 256: the forward (K1, and K4 over an int8 / fp8 K/V payload),
-// dK/dV (K2) and dQ (K3), all SIMT in fp32 arithmetic, for fp32, bf16 and
-// fp16 inputs.  flash_fwd.cuh instantiates the forward with its FwdParams,
-// flash_bwd.cu the backward with its BwdParams; the backward's pre-pass
-// (di, qs) is flash_bwd.cu's own at every head dim.
+// The SIMT family: the forward (K1, and K4 over an int8 / fp8 K/V payload),
+// dK/dV (K2) and dQ (K3) in fp32 arithmetic at padded head dims D = 256, 512
+// and 1024, for fp32, bf16 and fp16 inputs.  flash_simt_fwd.cu and
+// flash_simt_fwd_kv_quant.cu instantiate the forward with flash_fwd.cuh's
+// FwdParams, flash_simt_bwd.cu the backward with flash_bwd.cuh's BwdParams;
+// the backward's pre-pass (di, qs) is flash_bwd.cu's own at every head dim.
 //
-// Replaces, at head dims 129-256 (the entry points zero-pad them to 256, as
-// the JAX package pads any head dim to a multiple of 8):
+// Replaces, at the head dims these kernels run (the entry points zero-pad
+// 129-256 to 256, 257-512 to 512 and 513-1024 to 1024, as the JAX package
+// pads any head dim to a multiple of 8):
 //   * flash_attention_tpu/kernels/flash_attention.py::_fwd_kernel (K1);
 //   * flash_attention_tpu/quant/kv.py::_fwd_quant_kernel (K4);
 //   * flash_attention_tpu/kernels/flash_attention.py::_dkv_kernel (K2) and
 //     ::_dq_kernel (K3).
-// They compute what the plain versions in kernels/flash_attention.py
-// compute, with the same roundings: q scaled by sm_scale * log2(e) and
-// rounded to T before QK^T, the online softmax in the exp2 domain with m / l
-// / the accumulator in fp32, P rounded to T before PV, one final division
-// with the l == 0 guard, lse = (m + log2 l) ln 2; K4's K/V tiles
-// dequantized as payload.to(T) * scale.to(T) rounded to T; the backward in
-// the operand form, dK += round_T(dS) round_T(q * scale) and dQ +=
-// round_T(dS) round_T(k * scale), with P rounded to T before P^T dO and P =
-// 0 where masked.  Causal (queries aligned to the end of KV), window and
-// segment masks, GQA by reading KV head hq / group, ragged lengths, inputs
-// read through their strides.
+// Which inputs take them: every dtype at D = 512 and 1024; at D = 256 fp32
+// (TF32 tensor cores would miss the 1e-5 tier) and K3 for every dtype,
+// while bf16 / fp16 K1, K4 and K2 at D = 256 run the warp-specialised wgmma
+// kernels (flash_fwd.cuh, flash_bwd.cuh).  They compute what the plain
+// versions in kernels/flash_attention.py compute, with the same roundings:
+// q scaled by sm_scale * log2(e) and rounded to T before QK^T, the online
+// softmax in the exp2 domain with m / l / the accumulator in fp32, P rounded
+// to T before PV, one final division with the l == 0 guard, lse = (m + log2
+// l) ln 2; K4's K/V tiles dequantized as payload.to(T) * scale.to(T) rounded
+// to T; the backward in the operand form, dK += round_T(dS) round_T(q *
+// scale) and dQ += round_T(dS) round_T(k * scale), with P rounded to T
+// before P^T dO and P = 0 where masked.  Causal (queries aligned to the end
+// of KV), window and segment masks, GQA by reading KV head hq / group,
+// ragged lengths, inputs read through their strides.
 //
-// What bounds it on this card: at b8 h12 L1024 causal the forward's two
-// products are 51.5 GFLOP (0.052 ms at 989 TFLOP/s) against 201 MB of q, k,
-// v and o (0.060 ms at 3.35 TB/s), so the bytes bound it by a hair, and the
-// operations bound the backward.  These kernels do not reach the tensor
-// cores: they are the simple, correct first version, fp32 FMA at most 67
-// TFLOP/s, kept so that a D256 CUDA tensor reaches a kernel (about 100x their
-// bound and 50x torch SDPA at that shape).  What the design does about the
-// width: the warp-specialised templates (flash_fwd.cuh, flash_bwd.cu) keep a
-// 64 x D fp32 accumulator in a warpgroup's registers, 128 a thread at D =
-// 256, beside Q and the K/V ring in shared memory; here each pinned row is
-// split over kSplit = 8 lanes, each owning 32 of its columns (4 contiguous
-// columns at 32 i + 4 u, so that a row's lanes read 128 contiguous bytes of
-// a shared row and the four rows of a warp read the same one, a broadcast),
-// so a thread keeps 32 columns of each pinned row and each sum.  A dot
-// product is each lane's partial sum over its columns, reduced by three
-// xor-shuffles inside the row's 8 lanes; every lane then holds the full
-// score and updates its own columns.  Blocks pin kRows = 32 rows (256
-// threads) and stream 32-row tiles, staged in shared memory as fp32
-// (64 KB for the forward's K and V, 96 KB for the backward's three tiles).
+// What bounds it on this card: the operations, at any of these widths (at
+// b8 h12 L1024 D256 causal the forward's two products are 51.5 GFLOP, 0.052
+// ms at 989 TFLOP/s, against 201 MB of q, k, v and o, 0.060 ms at 3.35
+// TB/s; each doubling of D doubles both).  These kernels do not reach the
+// tensor cores: fp32 FMA, at most 67 TFLOP/s, about 100x the bound.  What
+// the design does about the width: a 64 x D fp32 accumulator in a
+// warpgroup's registers is 128 a thread at D = 256 and does not fit above
+// it, so here each pinned row is split over kSplit = D / 32 lanes, each
+// owning 32 of its columns (4 contiguous columns at 4 kSplit (i / 4) + 4 u,
+// so that a row's lanes read 16 kSplit contiguous bytes of a shared row and
+// the rows of a warp read the same ones, a broadcast), so a thread keeps 32
+// columns of each pinned row and each sum at every width.  A dot product is
+// each lane's partial sum over its columns, reduced by xor-shuffles inside
+// the row's kSplit lanes (the whole warp at D = 1024, which is why 1024 is
+// the widest head dim); every lane then holds the full score and updates
+// its own columns.  Blocks of 256 threads pin kRows = 256 / kSplit rows (32,
+// 16, 8) and stream kBc-row tiles, staged in shared memory as fp32: kBc is
+// the largest power of two whose tiles fit 227 KB (the forward stages 2,
+// the backward 3), 32 at D = 256 and 512, 16 at D = 1024.
 #pragma once
 
 #include "common.cuh"
 
 namespace fa {
-namespace d256 {
+namespace simt {
 
-constexpr int kD = 256;
-constexpr int kRows = 32;                 // pinned rows of a block
-constexpr int kSplit = 8;                 // lanes of a pinned row
-constexpr int kThreads = kRows * kSplit;  // 256
-constexpr int kBc = 32;                   // rows of each streamed tile
-constexpr int kCols = kD / kSplit;        // columns a lane owns
-constexpr int kTile = kBc * kD;           // floats of a staged tile
-constexpr int kFwdSmem = 2 * kTile * 4;   // K, V
-constexpr int kBwdSmem = 3 * kTile * 4;   // dK/dV: qs, q * scale, dO; dQ: K, K * scale, V
+template <int D>
+struct Cfg {
+  static_assert(D == 256 || D == 512 || D == 1024, "padded head dims 256, 512 and 1024");
+  static constexpr int kCols = 32;               // columns a lane owns
+  static constexpr int kSplit = D / kCols;       // lanes of a pinned row: 8, 16, 32
+  static constexpr int kThreads = 256;
+  static constexpr int kRows = kThreads / kSplit;  // pinned rows of a block: 32, 16, 8
+  static constexpr int kBc = D == 1024 ? 16 : 32;  // rows of each streamed tile
+  static constexpr int kTile = kBc * D;            // floats of a staged tile
+  static constexpr int kFwdSmem = 2 * kTile * 4;   // K, V
+  static constexpr int kBwdSmem = 3 * kTile * 4;   // dK/dV: qs, q * scale, dO; dQ: K, K * scale, V
+  static_assert(kBwdSmem <= 232448, "an H100 block has at most 227 KB of shared memory");
+};
 
 // Column of this lane's element i (i < kCols): 4 contiguous columns at
-// 32 (i / 4) + 4 u.
-__device__ __forceinline__ int col_of(int u, int i) { return 32 * (i / 4) + 4 * u + i % 4; }
+// 4 kSplit (i / 4) + 4 u.
+template <int D>
+__device__ __forceinline__ int col_of(int u, int i) {
+  return 4 * Cfg<D>::kSplit * (i / 4) + 4 * u + i % 4;
+}
 
-// A [ROWS, kD] tile of g (rows from row0, those at or past nrows zero) into
-// shared memory as fp32 rows of kD floats: round_T(x * mul) for a tile of
+// A [ROWS, D] tile of g (rows from row0, those at or past nrows zero) into
+// shared memory as fp32 rows of D floats: round_T(x * mul) for a tile of
 // T, and for a 1-byte payload round_T(payload.to(T) * round_T(scale)), the
 // TPU kernel's dequantization.  16-byte loads: the wrapper keeps every row
 // 16-byte aligned.
-template <typename T, typename KV, int ROWS>
+template <typename T, typename KV, int D, int ROWS>
 __device__ __forceinline__ void stage(float* __restrict__ s, const KV* __restrict__ g, long long ld,
                                       const float* __restrict__ scales, int row0, int nrows, float mul) {
   constexpr int kVec = 16 / sizeof(KV);
-  constexpr int kChunks = kD / kVec;
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
+  constexpr int kChunks = D / kVec;
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += Cfg<D>::kThreads) {
     const int r = c / kChunks;
     const int col = (c % kChunks) * kVec;
     float y[kVec];
@@ -94,30 +106,31 @@ __device__ __forceinline__ void stage(float* __restrict__ s, const KV* __restric
     }
 #pragma unroll
     for (int e = 0; e < kVec; e += 4)
-      *reinterpret_cast<float4*>(s + r * kD + col + e) = make_float4(y[e], y[e + 1], y[e + 2], y[e + 3]);
+      *reinterpret_cast<float4*>(s + r * D + col + e) = make_float4(y[e], y[e + 1], y[e + 2], y[e + 3]);
   }
 }
 
 // This lane's columns of one row of T in global memory, round_T(x * mul);
 // zeros when `in` is false.
-template <typename T>
-__device__ __forceinline__ void load_row(float (&dst)[kCols], const T* g, int u, bool in, float mul) {
+template <typename T, int D>
+__device__ __forceinline__ void load_row(float (&dst)[32], const T* g, int u, bool in, float mul) {
 #pragma unroll
-  for (int i = 0; i < kCols; ++i) dst[i] = in ? round_to<T>(to_float(g[col_of(u, i)]) * mul) : 0.f;
+  for (int i = 0; i < 32; ++i) dst[i] = in ? round_to<T>(to_float(g[col_of<D>(u, i)]) * mul) : 0.f;
 }
 
-template <typename T>
-__device__ __forceinline__ void store_row(T* g, const float (&src)[kCols], int u, float div) {
+template <typename T, int D>
+__device__ __forceinline__ void store_row(T* g, const float (&src)[32], int u, float div) {
 #pragma unroll
-  for (int i = 0; i < kCols; ++i) g[col_of(u, i)] = from_float<T>(src[i] / div);
+  for (int i = 0; i < 32; ++i) g[col_of<D>(u, i)] = from_float<T>(src[i] / div);
 }
 
 // Partial dot product of this lane's columns with row `r` of a staged tile.
-__device__ __forceinline__ float dot_row(const float (&a)[kCols], const float* __restrict__ r, int u) {
+template <int D>
+__device__ __forceinline__ float dot_row(const float (&a)[32], const float* __restrict__ r, int u) {
   float acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < kCols; i += 4) {
-    const float4 b = *reinterpret_cast<const float4*>(r + 32 * (i / 4) + 4 * u);
+  for (int i = 0; i < 32; i += 4) {
+    const float4 b = *reinterpret_cast<const float4*>(r + col_of<D>(u, i));
     acc = fmaf(a[i], b.x, acc);
     acc = fmaf(a[i + 1], b.y, acc);
     acc = fmaf(a[i + 2], b.z, acc);
@@ -127,10 +140,11 @@ __device__ __forceinline__ float dot_row(const float (&a)[kCols], const float* _
 }
 
 // acc += w * (this lane's columns of row `r` of a staged tile).
-__device__ __forceinline__ void axpy_row(float (&acc)[kCols], float w, const float* __restrict__ r, int u) {
+template <int D>
+__device__ __forceinline__ void axpy_row(float (&acc)[32], float w, const float* __restrict__ r, int u) {
 #pragma unroll
-  for (int i = 0; i < kCols; i += 4) {
-    const float4 b = *reinterpret_cast<const float4*>(r + 32 * (i / 4) + 4 * u);
+  for (int i = 0; i < 32; i += 4) {
+    const float4 b = *reinterpret_cast<const float4*>(r + col_of<D>(u, i));
     acc[i] = fmaf(w, b.x, acc[i]);
     acc[i + 1] = fmaf(w, b.y, acc[i + 1]);
     acc[i + 2] = fmaf(w, b.z, acc[i + 2]);
@@ -140,9 +154,10 @@ __device__ __forceinline__ void axpy_row(float (&acc)[kCols], float w, const flo
 
 // The sum of x over a pinned row's kSplit lanes (consecutive lanes of one
 // warp); every lane executes it, so the full mask holds.
+template <int D>
 __device__ __forceinline__ float row_sum(float x) {
 #pragma unroll
-  for (int off = 1; off < kSplit; off *= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
+  for (int off = 1; off < Cfg<D>::kSplit; off *= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
 
@@ -150,11 +165,13 @@ __device__ __forceinline__ float row_sum(float x) {
 // Forward (K1; K4 when KV is a 1-byte payload).  P is FwdParams.
 // ---------------------------------------------------------------------------
 
-template <typename T, typename KV, typename P>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(const P p) {
+template <typename T, typename KV, int D, typename P>
+__global__ void __launch_bounds__(256) fwd_kernel(const P p) {
+  using C = Cfg<D>;
+  constexpr int kBc = C::kBc, kSplit = C::kSplit, kRows = C::kRows;
   extern __shared__ float4 smem_f4[];
   float* sK = reinterpret_cast<float*>(smem_f4);
-  float* sV = sK + kTile;
+  float* sV = sK + C::kTile;
   __shared__ int sIds[kBc];
 
   const Mask mk = p.mask;
@@ -176,11 +193,11 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const P p) {
   const int* kv_ids = p.kv_ids ? p.kv_ids + (long long)b * mk.lk : nullptr;
   const int q_id = p.q_ids != nullptr && in ? p.q_ids[(long long)b * mk.lq + row] : 0;
 
-  float q[kCols], acc[kCols];
-  load_row<T>(q, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + (long long)row * p.q_sl, u, in,
-              p.scale_log2);
+  float q[32], acc[32];
+  load_row<T, D>(q, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + (long long)row * p.q_sl, u, in,
+                 p.scale_log2);
 #pragma unroll
-  for (int i = 0; i < kCols; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   float m = -CUDART_INF_F, l = 0.f;
 
   const int kv_end = mk.kv_end(r1);
@@ -189,16 +206,16 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const P p) {
   for (int jt = j0; jt < n_tiles; ++jt) {
     const int c0 = jt * kBc;
     __syncthreads();
-    stage<T, KV, kBc>(sK, gk, p.k_sl, ks, c0, mk.lk, 1.f);
-    stage<T, KV, kBc>(sV, gv, p.v_sl, vs, c0, mk.lk, 1.f);
-    load_ids<kBc, kThreads>(sIds, kv_ids, c0, mk.lk, 0);
+    stage<T, KV, D, kBc>(sK, gk, p.k_sl, ks, c0, mk.lk, 1.f);
+    stage<T, KV, D, kBc>(sV, gv, p.v_sl, vs, c0, mk.lk, 1.f);
+    load_ids<kBc, C::kThreads>(sIds, kv_ids, c0, mk.lk, 0);
     __syncthreads();
 
     float s[kBc];
     float mx = -CUDART_INF_F;
 #pragma unroll
     for (int j = 0; j < kBc; ++j) {
-      const float dot = row_sum(dot_row(q, sK + j * kD, u));
+      const float dot = row_sum<D>(dot_row<D>(q, sK + j * D, u));
       const bool ok = mk.visible(row, c0 + j) && (kv_ids == nullptr || q_id == sIds[j]);
       s[j] = ok ? dot : -CUDART_INF_F;
       mx = fmaxf(mx, s[j]);
@@ -209,29 +226,30 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const P p) {
     m = m_new;
     l *= alpha;
 #pragma unroll
-    for (int i = 0; i < kCols; ++i) acc[i] *= alpha;
+    for (int i = 0; i < 32; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int j = 0; j < kBc; ++j) {
       const float pj = exp2f(s[j] - base);
       l += pj;
-      axpy_row(acc, round_to<T>(pj), sV + j * kD, u);
+      axpy_row<D>(acc, round_to<T>(pj), sV + j * D, u);
     }
   }
 
   if (in) {
     const float l_safe = l == 0.f ? 1.f : l;
-    store_row<T>(static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + (long long)row * p.o_sl, acc, u, l_safe);
+    store_row<T, D>(static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + (long long)row * p.o_sl, acc, u, l_safe);
     if (p.lse != nullptr && u == 0) p.lse[(long long)bh * mk.lq + row] = (m + log2f(l_safe)) * kLn2;
   }
 }
 
-template <typename T, typename KV, typename P>
+template <typename T, typename KV, int D, typename P>
 cudaError_t launch_fwd(const P& p, cudaStream_t stream) {
-  auto kernel = fwd_kernel<T, KV, P>;
-  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  using C = Cfg<D>;
+  auto kernel = fwd_kernel<T, KV, D, P>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kFwdSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.mask.lq + kRows - 1) / kRows, p.batch * p.hq);
-  kernel<<<grid, kThreads, kFwdSmem, stream>>>(p);
+  const dim3 grid((p.mask.lq + C::kRows - 1) / C::kRows, p.batch * p.hq);
+  kernel<<<grid, C::kThreads, C::kFwdSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -244,12 +262,14 @@ cudaError_t launch_fwd(const P& p, cudaStream_t stream) {
 // K2: a block pins kRows KV rows of one KV head and walks the q tiles of
 // every q head of its GQA group that reach them, so the group sums into the
 // KV head inside the block.
-template <typename T, typename P>
-__global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(const P p) {
+template <typename T, int D, typename P>
+__global__ void __launch_bounds__(256) bwd_dkv_kernel(const P p) {
+  using C = Cfg<D>;
+  constexpr int kBc = C::kBc, kSplit = C::kSplit, kRows = C::kRows;
   extern __shared__ float4 smem_f4[];
   float* sQs = reinterpret_cast<float*>(smem_f4);  // round_T(q * scale_log2)
-  float* sQk = sQs + kTile;                        // round_T(q * scale)
-  float* sDo = sQk + kTile;
+  float* sQk = sQs + C::kTile;                     // round_T(q * scale)
+  float* sDo = sQk + C::kTile;
   __shared__ float sLse[kBc], sDi[kBc];
   __shared__ int sIds[kBc];
 
@@ -265,11 +285,11 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(const P p) {
   const bool segmented = p.q_ids != nullptr;
   const int kv_id = segmented && in ? p.kv_ids[(long long)b * mk.lk + kv] : 0;
 
-  float k[kCols], v[kCols], dk[kCols], dv[kCols];
-  load_row<T>(k, static_cast<const T*>(p.k) + b * p.sk.sb + hk * p.sk.sh + (long long)kv * p.sk.sl, u, in, 1.f);
-  load_row<T>(v, static_cast<const T*>(p.v) + b * p.sv.sb + hk * p.sv.sh + (long long)kv * p.sv.sl, u, in, 1.f);
+  float k[32], v[32], dk[32], dv[32];
+  load_row<T, D>(k, static_cast<const T*>(p.k) + b * p.sk.sb + hk * p.sk.sh + (long long)kv * p.sk.sl, u, in, 1.f);
+  load_row<T, D>(v, static_cast<const T*>(p.v) + b * p.sv.sb + hk * p.sv.sh + (long long)kv * p.sv.sl, u, in, 1.f);
 #pragma unroll
-  for (int i = 0; i < kCols; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
 
   const int i0 = mk.q_first(c0) / kBc;
   const int q_end = mk.q_end(c1);
@@ -282,43 +302,45 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(const P p) {
     for (int it = i0; it < n_q; ++it) {
       const int r0 = it * kBc;
       __syncthreads();
-      stage<T, T, kBc>(sQs, gq, p.sq.sl, nullptr, r0, mk.lq, p.scale_log2);
-      stage<T, T, kBc>(sQk, gq, p.sq.sl, nullptr, r0, mk.lq, p.scale);
-      stage<T, T, kBc>(sDo, gdo, p.sdo.sl, nullptr, r0, mk.lq, 1.f);
-      for (int i = threadIdx.x; i < kBc; i += kThreads) {
+      stage<T, T, D, kBc>(sQs, gq, p.sq.sl, nullptr, r0, mk.lq, p.scale_log2);
+      stage<T, T, D, kBc>(sQk, gq, p.sq.sl, nullptr, r0, mk.lq, p.scale);
+      stage<T, T, D, kBc>(sDo, gdo, p.sdo.sl, nullptr, r0, mk.lq, 1.f);
+      for (int i = threadIdx.x; i < kBc; i += C::kThreads) {
         const bool q_in = r0 + i < mk.lq;
         sLse[i] = q_in ? p.lse[stat + r0 + i] * kLog2e : 0.f;
         sDi[i] = q_in ? p.di[stat + r0 + i] : 0.f;
       }
-      if (segmented) load_ids<kBc, kThreads>(sIds, p.q_ids + (long long)b * mk.lq, r0, mk.lq, 0);
+      if (segmented) load_ids<kBc, C::kThreads>(sIds, p.q_ids + (long long)b * mk.lq, r0, mk.lq, 0);
       __syncthreads();
 
       for (int j = 0; j < kBc; ++j) {
-        const float s = row_sum(dot_row(k, sQs + j * kD, u));
-        const float dp = row_sum(dot_row(v, sDo + j * kD, u));
+        const float s = row_sum<D>(dot_row<D>(k, sQs + j * D, u));
+        const float dp = row_sum<D>(dot_row<D>(v, sDo + j * D, u));
         const bool ok = mk.visible(r0 + j, kv) && (!segmented || sIds[j] == kv_id);
         const float pj = ok ? exp2f(s - sLse[j]) : 0.f;
         const float ds = pj * (dp - sDi[j]);
-        axpy_row(dv, round_to<T>(pj), sDo + j * kD, u);
-        axpy_row(dk, round_to<T>(ds), sQk + j * kD, u);
+        axpy_row<D>(dv, round_to<T>(pj), sDo + j * D, u);
+        axpy_row<D>(dk, round_to<T>(ds), sQk + j * D, u);
       }
     }
   }
 
   if (in) {
-    store_row<T>(static_cast<T*>(p.dk) + b * p.sdk.sb + hk * p.sdk.sh + (long long)kv * p.sdk.sl, dk, u, 1.f);
-    store_row<T>(static_cast<T*>(p.dv) + b * p.sdv.sb + hk * p.sdv.sh + (long long)kv * p.sdv.sl, dv, u, 1.f);
+    store_row<T, D>(static_cast<T*>(p.dk) + b * p.sdk.sb + hk * p.sdk.sh + (long long)kv * p.sdk.sl, dk, u, 1.f);
+    store_row<T, D>(static_cast<T*>(p.dv) + b * p.sdv.sb + hk * p.sdv.sh + (long long)kv * p.sdv.sl, dv, u, 1.f);
   }
 }
 
 // K3: a block pins kRows query rows of one q head and walks the KV tiles
 // they reach.
-template <typename T, typename P>
-__global__ void __launch_bounds__(kThreads) bwd_dq_kernel(const P p) {
+template <typename T, int D, typename P>
+__global__ void __launch_bounds__(256) bwd_dq_kernel(const P p) {
+  using C = Cfg<D>;
+  constexpr int kBc = C::kBc, kSplit = C::kSplit, kRows = C::kRows;
   extern __shared__ float4 smem_f4[];
   float* sK = reinterpret_cast<float*>(smem_f4);
-  float* sKs = sK + kTile;  // round_T(k * scale)
-  float* sV = sKs + kTile;
+  float* sKs = sK + C::kTile;  // round_T(k * scale)
+  float* sV = sKs + C::kTile;
   __shared__ int sIds[kBc];
 
   const Mask mk = p.mask;
@@ -336,13 +358,13 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(const P p) {
   const float di = in ? p.di[stat + row] : 0.f;
   const int q_id = segmented && in ? p.q_ids[(long long)b * mk.lq + row] : 0;
 
-  float qs[kCols], dout[kCols], dq[kCols];
+  float qs[32], dout[32], dq[32];
   const long long q_off = (long long)row * p.sq.sl;
-  load_row<T>(qs, static_cast<const T*>(p.q) + b * p.sq.sb + h * p.sq.sh + q_off, u, in, p.scale_log2);
-  load_row<T>(dout, static_cast<const T*>(p.dout) + b * p.sdo.sb + h * p.sdo.sh + (long long)row * p.sdo.sl, u,
-              in, 1.f);
+  load_row<T, D>(qs, static_cast<const T*>(p.q) + b * p.sq.sb + h * p.sq.sh + q_off, u, in, p.scale_log2);
+  load_row<T, D>(dout, static_cast<const T*>(p.dout) + b * p.sdo.sb + h * p.sdo.sh + (long long)row * p.sdo.sl,
+                 u, in, 1.f);
 #pragma unroll
-  for (int i = 0; i < kCols; ++i) dq[i] = 0.f;
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
   const T* gk = static_cast<const T*>(p.k) + b * p.sk.sb + hk * p.sk.sh;
   const T* gv = static_cast<const T*>(p.v) + b * p.sv.sb + hk * p.sv.sh;
 
@@ -352,37 +374,79 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(const P p) {
   for (int jt = j0; jt < n_tiles; ++jt) {
     const int c0 = jt * kBc;
     __syncthreads();
-    stage<T, T, kBc>(sK, gk, p.sk.sl, nullptr, c0, mk.lk, 1.f);
-    stage<T, T, kBc>(sKs, gk, p.sk.sl, nullptr, c0, mk.lk, p.scale);
-    stage<T, T, kBc>(sV, gv, p.sv.sl, nullptr, c0, mk.lk, 1.f);
-    if (segmented) load_ids<kBc, kThreads>(sIds, p.kv_ids + (long long)b * mk.lk, c0, mk.lk, 0);
+    stage<T, T, D, kBc>(sK, gk, p.sk.sl, nullptr, c0, mk.lk, 1.f);
+    stage<T, T, D, kBc>(sKs, gk, p.sk.sl, nullptr, c0, mk.lk, p.scale);
+    stage<T, T, D, kBc>(sV, gv, p.sv.sl, nullptr, c0, mk.lk, 1.f);
+    if (segmented) load_ids<kBc, C::kThreads>(sIds, p.kv_ids + (long long)b * mk.lk, c0, mk.lk, 0);
     __syncthreads();
 
     for (int j = 0; j < kBc; ++j) {
-      const float s = row_sum(dot_row(qs, sK + j * kD, u));
-      const float dp = row_sum(dot_row(dout, sV + j * kD, u));
+      const float s = row_sum<D>(dot_row<D>(qs, sK + j * D, u));
+      const float dp = row_sum<D>(dot_row<D>(dout, sV + j * D, u));
       const bool ok = mk.visible(row, c0 + j) && (!segmented || sIds[j] == q_id);
       const float ds = ok ? exp2f(s - lse_l2) * (dp - di) : 0.f;
-      axpy_row(dq, round_to<T>(ds), sKs + j * kD, u);
+      axpy_row<D>(dq, round_to<T>(ds), sKs + j * D, u);
     }
   }
 
-  if (in) store_row<T>(static_cast<T*>(p.dq) + b * p.sdq.sb + h * p.sdq.sh + (long long)row * p.sdq.sl, dq, u, 1.f);
+  if (in)
+    store_row<T, D>(static_cast<T*>(p.dq) + b * p.sdq.sb + h * p.sdq.sh + (long long)row * p.sdq.sl, dq, u, 1.f);
 }
 
 // which: 0 = dK/dV (grid over KV tiles and KV heads), 1 = dQ (grid over q
 // tiles and q heads).
-template <typename T, typename P>
+template <typename T, int D, typename P>
 cudaError_t launch_bwd(int which, const P& p, cudaStream_t stream) {
+  using C = Cfg<D>;
   const int hkv = p.hq / p.group;
-  auto kernel = which == 0 ? bwd_dkv_kernel<T, P> : bwd_dq_kernel<T, P>;
-  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+  auto kernel = which == 0 ? bwd_dkv_kernel<T, D, P> : bwd_dq_kernel<T, D, P>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBwdSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(which == 0 ? (p.mask.lk + kRows - 1) / kRows : (p.mask.lq + kRows - 1) / kRows,
+  const dim3 grid(which == 0 ? (p.mask.lk + C::kRows - 1) / C::kRows : (p.mask.lq + C::kRows - 1) / C::kRows,
                   p.batch * (which == 0 ? hkv : p.hq));
-  kernel<<<grid, kThreads, kBwdSmem, stream>>>(p);
+  kernel<<<grid, C::kThreads, C::kBwdSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-}  // namespace d256
+// The SIMT kernels for q's dtype (0 = float32, 1 = bfloat16, 2 = float16),
+// K/V element type KV (KV = void: q's own type) and head dim D.
+template <typename KV, int D, typename P>
+cudaError_t launch_fwd_dim(int dtype, const P& p, cudaStream_t s) {
+  using F32 = typename std::conditional<std::is_void<KV>::value, float, KV>::type;
+  using BF16 = typename std::conditional<std::is_void<KV>::value, __nv_bfloat16, KV>::type;
+  using F16 = typename std::conditional<std::is_void<KV>::value, __half, KV>::type;
+  if (dtype == 0) return launch_fwd<float, F32, D>(p, s);
+  if (dtype == 1) return launch_fwd<__nv_bfloat16, BF16, D>(p, s);
+  if (dtype == 2) return launch_fwd<__half, F16, D>(p, s);
+  return cudaErrorInvalidValue;
+}
+
+// As launch_fwd_dim at head dim 256, 512 or 1024; cudaErrorInvalidValue
+// for any other.
+template <typename KV, typename P>
+cudaError_t launch_fwd_for(int dtype, int head_dim, const P& p, cudaStream_t s) {
+  if (head_dim == 256) return launch_fwd_dim<KV, 256>(dtype, p, s);
+  if (head_dim == 512) return launch_fwd_dim<KV, 512>(dtype, p, s);
+  if (head_dim == 1024) return launch_fwd_dim<KV, 1024>(dtype, p, s);
+  return cudaErrorInvalidValue;
+}
+
+template <int D, typename P>
+cudaError_t launch_bwd_dim(int which, int dtype, const P& p, cudaStream_t s) {
+  if (dtype == 0) return launch_bwd<float, D>(which, p, s);
+  if (dtype == 1) return launch_bwd<__nv_bfloat16, D>(which, p, s);
+  if (dtype == 2) return launch_bwd<__half, D>(which, p, s);
+  return cudaErrorInvalidValue;
+}
+
+// dK/dV (which 0) or dQ (1) for q's dtype at head dim 256, 512 or 1024.
+template <typename P>
+cudaError_t launch_bwd_for(int which, int dtype, int head_dim, const P& p, cudaStream_t s) {
+  if (head_dim == 256) return launch_bwd_dim<256>(which, dtype, p, s);
+  if (head_dim == 512) return launch_bwd_dim<512>(which, dtype, p, s);
+  if (head_dim == 1024) return launch_bwd_dim<1024>(which, dtype, p, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace simt
 }  // namespace fa

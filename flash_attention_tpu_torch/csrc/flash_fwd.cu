@@ -4,7 +4,9 @@
 
 #include "flash_fwd.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim: 64, 128 or 256.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim: 64 or 128, and
+// 256 for bfloat16 / float16 (the SIMT family's fa_flash_fwd_simt,
+// flash_simt_fwd.cu, takes fp32 at 256 and every dtype at 512 and 1024).
 // Strides are in elements; the last dim is contiguous.  lse may be null;
 // q_ids / kv_ids are both null or both contiguous int32 [batch, lq] and
 // [batch, lk].  window <= 0 means no window (it applies only when causal).

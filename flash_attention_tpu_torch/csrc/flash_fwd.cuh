@@ -19,10 +19,16 @@
 // dequantized in q's type T as the TPU kernel does it (payload.to(T) *
 // scale.to(T), rounded to T), so from there on K4 is K1.
 //
+// Head dims: 64, 128 and, for bf16 / fp16, 256 (flash_fwd_d256.cu
+// instantiates D = 256 in a source of its own); fp32 at 256 and every dtype
+// at 512 and 1024 take the SIMT family of flash_d256.cuh.
+//
 // What bounds it on this card: at the GPT-2 shapes (h12, L1024, D64, causal)
 // the two products need 12.9 GFLOP at b8 (13.0 us at 989 TFLOP/s) and q, k, v
 // and o 50 MB (15.0 us at 3.35 TB/s), so at D = 64 the bytes set the bound by
-// a hair, and the FLOPs at any larger head dim or longer sequence.  In
+// a hair, and the FLOPs at any larger head dim or longer sequence (at b8 h12
+// L1024 D256: 51.5 GFLOP, 0.052 ms, against 201 MB, 0.060 ms, so the bytes
+// by a hair again).  In
 // practice the limit is the softmax: at D = 64 the exp2 of each score costs
 // the special-function unit as long as the score's 256 FLOPs of products
 // cost the tensor cores.  What feeds the tensor cores at their rate on
@@ -40,7 +46,8 @@
 //     stride of Lk * 4 bytes breaks TMA's 16-byte rule), then arrive on
 //     "full";
 //   * kConsumers consumer warpgroups (3 at D = 64, 2 at D = 128, as the
-//     registers allow), each owning 64 query rows: S = Q K^T by wgmma from
+//     registers allow; at D = 256 1 for K1 and 2 for K4, below), each
+//     owning 64 query rows: S = Q K^T by wgmma from
 //     shared memory (K stored [Bc, D], K-major), the online softmax on the
 //     accumulator's registers (a thread holds parts of two rows; quad
 //     shuffles reduce them), and O += P V by wgmma with P from registers (the
@@ -59,15 +66,31 @@
 //     of its warpgroups' ranges), and only tiles that cross the diagonal, the
 //     window edge or the ragged end, or carry segment ids, pay for the
 //     element mask: two compares against each row's visible key range;
-//   * blocks are issued longest causal KV loop first.
+//   * blocks are issued longest causal KV loop first;
+//   * D = 256: the 64 x 256 fp32 accumulator is 128 registers a consumer
+//     thread, and ptxas gives a thread of a 384-thread block 168 whatever
+//     setmaxnreg grants, so with two consumer warpgroups it spills.  K1
+//     has one (64 query rows, 256 threads, 255 registers without
+//     setmaxnreg) and no spills, and is faster for it (tools/d256_ab.py);
+//     K4 keeps two and spills, since with half the rows a block its
+//     producer, which dequantizes every K/V tile it loads, would convert
+//     twice as many tiles.  The ring has two slots (a K and a V tile are 64
+//     KB), K4 one payload staging slot (two would pass 227 KB).  q's
+//     descriptors are made per 64-column block instead of held (32
+//     registers), S is issued in four commit groups of four k16 steps, and
+//     each k16 step of PV is two N = 128 products into the accumulator's
+//     halves.
 // fp32 inputs take a SIMT path (one thread per query row, fp32 FMA), since
 // the tensor cores' TF32 would miss the fp32 tolerance of 1e-5.
 // ptxas -v (sm_90a, CUDA 12.8) reports the registers at launch, 65,536 /
 // threads: 128 at D = 64 (512 threads; setmaxnreg: producer 32, K4's 40,
 // consumers 160, K4's 152) and 168 at D = 128 (384 threads; producer 32,
 // K4's 56, consumers 232, K4's 224); no spills, except 8 bytes in each of
-// K4's four D = 128 instantiations.  The SIMT path uses 202 registers at
-// D = 64 and 255 at D = 128 (88 bytes spilled), K4's 192 and 255.
+// K4's four D = 128 instantiations.  At D = 256: K1 198 registers (256
+// threads), no spills; K4 168 with 280 bytes of spill stores (K1 with two
+// consumer warpgroups: 168, 308 bytes).  No wgmma is serialised (C7518).
+// The SIMT path uses 202 registers at D = 64 and 255 at D = 128 (88 bytes
+// spilled), K4's 192 and 255.
 //
 // The kernels allocate nothing and launch on the caller's stream; the C
 // entry points return cudaGetLastError() so that the wrapper can raise (and
@@ -75,7 +98,6 @@
 #pragma once
 
 #include "common.cuh"
-#include "flash_d256.cuh"
 #include "sm90.cuh"
 
 namespace fa {
@@ -118,30 +140,41 @@ struct KvRows {
 // bf16 / fp16: the warp-specialised TMA + wgmma kernel
 // ---------------------------------------------------------------------------
 
-// Its tile and shared memory.  The Python side mirrors kBr, kBc, kStages
-// and the layout (kernels/block_sizes.py::forward_smem_bytes).
+// Its tile and shared memory.  The Python side mirrors kBr, kBc, kStages,
+// kStaging and the layout (kernels/block_sizes.py::forward_smem_bytes).
 template <typename T, typename KV, int D>
 struct WsCfg {
-  static_assert(D == 64 || D == 128, "head dims 64 and 128");
+  static_assert(D == 64 || D == 128 || D == 256, "head dims 64, 128 and 256");
   static constexpr bool kQuant = !std::is_same<T, KV>::value;
-  static constexpr int kConsumers = D == 64 ? 3 : 2;  // consumer warpgroups, 64 query rows each
+  // Consumer warpgroups, 64 query rows each.  At D = 256 a consumer holds
+  // a 128-register accumulator, and ptxas gives a thread of a 384-thread
+  // block 168 whatever setmaxnreg grants: K1 has one consumer warpgroup
+  // (256 threads, 255 registers, no setmaxnreg, no spills); K4 keeps two
+  // (and spills), since with half the rows a block its producer would
+  // dequantize every K/V tile twice as often.
+  static constexpr int kConsumers = D == 64 ? 3 : D == 128 || kQuant ? 2 : 1;
   static constexpr int kBr = 64 * kConsumers;
   static constexpr int kBc = 64;
-  static constexpr int kStages = 4;  // K/V ring slots
+  // K/V ring slots: a K and a V tile take 64 KB at D = 256, where a third
+  // slot for K1 was measured no faster
+  static constexpr int kStages = D < 256 ? 4 : 2;
+  static constexpr int kStaging = D == 256 ? 1 : 2;  // K4's payload staging slots, as shared memory allows
   static constexpr int kThreads = 128 * (kConsumers + 1);
   static constexpr int kTileBytes = kBc * D * 2;  // a K or V slot
   static constexpr int kPayloadBytes = kQuant ? kBc * D : 0;  // K4: one K or V payload tile
   static constexpr int kOffK = kBr * D * 2;  // the q tile sits at 0
   static constexpr int kOffV = kOffK + kStages * kTileBytes;
-  static constexpr int kOffPayload = kOffV + kStages * kTileBytes;  // K4: two staging slots of (K, V)
-  static constexpr int kOffIds = kOffPayload + 2 * 2 * kPayloadBytes;
+  static constexpr int kOffPayload = kOffV + kStages * kTileBytes;  // K4: kStaging slots of (K, V)
+  static constexpr int kOffIds = kOffPayload + kStaging * 2 * kPayloadBytes;
   static constexpr int kOffBars = kOffIds + kStages * kBc * 4;
-  static constexpr int kBars = 1 + 2 * kStages + 2;  // q; full and empty per slot; landed per staging slot
+  // q; full and empty per slot; landed per staging slot
+  static constexpr int kBars = 1 + 2 * kStages + kStaging;
   // + 1024 to align the base for the 128-byte swizzle
   static constexpr int kSmemBytes = kOffBars + kBars * 8 + 1024;
   static_assert(kSmemBytes <= 232448, "an H100 block has at most 227 KB of shared memory");
-  // setmaxnreg: the producer warpgroup hands registers to the consumers.
-  // At launch a thread has 65,536 / kThreads (to a multiple of 8); K4's
+  // setmaxnreg: the producer warpgroup hands registers to the consumers
+  // (with one consumer warpgroup every thread has 255 from the start).  At
+  // launch a thread has 65,536 / kThreads (to a multiple of 8); K4's
   // producer converts tiles and keeps more.
   static constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;
   static constexpr int kProducerRegs = kQuant ? (kConsumers == 2 ? 56 : 40) : 32;
@@ -250,6 +283,7 @@ flash_fwd_ws_kernel(const __grid_constant__ FwdParams p, const __grid_constant__
   uint64_t* full = q_full + 1;        // slot s holds its K/V tile
   uint64_t* empty = full + kS;        // every consumer warpgroup is done with slot s
   uint64_t* landed = empty + kS;      // K4: staging slot i's payloads have arrived
+  constexpr int kSt = C::kStaging;
 
   const Mask mk = p.mask;
   const int tile = gridDim.x - 1 - blockIdx.x;  // the longest causal KV loops first
@@ -273,8 +307,7 @@ flash_fwd_ws_kernel(const __grid_constant__ FwdParams p, const __grid_constant__
       sm90::mbar_init(&full[s], all_produce ? 128 : 1);
       sm90::mbar_init(&empty[s], 128 * C::kConsumers);
     }
-    sm90::mbar_init(&landed[0], 1);
-    sm90::mbar_init(&landed[1], 1);
+    for (int i = 0; i < kSt; ++i) sm90::mbar_init(&landed[i], 1);
     sm90::fence_barrier_init();
   }
   __syncthreads();
@@ -287,7 +320,7 @@ flash_fwd_ws_kernel(const __grid_constant__ FwdParams p, const __grid_constant__
   const int tid = threadIdx.x % 128;
   if (wg == 0) {
     // ---------------- producer warpgroup ----------------
-    sm90::reg_dealloc<C::kProducerRegs>();
+    if constexpr (C::kConsumers > 1) sm90::reg_dealloc<C::kProducerRegs>();
     if (!all_produce && tid != 0) return;
     if (tid == 0) {
       sm90::mbar_arrive_expect_tx(q_full, kBr * D * 2);
@@ -310,14 +343,15 @@ flash_fwd_ws_kernel(const __grid_constant__ FwdParams p, const __grid_constant__
         }
       }
     } else {
-      // K4: TMA lands tile j's payloads in staging slot it % 2 one tile
-      // ahead of the conversion.  Only this warpgroup reads the staging, so
-      // a named barrier among its 128 threads at the end of each tile frees
-      // the slot for the load after next.
+      // K4: TMA lands tile j's payloads in staging slot it % kSt: with two
+      // slots one tile ahead of the conversion, with one (D = 256) as soon
+      // as the previous tile's conversion is done.  Only this warpgroup
+      // reads the staging, so a named barrier among its 128 threads at the
+      // end of each tile frees the slot.
       const KvRows<KV> kv(p, b, hk);
       auto fetch = [&](int it, int j) {
-        uint64_t* bar = &landed[it % 2];
-        uint8_t* dst = sPay + 2 * (it % 2) * C::kPayloadBytes;
+        uint64_t* bar = &landed[it % kSt];
+        uint8_t* dst = sPay + 2 * (it % kSt) * C::kPayloadBytes;
         sm90::mbar_arrive_expect_tx(bar, 2 * C::kPayloadBytes);
         sm90::tma_load_4d(dst, &maps.k, bar, 0, j * kBc, hk, b);
         sm90::tma_load_4d(dst + C::kPayloadBytes, &maps.v, bar, 0, j * kBc, hk, b);
@@ -337,22 +371,23 @@ flash_fwd_ws_kernel(const __grid_constant__ FwdParams p, const __grid_constant__
       for (int j = j_lo, it = 0; j < j_hi; ++j, ++it) {
         const int s = it % kS;
         const int row = j * kBc + tid / kRowThreads;  // the row this thread converts
-        if (tid == 0 && j + 1 < j_hi) fetch(it + 1, j + 1);
+        if (kSt == 2 && tid == 0 && j + 1 < j_hi) fetch(it + 1, j + 1);
         uint32_t k_next, v_next;
         scales(j + 1, k_next, v_next);
         sm90::mbar_wait(&empty[s], ((it / kS) & 1) ^ 1);
         if (kv_ids != nullptr && has_row) sIds[s * kBc + tid] = j * kBc + tid < mk.lk ? kv_ids[j * kBc + tid] : -1;
-        sm90::mbar_wait(&landed[it % 2], (it / 2) & 1);
+        sm90::mbar_wait(&landed[it % kSt], (it / kSt) & 1);
         {
           constexpr int kPieces = D / 16 / kRowThreads;
-          const uint8_t* pay = sPay + 2 * (it % 2) * C::kPayloadBytes;
+          const uint8_t* pay = sPay + 2 * (it % kSt) * C::kPayloadBytes;
           const int r = tid / kRowThreads, part = tid % kRowThreads;
           dequant_row<T, KV, D, kBc, kPieces>(sK + s * kTile, pay, r, part, k_sc, row < mk.lk);
           dequant_row<T, KV, D, kBc, kPieces>(sV + s * kTile, pay + C::kPayloadBytes, r, part, v_sc, row < mk.lk);
         }
         sm90::fence_proxy_async();  // the generic writes, before wgmma reads them
         sm90::mbar_arrive(&full[s]);
-        sm90::named_bar_sync(1, 128);  // every producer thread is done with staging slot it % 2
+        sm90::named_bar_sync(1, 128);  // every producer thread is done with staging slot it % kSt
+        if (kSt == 1 && tid == 0 && j + 1 < j_hi) fetch(it + 1, j + 1);
         k_sc = k_next;
         v_sc = v_next;
       }
@@ -361,7 +396,7 @@ flash_fwd_ws_kernel(const __grid_constant__ FwdParams p, const __grid_constant__
   }
 
   // ---------------- consumer warpgroups ----------------
-  sm90::reg_alloc<C::kConsumerRegs>();
+  if constexpr (C::kConsumers > 1) sm90::reg_alloc<C::kConsumerRegs>();
   const int cw = wg - 1;  // this warpgroup's 64 rows of the tile
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -407,11 +442,19 @@ flash_fwd_ws_kernel(const __grid_constant__ FwdParams p, const __grid_constant__
   sm90::named_bar_sync(2 + cw, 128);
 
   // K-major descriptors: a k16 step moves 32 bytes along a 128-byte row, and
-  // every fourth one to the next 64-column block.
-  uint64_t dq[D / 16];
+  // every fourth one to the next 64-column block.  Up to D = 128 q's are
+  // made once; at D = 256 they would hold 32 registers, so S is issued a
+  // 64-column block (4 steps) at a time with both operands' descriptors made
+  // for that block.
+  constexpr bool kGrouped = D > 128;
+  auto q_desc = [&](int kk) {
+    return sm90::smem_desc(sQ + (kk / 4) * kBr * 64 + cw * 64 * 64 + (kk % 4) * 16, 16, 1024);
+  };
+  uint64_t dq[kGrouped ? 1 : D / 16];
+  if constexpr (!kGrouped) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    dq[kk] = sm90::smem_desc(sQ + (kk / 4) * kBr * 64 + cw * 64 * 64 + (kk % 4) * 16, 16, 1024);
+    for (int kk = 0; kk < D / 16; ++kk) dq[kk] = q_desc(kk);
+  }
 
   float acc[D / 2];
   float sc[kBc / 2];  // S = Qs K^T: [64, kBc], as kBc / 8 blocks of 8 columns x 4 registers
@@ -432,15 +475,35 @@ flash_fwd_ws_kernel(const __grid_constant__ FwdParams p, const __grid_constant__
 
       // S = Qs K^T.  Descriptors, like every operand, are ready before
       // wgmma.fence (fence_regs).
-      uint64_t dk[D / 16];
+      auto k_desc = [&](int kk) { return sm90::smem_desc(k_s + (kk / 4) * kBc * 64 + (kk % 4) * 16, 16, 1024); };
+      if constexpr (!kGrouped) {
+        uint64_t dk[D / 16];
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) dk[kk] = sm90::smem_desc(k_s + (kk / 4) * kBc * 64 + (kk % 4) * 16, 16, 1024);
-      sm90::fence_regs(dk);
-      sm90::fence_regs(sc);
-      sm90::wgmma_fence();
+        for (int kk = 0; kk < D / 16; ++kk) dk[kk] = k_desc(kk);
+        sm90::fence_regs(dk);
+        sm90::fence_regs(sc);
+        sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) sm90::wgmma_ss<T, kBc>(sc, dq[kk], dk[kk], kk > 0);
-      sm90::wgmma_commit();
+        for (int kk = 0; kk < D / 16; ++kk) sm90::wgmma_ss<T, kBc>(sc, dq[kk], dk[kk], kk > 0);
+        sm90::wgmma_commit();
+      } else {
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          uint64_t da[4], db[4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            da[kk] = q_desc(4 * c + kk);
+            db[kk] = k_desc(4 * c + kk);
+          }
+          sm90::fence_regs(da);
+          sm90::fence_regs(db);
+          sm90::fence_regs(sc);
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) sm90::wgmma_ss<T, kBc>(sc, da[kk], db[kk], c > 0 || kk > 0);
+          sm90::wgmma_commit();
+        }
+      }
       sm90::wgmma_wait<0>();
       sm90::fence_regs(sc);
 
@@ -511,23 +574,32 @@ flash_fwd_ws_kernel(const __grid_constant__ FwdParams p, const __grid_constant__
       // acc += P V, P rounded to T: the accumulator's two 8-column blocks
       // 2kk, 2kk + 1 are the A fragment of k16 step kk.  V is the MN-major B
       // operand: a step moves 16 rows (2 KB) down its 64-column blocks, which
-      // lie kBc rows (kBc * 128 bytes) apart.
+      // lie kBc rows (kBc * 128 bytes) apart.  wgmma's N is at most 128 here,
+      // so at D = 256 each step is two products of 128 columns, the first
+      // into acc[0, 64) (columns 0-127), the second into acc[64, 128).
+      constexpr int kN = D < 128 ? D : 128;
       uint32_t pa[kBc / 16][4];
-      uint64_t dv[kBc / 16];
+      uint64_t dv[kBc / 16 * (D / kN)];
 #pragma unroll
       for (int kk = 0; kk < kBc / 16; ++kk) {
         pa[kk][0] = Pack<T>::two(sc[8 * kk], sc[8 * kk + 1]);
         pa[kk][1] = Pack<T>::two(sc[8 * kk + 2], sc[8 * kk + 3]);
         pa[kk][2] = Pack<T>::two(sc[8 * kk + 4], sc[8 * kk + 5]);
         pa[kk][3] = Pack<T>::two(sc[8 * kk + 6], sc[8 * kk + 7]);
-        dv[kk] = sm90::smem_desc(v_s + kk * 16 * 64, kBc * 128, 1024);
+#pragma unroll
+        for (int n = 0; n < D / kN; ++n)
+          dv[kk * (D / kN) + n] = sm90::smem_desc(v_s + n * (kN / 64) * kBc * 64 + kk * 16 * 64, kBc * 128, 1024);
       }
       sm90::fence_regs(pa);
       sm90::fence_regs(dv);
       sm90::fence_regs(acc);
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBc / 16; ++kk) sm90::wgmma_rs<T, D>(acc, pa[kk], dv[kk]);
+      for (int kk = 0; kk < kBc / 16; ++kk)
+#pragma unroll
+        for (int n = 0; n < D / kN; ++n)
+          sm90::wgmma_rs<T, kN>(*reinterpret_cast<float(*)[kN / 2]>(acc + n * (kN / 2)), pa[kk],
+                                dv[kk * (D / kN) + n]);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(acc);
@@ -703,24 +775,28 @@ cudaError_t launch_simt(const FwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// K1 and K4 at D = 256 for bf16 (dtype 1) and fp16 (2), over K/V of q's
+// dtype (kv_dtype 0), int8 (1) or fp8 e4m3 (2): flash_fwd_d256.cu.
+cudaError_t launch_ws_d256(int dtype, int kv_dtype, const FwdParams& p, cudaStream_t s);
+
 // The kernel for q's dtype (0 = float32, 1 = bfloat16, 2 = float16), K/V
-// element type KV (KV = void: q's own type) and head dim (64 or 128, and
-// 256 through the SIMT family of flash_d256.cuh); cudaErrorInvalidValue for
-// a combination that is not instantiated.
+// element type KV (KV = void: q's own type) and head dim: 64 or 128, and 256
+// for bf16 / fp16 (fp32 at 256 and every dtype at 512 and 1024 take the
+// SIMT family's entry points, flash_simt_fwd*.cu); cudaErrorInvalidValue
+// for a combination that is not instantiated.
 template <typename KV>
 cudaError_t launch_fwd_for(int dtype, int head_dim, const FwdParams& p, cudaStream_t s) {
   using F32 = typename std::conditional<std::is_void<KV>::value, float, KV>::type;
   using BF16 = typename std::conditional<std::is_void<KV>::value, __nv_bfloat16, KV>::type;
   using F16 = typename std::conditional<std::is_void<KV>::value, __half, KV>::type;
+  constexpr int kKv = std::is_void<KV>::value ? 0 : std::is_same<KV, int8_t>::value ? 1 : 2;
   if (dtype == 0 && head_dim == 64) return launch_simt<F32, 64>(p, s);
   if (dtype == 0 && head_dim == 128) return launch_simt<F32, 128>(p, s);
   if (dtype == 1 && head_dim == 64) return launch_ws<__nv_bfloat16, BF16, 64>(p, s);
   if (dtype == 1 && head_dim == 128) return launch_ws<__nv_bfloat16, BF16, 128>(p, s);
   if (dtype == 2 && head_dim == 64) return launch_ws<__half, F16, 64>(p, s);
   if (dtype == 2 && head_dim == 128) return launch_ws<__half, F16, 128>(p, s);
-  if (dtype == 0 && head_dim == 256) return d256::launch_fwd<float, F32>(p, s);
-  if (dtype == 1 && head_dim == 256) return d256::launch_fwd<__nv_bfloat16, BF16>(p, s);
-  if (dtype == 2 && head_dim == 256) return d256::launch_fwd<__half, F16>(p, s);
+  if ((dtype == 1 || dtype == 2) && head_dim == 256) return launch_ws_d256(dtype, kKv, p, s);
   return cudaErrorInvalidValue;
 }
 

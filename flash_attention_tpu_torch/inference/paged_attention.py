@@ -36,13 +36,14 @@ import math
 import torch
 
 from ..config import kernel_route
-from ..kernels.flash_attention import _DTYPE_CODES, KERNEL_LAUNCHES, SUPPORTED_HEAD_DIMS
+from ..kernels.flash_attention import _DTYPE_CODES, KERNEL_LAUNCHES
 from ..kernels.vanilla import DEFAULT_MASK_VALUE
 from ..quant.kv import QUANT_DTYPES
 
 __all__ = ["decode_split", "paged_attention", "paged_attention_ref", "paged_attention_split_ref"]
 
 _Q_DTYPES = (torch.float32, torch.bfloat16)  # what csrc/decode.cu instantiates
+_HEAD_DIMS = (64, 128)  # what csrc/decode.cu instantiates
 _MAX_GROUP = 8
 # csrc/decode.cu's split: tokens of a ring tile (kTile), warps of a block
 # (kWarps; each takes every fourth tile of its block's chunk), splits a
@@ -261,8 +262,8 @@ def _launch_decode(
             f"the decode kernels take K/V in q's dtype, or int8/fp8 with scales; got {k.dtype}/{v.dtype} "
             f"for q {q.dtype}{' with scales' if quantized else ''}"
         )
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise NotImplementedError(f"the decode kernels are built for head dims {SUPPORTED_HEAD_DIMS}, got {d}")
+    if d not in _HEAD_DIMS:
+        raise NotImplementedError(f"the decode kernels are built for head dims {_HEAD_DIMS}, got {d}")
     if hq % hkv or hq // hkv > _MAX_GROUP:
         raise NotImplementedError(f"the decode kernels take GQA groups of 1-{_MAX_GROUP} q heads, got {hq}/{hkv}")
     tensors = [q, k, v, lengths] + ([k_scales, v_scales] if quantized else [])

@@ -14,52 +14,86 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import torch
+
 MIN_BLOCK = 128
 MAX_BLOCK_Q = 1024
 MAX_BLOCK_KV = 1024
 
 # The CUDA forward kernel's tile (csrc/flash_fwd.cuh, WsCfg): 64 query rows
-# per consumer warpgroup (three at head dim 64, two at 128, as the registers
-# allow) by 64 KV rows, the K/V tiles in a ring of KERNEL_STAGES
-# shared-memory slots.
+# per consumer warpgroup (three at head dim 64, two at 128 and 256, as the
+# registers allow) by 64 KV rows, the K/V tiles in a ring of
+# `kernel_stages` shared-memory slots.
 KERNEL_BLOCK_KV = 64
 KERNEL_STAGES = 4
-# The CUDA backward kernels' tiles (csrc/flash_bwd.cu, BwdWs, DkvCfg,
-# DqCfg): two consumer warpgroups of 64 pinned rows each (KV rows for dK/dV,
-# query rows for dQ) against streamed tiles of 64 rows (query rows for
-# dK/dV, KV rows for dQ) in a ring of `backward_stages` slots.
+# The CUDA backward kernels' tiles (csrc/flash_bwd.cuh, BwdWs, DkvCfg,
+# DqCfg): at head dims 64 and 128 two consumer warpgroups of 64 pinned rows
+# each (KV rows for dK/dV, query rows for dQ) against streamed tiles of 64
+# rows (query rows for dK/dV, KV rows for dQ) in a ring of
+# `backward_stages` slots.  dK/dV at 256 (bf16/fp16): one consumer
+# warpgroup of 64 pinned KV rows against 32-row query tiles.
 KERNEL_BWD_PINNED = 128
 KERNEL_BWD_STREAM = 64
-# Head dim 256 (csrc/flash_d256.cuh): every kernel pins 32 rows and streams
-# 32-row tiles.
-KERNEL_D256_TILE = 32
+KERNEL_DKV_D256 = (64, 32)  # (pinned KV rows, streamed query rows)
+# The SIMT family (csrc/flash_d256.cuh, Cfg): 256 threads pin 256 / (D / 32)
+# rows and stream tiles of the largest power-of-two height whose fp32 tiles
+# fit (2 of them forward, 3 backward); {padded head dim: (pinned, streamed)}.
+KERNEL_SIMT_TILE = {256: (32, 32), 512: (16, 32), 1024: (8, 16)}
 # Shared memory an H100 thread block can use (227 KB).
 SMEM_PER_BLOCK = 232_448
 
 
-def kernel_block_q(head_dim: int) -> int:
-    """Query rows of the forward kernel's tile: 192 (three consumer
-    warpgroups) at head dim 64 and below, 128 (two) above."""
-    return 192 if head_dim <= 64 else 128
+def _padded(head_dim: int) -> int:
+    """The head dim the kernels run `head_dim` at (the entry points pad to
+    the next of 64, 128, 256, 512 and 1024)."""
+    return next((d for d in (64, 128, 256, 512) if head_dim <= d), 1024)
+
+
+def kernel_block_q(head_dim: int, quantized: bool = False) -> int:
+    """Query rows of the bf16/fp16 forward kernel's tile: 192 (three
+    consumer warpgroups) at head dim 64 and below, 128 (two) up to 128 and
+    for K4 (`quantized`) at 256, 64 (one) for K1 at 256."""
+    if head_dim <= 64:
+        return 192
+    return 64 if _padded(head_dim) == 256 and not quantized else 128
+
+
+def kernel_stages(head_dim: int) -> int:
+    """K/V ring slots of the bf16/fp16 forward kernel: 4, and 2 at head dim
+    256, where a K and a V tile take 64 KB."""
+    return 2 if _padded(head_dim) == 256 else KERNEL_STAGES
 
 
 def forward_smem_bytes(head_dim: int, quantized: bool) -> int:
     """Shared memory of the bf16/fp16 forward kernel, as WsCfg::kSmemBytes
     lays it out: the q tile; per ring slot a K and a V tile (2-byte
-    elements) and the KV segment ids; K4's two staging slots of 1-byte K
-    and V payloads; the mbarriers (q, full and empty per slot, one per
-    staging slot); 1024 bytes to align the base for the 128-byte swizzle."""
+    elements) and the KV segment ids; K4's staging slots (two, one at head
+    dim 256) of 1-byte K and V payloads; the mbarriers (q, full and empty
+    per slot, one per staging slot); 1024 bytes to align the base for the
+    128-byte swizzle."""
+    stages = kernel_stages(head_dim)
+    staging = 1 if _padded(head_dim) == 256 else 2
     tile = KERNEL_BLOCK_KV * head_dim * 2
-    staging = 2 * 2 * KERNEL_BLOCK_KV * head_dim if quantized else 0
-    barriers = (1 + 2 * KERNEL_STAGES + 2) * 8
-    return (kernel_block_q(head_dim) * head_dim * 2 + KERNEL_STAGES * (2 * tile + KERNEL_BLOCK_KV * 4) + staging
-            + barriers + 1024)
+    payloads = staging * 2 * KERNEL_BLOCK_KV * head_dim if quantized else 0
+    barriers = (1 + 2 * stages + staging) * 8
+    return (kernel_block_q(head_dim, quantized) * head_dim * 2 + stages * (2 * tile + KERNEL_BLOCK_KV * 4)
+            + payloads + barriers + 1024)
+
+
+def backward_tiles(head_dim: int, kernel: str) -> tuple[int, int]:
+    """(pinned rows, streamed rows) of the bf16/fp16 backward kernel
+    `kernel` ("dkv" or "dq")."""
+    if kernel not in ("dkv", "dq"):
+        raise ValueError(f"kernel must be 'dkv' or 'dq', got {kernel!r}")
+    if kernel == "dkv" and _padded(head_dim) == 256:
+        return KERNEL_DKV_D256
+    return KERNEL_BWD_PINNED, KERNEL_BWD_STREAM
 
 
 def backward_stages(head_dim: int, kernel: str) -> int:
     """Ring slots of the bf16/fp16 backward kernel `kernel` ("dkv" or "dq"):
-    dK/dV streams three tiles a slot (qs, q, dO) and keeps three slots at
-    head dim 128 to fit; dQ streams two (K, V) and keeps four."""
+    dK/dV streams three tiles a slot (qs, q, dO) and keeps three slots above
+    head dim 64 to fit; dQ streams two (K, V) and keeps four."""
     if kernel not in ("dkv", "dq"):
         raise ValueError(f"kernel must be 'dkv' or 'dq', got {kernel!r}")
     return 3 if kernel == "dkv" and head_dim > 64 else 4
@@ -74,9 +108,10 @@ def backward_smem_bytes(head_dim: int, kernel: str) -> int:
     and empty per slot); 1024 bytes to align the base for the 128-byte
     swizzle."""
     stages = backward_stages(head_dim, kernel)
-    tile = KERNEL_BWD_STREAM * head_dim * 2
-    per_slot = 3 * tile + 3 * KERNEL_BWD_STREAM * 4 if kernel == "dkv" else 2 * tile + KERNEL_BWD_STREAM * 4
-    return 2 * KERNEL_BWD_PINNED * head_dim * 2 + stages * per_slot + (1 + 2 * stages) * 8 + 1024
+    pinned, stream = backward_tiles(head_dim, kernel)
+    tile = stream * head_dim * 2
+    per_slot = 3 * tile + 3 * stream * 4 if kernel == "dkv" else 2 * tile + stream * 4
+    return 2 * pinned * head_dim * 2 + stages * per_slot + (1 + 2 * stages) * 8 + 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,23 +198,36 @@ def blocks_from_chunks(
 
 
 def default_blocks(
-    q_len: int, kv_len: int, head_dim: int, group: int = 1
+    q_len: int, kv_len: int, head_dim: int, group: int = 1, dtype=None, quantized: bool = False
 ) -> BlockSizes:
     """Tiling of the Hopper kernels, which the plain tile loops follow by
     default so that both skip the same blocks.
 
-    The forward's tile is `kernel_block_q(head_dim)` x 64 (192 x 64 at head
-    dim 64, 128 x 64 at 128) for any GQA group: the group's query heads run
-    in separate thread blocks that read the same KV head, so the group does
-    not grow the tile as it did on the TPU.  The backward's: dK/dV pins 128
-    KV rows and walks 64-row query tiles (`bwd_dkv` = (64, 128)), dQ pins
-    128 query rows and walks 64-row KV tiles (`bwd_dq` = (128, 64)).  Above
-    head dim 128 (the D256 family) every tile is 32 x 32.  q_len, kv_len and
+    The forward's tile is `kernel_block_q(head_dim, quantized)` x 64 (192
+    x 64 at head dim 64, 128 x 64 at 128 and for K4 at 256, 64 x 64 for K1
+    at 256) for any GQA group: the group's query
+    heads run in separate thread blocks that read the same KV head, so the
+    group does not grow the tile as it did on the TPU.  The backward's:
+    dK/dV pins 128 KV rows and walks 64-row query tiles (`bwd_dkv` = (64,
+    128)), dQ pins 128 query rows and walks 64-row KV tiles (`bwd_dq` =
+    (128, 64)); at 256 dK/dV pins 64 KV rows and walks 32-row query tiles
+    and dQ is the SIMT family's.  The SIMT family (fp32 at 256, every dtype
+    at 512 and 1024) pins and streams `KERNEL_SIMT_TILE` rows in every
+    kernel.  `dtype` is the inputs' (None: a 16-bit type; float32 changes
+    the tile only at 256, since at 64 and 128 its SIMT kernels differ from
+    the wgmma ones in the order of summation alone).  q_len, kv_len and
     group are taken for signature parity with the JAX package."""
     del q_len, kv_len, group
-    if head_dim > 128:
-        t = KERNEL_D256_TILE
-        return BlockSizes(block_q=t, block_kv=t, block_q_dkv=t, block_kv_dkv=t, block_q_dq=t, block_kv_dq=t)
+    d = _padded(head_dim)
+    if d > 256 or (d == 256 and dtype == torch.float32):
+        rows, bc = KERNEL_SIMT_TILE[d]
+        return BlockSizes(block_q=rows, block_kv=bc, block_q_dkv=bc, block_kv_dkv=rows, block_q_dq=rows,
+                          block_kv_dq=bc)
+    if d == 256:
+        rows, bc = KERNEL_SIMT_TILE[256]
+        pinned, stream = KERNEL_DKV_D256
+        return BlockSizes(block_q=kernel_block_q(d, quantized), block_kv=KERNEL_BLOCK_KV, block_q_dkv=stream,
+                          block_kv_dkv=pinned, block_q_dq=rows, block_kv_dq=bc)
     return BlockSizes(
         block_q=kernel_block_q(head_dim), block_kv=KERNEL_BLOCK_KV,
         block_q_dkv=KERNEL_BWD_STREAM, block_kv_dkv=KERNEL_BWD_PINNED,

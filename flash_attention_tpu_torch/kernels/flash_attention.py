@@ -9,10 +9,15 @@ and `flash_attention_with_lse` look at the device of their inputs
   the forward in `csrc/flash_fwd.cu` (K1) and, for inputs that require
   grad, the backward in `csrc/flash_bwd.cu` (a pre-pass writing di and
   qs, then K2 dK/dV and K3 dQ).  The kernels are built for head dims 64,
-  128 and 256 (256: the SIMT family of `csrc/flash_d256.cuh`); the entry
-  points zero-pad any other head dim up to 256 to the next of them and
-  slice the results back (`padded_head_dim`).  Nothing falls back: what the
-  kernels do not take raises, a head dim above 256 among it.
+  128, 256, 512 and 1024; the entry points zero-pad any other head dim up
+  to 1024 to the next of them and slice the results back
+  (`padded_head_dim`).  At 64 and 128, and for bf16/fp16 K1, K4 and K2 at
+  256, the kernels are warp-specialised TMA + wgmma ones (fp32 takes a SIMT
+  kernel inside the same entry points at 64 and 128); fp32 at 256, K3 at
+  256 and everything at 512 and 1024 take the SIMT family of
+  `csrc/flash_d256.cuh` through entry points of their own (`_route`).
+  Nothing falls back: what the kernels do not take raises, a head dim above
+  1024 among it.
 * CPU tensors go to the plain versions: `flash_attention_reference` (a tile
   loop with the forward kernel's masks, block-skip bounds and lse) and
   `flash_attention_bwd_reference` (the same for the backward).  Below
@@ -59,13 +64,15 @@ __all__ = [
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 
-SUPPORTED_HEAD_DIMS = (64, 128, 256)
+# The head dims the CUDA kernels are built for.  1024 is the widest: there
+# the SIMT family splits a row over a whole warp (32 columns a lane).
+SUPPORTED_HEAD_DIMS = (64, 128, 256, 512, 1024)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def padded_head_dim(d: int) -> int:
-    """The head dim the CUDA kernels run a head dim `d` at: 64 for d <= 64,
-    128 for 64 < d <= 128, 256 for 128 < d <= 256.  Above 256, `d` itself,
+    """The head dim the CUDA kernels run a head dim `d` at: the smallest of
+    64, 128, 256, 512 and 1024 that is at least d.  Above 1024, `d` itself,
     which they do not take.  (The JAX package pads to a multiple of 8, which
     its TPU kernels take.)"""
     return next((dp for dp in SUPPORTED_HEAD_DIMS if d <= dp), d)
@@ -85,8 +92,11 @@ def _pad_head_dim(x: torch.Tensor, dp: int) -> torch.Tensor:
 
 # Launches of each CUDA kernel of the port, counted by its wrapper where it
 # launches: K1-K3 and the backward's pre-pass here, K4 in quant/kv.py, K5
-# and K6 in inference/paged_attention.py.  Head dim 256 runs other kernels
-# (csrc/flash_d256.cuh), counted under the same name + "_d256".
+# and K6 in inference/paged_attention.py.  Head dims 256, 512 and 1024 run
+# other kernels, counted under keys of their own (`_route`): "_d256" for
+# what bf16/fp16 runs at 256 (the wgmma K1, K4 and K2, the SIMT K3),
+# "_d256_simt" for the SIMT K1, K4 and K2 that fp32 runs there, "_wide" for
+# the SIMT family at 512 and 1024.
 KERNEL_LAUNCHES = {
     "flash_fwd": 0,
     "flash_bwd_prep": 0,
@@ -100,12 +110,46 @@ KERNEL_LAUNCHES = {
     "flash_bwd_dkv_d256": 0,
     "flash_bwd_dq_d256": 0,
     "flash_fwd_kv_quant_d256": 0,
+    "flash_fwd_d256_simt": 0,
+    "flash_bwd_dkv_d256_simt": 0,
+    "flash_fwd_kv_quant_d256_simt": 0,
+    "flash_fwd_wide": 0,
+    "flash_bwd_prep_wide": 0,
+    "flash_bwd_dkv_wide": 0,
+    "flash_bwd_dq_wide": 0,
+    "flash_fwd_kv_quant_wide": 0,
 }
 
 
-def launch_key(name: str, head_dim: int) -> str:
-    """The KERNEL_LAUNCHES entry of kernel `name` launched at `head_dim`."""
-    return f"{name}_d256" if head_dim == 256 else name
+def _route(name: str, head_dim: int, dtype: torch.dtype, simt: bool = False) -> tuple[str, str]:
+    """(KERNEL_LAUNCHES key, C entry point) of kernel `name` ("flash_fwd",
+    "flash_fwd_kv_quant", "flash_bwd_prep", "flash_bwd_dkv" or
+    "flash_bwd_dq") at padded head dim `head_dim` for q's `dtype`.  The
+    SIMT family (csrc/flash_d256.cuh) has entry points of their own, named
+    with "_simt"; `simt` sends bf16/fp16 at 256 there too, to compare the
+    wgmma kernels with the SIMT ones they replaced."""
+    if head_dim <= 128:
+        return name, f"fa_{name}"
+    if name == "flash_bwd_prep":
+        return f"{name}_d256" if head_dim == 256 else f"{name}_wide", f"fa_{name}"
+    if head_dim > 256:
+        return f"{name}_wide", f"fa_{name}_simt"
+    if name == "flash_bwd_dq":  # K3 runs the SIMT family at 256 for every dtype
+        return f"{name}_d256", f"fa_{name}_simt"
+    if simt or dtype == torch.float32:
+        return f"{name}_d256_simt", f"fa_{name}_simt"
+    return f"{name}_d256", f"fa_{name}"
+
+
+def _call(entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point `entry` of the kernel library on `device`'s
+    current stream (appended to `args`); raises on a non-zero cudaError."""
+    from ._build import library
+
+    with torch.cuda.device(device):
+        err = getattr(library(), entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed with cudaError {err}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,7 +240,7 @@ def flash_attention_reference(
     group = hq // hkv
     if sm_scale is None:
         sm_scale = float(d) ** -0.5
-    blocks = block_sizes or default_blocks(lq, lk, d, group)
+    blocks = block_sizes or default_blocks(lq, lk, d, group, dtype=q.dtype)
     bq, bkv = blocks.block_q, blocks.block_kv
     qs = (q.float() * (sm_scale * _LOG2E)).to(q.dtype).float().reshape(b, hkv, group, lq, d)
     kf = k.float()[:, :, None]
@@ -253,7 +297,7 @@ def _bwd_operands(q, k, v, o, lse, do, dlse, causal, sm_scale, window, segment_i
     group = hq // hkv
     if sm_scale is None:
         sm_scale = float(d) ** -0.5
-    blocks = block_sizes or default_blocks(lq, lk, d, group)
+    blocks = block_sizes or default_blocks(lq, lk, d, group, dtype=q.dtype)
 
     def grouped(x):
         return x.reshape(b, hkv, group, *x.shape[2:])
@@ -385,7 +429,7 @@ def _check_kernel_inputs(*ts: torch.Tensor) -> None:
         )
     if d not in SUPPORTED_HEAD_DIMS:
         raise NotImplementedError(
-            f"the flash kernels are built for head dims {SUPPORTED_HEAD_DIMS} (entry points pad up to 256), got {d}"
+            f"the flash kernels are built for head dims {SUPPORTED_HEAD_DIMS} (entry points pad up to 1024), got {d}"
         )
     if len({t.device for t in ts}) != 1:
         raise ValueError(f"inputs on different devices: {[str(t.device) for t in ts]}")
@@ -395,10 +439,9 @@ def _ids_ptrs(segs):
     return (segs[0].data_ptr(), segs[1].data_ptr()) if segs is not None else (None, None)
 
 
-def _launch(q, k, v, spec: _Spec, segs, need_lse: bool):
-    """Run csrc/flash_fwd.cu on CUDA tensors: (out, lse or None)."""
-    from ._build import library
-
+def _launch(q, k, v, spec: _Spec, segs, need_lse: bool, simt: bool = False):
+    """Run the forward kernel for q's dtype and head dim (`_route`) on CUDA
+    tensors: (out, lse or None)."""
     b, hq, hkv, lq, lk, d = _shapes(q, k, v)
     _check_kernel_inputs(q, k, v)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
@@ -406,33 +449,31 @@ def _launch(q, k, v, spec: _Spec, segs, need_lse: bool):
     # is then a free view.
     out = torch.empty(b, lq, hq, d, dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty(b, hq, lq, dtype=torch.float32, device=q.device) if need_lse else None
-    with torch.cuda.device(q.device):
-        err = library().fa_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if lse is not None else None, *_ids_ptrs(segs),
-            _DTYPE_CODES[q.dtype], b, hq, hkv, lq, lk, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            spec.sm_scale * _LOG2E, int(spec.causal), spec.window or 0,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed with cudaError {err}")
-    KERNEL_LAUNCHES[launch_key("flash_fwd", d)] += 1
+    key, entry = _route("flash_fwd", d, q.dtype, simt)
+    _call(
+        entry, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse), *_ids_ptrs(segs),
+        _DTYPE_CODES[q.dtype], b, hq, hkv, lq, lk, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        spec.sm_scale * _LOG2E, int(spec.causal), spec.window or 0,
+    )
+    KERNEL_LAUNCHES[key] += 1
     return out, lse
 
 
 def _bwd_args(q, k, v, o, lse, do, dlse, spec: _Spec, segs):
     """The backward kernels' common arguments (one dict per call, shared
     by the pre-pass, K2 and K3): inputs read through their strides; the
-    pre-pass's outputs, di (fp32 [B, Hq, Lq]) and, for bf16/fp16, qs
-    ([B, Hq, Lq, D] contiguous); and the grads in [B, L, H, D] memory, as
-    the forward's output, so that the grads of the fused projection's q/k/v
-    views are free views too."""
+    pre-pass's outputs, di (fp32 [B, Hq, Lq]) and, for bf16/fp16 up to
+    head dim 256, where the wgmma K2/K3 read it, qs ([B, Hq, Lq, D]
+    contiguous; the SIMT family rounds q itself); and the grads in
+    [B, L, H, D] memory, as the forward's output, so that the grads of the
+    fused projection's q/k/v views are free views too."""
     b, hq, hkv, lq, lk, d = _shapes(q, k, v)
     _check_kernel_inputs(q, k, v, o, do)
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
     di = torch.empty(b, hq, lq, dtype=torch.float32, device=q.device)
-    qs = None if q.dtype == torch.float32 else torch.empty(b, hq, lq, d, dtype=q.dtype, device=q.device)
+    needs_qs = q.dtype != torch.float32 and d <= 256
+    qs = torch.empty(b, hq, lq, d, dtype=q.dtype, device=q.device) if needs_qs else None
     dq = torch.empty(b, lq, hq, d, dtype=q.dtype, device=q.device).transpose(1, 2)
     dk = torch.empty(b, lk, hkv, d, dtype=k.dtype, device=q.device).transpose(1, 2)
     dv = torch.empty(b, lk, hkv, d, dtype=v.dtype, device=q.device).transpose(1, 2)
@@ -452,46 +493,36 @@ def _ptr(t: torch.Tensor | None):
 
 
 def _launch_bwd_prep(args: dict) -> None:
-    """Run the pre-pass (csrc/flash_bwd.cu, fa_flash_bwd_prep): di and, for
-    bf16/fp16, qs, into the tensors of `args`."""
-    from ._build import library
-
+    """Run the pre-pass (csrc/flash_bwd.cu, fa_flash_bwd_prep): di and, when
+    `args` holds one, qs, into the tensors of `args`."""
     q, _, _, do, _, di = args["tensors"]
     o, dlse, strides = args["prep"]
     dtype, b, hq, _, lq, _, d = args["tail"][:7]
-    with torch.cuda.device(q.device):
-        err = library().fa_flash_bwd_prep(
-            q.data_ptr(), o.data_ptr(), do.data_ptr(), _ptr(dlse), _ptr(args["qs"]), di.data_ptr(),
-            dtype, b, hq, lq, d, strides, args["tail"][9], torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_bwd_prep launch failed with cudaError {err}")
-    KERNEL_LAUNCHES[launch_key("flash_bwd_prep", d)] += 1
+    key, entry = _route("flash_bwd_prep", d, q.dtype)
+    _call(
+        entry, q.device, q.data_ptr(), o.data_ptr(), do.data_ptr(), _ptr(dlse), _ptr(args["qs"]), di.data_ptr(),
+        dtype, b, hq, lq, d, strides, args["tail"][9],
+    )
+    KERNEL_LAUNCHES[key] += 1
 
 
-def _bwd_launch(name: str, args: dict, outs: tuple[torch.Tensor, ...]) -> None:
-    from ._build import library
-
-    ins = [*(t.data_ptr() for t in args["tensors"]), _ptr(args["qs"]), *_ids_ptrs(args["segs"])]
+def _bwd_launch(name: str, args: dict, outs: tuple[torch.Tensor, ...], simt: bool) -> None:
     q = args["tensors"][0]
-    with torch.cuda.device(q.device):
-        err = getattr(library(), f"fa_{name}")(
-            *ins, *(t.data_ptr() for t in outs), *args["tail"], torch.cuda.current_stream(q.device).cuda_stream
-        )
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with cudaError {err}")
-    KERNEL_LAUNCHES[launch_key(name, args["tail"][6])] += 1
+    key, entry = _route(name, args["tail"][6], q.dtype, simt)
+    ins = [*(t.data_ptr() for t in args["tensors"]), _ptr(args["qs"]), *_ids_ptrs(args["segs"])]
+    _call(entry, q.device, *ins, *(t.data_ptr() for t in outs), *args["tail"])
+    KERNEL_LAUNCHES[key] += 1
 
 
-def _launch_bwd_dkv(args: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run K2 (csrc/flash_bwd.cu, fa_flash_bwd_dkv): (dk, dv)."""
-    _bwd_launch("flash_bwd_dkv", args, (args["dk"], args["dv"]))
+def _launch_bwd_dkv(args: dict, simt: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run K2 (fa_flash_bwd_dkv, or the SIMT family's; `_route`): (dk, dv)."""
+    _bwd_launch("flash_bwd_dkv", args, (args["dk"], args["dv"]), simt)
     return args["dk"], args["dv"]
 
 
 def _launch_bwd_dq(args: dict) -> torch.Tensor:
-    """Run K3 (csrc/flash_bwd.cu, fa_flash_bwd_dq): dq."""
-    _bwd_launch("flash_bwd_dq", args, (args["dq"],))
+    """Run K3 (fa_flash_bwd_dq, or the SIMT family's; `_route`): dq."""
+    _bwd_launch("flash_bwd_dq", args, (args["dq"],), False)
     return args["dq"]
 
 
@@ -599,7 +630,7 @@ def _segments(segment_ids, b: int, lq: int, lk: int, device):
     return q_ids, kv_ids
 
 
-def _blocks(lq, lk, d, group, block_sizes, num_chunks_q, num_chunks_kv) -> BlockSizes:
+def _blocks(lq, lk, d, group, dtype, block_sizes, num_chunks_q, num_chunks_kv) -> BlockSizes:
     """The tiling of the plain versions, chosen as the JAX package chooses
     it: explicit block_sizes, else the chunk counts (`blocks_from_chunks`),
     else the kernels' own tile."""
@@ -607,7 +638,7 @@ def _blocks(lq, lk, d, group, block_sizes, num_chunks_q, num_chunks_kv) -> Block
         return block_sizes
     if num_chunks_q is not None or num_chunks_kv is not None:
         return blocks_from_chunks(lq, lk, num_chunks_q or 1, num_chunks_kv or 1)
-    return default_blocks(lq, lk, d, group)
+    return default_blocks(lq, lk, d, group, dtype=dtype)
 
 
 def flash_attention(
@@ -639,16 +670,14 @@ def flash_attention(
       num_chunks_q / num_chunks_kv: reference-style chunk counts mapped to
         block sizes (`blocks_from_chunks`).
       The tiling sets the tiles of the plain versions (CPU tensors).  The
-      CUDA kernels keep their own tiles whatever is passed (the forward
-      192 x 64 at head dim 64 and 128 x 64 at 128; the backward 128 pinned
-      KV rows by 64 query rows for dK/dV, 128 pinned query rows by 64 KV
-      rows for dQ; 32 x 32 everywhere at 256), which changes only the order
-      of summation.
+      CUDA kernels keep their own tiles whatever is passed
+      (`default_blocks` lists them), which changes only the order of
+      summation.
 
     Returns [batch, num_q_heads, q_len, head_dim] in q's dtype.  On CUDA,
-    float32, bfloat16 and float16 run natively, at any head dim up to 256
-    (zero-padded to 64, 128 or 256, as the JAX package pads to a multiple
-    of 8); above 256 the CUDA route raises NotImplementedError.
+    float32, bfloat16 and float16 run natively, at any head dim up to 1024
+    (zero-padded to 64, 128, 256, 512 or 1024, as the JAX package pads to a
+    multiple of 8); above 1024 the CUDA route raises NotImplementedError.
     """
     b, hq, hkv, lq, lk, d = _shapes(q, k, v)
     if sm_scale is None:
@@ -675,7 +704,7 @@ def flash_attention(
         return vanilla_attention(
             q, k_r, v_r, causal=causal, sm_scale=sm_scale, window=window, segment_ids=segs
         )
-    blocks = _blocks(lq, lk, d, hq // hkv, block_sizes, num_chunks_q, num_chunks_kv)
+    blocks = _blocks(lq, lk, d, hq // hkv, q.dtype, block_sizes, num_chunks_q, num_chunks_kv)
     spec = _Spec(causal, float(sm_scale), window, blocks)
     if not _needs_grad(q, k, v):
         return _forward(q, k, v, spec, segs, need_lse=False)[0]
@@ -704,7 +733,7 @@ def flash_attention_with_lse(
         q, k, v = (_pad_head_dim(x, dp) for x in (q, k, v))
         out, lse = flash_attention_with_lse(q, k, v, causal=causal, sm_scale=sm_scale, block_sizes=block_sizes)
         return out[..., :d], lse
-    blocks = _blocks(lq, lk, d, hq // hkv, block_sizes, None, None)
+    blocks = _blocks(lq, lk, d, hq // hkv, q.dtype, block_sizes, None, None)
     spec = _Spec(causal, float(sm_scale), None, blocks)
     if not _needs_grad(q, k, v):
         return _forward(q, k, v, spec, None, need_lse=True)

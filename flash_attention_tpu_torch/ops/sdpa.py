@@ -9,12 +9,11 @@ A call routes to `flash_attention` only where the kernels compute exactly
 what torch's function computes.  Everything else falls through to the saved
 original, as the JAX router's `_supported` does: an `attn_mask`,
 `dropout_p > 0`, inputs that are not 4-D, differing head counts without
-`enable_gqa`, arguments torch adds later, on CUDA a head dim above 256 or a
-dtype the kernels are not built for (head dims up to 256 are zero-padded
-to 64, 128 or 256 by `flash_attention`), and causal attention with
-Lq != Lk, where torch
-aligns the mask to the top-left corner and the kernels align the queries
-to the end of the keys.  (The JAX router routes that last case to its
+`enable_gqa`, arguments torch adds later, on CUDA a head dim above 1024 or
+a dtype the kernels are not built for (head dims up to 1024 are
+zero-padded to 64, 128, 256, 512 or 1024 by `flash_attention`), and causal
+attention with Lq != Lk, where torch aligns the mask to the top-left
+corner and the kernels align the queries to the end of the keys.  (The JAX router routes that last case to its
 kernel anyway, which gives the end-aligned result.)
 """
 

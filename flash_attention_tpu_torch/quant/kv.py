@@ -10,7 +10,9 @@ the kernel's inputs cannot drift apart.
 
 * CUDA tensors go to K4, `fa_flash_fwd_kv_quant` (`csrc/flash_fwd_kv_quant.cu`),
   which is K1's kernel with a K/V tile load that dequantizes in shared
-  memory.  Nothing falls back: what the kernel does not take raises.
+  memory (`fa_flash_fwd_kv_quant_simt`, the SIMT family's, for fp32 q at
+  head dim 256 and every q at 512 and 1024; `_route`).  Nothing falls
+  back: what the kernel does not take raises.
 * CPU tensors go to the plain version, `flash_attention_kv_quant_reference`:
   K1's plain tile loop on K/V dequantized the kernel's way.  Below the
   kernel's smallest shapes (`lq < MIN_BLOCK // 8` or `lk < MIN_BLOCK`) the
@@ -30,19 +32,20 @@ import dataclasses
 import torch
 
 from ..config import kernel_route
-from ..kernels.block_sizes import MIN_BLOCK, BlockSizes
+from ..kernels.block_sizes import MIN_BLOCK, BlockSizes, default_blocks
 from ..kernels.flash_attention import (
     _DTYPE_CODES,
     _LOG2E,
     KERNEL_LAUNCHES,
     SUPPORTED_HEAD_DIMS,
     _aligned,
+    _call,
     _ids_ptrs,
     _pad_head_dim,
+    _route,
     _segments,
     _shapes,
     flash_attention_reference,
-    launch_key,
     padded_head_dim,
 )
 from ..kernels.vanilla import vanilla_attention
@@ -126,7 +129,11 @@ def flash_attention_kv_quant_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version of K4: K1's tile loop
     (`flash_attention_reference`) over K/V dequantized as the kernel does it;
-    returns out only.  segment_ids is a (q_ids, kv_ids) pair."""
+    returns out only, at K4's tile by default (`default_blocks(...,
+    quantized=True)`).  segment_ids is a (q_ids, kv_ids) pair."""
+    if block_sizes is None:
+        _, hq, hkv, lq, lk, d = _shapes(q, kv.k, kv.v)
+        block_sizes = default_blocks(lq, lk, d, hq // hkv, dtype=q.dtype, quantized=True)
     k = _dequantize_like_kernel(kv.k, kv.k_scale, q.dtype)
     v = _dequantize_like_kernel(kv.v, kv.v_scale, q.dtype)
     out, _ = flash_attention_reference(
@@ -147,8 +154,9 @@ def _check_kv(q: torch.Tensor, kv: QuantizedKV):
     return b, hq, hkv, lq, lk, d
 
 
-def _launch(q: torch.Tensor, kv: QuantizedKV, causal: bool, sm_scale: float, window: int | None, segs):
-    """Run K4 (csrc/flash_fwd_kv_quant.cu) on CUDA tensors: out."""
+def _launch(q: torch.Tensor, kv: QuantizedKV, causal: bool, sm_scale: float, window: int | None, segs,
+            simt: bool = False):
+    """Run K4 for q's dtype and head dim (`_route`) on CUDA tensors: out."""
     b, hq, hkv, lq, lk, d = _check_kv(q, kv)
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"K4 takes float32/bfloat16/float16 q, got {q.dtype}")
@@ -157,8 +165,6 @@ def _launch(q: torch.Tensor, kv: QuantizedKV, causal: bool, sm_scale: float, win
     tensors = (q, kv.k, kv.v, kv.k_scale, kv.v_scale)
     if kernel_route(*tensors) != "cuda":
         raise RuntimeError("K4 runs on CUDA tensors only; CPU tensors take the plain version")
-    from ..kernels._build import library
-
     q, k, v = _aligned(q), _aligned(kv.k), _aligned(kv.v)
     ks = kv.k_scale.float().contiguous()
     vs = kv.v_scale.float().contiguous()
@@ -166,15 +172,13 @@ def _launch(q: torch.Tensor, kv: QuantizedKV, causal: bool, sm_scale: float, win
     strides = (ctypes.c_longlong * 14)(
         *(s for t_ in (q, k, v, out) for s in t_.stride()[:3]), *ks.stride()[:2]
     )
-    with torch.cuda.device(q.device):
-        err = library().fa_flash_fwd_kv_quant(
-            q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr(), out.data_ptr(),
-            *_ids_ptrs(segs), _DTYPE_CODES[q.dtype], QUANT_DTYPES[k.dtype], b, hq, hkv, lq, lk, d, strides,
-            sm_scale * _LOG2E, int(causal), window or 0, torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_fwd_kv_quant launch failed with cudaError {err}")
-    KERNEL_LAUNCHES[launch_key("flash_fwd_kv_quant", d)] += 1
+    key, entry = _route("flash_fwd_kv_quant", d, q.dtype, simt)
+    _call(
+        entry, q.device, q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr(), out.data_ptr(),
+        *_ids_ptrs(segs), _DTYPE_CODES[q.dtype], QUANT_DTYPES[k.dtype], b, hq, hkv, lq, lk, d, strides,
+        sm_scale * _LOG2E, int(causal), window or 0,
+    )
+    KERNEL_LAUNCHES[key] += 1
     return out
 
 
@@ -195,10 +199,10 @@ def flash_attention_kv_quant(
     main op's feature set: causal with queries aligned to the end of KV,
     sliding window, segment ids (an int tensor [B, L] or a (q_ids, kv_ids)
     pair).  block_sizes sets the plain version's tiles only.  Returns
-    [B, Hq, Lq, D] in q's dtype.  On CUDA any head dim up to 256 runs: q and
-    the payloads are zero-padded to 64, 128 or 256 (`padded_head_dim`; the
-    scales stay as they are) and the output is sliced back; above 256 the
-    CUDA route raises NotImplementedError.
+    [B, Hq, Lq, D] in q's dtype.  On CUDA any head dim up to 1024 runs: q
+    and the payloads are zero-padded to 64, 128, 256, 512 or 1024
+    (`padded_head_dim`; the scales stay as they are) and the output is
+    sliced back; above 1024 the CUDA route raises NotImplementedError.
     """
     b, hq, hkv, lq, lk, d = _check_kv(q, kv)
     if sm_scale is None:

@@ -7,6 +7,7 @@ compares it there with `flash_attention_reference` and with vanilla)."""
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -60,14 +61,14 @@ def test_flash_attention_with_lse_matches_jax(lq, lk):
     np.testing.assert_allclose(n(tl), n(jl), atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("d", [16, 96, 160, 256])
+@pytest.mark.parametrize("d", [16, 96, 160, 256, 288, 520])
 def test_padded_head_dim_route_matches_jax(d):
     """The CUDA route's padding on the plain version: q/k/v zero-padded to
-    D64 (d <= 64), D128 (d <= 128) or D256, the plain loop there with the
-    true sm_scale, the output sliced back.  Out and lse against JAX at d
-    itself (which pads to a multiple of 8), fp32, 1e-5."""
+    D64 (d <= 64), D128 (d <= 128), D256, D512 or D1024, the plain loop
+    there with the true sm_scale, the output sliced back.  Out and lse
+    against JAX at d itself (which pads to a multiple of 8), fp32, 1e-5."""
     dp = tfa.padded_head_dim(d)
-    assert dp == next(p for p in (64, 128, 256) if d <= p)
+    assert dp == next(p for p in (64, 128, 256, 512, 1024) if d <= p)
     q, k, v = _qkv(200, 200, d=d, seed=21)
     jo, jl = jfa.flash_attention_with_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     padded = [tfa._pad_head_dim(t(x), dp) for x in (q, k, v)]
@@ -81,9 +82,11 @@ def test_padded_head_dim_route_matches_jax(d):
     np.testing.assert_allclose(n(tout), n(jout), atol=1e-5, rtol=0)
 
 
-def test_padded_head_dim_is_64_128_or_256_up_to_256():
-    ds = (8, 16, 32, 64, 65, 96, 128, 129, 160, 192, 256, 288)
-    assert [tfa.padded_head_dim(d) for d in ds] == [64, 64, 64, 64, 128, 128, 128, 256, 256, 256, 256, 288]
+def test_padded_head_dim_is_64_128_256_512_or_1024_up_to_1024():
+    ds = (8, 16, 32, 64, 65, 96, 128, 129, 160, 192, 256, 257, 288, 512, 513, 520, 1024, 1040)
+    assert [tfa.padded_head_dim(d) for d in ds] == [
+        64, 64, 64, 64, 128, 128, 128, 256, 256, 256, 256, 512, 512, 512, 1024, 1024, 1024, 1040,
+    ]
 
 
 def test_window_and_segments_match_jax():
@@ -141,18 +144,54 @@ def test_block_sizes_match_jax(name, fn):
 def test_default_blocks_is_the_kernel_tile():
     """The plain loops' default tiles are the Hopper kernels': the forward
     192 x 64 at head dim 64 (three consumer warpgroups), 128 x 64 at 128
-    (two), for any GQA group; the backward (two consumer warpgroups at both
-    head dims) 64 query rows against 128 pinned KV rows for dK/dV, 128
-    pinned query rows against 64 KV rows for dQ."""
+    (two) and for bf16/fp16 at 256 64 x 64 (K1, one) or 128 x 64 (K4,
+    two), for any GQA group; the backward (two
+    consumer warpgroups at 64 and 128) 64 query rows against 128 pinned KV
+    rows for dK/dV, 128 pinned query rows against 64 KV rows for dQ; at 256
+    dK/dV 32 query rows against 64 pinned KV rows and dQ the SIMT family's
+    32 x 32.  The SIMT family (fp32 at 256, every dtype at 512 and 1024)
+    pins 256 / (D / 32) rows and streams 32, 32 and 16."""
     assert tbs.KERNEL_BLOCK_KV == 64
     bwd = dict(block_q_dkv=64, block_kv_dkv=128, block_q_dq=128, block_kv_dq=64)
     assert tbs.default_blocks(1024, 1024, 64) == tbs.BlockSizes(192, 64, **bwd)
     assert tbs.default_blocks(40, 384, 128, group=4) == tbs.BlockSizes(128, 64, **bwd)
     assert tbs.default_blocks(1024, 1024, 64).bwd_dkv() == (64, 128)
     assert tbs.default_blocks(1024, 1024, 128).bwd_dq() == (128, 64)
-    # the D256 family (csrc/flash_d256.cuh): 32 pinned rows, 32-row tiles
-    d256 = tbs.default_blocks(1024, 1024, 256)
-    assert (d256.block_q, d256.block_kv, d256.bwd_dkv(), d256.bwd_dq()) == (32, 32, (32, 32), (32, 32))
+
+    def tiles(d, dtype=None, quantized=False):
+        x = tbs.default_blocks(1024, 1024, d, dtype=dtype, quantized=quantized)
+        return x.block_q, x.block_kv, x.bwd_dkv(), x.bwd_dq()
+
+    for dtype in (None, torch.bfloat16, torch.float16):
+        assert tiles(256, dtype) == tiles(160, dtype) == (64, 64, (32, 64), (32, 32))
+        assert tiles(256, dtype, quantized=True)[:2] == (128, 64)
+    assert tiles(256, torch.float32) == tiles(129, torch.float32) == (32, 32, (32, 32), (32, 32))
+    for dtype in (torch.bfloat16, torch.float32):
+        assert tiles(512, dtype) == tiles(288, dtype) == (16, 32, (32, 16), (16, 32))
+        assert tiles(1024, dtype) == tiles(520, dtype) == (8, 16, (16, 8), (8, 16))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_plain_loop_at_the_d256_tiles_matches_jax(dtype):
+    """The plain forward and backward at the D256 kernels' tiles, 64 x 64
+    forward and 32 x 64 dK/dV for bf16 (the wgmma kernels), 32 x 32 for
+    fp32 (the SIMT family), on fp32 inputs at L130 (ragged ends, a GQA
+    group of 2 whose tiles cross the causal diagonal): out, lse and the
+    grads against the JAX package in interpret mode, fp32, forward 1e-5,
+    backward 1e-4."""
+    lq = lk = 130
+    q, k, v = _qkv(lq, lk, d=256, seed=13)
+    do = randn(16, 1, 4, lq, 256)
+    blocks = tbs.default_blocks(lq, lk, 256, 2, dtype=getattr(torch, dtype))
+    assert blocks.block_q == (64 if dtype == "bfloat16" else 32)
+    jo, jl = jfa.flash_attention_with_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    to, tl = tfa.flash_attention_reference(t(q), t(k), t(v), block_sizes=blocks)
+    np.testing.assert_allclose(n(to), n(jo), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(n(tl), n(jl), atol=1e-5, rtol=0)
+    _, vjp = jax.vjp(lambda *a: jfa.flash_attention(*a), jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    grads = tfa.flash_attention_bwd_reference(t(q), t(k), t(v), to, tl, t(do), block_sizes=blocks)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(n(g), np.asarray(w), atol=1e-4, rtol=0, err_msg=name)
 
 
 @pytest.mark.parametrize("lq,lk", [(300, 300), (200, 330)])
@@ -185,13 +224,17 @@ def test_aligned_copies_only_what_the_kernels_cannot_read():
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("kv", ["same", "int8", "float8_e4m3fn"])
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [64, 128, 256])
 def test_forward_kernel_fits_in_shared_memory(dtype, kv, head_dim):
     """Every instantiation of the bf16/fp16 forward (q dtype, K/V payload,
-    head dim) fits an H100 block's 227 KB; the 2-byte types share a layout."""
+    head dim) fits an H100 block's 227 KB; the 2-byte types share a layout.
+    At 256 the ring keeps two slots and K4 one payload staging slot."""
     used = tbs.forward_smem_bytes(head_dim, quantized=kv != "same")
     assert used <= tbs.SMEM_PER_BLOCK == 232_448
-    assert used >= (tbs.kernel_block_q(head_dim) + 2 * tbs.KERNEL_STAGES * tbs.KERNEL_BLOCK_KV) * head_dim * 2
+    stages = tbs.kernel_stages(head_dim)
+    assert stages == (2 if head_dim == 256 else 4)
+    rows = tbs.kernel_block_q(head_dim, quantized=kv != "same")
+    assert used >= (rows + 2 * stages * tbs.KERNEL_BLOCK_KV) * head_dim * 2
 
 
 def test_cpu_route_counts_no_kernel_launch():

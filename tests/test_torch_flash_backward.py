@@ -172,6 +172,16 @@ def test_backward_kernel_fits_in_shared_memory(dtype, kernel, head_dim):
     assert tiles * head_dim * 2 <= used <= tbs.SMEM_PER_BLOCK == 232_448
 
 
+def test_d256_dkv_kernel_fits_in_shared_memory():
+    """K2's bf16/fp16 kernel at head dim 256 (DkvCfg<256>): K and V pinned
+    at 64 rows (64 KB) and three ring slots of 32-row qs, q and dO tiles (48
+    KB each) fit an H100 block's 227 KB; two 64-row slots would not."""
+    assert tbs.backward_tiles(256, "dkv") == (64, 32) and tbs.backward_stages(256, "dkv") == 3
+    used = tbs.backward_smem_bytes(256, "dkv")
+    assert (2 * 64 + 3 * 3 * 32) * 256 * 2 <= used <= tbs.SMEM_PER_BLOCK
+    assert (2 * 64 + 2 * 3 * 64) * 256 * 2 > tbs.SMEM_PER_BLOCK
+
+
 @pytest.mark.parametrize("with_dlse", [False, True], ids=["di", "di-minus-dlse"])
 def test_prep_di_matches_the_jax_backward_rules(with_dlse, monkeypatch):
     """The pre-pass's plain di is the di that the JAX package's backward
@@ -224,10 +234,10 @@ def test_prep_qs_matches_the_jax_recompute_p(dtype):
     np.testing.assert_allclose(n(torch.exp2(qs.float())), np.asarray(p), rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("d", [16, 96, 160, 256])
+@pytest.mark.parametrize("d", [16, 96, 160, 256, 288, 520])
 def test_padded_head_dim_grads_match_jax(d):
     """The CUDA route's padding on the plain versions: q/k/v zero-padded to
-    D64, D128 or D256 with `torch.nn.functional.pad`, the autograd Function there
+    D64, D128, D256, D512 or D1024 with `torch.nn.functional.pad`, the autograd Function there
     with the true sm_scale, out sliced back.  Autograd slices the grads back;
     out, lse and the q/k/v grads (out and lse cotangents) against
     `jax.grad` of the JAX package at d itself: fp32, forward 1e-5, backward
@@ -254,10 +264,10 @@ def test_padded_head_dim_grads_match_jax(d):
 
 
 @pytest.mark.parametrize("entry", ["flash_attention", "with_lse", "segments"])
-@pytest.mark.parametrize("d", [16, 96, 160, 256])
+@pytest.mark.parametrize("d", [16, 96, 160, 256, 288, 520])
 def test_cuda_route_launches_padded_head_dims(d, entry, monkeypatch):
     """On the CUDA route the entry points hand the kernels' launchers q/k/v
-    (and dO) padded to D64, D128 or D256, with sm_scale from the true d, and slice
+    (and dO) padded to D64, D128, D256, D512 or D1024, with sm_scale from the true d, and slice
     the results back.  The launchers are stood in for by recorders that run
     the plain versions, so no card is needed; the results are held against
     JAX at d (fp32, forward 1e-5, backward 1e-4)."""
@@ -290,7 +300,7 @@ def test_cuda_route_launches_padded_head_dims(d, entry, monkeypatch):
         out = tfa.flash_attention(qt, kt, vt, **kw_t)
         jfn = functools.partial(jfa.flash_attention, **kw_j)
     out.backward(t(do))
-    dp = next(p for p in (64, 128, 256) if d <= p)
+    dp = next(p for p in (64, 128, 256, 512, 1024) if d <= p)
     assert seen == [("fwd", dp, dp, dp, d ** -0.5), ("bwd", dp, dp, dp, dp, d ** -0.5)]
     want, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (q, k, v)))
     assert out.shape == q.shape
@@ -300,17 +310,18 @@ def test_cuda_route_launches_padded_head_dims(d, entry, monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["flash_attention", "with_lse", "kv_quant"])
-def test_cuda_route_raises_above_head_dim_256(entry, monkeypatch):
-    """No model in the repo has a head dim above 256 and the kernels are not
-    built for one: on the CUDA route D288 raises before any launch (the
-    real launchers check the head dim before they build or load the
-    kernels, so no card is needed to see it)."""
+def test_cuda_route_raises_above_head_dim_1024(entry, monkeypatch):
+    """No public model config has a head dim above 256, and at 1024 the SIMT
+    family already splits a row over a whole warp: the kernels are built up
+    to 1024, and on the CUDA route D1040 raises before any launch (the real
+    launchers check the head dim before they build or load the kernels, so
+    no card is needed to see it)."""
     monkeypatch.setattr(tfa, "kernel_route", lambda *ts: "cuda")
     monkeypatch.setattr(tkv, "kernel_route", lambda *ts: "cuda")
     before = dict(tfa.KERNEL_LAUNCHES)
-    q = torch.zeros(1, 4, 130, 288)
-    kv = torch.zeros(1, 2, 130, 288)
-    with pytest.raises(NotImplementedError, match="288"):
+    q = torch.zeros(1, 4, 130, 1040)
+    kv = torch.zeros(1, 2, 130, 1040)
+    with pytest.raises(NotImplementedError, match="1040"):
         if entry == "flash_attention":
             tfa.flash_attention(q, kv, kv)
         elif entry == "with_lse":
@@ -318,3 +329,86 @@ def test_cuda_route_raises_above_head_dim_256(entry, monkeypatch):
         else:
             tkv.flash_attention_kv_quant(q, tkv.quantize_kv(kv, kv))
     assert tfa.KERNEL_LAUNCHES == before
+
+
+# Where each C entry point takes its head dim (the index in its arguments).
+_HEAD_DIM_ARG = {
+    "fa_flash_fwd": 13, "fa_flash_fwd_simt": 13, "fa_flash_fwd_kv_quant": 15, "fa_flash_fwd_kv_quant_simt": 15,
+    "fa_flash_bwd_prep": 10, "fa_flash_bwd_dkv": 17, "fa_flash_bwd_dkv_simt": 17, "fa_flash_bwd_dq": 16,
+    "fa_flash_bwd_dq_simt": 16,
+}
+# Where the backward's entry points take qs (written by the pre-pass, read by
+# the wgmma K2 / K3).
+_QS_ARG = {"fa_flash_bwd_prep": 4, "fa_flash_bwd_dkv": 6, "fa_flash_bwd_dkv_simt": 6, "fa_flash_bwd_dq": 6,
+           "fa_flash_bwd_dq_simt": 6}
+
+
+@pytest.mark.parametrize(
+    "d,dtype,fwd,prep,dkv,dq,k4",
+    [
+        # bf16/fp16 at 256: the wgmma K1, K2 and K4; K3 is the SIMT family's
+        (256, torch.bfloat16, ("flash_fwd_d256", "fa_flash_fwd"), ("flash_bwd_prep_d256", "fa_flash_bwd_prep"),
+         ("flash_bwd_dkv_d256", "fa_flash_bwd_dkv"), ("flash_bwd_dq_d256", "fa_flash_bwd_dq_simt"),
+         ("flash_fwd_kv_quant_d256", "fa_flash_fwd_kv_quant")),
+        (160, torch.float16, ("flash_fwd_d256", "fa_flash_fwd"), ("flash_bwd_prep_d256", "fa_flash_bwd_prep"),
+         ("flash_bwd_dkv_d256", "fa_flash_bwd_dkv"), ("flash_bwd_dq_d256", "fa_flash_bwd_dq_simt"),
+         ("flash_fwd_kv_quant_d256", "fa_flash_fwd_kv_quant")),
+        # fp32 at 256: the SIMT family
+        (256, torch.float32, ("flash_fwd_d256_simt", "fa_flash_fwd_simt"), ("flash_bwd_prep_d256", "fa_flash_bwd_prep"),
+         ("flash_bwd_dkv_d256_simt", "fa_flash_bwd_dkv_simt"), ("flash_bwd_dq_d256", "fa_flash_bwd_dq_simt"),
+         ("flash_fwd_kv_quant_d256_simt", "fa_flash_fwd_kv_quant_simt")),
+        # 257-512 and 513-1024: the SIMT family, keys of their own
+        *((d, dtype, ("flash_fwd_wide", "fa_flash_fwd_simt"), ("flash_bwd_prep_wide", "fa_flash_bwd_prep"),
+           ("flash_bwd_dkv_wide", "fa_flash_bwd_dkv_simt"), ("flash_bwd_dq_wide", "fa_flash_bwd_dq_simt"),
+           ("flash_fwd_kv_quant_wide", "fa_flash_fwd_kv_quant_simt"))
+          for d, dtype in ((288, torch.bfloat16), (512, torch.float32), (520, torch.float16), (1024, torch.bfloat16))),
+    ],
+    ids=["bf16-256", "fp16-160", "fp32-256", "bf16-288", "fp32-512", "fp16-520", "bf16-1024"],
+)
+def test_cuda_route_reaches_each_kernel(d, dtype, fwd, prep, dkv, dq, k4, monkeypatch):
+    """The real launchers on the CUDA route, with the kernel library's C
+    entry points stood in for by a recorder (`_call`), so no card is needed:
+    each kernel of the forward (K1, and K1 with lse), the backward
+    (pre-pass, K2, K3) and K4 reaches the C entry point and the
+    KERNEL_LAUNCHES key `_route` names for its dtype and padded head dim,
+    with that head dim (257-512 padded to 512, 513-1024 to 1024) in its
+    arguments, once each.  The backward is handed a qs buffer only for
+    bf16/fp16 up to head dim 256, where the wgmma kernels read it."""
+    calls, qs_args = [], []
+
+    def record(entry, device, *args):
+        calls.append((entry, args[_HEAD_DIM_ARG[entry]]))
+        if entry in _QS_ARG:
+            qs_args.append(args[_QS_ARG[entry]])
+
+    monkeypatch.setattr(tfa, "kernel_route", lambda *ts: "cuda")
+    monkeypatch.setattr(tkv, "kernel_route", lambda *ts: "cuda")
+    monkeypatch.setattr(tfa, "_call", record)
+    monkeypatch.setattr(tkv, "_call", record)
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: 0)
+    dp = tfa.padded_head_dim(d)
+    q = torch.zeros(1, 4, 130, d, dtype=dtype, requires_grad=True)
+    k, v = (torch.zeros(1, 2, 130, d, dtype=dtype, requires_grad=True) for _ in range(2))
+    before = dict(tfa.KERNEL_LAUNCHES)
+    out = tfa.flash_attention(q, k, v)
+    assert out.shape == q.shape
+    out.backward(torch.zeros_like(out))
+    tfa.flash_attention_with_lse(q.detach(), k.detach(), v.detach())
+    tkv.flash_attention_kv_quant(q.detach(), tkv.quantize_kv(k.detach(), v.detach()))
+    want = [fwd, prep, dkv, dq, fwd, k4]
+    assert calls == [(entry, dp) for _, entry in want]
+    has_qs = dtype != torch.float32 and dp <= 256
+    assert qs_args == [0 if has_qs else None] * 3
+    counts = {key: tfa.KERNEL_LAUNCHES[key] - before[key] for key in tfa.KERNEL_LAUNCHES}
+    assert counts == {key: sum(key == w for w, _ in want) for key in tfa.KERNEL_LAUNCHES}
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_fwd_kv_quant", "flash_bwd_dkv"])
+def test_simt_flag_sends_bf16_d256_to_the_simt_kernel(name):
+    """The `simt` argument of the launchers sends bf16 at 256 to the SIMT
+    kernel that the wgmma one replaced (its own key), for the comparison of
+    the two on the card; it does not change any other route."""
+    assert tfa._route(name, 256, torch.bfloat16, simt=True) == (f"{name}_d256_simt", f"fa_{name}_simt")
+    assert tfa._route(name, 256, torch.bfloat16) == (f"{name}_d256", f"fa_{name}")
+    assert tfa._route(name, 128, torch.bfloat16, simt=True) == (name, f"fa_{name}")
+    assert tfa._route(name, 512, torch.bfloat16, simt=True) == (f"{name}_wide", f"fa_{name}_simt")

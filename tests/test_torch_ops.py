@@ -127,12 +127,13 @@ def test_sdpa_falls_through_to_torch(case, flash_calls):
 
 @pytest.mark.parametrize(
     "d,supported", [(16, True), (64, True), (96, True), (128, True), (160, True), (192, True), (256, True),
-                    (288, False)],
+                    (288, True), (520, True), (1024, True), (1040, False)],
 )
-def test_sdpa_card_route_takes_head_dims_up_to_256(d, supported, monkeypatch):
-    """On the card route the router sends any head dim up to 256 to the
-    kernels (flash_attention pads it to 64, 128 or 256), as the JAX router
-    sends any head dim to its kernel; above 256 it falls through to torch."""
+def test_sdpa_card_route_takes_head_dims_up_to_1024(d, supported, monkeypatch):
+    """On the card route the router sends any head dim up to 1024 to the
+    kernels (flash_attention pads it to 64, 128, 256, 512 or 1024), as the
+    JAX router sends any head dim to its kernel; above 1024 it falls through
+    to torch."""
     monkeypatch.setattr(tsdpa, "kernel_route", lambda *ts: "cuda")
     q = torch.zeros(1, 2, 256, d, dtype=torch.bfloat16)
     assert tsdpa._supported(q, q, q, None, 0.0, True, False, {}) is supported

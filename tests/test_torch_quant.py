@@ -151,11 +151,11 @@ def test_cuda_route_raises_without_a_card():
         tkv.flash_attention_kv_quant(q, plain)
 
 
-@pytest.mark.parametrize("d", [16, 96, 160, 256])
+@pytest.mark.parametrize("d", [16, 96, 160, 256, 288, 520])
 @pytest.mark.parametrize("name", DTYPES)
 def test_kv_quant_padded_head_dim_matches_jax(name, d):
     """K4's CUDA-route padding on its plain version: q zero-padded to D64,
-    D128 or D256, the int8/fp8 payloads padded with zero bytes (0 in both formats),
+    D128, D256, D512 or D1024, the int8/fp8 payloads padded with zero bytes (0 in both formats),
     the scales unchanged, the plain version there with the true sm_scale,
     the output sliced back; against JAX at d itself, fp32, atol 5e-5 /
     rtol 1e-4 (the JAX tests' quantized tier)."""
@@ -172,10 +172,10 @@ def test_kv_quant_padded_head_dim_matches_jax(name, d):
     np.testing.assert_allclose(n(tout), np.asarray(jout), atol=5e-5, rtol=1e-4)
 
 
-@pytest.mark.parametrize("d", [16, 96, 160, 256])
+@pytest.mark.parametrize("d", [16, 96, 160, 256, 288, 520])
 def test_kv_quant_cuda_route_launches_padded_head_dims(d, monkeypatch):
     """On the CUDA route `flash_attention_kv_quant` hands K4's launcher q and
-    payloads padded to D64, D128 or D256 with the scales unchanged and sm_scale
+    payloads padded to D64, D128, D256, D512 or D1024 with the scales unchanged and sm_scale
     from the true d, and slices the output back.  The launcher is stood in
     for by a recorder that runs the plain version (no card needed); the
     result is held against JAX at d."""
@@ -192,7 +192,7 @@ def test_kv_quant_cuda_route_launches_padded_head_dims(d, monkeypatch):
     jq = jkv.quantize_kv(jnp.asarray(k), jnp.asarray(v), dtype=jnp.float8_e4m3fn)
     tq = tkv.QuantizedKV(from_jax(jq.k), from_jax(jq.k_scale), from_jax(jq.v), from_jax(jq.v_scale))
     out = tkv.flash_attention_kv_quant(t(q), tq, window=100)
-    dp = next(p for p in (64, 128, 256) if d <= p)
+    dp = next(p for p in (64, 128, 256, 512, 1024) if d <= p)
     assert seen == [(dp, dp, dp, (1, 2, 256), d ** -0.5)] and out.shape == q.shape
     jout = jkv.flash_attention_kv_quant(jnp.asarray(q), jq, window=100)
     np.testing.assert_allclose(n(out), np.asarray(jout), atol=2e-5, rtol=1e-5)

@@ -1,0 +1,109 @@
+"""Time one checkout's head-dim-256 kernels and its D256 training step on
+the card, for an A/B between checkouts or between builds of one checkout.
+
+    python3 tools/d256_ab.py <checkout dir> <label> [--build-only]
+
+Imports `flash_attention_tpu_torch` from <checkout dir> and builds its
+kernels there (its own build/torch_kernels/); --build-only stops after the
+build, so that several checkouts can build at once before the timings.
+Then it prints lines of results, the last `RESULT {json}`:
+
+* at b8 h12 L1024 D256 bf16 causal, device time (a CUDA graph of calls
+  between CUDA events, this checkout's `chip_smoke.graph_ms`): K1 (no lse),
+  K4 over int8 K/V, and the backward's pre-pass, K2 and K3;
+* `chip_smoke.py`'s d256-path model (a GPT at GPT-2's width with 3 heads
+  of 256, 2 layers) trained at b4 x T1024 in bf16: the median wall time of
+  10 steps after 3 warm-up steps.
+
+Compare in one call, in turns (A, B, B, A): times on the host's clock
+spread between calls and between processes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import importlib
+import importlib.util
+import json
+import os
+import sys
+import time
+
+ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+ap.add_argument("tree")
+ap.add_argument("label")
+ap.add_argument("--build-only", action="store_true")
+args = ap.parse_args()
+sys.path.insert(0, os.path.abspath(args.tree))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+# the checkout under test first: chip_smoke.py's own imports then resolve to it
+FA = importlib.import_module("flash_attention_tpu_torch.kernels.flash_attention")
+if not FA.__file__.startswith(os.path.abspath(args.tree)):
+    raise RuntimeError(f"imported {FA.__file__}, not the checkout in {args.tree}")
+QK = importlib.import_module("flash_attention_tpu_torch.quant.kv")
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py"))
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+
+from flash_attention_tpu_torch.data import CharTokenizer, batch_iterator, synthetic_corpus  # noqa: E402
+from flash_attention_tpu_torch.kernels import _build  # noqa: E402
+from flash_attention_tpu_torch.models.gpt import GPT2_124M  # noqa: E402
+from flash_attention_tpu_torch.training import Trainer, TrainerConfig  # noqa: E402
+
+
+def kernel_times(gen) -> dict:
+    b, h, L, d = 8, 12, 1024, 256
+    q, k, v, do = (torch.randn((b, h, L, d), generator=gen).to("cuda", torch.bfloat16) for _ in range(4))
+    kv = QK.quantize_kv(k.float(), v.float())
+    with torch.no_grad():
+        o, lse = FA.flash_attention_with_lse(q, k, v)
+        row = {"k1": smoke.graph_ms(lambda: FA.flash_attention(q, k, v), calls=5, runs=7),
+               "k4_int8": smoke.graph_ms(lambda: QK.flash_attention_kv_quant(q, kv), calls=5, runs=7)}
+    spec = FA._Spec(causal=True, sm_scale=d ** -0.5, window=None, blocks=FA.default_blocks(L, L, d))
+    bargs = FA._bwd_args(q, k, v, o, lse, do, None, spec, None)
+    FA._launch_bwd_prep(bargs)
+    row["prep"] = smoke.graph_ms(lambda: FA._launch_bwd_prep(bargs))
+    row["k2"] = smoke.graph_ms(lambda: FA._launch_bwd_dkv(bargs), calls=3, runs=5)
+    row["k3"] = smoke.graph_ms(lambda: FA._launch_bwd_dq(bargs), calls=2, runs=3)
+    print(args.label, "b8 h12 L1024 D256 bf16 device ms", {key: round(x, 4) for key, x in row.items()}, flush=True)
+    return row
+
+
+def training_times(seed: int = 0) -> dict:
+    text = synthetic_corpus()
+    data = CharTokenizer(text).encode(text)
+    cfg = dataclasses.replace(GPT2_124M, n_layer=2, n_head=3)
+    trainer = Trainer(cfg, TrainerConfig(max_iters=3, log_interval=1, learning_rate=6e-4, warmup_iters=1),
+                      seed=seed, device="cuda")
+    batches = batch_iterator(data, 4, 1024, seed=seed, device="cuda")
+    trainer.fit(batches, log=lambda line: None)  # warm-up
+    trainer.tcfg.max_iters = 14
+    history = trainer.fit(batches, log=lambda line: None)
+    walls = np.diff([r["wall_s"] for r in history[-11:]]) * 1e3  # wall_s restarts with each fit
+    out = dict(step_wall_median_ms=float(np.median(walls)), step_wall_min_ms=float(walls.min()),
+               step_wall_max_ms=float(walls.max()))
+    print(args.label, "d256-path training step", out, flush=True)
+    return out
+
+
+def main() -> None:
+    t0 = time.perf_counter()
+    _build.build()
+    if args.build_only:
+        print(args.label, "built", _build.build_info["path"], f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        return
+    name, smi = smoke.phase_device()
+    _build.library()
+    res = {"label": args.label, "checkout": args.tree, "device": name, "smi": smi}
+    res["kernels"] = kernel_times(torch.Generator().manual_seed(11))
+    res["training"] = training_times()
+    print("RESULT " + json.dumps(res), flush=True)
+
+
+if __name__ == "__main__":
+    main()
