@@ -33,24 +33,22 @@ are 7-9):
               lengths and at the split's edges (cache lengths 0, chunk - 1,
               chunk, chunk + 1, capacity - 1), K5 with a permuted page
               table and NaN past the lengths, GQA 32/8 at D128.
-7. d256     - head dims 160 and 256 (run at 256: the wgmma K1, K4 and K2
-              for bf16/fp16, the SIMT family of csrc/flash_d256.cuh for fp32
-              and for K3), 288 and 520 (padded to 512 and 1024, the SIMT
-              family): K1, its lse (fp32, against vanilla), the pre-pass,
-              K2/K3 and K4 (int8, fp8) against their plain versions and fp32
-              vanilla, with GQA 8/2 at q129 x kv257 and window 100, 3
-              segments, rows that see no key, the lse cotangent and fp32
-              non-causal, and K1 and the grads at the d256-path's shape (b4
-              h3 L1024, causal only, so most tiles take the unmasked
-              branch); then the bf16 wgmma K1 (out, lse), K2 and K4 at b2
-              GQA 8/2 L1024 against the SIMT kernels they replaced, and
-              both against the plain versions.
+7. d256     - head dims 160 and 256 (run at 256: the wgmma K1, K4, K2 and
+              K3 for bf16/fp16, the SIMT family of csrc/flash_d256.cuh for
+              fp32), 288 and 520 (padded to 512 and 1024, the SIMT family):
+              K1, its lse (fp32, against vanilla), the pre-pass, K2/K3 and
+              K4 (int8, fp8) against their plain versions and fp32 vanilla,
+              with GQA 8/2 at q129 x kv257 and window 100, 3 segments, rows
+              that see no key (their dQ exactly 0), the lse cotangent, fp16
+              and fp32 non-causal, and K1 and the grads at the d256-path's
+              shape (b4 h3 L1024, causal only, so most tiles take the
+              unmasked branch).
 8. d256-path - the D256 route through the entry points: a 2-layer GPT at
               GPT-2's width with 3 heads of 256, 6 Trainer steps at b4 x
-              T1024 in bf16 (the "_d256" keys, the wgmma K1 and K2, the
-              SIMT K3 and the pre-pass, launched n_layer x steps times
-              each, nothing else; the median step ms), then the quant op at
-              D256 over 4 layers (the wgmma K4 launched 4 times).
+              T1024 in bf16 (the "_d256" keys, the wgmma K1, K2 and K3 and
+              the pre-pass, launched n_layer x steps times each, nothing
+              else; the median step ms), then the quant op at D256 over 4
+              layers (the wgmma K4 launched 4 times).
    simt-path - the SIMT family through the entry points: forward and
               backward of flash_attention and K4 (int8) at b2 h4 L1024 for
               D288 and D520 bf16 and D256 fp32; the "_wide" and
@@ -111,8 +109,7 @@ are 7-9):
               within 2e-3.
 19. timing  - K1 at the Llama prefill shape (b1, GQA 32/8, L1024, D128) and
               the D256 kernels at b8 h12 L1024, beside their plain
-              versions, bounds, torch SDPA forward / backward and the SIMT
-              kernels the wgmma K1, K2 and K4 replaced; then K1,
+              versions, bounds and torch SDPA forward / backward; then K1,
               and the backward (pre-pass, K2, K3, and the three together)
               at b1 and b8 (D64) and b8 D128, against the plain
               versions and vanilla at GPT-2 shapes, and torch SDPA forward /
@@ -134,8 +131,8 @@ The line before the last is a JSON summary of the kernels, the D256, the
 "_d256_simt" and the "_wide" ones as rows of their own (launches on their
 path, max error, device ms, plain ms, bound ms and what sets it, library ms
 or null; K1's row also carries its launches on the Llama path and its
-times at the Llama prefill shape, the wgmma D256 rows the SIMT kernel's
-time as simt_ms, the wide rows D1024's times as d1024_*); the last line is
+times at the Llama prefill shape, the wide rows D1024's times as
+d1024_*); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -191,16 +188,16 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "flash_fwd_kv_quant": ("flash_attention_tpu_torch/csrc/flash_fwd_kv_quant.cu", "flash_attention_tpu/quant/kv.py:98"),
     "paged_decode": ("flash_attention_tpu_torch/csrc/decode.cu", "flash_attention_tpu/inference/paged_attention.py:34"),
     "fused_decode": ("flash_attention_tpu_torch/csrc/decode.cu", "flash_attention_tpu/inference/decode_attention.py:195"),
-    # head dims 129-256, padded to 256, bf16/fp16: the wgmma K1, K4 and K2
-    # (flash_fwd_d256.cu, flash_bwd_d256.cu), the SIMT K3 (flash_d256.cuh)
-    # and flash_bwd.cu's pre-pass instantiated at 256
+    # head dims 129-256, padded to 256, bf16/fp16: the wgmma K1, K4, K2 and
+    # K3 (flash_fwd_d256.cu, flash_bwd_d256.cu) and flash_bwd.cu's pre-pass
+    # instantiated at 256
     "flash_fwd_d256": ("flash_attention_tpu_torch/csrc/flash_fwd_d256.cu",
                        "flash_attention_tpu/kernels/flash_attention.py:269"),
     "flash_bwd_prep_d256": ("flash_attention_tpu_torch/csrc/flash_bwd.cu",
                             "flash_attention_tpu/kernels/flash_attention.py:1112"),
     "flash_bwd_dkv_d256": ("flash_attention_tpu_torch/csrc/flash_bwd_d256.cu",
                            "flash_attention_tpu/kernels/flash_attention.py:637"),
-    "flash_bwd_dq_d256": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
+    "flash_bwd_dq_d256": ("flash_attention_tpu_torch/csrc/flash_bwd_d256.cu",
                           "flash_attention_tpu/kernels/flash_attention.py:765"),
     "flash_fwd_kv_quant_d256": ("flash_attention_tpu_torch/csrc/flash_fwd_d256.cu",
                                 "flash_attention_tpu/quant/kv.py:98"),
@@ -209,6 +206,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                             "flash_attention_tpu/kernels/flash_attention.py:269"),
     "flash_bwd_dkv_d256_simt": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
                                 "flash_attention_tpu/kernels/flash_attention.py:637"),
+    "flash_bwd_dq_d256_simt": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
+                               "flash_attention_tpu/kernels/flash_attention.py:765"),
     "flash_fwd_kv_quant_d256_simt": ("flash_attention_tpu_torch/csrc/flash_simt_fwd_kv_quant.cu",
                                      "flash_attention_tpu/quant/kv.py:98"),
     # head dims 257-1024, padded to 512 or 1024: the SIMT family
@@ -430,8 +429,9 @@ def check_grads(label, gen, b, hq, hkv, lq, lk, d, dtype, causal=True, window=No
     since P and dS are rounded to the 16-bit type before their products.
     `no_key_rows`: the first rows see no key (lse = -inf); their dO is 0,
     since vanilla spreads such a row over every key where the kernels give
-    it P = 0; a P of inf there would turn 0 into NaN.  Returns the worst
-    error of each grad against the plain backward."""
+    it P = 0; a P of inf there would turn 0 into NaN; their dQ must be
+    exactly 0.  Returns the worst error of each grad against the plain
+    backward."""
     q = _rand(gen, (b, hq, lq, d), dtype).requires_grad_()
     k = _rand(gen, (b, hkv, lk, d), dtype).requires_grad_()
     v = _rand(gen, (b, hkv, lk, d), dtype).requires_grad_()
@@ -468,6 +468,8 @@ def check_grads(label, gen, b, hq, hkv, lq, lk, d, dtype, causal=True, window=No
         ok = ok and e_p <= tol and e_d <= tol
         worst[name] = e_p
         parts.append(f"{name} {e_p:.2e}/{e_d:.2e} tol {tol:.2e}")
+    if no_key_rows and bool(got[0][:, :, :no_key_rows].any()):
+        raise AssertionError(f"[k2k3] {label}: dq of the rows that see no key is not 0")
     say(f"[k2k3] {label:<34} vs plain/vanilla: {'  '.join(parts)}  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"[k2k3] {label} outside tolerance")
@@ -1321,69 +1323,18 @@ def _keep_worst(worst: dict, key: str, err: float) -> None:
     worst[key] = max(worst.get(key, 0.0), err)
 
 
-def compare_simt_d256(gen, b, hq, hkv, L, dtype) -> dict:
-    """The wgmma K1 (with lse), K2 and K4 at head dim 256 against the SIMT
-    kernels they replaced (the `simt` route), and both against the plain
-    versions, on the same inputs: out and lse within 2e-2 (K1's bf16
-    tier), dK and dV within 2e-2 x the largest |grad| (the backward's), K4
-    on int8 within 2e-2.  Returns the errors of the wgmma kernels against
-    the SIMT ones."""
-    d = 256
-    q = _rand(gen, (b, hq, L, d), dtype)
-    k, v = (_rand(gen, (b, hkv, L, d), dtype) for _ in range(2))
-    do = _rand(gen, (b, hq, L, d), dtype)
-    spec = FA._Spec(causal=True, sm_scale=d ** -0.5, window=None, blocks=FA.default_blocks(L, L, d, dtype=dtype))
-    o, lse = FA._launch(q, k, v, spec, None, True)
-    o_s, lse_s = FA._launch(q, k, v, spec, None, True, simt=True)
-    args = FA._bwd_args(q, k, v, o, lse, do, None, spec, None)
-    FA._launch_bwd_prep(args)
-    dk, dv = (x.clone() for x in FA._launch_bwd_dkv(args))
-    dk_s, dv_s = FA._launch_bwd_dkv(args, simt=True)
-    kv = QK.quantize_kv(k.float(), v.float())
-    o4 = QK._launch(q, kv, True, spec.sm_scale, None, None)
-    o4_s = QK._launch(q, kv, True, spec.sm_scale, None, None, simt=True)
-    with torch.no_grad():
-        o_p, lse_p = FA.flash_attention_reference(q, k, v)
-        dk_p, dv_p = FA.flash_attention_bwd_dkv_reference(q, k, v, o_p, lse_p, do)
-        o4_p = QK.flash_attention_kv_quant_reference(q, kv)
-    torch.cuda.synchronize()
-
-    def errors(o, lse, dk, dv, o4, o_r, lse_r, dk_r, dv_r, o4_r) -> dict:
-        return {
-            "flash_fwd_d256": max((o.float() - o_r.float()).abs().max().item(), (lse - lse_r).abs().max().item()),
-            "flash_bwd_dkv_d256": max(
-                (dk.float() - dk_r.float()).abs().max().item() / dk_r.float().abs().max().item(),
-                (dv.float() - dv_r.float()).abs().max().item() / dv_r.float().abs().max().item()),
-            "flash_fwd_kv_quant_d256": (o4.float() - o4_r.float()).abs().max().item(),
-        }
-
-    errs = errors(o, lse, dk, dv, o4, o_s, lse_s, dk_s, dv_s, o4_s)
-    plain = (o_p, lse_p, dk_p, dv_p, o4_p)
-    vs_plain = (errors(o, lse, dk, dv, o4, *plain), errors(o_s, lse_s, dk_s, dv_s, o4_s, *plain))
-    ok = all(e <= 2e-2 and math.isfinite(e) for r in (errs, *vs_plain) for e in r.values())
-    say(f"[d256] wgmma vs the SIMT kernels it replaced, b{b} gqa {hq}/{hkv} L{L} D256 {dtype}: K1 out/lse "
-        f"{errs['flash_fwd_d256']:.3e}, K2 dK/dV {errs['flash_bwd_dkv_d256']:.3e} of max |grad|, K4 int8 "
-        f"{errs['flash_fwd_kv_quant_d256']:.3e}; against the plain versions, wgmma / SIMT: " + ", ".join(
-            f"{name} {a:.3e} / {vs_plain[1][name]:.3e}" for name, a in vs_plain[0].items())
-        + f" (2e-2)  {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("[d256] the wgmma kernels, the SIMT ones and the plain versions disagree")
-    return errs
-
-
 def phase_d256(seed: int) -> dict:
     """K1, the pre-pass, K2/K3 and K4 at head dims 160 and 256 (both run at
-    256: bf16/fp16 on the wgmma K1, K4 and K2, fp32 and every K3 on the SIMT
-    family), 288 and 520 (padded to 512 and 1024, the SIMT family) against
-    their plain versions and fp32 vanilla, with GQA 8/2, windows, segment
-    ids, rows that see no key, the tiles' ragged edges and K4 on int8 and
-    fp8; then the bf16 wgmma kernels against the SIMT ones they replaced.
+    256: bf16/fp16 on the wgmma K1, K4, K2 and K3, fp32 on the SIMT family),
+    288 and 520 (padded to 512 and 1024, the SIMT family) against their
+    plain versions and fp32 vanilla, with GQA 8/2, windows, segment ids,
+    rows that see no key, the tiles' ragged edges and K4 on int8 and fp8.
     Returns each kernel's worst error against its plain version, by
     KERNEL_LAUNCHES key."""
     gen = torch.Generator().manual_seed(seed + 9)
     bf16, f16, f32, i8, f8 = torch.bfloat16, torch.float16, torch.float32, torch.int8, torch.float8_e4m3fn
-    say("[d256] head dims 160 and 256 (the wgmma K1, K4, K2 for bf16/fp16; the SIMT family for fp32 and K3), 288 "
-        "and 520 (zero-padded to 512 and 1024, the SIMT family): tolerances as at 64 / 128")
+    say("[d256] head dims 160 and 256 (the wgmma K1, K4, K2, K3 for bf16/fp16; the SIMT family for fp32), 288 and "
+        "520 (zero-padded to 512 and 1024, the SIMT family): tolerances as at 64 / 128")
     worst: dict = {}
     for label, b, hq, hkv, lq, lk, d, dtype, causal, atol, kw in (
         ("d256 gqa 8/2 q129 kv257 window 100 bf16", 2, 8, 2, 129, 257, 256, bf16, True, 2e-2, dict(window=100)),
@@ -1425,6 +1376,8 @@ def phase_d256(seed: int) -> dict:
         ("d256 no-key rows q300 kv200 bf16", 1, 4, 4, 300, 200, 256, bf16, dict(no_key_rows=100)),
         ("d256 lse cotangent b2 h4 L1024 bf16", 2, 4, 2, 1024, 1024, 256, bf16, dict(with_lse=True)),
         ("d256 b4 h3 L1024 bf16 (d256-path)", 4, 3, 3, 1024, 1024, 256, bf16, {}),
+        ("d256 gqa 8/2 L1024 fp16", 1, 8, 2, 1024, 1024, 256, f16, {}),
+        ("d256 no-key rows q300 kv200 fp16", 1, 4, 4, 300, 200, 256, f16, dict(no_key_rows=100)),
         ("d160 gqa 8/2 L300 fp16", 1, 8, 2, 300, 300, 160, f16, {}),
         ("d160 fp32 gqa 4/2 L200 window 64", 1, 4, 2, 200, 200, 160, f32, dict(window=64)),
         ("d256 lse cotangent fp32 b1 h4 L300", 1, 4, 2, 300, 300, 256, f32, dict(with_lse=True)),
@@ -1449,7 +1402,6 @@ def phase_d256(seed: int) -> dict:
     ):
         _keep_worst(worst, _key("flash_fwd_kv_quant", d, dtype),
                     check_k4(label, gen, b, hq, hkv, lq, lk, d, dtype, qdt, atol, **kw))
-    compare_simt_d256(gen, 2, 8, 2, 1024, bf16)
     return worst
 
 
@@ -1457,8 +1409,8 @@ def phase_d256_path(seed: int, data: np.ndarray) -> dict:
     """The D256 route through the entry points: a GPT at GPT-2's width with
     3 heads of 256 (the head dim of Gemma-7B), 2 layers, trained 6 steps
     at b4 x T1024 by the port's Trainer in bf16, which must launch the
-    "_d256" keys (the wgmma K1 and K2, the SIMT K3, the pre-pass) n_layer x
-    steps times each and nothing else; the median step.  Then
+    "_d256" keys (the wgmma K1, K2 and K3, the pre-pass) n_layer x steps
+    times each and nothing else; the median step.  Then
     quantize_kv + flash_attention_kv_quant over 4 layers at b4 h3 T1024
     D256 (int8 and fp8), which must launch the wgmma K4 at D256 4 times.
     Returns the launches."""
@@ -1508,7 +1460,7 @@ def phase_d256_path(seed: int, data: np.ndarray) -> dict:
 SIMT_PATH_LAUNCHES = {
     "flash_fwd_wide": 2, "flash_bwd_prep_wide": 2, "flash_bwd_dkv_wide": 2, "flash_bwd_dq_wide": 2,
     "flash_fwd_kv_quant_wide": 2, "flash_fwd_d256_simt": 1, "flash_bwd_prep_d256": 1, "flash_bwd_dkv_d256_simt": 1,
-    "flash_bwd_dq_d256": 1, "flash_fwd_kv_quant_d256_simt": 1,
+    "flash_bwd_dq_d256_simt": 1, "flash_fwd_kv_quant_d256_simt": 1,
 }
 
 
@@ -1986,33 +1938,23 @@ def _time_family(gen, smi: str, label: str, b: int, h: int, L: int, d: int, dtyp
     """K1, the pre-pass, K2, K3 and K4 (int8) at [b, h, L, d] causal (d one
     of the padded head dims), device ms (graph_ms), beside the plain
     versions (when `plain`), the bounds at `peak` FLOP/s and torch SDPA's
-    forward / backward; at D256 in bf16/fp16 also the SIMT kernels that the
-    wgmma K1, K2 and K4 replaced, on the same inputs (simt_ms).  Returns
-    {kernel: row}."""
+    forward / backward.  Returns {kernel: row}."""
     q, k, v, do = (_rand(gen, (b, h, L, d), dtype) for _ in range(4))
     elems, rows = b * h * L * d, b * h * L
     flops = 4 * b * h * L * L * d / 2
     sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, is_causal=True)
     spec = FA._Spec(causal=True, sm_scale=d ** -0.5, window=None, blocks=FA.default_blocks(L, L, d, dtype=dtype))
     kv = QK.quantize_kv(k.float(), v.float())
-    replaced = d == 256 and dtype != torch.float32
-    simt = {}
     with torch.no_grad():
         o, lse = FA._launch(q, k, v, spec, None, True)
         f_ms = graph_ms(lambda: FA._launch(q, k, v, spec, None, False), calls=5, runs=5)
         k4 = graph_ms(lambda: QK._launch(q, kv, True, d ** -0.5, None, None), calls=5, runs=5)
         f_lib = graph_ms(lambda: sdpa(q, k, v), calls=5, runs=5)
-        if replaced:
-            simt["flash_fwd"] = graph_ms(lambda: FA._launch(q, k, v, spec, None, False, simt=True), calls=2, runs=3)
-            simt["flash_fwd_kv_quant"] = graph_ms(
-                lambda: QK._launch(q, kv, True, d ** -0.5, None, None, simt=True), calls=2, runs=3)
     args = FA._bwd_args(q, k, v, o, lse, do, None, spec, None)
     FA._launch_bwd_prep(args)
     pre = graph_ms(lambda: FA._launch_bwd_prep(args))
     k2 = graph_ms(lambda: FA._launch_bwd_dkv(args), calls=3, runs=5)
     k3 = graph_ms(lambda: FA._launch_bwd_dq(args), calls=2, runs=3)
-    if replaced:
-        simt["flash_bwd_dkv"] = graph_ms(lambda: FA._launch_bwd_dkv(args, simt=True), calls=1, runs=3)
     b_lib = graph_ms(_grad_fn(sdpa, q, k, v, do), calls=2, runs=3)
     p = [None] * 5
     if plain:
@@ -2040,15 +1982,8 @@ def _time_family(gen, smi: str, label: str, b: int, h: int, L: int, d: int, dtyp
             f"{'not measured' if pl is None else f'{pl:.4f}'})" for name, (ms, pl, (bd, by), _) in rows_.items())
         + f"; library torch SDPA forward {f_lib:.4f} ms, backward {b_lib:.4f} ms (K1 / SDPA {f_ms / f_lib:.2f}x, "
           f"K2 / SDPA backward {k2 / b_lib:.2f}x, pre-pass + K2 + K3 / SDPA backward {(pre + k2 + k3) / b_lib:.2f}x)")
-    if replaced:
-        say(f"[timing] {smi} | {label} b{b} h{h} L{L} D{d} {dtype} causal, the SIMT kernels the wgmma ones replaced, "
-            f"same inputs: " + ", ".join(f"{name} {ms:.4f} ms (wgmma {rows_[name][0]:.4f}, {ms / rows_[name][0]:.1f}x)"
-                                         for name, ms in simt.items()))
-    out = {name: dict(ms=ms, plain_ms=pl, bound_ms=bd, bound_by=by, library_ms=lib)
-           for name, (ms, pl, (bd, by), lib) in rows_.items()}
-    for name, ms in simt.items():
-        out[name]["simt_ms"] = ms
-    return out
+    return {name: dict(ms=ms, plain_ms=pl, bound_ms=bd, bound_by=by, library_ms=lib)
+            for name, (ms, pl, (bd, by), lib) in rows_.items()}
 
 
 def phase_timing_simt(seed: int, smi: str) -> dict:
@@ -2059,7 +1994,7 @@ def phase_timing_simt(seed: int, smi: str) -> dict:
     gen = torch.Generator().manual_seed(seed + 13)
     result = {}
     f32 = _time_family(gen, smi, "SIMT family, fp32", 8, 12, 1024, 256, torch.float32, FP32_FLOPS, True)
-    for name in ("flash_fwd", "flash_bwd_dkv", "flash_fwd_kv_quant"):
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_kv_quant"):
         result[f"{name}_d256_simt"] = f32[name]
     wide = _time_family(gen, smi, "SIMT family, padded head dim 512", 8, 12, 1024, 512, torch.bfloat16, BF16_FLOPS,
                         True)

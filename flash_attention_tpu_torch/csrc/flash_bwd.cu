@@ -1,9 +1,9 @@
 // FlashAttention backward for Hopper (sm_90a): a di/qs pre-pass, dK/dV and
 // dQ, with a plain C interface loaded through ctypes
 // (flash_attention_tpu_torch/kernels/_build.py).  The warp-specialised
-// kernels are in flash_bwd.cuh (K2 at D = 256 instantiated in
-// flash_bwd_d256.cu); the SIMT family that fp32 at D = 256, K3 at 256 and
-// every dtype at 512 and 1024 run is in flash_d256.cuh (flash_simt_bwd.cu).
+// kernels are in flash_bwd.cuh (K2 and K3 at D = 256 instantiated in
+// flash_bwd_d256.cu); the SIMT family that fp32 at D = 256 and every dtype
+// at 512 and 1024 run is in flash_d256.cuh (flash_simt_bwd.cu).
 //
 // Replaces, in flash_attention_tpu/kernels/flash_attention.py:
 //   * fa_flash_bwd_dkv (K2): _dkv_kernel (:637, launched by _bwd_dkv :890
@@ -79,7 +79,15 @@
 //     walks twice, and streams 32-row q tiles, so that S^T and dP^T take 16
 //     registers each and three 48 KB ring slots fit beside the 64 KB of
 //     pinned K and V; wgmma's N is at most 128 here, so each k16 step of dV
-//     and dK is two products of 128 columns.  K3 at 256 stays SIMT;
+//     and dK is two products of 128 columns.  K3 at D = 256 is the same
+//     kernel as at 64 and 128 with one consumer warpgroup of 64 pinned q
+//     rows beside the producer (256 threads, no setmaxnreg) and 64-row K/V
+//     tiles in two 64 KB ring slots beside 64 KB of pinned qs and dO
+//     (DqCfg<256>): S and dP are 16 k16 steps of m64n64k16 (SS, four
+//     commit groups each), 32 registers each; dQ += dS K is two N = 128
+//     products a k16 step into the accumulator's halves.  32-row tiles in
+//     four slots (S and dP m64n32k16) used more registers (230) and ran
+//     21% slower;
 //   * each consumer warpgroup has its own tile range (causal rule, window);
 //     the producer loads the union and a warpgroup waits on and releases the
 //     tiles it skips, so the barrier counts always match.  Only tiles that
@@ -98,12 +106,13 @@
 // and dP^T 64): built so, it spilled with the consumers granted 240 or 208
 // alike and ran slower than in two passes (scratch builds; a one-warp
 // producer, 288 threads, did not help either).  ptxas -v (sm_90a, CUDA 12.8):
-// every warp-specialised instantiation 168 registers at launch, no C7518
-// (wgmma serialisation); spills: K3 none, K2 8 bytes at D = 64 and 20 at
-// D = 128; K2 at D = 256 206 registers, no spills; the pre-pass 28-40
-// registers, none.  The fp32 SIMT dK/dV keeps 2 x D fp32 sums a thread and
-// spills at D = 128 (255 registers, 168 bytes); its dQ uses 127 / 166
-// registers without spills.
+// no C7518 (wgmma serialisation) in any instantiation; at D = 64 and 128
+// every warp-specialised one 168 registers at launch, spills K3 none, K2 8
+// bytes at D = 64 and 20 at D = 128; at D = 256 K2 206 registers and K3
+// 220 (bf16 and fp16 alike), no spills; the pre-pass 28-40 registers,
+// none.  The fp32 SIMT dK/dV keeps 2 x D fp32 sums a thread and spills at
+// D = 128 (255 registers, 168 bytes); its dQ uses 127 / 166 registers
+// without spills.
 //
 // The kernels allocate nothing and launch on the caller's stream; the C
 // entry points return cudaGetLastError() so that the wrapper can raise (and
@@ -395,10 +404,10 @@ int run(int which, const void* q, const void* k, const void* v, const void* dout
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return (int)dispatch<64>(which, dtype, p, s);
   if (head_dim == 128) return (int)dispatch<128>(which, dtype, p, s);
-  // D = 256: K2 for bf16 / fp16 (flash_bwd_d256.cu); fp32 K2 and every K3
-  // take the SIMT family's entry points (flash_simt_bwd.cu).
-  if (head_dim == 256 && which == 0 && p.qs != nullptr && (dtype == 1 || dtype == 2))
-    return (int)launch_dkv_ws_d256(dtype, p, s);
+  // D = 256: K2 and K3 for bf16 / fp16 (flash_bwd_d256.cu); fp32 takes the
+  // SIMT family's entry points (flash_simt_bwd.cu).
+  if (head_dim == 256 && p.qs != nullptr && (dtype == 1 || dtype == 2))
+    return (int)(which == 0 ? launch_dkv_ws_d256(dtype, p, s) : launch_dq_ws_d256(dtype, p, s));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -423,7 +432,7 @@ cudaError_t dispatch_prep(int dtype, const PrepParams& p, cudaStream_t s) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim: 64 or 128, and
-// 256 for bf16 / fp16 dK/dV (the other head dims and dtypes take the SIMT
+// 256 for bf16 / fp16 (the other head dims and dtypes take the SIMT
 // family's fa_flash_bwd_dkv_simt / fa_flash_bwd_dq_simt, flash_simt_bwd.cu).
 // lse and di are fp32 [batch, hq, lq] contiguous (lse as flash_fwd wrote
 // it, di as fa_flash_bwd_prep wrote it).  qs is fa_flash_bwd_prep's qs

@@ -1,9 +1,9 @@
 // The warp-specialised TMA + wgmma backward kernels for bf16 / fp16 (K2
-// dK/dV at head dims 64, 128 and 256, K3 dQ at 64 and 128) and the
-// parameters every backward kernel reads.  flash_bwd.cu instantiates them at
-// 64 and 128 beside the pre-pass, the fp32 SIMT kernels and the C entry
-// points; flash_bwd_d256.cu instantiates K2 at 256 in a source of its own,
-// and flash_simt_bwd.cu the SIMT family (flash_d256.cuh) with BwdParams.
+// dK/dV and K3 dQ at head dims 64, 128 and 256) and the parameters every
+// backward kernel reads.  flash_bwd.cu instantiates them at 64 and 128
+// beside the pre-pass, the fp32 SIMT kernels and the C entry points;
+// flash_bwd_d256.cu instantiates both at 256 in a source of its own, and
+// flash_simt_bwd.cu the SIMT family (flash_d256.cuh) with BwdParams.
 // The design notes are at the top of flash_bwd.cu.
 #pragma once
 
@@ -71,33 +71,38 @@ inline bool fill_bwd_params(BwdParams& p, const void* q, const void* k, const vo
 // bf16 / fp16: the warp-specialised TMA + wgmma kernels
 // ---------------------------------------------------------------------------
 
-// What the two kernels share.  kernels/block_sizes.py mirrors these
-// constants and both layouts below (backward_smem_bytes).
-template <int D>
-struct BwdWs {
-  static_assert(D == 64 || D == 128, "head dims 64 and 128");
-  static constexpr int kConsumers = 2;              // consumer warpgroups, 64 pinned rows each
-  static constexpr int kPinned = 64 * kConsumers;   // K2: KV rows, K3: q rows of a block
-  static constexpr int kStream = 64;                // rows of each streamed tile
-  static constexpr int kThreads = 128 * (kConsumers + 1);
-  static constexpr int kPinnedBytes = kPinned * D * 2;  // one pinned operand
-  static constexpr int kTileBytes = kStream * D * 2;    // one streamed operand in one slot
-  // setmaxnreg: 128 x 24 + 256 x 240 = 65,536 registers.
-  static constexpr int kProducerRegs = 24;
-  static constexpr int kConsumerRegs = 240;
-};
+// setmaxnreg for a block of one producer and two consumer warpgroups:
+// 128 x 24 + 256 x 240 = 65,536 registers.  A block with one consumer
+// warpgroup (D = 256) has 255 a thread and sets none.
+constexpr int kBwdProducerRegs = 24;
+constexpr int kBwdConsumerRegs = 240;
 
 // K3: qs and dO pinned; the ring's K and V slots; the KV segment ids of each
 // slot; the barriers; + 1024 to align the base for the 128-byte swizzle.
+// kernels/block_sizes.py mirrors the constants and both layouts
+// (backward_smem_bytes).
 template <int D>
-struct DqCfg : BwdWs<D> {
-  using W = BwdWs<D>;
-  static constexpr int kStages = 4;
-  static constexpr int kOffDo = W::kPinnedBytes;  // qs at 0
-  static constexpr int kOffK = 2 * W::kPinnedBytes;
-  static constexpr int kOffV = kOffK + kStages * W::kTileBytes;
-  static constexpr int kOffIds = kOffV + kStages * W::kTileBytes;
-  static constexpr int kOffBars = kOffIds + kStages * W::kStream * 4;
+struct DqCfg {
+  static_assert(D == 64 || D == 128 || D == 256, "head dims 64, 128 and 256");
+  // At D = 256 the dQ accumulator alone is 128 registers a thread, past the
+  // 168 that ptxas allocates a consumer of a 384-thread block whatever
+  // setmaxnreg grants: the block is one consumer warpgroup of 64 pinned q
+  // rows beside the producer warpgroup (256 threads, 255 registers a
+  // thread, no setmaxnreg), and two 64 KB ring slots of 64-row K/V tiles
+  // fit beside the 64 KB of pinned qs and dO.  (32-row tiles in four slots
+  // took 230 registers against 220 and ran 21% slower; PERF.md has both.)
+  static constexpr int kConsumers = D == 256 ? 1 : 2;  // consumer warpgroups, 64 pinned q rows each
+  static constexpr int kPinned = 64 * kConsumers;      // q rows of a block
+  static constexpr int kStream = 64;                   // KV rows of each streamed tile
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kPinnedBytes = kPinned * D * 2;  // one pinned operand
+  static constexpr int kTileBytes = kStream * D * 2;    // one streamed operand in one slot
+  static constexpr int kStages = D == 256 ? 2 : 4;
+  static constexpr int kOffDo = kPinnedBytes;  // qs at 0
+  static constexpr int kOffK = 2 * kPinnedBytes;
+  static constexpr int kOffV = kOffK + kStages * kTileBytes;
+  static constexpr int kOffIds = kOffV + kStages * kTileBytes;
+  static constexpr int kOffBars = kOffIds + kStages * kStream * 4;
   static constexpr int kBars = 1 + 2 * kStages;  // q; full and empty per slot
   static constexpr int kSmemBytes = kOffBars + kBars * 8 + 1024;
   static_assert(kSmemBytes <= 232448, "an H100 block has at most 227 KB of shared memory");
@@ -125,8 +130,6 @@ struct DkvCfg {
   static constexpr int kThreads = 128 * (kConsumers + 1);
   static constexpr int kPinnedBytes = kPinned * D * 2;  // one pinned operand
   static constexpr int kTileBytes = kStream * D * 2;    // one streamed operand in one slot
-  static constexpr int kProducerRegs = BwdWs<64>::kProducerRegs;  // setmaxnreg, with two consumers
-  static constexpr int kConsumerRegs = BwdWs<64>::kConsumerRegs;
   static constexpr int kPasses = D == 64 ? 1 : 2;
   static constexpr int kStages = D == 64 ? 4 : 3;
   static constexpr int kOffV = kPinnedBytes;  // K at 0
@@ -274,7 +277,7 @@ __device__ __forceinline__ void store_acc(T* base, long long ld, const float (&a
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(BwdWs<D>::kThreads, 1)
+__global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
 flash_bwd_dq_ws_kernel(const __grid_constant__ BwdParams p, const __grid_constant__ BwdMaps maps) {
   using C = DqCfg<D>;
   constexpr int kBr = C::kPinned, kBc = C::kStream, kS = C::kStages;
@@ -322,7 +325,7 @@ flash_bwd_dq_ws_kernel(const __grid_constant__ BwdParams p, const __grid_constan
   const int tid = threadIdx.x % 128;
   if (wg == 0) {
     // ---------------- producer warpgroup ----------------
-    sm90::reg_dealloc<C::kProducerRegs>();
+    if constexpr (C::kConsumers > 1) sm90::reg_dealloc<kBwdProducerRegs>();
     if (!all_produce && tid != 0) return;
     if (tid == 0) {
       sm90::mbar_arrive_expect_tx(q_full, 2 * C::kPinnedBytes);
@@ -349,7 +352,7 @@ flash_bwd_dq_ws_kernel(const __grid_constant__ BwdParams p, const __grid_constan
   }
 
   // ---------------- consumer warpgroups ----------------
-  sm90::reg_alloc<C::kConsumerRegs>();
+  if constexpr (C::kConsumers > 1) sm90::reg_alloc<kBwdConsumerRegs>();
   const int cw = wg - 1;  // this warpgroup's 64 q rows of the block
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -480,7 +483,7 @@ flash_bwd_dkv_ws_kernel(const __grid_constant__ BwdParams p, const __grid_consta
   const int tid = threadIdx.x % 128;
   if (wg == 0) {
     // ---------------- producer warpgroup ----------------
-    if constexpr (C::kConsumers > 1) sm90::reg_dealloc<C::kProducerRegs>();
+    if constexpr (C::kConsumers > 1) sm90::reg_dealloc<kBwdProducerRegs>();
     if (tid == 0) {
       sm90::mbar_arrive_expect_tx(kv_full, 2 * C::kPinnedBytes);
       for (int c = 0; c < D / 64; ++c) {
@@ -523,7 +526,7 @@ flash_bwd_dkv_ws_kernel(const __grid_constant__ BwdParams p, const __grid_consta
   }
 
   // ---------------- consumer warpgroups ----------------
-  if constexpr (C::kConsumers > 1) sm90::reg_alloc<C::kConsumerRegs>();
+  if constexpr (C::kConsumers > 1) sm90::reg_alloc<kBwdConsumerRegs>();
   const int cw = wg - 1;  // this warpgroup's 64 KV rows of the block
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -703,8 +706,9 @@ cudaError_t launch_dq_ws(const BwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// K2 at D = 256 for bf16 (dtype 1) and fp16 (2), instantiated in
+// K2 and K3 at D = 256 for bf16 (dtype 1) and fp16 (2), instantiated in
 // flash_bwd_d256.cu.
 cudaError_t launch_dkv_ws_d256(int dtype, const BwdParams& p, cudaStream_t stream);
+cudaError_t launch_dq_ws_d256(int dtype, const BwdParams& p, cudaStream_t stream);
 
 }  // namespace fa

@@ -5,8 +5,9 @@
 #include "flash_d256.cuh"
 #include "flash_fwd.cuh"
 
-// Arguments as for fa_flash_fwd (flash_fwd.cu); head_dim 256, 512 or 1024,
-// every dtype.  Returns a cudaError_t (0 on success).
+// Arguments as for fa_flash_fwd (flash_fwd.cu); head_dim 256 (fp32), 512 or
+// 1024 (every dtype).  Returns a cudaError_t (0 on success;
+// cudaErrorInvalidValue for bf16 / fp16 at 256).
 extern "C" int fa_flash_fwd_simt(const void* q, const void* k, const void* v, void* o, void* lse,
                                  const void* q_ids, const void* kv_ids,
                                  int dtype, int batch, int hq, int hkv, int lq, int lk, int head_dim,

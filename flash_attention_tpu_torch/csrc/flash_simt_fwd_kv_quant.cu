@@ -7,7 +7,8 @@
 #include "flash_fwd.cuh"
 
 // Arguments as for fa_flash_fwd_kv_quant (flash_fwd_kv_quant.cu); head_dim
-// 256, 512 or 1024, every q dtype.  Returns a cudaError_t (0 on success).
+// 256 (fp32 q), 512 or 1024 (every q dtype).  Returns a cudaError_t (0 on
+// success; cudaErrorInvalidValue for bf16 / fp16 q at 256).
 extern "C" int fa_flash_fwd_kv_quant_simt(const void* q, const void* k, const void* k_scale, const void* v,
                                           const void* v_scale, void* o, const void* q_ids, const void* kv_ids,
                                           int dtype, int kv_dtype, int batch, int hq, int hkv, int lq, int lk,

@@ -26,15 +26,17 @@ MAX_BLOCK_KV = 1024
 # `kernel_stages` shared-memory slots.
 KERNEL_BLOCK_KV = 64
 KERNEL_STAGES = 4
-# The CUDA backward kernels' tiles (csrc/flash_bwd.cuh, BwdWs, DkvCfg,
+# The CUDA backward kernels' tiles (csrc/flash_bwd.cuh, DkvCfg,
 # DqCfg): at head dims 64 and 128 two consumer warpgroups of 64 pinned rows
 # each (KV rows for dK/dV, query rows for dQ) against streamed tiles of 64
 # rows (query rows for dK/dV, KV rows for dQ) in a ring of
-# `backward_stages` slots.  dK/dV at 256 (bf16/fp16): one consumer
-# warpgroup of 64 pinned KV rows against 32-row query tiles.
+# `backward_stages` slots.  At 256 (bf16/fp16) both have one consumer
+# warpgroup of 64 pinned rows, dK/dV against 32-row query tiles in three
+# slots, dQ against 64-row KV tiles in two.
 KERNEL_BWD_PINNED = 128
 KERNEL_BWD_STREAM = 64
 KERNEL_DKV_D256 = (64, 32)  # (pinned KV rows, streamed query rows)
+KERNEL_DQ_D256 = (64, 64)  # (pinned query rows, streamed KV rows)
 # The SIMT family (csrc/flash_d256.cuh, Cfg): 256 threads pin 256 / (D / 32)
 # rows and stream tiles of the largest power-of-two height whose fp32 tiles
 # fit (2 of them forward, 3 backward); {padded head dim: (pinned, streamed)}.
@@ -85,18 +87,21 @@ def backward_tiles(head_dim: int, kernel: str) -> tuple[int, int]:
     `kernel` ("dkv" or "dq")."""
     if kernel not in ("dkv", "dq"):
         raise ValueError(f"kernel must be 'dkv' or 'dq', got {kernel!r}")
-    if kernel == "dkv" and _padded(head_dim) == 256:
-        return KERNEL_DKV_D256
+    if _padded(head_dim) == 256:
+        return KERNEL_DKV_D256 if kernel == "dkv" else KERNEL_DQ_D256
     return KERNEL_BWD_PINNED, KERNEL_BWD_STREAM
 
 
 def backward_stages(head_dim: int, kernel: str) -> int:
     """Ring slots of the bf16/fp16 backward kernel `kernel` ("dkv" or "dq"):
     dK/dV streams three tiles a slot (qs, q, dO) and keeps three slots above
-    head dim 64 to fit; dQ streams two (K, V) and keeps four."""
+    head dim 64 to fit; dQ streams two (K, V) and keeps four, two at head
+    dim 256."""
     if kernel not in ("dkv", "dq"):
         raise ValueError(f"kernel must be 'dkv' or 'dq', got {kernel!r}")
-    return 3 if kernel == "dkv" and head_dim > 64 else 4
+    if kernel == "dkv":
+        return 3 if head_dim > 64 else 4
+    return 2 if _padded(head_dim) == 256 else 4
 
 
 def backward_smem_bytes(head_dim: int, kernel: str) -> int:
@@ -210,13 +215,16 @@ def default_blocks(
     group does not grow the tile as it did on the TPU.  The backward's:
     dK/dV pins 128 KV rows and walks 64-row query tiles (`bwd_dkv` = (64,
     128)), dQ pins 128 query rows and walks 64-row KV tiles (`bwd_dq` =
-    (128, 64)); at 256 dK/dV pins 64 KV rows and walks 32-row query tiles
-    and dQ is the SIMT family's.  The SIMT family (fp32 at 256, every dtype
-    at 512 and 1024) pins and streams `KERNEL_SIMT_TILE` rows in every
-    kernel.  `dtype` is the inputs' (None: a 16-bit type; float32 changes
-    the tile only at 256, since at 64 and 128 its SIMT kernels differ from
-    the wgmma ones in the order of summation alone).  q_len, kv_len and
-    group are taken for signature parity with the JAX package."""
+    (128, 64)); at 256 dK/dV pins 64 KV rows and walks 32-row query tiles,
+    and dQ keeps 32 x 32 tiles where its kernel pins 64 query rows against
+    64-row KV tiles (`KERNEL_DQ_D256`): the plain loop's dQ tile sets only
+    its order of summation, well inside the bf16 tolerance.  The SIMT
+    family (fp32 at 256, every dtype at 512 and 1024) pins and streams
+    `KERNEL_SIMT_TILE` rows in every kernel.  `dtype` is the inputs' (None:
+    a 16-bit type; float32 changes the tile only at 256, since at 64 and
+    128 its SIMT kernels differ from the wgmma ones in the order of
+    summation alone).  q_len, kv_len and group are taken for signature
+    parity with the JAX package."""
     del q_len, kv_len, group
     d = _padded(head_dim)
     if d > 256 or (d == 256 and dtype == torch.float32):
@@ -224,10 +232,9 @@ def default_blocks(
         return BlockSizes(block_q=rows, block_kv=bc, block_q_dkv=bc, block_kv_dkv=rows, block_q_dq=rows,
                           block_kv_dq=bc)
     if d == 256:
-        rows, bc = KERNEL_SIMT_TILE[256]
         pinned, stream = KERNEL_DKV_D256
         return BlockSizes(block_q=kernel_block_q(d, quantized), block_kv=KERNEL_BLOCK_KV, block_q_dkv=stream,
-                          block_kv_dkv=pinned, block_q_dq=rows, block_kv_dq=bc)
+                          block_kv_dkv=pinned, block_q_dq=32, block_kv_dq=32)
     return BlockSizes(
         block_q=kernel_block_q(head_dim), block_kv=KERNEL_BLOCK_KV,
         block_q_dkv=KERNEL_BWD_STREAM, block_kv_dkv=KERNEL_BWD_PINNED,

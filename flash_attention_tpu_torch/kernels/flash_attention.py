@@ -11,11 +11,11 @@ and `flash_attention_with_lse` look at the device of their inputs
   qs, then K2 dK/dV and K3 dQ).  The kernels are built for head dims 64,
   128, 256, 512 and 1024; the entry points zero-pad any other head dim up
   to 1024 to the next of them and slice the results back
-  (`padded_head_dim`).  At 64 and 128, and for bf16/fp16 K1, K4 and K2 at
-  256, the kernels are warp-specialised TMA + wgmma ones (fp32 takes a SIMT
-  kernel inside the same entry points at 64 and 128); fp32 at 256, K3 at
-  256 and everything at 512 and 1024 take the SIMT family of
-  `csrc/flash_d256.cuh` through entry points of their own (`_route`).
+  (`padded_head_dim`).  At 64, 128 and 256 the bf16/fp16 kernels are
+  warp-specialised TMA + wgmma ones (fp32 takes a SIMT kernel inside the
+  same entry points at 64 and 128); fp32 at 256 and everything at 512 and
+  1024 take the SIMT family of `csrc/flash_d256.cuh` through entry points
+  of their own (`_route`).
   Nothing falls back: what the kernels do not take raises, a head dim above
   1024 among it.
 * CPU tensors go to the plain versions: `flash_attention_reference` (a tile
@@ -94,9 +94,9 @@ def _pad_head_dim(x: torch.Tensor, dp: int) -> torch.Tensor:
 # launches: K1-K3 and the backward's pre-pass here, K4 in quant/kv.py, K5
 # and K6 in inference/paged_attention.py.  Head dims 256, 512 and 1024 run
 # other kernels, counted under keys of their own (`_route`): "_d256" for
-# what bf16/fp16 runs at 256 (the wgmma K1, K4 and K2, the SIMT K3),
-# "_d256_simt" for the SIMT K1, K4 and K2 that fp32 runs there, "_wide" for
-# the SIMT family at 512 and 1024.
+# what bf16/fp16 runs at 256 (the wgmma K1, K4, K2 and K3), "_d256_simt"
+# for the SIMT K1, K4, K2 and K3 that fp32 runs there, "_wide" for the SIMT
+# family at 512 and 1024.
 KERNEL_LAUNCHES = {
     "flash_fwd": 0,
     "flash_bwd_prep": 0,
@@ -112,6 +112,7 @@ KERNEL_LAUNCHES = {
     "flash_fwd_kv_quant_d256": 0,
     "flash_fwd_d256_simt": 0,
     "flash_bwd_dkv_d256_simt": 0,
+    "flash_bwd_dq_d256_simt": 0,
     "flash_fwd_kv_quant_d256_simt": 0,
     "flash_fwd_wide": 0,
     "flash_bwd_prep_wide": 0,
@@ -121,22 +122,19 @@ KERNEL_LAUNCHES = {
 }
 
 
-def _route(name: str, head_dim: int, dtype: torch.dtype, simt: bool = False) -> tuple[str, str]:
+def _route(name: str, head_dim: int, dtype: torch.dtype) -> tuple[str, str]:
     """(KERNEL_LAUNCHES key, C entry point) of kernel `name` ("flash_fwd",
     "flash_fwd_kv_quant", "flash_bwd_prep", "flash_bwd_dkv" or
     "flash_bwd_dq") at padded head dim `head_dim` for q's `dtype`.  The
-    SIMT family (csrc/flash_d256.cuh) has entry points of their own, named
-    with "_simt"; `simt` sends bf16/fp16 at 256 there too, to compare the
-    wgmma kernels with the SIMT ones they replaced."""
+    SIMT family (csrc/flash_d256.cuh), which fp32 runs at 256 and every
+    dtype above, has entry points of their own, named with "_simt"."""
     if head_dim <= 128:
         return name, f"fa_{name}"
     if name == "flash_bwd_prep":
         return f"{name}_d256" if head_dim == 256 else f"{name}_wide", f"fa_{name}"
     if head_dim > 256:
         return f"{name}_wide", f"fa_{name}_simt"
-    if name == "flash_bwd_dq":  # K3 runs the SIMT family at 256 for every dtype
-        return f"{name}_d256", f"fa_{name}_simt"
-    if simt or dtype == torch.float32:
+    if dtype == torch.float32:
         return f"{name}_d256_simt", f"fa_{name}_simt"
     return f"{name}_d256", f"fa_{name}"
 
@@ -439,7 +437,7 @@ def _ids_ptrs(segs):
     return (segs[0].data_ptr(), segs[1].data_ptr()) if segs is not None else (None, None)
 
 
-def _launch(q, k, v, spec: _Spec, segs, need_lse: bool, simt: bool = False):
+def _launch(q, k, v, spec: _Spec, segs, need_lse: bool):
     """Run the forward kernel for q's dtype and head dim (`_route`) on CUDA
     tensors: (out, lse or None)."""
     b, hq, hkv, lq, lk, d = _shapes(q, k, v)
@@ -449,7 +447,7 @@ def _launch(q, k, v, spec: _Spec, segs, need_lse: bool, simt: bool = False):
     # is then a free view.
     out = torch.empty(b, lq, hq, d, dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty(b, hq, lq, dtype=torch.float32, device=q.device) if need_lse else None
-    key, entry = _route("flash_fwd", d, q.dtype, simt)
+    key, entry = _route("flash_fwd", d, q.dtype)
     _call(
         entry, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse), *_ids_ptrs(segs),
         _DTYPE_CODES[q.dtype], b, hq, hkv, lq, lk, d,
@@ -506,23 +504,23 @@ def _launch_bwd_prep(args: dict) -> None:
     KERNEL_LAUNCHES[key] += 1
 
 
-def _bwd_launch(name: str, args: dict, outs: tuple[torch.Tensor, ...], simt: bool) -> None:
+def _bwd_launch(name: str, args: dict, outs: tuple[torch.Tensor, ...]) -> None:
     q = args["tensors"][0]
-    key, entry = _route(name, args["tail"][6], q.dtype, simt)
+    key, entry = _route(name, args["tail"][6], q.dtype)
     ins = [*(t.data_ptr() for t in args["tensors"]), _ptr(args["qs"]), *_ids_ptrs(args["segs"])]
     _call(entry, q.device, *ins, *(t.data_ptr() for t in outs), *args["tail"])
     KERNEL_LAUNCHES[key] += 1
 
 
-def _launch_bwd_dkv(args: dict, simt: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch_bwd_dkv(args: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Run K2 (fa_flash_bwd_dkv, or the SIMT family's; `_route`): (dk, dv)."""
-    _bwd_launch("flash_bwd_dkv", args, (args["dk"], args["dv"]), simt)
+    _bwd_launch("flash_bwd_dkv", args, (args["dk"], args["dv"]))
     return args["dk"], args["dv"]
 
 
 def _launch_bwd_dq(args: dict) -> torch.Tensor:
     """Run K3 (fa_flash_bwd_dq, or the SIMT family's; `_route`): dq."""
-    _bwd_launch("flash_bwd_dq", args, (args["dq"],), False)
+    _bwd_launch("flash_bwd_dq", args, (args["dq"],))
     return args["dq"]
 
 

@@ -154,8 +154,7 @@ def _check_kv(q: torch.Tensor, kv: QuantizedKV):
     return b, hq, hkv, lq, lk, d
 
 
-def _launch(q: torch.Tensor, kv: QuantizedKV, causal: bool, sm_scale: float, window: int | None, segs,
-            simt: bool = False):
+def _launch(q: torch.Tensor, kv: QuantizedKV, causal: bool, sm_scale: float, window: int | None, segs):
     """Run K4 for q's dtype and head dim (`_route`) on CUDA tensors: out."""
     b, hq, hkv, lq, lk, d = _check_kv(q, kv)
     if q.dtype not in _DTYPE_CODES:
@@ -172,7 +171,7 @@ def _launch(q: torch.Tensor, kv: QuantizedKV, causal: bool, sm_scale: float, win
     strides = (ctypes.c_longlong * 14)(
         *(s for t_ in (q, k, v, out) for s in t_.stride()[:3]), *ks.stride()[:2]
     )
-    key, entry = _route("flash_fwd_kv_quant", d, q.dtype, simt)
+    key, entry = _route("flash_fwd_kv_quant", d, q.dtype)
     _call(
         entry, q.device, q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr(), out.data_ptr(),
         *_ids_ptrs(segs), _DTYPE_CODES[q.dtype], QUANT_DTYPES[k.dtype], b, hq, hkv, lq, lk, d, strides,

@@ -182,6 +182,20 @@ def test_d256_dkv_kernel_fits_in_shared_memory():
     assert (2 * 64 + 2 * 3 * 64) * 256 * 2 > tbs.SMEM_PER_BLOCK
 
 
+def test_d256_dq_kernel_fits_in_shared_memory():
+    """K3's bf16/fp16 kernel at head dim 256 (DqCfg<256>): qs and dO pinned
+    at 64 rows (64 KB) and two ring slots of 64-row K and V tiles (64 KB
+    each) fit an H100 block's 227 KB, with the slots' KV segment ids, the
+    barriers and the alignment slack counted as DqCfg lays them out; a
+    third 64-row slot, or four, would not."""
+    assert tbs.backward_tiles(256, "dq") == (64, 64) and tbs.backward_stages(256, "dq") == 2
+    used = tbs.backward_smem_bytes(256, "dq")
+    assert used == 2 * 64 * 256 * 2 + 2 * (2 * 64 * 256 * 2 + 64 * 4) + (1 + 2 * 2) * 8 + 1024 == 198_184
+    assert used <= tbs.SMEM_PER_BLOCK
+    assert (2 * 64 + 3 * 2 * 64) * 256 * 2 > tbs.SMEM_PER_BLOCK
+    assert (2 * 64 + 4 * 2 * 64) * 256 * 2 > tbs.SMEM_PER_BLOCK
+
+
 @pytest.mark.parametrize("with_dlse", [False, True], ids=["di", "di-minus-dlse"])
 def test_prep_di_matches_the_jax_backward_rules(with_dlse, monkeypatch):
     """The pre-pass's plain di is the di that the JAX package's backward
@@ -346,16 +360,16 @@ _QS_ARG = {"fa_flash_bwd_prep": 4, "fa_flash_bwd_dkv": 6, "fa_flash_bwd_dkv_simt
 @pytest.mark.parametrize(
     "d,dtype,fwd,prep,dkv,dq,k4",
     [
-        # bf16/fp16 at 256: the wgmma K1, K2 and K4; K3 is the SIMT family's
+        # bf16/fp16 at 256: the wgmma K1, K2, K3 and K4
         (256, torch.bfloat16, ("flash_fwd_d256", "fa_flash_fwd"), ("flash_bwd_prep_d256", "fa_flash_bwd_prep"),
-         ("flash_bwd_dkv_d256", "fa_flash_bwd_dkv"), ("flash_bwd_dq_d256", "fa_flash_bwd_dq_simt"),
+         ("flash_bwd_dkv_d256", "fa_flash_bwd_dkv"), ("flash_bwd_dq_d256", "fa_flash_bwd_dq"),
          ("flash_fwd_kv_quant_d256", "fa_flash_fwd_kv_quant")),
         (160, torch.float16, ("flash_fwd_d256", "fa_flash_fwd"), ("flash_bwd_prep_d256", "fa_flash_bwd_prep"),
-         ("flash_bwd_dkv_d256", "fa_flash_bwd_dkv"), ("flash_bwd_dq_d256", "fa_flash_bwd_dq_simt"),
+         ("flash_bwd_dkv_d256", "fa_flash_bwd_dkv"), ("flash_bwd_dq_d256", "fa_flash_bwd_dq"),
          ("flash_fwd_kv_quant_d256", "fa_flash_fwd_kv_quant")),
         # fp32 at 256: the SIMT family
         (256, torch.float32, ("flash_fwd_d256_simt", "fa_flash_fwd_simt"), ("flash_bwd_prep_d256", "fa_flash_bwd_prep"),
-         ("flash_bwd_dkv_d256_simt", "fa_flash_bwd_dkv_simt"), ("flash_bwd_dq_d256", "fa_flash_bwd_dq_simt"),
+         ("flash_bwd_dkv_d256_simt", "fa_flash_bwd_dkv_simt"), ("flash_bwd_dq_d256_simt", "fa_flash_bwd_dq_simt"),
          ("flash_fwd_kv_quant_d256_simt", "fa_flash_fwd_kv_quant_simt")),
         # 257-512 and 513-1024: the SIMT family, keys of their own
         *((d, dtype, ("flash_fwd_wide", "fa_flash_fwd_simt"), ("flash_bwd_prep_wide", "fa_flash_bwd_prep"),
@@ -403,12 +417,46 @@ def test_cuda_route_reaches_each_kernel(d, dtype, fwd, prep, dkv, dq, k4, monkey
     assert counts == {key: sum(key == w for w, _ in want) for key in tfa.KERNEL_LAUNCHES}
 
 
-@pytest.mark.parametrize("name", ["flash_fwd", "flash_fwd_kv_quant", "flash_bwd_dkv"])
-def test_simt_flag_sends_bf16_d256_to_the_simt_kernel(name):
-    """The `simt` argument of the launchers sends bf16 at 256 to the SIMT
-    kernel that the wgmma one replaced (its own key), for the comparison of
-    the two on the card; it does not change any other route."""
-    assert tfa._route(name, 256, torch.bfloat16, simt=True) == (f"{name}_d256_simt", f"fa_{name}_simt")
-    assert tfa._route(name, 256, torch.bfloat16) == (f"{name}_d256", f"fa_{name}")
-    assert tfa._route(name, 128, torch.bfloat16, simt=True) == (name, f"fa_{name}")
-    assert tfa._route(name, 512, torch.bfloat16, simt=True) == (f"{name}_wide", f"fa_{name}_simt")
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_fwd_kv_quant", "flash_bwd_dkv", "flash_bwd_dq"])
+def test_d256_route_sends_16_bit_types_to_wgmma_and_fp32_to_simt(name):
+    """At padded head dim 256 each of K1, K4, K2 and K3 sends bf16 and fp16
+    to its wgmma kernel's entry point under the "_d256" key, and fp32 to
+    the SIMT family's (`fa_*_simt`) under a "_d256_simt" key of its own; at
+    128 and 512 the dtype does not change the route."""
+    for dtype in (torch.bfloat16, torch.float16):
+        assert tfa._route(name, 256, dtype) == (f"{name}_d256", f"fa_{name}")
+        assert tfa._route(name, 128, dtype) == (name, f"fa_{name}")
+        assert tfa._route(name, 512, dtype) == (f"{name}_wide", f"fa_{name}_simt")
+    assert tfa._route(name, 256, torch.float32) == (f"{name}_d256_simt", f"fa_{name}_simt")
+    assert f"{name}_d256_simt" in tfa.KERNEL_LAUNCHES and f"{name}_d256" in tfa.KERNEL_LAUNCHES
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32], ids=["bf16", "fp16", "fp32"])
+@pytest.mark.parametrize("d", [160, 256])
+def test_d256_backward_launches_k3_on_its_kernel(d, dtype, monkeypatch):
+    """flash_attention's backward at head dims 160 and 256 (both run at 256)
+    on the CUDA route, the C entry points stood in for by a recorder
+    (`_call`): bf16 and fp16 hand K3 to the wgmma kernel's entry point,
+    fa_flash_bwd_dq, with the pre-pass's qs buffer (the same one the
+    pre-pass wrote) and count one flash_bwd_dq_d256 launch; fp32 hands it to
+    fa_flash_bwd_dq_simt with no qs and counts flash_bwd_dq_d256_simt."""
+    calls = []
+
+    def record(entry, device, *args):
+        calls.append((entry, args[_HEAD_DIM_ARG[entry]], args[_QS_ARG[entry]] if entry in _QS_ARG else None))
+
+    monkeypatch.setattr(tfa, "kernel_route", lambda *ts: "cuda")
+    monkeypatch.setattr(tfa, "_call", record)
+    q = torch.zeros(1, 4, 130, d, dtype=dtype, requires_grad=True)
+    k, v = (torch.zeros(1, 2, 130, d, dtype=dtype, requires_grad=True) for _ in range(2))
+    out = tfa.flash_attention(q, k, v)
+    before = dict(tfa.KERNEL_LAUNCHES)
+    out.backward(torch.zeros_like(out))
+    prep, _, dq = calls[1:]
+    fp32 = dtype == torch.float32
+    assert dq[:2] == ("fa_flash_bwd_dq_simt" if fp32 else "fa_flash_bwd_dq", 256)
+    assert prep[0] == "fa_flash_bwd_prep" and dq[2] == prep[2]
+    assert (dq[2] is None) == fp32 and dq[2] != 0
+    counts = {key: n - before[key] for key, n in tfa.KERNEL_LAUNCHES.items() if n != before[key]}
+    key = "flash_bwd_dq_d256_simt" if fp32 else "flash_bwd_dq_d256"
+    assert counts == {"flash_bwd_prep_d256": 1, key: 1, key.replace("_dq_", "_dkv_"): 1}
