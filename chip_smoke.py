@@ -67,10 +67,14 @@ are 7-9):
               prompt, those logits against a full forward of the same
               weights; then 4 teacher-forced decode steps of one prompt on
               an fp8 and a bf16 cache, against each other and against full
-              recompute.
-10. llama-parity - fp32 Llama-3 8B widths at 2 layers: prefill logits
-              within 1e-3 of a full forward, 6 greedy tokens of cached
-              decode equal to full recompute; int8 / int4 weight-only
+              recompute.  llama-chunked, between the two: the bf16 burst
+              with prefill_chunk_fn=llama.prefill_chunk and chunk_prefill
+              256 (budgets exact, the chunk count of the prompt lengths, K1
+              launched n_layer x whole-prompt dispatches).
+10. llama-parity - fp32 Llama-3 8B widths at 2 layers: prefill logits and
+              llama.prefill_chunk's (chunks of 128) within 1e-3 of a full
+              forward, 6 greedy tokens of cached decode equal to full
+              recompute; int8 / int4 weight-only
               forwards finite, their error against fp32 printed and bounded
               (relative L2 0.1 / 0.8), two broken int4 forwards (nibble
               halves swapped, scales zeroed) outside the int4 bound, and
@@ -88,6 +92,26 @@ are 7-9):
               with attn_impl="paged" and an fp8-cache engine with "fused":
               exact budgets; K5 / K6 launched n_layer x decode steps, K1
               n_layer x prefill dispatches; tokens/s and TTFT beside 12's.
+    serving-chunked - the burst with chunk_prefill=256: exact budgets, the
+              chunk count of the prompt lengths, K1 launched n_layer x
+              whole-prompt dispatches (a chunk runs the dense offset
+              attention); one chunk's wall ms through the 12 layers and its
+              offset attention's ms a layer; then fp32: a 900-token prompt
+              in chunks of 256 against prefill (logits, cache rows 1e-3),
+              and greedy outputs of 4 prompts with and without chunking
+              equal.
+    serving-spec - the burst with speculative decoding, spec_k 4, the
+              target drafting for itself and a 2-layer draft (its first
+              blocks, embeddings and head) with spec_adaptive: exact
+              budgets, K1 launched n_layer x target prefill dispatches +
+              draft layers x draft dispatches; acceptance, retreat and
+              trials; then fp32: verify_step against chained decode_step
+              (1e-3), greedy outputs of 4 prompts x 32 tokens with the
+              2-layer draft equal the plain engine's and a self-draft
+              accepting every proposal.
+    serving-pipelined - the burst with pipeline_scans=True, then also with
+              scan_tokens_target=64: exact budgets, every scan pipelined;
+              tokens/s, TTFT and scans beside 12's.
 14. serving-wquant - the same model with int8 weight-only projections
               (quantized in place) on an fp8 cache through K6: one prompt's
               prefill logits within relative L2 0.05 of the bf16 model's,
@@ -130,8 +154,9 @@ are 7-9):
 The line before the last is a JSON summary of the kernels, the D256, the
 "_d256_simt" and the "_wide" ones as rows of their own (launches on their
 path, max error, device ms, plain ms, bound ms and what sets it, library ms
-or null; K1's row also carries its launches on the Llama path and its
-times at the Llama prefill shape, the wide rows D1024's times as
+or null; K1's row also carries its launches on the Llama path and in the
+chunked, speculative and pipelined GPT-2 bursts and its times at the
+Llama prefill shape, the wide rows D1024's times as
 d1024_*); the last line is
 {"ok": true, "device": {...}}.
 """
@@ -158,8 +183,13 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from flash_attention_tpu_torch.data import CharTokenizer, batch_iterator, synthetic_corpus  # noqa: E402
-from flash_attention_tpu_torch.inference import InferenceEngine, init_cache  # noqa: E402
-from flash_attention_tpu_torch.inference.model_runner import decode_step, prefill  # noqa: E402
+from flash_attention_tpu_torch.inference import InferenceEngine, init_cache, speculative_decode_loop  # noqa: E402
+from flash_attention_tpu_torch.inference.model_runner import (  # noqa: E402
+    decode_step,
+    prefill,
+    prefill_chunk,
+    verify_step,
+)
 from flash_attention_tpu_torch.kernels import _build  # noqa: E402
 from flash_attention_tpu_torch.kernels.vanilla import vanilla_attention_with_lse  # noqa: E402
 from flash_attention_tpu_torch.models import llama  # noqa: E402
@@ -178,6 +208,8 @@ QK = importlib.import_module("flash_attention_tpu_torch.quant.kv")
 KVC = importlib.import_module("flash_attention_tpu_torch.inference.kv_cache")
 PA = importlib.import_module("flash_attention_tpu_torch.inference.paged_attention")
 DA = importlib.import_module("flash_attention_tpu_torch.inference.decode_attention")
+MR = importlib.import_module("flash_attention_tpu_torch.inference.model_runner")
+ENG = importlib.import_module("flash_attention_tpu_torch.inference.engine")
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "flash_fwd": ("flash_attention_tpu_torch/csrc/flash_fwd.cu", "flash_attention_tpu/kernels/flash_attention.py:269"),
     # no Pallas kernel: the di and qs that JAX computes outside its backward
@@ -768,6 +800,7 @@ def _burst(seed: int, tag: str, model: torch.nn.Module, **engine_kw) -> dict:
     eng.run()
     eng.finished.clear()
     eng.reset_stats()
+    eng.reset_spec_state()
     torch.cuda.synchronize()
 
     _reset_launches()
@@ -794,14 +827,21 @@ def _burst(seed: int, tag: str, model: torch.nn.Module, **engine_kw) -> dict:
             raise AssertionError(f"[{tag}] request {uid}: {len(out)} tokens, budget {budget}")
         if not all(0 <= tok < cfg.vocab_size for tok in out):
             raise AssertionError(f"[{tag}] request {uid}: token id out of range")
+    # K1 runs in every whole-prompt prefill, the target's and the draft's
+    # (at admission, at a chunked prompt's end, in a resync); a chunk runs
+    # the dense offset attention and launches nothing
     dispatches = eng.stats["prefill_dispatches"]
-    if launches["flash_fwd"] <= 0 or launches["flash_fwd"] != cfg.n_layer * dispatches:
+    draft = engine_kw.get("draft_model")
+    draft_dispatches = eng.stats.get("draft_dispatches", 0)
+    want = cfg.n_layer * dispatches + (draft.cfg.n_layer * draft_dispatches if draft is not None else 0)
+    if launches["flash_fwd"] <= 0 or launches["flash_fwd"] != want:
         raise AssertionError(f"[{tag}] flash_fwd launches {launches['flash_fwd']} != {cfg.n_layer} x {dispatches} "
-                             f"prefill dispatches")
+                             f"prefill dispatches + draft layers x {draft_dispatches} draft prefill dispatches")
     toks = sum(len(r.output) for r in done)
     ttft = sorted(r.ttft for r in done)
     return dict(
         lengths=sorted(lengths.tolist()), launches=launches, dispatches=dispatches, steps=eng.stats["decode_steps"],
+        scans=eng.stats.get("decode_scans", 0), stats=dict(eng.stats),
         toks=toks, wall=wall, tokens_s=toks / wall, p50=statistics.median(ttft),
         p95=ttft[min(len(ttft) - 1, int(0.95 * len(ttft)))],
         requests=[(prompt, i % 2 == 0, by_uid[uid].output) for i, (prompt, (uid, _)) in enumerate(zip(prompts, reqs))],
@@ -853,6 +893,256 @@ def phase_serving_quant(seed: int, model: GPT, base: dict, smi: str) -> tuple[di
             f"p95 {r['p95'] * 1e3:.1f} ms (bf16 cache, einsum, from [serving]: {base['tokens_s']:.1f} tokens/s, "
             f"p50 {base['p50'] * 1e3:.1f} ms, p95 {base['p95'] * 1e3:.1f} ms)")
     return launches, rates
+
+
+def _chunk_count(n: int, chunk: int, max_len: int) -> int:
+    """Chunks the engine runs for an n-token prompt (none up to `chunk`
+    tokens, which are prefilled whole), the final chunk shifted back to
+    end at max_len when it would cross it."""
+    if n <= chunk:
+        return 0
+    pos = count = 0
+    while pos < n:
+        start = min(pos, max_len - chunk)
+        pos = start + min(chunk, n - start)
+        count += 1
+    return count
+
+
+def _rates(r: dict) -> str:
+    return f"{r['tokens_s']:.1f} tokens/s, TTFT p50 {r['p50'] * 1e3:.1f} ms p95 {r['p95'] * 1e3:.1f} ms"
+
+
+def _fp32_gpt2(seed: int) -> GPT:
+    """fp32 GPT-2 124M with GPT-2's init, for the greedy checks.  Its top-2
+    logit gaps (printed by _min_top2_gap) sit far above the 1e-5 that
+    separates two orders of summation.  The CPU tests' weights x25 are
+    not used at this depth: over 12 layers they make the forward chaotic,
+    and two summation orders of the same prompt then pick different
+    tokens."""
+    return GPT(dataclasses.replace(GPT2_124M, dtype=torch.float32), generator=torch.Generator().manual_seed(seed),
+               device="cuda")
+
+
+def _min_top2_gap(model: GPT, prompts: list[list[int]], outputs: list[list[int]]) -> float:
+    """The smallest top-2 logit gap over the greedy tokens of `outputs`, from
+    a full forward of each prompt and its output."""
+    gaps = []
+    with torch.no_grad():
+        for p, out in zip(prompts, outputs):
+            logits = model(torch.as_tensor([p + out[:-1]], device="cuda"))[0, len(p) - 1:].float()
+            top2 = torch.topk(logits, 2, dim=-1).values
+            gaps.append((top2[:, 0] - top2[:, 1]).min().item())
+    return min(gaps)
+
+
+def _greedy_outputs(model: GPT, prompts: list[list[int]], budget: int, **engine_kw) -> tuple[list, dict]:
+    eng = InferenceEngine(model, slots=4, max_len=1024, scan_steps=8, device="cuda", **engine_kw)
+    uids = [eng.submit(p, max_new_tokens=budget) for p in prompts]
+    by_uid = {r.uid: r.output for r in eng.run()}
+    return [by_uid[u] for u in uids], eng.stats
+
+
+CHUNK = 256
+
+
+def phase_serving_chunked(seed: int, model: GPT, base: dict, smi: str) -> int:
+    """The serving burst with chunk_prefill=256: exact budgets, the chunk
+    count of the prompt lengths, K1 launched n_layer x whole-prompt
+    dispatches only; one 256-token chunk's wall ms through the 12 layers
+    and the dense offset attention's ms a layer.  Then fp32 GPT-2 124M: a
+    900-token prompt in chunks of 256 against `prefill` (final logits and
+    cache rows 1e-3), and greedy outputs of 4 prompts with and without
+    chunking equal.  Returns K1's launches in the burst."""
+    cfg = model.cfg
+    tag = "serving-chunked"
+    r = _burst(seed, tag, model, chunk_prefill=CHUNK)
+    want = sum(_chunk_count(n, CHUNK, 1024) for n in r["lengths"])
+    chunked = sum(n > CHUNK for n in r["lengths"])
+    got = r["stats"].get("prefill_chunks", 0)
+    if got != want or r["dispatches"] + chunked > 16:
+        raise AssertionError(f"[{tag}] {got} chunks, want {want} for prompt lengths {r['lengths']}")
+    say(f"[{tag}] 16/16 requests finished with their exact budgets; {got} chunks of {CHUNK} for the {chunked} "
+        f"prompts over {CHUNK} tokens (as their lengths give); flash_fwd launches {r['launches']['flash_fwd']} = "
+        f"{cfg.n_layer} layers x {r['dispatches']} whole-prompt dispatches")
+    say(f"[{tag}] {smi} | chunk_prefill={CHUNK}: {_rates(r)}, decode steps {r['steps']} (no chunking, from "
+        f"[serving]: {_rates(base)}, decode steps {base['steps']})")
+    # one chunk at start 512 of a 1024-row slot: wall ms (host clock around
+    # the call and a sync), and the offset attention alone (CUDA events)
+    cache = init_cache(cfg.n_layer, 1, cfg.kv_heads, 1024, cfg.head_dim, dtype=cfg.dtype, device="cuda")
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(0, cfg.vocab_size, CHUNK), device="cuda")
+    walls = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill_chunk(model, toks, cache, 0, 512)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    q = torch.randn(1, cfg.n_head, CHUNK, cfg.head_dim, device="cuda", dtype=cfg.dtype)
+    attn_call = time_ms(lambda: MR._chunk_attention(q, cache, 0, 0, 512))
+    starts = torch.full((1,), 512, device="cuda")
+    attn_dev = graph_ms(lambda: MR._offset_attention(q, cache.k[0][:, :1], cache.v[0][:, :1], None, None, starts))
+    say(f"[{tag}] {smi} | one {CHUNK}-token chunk at position 512 through {cfg.n_layer} layers: "
+        f"{statistics.median(walls[2:]):.3f} ms wall (median of 10); its dense offset attention a layer "
+        f"{attn_dev:.4f} ms of device time (CUDA graph), {attn_call:.4f} ms a call with the host's enqueue (CUDA "
+        f"events); it upcasts the slot's 1024 rows")
+
+    fp32 = _fp32_gpt2(seed + 1)
+    prompt = torch.as_tensor(np.random.default_rng(seed + 2).integers(0, cfg.vocab_size, 900), device="cuda")
+    whole = init_cache(cfg.n_layer, 1, cfg.kv_heads, 1024, cfg.head_dim, dtype=torch.float32, device="cuda")
+    chunks = init_cache(cfg.n_layer, 1, cfg.kv_heads, 1024, cfg.head_dim, dtype=torch.float32, device="cuda")
+    _, ref = prefill(fp32, prompt, whole, 0)
+    for start in range(0, 900, CHUNK):
+        valid = min(CHUNK, 900 - start)
+        piece = torch.full((CHUNK,), int(prompt[-1]), device="cuda", dtype=prompt.dtype)
+        piece[:valid] = prompt[start:start + valid]
+        _, logits = prefill_chunk(fp32, piece, chunks, 0, start, valid)
+    e_logits = (logits - ref).abs().max().item()
+    e_rows = max((chunks.k[..., :900, :] - whole.k[..., :900, :]).abs().max().item(),
+                 (chunks.v[..., :900, :] - whole.v[..., :900, :]).abs().max().item())
+    lengths_ok = int(chunks.lengths[0]) == int(whole.lengths[0]) == 900
+    del whole, chunks
+    rng = np.random.default_rng(seed + 4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (900, 600, 300, 40)]
+    plain, _ = _greedy_outputs(fp32, prompts, 16)
+    chunked_out, stats = _greedy_outputs(fp32, prompts, 16, chunk_prefill=CHUNK)
+    gap = _min_top2_gap(fp32, prompts, plain)
+    del fp32
+    torch.cuda.empty_cache()
+    ok = e_logits <= 1e-3 and e_rows <= 1e-3 and lengths_ok and plain == chunked_out
+    say(f"[{tag}] fp32 GPT-2 124M, a 900-token prompt in chunks of {CHUNK} vs prefill: final logits {e_logits:.3e}, "
+        f"cache rows {e_rows:.3e} (atol 1e-3), lengths {'equal' if lengths_ok else 'DIFFER'}; 4 prompts "
+        f"(900/600/300/40) x 16 greedy tokens with and without chunking ({stats.get('prefill_chunks', 0)} chunks): "
+        f"{'equal' if plain == chunked_out else 'DIFFER'} (smallest top-2 logit gap {gap:.2e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] chunked prefill disagrees with whole-prompt prefill")
+    return r["launches"]["flash_fwd"]
+
+
+def _truncated(model: GPT, n_layer: int) -> GPT:
+    """A draft: `model`'s first n_layer blocks, sharing its embeddings, its
+    final LayerNorm and its tied head."""
+    draft = GPT(dataclasses.replace(model.cfg, n_layer=n_layer, vocab_size=1, block_size=1), device="cuda")
+    draft.cfg = dataclasses.replace(model.cfg, n_layer=n_layer)
+    draft.blocks = torch.nn.ModuleList(list(model.blocks)[:n_layer])
+    draft.wte, draft.wpe, draft.lnf = model.wte, model.wpe, model.lnf
+    return draft
+
+
+class _Acceptance:
+    """Records the tokens each speculative iteration emits for its active
+    slots, by wrapping the engine module's speculative_decode_loop."""
+
+    def __init__(self):
+        self.counts = []
+
+    def __enter__(self):
+        self.inner = ENG.speculative_decode_loop
+
+        def loop(*args, active=None, **kw):
+            out = self.inner(*args, active=active, **kw)
+            self.counts.append(out[3][:, active].flatten())
+            return out
+
+        ENG.speculative_decode_loop = loop
+        return self
+
+    def __exit__(self, *exc):
+        ENG.speculative_decode_loop = self.inner
+
+    def mean(self) -> float:
+        return torch.cat(self.counts).float().mean().item() if self.counts else float("nan")
+
+
+def phase_serving_spec(seed: int, model: GPT, base: dict, smi: str) -> dict:
+    """The serving burst with speculative decoding (greedy requests; the
+    sampled half takes the regular scan), spec_k 4: (a) the target drafting
+    for itself, (b) a 2-layer draft (the target's first two blocks, its
+    embeddings and head) with spec_adaptive.  Exact budgets, ids in range,
+    K1 launched n_layer x target prefill dispatches + draft layers x draft
+    prefill and resync dispatches; acceptance, the retreat and trials.
+    Then fp32 GPT-2 124M: verify_step logits against chained decode_step
+    logits (1e-3); draft (b) without spec_adaptive gives the plain
+    engine's greedy outputs for 4 prompts x 32 tokens, and the
+    target drafting for itself accepts every proposal.  Returns K1's
+    launches in each burst."""
+    cfg = model.cfg
+    tag = "serving-spec"
+    launches = {}
+    drafts = (("self-draft", model, {}), ("2-layer draft", _truncated(model, 2), dict(spec_adaptive=True)))
+    for name, draft, kw in drafts:
+        with _Acceptance() as acc:
+            r = _burst(seed, tag, model, draft_model=draft, **kw)
+        st = r["stats"]
+        if not st.get("spec_rounds"):
+            raise AssertionError(f"[{tag}] {name}: no speculative round ran")
+        launches[name] = r["launches"]["flash_fwd"]
+        say(f"[{tag}] {name} ({draft.cfg.n_layer} layers{', spec_adaptive' if kw else ''}): 16/16 requests finished "
+            f"with their exact budgets, ids in range; flash_fwd launches {r['launches']['flash_fwd']} = "
+            f"{cfg.n_layer} x {r['dispatches']} prefill dispatches + {draft.cfg.n_layer} x "
+            f"{st.get('draft_dispatches', 0)} draft dispatches ({st.get('draft_prefills', 0)} at admission, "
+            f"{st.get('draft_resyncs', 0)} slots resynced)")
+        say(f"[{tag}] {smi} | {name}: {_rates(r)}; spec rounds {st['spec_rounds']}, tokens a speculative iteration "
+            f"{acc.mean():.3f} of {4 + 1}, EMA {st.get('spec_accept_ema', 'n/a')}, retreat at round "
+            f"{st.get('spec_disabled_at_round', 'none')}, trials {st.get('spec_trials', 0)}, re-opened at round "
+            f"{st.get('spec_reopened_at_round', 'none')}, regular scans {r['scans']} (no draft, from [serving]: "
+            f"{_rates(base)})")
+
+    fp32 = _fp32_gpt2(seed + 1)
+    rng = np.random.default_rng(seed + 5)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, 300), device="cuda")
+    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, 5), device="cuda", dtype=torch.int32)
+    caches = [init_cache(cfg.n_layer, 1, cfg.kv_heads, 1024, cfg.head_dim, dtype=torch.float32, device="cuda")
+              for _ in range(2)]
+    for c in caches:
+        prefill(fp32, prompt, c, 0)
+    _, verified = verify_step(fp32, feed[None], caches[0])
+    e_verify = max((decode_step(fp32, feed[i:i + 1], caches[1])[1][0] - verified[0, i]).abs().max().item()
+                   for i in range(5))
+    del caches
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (700, 300, 120, 30)]
+    plain, _ = _greedy_outputs(fp32, prompts, 32)
+    spec, st = _greedy_outputs(fp32, prompts, 32, draft_model=_truncated(fp32, 2))
+    gap = _min_top2_gap(fp32, prompts, plain)
+    ct = init_cache(cfg.n_layer, 2, cfg.kv_heads, 1024, cfg.head_dim, dtype=torch.float32, device="cuda")
+    cd = init_cache(cfg.n_layer, 2, cfg.kv_heads, 1024, cfg.head_dim, dtype=torch.float32, device="cuda")
+    firsts = []
+    for slot, p in enumerate(prompts[2:]):
+        firsts.append(int(prefill(fp32, torch.as_tensor(p, device="cuda"), ct, slot)[1].argmax()))
+        prefill(fp32, torch.as_tensor(p, device="cuda"), cd, slot)
+    _, _, _, counts = speculative_decode_loop(fp32, ct, fp32, cd, torch.tensor(firsts, device="cuda"), 4, k=4)
+    self_all = bool((counts == 5).all())
+    del fp32, ct, cd
+    torch.cuda.empty_cache()
+    ok = e_verify <= 1e-3 and plain == spec and self_all
+    say(f"[{tag}] fp32 GPT-2 124M: verify_step logits of 5 rows vs 5 chained decode steps {e_verify:.3e} (atol "
+        f"1e-3); 4 prompts x 32 greedy tokens with the 2-layer draft ({st['spec_rounds']} spec rounds) vs the plain "
+        f"engine: {'equal' if plain == spec else 'DIFFER'} (smallest top-2 logit gap {gap:.2e}); the target "
+        f"drafting for itself, 4 iterations of window 4 on 2 slots: counts {counts.flatten().tolist()} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] speculative decoding disagrees with greedy decoding")
+    return launches
+
+
+def phase_serving_pipelined(seed: int, model: GPT, base: dict, smi: str) -> dict:
+    """The serving burst with pipeline_scans=True, then also with
+    scan_tokens_target=64: exact budgets, every regular scan pipelined.
+    Returns K1's launches in each burst."""
+    tag = "serving-pipelined"
+    launches = {}
+    for name, kw in (("pipeline_scans", dict(pipeline_scans=True)),
+                     ("pipeline_scans + scan_tokens_target=64", dict(pipeline_scans=True, scan_tokens_target=64))):
+        r = _burst(seed, tag, model, **kw)
+        piped = r["stats"].get("pipelined_scans", 0)
+        if piped <= 0 or piped != r["scans"]:
+            raise AssertionError(f"[{tag}] {name}: {piped} of {r['scans']} scans pipelined")
+        launches[name] = r["launches"]["flash_fwd"]
+        say(f"[{tag}] {smi} | {name}: 16/16 requests finished with their exact budgets; {_rates(r)}, {r['scans']} "
+            f"scans (all pipelined), decode steps {r['steps']} (synchronous, from [serving]: {_rates(base)}, "
+            f"{base['scans']} scans, decode steps {base['steps']})")
+    return launches
 
 
 def phase_parity(seed: int) -> None:
@@ -1740,15 +2030,52 @@ def phase_llama(seed: int, smi: str) -> dict:
         say(f"[llama] {smi} | {name}: {r['toks']} tokens in {r['wall']:.3f} s wall: {r['tokens_s']:.1f} tokens/s, "
             f"TTFT p50 {r['p50'] * 1e3:.1f} ms p95 {r['p95'] * 1e3:.1f} ms, decode steps {r['steps']}, peak "
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        if cache is None:
+            runs["bf16, chunk_prefill=256"] = _llama_chunked(seed, model, r, smi, kw)
     _check_llama_fp8(model, runs["int4 weights, fp8 cache"])
     del model
     torch.cuda.empty_cache()
     return {name: r["launches"]["flash_fwd"] for name, r in runs.items()}
 
 
+def _llama_chunked(seed: int, model: llama.Llama, base: dict, smi: str, kw: dict) -> dict:
+    """llama-chunked: the bf16 burst with prefill_chunk_fn=llama.prefill_chunk
+    and chunk_prefill=256: exact budgets, the chunk count of the prompt
+    lengths, K1 launched n_layer x whole-prompt dispatches; one chunk's
+    wall ms through the 32 layers."""
+    tag = "llama-chunked"
+    cfg = model.cfg
+    r = _burst(seed, tag, model, prefill_chunk_fn=llama.prefill_chunk, chunk_prefill=CHUNK, **kw)
+    want = sum(_chunk_count(n, CHUNK, 1024) for n in r["lengths"])
+    chunked = sum(n > CHUNK for n in r["lengths"])
+    got = r["stats"].get("prefill_chunks", 0)
+    others = {k: n for k, n in r["launches"].items() if k != "flash_fwd" and n}
+    if got != want or r["dispatches"] != 16 - chunked or others:
+        raise AssertionError(f"[{tag}] {got} chunks (want {want}), {r['dispatches']} whole-prompt dispatches (want "
+                             f"{16 - chunked}), other kernels {others}")
+    say(f"[{tag}] Llama-3 8B bf16: 16/16 requests finished with their exact budgets; {got} chunks of {CHUNK} for "
+        f"the {chunked} prompts over {CHUNK} tokens; flash_fwd launches {r['launches']['flash_fwd']} = "
+        f"{cfg.n_layer} layers x {r['dispatches']} whole-prompt dispatches")
+    say(f"[{tag}] {smi} | chunk_prefill={CHUNK}: {_rates(r)}, decode steps {r['steps']} (whole prompts: "
+        f"{_rates(base)}, decode steps {base['steps']})")
+    cache = init_cache(cfg.n_layer, 1, cfg.n_kv_head, 1024, cfg.head_dim, dtype=cfg.dtype, device="cuda")
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(0, cfg.vocab_size, CHUNK), device="cuda")
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        llama.prefill_chunk(model, toks, cache, 0, 512)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    say(f"[{tag}] {smi} | one {CHUNK}-token chunk at position 512 through {cfg.n_layer} layers: "
+        f"{statistics.median(walls[1:]):.3f} ms wall (median of 5)")
+    return r
+
+
 def phase_llama_parity(seed: int) -> None:
-    """fp32 Llama-3 8B widths at 2 layers: prefill logits against a full
-    forward (1e-3); 6 greedy tokens of cached decode equal full recompute;
+    """fp32 Llama-3 8B widths at 2 layers: prefill logits and those of
+    llama.prefill_chunk (chunks of 128) against a full forward (1e-3); 6
+    greedy tokens of cached decode equal full recompute;
     int8 / int4 weight-only forwards finite, against fp32 (printed; bounded
     between the readings of random weights at this width and those of two
     broken int4 forwards, which must fail it), and held to the JAX test's
@@ -1769,11 +2096,20 @@ def phase_llama_parity(seed: int) -> None:
         seq = list(prompt)
         for _ in range(6):
             seq.append(int(model(torch.as_tensor(seq, device="cuda")[None])[0, -1].argmax()))
+        # llama-chunked's parity: the prompt in chunks of 128 (RoPE at
+        # absolute positions)
+        chunks = init_cache(cfg.n_layer, 1, cfg.n_kv_head, 1024, cfg.head_dim, dtype=cfg.dtype, device="cuda")
+        for start in range(0, len(prompt), 128):
+            piece = prompt[start:start + 128]
+            valid = len(piece)
+            piece = piece + [prompt[-1]] * (128 - valid)
+            _, lg = llama.prefill_chunk(model, torch.as_tensor(piece, device="cuda"), chunks, 0, start, valid)
+        e_chunk = (lg - ref).abs().max().item()
     torch.cuda.synchronize()
-    ok = e_prefill <= 1e-3 and cached == seq[len(prompt):]
+    ok = e_prefill <= 1e-3 and e_chunk <= 1e-3 and cached == seq[len(prompt):]
     say(f"[llama-parity] fp32 Llama-3 8B widths, 2 layers, prompt 300: prefill logits vs full forward "
-        f"{e_prefill:.3e} (atol 1e-3); 6 greedy tokens of cached decode {cached} vs full recompute "
-        f"{seq[len(prompt):]} {'ok' if ok else 'FAIL'}")
+        f"{e_prefill:.3e}, llama.prefill_chunk in chunks of 128 vs full forward {e_chunk:.3e} (atol 1e-3); 6 "
+        f"greedy tokens of cached decode {cached} vs full recompute {seq[len(prompt):]} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("[llama-parity] cached path disagrees with full recompute")
     # int8 / int4: copies of the fp32 model quantized in place.  Bounds on
@@ -2026,6 +2362,9 @@ def main() -> None:
     model = _gpt2(args.seed)
     base = phase_serving(args.seed, model)
     decode_launches, _ = phase_serving_quant(args.seed, model, base, smi)
+    chunked_k1 = phase_serving_chunked(args.seed, model, base, smi)
+    spec_k1 = phase_serving_spec(args.seed, model, base, smi)
+    pipelined_k1 = phase_serving_pipelined(args.seed, model, base, smi)
     wquant_k6 = phase_serving_wquant(args.seed, model, smi)
     del model
     phase_parity(args.seed)
@@ -2041,6 +2380,7 @@ def main() -> None:
     # training, and its time at the Llama prefill shape
     times["flash_fwd"].update(
         llama_serving_launches=llama_k1, llama_train_launches=llama_train,
+        serving_chunked_launches=chunked_k1, serving_spec_launches=spec_k1, serving_pipelined_launches=pipelined_k1,
         **{f"llama_{k}": v for k, v in llama_times["llama"].items()},
     )
     times["fused_decode"]["serving_wquant_launches"] = wquant_k6

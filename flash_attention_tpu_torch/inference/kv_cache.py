@@ -8,7 +8,10 @@ reshape (`page_view`): slot s owns pages [s * max_len / page_size,
 place.  Optional int8/fp8 storage: payload plus one fp32 scale per token
 (k_scale, v_scale [n_layer, kv_heads, slots, max_len]), written with
 `quant.kv.quantize_tokens` and dequantized at attention time (inside the
-decode kernels).
+decode kernels).  Four write paths: `prefill_write` (a fresh prompt),
+`chunk_write` (a chunk of a prompt at an offset), `decode_write` (one
+token per slot) and `multi_write` (C tokens per slot, the speculative
+verify step).
 
 Unlike the JAX package, whose arrays are immutable, every write here
 happens IN PLACE on the cache's tensors, which saves a copy of the cache per
@@ -113,6 +116,25 @@ def prefill_write(cache: KVCache, layer: int, slot: int, k_new: torch.Tensor, v_
     return cache
 
 
+def chunk_write(
+    cache: KVCache, layer: int, slot: int, k_new: torch.Tensor, v_new: torch.Tensor, start: int
+) -> KVCache:
+    """Write a chunk of C tokens into one slot at position `start`, in place
+    (chunked prefill).  k_new, v_new: [kv_heads, C, head_dim].  The start
+    is clamped to [0, max_len - C], as the JAX package's
+    `lax.dynamic_update_slice` clamps it; a plain slice would instead cut
+    the chunk short at the capacity."""
+    c = k_new.shape[1]
+    start = min(max(int(start), 0), cache.max_len - c)
+    k, v, ks, vs = _payload(cache, k_new, v_new)
+    cache.k[layer, :, slot, start:start + c].copy_(k)
+    cache.v[layer, :, slot, start:start + c].copy_(v)
+    if cache.quantized:
+        cache.k_scale[layer, :, slot, start:start + c].copy_(ks)
+        cache.v_scale[layer, :, slot, start:start + c].copy_(vs)
+    return cache
+
+
 def decode_write(
     cache: KVCache, layer: int, k_new: torch.Tensor, v_new: torch.Tensor, positions: torch.Tensor
 ) -> KVCache:
@@ -126,6 +148,26 @@ def decode_write(
     if cache.quantized:
         cache.k_scale[layer][:, sl, pos] = ks.transpose(0, 1)
         cache.v_scale[layer][:, sl, pos] = vs.transpose(0, 1)
+    return cache
+
+
+def multi_write(
+    cache: KVCache, layer: int, k_new: torch.Tensor, v_new: torch.Tensor, positions: torch.Tensor
+) -> KVCache:
+    """Write C tokens per slot in one indexed write per tensor, in place:
+    k_new/v_new [slots, C, kv_heads, head_dim] at positions [slots, C] (the
+    speculative verify step's writes).  Positions that repeat within a slot
+    (rows clipped at the capacity) leave one of their rows, which one being
+    undefined, as in the JAX package's scatter; such rows lie past the
+    slot's length."""
+    sl = torch.arange(cache.slots, device=positions.device)[:, None]
+    pos = positions.long()
+    k, v, ks, vs = _payload(cache, k_new, v_new)
+    cache.k[layer][:, sl, pos] = k.permute(2, 0, 1, 3)
+    cache.v[layer][:, sl, pos] = v.permute(2, 0, 1, 3)
+    if cache.quantized:
+        cache.k_scale[layer][:, sl, pos] = ks.permute(2, 0, 1)
+        cache.v_scale[layer][:, sl, pos] = vs.permute(2, 0, 1)
     return cache
 
 

@@ -1,12 +1,13 @@
 """Llama-family transformer (RMSNorm, RoPE, SwiGLU, GQA) as a PyTorch module.
 
 Port of `flash_attention_tpu/models/llama.py`: the configurations, the
-forward and `loss_fn`, and the serving functions `prefill`, `decode_step`
-and `decode_loop` over the KV cache, which take the `Llama` module where
-the JAX package took its params pytree and config and update the cache in
-place.  Attention is `flash_attention` (K1, and K2/K3 in training) over the
-prompt and the einsum `decode_attention` for one token per slot, as in the
-JAX package, whose Llama decode takes no `attn_impl`.
+forward and `loss_fn`, and the serving functions `prefill`,
+`prefill_chunk`, `decode_step` and `decode_loop` over the KV cache, which
+take the `Llama` module where the JAX package took its params pytree and
+config and update the cache in place.  Attention is `flash_attention` (K1, and K2/K3 in training) over the
+prompt, the dense `model_runner._offset_attention` over a prompt's chunk
+and the einsum `decode_attention` for one token per slot, as in the JAX
+package, whose Llama decode takes no `attn_impl`.
 
 What the port keeps exactly, since the results drift otherwise: RoPE in
 split halves (not interleaved) with its tables computed in fp32; RMSNorm in
@@ -21,9 +22,8 @@ device="cuda")`, bf16 storage: 16 GB, where fp32 masters would be 32 GB).
 Weight-only int8/int4 comes from `quant.weights.quantize_llama_params`,
 which replaces the projections and the LM head by `QuantizedLinear`s.
 
-Not ported yet: `prefill_chunk` (chunked prefill) and the forward's
-sequence-parallel branch (`seq_mesh`, ring attention); a config with a
-`seq_mesh` raises.
+Not ported yet: the forward's sequence-parallel branch (`seq_mesh`, ring
+attention); a config with a `seq_mesh` raises.
 """
 
 from __future__ import annotations
@@ -260,6 +260,42 @@ def prefill(
     n = t if length is None else int(length)
     logits = model.head(x[0, n - 1]).float()
     kvc.set_length(cache, slot, n)
+    return cache, logits
+
+
+@torch.no_grad()
+def prefill_chunk(
+    model: Llama,
+    tokens: torch.Tensor,
+    cache: kvc.KVCache,
+    slot: int,
+    start: int,
+    length: int | None = None,
+) -> tuple[kvc.KVCache, torch.Tensor]:
+    """Chunked prefill (cf. `model_runner.prefill_chunk`): tokens [C] at
+    positions start .. start + C - 1, attending to the slot's cached prefix
+    and themselves.  RoPE takes the absolute positions, clipped to the
+    cache's capacity (GPT clips its learned positions to block_size
+    instead).  Engine: `InferenceEngine(model, prefill_fn=llama.prefill,
+    decode_fn=llama.decode_step, prefill_chunk_fn=llama.prefill_chunk,
+    chunk_prefill=N)`."""
+    from ..inference.model_runner import _chunk_attention
+
+    cfg = model.cfg
+    c = tokens.shape[0]
+    x = model.embed(tokens)[None]
+    positions = (int(start) + torch.arange(c, device=tokens.device)).clamp(0, cache.max_len - 1)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    cos, sin = cos[None, None], sin[None, None]
+    for li, blk in enumerate(model.blocks):
+        q, k, v = blk.project_qkv(_rms_norm(x, blk.attn_norm, cfg.rms_eps), 1, c)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        kvc.chunk_write(cache, li, slot, k[0], v[0], start)
+        y = _chunk_attention(q, cache, li, slot, start)
+        x = blk.finish(x, y.transpose(1, 2).reshape(1, c, cfg.n_head * cfg.head_dim))
+    valid = c if length is None else int(length)
+    logits = model.head(x[0, valid - 1]).float()
+    kvc.set_length(cache, slot, int(start) + valid)
     return cache, logits
 
 

@@ -1,8 +1,9 @@
 """Serving path: KV cache writes (plain and int8/fp8), prefill /
 prefill_many / decode_step (every attn_impl) against the JAX package's
 model_runner (1e-4, fp32), the engine's greedy outputs (plain and int8
-cache) against the JAX engine's, sampling support, and the CUDA-only paths
-that must raise where there is no card."""
+cache) against the JAX engine's, sampling support, the engine's options
+against the JAX engine's constructor, and the CUDA-only paths that must
+raise where there is no card."""
 
 import dataclasses
 import functools
@@ -345,15 +346,33 @@ def test_top_k_top_p_restrict_support():
     assert seen == {0, 1, 2, 3, 4}
 
 
-@pytest.mark.parametrize(
-    "option",
-    ["spec_adaptive", "chunk_prefill", "prefill_chunk_fn", "scan_tokens_target", "pipeline_scans", "draft_params",
-     "spec_k"],
-)
-def test_engine_rejects_unported_options(models, option):
+def test_engine_takes_every_option_of_the_jax_engine(models):
+    """The port's constructor takes each parameter of the JAX engine's,
+    with `model` in place of params + cfg and `draft_model` in place of
+    draft_params + draft_cfg, and the same defaults except
+    pipeline_scans (False on the card until it is measured there)."""
+    import inspect
+
+    spelled = {"params": "model", "cfg": "model", "draft_params": "draft_model", "draft_cfg": "draft_model"}
+    jsig = inspect.signature(jengine.InferenceEngine.__init__).parameters
+    tsig = inspect.signature(tengine.InferenceEngine.__init__).parameters
+    for name, param in jsig.items():
+        if name == "self":
+            continue
+        port = spelled.get(name, name)
+        assert port in tsig, name
+        if name not in spelled and name != "pipeline_scans":
+            assert tsig[port].default == param.default, name
+    assert jsig["pipeline_scans"].default is True and tsig["pipeline_scans"].default is False
     _, tm = models
-    with pytest.raises(TypeError):
-        tengine.InferenceEngine(tm, **{option: None})
+    eng = tengine.InferenceEngine(
+        tm, chunk_prefill=16, prefill_chunk_fn=tmr.prefill_chunk, draft_model=tm, spec_k=2, spec_adaptive=True,
+        spec_min_accept=1.5, spec_retrial_every=4, spec_reopen_margin=0.2, scan_tokens_target=8,
+        pipeline_scans=True, device="cpu",
+    )
+    eng.submit(list(range(1, 40)), max_new_tokens=5)
+    eng.submit([1, 2, 3], max_new_tokens=5, temperature=0.7)
+    assert sorted(len(r.output) for r in eng.run()) == [5, 5]
 
 
 def test_cuda_paths_raise_without_a_card(models):
