@@ -150,6 +150,28 @@ are 7-9):
               at 3.35 TB/s and its FLOPs at 989 TFLOP/s (67 for fp32).  Last,
               the SIMT family at b8 h12 L1024: fp32 D256 and bf16 D512 (and
               D1024, no plain versions).
+20. measure - utils.measure on K1 at b8 h12 L1024 D64 bf16: chain_timer
+              (a chain of 64 calls in a CUDA graph), ab_compare over K1's
+              tiles with the recheck's drift band, graph_ms of the same
+              call; a reading at or below K1's bound (floor_ms) fails.
+21. memory  - utils.profiling.memory_report on the card: dense attention
+              against K1 at the reference's OOM shape (b1 h16 L2048 D64
+              fp32; dense temps at least the 256 MiB of scores, flash's at
+              most a quarter of them), flash from L2048 to L4096 (bf16 h4
+              D128) growing less than 3x, the allocator's peak beside each;
+              then the reference's own foil: at b1 h16 L65536 D64 bf16 dense
+              attention must raise torch.cuda.OutOfMemoryError and K1 must
+              run.
+22. autotune - kernels.autotune, its cache in this run's temporary
+              directory: at GPT-2's prefill buckets (b1 h12 D64, L128-1024),
+              Llama-3 8B's prefill (b1 GQA 32/8 L1024 D128) and GPT-2's
+              training shape (b8 h12 L1024 D64), every K1 tile (K1_TILES)
+              against the plain version at the same tile, its device ms, the
+              sweep's winner, and a default flash_attention launching the
+              winner's block_q; then the slice's path with the counts at 0:
+              InferenceEngine.warmup_autotune on GPT-2 124M (every bucket a
+              cache hit) and a 1000-token prompt, and 3 Trainer steps with
+              autotune_blocks=True, each K1 launch at the winner's tile.
 
 The line before the last is a JSON summary of the kernels, the D256, the
 "_d256_simt" and the "_wide" ones as rows of their own (launches on their
@@ -157,7 +179,9 @@ path, max error, device ms, plain ms, bound ms and what sets it, library ms
 or null; K1's row also carries its launches on the Llama path and in the
 chunked, speculative and pipelined GPT-2 bursts and its times at the
 Llama prefill shape, the wide rows D1024's times as
-d1024_*); the last line is
+d1024_*; K1's row its tile sweep, {shape: {block_q: device ms}}, as
+`tiles`, its launches on the autotuned engine and trainer paths, and the
+measure phase's readings); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -175,6 +199,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -191,7 +216,7 @@ from flash_attention_tpu_torch.inference.model_runner import (  # noqa: E402
     verify_step,
 )
 from flash_attention_tpu_torch.kernels import _build  # noqa: E402
-from flash_attention_tpu_torch.kernels.vanilla import vanilla_attention_with_lse  # noqa: E402
+from flash_attention_tpu_torch.kernels.vanilla import vanilla_attention, vanilla_attention_with_lse  # noqa: E402
 from flash_attention_tpu_torch.models import llama  # noqa: E402
 from flash_attention_tpu_torch.models.gpt import GPT, GPT2_124M  # noqa: E402
 from flash_attention_tpu_torch.quant.weights import (  # noqa: E402
@@ -201,6 +226,16 @@ from flash_attention_tpu_torch.quant.weights import (  # noqa: E402
 )
 from flash_attention_tpu_torch.training import Trainer, TrainerConfig  # noqa: E402
 from flash_attention_tpu_torch.utils.devices import device_info  # noqa: E402
+from flash_attention_tpu_torch.utils.measure import (  # noqa: E402
+    BF16_FLOPS,
+    FP32_FLOPS,
+    ab_compare,
+    chain_timer,
+    floor_ms,
+    graph_ms,
+    time_ms,
+)
+from flash_attention_tpu_torch.utils.profiling import device_time, memory_report  # noqa: E402
 
 # the modules, not the functions that the packages re-export under their names
 FA = importlib.import_module("flash_attention_tpu_torch.kernels.flash_attention")
@@ -256,9 +291,6 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
 }
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd_prep", "flash_bwd_dkv", "flash_bwd_dq")
 D256_TRAINING_KERNELS = tuple(f"{k}_d256" for k in TRAINING_KERNELS)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-BF16_FLOPS = 989e12
-FP32_FLOPS = 67e12  # fp32 FMA outside the tensor cores
 
 
 def say(*parts) -> None:
@@ -346,16 +378,20 @@ def _segment_ids(b: int, length: int, n: int = 3) -> torch.Tensor:
     return ids.cuda()
 
 
-def check_k1(label, gen, b, hq, hkv, lq, lk, d, dtype, causal, atol, window=None, segments=False) -> float:
-    """Kernel vs plain tile loop vs fp32 vanilla on the same inputs; returns
-    the kernel's max error against the plain version."""
+def check_k1(label, gen, b, hq, hkv, lq, lk, d, dtype, causal, atol, window=None, segments=False,
+             block_q=None) -> float:
+    """Kernel vs plain tile loop vs fp32 vanilla on the same inputs, both at
+    the tile height `block_q` (default the kernel's); returns the kernel's
+    max error against the plain version."""
     q = _rand(gen, (b, hq, lq, d), dtype)
     k = _rand(gen, (b, hkv, lk, d), dtype)
     v = _rand(gen, (b, hkv, lk, d), dtype)
     segs = (_segment_ids(b, lq), _segment_ids(b, lk)) if segments else None
+    bs = dataclasses.replace(FA.default_blocks(lq, lk, d), block_q=block_q) if block_q else None
     with torch.no_grad():
-        out = FA.flash_attention(q, k, v, causal=causal, window=window, segment_ids=segs)
-        plain, _ = FA.flash_attention_reference(q, k, v, causal=causal, window=window, segment_ids=segs)
+        out = FA.flash_attention(q, k, v, causal=causal, window=window, segment_ids=segs, block_sizes=bs)
+        plain, _ = FA.flash_attention_reference(q, k, v, causal=causal, window=window, segment_ids=segs,
+                                                block_sizes=bs)
         g = hq // hkv
         dense, _ = vanilla_attention_with_lse(
             q.float(), k.float().repeat_interleave(g, 1), v.float().repeat_interleave(g, 1),
@@ -399,6 +435,14 @@ def phase_k1(seed: int) -> float:
     # GQA group of 4 whose q tiles cross the end-aligned diagonal, window 100
     check_k1("edges q129 kv257 gqa 8/2 window 100 bf16", gen, 2, 8, 2, 129, 257, 64, bf16, True, 2e-2, window=100)
     check_k1("edges q129 kv257 gqa 8/2 D128 fp16", gen, 2, 8, 2, 129, 257, 128, torch.float16, True, 2e-2)
+    # K1's other tiles (K1_TILES; the autotune phase sweeps them): the
+    # tile's edges, a window, segment ids and fp16 at each
+    for d in (64, 128):
+        for bq in FA.K1_TILES[d][1:]:
+            check_k1(f"tile {bq} edges q129 kv257 8/2 w100 D{d}", gen, 2, 8, 2, 129, 257, d, bf16, True, 2e-2,
+                     window=100, block_q=bq)
+            check_k1(f"tile {bq} 3 segments L1024 D{d} fp16", gen, 2, 4, 4, 1024, 1024, d, torch.float16, True,
+                     2e-2, segments=True, block_q=bq)
     # head dims the kernels are not built for: zero-padded to 64 / 128 by
     # the entry point, the output sliced back
     check_k1("padded D32 b2 h12 L300 bf16", gen, 2, 12, 12, 300, 300, 32, bf16, True, 2e-2)
@@ -1202,23 +1246,6 @@ def phase_parity_quant(seed: int) -> None:
         raise AssertionError("[parity-quant] outside tolerance")
 
 
-def time_ms(fn, runs: int = 20, warmup: int = 3, inner: int = 1) -> float:
-    """Median over `runs` of the ms per call of `inner` back-to-back calls
-    between two CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
-
-
 def phase_training(seed: int, smi: str, data: np.ndarray) -> dict:
     """GPT-2 124M through the port's Trainer: returns the kernels' launch
     counts over the run."""
@@ -1257,42 +1284,6 @@ def phase_training(seed: int, smi: str, data: np.ndarray) -> dict:
     return launches
 
 
-# Kinds of device work in a training step, by kernel name (first match).
-STEP_KINDS = (
-    ("K1", re.compile(r"flash_fwd_ws_kernel")),
-    ("K2/K3 + pre-pass", re.compile(r"flash_bwd_")),
-    ("cuBLAS", re.compile(r"gemm|gemv|xmma|cutlass|nvjet|cublas", re.I)),
-    ("copies", re.compile(r"^mem(cpy|set)", re.I)),
-)
-
-
-def _device_time(prof, steps: int) -> tuple[float, dict, dict] | None:
-    """From a torch.profiler run over `steps` steps: device-busy ms a step
-    (the union of the device's kernel and copy intervals), ms a step by kind
-    (STEP_KINDS) and by kernel name; None when no device event was
-    recorded.  Device-side copies of CPU ranges (user annotations such as
-    the optimizer step's) span kernels and gaps, so only kernels, copies and
-    sets count."""
-    from torch.autograd import DeviceType
-
-    cpu_names = {e.name for e in prof.events() if e.device_type == DeviceType.CPU}
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in cpu_names]
-    if not dev:
-        return None
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):  # the union of the intervals, in us
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    kinds = {name: 0.0 for name, _ in STEP_KINDS}
-    kinds["elementwise and other"] = 0.0
-    top: dict[str, float] = {}
-    for e in dev:
-        ms = (e.time_range.end - e.time_range.start) / 1e3 / steps
-        kinds[next((name for name, rx in STEP_KINDS if rx.search(e.name)), "elementwise and other")] += ms
-        top[e.name] = top.get(e.name, 0.0) + ms
-    return busy / 1e3 / steps, kinds, top
-
-
 def _trace_steps(trainer: Trainer, batches, smi: str, step_ms: float, steps: int = 3) -> dict:
     """torch.profiler over `steps` more training steps (the run before is
     the warm-up): device-busy ms a step (the union of the device's kernel
@@ -1309,7 +1300,7 @@ def _trace_steps(trainer: Trainer, batches, smi: str, step_ms: float, steps: int
         trainer.fit(batches, log=lambda line: None)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    found = _device_time(prof, steps)
+    found = device_time(prof, steps)
     if found is None:
         say(f"[training] trace: torch.profiler recorded no device events over {steps} steps ({wall:.2f} ms a step)")
         return {}
@@ -1382,7 +1373,7 @@ def phase_timing(seed: int, smi: str) -> dict:
                 plain_dev = graph_ms(lambda: FA.flash_attention_reference(q, k, v), calls=2, runs=5)
                 dense = time_ms(lambda: vanilla_attention_with_lse(q, k, v, sm_scale=scale))
                 sdpa_dev = graph_ms(lambda: sdpa(q, k, v))
-            bound, by = _floor_ms(4 * elems * 2, flops)  # q, k, v read, o written
+            bound, by = floor_ms(4 * elems * 2, flops)  # q, k, v read, o written
             say(f"[timing] {smi} | K1 b{b} h12 L1024 D64 bf16 causal: kernel {kern_dev:.4f} ms on the device "
                 f"({flops / kern_dev / 1e9:.1f} TFLOP/s, {bound / kern_dev:.1%} of the bound {bound:.4f} ms, "
                 f"{by}), {kern:.4f} ms a call; plain tile loop {plain_dev:.4f} ms on the device, {plain:.4f} ms a "
@@ -1418,10 +1409,10 @@ def phase_timing(seed: int, smi: str) -> dict:
         # backward as one function reads q, k, v, o, dO, lse and writes dQ,
         # dK, dV, with five products (2.5 x the forward's); its TFLOP/s and
         # SDPA's count those.
-        b1, by1 = _floor_ms(4 * elems * 2 + rows * 4)
-        b2, by2 = _floor_ms(6 * elems * 2 + 2 * rows * 4, 2 * flops)
-        b3, by3 = _floor_ms(5 * elems * 2 + 2 * rows * 4, 1.5 * flops)
-        ball, byall = _floor_ms(8 * elems * 2 + rows * 4, 2.5 * flops)
+        b1, by1 = floor_ms(4 * elems * 2 + rows * 4)
+        b2, by2 = floor_ms(6 * elems * 2 + 2 * rows * 4, 2 * flops)
+        b3, by3 = floor_ms(5 * elems * 2 + 2 * rows * 4, 1.5 * flops)
+        ball, byall = floor_ms(8 * elems * 2 + rows * 4, 2.5 * flops)
         say(f"[timing] {smi} | backward b{b} h12 L1024 D{d} bf16 causal, on the device: pre-pass {pre:.4f} ms "
             f"({(4 * elems * 2 + rows * 4) / pre / 1e6:.0f} GB/s, {b1 / pre:.1%} of the bound {b1:.4f} ms, {by1}); "
             f"K2 {k2:.4f} ms ({2 * flops / k2 / 1e9:.1f} TFLOP/s, {b2 / k2:.1%} of {b2:.4f} ms, {by2}); K3 {k3:.4f} "
@@ -1435,32 +1426,6 @@ def phase_timing(seed: int, smi: str) -> dict:
             result["flash_bwd_dkv"] = dict(ms=k2, plain_ms=p2, bound_ms=b2, bound_by=by2, library_ms=sdpa_b)
             result["flash_bwd_dq"] = dict(ms=k3, plain_ms=p3, bound_ms=b3, bound_by=by3, library_ms=sdpa_b)
     return result
-
-
-def graph_ms(fn, calls: int = 20, runs: int = 10) -> float:
-    """Device time per call: `calls` calls captured in one CUDA graph and
-    replayed between two CUDA events (median of `runs`), so that the host's
-    time to enqueue a call (the Python wrapper, ctypes) is not counted.
-    Warm-up and capture share one side stream."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        for _ in range(calls):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    return time_ms(graph.replay, runs=runs) / calls
-
-
-def _floor_ms(nbytes: float, flops: float = 0.0, peak: float = BF16_FLOPS) -> tuple[float, str]:
-    """The least time the card could take, and what sets it: the bytes at
-    3.35 TB/s or the FLOPs at the inputs' peak rate (989 TFLOP/s for bf16,
-    67 for fp32 outside the tensor cores), whichever takes longer."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def phase_timing_quant(seed: int, smi: str) -> dict:
@@ -1490,7 +1455,7 @@ def phase_timing_quant(seed: int, smi: str) -> dict:
         tokens = b * 12 * 1024
         nbytes = tokens * (64 * (2 + 2 + 1 + 1) + 8)  # q, out, K and V payloads, two scales
         flops = 4 * tokens * 1024 * 64 / 2
-        bound, by = _floor_ms(nbytes, flops)
+        bound, by = floor_ms(nbytes, flops)
         say(f"[timing] {smi} | K4 b{b} h12 L1024 D64 bf16 q, int8 K/V, causal: kernel {kern_dev:.4f} ms on the "
             f"device ({flops / kern_dev / 1e9:.1f} TFLOP/s, {bound / kern_dev:.1%} of the bound {bound:.4f} ms, "
             f"{by}), {kern:.4f} ms a call; plain tile loop {plain_dev:.4f} ms on the device, {plain:.4f} ms a call; "
@@ -1590,7 +1555,7 @@ def time_decode(gen: torch.Generator, smi: str, shape: tuple, store: str) -> dic
             res[f"{k} call"] = time_ms(fn, inner=20) / layers
     live = int(contexts.sum()) * hkv  # tokens x KV heads read
     nbytes = live * d * cache.k.element_size() * 2 + (live * 8 if cache.quantized else 0) + slots * hq * d * 2 * 2
-    res["bound"], res["by"] = _floor_ms(nbytes, 4 * live * (hq // hkv) * d)  # q.k and p.v per row read
+    res["bound"], res["by"] = floor_ms(nbytes, 4 * live * (hq // hkv) * d)  # q.k and p.v per row read
     say(f"[timing] {smi} | decode {label}, contexts {int(contexts.min())}-{int(contexts.max())} of {max_len}, "
         f"{store} cache, bf16 q, ms a call on the device (share of the bound; ms a call as the engine calls it): "
         + ", ".join(f"{k} {res[k]:.4f}" + (f" ({res['bound'] / res[k]:.1%}; {res[k + ' call']:.4f})"
@@ -1862,7 +1827,7 @@ def _trace_llama_decode(model: llama.Llama, smi: str, label: str, cache_dtype=No
     wall = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(steps)
-    found = _device_time(prof, steps)
+    found = device_time(prof, steps)
     if found is None:
         say(f"[llama] trace: torch.profiler recorded no device events ({label})")
         return {}
@@ -2259,7 +2224,7 @@ def phase_timing_llama_d256(seed: int, smi: str) -> dict:
         kern = graph_ms(lambda: FA.flash_attention(q, k, v))
         plain = graph_ms(lambda: FA.flash_attention_reference(q, k, v), calls=2, runs=5)
         lib = graph_ms(lambda: sdpa(q, k, v, enable_gqa=True))
-    bound, by = _floor_ms((2 * 32 + 2 * 8) * 1024 * 128 * 2, flops)
+    bound, by = floor_ms((2 * 32 + 2 * 8) * 1024 * 128 * 2, flops)
     say(f"[timing] {smi} | K1 llama prefill b1 hq32 hkv8 L1024 D128 bf16 causal: kernel {kern:.4f} ms on the device "
         f"({flops / kern / 1e9:.1f} TFLOP/s, {bound / kern:.1%} of the bound {bound:.4f} ms, {by}); plain tile loop "
         f"{plain:.4f} ms; library torch SDPA forward (enable_gqa) {lib:.4f} ms (K1 / SDPA {kern / lib:.2f}x)")
@@ -2304,13 +2269,13 @@ def _time_family(gen, smi: str, label: str, b: int, h: int, L: int, d: int, dtyp
             )]
     eb = q.element_size()
     rows_ = {
-        "flash_fwd": (f_ms, p[0], _floor_ms(4 * elems * eb, flops, peak), f_lib),
+        "flash_fwd": (f_ms, p[0], floor_ms(4 * elems * eb, flops, peak), f_lib),
         # o and dO read, di written; q read and qs written where the
         # backward reads qs (16-bit inputs up to head dim 256)
-        "flash_bwd_prep": (pre, p[1], _floor_ms((2 + 2 * (args["qs"] is not None)) * elems * eb + rows * 4), None),
-        "flash_bwd_dkv": (k2, p[2], _floor_ms(6 * elems * eb + 2 * rows * 4, 2 * flops, peak), b_lib),
-        "flash_bwd_dq": (k3, p[3], _floor_ms(5 * elems * eb + 2 * rows * 4, 1.5 * flops, peak), b_lib),
-        "flash_fwd_kv_quant": (k4, p[4], _floor_ms(rows * (d * (2 * eb + 2) + 8), flops, peak), None),
+        "flash_bwd_prep": (pre, p[1], floor_ms((2 + 2 * (args["qs"] is not None)) * elems * eb + rows * 4), None),
+        "flash_bwd_dkv": (k2, p[2], floor_ms(6 * elems * eb + 2 * rows * 4, 2 * flops, peak), b_lib),
+        "flash_bwd_dq": (k3, p[3], floor_ms(5 * elems * eb + 2 * rows * 4, 1.5 * flops, peak), b_lib),
+        "flash_fwd_kv_quant": (k4, p[4], floor_ms(rows * (d * (2 * eb + 2) + 8), flops, peak), None),
     }
     say(f"[timing] {smi} | {label} b{b} h{h} L{L} D{d} {dtype} causal, ms on the device (share of the bound; plain "
         f"version): " + "; ".join(
@@ -2342,10 +2307,200 @@ def phase_timing_simt(seed: int, smi: str) -> dict:
     return result
 
 
+AT = importlib.import_module("flash_attention_tpu_torch.kernels.autotune")
+
+
+class _TileRecorder:
+    """Within the block, records the block_q (the last argument) of every
+    fa_flash_fwd launch, the real launch still made."""
+
+    def __enter__(self):
+        self.tiles, self._real = [], FA._call
+
+        def record(entry, device, *args):
+            if entry == "fa_flash_fwd":
+                self.tiles.append(args[-1])
+            self._real(entry, device, *args)
+
+        FA._call = record
+        return self
+
+    def __exit__(self, *exc):
+        FA._call = self._real
+
+
+def phase_measure(seed: int, smi: str) -> dict:
+    """utils.measure on K1 at GPT-2's training shape: chain_timer, and
+    ab_compare over K1's tiles with the recheck's drift band, beside
+    graph_ms of the same call and K1's bound; a time at or below the bound
+    is impossible and fails."""
+    gen = torch.Generator().manual_seed(seed + 8)
+    b, h, L, d = 8, 12, 1024, 64
+    q, k, v = (_rand(gen, (b, h, L, d), torch.bfloat16) for _ in range(3))
+    bound, by = floor_ms(4 * b * h * L * d * 2, 4 * b * h * L * L * d / 2)
+    variants = {f"k1 block_q {bq}": (lambda c, kk, vv, bq=bq: FA.flash_attention(
+        c, kk, vv, block_sizes=dataclasses.replace(FA.default_blocks(L, L, d), block_q=bq))) for bq in FA.K1_TILES[d]}
+    with torch.no_grad():
+        chain = chain_timer(lambda c, kk, vv: FA.flash_attention(c, kk, vv), q, k, v, depth=64, iters=5) * 1e3
+        ab = {name: t * 1e3 for name, t in ab_compare(variants, q, k, v, depth=64, iters=5).items()}
+        graph = graph_ms(lambda: FA.flash_attention(q, k, v))
+    base = next(iter(variants))
+    drift = abs(ab[base] - ab[f"{base}+recheck"]) / ab[base]
+    say(f"[measure] {smi} | K1 b{b} h{h} L{L} D{d} bf16 causal, device ms a call: chain_timer (depth 64, best of 5) "
+        f"{chain:.4f}; graph_ms {graph:.4f}; ab_compare " + ", ".join(f"{n} {t:.4f}" for n, t in ab.items())
+        + f"; drift band {drift:.1%}; bound {bound:.4f} ({by})")
+    for name, t in {"chain_timer": chain, "graph_ms": graph, **ab}.items():
+        if not t > bound:
+            raise AssertionError(f"[measure] {name} read {t:.4f} ms, at or below the bound {bound:.4f} ms")
+    return dict(chain_ms=chain, graph_ms=graph, ab_ms=ab, drift=drift)
+
+
+def phase_memory(smi: str) -> dict:
+    """utils.profiling.memory_report on the card: dense attention against
+    the CUDA K1 at the reference's OOM shape, flash's growth from L2048 to
+    L4096, and the reference's own foil: dense runs out of memory at b1 h16
+    L65536 where flash runs."""
+    mib = 2**20
+    b, h, L, d = 1, 16, 2048, 64
+    q = torch.zeros(b, h, L, d, device="cuda")
+    with torch.no_grad():
+        dense = memory_report(lambda q, k, v: vanilla_attention(q, k, v, causal=True, sm_scale=1.0), q, q, q)
+        flash = memory_report(lambda q, k, v: FA.flash_attention(q, k, v, causal=True, sm_scale=1.0), q, q, q)
+    scores = b * h * L * L * 4
+    ok = dense.temp_bytes >= scores and flash.temp_bytes * 4 <= dense.temp_bytes
+    say(f"[memory] {smi} | b{b} h{h} L{L} D{d} fp32: dense {dense}; flash (K1) {flash}; scores {scores / mib:.0f} "
+        f"MiB; dense temps >= scores and flash temps <= a quarter of dense's: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[memory] the OOM shape's temps")
+    grow = {}
+    with torch.no_grad():
+        for L2 in (2048, 4096):
+            x = torch.zeros(1, 4, L2, 128, device="cuda", dtype=torch.bfloat16)
+            grow[L2] = memory_report(lambda x: FA.flash_attention(x, x, x), x)
+    t_ok = grow[4096].temp_bytes <= 3 * grow[2048].temp_bytes
+    p_ok = grow[4096].allocator_peak_bytes < 3 * grow[2048].allocator_peak_bytes
+    say(f"[memory] flash b1 h4 D128 bf16: L2048 {grow[2048]}; L4096 {grow[4096]}; temps and allocator peak grow "
+        f"less than 3x: {'ok' if t_ok and p_ok else 'FAIL'}")
+    if not (t_ok and p_ok):
+        raise AssertionError("[memory] flash's memory grew 3x or more from L2048 to L4096")
+    L = 65536
+    x = _rand(torch.Generator().manual_seed(5), (1, 16, L, 64), torch.bfloat16)
+    try:
+        with torch.no_grad():
+            vanilla_attention(x, x, x, causal=True)
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as exc:
+        oom = str(exc).split("\n")[0][:160]
+    else:
+        raise AssertionError(f"[memory] dense attention at b1 h16 L{L} D64 bf16 did not run out of memory")
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        rep = memory_report(lambda x: FA.flash_attention(x, x, x), x)
+        out = FA.flash_attention(x, x, x)
+    torch.cuda.synchronize()
+    if out.shape != x.shape or not torch.isfinite(out).all():
+        raise AssertionError("[memory] flash at L65536 gave a bad output")
+    say(f"[memory] b1 h16 L{L} D64 bf16: dense ran out of memory ({oom}); flash ran, {rep} "
+        f"(scores alone would be {16 * L * L * 4 / 2**30:.0f} GiB in fp32 against "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.0f} GiB)")
+    return dict(dense=dense, flash=flash, grow=grow, foil=rep)
+
+
+# (label, batch, q heads, KV heads, length, head dim) of the autotune phase
+AUTOTUNE_SHAPES = (
+    *((f"gpt2 prefill b1 h12 L{n} D64", 1, 12, 12, n, 64) for n in (128, 256, 512, 1024)),
+    ("llama3-8b prefill b1 gqa 32/8 L1024 D128", 1, 32, 8, 1024, 128),
+    ("gpt2 train b8 h12 L1024 D64", 8, 12, 12, 1024, 64),
+)
+
+
+def phase_autotune(seed: int, smi: str, data: np.ndarray) -> tuple[dict, float, dict]:
+    """kernels.autotune on the card, the cache in a temporary directory:
+    at each AUTOTUNE_SHAPES entry every candidate tile of K1 against the
+    plain version at the same tile, its device ms, the sweep's winner, and a
+    default flash_attention launching the winner's block_q; then the
+    engine's warmup_autotune and a Trainer with autotune_blocks on GPT-2 124M
+    hit the cache (no sweep launches) and launch the winners.  Returns
+    ({shape: {block_q: ms}}, the worst error, the path's launches)."""
+    gen = torch.Generator().manual_seed(seed + 9)
+    tiles, winners, worst = {}, {}, 0.0
+    AT.clear_cache()
+    for label, b, hq, hkv, L, d in AUTOTUNE_SHAPES:
+        q = _rand(gen, (b, hq, L, d), torch.bfloat16)
+        k, v = (_rand(gen, (b, hkv, L, d), torch.bfloat16) for _ in range(2))
+        row = {}
+        with torch.no_grad():
+            for bs in AT.candidate_blocks(L, L, d, hq // hkv, torch.bfloat16):
+                with _TileRecorder() as rec:
+                    out = FA.flash_attention(q, k, v, block_sizes=bs)
+                plain, _ = FA.flash_attention_reference(q, k, v, block_sizes=bs)
+                torch.cuda.synchronize()
+                err = (out.float() - plain.float()).abs().max().item()
+                worst = max(worst, err)
+                if rec.tiles != [bs.block_q] or not err <= 2e-2:
+                    raise AssertionError(f"[autotune] {label} block_q {bs.block_q}: launched {rec.tiles}, "
+                                         f"error {err:.3e} against the plain version (atol 2e-2)")
+                row[bs.block_q] = graph_ms(lambda bs=bs: FA.flash_attention(q, k, v, block_sizes=bs))
+            best = AT.autotune(q, k, v)
+            with _TileRecorder() as rec:
+                FA.flash_attention(q, k, v)
+        if rec.tiles != [best.block_q]:
+            raise AssertionError(f"[autotune] {label}: the default path launched {rec.tiles}, the winner is "
+                                 f"{best.block_q}")
+        tiles[label], winners[label] = row, best.block_q
+        say(f"[autotune] {smi} | {label} bf16: device ms by block_q " + ", ".join(
+            f"{bq} {ms:.4f}" for bq, ms in row.items()) + f"; each vs plain <= 2e-2 (worst so far {worst:.2e}); "
+            f"autotune's winner {best.block_q} (chain_timer), which the default path launches")
+    cfg = GPT2_124M
+    eng = InferenceEngine(_gpt2(seed), slots=2, max_len=1024, device="cuda")
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, 1000).tolist()
+    _reset_launches()
+    with _TileRecorder() as rec:
+        eng.warmup_autotune()
+        swept = FA.KERNEL_LAUNCHES["flash_fwd"]
+        eng.submit(prompt, max_new_tokens=4)
+        eng.run()
+        torch.cuda.synchronize()
+    launches = dict(FA.KERNEL_LAUNCHES)
+    want = winners["gpt2 prefill b1 h12 L1024 D64"]
+    ok = swept == 0 and rec.tiles == [want] * cfg.n_layer
+    say(f"[autotune] engine.warmup_autotune() on GPT-2 124M (buckets {eng.buckets}): {swept} K1 launches (every "
+        f"bucket a cache hit); then a 1000-token prompt: K1 launched {rec.tiles.count(want)} of {cfg.n_layer} "
+        f"times at the L1024 winner {want}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[autotune] engine: {swept} sweep launches, prefill tiles {rec.tiles}")
+    del eng
+    steps, logs = 3, []
+    tcfg = TrainerConfig(max_iters=steps, log_interval=1, learning_rate=6e-4, warmup_iters=1, autotune_blocks=True)
+    trainer = Trainer(cfg, tcfg, seed=seed, device="cuda")
+    _reset_launches()
+    with _TileRecorder() as rec:
+        trainer.fit(batch_iterator(data, 8, 1024, seed=seed, device="cuda"), log=logs.append)
+        torch.cuda.synchronize()
+    train_launches = dict(FA.KERNEL_LAUNCHES)
+    want = winners["gpt2 train b8 h12 L1024 D64"]
+    line = next((x for x in logs if "autotuned attention blocks" in x), None)
+    n = cfg.n_layer * steps
+    ok = (line is not None and rec.tiles == [want] * n
+          and all(train_launches[key] == n for key in TRAINING_KERNELS))
+    say(f"[autotune] Trainer(autotune_blocks=True) GPT-2 124M b8 x T1024, {steps} steps: logged {line!r}; K1 "
+        f"launched {len(rec.tiles)} times (no sweep), each at the winner {want}; K2/K3 and the pre-pass "
+        f"{[train_launches[key] for key in TRAINING_KERNELS[1:]]}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[autotune] trainer: tiles {rec.tiles}, launches {train_launches}, log {line!r}")
+    del trainer
+    AT.clear_cache()
+    return tiles, worst, {"engine": launches["flash_fwd"], "trainer": train_launches["flash_fwd"]}
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args()
+    # the autotuner's cache in a directory of this run's own: no earlier
+    # tuning changes a phase's tiles, and the autotune phase starts empty
+    cache_dir = tempfile.TemporaryDirectory(prefix="fa_autotune_")
+    os.environ["FA_AUTOTUNE_CACHE"] = os.path.join(cache_dir.name, "tune.json")
     name, smi = phase_device()
     phase_build()
     errors = {"flash_fwd": phase_k1(args.seed), **phase_k2k3(args.seed)}
@@ -2384,6 +2539,14 @@ def main() -> None:
         **{f"llama_{k}": v for k, v in llama_times["llama"].items()},
     )
     times["fused_decode"]["serving_wquant_launches"] = wquant_k6
+    measured = phase_measure(args.seed, smi)
+    phase_memory(smi)
+    tiles, tile_err, autotune_k1 = phase_autotune(args.seed, smi, data)
+    errors["flash_fwd"] = max(errors["flash_fwd"], tile_err)
+    # K1's tile sweep: {shape: {block_q: device ms}}, its launches on the
+    # autotuned engine and trainer paths, and utils.measure's readings
+    times["flash_fwd"].update(tiles=tiles, autotune_launches=autotune_k1, measure=measured)
+    cache_dir.cleanup()
     # K5/K6: the int8 cache's times at the 8-slot L2-hot shape (no library
     # call), with the bf16 cache's beside them (bf16_ms, bf16_plain_ms,
     # bf16_bound_ms, and SDPA with a length mask as bf16_library_ms) and

@@ -8,8 +8,13 @@ forward, einsum decode, sampling, the continuous-batching engine), the
 GPT-2 training path (flash-attention backward, dropout, remat, AdamW,
 checkpoints, the trainer and its demo), with the packed-QKV op and the
 SDPA drop-in, quantized-KV serving (int8/fp8 cache, quantized-KV flash
-attention, the paged and slot-major decode kernels), and the Llama family
-with weight-only int8/int4 (`models.llama`, `quant.weights`).
+attention, the paged and slot-major decode kernels), the Llama family
+with weight-only int8/int4 (`models.llama`, `quant.weights`), chunked
+prefill and speculative decoding in the engine, and measurement: timers
+(`utils.measure`), memory reports, liveness and traces
+(`utils.profiling`), the autotuner over the forward kernel's tiles
+(`kernels.autotune`, with the engine's and the trainer's warm-up hooks)
+and the walkthrough (`demo.walkthrough`).
 """
 
 import importlib

@@ -10,15 +10,19 @@
 // Strides are in elements; the last dim is contiguous.  lse may be null;
 // q_ids / kv_ids are both null or both contiguous int32 [batch, lq] and
 // [batch, lk].  window <= 0 means no window (it applies only when causal).
-// Returns a cudaError_t (0 on success), or cudaErrorInvalidValue for a
-// dtype or head dim this kernel does not instantiate.
+// block_q: the tile's query rows for bf16 / fp16, one of
+// kernels/block_sizes.py::K1_TILES at the head dim (192, 128 or 64 at 64;
+// 128 or 64 at 128; 64 at 256), or 0 for the default (the first of them);
+// fp32 has one tile and takes 0.  Returns a cudaError_t (0 on success), or
+// cudaErrorInvalidValue for a dtype, head dim or block_q this kernel does
+// not instantiate.
 extern "C" int fa_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                             const void* q_ids, const void* kv_ids,
                             int dtype, int batch, int hq, int hkv, int lq, int lk, int head_dim,
                             long long q_sb, long long q_sh, long long q_sl, long long k_sb,
                             long long k_sh, long long k_sl, long long v_sb, long long v_sh,
                             long long v_sl, long long o_sb, long long o_sh, long long o_sl,
-                            float scale_log2, int causal, int window, void* stream) {
+                            float scale_log2, int causal, int window, int block_q, void* stream) {
   fa::FwdParams p{};
   p.q = q;
   p.k = k;
@@ -30,5 +34,5 @@ extern "C" int fa_flash_fwd(const void* q, const void* k, const void* v, void* o
   const long long strides[12] = {q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl, o_sb, o_sh, o_sl};
   if (!fa::fill_fwd_params(p, batch, hq, hkv, lq, lk, strides, scale_log2, causal, window))
     return (int)cudaErrorInvalidValue;
-  return (int)fa::launch_fwd_for<void>(dtype, head_dim, p, static_cast<cudaStream_t>(stream));
+  return (int)fa::launch_fwd_for<void>(dtype, head_dim, p, static_cast<cudaStream_t>(stream), block_q);
 }

@@ -45,8 +45,10 @@
 //     which the consumers' exp2 needs), fp32 scales by plain loads (their row
 //     stride of Lk * 4 bytes breaks TMA's 16-byte rule), then arrive on
 //     "full";
-//   * kConsumers consumer warpgroups (3 at D = 64, 2 at D = 128, as the
-//     registers allow; at D = 256 1 for K1 and 2 for K4, below), each
+//   * kConsumers consumer warpgroups (by default 3 at D = 64, 2 at D = 128,
+//     as the registers allow; at D = 256 1 for K1 and 2 for K4, below; K1
+//     is also built with fewer, for tiles of 128 and 64 rows at D = 64 and
+//     64 at D = 128, which the autotuner sweeps), each
 //     owning 64 query rows: S = Q K^T by wgmma from
 //     shared memory (K stored [Bc, D], K-major), the online softmax on the
 //     accumulator's registers (a thread holds parts of two rows; quad
@@ -140,19 +142,30 @@ struct KvRows {
 // bf16 / fp16: the warp-specialised TMA + wgmma kernel
 // ---------------------------------------------------------------------------
 
+// Consumer warpgroups, 64 query rows each, of the default tile.  At D = 256
+// a consumer holds a 128-register accumulator, and ptxas gives a thread of a
+// 384-thread block 168 whatever setmaxnreg grants: K1 has one consumer
+// warpgroup (256 threads, 255 registers, no setmaxnreg, no spills); K4 keeps
+// two (and spills), since with half the rows a block its producer would
+// dequantize every K/V tile twice as often.
+template <typename T, typename KV, int D>
+constexpr int default_consumers() {
+  return D == 64 ? 3 : D == 128 || !std::is_same<T, KV>::value ? 2 : 1;
+}
+
 // Its tile and shared memory.  The Python side mirrors kBr, kBc, kStages,
 // kStaging and the layout (kernels/block_sizes.py::forward_smem_bytes).
-template <typename T, typename KV, int D>
+// NC, the consumer warpgroups, sets the tile's height kBr = 64 NC: K1 is
+// built at every height its registers allow (block_sizes.py::K1_TILES:
+// 192, 128 and 64 rows at D = 64, 128 and 64 at D = 128, 64 at D = 256),
+// K4 at its default only.
+template <typename T, typename KV, int D, int NC = default_consumers<T, KV, D>()>
 struct WsCfg {
   static_assert(D == 64 || D == 128 || D == 256, "head dims 64, 128 and 256");
+  static_assert(NC >= 1 && NC <= 3 && (D == 64 || NC <= 2) && (D < 256 || NC <= default_consumers<T, KV, D>()),
+                "the consumer warpgroups the registers allow");
   static constexpr bool kQuant = !std::is_same<T, KV>::value;
-  // Consumer warpgroups, 64 query rows each.  At D = 256 a consumer holds
-  // a 128-register accumulator, and ptxas gives a thread of a 384-thread
-  // block 168 whatever setmaxnreg grants: K1 has one consumer warpgroup
-  // (256 threads, 255 registers, no setmaxnreg, no spills); K4 keeps two
-  // (and spills), since with half the rows a block its producer would
-  // dequantize every K/V tile twice as often.
-  static constexpr int kConsumers = D == 64 ? 3 : D == 128 || kQuant ? 2 : 1;
+  static constexpr int kConsumers = NC;
   static constexpr int kBr = 64 * kConsumers;
   static constexpr int kBc = 64;
   // K/V ring slots: a K and a V tile take 64 KB at D = 256, where a third
@@ -263,10 +276,10 @@ __device__ __forceinline__ void dequant_row(T* dst, const uint8_t* src, int r, i
   }
 }
 
-template <typename T, typename KV, int D>
-__global__ void __launch_bounds__(WsCfg<T, KV, D>::kThreads, 1)
+template <typename T, typename KV, int D, int NC>
+__global__ void __launch_bounds__(WsCfg<T, KV, D, NC>::kThreads, 1)
 flash_fwd_ws_kernel(const __grid_constant__ FwdParams p, const __grid_constant__ FwdMaps maps) {
-  using C = WsCfg<T, KV, D>;
+  using C = WsCfg<T, KV, D, NC>;
   constexpr int kBr = C::kBr, kBc = C::kBc, kS = C::kStages;
   constexpr int kTile = kBc * D;  // elements of a K or V slot
   constexpr int kRowThreads = 128 / kBc;  // K4: producer threads converting one KV row
@@ -733,9 +746,9 @@ flash_fwd_simt_kernel(const FwdParams p) {
   }
 }
 
-template <typename T, typename KV, int D>
+template <typename T, typename KV, int D, int NC = default_consumers<T, KV, D>()>
 cudaError_t launch_ws(const FwdParams& p, cudaStream_t stream) {
-  using C = WsCfg<T, KV, D>;
+  using C = WsCfg<T, KV, D, NC>;
   constexpr CUtensorMapDataType kType =
       std::is_same<T, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
   constexpr CUtensorMapSwizzle kSw = CU_TENSOR_MAP_SWIZZLE_128B;
@@ -756,7 +769,7 @@ cudaError_t launch_ws(const FwdParams& p, cudaStream_t stream) {
                                  C::kBc, kSw);
   }
   if (!ok) return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_ws_kernel<T, KV, D>;
+  auto kernel = flash_fwd_ws_kernel<T, KV, D, NC>;
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((mk.lq + C::kBr - 1) / C::kBr, p.batch * p.hq);
@@ -779,17 +792,37 @@ cudaError_t launch_simt(const FwdParams& p, cudaStream_t stream) {
 // dtype (kv_dtype 0), int8 (1) or fp8 e4m3 (2): flash_fwd_d256.cu.
 cudaError_t launch_ws_d256(int dtype, int kv_dtype, const FwdParams& p, cudaStream_t s);
 
+// K1's tiles other than the default, bf16 (dtype 1) and fp16 (2), each
+// head dim's in a source of its own so that they compile beside the rest:
+// block_q 128 and 64 at D = 64 (flash_fwd_tiles_d64.cu), 64 at D = 128
+// (flash_fwd_tiles_d128.cu); cudaErrorInvalidValue for any other.
+cudaError_t launch_k1_tile_d64(int dtype, int block_q, const FwdParams& p, cudaStream_t s);
+cudaError_t launch_k1_tile_d128(int dtype, int block_q, const FwdParams& p, cudaStream_t s);
+
 // The kernel for q's dtype (0 = float32, 1 = bfloat16, 2 = float16), K/V
 // element type KV (KV = void: q's own type) and head dim: 64 or 128, and 256
 // for bf16 / fp16 (fp32 at 256 and every dtype at 512 and 1024 take the
 // SIMT family's entry points, flash_simt_fwd*.cu); cudaErrorInvalidValue
-// for a combination that is not instantiated.
+// for a combination that is not instantiated.  block_q picks K1's tile
+// height (bf16 / fp16): 0 or the default's (192 at D = 64, 128 at D = 128,
+// 64 at D = 256) for the default, or another of K1_TILES; fp32 and K4 have
+// one tile and take 0 only.
 template <typename KV>
-cudaError_t launch_fwd_for(int dtype, int head_dim, const FwdParams& p, cudaStream_t s) {
+cudaError_t launch_fwd_for(int dtype, int head_dim, const FwdParams& p, cudaStream_t s, int block_q = 0) {
   using F32 = typename std::conditional<std::is_void<KV>::value, float, KV>::type;
   using BF16 = typename std::conditional<std::is_void<KV>::value, __nv_bfloat16, KV>::type;
   using F16 = typename std::conditional<std::is_void<KV>::value, __half, KV>::type;
   constexpr int kKv = std::is_void<KV>::value ? 0 : std::is_same<KV, int8_t>::value ? 1 : 2;
+  if (block_q != 0) {
+    const bool wgmma = std::is_void<KV>::value && (dtype == 1 || dtype == 2);
+    const int rows = head_dim == 64 ? 192 : head_dim == 128 ? 128 : 64;  // the default tile's
+    if (!wgmma) return cudaErrorInvalidValue;
+    if (block_q != rows) {
+      if (head_dim == 64) return launch_k1_tile_d64(dtype, block_q, p, s);
+      if (head_dim == 128) return launch_k1_tile_d128(dtype, block_q, p, s);
+      return cudaErrorInvalidValue;
+    }
+  }
   if (dtype == 0 && head_dim == 64) return launch_simt<F32, 64>(p, s);
   if (dtype == 0 && head_dim == 128) return launch_simt<F32, 128>(p, s);
   if (dtype == 1 && head_dim == 64) return launch_ws<__nv_bfloat16, BF16, 64>(p, s);

@@ -3,15 +3,18 @@
 Port of the JAX package's `demo/train.py`: a shakespeare-char-class config
 with overrides, char tokenizer and random-crop batches, AdamW with 2-D-only
 decay and the warmup + cosine schedule, periodic eval, the flash-vs-dense
-switch, checkpoint/resume, and a short sample at the end.
+switch, checkpoint/resume, a trace of one step (`--profile`), a loss-curve
+plot (`--plot`), and a short sample at the end.
 
 Run:  python -m flash_attention_tpu_torch.demo.train --max-iters 200 --data corpus.txt
-      python -m flash_attention_tpu_torch.demo.train --attention dense
+      python -m flash_attention_tpu_torch.demo.train --attention dense --plot
+      python -m flash_attention_tpu_torch.demo.train --profile
       python -m flash_attention_tpu_torch.demo.train --device cpu --max-iters 3
 
 `--device` defaults to cuda, which raises without a card.  Without --data a
-deterministic synthetic corpus is generated.  Not ported yet: --cp and
---cp-zigzag (parallel slice), --profile (measurement slice), --plot;
+deterministic synthetic corpus is generated.  `--profile` runs one warm
+step, then one step under `utils.profiling.trace` into <out-dir>/profile,
+and exits.  Not ported yet: --cp and --cp-zigzag (parallel slice);
 --compile-cache is XLA-only.
 """
 
@@ -29,6 +32,28 @@ from ..config import resolve_device
 from ..data import CharTokenizer, batch_iterator, load_bin, synthetic_corpus
 from ..models import gpt
 from ..training import Trainer, TrainerConfig
+
+
+def plot_losses(history: list[dict], path: pathlib.Path) -> None:
+    """Train and val loss curves into `path` (matplotlib, imported here)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(7, 4))
+    ax.plot([r["iter"] for r in history], [r["train_loss"] for r in history], label="train loss")
+    evals = [(r["iter"], r["val_loss"]) for r in history if "val_loss" in r]
+    if evals:
+        ax.plot(*zip(*evals), marker="o", label="val loss")
+    ax.set_xlabel("iteration")
+    ax.set_ylabel("loss")
+    ax.set_ylim(bottom=0)
+    ax.legend()
+    ax.grid(alpha=0.3)
+    fig.tight_layout()
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
 
 
 def train(**overrides):
@@ -63,6 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
         help=".bin corpora: vocab size (skips the full-mmap max() scan and covers ids absent from the data)",
     )
     p.add_argument("--remat", action="store_true", help="recompute each block in the backward pass")
+    p.add_argument("--profile", action="store_true", help="trace one step into <out-dir>/profile and exit")
+    p.add_argument("--plot", action="store_true", help="also write <out-dir>/loss_curve.png")
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--resume", action="store_true", help="continue from the latest step_* checkpoint under --out-dir")
     p.add_argument("--seed", type=int, default=0)
@@ -129,6 +156,19 @@ def _run(args: argparse.Namespace):
     def val_batches():
         return batch_iterator(val_data, args.batch_size, cfg.block_size, seed=1234, device=device)
 
+    if args.profile:
+        from ..utils.profiling import trace
+
+        idx, tgt = next(train_iter)
+        profile_dir = outdir / "profile"
+        trainer._train_step(trainer.model, idx, tgt, 0)  # warm: kernels built, allocator filled
+        with trace(str(profile_dir)):
+            trainer._train_step(trainer.model, idx, tgt, 0)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        print(f"profile written to {profile_dir}")
+        return trainer, []
+
     start_step = trainer.step
     t0 = time.time()
     history = trainer.fit(train_iter, val_batches=val_batches)
@@ -140,6 +180,9 @@ def _run(args: argparse.Namespace):
 
     outdir.mkdir(parents=True, exist_ok=True)
     (outdir / "history.json").write_text(json.dumps(history, indent=1))
+    if args.plot and history:
+        plot_losses(history, outdir / "loss_curve.png")
+        print(f"loss curve: {outdir / 'loss_curve.png'}")
     if tok is not None:
         start = torch.as_tensor(tok.encode(text[:8])[None, :].astype(np.int64), device=device)
         sample_ids = gpt.generate(

@@ -27,8 +27,9 @@ for a Llama, or `partial(decode_step, attn_impl="paged")` for a GPT),
 `chunk_prefill` / `prefill_chunk_fn`, `scan_tokens_target`,
 `pipeline_scans` (default False, where the JAX engine's is True) and the
 speculative options `draft_model`, `spec_k`, `spec_adaptive`,
-`spec_min_accept`, `spec_retrial_every` and `spec_reopen_margin`.  The
-JAX engine's `warmup_autotune` method is not ported.  Stats keep the JAX
+`spec_min_accept`, `spec_retrial_every` and `spec_reopen_margin`.
+`warmup_autotune` tunes the flash-attention tiles of whole-prompt prefill
+at each bucket, as the JAX engine's does.  Stats keep the JAX
 engine's keys and meanings, and add `prefill_dispatches` (whole-prompt
 target prefills), `draft_dispatches` (draft prefills at admission, at a
 chunked prompt's end and for resyncs) and `decode_scans` (regular scans).
@@ -323,6 +324,24 @@ class InferenceEngine:
             self._decode_all()
         if prev is not None:
             self._drain_pending(prev)
+
+    def warmup_autotune(self, buckets: list[int] | None = None) -> None:
+        """Tune the attention tiles of the engine's whole-prompt prefill
+        shapes (b=1, the model's heads) on the engine's device and cache
+        them (kernels/autotune.py), so that prefill's flash_attention uses
+        the winners.  One sweep per bucket per device, kept in the cache
+        file; batched prefill_many shapes keep the defaults (the batch is
+        part of the key).
+
+        buckets: bucket lengths to tune; default every admission bucket of
+        at least MIN_BLOCK (shorter prompts take dense attention on the
+        CPU)."""
+        from ..kernels.autotune import autotune_for_model
+        from ..kernels.block_sizes import MIN_BLOCK
+
+        for bucket in buckets if buckets is not None else self.buckets:
+            if bucket >= MIN_BLOCK:
+                autotune_for_model(self.cfg, 1, seq_len=bucket, device=self.device)
 
     def reset_stats(self) -> None:
         self.stats = self._zero_stats()

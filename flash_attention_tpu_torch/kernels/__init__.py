@@ -1,6 +1,7 @@
 """Kernel layer: the hand-written Hopper kernels, their wrappers and plain
 PyTorch versions, and the dense references."""
 
+from .autotune import autotune, autotune_for_model, tuned_blocks
 from .block_sizes import (
     MIN_BLOCK,
     BlockSizes,
@@ -23,6 +24,8 @@ __all__ = [
     "MIN_BLOCK",
     "BlockSizes",
     "auto_num_chunks",
+    "autotune",
+    "autotune_for_model",
     "blocks_from_chunks",
     "default_blocks",
     "flash_attention",
@@ -30,6 +33,7 @@ __all__ = [
     "flash_attention_reference",
     "flash_attention_with_lse",
     "resolve_bwd_blocks",
+    "tuned_blocks",
     "vanilla_attention",
     "vanilla_attention_with_lse",
 ]

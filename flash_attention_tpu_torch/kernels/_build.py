@@ -109,7 +109,7 @@ def library() -> ctypes.CDLL:
             p, p, p, p, p, p, p,  # q, k, v, o, lse, q_ids, kv_ids
             i, i, i, i, i, i, i,  # dtype, batch, hq, hkv, lq, lk, head_dim
             ll, ll, ll, ll, ll, ll, ll, ll, ll, ll, ll, ll,  # q/k/v/o strides
-            f, i, i, p,  # scale_log2, causal, window, stream
+            f, i, i, i, p,  # scale_log2, causal, window, block_q, stream
         ]
         lib.fa_flash_fwd.restype = i
         lib.fa_flash_fwd_simt.argtypes = lib.fa_flash_fwd.argtypes

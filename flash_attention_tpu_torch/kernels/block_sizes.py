@@ -52,12 +52,20 @@ def _padded(head_dim: int) -> int:
 
 
 def kernel_block_q(head_dim: int, quantized: bool = False) -> int:
-    """Query rows of the bf16/fp16 forward kernel's tile: 192 (three
+    """Query rows of the bf16/fp16 forward kernel's default tile: 192 (three
     consumer warpgroups) at head dim 64 and below, 128 (two) up to 128 and
     for K4 (`quantized`) at 256, 64 (one) for K1 at 256."""
     if head_dim <= 64:
         return 192
     return 64 if _padded(head_dim) == 256 and not quantized else 128
+
+
+# The tile heights (query rows, 64 per consumer warpgroup) that the bf16/fp16
+# K1 is built at, {padded head dim: (block_q, ...)}, the default
+# (`kernel_block_q`) first: as many consumer warpgroups as the registers
+# allow at each head dim, and fewer.  The autotuner sweeps them; K4, fp32
+# and the SIMT family have one tile each.
+K1_TILES = {64: (192, 128, 64), 128: (128, 64), 256: (64,)}
 
 
 def kernel_stages(head_dim: int) -> int:
@@ -66,8 +74,9 @@ def kernel_stages(head_dim: int) -> int:
     return 2 if _padded(head_dim) == 256 else KERNEL_STAGES
 
 
-def forward_smem_bytes(head_dim: int, quantized: bool) -> int:
-    """Shared memory of the bf16/fp16 forward kernel, as WsCfg::kSmemBytes
+def forward_smem_bytes(head_dim: int, quantized: bool, block_q: int | None = None) -> int:
+    """Shared memory of the bf16/fp16 forward kernel with a tile of
+    `block_q` query rows (default `kernel_block_q`), as WsCfg::kSmemBytes
     lays it out: the q tile; per ring slot a K and a V tile (2-byte
     elements) and the KV segment ids; K4's staging slots (two, one at head
     dim 256) of 1-byte K and V payloads; the mbarriers (q, full and empty
@@ -78,7 +87,8 @@ def forward_smem_bytes(head_dim: int, quantized: bool) -> int:
     tile = KERNEL_BLOCK_KV * head_dim * 2
     payloads = staging * 2 * KERNEL_BLOCK_KV * head_dim if quantized else 0
     barriers = (1 + 2 * stages + staging) * 8
-    return (kernel_block_q(head_dim, quantized) * head_dim * 2 + stages * (2 * tile + KERNEL_BLOCK_KV * 4)
+    rows = block_q or kernel_block_q(head_dim, quantized)
+    return (rows * head_dim * 2 + stages * (2 * tile + KERNEL_BLOCK_KV * 4)
             + payloads + barriers + 1024)
 
 

@@ -46,7 +46,7 @@ import math
 import torch
 
 from ..config import kernel_route
-from .block_sizes import MIN_BLOCK, BlockSizes, blocks_from_chunks, default_blocks
+from .block_sizes import K1_TILES, MIN_BLOCK, BlockSizes, blocks_from_chunks, default_blocks
 from .vanilla import vanilla_attention
 
 __all__ = [
@@ -58,6 +58,7 @@ __all__ = [
     "flash_attention_bwd_reference",
     "flash_attention_reference",
     "flash_attention_with_lse",
+    "k1_block_q",
     "padded_head_dim",
 ]
 
@@ -437,9 +438,20 @@ def _ids_ptrs(segs):
     return (segs[0].data_ptr(), segs[1].data_ptr()) if segs is not None else (None, None)
 
 
+def k1_block_q(blocks: BlockSizes, head_dim: int, dtype: torch.dtype) -> int:
+    """The tile height K1 launches with at (padded) head dim `head_dim`: the
+    tiling's block_q where the bf16/fp16 kernel is built at it (`K1_TILES`),
+    else that kernel's default; 0, the one tile, for fp32 and the SIMT
+    family."""
+    tiles = K1_TILES.get(head_dim) if dtype != torch.float32 else None
+    if tiles is None:
+        return 0
+    return blocks.block_q if blocks.block_q in tiles else tiles[0]
+
+
 def _launch(q, k, v, spec: _Spec, segs, need_lse: bool):
     """Run the forward kernel for q's dtype and head dim (`_route`) on CUDA
-    tensors: (out, lse or None)."""
+    tensors, with the tile `k1_block_q` picks: (out, lse or None)."""
     b, hq, hkv, lq, lk, d = _shapes(q, k, v)
     _check_kernel_inputs(q, k, v)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
@@ -452,7 +464,7 @@ def _launch(q, k, v, spec: _Spec, segs, need_lse: bool):
         entry, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse), *_ids_ptrs(segs),
         _DTYPE_CODES[q.dtype], b, hq, hkv, lq, lk, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        spec.sm_scale * _LOG2E, int(spec.causal), spec.window or 0,
+        spec.sm_scale * _LOG2E, int(spec.causal), spec.window or 0, k1_block_q(spec.blocks, d, q.dtype),
     )
     KERNEL_LAUNCHES[key] += 1
     return out, lse
@@ -667,10 +679,15 @@ def flash_attention(
       block_sizes: explicit tiling; overrides num_chunks_*.
       num_chunks_q / num_chunks_kv: reference-style chunk counts mapped to
         block sizes (`blocks_from_chunks`).
-      The tiling sets the tiles of the plain versions (CPU tensors).  The
-      CUDA kernels keep their own tiles whatever is passed
-      (`default_blocks` lists them), which changes only the order of
-      summation.
+      With neither, and without window or segment ids, the tiling is the
+      autotuner's for this configuration on this device where it has one
+      (`autotune.tuned_blocks`, looked up once, at the caller's head dim
+      before padding), else `default_blocks`.
+      The tiling sets the tiles of the plain versions (CPU tensors).  On
+      CUDA it sets the forward kernel's tile height where the bf16/fp16 K1
+      is built at its block_q (`K1_TILES`, `k1_block_q`); every other tile
+      of the CUDA kernels is their own (`default_blocks` lists them), which
+      changes only the order of summation.
 
     Returns [batch, num_q_heads, q_len, head_dim] in q's dtype.  On CUDA,
     float32, bfloat16 and float16 run natively, at any head dim up to 1024
@@ -687,13 +704,20 @@ def flash_attention(
             raise ValueError(f"window must be >= 1, got {window}")
         if window >= lk:
             window = None  # no window constraint binds
+    if (block_sizes is None and num_chunks_q is None and num_chunks_kv is None and window is None
+            and segment_ids is None):
+        from .autotune import tuned_blocks
+
+        block_sizes = tuned_blocks(q.shape, lk, q.dtype, causal=causal, num_kv_heads=hkv, device=q.device)
     segs = _segments(segment_ids, b, lq, lk, q.device) if segment_ids is not None else None
     dp = padded_head_dim(d)
     if dp != d and kernel_route(q, k, v) == "cuda":
+        # the tiling as chosen at the caller's head dim, so that the padded
+        # call does not look the autotuner's cache up again
+        blocks = _blocks(lq, lk, d, hq // hkv, q.dtype, block_sizes, num_chunks_q, num_chunks_kv)
         q, k, v = (_pad_head_dim(x, dp) for x in (q, k, v))
         return flash_attention(
-            q, k, v, causal=causal, sm_scale=sm_scale, window=window, segment_ids=segs, block_sizes=block_sizes,
-            num_chunks_q=num_chunks_q, num_chunks_kv=num_chunks_kv,
+            q, k, v, causal=causal, sm_scale=sm_scale, window=window, segment_ids=segs, block_sizes=blocks,
         )[..., :d]
     if kernel_route(q, k, v) == "plain" and (lq < MIN_BLOCK or lk < MIN_BLOCK):
         group = hq // hkv

@@ -15,8 +15,10 @@ The model family is dispatched on the config's type, as in the JAX
 package: a GPTConfig builds a `GPT` and trains with the dropout-aware GPT
 loss, a LlamaConfig a `Llama` with `llama.loss_fn`.
 
-Left for later slices: `autotune_blocks` (measurement) and the sharding
-arguments (parallel).
+`TrainerConfig.autotune_blocks` tunes the flash-attention tiles for the
+model's training shape before the first step (`Trainer.warmup_autotune`,
+kernels/autotune.py).  Left for a later slice: the sharding arguments
+(parallel).
 """
 
 from __future__ import annotations
@@ -133,7 +135,7 @@ def make_eval_step(cfg, loss: Callable | None = None) -> Callable:
 
 @dataclasses.dataclass
 class TrainerConfig:
-    """The JAX TrainerConfig's knobs, without `autotune_blocks`."""
+    """The JAX TrainerConfig's knobs."""
 
     max_iters: int = 2000
     eval_interval: int = 250
@@ -149,6 +151,11 @@ class TrainerConfig:
     # state is saved to `checkpoint_dir/step_N`
     checkpoint_every: int = 0
     checkpoint_dir: str | None = None
+    # Measured tile tuning (kernels/autotune.py): before the first step,
+    # sweep the model's attention shape on the model's device and cache the
+    # winner, which flash_attention's default path then uses.  One sweep per
+    # (shape, device), kept in the cache file across runs.
+    autotune_blocks: bool = False
 
 
 class Trainer:
@@ -263,11 +270,25 @@ class Trainer:
                     log(f"emergency checkpoint FAILED: {save_exc!r}")
             raise
 
+    def warmup_autotune(self, batch_size: int, seq_len: int | None = None):
+        """Tune the attention tiles for this model's training shape on its
+        device and cache them (kernels/autotune.py), so that the train
+        step's flash_attention picks them up; returns the tiling.  `fit`
+        calls this before the first step when tcfg.autotune_blocks is set."""
+        from ..kernels.autotune import autotune_for_model
+
+        return autotune_for_model(self.cfg, batch_size, seq_len=seq_len, device=self.model.device)
+
     def _fit(self, train_batches, val_batches, log, metrics) -> list[dict]:
         t0 = time.time()
         ckpt_every = self.tcfg.checkpoint_every
+        tuned = False
         for it in range(self.step, self.tcfg.max_iters):
             idx, targets = next(train_batches)
+            if self.tcfg.autotune_blocks and not tuned:
+                bs = self.warmup_autotune(idx.shape[0], idx.shape[1])
+                log(f"autotuned attention blocks: {bs}")
+                tuned = True
             sub = int(torch.randint(0, 2**62, (1,), generator=self.rng))
             loss = self._train_step(self.model, idx, targets, sub)
             self.step = it + 1

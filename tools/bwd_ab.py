@@ -16,10 +16,14 @@ there (its own build/torch_kernels/), and prints lines of results, the last
   5 warm-up steps, the median wall time of 15 more, then torch.profiler
   over 3 more: device-busy ms a step and kernel ms a step by kind.
 
-The timers and the trace are this checkout's `chip_smoke.py` (`graph_ms`,
-`_grad_fn`, `_trace_steps`), so both sides of an A/B, and the proof run,
-are measured alike.  Compare two checkouts in one call, in turns (A, B, B,
-A): times on the host's clock spread between calls and between processes.
+The timer is the checkout's `flash_attention_tpu_torch.utils.measure.
+graph_ms`, the gradient call and the trace this checkout's `chip_smoke.py`
+(`_grad_fn`, `_trace_steps`, which reads `utils.profiling.device_time`),
+so the checkout must have `utils/measure.py` and `utils/profiling.py`, and
+two checkouts are measured alike where those files agree.  Compare two
+checkouts in one call, in turns (A, B, B, A): times on the host's clock
+spread between calls and between processes, and one process cannot import
+two checkouts' packages.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from flash_attention_tpu_torch.data import CharTokenizer, batch_iterator, synthe
 from flash_attention_tpu_torch.kernels import _build  # noqa: E402
 from flash_attention_tpu_torch.models.gpt import GPT2_124M  # noqa: E402
 from flash_attention_tpu_torch.training import Trainer, TrainerConfig  # noqa: E402
+from flash_attention_tpu_torch.utils.measure import graph_ms  # noqa: E402
 
 
 def backward_times(gen) -> dict:
@@ -65,13 +70,13 @@ def backward_times(gen) -> dict:
         row = {}
         if hasattr(FA, "_launch_bwd_prep"):
             FA._launch_bwd_prep(args)
-            row["di"] = smoke.graph_ms(lambda: FA._launch_bwd_prep(args))
+            row["di"] = graph_ms(lambda: FA._launch_bwd_prep(args))
         else:  # di as the checkout's _bwd_args computes it
-            row["di"] = smoke.graph_ms(lambda: (o.float() * do.float()).sum(-1).contiguous())
-        row["k2"] = smoke.graph_ms(lambda: FA._launch_bwd_dkv(args))
-        row["k3"] = smoke.graph_ms(lambda: FA._launch_bwd_dq(args))
-        row["backward"] = smoke.graph_ms(lambda: FA._launch_bwd(q, k, v, o, lse, do, None, spec, None))
-        row["sdpa_backward"] = smoke.graph_ms(smoke._grad_fn(sdpa, q, k, v, do))
+            row["di"] = graph_ms(lambda: (o.float() * do.float()).sum(-1).contiguous())
+        row["k2"] = graph_ms(lambda: FA._launch_bwd_dkv(args))
+        row["k3"] = graph_ms(lambda: FA._launch_bwd_dq(args))
+        row["backward"] = graph_ms(lambda: FA._launch_bwd(q, k, v, o, lse, do, None, spec, None))
+        row["sdpa_backward"] = graph_ms(smoke._grad_fn(sdpa, q, k, v, do))
         out[f"b{b}_d{d}"] = row
         print(label, f"b{b} D{d} device ms", {key: round(x, 4) for key, x in row.items()}, flush=True)
     return out

@@ -9,14 +9,16 @@ build, so that several checkouts can build at once before the timings.
 Then it prints lines of results, the last `RESULT {json}`:
 
 * at b8 h12 L1024 D256 bf16 causal, device time (a CUDA graph of calls
-  between CUDA events, this checkout's `chip_smoke.graph_ms`): K1 (no lse),
+  between CUDA events, the checkout's `utils.measure.graph_ms`): K1 (no lse),
   K4 over int8 K/V, and the backward's pre-pass, K2 and K3;
 * `chip_smoke.py`'s d256-path model (a GPT at GPT-2's width with 3 heads
   of 256, 2 layers) trained at b4 x T1024 in bf16: the median wall time of
   10 steps after 3 warm-up steps.
 
 Compare in one call, in turns (A, B, B, A): times on the host's clock
-spread between calls and between processes.
+spread between calls and between processes, and one process cannot import
+two checkouts' packages.  The checkout must have `utils/measure.py`; two
+checkouts are timed alike where that file agrees.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from flash_attention_tpu_torch.data import CharTokenizer, batch_iterator, synthe
 from flash_attention_tpu_torch.kernels import _build  # noqa: E402
 from flash_attention_tpu_torch.models.gpt import GPT2_124M  # noqa: E402
 from flash_attention_tpu_torch.training import Trainer, TrainerConfig  # noqa: E402
+from flash_attention_tpu_torch.utils.measure import graph_ms  # noqa: E402
 
 
 def kernel_times(gen) -> dict:
@@ -62,14 +65,14 @@ def kernel_times(gen) -> dict:
     kv = QK.quantize_kv(k.float(), v.float())
     with torch.no_grad():
         o, lse = FA.flash_attention_with_lse(q, k, v)
-        row = {"k1": smoke.graph_ms(lambda: FA.flash_attention(q, k, v), calls=5, runs=7),
-               "k4_int8": smoke.graph_ms(lambda: QK.flash_attention_kv_quant(q, kv), calls=5, runs=7)}
+        row = {"k1": graph_ms(lambda: FA.flash_attention(q, k, v), calls=5, runs=7),
+               "k4_int8": graph_ms(lambda: QK.flash_attention_kv_quant(q, kv), calls=5, runs=7)}
     spec = FA._Spec(causal=True, sm_scale=d ** -0.5, window=None, blocks=FA.default_blocks(L, L, d))
     bargs = FA._bwd_args(q, k, v, o, lse, do, None, spec, None)
     FA._launch_bwd_prep(bargs)
-    row["prep"] = smoke.graph_ms(lambda: FA._launch_bwd_prep(bargs))
-    row["k2"] = smoke.graph_ms(lambda: FA._launch_bwd_dkv(bargs), calls=3, runs=5)
-    row["k3"] = smoke.graph_ms(lambda: FA._launch_bwd_dq(bargs), calls=2, runs=3)
+    row["prep"] = graph_ms(lambda: FA._launch_bwd_prep(bargs))
+    row["k2"] = graph_ms(lambda: FA._launch_bwd_dkv(bargs), calls=3, runs=5)
+    row["k3"] = graph_ms(lambda: FA._launch_bwd_dq(bargs), calls=2, runs=3)
     print(args.label, "b8 h12 L1024 D256 bf16 device ms", {key: round(x, 4) for key, x in row.items()}, flush=True)
     return row
 

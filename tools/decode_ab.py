@@ -16,10 +16,13 @@ there (its own build/torch_kernels/), and prints lines of results, the last
 * the serving-quant bursts of `chip_smoke.py` (GPT-2 124M, 16 requests; an
   int8 cache through K5 and an fp8 cache through K6): tokens/s each.
 
-The timers are this checkout's `chip_smoke.py`, so both sides of an A/B,
-and the proof run, are measured alike.  Compare two checkouts in one call,
-in turns (A, B, B, A): times on the host's clock spread between calls and
-between processes.
+The shapes, the bursts and `time_decode` are this checkout's
+`chip_smoke.py`, its timers the checkout's `utils.measure` (`graph_ms`,
+`time_ms`, `floor_ms`), so the checkout must have `utils/measure.py`, and
+two checkouts are measured alike where that file agrees.  Compare two
+checkouts in one call, in turns (A, B, B, A): times on the host's clock
+spread between calls and between processes, and one process cannot import
+two checkouts' packages.
 """
 
 from __future__ import annotations
