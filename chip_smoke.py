@@ -171,7 +171,42 @@ are 7-9):
               winner's block_q; then the slice's path with the counts at 0:
               InferenceEngine.warmup_autotune on GPT-2 124M (every bucket a
               cache hit) and a 1000-token prompt, and 3 Trainer steps with
-              autotune_blocks=True, each K1 launch at the winner's tile.
+              autotune_blocks=True, each K1 launch at the winner's tile;
+              torch SDPA's device ms beside each shape's tiles.
+23. ring    - ring attention's rank-local step functions for every rank of
+              a 4-ring in one process (one card holds one NCCL rank): at
+              b1 h2 L1024 D64 bf16, contiguous and zig-zag, every step's
+              K1 with lse (non-causal past shards, the causal diagonal, the
+              zig-zag diagonal's Lq 256 < Lk 512) and, on the merged o and
+              lse, the pre-pass (di 1e-3, qs bit-equal), K2 and K3 against
+              their plain versions; then at GPT-2 124M's heads (b8 h12
+              L4096 D64, shards of 1024) and Llama-3 8B's (b1 GQA 32/8
+              L8192 D128, shards of 2048), contiguous and zig-zag, the
+              merged output (1e-2) and q/k/v grads (2e-2 x max |grad|)
+              against one K1 and one K2/K3 call on the whole sequence, the
+              ring's summed device ms beside the one call's; then the call
+              shapes at b8 h12 D64 that the ring and the context-parallel
+              Trainer send (K1 with lse non-causal over a 1024 shard,
+              causal q512 x kv1024 end-aligned and causal q512 x kv512;
+              the pre-pass, K2 and K3 on each with its o/lse), each held
+              against its plain version as above, then timed beside its
+              plain version, bound and SDPA.
+24. parallel - the parallel package's entry points on a real 1-rank NCCL
+              group (initialize_multihost, make_mesh): ring attention
+              (contiguous, zig-zag) and head-parallel attention with grads
+              against one flash_attention call; a context-parallel Trainer
+              on GPT-2 124M (full width and depth, b8 x T1024, seq_zigzag,
+              seq_batch_sharding), 4 steps, losses within 1e-4 (relative)
+              of the unsharded Trainer's and the first step's gradients
+              within 1e-2 (relative norm, every parameter), K1, the
+              pre-pass, K2 and K3 each
+              launched 2 x n_layer x steps times from counts set to 0 (the
+              zig-zag diagonal is two calls) and nothing else; a dp x tp
+              Trainer with DTensor parameters and fused AdamW held the
+              same way against the unsharded one; Llama TP serving at Llama-3 8B's widths with 2
+              layers (shard_llama_for_inference, tp_prefill,
+              tp_decode_loop): greedy tokens equal to llama.prefill /
+              decode_loop's, the cache a DTensor.
 
 The line before the last is a JSON summary of the kernels, the D256, the
 "_d256_simt" and the "_wide" ones as rows of their own (launches on their
@@ -180,8 +215,12 @@ or null; K1's row also carries its launches on the Llama path and in the
 chunked, speculative and pipelined GPT-2 bursts and its times at the
 Llama prefill shape, the wide rows D1024's times as
 d1024_*; K1's row its tile sweep, {shape: {block_q: device ms}}, as
-`tiles`, its launches on the autotuned engine and trainer paths, and the
-measure phase's readings); the last line is
+`tiles` with SDPA's ms as `tiles_library_ms`, its launches on the
+autotuned engine and trainer paths, and the measure phase's readings; K1,
+the pre-pass, K2 and K3 their ring call shapes as `ring_noncausal_shard`
+(K1 also `ring_causal_lq_lt_lk` and `ring_vs_one_call`) and their
+launches on the context-parallel run as `parallel_launches`); the last
+line is
 {"ok": true, "device": {...}}.
 """
 
@@ -2414,16 +2453,18 @@ AUTOTUNE_SHAPES = (
 )
 
 
-def phase_autotune(seed: int, smi: str, data: np.ndarray) -> tuple[dict, float, dict]:
+def phase_autotune(seed: int, smi: str, data: np.ndarray) -> tuple[dict, float, dict, dict]:
     """kernels.autotune on the card, the cache in a temporary directory:
     at each AUTOTUNE_SHAPES entry every candidate tile of K1 against the
     plain version at the same tile, its device ms, the sweep's winner, and a
     default flash_attention launching the winner's block_q; then the
     engine's warmup_autotune and a Trainer with autotune_blocks on GPT-2 124M
-    hit the cache (no sweep launches) and launch the winners.  Returns
-    ({shape: {block_q: ms}}, the worst error, the path's launches)."""
+    hit the cache (no sweep launches) and launch the winners.  Beside each
+    shape's tiles, torch SDPA's device ms for the same function.  Returns
+    ({shape: {block_q: ms}}, the worst error, the path's launches, {shape:
+    SDPA ms})."""
     gen = torch.Generator().manual_seed(seed + 9)
-    tiles, winners, worst = {}, {}, 0.0
+    tiles, winners, worst, library = {}, {}, 0.0, {}
     AT.clear_cache()
     for label, b, hq, hkv, L, d in AUTOTUNE_SHAPES:
         q = _rand(gen, (b, hq, L, d), torch.bfloat16)
@@ -2444,13 +2485,16 @@ def phase_autotune(seed: int, smi: str, data: np.ndarray) -> tuple[dict, float, 
             best = AT.autotune(q, k, v)
             with _TileRecorder() as rec:
                 FA.flash_attention(q, k, v)
+            library[label] = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=hq != hkv))
         if rec.tiles != [best.block_q]:
             raise AssertionError(f"[autotune] {label}: the default path launched {rec.tiles}, the winner is "
                                  f"{best.block_q}")
         tiles[label], winners[label] = row, best.block_q
         say(f"[autotune] {smi} | {label} bf16: device ms by block_q " + ", ".join(
             f"{bq} {ms:.4f}" for bq, ms in row.items()) + f"; each vs plain <= 2e-2 (worst so far {worst:.2e}); "
-            f"autotune's winner {best.block_q} (chain_timer), which the default path launches")
+            f"autotune's winner {best.block_q} (chain_timer), which the default path launches; library torch "
+            f"SDPA {library[label]:.4f}")
     cfg = GPT2_124M
     eng = InferenceEngine(_gpt2(seed), slots=2, max_len=1024, device="cuda")
     prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, 1000).tolist()
@@ -2490,7 +2534,430 @@ def phase_autotune(seed: int, smi: str, data: np.ndarray) -> tuple[dict, float, 
         raise AssertionError(f"[autotune] trainer: tiles {rec.tiles}, launches {train_launches}, log {line!r}")
     del trainer
     AT.clear_cache()
-    return tiles, worst, {"engine": launches["flash_fwd"], "trainer": train_launches["flash_fwd"]}
+    return tiles, worst, {"engine": launches["flash_fwd"], "trainer": train_launches["flash_fwd"]}, library
+
+
+RA = importlib.import_module("flash_attention_tpu_torch.parallel.ring_attention")
+# The ring phase's full-width shapes: (label, b, hq, hkv, L, d) over a ring
+# of RING_N ranks; GPT-2 124M's heads at 4096 tokens, Llama-3 8B's at 8192.
+RING_N = 4
+RING_SHAPES = (("gpt2 heads b8 h12 L4096 D64", 8, 12, 12, 4096, 64),
+               ("llama3-8b heads b1 GQA 32/8 L8192 D128", 1, 32, 8, 8192, 128))
+
+
+def _ring_shards(x: torch.Tensor, n: int, zigzag: bool) -> list:
+    """Every rank's shard of x [B, H, L, D] (zig-zag chunk order if asked)."""
+    if zigzag:
+        x = x.index_select(2, RA.zigzag_indices(x.shape[2], n).to(x.device))
+    return [c.contiguous() for c in x.chunk(n, dim=2)]
+
+
+def _ring_unshard(parts: list, n: int, zigzag: bool) -> torch.Tensor:
+    x = torch.cat(parts, dim=2)
+    return x.index_select(2, RA.zigzag_inverse(x.shape[2], n).to(x.device)) if zigzag else x
+
+
+class _RingSim:
+    """Ring attention's schedule for every rank of an n-ring in one process,
+    through the rank-local step functions (RA.ring_fwd_step,
+    RA.ring_bwd_step, RA.merge_partials): rank `my` at step s holds the KV
+    shard of rank (my - s) mod n, as the rotations would give it."""
+
+    def __init__(self, q, k, v, do, n: int, zigzag: bool):
+        self.n, self.zigzag, self.dtype = n, zigzag, q.dtype
+        self.q, self.k, self.v, self.do = (_ring_shards(x, n, zigzag) for x in (q, k, v, do))
+        self.kw = dict(causal=True, zigzag=zigzag, sm_scale=q.shape[-1] ** -0.5)
+
+    def forward(self):
+        self.o, self.lse = [], []
+        for my in range(self.n):
+            o_acc, lse_acc = RA._empty_partial(self.q[my])
+            for step in range(self.n):
+                src = (my - step) % self.n
+                RA.merge_partials(o_acc, lse_acc, RA.ring_fwd_step(self.q[my], self.k[src], self.v[src], src, my,
+                                                                   **self.kw))
+            self.o.append(o_acc.to(self.dtype))
+            self.lse.append(lse_acc)
+        return self.o
+
+    def backward(self):
+        dq = [torch.zeros(x.shape, dtype=torch.float32, device=x.device) for x in self.q]
+        dk = [torch.zeros(x.shape, dtype=torch.float32, device=x.device) for x in self.k]
+        dv = [torch.zeros_like(x) for x in dk]
+        for my in range(self.n):
+            for step in range(self.n):
+                src = (my - step) % self.n
+                for qr, kr, gq, gk, gv in RA.ring_bwd_step(self.q[my], self.k[src], self.v[src], self.o[my],
+                                                           self.lse[my], self.do[my], src, my, **self.kw):
+                    dq[my][:, :, qr] += gq.float()
+                    dk[src][:, :, kr] += gk.float()
+                    dv[src][:, :, kr] += gv.float()
+        return dq, dk, dv
+
+    def whole(self, parts: list) -> torch.Tensor:
+        return _ring_unshard(parts, self.n, self.zigzag)
+
+
+def _hold_call(a, b_, c, mo, ml, dd, causal: bool, where: str) -> tuple[float, float]:
+    """One ring kernel call on the card against its plain version on the
+    same inputs: K1 with lse on (a, b_, c) (Lq < Lk is aligned to the end of
+    KV), then, with the merged o and lse (mo, ml) and dO (dd), the pre-pass
+    (di, qs), K2 and K3.  Raises outside the bf16 tier (K1 and lse atol
+    2e-2, di 1e-3, qs exact, grads 2e-2 x max |grad| of the plain); returns
+    (the K1 output's max abs error, the worst grad error of max |grad|)."""
+    spec = RA._spec(a, b_, causal, a.shape[-1] ** -0.5, None)
+    o, lse = FA._launch(a, b_, c, spec, None, need_lse=True)
+    po, plse = FA.flash_attention_reference(a, b_, c, causal=causal, block_sizes=spec.blocks)
+    e1 = (o.float() - po.float()).abs().max().item()
+    e2 = (lse - plse).abs().max().item()
+    args = FA._bwd_args(a, b_, c, mo, ml, dd, None, spec, None)
+    FA._launch_bwd_prep(args)
+    di, qs = FA.flash_attention_bwd_prep_reference(a, mo, dd, sm_scale=a.shape[-1] ** -0.5)
+    e3 = (args["tensors"][5] - di).abs().max().item()
+    e4 = (args["qs"].float() - qs.float()).abs().max().item()
+    gk, gv = FA._launch_bwd_dkv(args)
+    gq = FA._launch_bwd_dq(args)
+    pq, pk, pv = FA.flash_attention_bwd_reference(a, b_, c, mo, ml, dd, causal=causal, block_sizes=spec.blocks)
+    eg = max((x.float() - y.float()).abs().max().item() / max(y.float().abs().max().item(), 1e-6)
+             for x, y in ((gq, pq), (gk, pk), (gv, pv)))
+    torch.cuda.synchronize()
+    if not (e1 <= 2e-2 and e2 <= 2e-2 and e3 <= 1e-3 and e4 == 0.0 and eg <= 2e-2):
+        raise AssertionError(
+            f"[ring] {where} b{a.shape[0]} h{a.shape[1]} q{a.shape[2]} x kv{b_.shape[2]} causal={causal}: K1 {e1:.3e} "
+            f"lse {e2:.3e}, pre-pass di {e3:.3e} qs {e4:.3e}, K2/K3 {eg:.3e} of max |grad|")
+    return e1, eg
+
+
+def _check_ring_steps(gen, n: int) -> float:
+    """Every kernel call of every step of every rank of an n-ring at b1 h2
+    L1024 D64 bf16, contiguous and zig-zag, against its plain version on
+    the same inputs (`_hold_call`): K1 with lse (non-causal past shards,
+    the causal diagonal, the zig-zag diagonal's Lq = L/2n < Lk = L/n),
+    then, with the merged o and lse, the pre-pass (di, qs), K2 and K3.
+    Returns the worst K1 error."""
+    worst = 0.0
+    q, k, v, do = (_rand(gen, (1, 2, 1024, 64), torch.bfloat16) for _ in range(4))
+    for zigzag in (False, True):
+        sim = _RingSim(q, k, v, do, n, zigzag)
+        sim.forward()
+        calls = 0
+        for my in range(n):
+            for step in range(n):
+                src = (my - step) % n
+                qm, ks, vs = sim.q[my], sim.k[src], sim.v[src]
+                for qr, kr, causal in RA.ring_step_calls(src, my, qm.shape[2], ks.shape[2], causal=True,
+                                                         zigzag=zigzag):
+                    e1, _ = _hold_call(qm[:, :, qr], ks[:, :, kr], vs[:, :, kr], sim.o[my][:, :, qr],
+                                       sim.lse[my][:, :, qr], sim.do[my][:, :, qr], causal,
+                                       f"{'zigzag' if zigzag else 'contiguous'} rank {my} step {step} (src {src})")
+                    calls += 1
+                    worst = max(worst, e1)
+        say(f"[ring] b1 h2 L1024 D64 bf16, n={n} {'zig-zag' if zigzag else 'contiguous'}: {calls} kernel calls "
+            f"(K1 with lse, then pre-pass, K2, K3 on the merged o/lse), each against its plain version: ok "
+            f"(worst K1 error so far {worst:.3e}, atol 2e-2)")
+    return worst
+
+
+def phase_ring(seed: int, smi: str) -> tuple[float, dict]:
+    """Ring attention's step functions on the card for every rank of a
+    4-ring in one process (one card cannot hold two NCCL ranks): each
+    step's kernel calls against their plain versions at a small shape, then
+    the merged output and q/k/v grads at full width against one K1 and one
+    K2/K3 call on the whole sequence, contiguous and zig-zag, with the
+    ring's summed device ms beside the one call's; then the call shapes at
+    GPT-2's heads that the ring and the context-parallel trainer send, each
+    held against its plain version and timed alone beside its bound and
+    SDPA (`_time_ring_shapes`).  Returns (the worst K1 error, {kernel:
+    {ring timings}})."""
+    gen = torch.Generator().manual_seed(seed + 11)
+    worst = _check_ring_steps(gen, RING_N)
+    ring_ms = {}
+    for label, b, hq, hkv, L, d in RING_SHAPES:
+        q = _rand(gen, (b, hq, L, d), torch.bfloat16)
+        k, v = (_rand(gen, (b, hkv, L, d), torch.bfloat16) for _ in range(2))
+        do = _rand(gen, (b, hq, L, d), torch.bfloat16)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        one = FA.flash_attention(*leaves)
+        ref = torch.autograd.grad(one, leaves, do)
+        with torch.no_grad():
+            one_fwd = graph_ms(lambda: FA.flash_attention(q, k, v), calls=5, runs=5)
+        o1, lse1 = FA.flash_attention_with_lse(q, k, v)
+        spec = FA._Spec(True, d ** -0.5, None, FA.default_blocks(L, L, d, hq // hkv, dtype=q.dtype))
+        one_bwd = graph_ms(lambda: FA._launch_bwd(q, k, v, o1, lse1, do, None, spec, None), calls=5, runs=5)
+        for zigzag in (False, True):
+            sim = _RingSim(q, k, v, do, RING_N, zigzag)
+            out = sim.whole(sim.forward())
+            grads = [sim.whole(g) for g in sim.backward()]
+            torch.cuda.synchronize()
+            e_out = (out.float() - one.float()).abs().max().item()
+            e_grad = max((g - r.float()).abs().max().item() / r.float().abs().max().item() for g, r in zip(grads, ref))
+            with torch.no_grad():
+                fwd_ms = graph_ms(sim.forward, calls=2, runs=5)
+            bwd_ms = graph_ms(sim.backward, calls=2, runs=5)
+            kind = "zig-zag" if zigzag else "contiguous"
+            ok = e_out <= 1e-2 and e_grad <= 2e-2
+            say(f"[ring] {smi} | {label} bf16, {RING_N} shards of {L // RING_N}, {kind}: merged output vs one K1 "
+                f"call {e_out:.3e} (atol 1e-2), q/k/v grads vs one K2/K3 call {e_grad:.3e} of max |grad| (2e-2): "
+                f"{'ok' if ok else 'FAIL'}; device ms, the ring's calls summed over ranks: forward {fwd_ms:.4f} "
+                f"(one call {one_fwd:.4f}), backward {bwd_ms:.4f} (one call {one_bwd:.4f})")
+            if not ok:
+                raise AssertionError(f"[ring] {label} {kind} outside tolerance")
+            ring_ms[f"{label} {kind}"] = dict(fwd_ms=fwd_ms, one_call_fwd_ms=one_fwd, bwd_ms=bwd_ms,
+                                              one_call_bwd_ms=one_bwd)
+        worst = max(worst, e_out)
+    shapes, err = _time_ring_shapes(gen, smi, ring_ms)
+    return max(worst, err), shapes
+
+
+def _time_ring_shapes(gen, smi: str, ring_ms: dict) -> tuple[dict, float]:
+    """The ring's kernel call shapes at GPT-2's heads (b8 h12 D64 bf16), the
+    shapes the context-parallel trainer sends (a zig-zag ring of one rank
+    over T1024: q512 x kv512 causal and q512 x kv1024 causal end-aligned)
+    and a ring's non-causal past shard (q1024 x kv1024): each call held
+    against its plain version on the same inputs (`_hold_call`: K1 with
+    lse, then the pre-pass, K2 and K3 with that o and lse, which are the
+    merged ones when each query row has one call), then timed as device
+    time beside its bound and the library call for the same function (SDPA
+    forward; SDPA with a causal or lower-right causal mask; SDPA backward).
+    Returns ({kernel: {row: timings}}, the worst K1 error)."""
+    from torch.nn.attention.bias import causal_lower_right
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, h, L, d = 8, 12, 1024, 64
+    q, k, v, do = (_rand(gen, (b, h, L, d), torch.bfloat16) for _ in range(4))
+    held = {}
+    for label, qq, kk, vv, dd, causal in (
+            ("q1024 x kv1024 non-causal", q, k, v, do, False),
+            ("q512 x kv1024 causal end-aligned", q[:, :, L // 2:], k, v, do[:, :, L // 2:], True),
+            ("q512 x kv512 causal", q[:, :, :L // 2], k[:, :, :L // 2], v[:, :, :L // 2], do[:, :, :L // 2], True)):
+        qq, kk, vv, dd = (x.contiguous() for x in (qq, kk, vv, dd))
+        with torch.no_grad():
+            o, lse = FA._launch(qq, kk, vv, RA._spec(qq, kk, causal, d ** -0.5, None), None, need_lse=True)
+        held[label] = _hold_call(qq, kk, vv, o, lse, dd, causal, "call shape")
+    say(f"[ring] b8 h12 D64 bf16 call shapes against their plain versions (K1 + lse atol 2e-2; pre-pass, K2, K3 "
+        f"with that o/lse 2e-2 x max |grad|): " + "; ".join(
+            f"{label}: K1 {e1:.3e}, grads {eg:.3e}" for label, (e1, eg) in held.items()) + ": ok")
+    elems, rows = b * h * L * d, b * h * L
+    full = 4 * b * h * L * L * d  # QK^T and PV over every (query, key)
+    nc = FA._Spec(False, d ** -0.5, None, FA.default_blocks(L, L, d))
+    with torch.no_grad():
+        k1_nc = graph_ms(lambda: FA._launch(q, k, v, nc, None, need_lse=True))
+        k1_nc_plain = graph_ms(lambda: FA.flash_attention_reference(q, k, v, causal=False), calls=2, runs=5)
+        sdpa_nc = graph_ms(lambda: sdpa(q, k, v))
+    b_nc, by_nc = floor_ms(4 * elems * 2 + rows * 4, full)
+    qh = q[:, :, L // 2:].contiguous()
+    diag = FA._Spec(True, d ** -0.5, None, FA.default_blocks(L // 2, L, d))
+    mask = causal_lower_right(L // 2, L)
+    with torch.no_grad():
+        k1_lt = graph_ms(lambda: FA._launch(qh, k, v, diag, None, need_lse=True))
+        k1_lt_plain = graph_ms(lambda: FA.flash_attention_reference(qh, k, v, causal=True), calls=2, runs=5)
+        sdpa_lt = graph_ms(lambda: sdpa(qh, k, v, attn_mask=mask))
+    # Lq 512 against Lk 1024 end-aligned: 3/4 of the (query, key) pairs
+    b_lt, by_lt = floor_ms((2 * elems // 2 + 2 * elems) * 2 + rows // 2 * 4, full // 2 * 3 / 4)
+    ql, kl, vl = (x[:, :, :L // 2].contiguous() for x in (q, k, v))
+    lo = FA._Spec(True, d ** -0.5, None, FA.default_blocks(L // 2, L // 2, d))
+    with torch.no_grad():
+        k1_lo = graph_ms(lambda: FA._launch(ql, kl, vl, lo, None, need_lse=True))
+        k1_lo_plain = graph_ms(lambda: FA.flash_attention_reference(ql, kl, vl, causal=True), calls=2, runs=5)
+        sdpa_lo = graph_ms(lambda: sdpa(ql, kl, vl, is_causal=True))
+    # q512 x kv512 causal: half of its (query, key) pairs
+    b_lo, by_lo = floor_ms(4 * elems // 2 * 2 + rows // 2 * 4, full / 8)
+    with torch.no_grad():
+        o, lse = FA._launch(q, k, v, nc, None, need_lse=True)
+    args = FA._bwd_args(q, k, v, o, lse, do, None, nc, None)
+    pre = graph_ms(lambda: FA._launch_bwd_prep(args))
+    k2 = graph_ms(lambda: FA._launch_bwd_dkv(args))
+    k3 = graph_ms(lambda: FA._launch_bwd_dq(args))
+    with torch.no_grad():
+        p2 = graph_ms(lambda: FA.flash_attention_bwd_dkv_reference(q, k, v, o, lse, do, causal=False), calls=2, runs=3)
+        p3 = graph_ms(lambda: FA.flash_attention_bwd_dq_reference(q, k, v, o, lse, do, causal=False), calls=2, runs=3)
+        p1 = graph_ms(lambda: FA.flash_attention_bwd_prep_reference(q, o, do, sm_scale=d ** -0.5))
+    sdpa_b = graph_ms(_grad_fn(sdpa, q, k, v, do))
+    b1, by1 = floor_ms(4 * elems * 2 + rows * 4)
+    b2, by2 = floor_ms(6 * elems * 2 + 2 * rows * 4, 2 * full)
+    b3, by3 = floor_ms(5 * elems * 2 + 2 * rows * 4, 1.5 * full)
+    say(f"[ring] {smi} | call shapes, b8 h12 D64 bf16, device ms: K1 non-causal + lse over a 1024 shard "
+        f"{k1_nc:.4f} (plain {k1_nc_plain:.4f}, bound {b_nc:.4f} {by_nc}, SDPA {sdpa_nc:.4f}); K1 causal q512 x kv1024 "
+        f"end-aligned {k1_lt:.4f} (plain {k1_lt_plain:.4f}, bound {b_lt:.4f} {by_lt}, SDPA lower-right mask "
+        f"{sdpa_lt:.4f}); K1 causal q512 x kv512 {k1_lo:.4f} (plain {k1_lo_plain:.4f}, bound {b_lo:.4f} {by_lo}, "
+        f"SDPA causal {sdpa_lo:.4f}); on a non-causal 1024 shard with the merged lse: pre-pass {pre:.4f} (bound "
+        f"{b1:.4f}), K2 {k2:.4f} (plain {p2:.4f}, bound {b2:.4f} {by2}), K3 {k3:.4f} (plain {p3:.4f}, bound "
+        f"{b3:.4f} {by3}); SDPA backward non-causal {sdpa_b:.4f}")
+    e_nc, e_lt, e_lo = held.values()
+    shapes = {
+        "flash_fwd": {"ring_noncausal_shard": dict(ms=k1_nc, plain_ms=k1_nc_plain, bound_ms=b_nc, bound_by=by_nc,
+                                                   library_ms=sdpa_nc, max_abs_err=e_nc[0]),
+                      "ring_causal_lq_lt_lk": dict(ms=k1_lt, plain_ms=k1_lt_plain, bound_ms=b_lt, bound_by=by_lt,
+                                                   library_ms=sdpa_lt, max_abs_err=e_lt[0]),
+                      "ring_causal_diagonal": dict(ms=k1_lo, plain_ms=k1_lo_plain, bound_ms=b_lo, bound_by=by_lo,
+                                                   library_ms=sdpa_lo, max_abs_err=e_lo[0]),
+                      "ring_vs_one_call": ring_ms},
+        "flash_bwd_prep": {"ring_noncausal_shard": dict(ms=pre, plain_ms=p1, bound_ms=b1, bound_by=by1,
+                                                        library_ms=None)},
+        "flash_bwd_dkv": {"ring_noncausal_shard": dict(ms=k2, plain_ms=p2, bound_ms=b2, bound_by=by2,
+                                                       library_ms=sdpa_b, grad_err_of_max=e_nc[1])},
+        "flash_bwd_dq": {"ring_noncausal_shard": dict(ms=k3, plain_ms=p3, bound_ms=b3, bound_by=by3,
+                                                      library_ms=sdpa_b, grad_err_of_max=e_nc[1])},
+    }
+    return shapes, max(e for e, _ in held.values())
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_parallel(seed: int, smi: str, data: np.ndarray) -> dict:
+    """The parallel package through its public entry points on a real
+    1-rank NCCL group (one card; NCCL takes one rank per device): the mesh;
+    ring attention (contiguous, zig-zag) and head-parallel attention
+    against one flash_attention call, with grads; a context-parallel
+    Trainer on GPT-2 124M (full width and depth, b8 x T1024, seq_zigzag,
+    seq_batch_sharding) for 4 steps, its losses and its first step's
+    gradients against the unsharded Trainer's, K1, the pre-pass, K2 and K3
+    counted from 0 over that run; dp x tp steps with DTensor parameters
+    (fused AdamW) held the same way; and TP Llama serving at Llama-3 8B's widths with 2
+    layers, its greedy tokens against llama.prefill / decode_loop's.
+    Returns {kernel: launches on the context-parallel run}."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from flash_attention_tpu_torch import parallel as par
+    from flash_attention_tpu_torch.models.gpt import loss_fn as gpt_loss_fn
+    from flash_attention_tpu_torch.parallel.sharding import whole
+
+    topo = par.initialize_multihost(f"tcp://localhost:{_free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = par.make_mesh()
+        par.assert_same_across_hosts(seed, "seed")
+        say(f"[parallel] process group {dist.get_backend()} {topo}; mesh {mesh}")
+        gen = torch.Generator().manual_seed(seed + 12)
+        q, k, v, do = (_rand(gen, (2, 8, 2048, 64), torch.bfloat16) for _ in range(4))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        ref_out = FA.flash_attention(*leaves)
+        ref = torch.autograd.grad(ref_out, leaves, do)
+        for label, fn in (("ring contiguous", lambda *t: par.ring_attention(*t, mesh)),
+                          ("ring zig-zag", lambda *t: par.ring_attention(*t, mesh, zigzag=True)),
+                          ("head-parallel", lambda *t: par.head_parallel_attention(*t, mesh))):
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = fn(*leaves)
+            grads = torch.autograd.grad(out, leaves, do)
+            torch.cuda.synchronize()
+            e_out = (out.float() - ref_out.float()).abs().max().item()
+            e_grad = max((g.float() - r.float()).abs().max().item() / r.float().abs().max().item()
+                         for g, r in zip(grads, ref))
+            ok = e_out <= 1e-2 and e_grad <= 2e-2
+            say(f"[parallel] {label} b2 h8 L2048 D64 bf16 vs one flash_attention call: output {e_out:.3e} (1e-2), "
+                f"grads {e_grad:.3e} of max |grad| (2e-2): {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"[parallel] {label} outside tolerance")
+
+        steps, bsz = 4, 8
+        cfg = GPT2_124M
+        tcfg = TrainerConfig(max_iters=steps, learning_rate=6e-4, warmup_iters=2, lr_decay_iters=steps,
+                             log_interval=1, eval_interval=10 ** 9)
+
+        def losses(trainer) -> list:
+            batches = batch_iterator(data, bsz, cfg.block_size, seed=seed, device="cuda")
+            hist = trainer.fit(batches, log=lambda s: None)
+            torch.cuda.synchronize()
+            return [r["train_loss"] for r in hist]
+
+        idx, tgt = next(batch_iterator(data, bsz, cfg.block_size, seed=seed, device="cuda"))
+
+        def grad_gap(sharded: Trainer, ref: Trainer) -> tuple[float, str]:
+            """Both models' gradients of the first batch's loss at their
+            (equal) initial weights, compared tensor by tensor in the
+            unsharded layout: the worst ||g - g_ref|| / ||g_ref|| and its
+            parameter.  The gradients are cleared after."""
+            got = {}
+            for tr in (sharded, ref):
+                gpt_loss_fn(tr.model, idx, tgt).backward()
+                got[tr] = {n: whole(p, p.grad).float() for n, p in tr.model.named_parameters()}
+                tr.model.zero_grad(set_to_none=True)
+            gaps = {n: ((g - got[ref][n]).norm() / got[ref][n].norm()).item() for n, g in got[sharded].items()}
+            name = max(gaps, key=gaps.get)
+            return gaps[name], name
+
+        # the sharded runs against the unsharded ones: losses within 1e-4
+        # relative over the steps (the loss sits near ln V at init whatever
+        # attention does, so this alone would not see a causal leak); every
+        # gradient of one step from the same weights within 1e-2 (bf16)
+        cp_cfg = dataclasses.replace(cfg, seq_mesh=mesh, seq_zigzag=True)
+        base_cfg = dataclasses.replace(cp_cfg, seq_mesh=None, seq_zigzag=False)
+        cp = Trainer(cp_cfg, tcfg, seed=seed, batch_sharding=par.seq_batch_sharding(mesh))
+        base = Trainer(base_cfg, tcfg, seed=seed)
+        gap, gap_at = grad_gap(cp, base)
+        _reset_launches()
+        t0 = time.time()
+        cp_losses = losses(cp)
+        wall = time.time() - t0
+        launches = {key: FA.KERNEL_LAUNCHES[key] for key in TRAINING_KERNELS}
+        others = {key: n for key, n in FA.KERNEL_LAUNCHES.items() if n and key not in TRAINING_KERNELS}
+        base_losses = losses(base)
+        diff = max(abs(a - b) / abs(b) for a, b in zip(cp_losses, base_losses))
+        # zig-zag at one rank: each layer's diagonal step is two K1 calls
+        # (q_lo/kv_lo, q_hi/kv) and two backward calls
+        want = 2 * cfg.n_layer * steps
+        ok = (all(math.isfinite(x) for x in cp_losses) and diff <= 1e-4 and gap <= 1e-2
+              and all(n == want for n in launches.values()) and not others)
+        say(f"[parallel] {smi} | context-parallel Trainer, GPT-2 124M b{bsz} x T{cfg.block_size} zig-zag: losses "
+            f"{cp_losses} vs unsharded {base_losses} (max relative diff {diff:.3e}, 1e-4); first-step gradients vs "
+            f"unsharded: worst relative norm {gap:.3e} ({gap_at}; 1e-2); launches {launches} (want {want} each), "
+            f"others {others}; {wall:.1f} s: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[parallel] context-parallel training")
+
+        tp_model = GPT(dataclasses.replace(base_cfg), generator=torch.Generator().manual_seed(seed),
+                       device="cuda", param_dtype=torch.float32)
+        tp_tr = Trainer(base_cfg, tcfg, model=tp_model, param_sharding=par.gpt_param_sharding(mesh, tp_model),
+                        batch_sharding=par.batch_sharding(mesh))
+        un_tr = Trainer(base_cfg, tcfg, model=GPT(base_cfg, generator=torch.Generator().manual_seed(seed),
+                                                  device="cuda", param_dtype=torch.float32))
+        gap, gap_at = grad_gap(tp_tr, un_tr)
+        tp_losses = losses(tp_tr)
+        un_losses = losses(un_tr)
+        diff = max(abs(a - b) / abs(b) for a, b in zip(tp_losses, un_losses))
+        fused = all(g.get("fused") for g in tp_tr.optimizer.param_groups)
+        placed = all(isinstance(p, DTensor) for p in tp_tr.model.parameters())
+        ok = diff <= 1e-4 and gap <= 1e-2 and fused and placed
+        say(f"[parallel] dp x tp Trainer (DTensor parameters {placed}, fused AdamW {fused}) on GPT-2 124M: losses "
+            f"{tp_losses} vs unsharded {un_losses} (max relative diff {diff:.3e}, 1e-4); first-step gradients vs "
+            f"unsharded: worst relative norm {gap:.3e} ({gap_at}; 1e-2): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[parallel] dp x tp training")
+
+        lcfg = dataclasses.replace(llama.LLAMA3_8B, n_layer=2)
+        prompt = torch.as_tensor(np.random.default_rng(seed).integers(0, lcfg.vocab_size, 200), device="cuda")
+
+        def serve(shard: bool):
+            m = llama.Llama(lcfg, generator=torch.Generator("cuda").manual_seed(seed), device="cuda")
+            cache = init_cache(lcfg.n_layer, 2, lcfg.n_kv_head, 1024, lcfg.head_dim, dtype=lcfg.dtype, device="cuda")
+            if shard:
+                m, cache = par.shard_llama_for_inference(m, cache, mesh)
+                cache, logits = par.tp_prefill(m, prompt, cache, 0, mesh)
+                cache, _ = par.tp_prefill(m, prompt[:100], cache, 1, mesh)
+                first = torch.full((2,), int(logits.argmax()), dtype=torch.int32, device="cuda")
+                return par.tp_decode_loop(m, cache, first, 16, mesh)[1], type(cache.k).__name__
+            cache, logits = llama.prefill(m, prompt, cache, 0)
+            cache, _ = llama.prefill(m, prompt[:100], cache, 1)
+            first = torch.full((2,), int(logits.argmax()), dtype=torch.int32, device="cuda")
+            return llama.decode_loop(m, cache, first, 16)[1], type(cache.k).__name__
+
+        tp_toks, kind = serve(True)
+        ref_toks, _ = serve(False)
+        ok = torch.equal(tp_toks, ref_toks) and kind == "DTensor"
+        say(f"[parallel] TP Llama serving, Llama-3 8B widths x 2 layers: 16 greedy tokens of 2 slots equal to "
+            f"llama.prefill/decode_loop's: {torch.equal(tp_toks, ref_toks)}; the cache a {kind}: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[parallel] TP serving")
+        return launches
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> None:
@@ -2541,12 +3008,23 @@ def main() -> None:
     times["fused_decode"]["serving_wquant_launches"] = wquant_k6
     measured = phase_measure(args.seed, smi)
     phase_memory(smi)
-    tiles, tile_err, autotune_k1 = phase_autotune(args.seed, smi, data)
+    tiles, tile_err, autotune_k1, tiles_sdpa = phase_autotune(args.seed, smi, data)
     errors["flash_fwd"] = max(errors["flash_fwd"], tile_err)
     # K1's tile sweep: {shape: {block_q: device ms}}, its launches on the
     # autotuned engine and trainer paths, and utils.measure's readings
-    times["flash_fwd"].update(tiles=tiles, autotune_launches=autotune_k1, measure=measured)
+    times["flash_fwd"].update(tiles=tiles, tiles_library_ms=tiles_sdpa, autotune_launches=autotune_k1,
+                              measure=measured)
     cache_dir.cleanup()
+    ring_err, ring_times = phase_ring(args.seed, smi)
+    errors["flash_fwd"] = max(errors["flash_fwd"], ring_err)
+    parallel_launches = phase_parallel(args.seed, smi, data)
+    # the ring's call shapes (K1 non-causal with lse over a shard, K1 with
+    # Lq < Lk, K2/K3 on a shard with the merged lse) and the launches of
+    # the context-parallel training run
+    for key, rows in ring_times.items():
+        times[key].update(rows)
+    for key, n in parallel_launches.items():
+        times[key]["parallel_launches"] = n
     # K5/K6: the int8 cache's times at the 8-slot L2-hot shape (no library
     # call), with the bf16 cache's beside them (bf16_ms, bf16_plain_ms,
     # bf16_bound_ms, and SDPA with a length mask as bf16_library_ms) and

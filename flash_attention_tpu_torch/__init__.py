@@ -14,7 +14,10 @@ prefill and speculative decoding in the engine, and measurement: timers
 (`utils.measure`), memory reports, liveness and traces
 (`utils.profiling`), the autotuner over the forward kernel's tiles
 (`kernels.autotune`, with the engine's and the trainer's warm-up hooks)
-and the walkthrough (`demo.walkthrough`).
+and the walkthrough (`demo.walkthrough`); and the sharded paths
+(`parallel`): DeviceMesh/DTensor sharding, ring and head-parallel
+attention over torch.distributed, DP/TP and context-parallel training, and
+Llama tensor-parallel serving.
 """
 
 import importlib
@@ -41,6 +44,7 @@ _SUBMODULES = (
     "data",
     "utils",
     "config",
+    "parallel",
 )
 
 

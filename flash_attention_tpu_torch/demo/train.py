@@ -10,12 +10,15 @@ Run:  python -m flash_attention_tpu_torch.demo.train --max-iters 200 --data corp
       python -m flash_attention_tpu_torch.demo.train --attention dense --plot
       python -m flash_attention_tpu_torch.demo.train --profile
       python -m flash_attention_tpu_torch.demo.train --device cpu --max-iters 3
+      torchrun --nproc-per-node 4 -m flash_attention_tpu_torch.demo.train --cp 4 --cp-zigzag
 
 `--device` defaults to cuda, which raises without a card.  Without --data a
 deterministic synthetic corpus is generated.  `--profile` runs one warm
 step, then one step under `utils.profiling.trace` into <out-dir>/profile,
-and exits.  Not ported yet: --cp and --cp-zigzag (parallel slice);
---compile-cache is XLA-only.
+and exits.  `--cp N` shards each sequence over N ranks (ring attention
+inside the model); it runs under `torchrun --nproc-per-node N`, one process
+per card (NCCL; gloo ranks with `--device cpu`), and every rank draws the
+same batches.  --compile-cache is XLA-only.
 """
 
 from __future__ import annotations
@@ -94,6 +97,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true", help="continue from the latest step_* checkpoint under --out-dir")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default; raises without a card) or cpu")
+    p.add_argument(
+        "--cp", type=int, default=1,
+        help="context parallelism: shard the sequence over this many ranks with ring attention inside the model "
+             "(requires block_size %% cp == 0; launch under torchrun --nproc-per-node N)",
+    )
+    p.add_argument("--cp-zigzag", action="store_true", help="with --cp: zig-zag striped sharding (causal load balance)")
     return p
 
 
@@ -129,16 +138,39 @@ def _run(args: argparse.Namespace):
         use_flash=args.attention == "flash",
         remat=args.remat,
     )
+    batch_sharding = None
+    lead = True  # the rank that writes files
+    if args.cp > 1:
+        import dataclasses
+
+        import torch.distributed as dist
+
+        from ..parallel import initialize_multihost, make_mesh, seq_batch_sharding
+
+        if args.block_size % args.cp:
+            raise SystemExit(f"--cp {args.cp} must divide block_size")
+        world = initialize_multihost(device=device)["process_count"]
+        if world < args.cp:
+            raise SystemExit(
+                f"--cp {args.cp} needs {args.cp} devices, have {world} "
+                f"(launch under torchrun --nproc-per-node {args.cp})"
+            )
+        cp_mesh = make_mesh(seq=args.cp, device=device)
+        cfg = dataclasses.replace(cfg, seq_mesh=cp_mesh, seq_zigzag=args.cp_zigzag)
+        batch_sharding = seq_batch_sharding(cp_mesh)
+        lead = dist.get_rank() == 0
+        print(f"context parallel: sequence sharded over {args.cp} devices" + (" (zigzag)" if args.cp_zigzag else ""))
     outdir = pathlib.Path(args.out_dir)
     tcfg = TrainerConfig(
         max_iters=args.max_iters,
         eval_interval=args.eval_interval,
         eval_iters=args.eval_iters,
         learning_rate=args.learning_rate,
-        checkpoint_every=args.checkpoint_every,
-        checkpoint_dir=str(outdir) if args.checkpoint_every else None,
+        # under --cp only rank 0 saves (every rank holds the same state)
+        checkpoint_every=args.checkpoint_every if lead else 0,
+        checkpoint_dir=str(outdir) if args.checkpoint_every and lead else None,
     )
-    trainer = Trainer(cfg, tcfg, seed=args.seed, device=device)
+    trainer = Trainer(cfg, tcfg, seed=args.seed, device=device, batch_sharding=batch_sharding)
     print(f"model: {gpt.num_params(trainer.model) / 1e6:.2f}M params, attention={args.attention}, device={device}")
     if args.resume:
         step = trainer.resume(str(outdir))
@@ -178,6 +210,8 @@ def _run(args: argparse.Namespace):
     tokens = (args.max_iters - start_step) * args.batch_size * cfg.block_size
     print(f"done: {wall:.1f}s, {tokens / wall:.0f} tokens/s")
 
+    if not lead:
+        return trainer, history
     outdir.mkdir(parents=True, exist_ok=True)
     (outdir / "history.json").write_text(json.dumps(history, indent=1))
     if args.plot and history:

@@ -560,7 +560,13 @@ def _forward(q, k, v, spec: _Spec, segs, need_lse: bool):
 
 def _backward(ctx, do, dlse, segs):
     q, k, v, o, lse = ctx.saved_tensors[:5]
-    spec = ctx.spec
+    return _bwd(q, k, v, o, lse, do, dlse, ctx.spec, segs)
+
+
+def _bwd(q, k, v, o, lse, do, dlse, spec: _Spec, segs):
+    """(dq, dk, dv) of the attention whose forward gave (o, lse): the
+    pre-pass, K2 and K3 on CUDA tensors, their plain versions on the CPU.
+    Ring attention calls it on each KV shard with the merged o and lse."""
     if kernel_route(q, k, v, do) == "cuda":
         return _launch_bwd(q, k, v, o, lse, do, dlse, spec, segs)
     return flash_attention_bwd_reference(

@@ -19,6 +19,19 @@ fp32.
 Dropout draws its masks from a `torch.Generator` seeded from (the step's
 seed, the site) inside each block, so a block that
 `torch.utils.checkpoint` recomputes draws the same masks again.
+
+Sharded runs (`parallel/`).  With `cfg.seq_mesh` (context parallelism)
+every rank is handed the global batch, keeps its rows and tokens
+(`parallel.ring_attention.SeqShard`: tokens contiguous or in zig-zag
+order, positions with them), attends through the ring, and sums the loss
+over the mesh; a hook on each parameter sums its gradient over the same
+ranks, so `loss_fn(...).backward()` leaves the whole batch's gradients on
+every rank, as jax.grad of the sharded JAX loss does.  `forward` gathers
+the logits back into natural order.  Parameters placed by
+`parallel.shard_params` are DTensors: each layer runs on its local shard
+with the collectives of `parallel.collectives` (Megatron column/row
+linears, a vocabulary-sharded embedding, the tied head's logits gathered
+over the model axis), and attention on the local heads.
 """
 
 from __future__ import annotations
@@ -31,11 +44,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..config import resolve_device
 from ..kernels.flash_attention import flash_attention
 from ..kernels.vanilla import vanilla_attention
+from ..parallel.collectives import copy_to, gather_from, local, tp_embedding, tp_info, tp_linear
+from ..parallel.ring_attention import seq_shard
+from ..parallel.sharding import whole
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +71,15 @@ class GPTConfig:
     use_flash: bool = True  # False = dense attention
     remat: bool = False  # recompute each block in the backward pass
     fast_ln: bool = True  # LayerNorm variance as E[x^2] - mu^2
+    # Context parallelism: a DeviceMesh with `seq_axis` among its axes
+    # routes every attention through ring attention; seq_batch_axis: the
+    # mesh axis the batch rows are split over (dp x cp); seq_zigzag: causal
+    # load balancing, tokens taken in zig-zag chunk order once at the
+    # embedding (parallel/ring_attention.py).
+    seq_mesh: Any = None
+    seq_axis: str = "seq"
+    seq_batch_axis: str | None = None
+    seq_zigzag: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -92,18 +118,23 @@ class LayerNorm(nn.Module):
         self.fast = fast
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _layer_norm(x, self.g, self.b, fast=self.fast)
+        return _layer_norm(x, local(self.g), local(self.b), fast=self.fast)
 
 
-def _dropout(x: torch.Tensor, rate: float, seed: int | None) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, seed: int | None, shard=None) -> torch.Tensor:
     """Inverted dropout (JAX `_dropout`): keep with probability 1 - rate
     and scale kept values by 1 / (1 - rate); identity when seed is None.
-    The mask comes from a generator seeded here, on x's device."""
+    The mask comes from a generator seeded here, on x's device; under
+    context parallelism (`shard`) it is drawn for the global batch and
+    this rank keeps its part, so the masks are the unsharded run's."""
     if seed is None or rate == 0.0:
         return x
     gen = torch.Generator(device=x.device)
     gen.manual_seed(seed)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    shape = x.shape if shard is None else (shard.b, shard.t, *x.shape[2:])
+    keep = torch.rand(shape, generator=gen, device=x.device) < 1.0 - rate
+    if shard is not None:
+        keep = shard.take(keep)
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -119,6 +150,9 @@ class Linear(nn.Linear):
     params."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.weight, DTensor):
+            w = local(self.weight).to(x.dtype)
+            return tp_linear(x, self.weight, self.bias, lambda x, b: F.linear(x, w, None if b is None else b.to(x.dtype)))
         bias = self.bias.to(x.dtype) if self.bias is not None else None
         return F.linear(x, self.weight.to(x.dtype), bias)
 
@@ -142,15 +176,23 @@ class Attention(nn.Module):
         d = cfg.head_dim
         proj_std = 0.02 / math.sqrt(2 * cfg.n_layer)
         self.wqkv = _linear(cfg.n_embd, (cfg.n_head + 2 * cfg.kv_heads) * d, cfg.bias, 0.02, dtype, gen, device)
+        # q | k | v rows: tensor parallelism places them part-major by shard
+        # (parallel/sharding.py), so a row shard is a head group
+        self.wqkv.fused_parts = (cfg.n_head * d, cfg.kv_heads * d, cfg.kv_heads * d)
         self.wo = _linear(cfg.n_embd, cfg.n_embd, cfg.bias, proj_std, dtype, gen, device)
 
     def split_heads(self, x: torch.Tensor):
         """x [B, T, E] -> q [B, H, T, D], k/v [B, Hkv, T, D] (views of one
-        fused projection)."""
+        fused projection).  With wqkv sharded over the model axis (rows
+        part-major by shard), the local heads: H / tp and Hkv / tp."""
         cfg = self.cfg
         bsz, t, _ = x.shape
         d, h, hkv = cfg.head_dim, cfg.n_head, cfg.kv_heads
-        q, k, v = self.wqkv(x).split([h * d, hkv * d, hkv * d], dim=-1)
+        qkv = self.wqkv(x)
+        info = tp_info(getattr(self.wqkv, "weight", None))  # a QuantizedLinear has no .weight
+        if info is not None:
+            h, hkv = h // info[2], hkv // info[2]
+        q, k, v = qkv.split([h * d, hkv * d, hkv * d], dim=-1)
         return (
             q.view(bsz, t, h, d).transpose(1, 2),
             k.view(bsz, t, hkv, d).transpose(1, 2),
@@ -162,10 +204,14 @@ class Attention(nn.Module):
         bsz, h, t, d = y.shape
         return self.wo(y.transpose(1, 2).reshape(bsz, t, h * d))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        """shard: this rank's SeqShard under context parallelism (ring
+        attention), else None."""
         cfg = self.cfg
         q, k, v = self.split_heads(x)
-        if cfg.use_flash:
+        if shard is not None:
+            y = shard.attend(q, k, v)
+        elif cfg.use_flash:
             y = flash_attention(q, k, v, causal=True)
         else:
             group = cfg.n_head // cfg.kv_heads
@@ -198,10 +244,11 @@ class Block(nn.Module):
         self.ln2 = LayerNorm(cfg.n_embd, cfg.fast_ln, device)
         self.mlp = MLP(cfg, gen, device, dtype)
 
-    def forward(self, x: torch.Tensor, seeds: tuple[int | None, int | None] = (None, None)) -> torch.Tensor:
-        """seeds: the dropout seeds of the attention and MLP outputs."""
-        x = x + _dropout(self.attn(self.ln1(x)), self.rate, seeds[0])
-        return x + _dropout(self.mlp(self.ln2(x)), self.rate, seeds[1])
+    def forward(self, x: torch.Tensor, seeds: tuple[int | None, int | None] = (None, None), shard=None) -> torch.Tensor:
+        """seeds: the dropout seeds of the attention and MLP outputs;
+        shard: as in `Attention.forward`."""
+        x = x + _dropout(self.attn(self.ln1(x), shard), self.rate, seeds[0], shard)
+        return x + _dropout(self.mlp(self.ln2(x)), self.rate, seeds[1], shard)
 
 
 class GPT(nn.Module):
@@ -240,18 +287,22 @@ class GPT(nn.Module):
 
     def embed(self, idx: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         """Token + position embeddings, summed in fp32, in the compute dtype."""
-        return (self.wte[idx] + self.wpe[positions]).to(self.cfg.dtype)
+        tok = tp_embedding(idx, self.wte) if tp_info(self.wte) is not None else local(self.wte)[idx]
+        return (tok + local(self.wpe)[positions]).to(self.cfg.dtype)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
-        """Final LayerNorm and the tied LM head, in the compute dtype."""
-        return F.linear(self.lnf(x), self.wte.to(x.dtype))
+        """Final LayerNorm and the tied LM head, in the compute dtype.  With
+        `wte` sharded over the vocabulary, each rank's logits are gathered."""
+        x = self.lnf(x)
+        info = tp_info(self.wte)
+        if info is None:
+            return F.linear(x, local(self.wte).to(x.dtype))
+        return gather_from(F.linear(copy_to(x, info[0]), local(self.wte).to(x.dtype)), info[0], -1)
 
-    def forward(self, idx: torch.Tensor, *, rng: int | None = None, deterministic: bool = True) -> torch.Tensor:
-        """Token ids [B, T] -> logits [B, T, vocab] in the compute dtype.
-
-        Dropout applies when deterministic is False and cfg.dropout > 0;
-        `rng` is then the step's seed, from which every site draws its
-        mask.  With cfg.remat each block is recomputed in the backward."""
+    def logits(self, idx: torch.Tensor, *, rng: int | None = None, deterministic: bool = True,
+               shard=None) -> torch.Tensor:
+        """The logits of this rank's tokens: of idx itself when shard is
+        None, else of shard.take(idx) (in the shard's token order)."""
         cfg = self.cfg
         t = idx.shape[1]
         if t > cfg.block_size:
@@ -263,12 +314,28 @@ class GPT(nn.Module):
         def seed(site: int) -> int | None:
             return _site_seed(rng, site) if drop else None
 
-        x = _dropout(self.embed(idx, torch.arange(t, device=idx.device)), cfg.dropout, seed(0))
+        if shard is None:
+            positions = torch.arange(t, device=idx.device)
+        else:
+            idx, positions = shard.take(idx), shard.positions
+        x = _dropout(self.embed(idx, positions), cfg.dropout, seed(0), shard)
         remat = cfg.remat and torch.is_grad_enabled()
         for li, blk in enumerate(self.blocks):
             seeds = (seed(1 + 2 * li), seed(2 + 2 * li))
-            x = checkpoint(blk, x, seeds, use_reentrant=False) if remat else blk(x, seeds)
+            x = checkpoint(blk, x, seeds, shard, use_reentrant=False) if remat else blk(x, seeds, shard)
         return self.head(x)
+
+    def forward(self, idx: torch.Tensor, *, rng: int | None = None, deterministic: bool = True) -> torch.Tensor:
+        """Token ids [B, T] -> logits [B, T, vocab] in the compute dtype.
+
+        Dropout applies when deterministic is False and cfg.dropout > 0;
+        `rng` is then the step's seed, from which every site draws its
+        mask.  With cfg.remat each block is recomputed in the backward.
+        Under cfg.seq_mesh idx is the global batch (the same on every rank)
+        and so are the logits, gathered from every rank's shard."""
+        shard = seq_shard(self, idx)
+        out = self.logits(idx, rng=rng, deterministic=deterministic, shard=shard)
+        return out if shard is None else shard.gather(out)
 
 
 def num_params(model: GPT) -> int:
@@ -286,12 +353,27 @@ def loss_fn(
     """Mean next-token cross-entropy, as logsumexp(logits) - logits[target]
     (JAX `loss_fn`): the logits stay in the compute dtype and the fp32 cast
     happens inside the reductions, so bf16 training keeps bf16 logit grads
-    rounded as JAX rounds them."""
-    logits = model(idx, rng=rng, deterministic=deterministic)
+    rounded as JAX rounds them.  Under cfg.seq_mesh each rank scores its
+    own tokens (targets taken as the tokens are) and the sum is reduced
+    over the mesh: the loss of the whole batch, on every rank."""
+    shard = seq_shard(model, idx)
+    logits = model.logits(idx, rng=rng, deterministic=deterministic, shard=shard)
+    return token_loss(logits, targets, shard)
+
+
+def token_loss(logits: torch.Tensor, targets: torch.Tensor, shard=None) -> torch.Tensor:
+    """Mean cross entropy of logits [B, T, V] against targets [B, T]; with a
+    SeqShard, of this rank's logits against its part of the global targets,
+    summed over the shard's ranks and divided by the global count."""
+    if shard is not None:
+        targets = shard.take(targets)
     m = logits.amax(dim=-1, keepdim=True).detach()
     lse = m[..., 0].float() + torch.log(torch.exp((logits - m).float()).sum(dim=-1))
     picked = logits.gather(-1, targets.long()[..., None])[..., 0]
-    return (lse - picked.float()).mean()
+    per_token = lse - picked.float()
+    if shard is None:
+        return per_token.mean()
+    return shard.sum(per_token.sum()) / (shard.b * shard.t)
 
 
 @torch.no_grad()
@@ -311,7 +393,9 @@ def generate(
         generator = torch.Generator(device=idx.device).manual_seed(0)
     for _ in range(max_new_tokens):
         ctx = idx[:, -model.cfg.block_size:]
-        logits = model(ctx)[:, -1, :].float() / max(temperature, 1e-6)
+        # unsharded even under cfg.seq_mesh: incremental contexts cannot
+        # meet the ring's divisibility (the JAX generate drops seq_mesh)
+        logits = model.logits(ctx)[:, -1, :].float() / max(temperature, 1e-6)
         if top_k is not None:
             kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
             logits = torch.where(logits < kth, -math.inf, logits)
@@ -371,13 +455,15 @@ def params_from_jax(
     return model
 
 
-def grads_to_jax_layout(model: GPT) -> dict[str, Any]:
+def grads_to_jax_layout(model: GPT, *, params: bool = False) -> dict[str, Any]:
     """The parameters' .grad as the JAX params pytree (numpy fp32 leaves,
     linear weights [in, out], absent biases None): the inverse of
-    `params_from_jax`'s naming, for comparing with `jax.grad`."""
+    `params_from_jax`'s naming, for comparing with `jax.grad`.
+    params=True gives the parameters themselves in that layout.  DTensor
+    parameters and gradients (a sharded model) come out whole."""
 
     def g(param: nn.Parameter, transpose: bool = False):
-        arr = param.grad.detach().float().cpu().numpy()
+        arr = whole(param, None if params else param.grad).detach().float().cpu().numpy()
         return np.ascontiguousarray(arr.T) if transpose else arr
 
     def ln(mod: LayerNorm):

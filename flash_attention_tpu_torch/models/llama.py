@@ -22,8 +22,12 @@ device="cuda")`, bf16 storage: 16 GB, where fp32 masters would be 32 GB).
 Weight-only int8/int4 comes from `quant.weights.quantize_llama_params`,
 which replaces the projections and the LM head by `QuantizedLinear`s.
 
-Not ported yet: the forward's sequence-parallel branch (`seq_mesh`, ring
-attention); a config with a `seq_mesh` raises.
+Sharded runs as in `models/gpt.py`: under `cfg.seq_mesh` the forward and
+`loss_fn` take the global batch, keep this rank's rows and tokens, apply
+RoPE at their global positions (zig-zag ones too) and attend through the
+ring; parameters placed by `parallel.distribute_params` (tensor-parallel
+training, `parallel.shard_llama_for_inference`) run on their local shards,
+attention on the local heads, the LM head's vocabulary shards gathered.
 """
 
 from __future__ import annotations
@@ -40,8 +44,11 @@ from ..config import resolve_device
 from ..inference import kv_cache as kvc
 from ..inference.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention
+from ..parallel.collectives import gather_from, local, tp_embedding, tp_info
+from ..parallel.ring_attention import seq_shard
+from ..parallel.sharding import whole
 from ..quant.weights import QuantizedLinear, is_quantized_leaf, quantized_tensor_from
-from .gpt import Linear
+from .gpt import Linear, token_loss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,8 +63,11 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # Sequence parallelism (ring attention) is not ported: a mesh raises.
+    # Context parallelism through ring attention, as GPTConfig's fields.
     seq_mesh: Any = None
+    seq_axis: str = "seq"
+    seq_batch_axis: str | None = None
+    seq_zigzag: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -88,7 +98,7 @@ def _rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm in fp32, times the fp32 gain, cast back to x's dtype."""
     x32 = x.float()
     scale = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
-    return (x32 * scale * gain).to(x.dtype)
+    return (x32 * scale * local(gain)).to(x.dtype)
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
@@ -140,12 +150,12 @@ class LlamaBlock(nn.Module):
         self.w_down = _linear(gen, cfg.intermediate, e, dtype, device)
 
     def project_qkv(self, x: torch.Tensor, b: int, t: int):
-        """x [b, t, E] -> q [b, H, t, D], k/v [b, Hkv, t, D] (`_project_qkv`)."""
-        cfg = self.cfg
-        d = cfg.head_dim
-        q = self.wq(x).reshape(b, t, cfg.n_head, d)
-        k = self.wk(x).reshape(b, t, cfg.n_kv_head, d)
-        v = self.wv(x).reshape(b, t, cfg.n_kv_head, d)
+        """x [b, t, E] -> q [b, H, t, D], k/v [b, Hkv, t, D] (`_project_qkv`);
+        the local heads when the projections are sharded over the model axis."""
+        d = self.cfg.head_dim
+        q = self.wq(x).reshape(b, t, -1, d)
+        k = self.wk(x).reshape(b, t, -1, d)
+        v = self.wv(x).reshape(b, t, -1, d)
         return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
     def mlp(self, x: torch.Tensor) -> torch.Tensor:
@@ -194,42 +204,65 @@ class Llama(nn.Module):
         return self.wte.device
 
     def embed(self, idx: torch.Tensor) -> torch.Tensor:
-        return self.wte[idx.long()].to(self.cfg.dtype)
+        if tp_info(self.wte) is not None:
+            return tp_embedding(idx, self.wte).to(self.cfg.dtype)
+        return local(self.wte)[idx.long()].to(self.cfg.dtype)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
-        """Final RMSNorm and the LM head, in the compute dtype."""
-        return self.lm_head(_rms_norm(x, self.norm_f, self.cfg.rms_eps))
+        """Final RMSNorm and the LM head, in the compute dtype; an LM head
+        sharded over the vocabulary has its logits gathered."""
+        y = self.lm_head(_rms_norm(x, self.norm_f, self.cfg.rms_eps))
+        group = _vocab_group(self.lm_head)
+        return y if group is None else gather_from(y, group, -1)
 
-    def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        """Token ids [B, T] -> logits [B, T, vocab], in the model dtype (the
-        loss casts to fp32 inside its reductions)."""
+    def logits(self, idx: torch.Tensor, *, shard=None) -> torch.Tensor:
+        """The logits of this rank's tokens, as `GPT.logits`: RoPE at the
+        tokens' global positions, attention through the ring."""
         cfg = self.cfg
-        if cfg.seq_mesh is not None:
-            raise NotImplementedError("sequence-parallel (ring attention) forward is not ported: seq_mesh must be None")
+        if shard is None:
+            positions = torch.arange(idx.shape[1], device=idx.device)
+        else:
+            idx, positions = shard.take(idx), shard.positions
         b, t = idx.shape
         x = self.embed(idx)
-        cos, sin = rope_cos_sin(torch.arange(t, device=idx.device), cfg.head_dim, cfg.rope_theta)
+        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         cos, sin = cos[None, None], sin[None, None]  # [1, 1, T, half]
         for blk in self.blocks:
             q, k, v = blk.project_qkv(_rms_norm(x, blk.attn_norm, cfg.rms_eps), b, t)
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-            y = flash_attention(q, k, v, causal=True)
-            x = blk.finish(x, y.transpose(1, 2).reshape(b, t, cfg.n_head * cfg.head_dim))
+            y = shard.attend(q, k, v) if shard is not None else flash_attention(q, k, v, causal=True)
+            x = blk.finish(x, y.transpose(1, 2).reshape(b, t, -1))
         return self.head(x)
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        """Token ids [B, T] -> logits [B, T, vocab], in the model dtype (the
+        loss casts to fp32 inside its reductions).  Under cfg.seq_mesh idx
+        is the global batch and the logits are gathered, as `GPT.forward`."""
+        shard = seq_shard(self, idx)
+        out = self.logits(idx, shard=shard)
+        return out if shard is None else shard.gather(out)
 
 
 def num_params(model: Llama) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
+def _vocab_group(lm_head: nn.Module):
+    """The model-axis group of an LM head sharded over the vocabulary
+    (its outputs), else None."""
+    if isinstance(lm_head, QuantizedLinear):
+        info = tp_info(lm_head.values)  # [in, out]
+        return info[0] if info is not None and info[3] == 1 else None
+    info = tp_info(lm_head.weight)  # [out, in]
+    return info[0] if info is not None and info[3] == 0 else None
+
+
 def loss_fn(model: Llama, idx: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross entropy as logsumexp - picked logit, the fp32
-    cast inside the reductions (JAX `loss_fn`)."""
-    logits = model(idx)
-    m = logits.amax(dim=-1, keepdim=True).detach()
-    lse = m[..., 0].float() + torch.log(torch.exp((logits - m).float()).sum(dim=-1))
-    picked = logits.gather(-1, targets.long()[..., None])[..., 0]
-    return (lse - picked.float()).mean()
+    cast inside the reductions (JAX `loss_fn`); under cfg.seq_mesh summed
+    over the mesh as `gpt.loss_fn`."""
+    shard = seq_shard(model, idx)
+    return token_loss(model.logits(idx, shard=shard), targets, shard)
 
 
 # ----------------------------------------------------------------- inference
@@ -256,7 +289,7 @@ def prefill(
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         kvc.prefill_write(cache, li, slot, k[0], v[0])
         y = flash_attention(q, k, v, causal=True)
-        x = blk.finish(x, y.transpose(1, 2).reshape(1, t, cfg.n_head * cfg.head_dim))
+        x = blk.finish(x, y.transpose(1, 2).reshape(1, t, -1))
     n = t if length is None else int(length)
     logits = model.head(x[0, n - 1]).float()
     kvc.set_length(cache, slot, n)
@@ -292,7 +325,7 @@ def prefill_chunk(
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         kvc.chunk_write(cache, li, slot, k[0], v[0], start)
         y = _chunk_attention(q, cache, li, slot, start)
-        x = blk.finish(x, y.transpose(1, 2).reshape(1, c, cfg.n_head * cfg.head_dim))
+        x = blk.finish(x, y.transpose(1, 2).reshape(1, c, -1))
     valid = c if length is None else int(length)
     logits = model.head(x[0, valid - 1]).float()
     kvc.set_length(cache, slot, int(start) + valid)
@@ -320,7 +353,7 @@ def decode_step(
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         kvc.decode_write(cache, li, k[:, :, 0], v[:, :, 0], positions)
         y = decode_attention(q[:, :, 0], cache, li)
-        x = blk.finish(x, y.reshape(s, 1, cfg.n_head * d))
+        x = blk.finish(x, y.reshape(s, 1, -1))
     logits = model.head(x[:, 0]).float()
     step = torch.ones_like(cache.lengths) if active is None else active.to(torch.int32)
     step = torch.where(cache.lengths < cache.max_len - 1, step, 0)
@@ -390,3 +423,22 @@ def params_from_jax(
         for name in _LINEARS:
             put_linear(blk, name, src[name])
     return model.to(device)
+
+
+def grads_to_jax_layout(model: Llama, *, params: bool = False) -> dict[str, Any]:
+    """The parameters' .grad (params=True: the parameters) as the JAX
+    params pytree with numpy fp32 leaves and linear weights [in, out], as
+    `gpt.grads_to_jax_layout`; DTensors come out whole.  Dense linears
+    only (the JAX package trains no quantized params)."""
+
+    def g(p: torch.Tensor, transpose: bool = False):
+        arr = whole(p, None if params else p.grad).detach().float().cpu().numpy()
+        return np.ascontiguousarray(arr.T) if transpose else arr
+
+    blocks = [
+        {"attn_norm": g(blk.attn_norm), "mlp_norm": g(blk.mlp_norm),
+         **{name: g(getattr(blk, name).weight, transpose=True) for name in _LINEARS}}
+        for blk in model.blocks
+    ]
+    return {"wte": g(model.wte), "blocks": blocks, "norm_f": g(model.norm_f),
+            "lm_head": g(model.lm_head.weight, transpose=True)}

@@ -21,6 +21,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 __all__ = [
     "INT4_LAYOUT",
@@ -146,7 +147,20 @@ class QuantizedLinear(nn.Module):
         return QuantizedTensor(self.values, self.scales, self.bits, self.out_features, self.layout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.values, DTensor):
+            return self._tp_forward(x)
         return quantized_matmul(x, self.qt, bias=self.bias)
+
+    def _tp_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The layer with its payload sharded over the model axis
+        (`parallel.shard_llama_for_inference`): on the output columns
+        (column-parallel: each rank's outputs, from its own int4 packing of
+        them) or on the input rows (row-parallel)."""
+        from ..parallel.collectives import local, tp_linear
+
+        scales = local(self.scales)
+        qt = QuantizedTensor(local(self.values), scales, self.bits, scales.shape[0], self.layout)
+        return tp_linear(x, self.values, self.bias, lambda x, b: quantized_matmul(x, qt, bias=b), out_dim=1)
 
     def extra_repr(self) -> str:
         return f"bits={self.bits}, out_features={self.out_features}"

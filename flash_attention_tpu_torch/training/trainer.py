@@ -17,8 +17,18 @@ loss, a LlamaConfig a `Llama` with `llama.loss_fn`.
 
 `TrainerConfig.autotune_blocks` tunes the flash-attention tiles for the
 model's training shape before the first step (`Trainer.warmup_autotune`,
-kernels/autotune.py).  Left for a later slice: the sharding arguments
-(parallel).
+kernels/autotune.py).
+
+Sharded training (`parallel/`): `param_sharding` places the parameters
+as DTensors (tensor parallelism over the model axis); `batch_sharding`
+says how each global batch is split.  Every rank draws the same global
+batch from the seed.  Rows sharded over the data axis (dp): each rank
+keeps its rows, and a hook on each parameter averages its gradient over
+those ranks in the backward (`parallel.collectives.sum_grads_over`).
+Under `cfg.seq_mesh` (cp) the model itself keeps its rows and tokens and
+sums loss and gradients over the mesh, so the trainer hands it the whole
+batch.  Either way the loss
+and the update are the unsharded step's.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from typing import Callable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import resolve_device
 from ..models import gpt, llama
@@ -159,17 +170,22 @@ class TrainerConfig:
 
 
 class Trainer:
-    """Single-device training loop with periodic eval.
+    """Training loop with periodic eval.
 
     cfg: a GPTConfig or a LlamaConfig.  model: the GPT or Llama to train
     (its weights are trained in place); default a fresh one of cfg's family
     with fp32 master weights, drawn from `seed` (a GPT's on the CPU, a
     Llama's by a generator on `device`).  device: where a fresh model lives
     (default the card, "cuda", which raises without one; "cpu" when asked
-    for).
+    for).  param_sharding: {parameter name: parallel.mesh.Sharding}
+    (`parallel.gpt_param_sharding`), applied to the model before the
+    optimizer is built.  batch_sharding: the `Sharding` of each [B, T]
+    batch (`parallel.batch_sharding`, or `parallel.seq_batch_sharding`
+    with cfg.seq_mesh); see the module docstring.
     """
 
-    def __init__(self, cfg, tcfg: TrainerConfig, *, model=None, seed: int = 0, device=None):
+    def __init__(self, cfg, tcfg: TrainerConfig, *, model=None, seed: int = 0, device=None,
+                 param_sharding=None, batch_sharding=None):
         self.cfg = cfg
         self.tcfg = tcfg
         init_seed, rng_seed = np.random.SeedSequence(seed).generate_state(2)
@@ -182,7 +198,17 @@ class Trainer:
             model = model_cls(
                 cfg, generator=gen.manual_seed(int(init_seed)), device=device, param_dtype=torch.float32
             )
+        if param_sharding is not None:
+            from ..parallel.sharding import distribute_params
+
+            distribute_params(model, param_sharding)
         self.model = model
+        self._row_split = _row_split(cfg, batch_sharding)
+        if self._row_split:
+            from ..parallel.collectives import sum_grads_over
+
+            sum_grads_over(model, [g for g, _ in self._row_split],
+                           scale=1.0 / int(np.prod([n for _, n in self._row_split])))
         # The host generator that draws each step's dropout seed.
         self.rng = torch.Generator().manual_seed(int(rng_seed))
         self.optimizer, self.schedule = make_optimizer(
@@ -199,6 +225,23 @@ class Trainer:
         self._eval_step = make_eval_step(cfg)
         self.history: list[dict] = []
         self.step = 0
+
+    # -- data parallelism -------------------------------------------------
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global batch (the whole batch unless the
+        rows are sharded without cfg.seq_mesh)."""
+        for group, n in self._row_split:
+            x = x.chunk(n, dim=0)[dist.get_rank(group)]
+        return x
+
+    def _mean(self, loss: torch.Tensor) -> torch.Tensor:
+        """The batch's loss from each rank's loss over its rows."""
+        loss = loss.detach().clone()
+        for group, n in self._row_split:
+            dist.all_reduce(loss, group=group)
+            loss = loss / n
+        return loss
 
     # -- checkpoint / resume ------------------------------------------------
 
@@ -290,7 +333,7 @@ class Trainer:
                 log(f"autotuned attention blocks: {bs}")
                 tuned = True
             sub = int(torch.randint(0, 2**62, (1,), generator=self.rng))
-            loss = self._train_step(self.model, idx, targets, sub)
+            loss = self._mean(self._train_step(self.model, self._rows(idx), self._rows(targets), sub))
             self.step = it + 1
             last = it == self.tcfg.max_iters - 1
             if ckpt_every and (self.step % ckpt_every == 0 or last):
@@ -303,7 +346,7 @@ class Trainer:
                 rec = {"iter": it, "train_loss": float(loss), "wall_s": time.time() - t0}
                 if do_eval:
                     vlosses = [
-                        float(self._eval_step(self.model, vi, vt))
+                        float(self._mean(self._eval_step(self.model, self._rows(vi), self._rows(vt))))
                         for _, (vi, vt) in zip(range(self.tcfg.eval_iters), val_batches())
                     ]
                     rec["val_loss"] = sum(vlosses) / max(len(vlosses), 1)
@@ -314,3 +357,30 @@ class Trainer:
         if metrics is not None and self.history:
             metrics.summary({"final": self.history[-1]})
         return self.history
+
+
+def _row_split(cfg, batch_sharding) -> list:
+    """[(group, size)] of the mesh axes a batch's rows are split over by
+    `batch_sharding` when the trainer keeps the rows itself (no
+    cfg.seq_mesh).  Under cfg.seq_mesh the model takes its part of the
+    global batch, so the sharding must be the one its config implies."""
+    if batch_sharding is None:
+        return []
+    from torch.distributed.tensor import Shard
+
+    from ..parallel.mesh import placements
+
+    mesh, placed = batch_sharding
+    if cfg.seq_mesh is not None:
+        want = placements(cfg.seq_mesh, (cfg.seq_batch_axis, cfg.seq_axis))
+        if any(p != w for dim, (p, w) in enumerate(zip(placed, want)) if mesh.size(dim) > 1):
+            raise ValueError(f"batch_sharding {tuple(placed)} does not match the config's context parallelism "
+                             f"({want}: rows over seq_batch_axis, tokens over seq_axis)")
+        return []
+    split = []
+    for dim, p in enumerate(placed):
+        if isinstance(p, Shard):
+            if p.dim != 0:
+                raise ValueError("sharding the tokens of a batch needs cfg.seq_mesh (context parallelism)")
+            split.append((mesh.get_group(dim), mesh.size(dim)))
+    return split

@@ -279,9 +279,27 @@ def test_quantized_forward_stays_close_to_fp32(model, tree):
         assert torch.isfinite(out).all() and (out - ref).abs().max() < tol, bits_
 
 
-def test_seq_mesh_and_missing_card_raise():
-    with pytest.raises(NotImplementedError, match="seq_mesh"):
-        tl.Llama(dataclasses.replace(TCFG, seq_mesh=object()), device="cpu")(torch.zeros(1, 4, dtype=torch.long))
+def test_seq_mesh_and_missing_card_raise(tmp_path):
+    """A seq_mesh runs the sequence-parallel forward (before the parallel
+    slice it raised NotImplementedError): on a 1-rank gloo group it equals
+    the unsharded forward; a length the ring cannot split raises.  Without
+    a card the default device raises."""
+    import torch.distributed as dist
+
+    from flash_attention_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(seq=1, device="cpu")
+        idx = torch.randint(0, TCFG.vocab_size, (2, 130), generator=torch.Generator().manual_seed(0))
+        plain = tl.Llama(TCFG, device="cpu")
+        ring = tl.Llama(dataclasses.replace(TCFG, seq_mesh=mesh, seq_zigzag=True), device="cpu")
+        with torch.no_grad():
+            torch.testing.assert_close(ring(idx), plain(idx), atol=1e-5, rtol=1e-5)
+            with pytest.raises(ValueError, match="context-parallel forward needs T % 2 == 0"):
+                ring(idx[:, :129])
+    finally:
+        dist.destroy_process_group()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tl.Llama(TCFG)

@@ -56,17 +56,18 @@ def test_floor_ms_takes_the_longer_of_bytes_and_operations():
     assert by == "operations" and ms == pytest.approx(1.0)
 
 
-# JAX names the port leaves out, by subpackage: "parallel" is not ported yet;
-# the XLA compilation cache and the fused clip+AdamW are not ported
-# (ROADMAP, "Do not port"); the functional model API is the GPT module.
+# JAX names the port leaves out, by subpackage: the XLA compilation cache
+# and the fused clip+AdamW are not ported (ROADMAP, "Do not port"); the
+# functional model API is the GPT module.
 NOT_PORTED = {
-    "": {"parallel"},
     "training": {"enable_compilation_cache", "fused_clip_adamw"},
     "models": {"forward", "init_params"},
 }
 
 
-@pytest.mark.parametrize("sub", ["", "kernels", "utils", "inference", "training", "models", "quant", "ops", "data"])
+@pytest.mark.parametrize(
+    "sub", ["", "kernels", "utils", "inference", "training", "models", "quant", "ops", "data", "parallel"]
+)
 def test_subpackage_exports_match_the_jax_package(sub):
     """Every name in each JAX subpackage's __all__ is in the port's, less
     the names listed above, and imports from it."""

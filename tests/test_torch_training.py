@@ -276,8 +276,15 @@ def test_history_records_and_eval_cadence():
 
 
 def test_trainer_takes_no_sharding_arguments():
+    """Without sharding arguments (or with None) the trainer is the
+    single-device one; the sharding arguments exist since the parallel
+    slice (tests/test_torch_parallel.py drives them), and an argument the
+    JAX Trainer does not take is still a TypeError."""
+    trainer = Trainer(TORCH_CFG, TrainerConfig(), param_sharding=None, batch_sharding=None, device="cpu")
+    assert trainer._row_split == []
+    assert not any(getattr(p, "_fa_sums_grads", False) for p in trainer.model.parameters())
     with pytest.raises(TypeError):
-        Trainer(TORCH_CFG, TrainerConfig(), batch_sharding=None)
+        Trainer(TORCH_CFG, TrainerConfig(), mesh=None, device="cpu")
 
 
 # -- checkpoints -------------------------------------------------------------
