@@ -35,25 +35,31 @@ are 7-9):
               table and NaN past the lengths, GQA 32/8 at D128.
 7. d256     - head dims 160 and 256 (run at 256: the wgmma K1, K4, K2 and
               K3 for bf16/fp16, the SIMT family of csrc/flash_d256.cuh for
-              fp32), 288 and 520 (padded to 512 and 1024, the SIMT family):
-              K1, its lse (fp32, against vanilla), the pre-pass, K2/K3 and
-              K4 (int8, fp8) against their plain versions and fp32 vanilla,
+              fp32), 288 and 520 (padded to 512 and 1024: bf16/fp16 K1 and
+              K4 on the wide wgmma kernel of csrc/flash_fwd_wide.cuh, K2/K3
+              and fp32 on the SIMT family): K1, its lse (fp32 against
+              vanilla at 1e-5; the wide kernel's against its plain version
+              at 1e-3 and vanilla at 2e-2), the pre-pass, K2/K3 and K4
+              (int8, fp8) against their plain versions and fp32 vanilla,
               with GQA 8/2 at q129 x kv257 and window 100, 3 segments, rows
-              that see no key (their dQ exactly 0), the lse cotangent, fp16
-              and fp32 non-causal, and K1 and the grads at the d256-path's
-              shape (b4 h3 L1024, causal only, so most tiles take the
-              unmasked branch).
+              that see no key (their output and dQ exactly 0), the lse
+              cotangent, non-causal, and K1 and the grads at the
+              d256-path's shape (b4 h3 L1024, causal only, so most tiles
+              take the unmasked branch) and at b2 h4 L1024 for D288 /
+              D520.
 8. d256-path - the D256 route through the entry points: a 2-layer GPT at
               GPT-2's width with 3 heads of 256, 6 Trainer steps at b4 x
               T1024 in bf16 (the "_d256" keys, the wgmma K1, K2 and K3 and
               the pre-pass, launched n_layer x steps times each, nothing
               else; the median step ms), then the quant op at D256 over 4
               layers (the wgmma K4 launched 4 times).
-   simt-path - the SIMT family through the entry points: forward and
-              backward of flash_attention and K4 (int8) at b2 h4 L1024 for
-              D288 and D520 bf16 and D256 fp32; the "_wide" and
-              "_d256_simt" keys launched as SIMT_PATH_LAUNCHES says; every
-              output and grad against its plain version and fp32 vanilla.
+   simt-path - head dims above 256 and fp32 at 256 through the entry
+              points: forward and backward of flash_attention and K4 (int8)
+              at b2 h4 L1024 for D288 and D520 bf16 (the wide wgmma K1 and
+              K4, the SIMT K2/K3 on its lse) and D256 and D520 fp32 (the
+              SIMT family); the "_wide", "_wide_simt" and "_d256_simt" keys
+              launched as SIMT_PATH_LAUNCHES says; every output and grad
+              against its plain version and fp32 vanilla.
 9. llama    - the slice: Llama-3 8B at full width and depth (32 layers,
               4096 wide, GQA 32/8 D128, vocab 128256), bf16, random weights
               drawn on the card from the seed, behind the engine with
@@ -148,8 +154,11 @@ are 7-9):
               between CUDA events (graph_ms); "a call" adds the host's
               enqueue.  Each kernel beside its bound: the larger of its bytes
               at 3.35 TB/s and its FLOPs at 989 TFLOP/s (67 for fp32).  Last,
-              the SIMT family at b8 h12 L1024: fp32 D256 and bf16 D512 (and
-              D1024, no plain versions).
+              at b8 h12 L1024: fp32 D256 (SIMT); bf16 D512 and D1024 (no
+              plain versions at D1024): the wide wgmma K1 and K4 beside the
+              SIMT times they replaced and SDPA's forward, the pre-pass and
+              the SIMT K2/K3; fp32 D512 (SIMT K1-K4); fp32 D64 and D128 (K1,
+              K4, the pre-pass, K2, K3, SDPA fp32).
 20. measure - utils.measure on K1 at b8 h12 L1024 D64 bf16: chain_timer
               (a chain of 64 calls in a CUDA graph), ab_compare over K1's
               tiles with the recheck's drift band, graph_ms of the same
@@ -209,12 +218,13 @@ are 7-9):
               decode_loop's, the cache a DTensor.
 
 The line before the last is a JSON summary of the kernels, the D256, the
-"_d256_simt" and the "_wide" ones as rows of their own (launches on their
-path, max error, device ms, plain ms, bound ms and what sets it, library ms
-or null; K1's row also carries its launches on the Llama path and in the
-chunked, speculative and pipelined GPT-2 bursts and its times at the
-Llama prefill shape, the wide rows D1024's times as
-d1024_*; K1's row its tile sweep, {shape: {block_q: device ms}}, as
+"_d256_simt", the "_wide" and the "_wide_simt" ones as rows of their own
+(launches on their path, max error, device ms, plain ms, bound ms and what
+sets it, library ms or null; K1's row also carries its launches on the
+Llama path and in the chunked, speculative and pipelined GPT-2 bursts and
+its times at the Llama prefill shape, the wide rows D1024's times as
+d1024_*; K1-K4's and the pre-pass's rows their fp32 D64 / D128
+rows as fp32_d64 / fp32_d128; K1's row its tile sweep, {shape: {block_q: device ms}}, as
 `tiles` with SDPA's ms as `tiles_library_ms`, its launches on the
 autotuned engine and trainer paths, and the measure phase's readings; K1,
 the pre-pass, K2 and K3 their ring call shapes as `ring_noncausal_shard`
@@ -316,8 +326,10 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                                "flash_attention_tpu/kernels/flash_attention.py:765"),
     "flash_fwd_kv_quant_d256_simt": ("flash_attention_tpu_torch/csrc/flash_simt_fwd_kv_quant.cu",
                                      "flash_attention_tpu/quant/kv.py:98"),
-    # head dims 257-1024, padded to 512 or 1024: the SIMT family
-    "flash_fwd_wide": ("flash_attention_tpu_torch/csrc/flash_simt_fwd.cu",
+    # head dims 257-1024, padded to 512 or 1024: bf16/fp16 K1 and K4 on the
+    # wide wgmma kernel (flash_fwd_wide.cuh, D = 1024 in
+    # flash_fwd_wide_d1024.cu), the pre-pass, and the SIMT K2 / K3
+    "flash_fwd_wide": ("flash_attention_tpu_torch/csrc/flash_fwd_wide.cu",
                        "flash_attention_tpu/kernels/flash_attention.py:269"),
     "flash_bwd_prep_wide": ("flash_attention_tpu_torch/csrc/flash_bwd.cu",
                             "flash_attention_tpu/kernels/flash_attention.py:1112"),
@@ -325,8 +337,13 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                            "flash_attention_tpu/kernels/flash_attention.py:637"),
     "flash_bwd_dq_wide": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
                           "flash_attention_tpu/kernels/flash_attention.py:765"),
-    "flash_fwd_kv_quant_wide": ("flash_attention_tpu_torch/csrc/flash_simt_fwd_kv_quant.cu",
+    "flash_fwd_kv_quant_wide": ("flash_attention_tpu_torch/csrc/flash_fwd_wide.cu",
                                 "flash_attention_tpu/quant/kv.py:98"),
+    # fp32 at 512 / 1024: the SIMT family's K1 and K4
+    "flash_fwd_wide_simt": ("flash_attention_tpu_torch/csrc/flash_simt_fwd.cu",
+                            "flash_attention_tpu/kernels/flash_attention.py:269"),
+    "flash_fwd_kv_quant_wide_simt": ("flash_attention_tpu_torch/csrc/flash_simt_fwd_kv_quant.cu",
+                                     "flash_attention_tpu/quant/kv.py:98"),
 }
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd_prep", "flash_bwd_dkv", "flash_bwd_dq")
 D256_TRAINING_KERNELS = tuple(f"{k}_d256" for k in TRAINING_KERNELS)
@@ -366,18 +383,28 @@ def _demangle(names: list[str]) -> list[str]:
     return lines if out.returncode == 0 and len(lines) == len(names) else names
 
 
+def _is_wide(name: str) -> bool:
+    """An instantiation of the wide wgmma forward (fa::wide::fwd_kernel),
+    demangled or not."""
+    return "wide::fwd_kernel" in name or "4wide10fwd_kernel" in name
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     _build.library()
     say(f"[build] {os.path.relpath(_build.build_info['path'])} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_info['seconds']:.1f} s)")
-    per = _build.build_info.get("per_source", {})
+    per = _build.build_info["per_source"]
     if per:
         say("[build] nvcc per source, all started together: " + ", ".join(f"{k} {v:.1f} s" for k, v in per.items()))
+    else:
+        say("[build] library already built: ptxas's report read from the log beside it, no nvcc seconds")
+    if not _build.build_info["ptxas"]:
+        raise AssertionError(f"[build] no ptxas report for {_build.build_info['path']}: remove the library to rebuild")
     # ptxas -v: one "Compiling entry function" line per instantiation, then
     # its spills and registers
     entries, kernel, spills = [], "", ""
-    for line in _build.build_info.get("ptxas", "").splitlines():
+    for line in _build.build_info["ptxas"].splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
         elif "spill stores" in line:
@@ -390,18 +417,30 @@ def phase_build() -> None:
         spilled = not spill.startswith("0 bytes stack frame, 0 bytes spill stores")
         if "decode_kernel" in name and not spilled:
             decode.append(regs)
-        else:
+        elif not _is_wide(name):
             short = name.replace("(anonymous namespace)::", "").replace("(fa::FwdParams)", "").replace("fa::", "")
             say(f"[build] ptxas {short}: {regs} registers; {spill}")
     if decode:
         say(f"[build] ptxas decode_kernel: {len(decode)} instantiations without spills, "
             f"{min(decode)}-{max(decode)} registers")
     # ptxas reports a kernel whose wgmma it serialises only as an info line
-    serial = [line.strip() for line in _build.build_info.get("ptxas", "").splitlines() if "C7518" in line]
+    serial = [line.strip() for line in _build.build_info["ptxas"].splitlines() if "C7518" in line]
     names = _demangle([m.group(1) for line in serial for m in [re.search(r"function '([^']+)'", line)] if m])
     say(f"[build] ptxas C7518 (wgmma serialised): {len(serial)} line(s)"
         + "".join(f"\n[build]   {line}" for line in serial)
         + ("\n[build]   in " + ", ".join(sorted(set(names))) if names else ""))
+    # the wide wgmma forward (K1 / K4 at D512 and D1024): its sources' nvcc
+    # seconds, and each instantiation's registers, spills and C7518 lines
+    wide = [(n, regs, spill) for n, (_, regs, spill) in zip(_demangle([e[0] for e in entries]), entries)
+            if _is_wide(n)]
+    say("[build] wide forward: nvcc " + (", ".join(f"{k} {v:.1f} s" for k, v in per.items() if "wide" in k)
+                                          or "not run (already built)")
+        + f"; {len(wide)} instantiations; C7518 in them: {sum(_is_wide(n) for n in names)}")
+    for n, regs, spill in wide:
+        m = re.search(r"fwd_kernel<(.*)>", n)
+        say(f"[build]   wide {m.group(1) if m else n}: {regs} registers; {spill}")
+    if len(wide) != 12:
+        raise AssertionError(f"[build] expected 12 wide forward instantiations, found {len(wide)}")
 
 
 def _rand(gen, shape, dtype):
@@ -418,10 +457,13 @@ def _segment_ids(b: int, length: int, n: int = 3) -> torch.Tensor:
 
 
 def check_k1(label, gen, b, hq, hkv, lq, lk, d, dtype, causal, atol, window=None, segments=False,
-             block_q=None) -> float:
+             block_q=None, no_key_rows=0) -> float:
     """Kernel vs plain tile loop vs fp32 vanilla on the same inputs, both at
     the tile height `block_q` (default the kernel's); returns the kernel's
-    max error against the plain version."""
+    max error against the plain version.  `no_key_rows`: the first rows see
+    no key (causal, lq > lk); their output must be exactly 0, as the plain
+    version's, where vanilla spreads them over every key, so vanilla is
+    held on the other rows only."""
     q = _rand(gen, (b, hq, lq, d), dtype)
     k = _rand(gen, (b, hkv, lk, d), dtype)
     v = _rand(gen, (b, hkv, lk, d), dtype)
@@ -440,8 +482,8 @@ def check_k1(label, gen, b, hq, hkv, lq, lk, d, dtype, causal, atol, window=None
     if out.shape != q.shape or out.dtype != dtype or not torch.isfinite(out).all():
         raise AssertionError(f"[k1] {label}: bad output {out.shape} {out.dtype}")
     e_plain = (out.float() - plain.float()).abs().max().item()
-    e_dense = (out.float() - dense).abs().max().item()
-    ok = e_plain <= atol and e_dense <= atol
+    e_dense = (out.float() - dense)[:, :, no_key_rows:].abs().max().item()
+    ok = e_plain <= atol and e_dense <= atol and not out[:, :, :no_key_rows].any()
     say(f"[k1] {label:<34} vs plain {e_plain:.3e}  vs vanilla {e_dense:.3e}  atol {atol:g}  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"[k1] {label} outside tolerance")
@@ -1620,15 +1662,17 @@ def _keep_worst(worst: dict, key: str, err: float) -> None:
 def phase_d256(seed: int) -> dict:
     """K1, the pre-pass, K2/K3 and K4 at head dims 160 and 256 (both run at
     256: bf16/fp16 on the wgmma K1, K4, K2 and K3, fp32 on the SIMT family),
-    288 and 520 (padded to 512 and 1024, the SIMT family) against their
-    plain versions and fp32 vanilla, with GQA 8/2, windows, segment ids,
-    rows that see no key, the tiles' ragged edges and K4 on int8 and fp8.
+    288 and 520 (padded to 512 and 1024: bf16/fp16 K1 and K4 on the wide
+    wgmma kernels, K2/K3 and fp32 on the SIMT family) against their plain
+    versions and fp32 vanilla, with GQA 8/2, windows, segment ids, rows
+    that see no key, the tiles' ragged edges, lse and K4 on int8 and fp8.
     Returns each kernel's worst error against its plain version, by
     KERNEL_LAUNCHES key."""
     gen = torch.Generator().manual_seed(seed + 9)
     bf16, f16, f32, i8, f8 = torch.bfloat16, torch.float16, torch.float32, torch.int8, torch.float8_e4m3fn
     say("[d256] head dims 160 and 256 (the wgmma K1, K4, K2, K3 for bf16/fp16; the SIMT family for fp32), 288 and "
-        "520 (zero-padded to 512 and 1024, the SIMT family): tolerances as at 64 / 128")
+        "520 (zero-padded to 512 and 1024: the wide wgmma K1 and K4 for bf16/fp16, the SIMT K2/K3 and fp32): "
+        "tolerances as at 64 / 128")
     worst: dict = {}
     for label, b, hq, hkv, lq, lk, d, dtype, causal, atol, kw in (
         ("d256 gqa 8/2 q129 kv257 window 100 bf16", 2, 8, 2, 129, 257, 256, bf16, True, 2e-2, dict(window=100)),
@@ -1640,10 +1684,25 @@ def phase_d256(seed: int) -> dict:
         ("d160 gqa 8/2 L384 window 100 fp16", 1, 8, 2, 384, 384, 160, f16, True, 2e-2, dict(window=100)),
         ("d160 fp32 b1 h4 L300 3 segments", 1, 4, 4, 300, 300, 160, f32, True, 1e-5, dict(segments=True)),
         ("d256 fp32 non-causal q200 kv300", 1, 4, 2, 200, 300, 256, f32, False, 1e-5, {}),
+        # the wide wgmma forward: GQA with the group crossing the diagonal,
+        # the tiles' ragged edges (q129 x kv257), windows, segment ids, rows
+        # that see no key, several tiles through the ring, non-causal
         ("d288 gqa 8/2 q129 kv257 window 100 bf16", 2, 8, 2, 129, 257, 288, bf16, True, 2e-2, dict(window=100)),
+        ("d288 gqa 8/2 q129 kv257 window 100 fp16", 2, 8, 2, 129, 257, 288, f16, True, 2e-2, dict(window=100)),
+        ("d520 gqa 8/2 q129 kv257 window 100 bf16", 2, 8, 2, 129, 257, 520, bf16, True, 2e-2, dict(window=100)),
+        ("d520 gqa 8/2 q129 kv257 window 100 fp16", 2, 8, 2, 129, 257, 520, f16, True, 2e-2, dict(window=100)),
         ("d520 b1 h4 L300 3 segments fp16", 1, 4, 4, 300, 300, 520, f16, True, 2e-2, dict(segments=True)),
+        ("d288 b1 h4 L300 3 segments bf16", 1, 4, 4, 300, 300, 288, bf16, True, 2e-2, dict(segments=True)),
+        ("d288 no-key rows q300 kv200 fp16", 1, 4, 4, 300, 200, 288, f16, True, 2e-2, dict(no_key_rows=100)),
+        ("d520 no-key rows q300 kv200 bf16", 1, 4, 4, 300, 200, 520, bf16, True, 2e-2, dict(no_key_rows=100)),
+        ("d288 b2 h4 L1024 bf16", 2, 4, 4, 1024, 1024, 288, bf16, True, 2e-2, {}),
+        ("d520 b2 h4 L1024 fp16", 2, 4, 4, 1024, 1024, 520, f16, True, 2e-2, {}),
+        ("d520 bf16 non-causal q200 kv300", 1, 4, 2, 200, 300, 520, bf16, False, 2e-2, {}),
         ("d288 fp32 non-causal q200 kv300", 1, 4, 2, 200, 300, 288, f32, False, 1e-5, {}),
         ("d520 fp32 gqa 4/2 L200 window 64", 1, 4, 2, 200, 200, 520, f32, True, 1e-5, dict(window=64)),
+        # batch x heads above 32767 at D1024: the two slabs of a tile lie in
+        # grid.x, so grid.y holds batch x heads up to 65535, as elsewhere
+        ("d520 b2 h16400 gqa /4 L2 bf16", 2, 16400, 4100, 2, 2, 520, bf16, True, 2e-2, {}),
     ):
         _keep_worst(worst, _key("flash_fwd", d, dtype),
                     check_k1(label, gen, b, hq, hkv, lq, lk, d, dtype, causal, atol, **kw))
@@ -1657,6 +1716,27 @@ def phase_d256(seed: int) -> dict:
         say(f"[d256] lse fp32 b1 h4 L300 D{d}: out and lse vs vanilla {e:.3e} atol 1e-05 {'ok' if e <= 1e-5 else 'FAIL'}")
         if e > 1e-5 or out.shape != q.shape:
             raise AssertionError("[d256] lse outside tolerance")
+    # the wide wgmma forward's lse, which the SIMT K2/K3 read: against the
+    # plain version's (the same roundings) at 1e-3 and fp32 vanilla's at
+    # 2e-2 (q * scale rounded to 16 bits moves each score by up to 2^-8 of it)
+    for d, dtype in ((288, bf16), (288, f16), (520, bf16), (520, f16)):
+        q = _rand(gen, (1, 8, 300, d), dtype)
+        k, v = (_rand(gen, (1, 2, 300, d), dtype) for _ in range(2))
+        with torch.no_grad():
+            out, lse = FA.flash_attention_with_lse(q, k, v)
+            o_p, lse_p = FA.flash_attention_reference(q, k, v)
+            o_d, lse_d = vanilla_attention_with_lse(q.float(), k.float().repeat_interleave(4, 1),
+                                                    v.float().repeat_interleave(4, 1), sm_scale=d ** -0.5)
+        torch.cuda.synchronize()
+        e_o = (out.float() - o_p.float()).abs().max().item()
+        e_l = (lse - lse_p).abs().max().item()
+        e_d = max((out.float() - o_d).abs().max().item(), (lse - lse_d).abs().max().item())
+        ok = e_o <= 2e-2 and e_l <= 1e-3 and e_d <= 2e-2
+        say(f"[d256] lse gqa 8/2 L300 D{d} {dtype}: out vs plain {e_o:.3e} (atol 2e-2), lse vs plain {e_l:.3e} "
+            f"(atol 1e-3), out and lse vs vanilla {e_d:.3e} (atol 2e-2) {'ok' if ok else 'FAIL'}")
+        if not ok or out.shape != q.shape or lse.shape != lse_p.shape:
+            raise AssertionError("[d256] wide lse outside tolerance")
+        _keep_worst(worst, _key("flash_fwd", d, dtype), max(e_o, e_l))
     for label, b, hq, lq, d, dtype, kw in (
         ("d256 b2 h12 L1024 bf16", 2, 12, 1024, 256, bf16, dict(with_lse=True)),
         ("d256 fp32 b1 h4 L300", 1, 4, 300, 256, f32, {}),
@@ -1676,8 +1756,12 @@ def phase_d256(seed: int) -> dict:
         ("d160 fp32 gqa 4/2 L200 window 64", 1, 4, 2, 200, 200, 160, f32, dict(window=64)),
         ("d256 lse cotangent fp32 b1 h4 L300", 1, 4, 2, 300, 300, 256, f32, dict(with_lse=True)),
         ("d256 no-key rows fp32 q300 kv200", 1, 4, 4, 300, 200, 256, f32, dict(no_key_rows=100)),
+        # the SIMT K2/K3 on the wide wgmma forward's o and lse
         ("d288 gqa 8/2 q129 kv257 w100 bf16", 2, 8, 2, 129, 257, 288, bf16, dict(window=100)),
         ("d520 b1 h4 L300 3 segments fp16", 1, 4, 4, 300, 300, 520, f16, dict(segments=True)),
+        ("d288 no-key rows q300 kv200 fp16", 1, 4, 4, 300, 200, 288, f16, dict(no_key_rows=100)),
+        ("d520 no-key rows q300 kv200 bf16", 1, 4, 4, 300, 200, 520, bf16, dict(no_key_rows=100)),
+        ("d520 lse cotangent gqa 8/2 L300 bf16", 1, 8, 2, 300, 300, 520, bf16, dict(with_lse=True)),
         ("d288 lse cotangent fp32 b1 h4 L300", 1, 4, 2, 300, 300, 288, f32, dict(with_lse=True)),
         ("d520 no-key rows fp32 q300 kv200", 1, 4, 4, 300, 200, 520, f32, dict(no_key_rows=100)),
     ):
@@ -1692,6 +1776,10 @@ def phase_d256(seed: int) -> dict:
         ("d160 fp32 gqa 4/2 L300 fp8 window 100", 1, 4, 2, 300, 300, 160, f32, f8, 5e-5, dict(window=100)),
         ("d288 gqa 8/2 L1024 bf16 int8 window 256", 1, 8, 2, 1024, 1024, 288, bf16, i8, 2e-2, dict(window=256)),
         ("d520 b2 h4 L300 fp16 fp8 3 segments", 2, 4, 4, 300, 300, 520, f16, f8, 2e-2, dict(segments=True)),
+        ("d288 gqa 8/2 q129 kv257 fp16 fp8 w100", 2, 8, 2, 129, 257, 288, f16, f8, 2e-2, dict(window=100)),
+        ("d520 lk%4=3 q1023 gqa 8/2 bf16 int8", 1, 8, 2, 1023, 1023, 520, bf16, i8, 2e-2, {}),
+        ("d288 b1 h4 L300 bf16 fp8 3 segments", 1, 4, 4, 300, 300, 288, bf16, f8, 2e-2, dict(segments=True)),
+        ("d520 gqa 8/2 q129 kv257 fp16 int8 w100", 2, 8, 2, 129, 257, 520, f16, i8, 2e-2, dict(window=100)),
         ("d520 fp32 b1 h4 L384 int8", 1, 4, 4, 384, 384, 520, f32, i8, 5e-5, {}),
     ):
         _keep_worst(worst, _key("flash_fwd_kv_quant", d, dtype),
@@ -1750,11 +1838,15 @@ def phase_d256_path(seed: int, data: np.ndarray) -> dict:
     return {k: launches[k] for k in (*D256_TRAINING_KERNELS, "flash_fwd_kv_quant_d256")}
 
 
-# The SIMT family's path (`phase_simt_path`): what it must launch.
+# The path of head dims above 256 and of fp32 at 256 (`phase_simt_path`):
+# what it must launch.  bf16 at D288 and D520 runs the wide wgmma K1 and K4
+# ("_wide"), fp32 at D520 the SIMT K1 and K4 ("_wide_simt"); the pre-pass,
+# K2 and K3 of both ("_wide"); fp32 at D256 the "_d256_simt" keys.
 SIMT_PATH_LAUNCHES = {
-    "flash_fwd_wide": 2, "flash_bwd_prep_wide": 2, "flash_bwd_dkv_wide": 2, "flash_bwd_dq_wide": 2,
-    "flash_fwd_kv_quant_wide": 2, "flash_fwd_d256_simt": 1, "flash_bwd_prep_d256": 1, "flash_bwd_dkv_d256_simt": 1,
-    "flash_bwd_dq_d256_simt": 1, "flash_fwd_kv_quant_d256_simt": 1,
+    "flash_fwd_wide": 2, "flash_bwd_prep_wide": 3, "flash_bwd_dkv_wide": 3, "flash_bwd_dq_wide": 3,
+    "flash_fwd_kv_quant_wide": 2, "flash_fwd_wide_simt": 1, "flash_fwd_kv_quant_wide_simt": 1,
+    "flash_fwd_d256_simt": 1, "flash_bwd_prep_d256": 1, "flash_bwd_dkv_d256_simt": 1, "flash_bwd_dq_d256_simt": 1,
+    "flash_fwd_kv_quant_d256_simt": 1,
 }
 
 
@@ -1771,19 +1863,21 @@ def _hold(label: str, name: str, got: torch.Tensor, plain: torch.Tensor, dense: 
 
 
 def phase_simt_path(seed: int) -> dict:
-    """The SIMT family through the entry points, as a caller with a head dim
-    above 256 or fp32 at 256 reaches it: a forward and backward step of
+    """The kernels a caller with a head dim above 256, or fp32 at 256,
+    reaches, through the entry points: a forward and backward step of
     flash_attention at b2 h4 L1024 for head dims 288 (padded to 512) and
-    520 (to 1024) in bf16 and 256 in fp32, and flash_attention_kv_quant
-    (int8) at each.  Each "_wide" and "_d256_simt" key must launch as
-    SIMT_PATH_LAUNCHES says, and nothing else.  Then every output against
+    520 (to 1024) in bf16 (the wide wgmma K1, the SIMT K2 and K3 on its
+    lse), 256 and 520 in fp32 (the SIMT family), and
+    flash_attention_kv_quant (int8) at each.  Each "_wide", "_wide_simt"
+    and "_d256_simt" key must launch as SIMT_PATH_LAUNCHES says, and
+    nothing else.  Then every output against
     its plain version (flash_attention_reference, flash_attention_bwd_reference,
     flash_attention_kv_quant_reference) and fp32 vanilla on the same inputs
     (K4's on the K/V dequantized the kernel's way): bf16 out and K4 2e-2,
     grads 2e-2 x max |grad| of the fp32 reference; fp32 out 1e-5, grads
     1e-4, K4 5e-5.  Returns the launches."""
     gen = torch.Generator().manual_seed(seed + 11)
-    cases = [(288, torch.bfloat16), (520, torch.bfloat16), (256, torch.float32)]
+    cases = [(288, torch.bfloat16), (520, torch.bfloat16), (256, torch.float32), (520, torch.float32)]
     inputs = [tuple(_rand(gen, (2, 4, 1024, d), dtype) for _ in range(4)) for d, dtype in cases]
     torch.cuda.synchronize()
     _reset_launches()
@@ -1800,13 +1894,18 @@ def phase_simt_path(seed: int) -> dict:
     launches = {k: n for k, n in FA.KERNEL_LAUNCHES.items() if n}
     if launches != SIMT_PATH_LAUNCHES:
         raise AssertionError(f"[simt-path] launches {launches}, want {SIMT_PATH_LAUNCHES}")
+    # The plain backward at the D64 kernels' tiles: at the SIMT family's
+    # 8-32-row tiles it costs thousands of small launches a call, and the
+    # tiling changes only the order of its fp32 sums
+    # (test_plain_backward_tiling_does_not_change_result).
+    bwd_tiles = FA.default_blocks(1024, 1024, 64)
     for (d, dtype), (q, k, v, do, kv, out, o4, grads) in zip(cases, results):
         label = f"b2 h4 L1024 D{d} {dtype}"
         fp32 = dtype == torch.float32
         q, k, v = (x.detach() for x in (q, k, v))
         with torch.no_grad():
             o_p, lse_p = FA.flash_attention_reference(q, k, v)
-            g_p = FA.flash_attention_bwd_reference(q, k, v, o_p, lse_p, do)
+            g_p = FA.flash_attention_bwd_reference(q, k, v, o_p, lse_p, do, block_sizes=bwd_tiles)
             o4_p = QK.flash_attention_kv_quant_reference(q, kv)
             k_t, v_t = (QK._dequantize_like_kernel(x, sc, dtype) for x, sc in ((kv.k, kv.k_scale), (kv.v, kv.v_scale)))
             o4_d = _dense_on(q, k_t, v_t)
@@ -1818,8 +1917,8 @@ def phase_simt_path(seed: int) -> dict:
                  for n, a, p_, r in zip(("dq", "dk", "dv"), grads, g_p, g_d)]
         errs.append(_hold(label, "K4 int8", o4, o4_p, o4_d, 5e-5 if fp32 else 2e-2))
         say(f"[simt-path] {label} vs plain/vanilla: {'  '.join(errs)}  ok")
-    say(f"[simt-path] forward + backward + K4 (int8) at b2 h4 L1024 D288 / D520 bf16 and D256 fp32: launches "
-        f"{launches}")
+    say(f"[simt-path] forward + backward + K4 (int8) at b2 h4 L1024 D288 / D520 bf16 and D256 / D520 fp32: "
+        f"launches {launches}")
     return launches
 
 
@@ -2326,24 +2425,64 @@ def _time_family(gen, smi: str, label: str, b: int, h: int, L: int, d: int, dtyp
             for name, (ms, pl, (bd, by), lib) in rows_.items()}
 
 
-def phase_timing_simt(seed: int, smi: str) -> dict:
-    """The SIMT family at b8 h12 L1024 (every tensor above L2's 50 MB, as
-    at the D256 timing shape): fp32 at D256 (the "_d256_simt" rows) and
-    bf16 at D512 (the "_wide" rows, which carry the D1024 times beside them
-    as d1024_*); returns {kernel: row}."""
+# Device ms of the 16-bit SIMT forward that the wide wgmma K1 and K4
+# replaced, at b8 h12 L1024 bf16 causal, {key: (D512, D1024)}: the earlier
+# times in PERF.md's kernel table, read by this script's timing phase while
+# that kernel still ran (NVIDIA H100 80GB HBM3, 700.00 W).  No run can
+# measure them now, so they stand on the [timing] line only, as the earlier
+# reading, and never in the kernels line.
+SIMT_16BIT_MS = {"flash_fwd_wide": (14.1363, 41.5888), "flash_fwd_kv_quant_wide": (12.7607, 34.0706)}
+
+
+def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
+    """The kernels of head dims above 128 that the D256 timing does not
+    cover, and fp32 at 64 and 128, at b8 h12 L1024 (every tensor above L2's
+    50 MB, as at the D256 timing shape): fp32 at D256 (the "_d256_simt"
+    rows); bf16 at D512 (the "_wide" rows: the wide wgmma K1 and K4, the
+    pre-pass, the SIMT K2 and K3; they carry the D1024 times beside them
+    as d1024_*), with K1's and K4's speed-up over the SIMT forward they
+    replaced (SIMT_16BIT_MS, an earlier reading, printed on the [timing]
+    line only) and K1's ratio to SDPA's forward; fp32 at D512
+    (the "_wide_simt" rows, the SIMT K1 and K4; the SIMT K2 and K3 are
+    timed beside them); fp32 at D64 and D128 (K1, K4, the pre-pass, K2, K3
+    in the entry points' fp32 kernels, SDPA fp32), bounds at 67 TFLOP/s.
+    Returns ({kernel: row}, {kernel: {"fp32_d64": row, "fp32_d128":
+    row}}) for the rows of K1-K4 and the pre-pass."""
     gen = torch.Generator().manual_seed(seed + 13)
+    f32, bf16 = torch.float32, torch.bfloat16
     result = {}
-    f32 = _time_family(gen, smi, "SIMT family, fp32", 8, 12, 1024, 256, torch.float32, FP32_FLOPS, True)
+    d256 = _time_family(gen, smi, "SIMT family, fp32", 8, 12, 1024, 256, f32, FP32_FLOPS, True)
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_kv_quant"):
-        result[f"{name}_d256_simt"] = f32[name]
-    wide = _time_family(gen, smi, "SIMT family, padded head dim 512", 8, 12, 1024, 512, torch.bfloat16, BF16_FLOPS,
-                        True)
-    wide1024 = _time_family(gen, smi, "SIMT family, padded head dim 1024", 8, 12, 1024, 1024, torch.bfloat16,
-                            BF16_FLOPS, False)
+        result[f"{name}_d256_simt"] = d256[name]
+    wide = _time_family(gen, smi, "padded head dim 512 (K1, K4: wide wgmma; K2, K3: SIMT)", 8, 12, 1024, 512, bf16,
+                        BF16_FLOPS, True)
+    wide1024 = _time_family(gen, smi, "padded head dim 1024 (K1, K4: wide wgmma; K2, K3: SIMT)", 8, 12, 1024, 1024,
+                            bf16, BF16_FLOPS, False)
     for name, row in wide.items():
         row.update({f"d1024_{k}": v for k, v in wide1024[name].items() if k != "plain_ms"})
         result[f"{name}_wide"] = row
-    return result
+    for key, simt in SIMT_16BIT_MS.items():
+        row = result[key]
+        parts = []
+        for tag, pre in (("D512", ""), ("D1024", "d1024_")):
+            ms, bound = row[f"{pre}ms"], row[f"{pre}bound_ms"]
+            old = simt[0 if tag == "D512" else 1]
+            lib = row[f"{pre}library_ms"]
+            sdpa = f"; SDPA forward {lib:.4f} ms, {key} / SDPA {ms / lib:.2f}x" if lib else ""
+            parts.append(f"{tag} {ms:.4f} ms ({bound / ms:.1%} of the bound {bound:.4f} ms; the SIMT forward's "
+                         f"{old} ms, read in an earlier run, not this one, {old / ms:.1f}x{sdpa})")
+        say(f"[timing] {smi} | wide wgmma {key} b8 h12 L1024 bf16 causal: " + "; ".join(parts))
+    fp32_wide = _time_family(gen, smi, "fp32, padded head dim 512 (SIMT family)", 8, 12, 1024, 512, f32,
+                             FP32_FLOPS, True)
+    for name in ("flash_fwd", "flash_fwd_kv_quant"):
+        result[f"{name}_wide_simt"] = fp32_wide[name]
+    extra: dict = {}
+    for d in (64, 128):
+        rows = _time_family(gen, smi, f"fp32 D{d} (the entry points' fp32 kernels)", 8, 12, 1024, d, f32,
+                            FP32_FLOPS, True)
+        for name, row in rows.items():
+            extra.setdefault(name, {})[f"fp32_d{d}"] = row
+    return result, extra
 
 
 AT = importlib.import_module("flash_attention_tpu_torch.kernels.autotune")
@@ -2996,8 +3135,11 @@ def main() -> None:
     launches.update({k: n for k, n in simt_launches.items() if k not in d256_launches})
     phase_train_parity(args.seed, data)
     llama_times = phase_timing_llama_d256(args.seed, smi)
-    times = {**phase_timing(args.seed, smi), **phase_timing_quant(args.seed, smi), **llama_times,
-             **phase_timing_simt(args.seed, smi)}
+    simt_times, fp32_times = phase_timing_simt(args.seed, smi)
+    times = {**phase_timing(args.seed, smi), **phase_timing_quant(args.seed, smi), **llama_times, **simt_times}
+    # fp32 at D64 / D128 (K1-K4 and the pre-pass), beside each base row
+    for key, rows in fp32_times.items():
+        times[key].update(rows)
     # K1 on the Llama path: its launches in the two bursts and in Llama
     # training, and its time at the Llama prefill shape
     times["flash_fwd"].update(

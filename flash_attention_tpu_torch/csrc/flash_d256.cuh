@@ -1,6 +1,7 @@
-// The SIMT family: the forward (K1, and K4 over an int8 / fp8 K/V payload),
-// dK/dV (K2) and dQ (K3) in fp32 arithmetic at padded head dims D = 256
-// (fp32 inputs), 512 and 1024 (fp32, bf16 and fp16 inputs).  flash_simt_fwd.cu and
+// The SIMT family: the forward (K1, and K4 over an int8 / fp8 K/V payload)
+// for fp32 inputs at padded head dims D = 256, 512 and 1024, and dK/dV (K2)
+// and dQ (K3) in fp32 arithmetic for fp32 inputs at 256 and every input
+// dtype at 512 and 1024.  flash_simt_fwd.cu and
 // flash_simt_fwd_kv_quant.cu instantiate the forward with flash_fwd.cuh's
 // FwdParams, flash_simt_bwd.cu the backward with flash_bwd.cuh's BwdParams;
 // the backward's pre-pass (di, qs) is flash_bwd.cu's own at every head dim.
@@ -12,10 +13,12 @@
 //   * flash_attention_tpu/quant/kv.py::_fwd_quant_kernel (K4);
 //   * flash_attention_tpu/kernels/flash_attention.py::_dkv_kernel (K2) and
 //     ::_dq_kernel (K3).
-// Which inputs take them: every dtype at D = 512 and 1024; at D = 256 fp32
-// only (TF32 tensor cores would miss the 1e-5 tier), while bf16 / fp16 K1,
-// K4, K2 and K3 at D = 256 run the warp-specialised wgmma kernels
-// (flash_fwd.cuh, flash_bwd.cuh), and the dispatch below refuses them.  They compute what the plain
+// Which inputs take them: fp32 at every one of these head dims (TF32 tensor
+// cores would miss the 1e-5 tier), and bf16 / fp16 K2 and K3 at D = 512
+// and 1024, where they read the lse of the wide wgmma forward
+// (flash_fwd_wide.cuh).  bf16 / fp16 K1 and K4 run wgmma kernels at every
+// head dim, K2 and K3 up to 256 (flash_fwd.cuh, flash_fwd_wide.cuh,
+// flash_bwd.cuh), and the dispatch below refuses them.  They compute what the plain
 // versions in kernels/flash_attention.py compute, with the same roundings:
 // q scaled by sm_scale * log2(e) and rounded to T before QK^T, the online
 // softmax in the exp2 domain with m / l / the accumulator in fp32, P rounded
@@ -408,25 +411,18 @@ cudaError_t launch_bwd(int which, const P& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The SIMT kernels for q's dtype (0 = float32, 1 = bfloat16, 2 = float16),
-// K/V element type KV (KV = void: q's own type) and head dim D; at D = 256
-// fp32 only (bf16 / fp16 run the wgmma kernels there and are not built
-// here).
+// The SIMT forward for fp32 q (dtype 0) over K/V element type KV (KV =
+// void: fp32) at head dim D; bf16 / fp16 (1, 2) run the wgmma kernels at
+// every head dim (flash_fwd.cuh, flash_fwd_wide.cuh) and are not built here.
 template <typename KV, int D, typename P>
 cudaError_t launch_fwd_dim(int dtype, const P& p, cudaStream_t s) {
   using F32 = typename std::conditional<std::is_void<KV>::value, float, KV>::type;
-  using BF16 = typename std::conditional<std::is_void<KV>::value, __nv_bfloat16, KV>::type;
-  using F16 = typename std::conditional<std::is_void<KV>::value, __half, KV>::type;
   if (dtype == 0) return launch_fwd<float, F32, D>(p, s);
-  if constexpr (D != 256) {
-    if (dtype == 1) return launch_fwd<__nv_bfloat16, BF16, D>(p, s);
-    if (dtype == 2) return launch_fwd<__half, F16, D>(p, s);
-  }
   return cudaErrorInvalidValue;
 }
 
-// As launch_fwd_dim at head dim 256 (fp32 only), 512 or 1024;
-// cudaErrorInvalidValue for any other.
+// As launch_fwd_dim at head dim 256, 512 or 1024; cudaErrorInvalidValue for
+// any other.
 template <typename KV, typename P>
 cudaError_t launch_fwd_for(int dtype, int head_dim, const P& p, cudaStream_t s) {
   if (head_dim == 256) return launch_fwd_dim<KV, 256>(dtype, p, s);

@@ -20,8 +20,12 @@
 // scale.to(T), rounded to T), so from there on K4 is K1.
 //
 // Head dims: 64, 128 and, for bf16 / fp16, 256 (flash_fwd_d256.cu
-// instantiates D = 256 in a source of its own); fp32 at 256 and every dtype
-// at 512 and 1024 take the SIMT family of flash_d256.cuh.
+// instantiates D = 256 in a source of its own), 512 and 1024 (the wide
+// kernel of flash_fwd_wide.cuh: two consumer warpgroups share a 64-row
+// query tile, each reduces S over half the head dim and accumulates 256 of
+// a block's 512 output columns; flash_fwd_wide.cu and
+// flash_fwd_wide_d1024.cu); fp32 above 128 takes the SIMT family of
+// flash_d256.cuh.
 //
 // What bounds it on this card: at the GPT-2 shapes (h12, L1024, D64, causal)
 // the two products need 12.9 GFLOP at b8 (13.0 us at 989 TFLOP/s) and q, k, v
@@ -90,7 +94,11 @@
 // K4's 56, consumers 232, K4's 224); no spills, except 8 bytes in each of
 // K4's four D = 128 instantiations.  At D = 256: K1 198 registers (256
 // threads), no spills; K4 168 with 280 bytes of spill stores (K1 with two
-// consumer warpgroups: 168, 308 bytes).  No wgmma is serialised (C7518).
+// consumer warpgroups: 168, 308 bytes).  The wide kernel (flash_fwd_wide.cuh,
+// 384 threads): 167 registers and 64 bytes of spill stores at D = 512 (K1
+// and K4), 162 and no spills at D = 1024; with a one-warp producer (288
+// threads) ptxas still gave 168 and K1 spilled 136 bytes at D = 512.  No
+// wgmma is serialised (C7518).
 // The SIMT path uses 202 registers at D = 64 and 255 at D = 128 (88 bytes
 // spilled), K4's 192 and 255.
 //
@@ -792,6 +800,12 @@ cudaError_t launch_simt(const FwdParams& p, cudaStream_t stream) {
 // dtype (kv_dtype 0), int8 (1) or fp8 e4m3 (2): flash_fwd_d256.cu.
 cudaError_t launch_ws_d256(int dtype, int kv_dtype, const FwdParams& p, cudaStream_t s);
 
+// K1 and K4 at D = 512 (flash_fwd_wide.cu) and 1024 (flash_fwd_wide_d1024.cu)
+// for bf16 (dtype 1) and fp16 (2): flash_fwd_wide.cuh's kernel, two consumer
+// warpgroups sharing a 64-row query tile.
+cudaError_t launch_fwd_wide_d512(int dtype, int kv_dtype, const FwdParams& p, cudaStream_t s);
+cudaError_t launch_fwd_wide_d1024(int dtype, int kv_dtype, const FwdParams& p, cudaStream_t s);
+
 // K1's tiles other than the default, bf16 (dtype 1) and fp16 (2), each
 // head dim's in a source of its own so that they compile beside the rest:
 // block_q 128 and 64 at D = 64 (flash_fwd_tiles_d64.cu), 64 at D = 128
@@ -800,13 +814,13 @@ cudaError_t launch_k1_tile_d64(int dtype, int block_q, const FwdParams& p, cudaS
 cudaError_t launch_k1_tile_d128(int dtype, int block_q, const FwdParams& p, cudaStream_t s);
 
 // The kernel for q's dtype (0 = float32, 1 = bfloat16, 2 = float16), K/V
-// element type KV (KV = void: q's own type) and head dim: 64 or 128, and 256
-// for bf16 / fp16 (fp32 at 256 and every dtype at 512 and 1024 take the
-// SIMT family's entry points, flash_simt_fwd*.cu); cudaErrorInvalidValue
-// for a combination that is not instantiated.  block_q picks K1's tile
-// height (bf16 / fp16): 0 or the default's (192 at D = 64, 128 at D = 128,
-// 64 at D = 256) for the default, or another of K1_TILES; fp32 and K4 have
-// one tile and take 0 only.
+// element type KV (KV = void: q's own type) and head dim: 64 or 128, and
+// 256, 512 and 1024 for bf16 / fp16 (fp32 above 128 takes the SIMT family's
+// entry points, flash_simt_fwd*.cu); cudaErrorInvalidValue for a
+// combination that is not instantiated.  block_q picks K1's tile height
+// (bf16 / fp16): 0 or the default's (192 at D = 64, 128 at D = 128, 64 at
+// D = 256) for the default, or another of K1_TILES; fp32, K4 and the wide
+// kernels (D = 512, 1024) have one tile and take 0 only.
 template <typename KV>
 cudaError_t launch_fwd_for(int dtype, int head_dim, const FwdParams& p, cudaStream_t s, int block_q = 0) {
   using F32 = typename std::conditional<std::is_void<KV>::value, float, KV>::type;
@@ -816,7 +830,7 @@ cudaError_t launch_fwd_for(int dtype, int head_dim, const FwdParams& p, cudaStre
   if (block_q != 0) {
     const bool wgmma = std::is_void<KV>::value && (dtype == 1 || dtype == 2);
     const int rows = head_dim == 64 ? 192 : head_dim == 128 ? 128 : 64;  // the default tile's
-    if (!wgmma) return cudaErrorInvalidValue;
+    if (!wgmma || head_dim > 256) return cudaErrorInvalidValue;
     if (block_q != rows) {
       if (head_dim == 64) return launch_k1_tile_d64(dtype, block_q, p, s);
       if (head_dim == 128) return launch_k1_tile_d128(dtype, block_q, p, s);
@@ -830,6 +844,8 @@ cudaError_t launch_fwd_for(int dtype, int head_dim, const FwdParams& p, cudaStre
   if (dtype == 2 && head_dim == 64) return launch_ws<__half, F16, 64>(p, s);
   if (dtype == 2 && head_dim == 128) return launch_ws<__half, F16, 128>(p, s);
   if ((dtype == 1 || dtype == 2) && head_dim == 256) return launch_ws_d256(dtype, kKv, p, s);
+  if ((dtype == 1 || dtype == 2) && head_dim == 512) return launch_fwd_wide_d512(dtype, kKv, p, s);
+  if ((dtype == 1 || dtype == 2) && head_dim == 1024) return launch_fwd_wide_d1024(dtype, kKv, p, s);
   return cudaErrorInvalidValue;
 }
 

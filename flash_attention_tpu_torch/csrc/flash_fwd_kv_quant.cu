@@ -9,9 +9,9 @@
 #include "flash_fwd.cuh"
 
 // dtype: q's, 0 = float32, 1 = bfloat16, 2 = float16.  kv_dtype: 1 = int8,
-// 2 = float8_e4m3fn.  head_dim: 64 or 128, and 256 for bfloat16 / float16 q
-// (fa_flash_fwd_kv_quant_simt, flash_simt_fwd_kv_quant.cu, takes the other
-// head dims and dtypes).  strides (elements): q, k, v, o
+// 2 = float8_e4m3fn.  head_dim: 64 or 128, and 256, 512 and 1024 for
+// bfloat16 / float16 q (fa_flash_fwd_kv_quant_simt,
+// flash_simt_fwd_kv_quant.cu, takes fp32 q at 256, 512 and 1024).  strides (elements): q, k, v, o
 // as (batch, head, row), then the scales' (batch, head); the last dims of
 // every tensor, the scales' included, are contiguous.  q_ids / kv_ids as
 // for fa_flash_fwd.  Returns a cudaError_t (0 on success).

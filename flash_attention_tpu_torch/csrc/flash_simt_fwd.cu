@@ -1,14 +1,14 @@
 // K1 in the SIMT family (fa_flash_fwd_simt): the forward of flash_d256.cuh,
-// where the design notes are, at padded head dims 256 (fp32; bf16 and fp16
-// take fa_flash_fwd's wgmma kernel there), 512 and 1024.
+// where the design notes are, for fp32 at padded head dims 256, 512 and 1024
+// (bf16 and fp16 take fa_flash_fwd's wgmma kernels there).
 
 #include "flash_d256.cuh"
 #include "flash_fwd.cuh"
 
-// Arguments as for fa_flash_fwd (flash_fwd.cu); head_dim 256 (fp32), 512 or
-// 1024 (every dtype).  The SIMT family has one tile, so block_q must be 0.
+// Arguments as for fa_flash_fwd (flash_fwd.cu); dtype 0 (fp32) at head_dim
+// 256, 512 or 1024.  The SIMT family has one tile, so block_q must be 0.
 // Returns a cudaError_t (0 on success; cudaErrorInvalidValue for bf16 /
-// fp16 at 256 or a block_q other than 0).
+// fp16 or a block_q other than 0).
 extern "C" int fa_flash_fwd_simt(const void* q, const void* k, const void* v, void* o, void* lse,
                                  const void* q_ids, const void* kv_ids,
                                  int dtype, int batch, int hq, int hkv, int lq, int lk, int head_dim,

@@ -1,14 +1,14 @@
 // K4 in the SIMT family (fa_flash_fwd_kv_quant_simt): the forward of
 // flash_d256.cuh, where the design notes are, over an int8 or fp8 K/V
-// payload at padded head dims 256 (fp32 q; bf16 and fp16 take
-// fa_flash_fwd_kv_quant's wgmma kernel there), 512 and 1024.
+// payload for fp32 q at padded head dims 256, 512 and 1024 (bf16 and fp16 q
+// take fa_flash_fwd_kv_quant's wgmma kernels there).
 
 #include "flash_d256.cuh"
 #include "flash_fwd.cuh"
 
-// Arguments as for fa_flash_fwd_kv_quant (flash_fwd_kv_quant.cu); head_dim
-// 256 (fp32 q), 512 or 1024 (every q dtype).  Returns a cudaError_t (0 on
-// success; cudaErrorInvalidValue for bf16 / fp16 q at 256).
+// Arguments as for fa_flash_fwd_kv_quant (flash_fwd_kv_quant.cu); fp32 q
+// (dtype 0) at head_dim 256, 512 or 1024.  Returns a cudaError_t (0 on
+// success; cudaErrorInvalidValue for bf16 / fp16 q).
 extern "C" int fa_flash_fwd_kv_quant_simt(const void* q, const void* k, const void* k_scale, const void* v,
                                           const void* v_scale, void* o, const void* q_ids, const void* kv_ids,
                                           int dtype, int kv_dtype, int batch, int hq, int hkv, int lq, int lk,

@@ -153,6 +153,7 @@ __device__ __forceinline__ void fence_regs(uint64_t (&d)[N]) {
 #define FA_D16(d) FA_D8(d, 0), FA_D8(d, 8)
 #define FA_D32(d) FA_D16(d), FA_D8(d, 16), FA_D8(d, 24)
 #define FA_D64(d) FA_D32(d), FA_D8(d, 32), FA_D8(d, 40), FA_D8(d, 48), FA_D8(d, 56)
+#define FA_R8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define FA_R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define FA_R32                                                                                                   \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, " \
@@ -179,13 +180,16 @@ __device__ __forceinline__ void fence_regs(uint64_t (&d)[N]) {
                : DOPS                                                                                     \
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
 
-// An m64 x N x k16 product, SS form; T is __nv_bfloat16 or __half, N 32, 64
-// or 128 (d holds N / 2 floats a thread).
+// An m64 x N x k16 product, SS form; T is __nv_bfloat16 or __half, N 16,
+// 32, 64 or 128 (d holds N / 2 floats a thread).
 template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate) {
-  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss is instantiated for N 32, 64 and 128");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma_ss is instantiated for N 16, 32, 64 and 128");
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  if constexpr (N == 32) {
+  if constexpr (N == 16) {
+    if constexpr (kBf16) FA_WGMMA_SS("m64n16k16", "bf16", FA_R8, "8", "9", "10", FA_D8(d, 0));
+    else FA_WGMMA_SS("m64n16k16", "f16", FA_R8, "8", "9", "10", FA_D8(d, 0));
+  } else if constexpr (N == 32) {
     if constexpr (kBf16) FA_WGMMA_SS("m64n32k16", "bf16", FA_R16, "16", "17", "18", FA_D16(d));
     else FA_WGMMA_SS("m64n32k16", "f16", FA_R16, "16", "17", "18", FA_D16(d));
   } else if constexpr (N == 64) {
@@ -216,6 +220,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 #undef FA_R64
 #undef FA_R32
 #undef FA_R16
+#undef FA_R8
 #undef FA_D64
 #undef FA_D32
 #undef FA_D16

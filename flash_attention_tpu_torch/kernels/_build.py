@@ -31,7 +31,9 @@ NVCC_FLAGS = [
 _lib: ctypes.CDLL | None = None
 # What the last build did: library path, seconds spent in nvcc (0.0 when the
 # library was already built), the seconds each source's nvcc took (all
-# started together), and the compiler's register/spill report.
+# started together; empty when already built), and the compiler's
+# register/spill report (kept beside the library as <library>.ptxas.log, so
+# a process that finds the library built reads the report too).
 build_info: dict = {}
 
 
@@ -44,6 +46,14 @@ def _nvcc() -> str:
     if not os.path.exists(found):
         raise RuntimeError("nvcc not found: the CUDA kernels can only be built where the CUDA toolkit is installed")
     return found
+
+
+def _read(path: str) -> str:
+    try:
+        with open(path) as f:
+            return f.read()
+    except FileNotFoundError:
+        return ""
 
 
 def _library_path() -> str:
@@ -60,7 +70,7 @@ def build() -> str:
     returns its path.  Raises with nvcc's output when compilation fails."""
     path = _library_path()
     if os.path.exists(path):
-        build_info.update(path=path, seconds=0.0)
+        build_info.update(path=path, seconds=0.0, per_source={}, ptxas=_read(path + ".ptxas.log"))
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
@@ -93,6 +103,10 @@ def build() -> str:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
         seconds = time.perf_counter() - t0
+        # the log first: whoever finds the library finds its log beside it
+        with open(os.path.join(tmpdir, "ptxas.log"), "w") as f:
+            f.write("".join(outs))
+        os.replace(os.path.join(tmpdir, "ptxas.log"), path + ".ptxas.log")
         os.replace(so, path)  # atomic: a concurrent loader sees all or nothing
     build_info.update(path=path, seconds=seconds, per_source=per_source, ptxas="".join(outs))
     return path

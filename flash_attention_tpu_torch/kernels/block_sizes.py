@@ -41,6 +41,14 @@ KERNEL_DQ_D256 = (64, 64)  # (pinned query rows, streamed KV rows)
 # rows and stream tiles of the largest power-of-two height whose fp32 tiles
 # fit (2 of them forward, 3 backward); {padded head dim: (pinned, streamed)}.
 KERNEL_SIMT_TILE = {256: (32, 32), 512: (16, 32), 1024: (8, 16)}
+# The bf16/fp16 forward at 512 and 1024 (csrc/flash_fwd_wide.cuh, wide::Cfg):
+# two consumer warpgroups share 64 query rows and split the output columns
+# (512 a block), against KV tiles in rings of K and of V slots; {padded
+# head dim: (KV rows of a tile, K1's K slots, K1's V slots, K4's payload
+# staging slots)}.  K4 keeps one K and one V slot, which its producer
+# dequantizes into.
+KERNEL_WIDE_Q = 64
+KERNEL_WIDE_KV = {512: (32, 2, 2, 2), 1024: (16, 2, 1, 1)}
 # Shared memory an H100 thread block can use (227 KB).
 SMEM_PER_BLOCK = 232_448
 
@@ -54,9 +62,12 @@ def _padded(head_dim: int) -> int:
 def kernel_block_q(head_dim: int, quantized: bool = False) -> int:
     """Query rows of the bf16/fp16 forward kernel's default tile: 192 (three
     consumer warpgroups) at head dim 64 and below, 128 (two) up to 128 and
-    for K4 (`quantized`) at 256, 64 (one) for K1 at 256."""
+    for K4 (`quantized`) at 256, 64 (one) for K1 at 256, and 64 (shared by
+    two) at 512 and 1024."""
     if head_dim <= 64:
         return 192
+    if _padded(head_dim) > 256:
+        return KERNEL_WIDE_Q
     return 64 if _padded(head_dim) == 256 and not quantized else 128
 
 
@@ -69,9 +80,13 @@ K1_TILES = {64: (192, 128, 64), 128: (128, 64), 256: (64,)}
 
 
 def kernel_stages(head_dim: int) -> int:
-    """K/V ring slots of the bf16/fp16 forward kernel: 4, and 2 at head dim
-    256, where a K and a V tile take 64 KB."""
-    return 2 if _padded(head_dim) == 256 else KERNEL_STAGES
+    """K/V ring slots of the bf16/fp16 forward kernel: 4, 2 at head dim 256,
+    where a K and a V tile take 64 KB, and at 512 and 1024 the wide K1's K
+    slots (2; its V slots are 2 and 1, `KERNEL_WIDE_KV`)."""
+    d = _padded(head_dim)
+    if d > 256:
+        return KERNEL_WIDE_KV[d][1]
+    return 2 if d == 256 else KERNEL_STAGES
 
 
 def forward_smem_bytes(head_dim: int, quantized: bool, block_q: int | None = None) -> int:
@@ -81,7 +96,10 @@ def forward_smem_bytes(head_dim: int, quantized: bool, block_q: int | None = Non
     elements) and the KV segment ids; K4's staging slots (two, one at head
     dim 256) of 1-byte K and V payloads; the mbarriers (q, full and empty
     per slot, one per staging slot); 1024 bytes to align the base for the
-    128-byte swizzle."""
+    128-byte swizzle.  At 512 and 1024 the wide kernel's layout
+    (`wide_forward_smem_bytes`)."""
+    if _padded(head_dim) > 256:
+        return wide_forward_smem_bytes(head_dim, quantized)
     stages = kernel_stages(head_dim)
     staging = 1 if _padded(head_dim) == 256 else 2
     tile = KERNEL_BLOCK_KV * head_dim * 2
@@ -90,6 +108,25 @@ def forward_smem_bytes(head_dim: int, quantized: bool, block_q: int | None = Non
     rows = block_q or kernel_block_q(head_dim, quantized)
     return (rows * head_dim * 2 + stages * (2 * tile + KERNEL_BLOCK_KV * 4)
             + payloads + barriers + 1024)
+
+
+def wide_forward_smem_bytes(head_dim: int, quantized: bool) -> int:
+    """Shared memory of the bf16/fp16 forward at 512 and 1024, as
+    wide::Cfg::kSmemBytes lays it out: the q tile (64 x D, 2-byte
+    elements); per slot a K tile and a V slab tile (512 columns; K1's ring,
+    K4's one slot); K4's staging slots of 1-byte K and V slab payloads; the
+    two warpgroups' fp32 partials of S, double-buffered; the mbarriers (q,
+    full and empty of K and of V per slot, one per staging slot); 1024
+    bytes to align the base for the 128-byte swizzle."""
+    d = _padded(head_dim)
+    bc, k_slots, v_slots, staging = KERNEL_WIDE_KV[d]
+    if quantized:
+        k_slots = v_slots = 1
+    else:
+        staging = 0
+    tiles = k_slots * bc * d * 2 + v_slots * bc * 512 * 2 + staging * bc * (d + 512)
+    return (KERNEL_WIDE_Q * d * 2 + tiles + 2 * 2 * KERNEL_WIDE_Q * bc * 4
+            + (1 + 2 * k_slots + 2 * v_slots + staging) * 8 + 1024)
 
 
 def backward_tiles(head_dim: int, kernel: str) -> tuple[int, int]:
@@ -229,17 +266,22 @@ def default_blocks(
     and dQ keeps 32 x 32 tiles where its kernel pins 64 query rows against
     64-row KV tiles (`KERNEL_DQ_D256`): the plain loop's dQ tile sets only
     its order of summation, well inside the bf16 tolerance.  The SIMT
-    family (fp32 at 256, every dtype at 512 and 1024) pins and streams
-    `KERNEL_SIMT_TILE` rows in every kernel.  `dtype` is the inputs' (None:
-    a 16-bit type; float32 changes the tile only at 256, since at 64 and
-    128 its SIMT kernels differ from the wgmma ones in the order of
-    summation alone).  q_len, kv_len and group are taken for signature
-    parity with the JAX package."""
+    family (fp32 above 128, and K2 / K3 of every dtype at 512 and 1024)
+    pins and streams `KERNEL_SIMT_TILE` rows in every kernel; the bf16/fp16
+    forward at 512 and 1024 takes 64 query rows against `KERNEL_WIDE_KV`
+    rows.  `dtype` is the inputs' (None: a 16-bit type; float32 changes the
+    tile only from 256 up, since at 64 and 128 its SIMT kernels differ from
+    the wgmma ones in the order of summation alone).  q_len, kv_len and
+    group are taken for signature parity with the JAX package."""
     del q_len, kv_len, group
     d = _padded(head_dim)
     if d > 256 or (d == 256 and dtype == torch.float32):
         rows, bc = KERNEL_SIMT_TILE[d]
-        return BlockSizes(block_q=rows, block_kv=bc, block_q_dkv=bc, block_kv_dkv=rows, block_q_dq=rows,
+        if d > 256 and dtype != torch.float32:
+            fwd_q, fwd_kv = KERNEL_WIDE_Q, KERNEL_WIDE_KV[d][0]
+        else:
+            fwd_q, fwd_kv = rows, bc
+        return BlockSizes(block_q=fwd_q, block_kv=fwd_kv, block_q_dkv=bc, block_kv_dkv=rows, block_q_dq=rows,
                           block_kv_dq=bc)
     if d == 256:
         pinned, stream = KERNEL_DKV_D256

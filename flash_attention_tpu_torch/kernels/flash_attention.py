@@ -11,11 +11,14 @@ and `flash_attention_with_lse` look at the device of their inputs
   qs, then K2 dK/dV and K3 dQ).  The kernels are built for head dims 64,
   128, 256, 512 and 1024; the entry points zero-pad any other head dim up
   to 1024 to the next of them and slice the results back
-  (`padded_head_dim`).  At 64, 128 and 256 the bf16/fp16 kernels are
-  warp-specialised TMA + wgmma ones (fp32 takes a SIMT kernel inside the
-  same entry points at 64 and 128); fp32 at 256 and everything at 512 and
-  1024 take the SIMT family of `csrc/flash_d256.cuh` through entry points
-  of their own (`_route`).
+  (`padded_head_dim`).  The bf16/fp16 forward (K1, and K4 in
+  `quant/kv.py`) is a warp-specialised TMA + wgmma kernel at every head
+  dim: `csrc/flash_fwd.cuh` up to 256, `csrc/flash_fwd_wide.cuh` at 512
+  and 1024 (two consumer warpgroups sharing a 64-row query tile, 512
+  output columns a block).  The bf16/fp16 backward is wgmma up to 256.
+  fp32 takes a SIMT kernel inside the same entry points at 64 and 128;
+  fp32 above 128 and the backward at 512 and 1024 take the SIMT family of
+  `csrc/flash_d256.cuh` through entry points of their own (`_route`).
   Nothing falls back: what the kernels do not take raises, a head dim above
   1024 among it.
 * CPU tensors go to the plain versions: `flash_attention_reference` (a tile
@@ -96,8 +99,10 @@ def _pad_head_dim(x: torch.Tensor, dp: int) -> torch.Tensor:
 # and K6 in inference/paged_attention.py.  Head dims 256, 512 and 1024 run
 # other kernels, counted under keys of their own (`_route`): "_d256" for
 # what bf16/fp16 runs at 256 (the wgmma K1, K4, K2 and K3), "_d256_simt"
-# for the SIMT K1, K4, K2 and K3 that fp32 runs there, "_wide" for the SIMT
-# family at 512 and 1024.
+# for the SIMT K1, K4, K2 and K3 that fp32 runs there; at 512 and 1024
+# "_wide" for the bf16/fp16 wgmma K1 and K4, the pre-pass and the SIMT K2
+# and K3 of every dtype, "_wide_simt" for the SIMT K1 and K4 that fp32
+# runs there.
 KERNEL_LAUNCHES = {
     "flash_fwd": 0,
     "flash_bwd_prep": 0,
@@ -120,6 +125,8 @@ KERNEL_LAUNCHES = {
     "flash_bwd_dkv_wide": 0,
     "flash_bwd_dq_wide": 0,
     "flash_fwd_kv_quant_wide": 0,
+    "flash_fwd_wide_simt": 0,
+    "flash_fwd_kv_quant_wide_simt": 0,
 }
 
 
@@ -127,15 +134,22 @@ def _route(name: str, head_dim: int, dtype: torch.dtype) -> tuple[str, str]:
     """(KERNEL_LAUNCHES key, C entry point) of kernel `name` ("flash_fwd",
     "flash_fwd_kv_quant", "flash_bwd_prep", "flash_bwd_dkv" or
     "flash_bwd_dq") at padded head dim `head_dim` for q's `dtype`.  The
-    SIMT family (csrc/flash_d256.cuh), which fp32 runs at 256 and every
-    dtype above, has entry points of their own, named with "_simt"."""
+    SIMT family (csrc/flash_d256.cuh) has entry points of their own, named
+    with "_simt": fp32 runs it above 128, and every dtype runs its K2 and
+    K3 at 512 and 1024.  Keys: the name up to 128, "_d256" / "_d256_simt"
+    at 256; at 512 and 1024 "_wide" (bf16/fp16 K1 and K4 on the wgmma
+    kernels of csrc/flash_fwd_wide.cuh, the pre-pass, K2 and K3 of every
+    dtype) and "_wide_simt" (fp32 K1 and K4)."""
     if head_dim <= 128:
         return name, f"fa_{name}"
     if name == "flash_bwd_prep":
         return f"{name}_d256" if head_dim == 256 else f"{name}_wide", f"fa_{name}"
+    fp32 = dtype == torch.float32
     if head_dim > 256:
+        if name.startswith("flash_fwd"):
+            return (f"{name}_wide_simt", f"fa_{name}_simt") if fp32 else (f"{name}_wide", f"fa_{name}")
         return f"{name}_wide", f"fa_{name}_simt"
-    if dtype == torch.float32:
+    if fp32:
         return f"{name}_d256_simt", f"fa_{name}_simt"
     return f"{name}_d256", f"fa_{name}"
 

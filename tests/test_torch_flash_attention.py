@@ -149,8 +149,10 @@ def test_default_blocks_is_the_kernel_tile():
     consumer warpgroups at 64 and 128) 64 query rows against 128 pinned KV
     rows for dK/dV, 128 pinned query rows against 64 KV rows for dQ; at 256
     dK/dV 32 query rows against 64 pinned KV rows and dQ the SIMT family's
-    32 x 32.  The SIMT family (fp32 at 256, every dtype at 512 and 1024)
-    pins 256 / (D / 32) rows and streams 32, 32 and 16."""
+    32 x 32.  The SIMT family (fp32 from 256 up, the backward of every
+    dtype at 512 and 1024) pins 256 / (D / 32) rows and streams 32, 32 and
+    16; the bf16/fp16 forward at 512 and 1024 (the wide wgmma kernel) takes
+    64 query rows against 32 and 16 KV rows."""
     assert tbs.KERNEL_BLOCK_KV == 64
     bwd = dict(block_q_dkv=64, block_kv_dkv=128, block_q_dq=128, block_kv_dq=64)
     assert tbs.default_blocks(1024, 1024, 64) == tbs.BlockSizes(192, 64, **bwd)
@@ -166,9 +168,11 @@ def test_default_blocks_is_the_kernel_tile():
         assert tiles(256, dtype) == tiles(160, dtype) == (64, 64, (32, 64), (32, 32))
         assert tiles(256, dtype, quantized=True)[:2] == (128, 64)
     assert tiles(256, torch.float32) == tiles(129, torch.float32) == (32, 32, (32, 32), (32, 32))
-    for dtype in (torch.bfloat16, torch.float32):
-        assert tiles(512, dtype) == tiles(288, dtype) == (16, 32, (32, 16), (16, 32))
-        assert tiles(1024, dtype) == tiles(520, dtype) == (8, 16, (16, 8), (8, 16))
+    assert tiles(512, torch.float32) == tiles(288, torch.float32) == (16, 32, (32, 16), (16, 32))
+    assert tiles(1024, torch.float32) == tiles(520, torch.float32) == (8, 16, (16, 8), (8, 16))
+    for dtype in (None, torch.bfloat16, torch.float16):
+        assert tiles(512, dtype) == tiles(288, dtype) == (64, 32, (32, 16), (16, 32))
+        assert tiles(1024, dtype) == tiles(520, dtype) == (64, 16, (16, 8), (8, 16))
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -235,6 +239,29 @@ def test_forward_kernel_fits_in_shared_memory(dtype, kv, head_dim):
     assert stages == (2 if head_dim == 256 else 4)
     rows = tbs.kernel_block_q(head_dim, quantized=kv != "same")
     assert used >= (rows + 2 * stages * tbs.KERNEL_BLOCK_KV) * head_dim * 2
+
+
+@pytest.mark.parametrize("kv", ["same", "int8", "float8_e4m3fn"])
+@pytest.mark.parametrize("head_dim", [512, 1024])
+def test_wide_forward_kernel_fits_in_shared_memory(kv, head_dim):
+    """The bf16/fp16 forward at 512 and 1024 (csrc/flash_fwd_wide.cuh) fits
+    an H100 block's 227 KB: the resident 64-row q tile, K slots and
+    512-column V slots (K1: tiles of 32 KV rows in two K and two V slots at
+    512, of 16 rows in two K slots and one V slot at 1024; K4 one of each,
+    its 1-byte payloads staged in two / one slots) and the two warpgroups'
+    S partials."""
+    quantized = kv != "same"
+    used = tbs.forward_smem_bytes(head_dim, quantized=quantized)
+    assert used <= tbs.SMEM_PER_BLOCK
+    bc, k_slots, v_slots, staging = tbs.KERNEL_WIDE_KV[head_dim]
+    assert (bc, k_slots, v_slots, staging) == ((32, 2, 2, 2) if head_dim == 512 else (16, 2, 1, 1))
+    assert tbs.kernel_stages(head_dim) == k_slots and tbs.kernel_block_q(head_dim, quantized) == 64
+    k_tile, v_tile = bc * head_dim * 2, bc * 512 * 2
+    slots = k_tile + v_tile + staging * (k_tile + v_tile) // 2 if quantized else k_slots * k_tile + v_slots * v_tile
+    assert used >= 64 * head_dim * 2 + slots + 2 * 2 * 64 * bc * 4
+    blocks = tbs.default_blocks(1024, 1024, head_dim, dtype=torch.bfloat16, quantized=quantized)
+    assert (blocks.block_q, blocks.block_kv) == (64, bc)
+    assert (blocks.block_kv_dkv, blocks.block_q_dkv) == tbs.KERNEL_SIMT_TILE[head_dim]
 
 
 def test_cpu_route_counts_no_kernel_launch():

@@ -371,13 +371,19 @@ _QS_ARG = {"fa_flash_bwd_prep": 4, "fa_flash_bwd_dkv": 6, "fa_flash_bwd_dkv_simt
         (256, torch.float32, ("flash_fwd_d256_simt", "fa_flash_fwd_simt"), ("flash_bwd_prep_d256", "fa_flash_bwd_prep"),
          ("flash_bwd_dkv_d256_simt", "fa_flash_bwd_dkv_simt"), ("flash_bwd_dq_d256_simt", "fa_flash_bwd_dq_simt"),
          ("flash_fwd_kv_quant_d256_simt", "fa_flash_fwd_kv_quant_simt")),
-        # 257-512 and 513-1024: the SIMT family, keys of their own
-        *((d, dtype, ("flash_fwd_wide", "fa_flash_fwd_simt"), ("flash_bwd_prep_wide", "fa_flash_bwd_prep"),
+        # 257-512 and 513-1024, bf16/fp16: the wide wgmma K1 and K4, the
+        # SIMT K2 and K3, keys of their own
+        *((d, dtype, ("flash_fwd_wide", "fa_flash_fwd"), ("flash_bwd_prep_wide", "fa_flash_bwd_prep"),
            ("flash_bwd_dkv_wide", "fa_flash_bwd_dkv_simt"), ("flash_bwd_dq_wide", "fa_flash_bwd_dq_simt"),
-           ("flash_fwd_kv_quant_wide", "fa_flash_fwd_kv_quant_simt"))
-          for d, dtype in ((288, torch.bfloat16), (512, torch.float32), (520, torch.float16), (1024, torch.bfloat16))),
+           ("flash_fwd_kv_quant_wide", "fa_flash_fwd_kv_quant"))
+          for d, dtype in ((288, torch.bfloat16), (520, torch.float16), (1024, torch.bfloat16))),
+        # fp32 there: the SIMT family throughout, its forward under "_wide_simt"
+        *((d, torch.float32, ("flash_fwd_wide_simt", "fa_flash_fwd_simt"), ("flash_bwd_prep_wide", "fa_flash_bwd_prep"),
+           ("flash_bwd_dkv_wide", "fa_flash_bwd_dkv_simt"), ("flash_bwd_dq_wide", "fa_flash_bwd_dq_simt"),
+           ("flash_fwd_kv_quant_wide_simt", "fa_flash_fwd_kv_quant_simt"))
+          for d in (512, 1024)),
     ],
-    ids=["bf16-256", "fp16-160", "fp32-256", "bf16-288", "fp32-512", "fp16-520", "bf16-1024"],
+    ids=["bf16-256", "fp16-160", "fp32-256", "bf16-288", "fp16-520", "bf16-1024", "fp32-512", "fp32-1024"],
 )
 def test_cuda_route_reaches_each_kernel(d, dtype, fwd, prep, dkv, dq, k4, monkeypatch):
     """The real launchers on the CUDA route, with the kernel library's C
@@ -422,13 +428,82 @@ def test_d256_route_sends_16_bit_types_to_wgmma_and_fp32_to_simt(name):
     """At padded head dim 256 each of K1, K4, K2 and K3 sends bf16 and fp16
     to its wgmma kernel's entry point under the "_d256" key, and fp32 to
     the SIMT family's (`fa_*_simt`) under a "_d256_simt" key of its own; at
-    128 and 512 the dtype does not change the route."""
+    128 the dtype does not change the route."""
     for dtype in (torch.bfloat16, torch.float16):
         assert tfa._route(name, 256, dtype) == (f"{name}_d256", f"fa_{name}")
         assert tfa._route(name, 128, dtype) == (name, f"fa_{name}")
-        assert tfa._route(name, 512, dtype) == (f"{name}_wide", f"fa_{name}_simt")
     assert tfa._route(name, 256, torch.float32) == (f"{name}_d256_simt", f"fa_{name}_simt")
     assert f"{name}_d256_simt" in tfa.KERNEL_LAUNCHES and f"{name}_d256" in tfa.KERNEL_LAUNCHES
+
+
+@pytest.mark.parametrize("d", [512, 1024])
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_fwd_kv_quant", "flash_bwd_dkv", "flash_bwd_dq"])
+def test_wide_route_sends_16_bit_forward_to_wgmma_and_the_rest_to_simt(name, d):
+    """At padded head dims 512 and 1024 K1 and K4 send bf16 and fp16 to
+    their own entry points (the wide wgmma kernels of flash_fwd_wide.cuh)
+    under the "_wide" key and fp32 to the SIMT family's under a
+    "_wide_simt" key of its own; K2 and K3 send every dtype to the SIMT
+    family under "_wide"."""
+    fwd = name.startswith("flash_fwd")
+    for dtype in (torch.bfloat16, torch.float16):
+        want = (f"{name}_wide", f"fa_{name}") if fwd else (f"{name}_wide", f"fa_{name}_simt")
+        assert tfa._route(name, d, dtype) == want
+    want = (f"{name}_wide_simt", f"fa_{name}_simt") if fwd else (f"{name}_wide", f"fa_{name}_simt")
+    assert tfa._route(name, d, torch.float32) == want
+    assert all(key in tfa.KERNEL_LAUNCHES for key, _ in (tfa._route(name, d, t) for t in (torch.bfloat16, torch.float32)))
+
+
+# Where fa_flash_fwd_kv_quant takes q's dtype code and the payload's
+# (0 = float32, 1 = bfloat16, 2 = float16; 1 = int8, 2 = float8_e4m3fn).
+_K4_DTYPE_ARGS = (8, 9)
+# Where fa_flash_fwd takes q's dtype code and block_q.
+_K1_DTYPE_ARG, _K1_BLOCK_Q_ARG = 7, 29
+
+
+@pytest.mark.parametrize("qdt", ["int8", "float8_e4m3fn"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_wide_k4_reaches_the_wgmma_entry_with_the_c_arguments(dtype, qdt, monkeypatch):
+    """K4 over int8 and fp8 at head dim 520 on the CUDA route, the C entry
+    points stood in for by a recorder: it reaches fa_flash_fwd_kv_quant (the
+    wide wgmma kernel, not the SIMT family's) with head dim 1024, q's and
+    the payload's dtype codes as the C side reads them, and the payloads
+    zero-padded to 1024 bytes a row; K1 at the same head dim reaches
+    fa_flash_fwd with block_q 0, the one tile the wide kernels take."""
+    calls = []
+
+    def record(entry, device, *args):
+        calls.append((entry, args))
+
+    monkeypatch.setattr(tfa, "kernel_route", lambda *ts: "cuda")
+    monkeypatch.setattr(tkv, "kernel_route", lambda *ts: "cuda")
+    monkeypatch.setattr(tfa, "_call", record)
+    monkeypatch.setattr(tkv, "_call", record)
+    q = torch.zeros(1, 4, 130, 520, dtype=dtype)
+    k, v = (torch.randn(1, 2, 130, 520, generator=torch.Generator().manual_seed(i)) for i in range(2))
+    kv = tkv.quantize_kv(k, v, dtype=getattr(torch, qdt))
+    seen = {}
+    orig = tkv._launch
+
+    def launch(q_, kv_, *rest):
+        seen["k"], seen["v"] = kv_.k, kv_.v
+        return orig(q_, kv_, *rest)
+
+    monkeypatch.setattr(tkv, "_launch", launch)
+    before = dict(tfa.KERNEL_LAUNCHES)
+    out = tkv.flash_attention_kv_quant(q, kv)
+    tfa.flash_attention(q, k.to(dtype), v.to(dtype))
+    assert out.shape == q.shape
+    (k4, k4_args), (k1, k1_args) = calls
+    assert k4 == "fa_flash_fwd_kv_quant" and k4_args[_HEAD_DIM_ARG[k4]] == 1024
+    assert [k4_args[i] for i in _K4_DTYPE_ARGS] == [tfa._DTYPE_CODES[dtype], tkv.QUANT_DTYPES[kv.k.dtype]]
+    assert k1 == "fa_flash_fwd" and k1_args[_HEAD_DIM_ARG[k1]] == 1024
+    assert k1_args[_K1_DTYPE_ARG] == tfa._DTYPE_CODES[dtype] and k1_args[_K1_BLOCK_Q_ARG] == 0
+    for x, src in ((seen["k"], kv.k), (seen["v"], kv.v)):
+        assert x.shape[-1] == 1024 and x.dtype == src.dtype
+        assert torch.equal(x.view(torch.uint8)[..., :520], src.view(torch.uint8))
+        assert not x.view(torch.uint8)[..., 520:].any()
+    counts = {key: n - before[key] for key, n in tfa.KERNEL_LAUNCHES.items() if n != before[key]}
+    assert counts == {"flash_fwd_kv_quant_wide": 1, "flash_fwd_wide": 1}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32], ids=["bf16", "fp16", "fp32"])

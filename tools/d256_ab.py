@@ -1,19 +1,24 @@
-"""Time one checkout's head-dim-256 kernels and its D256 training step on
-the card, for an A/B between checkouts or between builds of one checkout.
+"""Time one checkout's kernels at head dims 256 and above, and its D256
+training step, on the card, for an A/B between checkouts or between builds
+of one checkout.
 
-    python3 tools/d256_ab.py <checkout dir> <label> [--build-only]
+    python3 tools/d256_ab.py <checkout dir> <label> [--head-dims 256 512 1024] [--build-only]
 
 Imports `flash_attention_tpu_torch` from <checkout dir> and builds its
 kernels there (its own build/torch_kernels/); --build-only stops after the
 build, so that several checkouts can build at once before the timings.
 Then it prints lines of results, the last `RESULT {json}`:
 
-* at b8 h12 L1024 D256 bf16 causal, device time (a CUDA graph of calls
-  between CUDA events, the checkout's `utils.measure.graph_ms`): K1 (no lse),
-  K4 over int8 K/V, and the backward's pre-pass, K2 and K3;
-* `chip_smoke.py`'s d256-path model (a GPT at GPT-2's width with 3 heads
-  of 256, 2 layers) trained at b4 x T1024 in bf16: the median wall time of
-  10 steps after 3 warm-up steps.
+* for each head dim of --head-dims (256 when not given), after K1 and K4
+  (int8 K/V) are held against their plain versions at b1 h2 L300 (2e-2):
+  at b8 h12 L1024 bf16 causal, device time (a CUDA graph of calls between
+  CUDA events, the checkout's `utils.measure.graph_ms`) of K1 without and
+  with lse, K4 over int8 K/V, torch SDPA's forward, and the backward's
+  pre-pass, K2 and K3; K1's and K4's beside their share of the bound
+  (`utils.measure.floor_ms`);
+* when 256 is among the head dims, `chip_smoke.py`'s d256-path model (a
+  GPT at GPT-2's width with 3 heads of 256, 2 layers) trained at b4 x
+  T1024 in bf16: the median wall time of 10 steps after 3 warm-up steps.
 
 Compare in one call, in turns (A, B, B, A): times on the host's clock
 spread between calls and between processes, and one process cannot import
@@ -25,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import importlib
 import importlib.util
 import json
@@ -35,6 +41,7 @@ import time
 ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 ap.add_argument("tree")
 ap.add_argument("label")
+ap.add_argument("--head-dims", type=int, nargs="+", default=[256])
 ap.add_argument("--build-only", action="store_true")
 args = ap.parse_args()
 sys.path.insert(0, os.path.abspath(args.tree))
@@ -56,24 +63,42 @@ from flash_attention_tpu_torch.data import CharTokenizer, batch_iterator, synthe
 from flash_attention_tpu_torch.kernels import _build  # noqa: E402
 from flash_attention_tpu_torch.models.gpt import GPT2_124M  # noqa: E402
 from flash_attention_tpu_torch.training import Trainer, TrainerConfig  # noqa: E402
-from flash_attention_tpu_torch.utils.measure import graph_ms  # noqa: E402
+from flash_attention_tpu_torch.utils.measure import floor_ms, graph_ms  # noqa: E402
 
 
-def kernel_times(gen) -> dict:
-    b, h, L, d = 8, 12, 1024, 256
-    q, k, v, do = (torch.randn((b, h, L, d), generator=gen).to("cuda", torch.bfloat16) for _ in range(4))
+def kernel_times(gen, d: int) -> dict:
+    bf16 = torch.bfloat16
+    q, k, v = (torch.randn((1, 2, 300, d), generator=gen).to("cuda", bf16) for _ in range(3))
     kv = QK.quantize_kv(k.float(), v.float())
+    with torch.no_grad():
+        e1 = (FA.flash_attention(q, k, v).float() - FA.flash_attention_reference(q, k, v)[0].float()).abs().max()
+        e4 = (QK.flash_attention_kv_quant(q, kv).float()
+              - QK.flash_attention_kv_quant_reference(q, kv).float()).abs().max()
+    if not (e1.item() <= 2e-2 and e4.item() <= 2e-2):
+        raise AssertionError(f"{args.label} D{d}: K1 {e1.item():.3e} / K4 {e4.item():.3e} vs plain, atol 2e-2")
+    b, h, L = 8, 12, 1024
+    q, k, v, do = (torch.randn((b, h, L, d), generator=gen).to("cuda", bf16) for _ in range(4))
+    kv = QK.quantize_kv(k.float(), v.float())
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, is_causal=True)
     with torch.no_grad():
         o, lse = FA.flash_attention_with_lse(q, k, v)
         row = {"k1": graph_ms(lambda: FA.flash_attention(q, k, v), calls=5, runs=7),
-               "k4_int8": graph_ms(lambda: QK.flash_attention_kv_quant(q, kv), calls=5, runs=7)}
+               "k1_lse": graph_ms(lambda: FA.flash_attention_with_lse(q, k, v), calls=5, runs=7),
+               "k4_int8": graph_ms(lambda: QK.flash_attention_kv_quant(q, kv), calls=5, runs=7),
+               "sdpa": graph_ms(lambda: sdpa(q, k, v), calls=5, runs=7)}
     spec = FA._Spec(causal=True, sm_scale=d ** -0.5, window=None, blocks=FA.default_blocks(L, L, d))
     bargs = FA._bwd_args(q, k, v, o, lse, do, None, spec, None)
     FA._launch_bwd_prep(bargs)
     row["prep"] = graph_ms(lambda: FA._launch_bwd_prep(bargs))
     row["k2"] = graph_ms(lambda: FA._launch_bwd_dkv(bargs), calls=3, runs=5)
     row["k3"] = graph_ms(lambda: FA._launch_bwd_dq(bargs), calls=2, runs=3)
-    print(args.label, "b8 h12 L1024 D256 bf16 device ms", {key: round(x, 4) for key, x in row.items()}, flush=True)
+    flops = 4 * b * h * L * L * d / 2
+    (row["k1_bound"], by1), (row["k4_bound"], by4) = (floor_ms(4 * b * h * L * d * 2, flops),
+                                                      floor_ms(b * h * L * (d * 6 + 8), flops))
+    print(f"{args.label} b{b} h{h} L{L} D{d} bf16 causal device ms", {key: round(x, 4) for key, x in row.items()},
+          f"| K1 {row['k1_bound'] / row['k1']:.1%} of its bound ({by1}), K4 {row['k4_bound'] / row['k4_int8']:.1%} "
+          f"({by4}), K1 / SDPA {row['k1'] / row['sdpa']:.2f}x; vs plain at b1 h2 L300: K1 {e1.item():.2e}, "
+          f"K4 {e4.item():.2e}", flush=True)
     return row
 
 
@@ -103,8 +128,10 @@ def main() -> None:
     name, smi = smoke.phase_device()
     _build.library()
     res = {"label": args.label, "checkout": args.tree, "device": name, "smi": smi}
-    res["kernels"] = kernel_times(torch.Generator().manual_seed(11))
-    res["training"] = training_times()
+    gen = torch.Generator().manual_seed(11)
+    res["kernels"] = {f"d{d}": kernel_times(gen, d) for d in args.head_dims}
+    if 256 in args.head_dims:
+        res["training"] = training_times()
     print("RESULT " + json.dumps(res), flush=True)
 
 
