@@ -22,7 +22,11 @@ are 7-9):
               autograd Function against the plain backward and against
               autograd of fp32 vanilla, at the tiles' edges (q129 x kv257,
               GQA 8/2, window 100; Lq 1023; rows that see no key), at the
-              llama-train shape (b4, GQA 32/8, L1024, D128) and more.
+              llama-train shape (b4, GQA 32/8, L1024, D128) and more; the
+              fp32 cases (the 3xTF32 K2 / K3 up to head dim 128, the
+              "_fp32" keys, launched once each a case) at the same edges at
+              D64 and D128, the GPT-2 and Llama training shapes and 3
+              segments at D128.
 5. k4       - quantized-KV flash attention (int8/fp8 K/V) against its plain
               version and fp32 vanilla on the dequantized K/V (Lk % 4 != 0
               among them, so the scales' rows are unaligned); then the
@@ -136,7 +140,8 @@ are 7-9):
               busy ms a step by kind of kernel, and the idle share.
 18. train-parity - GPT-2 124M in fp32, 5 steps at b2 x T512 on flash and on
               dense attention from the same weights and batches: losses
-              within 2e-3.
+              within 2e-3; the flash run launches the 3xTF32 K2 / K3
+              n_layer x steps times each (their kernels line's launches).
 19. timing  - K1 at the Llama prefill shape (b1, GQA 32/8, L1024, D128) and
               the D256 kernels at b8 h12 L1024, beside their plain
               versions, bounds and torch SDPA forward / backward; then K1,
@@ -153,12 +158,14 @@ are 7-9):
               slot-major cache.  Device time: a CUDA graph of 20 calls
               between CUDA events (graph_ms); "a call" adds the host's
               enqueue.  Each kernel beside its bound: the larger of its bytes
-              at 3.35 TB/s and its FLOPs at 989 TFLOP/s (67 for fp32).  Last,
+              at 3.35 TB/s and its FLOPs at 989 TFLOP/s (fp32: 165, TF32's
+              495 over the three passes of 3xTF32).  Last,
               at b8 h12 L1024: fp32 D256 (SIMT); bf16 D512 and D1024 (no
               plain versions at D1024): the wide wgmma K1 and K4 beside the
               SIMT times they replaced and SDPA's forward, the pre-pass and
               the SIMT K2/K3; fp32 D512 (SIMT K1-K4); fp32 D64 and D128 (K1,
-              K4, the pre-pass, K2, K3, SDPA fp32).
+              K4, the pre-pass, the 3xTF32 K2 and K3 beside the SIMT times
+              they replaced, SDPA fp32).
 20. measure - utils.measure on K1 at b8 h12 L1024 D64 bf16: chain_timer
               (a chain of 64 calls in a CUDA graph), ab_compare over K1's
               tiles with the recheck's drift band, graph_ms of the same
@@ -277,7 +284,7 @@ from flash_attention_tpu_torch.training import Trainer, TrainerConfig  # noqa: E
 from flash_attention_tpu_torch.utils.devices import device_info  # noqa: E402
 from flash_attention_tpu_torch.utils.measure import (  # noqa: E402
     BF16_FLOPS,
-    FP32_FLOPS,
+    TF32X3_FLOPS,
     ab_compare,
     chain_timer,
     floor_ms,
@@ -301,6 +308,12 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "flash_bwd_prep": ("flash_attention_tpu_torch/csrc/flash_bwd.cu", "flash_attention_tpu/kernels/flash_attention.py:1112"),
     "flash_bwd_dkv": ("flash_attention_tpu_torch/csrc/flash_bwd.cu", "flash_attention_tpu/kernels/flash_attention.py:637"),
     "flash_bwd_dq": ("flash_attention_tpu_torch/csrc/flash_bwd.cu", "flash_attention_tpu/kernels/flash_attention.py:765"),
+    # fp32 K2 / K3 at head dims up to 128, padded to 64 or 128: the 3xTF32
+    # tensor-core kernels, reached through flash_bwd.cu's entry points
+    "flash_bwd_dkv_fp32": ("flash_attention_tpu_torch/csrc/flash_bwd_fp32.cuh",
+                           "flash_attention_tpu/kernels/flash_attention.py:637"),
+    "flash_bwd_dq_fp32": ("flash_attention_tpu_torch/csrc/flash_bwd_fp32.cuh",
+                          "flash_attention_tpu/kernels/flash_attention.py:765"),
     "flash_fwd_kv_quant": ("flash_attention_tpu_torch/csrc/flash_fwd_kv_quant.cu", "flash_attention_tpu/quant/kv.py:98"),
     "paged_decode": ("flash_attention_tpu_torch/csrc/decode.cu", "flash_attention_tpu/inference/paged_attention.py:34"),
     "fused_decode": ("flash_attention_tpu_torch/csrc/decode.cu", "flash_attention_tpu/inference/decode_attention.py:195"),
@@ -346,6 +359,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                                      "flash_attention_tpu/quant/kv.py:98"),
 }
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd_prep", "flash_bwd_dkv", "flash_bwd_dq")
+FP32_BWD_KERNELS = ("flash_bwd_dkv_fp32", "flash_bwd_dq_fp32")
 D256_TRAINING_KERNELS = tuple(f"{k}_d256" for k in TRAINING_KERNELS)
 
 
@@ -635,9 +649,11 @@ def check_grads(label, gen, b, hq, hkv, lq, lk, d, dtype, causal=True, window=No
 
 def phase_k2k3(seed: int) -> dict:
     """Returns the pre-pass's, K2's and K3's worst errors against their plain
-    versions."""
+    versions: the 16-bit cases under the plain keys, the fp32 ones (the
+    3xTF32 kernels up to head dim 128) under "_fp32"."""
     gen = torch.Generator().manual_seed(seed + 3)
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    _reset_launches()
     prep = [
         check_prep("gpt2 b4 h12 L1024 D64 bf16", gen, 4, 12, 1024, 64, bf16),
         check_prep("lse cotangent b2 h12 L256 D64 bf16", gen, 2, 12, 256, 64, bf16, with_lse=True),
@@ -656,10 +672,8 @@ def phase_k2k3(seed: int) -> dict:
         check_grads("lq1023 gqa 8/2 D128 bf16", gen, 1, 8, 2, 1023, 1023, 128, bf16),
         # queries aligned to the end of 200 keys: the first 100 see none
         check_grads("no-key rows q300 kv200 D64 bf16", gen, 2, 12, 12, 300, 200, 64, bf16, no_key_rows=100),
-        check_grads("no-key rows fp32 q300 kv200 D64", gen, 1, 4, 4, 300, 200, 64, f32, no_key_rows=100),
         check_grads("gpt2 train b4 h12 L1024 D64 bf16", gen, 4, 12, 12, 1024, 1024, 64, bf16),
         *(check_grads(f"b2 h12 L{L} D64 bf16", gen, 2, 12, 12, L, L, 64, bf16) for L in (40, 200)),
-        check_grads("fp32 b1 h4 L384 D64", gen, 1, 4, 4, 384, 384, 64, f32),
         check_grads("gqa hq8 hkv2 L384 D128 bf16", gen, 1, 8, 2, 384, 384, 128, bf16),
         # the llama-train shape
         check_grads("llama train b4 hq32 hkv8 L1024 D128 bf16", gen, 4, 32, 8, 1024, 1024, 128, bf16),
@@ -667,21 +681,43 @@ def phase_k2k3(seed: int) -> dict:
         check_grads("non-causal L200 D64 bf16", gen, 2, 12, 12, 200, 200, 64, bf16, causal=False),
         check_grads("window 128 L512 D64 bf16", gen, 2, 12, 12, 512, 512, 64, bf16, window=128),
         check_grads("3 segments L512 D64 bf16", gen, 2, 12, 12, 512, 512, 64, bf16, segments=True),
-        check_grads("lse cotangent fp32 b1 h4 L300 D64", gen, 1, 4, 4, 300, 300, 64, f32, with_lse=True),
         check_grads("lse cotangent b2 h12 L256 D64 bf16", gen, 2, 12, 12, 256, 256, 64, bf16, with_lse=True),
-        check_grads("fp32 gqa hq4 hkv2 L200 D128 window 64", gen, 1, 4, 2, 200, 200, 128, f32, window=64),
         check_grads("fp16 b2 h12 L300 D64", gen, 2, 12, 12, 300, 300, 64, torch.float16),
         # head dims padded to 64 / 128 by the entry points; autograd slices
         # the grads back
         check_grads("padded D32 b2 h12 L300 bf16", gen, 2, 12, 12, 300, 300, 32, bf16),
         check_grads("padded D96 gqa 8/2 L257 window 100 bf16", gen, 1, 8, 2, 257, 257, 96, bf16, window=100),
+    ]
+    # fp32: the 3xTF32 K2 / K3, held at 1e-4 like every fp32 case
+    fp32 = [
+        check_grads("no-key rows fp32 q300 kv200 D64", gen, 1, 4, 4, 300, 200, 64, f32, no_key_rows=100),
+        check_grads("fp32 b1 h4 L384 D64", gen, 1, 4, 4, 384, 384, 64, f32),
+        check_grads("lse cotangent fp32 b1 h4 L300 D64", gen, 1, 4, 4, 300, 300, 64, f32, with_lse=True),
+        check_grads("fp32 gqa hq4 hkv2 L200 D128 window 64", gen, 1, 4, 2, 200, 200, 128, f32, window=64),
         check_grads("padded D32 fp32 b1 h4 L200 3 segments", gen, 1, 4, 4, 200, 200, 32, f32, segments=True),
         check_grads("padded D96 lse cotangent fp32 b1 h4 L300", gen, 1, 4, 2, 300, 300, 96, f32, with_lse=True),
+        # the new kernels' edges: q129 (one row past 128 pinned q rows),
+        # kv257 (one row past two 128-row KV blocks), GQA 8/2, window 100
+        check_grads("edges q129 kv257 gqa 8/2 w100 D64 fp32", gen, 2, 8, 2, 129, 257, 64, f32, window=100),
+        check_grads("edges q129 kv257 gqa 8/2 w100 D128 fp32", gen, 2, 8, 2, 129, 257, 128, f32, window=100),
+        # lse and di rows of 1023 floats: not 16-byte aligned
+        check_grads("lq1023 gqa 8/2 D128 fp32", gen, 1, 8, 2, 1023, 1023, 128, f32),
+        # the training shapes: GPT-2 (fp32 train-parity's head dim) and Llama
+        check_grads("gpt2 train b4 h12 L1024 D64 fp32", gen, 4, 12, 12, 1024, 1024, 64, f32),
+        check_grads("llama train b1 hq32 hkv8 L1024 D128 fp32", gen, 1, 32, 8, 1024, 1024, 128, f32),
+        check_grads("3 segments L512 D128 fp32", gen, 2, 4, 4, 512, 512, 128, f32, segments=True),
     ]
+    torch.cuda.synchronize()
+    counts = {key: FA.KERNEL_LAUNCHES[key] for key in FP32_BWD_KERNELS}
+    say(f"[k2k3] fp32 cases launched {counts} (the 3xTF32 K2 / K3, one launch each a case)")
+    if any(counts[key] != len(fp32) for key in FP32_BWD_KERNELS):
+        raise AssertionError(f"[k2k3] the fp32 cases launched {counts}, want {len(fp32)} each")
     return {
         "flash_bwd_prep": max(prep),
         "flash_bwd_dkv": max(max(r["dk"], r["dv"]) for r in runs),
         "flash_bwd_dq": max(r["dq"] for r in runs),
+        "flash_bwd_dkv_fp32": max(max(r["dk"], r["dv"]) for r in fp32),
+        "flash_bwd_dq_fp32": max(r["dq"] for r in fp32),
     }
 
 
@@ -1395,15 +1431,29 @@ def _trace_steps(trainer: Trainer, batches, smi: str, step_ms: float, steps: int
                 kernel_ms_by_kind=kinds)
 
 
-def phase_train_parity(seed: int, data: np.ndarray) -> None:
+def phase_train_parity(seed: int, data: np.ndarray) -> dict:
+    """fp32 GPT-2 124M trained 5 steps with flash attention and with dense
+    attention from the same weights and batches; the losses must agree.
+    The flash run is the fp32 training path: returns the launches of the
+    3xTF32 K2 / K3 in it (one each a layer a step)."""
     cfg = dataclasses.replace(GPT2_124M, dtype=torch.float32)
-    tcfg = TrainerConfig(max_iters=5, log_interval=1, learning_rate=6e-4, warmup_iters=2)
+    steps = 5
+    tcfg = TrainerConfig(max_iters=steps, log_interval=1, learning_rate=6e-4, warmup_iters=2)
     curves = {}
     for flash in (True, False):
         trainer = Trainer(dataclasses.replace(cfg, use_flash=flash), tcfg, seed=seed + 4, device="cuda")
+        _reset_launches()
         history = trainer.fit(batch_iterator(data, 2, 512, seed=seed + 4, device="cuda"), log=lambda line: None)
+        torch.cuda.synchronize()
+        if flash:
+            launches = {key: FA.KERNEL_LAUNCHES[key] for key in FP32_BWD_KERNELS}
         curves[flash] = np.array([r["train_loss"] for r in history])
         del trainer
+    want = cfg.n_layer * steps
+    say(f"[train-parity] launches of the fp32 K2 / K3 in the flash run {launches} (want {cfg.n_layer} layers x "
+        f"{steps} steps = {want} each)")
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"[train-parity] fp32 K2 / K3 launched {launches}, want {want} each")
     flash, dense = curves[True], curves[False]
     excess = np.abs(flash - dense) - (2e-3 + 2e-3 * np.abs(dense))
     ok = len(flash) == 5 and bool((excess <= 0).all())
@@ -1412,6 +1462,7 @@ def phase_train_parity(seed: int, data: np.ndarray) -> None:
         f"max |diff| {np.abs(flash - dense).max():.2e} (atol 2e-3 + rtol 2e-3) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("[train-parity] flash and dense losses disagree")
+    return launches
 
 
 def _grad_fn(attn, q, k, v, do):
@@ -2406,6 +2457,7 @@ def _time_family(gen, smi: str, label: str, b: int, h: int, L: int, d: int, dtyp
                 lambda: QK.flash_attention_kv_quant_reference(q, kv),
             )]
     eb = q.element_size()
+    rate = ", 3xTF32" if peak == TF32X3_FLOPS else ""  # what an "operations" bound is counted at
     rows_ = {
         "flash_fwd": (f_ms, p[0], floor_ms(4 * elems * eb, flops, peak), f_lib),
         # o and dO read, di written; q read and qs written where the
@@ -2417,7 +2469,7 @@ def _time_family(gen, smi: str, label: str, b: int, h: int, L: int, d: int, dtyp
     }
     say(f"[timing] {smi} | {label} b{b} h{h} L{L} D{d} {dtype} causal, ms on the device (share of the bound; plain "
         f"version): " + "; ".join(
-            f"{name} {ms:.4f} ({bd / ms:.1%} of {bd:.4f} ms, {by}; plain "
+            f"{name} {ms:.4f} ({bd / ms:.1%} of {bd:.4f} ms, {by}{rate if by == 'operations' else ''}; plain "
             f"{'not measured' if pl is None else f'{pl:.4f}'})" for name, (ms, pl, (bd, by), _) in rows_.items())
         + f"; library torch SDPA forward {f_lib:.4f} ms, backward {b_lib:.4f} ms (K1 / SDPA {f_ms / f_lib:.2f}x, "
           f"K2 / SDPA backward {k2 / b_lib:.2f}x, pre-pass + K2 + K3 / SDPA backward {(pre + k2 + k3) / b_lib:.2f}x)")
@@ -2432,6 +2484,10 @@ def _time_family(gen, smi: str, label: str, b: int, h: int, L: int, d: int, dtyp
 # measure them now, so they stand on the [timing] line only, as the earlier
 # reading, and never in the kernels line.
 SIMT_16BIT_MS = {"flash_fwd_wide": (14.1363, 41.5888), "flash_fwd_kv_quant_wide": (12.7607, 34.0706)}
+# Device ms of the fp32 SIMT K2 / K3 that the 3xTF32 kernels replaced, at b8
+# h12 L1024 fp32 causal, {key: (D64, D128)}, read the same way (NVIDIA H100
+# 80GB HBM3, 700.00 W): printed on the [timing] line only.
+SIMT_FP32_BWD_MS = {"flash_bwd_dkv_fp32": (3.1288, 21.2925), "flash_bwd_dq_fp32": (2.6852, 11.2136)}
 
 
 def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
@@ -2445,13 +2501,16 @@ def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
     line only) and K1's ratio to SDPA's forward; fp32 at D512
     (the "_wide_simt" rows, the SIMT K1 and K4; the SIMT K2 and K3 are
     timed beside them); fp32 at D64 and D128 (K1, K4, the pre-pass, K2, K3
-    in the entry points' fp32 kernels, SDPA fp32), bounds at 67 TFLOP/s.
-    Returns ({kernel: row}, {kernel: {"fp32_d64": row, "fp32_d128":
-    row}}) for the rows of K1-K4 and the pre-pass."""
+    in the entry points' fp32 kernels, SDPA fp32): the "_fp32" rows of the
+    3xTF32 K2 and K3 (D64, with the D128 times beside them as d128_*),
+    with their speed-up over the SIMT pair they replaced (SIMT_FP32_BWD_MS,
+    printed only).  Every fp32 bound is at the 3xTF32 rate.  Returns
+    ({kernel: row}, {kernel: {"fp32_d64": row, "fp32_d128": row}}) for the
+    rows of K1, K4 and the pre-pass."""
     gen = torch.Generator().manual_seed(seed + 13)
     f32, bf16 = torch.float32, torch.bfloat16
     result = {}
-    d256 = _time_family(gen, smi, "SIMT family, fp32", 8, 12, 1024, 256, f32, FP32_FLOPS, True)
+    d256 = _time_family(gen, smi, "SIMT family, fp32", 8, 12, 1024, 256, f32, TF32X3_FLOPS, True)
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_kv_quant"):
         result[f"{name}_d256_simt"] = d256[name]
     wide = _time_family(gen, smi, "padded head dim 512 (K1, K4: wide wgmma; K2, K3: SIMT)", 8, 12, 1024, 512, bf16,
@@ -2473,15 +2532,33 @@ def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
                          f"{old} ms, read in an earlier run, not this one, {old / ms:.1f}x{sdpa})")
         say(f"[timing] {smi} | wide wgmma {key} b8 h12 L1024 bf16 causal: " + "; ".join(parts))
     fp32_wide = _time_family(gen, smi, "fp32, padded head dim 512 (SIMT family)", 8, 12, 1024, 512, f32,
-                             FP32_FLOPS, True)
+                             TF32X3_FLOPS, True)
     for name in ("flash_fwd", "flash_fwd_kv_quant"):
         result[f"{name}_wide_simt"] = fp32_wide[name]
     extra: dict = {}
+    _reset_launches()
     for d in (64, 128):
         rows = _time_family(gen, smi, f"fp32 D{d} (the entry points' fp32 kernels)", 8, 12, 1024, d, f32,
-                            FP32_FLOPS, True)
+                            TF32X3_FLOPS, True)
         for name, row in rows.items():
-            extra.setdefault(name, {})[f"fp32_d{d}"] = row
+            if name in ("flash_bwd_dkv", "flash_bwd_dq"):
+                key = f"{name}_fp32"
+                if d == 64:
+                    result[key] = row
+                else:
+                    result[key].update({f"d128_{k}": v for k, v in row.items()})
+            else:
+                extra.setdefault(name, {})[f"fp32_d{d}"] = row
+    counts = {key: FA.KERNEL_LAUNCHES[key] for key in FP32_BWD_KERNELS}
+    if not all(counts.values()):
+        raise AssertionError(f"[timing] the fp32 timing launched {counts}: a 3xTF32 kernel did not run")
+    for key, (d64, d128) in SIMT_FP32_BWD_MS.items():
+        row = result[key]
+        say(f"[timing] {smi} | 3xTF32 {key} b8 h12 L1024 fp32 causal (launched {counts[key]} times in this timing, "
+            f"graph captures included): D64 {row['ms']:.4f} ms, D128 {row['d128_ms']:.4f} ms; the SIMT kernel's "
+            f"{d64} / {d128} ms, read in an earlier run, not this one: {d64 / row['ms']:.1f}x / "
+            f"{d128 / row['d128_ms']:.1f}x; bound {row['bound_ms']:.4f} / {row['d128_bound_ms']:.4f} ms "
+            f"({row['bound_by']}, 3xTF32)")
     return result, extra
 
 
@@ -3133,11 +3210,12 @@ def main() -> None:
     launches = phase_training(args.seed, smi, data)
     launches.update(flash_fwd_kv_quant=k4_launches, **decode_launches, **d256_launches)
     launches.update({k: n for k, n in simt_launches.items() if k not in d256_launches})
-    phase_train_parity(args.seed, data)
+    # the fp32 K2 / K3: their launches on the fp32 training path
+    launches.update(phase_train_parity(args.seed, data))
     llama_times = phase_timing_llama_d256(args.seed, smi)
     simt_times, fp32_times = phase_timing_simt(args.seed, smi)
     times = {**phase_timing(args.seed, smi), **phase_timing_quant(args.seed, smi), **llama_times, **simt_times}
-    # fp32 at D64 / D128 (K1-K4 and the pre-pass), beside each base row
+    # fp32 at D64 / D128 (K1, K4 and the pre-pass), beside each base row
     for key, rows in fp32_times.items():
         times[key].update(rows)
     # K1 on the Llama path: its launches in the two bursts and in Llama

@@ -2,8 +2,9 @@
 // dQ, with a plain C interface loaded through ctypes
 // (flash_attention_tpu_torch/kernels/_build.py).  The warp-specialised
 // kernels are in flash_bwd.cuh (K2 and K3 at D = 256 instantiated in
-// flash_bwd_d256.cu); the SIMT family that fp32 at D = 256 and every dtype
-// at 512 and 1024 run is in flash_d256.cuh (flash_simt_bwd.cu).
+// flash_bwd_d256.cu), fp32's at 64 and 128 in flash_bwd_fp32.cuh; the SIMT
+// family that fp32 at D = 256 and every dtype at 512 and 1024 run is in
+// flash_d256.cuh (flash_simt_bwd.cu).
 //
 // Replaces, in flash_attention_tpu/kernels/flash_attention.py:
 //   * fa_flash_bwd_dkv (K2): _dkv_kernel (:637, launched by _bwd_dkv :890
@@ -99,26 +100,57 @@
 //     wgmma is uniform by construction, and each product is waited for
 //     before its accumulator is read, else ptxas serialises them all (a
 //     version that computed P while dP ran did just that).
-// fp32 inputs take a SIMT path (one thread per pinned row, fp32 FMA), since
-// TF32 tensor cores would miss the fp32 backward tolerance of 1e-4.
-// Registers: ptxas does not allocate the consumers what setmaxnreg grants.
-// K2 in one pass at D = 128 needs about 210 a thread (dK and dV 128, S^T
-// and dP^T 64): built so, it spilled with the consumers granted 240 or 208
-// alike and ran slower than in two passes (scratch builds; a one-warp
-// producer, 288 threads, did not help either).  ptxas -v (sm_90a, CUDA 12.8):
-// no C7518 (wgmma serialisation) in any instantiation; at D = 64 and 128
-// every warp-specialised one 168 registers at launch, spills K3 none, K2 8
-// bytes at D = 64 and 20 at D = 128; at D = 256 K2 206 registers and K3
-// 220 (bf16 and fp16 alike), no spills; the pre-pass 28-40 registers,
-// none.  The fp32 SIMT dK/dV keeps 2 x D fp32 sums a thread and spills at
-// D = 128 (255 registers, 168 bytes); its dQ uses 127 / 166 registers
-// without spills.
+// fp32 K2 and K3 (flash_bwd_fp32.cuh) compute the same function on the
+// tensor cores in 3xTF32: one TF32 pass keeps about three decimal digits and
+// misses the fp32 backward tier (1e-4), so every fp32 operand x is split
+// into hi = rna_tf32(x) and lo = rna_tf32(x - hi) and each product is lo hi
+// + hi lo + hi hi, summed in fp32; P and dS stay fp32 and are split the
+// same way.  They replace the SIMT pair of PR 2 (one thread per pinned row,
+// fp32 FMA, 64 threads a block; dK/dV 255 registers and 168 bytes spilled
+// at D = 128), 3.13 / 21.29 ms (K2) and 2.69 / 11.21 ms (K3) at b8 h12
+// L1024 D64 / D128 causal.  What bounds them: K2's 25.8 / 51.5 GFLOP and
+// K3's 19.3 / 38.7 at 165 TFLOP/s (TF32's 495 over three passes), 0.156 /
+// 0.312 and 0.117 / 0.234 ms, against 151 / 302 MB and 126 / 252 MB of
+// fp32 bytes: their operations.  Design:
+//   * eight warps of 16 pinned rows (q and dO for K3, K and V for K2), one
+//     block an SM; warp 0 also produces: its lane 0 issues TMA loads of
+//     fp32 tiles (32-column boxes, 128-byte swizzle, rows past Lq or Lk
+//     read as zero) into an mbarrier ring of 32-row tiles once every warp
+//     has released the slot, and its lanes stage K2's q rows' lse *
+//     log2(e), di and segment ids.  A producer-only ninth warp (288
+//     threads) left every kernel 168 registers (ptxas and the launch
+//     budget such a block as 384 threads): K3 8% / 23% slower at D = 64 /
+//     128, and K2 at 128 needed two walks (below);
+//   * the grid is (heads, tiles), so that blocks run tile by tile, the
+//     longest causal loop first across every head: 13-20% faster than
+//     (tiles, heads), whose first waves mixed long and short blocks;
+//   * every product on mma.sync.m16n8k8 tf32 (tf32 wgmma takes its shared
+//     operands K-major only: dV += P^T dO, dK += dS^T q and dQ += dS K would
+//     need transposed hi and lo copies of every tile, past 227 KB at D =
+//     128), fragments read with plain shared loads that the swizzle keeps
+//     free of bank conflicts, split in registers with two integer
+//     operations a half, and four independent sums issued pass by pass;
+//   * P^T / dS^T (K2) and dS (K3) are the A operand straight from the
+//     accumulators: the depth is taken in the order 0, 2, 4, 6, 1, 3, 5, 7,
+//     and the B operand's rows are read in the same order, so no value
+//     moves between lanes;
+//   * the tensor cores truncate what they add to an accumulator to its
+//     precision: 3 x 512 products straight into dV over a GQA group of 4 at
+//     Lq = 1023 lost 2.5e-4 (outside 1e-4).  Each 8-column block of a
+//     tile's dV, dK and dQ is summed from zero and added to the running sum
+//     with one fp32 add: 1.3e-5 there;
+//   * K2 holds dK and dV (128 registers a thread at D = 128) through one walk
+//     over the group's q tiles, no atomics, the group summed in the block
+//     (two walks, dV then dK, spilled nothing and were 35% slower); at D =
+//     64 each warp splits its pinned K and V once, lo copies beside them.
+// ptxas -v (sm_90a, CUDA 12.8), 256 threads: K3 218 / 239 registers at D =
+// 64 / 128, K2 250 / 255; no spills but K2's 32 bytes at D = 128.
 //
 // The kernels allocate nothing and launch on the caller's stream; the C
 // entry points return cudaGetLastError() so that the wrapper can raise (and
 // cudaErrorInvalidValue when a tensor map cannot be made).
 
-#include "flash_bwd.cuh"
+#include "flash_bwd_fp32.cuh"
 
 namespace {
 
@@ -185,208 +217,9 @@ flash_bwd_prep_kernel(const PrepParams p) {
   if (in && lane == 0) p.di[row] = sum - (p.dlse != nullptr ? p.dlse[row] : 0.f);
 }
 
-// ---------------------------------------------------------------------------
-// fp32 path: SIMT, one thread per pinned row, fp32 FMA
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct BwdSimtCfg {
-  static constexpr int kBr = 64;  // pinned rows, one per thread
-  static constexpr int kBc = 32;  // rows of each tile the loop walks
-  static constexpr int kThreads = kBr;
-  static constexpr int kLdr = D + 1;  // odd stride: row-per-thread reads hit distinct banks
-  static constexpr int kSmemBytes = (2 * kBr * kLdr + 3 * kBc * D) * sizeof(float);
-};
-
-template <int D>
-__global__ void __launch_bounds__(64)
-flash_bwd_dkv_simt_kernel(const BwdParams p) {
-  using C = BwdSimtCfg<D>;
-  constexpr int kBr = C::kBr, kBc = C::kBc, kLdr = C::kLdr;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);
-  float* sV = sK + kBr * kLdr;
-  float* sQs = sV + kBr * kLdr;
-  float* sQk = sQs + kBc * D;
-  float* sDo = sQk + kBc * D;
-  __shared__ float sLse[kBc], sDi[kBc];
-  __shared__ int sQIds[kBc];
-
-  const Mask mk = p.mask;
-  const int hkv = p.hq / p.group;
-  const int b = blockIdx.y / hkv;
-  const int hk = blockIdx.y % hkv;
-  const int c0 = blockIdx.x * kBr;
-  const int c1 = min(c0 + kBr, mk.lk);
-  const bool segmented = p.q_ids != nullptr;
-
-  const float* gk = static_cast<const float*>(p.k) + b * p.sk.sb + hk * p.sk.sh;
-  const float* gv = static_cast<const float*>(p.v) + b * p.sv.sb + hk * p.sv.sh;
-  load_tile_f32<kBr, D, kLdr, C::kThreads>(sK, gk, p.sk.sl, c0, mk.lk, 1.f);
-  load_tile_f32<kBr, D, kLdr, C::kThreads>(sV, gv, p.sv.sl, c0, mk.lk, 1.f);
-
-  const int kv = c0 + threadIdx.x;
-  const int kv_id = segmented && kv < mk.lk ? p.kv_ids[(long long)b * mk.lk + kv] : 0;
-  const float* kr = sK + threadIdx.x * kLdr;
-  const float* vr = sV + threadIdx.x * kLdr;
-  float dk[D], dv[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) dk[c] = dv[c] = 0.f;
-
-  const int i0 = mk.q_first(c0) / kBc;
-  const int q_end = mk.q_end(c1);
-  const int n_q = q_end > 0 ? (q_end + kBc - 1) / kBc : 0;
-
-  for (int gi = 0; gi < p.group; ++gi) {
-    const int h = hk * p.group + gi;
-    const float* gq = static_cast<const float*>(p.q) + b * p.sq.sb + h * p.sq.sh;
-    const float* gdo = static_cast<const float*>(p.dout) + b * p.sdo.sb + h * p.sdo.sh;
-    const long long stat = ((long long)b * p.hq + h) * mk.lq;
-    for (int it = i0; it < n_q; ++it) {
-      const int r0 = it * kBc;
-      __syncthreads();
-      load_tile_f32<kBc, D, D, C::kThreads>(sQs, gq, p.sq.sl, r0, mk.lq, p.scale_log2);
-      load_tile_f32<kBc, D, D, C::kThreads>(sQk, gq, p.sq.sl, r0, mk.lq, p.scale);
-      load_tile_f32<kBc, D, D, C::kThreads>(sDo, gdo, p.sdo.sl, r0, mk.lq, 1.f);
-      for (int i = threadIdx.x; i < kBc; i += C::kThreads) {
-        const bool in = r0 + i < mk.lq;
-        sLse[i] = in ? p.lse[stat + r0 + i] : 0.f;
-        sDi[i] = in ? p.di[stat + r0 + i] : 0.f;
-      }
-      if (segmented) load_ids<kBc, C::kThreads>(sQIds, p.q_ids + (long long)b * mk.lq, r0, mk.lq, 0);
-      __syncthreads();
-
-      for (int j = 0; j < kBc; ++j) {
-        if (!mk.visible(r0 + j, kv) || (segmented && sQIds[j] != kv_id)) continue;
-        const float* qs = sQs + j * D;
-        const float* dor = sDo + j * D;
-        float s = 0.f, dp = 0.f;
-#pragma unroll 16
-        for (int c = 0; c < D; ++c) {
-          s = fmaf(qs[c], kr[c], s);
-          dp = fmaf(dor[c], vr[c], dp);
-        }
-        const float pj = exp2f(s - sLse[j] * kLog2e);
-        const float ds = pj * (dp - sDi[j]);
-        const float* qk = sQk + j * D;
-#pragma unroll
-        for (int c = 0; c < D; ++c) {
-          dv[c] = fmaf(pj, dor[c], dv[c]);
-          dk[c] = fmaf(ds, qk[c], dk[c]);
-        }
-      }
-    }
-  }
-
-  if (kv < mk.lk) {
-    float* dkr = static_cast<float*>(p.dk) + b * p.sdk.sb + hk * p.sdk.sh + (long long)kv * p.sdk.sl;
-    float* dvr = static_cast<float*>(p.dv) + b * p.sdv.sb + hk * p.sdv.sh + (long long)kv * p.sdv.sl;
-#pragma unroll
-    for (int c = 0; c < D; ++c) {
-      dkr[c] = dk[c];
-      dvr[c] = dv[c];
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(64)
-flash_bwd_dq_simt_kernel(const BwdParams p) {
-  using C = BwdSimtCfg<D>;
-  constexpr int kBr = C::kBr, kBc = C::kBc, kLdr = C::kLdr;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQs = reinterpret_cast<float*>(smem_raw);
-  float* sDo = sQs + kBr * kLdr;
-  float* sK = sDo + kBr * kLdr;
-  float* sKs = sK + kBc * D;
-  float* sV = sKs + kBc * D;
-  __shared__ int sKvIds[kBc];
-
-  const Mask mk = p.mask;
-  const int b = blockIdx.y / p.hq;
-  const int h = blockIdx.y % p.hq;
-  const int hk = h / p.group;
-  const int r0 = blockIdx.x * kBr;
-  const int r1 = min(r0 + kBr, mk.lq);
-  const bool segmented = p.q_ids != nullptr;
-
-  const float* gq = static_cast<const float*>(p.q) + b * p.sq.sb + h * p.sq.sh;
-  const float* gdo = static_cast<const float*>(p.dout) + b * p.sdo.sb + h * p.sdo.sh;
-  const float* gk = static_cast<const float*>(p.k) + b * p.sk.sb + hk * p.sk.sh;
-  const float* gv = static_cast<const float*>(p.v) + b * p.sv.sb + hk * p.sv.sh;
-  load_tile_f32<kBr, D, kLdr, C::kThreads>(sQs, gq, p.sq.sl, r0, mk.lq, p.scale_log2);
-  load_tile_f32<kBr, D, kLdr, C::kThreads>(sDo, gdo, p.sdo.sl, r0, mk.lq, 1.f);
-
-  const int row = r0 + threadIdx.x;
-  const bool in = row < mk.lq;
-  const long long stat = ((long long)b * p.hq + h) * mk.lq;
-  const float lse_l2 = in ? p.lse[stat + row] * kLog2e : 0.f;
-  const float di = in ? p.di[stat + row] : 0.f;
-  const int q_id = segmented && in ? p.q_ids[(long long)b * mk.lq + row] : 0;
-  const float* qs = sQs + threadIdx.x * kLdr;
-  const float* dor = sDo + threadIdx.x * kLdr;
-  float dq[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) dq[c] = 0.f;
-
-  const int kv_end = mk.kv_end(r1);
-  const int j0 = mk.kv_first(r0) / kBc;
-  const int n_tiles = kv_end > 0 ? (kv_end + kBc - 1) / kBc : 0;
-
-  for (int jt = j0; jt < n_tiles; ++jt) {
-    const int c0 = jt * kBc;
-    __syncthreads();
-    load_tile_f32<kBc, D, D, C::kThreads>(sK, gk, p.sk.sl, c0, mk.lk, 1.f);
-    load_tile_f32<kBc, D, D, C::kThreads>(sKs, gk, p.sk.sl, c0, mk.lk, p.scale);
-    load_tile_f32<kBc, D, D, C::kThreads>(sV, gv, p.sv.sl, c0, mk.lk, 1.f);
-    if (segmented) load_ids<kBc, C::kThreads>(sKvIds, p.kv_ids + (long long)b * mk.lk, c0, mk.lk, 0);
-    __syncthreads();
-
-    for (int j = 0; j < kBc; ++j) {
-      if (!mk.visible(row, c0 + j) || (segmented && sKvIds[j] != q_id)) continue;
-      const float* kr = sK + j * D;
-      const float* vr = sV + j * D;
-      float s = 0.f, dp = 0.f;
-#pragma unroll 16
-      for (int c = 0; c < D; ++c) {
-        s = fmaf(qs[c], kr[c], s);
-        dp = fmaf(dor[c], vr[c], dp);
-      }
-      const float ds = exp2f(s - lse_l2) * (dp - di);
-      const float* ks = sKs + j * D;
-#pragma unroll
-      for (int c = 0; c < D; ++c) dq[c] = fmaf(ds, ks[c], dq[c]);
-    }
-  }
-
-  if (in) {
-    float* dqr = static_cast<float*>(p.dq) + b * p.sdq.sb + h * p.sdq.sh + (long long)row * p.sdq.sl;
-#pragma unroll
-    for (int c = 0; c < D; ++c) dqr[c] = dq[c];
-  }
-}
-
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem, int threads, int rows, int len, int heads, int batch,
-                   const BwdParams& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((len + rows - 1) / rows, batch * heads);
-  kernel<<<grid, threads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <int D>
 cudaError_t dispatch(int which, int dtype, const BwdParams& p, cudaStream_t s) {
-  const int hkv = p.hq / p.group;
-  if (dtype == 0) {
-    using C = BwdSimtCfg<D>;
-    return which == 0
-        ? launch(flash_bwd_dkv_simt_kernel<D>, C::kSmemBytes, C::kThreads, C::kBr, p.mask.lk, hkv, p.batch, p, s)
-        : launch(flash_bwd_dq_simt_kernel<D>, C::kSmemBytes, C::kThreads, C::kBr, p.mask.lq, p.hq, p.batch, p, s);
-  }
+  if (dtype == 0) return which == 0 ? launch_dkv_fp32<D>(p, s) : launch_dq_fp32<D>(p, s);
   if (p.qs == nullptr) return cudaErrorInvalidValue;
   if (dtype == 1) return which == 0 ? launch_dkv_ws<__nv_bfloat16, D>(p, s) : launch_dq_ws<__nv_bfloat16, D>(p, s);
   if (dtype == 2) return which == 0 ? launch_dkv_ws<__half, D>(p, s) : launch_dq_ws<__half, D>(p, s);

@@ -1,7 +1,8 @@
 // The warp-specialised TMA + wgmma backward kernels for bf16 / fp16 (K2
 // dK/dV and K3 dQ at head dims 64, 128 and 256) and the parameters every
 // backward kernel reads.  flash_bwd.cu instantiates them at 64 and 128
-// beside the pre-pass, the fp32 SIMT kernels and the C entry points;
+// beside the pre-pass, the fp32 kernels (flash_bwd_fp32.cuh) and the C
+// entry points;
 // flash_bwd_d256.cu instantiates both at 256 in a source of its own, and
 // flash_simt_bwd.cu the SIMT family (flash_d256.cuh) with BwdParams.
 // The design notes are at the top of flash_bwd.cu.

@@ -270,9 +270,10 @@ def default_blocks(
     pins and streams `KERNEL_SIMT_TILE` rows in every kernel; the bf16/fp16
     forward at 512 and 1024 takes 64 query rows against `KERNEL_WIDE_KV`
     rows.  `dtype` is the inputs' (None: a 16-bit type; float32 changes the
-    tile only from 256 up, since at 64 and 128 its SIMT kernels differ from
-    the wgmma ones in the order of summation alone).  q_len, kv_len and
-    group are taken for signature parity with the JAX package."""
+    tile only from 256 up, since at 64 and 128 its K1 and its 3xTF32 K2 /
+    K3 differ from the 16-bit kernels' tiles in the order of summation
+    alone).  q_len, kv_len and group are taken for signature parity with
+    the JAX package."""
     del q_len, kv_len, group
     d = _padded(head_dim)
     if d > 256 or (d == 256 and dtype == torch.float32):

@@ -96,7 +96,9 @@ def _pad_head_dim(x: torch.Tensor, dp: int) -> torch.Tensor:
 
 # Launches of each CUDA kernel of the port, counted by its wrapper where it
 # launches: K1-K3 and the backward's pre-pass here, K4 in quant/kv.py, K5
-# and K6 in inference/paged_attention.py.  Head dims 256, 512 and 1024 run
+# and K6 in inference/paged_attention.py.  fp32 K2 and K3 up to head dim
+# 128 are the 3xTF32 kernels (csrc/flash_bwd_fp32.cuh), counted under
+# "_fp32".  Head dims 256, 512 and 1024 run
 # other kernels, counted under keys of their own (`_route`): "_d256" for
 # what bf16/fp16 runs at 256 (the wgmma K1, K4, K2 and K3), "_d256_simt"
 # for the SIMT K1, K4, K2 and K3 that fp32 runs there; at 512 and 1024
@@ -108,6 +110,8 @@ KERNEL_LAUNCHES = {
     "flash_bwd_prep": 0,
     "flash_bwd_dkv": 0,
     "flash_bwd_dq": 0,
+    "flash_bwd_dkv_fp32": 0,
+    "flash_bwd_dq_fp32": 0,
     "flash_fwd_kv_quant": 0,
     "paged_decode": 0,
     "fused_decode": 0,
@@ -136,15 +140,19 @@ def _route(name: str, head_dim: int, dtype: torch.dtype) -> tuple[str, str]:
     "flash_bwd_dq") at padded head dim `head_dim` for q's `dtype`.  The
     SIMT family (csrc/flash_d256.cuh) has entry points of their own, named
     with "_simt": fp32 runs it above 128, and every dtype runs its K2 and
-    K3 at 512 and 1024.  Keys: the name up to 128, "_d256" / "_d256_simt"
-    at 256; at 512 and 1024 "_wide" (bf16/fp16 K1 and K4 on the wgmma
-    kernels of csrc/flash_fwd_wide.cuh, the pre-pass, K2 and K3 of every
-    dtype) and "_wide_simt" (fp32 K1 and K4)."""
+    K3 at 512 and 1024.  Keys: the name up to 128, with "_fp32" for the
+    fp32 K2 and K3 there (the 3xTF32 kernels, reached through the same
+    entry points as the 16-bit ones); "_d256" / "_d256_simt" at 256; at
+    512 and 1024 "_wide" (bf16/fp16 K1 and K4 on the wgmma kernels of
+    csrc/flash_fwd_wide.cuh, the pre-pass, K2 and K3 of every dtype) and
+    "_wide_simt" (fp32 K1 and K4)."""
+    fp32 = dtype == torch.float32
     if head_dim <= 128:
+        if fp32 and name in ("flash_bwd_dkv", "flash_bwd_dq"):
+            return f"{name}_fp32", f"fa_{name}"
         return name, f"fa_{name}"
     if name == "flash_bwd_prep":
         return f"{name}_d256" if head_dim == 256 else f"{name}_wide", f"fa_{name}"
-    fp32 = dtype == torch.float32
     if head_dim > 256:
         if name.startswith("flash_fwd"):
             return (f"{name}_wide_simt", f"fa_{name}_simt") if fp32 else (f"{name}_wide", f"fa_{name}")
@@ -489,9 +497,9 @@ def _bwd_args(q, k, v, o, lse, do, dlse, spec: _Spec, segs):
     by the pre-pass, K2 and K3): inputs read through their strides; the
     pre-pass's outputs, di (fp32 [B, Hq, Lq]) and, for bf16/fp16 up to
     head dim 256, where the wgmma K2/K3 read it, qs ([B, Hq, Lq, D]
-    contiguous; the SIMT family rounds q itself); and the grads in
-    [B, L, H, D] memory, as the forward's output, so that the grads of the
-    fused projection's q/k/v views are free views too."""
+    contiguous; the fp32 K2/K3 and the SIMT family scale q themselves); and
+    the grads in [B, L, H, D] memory, as the forward's output, so that the
+    grads of the fused projection's q/k/v views are free views too."""
     b, hq, hkv, lq, lk, d = _shapes(q, k, v)
     _check_kernel_inputs(q, k, v, o, do)
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))

@@ -34,6 +34,13 @@ __all__ = ["ab_compare", "chain_timer", "floor_ms", "graph_ms", "time_ms"]
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12  # fp32 FMA outside the tensor cores
+# fp32-accurate products on the tensor cores: 3xTF32 splits each fp32
+# operand into two TF32 halves and takes three TF32 passes a product (hi *
+# hi, hi * lo, lo * hi) at TF32's dense 495 TFLOP/s.  One pass keeps about
+# three decimal digits and misses the fp32 tiers (1e-5 forward, 1e-4
+# backward), so this is the least time the card could take for fp32 work
+# held to them.
+TF32X3_FLOPS = 495e12 / 3
 
 
 def time_ms(fn: Callable[[], Any], runs: int = 20, warmup: int = 3, inner: int = 1) -> float:
@@ -80,7 +87,8 @@ def graph_ms(fn: Callable[[], Any], calls: int = 20, runs: int = 10) -> float:
 def floor_ms(nbytes: float, flops: float = 0.0, peak: float = BF16_FLOPS) -> tuple[float, str]:
     """The least time the card could take, and what sets it: `nbytes` at
     3.35 TB/s or `flops` at the inputs' peak rate (989 TFLOP/s for bf16 and
-    fp16, 67 for fp32 outside the tensor cores), whichever takes longer:
+    fp16; for fp32, 165 in 3xTF32 on the tensor cores or 67 outside them),
+    whichever takes longer:
     (ms, "bytes" or "operations")."""
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")

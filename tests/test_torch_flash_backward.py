@@ -382,8 +382,16 @@ _QS_ARG = {"fa_flash_bwd_prep": 4, "fa_flash_bwd_dkv": 6, "fa_flash_bwd_dkv_simt
            ("flash_bwd_dkv_wide", "fa_flash_bwd_dkv_simt"), ("flash_bwd_dq_wide", "fa_flash_bwd_dq_simt"),
            ("flash_fwd_kv_quant_wide_simt", "fa_flash_fwd_kv_quant_simt"))
           for d in (512, 1024)),
+        # fp32 up to 128: K1, the pre-pass and K4 under the plain keys, K2
+        # and K3 (the 3xTF32 kernels) under "_fp32", all through the plain
+        # entry points
+        *((d, torch.float32, ("flash_fwd", "fa_flash_fwd"), ("flash_bwd_prep", "fa_flash_bwd_prep"),
+           ("flash_bwd_dkv_fp32", "fa_flash_bwd_dkv"), ("flash_bwd_dq_fp32", "fa_flash_bwd_dq"),
+           ("flash_fwd_kv_quant", "fa_flash_fwd_kv_quant"))
+          for d in (64, 96)),
     ],
-    ids=["bf16-256", "fp16-160", "fp32-256", "bf16-288", "fp16-520", "bf16-1024", "fp32-512", "fp32-1024"],
+    ids=["bf16-256", "fp16-160", "fp32-256", "bf16-288", "fp16-520", "bf16-1024", "fp32-512", "fp32-1024", "fp32-64",
+         "fp32-96"],
 )
 def test_cuda_route_reaches_each_kernel(d, dtype, fwd, prep, dkv, dq, k4, monkeypatch):
     """The real launchers on the CUDA route, with the kernel library's C
@@ -392,8 +400,9 @@ def test_cuda_route_reaches_each_kernel(d, dtype, fwd, prep, dkv, dq, k4, monkey
     (pre-pass, K2, K3) and K4 reaches the C entry point and the
     KERNEL_LAUNCHES key `_route` names for its dtype and padded head dim,
     with that head dim (257-512 padded to 512, 513-1024 to 1024) in its
-    arguments, once each.  The backward is handed a qs buffer only for
-    bf16/fp16 up to head dim 256, where the wgmma kernels read it."""
+    arguments, once each (up to 128 padded to 64 or 128).  The backward is
+    handed a qs buffer only for bf16/fp16 up to head dim 256, where the
+    wgmma kernels read it."""
     calls, qs_args = [], []
 
     def record(entry, device, *args):

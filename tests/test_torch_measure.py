@@ -56,6 +56,16 @@ def test_floor_ms_takes_the_longer_of_bytes_and_operations():
     assert by == "operations" and ms == pytest.approx(1.0)
 
 
+def test_floor_ms_of_fp32_work_at_the_3xtf32_rate():
+    """fp32 K2 at b8 h12 L1024 D64 causal: four products of the forward's
+    size, 25.8 GFLOP, at a third of TF32's 495 TFLOP/s is 0.156 ms, bound by
+    its operations (its 151 MB take 0.045 ms)."""
+    flops = 2 * 4 * 8 * 12 * 1024 * 1024 * 64 / 2
+    assert measure.TF32X3_FLOPS == pytest.approx(165e12)
+    ms, by = measure.floor_ms(6 * 8 * 12 * 1024 * 64 * 4 + 2 * 8 * 12 * 1024 * 4, flops, peak=measure.TF32X3_FLOPS)
+    assert by == "operations" and ms == pytest.approx(0.1562, abs=1e-4)
+
+
 # JAX names the port leaves out, by subpackage: the XLA compilation cache
 # and the fused clip+AdamW are not ported (ROADMAP, "Do not port"); the
 # functional model API is the GPT module.

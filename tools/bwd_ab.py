@@ -1,20 +1,22 @@
 """Time the flash-attention backward and a traced GPT-2 training step of one
 checkout of the PyTorch port on the card, for an A/B between checkouts.
 
-    python3 tools/bwd_ab.py <checkout dir> <label>
+    python3 tools/bwd_ab.py <checkout dir> <label> [--backward-only]
 
 Imports `flash_attention_tpu_torch` from <checkout dir>, builds its kernels
 there (its own build/torch_kernels/), and prints lines of results, the last
 `RESULT {json}`:
 
-* the backward at h12 L1024 bf16 causal, b1 and b8 at D64 and b8 at D128,
-  as device time (a CUDA graph of 20 calls between CUDA events): di (the
-  pre-pass kernel where the checkout has one, else the eager reduction
-  `_bwd_args` ran before it), K2, K3, the whole backward as the autograd
-  Function runs it (`_launch_bwd`), and torch SDPA's backward;
-* GPT-2 124M training at b8 x T1024 (bf16 compute, fp32 master weights):
-  5 warm-up steps, the median wall time of 15 more, then torch.profiler
-  over 3 more: device-busy ms a step and kernel ms a step by kind.
+* the backward at h12 L1024 causal, bf16 at b1 and b8 at D64 and b8 at
+  D128, and fp32 at b8 at D64 and D128 (the rows "..._fp32"), as device
+  time (a CUDA graph of 20 calls between CUDA events): di (the pre-pass
+  kernel where the checkout has one, else the eager reduction `_bwd_args`
+  ran before it), K2, K3, the whole backward as the autograd Function runs
+  it (`_launch_bwd`), and torch SDPA's backward in the same dtype;
+* unless --backward-only: GPT-2 124M training at b8 x T1024 (bf16
+  compute, fp32 master weights): 5 warm-up steps, the median wall time of
+  15 more, then torch.profiler over 3 more: device-busy ms a step and
+  kernel ms a step by kind.
 
 The timer is the checkout's `flash_attention_tpu_torch.utils.measure.
 graph_ms`, the gradient call and the trace this checkout's `chip_smoke.py`
@@ -37,6 +39,7 @@ import sys
 import time
 
 tree, label = sys.argv[1], sys.argv[2]
+backward_only = "--backward-only" in sys.argv[3:]
 sys.path.insert(0, os.path.abspath(tree))
 
 import numpy as np  # noqa: E402
@@ -61,11 +64,13 @@ from flash_attention_tpu_torch.utils.measure import graph_ms  # noqa: E402
 def backward_times(gen) -> dict:
     sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, is_causal=True)
     out = {}
-    for b, d in ((1, 64), (8, 64), (8, 128)):
-        q, k, v, do = (torch.randn((b, 12, 1024, d), generator=gen).to("cuda", torch.bfloat16) for _ in range(4))
+    for b, d, dtype in ((1, 64, torch.bfloat16), (8, 64, torch.bfloat16), (8, 128, torch.bfloat16),
+                        (8, 64, torch.float32), (8, 128, torch.float32)):
+        q, k, v, do = (torch.randn((b, 12, 1024, d), generator=gen).to("cuda", dtype) for _ in range(4))
         with torch.no_grad():
             o, lse = FA.flash_attention_with_lse(q, k, v)
-        spec = FA._Spec(causal=True, sm_scale=d ** -0.5, window=None, blocks=FA.default_blocks(1024, 1024, d))
+        spec = FA._Spec(causal=True, sm_scale=d ** -0.5, window=None,
+                        blocks=FA.default_blocks(1024, 1024, d, dtype=dtype))
         args = FA._bwd_args(q, k, v, o, lse, do, None, spec, None)
         row = {}
         if hasattr(FA, "_launch_bwd_prep"):
@@ -77,8 +82,9 @@ def backward_times(gen) -> dict:
         row["k3"] = graph_ms(lambda: FA._launch_bwd_dq(args))
         row["backward"] = graph_ms(lambda: FA._launch_bwd(q, k, v, o, lse, do, None, spec, None))
         row["sdpa_backward"] = graph_ms(smoke._grad_fn(sdpa, q, k, v, do))
-        out[f"b{b}_d{d}"] = row
-        print(label, f"b{b} D{d} device ms", {key: round(x, 4) for key, x in row.items()}, flush=True)
+        tag = f"b{b}_d{d}" + ("_fp32" if dtype == torch.float32 else "")
+        out[tag] = row
+        print(label, f"{tag} device ms", {key: round(x, 4) for key, x in row.items()}, flush=True)
     return out
 
 
@@ -105,7 +111,8 @@ def main() -> None:
     _build.library()
     res = {"label": label, "checkout": tree, "device": name, "smi": smi, "build_s": time.perf_counter() - t0}
     res["backward"] = backward_times(torch.Generator().manual_seed(11))
-    res["training"] = training_times(smi)
+    if not backward_only:
+        res["training"] = training_times(smi)
     print("RESULT " + json.dumps(res), flush=True)
 
 
