@@ -40,14 +40,17 @@ are 7-9):
 7. d256     - head dims 160 and 256 (run at 256: the wgmma K1, K4, K2 and
               K3 for bf16/fp16, the SIMT family of csrc/flash_d256.cuh for
               fp32), 288 and 520 (padded to 512 and 1024: bf16/fp16 K1 and
-              K4 on the wide wgmma kernel of csrc/flash_fwd_wide.cuh, K2/K3
-              and fp32 on the SIMT family): K1, its lse (fp32 against
-              vanilla at 1e-5; the wide kernel's against its plain version
-              at 1e-3 and vanilla at 2e-2), the pre-pass, K2/K3 and K4
-              (int8, fp8) against their plain versions and fp32 vanilla,
-              with GQA 8/2 at q129 x kv257 and window 100, 3 segments, rows
-              that see no key (their output and dQ exactly 0), the lse
-              cotangent, non-causal, and K1 and the grads at the
+              K4 on the wide wgmma forward of csrc/flash_fwd_wide.cuh, K2
+              and K3 on the wide wgmma backward of
+              csrc/flash_bwd_wide.cuh, fp32 on the SIMT family): K1, its
+              lse (fp32 against vanilla at 1e-5; the wide kernel's against
+              its plain version at 1e-3 and vanilla at 2e-2), the
+              pre-pass, K2/K3 and K4 (int8, fp8) against their plain
+              versions and fp32 vanilla, with GQA 8/2 at q129 x kv257 and
+              window 100, 3 segments, rows that see no key (their output
+              and dQ exactly 0), the lse cotangent, non-causal, batch x
+              heads past 32767 (b2 h16400 GQA /4 L2; the wide K2/K3 in
+              bf16 and fp16 at each of these), and K1 and the grads at the
               d256-path's shape (b4 h3 L1024, causal only, so most tiles
               take the unmasked branch) and at b2 h4 L1024 for D288 /
               D520.
@@ -59,9 +62,9 @@ are 7-9):
               layers (the wgmma K4 launched 4 times).
    simt-path - head dims above 256 and fp32 at 256 through the entry
               points: forward and backward of flash_attention and K4 (int8)
-              at b2 h4 L1024 for D288 and D520 bf16 (the wide wgmma K1 and
-              K4, the SIMT K2/K3 on its lse) and D256 and D520 fp32 (the
-              SIMT family); the "_wide", "_wide_simt" and "_d256_simt" keys
+              at b2 h4 L1024 for D288 and D520 bf16 (the wide wgmma K1, K4,
+              K2 and K3) and D256 and D520 fp32 (the SIMT family); the
+              "_wide", "_wide_simt" and "_d256_simt" keys
               launched as SIMT_PATH_LAUNCHES says; every output and grad
               against its plain version and fp32 vanilla.
 9. llama    - the slice: Llama-3 8B at full width and depth (32 layers,
@@ -163,7 +166,9 @@ are 7-9):
               at b8 h12 L1024: fp32 D256 (SIMT); bf16 D512 and D1024 (no
               plain versions at D1024): the wide wgmma K1 and K4 beside the
               SIMT times they replaced and SDPA's forward, the pre-pass and
-              the SIMT K2/K3; fp32 D512 (SIMT K1-K4); fp32 D64 and D128 (K1,
+              the wide wgmma K2/K3 beside their bounds, the SIMT times they
+              replaced and SDPA's whole backward (pre-pass + K2 + K3
+              against it); fp32 D512 (SIMT K1-K4); fp32 D64 and D128 (K1,
               K4, the pre-pass, the 3xTF32 K2 and K3 beside the SIMT times
               they replaced, SDPA fp32).
 20. measure - utils.measure on K1 at b8 h12 L1024 D64 bf16: chain_timer
@@ -339,22 +344,27 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                                "flash_attention_tpu/kernels/flash_attention.py:765"),
     "flash_fwd_kv_quant_d256_simt": ("flash_attention_tpu_torch/csrc/flash_simt_fwd_kv_quant.cu",
                                      "flash_attention_tpu/quant/kv.py:98"),
-    # head dims 257-1024, padded to 512 or 1024: bf16/fp16 K1 and K4 on the
-    # wide wgmma kernel (flash_fwd_wide.cuh, D = 1024 in
-    # flash_fwd_wide_d1024.cu), the pre-pass, and the SIMT K2 / K3
+    # head dims 257-1024, padded to 512 or 1024, bf16/fp16: K1 and K4 on the
+    # wide wgmma forward (flash_fwd_wide.cuh, D = 1024 in
+    # flash_fwd_wide_d1024.cu), the pre-pass, and K2 / K3 on the wide wgmma
+    # backward (flash_bwd_wide.cuh, D = 1024 in flash_bwd_wide_d1024.cu)
     "flash_fwd_wide": ("flash_attention_tpu_torch/csrc/flash_fwd_wide.cu",
                        "flash_attention_tpu/kernels/flash_attention.py:269"),
     "flash_bwd_prep_wide": ("flash_attention_tpu_torch/csrc/flash_bwd.cu",
                             "flash_attention_tpu/kernels/flash_attention.py:1112"),
-    "flash_bwd_dkv_wide": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
+    "flash_bwd_dkv_wide": ("flash_attention_tpu_torch/csrc/flash_bwd_wide.cu",
                            "flash_attention_tpu/kernels/flash_attention.py:637"),
-    "flash_bwd_dq_wide": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
+    "flash_bwd_dq_wide": ("flash_attention_tpu_torch/csrc/flash_bwd_wide.cu",
                           "flash_attention_tpu/kernels/flash_attention.py:765"),
     "flash_fwd_kv_quant_wide": ("flash_attention_tpu_torch/csrc/flash_fwd_wide.cu",
                                 "flash_attention_tpu/quant/kv.py:98"),
-    # fp32 at 512 / 1024: the SIMT family's K1 and K4
+    # fp32 at 512 / 1024: the SIMT family's K1, K4, K2 and K3
     "flash_fwd_wide_simt": ("flash_attention_tpu_torch/csrc/flash_simt_fwd.cu",
                             "flash_attention_tpu/kernels/flash_attention.py:269"),
+    "flash_bwd_dkv_wide_simt": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
+                                "flash_attention_tpu/kernels/flash_attention.py:637"),
+    "flash_bwd_dq_wide_simt": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
+                               "flash_attention_tpu/kernels/flash_attention.py:765"),
     "flash_fwd_kv_quant_wide_simt": ("flash_attention_tpu_torch/csrc/flash_simt_fwd_kv_quant.cu",
                                      "flash_attention_tpu/quant/kv.py:98"),
 }
@@ -403,6 +413,12 @@ def _is_wide(name: str) -> bool:
     return "wide::fwd_kernel" in name or "4wide10fwd_kernel" in name
 
 
+def _is_wide_bwd(name: str) -> bool:
+    """An instantiation of the wide wgmma backward (fa::wide::dkv_kernel,
+    fa::wide::dq_kernel), demangled or not."""
+    return any(k in name for k in ("wide::dkv_kernel", "wide::dq_kernel", "4wide10dkv_kernel", "4wide9dq_kernel"))
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     _build.library()
@@ -431,7 +447,7 @@ def phase_build() -> None:
         spilled = not spill.startswith("0 bytes stack frame, 0 bytes spill stores")
         if "decode_kernel" in name and not spilled:
             decode.append(regs)
-        elif not _is_wide(name):
+        elif not _is_wide(name) and not _is_wide_bwd(name):
             short = name.replace("(anonymous namespace)::", "").replace("(fa::FwdParams)", "").replace("fa::", "")
             say(f"[build] ptxas {short}: {regs} registers; {spill}")
     if decode:
@@ -447,7 +463,7 @@ def phase_build() -> None:
     # seconds, and each instantiation's registers, spills and C7518 lines
     wide = [(n, regs, spill) for n, (_, regs, spill) in zip(_demangle([e[0] for e in entries]), entries)
             if _is_wide(n)]
-    say("[build] wide forward: nvcc " + (", ".join(f"{k} {v:.1f} s" for k, v in per.items() if "wide" in k)
+    say("[build] wide forward: nvcc " + (", ".join(f"{k} {v:.1f} s" for k, v in per.items() if "fwd_wide" in k)
                                           or "not run (already built)")
         + f"; {len(wide)} instantiations; C7518 in them: {sum(_is_wide(n) for n in names)}")
     for n, regs, spill in wide:
@@ -455,6 +471,20 @@ def phase_build() -> None:
         say(f"[build]   wide {m.group(1) if m else n}: {regs} registers; {spill}")
     if len(wide) != 12:
         raise AssertionError(f"[build] expected 12 wide forward instantiations, found {len(wide)}")
+    # the wide wgmma backward (K2 / K3 at D512 and D1024, bf16 and fp16): the
+    # same report; a serialised wgmma in it fails the build phase
+    wide_bwd = [(n, regs, spill) for n, (_, regs, spill) in zip(_demangle([e[0] for e in entries]), entries)
+                if _is_wide_bwd(n)]
+    serial_bwd = sum(_is_wide_bwd(n) for n in names)
+    say("[build] wide backward: nvcc " + (", ".join(f"{k} {v:.1f} s" for k, v in per.items() if "bwd_wide" in k)
+                                           or "not run (already built)")
+        + f"; {len(wide_bwd)} instantiations; C7518 in them: {serial_bwd}")
+    for n, regs, spill in wide_bwd:
+        m = re.search(r"((?:dkv|dq)_kernel<.*>)", n)
+        say(f"[build]   wide {m.group(1) if m else n}: {regs} registers; {spill}")
+    if len(wide_bwd) != 8 or serial_bwd:
+        raise AssertionError(f"[build] expected 8 wide backward instantiations and no C7518 in them, found "
+                             f"{len(wide_bwd)} and {serial_bwd}")
 
 
 def _rand(gen, shape, dtype):
@@ -1713,17 +1743,18 @@ def _keep_worst(worst: dict, key: str, err: float) -> None:
 def phase_d256(seed: int) -> dict:
     """K1, the pre-pass, K2/K3 and K4 at head dims 160 and 256 (both run at
     256: bf16/fp16 on the wgmma K1, K4, K2 and K3, fp32 on the SIMT family),
-    288 and 520 (padded to 512 and 1024: bf16/fp16 K1 and K4 on the wide
-    wgmma kernels, K2/K3 and fp32 on the SIMT family) against their plain
+    288 and 520 (padded to 512 and 1024: bf16/fp16 K1, K4, K2 and K3 on the
+    wide wgmma kernels, fp32 on the SIMT family) against their plain
     versions and fp32 vanilla, with GQA 8/2, windows, segment ids, rows
-    that see no key, the tiles' ragged edges, lse and K4 on int8 and fp8.
+    that see no key, the tiles' ragged edges, lse, non-causal, batch x
+    heads past 32767, and K4 on int8 and fp8.
     Returns each kernel's worst error against its plain version, by
     KERNEL_LAUNCHES key."""
     gen = torch.Generator().manual_seed(seed + 9)
     bf16, f16, f32, i8, f8 = torch.bfloat16, torch.float16, torch.float32, torch.int8, torch.float8_e4m3fn
     say("[d256] head dims 160 and 256 (the wgmma K1, K4, K2, K3 for bf16/fp16; the SIMT family for fp32), 288 and "
-        "520 (zero-padded to 512 and 1024: the wide wgmma K1 and K4 for bf16/fp16, the SIMT K2/K3 and fp32): "
-        "tolerances as at 64 / 128")
+        "520 (zero-padded to 512 and 1024: the wide wgmma K1, K4, K2 and K3 for bf16/fp16; the SIMT family for "
+        "fp32): tolerances as at 64 / 128")
     worst: dict = {}
     for label, b, hq, hkv, lq, lk, d, dtype, causal, atol, kw in (
         ("d256 gqa 8/2 q129 kv257 window 100 bf16", 2, 8, 2, 129, 257, 256, bf16, True, 2e-2, dict(window=100)),
@@ -1767,7 +1798,7 @@ def phase_d256(seed: int) -> dict:
         say(f"[d256] lse fp32 b1 h4 L300 D{d}: out and lse vs vanilla {e:.3e} atol 1e-05 {'ok' if e <= 1e-5 else 'FAIL'}")
         if e > 1e-5 or out.shape != q.shape:
             raise AssertionError("[d256] lse outside tolerance")
-    # the wide wgmma forward's lse, which the SIMT K2/K3 read: against the
+    # the wide wgmma forward's lse, which the wide K2/K3 read: against the
     # plain version's (the same roundings) at 1e-3 and fp32 vanilla's at
     # 2e-2 (q * scale rounded to 16 bits moves each score by up to 2^-8 of it)
     for d, dtype in ((288, bf16), (288, f16), (520, bf16), (520, f16)):
@@ -1807,12 +1838,26 @@ def phase_d256(seed: int) -> dict:
         ("d160 fp32 gqa 4/2 L200 window 64", 1, 4, 2, 200, 200, 160, f32, dict(window=64)),
         ("d256 lse cotangent fp32 b1 h4 L300", 1, 4, 2, 300, 300, 256, f32, dict(with_lse=True)),
         ("d256 no-key rows fp32 q300 kv200", 1, 4, 4, 300, 200, 256, f32, dict(no_key_rows=100)),
-        # the SIMT K2/K3 on the wide wgmma forward's o and lse
+        # the wide wgmma K2/K3 (bf16/fp16) on the wide wgmma forward's o and
+        # lse, each edge in both dtypes and at both padded head dims: GQA 8/2
+        # with ragged q129 x kv257 and window 100, 3 segments, rows that see
+        # no key, the lse cotangent, non-causal Lq < Lk, and batch x heads
+        # past 32767 (grid.y) at L2
         ("d288 gqa 8/2 q129 kv257 w100 bf16", 2, 8, 2, 129, 257, 288, bf16, dict(window=100)),
+        ("d288 gqa 8/2 q129 kv257 w100 fp16", 2, 8, 2, 129, 257, 288, f16, dict(window=100)),
+        ("d520 gqa 8/2 q129 kv257 w100 bf16", 2, 8, 2, 129, 257, 520, bf16, dict(window=100)),
+        ("d520 gqa 8/2 q129 kv257 w100 fp16", 2, 8, 2, 129, 257, 520, f16, dict(window=100)),
         ("d520 b1 h4 L300 3 segments fp16", 1, 4, 4, 300, 300, 520, f16, dict(segments=True)),
+        ("d288 b1 h4 L300 3 segments bf16", 1, 4, 4, 300, 300, 288, bf16, dict(segments=True)),
         ("d288 no-key rows q300 kv200 fp16", 1, 4, 4, 300, 200, 288, f16, dict(no_key_rows=100)),
         ("d520 no-key rows q300 kv200 bf16", 1, 4, 4, 300, 200, 520, bf16, dict(no_key_rows=100)),
         ("d520 lse cotangent gqa 8/2 L300 bf16", 1, 8, 2, 300, 300, 520, bf16, dict(with_lse=True)),
+        ("d288 lse cotangent gqa 8/2 L300 fp16", 1, 8, 2, 300, 300, 288, f16, dict(with_lse=True)),
+        ("d288 non-causal q200 kv300 bf16", 1, 4, 2, 200, 300, 288, bf16, dict(causal=False)),
+        ("d520 non-causal q200 kv300 fp16", 1, 4, 2, 200, 300, 520, f16, dict(causal=False)),
+        ("d520 b2 h16400 gqa /4 L2 bf16", 2, 16400, 4100, 2, 2, 520, bf16, {}),
+        ("d288 b2 h16400 gqa /4 L2 fp16", 2, 16400, 4100, 2, 2, 288, f16, {}),
+        # fp32 there: the SIMT family
         ("d288 lse cotangent fp32 b1 h4 L300", 1, 4, 2, 300, 300, 288, f32, dict(with_lse=True)),
         ("d520 no-key rows fp32 q300 kv200", 1, 4, 4, 300, 200, 520, f32, dict(no_key_rows=100)),
     ):
@@ -1890,12 +1935,13 @@ def phase_d256_path(seed: int, data: np.ndarray) -> dict:
 
 
 # The path of head dims above 256 and of fp32 at 256 (`phase_simt_path`):
-# what it must launch.  bf16 at D288 and D520 runs the wide wgmma K1 and K4
-# ("_wide"), fp32 at D520 the SIMT K1 and K4 ("_wide_simt"); the pre-pass,
-# K2 and K3 of both ("_wide"); fp32 at D256 the "_d256_simt" keys.
+# what it must launch.  bf16 at D288 and D520 runs the wide wgmma K1, K4, K2
+# and K3 ("_wide"), fp32 at D520 the SIMT K1, K4, K2 and K3 ("_wide_simt");
+# the pre-pass of both ("_wide"); fp32 at D256 the "_d256_simt" keys.
 SIMT_PATH_LAUNCHES = {
-    "flash_fwd_wide": 2, "flash_bwd_prep_wide": 3, "flash_bwd_dkv_wide": 3, "flash_bwd_dq_wide": 3,
+    "flash_fwd_wide": 2, "flash_bwd_prep_wide": 3, "flash_bwd_dkv_wide": 2, "flash_bwd_dq_wide": 2,
     "flash_fwd_kv_quant_wide": 2, "flash_fwd_wide_simt": 1, "flash_fwd_kv_quant_wide_simt": 1,
+    "flash_bwd_dkv_wide_simt": 1, "flash_bwd_dq_wide_simt": 1,
     "flash_fwd_d256_simt": 1, "flash_bwd_prep_d256": 1, "flash_bwd_dkv_d256_simt": 1, "flash_bwd_dq_d256_simt": 1,
     "flash_fwd_kv_quant_d256_simt": 1,
 }
@@ -1917,11 +1963,10 @@ def phase_simt_path(seed: int) -> dict:
     """The kernels a caller with a head dim above 256, or fp32 at 256,
     reaches, through the entry points: a forward and backward step of
     flash_attention at b2 h4 L1024 for head dims 288 (padded to 512) and
-    520 (to 1024) in bf16 (the wide wgmma K1, the SIMT K2 and K3 on its
-    lse), 256 and 520 in fp32 (the SIMT family), and
-    flash_attention_kv_quant (int8) at each.  Each "_wide", "_wide_simt"
-    and "_d256_simt" key must launch as SIMT_PATH_LAUNCHES says, and
-    nothing else.  Then every output against
+    520 (to 1024) in bf16 (the wide wgmma K1, K2 and K3), 256 and 520 in
+    fp32 (the SIMT family), and flash_attention_kv_quant (int8) at each.
+    Each "_wide", "_wide_simt" and "_d256_simt" key must launch as
+    SIMT_PATH_LAUNCHES says, and nothing else.  Then every output against
     its plain version (flash_attention_reference, flash_attention_bwd_reference,
     flash_attention_kv_quant_reference) and fp32 vanilla on the same inputs
     (K4's on the K/V dequantized the kernel's way): bf16 out and K4 2e-2,
@@ -2484,6 +2529,11 @@ def _time_family(gen, smi: str, label: str, b: int, h: int, L: int, d: int, dtyp
 # measure them now, so they stand on the [timing] line only, as the earlier
 # reading, and never in the kernels line.
 SIMT_16BIT_MS = {"flash_fwd_wide": (14.1363, 41.5888), "flash_fwd_kv_quant_wide": (12.7607, 34.0706)}
+# Device ms of the 16-bit SIMT K2 / K3 that the wide wgmma backward replaced,
+# at b8 h12 L1024 bf16 causal, {key: (D512, D1024)}, read the same way (the
+# timing phase of an earlier run, NVIDIA H100 80GB HBM3, 700.00 W): printed
+# on the [timing] line only.
+SIMT_16BIT_BWD_MS = {"flash_bwd_dkv_wide": (20.5184, 51.6841), "flash_bwd_dq_wide": (19.3413, 51.7461)}
 # Device ms of the fp32 SIMT K2 / K3 that the 3xTF32 kernels replaced, at b8
 # h12 L1024 fp32 causal, {key: (D64, D128)}, read the same way (NVIDIA H100
 # 80GB HBM3, 700.00 W): printed on the [timing] line only.
@@ -2494,13 +2544,14 @@ def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
     """The kernels of head dims above 128 that the D256 timing does not
     cover, and fp32 at 64 and 128, at b8 h12 L1024 (every tensor above L2's
     50 MB, as at the D256 timing shape): fp32 at D256 (the "_d256_simt"
-    rows); bf16 at D512 (the "_wide" rows: the wide wgmma K1 and K4, the
-    pre-pass, the SIMT K2 and K3; they carry the D1024 times beside them
-    as d1024_*), with K1's and K4's speed-up over the SIMT forward they
+    rows); bf16 at D512 (the "_wide" rows: the wide wgmma K1, K4, K2 and
+    K3 and the pre-pass; they carry the D1024 times beside them as
+    d1024_*), with K1's and K4's speed-up over the SIMT forward they
     replaced (SIMT_16BIT_MS, an earlier reading, printed on the [timing]
-    line only) and K1's ratio to SDPA's forward; fp32 at D512
-    (the "_wide_simt" rows, the SIMT K1 and K4; the SIMT K2 and K3 are
-    timed beside them); fp32 at D64 and D128 (K1, K4, the pre-pass, K2, K3
+    line only) and K1's ratio to SDPA's forward, and K2's and K3's beside
+    their bounds, SDPA's whole backward and the SIMT K2 / K3 they replaced
+    (SIMT_16BIT_BWD_MS, printed only); fp32 at D512 (the "_wide_simt"
+    rows, the SIMT K1, K4, K2 and K3); fp32 at D64 and D128 (K1, K4, the pre-pass, K2, K3
     in the entry points' fp32 kernels, SDPA fp32): the "_fp32" rows of the
     3xTF32 K2 and K3 (D64, with the D128 times beside them as d128_*),
     with their speed-up over the SIMT pair they replaced (SIMT_FP32_BWD_MS,
@@ -2513,9 +2564,9 @@ def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
     d256 = _time_family(gen, smi, "SIMT family, fp32", 8, 12, 1024, 256, f32, TF32X3_FLOPS, True)
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_kv_quant"):
         result[f"{name}_d256_simt"] = d256[name]
-    wide = _time_family(gen, smi, "padded head dim 512 (K1, K4: wide wgmma; K2, K3: SIMT)", 8, 12, 1024, 512, bf16,
+    wide = _time_family(gen, smi, "padded head dim 512 (the wide wgmma K1, K4, K2, K3)", 8, 12, 1024, 512, bf16,
                         BF16_FLOPS, True)
-    wide1024 = _time_family(gen, smi, "padded head dim 1024 (K1, K4: wide wgmma; K2, K3: SIMT)", 8, 12, 1024, 1024,
+    wide1024 = _time_family(gen, smi, "padded head dim 1024 (the wide wgmma K1, K4, K2, K3)", 8, 12, 1024, 1024,
                             bf16, BF16_FLOPS, False)
     for name, row in wide.items():
         row.update({f"d1024_{k}": v for k, v in wide1024[name].items() if k != "plain_ms"})
@@ -2531,9 +2582,21 @@ def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
             parts.append(f"{tag} {ms:.4f} ms ({bound / ms:.1%} of the bound {bound:.4f} ms; the SIMT forward's "
                          f"{old} ms, read in an earlier run, not this one, {old / ms:.1f}x{sdpa})")
         say(f"[timing] {smi} | wide wgmma {key} b8 h12 L1024 bf16 causal: " + "; ".join(parts))
+    for tag, pre in (("D512", ""), ("D1024", "d1024_")):
+        prep, k2, k3 = (result[k][f"{pre}ms"] for k in ("flash_bwd_prep_wide", *SIMT_16BIT_BWD_MS))
+        lib = result["flash_bwd_dkv_wide"][f"{pre}library_ms"]
+        parts = []
+        for key, simt in SIMT_16BIT_BWD_MS.items():
+            ms, bound = result[key][f"{pre}ms"], result[key][f"{pre}bound_ms"]
+            old = simt[0 if tag == "D512" else 1]
+            parts.append(f"{key} {ms:.4f} ms ({bound / ms:.1%} of the bound {bound:.4f} ms, operations; the SIMT "
+                         f"kernel's {old} ms, read in an earlier run, not this one, {old / ms:.1f}x)")
+        say(f"[timing] {smi} | wide wgmma backward {tag} b8 h12 L1024 bf16 causal: " + "; ".join(parts)
+            + f"; pre-pass {prep:.4f} ms; pre-pass + K2 + K3 {prep + k2 + k3:.4f} ms against SDPA's whole backward "
+              f"{lib:.4f} ms: {(prep + k2 + k3) / lib:.2f}x")
     fp32_wide = _time_family(gen, smi, "fp32, padded head dim 512 (SIMT family)", 8, 12, 1024, 512, f32,
                              TF32X3_FLOPS, True)
-    for name in ("flash_fwd", "flash_fwd_kv_quant"):
+    for name in ("flash_fwd", "flash_fwd_kv_quant", "flash_bwd_dkv", "flash_bwd_dq"):
         result[f"{name}_wide_simt"] = fp32_wide[name]
     extra: dict = {}
     _reset_launches()

@@ -2,9 +2,10 @@
 // dQ, with a plain C interface loaded through ctypes
 // (flash_attention_tpu_torch/kernels/_build.py).  The warp-specialised
 // kernels are in flash_bwd.cuh (K2 and K3 at D = 256 instantiated in
-// flash_bwd_d256.cu), fp32's at 64 and 128 in flash_bwd_fp32.cuh; the SIMT
-// family that fp32 at D = 256 and every dtype at 512 and 1024 run is in
-// flash_d256.cuh (flash_simt_bwd.cu).
+// flash_bwd_d256.cu) and, at 512 and 1024, flash_bwd_wide.cuh (their own
+// design notes; flash_bwd_wide.cu, flash_bwd_wide_d1024.cu); fp32's at 64
+// and 128 are in flash_bwd_fp32.cuh; the SIMT family that fp32 runs from
+// D = 256 up is in flash_d256.cuh (flash_simt_bwd.cu).
 //
 // Replaces, in flash_attention_tpu/kernels/flash_attention.py:
 //   * fa_flash_bwd_dkv (K2): _dkv_kernel (:637, launched by _bwd_dkv :890
@@ -28,9 +29,9 @@
 // dtype before dS^T q and dS k; every sum is fp32.  sm_scale is applied to
 // the fp32 dK and dQ at the store (dK = scale * sum dS^T q, dQ = scale *
 // sum dS k) instead of to rounded q * scale and k * scale operands: at head
-// dims 64 and 256 (sm_scale = 2^-3 and 2^-4, powers of two) both forms
-// give the same bits; at 128 the store form skips one rounding of each
-// operand, inside the 16-bit tier either way.  The plain versions (kernels/flash_attention.py) keep the
+// dims 64, 256 and 1024 (sm_scale = 2^-3, 2^-4 and 2^-5, powers of two) both
+// forms give the same bits; at 128 and 512 the store form skips one rounding
+// of each operand, inside the 16-bit tier either way.  The plain versions (kernels/flash_attention.py) keep the
 // TPU's operand form.
 //
 // On the TPU the grid ran in order and carried dK/dV (or dQ) in scratch from
@@ -165,7 +166,7 @@ struct PrepParams {
   const void* o;
   const void* dout;
   const float* dlse;  // [batch, hq, lq] contiguous, or null
-  void* qs;           // [batch, hq, lq, D] contiguous, or null (fp32; D > 256)
+  void* qs;           // [batch, hq, lq, D] contiguous, or null (fp32)
   float* di;          // [batch, hq, lq] contiguous
   Strides sq, so, sdo;
   int hq, lq;
@@ -237,10 +238,13 @@ int run(int which, const void* q, const void* k, const void* v, const void* dout
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return (int)dispatch<64>(which, dtype, p, s);
   if (head_dim == 128) return (int)dispatch<128>(which, dtype, p, s);
-  // D = 256: K2 and K3 for bf16 / fp16 (flash_bwd_d256.cu); fp32 takes the
-  // SIMT family's entry points (flash_simt_bwd.cu).
-  if (head_dim == 256 && p.qs != nullptr && (dtype == 1 || dtype == 2))
-    return (int)(which == 0 ? launch_dkv_ws_d256(dtype, p, s) : launch_dq_ws_d256(dtype, p, s));
+  // D = 256, 512 and 1024: K2 and K3 for bf16 / fp16 (flash_bwd_d256.cu,
+  // flash_bwd_wide.cu, flash_bwd_wide_d1024.cu); fp32 takes the SIMT
+  // family's entry points (flash_simt_bwd.cu).
+  if (p.qs == nullptr || (dtype != 1 && dtype != 2)) return (int)cudaErrorInvalidValue;
+  if (head_dim == 256) return (int)(which == 0 ? launch_dkv_ws_d256(dtype, p, s) : launch_dq_ws_d256(dtype, p, s));
+  if (head_dim == 512) return (int)launch_bwd_wide_d512(which, dtype, p, s);
+  if (head_dim == 1024) return (int)launch_bwd_wide_d1024(which, dtype, p, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -265,8 +269,8 @@ cudaError_t dispatch_prep(int dtype, const PrepParams& p, cudaStream_t s) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim: 64 or 128, and
-// 256 for bf16 / fp16 (the other head dims and dtypes take the SIMT
-// family's fa_flash_bwd_dkv_simt / fa_flash_bwd_dq_simt, flash_simt_bwd.cu).
+// 256, 512 and 1024 for bf16 / fp16 (fp32 there takes the SIMT family's
+// fa_flash_bwd_dkv_simt / fa_flash_bwd_dq_simt, flash_simt_bwd.cu).
 // lse and di are fp32 [batch, hq, lq] contiguous (lse as flash_fwd wrote
 // it, di as fa_flash_bwd_prep wrote it).  qs is fa_flash_bwd_prep's qs
 // ([batch, hq, lq, head_dim] contiguous, q's dtype): required for bf16 /

@@ -3,8 +3,10 @@
 // backward kernel reads.  flash_bwd.cu instantiates them at 64 and 128
 // beside the pre-pass, the fp32 kernels (flash_bwd_fp32.cuh) and the C
 // entry points;
-// flash_bwd_d256.cu instantiates both at 256 in a source of its own, and
-// flash_simt_bwd.cu the SIMT family (flash_d256.cuh) with BwdParams.
+// flash_bwd_d256.cu instantiates both at 256 in a source of its own,
+// flash_bwd_wide.cu / flash_bwd_wide_d1024.cu the wide kernels at 512 and
+// 1024 (flash_bwd_wide.cuh), and flash_simt_bwd.cu the SIMT family's fp32
+// backward (flash_d256.cuh) with BwdParams.
 // The design notes are at the top of flash_bwd.cu.
 #pragma once
 
@@ -711,5 +713,10 @@ cudaError_t launch_dq_ws(const BwdParams& p, cudaStream_t stream) {
 // flash_bwd_d256.cu.
 cudaError_t launch_dkv_ws_d256(int dtype, const BwdParams& p, cudaStream_t stream);
 cudaError_t launch_dq_ws_d256(int dtype, const BwdParams& p, cudaStream_t stream);
+// K2 (which 0) and K3 (1) at D = 512 and 1024 for bf16 (dtype 1) and fp16
+// (2): flash_bwd_wide.cuh's kernels, instantiated in flash_bwd_wide.cu and
+// flash_bwd_wide_d1024.cu.
+cudaError_t launch_bwd_wide_d512(int which, int dtype, const BwdParams& p, cudaStream_t stream);
+cudaError_t launch_bwd_wide_d1024(int which, int dtype, const BwdParams& p, cudaStream_t stream);
 
 }  // namespace fa

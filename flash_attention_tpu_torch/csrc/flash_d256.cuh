@@ -1,7 +1,6 @@
-// The SIMT family: the forward (K1, and K4 over an int8 / fp8 K/V payload)
-// for fp32 inputs at padded head dims D = 256, 512 and 1024, and dK/dV (K2)
-// and dQ (K3) in fp32 arithmetic for fp32 inputs at 256 and every input
-// dtype at 512 and 1024.  flash_simt_fwd.cu and
+// The SIMT family: the forward (K1, and K4 over an int8 / fp8 K/V payload),
+// dK/dV (K2) and dQ (K3) for fp32 inputs at padded head dims D = 256, 512
+// and 1024.  flash_simt_fwd.cu and
 // flash_simt_fwd_kv_quant.cu instantiate the forward with flash_fwd.cuh's
 // FwdParams, flash_simt_bwd.cu the backward with flash_bwd.cuh's BwdParams;
 // the backward's pre-pass (di, qs) is flash_bwd.cu's own at every head dim.
@@ -14,11 +13,10 @@
 //   * flash_attention_tpu/kernels/flash_attention.py::_dkv_kernel (K2) and
 //     ::_dq_kernel (K3).
 // Which inputs take them: fp32 at every one of these head dims (TF32 tensor
-// cores would miss the 1e-5 tier), and bf16 / fp16 K2 and K3 at D = 512
-// and 1024, where they read the lse of the wide wgmma forward
-// (flash_fwd_wide.cuh).  bf16 / fp16 K1 and K4 run wgmma kernels at every
-// head dim, K2 and K3 up to 256 (flash_fwd.cuh, flash_fwd_wide.cuh,
-// flash_bwd.cuh), and the dispatch below refuses them.  They compute what the plain
+// cores would miss the 1e-5 tier).  bf16 / fp16 K1, K4, K2 and K3 run
+// wgmma kernels at every head dim (flash_fwd.cuh, flash_fwd_wide.cuh,
+// flash_bwd.cuh, flash_bwd_wide.cuh), and the dispatch below refuses them.
+// They compute what the plain
 // versions in kernels/flash_attention.py compute, with the same roundings:
 // q scaled by sm_scale * log2(e) and rounded to T before QK^T, the online
 // softmax in the exp2 domain with m / l / the accumulator in fp32, P rounded
@@ -431,19 +429,14 @@ cudaError_t launch_fwd_for(int dtype, int head_dim, const P& p, cudaStream_t s) 
   return cudaErrorInvalidValue;
 }
 
-// As launch_fwd_dim, for the backward.
+// As launch_fwd_dim, for the backward: fp32 only.
 template <int D, typename P>
 cudaError_t launch_bwd_dim(int which, int dtype, const P& p, cudaStream_t s) {
   if (dtype == 0) return launch_bwd<float, D>(which, p, s);
-  if constexpr (D != 256) {
-    if (dtype == 1) return launch_bwd<__nv_bfloat16, D>(which, p, s);
-    if (dtype == 2) return launch_bwd<__half, D>(which, p, s);
-  }
   return cudaErrorInvalidValue;
 }
 
-// dK/dV (which 0) or dQ (1) for q's dtype at head dim 256 (fp32 only), 512
-// or 1024.
+// dK/dV (which 0) or dQ (1) for fp32 q at head dim 256, 512 or 1024.
 template <typename P>
 cudaError_t launch_bwd_for(int which, int dtype, int head_dim, const P& p, cudaStream_t s) {
   if (head_dim == 256) return launch_bwd_dim<256>(which, dtype, p, s);

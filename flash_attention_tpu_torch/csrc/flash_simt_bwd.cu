@@ -1,7 +1,7 @@
 // K2 and K3 in the SIMT family (fa_flash_bwd_dkv_simt, fa_flash_bwd_dq_simt):
-// the backward of flash_d256.cuh, where the design notes are, at padded
-// head dims 256 (fp32; bf16 and fp16 take fa_flash_bwd_dkv's and
-// fa_flash_bwd_dq's wgmma kernels there), 512 and 1024.  They read the
+// the backward of flash_d256.cuh, where the design notes are, for fp32 at
+// padded head dims 256, 512 and 1024 (bf16 and fp16 take fa_flash_bwd_dkv's
+// and fa_flash_bwd_dq's wgmma kernels at every head dim).  They read the
 // pre-pass's di (flash_bwd.cu) and the forward's lse, not its qs.
 
 #include "flash_bwd.cuh"
@@ -23,8 +23,8 @@ int run_simt(int which, const void* q, const void* k, const void* v, const void*
 }  // namespace
 
 // Arguments as for fa_flash_bwd_dkv / fa_flash_bwd_dq (flash_bwd.cu; qs is
-// not read); head_dim 256 (fp32), 512 or 1024 (every dtype).  Returns a
-// cudaError_t (0 on success; cudaErrorInvalidValue for bf16 / fp16 at 256).
+// not read); dtype 0 (fp32) at head_dim 256, 512 or 1024.  Returns a
+// cudaError_t (0 on success; cudaErrorInvalidValue for bf16 / fp16).
 extern "C" int fa_flash_bwd_dkv_simt(const void* q, const void* k, const void* v, const void* dout,
                                      const void* lse, const void* di, const void* qs, const void* q_ids,
                                      const void* kv_ids, void* dk, void* dv, int dtype, int batch, int hq,

@@ -163,11 +163,12 @@ __device__ __forceinline__ void fence_regs(uint64_t (&d)[N]) {
   "%23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
-// d (+)= A B with A and B in shared memory, both K-major; d is added to
-// when `accumulate` is non-zero, else overwritten.
-#define FA_WGMMA_SS(SHAPE, TY, REGS, A, B, S, DOPS)                                                       \
+// d (+)= A B with A and B in shared memory, B K-major, A K-major (TA "0")
+// or M-major (TA "1", the transposed layout); d is added to when
+// `accumulate` is non-zero, else overwritten.
+#define FA_WGMMA_SS(SHAPE, TY, REGS, A, B, S, TA, DOPS)                                                   \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" S ", 0;\nwgmma.mma_async.sync.aligned." SHAPE ".f32." \
-               TY "." TY " " REGS ", %" A ", %" B ", p, 1, 1, 0, 0;\n}\n"                                 \
+               TY "." TY " " REGS ", %" A ", %" B ", p, 1, 1, " TA ", 0;\n}\n"                            \
                : DOPS                                                                                     \
                : "l"(da), "l"(db), "r"(accumulate))
 
@@ -181,23 +182,32 @@ __device__ __forceinline__ void fence_regs(uint64_t (&d)[N]) {
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
 
 // An m64 x N x k16 product, SS form; T is __nv_bfloat16 or __half, N 16,
-// 32, 64 or 128 (d holds N / 2 floats a thread).
-template <typename T, int N>
+// 32, 64 or 128 (d holds N / 2 floats a thread).  kTransA: A is stored
+// M-major (its 64 rows contiguous in 128-byte lines, one line a k value),
+// as a K or dO tile read as its transpose.
+#define FA_WGMMA_SS_N(TA)                                                                                  \
+  if constexpr (N == 16) {                                                                                \
+    if constexpr (kBf16) FA_WGMMA_SS("m64n16k16", "bf16", FA_R8, "8", "9", "10", TA, FA_D8(d, 0));        \
+    else FA_WGMMA_SS("m64n16k16", "f16", FA_R8, "8", "9", "10", TA, FA_D8(d, 0));                        \
+  } else if constexpr (N == 32) {                                                                         \
+    if constexpr (kBf16) FA_WGMMA_SS("m64n32k16", "bf16", FA_R16, "16", "17", "18", TA, FA_D16(d));       \
+    else FA_WGMMA_SS("m64n32k16", "f16", FA_R16, "16", "17", "18", TA, FA_D16(d));                       \
+  } else if constexpr (N == 64) {                                                                         \
+    if constexpr (kBf16) FA_WGMMA_SS("m64n64k16", "bf16", FA_R32, "32", "33", "34", TA, FA_D32(d));       \
+    else FA_WGMMA_SS("m64n64k16", "f16", FA_R32, "32", "33", "34", TA, FA_D32(d));                       \
+  } else {                                                                                                \
+    if constexpr (kBf16) FA_WGMMA_SS("m64n128k16", "bf16", FA_R64, "64", "65", "66", TA, FA_D64(d));      \
+    else FA_WGMMA_SS("m64n128k16", "f16", FA_R64, "64", "65", "66", TA, FA_D64(d));                      \
+  }
+
+template <typename T, int N, bool kTransA = false>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate) {
   static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma_ss is instantiated for N 16, 32, 64 and 128");
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  if constexpr (N == 16) {
-    if constexpr (kBf16) FA_WGMMA_SS("m64n16k16", "bf16", FA_R8, "8", "9", "10", FA_D8(d, 0));
-    else FA_WGMMA_SS("m64n16k16", "f16", FA_R8, "8", "9", "10", FA_D8(d, 0));
-  } else if constexpr (N == 32) {
-    if constexpr (kBf16) FA_WGMMA_SS("m64n32k16", "bf16", FA_R16, "16", "17", "18", FA_D16(d));
-    else FA_WGMMA_SS("m64n32k16", "f16", FA_R16, "16", "17", "18", FA_D16(d));
-  } else if constexpr (N == 64) {
-    if constexpr (kBf16) FA_WGMMA_SS("m64n64k16", "bf16", FA_R32, "32", "33", "34", FA_D32(d));
-    else FA_WGMMA_SS("m64n64k16", "f16", FA_R32, "32", "33", "34", FA_D32(d));
+  if constexpr (kTransA) {
+    FA_WGMMA_SS_N("1")
   } else {
-    if constexpr (kBf16) FA_WGMMA_SS("m64n128k16", "bf16", FA_R64, "64", "65", "66", FA_D64(d));
-    else FA_WGMMA_SS("m64n128k16", "f16", FA_R64, "64", "65", "66", FA_D64(d));
+    FA_WGMMA_SS_N("0")
   }
 }
 
@@ -216,6 +226,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 }
 
 #undef FA_WGMMA_RS
+#undef FA_WGMMA_SS_N
 #undef FA_WGMMA_SS
 #undef FA_R64
 #undef FA_R32

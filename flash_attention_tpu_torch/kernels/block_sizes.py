@@ -49,6 +49,15 @@ KERNEL_SIMT_TILE = {256: (32, 32), 512: (16, 32), 1024: (8, 16)}
 # dequantizes into.
 KERNEL_WIDE_Q = 64
 KERNEL_WIDE_KV = {512: (32, 2, 2, 2), 1024: (16, 2, 1, 1)}
+# The bf16/fp16 backward at 512 and 1024 (csrc/flash_bwd_wide.cuh, DkvCfg,
+# DqCfg): dK/dV pins 16384 / D KV rows and dQ 32 query rows (wgmma's N:
+# the accumulators hold dK^T, dV^T and dQ^T), against streamed tiles of 64
+# rows that travel in ring slots of four 64 x 64 boxes (32 KB); {padded
+# head dim: (pinned rows, ring slots)}.
+KERNEL_WIDE_DKV = {512: (32, 4), 1024: (16, 4)}
+KERNEL_WIDE_DQ = {512: (32, 4), 1024: (32, 2)}
+KERNEL_WIDE_BWD_STREAM = 64
+KERNEL_WIDE_BWD_SLOT = 4 * 64 * 64 * 2
 # Shared memory an H100 thread block can use (227 KB).
 SMEM_PER_BLOCK = 232_448
 
@@ -134,6 +143,8 @@ def backward_tiles(head_dim: int, kernel: str) -> tuple[int, int]:
     `kernel` ("dkv" or "dq")."""
     if kernel not in ("dkv", "dq"):
         raise ValueError(f"kernel must be 'dkv' or 'dq', got {kernel!r}")
+    if _padded(head_dim) > 256:
+        return (KERNEL_WIDE_DKV if kernel == "dkv" else KERNEL_WIDE_DQ)[_padded(head_dim)][0], KERNEL_WIDE_BWD_STREAM
     if _padded(head_dim) == 256:
         return KERNEL_DKV_D256 if kernel == "dkv" else KERNEL_DQ_D256
     return KERNEL_BWD_PINNED, KERNEL_BWD_STREAM
@@ -143,9 +154,12 @@ def backward_stages(head_dim: int, kernel: str) -> int:
     """Ring slots of the bf16/fp16 backward kernel `kernel` ("dkv" or "dq"):
     dK/dV streams three tiles a slot (qs, q, dO) and keeps three slots above
     head dim 64 to fit; dQ streams two (K, V) and keeps four, two at head
-    dim 256."""
+    dim 256.  At 512 and 1024 slots of four 64 x 64 boxes: four, two for
+    dQ at 1024, whose pinned qs and dO take 128 KB."""
     if kernel not in ("dkv", "dq"):
         raise ValueError(f"kernel must be 'dkv' or 'dq', got {kernel!r}")
+    if _padded(head_dim) > 256:
+        return (KERNEL_WIDE_DKV if kernel == "dkv" else KERNEL_WIDE_DQ)[_padded(head_dim)][1]
     if kernel == "dkv":
         return 3 if head_dim > 64 else 4
     return 2 if _padded(head_dim) == 256 else 4
@@ -158,12 +172,33 @@ def backward_smem_bytes(head_dim: int, kernel: str) -> int:
     with the query rows' lse, di and segment ids, 4 bytes each; dQ: K and V
     with the KV segment ids); the mbarriers (one for the pinned tiles, full
     and empty per slot); 1024 bytes to align the base for the 128-byte
-    swizzle."""
+    swizzle.  At 512 and 1024 the wide kernels' layout
+    (`wide_backward_smem_bytes`)."""
+    if _padded(head_dim) > 256:
+        return wide_backward_smem_bytes(head_dim, kernel)
     stages = backward_stages(head_dim, kernel)
     pinned, stream = backward_tiles(head_dim, kernel)
     tile = stream * head_dim * 2
     per_slot = 3 * tile + 3 * stream * 4 if kernel == "dkv" else 2 * tile + stream * 4
     return 2 * pinned * head_dim * 2 + stages * per_slot + (1 + 2 * stages) * 8 + 1024
+
+
+def wide_backward_smem_bytes(head_dim: int, kernel: str) -> int:
+    """Shared memory of the bf16/fp16 backward at 512 and 1024, as
+    wide::DkvCfg / DqCfg::kSmemBytes lay it out: two pinned tiles (dK/dV: K
+    and V; dQ: qs and dO; 2-byte elements); the ring's slots of four 64 x 64
+    boxes; dP (dK/dV) or dP^T (dQ) in fp32, 64 x pinned; the swizzled T
+    tiles the kernel writes (dK/dV: P^T and dS^T, pinned x 64 each; dQ: dS);
+    the pinned rows' segment ids (dK/dV) or lse, di and segment ids (dQ), 4
+    bytes each; the mbarriers (one for the pinned tiles, full and empty per
+    slot); 1024 bytes to align the base for the 128-byte swizzle."""
+    d = _padded(head_dim)
+    pinned, _ = backward_tiles(d, kernel)
+    stages = backward_stages(d, kernel)
+    written = 2 if kernel == "dkv" else 1
+    stats = 1 if kernel == "dkv" else 3
+    return (2 * pinned * d * 2 + stages * KERNEL_WIDE_BWD_SLOT + 64 * pinned * 4 + written * pinned * 128
+            + stats * pinned * 4 + (1 + 2 * stages) * 8 + 1024)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -266,23 +301,25 @@ def default_blocks(
     and dQ keeps 32 x 32 tiles where its kernel pins 64 query rows against
     64-row KV tiles (`KERNEL_DQ_D256`): the plain loop's dQ tile sets only
     its order of summation, well inside the bf16 tolerance.  The SIMT
-    family (fp32 above 128, and K2 / K3 of every dtype at 512 and 1024)
-    pins and streams `KERNEL_SIMT_TILE` rows in every kernel; the bf16/fp16
-    forward at 512 and 1024 takes 64 query rows against `KERNEL_WIDE_KV`
-    rows.  `dtype` is the inputs' (None: a 16-bit type; float32 changes the
+    family (fp32 above 128) pins and streams `KERNEL_SIMT_TILE` rows in
+    every kernel; at 512 and 1024 the bf16/fp16 forward takes 64 query rows
+    against `KERNEL_WIDE_KV` rows, and its backward pins
+    `KERNEL_WIDE_DKV` / `KERNEL_WIDE_DQ` rows against 64-row tiles (dK/dV
+    64 query rows against 32 / 16 KV rows, dQ 32 query rows against 64 KV
+    rows).  `dtype` is the inputs' (None: a 16-bit type; float32 changes the
     tile only from 256 up, since at 64 and 128 its K1 and its 3xTF32 K2 /
     K3 differ from the 16-bit kernels' tiles in the order of summation
     alone).  q_len, kv_len and group are taken for signature parity with
     the JAX package."""
     del q_len, kv_len, group
     d = _padded(head_dim)
+    if d > 256 and dtype != torch.float32:
+        stream = KERNEL_WIDE_BWD_STREAM
+        return BlockSizes(block_q=KERNEL_WIDE_Q, block_kv=KERNEL_WIDE_KV[d][0], block_q_dkv=stream,
+                          block_kv_dkv=KERNEL_WIDE_DKV[d][0], block_q_dq=KERNEL_WIDE_DQ[d][0], block_kv_dq=stream)
     if d > 256 or (d == 256 and dtype == torch.float32):
         rows, bc = KERNEL_SIMT_TILE[d]
-        if d > 256 and dtype != torch.float32:
-            fwd_q, fwd_kv = KERNEL_WIDE_Q, KERNEL_WIDE_KV[d][0]
-        else:
-            fwd_q, fwd_kv = rows, bc
-        return BlockSizes(block_q=fwd_q, block_kv=fwd_kv, block_q_dkv=bc, block_kv_dkv=rows, block_q_dq=rows,
+        return BlockSizes(block_q=rows, block_kv=bc, block_q_dkv=bc, block_kv_dkv=rows, block_q_dq=rows,
                           block_kv_dq=bc)
     if d == 256:
         pinned, stream = KERNEL_DKV_D256

@@ -15,10 +15,14 @@ and `flash_attention_with_lse` look at the device of their inputs
   `quant/kv.py`) is a warp-specialised TMA + wgmma kernel at every head
   dim: `csrc/flash_fwd.cuh` up to 256, `csrc/flash_fwd_wide.cuh` at 512
   and 1024 (two consumer warpgroups sharing a 64-row query tile, 512
-  output columns a block).  The bf16/fp16 backward is wgmma up to 256.
-  fp32 takes a SIMT kernel inside the same entry points at 64 and 128;
-  fp32 above 128 and the backward at 512 and 1024 take the SIMT family of
-  `csrc/flash_d256.cuh` through entry points of their own (`_route`).
+  output columns a block).  The bf16/fp16 backward (K2, K3) is wgmma at
+  every head dim too: `csrc/flash_bwd.cuh` up to 256,
+  `csrc/flash_bwd_wide.cuh` at 512 and 1024 (transposed accumulators, so
+  that the head dim is wgmma's M).  fp32 K2 and K3 at 64 and 128 are
+  3xTF32 tensor-core kernels (`csrc/flash_bwd_fp32.cuh`) and its K1 and
+  K4 there a SIMT kernel, inside the same entry points; fp32 above 128
+  takes the SIMT family of `csrc/flash_d256.cuh` through entry points of
+  its own (`_route`).
   Nothing falls back: what the kernels do not take raises, a head dim above
   1024 among it.
 * CPU tensors go to the plain versions: `flash_attention_reference` (a tile
@@ -98,13 +102,14 @@ def _pad_head_dim(x: torch.Tensor, dp: int) -> torch.Tensor:
 # launches: K1-K3 and the backward's pre-pass here, K4 in quant/kv.py, K5
 # and K6 in inference/paged_attention.py.  fp32 K2 and K3 up to head dim
 # 128 are the 3xTF32 kernels (csrc/flash_bwd_fp32.cuh), counted under
-# "_fp32".  Head dims 256, 512 and 1024 run
-# other kernels, counted under keys of their own (`_route`): "_d256" for
-# what bf16/fp16 runs at 256 (the wgmma K1, K4, K2 and K3), "_d256_simt"
-# for the SIMT K1, K4, K2 and K3 that fp32 runs there; at 512 and 1024
-# "_wide" for the bf16/fp16 wgmma K1 and K4, the pre-pass and the SIMT K2
-# and K3 of every dtype, "_wide_simt" for the SIMT K1 and K4 that fp32
-# runs there.
+# "_fp32" (fp32 K1 and K4 there, a SIMT kernel in the same entry points,
+# under the plain keys).  Head dims 256, 512 and 1024 run other kernels,
+# counted under keys of their own (`_route`): "_d256" for what bf16/fp16
+# runs at 256 (the wgmma K1, K4, K2 and K3), "_d256_simt" for the SIMT K1,
+# K4, K2 and K3 that fp32 runs there; at 512 and 1024 "_wide" for the
+# bf16/fp16 wgmma K1, K4, K2 and K3 (csrc/flash_fwd_wide.cuh,
+# csrc/flash_bwd_wide.cuh) and the pre-pass, "_wide_simt" for the SIMT
+# K1, K4, K2 and K3 that fp32 runs there.
 KERNEL_LAUNCHES = {
     "flash_fwd": 0,
     "flash_bwd_prep": 0,
@@ -130,6 +135,8 @@ KERNEL_LAUNCHES = {
     "flash_bwd_dq_wide": 0,
     "flash_fwd_kv_quant_wide": 0,
     "flash_fwd_wide_simt": 0,
+    "flash_bwd_dkv_wide_simt": 0,
+    "flash_bwd_dq_wide_simt": 0,
     "flash_fwd_kv_quant_wide_simt": 0,
 }
 
@@ -139,13 +146,13 @@ def _route(name: str, head_dim: int, dtype: torch.dtype) -> tuple[str, str]:
     "flash_fwd_kv_quant", "flash_bwd_prep", "flash_bwd_dkv" or
     "flash_bwd_dq") at padded head dim `head_dim` for q's `dtype`.  The
     SIMT family (csrc/flash_d256.cuh) has entry points of their own, named
-    with "_simt": fp32 runs it above 128, and every dtype runs its K2 and
-    K3 at 512 and 1024.  Keys: the name up to 128, with "_fp32" for the
-    fp32 K2 and K3 there (the 3xTF32 kernels, reached through the same
-    entry points as the 16-bit ones); "_d256" / "_d256_simt" at 256; at
-    512 and 1024 "_wide" (bf16/fp16 K1 and K4 on the wgmma kernels of
-    csrc/flash_fwd_wide.cuh, the pre-pass, K2 and K3 of every dtype) and
-    "_wide_simt" (fp32 K1 and K4)."""
+    with "_simt", which fp32 runs above 128.  Keys: the name up to 128,
+    with "_fp32" for the fp32 K2 and K3 there (the 3xTF32 kernels, reached
+    through the same entry points as the 16-bit ones); "_d256" /
+    "_d256_simt" at 256; at 512 and 1024 "_wide" (bf16/fp16 K1, K4, K2 and
+    K3 on the wgmma kernels of csrc/flash_fwd_wide.cuh and
+    csrc/flash_bwd_wide.cuh, and the pre-pass) and "_wide_simt" (fp32 K1,
+    K4, K2 and K3)."""
     fp32 = dtype == torch.float32
     if head_dim <= 128:
         if fp32 and name in ("flash_bwd_dkv", "flash_bwd_dq"):
@@ -153,13 +160,10 @@ def _route(name: str, head_dim: int, dtype: torch.dtype) -> tuple[str, str]:
         return name, f"fa_{name}"
     if name == "flash_bwd_prep":
         return f"{name}_d256" if head_dim == 256 else f"{name}_wide", f"fa_{name}"
-    if head_dim > 256:
-        if name.startswith("flash_fwd"):
-            return (f"{name}_wide_simt", f"fa_{name}_simt") if fp32 else (f"{name}_wide", f"fa_{name}")
-        return f"{name}_wide", f"fa_{name}_simt"
+    tier = "_d256" if head_dim == 256 else "_wide"
     if fp32:
-        return f"{name}_d256_simt", f"fa_{name}_simt"
-    return f"{name}_d256", f"fa_{name}"
+        return f"{name}{tier}_simt", f"fa_{name}_simt"
+    return f"{name}{tier}", f"fa_{name}"
 
 
 def _call(entry: str, device: torch.device, *args) -> None:
@@ -495,17 +499,16 @@ def _launch(q, k, v, spec: _Spec, segs, need_lse: bool):
 def _bwd_args(q, k, v, o, lse, do, dlse, spec: _Spec, segs):
     """The backward kernels' common arguments (one dict per call, shared
     by the pre-pass, K2 and K3): inputs read through their strides; the
-    pre-pass's outputs, di (fp32 [B, Hq, Lq]) and, for bf16/fp16 up to
-    head dim 256, where the wgmma K2/K3 read it, qs ([B, Hq, Lq, D]
-    contiguous; the fp32 K2/K3 and the SIMT family scale q themselves); and
+    pre-pass's outputs, di (fp32 [B, Hq, Lq]) and, for bf16/fp16, whose
+    wgmma K2/K3 read it at every head dim, qs ([B, Hq, Lq, D] contiguous;
+    the fp32 K2/K3 and the SIMT family scale q themselves); and
     the grads in [B, L, H, D] memory, as the forward's output, so that the
     grads of the fused projection's q/k/v views are free views too."""
     b, hq, hkv, lq, lk, d = _shapes(q, k, v)
     _check_kernel_inputs(q, k, v, o, do)
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
     di = torch.empty(b, hq, lq, dtype=torch.float32, device=q.device)
-    needs_qs = q.dtype != torch.float32 and d <= 256
-    qs = torch.empty(b, hq, lq, d, dtype=q.dtype, device=q.device) if needs_qs else None
+    qs = torch.empty(b, hq, lq, d, dtype=q.dtype, device=q.device) if q.dtype != torch.float32 else None
     dq = torch.empty(b, lq, hq, d, dtype=q.dtype, device=q.device).transpose(1, 2)
     dk = torch.empty(b, lk, hkv, d, dtype=k.dtype, device=q.device).transpose(1, 2)
     dv = torch.empty(b, lk, hkv, d, dtype=v.dtype, device=q.device).transpose(1, 2)

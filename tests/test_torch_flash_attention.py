@@ -149,10 +149,12 @@ def test_default_blocks_is_the_kernel_tile():
     consumer warpgroups at 64 and 128) 64 query rows against 128 pinned KV
     rows for dK/dV, 128 pinned query rows against 64 KV rows for dQ; at 256
     dK/dV 32 query rows against 64 pinned KV rows and dQ the SIMT family's
-    32 x 32.  The SIMT family (fp32 from 256 up, the backward of every
-    dtype at 512 and 1024) pins 256 / (D / 32) rows and streams 32, 32 and
-    16; the bf16/fp16 forward at 512 and 1024 (the wide wgmma kernel) takes
-    64 query rows against 32 and 16 KV rows."""
+    32 x 32.  The SIMT family (fp32 from 256 up) pins 256 / (D / 32) rows
+    and streams 32, 32 and 16; at 512 and 1024 the bf16/fp16 forward (the
+    wide wgmma kernel) takes 64 query rows against 32 and 16 KV rows, and
+    its backward (the wide wgmma K2 / K3) pins rows against 64-row tiles:
+    dK/dV 64 query rows against 32 / 16 KV rows, dQ 32 query rows against
+    64 KV rows."""
     assert tbs.KERNEL_BLOCK_KV == 64
     bwd = dict(block_q_dkv=64, block_kv_dkv=128, block_q_dq=128, block_kv_dq=64)
     assert tbs.default_blocks(1024, 1024, 64) == tbs.BlockSizes(192, 64, **bwd)
@@ -171,8 +173,8 @@ def test_default_blocks_is_the_kernel_tile():
     assert tiles(512, torch.float32) == tiles(288, torch.float32) == (16, 32, (32, 16), (16, 32))
     assert tiles(1024, torch.float32) == tiles(520, torch.float32) == (8, 16, (16, 8), (8, 16))
     for dtype in (None, torch.bfloat16, torch.float16):
-        assert tiles(512, dtype) == tiles(288, dtype) == (64, 32, (32, 16), (16, 32))
-        assert tiles(1024, dtype) == tiles(520, dtype) == (64, 16, (16, 8), (8, 16))
+        assert tiles(512, dtype) == tiles(288, dtype) == (64, 32, (64, 32), (32, 64))
+        assert tiles(1024, dtype) == tiles(520, dtype) == (64, 16, (64, 16), (32, 64))
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -261,7 +263,7 @@ def test_wide_forward_kernel_fits_in_shared_memory(kv, head_dim):
     assert used >= 64 * head_dim * 2 + slots + 2 * 2 * 64 * bc * 4
     blocks = tbs.default_blocks(1024, 1024, head_dim, dtype=torch.bfloat16, quantized=quantized)
     assert (blocks.block_q, blocks.block_kv) == (64, bc)
-    assert (blocks.block_kv_dkv, blocks.block_q_dkv) == tbs.KERNEL_SIMT_TILE[head_dim]
+    assert (blocks.block_kv_dkv, blocks.block_q_dkv) == (tbs.KERNEL_WIDE_DKV[head_dim][0], 64)
 
 
 def test_cpu_route_counts_no_kernel_launch():

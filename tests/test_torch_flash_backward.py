@@ -371,15 +371,15 @@ _QS_ARG = {"fa_flash_bwd_prep": 4, "fa_flash_bwd_dkv": 6, "fa_flash_bwd_dkv_simt
         (256, torch.float32, ("flash_fwd_d256_simt", "fa_flash_fwd_simt"), ("flash_bwd_prep_d256", "fa_flash_bwd_prep"),
          ("flash_bwd_dkv_d256_simt", "fa_flash_bwd_dkv_simt"), ("flash_bwd_dq_d256_simt", "fa_flash_bwd_dq_simt"),
          ("flash_fwd_kv_quant_d256_simt", "fa_flash_fwd_kv_quant_simt")),
-        # 257-512 and 513-1024, bf16/fp16: the wide wgmma K1 and K4, the
-        # SIMT K2 and K3, keys of their own
+        # 257-512 and 513-1024, bf16/fp16: the wide wgmma K1, K4, K2 and K3,
+        # keys of their own
         *((d, dtype, ("flash_fwd_wide", "fa_flash_fwd"), ("flash_bwd_prep_wide", "fa_flash_bwd_prep"),
-           ("flash_bwd_dkv_wide", "fa_flash_bwd_dkv_simt"), ("flash_bwd_dq_wide", "fa_flash_bwd_dq_simt"),
+           ("flash_bwd_dkv_wide", "fa_flash_bwd_dkv"), ("flash_bwd_dq_wide", "fa_flash_bwd_dq"),
            ("flash_fwd_kv_quant_wide", "fa_flash_fwd_kv_quant"))
           for d, dtype in ((288, torch.bfloat16), (520, torch.float16), (1024, torch.bfloat16))),
-        # fp32 there: the SIMT family throughout, its forward under "_wide_simt"
+        # fp32 there: the SIMT family throughout, under "_wide_simt"
         *((d, torch.float32, ("flash_fwd_wide_simt", "fa_flash_fwd_simt"), ("flash_bwd_prep_wide", "fa_flash_bwd_prep"),
-           ("flash_bwd_dkv_wide", "fa_flash_bwd_dkv_simt"), ("flash_bwd_dq_wide", "fa_flash_bwd_dq_simt"),
+           ("flash_bwd_dkv_wide_simt", "fa_flash_bwd_dkv_simt"), ("flash_bwd_dq_wide_simt", "fa_flash_bwd_dq_simt"),
            ("flash_fwd_kv_quant_wide_simt", "fa_flash_fwd_kv_quant_simt"))
           for d in (512, 1024)),
         # fp32 up to 128: K1, the pre-pass and K4 under the plain keys, K2
@@ -401,8 +401,8 @@ def test_cuda_route_reaches_each_kernel(d, dtype, fwd, prep, dkv, dq, k4, monkey
     KERNEL_LAUNCHES key `_route` names for its dtype and padded head dim,
     with that head dim (257-512 padded to 512, 513-1024 to 1024) in its
     arguments, once each (up to 128 padded to 64 or 128).  The backward is
-    handed a qs buffer only for bf16/fp16 up to head dim 256, where the
-    wgmma kernels read it."""
+    handed a qs buffer for bf16/fp16, whose wgmma K2 and K3 read it at
+    every head dim, and none for fp32."""
     calls, qs_args = [], []
 
     def record(entry, device, *args):
@@ -426,7 +426,7 @@ def test_cuda_route_reaches_each_kernel(d, dtype, fwd, prep, dkv, dq, k4, monkey
     tkv.flash_attention_kv_quant(q.detach(), tkv.quantize_kv(k.detach(), v.detach()))
     want = [fwd, prep, dkv, dq, fwd, k4]
     assert calls == [(entry, dp) for _, entry in want]
-    has_qs = dtype != torch.float32 and dp <= 256
+    has_qs = dtype != torch.float32
     assert qs_args == [0 if has_qs else None] * 3
     counts = {key: tfa.KERNEL_LAUNCHES[key] - before[key] for key in tfa.KERNEL_LAUNCHES}
     assert counts == {key: sum(key == w for w, _ in want) for key in tfa.KERNEL_LAUNCHES}
@@ -448,18 +448,126 @@ def test_d256_route_sends_16_bit_types_to_wgmma_and_fp32_to_simt(name):
 @pytest.mark.parametrize("d", [512, 1024])
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_fwd_kv_quant", "flash_bwd_dkv", "flash_bwd_dq"])
 def test_wide_route_sends_16_bit_forward_to_wgmma_and_the_rest_to_simt(name, d):
-    """At padded head dims 512 and 1024 K1 and K4 send bf16 and fp16 to
-    their own entry points (the wide wgmma kernels of flash_fwd_wide.cuh)
-    under the "_wide" key and fp32 to the SIMT family's under a
-    "_wide_simt" key of its own; K2 and K3 send every dtype to the SIMT
-    family under "_wide"."""
-    fwd = name.startswith("flash_fwd")
+    """At padded head dims 512 and 1024 K1, K4, K2 and K3 send bf16 and
+    fp16 to their own entry points (the wide wgmma kernels of
+    flash_fwd_wide.cuh and flash_bwd_wide.cuh) under the "_wide" key, and
+    fp32 to the SIMT family's under a "_wide_simt" key of its own."""
     for dtype in (torch.bfloat16, torch.float16):
-        want = (f"{name}_wide", f"fa_{name}") if fwd else (f"{name}_wide", f"fa_{name}_simt")
-        assert tfa._route(name, d, dtype) == want
-    want = (f"{name}_wide_simt", f"fa_{name}_simt") if fwd else (f"{name}_wide", f"fa_{name}_simt")
-    assert tfa._route(name, d, torch.float32) == want
+        assert tfa._route(name, d, dtype) == (f"{name}_wide", f"fa_{name}")
+    assert tfa._route(name, d, torch.float32) == (f"{name}_wide_simt", f"fa_{name}_simt")
     assert all(key in tfa.KERNEL_LAUNCHES for key, _ in (tfa._route(name, d, t) for t in (torch.bfloat16, torch.float32)))
+
+
+# Where the backward's K2 / K3 entry points take q's dtype code.
+_BWD_DTYPE_ARG = {"fa_flash_bwd_dkv": 11, "fa_flash_bwd_dq": 10}
+
+
+@pytest.mark.parametrize("d", [288, 520])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_wide_backward_reaches_the_wgmma_entries_with_the_c_arguments(dtype, d, monkeypatch):
+    """flash_attention's backward at head dims 288 and 520 (padded to 512
+    and 1024) on the CUDA route, the C entry points stood in for by a
+    recorder (`_call`): K2 and K3 reach fa_flash_bwd_dkv and fa_flash_bwd_dq
+    (the wide wgmma kernels, not the SIMT family's) with the padded head
+    dim, q's dtype code as the C side reads it and the pre-pass's qs buffer
+    (the one it wrote, not null); q, k, v and dO reach the backward
+    zero-padded to the padded head dim; one launch each under the "_wide"
+    keys."""
+    calls, seen = [], {}
+
+    def record(entry, device, *args):
+        calls.append((entry, args))
+
+    orig = tfa._launch_bwd
+
+    def launch_bwd(q, k, v, o, lse, do, *rest):
+        seen.update(q=q, k=k, v=v, do=do)
+        return orig(q, k, v, o, lse, do, *rest)
+
+    monkeypatch.setattr(tfa, "kernel_route", lambda *ts: "cuda")
+    monkeypatch.setattr(tfa, "_call", record)
+    monkeypatch.setattr(tfa, "_launch_bwd", launch_bwd)
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn(1, 4, 130, d, generator=gen).to(dtype).requires_grad_()
+    k, v = (torch.randn(1, 2, 130, d, generator=gen).to(dtype).requires_grad_() for _ in range(2))
+    do = torch.randn(1, 4, 130, d, generator=gen).to(dtype)
+    out = tfa.flash_attention(q, k, v)
+    before = dict(tfa.KERNEL_LAUNCHES)
+    calls.clear()
+    out.backward(do)
+    dp = tfa.padded_head_dim(d)
+    (prep, prep_args), (dkv, dkv_args), (dq, dq_args) = calls
+    assert (prep, dkv, dq) == ("fa_flash_bwd_prep", "fa_flash_bwd_dkv", "fa_flash_bwd_dq")
+    qs = prep_args[_QS_ARG[prep]]
+    assert qs is not None and qs != 0 and prep_args[_HEAD_DIM_ARG[prep]] == dp
+    for entry, args in ((dkv, dkv_args), (dq, dq_args)):
+        assert args[_HEAD_DIM_ARG[entry]] == dp
+        assert args[_BWD_DTYPE_ARG[entry]] == tfa._DTYPE_CODES[dtype]
+        assert args[_QS_ARG[entry]] == qs
+    for name, src in (("q", q), ("k", k), ("v", v), ("do", do)):
+        x = seen[name]
+        assert x.shape[-1] == dp and x.dtype == dtype
+        assert torch.equal(x[..., :d], src.detach())
+        assert not x[..., d:].any()
+    counts = {key: n - before[key] for key, n in tfa.KERNEL_LAUNCHES.items() if n != before[key]}
+    assert counts == {"flash_bwd_prep_wide": 1, "flash_bwd_dkv_wide": 1, "flash_bwd_dq_wide": 1}
+
+
+@pytest.mark.parametrize("head_dim", [512, 1024])
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+def test_wide_backward_kernels_fit_in_shared_memory(kernel, head_dim):
+    """K2 and K3 for bf16/fp16 at 512 and 1024 (csrc/flash_bwd_wide.cuh)
+    fit an H100 block's 227 KB, counted as wide::DkvCfg / DqCfg lay them
+    out: the pinned rows of two operands (K2 16384 / D rows, 64 KB at both
+    head dims; K3 32 rows, 64 / 128 KB), ring slots of four 64 x 64 boxes
+    (four; two for K3 at 1024), the fp32 dP exchange, the swizzled T tiles
+    the kernel writes, the pinned rows' statistics, the barriers and the
+    alignment slack; one more slot would not fit."""
+    pinned, stream = tbs.backward_tiles(head_dim, kernel)
+    stages = tbs.backward_stages(head_dim, kernel)
+    want_pinned = 16384 // head_dim if kernel == "dkv" else 32
+    assert (pinned, stream, stages) == (want_pinned, 64, 2 if (kernel, head_dim) == ("dq", 1024) else 4)
+    used = tbs.backward_smem_bytes(head_dim, kernel)
+    slot = 4 * 64 * 64 * 2
+    assert 2 * pinned * head_dim * 2 + stages * slot + 64 * pinned * 4 <= used <= tbs.SMEM_PER_BLOCK
+    assert used == {("dkv", 512): 214_216, ("dq", 512): 210_376, ("dkv", 1024): 205_960,
+                    ("dq", 1024): 210_344}[kernel, head_dim]
+    assert used + slot > tbs.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [288, 520])
+def test_plain_backward_at_the_wide_tiles_matches_jax(d, dtype):
+    """The plain backward at the tiles of the kernels that run head dims 288
+    and 520 (padded to 512 and 1024): for bf16 the wide wgmma K2 / K3's
+    (dK/dV 64 query rows against 32 / 16 pinned KV rows, dQ 32 pinned query
+    rows against 64 KV rows), for fp32 the SIMT family's; on fp32
+    inputs zero-padded to the padded head dim, at L130 (ragged ends) with a
+    GQA group of 2 whose tiles cross the causal diagonal and an lse
+    cotangent: the q, k and v grads against jax.grad of the JAX package's
+    flash_attention_with_lse at d itself, fp32, 1e-4."""
+    q, k, v, do = _inputs(1, 4, 2, 130, 130, d=d, seed=71)
+    dlse = randn(75, 1, 4, 130)
+
+    def loss(q, k, v):
+        o, lse = jfa.flash_attention_with_lse(q, k, v)
+        return jnp.sum(o * do) + jnp.sum(lse * dlse)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    dp = tfa.padded_head_dim(d)
+    blocks = tbs.default_blocks(130, 130, dp, 2, dtype=getattr(torch, dtype))
+    if dtype == "bfloat16":
+        assert blocks.bwd_dkv() == (64, 16384 // dp) and blocks.bwd_dq() == (32, 64)
+    else:
+        rows, bc = tbs.KERNEL_SIMT_TILE[dp]
+        assert blocks.bwd_dkv() == (bc, rows) and blocks.bwd_dq() == (rows, bc)
+    qp, kp, vp, dop = (tfa._pad_head_dim(t(x), dp) for x in (q, k, v, do))
+    o, lse = tfa.flash_attention_reference(qp, kp, vp, sm_scale=d ** -0.5, block_sizes=blocks)
+    grads = tfa.flash_attention_bwd_reference(qp, kp, vp, o, lse, dop, dlse=t(dlse), sm_scale=d ** -0.5,
+                                              block_sizes=blocks)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert not g[..., d:].any()
+        np.testing.assert_allclose(n(g[..., :d]), np.asarray(w), atol=1e-4, rtol=0, err_msg=name)
 
 
 # Where fa_flash_fwd_kv_quant takes q's dtype code and the payload's

@@ -10,12 +10,15 @@ build, so that several checkouts can build at once before the timings.
 Then it prints lines of results, the last `RESULT {json}`:
 
 * for each head dim of --head-dims (256 when not given), after K1 and K4
-  (int8 K/V) are held against their plain versions at b1 h2 L300 (2e-2):
+  (int8 K/V) are held against their plain versions at b1 h2 L300 (2e-2),
+  and the grads of K1 + pre-pass + K2 + K3 against the plain backward
+  there (2e-2 x max |grad|):
   at b8 h12 L1024 bf16 causal, device time (a CUDA graph of calls between
   CUDA events, the checkout's `utils.measure.graph_ms`) of K1 without and
-  with lse, K4 over int8 K/V, torch SDPA's forward, and the backward's
-  pre-pass, K2 and K3; K1's and K4's beside their share of the bound
-  (`utils.measure.floor_ms`);
+  with lse, K4 over int8 K/V, torch SDPA's forward, the backward's
+  pre-pass, K2 and K3, and torch SDPA's whole backward (`sdpa_bwd`); K1's
+  and K4's beside their share of the bound (`utils.measure.floor_ms`), and
+  pre-pass + K2 + K3 against SDPA's backward;
 * when 256 is among the head dims, `chip_smoke.py`'s d256-path model (a
   GPT at GPT-2's width with 3 heads of 256, 2 layers) trained at b4 x
   T1024 in bf16: the median wall time of 10 steps after 3 warm-up steps.
@@ -76,6 +79,15 @@ def kernel_times(gen, d: int) -> dict:
               - QK.flash_attention_kv_quant_reference(q, kv).float()).abs().max()
     if not (e1.item() <= 2e-2 and e4.item() <= 2e-2):
         raise AssertionError(f"{args.label} D{d}: K1 {e1.item():.3e} / K4 {e4.item():.3e} vs plain, atol 2e-2")
+    do = torch.randn((1, 2, 300, d), generator=gen).to("cuda", bf16)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    got = torch.autograd.grad(FA.flash_attention(qg, kg, vg), (qg, kg, vg), do)
+    with torch.no_grad():
+        o_p, lse_p = FA.flash_attention_reference(q, k, v)
+        plain = FA.flash_attention_bwd_reference(q, k, v, o_p, lse_p, do)
+    eg = max(((a.float() - b_.float()).abs().max() / b_.float().abs().max()).item() for a, b_ in zip(got, plain))
+    if not eg <= 2e-2:
+        raise AssertionError(f"{args.label} D{d}: grads {eg:.3e} x max |grad| from the plain backward, tol 2e-2")
     b, h, L = 8, 12, 1024
     q, k, v, do = (torch.randn((b, h, L, d), generator=gen).to("cuda", bf16) for _ in range(4))
     kv = QK.quantize_kv(k.float(), v.float())
@@ -92,13 +104,15 @@ def kernel_times(gen, d: int) -> dict:
     row["prep"] = graph_ms(lambda: FA._launch_bwd_prep(bargs))
     row["k2"] = graph_ms(lambda: FA._launch_bwd_dkv(bargs), calls=3, runs=5)
     row["k3"] = graph_ms(lambda: FA._launch_bwd_dq(bargs), calls=2, runs=3)
+    row["sdpa_bwd"] = graph_ms(smoke._grad_fn(sdpa, q, k, v, do), calls=2, runs=3)
     flops = 4 * b * h * L * L * d / 2
     (row["k1_bound"], by1), (row["k4_bound"], by4) = (floor_ms(4 * b * h * L * d * 2, flops),
                                                       floor_ms(b * h * L * (d * 6 + 8), flops))
     print(f"{args.label} b{b} h{h} L{L} D{d} bf16 causal device ms", {key: round(x, 4) for key, x in row.items()},
           f"| K1 {row['k1_bound'] / row['k1']:.1%} of its bound ({by1}), K4 {row['k4_bound'] / row['k4_int8']:.1%} "
-          f"({by4}), K1 / SDPA {row['k1'] / row['sdpa']:.2f}x; vs plain at b1 h2 L300: K1 {e1.item():.2e}, "
-          f"K4 {e4.item():.2e}", flush=True)
+          f"({by4}), K1 / SDPA {row['k1'] / row['sdpa']:.2f}x, pre-pass + K2 + K3 / SDPA backward "
+          f"{(row['prep'] + row['k2'] + row['k3']) / row['sdpa_bwd']:.2f}x; vs plain at b1 h2 L300: K1 {e1.item():.2e}, "
+          f"K4 {e4.item():.2e}, grads {eg:.2e} x max |grad|", flush=True)
     return row
 
 
