@@ -16,7 +16,12 @@ are 7-9):
               tile loop and against dense (vanilla) attention, at the GPT-2
               and Llama-3 8B prefill shapes and more (window, segment ids,
               the tile's ragged edges with a GQA group crossing the
-              diagonal), each error beside its tolerance.
+              diagonal), each error beside its tolerance; the fp32 cases
+              (the 3xTF32 K1, "flash_fwd_fp32", launched once a case),
+              output and lse at 1e-5 at L1024 GQA 8/2 at D64 and D128, the
+              Llama prefill shape (L1024, L900), the tile's edges (q129 x
+              kv257), rows that see no key (exactly 0, lse -inf),
+              non-causal, lq < lk, window and segments.
 4. k2k3     - the backward's pre-pass (di and qs) against its plain
               expression; gradients of K1 + pre-pass + K2 + K3 through the
               autograd Function against the plain backward and against
@@ -29,9 +34,11 @@ are 7-9):
               segments at D128.
 5. k4       - quantized-KV flash attention (int8/fp8 K/V) against its plain
               version and fp32 vanilla on the dequantized K/V (Lk % 4 != 0
-              among them, so the scales' rows are unaligned); then the
-              quant op's path (quantize_kv + flash_attention_kv_quant for
-              12 layers at b8 x T1024), which must launch K4 12 times.
+              among them, so the scales' rows are unaligned), fp32 q (the
+              3xTF32 K4, "flash_fwd_kv_quant_fp32") at 5e-5 at L1024 and
+              the tile's edges; then the quant op's path (quantize_kv +
+              flash_attention_kv_quant for 12 layers at b8 x T1024), in
+              bf16 and in fp32, which must launch K4 12 times each.
 6. decode   - K5 (paged) and K6 (slot-major) split-KV decode against their
               plain versions on bf16, fp32, int8 and fp8 caches with ragged
               lengths and at the split's edges (cache lengths 0, chunk - 1,
@@ -87,7 +94,8 @@ are 7-9):
 10. llama-parity - fp32 Llama-3 8B widths at 2 layers: prefill logits and
               llama.prefill_chunk's (chunks of 128) within 1e-3 of a full
               forward, 6 greedy tokens of cached decode equal to full
-              recompute; int8 / int4 weight-only
+              recompute (the 3xTF32 K1 launched 2 layers x 8 forwards and
+              the 16-bit one never); int8 / int4 weight-only
               forwards finite, their error against fp32 printed and bounded
               (relative L2 0.1 / 0.8), two broken int4 forwards (nibble
               halves swapped, scales zeroed) outside the int4 bound, and
@@ -112,7 +120,7 @@ are 7-9):
               offset attention's ms a layer; then fp32: a 900-token prompt
               in chunks of 256 against prefill (logits, cache rows 1e-3),
               and greedy outputs of 4 prompts with and without chunking
-              equal.
+              equal, K1 there the 3xTF32 one only.
     serving-spec - the burst with speculative decoding, spec_k 4, the
               target drafting for itself and a 2-layer draft (its first
               blocks, embeddings and head) with spec_adaptive: exact
@@ -130,7 +138,8 @@ are 7-9):
               prefill logits within relative L2 0.05 of the bf16 model's,
               then the burst, K6 launched n_layer x decode steps.
 15. parity  - GPT-2 124M in fp32: prefill logits and 8 teacher-forced
-              decode steps against the model's forward on dense attention.
+              decode steps against the model's forward on dense attention;
+              the prefill launches the 3xTF32 K1 once a layer.
 16. parity-quant - GPT-2 124M in fp32 with an int8 cache, 8 teacher-forced
               decode steps: paged and fused logits against einsum on the
               same cache contents within 1e-3; the quantization error
@@ -143,8 +152,9 @@ are 7-9):
               busy ms a step by kind of kernel, and the idle share.
 18. train-parity - GPT-2 124M in fp32, 5 steps at b2 x T512 on flash and on
               dense attention from the same weights and batches: losses
-              within 2e-3; the flash run launches the 3xTF32 K2 / K3
-              n_layer x steps times each (their kernels line's launches).
+              within 2e-3; the flash run launches the 3xTF32 K1, K2 and K3
+              n_layer x steps times each (their kernels line's launches)
+              and the 16-bit K1 never.
 19. timing  - K1 at the Llama prefill shape (b1, GQA 32/8, L1024, D128) and
               the D256 kernels at b8 h12 L1024, beside their plain
               versions, bounds and torch SDPA forward / backward; then K1,
@@ -168,9 +178,9 @@ are 7-9):
               SIMT times they replaced and SDPA's forward, the pre-pass and
               the wide wgmma K2/K3 beside their bounds, the SIMT times they
               replaced and SDPA's whole backward (pre-pass + K2 + K3
-              against it); fp32 D512 (SIMT K1-K4); fp32 D64 and D128 (K1,
-              K4, the pre-pass, the 3xTF32 K2 and K3 beside the SIMT times
-              they replaced, SDPA fp32).
+              against it); fp32 D512 and D1024 (SIMT K1-K4); fp32 D64 and
+              D128 (the 3xTF32 K1, K4, K2 and K3 and the pre-pass, beside
+              the SIMT times they replaced and SDPA fp32).
 20. measure - utils.measure on K1 at b8 h12 L1024 D64 bf16: chain_timer
               (a chain of 64 calls in a CUDA graph), ab_compare over K1's
               tiles with the recheck's drift band, graph_ms of the same
@@ -229,14 +239,16 @@ are 7-9):
               tp_decode_loop): greedy tokens equal to llama.prefill /
               decode_loop's, the cache a DTensor.
 
-The line before the last is a JSON summary of the kernels, the D256, the
-"_d256_simt", the "_wide" and the "_wide_simt" ones as rows of their own
-(launches on their path, max error, device ms, plain ms, bound ms and what
-sets it, library ms or null; K1's row also carries its launches on the
-Llama path and in the chunked, speculative and pipelined GPT-2 bursts and
-its times at the Llama prefill shape, the wide rows D1024's times as
-d1024_*; K1-K4's and the pre-pass's rows their fp32 D64 / D128
-rows as fp32_d64 / fp32_d128; K1's row its tile sweep, {shape: {block_q: device ms}}, as
+The line before the last is a JSON summary of the kernels, the "_fp32",
+the D256, the "_d256_simt", the "_wide" and the "_wide_simt" ones as rows
+of their own (launches on their path, max error, device ms, plain ms,
+bound ms and what sets it, library ms or null; K1's row also carries its
+launches on the Llama path and in the chunked, speculative and pipelined
+GPT-2 bursts and its times at the Llama prefill shape, the wide rows
+D1024's times as d1024_*; the "_fp32" rows D128's as d128_*, the fp32
+K1's also its time with lse and its launches on the parity and
+llama-parity paths; the pre-pass's row its fp32 D64 / D128 rows as
+fp32_d64 / fp32_d128; K1's row its tile sweep, {shape: {block_q: device ms}}, as
 `tiles` with SDPA's ms as `tiles_library_ms`, its launches on the
 autotuned engine and trainer paths, and the measure phase's readings; K1,
 the pre-pass, K2 and K3 their ring call shapes as `ring_noncausal_shard`
@@ -319,6 +331,12 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                            "flash_attention_tpu/kernels/flash_attention.py:637"),
     "flash_bwd_dq_fp32": ("flash_attention_tpu_torch/csrc/flash_bwd_fp32.cuh",
                           "flash_attention_tpu/kernels/flash_attention.py:765"),
+    # fp32 K1 / K4 at head dims up to 128, padded to 64 or 128: the 3xTF32
+    # tensor-core forward, reached through flash_fwd.cu's and
+    # flash_fwd_kv_quant.cu's entry points
+    "flash_fwd_fp32": ("flash_attention_tpu_torch/csrc/flash_fwd_fp32.cu",
+                       "flash_attention_tpu/kernels/flash_attention.py:269"),
+    "flash_fwd_kv_quant_fp32": ("flash_attention_tpu_torch/csrc/flash_fwd_fp32.cu", "flash_attention_tpu/quant/kv.py:98"),
     "flash_fwd_kv_quant": ("flash_attention_tpu_torch/csrc/flash_fwd_kv_quant.cu", "flash_attention_tpu/quant/kv.py:98"),
     "paged_decode": ("flash_attention_tpu_torch/csrc/decode.cu", "flash_attention_tpu/inference/paged_attention.py:34"),
     "fused_decode": ("flash_attention_tpu_torch/csrc/decode.cu", "flash_attention_tpu/inference/decode_attention.py:195"),
@@ -370,6 +388,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
 }
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd_prep", "flash_bwd_dkv", "flash_bwd_dq")
 FP32_BWD_KERNELS = ("flash_bwd_dkv_fp32", "flash_bwd_dq_fp32")
+FP32_FWD_KERNELS = ("flash_fwd_fp32", "flash_fwd_kv_quant_fp32")
 D256_TRAINING_KERNELS = tuple(f"{k}_d256" for k in TRAINING_KERNELS)
 
 
@@ -534,15 +553,82 @@ def check_k1(label, gen, b, hq, hkv, lq, lk, d, dtype, causal, atol, window=None
     return e_plain
 
 
-def phase_k1(seed: int) -> float:
+def check_k1_fp32(label, gen, b, hq, hkv, lq, lk, d, causal=True, window=None, segments=False,
+                  no_key_rows=0) -> float:
+    """The fp32 K1 (the 3xTF32 kernel, head dim 64 or 128) through the
+    public entry points: the output of `flash_attention` (causal, window,
+    segment ids as a user passes them) and the lse of
+    `flash_attention_with_lse`, or of the wrapper where a window or segment
+    ids apply (the lse entry takes neither), against the plain tile loop
+    and fp32 vanilla on the same inputs, absolute 1e-5 (the fp32 forward
+    tier).  Each of the two calls must launch "flash_fwd_fp32" once and
+    nothing else.  Rows that see no key (the plain lse -inf: causal with
+    lq > lk, or a window whose keys are all of other segments) must give
+    exactly 0 and lse -inf, as the plain version does, and vanilla, which
+    spreads them over every key, is held on the other rows only;
+    `no_key_rows` is how many such rows there must be at least.  Returns
+    the worst error against the plain version."""
+    f32 = torch.float32
+    q = _rand(gen, (b, hq, lq, d), f32)
+    k = _rand(gen, (b, hkv, lk, d), f32)
+    v = _rand(gen, (b, hkv, lk, d), f32)
+    ids = (_segment_ids(b, lq), _segment_ids(b, lk)) if segments else None
+    segs = FA._segments(ids, b, lq, lk, q.device) if segments else None
+
+    def one_launch(call):
+        before = dict(FA.KERNEL_LAUNCHES)
+        result = call()
+        torch.cuda.synchronize()
+        launched = {key: n - before[key] for key, n in FA.KERNEL_LAUNCHES.items() if n != before[key]}
+        if launched != {"flash_fwd_fp32": 1}:
+            raise AssertionError(f"[k1] {label}: launched {launched}, want flash_fwd_fp32 once")
+        return result
+
+    with torch.no_grad():
+        out = one_launch(lambda: FA.flash_attention(q, k, v, causal=causal, window=window, segment_ids=ids))
+        if window is None and not segments:
+            out_l, lse = one_launch(lambda: FA.flash_attention_with_lse(q, k, v, causal=causal))
+        else:
+            spec = FA._Spec(causal=causal, sm_scale=d ** -0.5, window=window,
+                            blocks=FA.default_blocks(lq, lk, d, dtype=f32))
+            out_l, lse = one_launch(lambda: FA._launch(q, k, v, spec, segs, True))
+        p_out, p_lse = FA.flash_attention_reference(q, k, v, causal=causal, window=window, segment_ids=segs)
+        g = hq // hkv
+        d_out, d_lse = vanilla_attention_with_lse(q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
+                                                  causal=causal, sm_scale=d ** -0.5, window=window, segment_ids=segs)
+    torch.cuda.synchronize()
+    if (out.shape != q.shape or out_l.shape != q.shape or lse.shape != q.shape[:3]
+            or not torch.isfinite(out).all() or not torch.isfinite(out_l).all()):
+        raise AssertionError(f"[k1] {label}: bad output {tuple(out.shape)} / {tuple(out_l.shape)} / lse "
+                             f"{tuple(lse.shape)}")
+    none = p_lse == -math.inf  # [b, hq, lq]: rows that see no key
+    keyed = ~none
+    n = int(none[0, 0].sum())
+    e_plain = max((out - p_out).abs().max().item(), (out_l - p_out).abs().max().item(),
+                  (lse - p_lse)[keyed].abs().max().item())
+    e_dense = max((out - d_out)[keyed].abs().max().item(), (out_l - d_out)[keyed].abs().max().item(),
+                  (lse - d_lse)[keyed].abs().max().item())
+    no_key = (not out[none].any() and not out_l[none].any() and bool((lse[none] == -math.inf).all())
+              and n >= no_key_rows)
+    ok = e_plain <= 1e-5 and e_dense <= 1e-5 and no_key and bool(torch.isfinite(lse[keyed]).all())
+    say(f"[k1] {label:<44} out, lse vs plain {e_plain:.3e}  vs vanilla {e_dense:.3e}  atol 1e-05"
+        + (f"; {n} no-key rows a head 0 / -inf" if n else "") + f"  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[k1] {label} outside tolerance")
+    return e_plain
+
+
+def phase_k1(seed: int) -> tuple[float, float]:
+    """Returns K1's worst error against its plain version: the 16-bit
+    cases', and the fp32 cases' (the 3xTF32 kernel, "flash_fwd_fp32")."""
     gen = torch.Generator().manual_seed(seed)
     bf16, worst = torch.bfloat16, 0.0
+    _reset_launches()
     # bf16 tier: fp32 vanilla of the same bf16 inputs, atol 2e-2
     for b in (1, 4):
         for L in (40, 128, 200, 1024):
             err = check_k1(f"gpt2 prefill b{b} h12 L{L} D64 bf16", gen, b, 12, 12, L, L, 64, bf16, True, 2e-2)
             worst = max(worst, err)
-    check_k1("fp32 b1 h4 L384 D64", gen, 1, 4, 4, 384, 384, 64, torch.float32, True, 1e-5)
     check_k1("gqa hq8 hkv2 L384 D128 bf16", gen, 1, 8, 2, 384, 384, 128, bf16, True, 2e-2)
     # the Llama-3 8B prefill's shape: GQA 32/8 at D128, a full bucket and a
     # ragged prompt length
@@ -553,8 +639,6 @@ def phase_k1(seed: int) -> float:
     check_k1("fp16 native b2 h12 L200 D64", gen, 2, 12, 12, 200, 200, 64, torch.float16, True, 2e-2)
     check_k1("window 256 b2 h12 L1024 D64 bf16", gen, 2, 12, 12, 1024, 1024, 64, bf16, True, 2e-2, window=256)
     check_k1("3 segments b2 h12 L1024 D64 bf16", gen, 2, 12, 12, 1024, 1024, 64, bf16, True, 2e-2, segments=True)
-    check_k1("window 100 fp32 b1 h4 L384 D128", gen, 1, 4, 4, 384, 384, 128, torch.float32, True, 1e-5, window=100)
-    check_k1("3 segments fp32 b2 h4 L300 D64", gen, 2, 4, 2, 300, 300, 64, torch.float32, True, 1e-5, segments=True)
     # the forward tile's edges: lq 129 (one row past two consumer
     # warpgroups' 64 rows), lk 257 (one row past four 64-row KV tiles), a
     # GQA group of 4 whose q tiles cross the end-aligned diagonal, window 100
@@ -589,7 +673,42 @@ def phase_k1(seed: int) -> float:
             f"{'ok' if max(e_out, e_lse) <= 1e-5 and out.shape == q.shape else 'FAIL'}")
         if max(e_out, e_lse) > 1e-5 or out.shape != q.shape:
             raise AssertionError("[k1] lse outside tolerance")
-    return worst
+    # fp32: the 3xTF32 K1, output and lse at 1e-5 against plain and vanilla
+    fp32 = [
+        check_k1_fp32("fp32 b1 h4 L384 D64", gen, 1, 4, 4, 384, 384, 64),
+        check_k1_fp32("fp32 window 100 b1 h4 L384 D128", gen, 1, 4, 4, 384, 384, 128, window=100),
+        check_k1_fp32("fp32 3 segments b2 h4 L300 D64 gqa 4/2", gen, 2, 4, 2, 300, 300, 64, segments=True),
+        # L1024 with a GQA group of 4, at both head dims
+        check_k1_fp32("fp32 gqa 8/2 b2 L1024 D64", gen, 2, 8, 2, 1024, 1024, 64),
+        check_k1_fp32("fp32 gqa 8/2 b2 L1024 D128", gen, 2, 8, 2, 1024, 1024, 128),
+        # the Llama-3 8B prefill's shape, a full bucket and a ragged length
+        *(check_k1_fp32(f"fp32 llama prefill b1 hq32 hkv8 L{L} D128", gen, 1, 32, 8, L, L, 128) for L in (1024, 900)),
+        # the tile's edges: lq 129 (one row past a block's 128), lk 257 (one
+        # row past eight 32-row KV tiles), GQA 8/2 across the diagonal
+        check_k1_fp32("fp32 edges q129 kv257 gqa 8/2 w100 D64", gen, 2, 8, 2, 129, 257, 64, window=100),
+        check_k1_fp32("fp32 edges q129 kv257 gqa 8/2 D128", gen, 2, 8, 2, 129, 257, 128),
+        check_k1_fp32("fp32 edges q129 kv257 3 segments D128", gen, 2, 4, 4, 129, 257, 128, segments=True),
+        # a window of 100 over 3 segments: rows 22-24 see only keys of other
+        # segments, so they see none
+        check_k1_fp32("fp32 edges w100 3 segments gqa 8/2 D64", gen, 2, 8, 2, 129, 257, 64, window=100,
+                      segments=True, no_key_rows=3),
+        # queries aligned to the end of 200 keys: the first 100 see none
+        check_k1_fp32("fp32 no-key rows q300 kv200 D64", gen, 2, 4, 4, 300, 200, 64, no_key_rows=100),
+        check_k1_fp32("fp32 no-key rows q300 kv200 gqa 4/2 D128", gen, 1, 4, 2, 300, 200, 128, no_key_rows=100),
+        check_k1_fp32("fp32 non-causal q200 kv300 D64", gen, 2, 4, 4, 200, 300, 64, causal=False),
+        check_k1_fp32("fp32 non-causal L1024 gqa 8/2 D128", gen, 1, 8, 2, 1024, 1024, 128, causal=False),
+        check_k1_fp32("fp32 lq<lk q128 kv384 D128", gen, 2, 4, 4, 128, 384, 128),
+        check_k1_fp32("fp32 3 segments q1014 kv1024 D128", gen, 2, 4, 4, 1014, 1024, 128, segments=True),
+    ]
+    torch.cuda.synchronize()
+    # the fp32 cases above (two calls each), the padded and lse checks: 4
+    # more, all fp32
+    counts = {key: FA.KERNEL_LAUNCHES[key] for key in ("flash_fwd_fp32", "flash_fwd_kv_quant_fp32")}
+    want = 2 * len(fp32) + 4
+    say(f"[k1] fp32 launches {counts} ({len(fp32)} cases x 2 + 2 padded + 2 lse; no fp32 launch under flash_fwd)")
+    if counts != {"flash_fwd_fp32": want, "flash_fwd_kv_quant_fp32": 0}:
+        raise AssertionError(f"[k1] the fp32 cases launched {counts}, want flash_fwd_fp32 {want} times")
+    return worst, max(fp32)
 
 
 def check_prep(label, gen, b, hq, lq, d, dtype, with_lse=False) -> float:
@@ -784,11 +903,13 @@ def check_k4(label, gen, b, hq, hkv, lq, lk, d, dtype, qdt, atol, window=None, s
     return e_plain
 
 
-def phase_k4(seed: int) -> tuple[float, int]:
+def phase_k4(seed: int) -> dict:
     """Returns K4's worst error against its plain version and its launches
-    on the quant op's path."""
+    on the quant op's path, for bf16 / fp16 q under "flash_fwd_kv_quant"
+    and for fp32 q (the 3xTF32 kernel) under "flash_fwd_kv_quant_fp32":
+    {key: (error, launches)}."""
     gen = torch.Generator().manual_seed(seed + 5)
-    bf16, i8, f8 = torch.bfloat16, torch.int8, torch.float8_e4m3fn
+    bf16, f32, i8, f8 = torch.bfloat16, torch.float32, torch.int8, torch.float8_e4m3fn
     say("[k4] tolerance: bf16/fp16 2e-2 (K1's tier); fp32 5e-5, the JAX package's quantized-KV tier.  The vanilla "
         "reference reads K/V dequantized as the kernel does it, in q's dtype")
     worst = 0.0
@@ -805,18 +926,42 @@ def phase_k4(seed: int) -> tuple[float, int]:
         # Lk % 4 != 0: the scales' rows are not 16-byte aligned, so they are
         # loaded without TMA
         check_k4("lk%4=3 q1023 kv1023 gqa 8/2 D128 bf16 fp8", gen, 1, 8, 2, 1023, 1023, 128, bf16, f8, 2e-2),
-        check_k4("fp32 b1 h4 L384 D64 int8", gen, 1, 4, 4, 384, 384, 64, torch.float32, i8, 5e-5),
-        check_k4("fp32 gqa hq4 hkv2 L384 D128 fp8 window 100", gen, 1, 4, 2, 384, 384, 128, torch.float32, f8, 5e-5,
-                 window=100),
-        check_k4("fp32 b2 h4 L300 D64 int8 3 segments", gen, 2, 4, 4, 300, 300, 64, torch.float32, i8, 5e-5,
-                 segments=True),
         # head dims padded to 64 / 128 (payloads with zero bytes)
         check_k4("padded D32 b2 h12 L1024 bf16 int8", gen, 2, 12, 12, 1024, 1024, 32, bf16, i8, 2e-2),
         check_k4("padded D96 gqa 8/2 L384 bf16 fp8 window 100", gen, 1, 8, 2, 384, 384, 96, bf16, f8, 2e-2,
                  window=100),
-        check_k4("padded D96 fp32 b1 h4 L300 int8", gen, 1, 4, 4, 300, 300, 96, torch.float32, i8, 5e-5),
     ]
     worst = max(worst, *runs)
+    # fp32 q: the 3xTF32 K4, at L1024 and at its tile's edges (q129: one row
+    # past a block's 128; kv257: one past eight 32-row KV tiles)
+    _reset_launches()
+    fp32 = [
+        check_k4("fp32 b1 h4 L384 D64 int8", gen, 1, 4, 4, 384, 384, 64, f32, i8, 5e-5),
+        check_k4("fp32 gqa hq4 hkv2 L384 D128 fp8 window 100", gen, 1, 4, 2, 384, 384, 128, f32, f8, 5e-5,
+                 window=100),
+        check_k4("fp32 b2 h4 L300 D64 int8 3 segments", gen, 2, 4, 4, 300, 300, 64, f32, i8, 5e-5, segments=True),
+        check_k4("padded D96 fp32 b1 h4 L300 int8", gen, 1, 4, 4, 300, 300, 96, f32, i8, 5e-5),
+        check_k4("fp32 gqa 8/2 b2 L1024 D64 int8", gen, 2, 8, 2, 1024, 1024, 64, f32, i8, 5e-5),
+        check_k4("fp32 gqa 8/2 b2 L1024 D64 fp8", gen, 2, 8, 2, 1024, 1024, 64, f32, f8, 5e-5),
+        check_k4("fp32 llama b1 hq32 hkv8 L1024 D128 int8", gen, 1, 32, 8, 1024, 1024, 128, f32, i8, 5e-5),
+        check_k4("fp32 llama b1 hq32 hkv8 L1024 D128 fp8", gen, 1, 32, 8, 1024, 1024, 128, f32, f8, 5e-5),
+        check_k4("fp32 edges q129 kv257 8/2 w100 D64 fp8", gen, 2, 8, 2, 129, 257, 64, f32, f8, 5e-5, window=100),
+        check_k4("fp32 edges q129 kv257 8/2 D128 int8", gen, 2, 8, 2, 129, 257, 128, f32, i8, 5e-5),
+        check_k4("fp32 lk%4=3 q1023 kv1023 8/2 D128 fp8", gen, 1, 8, 2, 1023, 1023, 128, f32, f8, 5e-5),
+        # segment ids with the diagonal 10 keys into a 32-row KV tile, so
+        # that a block's warps end their walks on different tiles while the
+        # producer refills the ring
+        check_k4("fp32 3 segments q1014 kv1024 D128 fp8", gen, 2, 4, 4, 1014, 1024, 128, f32, f8, 5e-5,
+                 segments=True),
+        check_k4("fp32 3 segments q1014 kv1024 D64 int8", gen, 2, 4, 4, 1014, 1024, 64, f32, i8, 5e-5,
+                 segments=True),
+    ]
+    torch.cuda.synchronize()
+    n32 = FA.KERNEL_LAUNCHES["flash_fwd_kv_quant_fp32"]
+    others = {k: n for k, n in FA.KERNEL_LAUNCHES.items() if k != "flash_fwd_kv_quant_fp32" and n}
+    say(f"[k4] fp32 cases launched flash_fwd_kv_quant_fp32 {n32} times (one a case), others {others}")
+    if n32 != len(fp32) or others:
+        raise AssertionError(f"[k4] the fp32 cases launched {n32} of {len(fp32)} (others {others})")
     # The quant op's path: each of GPT-2's 12 layers quantizes its K/V and
     # attends over them, at b8 x T1024.
     layers = [tuple(_rand(gen, (8, 12, 1024, 64), bf16) for _ in range(3)) for _ in range(12)]
@@ -831,7 +976,21 @@ def phase_k4(seed: int) -> tuple[float, int]:
         raise AssertionError(f"[k4] quant op path: {launches} launches of 12 (others {others}), or bad outputs")
     say(f"[k4] quant op path, 12 layers at b8 h12 T1024 D64 bf16 int8: flash_fwd_kv_quant launches {launches}, "
         f"outputs finite")
-    return worst, launches
+    # the same path with fp32 q: the 3xTF32 K4
+    del layers, outs
+    layers = [tuple(_rand(gen, (8, 12, 1024, 64), f32) for _ in range(3)) for _ in range(12)]
+    torch.cuda.synchronize()
+    _reset_launches()
+    with torch.no_grad():
+        outs = [QK.flash_attention_kv_quant(q, QK.quantize_kv(k, v, dtype=i8)) for q, k, v in layers]
+    torch.cuda.synchronize()
+    launches32 = FA.KERNEL_LAUNCHES["flash_fwd_kv_quant_fp32"]
+    others = {k: n for k, n in FA.KERNEL_LAUNCHES.items() if k != "flash_fwd_kv_quant_fp32" and n}
+    if launches32 != 12 or others or not all(o.shape == (8, 12, 1024, 64) and torch.isfinite(o).all() for o in outs):
+        raise AssertionError(f"[k4] fp32 quant op path: {launches32} launches of 12 (others {others}), or bad outputs")
+    say(f"[k4] quant op path, 12 layers at b8 h12 T1024 D64 fp32 int8: flash_fwd_kv_quant_fp32 launches "
+        f"{launches32}, outputs finite")
+    return {"flash_fwd_kv_quant": (worst, launches), "flash_fwd_kv_quant_fp32": (max(fp32), launches32)}
 
 
 def _error(out: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> tuple[float, bool]:
@@ -1180,6 +1339,7 @@ def phase_serving_chunked(seed: int, model: GPT, base: dict, smi: str) -> int:
 
     fp32 = _fp32_gpt2(seed + 1)
     prompt = torch.as_tensor(np.random.default_rng(seed + 2).integers(0, cfg.vocab_size, 900), device="cuda")
+    _reset_launches()
     whole = init_cache(cfg.n_layer, 1, cfg.kv_heads, 1024, cfg.head_dim, dtype=torch.float32, device="cuda")
     chunks = init_cache(cfg.n_layer, 1, cfg.kv_heads, 1024, cfg.head_dim, dtype=torch.float32, device="cuda")
     _, ref = prefill(fp32, prompt, whole, 0)
@@ -1200,6 +1360,12 @@ def phase_serving_chunked(seed: int, model: GPT, base: dict, smi: str) -> int:
     gap = _min_top2_gap(fp32, prompts, plain)
     del fp32
     torch.cuda.empty_cache()
+    # K1 in fp32 runs the 3xTF32 kernel: whole-prompt prefills (the 900-token
+    # reference, the 4 plain prompts, the chunked run's prompt of 40)
+    k1, k1_16 = FA.KERNEL_LAUNCHES["flash_fwd_fp32"], FA.KERNEL_LAUNCHES["flash_fwd"]
+    say(f"[{tag}] fp32 checks: flash_fwd_fp32 launches {k1}, flash_fwd {k1_16}")
+    if k1 <= 0 or k1_16:
+        raise AssertionError(f"[{tag}] the fp32 checks launched flash_fwd_fp32 {k1} and flash_fwd {k1_16} times")
     ok = e_logits <= 1e-3 and e_rows <= 1e-3 and lengths_ok and plain == chunked_out
     say(f"[{tag}] fp32 GPT-2 124M, a 900-token prompt in chunks of {CHUNK} vs prefill: final logits {e_logits:.3e}, "
         f"cache rows {e_rows:.3e} (atol 1e-3), lengths {'equal' if lengths_ok else 'DIFFER'}; 4 prompts "
@@ -1336,13 +1502,18 @@ def phase_serving_pipelined(seed: int, model: GPT, base: dict, smi: str) -> dict
     return launches
 
 
-def phase_parity(seed: int) -> None:
+def phase_parity(seed: int) -> int:
+    """fp32 GPT-2 124M: prefill logits and 8 teacher-forced decode steps
+    against the model's forward on dense attention.  The prefill runs the
+    3xTF32 K1 ("flash_fwd_fp32", one a layer), never the 16-bit one;
+    returns its launches."""
     cfg = dataclasses.replace(GPT2_124M, dtype=torch.float32)
     model = GPT(cfg, generator=torch.Generator().manual_seed(seed + 1), device="cuda")
     dense = GPT(dataclasses.replace(cfg, use_flash=False), generator=torch.Generator().manual_seed(seed + 1), device="cuda")
     rng = np.random.default_rng(seed + 1)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, 300), device="cuda")
     feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, 8), device="cuda", dtype=torch.int32)
+    _reset_launches()
     with torch.no_grad():
         ref = dense(torch.cat([prompt, feed.long()])[None])[0].float()  # [308, vocab]
         cache = init_cache(cfg.n_layer, 1, cfg.kv_heads, 1024, cfg.head_dim, dtype=cfg.dtype, device="cuda")
@@ -1353,10 +1524,16 @@ def phase_parity(seed: int) -> None:
             errs.append((logits[0] - ref[prompt.numel() + i]).abs().max().item())
     torch.cuda.synchronize()
     worst = max(errs)
+    k1 = FA.KERNEL_LAUNCHES["flash_fwd_fp32"]
     say(f"[parity] fp32 GPT-2 124M, prompt 300 + 8 teacher-forced decode steps vs forward on dense attention: "
-        f"max abs logit error {worst:.3e} (prefill {errs[0]:.3e}) atol 1e-3 {'ok' if worst <= 1e-3 else 'FAIL'}")
+        f"max abs logit error {worst:.3e} (prefill {errs[0]:.3e}) atol 1e-3 {'ok' if worst <= 1e-3 else 'FAIL'}; "
+        f"flash_fwd_fp32 launches {k1} (want {cfg.n_layer}), flash_fwd {FA.KERNEL_LAUNCHES['flash_fwd']}")
     if worst > 1e-3:
         raise AssertionError("[parity] outside tolerance")
+    if k1 != cfg.n_layer or FA.KERNEL_LAUNCHES["flash_fwd"]:
+        raise AssertionError(f"[parity] the fp32 prefill launched flash_fwd_fp32 {k1} times (want {cfg.n_layer}) "
+                             f"and flash_fwd {FA.KERNEL_LAUNCHES['flash_fwd']} (want 0)")
+    return k1
 
 
 def phase_parity_quant(seed: int) -> None:
@@ -1465,7 +1642,7 @@ def phase_train_parity(seed: int, data: np.ndarray) -> dict:
     """fp32 GPT-2 124M trained 5 steps with flash attention and with dense
     attention from the same weights and batches; the losses must agree.
     The flash run is the fp32 training path: returns the launches of the
-    3xTF32 K2 / K3 in it (one each a layer a step)."""
+    3xTF32 K1, K2 and K3 in it (one each a layer a step)."""
     cfg = dataclasses.replace(GPT2_124M, dtype=torch.float32)
     steps = 5
     tcfg = TrainerConfig(max_iters=steps, log_interval=1, learning_rate=6e-4, warmup_iters=2)
@@ -1476,14 +1653,16 @@ def phase_train_parity(seed: int, data: np.ndarray) -> dict:
         history = trainer.fit(batch_iterator(data, 2, 512, seed=seed + 4, device="cuda"), log=lambda line: None)
         torch.cuda.synchronize()
         if flash:
-            launches = {key: FA.KERNEL_LAUNCHES[key] for key in FP32_BWD_KERNELS}
+            launches = {key: FA.KERNEL_LAUNCHES[key] for key in ("flash_fwd_fp32", *FP32_BWD_KERNELS)}
+            sixteen = FA.KERNEL_LAUNCHES["flash_fwd"]
         curves[flash] = np.array([r["train_loss"] for r in history])
         del trainer
     want = cfg.n_layer * steps
-    say(f"[train-parity] launches of the fp32 K2 / K3 in the flash run {launches} (want {cfg.n_layer} layers x "
-        f"{steps} steps = {want} each)")
-    if any(n != want for n in launches.values()):
-        raise AssertionError(f"[train-parity] fp32 K2 / K3 launched {launches}, want {want} each")
+    say(f"[train-parity] launches of the fp32 K1 / K2 / K3 in the flash run {launches} (want {cfg.n_layer} layers x "
+        f"{steps} steps = {want} each), flash_fwd {sixteen}")
+    if any(n != want for n in launches.values()) or sixteen:
+        raise AssertionError(f"[train-parity] fp32 K1 / K2 / K3 launched {launches}, want {want} each, and flash_fwd "
+                             f"{sixteen}, want 0")
     flash, dense = curves[True], curves[False]
     excess = np.abs(flash - dense) - (2e-3 + 2e-3 * np.abs(dense))
     ok = len(flash) == 5 and bool((excess <= 0).all())
@@ -2271,7 +2450,7 @@ def _llama_chunked(seed: int, model: llama.Llama, base: dict, smi: str, kw: dict
     return r
 
 
-def phase_llama_parity(seed: int) -> None:
+def phase_llama_parity(seed: int) -> int:
     """fp32 Llama-3 8B widths at 2 layers: prefill logits and those of
     llama.prefill_chunk (chunks of 128) against a full forward (1e-3); 6
     greedy tokens of cached decode equal full recompute;
@@ -2283,6 +2462,7 @@ def phase_llama_parity(seed: int) -> None:
     model = llama.Llama(cfg, generator=torch.Generator(device="cuda").manual_seed(seed + 1), device="cuda")
     rng = np.random.default_rng(seed + 1)
     prompt = rng.integers(0, cfg.vocab_size, 300).tolist()
+    _reset_launches()
     with torch.no_grad():
         ref = model(torch.as_tensor(prompt, device="cuda")[None])[0, -1]
         cache = init_cache(cfg.n_layer, 1, cfg.n_kv_head, 1024, cfg.head_dim, dtype=cfg.dtype, device="cuda")
@@ -2305,12 +2485,19 @@ def phase_llama_parity(seed: int) -> None:
             _, lg = llama.prefill_chunk(model, torch.as_tensor(piece, device="cuda"), chunks, 0, start, valid)
         e_chunk = (lg - ref).abs().max().item()
     torch.cuda.synchronize()
+    # K1 in the full forwards (1 + 6) and in llama.prefill, a layer each; the
+    # chunks and the decode steps run dense attention
+    k1, k1_16 = FA.KERNEL_LAUNCHES["flash_fwd_fp32"], FA.KERNEL_LAUNCHES["flash_fwd"]
+    want = cfg.n_layer * 8
     ok = e_prefill <= 1e-3 and e_chunk <= 1e-3 and cached == seq[len(prompt):]
     say(f"[llama-parity] fp32 Llama-3 8B widths, 2 layers, prompt 300: prefill logits vs full forward "
         f"{e_prefill:.3e}, llama.prefill_chunk in chunks of 128 vs full forward {e_chunk:.3e} (atol 1e-3); 6 "
-        f"greedy tokens of cached decode {cached} vs full recompute {seq[len(prompt):]} {'ok' if ok else 'FAIL'}")
+        f"greedy tokens of cached decode {cached} vs full recompute {seq[len(prompt):]} {'ok' if ok else 'FAIL'}; "
+        f"flash_fwd_fp32 (GQA 32/8 D128) launches {k1} (want {want}), flash_fwd {k1_16}")
     if not ok:
         raise AssertionError("[llama-parity] cached path disagrees with full recompute")
+    if k1 != want or k1_16:
+        raise AssertionError(f"[llama-parity] flash_fwd_fp32 launched {k1} times (want {want}), flash_fwd {k1_16}")
     # int8 / int4: copies of the fp32 model quantized in place.  Bounds on
     # the logits' relative L2, above the readings of random weights at this
     # width (0.041 / 0.674 on the H100) and, for int4, below those of the two
@@ -2362,6 +2549,7 @@ def phase_llama_parity(seed: int) -> None:
             if not err < tol:
                 raise AssertionError(f"[llama-parity] TINY_LLAMA int{bits} outside the JAX test's bound")
     say("[llama-parity] weight-only vs fp32 logits, 32 tokens: " + "; ".join(parts))
+    return k1
 
 
 def phase_llama_train(seed: int, smi: str, data: np.ndarray) -> dict:
@@ -2538,6 +2726,10 @@ SIMT_16BIT_BWD_MS = {"flash_bwd_dkv_wide": (20.5184, 51.6841), "flash_bwd_dq_wid
 # h12 L1024 fp32 causal, {key: (D64, D128)}, read the same way (NVIDIA H100
 # 80GB HBM3, 700.00 W): printed on the [timing] line only.
 SIMT_FP32_BWD_MS = {"flash_bwd_dkv_fp32": (3.1288, 21.2925), "flash_bwd_dq_fp32": (2.6852, 11.2136)}
+# Device ms of the fp32 SIMT K1 / K4 that the 3xTF32 forward replaced, at b8
+# h12 L1024 fp32 causal (K4 on int8 K/V), {key: (D64, D128)}, read the same
+# way (NVIDIA H100 80GB HBM3, 700.00 W): printed on the [timing] line only.
+SIMT_FP32_FWD_MS = {"flash_fwd_fp32": (1.4926, 3.3879), "flash_fwd_kv_quant_fp32": (1.5631, 3.5028)}
 
 
 def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
@@ -2551,13 +2743,16 @@ def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
     line only) and K1's ratio to SDPA's forward, and K2's and K3's beside
     their bounds, SDPA's whole backward and the SIMT K2 / K3 they replaced
     (SIMT_16BIT_BWD_MS, printed only); fp32 at D512 (the "_wide_simt"
-    rows, the SIMT K1, K4, K2 and K3); fp32 at D64 and D128 (K1, K4, the pre-pass, K2, K3
-    in the entry points' fp32 kernels, SDPA fp32): the "_fp32" rows of the
-    3xTF32 K2 and K3 (D64, with the D128 times beside them as d128_*),
-    with their speed-up over the SIMT pair they replaced (SIMT_FP32_BWD_MS,
-    printed only).  Every fp32 bound is at the 3xTF32 rate.  Returns
-    ({kernel: row}, {kernel: {"fp32_d64": row, "fp32_d128": row}}) for the
-    rows of K1, K4 and the pre-pass."""
+    rows, the SIMT K1, K4, K2 and K3; they carry the D1024 times, no plain
+    run, beside them as d1024_*); fp32 at D64 and D128 (K1, K4, the
+    pre-pass, K2, K3 in the entry points' fp32 kernels, SDPA fp32): the
+    "_fp32" rows of the 3xTF32 K1, K4, K2 and K3 (D64, with the D128
+    times beside them as d128_*; K1 also with lse as lse_ms), with their
+    speed-up over the SIMT kernels they replaced (SIMT_FP32_FWD_MS,
+    SIMT_FP32_BWD_MS, printed only) and K1's ratio to SDPA's fp32
+    forward.  Every fp32 bound is at the 3xTF32 rate.  Returns
+    ({kernel: row}, {"flash_bwd_prep": {"fp32_d64": row, "fp32_d128":
+    row}})."""
     gen = torch.Generator().manual_seed(seed + 13)
     f32, bf16 = torch.float32, torch.bfloat16
     result = {}
@@ -2596,32 +2791,49 @@ def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
               f"{lib:.4f} ms: {(prep + k2 + k3) / lib:.2f}x")
     fp32_wide = _time_family(gen, smi, "fp32, padded head dim 512 (SIMT family)", 8, 12, 1024, 512, f32,
                              TF32X3_FLOPS, True)
+    fp32_1024 = _time_family(gen, smi, "fp32, padded head dim 1024 (SIMT family)", 8, 12, 1024, 1024, f32,
+                             TF32X3_FLOPS, False)
     for name in ("flash_fwd", "flash_fwd_kv_quant", "flash_bwd_dkv", "flash_bwd_dq"):
         result[f"{name}_wide_simt"] = fp32_wide[name]
+        result[f"{name}_wide_simt"].update({f"d1024_{k}": v for k, v in fp32_1024[name].items() if k != "plain_ms"})
     extra: dict = {}
     _reset_launches()
+    lse_ms = {}
     for d in (64, 128):
-        rows = _time_family(gen, smi, f"fp32 D{d} (the entry points' fp32 kernels)", 8, 12, 1024, d, f32,
+        rows = _time_family(gen, smi, f"fp32 D{d} (the entry points' 3xTF32 kernels)", 8, 12, 1024, d, f32,
                             TF32X3_FLOPS, True)
+        # K1 with lse, as the autograd Function's forward runs it
+        q, k, v = (_rand(gen, (8, 12, 1024, d), f32) for _ in range(3))
+        spec = FA._Spec(causal=True, sm_scale=d ** -0.5, window=None, blocks=FA.default_blocks(1024, 1024, d, dtype=f32))
+        with torch.no_grad():
+            lse_ms[d] = graph_ms(lambda: FA._launch(q, k, v, spec, None, True), calls=5, runs=5)
+        del q, k, v
         for name, row in rows.items():
-            if name in ("flash_bwd_dkv", "flash_bwd_dq"):
-                key = f"{name}_fp32"
-                if d == 64:
-                    result[key] = row
-                else:
-                    result[key].update({f"d128_{k}": v for k, v in row.items()})
-            else:
+            if name == "flash_bwd_prep":
                 extra.setdefault(name, {})[f"fp32_d{d}"] = row
-    counts = {key: FA.KERNEL_LAUNCHES[key] for key in FP32_BWD_KERNELS}
+                continue
+            key = f"{name}_fp32"
+            if d == 64:
+                result[key] = row
+            else:
+                result[key].update({f"d128_{k}": v for k, v in row.items()})
+    result["flash_fwd_fp32"].update(lse_ms=lse_ms[64], d128_lse_ms=lse_ms[128])
+    counts = {key: FA.KERNEL_LAUNCHES[key] for key in (*FP32_FWD_KERNELS, *FP32_BWD_KERNELS)}
     if not all(counts.values()):
         raise AssertionError(f"[timing] the fp32 timing launched {counts}: a 3xTF32 kernel did not run")
-    for key, (d64, d128) in SIMT_FP32_BWD_MS.items():
+    for key, (d64, d128) in {**SIMT_FP32_FWD_MS, **SIMT_FP32_BWD_MS}.items():
         row = result[key]
+        lib = (f"; SDPA's fp32 forward {row['library_ms']:.4f} / {row['d128_library_ms']:.4f} ms, {key} / SDPA "
+               f"{row['ms'] / row['library_ms']:.2f}x / {row['d128_ms'] / row['d128_library_ms']:.2f}x"
+               if key == "flash_fwd_fp32" else "")
+        with_lse = (f"; with lse {row['lse_ms']:.4f} / {row['d128_lse_ms']:.4f} ms" if key == "flash_fwd_fp32"
+                    else "")
         say(f"[timing] {smi} | 3xTF32 {key} b8 h12 L1024 fp32 causal (launched {counts[key]} times in this timing, "
             f"graph captures included): D64 {row['ms']:.4f} ms, D128 {row['d128_ms']:.4f} ms; the SIMT kernel's "
             f"{d64} / {d128} ms, read in an earlier run, not this one: {d64 / row['ms']:.1f}x / "
             f"{d128 / row['d128_ms']:.1f}x; bound {row['bound_ms']:.4f} / {row['d128_bound_ms']:.4f} ms "
-            f"({row['bound_by']}, 3xTF32)")
+            f"({row['bound_by']}, 3xTF32; {row['bound_ms'] / row['ms']:.1%} / "
+            f"{row['d128_bound_ms'] / row['d128_ms']:.1%} of it){lib}{with_lse}")
     return result, extra
 
 
@@ -3249,8 +3461,9 @@ def main() -> None:
     os.environ["FA_AUTOTUNE_CACHE"] = os.path.join(cache_dir.name, "tune.json")
     name, smi = phase_device()
     phase_build()
-    errors = {"flash_fwd": phase_k1(args.seed), **phase_k2k3(args.seed)}
-    errors["flash_fwd_kv_quant"], k4_launches = phase_k4(args.seed)
+    errors = dict(zip(("flash_fwd", "flash_fwd_fp32"), phase_k1(args.seed)), **phase_k2k3(args.seed))
+    k4 = phase_k4(args.seed)
+    errors.update({key: err for key, (err, _) in k4.items()})
     errors.update(phase_decode(args.seed))
     errors.update(phase_d256(args.seed))
     text = synthetic_corpus()
@@ -3258,7 +3471,7 @@ def main() -> None:
     d256_launches = phase_d256_path(args.seed, data)
     simt_launches = phase_simt_path(args.seed)
     llama_k1 = phase_llama(args.seed, smi)
-    phase_llama_parity(args.seed)
+    llama_parity_k1 = phase_llama_parity(args.seed)
     llama_train = phase_llama_train(args.seed, smi, data)
     model = _gpt2(args.seed)
     base = phase_serving(args.seed, model)
@@ -3268,19 +3481,21 @@ def main() -> None:
     pipelined_k1 = phase_serving_pipelined(args.seed, model, base, smi)
     wquant_k6 = phase_serving_wquant(args.seed, model, smi)
     del model
-    phase_parity(args.seed)
+    parity_k1 = phase_parity(args.seed)
     phase_parity_quant(args.seed)
     launches = phase_training(args.seed, smi, data)
-    launches.update(flash_fwd_kv_quant=k4_launches, **decode_launches, **d256_launches)
+    launches.update({key: n for key, (_, n) in k4.items()}, **decode_launches, **d256_launches)
     launches.update({k: n for k, n in simt_launches.items() if k not in d256_launches})
-    # the fp32 K2 / K3: their launches on the fp32 training path
+    # the fp32 K1 / K2 / K3: their launches on the fp32 training path
     launches.update(phase_train_parity(args.seed, data))
     llama_times = phase_timing_llama_d256(args.seed, smi)
     simt_times, fp32_times = phase_timing_simt(args.seed, smi)
     times = {**phase_timing(args.seed, smi), **phase_timing_quant(args.seed, smi), **llama_times, **simt_times}
-    # fp32 at D64 / D128 (K1, K4 and the pre-pass), beside each base row
+    # the fp32 pre-pass at D64 / D128, beside its base row; the fp32 K1's
+    # launches on the fp32 GPT-2 and Llama prefill paths
     for key, rows in fp32_times.items():
         times[key].update(rows)
+    times["flash_fwd_fp32"].update(parity_launches=parity_k1, llama_parity_launches=llama_parity_k1)
     # K1 on the Llama path: its launches in the two bursts and in Llama
     # training, and its time at the Llama prefill shape
     times["flash_fwd"].update(

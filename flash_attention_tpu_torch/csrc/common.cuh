@@ -1,7 +1,7 @@
 // Helpers shared by the port's kernels (flash_fwd*.cu, flash_bwd.cu,
-// decode.cu): conversions to and from float, bf16/fp16 packing, exp2, tile
-// staging for the SIMT kernels (plain and dequantizing) and the attention
-// mask of the JAX package (_mask_for_block and _seg_mask in
+// decode.cu): conversions to and from float, bf16/fp16 packing, exp2, the
+// staging of segment ids for the SIMT family (flash_d256.cuh) and the
+// attention mask of the JAX package (_mask_for_block and _seg_mask in
 // flash_attention_tpu/kernels/flash_attention.py).
 #pragma once
 
@@ -63,72 +63,6 @@ template <> struct Pack<__half> {
     return *reinterpret_cast<uint32_t*>(&h);
   }
 };
-
-// Copy a [ROWS, D] tile (rows from `row0`, `nrows` of them valid) from global
-// memory with row stride `ld` into shared memory with row stride LDS.  Rows
-// past the end are zero-filled.  16-byte vector loads: the wrapper
-// guarantees 16-byte alignment of the base and of every row.
-template <typename T, int ROWS, int D, int LDS, int NTHREADS>
-__device__ __forceinline__ void load_tile(T* __restrict__ s, const T* __restrict__ g,
-                                          long long ld, int row0, int nrows) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunksPerRow = D / kVec;
-  for (int c = threadIdx.x; c < ROWS * kChunksPerRow; c += NTHREADS) {
-    int r = c / kChunksPerRow;
-    int col = (c % kChunksPerRow) * kVec;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < nrows) {
-      val = *reinterpret_cast<const uint4*>(g + (long long)(row0 + r) * ld + col);
-    }
-    *reinterpret_cast<uint4*>(s + r * LDS + col) = val;
-  }
-}
-
-// fp32 tile staging, one element at a time, into a row stride LDS that may
-// be odd (bank-conflict-free row-per-thread reads); rows past the end are 0.
-template <int ROWS, int D, int LDS, int NTHREADS>
-__device__ __forceinline__ void load_tile_f32(float* __restrict__ s, const float* __restrict__ g,
-                                              long long ld, int row0, int nrows, float scale) {
-  for (int i = threadIdx.x; i < ROWS * D; i += NTHREADS) {
-    int r = i / D, c = i % D;
-    s[r * LDS + c] = row0 + r < nrows ? g[(long long)(row0 + r) * ld + c] * scale : 0.f;
-  }
-}
-
-// A [ROWS, D] K or V tile into shared memory as T, rows past the end zero.
-// KV == T copies (load_tile).  A 1-byte payload is dequantized as the TPU
-// kernel does it (flash_attention_tpu/quant/kv.py:149-151, :175-177):
-// payload.to(T) * scale.to(T), the product rounded to T; `scales` holds one
-// fp32 scale per row of `g`.
-template <typename T, typename KV, int ROWS, int D, int LDS, int NTHREADS>
-__device__ __forceinline__ void load_kv_tile(T* __restrict__ s, const KV* __restrict__ g, long long ld,
-                                             const float* __restrict__ scales, int row0, int nrows) {
-  if constexpr (std::is_same<T, KV>::value) {
-    load_tile<T, ROWS, D, LDS, NTHREADS>(s, g, ld, row0, nrows);
-  } else {
-    static_assert(sizeof(KV) == 1, "quantized payloads are 1 byte");
-    constexpr int kVec = 16;
-    constexpr int kChunksPerRow = D / kVec;
-    for (int c = threadIdx.x; c < ROWS * kChunksPerRow; c += NTHREADS) {
-      const int r = c / kChunksPerRow;
-      const int col = (c % kChunksPerRow) * kVec;
-      alignas(16) T y[kVec];
-      if (row0 + r < nrows) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(g + (long long)(row0 + r) * ld + col);
-        const KV* x = reinterpret_cast<const KV*>(&raw);
-        const float sc = round_to<T>(scales[row0 + r]);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) y[e] = from_float<T>(to_float(x[e]) * sc);
-      } else {
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) y[e] = from_float<T>(0.f);
-      }
-#pragma unroll
-      for (int i = 0; i < kVec * (int)sizeof(T) / 16; ++i)
-        reinterpret_cast<uint4*>(s + r * LDS + col)[i] = reinterpret_cast<const uint4*>(y)[i];
-    }
-  }
-}
 
 // Up to ROWS int32 values from `g` (null: nothing to stage) starting at
 // row0; entries past `n` get `fill`, which matches nothing.

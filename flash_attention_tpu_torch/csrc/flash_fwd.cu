@@ -1,19 +1,21 @@
-// K1: the flash-attention forward (fa_flash_fwd).  The kernels and their
-// design notes are in flash_fwd.cuh, which K4 (flash_fwd_kv_quant.cu)
-// shares.
+// K1: the flash-attention forward (fa_flash_fwd).  The bf16 / fp16 kernels
+// and their design notes are in flash_fwd.cuh, which K4
+// (flash_fwd_kv_quant.cu) shares; fp32 at head dims 64 and 128 is the
+// 3xTF32 tensor-core kernel of flash_fwd_fp32.cu (its own notes).
 
 #include "flash_fwd.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim: 64 or 128, and
-// 256, 512 and 1024 for bfloat16 / float16 (the SIMT family's
-// fa_flash_fwd_simt, flash_simt_fwd.cu, takes fp32 at 256, 512 and 1024).
-// Strides are in elements; the last dim is contiguous.  lse may be null;
-// q_ids / kv_ids are both null or both contiguous int32 [batch, lq] and
-// [batch, lk].  window <= 0 means no window (it applies only when causal).
-// block_q: the tile's query rows for bf16 / fp16, one of
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim: 64 or 128 for
+// every dtype, and 256, 512 and 1024 for bfloat16 / float16 (the SIMT
+// family's fa_flash_fwd_simt, flash_simt_fwd.cu, takes fp32 at 256, 512 and
+// 1024).  Strides are in elements; the last dim is contiguous.  lse may be
+// null; q_ids / kv_ids are both null or both contiguous int32 [batch, lq]
+// and [batch, lk].  window <= 0 means no window (it applies only when
+// causal).  block_q: the tile's query rows for bf16 / fp16, one of
 // kernels/block_sizes.py::K1_TILES at the head dim (192, 128 or 64 at 64;
 // 128 or 64 at 128; 64 at 256), or 0 for the default (the first of them);
-// fp32 and head dims 512 and 1024 have one tile and take 0.  Returns a cudaError_t (0 on success), or
+// fp32 (128 query rows a block) and head dims 512 and 1024 have one tile
+// and take 0.  Returns a cudaError_t (0 on success), or
 // cudaErrorInvalidValue for a dtype, head dim or block_q this kernel does
 // not instantiate.
 extern "C" int fa_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,

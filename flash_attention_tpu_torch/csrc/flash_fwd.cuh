@@ -24,8 +24,9 @@
 // kernel of flash_fwd_wide.cuh: two consumer warpgroups share a 64-row
 // query tile, each reduces S over half the head dim and accumulates 256 of
 // a block's 512 output columns; flash_fwd_wide.cu and
-// flash_fwd_wide_d1024.cu); fp32 above 128 takes the SIMT family of
-// flash_d256.cuh.
+// flash_fwd_wide_d1024.cu).  fp32 at 64 and 128 is the 3xTF32
+// tensor-core kernel of flash_fwd_fp32.cu (its own design notes); fp32
+// above 128 takes the SIMT family of flash_d256.cuh.
 //
 // What bounds it on this card: at the GPT-2 shapes (h12, L1024, D64, causal)
 // the two products need 12.9 GFLOP at b8 (13.0 us at 989 TFLOP/s) and q, k, v
@@ -86,8 +87,9 @@
 //     registers), S is issued in four commit groups of four k16 steps, and
 //     each k16 step of PV is two N = 128 products into the accumulator's
 //     halves.
-// fp32 inputs take a SIMT path (one thread per query row, fp32 FMA), since
-// the tensor cores' TF32 would miss the fp32 tolerance of 1e-5.
+// fp32 inputs at 64 and 128 run flash_fwd_fp32.cu's kernel: one TF32 pass
+// would miss the fp32 tolerance of 1e-5, so it splits every operand and
+// product in three (3xTF32 on mma.sync; tf32x3.cuh).
 // ptxas -v (sm_90a, CUDA 12.8) reports the registers at launch, 65,536 /
 // threads: 128 at D = 64 (512 threads; setmaxnreg: producer 32, K4's 40,
 // consumers 160, K4's 152) and 168 at D = 128 (384 threads; producer 32,
@@ -99,8 +101,6 @@
 // and K4), 162 and no spills at D = 1024; with a one-warp producer (288
 // threads) ptxas still gave 168 and K1 spilled 136 bytes at D = 512.  No
 // wgmma is serialised (C7518).
-// The SIMT path uses 202 registers at D = 64 and 255 at D = 128 (88 bytes
-// spilled), K4's 192 and 255.
 //
 // The kernels allocate nothing and launch on the caller's stream; the C
 // entry points return cudaGetLastError() so that the wrapper can raise (and
@@ -653,107 +653,6 @@ flash_fwd_ws_kernel(const __grid_constant__ FwdParams p, const __grid_constant__
   }
 }
 
-// ---------------------------------------------------------------------------
-// fp32 path: SIMT, one thread per query row
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct SimtCfg {
-  static constexpr int kBr = 64;
-  static constexpr int kBc = 32;
-  static constexpr int kThreads = kBr;
-  static constexpr int kLdq = D + 1;  // odd stride: row-per-thread reads hit distinct banks
-  static constexpr int kSmemBytes = (kBr * kLdq + 2 * kBc * D) * sizeof(float);
-};
-
-template <typename KV, int D>
-__global__ void __launch_bounds__(64)
-flash_fwd_simt_kernel(const FwdParams p) {
-  using C = SimtCfg<D>;
-  constexpr int kBr = C::kBr, kBc = C::kBc, kLdq = C::kLdq;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);
-  float* sK = sQ + kBr * kLdq;
-  float* sV = sK + kBc * D;
-  __shared__ int sKvIds[kBc];
-
-  const Mask mk = p.mask;
-  const int tile = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / p.hq;
-  const int h = bh % p.hq;
-  const int hk = h / p.group;
-  const int r0 = tile * kBr;
-  const int r1 = min(r0 + kBr, mk.lq);
-
-  const float* gq = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const KvRows<KV> kv(p, b, hk);
-  float* go = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const int* kv_ids = p.kv_ids ? p.kv_ids + (long long)b * mk.lk : nullptr;
-
-  load_tile_f32<kBr, D, kLdq, C::kThreads>(sQ, gq, p.q_sl, r0, mk.lq, p.scale_log2);
-
-  const int row = r0 + threadIdx.x;
-  const int q_id = p.q_ids != nullptr && row < mk.lq ? p.q_ids[(long long)b * mk.lq + row] : 0;
-  const int kv_end = mk.kv_end(r1);
-  const int j0 = mk.kv_first(r0) / kBc;
-  const int n_tiles = kv_end > 0 ? (kv_end + kBc - 1) / kBc : 0;
-  const float* q = sQ + threadIdx.x * kLdq;
-
-  float acc[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) acc[c] = 0.f;
-  float m = -CUDART_INF_F, l = 0.f;
-
-  for (int jt = j0; jt < n_tiles; ++jt) {
-    const int c0 = jt * kBc;
-    __syncthreads();
-    load_kv_tile<float, KV, kBc, D, D, C::kThreads>(sK, kv.k, p.k_sl, kv.ks, c0, mk.lk);
-    load_kv_tile<float, KV, kBc, D, D, C::kThreads>(sV, kv.v, p.v_sl, kv.vs, c0, mk.lk);
-    load_ids<kBc, C::kThreads>(sKvIds, kv_ids, c0, mk.lk, 0);
-    __syncthreads();
-
-    float s[kBc];
-    float mx = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < kBc; ++j) {
-      const bool ok = mk.visible(row, c0 + j) && (kv_ids == nullptr || q_id == sKvIds[j]);
-      float dot = 0.f;
-      if (ok) {
-        const float* kr = sK + j * D;
-#pragma unroll 16
-        for (int c = 0; c < D; ++c) dot = fmaf(q[c], kr[c], dot);
-      }
-      s[j] = ok ? dot : -CUDART_INF_F;
-      mx = fmaxf(mx, s[j]);
-    }
-    const float m_new = fmaxf(m, mx);
-    const float base = m_new == -CUDART_INF_F ? 0.f : m_new;
-    const float alpha = exp2f(m - base);
-    m = m_new;
-    l *= alpha;
-#pragma unroll
-    for (int c = 0; c < D; ++c) acc[c] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kBc; ++j) {
-      const float pj = exp2f(s[j] - base);
-      l += pj;
-      const float* vr = sV + j * D;
-#pragma unroll
-      for (int c = 0; c < D; ++c) acc[c] = fmaf(pj, vr[c], acc[c]);
-    }
-  }
-
-  if (row < mk.lq) {
-    const float l_safe = l == 0.f ? 1.f : l;
-    float* orow = go + (long long)row * p.o_sl;
-#pragma unroll
-    for (int c = 0; c < D; ++c) orow[c] = acc[c] / l_safe;
-    if (p.lse != nullptr) p.lse[(long long)bh * mk.lq + row] = (m + log2f(l_safe)) * kLn2;
-  }
-}
-
 template <typename T, typename KV, int D, int NC = default_consumers<T, KV, D>()>
 cudaError_t launch_ws(const FwdParams& p, cudaStream_t stream) {
   using C = WsCfg<T, KV, D, NC>;
@@ -785,17 +684,6 @@ cudaError_t launch_ws(const FwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename KV, int D>
-cudaError_t launch_simt(const FwdParams& p, cudaStream_t stream) {
-  using C = SimtCfg<D>;
-  auto kernel = flash_fwd_simt_kernel<KV, D>;
-  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.mask.lq + C::kBr - 1) / C::kBr, p.batch * p.hq);
-  kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(p);
-  return cudaGetLastError();
-}
-
 // K1 and K4 at D = 256 for bf16 (dtype 1) and fp16 (2), over K/V of q's
 // dtype (kv_dtype 0), int8 (1) or fp8 e4m3 (2): flash_fwd_d256.cu.
 cudaError_t launch_ws_d256(int dtype, int kv_dtype, const FwdParams& p, cudaStream_t s);
@@ -806,6 +694,11 @@ cudaError_t launch_ws_d256(int dtype, int kv_dtype, const FwdParams& p, cudaStre
 cudaError_t launch_fwd_wide_d512(int dtype, int kv_dtype, const FwdParams& p, cudaStream_t s);
 cudaError_t launch_fwd_wide_d1024(int dtype, int kv_dtype, const FwdParams& p, cudaStream_t s);
 
+// K1 and K4 for fp32 q (dtype 0) at D = 64 and 128, over fp32 K/V (kv_dtype
+// 0), int8 (1) or fp8 e4m3 (2): the 3xTF32 tensor-core kernel of
+// flash_fwd_fp32.cu.
+cudaError_t launch_fwd_fp32(int kv_dtype, int head_dim, const FwdParams& p, cudaStream_t s);
+
 // K1's tiles other than the default, bf16 (dtype 1) and fp16 (2), each
 // head dim's in a source of its own so that they compile beside the rest:
 // block_q 128 and 64 at D = 64 (flash_fwd_tiles_d64.cu), 64 at D = 128
@@ -814,16 +707,16 @@ cudaError_t launch_k1_tile_d64(int dtype, int block_q, const FwdParams& p, cudaS
 cudaError_t launch_k1_tile_d128(int dtype, int block_q, const FwdParams& p, cudaStream_t s);
 
 // The kernel for q's dtype (0 = float32, 1 = bfloat16, 2 = float16), K/V
-// element type KV (KV = void: q's own type) and head dim: 64 or 128, and
-// 256, 512 and 1024 for bf16 / fp16 (fp32 above 128 takes the SIMT family's
-// entry points, flash_simt_fwd*.cu); cudaErrorInvalidValue for a
-// combination that is not instantiated.  block_q picks K1's tile height
+// element type KV (KV = void: q's own type) and head dim: 64 or 128 (fp32:
+// flash_fwd_fp32.cu), and 256, 512 and 1024 for bf16 / fp16 (fp32 above
+// 128 takes the SIMT family's entry points, flash_simt_fwd*.cu);
+// cudaErrorInvalidValue for a combination that is not instantiated.
+// block_q picks K1's tile height
 // (bf16 / fp16): 0 or the default's (192 at D = 64, 128 at D = 128, 64 at
 // D = 256) for the default, or another of K1_TILES; fp32, K4 and the wide
 // kernels (D = 512, 1024) have one tile and take 0 only.
 template <typename KV>
 cudaError_t launch_fwd_for(int dtype, int head_dim, const FwdParams& p, cudaStream_t s, int block_q = 0) {
-  using F32 = typename std::conditional<std::is_void<KV>::value, float, KV>::type;
   using BF16 = typename std::conditional<std::is_void<KV>::value, __nv_bfloat16, KV>::type;
   using F16 = typename std::conditional<std::is_void<KV>::value, __half, KV>::type;
   constexpr int kKv = std::is_void<KV>::value ? 0 : std::is_same<KV, int8_t>::value ? 1 : 2;
@@ -837,8 +730,7 @@ cudaError_t launch_fwd_for(int dtype, int head_dim, const FwdParams& p, cudaStre
       return cudaErrorInvalidValue;
     }
   }
-  if (dtype == 0 && head_dim == 64) return launch_simt<F32, 64>(p, s);
-  if (dtype == 0 && head_dim == 128) return launch_simt<F32, 128>(p, s);
+  if (dtype == 0 && (head_dim == 64 || head_dim == 128)) return launch_fwd_fp32(kKv, head_dim, p, s);
   if (dtype == 1 && head_dim == 64) return launch_ws<__nv_bfloat16, BF16, 64>(p, s);
   if (dtype == 1 && head_dim == 128) return launch_ws<__nv_bfloat16, BF16, 128>(p, s);
   if (dtype == 2 && head_dim == 64) return launch_ws<__half, F16, 64>(p, s);

@@ -1,10 +1,11 @@
 // K4: flash attention over a quantized KV cache (fa_flash_fwd_kv_quant).
 // Replaces flash_attention_tpu/quant/kv.py::_fwd_quant_kernel.  It is K1's
-// kernel (flash_fwd.cuh, where the design notes are) instantiated with a
-// 1-byte K/V payload, int8 or fp8 e4m3, and one fp32 scale per token: each
-// K/V tile is dequantized into shared memory in q's dtype, then the forward
-// runs as K1's does, without lse.  Bound: at D = 64 the payload halves K1's
-// K/V bytes, so K4 is as compute-bound as K1.
+// kernel instantiated with a 1-byte K/V payload, int8 or fp8 e4m3, and one
+// fp32 scale per token: each K/V tile is dequantized into shared memory in
+// q's dtype, then the forward runs as K1's does, without lse.  bf16 / fp16
+// q: flash_fwd.cuh (where the design notes are); fp32 q at 64 and 128:
+// flash_fwd_fp32.cu's 3xTF32 kernel.  Bound: at D = 64 the payload halves
+// K1's K/V bytes, so K4 is as compute-bound as K1.
 
 #include "flash_fwd.cuh"
 

@@ -307,10 +307,10 @@ def default_blocks(
     `KERNEL_WIDE_DKV` / `KERNEL_WIDE_DQ` rows against 64-row tiles (dK/dV
     64 query rows against 32 / 16 KV rows, dQ 32 query rows against 64 KV
     rows).  `dtype` is the inputs' (None: a 16-bit type; float32 changes the
-    tile only from 256 up, since at 64 and 128 its K1 and its 3xTF32 K2 /
-    K3 differ from the 16-bit kernels' tiles in the order of summation
-    alone).  q_len, kv_len and group are taken for signature parity with
-    the JAX package."""
+    tile only from 256 up, since at 64 and 128 its 3xTF32 K1, K4, K2 and
+    K3, 128 pinned rows against 32-row tiles, differ from the 16-bit
+    kernels' tiles in the order of summation alone).  q_len, kv_len and
+    group are taken for signature parity with the JAX package."""
     del q_len, kv_len, group
     d = _padded(head_dim)
     if d > 256 and dtype != torch.float32:

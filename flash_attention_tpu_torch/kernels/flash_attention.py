@@ -18,11 +18,11 @@ and `flash_attention_with_lse` look at the device of their inputs
   output columns a block).  The bf16/fp16 backward (K2, K3) is wgmma at
   every head dim too: `csrc/flash_bwd.cuh` up to 256,
   `csrc/flash_bwd_wide.cuh` at 512 and 1024 (transposed accumulators, so
-  that the head dim is wgmma's M).  fp32 K2 and K3 at 64 and 128 are
-  3xTF32 tensor-core kernels (`csrc/flash_bwd_fp32.cuh`) and its K1 and
-  K4 there a SIMT kernel, inside the same entry points; fp32 above 128
-  takes the SIMT family of `csrc/flash_d256.cuh` through entry points of
-  its own (`_route`).
+  that the head dim is wgmma's M).  fp32 K1, K4, K2 and K3 at 64 and 128
+  are 3xTF32 tensor-core kernels (`csrc/flash_fwd_fp32.cu`,
+  `csrc/flash_bwd_fp32.cuh`), inside the same entry points; fp32 above
+  128 takes the SIMT family of `csrc/flash_d256.cuh` through entry points
+  of its own (`_route`).
   Nothing falls back: what the kernels do not take raises, a head dim above
   1024 among it.
 * CPU tensors go to the plain versions: `flash_attention_reference` (a tile
@@ -100,10 +100,11 @@ def _pad_head_dim(x: torch.Tensor, dp: int) -> torch.Tensor:
 
 # Launches of each CUDA kernel of the port, counted by its wrapper where it
 # launches: K1-K3 and the backward's pre-pass here, K4 in quant/kv.py, K5
-# and K6 in inference/paged_attention.py.  fp32 K2 and K3 up to head dim
-# 128 are the 3xTF32 kernels (csrc/flash_bwd_fp32.cuh), counted under
-# "_fp32" (fp32 K1 and K4 there, a SIMT kernel in the same entry points,
-# under the plain keys).  Head dims 256, 512 and 1024 run other kernels,
+# and K6 in inference/paged_attention.py.  fp32 K1, K4, K2 and K3 up to
+# head dim 128 are the 3xTF32 kernels (csrc/flash_fwd_fp32.cu,
+# csrc/flash_bwd_fp32.cuh), counted under "_fp32" (the fp32 pre-pass is
+# the 16-bit one's kernel, under the plain key).  Head dims 256, 512 and
+# 1024 run other kernels,
 # counted under keys of their own (`_route`): "_d256" for what bf16/fp16
 # runs at 256 (the wgmma K1, K4, K2 and K3), "_d256_simt" for the SIMT K1,
 # K4, K2 and K3 that fp32 runs there; at 512 and 1024 "_wide" for the
@@ -117,6 +118,8 @@ KERNEL_LAUNCHES = {
     "flash_bwd_dq": 0,
     "flash_bwd_dkv_fp32": 0,
     "flash_bwd_dq_fp32": 0,
+    "flash_fwd_fp32": 0,
+    "flash_fwd_kv_quant_fp32": 0,
     "flash_fwd_kv_quant": 0,
     "paged_decode": 0,
     "fused_decode": 0,
@@ -147,15 +150,15 @@ def _route(name: str, head_dim: int, dtype: torch.dtype) -> tuple[str, str]:
     "flash_bwd_dq") at padded head dim `head_dim` for q's `dtype`.  The
     SIMT family (csrc/flash_d256.cuh) has entry points of their own, named
     with "_simt", which fp32 runs above 128.  Keys: the name up to 128,
-    with "_fp32" for the fp32 K2 and K3 there (the 3xTF32 kernels, reached
-    through the same entry points as the 16-bit ones); "_d256" /
+    with "_fp32" for fp32 K1, K4, K2 and K3 there (the 3xTF32 kernels,
+    reached through the same entry points as the 16-bit ones); "_d256" /
     "_d256_simt" at 256; at 512 and 1024 "_wide" (bf16/fp16 K1, K4, K2 and
     K3 on the wgmma kernels of csrc/flash_fwd_wide.cuh and
     csrc/flash_bwd_wide.cuh, and the pre-pass) and "_wide_simt" (fp32 K1,
     K4, K2 and K3)."""
     fp32 = dtype == torch.float32
     if head_dim <= 128:
-        if fp32 and name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        if fp32 and name != "flash_bwd_prep":
             return f"{name}_fp32", f"fa_{name}"
         return name, f"fa_{name}"
     if name == "flash_bwd_prep":

@@ -382,12 +382,12 @@ _QS_ARG = {"fa_flash_bwd_prep": 4, "fa_flash_bwd_dkv": 6, "fa_flash_bwd_dkv_simt
            ("flash_bwd_dkv_wide_simt", "fa_flash_bwd_dkv_simt"), ("flash_bwd_dq_wide_simt", "fa_flash_bwd_dq_simt"),
            ("flash_fwd_kv_quant_wide_simt", "fa_flash_fwd_kv_quant_simt"))
           for d in (512, 1024)),
-        # fp32 up to 128: K1, the pre-pass and K4 under the plain keys, K2
-        # and K3 (the 3xTF32 kernels) under "_fp32", all through the plain
+        # fp32 up to 128: K1, K4, K2 and K3 (the 3xTF32 kernels) under
+        # "_fp32", the pre-pass under its plain key, all through the plain
         # entry points
-        *((d, torch.float32, ("flash_fwd", "fa_flash_fwd"), ("flash_bwd_prep", "fa_flash_bwd_prep"),
+        *((d, torch.float32, ("flash_fwd_fp32", "fa_flash_fwd"), ("flash_bwd_prep", "fa_flash_bwd_prep"),
            ("flash_bwd_dkv_fp32", "fa_flash_bwd_dkv"), ("flash_bwd_dq_fp32", "fa_flash_bwd_dq"),
-           ("flash_fwd_kv_quant", "fa_flash_fwd_kv_quant"))
+           ("flash_fwd_kv_quant_fp32", "fa_flash_fwd_kv_quant"))
           for d in (64, 96)),
     ],
     ids=["bf16-256", "fp16-160", "fp32-256", "bf16-288", "fp16-520", "bf16-1024", "fp32-512", "fp32-1024", "fp32-64",
@@ -430,6 +430,46 @@ def test_cuda_route_reaches_each_kernel(d, dtype, fwd, prep, dkv, dq, k4, monkey
     assert qs_args == [0 if has_qs else None] * 3
     counts = {key: tfa.KERNEL_LAUNCHES[key] - before[key] for key in tfa.KERNEL_LAUNCHES}
     assert counts == {key: sum(key == w for w, _ in want) for key in tfa.KERNEL_LAUNCHES}
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k1_lse", "k4_int8", "k4_fp8"])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=["fp32", "bf16", "fp16"])
+def test_fp32_forward_counts_under_its_own_keys(kernel, d, dtype, monkeypatch):
+    """K1 (with and without lse) and K4 (int8 and fp8 K/V) on the CUDA
+    route, the C entry points stood in for by a recorder: fp32 at padded
+    head dims 64 and 128 counts one launch under "flash_fwd_fp32" or
+    "flash_fwd_kv_quant_fp32" and nothing under the plain keys, and
+    bf16 / fp16 never count under the "_fp32" keys; every launch goes
+    through the plain entry point with the padded head dim and the dtype's
+    code."""
+    calls = []
+    dtype_arg = {"fa_flash_fwd": 7, "fa_flash_fwd_kv_quant": 8}
+
+    def record(entry, device, *args):
+        calls.append((entry, args[_HEAD_DIM_ARG[entry]], args[dtype_arg[entry]]))
+
+    monkeypatch.setattr(tfa, "kernel_route", lambda *ts: "cuda")
+    monkeypatch.setattr(tkv, "kernel_route", lambda *ts: "cuda")
+    monkeypatch.setattr(tfa, "_call", record)
+    monkeypatch.setattr(tkv, "_call", record)
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: 0)
+    q = torch.zeros(1, 4, 130, d, dtype=dtype)
+    k, v = (torch.zeros(1, 2, 130, d, dtype=dtype) for _ in range(2))
+    before = dict(tfa.KERNEL_LAUNCHES)
+    if kernel == "k1":
+        tfa.flash_attention(q, k, v)
+    elif kernel == "k1_lse":
+        tfa.flash_attention_with_lse(q, k, v)
+    else:
+        qdt = torch.int8 if kernel == "k4_int8" else torch.float8_e4m3fn
+        tkv.flash_attention_kv_quant(q, tkv.quantize_kv(k.float(), v.float(), dtype=qdt))
+    name = "flash_fwd_kv_quant" if kernel.startswith("k4") else "flash_fwd"
+    key = f"{name}_fp32" if dtype == torch.float32 else name
+    counts = {k_: n - before[k_] for k_, n in tfa.KERNEL_LAUNCHES.items() if n != before[k_]}
+    assert counts == {key: 1}
+    entry = "fa_flash_fwd_kv_quant" if name == "flash_fwd_kv_quant" else "fa_flash_fwd"
+    assert calls == [(entry, tfa.padded_head_dim(d), tfa._DTYPE_CODES[dtype])]
 
 
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_fwd_kv_quant", "flash_bwd_dkv", "flash_bwd_dq"])

@@ -1,7 +1,8 @@
-"""Time the flash-attention backward and a traced GPT-2 training step of one
-checkout of the PyTorch port on the card, for an A/B between checkouts.
+"""Time the flash-attention backward, the fp32 forward and a traced GPT-2
+training step of one checkout of the PyTorch port on the card, for an A/B
+between checkouts.
 
-    python3 tools/bwd_ab.py <checkout dir> <label> [--backward-only]
+    python3 tools/bwd_ab.py <checkout dir> <label> [--backward-only | --fp32-only]
 
 Imports `flash_attention_tpu_torch` from <checkout dir>, builds its kernels
 there (its own build/torch_kernels/), and prints lines of results, the last
@@ -12,8 +13,12 @@ there (its own build/torch_kernels/), and prints lines of results, the last
   time (a CUDA graph of 20 calls between CUDA events): di (the pre-pass
   kernel where the checkout has one, else the eager reduction `_bwd_args`
   ran before it), K2, K3, the whole backward as the autograd Function runs
-  it (`_launch_bwd`), and torch SDPA's backward in the same dtype;
-* unless --backward-only: GPT-2 124M training at b8 x T1024 (bf16
+  it (`_launch_bwd`), and torch SDPA's backward in the same dtype; the
+  fp32 rows also time the forward: K1 without and with lse (`_launch`),
+  K4 on int8 and fp8 K/V (`quant.kv._launch`), and torch SDPA's fp32
+  forward;
+* with --fp32-only, the fp32 rows alone;
+* unless --backward-only or --fp32-only: GPT-2 124M training at b8 x T1024 (bf16
   compute, fp32 master weights): 5 warm-up steps, the median wall time of
   15 more, then torch.profiler over 3 more: device-busy ms a step and
   kernel ms a step by kind.
@@ -39,7 +44,8 @@ import sys
 import time
 
 tree, label = sys.argv[1], sys.argv[2]
-backward_only = "--backward-only" in sys.argv[3:]
+fp32_only = "--fp32-only" in sys.argv[3:]
+backward_only = "--backward-only" in sys.argv[3:] or fp32_only
 sys.path.insert(0, os.path.abspath(tree))
 
 import numpy as np  # noqa: E402
@@ -47,6 +53,7 @@ import torch  # noqa: E402
 
 # the checkout under test first: chip_smoke.py's own imports then resolve to it
 FA = importlib.import_module("flash_attention_tpu_torch.kernels.flash_attention")
+QK = importlib.import_module("flash_attention_tpu_torch.quant.kv")
 if not FA.__file__.startswith(os.path.abspath(tree)):
     raise RuntimeError(f"imported {FA.__file__}, not the checkout in {tree}")
 _spec = importlib.util.spec_from_file_location(
@@ -64,8 +71,9 @@ from flash_attention_tpu_torch.utils.measure import graph_ms  # noqa: E402
 def backward_times(gen) -> dict:
     sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, is_causal=True)
     out = {}
-    for b, d, dtype in ((1, 64, torch.bfloat16), (8, 64, torch.bfloat16), (8, 128, torch.bfloat16),
-                        (8, 64, torch.float32), (8, 128, torch.float32)):
+    shapes = ((1, 64, torch.bfloat16), (8, 64, torch.bfloat16), (8, 128, torch.bfloat16),
+              (8, 64, torch.float32), (8, 128, torch.float32))
+    for b, d, dtype in shapes[3:] if fp32_only else shapes:
         q, k, v, do = (torch.randn((b, 12, 1024, d), generator=gen).to("cuda", dtype) for _ in range(4))
         with torch.no_grad():
             o, lse = FA.flash_attention_with_lse(q, k, v)
@@ -82,6 +90,14 @@ def backward_times(gen) -> dict:
         row["k3"] = graph_ms(lambda: FA._launch_bwd_dq(args))
         row["backward"] = graph_ms(lambda: FA._launch_bwd(q, k, v, o, lse, do, None, spec, None))
         row["sdpa_backward"] = graph_ms(smoke._grad_fn(sdpa, q, k, v, do))
+        if dtype == torch.float32:
+            with torch.no_grad():
+                row["k1"] = graph_ms(lambda: FA._launch(q, k, v, spec, None, False), calls=5, runs=5)
+                row["k1_lse"] = graph_ms(lambda: FA._launch(q, k, v, spec, None, True), calls=5, runs=5)
+                for name, qdt in (("k4_int8", torch.int8), ("k4_fp8", torch.float8_e4m3fn)):
+                    kv = QK.quantize_kv(k, v, dtype=qdt)
+                    row[name] = graph_ms(lambda: QK._launch(q, kv, True, d ** -0.5, None, None), calls=5, runs=5)
+                row["sdpa_forward"] = graph_ms(lambda: sdpa(q, k, v), calls=5, runs=5)
         tag = f"b{b}_d{d}" + ("_fp32" if dtype == torch.float32 else "")
         out[tag] = row
         print(label, f"{tag} device ms", {key: round(x, 4) for key, x in row.items()}, flush=True)
