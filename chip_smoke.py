@@ -45,11 +45,12 @@ are 7-9):
               chunk, chunk + 1, capacity - 1), K5 with a permuted page
               table and NaN past the lengths, GQA 32/8 at D128.
 7. d256     - head dims 160 and 256 (run at 256: the wgmma K1, K4, K2 and
-              K3 for bf16/fp16, the SIMT family of csrc/flash_d256.cuh for
-              fp32), 288 and 520 (padded to 512 and 1024: bf16/fp16 K1 and
-              K4 on the wide wgmma forward of csrc/flash_fwd_wide.cuh, K2
-              and K3 on the wide wgmma backward of
-              csrc/flash_bwd_wide.cuh, fp32 on the SIMT family): K1, its
+              K3 for bf16/fp16; for fp32 the 3xTF32 K1 and K4 of
+              csrc/flash_fwd_fp32_wide.cuh and the SIMT K2 and K3 of
+              csrc/flash_d256.cuh), 288 and 520 (padded to 512 and 1024:
+              bf16/fp16 K1 and K4 on the wide wgmma forward of
+              csrc/flash_fwd_wide.cuh, K2 and K3 on the wide wgmma
+              backward of csrc/flash_bwd_wide.cuh; fp32 as at 256): K1, its
               lse (fp32 against vanilla at 1e-5; the wide kernel's against
               its plain version at 1e-3 and vanilla at 2e-2), the
               pre-pass, K2/K3 and K4 (int8, fp8) against their plain
@@ -60,7 +61,15 @@ are 7-9):
               bf16 and fp16 at each of these), and K1 and the grads at the
               d256-path's shape (b4 h3 L1024, causal only, so most tiles
               take the unmasked branch) and at b2 h4 L1024 for D288 /
-              D520.
+              D520.  Then the 3xTF32 K1 at D256, D288, D520 and D1024
+              through the entry points, output and lse at 1e-5 against
+              plain and vanilla (check_k1_fp32: L1024 GQA 8/2, q129 x kv257
+              with window 100, GQA and segments, 3 segments at q1014 x
+              kv1024, rows that see no key exactly 0 / -inf, non-causal,
+              lq < lk), and the 3xTF32 K4 over int8 and fp8 at 5e-5 at
+              each padded head dim (GQA L1024, 3 segments at q1014 x
+              kv1024), each launching its "_d256_fp32" / "_wide_fp32" key
+              once a call.
 8. d256-path - the D256 route through the entry points: a 2-layer GPT at
               GPT-2's width with 3 heads of 256, 6 Trainer steps at b4 x
               T1024 in bf16 (the "_d256" keys, the wgmma K1, K2 and K3 and
@@ -70,10 +79,11 @@ are 7-9):
    simt-path - head dims above 256 and fp32 at 256 through the entry
               points: forward and backward of flash_attention and K4 (int8)
               at b2 h4 L1024 for D288 and D520 bf16 (the wide wgmma K1, K4,
-              K2 and K3) and D256 and D520 fp32 (the SIMT family); the
-              "_wide", "_wide_simt" and "_d256_simt" keys
-              launched as SIMT_PATH_LAUNCHES says; every output and grad
-              against its plain version and fp32 vanilla.
+              K2 and K3) and D256 and D520 fp32 (the 3xTF32 K1 and K4, the
+              SIMT K2 and K3, which read the new forward's lse); the
+              "_wide", "_wide_fp32", "_wide_simt", "_d256_fp32" and
+              "_d256_simt" keys launched as SIMT_PATH_LAUNCHES says; every
+              output and grad against its plain version and fp32 vanilla.
 9. llama    - the slice: Llama-3 8B at full width and depth (32 layers,
               4096 wide, GQA 32/8 D128, vocab 128256), bf16, random weights
               drawn on the card from the seed, behind the engine with
@@ -173,12 +183,17 @@ are 7-9):
               enqueue.  Each kernel beside its bound: the larger of its bytes
               at 3.35 TB/s and its FLOPs at 989 TFLOP/s (fp32: 165, TF32's
               495 over the three passes of 3xTF32).  Last,
-              at b8 h12 L1024: fp32 D256 (SIMT); bf16 D512 and D1024 (no
-              plain versions at D1024): the wide wgmma K1 and K4 beside the
-              SIMT times they replaced and SDPA's forward, the pre-pass and
-              the wide wgmma K2/K3 beside their bounds, the SIMT times they
-              replaced and SDPA's whole backward (pre-pass + K2 + K3
-              against it); fp32 D512 and D1024 (SIMT K1-K4); fp32 D64 and
+              at b8 h12 L1024: fp32 D256 (the 3xTF32 K1 and K4, the SIMT
+              K2 and K3); bf16 D512 and D1024 (no plain versions at
+              D1024): the wide wgmma K1 and K4 beside the SIMT times they
+              replaced and SDPA's forward, the pre-pass and the wide wgmma
+              K2/K3 beside their bounds, the SIMT times they replaced and
+              SDPA's whole backward (pre-pass + K2 + K3 against it); fp32
+              D512 and D1024 (the 3xTF32 K1 and K4, the SIMT K2 and K3);
+              the 3xTF32 K1 (with and without lse) and K4 (int8, fp8) at
+              D256, D512 and D1024 beside their bounds, SDPA's fp32
+              forward and the SIMT forward's times they replaced
+              (SIMT_FP32_WIDE_FWD_MS, an earlier reading); fp32 D64 and
               D128 (the 3xTF32 K1, K4, K2 and K3 and the pre-pass, beside
               the SIMT times they replaced and SDPA fp32).
 20. measure - utils.measure on K1 at b8 h12 L1024 D64 bf16: chain_timer
@@ -240,21 +255,22 @@ are 7-9):
               decode_loop's, the cache a DTensor.
 
 The line before the last is a JSON summary of the kernels, the "_fp32",
-the D256, the "_d256_simt", the "_wide" and the "_wide_simt" ones as rows
-of their own (launches on their path, max error, device ms, plain ms,
-bound ms and what sets it, library ms or null; K1's row also carries its
-launches on the Llama path and in the chunked, speculative and pipelined
-GPT-2 bursts and its times at the Llama prefill shape, the wide rows
-D1024's times as d1024_*; the "_fp32" rows D128's as d128_*, the fp32
-K1's also its time with lse and its launches on the parity and
-llama-parity paths; the pre-pass's row its fp32 D64 / D128 rows as
-fp32_d64 / fp32_d128; K1's row its tile sweep, {shape: {block_q: device ms}}, as
-`tiles` with SDPA's ms as `tiles_library_ms`, its launches on the
-autotuned engine and trainer paths, and the measure phase's readings; K1,
-the pre-pass, K2 and K3 their ring call shapes as `ring_noncausal_shard`
-(K1 also `ring_causal_lq_lt_lk` and `ring_vs_one_call`) and their
-launches on the context-parallel run as `parallel_launches`); the last
-line is
+the D256, the "_d256_fp32", the "_d256_simt", the "_wide", the
+"_wide_fp32" and the "_wide_simt" ones as rows of their own (launches on
+their path, max error, device ms, plain ms, bound ms and what sets it,
+library ms or null; K1's row also carries its launches on the Llama path
+and in the chunked, speculative and pipelined GPT-2 bursts and its times
+at the Llama prefill shape, the wide rows D1024's times as d1024_* (the
+"_d256_fp32" / "_wide_fp32" rows also K1's time with lse and K4's over
+fp8); the "_fp32" rows D128's as d128_*, the fp32 K1's also its time
+with lse and its launches on the parity and llama-parity paths; the
+pre-pass's row its fp32 D64 / D128 rows as fp32_d64 / fp32_d128; K1's
+row its tile sweep, {shape: {block_q: device ms}}, as `tiles` with
+SDPA's ms as `tiles_library_ms`, its launches on the autotuned engine
+and trainer paths, and the measure phase's readings; K1, the pre-pass,
+K2 and K3 their ring call shapes as `ring_noncausal_shard` (K1 also
+`ring_causal_lq_lt_lk` and `ring_vs_one_call`) and their launches on the
+context-parallel run as `parallel_launches`); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -353,14 +369,16 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                           "flash_attention_tpu/kernels/flash_attention.py:765"),
     "flash_fwd_kv_quant_d256": ("flash_attention_tpu_torch/csrc/flash_fwd_d256.cu",
                                 "flash_attention_tpu/quant/kv.py:98"),
-    # fp32 at 256: the SIMT family of flash_d256.cuh
-    "flash_fwd_d256_simt": ("flash_attention_tpu_torch/csrc/flash_simt_fwd.cu",
+    # fp32 at 256: K1 and K4 on the 3xTF32 forward of
+    # flash_fwd_fp32_wide.cuh (flash_fwd_fp32_wide.cu), K2 and K3 on the SIMT
+    # backward of flash_d256.cuh
+    "flash_fwd_d256_fp32": ("flash_attention_tpu_torch/csrc/flash_fwd_fp32_wide.cu",
                             "flash_attention_tpu/kernels/flash_attention.py:269"),
     "flash_bwd_dkv_d256_simt": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
                                 "flash_attention_tpu/kernels/flash_attention.py:637"),
     "flash_bwd_dq_d256_simt": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
                                "flash_attention_tpu/kernels/flash_attention.py:765"),
-    "flash_fwd_kv_quant_d256_simt": ("flash_attention_tpu_torch/csrc/flash_simt_fwd_kv_quant.cu",
+    "flash_fwd_kv_quant_d256_fp32": ("flash_attention_tpu_torch/csrc/flash_fwd_fp32_wide.cu",
                                      "flash_attention_tpu/quant/kv.py:98"),
     # head dims 257-1024, padded to 512 or 1024, bf16/fp16: K1 and K4 on the
     # wide wgmma forward (flash_fwd_wide.cuh, D = 1024 in
@@ -376,14 +394,16 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                           "flash_attention_tpu/kernels/flash_attention.py:765"),
     "flash_fwd_kv_quant_wide": ("flash_attention_tpu_torch/csrc/flash_fwd_wide.cu",
                                 "flash_attention_tpu/quant/kv.py:98"),
-    # fp32 at 512 / 1024: the SIMT family's K1, K4, K2 and K3
-    "flash_fwd_wide_simt": ("flash_attention_tpu_torch/csrc/flash_simt_fwd.cu",
+    # fp32 at 512 / 1024: K1 and K4 on the 3xTF32 forward
+    # (flash_fwd_fp32_wide.cu; D = 1024 in flash_fwd_fp32_wide_d1024.cu), K2
+    # and K3 on the SIMT backward
+    "flash_fwd_wide_fp32": ("flash_attention_tpu_torch/csrc/flash_fwd_fp32_wide.cu",
                             "flash_attention_tpu/kernels/flash_attention.py:269"),
     "flash_bwd_dkv_wide_simt": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
                                 "flash_attention_tpu/kernels/flash_attention.py:637"),
     "flash_bwd_dq_wide_simt": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
                                "flash_attention_tpu/kernels/flash_attention.py:765"),
-    "flash_fwd_kv_quant_wide_simt": ("flash_attention_tpu_torch/csrc/flash_simt_fwd_kv_quant.cu",
+    "flash_fwd_kv_quant_wide_fp32": ("flash_attention_tpu_torch/csrc/flash_fwd_fp32_wide.cu",
                                      "flash_attention_tpu/quant/kv.py:98"),
 }
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd_prep", "flash_bwd_dkv", "flash_bwd_dq")
@@ -504,6 +524,16 @@ def phase_build() -> None:
     if len(wide_bwd) != 8 or serial_bwd:
         raise AssertionError(f"[build] expected 8 wide backward instantiations and no C7518 in them, found "
                              f"{len(wide_bwd)} and {serial_bwd}")
+    # the 3xTF32 forward above head dim 128 (fa::wide32::fwd_kernel: fp32,
+    # int8 and fp8 K/V at D256, D512 and D1024), printed with the rest above
+    fp32_wide = [n for n in _demangle([e[0] for e in entries])
+                 if "wide32::fwd_kernel" in n or "6wide3210fwd_kernel" in n]
+    say("[build] 3xTF32 forward above 128: nvcc "
+        + (", ".join(f"{k} {v:.1f} s" for k, v in per.items() if "fwd_fp32_wide" in k) or "not run (already built)")
+        + f"; {len(fp32_wide)} instantiations")
+    if len(fp32_wide) != 9:
+        raise AssertionError(f"[build] expected 9 instantiations of the 3xTF32 forward above 128, found "
+                             f"{len(fp32_wide)}")
 
 
 def _rand(gen, shape, dtype):
@@ -555,14 +585,15 @@ def check_k1(label, gen, b, hq, hkv, lq, lk, d, dtype, causal, atol, window=None
 
 def check_k1_fp32(label, gen, b, hq, hkv, lq, lk, d, causal=True, window=None, segments=False,
                   no_key_rows=0) -> float:
-    """The fp32 K1 (the 3xTF32 kernel, head dim 64 or 128) through the
+    """The fp32 K1 (a 3xTF32 kernel at every padded head dim) through the
     public entry points: the output of `flash_attention` (causal, window,
     segment ids as a user passes them) and the lse of
     `flash_attention_with_lse`, or of the wrapper where a window or segment
     ids apply (the lse entry takes neither), against the plain tile loop
     and fp32 vanilla on the same inputs, absolute 1e-5 (the fp32 forward
-    tier).  Each of the two calls must launch "flash_fwd_fp32" once and
-    nothing else.  Rows that see no key (the plain lse -inf: causal with
+    tier).  Each of the two calls must launch the fp32 K1 of its head dim
+    once ("flash_fwd_fp32", "flash_fwd_d256_fp32" or "flash_fwd_wide_fp32")
+    and nothing else.  Rows that see no key (the plain lse -inf: causal with
     lq > lk, or a window whose keys are all of other segments) must give
     exactly 0 and lse -inf, as the plain version does, and vanilla, which
     spreads them over every key, is held on the other rows only;
@@ -574,14 +605,15 @@ def check_k1_fp32(label, gen, b, hq, hkv, lq, lk, d, causal=True, window=None, s
     v = _rand(gen, (b, hkv, lk, d), f32)
     ids = (_segment_ids(b, lq), _segment_ids(b, lk)) if segments else None
     segs = FA._segments(ids, b, lq, lk, q.device) if segments else None
+    want = _key("flash_fwd", d, f32)
 
     def one_launch(call):
         before = dict(FA.KERNEL_LAUNCHES)
         result = call()
         torch.cuda.synchronize()
         launched = {key: n - before[key] for key, n in FA.KERNEL_LAUNCHES.items() if n != before[key]}
-        if launched != {"flash_fwd_fp32": 1}:
-            raise AssertionError(f"[k1] {label}: launched {launched}, want flash_fwd_fp32 once")
+        if launched != {want: 1}:
+            raise AssertionError(f"[k1] {label}: launched {launched}, want {want} once")
         return result
 
     with torch.no_grad():
@@ -589,9 +621,14 @@ def check_k1_fp32(label, gen, b, hq, hkv, lq, lk, d, causal=True, window=None, s
         if window is None and not segments:
             out_l, lse = one_launch(lambda: FA.flash_attention_with_lse(q, k, v, causal=causal))
         else:
+            # the wrapper takes the kernels' head dims: pad as the entry
+            # points do, and slice the output back
+            dp = FA.padded_head_dim(d)
             spec = FA._Spec(causal=causal, sm_scale=d ** -0.5, window=window,
-                            blocks=FA.default_blocks(lq, lk, d, dtype=f32))
-            out_l, lse = one_launch(lambda: FA._launch(q, k, v, spec, segs, True))
+                            blocks=FA.default_blocks(lq, lk, dp, dtype=f32))
+            qp, kp, vp = (FA._pad_head_dim(x, dp) for x in (q, k, v))
+            out_l, lse = one_launch(lambda: FA._launch(qp, kp, vp, spec, segs, True))
+            out_l = out_l[..., :d]
         p_out, p_lse = FA.flash_attention_reference(q, k, v, causal=causal, window=window, segment_ids=segs)
         g = hq // hkv
         d_out, d_lse = vanilla_attention_with_lse(q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
@@ -1921,19 +1958,20 @@ def _keep_worst(worst: dict, key: str, err: float) -> None:
 
 def phase_d256(seed: int) -> dict:
     """K1, the pre-pass, K2/K3 and K4 at head dims 160 and 256 (both run at
-    256: bf16/fp16 on the wgmma K1, K4, K2 and K3, fp32 on the SIMT family),
-    288 and 520 (padded to 512 and 1024: bf16/fp16 K1, K4, K2 and K3 on the
-    wide wgmma kernels, fp32 on the SIMT family) against their plain
-    versions and fp32 vanilla, with GQA 8/2, windows, segment ids, rows
-    that see no key, the tiles' ragged edges, lse, non-causal, batch x
-    heads past 32767, and K4 on int8 and fp8.
+    256: bf16/fp16 on the wgmma K1, K4, K2 and K3; fp32 K1 and K4 on the
+    3xTF32 forward, K2 and K3 on the SIMT backward), 288 and 520 (padded to
+    512 and 1024: bf16/fp16 K1, K4, K2 and K3 on the wide wgmma kernels;
+    fp32 as at 256) against their plain versions and fp32 vanilla, with
+    GQA 8/2, windows, segment ids, rows that see no key, the tiles' ragged
+    edges, lse, non-causal, batch x heads past 32767, and K4 on int8 and
+    fp8; then the 3xTF32 K1 and K4 at D256, D288, D520 and D1024.
     Returns each kernel's worst error against its plain version, by
     KERNEL_LAUNCHES key."""
     gen = torch.Generator().manual_seed(seed + 9)
     bf16, f16, f32, i8, f8 = torch.bfloat16, torch.float16, torch.float32, torch.int8, torch.float8_e4m3fn
-    say("[d256] head dims 160 and 256 (the wgmma K1, K4, K2, K3 for bf16/fp16; the SIMT family for fp32), 288 and "
-        "520 (zero-padded to 512 and 1024: the wide wgmma K1, K4, K2 and K3 for bf16/fp16; the SIMT family for "
-        "fp32): tolerances as at 64 / 128")
+    say("[d256] head dims 160 and 256 (the wgmma K1, K4, K2, K3 for bf16/fp16; for fp32 the 3xTF32 K1 and K4 and "
+        "the SIMT K2 and K3), 288 and 520 (zero-padded to 512 and 1024: the wide wgmma K1, K4, K2 and K3 for "
+        "bf16/fp16; fp32 as at 256): tolerances as at 64 / 128")
     worst: dict = {}
     for label, b, hq, hkv, lq, lk, d, dtype, causal, atol, kw in (
         ("d256 gqa 8/2 q129 kv257 window 100 bf16", 2, 8, 2, 129, 257, 256, bf16, True, 2e-2, dict(window=100)),
@@ -2059,6 +2097,36 @@ def phase_d256(seed: int) -> dict:
     ):
         _keep_worst(worst, _key("flash_fwd_kv_quant", d, dtype),
                     check_k4(label, gen, b, hq, hkv, lq, lk, d, dtype, qdt, atol, **kw))
+    # The 3xTF32 forward above head dim 128 (csrc/flash_fwd_fp32_wide.cuh):
+    # K1 through the entry points, output and lse at 1e-5, each call
+    # launching its key once (check_k1_fp32); K4 over int8 and fp8 at 5e-5,
+    # one launch a case; at D256, D288 and D520 (padded to 512 and 1024) and
+    # D1024.  The segment cases at q1014 x kv1024 put the causal diagonal 10
+    # keys into a KV tile, so the groups of a block end their walks on
+    # different tiles while the producer refills the ring.
+    for d in (256, 288, 520, 1024):
+        for label, b, hq, hkv, lq, lk, kw in (
+            ("gqa 8/2 b2 L1024", 2, 8, 2, 1024, 1024, {}),
+            ("edges q129 kv257 8/2 w100 3 segments", 2, 8, 2, 129, 257, dict(window=100, segments=True, no_key_rows=3)),
+            ("3 segments q1014 kv1024", 2, 4, 4, 1014, 1024, dict(segments=True)),
+            ("no-key rows q300 kv200 gqa 4/2", 1, 4, 2, 300, 200, dict(no_key_rows=100)),
+            ("non-causal q200 kv300 gqa 4/2", 1, 4, 2, 200, 300, dict(causal=False)),
+            ("lq<lk q128 kv384", 1, 4, 4, 128, 384, {}),
+        ):
+            _keep_worst(worst, _key("flash_fwd", d, f32),
+                        check_k1_fp32(f"fp32 {label} D{d}", gen, b, hq, hkv, lq, lk, d, **kw))
+        key = _key("flash_fwd_kv_quant", d, f32)
+        for qn, qdt in (("int8", i8), ("fp8", f8)):
+            for label, b, hq, hkv, lq, lk, kw in (
+                ("gqa 8/2 b2 L1024", 2, 8, 2, 1024, 1024, {}),
+                ("3 segments q1014 kv1024", 2, 4, 4, 1014, 1024, dict(segments=True)),
+            ):
+                before = dict(FA.KERNEL_LAUNCHES)
+                _keep_worst(worst, key, check_k4(f"fp32 {label} D{d} {qn}", gen, b, hq, hkv, lq, lk, d, f32, qdt,
+                                                 5e-5, **kw))
+                launched = {k: n - before[k] for k, n in FA.KERNEL_LAUNCHES.items() if n != before[k]}
+                if launched != {key: 1}:
+                    raise AssertionError(f"[d256] fp32 K4 D{d} {qn}: launched {launched}, want {key} once")
     return worst
 
 
@@ -2115,14 +2183,15 @@ def phase_d256_path(seed: int, data: np.ndarray) -> dict:
 
 # The path of head dims above 256 and of fp32 at 256 (`phase_simt_path`):
 # what it must launch.  bf16 at D288 and D520 runs the wide wgmma K1, K4, K2
-# and K3 ("_wide"), fp32 at D520 the SIMT K1, K4, K2 and K3 ("_wide_simt");
-# the pre-pass of both ("_wide"); fp32 at D256 the "_d256_simt" keys.
+# and K3 ("_wide"); fp32 at D520 the 3xTF32 K1 and K4 ("_wide_fp32") and the
+# SIMT K2 and K3 ("_wide_simt"); the pre-pass of both ("_wide"); fp32 at
+# D256 the "_d256_fp32" K1 and K4 and the "_d256_simt" K2 and K3.
 SIMT_PATH_LAUNCHES = {
     "flash_fwd_wide": 2, "flash_bwd_prep_wide": 3, "flash_bwd_dkv_wide": 2, "flash_bwd_dq_wide": 2,
-    "flash_fwd_kv_quant_wide": 2, "flash_fwd_wide_simt": 1, "flash_fwd_kv_quant_wide_simt": 1,
+    "flash_fwd_kv_quant_wide": 2, "flash_fwd_wide_fp32": 1, "flash_fwd_kv_quant_wide_fp32": 1,
     "flash_bwd_dkv_wide_simt": 1, "flash_bwd_dq_wide_simt": 1,
-    "flash_fwd_d256_simt": 1, "flash_bwd_prep_d256": 1, "flash_bwd_dkv_d256_simt": 1, "flash_bwd_dq_d256_simt": 1,
-    "flash_fwd_kv_quant_d256_simt": 1,
+    "flash_fwd_d256_fp32": 1, "flash_bwd_prep_d256": 1, "flash_bwd_dkv_d256_simt": 1, "flash_bwd_dq_d256_simt": 1,
+    "flash_fwd_kv_quant_d256_fp32": 1,
 }
 
 
@@ -2143,9 +2212,10 @@ def phase_simt_path(seed: int) -> dict:
     reaches, through the entry points: a forward and backward step of
     flash_attention at b2 h4 L1024 for head dims 288 (padded to 512) and
     520 (to 1024) in bf16 (the wide wgmma K1, K2 and K3), 256 and 520 in
-    fp32 (the SIMT family), and flash_attention_kv_quant (int8) at each.
-    Each "_wide", "_wide_simt" and "_d256_simt" key must launch as
-    SIMT_PATH_LAUNCHES says, and nothing else.  Then every output against
+    fp32 (the 3xTF32 K1, the SIMT K2 and K3), and flash_attention_kv_quant
+    (int8) at each.  Each "_wide", "_wide_fp32", "_wide_simt", "_d256_fp32"
+    and "_d256_simt" key must launch as SIMT_PATH_LAUNCHES says, and
+    nothing else.  Then every output against
     its plain version (flash_attention_reference, flash_attention_bwd_reference,
     flash_attention_kv_quant_reference) and fp32 vanilla on the same inputs
     (K4's on the K/V dequantized the kernel's way): bf16 out and K4 2e-2,
@@ -2730,21 +2800,32 @@ SIMT_FP32_BWD_MS = {"flash_bwd_dkv_fp32": (3.1288, 21.2925), "flash_bwd_dq_fp32"
 # h12 L1024 fp32 causal (K4 on int8 K/V), {key: (D64, D128)}, read the same
 # way (NVIDIA H100 80GB HBM3, 700.00 W): printed on the [timing] line only.
 SIMT_FP32_FWD_MS = {"flash_fwd_fp32": (1.4926, 3.3879), "flash_fwd_kv_quant_fp32": (1.5631, 3.5028)}
+# Device ms of the fp32 SIMT K1 / K4 that the 3xTF32 forward of
+# csrc/flash_fwd_fp32_wide.cuh replaced, at b8 h12 L1024 fp32 causal (K4 on
+# int8 K/V), {kernel: (D256, D512, D1024)}, read the same way (NVIDIA H100
+# 80GB HBM3, 700.00 W; D256 and D512 in one run, D1024 in a later one):
+# printed on the [timing] line only.
+SIMT_FP32_WIDE_FWD_MS = {"flash_fwd": (5.4546, 12.1646, 39.3718), "flash_fwd_kv_quant": (5.6516, 12.7133, 31.4340)}
 
 
 def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
     """The kernels of head dims above 128 that the D256 timing does not
     cover, and fp32 at 64 and 128, at b8 h12 L1024 (every tensor above L2's
-    50 MB, as at the D256 timing shape): fp32 at D256 (the "_d256_simt"
-    rows); bf16 at D512 (the "_wide" rows: the wide wgmma K1, K4, K2 and
+    50 MB, as at the D256 timing shape): fp32 at D256 (the "_d256_fp32" rows
+    of the 3xTF32 K1 and K4, the "_d256_simt" rows of the SIMT K2 and K3);
+    bf16 at D512 (the "_wide" rows: the wide wgmma K1, K4, K2 and
     K3 and the pre-pass; they carry the D1024 times beside them as
     d1024_*), with K1's and K4's speed-up over the SIMT forward they
     replaced (SIMT_16BIT_MS, an earlier reading, printed on the [timing]
     line only) and K1's ratio to SDPA's forward, and K2's and K3's beside
     their bounds, SDPA's whole backward and the SIMT K2 / K3 they replaced
-    (SIMT_16BIT_BWD_MS, printed only); fp32 at D512 (the "_wide_simt"
-    rows, the SIMT K1, K4, K2 and K3; they carry the D1024 times, no plain
-    run, beside them as d1024_*); fp32 at D64 and D128 (K1, K4, the
+    (SIMT_16BIT_BWD_MS, printed only); fp32 at D512 (the "_wide_fp32"
+    rows of the 3xTF32 K1 and K4, the "_wide_simt" rows of the SIMT K2 and
+    K3; they carry the D1024 times, no plain run, beside them as d1024_*),
+    and the 3xTF32 K1 with lse (lse_ms) and K4 over fp8 (fp8_ms) at D256,
+    D512 and D1024, printed beside their bounds, SDPA's fp32 forward and
+    the SIMT forward they replaced (SIMT_FP32_WIDE_FWD_MS, an earlier
+    reading, printed only); fp32 at D64 and D128 (K1, K4, the
     pre-pass, K2, K3 in the entry points' fp32 kernels, SDPA fp32): the
     "_fp32" rows of the 3xTF32 K1, K4, K2 and K3 (D64, with the D128
     times beside them as d128_*; K1 also with lse as lse_ms), with their
@@ -2756,9 +2837,12 @@ def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
     gen = torch.Generator().manual_seed(seed + 13)
     f32, bf16 = torch.float32, torch.bfloat16
     result = {}
-    d256 = _time_family(gen, smi, "SIMT family, fp32", 8, 12, 1024, 256, f32, TF32X3_FLOPS, True)
+    fwd_names = ("flash_fwd", "flash_fwd_kv_quant")
+    launched = {_key(name, d, f32): FA.KERNEL_LAUNCHES[_key(name, d, f32)] for name in fwd_names for d in (256, 512)}
+    d256 = _time_family(gen, smi, "fp32 (the 3xTF32 K1 and K4, the SIMT K2 and K3)", 8, 12, 1024, 256, f32,
+                        TF32X3_FLOPS, True)
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_kv_quant"):
-        result[f"{name}_d256_simt"] = d256[name]
+        result[_key(name, 256, f32)] = d256[name]
     wide = _time_family(gen, smi, "padded head dim 512 (the wide wgmma K1, K4, K2, K3)", 8, 12, 1024, 512, bf16,
                         BF16_FLOPS, True)
     wide1024 = _time_family(gen, smi, "padded head dim 1024 (the wide wgmma K1, K4, K2, K3)", 8, 12, 1024, 1024,
@@ -2789,13 +2873,41 @@ def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
         say(f"[timing] {smi} | wide wgmma backward {tag} b8 h12 L1024 bf16 causal: " + "; ".join(parts)
             + f"; pre-pass {prep:.4f} ms; pre-pass + K2 + K3 {prep + k2 + k3:.4f} ms against SDPA's whole backward "
               f"{lib:.4f} ms: {(prep + k2 + k3) / lib:.2f}x")
-    fp32_wide = _time_family(gen, smi, "fp32, padded head dim 512 (SIMT family)", 8, 12, 1024, 512, f32,
-                             TF32X3_FLOPS, True)
-    fp32_1024 = _time_family(gen, smi, "fp32, padded head dim 1024 (SIMT family)", 8, 12, 1024, 1024, f32,
-                             TF32X3_FLOPS, False)
+    fp32_wide = _time_family(gen, smi, "fp32, padded head dim 512 (the 3xTF32 K1 and K4, the SIMT K2 and K3)", 8,
+                             12, 1024, 512, f32, TF32X3_FLOPS, True)
+    fp32_1024 = _time_family(gen, smi, "fp32, padded head dim 1024 (the 3xTF32 K1 and K4, the SIMT K2 and K3)", 8,
+                             12, 1024, 1024, f32, TF32X3_FLOPS, False)
     for name in ("flash_fwd", "flash_fwd_kv_quant", "flash_bwd_dkv", "flash_bwd_dq"):
-        result[f"{name}_wide_simt"] = fp32_wide[name]
-        result[f"{name}_wide_simt"].update({f"d1024_{k}": v for k, v in fp32_1024[name].items() if k != "plain_ms"})
+        key = _key(name, 512, f32)
+        result[key] = fp32_wide[name]
+        result[key].update({f"d1024_{k}": v for k, v in fp32_1024[name].items() if k != "plain_ms"})
+    # the 3xTF32 K1 with lse, as the autograd Function's forward runs it,
+    # and K4 over fp8 K/V, at each padded head dim
+    for d, pre in ((256, ""), (512, ""), (1024, "d1024_")):
+        q, k, v = (_rand(gen, (8, 12, 1024, d), f32) for _ in range(3))
+        spec = FA._Spec(causal=True, sm_scale=d ** -0.5, window=None,
+                        blocks=FA.default_blocks(1024, 1024, d, dtype=f32))
+        kv8 = QK.quantize_kv(k, v, dtype=torch.float8_e4m3fn)
+        with torch.no_grad():
+            result[_key("flash_fwd", d, f32)][f"{pre}lse_ms"] = graph_ms(
+                lambda: FA._launch(q, k, v, spec, None, True), calls=5, runs=5)
+            result[_key("flash_fwd_kv_quant", d, f32)][f"{pre}fp8_ms"] = graph_ms(
+                lambda: QK._launch(q, kv8, True, d ** -0.5, None, None), calls=5, runs=5)
+        del q, k, v, kv8
+    launched = {key: FA.KERNEL_LAUNCHES[key] - n for key, n in launched.items()}
+    if not all(launched.values()):
+        raise AssertionError(f"[timing] the fp32 timing launched {launched}: a 3xTF32 forward did not run")
+    for name in fwd_names:
+        parts = []
+        for i, (tag, d, pre) in enumerate((("D256", 256, ""), ("D512", 512, ""), ("D1024", 512, "d1024_"))):
+            row, old = result[_key(name, d, f32)], SIMT_FP32_WIDE_FWD_MS[name][i]
+            ms, bound, lib = row[f"{pre}ms"], row[f"{pre}bound_ms"], row[f"{pre}library_ms"]
+            note = (f", with lse {row[f'{pre}lse_ms']:.4f} ms; SDPA's fp32 forward {lib:.4f} ms, {name} / SDPA "
+                    f"{ms / lib:.2f}x" if name == "flash_fwd" else f", over fp8 {row[f'{pre}fp8_ms']:.4f} ms")
+            parts.append(f"{tag} {ms:.4f} ms ({bound / ms:.1%} of the bound {bound:.4f} ms, operations, 3xTF32; the "
+                         f"SIMT forward's {old} ms, read in an earlier run, not this one, {old / ms:.1f}x{note})")
+        say(f"[timing] {smi} | 3xTF32 {name} above head dim 128, b8 h12 L1024 fp32 causal (launched {launched}): "
+            + "; ".join(parts))
     extra: dict = {}
     _reset_launches()
     lse_ms = {}

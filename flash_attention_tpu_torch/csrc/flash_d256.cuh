@@ -1,39 +1,29 @@
-// The SIMT family: the forward (K1, and K4 over an int8 / fp8 K/V payload),
-// dK/dV (K2) and dQ (K3) for fp32 inputs at padded head dims D = 256, 512
-// and 1024.  flash_simt_fwd.cu and
-// flash_simt_fwd_kv_quant.cu instantiate the forward with flash_fwd.cuh's
-// FwdParams, flash_simt_bwd.cu the backward with flash_bwd.cuh's BwdParams;
-// the backward's pre-pass (di, qs) is flash_bwd.cu's own at every head dim.
+// The SIMT backward: dK/dV (K2) and dQ (K3) for fp32 inputs at padded head
+// dims D = 256, 512 and 1024.  flash_simt_bwd.cu instantiates it with
+// flash_bwd.cuh's BwdParams; the pre-pass (di) is flash_bwd.cu's own at
+// every head dim, and the forward whose lse it reads is the 3xTF32 kernel of
+// flash_fwd_fp32_wide.cuh.
 //
 // Replaces, at the head dims these kernels run (the entry points zero-pad
 // 129-256 to 256, 257-512 to 512 and 513-1024 to 1024, as the JAX package
 // pads any head dim to a multiple of 8):
-//   * flash_attention_tpu/kernels/flash_attention.py::_fwd_kernel (K1);
-//   * flash_attention_tpu/quant/kv.py::_fwd_quant_kernel (K4);
-//   * flash_attention_tpu/kernels/flash_attention.py::_dkv_kernel (K2) and
-//     ::_dq_kernel (K3).
-// Which inputs take them: fp32 at every one of these head dims (TF32 tensor
-// cores would miss the 1e-5 tier).  bf16 / fp16 K1, K4, K2 and K3 run
-// wgmma kernels at every head dim (flash_fwd.cuh, flash_fwd_wide.cuh,
-// flash_bwd.cuh, flash_bwd_wide.cuh), and the dispatch below refuses them.
-// They compute what the plain
-// versions in kernels/flash_attention.py compute, with the same roundings:
-// q scaled by sm_scale * log2(e) and rounded to T before QK^T, the online
-// softmax in the exp2 domain with m / l / the accumulator in fp32, P rounded
-// to T before PV, one final division with the l == 0 guard, lse = (m + log2
-// l) ln 2; K4's K/V tiles dequantized as payload.to(T) * scale.to(T) rounded
-// to T; the backward in the operand form, dK += round_T(dS) round_T(q *
-// scale) and dQ += round_T(dS) round_T(k * scale), with P rounded to T
-// before P^T dO and P = 0 where masked.  Causal (queries aligned to the end
-// of KV), window and segment masks, GQA by reading KV head hq / group,
-// ragged lengths, inputs read through their strides.
+// flash_attention_tpu/kernels/flash_attention.py::_dkv_kernel (K2) and
+// ::_dq_kernel (K3).  Which inputs take them: fp32 at every one of these
+// head dims; bf16 / fp16 K2 and K3 run wgmma kernels (flash_bwd.cuh,
+// flash_bwd_wide.cuh), and the dispatch below refuses them.  They compute
+// what the plain backward in kernels/flash_attention.py computes, in the
+// operand form: dK += dS (q * scale) and dQ += dS (k * scale), P recomputed
+// as exp2(q * scale_log2 k - lse log2 e) and 0 where masked, dS = P (dP -
+// di); causal (queries aligned to the end of KV), window and segment masks,
+// GQA by reading KV head hq / group, ragged lengths, inputs read through
+// their strides.
 //
-// What bounds it on this card: the operations, at any of these widths (at
-// b8 h12 L1024 D256 causal the forward's two products are 51.5 GFLOP, 0.052
-// ms at 989 TFLOP/s, against 201 MB of q, k, v and o, 0.060 ms at 3.35
-// TB/s; each doubling of D doubles both).  These kernels do not reach the
-// tensor cores: fp32 FMA, at most 67 TFLOP/s, about 100x the bound.  What
-// the design does about the width: a 64 x D fp32 accumulator in a
+// What bounds it on this card: the operations (at b8 h12 L1024 D256 causal
+// dK/dV's four products are 103 GFLOP, 0.62 ms at the 3xTF32 rate of 165
+// TFLOP/s, against 604 MB of q, k, v, dO, dK and dV, 0.18 ms; each
+// doubling of D doubles both).  These
+// kernels do not reach the tensor cores: fp32 FMA, at most 67 TFLOP/s.
+// What the design does about the width: a 64 x D fp32 accumulator in a
 // warpgroup's registers is 128 a thread at D = 256 and does not fit above
 // it, so here each pinned row is split over kSplit = D / 32 lanes, each
 // owning 32 of its columns (4 contiguous columns at 4 kSplit (i / 4) + 4 u,
@@ -44,9 +34,9 @@
 // the row's kSplit lanes (the whole warp at D = 1024, which is why 1024 is
 // the widest head dim); every lane then holds the full score and updates
 // its own columns.  Blocks of 256 threads pin kRows = 256 / kSplit rows (32,
-// 16, 8) and stream kBc-row tiles, staged in shared memory as fp32: kBc is
-// the largest power of two whose tiles fit 227 KB (the forward stages 2,
-// the backward 3), 32 at D = 256 and 512, 16 at D = 1024.
+// 16, 8) and stream kBc-row tiles, staged in shared memory as fp32 (three
+// a tile): kBc is the largest power of two whose tiles fit 227 KB, 32 at D
+// = 256 and 512, 16 at D = 1024.
 #pragma once
 
 #include "common.cuh"
@@ -63,7 +53,6 @@ struct Cfg {
   static constexpr int kRows = kThreads / kSplit;  // pinned rows of a block: 32, 16, 8
   static constexpr int kBc = D == 1024 ? 16 : 32;  // rows of each streamed tile
   static constexpr int kTile = kBc * D;            // floats of a staged tile
-  static constexpr int kFwdSmem = 2 * kTile * 4;   // K, V
   static constexpr int kBwdSmem = 3 * kTile * 4;   // dK/dV: qs, q * scale, dO; dQ: K, K * scale, V
   static_assert(kBwdSmem <= 232448, "an H100 block has at most 227 KB of shared memory");
 };
@@ -76,14 +65,12 @@ __device__ __forceinline__ int col_of(int u, int i) {
 }
 
 // A [ROWS, D] tile of g (rows from row0, those at or past nrows zero) into
-// shared memory as fp32 rows of D floats: round_T(x * mul) for a tile of
-// T, and for a 1-byte payload round_T(payload.to(T) * round_T(scale)), the
-// TPU kernel's dequantization.  16-byte loads: the wrapper keeps every row
-// 16-byte aligned.
-template <typename T, typename KV, int D, int ROWS>
-__device__ __forceinline__ void stage(float* __restrict__ s, const KV* __restrict__ g, long long ld,
-                                      const float* __restrict__ scales, int row0, int nrows, float mul) {
-  constexpr int kVec = 16 / sizeof(KV);
+// shared memory as fp32 rows of D floats, round_T(x * mul).  16-byte loads:
+// the wrapper keeps every row 16-byte aligned.
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void stage(float* __restrict__ s, const T* __restrict__ g, long long ld, int row0,
+                                      int nrows, float mul) {
+  constexpr int kVec = 16 / sizeof(T);
   constexpr int kChunks = D / kVec;
   for (int c = threadIdx.x; c < ROWS * kChunks; c += Cfg<D>::kThreads) {
     const int r = c / kChunks;
@@ -91,16 +78,9 @@ __device__ __forceinline__ void stage(float* __restrict__ s, const KV* __restric
     float y[kVec];
     if (row0 + r < nrows) {
       const uint4 raw = *reinterpret_cast<const uint4*>(g + (long long)(row0 + r) * ld + col);
-      const KV* x = reinterpret_cast<const KV*>(&raw);
-      if constexpr (std::is_same<T, KV>::value) {
+      const T* x = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) y[e] = round_to<T>(to_float(x[e]) * mul);
-      } else {
-        static_assert(sizeof(KV) == 1, "quantized payloads are 1 byte");
-        const float sc = round_to<T>(scales[row0 + r]);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) y[e] = round_to<T>(to_float(x[e]) * sc);
-      }
+      for (int e = 0; e < kVec; ++e) y[e] = round_to<T>(to_float(x[e]) * mul);
     } else {
 #pragma unroll
       for (int e = 0; e < kVec; ++e) y[e] = 0.f;
@@ -163,98 +143,6 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// Forward (K1; K4 when KV is a 1-byte payload).  P is FwdParams.
-// ---------------------------------------------------------------------------
-
-template <typename T, typename KV, int D, typename P>
-__global__ void __launch_bounds__(256) fwd_kernel(const P p) {
-  using C = Cfg<D>;
-  constexpr int kBc = C::kBc, kSplit = C::kSplit, kRows = C::kRows;
-  extern __shared__ float4 smem_f4[];
-  float* sK = reinterpret_cast<float*>(smem_f4);
-  float* sV = sK + C::kTile;
-  __shared__ int sIds[kBc];
-
-  const Mask mk = p.mask;
-  const int tile = gridDim.x - 1 - blockIdx.x;  // the longest causal KV loops first
-  const int bh = blockIdx.y;
-  const int b = bh / p.hq;
-  const int h = bh % p.hq;
-  const int hk = h / p.group;
-  const int r0 = tile * kRows;
-  const int r1 = min(r0 + kRows, mk.lq);
-  const int u = threadIdx.x % kSplit;
-  const int row = r0 + threadIdx.x / kSplit;
-  const bool in = row < mk.lq;
-
-  const KV* gk = static_cast<const KV*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const KV* gv = static_cast<const KV*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  const float* ks = p.ks ? p.ks + b * p.s_sb + hk * p.s_sh : nullptr;
-  const float* vs = p.vs ? p.vs + b * p.s_sb + hk * p.s_sh : nullptr;
-  const int* kv_ids = p.kv_ids ? p.kv_ids + (long long)b * mk.lk : nullptr;
-  const int q_id = p.q_ids != nullptr && in ? p.q_ids[(long long)b * mk.lq + row] : 0;
-
-  float q[32], acc[32];
-  load_row<T, D>(q, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + (long long)row * p.q_sl, u, in,
-                 p.scale_log2);
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  float m = -CUDART_INF_F, l = 0.f;
-
-  const int kv_end = mk.kv_end(r1);
-  const int j0 = mk.kv_first(r0) / kBc;
-  const int n_tiles = kv_end > 0 ? (kv_end + kBc - 1) / kBc : 0;
-  for (int jt = j0; jt < n_tiles; ++jt) {
-    const int c0 = jt * kBc;
-    __syncthreads();
-    stage<T, KV, D, kBc>(sK, gk, p.k_sl, ks, c0, mk.lk, 1.f);
-    stage<T, KV, D, kBc>(sV, gv, p.v_sl, vs, c0, mk.lk, 1.f);
-    load_ids<kBc, C::kThreads>(sIds, kv_ids, c0, mk.lk, 0);
-    __syncthreads();
-
-    float s[kBc];
-    float mx = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < kBc; ++j) {
-      const float dot = row_sum<D>(dot_row<D>(q, sK + j * D, u));
-      const bool ok = mk.visible(row, c0 + j) && (kv_ids == nullptr || q_id == sIds[j]);
-      s[j] = ok ? dot : -CUDART_INF_F;
-      mx = fmaxf(mx, s[j]);
-    }
-    const float m_new = fmaxf(m, mx);
-    const float base = m_new == -CUDART_INF_F ? 0.f : m_new;
-    const float alpha = exp2f(m - base);
-    m = m_new;
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kBc; ++j) {
-      const float pj = exp2f(s[j] - base);
-      l += pj;
-      axpy_row<D>(acc, round_to<T>(pj), sV + j * D, u);
-    }
-  }
-
-  if (in) {
-    const float l_safe = l == 0.f ? 1.f : l;
-    store_row<T, D>(static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + (long long)row * p.o_sl, acc, u, l_safe);
-    if (p.lse != nullptr && u == 0) p.lse[(long long)bh * mk.lq + row] = (m + log2f(l_safe)) * kLn2;
-  }
-}
-
-template <typename T, typename KV, int D, typename P>
-cudaError_t launch_fwd(const P& p, cudaStream_t stream) {
-  using C = Cfg<D>;
-  auto kernel = fwd_kernel<T, KV, D, P>;
-  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kFwdSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.mask.lq + C::kRows - 1) / C::kRows, p.batch * p.hq);
-  kernel<<<grid, C::kThreads, C::kFwdSmem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // Backward (K2, K3).  P is BwdParams; the pre-pass's di and the forward's
 // lse are read, its qs is not (the kernels round q * scale_log2 as they
 // stage it).
@@ -303,9 +191,9 @@ __global__ void __launch_bounds__(256) bwd_dkv_kernel(const P p) {
     for (int it = i0; it < n_q; ++it) {
       const int r0 = it * kBc;
       __syncthreads();
-      stage<T, T, D, kBc>(sQs, gq, p.sq.sl, nullptr, r0, mk.lq, p.scale_log2);
-      stage<T, T, D, kBc>(sQk, gq, p.sq.sl, nullptr, r0, mk.lq, p.scale);
-      stage<T, T, D, kBc>(sDo, gdo, p.sdo.sl, nullptr, r0, mk.lq, 1.f);
+      stage<T, D, kBc>(sQs, gq, p.sq.sl, r0, mk.lq, p.scale_log2);
+      stage<T, D, kBc>(sQk, gq, p.sq.sl, r0, mk.lq, p.scale);
+      stage<T, D, kBc>(sDo, gdo, p.sdo.sl, r0, mk.lq, 1.f);
       for (int i = threadIdx.x; i < kBc; i += C::kThreads) {
         const bool q_in = r0 + i < mk.lq;
         sLse[i] = q_in ? p.lse[stat + r0 + i] * kLog2e : 0.f;
@@ -375,9 +263,9 @@ __global__ void __launch_bounds__(256) bwd_dq_kernel(const P p) {
   for (int jt = j0; jt < n_tiles; ++jt) {
     const int c0 = jt * kBc;
     __syncthreads();
-    stage<T, T, D, kBc>(sK, gk, p.sk.sl, nullptr, c0, mk.lk, 1.f);
-    stage<T, T, D, kBc>(sKs, gk, p.sk.sl, nullptr, c0, mk.lk, p.scale);
-    stage<T, T, D, kBc>(sV, gv, p.sv.sl, nullptr, c0, mk.lk, 1.f);
+    stage<T, D, kBc>(sK, gk, p.sk.sl, c0, mk.lk, 1.f);
+    stage<T, D, kBc>(sKs, gk, p.sk.sl, c0, mk.lk, p.scale);
+    stage<T, D, kBc>(sV, gv, p.sv.sl, c0, mk.lk, 1.f);
     if (segmented) load_ids<kBc, C::kThreads>(sIds, p.kv_ids + (long long)b * mk.lk, c0, mk.lk, 0);
     __syncthreads();
 
@@ -409,27 +297,7 @@ cudaError_t launch_bwd(int which, const P& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The SIMT forward for fp32 q (dtype 0) over K/V element type KV (KV =
-// void: fp32) at head dim D; bf16 / fp16 (1, 2) run the wgmma kernels at
-// every head dim (flash_fwd.cuh, flash_fwd_wide.cuh) and are not built here.
-template <typename KV, int D, typename P>
-cudaError_t launch_fwd_dim(int dtype, const P& p, cudaStream_t s) {
-  using F32 = typename std::conditional<std::is_void<KV>::value, float, KV>::type;
-  if (dtype == 0) return launch_fwd<float, F32, D>(p, s);
-  return cudaErrorInvalidValue;
-}
-
-// As launch_fwd_dim at head dim 256, 512 or 1024; cudaErrorInvalidValue for
-// any other.
-template <typename KV, typename P>
-cudaError_t launch_fwd_for(int dtype, int head_dim, const P& p, cudaStream_t s) {
-  if (head_dim == 256) return launch_fwd_dim<KV, 256>(dtype, p, s);
-  if (head_dim == 512) return launch_fwd_dim<KV, 512>(dtype, p, s);
-  if (head_dim == 1024) return launch_fwd_dim<KV, 1024>(dtype, p, s);
-  return cudaErrorInvalidValue;
-}
-
-// As launch_fwd_dim, for the backward: fp32 only.
+// The backward for q's dtype: fp32 (0) only.
 template <int D, typename P>
 cudaError_t launch_bwd_dim(int which, int dtype, const P& p, cudaStream_t s) {
   if (dtype == 0) return launch_bwd<float, D>(which, p, s);

@@ -1,15 +1,14 @@
 // K1: the flash-attention forward (fa_flash_fwd).  The bf16 / fp16 kernels
 // and their design notes are in flash_fwd.cuh, which K4
-// (flash_fwd_kv_quant.cu) shares; fp32 at head dims 64 and 128 is the
-// 3xTF32 tensor-core kernel of flash_fwd_fp32.cu (its own notes).
+// (flash_fwd_kv_quant.cu) shares; fp32 is the 3xTF32 tensor-core kernels of
+// flash_fwd_fp32.cu (head dims 64, 128) and flash_fwd_fp32_wide.cuh (256,
+// 512, 1024), each with its own notes.
 
 #include "flash_fwd.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim: 64 or 128 for
-// every dtype, and 256, 512 and 1024 for bfloat16 / float16 (the SIMT
-// family's fa_flash_fwd_simt, flash_simt_fwd.cu, takes fp32 at 256, 512 and
-// 1024).  Strides are in elements; the last dim is contiguous.  lse may be
-// null; q_ids / kv_ids are both null or both contiguous int32 [batch, lq]
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim: 64, 128, 256,
+// 512 or 1024 for every dtype.  Strides are in elements; the last dim is
+// contiguous.  lse may be null; q_ids / kv_ids are both null or both contiguous int32 [batch, lq]
 // and [batch, lk].  window <= 0 means no window (it applies only when
 // causal).  block_q: the tile's query rows for bf16 / fp16, one of
 // kernels/block_sizes.py::K1_TILES at the head dim (192, 128 or 64 at 64;

@@ -24,9 +24,9 @@
 // kernel of flash_fwd_wide.cuh: two consumer warpgroups share a 64-row
 // query tile, each reduces S over half the head dim and accumulates 256 of
 // a block's 512 output columns; flash_fwd_wide.cu and
-// flash_fwd_wide_d1024.cu).  fp32 at 64 and 128 is the 3xTF32
-// tensor-core kernel of flash_fwd_fp32.cu (its own design notes); fp32
-// above 128 takes the SIMT family of flash_d256.cuh.
+// flash_fwd_wide_d1024.cu).  fp32 runs 3xTF32 tensor-core kernels
+// with design notes of their own: flash_fwd_fp32.cu at 64 and 128,
+// flash_fwd_fp32_wide.cuh at 256, 512 and 1024.
 //
 // What bounds it on this card: at the GPT-2 shapes (h12, L1024, D64, causal)
 // the two products need 12.9 GFLOP at b8 (13.0 us at 989 TFLOP/s) and q, k, v
@@ -87,9 +87,10 @@
 //     registers), S is issued in four commit groups of four k16 steps, and
 //     each k16 step of PV is two N = 128 products into the accumulator's
 //     halves.
-// fp32 inputs at 64 and 128 run flash_fwd_fp32.cu's kernel: one TF32 pass
-// would miss the fp32 tolerance of 1e-5, so it splits every operand and
-// product in three (3xTF32 on mma.sync; tf32x3.cuh).
+// fp32 inputs run flash_fwd_fp32.cu's kernel at 64 and 128 and
+// flash_fwd_fp32_wide.cuh's at 256, 512 and 1024: one TF32 pass would miss
+// the fp32 tolerance of 1e-5, so they split every operand and product in
+// three (3xTF32 on mma.sync; tf32x3.cuh).
 // ptxas -v (sm_90a, CUDA 12.8) reports the registers at launch, 65,536 /
 // threads: 128 at D = 64 (512 threads; setmaxnreg: producer 32, K4's 40,
 // consumers 160, K4's 152) and 168 at D = 128 (384 threads; producer 32,
@@ -694,10 +695,14 @@ cudaError_t launch_ws_d256(int dtype, int kv_dtype, const FwdParams& p, cudaStre
 cudaError_t launch_fwd_wide_d512(int dtype, int kv_dtype, const FwdParams& p, cudaStream_t s);
 cudaError_t launch_fwd_wide_d1024(int dtype, int kv_dtype, const FwdParams& p, cudaStream_t s);
 
-// K1 and K4 for fp32 q (dtype 0) at D = 64 and 128, over fp32 K/V (kv_dtype
-// 0), int8 (1) or fp8 e4m3 (2): the 3xTF32 tensor-core kernel of
-// flash_fwd_fp32.cu.
+// K1 and K4 for fp32 q (dtype 0), over fp32 K/V (kv_dtype 0), int8 (1) or
+// fp8 e4m3 (2), on 3xTF32 tensor-core kernels: at D = 64 and 128
+// flash_fwd_fp32.cu's; at 256 and 512 (flash_fwd_fp32_wide.cu) and 1024
+// (flash_fwd_fp32_wide_d1024.cu) flash_fwd_fp32_wide.cuh's, whose warps
+// split the output columns and sum S from partials.
 cudaError_t launch_fwd_fp32(int kv_dtype, int head_dim, const FwdParams& p, cudaStream_t s);
+cudaError_t launch_fwd_fp32_wide(int kv_dtype, int head_dim, const FwdParams& p, cudaStream_t s);
+cudaError_t launch_fwd_fp32_wide_d1024(int kv_dtype, const FwdParams& p, cudaStream_t s);
 
 // K1's tiles other than the default, bf16 (dtype 1) and fp16 (2), each
 // head dim's in a source of its own so that they compile beside the rest:
@@ -707,11 +712,10 @@ cudaError_t launch_k1_tile_d64(int dtype, int block_q, const FwdParams& p, cudaS
 cudaError_t launch_k1_tile_d128(int dtype, int block_q, const FwdParams& p, cudaStream_t s);
 
 // The kernel for q's dtype (0 = float32, 1 = bfloat16, 2 = float16), K/V
-// element type KV (KV = void: q's own type) and head dim: 64 or 128 (fp32:
-// flash_fwd_fp32.cu), and 256, 512 and 1024 for bf16 / fp16 (fp32 above
-// 128 takes the SIMT family's entry points, flash_simt_fwd*.cu);
-// cudaErrorInvalidValue for a combination that is not instantiated.
-// block_q picks K1's tile height
+// element type KV (KV = void: q's own type) and head dim: 64, 128, 256, 512
+// or 1024 (fp32: the 3xTF32 kernels of flash_fwd_fp32.cu and
+// flash_fwd_fp32_wide.cuh); cudaErrorInvalidValue for a combination that is
+// not instantiated.  block_q picks K1's tile height
 // (bf16 / fp16): 0 or the default's (192 at D = 64, 128 at D = 128, 64 at
 // D = 256) for the default, or another of K1_TILES; fp32, K4 and the wide
 // kernels (D = 512, 1024) have one tile and take 0 only.
@@ -731,6 +735,8 @@ cudaError_t launch_fwd_for(int dtype, int head_dim, const FwdParams& p, cudaStre
     }
   }
   if (dtype == 0 && (head_dim == 64 || head_dim == 128)) return launch_fwd_fp32(kKv, head_dim, p, s);
+  if (dtype == 0 && (head_dim == 256 || head_dim == 512)) return launch_fwd_fp32_wide(kKv, head_dim, p, s);
+  if (dtype == 0 && head_dim == 1024) return launch_fwd_fp32_wide_d1024(kKv, p, s);
   if (dtype == 1 && head_dim == 64) return launch_ws<__nv_bfloat16, BF16, 64>(p, s);
   if (dtype == 1 && head_dim == 128) return launch_ws<__nv_bfloat16, BF16, 128>(p, s);
   if (dtype == 2 && head_dim == 64) return launch_ws<__half, F16, 64>(p, s);

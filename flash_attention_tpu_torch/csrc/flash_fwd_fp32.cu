@@ -101,20 +101,6 @@ struct FwdF32Cfg {
   static_assert(kSmemBytes <= 232448, "an H100 block has at most 227 KB of shared memory");
 };
 
-// A payload byte (int8, or fp8 e4m3) as the float it holds, exactly.  int8
-// through the float 2^23 + 128 + x; fp8 by moving its exponent and
-// mantissa into an fp32's (a denormal there for e4m3's denormals) and
-// scaling by 2^120, the difference of the two biases.
-template <typename KV>
-__device__ __forceinline__ float payload_value(uint32_t byte) {
-  if constexpr (std::is_same<KV, int8_t>::value) {
-    return __uint_as_float(0x4B000000u | ((byte ^ 0x80u) & 0xFFu)) - 8388736.f;
-  } else {
-    const float x = __uint_as_float((byte & 0x7Fu) << 20) * 0x1p120f;
-    return byte & 0x80u ? -x : x;
-  }
-}
-
 // K4: element (r, c) of a [32, D] payload tile as
 // TMA writes it with the D-byte swizzle (16-byte chunks permuted by XOR
 // with r % 8 at D = 128, (r / 2) % 4 at 64), times its row's scale.
@@ -127,36 +113,6 @@ struct PayloadTile {
     return payload_value<KV>(pay[r * D + chunk * 16 + c % 16]) * scale[r];
   }
 };
-
-// s = A X^T over the head dim, from zero: A the 16 rows from m0 of the
-// pinned [PR, D] q tile (split already, lo in alo), X the streamed [32, D]
-// K tile.  hi hi in s, the two cross passes in c, added at the end.
-template <int PR, int D, class Tile>
-__device__ __forceinline__ void scores(float (&s)[4][4], const float* a, const float* alo, const Tile& x, int m0,
-                                       int g, int t) {
-  float c[4][4];
-#pragma unroll
-  for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nb][e] = c[nb][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    uint32_t ah[4], al[4], bh[4][2], bl[4][2];
-    frag_pinned<PR, true>(ah, al, a, alo, m0, kk * 8, g, t);
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb) frag_b_nk<32>(bh[nb], bl[nb], x, nb * 8, kk * 8, g, t);
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb) mma_tf32(c[nb], al, bh[nb]);
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb) mma_tf32(c[nb], ah, bl[nb]);
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb) mma_tf32(s[nb], ah, bh[nb]);
-  }
-#pragma unroll
-  for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nb][e] += c[nb][e];
-}
 
 template <typename KV, int D>
 __global__ void __launch_bounds__(FwdF32Cfg<KV, D>::kThreads, 1)
@@ -284,7 +240,7 @@ flash_fwd_fp32_kernel(const __grid_constant__ FwdParams p, const __grid_constant
   auto tile_math = [&](const auto& kx, const auto& vx, int j, int s) {
     const int c0 = j * kBc;
     float sc[4][4];  // S = Qs K^T: [16, 32] as four 8-column blocks
-    scores<kBr, D>(sc, sQ, sQlo, kx, 16 * warp, g, t);
+    scores<kBr, D, 4, true>(sc, sQ, sQlo, kx, 16 * warp, g, t);
 
     // Element mask only where the tile crosses the diagonal, the window
     // edge or the KV end, or where segment ids apply.

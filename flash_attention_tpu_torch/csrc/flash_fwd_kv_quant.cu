@@ -3,18 +3,18 @@
 // kernel instantiated with a 1-byte K/V payload, int8 or fp8 e4m3, and one
 // fp32 scale per token: each K/V tile is dequantized into shared memory in
 // q's dtype, then the forward runs as K1's does, without lse.  bf16 / fp16
-// q: flash_fwd.cuh (where the design notes are); fp32 q at 64 and 128:
-// flash_fwd_fp32.cu's 3xTF32 kernel.  Bound: at D = 64 the payload halves
+// q: flash_fwd.cuh (where the design notes are); fp32 q: the 3xTF32
+// kernels of flash_fwd_fp32.cu (64, 128) and flash_fwd_fp32_wide.cuh (256,
+// 512, 1024).  Bound: at D = 64 the payload halves
 // K1's K/V bytes, so K4 is as compute-bound as K1.
 
 #include "flash_fwd.cuh"
 
 // dtype: q's, 0 = float32, 1 = bfloat16, 2 = float16.  kv_dtype: 1 = int8,
-// 2 = float8_e4m3fn.  head_dim: 64 or 128, and 256, 512 and 1024 for
-// bfloat16 / float16 q (fa_flash_fwd_kv_quant_simt,
-// flash_simt_fwd_kv_quant.cu, takes fp32 q at 256, 512 and 1024).  strides (elements): q, k, v, o
-// as (batch, head, row), then the scales' (batch, head); the last dims of
-// every tensor, the scales' included, are contiguous.  q_ids / kv_ids as
+// 2 = float8_e4m3fn.  head_dim: 64, 128, 256, 512 or 1024.  strides
+// (elements): q, k, v, o as (batch, head, row), then the scales' (batch,
+// head); the last dims of every tensor, the scales' included, are
+// contiguous.  q_ids / kv_ids as
 // for fa_flash_fwd.  Returns a cudaError_t (0 on success).
 extern "C" int fa_flash_fwd_kv_quant(const void* q, const void* k, const void* k_scale, const void* v,
                                      const void* v_scale, void* o, const void* q_ids, const void* kv_ids,

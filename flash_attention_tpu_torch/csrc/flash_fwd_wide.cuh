@@ -8,13 +8,13 @@
 // Replaces, at these head dims (the entry points zero-pad 257-512 to 512 and
 // 513-1024 to 1024): flash_attention_tpu/kernels/flash_attention.py::
 // _fwd_kernel (K1) and flash_attention_tpu/quant/kv.py::_fwd_quant_kernel
-// (K4).  It computes what flash_fwd.cuh's kernel and the SIMT family's
-// forward (flash_d256.cuh) compute: q scaled by sm_scale*log2(e) and rounded
-// to T, the exp2-domain online softmax with fp32 m, l and accumulator, P
-// rounded to T before PV, the l == 0 guard, lse = (m + log2 l) ln 2 (the
-// SIMT backward at these head dims reads it), causal alignment to the end of
-// KV, the window, segment ids, GQA, ragged Lq / Lk and strides; K4's tiles
-// dequantized as payload.to(T) * scale.to(T) rounded to T.
+// (K4).  It computes what flash_fwd.cuh's kernel computes: q scaled by
+// sm_scale*log2(e) and rounded to T, the exp2-domain online softmax with
+// fp32 m, l and accumulator, P rounded to T before PV, the l == 0 guard,
+// lse = (m + log2 l) ln 2 (the wide backward, flash_bwd_wide.cuh, reads
+// it), causal alignment to the end of KV, the window, segment ids, GQA,
+// ragged Lq / Lk and strides; K4's tiles dequantized as payload.to(T) *
+// scale.to(T) rounded to T.
 //
 // What bounds it: at b8 h12 L1024 causal the two products are 103 GFLOP at
 // D = 512 (0.104 ms at 989 TFLOP/s) and 206 GFLOP at D = 1024, and q, k,

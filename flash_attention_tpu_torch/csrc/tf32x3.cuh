@@ -1,5 +1,6 @@
-// 3xTF32 products on mma.sync, shared by the fp32 kernels at head dims 64
-// and 128: the forward (flash_fwd_fp32.cu, K1 and K4) and the backward
+// 3xTF32 products on mma.sync, shared by the fp32 kernels: the forward
+// (flash_fwd_fp32.cu at head dims 64 and 128, flash_fwd_fp32_wide.cuh at
+// 256, 512 and 1024; K1 and K4) and the backward at 64 and 128
 // (flash_bwd_fp32.cuh, K2 and K3).  Every fp32 operand x is split into hi =
 // x rounded to TF32 and lo = (x - hi) rounded to TF32, and each product is
 // lo hi + hi lo + hi hi, summed in fp32 (lo lo, about 2^-22 of it, is left
@@ -78,6 +79,20 @@ __device__ __forceinline__ float tile_at(const Tile& tile, int r, int c) {
   }
 }
 
+// A payload byte (int8, or fp8 e4m3) as the float it holds, exactly.  int8
+// through the float 2^23 + 128 + x; fp8 by moving its exponent and
+// mantissa into an fp32's (a denormal there for e4m3's denormals) and
+// scaling by 2^120, the difference of the two biases.
+template <typename KV>
+__device__ __forceinline__ float payload_value(uint32_t byte) {
+  if constexpr (std::is_same<KV, int8_t>::value) {
+    return __uint_as_float(0x4B000000u | ((byte ^ 0x80u) & 0xFFu)) - 8388736.f;
+  } else {
+    const float x = __uint_as_float((byte & 0x7Fu) << 20) * 0x1p120f;
+    return byte & 0x80u ? -x : x;
+  }
+}
+
 // The A fragment of rows [m0, m0 + 16) and columns [k0, k0 + 8) of a
 // [ROWS, D] tile, split.
 template <int ROWS>
@@ -152,6 +167,40 @@ __device__ __forceinline__ void split_pinned(float* tile, float* lo, int m0, int
     lo[idx] = __uint_as_float(l);
   }
   __syncwarp();
+}
+
+// s = A X^T over K columns, from zero, for the forward's S = Qs K^T: A the
+// 16 rows from m0 of a pinned [PR, .] q tile (split already, lo in alo,
+// when kPre), X a streamed [8 NB, .] K tile (tile_at: fp32, or a payload
+// reader), both at the first of the K columns.  hi hi in s, the two cross
+// passes in c, added at the end: the tensor cores truncate what they add,
+// and a sum that takes all three passes of every k8 step loses an ulp of S
+// three times as often.
+template <int PR, int K, int NB, bool kPre, class Tile>
+__device__ __forceinline__ void scores(float (&s)[NB][4], const float* a, const float* alo, const Tile& x, int m0,
+                                       int g, int t) {
+  float c[NB][4];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] = c[nb][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < K / 8; ++kk) {
+    uint32_t ah[4], al[4], bh[NB][2], bl[NB][2];
+    frag_pinned<PR, kPre>(ah, al, a, alo, m0, kk * 8, g, t);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) frag_b_nk<8 * NB>(bh[nb], bl[nb], x, nb * 8, kk * 8, g, t);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) mma_tf32(c[nb], al, bh[nb]);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) mma_tf32(c[nb], ah, bl[nb]);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) mma_tf32(s[nb], ah, bh[nb]);
+  }
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] += c[nb][e];
 }
 
 // acc += A X over one streamed tile: A [16, K] the split fragments of an

@@ -126,8 +126,6 @@ def library() -> ctypes.CDLL:
             f, i, i, i, p,  # scale_log2, causal, window, block_q, stream
         ]
         lib.fa_flash_fwd.restype = i
-        lib.fa_flash_fwd_simt.argtypes = lib.fa_flash_fwd.argtypes
-        lib.fa_flash_fwd_simt.restype = i
         bwd_tail = [
             i, i, i, i, i, i, i,  # dtype, batch, hq, hkv, lq, lk, head_dim
             ctypes.POINTER(ll),  # 21 strides: q, k, v, dout, dq, dk, dv
@@ -155,8 +153,6 @@ def library() -> ctypes.CDLL:
             f, i, i, p,  # scale_log2, causal, window, stream
         ]
         lib.fa_flash_fwd_kv_quant.restype = i
-        lib.fa_flash_fwd_kv_quant_simt.argtypes = lib.fa_flash_fwd_kv_quant.argtypes
-        lib.fa_flash_fwd_kv_quant_simt.restype = i
         lib.fa_paged_decode.argtypes = [
             p, p, p, p, p, p, p, p,  # q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices, out
             p, p,  # workspace, counters

@@ -37,10 +37,16 @@ KERNEL_BWD_PINNED = 128
 KERNEL_BWD_STREAM = 64
 KERNEL_DKV_D256 = (64, 32)  # (pinned KV rows, streamed query rows)
 KERNEL_DQ_D256 = (64, 64)  # (pinned query rows, streamed KV rows)
-# The SIMT family (csrc/flash_d256.cuh, Cfg): 256 threads pin 256 / (D / 32)
-# rows and stream tiles of the largest power-of-two height whose fp32 tiles
-# fit (2 of them forward, 3 backward); {padded head dim: (pinned, streamed)}.
+# The SIMT backward (csrc/flash_d256.cuh, Cfg): 256 threads pin 256 / (D /
+# 32) rows and stream tiles of the largest power-of-two height whose three
+# fp32 tiles fit; {padded head dim: (pinned, streamed)}.
 KERNEL_SIMT_TILE = {256: (32, 32), 512: (16, 32), 1024: (8, 16)}
+# The fp32 forward above 128 (csrc/flash_fwd_fp32_wide.cuh, wide32::Tiles):
+# eight warps of 128 output columns, D / 128 of them to each 16-row group,
+# so a block pins 16384 / D query rows, against one slot of a K ring and one
+# of a V ring; {padded head dim: (KV rows a streamed tile, q split once into
+# hi and lo)}.
+KERNEL_FP32_WIDE = {256: (32, True), 512: (32, False), 1024: (16, False)}
 # The bf16/fp16 forward at 512 and 1024 (csrc/flash_fwd_wide.cuh, wide::Cfg):
 # two consumer warpgroups share 64 query rows and split the output columns
 # (512 a block), against KV tiles in rings of K and of V slots; {padded
@@ -83,8 +89,8 @@ def kernel_block_q(head_dim: int, quantized: bool = False) -> int:
 # The tile heights (query rows, 64 per consumer warpgroup) that the bf16/fp16
 # K1 is built at, {padded head dim: (block_q, ...)}, the default
 # (`kernel_block_q`) first: as many consumer warpgroups as the registers
-# allow at each head dim, and fewer.  The autotuner sweeps them; K4, fp32
-# and the SIMT family have one tile each.
+# allow at each head dim, and fewer.  The autotuner sweeps them; K4 and fp32
+# have one tile each.
 K1_TILES = {64: (192, 128, 64), 128: (128, 64), 256: (64,)}
 
 
@@ -136,6 +142,30 @@ def wide_forward_smem_bytes(head_dim: int, quantized: bool) -> int:
     tiles = k_slots * bc * d * 2 + v_slots * bc * 512 * 2 + staging * bc * (d + 512)
     return (KERNEL_WIDE_Q * d * 2 + tiles + 2 * 2 * KERNEL_WIDE_Q * bc * 4
             + (1 + 2 * k_slots + 2 * v_slots + staging) * 8 + 1024)
+
+
+def fp32_wide_forward_tile(head_dim: int) -> tuple[int, int]:
+    """(pinned query rows, streamed KV rows) of the fp32 forward at padded
+    head dim 256, 512 or 1024 (`KERNEL_FP32_WIDE`)."""
+    d = _padded(head_dim)
+    return 16384 // d, KERNEL_FP32_WIDE[d][0]
+
+
+def fp32_wide_forward_smem_bytes(head_dim: int, quantized: bool) -> int:
+    """Shared memory of the fp32 forward at 256, 512 and 1024, as
+    wide32::Cfg::kSmemBytes lays it out: the q tile (fp32, 64 KB) and,
+    when it is split once, its lo copy; a K and a V tile (fp32, or K4's
+    1-byte payloads); the warps' partial S, double-buffered; the KV
+    segment ids and K4's K and V scales; the mbarriers (q, full and empty
+    of K and of V); 1024 bytes to
+    align the base for the 128-byte swizzle."""
+    d = _padded(head_dim)
+    stream, pre = KERNEL_FP32_WIDE[d]
+    elem = 1 if quantized else 4
+    q = 16384 * 4 * (2 if pre else 1)
+    slot = 2 * stream * d * elem
+    per_slot = stream * 4 * (3 if quantized else 1)
+    return q + slot + per_slot + 2 * 8 * 16 * stream * 4 + 5 * 8 + 1024
 
 
 def backward_tiles(head_dim: int, kernel: str) -> tuple[int, int]:
@@ -300,10 +330,12 @@ def default_blocks(
     (128, 64)); at 256 dK/dV pins 64 KV rows and walks 32-row query tiles,
     and dQ keeps 32 x 32 tiles where its kernel pins 64 query rows against
     64-row KV tiles (`KERNEL_DQ_D256`): the plain loop's dQ tile sets only
-    its order of summation, well inside the bf16 tolerance.  The SIMT
-    family (fp32 above 128) pins and streams `KERNEL_SIMT_TILE` rows in
-    every kernel; at 512 and 1024 the bf16/fp16 forward takes 64 query rows
-    against `KERNEL_WIDE_KV` rows, and its backward pins
+    its order of summation, well inside the bf16 tolerance.  fp32 above
+    128 takes the 3xTF32 forward's tile (`fp32_wide_forward_tile`: 64 x
+    32, 32 x 32 and 16 x 16 at 256, 512 and 1024) and
+    the SIMT backward's `KERNEL_SIMT_TILE` in dK/dV and dQ; at 512 and
+    1024 the bf16/fp16 forward takes
+    64 query rows against `KERNEL_WIDE_KV` rows, and its backward pins
     `KERNEL_WIDE_DKV` / `KERNEL_WIDE_DQ` rows against 64-row tiles (dK/dV
     64 query rows against 32 / 16 KV rows, dQ 32 query rows against 64 KV
     rows).  `dtype` is the inputs' (None: a 16-bit type; float32 changes the
@@ -319,7 +351,8 @@ def default_blocks(
                           block_kv_dkv=KERNEL_WIDE_DKV[d][0], block_q_dq=KERNEL_WIDE_DQ[d][0], block_kv_dq=stream)
     if d > 256 or (d == 256 and dtype == torch.float32):
         rows, bc = KERNEL_SIMT_TILE[d]
-        return BlockSizes(block_q=rows, block_kv=bc, block_q_dkv=bc, block_kv_dkv=rows, block_q_dq=rows,
+        fwd_q, fwd_kv = fp32_wide_forward_tile(d)
+        return BlockSizes(block_q=fwd_q, block_kv=fwd_kv, block_q_dkv=bc, block_kv_dkv=rows, block_q_dq=rows,
                           block_kv_dq=bc)
     if d == 256:
         pinned, stream = KERNEL_DKV_D256

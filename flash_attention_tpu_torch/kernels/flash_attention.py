@@ -18,11 +18,12 @@ and `flash_attention_with_lse` look at the device of their inputs
   output columns a block).  The bf16/fp16 backward (K2, K3) is wgmma at
   every head dim too: `csrc/flash_bwd.cuh` up to 256,
   `csrc/flash_bwd_wide.cuh` at 512 and 1024 (transposed accumulators, so
-  that the head dim is wgmma's M).  fp32 K1, K4, K2 and K3 at 64 and 128
-  are 3xTF32 tensor-core kernels (`csrc/flash_fwd_fp32.cu`,
-  `csrc/flash_bwd_fp32.cuh`), inside the same entry points; fp32 above
-  128 takes the SIMT family of `csrc/flash_d256.cuh` through entry points
-  of its own (`_route`).
+  that the head dim is wgmma's M).  fp32 K1 and K4 are 3xTF32
+  tensor-core kernels at every head dim (`csrc/flash_fwd_fp32.cu` at 64
+  and 128, `csrc/flash_fwd_fp32_wide.cuh` at 256, 512 and 1024), and so
+  are fp32 K2 and K3 at 64 and 128 (`csrc/flash_bwd_fp32.cuh`), inside
+  the same entry points; fp32 K2 and K3 above 128 take the SIMT backward
+  of `csrc/flash_d256.cuh` through entry points of its own (`_route`).
   Nothing falls back: what the kernels do not take raises, a head dim above
   1024 among it.
 * CPU tensors go to the plain versions: `flash_attention_reference` (a tile
@@ -73,7 +74,7 @@ _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 
 # The head dims the CUDA kernels are built for.  1024 is the widest: there
-# the SIMT family splits a row over a whole warp (32 columns a lane).
+# the SIMT backward splits a row over a whole warp (32 columns a lane).
 SUPPORTED_HEAD_DIMS = (64, 128, 256, 512, 1024)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -104,13 +105,12 @@ def _pad_head_dim(x: torch.Tensor, dp: int) -> torch.Tensor:
 # head dim 128 are the 3xTF32 kernels (csrc/flash_fwd_fp32.cu,
 # csrc/flash_bwd_fp32.cuh), counted under "_fp32" (the fp32 pre-pass is
 # the 16-bit one's kernel, under the plain key).  Head dims 256, 512 and
-# 1024 run other kernels,
-# counted under keys of their own (`_route`): "_d256" for what bf16/fp16
-# runs at 256 (the wgmma K1, K4, K2 and K3), "_d256_simt" for the SIMT K1,
-# K4, K2 and K3 that fp32 runs there; at 512 and 1024 "_wide" for the
-# bf16/fp16 wgmma K1, K4, K2 and K3 (csrc/flash_fwd_wide.cuh,
-# csrc/flash_bwd_wide.cuh) and the pre-pass, "_wide_simt" for the SIMT
-# K1, K4, K2 and K3 that fp32 runs there.
+# 1024 run other kernels, counted under keys of their own (`_route`):
+# "_d256" for what bf16/fp16 runs at 256 (the wgmma K1, K4, K2 and K3),
+# "_wide" at 512 and 1024 (csrc/flash_fwd_wide.cuh, csrc/flash_bwd_wide.cuh,
+# and the pre-pass); for fp32 "_d256_fp32" / "_wide_fp32" for the 3xTF32
+# K1 and K4 of csrc/flash_fwd_fp32_wide.cuh, and "_d256_simt" /
+# "_wide_simt" for the SIMT K2 and K3.
 KERNEL_LAUNCHES = {
     "flash_fwd": 0,
     "flash_bwd_prep": 0,
@@ -128,45 +128,47 @@ KERNEL_LAUNCHES = {
     "flash_bwd_dkv_d256": 0,
     "flash_bwd_dq_d256": 0,
     "flash_fwd_kv_quant_d256": 0,
-    "flash_fwd_d256_simt": 0,
+    "flash_fwd_d256_fp32": 0,
+    "flash_fwd_kv_quant_d256_fp32": 0,
     "flash_bwd_dkv_d256_simt": 0,
     "flash_bwd_dq_d256_simt": 0,
-    "flash_fwd_kv_quant_d256_simt": 0,
     "flash_fwd_wide": 0,
     "flash_bwd_prep_wide": 0,
     "flash_bwd_dkv_wide": 0,
     "flash_bwd_dq_wide": 0,
     "flash_fwd_kv_quant_wide": 0,
-    "flash_fwd_wide_simt": 0,
+    "flash_fwd_wide_fp32": 0,
+    "flash_fwd_kv_quant_wide_fp32": 0,
     "flash_bwd_dkv_wide_simt": 0,
     "flash_bwd_dq_wide_simt": 0,
-    "flash_fwd_kv_quant_wide_simt": 0,
 }
 
 
 def _route(name: str, head_dim: int, dtype: torch.dtype) -> tuple[str, str]:
     """(KERNEL_LAUNCHES key, C entry point) of kernel `name` ("flash_fwd",
     "flash_fwd_kv_quant", "flash_bwd_prep", "flash_bwd_dkv" or
-    "flash_bwd_dq") at padded head dim `head_dim` for q's `dtype`.  The
-    SIMT family (csrc/flash_d256.cuh) has entry points of their own, named
-    with "_simt", which fp32 runs above 128.  Keys: the name up to 128,
-    with "_fp32" for fp32 K1, K4, K2 and K3 there (the 3xTF32 kernels,
-    reached through the same entry points as the 16-bit ones); "_d256" /
-    "_d256_simt" at 256; at 512 and 1024 "_wide" (bf16/fp16 K1, K4, K2 and
-    K3 on the wgmma kernels of csrc/flash_fwd_wide.cuh and
-    csrc/flash_bwd_wide.cuh, and the pre-pass) and "_wide_simt" (fp32 K1,
-    K4, K2 and K3)."""
+    "flash_bwd_dq") at padded head dim `head_dim` for q's `dtype`.  Keys:
+    the name up to 128, with "_fp32" for fp32 K1, K4, K2 and K3 there (the
+    3xTF32 kernels, reached through the same entry points as the 16-bit
+    ones); "_d256" at 256 and "_wide" at 512 and 1024 for bf16/fp16 K1,
+    K4, K2 and K3 (the wgmma kernels of csrc/flash_fwd.cuh,
+    csrc/flash_fwd_wide.cuh, csrc/flash_bwd.cuh and csrc/flash_bwd_wide.cuh)
+    and for the pre-pass of every dtype; for fp32 K1 and K4 "_d256_fp32" /
+    "_wide_fp32" (the 3xTF32 kernel of csrc/flash_fwd_fp32_wide.cuh,
+    through the plain entry points), and for fp32 K2 and K3 "_d256_simt" /
+    "_wide_simt", the SIMT backward of csrc/flash_d256.cuh, whose entry
+    points are named with "_simt"."""
     fp32 = dtype == torch.float32
     if head_dim <= 128:
         if fp32 and name != "flash_bwd_prep":
             return f"{name}_fp32", f"fa_{name}"
         return name, f"fa_{name}"
-    if name == "flash_bwd_prep":
-        return f"{name}_d256" if head_dim == 256 else f"{name}_wide", f"fa_{name}"
     tier = "_d256" if head_dim == 256 else "_wide"
-    if fp32:
-        return f"{name}{tier}_simt", f"fa_{name}_simt"
-    return f"{name}{tier}", f"fa_{name}"
+    if not fp32 or name == "flash_bwd_prep":
+        return f"{name}{tier}", f"fa_{name}"
+    if name.startswith("flash_fwd"):
+        return f"{name}{tier}_fp32", f"fa_{name}"
+    return f"{name}{tier}_simt", f"fa_{name}_simt"
 
 
 def _call(entry: str, device: torch.device, *args) -> None:
@@ -470,8 +472,7 @@ def _ids_ptrs(segs):
 def k1_block_q(blocks: BlockSizes, head_dim: int, dtype: torch.dtype) -> int:
     """The tile height K1 launches with at (padded) head dim `head_dim`: the
     tiling's block_q where the bf16/fp16 kernel is built at it (`K1_TILES`),
-    else that kernel's default; 0, the one tile, for fp32 and the SIMT
-    family."""
+    else that kernel's default; 0, the one tile, for fp32."""
     tiles = K1_TILES.get(head_dim) if dtype != torch.float32 else None
     if tiles is None:
         return 0
@@ -553,13 +554,13 @@ def _bwd_launch(name: str, args: dict, outs: tuple[torch.Tensor, ...]) -> None:
 
 
 def _launch_bwd_dkv(args: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run K2 (fa_flash_bwd_dkv, or the SIMT family's; `_route`): (dk, dv)."""
+    """Run K2 (fa_flash_bwd_dkv, or the SIMT backward's; `_route`): (dk, dv)."""
     _bwd_launch("flash_bwd_dkv", args, (args["dk"], args["dv"]))
     return args["dk"], args["dv"]
 
 
 def _launch_bwd_dq(args: dict) -> torch.Tensor:
-    """Run K3 (fa_flash_bwd_dq, or the SIMT family's; `_route`): dq."""
+    """Run K3 (fa_flash_bwd_dq, or the SIMT backward's; `_route`): dq."""
     _bwd_launch("flash_bwd_dq", args, (args["dq"],))
     return args["dq"]
 

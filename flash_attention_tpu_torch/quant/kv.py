@@ -11,11 +11,13 @@ the kernel's inputs cannot drift apart.
 * CUDA tensors go to K4, `fa_flash_fwd_kv_quant` (`csrc/flash_fwd_kv_quant.cu`),
   which is K1's kernel with a K/V tile load that dequantizes in shared
   memory (for bf16/fp16 q at 512 and 1024 the wide kernel of
-  `csrc/flash_fwd_wide.cuh`; for fp32 q at 64 and 128 the 3xTF32 kernel of
-  `csrc/flash_fwd_fp32.cu`, counted under "flash_fwd_kv_quant_fp32";
-  `fa_flash_fwd_kv_quant_simt`, the SIMT family's, for fp32 q at 256, 512
-  and 1024; `_route`).  Nothing falls back: what the kernel does not take
-  raises.
+  `csrc/flash_fwd_wide.cuh`); fp32 q runs the 3xTF32 kernels, which read
+  the payload bytes straight into their tensor-core operands:
+  `csrc/flash_fwd_fp32.cu` at 64 and 128, counted under
+  "flash_fwd_kv_quant_fp32", and `csrc/flash_fwd_fp32_wide.cuh` at 256,
+  512 and 1024, under "flash_fwd_kv_quant_d256_fp32" /
+  "flash_fwd_kv_quant_wide_fp32" (`_route`).  Nothing falls back: what the
+  kernel does not take raises.
 * CPU tensors go to the plain version, `flash_attention_kv_quant_reference`:
   K1's plain tile loop on K/V dequantized the kernel's way.  Below the
   kernel's smallest shapes (`lq < MIN_BLOCK // 8` or `lk < MIN_BLOCK`) the

@@ -172,7 +172,7 @@ def test_padded_head_dim_looks_up_the_callers_head_dim(cache, monkeypatch):
 def test_k1_launches_each_tile(d, bq, monkeypatch):
     """block_q reaches fa_flash_fwd as its last argument for every K1_TILES
     entry; another block_q launches the default tile, fp32 0 (one tile),
-    and K4 and the SIMT family take no tile argument of their own."""
+    and K4 takes no tile argument of its own."""
     launches = []
     monkeypatch.setattr(tfa, "kernel_route", lambda *ts: "cuda")
     monkeypatch.setattr(tfa, "_call", lambda entry, device, *args: launches.append((entry, args[13], args[-1])))

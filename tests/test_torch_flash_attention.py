@@ -148,9 +148,10 @@ def test_default_blocks_is_the_kernel_tile():
     two), for any GQA group; the backward (two
     consumer warpgroups at 64 and 128) 64 query rows against 128 pinned KV
     rows for dK/dV, 128 pinned query rows against 64 KV rows for dQ; at 256
-    dK/dV 32 query rows against 64 pinned KV rows and dQ the SIMT family's
-    32 x 32.  The SIMT family (fp32 from 256 up) pins 256 / (D / 32) rows
-    and streams 32, 32 and 16; at 512 and 1024 the bf16/fp16 forward (the
+    dK/dV 32 query rows against 64 pinned KV rows and dQ the SIMT backward's
+    32 x 32.  fp32 from 256 up: the 3xTF32 forward pins 64, 32 and 16 query
+    rows against 32, 32 and 16 KV rows, the SIMT backward pins 256 / (D / 32)
+    rows and streams 32, 32 and 16; at 512 and 1024 the bf16/fp16 forward (the
     wide wgmma kernel) takes 64 query rows against 32 and 16 KV rows, and
     its backward (the wide wgmma K2 / K3) pins rows against 64-row tiles:
     dK/dV 64 query rows against 32 / 16 KV rows, dQ 32 query rows against
@@ -169,9 +170,9 @@ def test_default_blocks_is_the_kernel_tile():
     for dtype in (None, torch.bfloat16, torch.float16):
         assert tiles(256, dtype) == tiles(160, dtype) == (64, 64, (32, 64), (32, 32))
         assert tiles(256, dtype, quantized=True)[:2] == (128, 64)
-    assert tiles(256, torch.float32) == tiles(129, torch.float32) == (32, 32, (32, 32), (32, 32))
-    assert tiles(512, torch.float32) == tiles(288, torch.float32) == (16, 32, (32, 16), (16, 32))
-    assert tiles(1024, torch.float32) == tiles(520, torch.float32) == (8, 16, (16, 8), (8, 16))
+    assert tiles(256, torch.float32) == tiles(129, torch.float32) == (64, 32, (32, 32), (32, 32))
+    assert tiles(512, torch.float32) == tiles(288, torch.float32) == (32, 32, (32, 16), (16, 32))
+    assert tiles(1024, torch.float32) == tiles(520, torch.float32) == (16, 16, (16, 8), (8, 16))
     for dtype in (None, torch.bfloat16, torch.float16):
         assert tiles(512, dtype) == tiles(288, dtype) == (64, 32, (64, 32), (32, 64))
         assert tiles(1024, dtype) == tiles(520, dtype) == (64, 16, (64, 16), (32, 64))
@@ -180,8 +181,9 @@ def test_default_blocks_is_the_kernel_tile():
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_plain_loop_at_the_d256_tiles_matches_jax(dtype):
     """The plain forward and backward at the D256 kernels' tiles, 64 x 64
-    forward and 32 x 64 dK/dV for bf16 (the wgmma kernels), 32 x 32 for
-    fp32 (the SIMT family), on fp32 inputs at L130 (ragged ends, a GQA
+    forward and 32 x 64 dK/dV for bf16 (the wgmma kernels), 64 x 32 forward
+    (the 3xTF32 kernel) and 32 x 32 dK/dV (the SIMT backward) for fp32, on
+    fp32 inputs at L130 (ragged ends, a GQA
     group of 2 whose tiles cross the causal diagonal): out, lse and the
     grads against the JAX package in interpret mode, fp32, forward 1e-5,
     backward 1e-4."""
@@ -189,7 +191,8 @@ def test_plain_loop_at_the_d256_tiles_matches_jax(dtype):
     q, k, v = _qkv(lq, lk, d=256, seed=13)
     do = randn(16, 1, 4, lq, 256)
     blocks = tbs.default_blocks(lq, lk, 256, 2, dtype=getattr(torch, dtype))
-    assert blocks.block_q == (64 if dtype == "bfloat16" else 32)
+    assert (blocks.block_q, blocks.block_kv) == ((64, 64) if dtype == "bfloat16" else (64, 32))
+    assert blocks.bwd_dkv() == ((32, 64) if dtype == "bfloat16" else (32, 32))
     jo, jl = jfa.flash_attention_with_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     to, tl = tfa.flash_attention_reference(t(q), t(k), t(v), block_sizes=blocks)
     np.testing.assert_allclose(n(to), n(jo), atol=1e-5, rtol=0)
@@ -264,6 +267,72 @@ def test_wide_forward_kernel_fits_in_shared_memory(kv, head_dim):
     blocks = tbs.default_blocks(1024, 1024, head_dim, dtype=torch.bfloat16, quantized=quantized)
     assert (blocks.block_q, blocks.block_kv) == (64, bc)
     assert (blocks.block_kv_dkv, blocks.block_q_dkv) == (tbs.KERNEL_WIDE_DKV[head_dim][0], 64)
+
+
+@pytest.mark.parametrize("kv", ["same", "int8", "float8_e4m3fn"])
+@pytest.mark.parametrize("head_dim", [256, 512, 1024])
+def test_fp32_wide_forward_kernel_fits_in_shared_memory(kv, head_dim):
+    """The fp32 forward above 128 (csrc/flash_fwd_fp32_wide.cuh) fits an
+    H100 block's 227 KB: q (64 KB; its lo copy where it is split once),
+    the ring's K and V tiles (fp32, or K4's 1-byte payloads), the eight
+    warps' partial S double-buffered; its tile is the plain loop's fp32
+    forward tile."""
+    quantized = kv != "same"
+    used = tbs.fp32_wide_forward_smem_bytes(head_dim, quantized)
+    assert used <= tbs.SMEM_PER_BLOCK
+    stream, pre = tbs.KERNEL_FP32_WIDE[head_dim]
+    rows, bc = tbs.fp32_wide_forward_tile(head_dim)
+    assert bc == stream and rows * head_dim == 128 * 128
+    elem = 1 if quantized else 4
+    q = rows * head_dim * 4 * (1 + pre)
+    assert used >= q + 2 * stream * head_dim * elem + 2 * 8 * 16 * stream * 4
+    blocks = tbs.default_blocks(1024, 1024, head_dim, dtype=torch.float32, quantized=quantized)
+    assert (blocks.block_q, blocks.block_kv) == (rows, bc)
+    assert blocks.bwd_dkv() == tbs.KERNEL_SIMT_TILE[head_dim][::-1]
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["gqa-q129-kv257", "window-100", "segments", "no-key-rows", "non-causal"],
+)
+@pytest.mark.parametrize("d", [160, 288, 520])
+def test_plain_loop_at_the_fp32_wide_tiles_matches_jax(d, case):
+    """The plain forward at the 3xTF32 forward's tiles above head dim 128
+    (64 x 32, 32 x 32 and 16 x 16 at padded head dims 256, 512 and
+    1024), on fp32 inputs zero-padded as the entry points pad
+    them, against the JAX package's fp32 forward in interpret mode at d
+    itself: out (and lse, where JAX's entry with lse takes the case) at
+    1e-5.  Cases: ragged q129 x kv257 with a GQA group of 4 whose tiles
+    cross the causal diagonal; a window of 100 over them; 3 segments; rows
+    that see no key (causal q200 x kv120: the first 80, exactly 0 with lse
+    -inf, where JAX's kernel spreads them over every key, so JAX is held
+    on the other rows); non-causal."""
+    lq, lk = {"no-key-rows": (200, 120)}.get(case, (129, 257))
+    q, k, v = _qkv(lq, lk, hq=8, hkv=2, d=d, seed=29)
+    causal = case != "non-causal"
+    kw_j, kw_t = {}, {}
+    if case == "window-100":
+        kw_j = kw_t = dict(window=100)
+    elif case == "segments":
+        q_ids = np.repeat(np.arange(3, dtype=np.int32), [40, 50, 39])[None]
+        kv_ids = np.repeat(np.arange(3, dtype=np.int32), [100, 100, 57])[None]
+        kw_j = dict(segment_ids=(jnp.asarray(q_ids), jnp.asarray(kv_ids)))
+        kw_t = dict(segment_ids=(t(q_ids), t(kv_ids)))
+    dp = tfa.padded_head_dim(d)
+    blocks = tbs.default_blocks(lq, lk, dp, 4, dtype=torch.float32)
+    assert (blocks.block_q, blocks.block_kv) == tbs.fp32_wide_forward_tile(dp)
+    qp, kp, vp = (tfa._pad_head_dim(t(x), dp) for x in (q, k, v))
+    to, tl = tfa.flash_attention_reference(qp, kp, vp, causal=causal, sm_scale=d ** -0.5, block_sizes=blocks,
+                                           **kw_t)
+    assert not to[..., d:].any()
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    keyed = 80 if case == "no-key-rows" else 0
+    want = jfa.flash_attention(jq, jk, jv, causal=causal, **kw_j)
+    np.testing.assert_allclose(n(to[:, :, keyed:, :d]), n(want)[:, :, keyed:], atol=1e-5, rtol=0)
+    if not kw_j:
+        _, jl = jfa.flash_attention_with_lse(jq, jk, jv, causal=causal)
+        np.testing.assert_allclose(n(tl[:, :, keyed:]), n(jl)[:, :, keyed:], atol=1e-5, rtol=0)
+    assert not to[:, :, :keyed].any() and bool((tl[:, :, :keyed] == -np.inf).all())
 
 
 def test_cpu_route_counts_no_kernel_launch():

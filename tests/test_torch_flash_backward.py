@@ -326,7 +326,7 @@ def test_cuda_route_launches_padded_head_dims(d, entry, monkeypatch):
 @pytest.mark.parametrize("entry", ["flash_attention", "with_lse", "kv_quant"])
 def test_cuda_route_raises_above_head_dim_1024(entry, monkeypatch):
     """No public model config has a head dim above 256, and at 1024 the SIMT
-    family already splits a row over a whole warp: the kernels are built up
+    backward already splits a row over a whole warp: the kernels are built up
     to 1024, and on the CUDA route D1040 raises before any launch (the real
     launchers check the head dim before they build or load the kernels, so
     no card is needed to see it)."""
@@ -347,9 +347,8 @@ def test_cuda_route_raises_above_head_dim_1024(entry, monkeypatch):
 
 # Where each C entry point takes its head dim (the index in its arguments).
 _HEAD_DIM_ARG = {
-    "fa_flash_fwd": 13, "fa_flash_fwd_simt": 13, "fa_flash_fwd_kv_quant": 15, "fa_flash_fwd_kv_quant_simt": 15,
-    "fa_flash_bwd_prep": 10, "fa_flash_bwd_dkv": 17, "fa_flash_bwd_dkv_simt": 17, "fa_flash_bwd_dq": 16,
-    "fa_flash_bwd_dq_simt": 16,
+    "fa_flash_fwd": 13, "fa_flash_fwd_kv_quant": 15, "fa_flash_bwd_prep": 10, "fa_flash_bwd_dkv": 17,
+    "fa_flash_bwd_dkv_simt": 17, "fa_flash_bwd_dq": 16, "fa_flash_bwd_dq_simt": 16,
 }
 # Where the backward's entry points take qs (written by the pre-pass, read by
 # the wgmma K2 / K3).
@@ -367,20 +366,22 @@ _QS_ARG = {"fa_flash_bwd_prep": 4, "fa_flash_bwd_dkv": 6, "fa_flash_bwd_dkv_simt
         (160, torch.float16, ("flash_fwd_d256", "fa_flash_fwd"), ("flash_bwd_prep_d256", "fa_flash_bwd_prep"),
          ("flash_bwd_dkv_d256", "fa_flash_bwd_dkv"), ("flash_bwd_dq_d256", "fa_flash_bwd_dq"),
          ("flash_fwd_kv_quant_d256", "fa_flash_fwd_kv_quant")),
-        # fp32 at 256: the SIMT family
-        (256, torch.float32, ("flash_fwd_d256_simt", "fa_flash_fwd_simt"), ("flash_bwd_prep_d256", "fa_flash_bwd_prep"),
+        # fp32 at 256: the 3xTF32 K1 and K4 through the plain entry points,
+        # the SIMT K2 and K3 through their own
+        (256, torch.float32, ("flash_fwd_d256_fp32", "fa_flash_fwd"), ("flash_bwd_prep_d256", "fa_flash_bwd_prep"),
          ("flash_bwd_dkv_d256_simt", "fa_flash_bwd_dkv_simt"), ("flash_bwd_dq_d256_simt", "fa_flash_bwd_dq_simt"),
-         ("flash_fwd_kv_quant_d256_simt", "fa_flash_fwd_kv_quant_simt")),
+         ("flash_fwd_kv_quant_d256_fp32", "fa_flash_fwd_kv_quant")),
         # 257-512 and 513-1024, bf16/fp16: the wide wgmma K1, K4, K2 and K3,
         # keys of their own
         *((d, dtype, ("flash_fwd_wide", "fa_flash_fwd"), ("flash_bwd_prep_wide", "fa_flash_bwd_prep"),
            ("flash_bwd_dkv_wide", "fa_flash_bwd_dkv"), ("flash_bwd_dq_wide", "fa_flash_bwd_dq"),
            ("flash_fwd_kv_quant_wide", "fa_flash_fwd_kv_quant"))
           for d, dtype in ((288, torch.bfloat16), (520, torch.float16), (1024, torch.bfloat16))),
-        # fp32 there: the SIMT family throughout, under "_wide_simt"
-        *((d, torch.float32, ("flash_fwd_wide_simt", "fa_flash_fwd_simt"), ("flash_bwd_prep_wide", "fa_flash_bwd_prep"),
+        # fp32 there: the 3xTF32 K1 and K4 under "_wide_fp32", the SIMT K2
+        # and K3 under "_wide_simt"
+        *((d, torch.float32, ("flash_fwd_wide_fp32", "fa_flash_fwd"), ("flash_bwd_prep_wide", "fa_flash_bwd_prep"),
            ("flash_bwd_dkv_wide_simt", "fa_flash_bwd_dkv_simt"), ("flash_bwd_dq_wide_simt", "fa_flash_bwd_dq_simt"),
-           ("flash_fwd_kv_quant_wide_simt", "fa_flash_fwd_kv_quant_simt"))
+           ("flash_fwd_kv_quant_wide_fp32", "fa_flash_fwd_kv_quant"))
           for d in (512, 1024)),
         # fp32 up to 128: K1, K4, K2 and K3 (the 3xTF32 kernels) under
         # "_fp32", the pre-pass under its plain key, all through the plain
@@ -472,17 +473,71 @@ def test_fp32_forward_counts_under_its_own_keys(kernel, d, dtype, monkeypatch):
     assert calls == [(entry, tfa.padded_head_dim(d), tfa._DTYPE_CODES[dtype])]
 
 
+@pytest.mark.parametrize("kernel", ["k1", "k1_lse", "k4_int8", "k4_fp8"])
+@pytest.mark.parametrize("d", [160, 256, 288, 520, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=["fp32", "bf16", "fp16"])
+def test_wide_fp32_forward_counts_under_its_own_keys(kernel, d, dtype, monkeypatch):
+    """K1 (with and without lse) and K4 (int8 and fp8 K/V) on the CUDA
+    route above head dim 128, the C entry points stood in for by a
+    recorder: fp32 counts one launch under "flash_fwd_d256_fp32" /
+    "flash_fwd_kv_quant_d256_fp32" at padded head dim 256 and
+    "flash_fwd_wide_fp32" / "flash_fwd_kv_quant_wide_fp32" at 512 and
+    1024 (the 3xTF32 kernel of flash_fwd_fp32_wide.cuh), and nothing under
+    any other key; bf16 / fp16 count under "_d256" / "_wide" and never
+    under an "_fp32" key.  Every launch goes through the plain entry point
+    (no forward entry named "_simt" is left) with the padded head dim and
+    the dtype's code, and fp32 K1 with block_q 0 (its one tile)."""
+    calls, block_q = [], []
+    dtype_arg = {"fa_flash_fwd": 7, "fa_flash_fwd_kv_quant": 8}
+
+    def record(entry, device, *args):
+        calls.append((entry, args[_HEAD_DIM_ARG[entry]], args[dtype_arg[entry]]))
+        if entry == "fa_flash_fwd":
+            block_q.append(args[-1])
+
+    monkeypatch.setattr(tfa, "kernel_route", lambda *ts: "cuda")
+    monkeypatch.setattr(tkv, "kernel_route", lambda *ts: "cuda")
+    monkeypatch.setattr(tfa, "_call", record)
+    monkeypatch.setattr(tkv, "_call", record)
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: 0)
+    q = torch.zeros(1, 4, 130, d, dtype=dtype)
+    k, v = (torch.zeros(1, 2, 130, d, dtype=dtype) for _ in range(2))
+    before = dict(tfa.KERNEL_LAUNCHES)
+    if kernel == "k1":
+        tfa.flash_attention(q, k, v)
+    elif kernel == "k1_lse":
+        tfa.flash_attention_with_lse(q, k, v)
+    else:
+        qdt = torch.int8 if kernel == "k4_int8" else torch.float8_e4m3fn
+        tkv.flash_attention_kv_quant(q, tkv.quantize_kv(k.float(), v.float(), dtype=qdt))
+    dp = tfa.padded_head_dim(d)
+    name = "flash_fwd_kv_quant" if kernel.startswith("k4") else "flash_fwd"
+    tier = "_d256" if dp == 256 else "_wide"
+    key = f"{name}{tier}_fp32" if dtype == torch.float32 else f"{name}{tier}"
+    counts = {k_: n - before[k_] for k_, n in tfa.KERNEL_LAUNCHES.items() if n != before[k_]}
+    assert counts == {key: 1}
+    assert not any(k_.startswith("flash_fwd") and k_.endswith("_simt") for k_ in tfa.KERNEL_LAUNCHES)
+    entry = "fa_flash_fwd_kv_quant" if name == "flash_fwd_kv_quant" else "fa_flash_fwd"
+    assert calls == [(entry, dp, tfa._DTYPE_CODES[dtype])]
+    if dtype == torch.float32:
+        assert block_q == ([0] if entry == "fa_flash_fwd" else [])
+
+
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_fwd_kv_quant", "flash_bwd_dkv", "flash_bwd_dq"])
 def test_d256_route_sends_16_bit_types_to_wgmma_and_fp32_to_simt(name):
     """At padded head dim 256 each of K1, K4, K2 and K3 sends bf16 and fp16
-    to its wgmma kernel's entry point under the "_d256" key, and fp32 to
-    the SIMT family's (`fa_*_simt`) under a "_d256_simt" key of its own; at
-    128 the dtype does not change the route."""
+    to its wgmma kernel's entry point under the "_d256" key; fp32 K1 and K4
+    go to the same entry point (the 3xTF32 kernel) under a "_d256_fp32" key
+    of their own, and fp32 K2 and K3 to the SIMT backward's (`fa_*_simt`)
+    under "_d256_simt"; at 128 the dtype does not change the entry point."""
     for dtype in (torch.bfloat16, torch.float16):
         assert tfa._route(name, 256, dtype) == (f"{name}_d256", f"fa_{name}")
         assert tfa._route(name, 128, dtype) == (name, f"fa_{name}")
-    assert tfa._route(name, 256, torch.float32) == (f"{name}_d256_simt", f"fa_{name}_simt")
-    assert f"{name}_d256_simt" in tfa.KERNEL_LAUNCHES and f"{name}_d256" in tfa.KERNEL_LAUNCHES
+    fwd = name.startswith("flash_fwd")
+    want = (f"{name}_d256_fp32", f"fa_{name}") if fwd else (f"{name}_d256_simt", f"fa_{name}_simt")
+    assert tfa._route(name, 256, torch.float32) == want
+    assert want[0] in tfa.KERNEL_LAUNCHES and f"{name}_d256" in tfa.KERNEL_LAUNCHES
+    assert (f"{name}_d256_simt" in tfa.KERNEL_LAUNCHES) != fwd
 
 
 @pytest.mark.parametrize("d", [512, 1024])
@@ -490,12 +545,17 @@ def test_d256_route_sends_16_bit_types_to_wgmma_and_fp32_to_simt(name):
 def test_wide_route_sends_16_bit_forward_to_wgmma_and_the_rest_to_simt(name, d):
     """At padded head dims 512 and 1024 K1, K4, K2 and K3 send bf16 and
     fp16 to their own entry points (the wide wgmma kernels of
-    flash_fwd_wide.cuh and flash_bwd_wide.cuh) under the "_wide" key, and
-    fp32 to the SIMT family's under a "_wide_simt" key of its own."""
+    flash_fwd_wide.cuh and flash_bwd_wide.cuh) under the "_wide" key; fp32
+    K1 and K4 go to the same entry points (the 3xTF32 kernel of
+    flash_fwd_fp32_wide.cuh) under "_wide_fp32", and fp32 K2 and K3 to the
+    SIMT backward's under "_wide_simt"."""
     for dtype in (torch.bfloat16, torch.float16):
         assert tfa._route(name, d, dtype) == (f"{name}_wide", f"fa_{name}")
-    assert tfa._route(name, d, torch.float32) == (f"{name}_wide_simt", f"fa_{name}_simt")
+    fwd = name.startswith("flash_fwd")
+    want = (f"{name}_wide_fp32", f"fa_{name}") if fwd else (f"{name}_wide_simt", f"fa_{name}_simt")
+    assert tfa._route(name, d, torch.float32) == want
     assert all(key in tfa.KERNEL_LAUNCHES for key, _ in (tfa._route(name, d, t) for t in (torch.bfloat16, torch.float32)))
+    assert (f"{name}_wide_simt" in tfa.KERNEL_LAUNCHES) != fwd
 
 
 # Where the backward's K2 / K3 entry points take q's dtype code.

@@ -2,7 +2,8 @@
 training step, on the card, for an A/B between checkouts or between builds
 of one checkout.
 
-    python3 tools/d256_ab.py <checkout dir> <label> [--head-dims 256 512 1024] [--build-only]
+    python3 tools/d256_ab.py <checkout dir> <label> [--head-dims 256 512 1024] [--dtype float32]
+        [--build-only]
 
 Imports `flash_attention_tpu_torch` from <checkout dir> and builds its
 kernels there (its own build/torch_kernels/); --build-only stops after the
@@ -22,6 +23,13 @@ Then it prints lines of results, the last `RESULT {json}`:
 * when 256 is among the head dims, `chip_smoke.py`'s d256-path model (a
   GPT at GPT-2's width with 3 heads of 256, 2 layers) trained at b4 x
   T1024 in bf16: the median wall time of 10 steps after 3 warm-up steps.
+
+With --dtype float32 it times the fp32 forward alone (the 3xTF32 K1 and
+K4): at each head dim, K1 (output and lse) is held against its plain
+version at 1e-5 and K4 over int8 and fp8 K/V at 5e-5 (b1, GQA 4/2, L300),
+each launching once under its KERNEL_LAUNCHES key; then at b8 h12 L1024
+fp32 causal the device time of K1 without and with lse, K4 over int8 and
+over fp8, and torch SDPA's fp32 forward, beside the 3xTF32 bound.
 
 Compare in one call, in turns (A, B, B, A): times on the host's clock
 spread between calls and between processes, and one process cannot import
@@ -45,6 +53,7 @@ ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 ap.add_argument("tree")
 ap.add_argument("label")
 ap.add_argument("--head-dims", type=int, nargs="+", default=[256])
+ap.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16")
 ap.add_argument("--build-only", action="store_true")
 args = ap.parse_args()
 sys.path.insert(0, os.path.abspath(args.tree))
@@ -66,7 +75,7 @@ from flash_attention_tpu_torch.data import CharTokenizer, batch_iterator, synthe
 from flash_attention_tpu_torch.kernels import _build  # noqa: E402
 from flash_attention_tpu_torch.models.gpt import GPT2_124M  # noqa: E402
 from flash_attention_tpu_torch.training import Trainer, TrainerConfig  # noqa: E402
-from flash_attention_tpu_torch.utils.measure import floor_ms, graph_ms  # noqa: E402
+from flash_attention_tpu_torch.utils.measure import TF32X3_FLOPS, floor_ms, graph_ms  # noqa: E402
 
 
 def kernel_times(gen, d: int) -> dict:
@@ -116,6 +125,46 @@ def kernel_times(gen, d: int) -> dict:
     return row
 
 
+def fp32_forward_times(gen, d: int) -> dict:
+    f32 = torch.float32
+    q = torch.randn((1, 4, 300, d), generator=gen).to("cuda")
+    k, v = (torch.randn((1, 2, 300, d), generator=gen).to("cuda") for _ in range(2))
+    errs = {}
+    for name, call, plain, tol in (
+        ("k1", lambda: FA.flash_attention_with_lse(q, k, v), lambda: FA.flash_attention_reference(q, k, v), 1e-5),
+        *((f"k4_{tag}", functools.partial(QK.flash_attention_kv_quant, q, kv),
+           functools.partial(QK.flash_attention_kv_quant_reference, q, kv), 5e-5)
+          for tag, kv in (("int8", QK.quantize_kv(k, v, dtype=torch.int8)),
+                          ("fp8", QK.quantize_kv(k, v, dtype=torch.float8_e4m3fn))))):
+        before = dict(FA.KERNEL_LAUNCHES)
+        with torch.no_grad():
+            got, want = call(), plain()
+        torch.cuda.synchronize()
+        launched = {key: n - before[key] for key, n in FA.KERNEL_LAUNCHES.items() if n != before[key]}
+        got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+        errs[name] = max((a - b_).abs().max().item() for a, b_ in zip(got, want))
+        key = FA._route("flash_fwd_kv_quant" if name.startswith("k4") else "flash_fwd", FA.padded_head_dim(d), f32)[0]
+        if not errs[name] <= tol or launched != {key: 1}:
+            raise AssertionError(f"{args.label} D{d} fp32 {name}: {errs[name]:.3e} vs plain (atol {tol:g}), "
+                                 f"launched {launched}")
+    b, h, L = 8, 12, 1024
+    q, k, v = (torch.randn((b, h, L, d), generator=gen).to("cuda") for _ in range(3))
+    kv8, kvf = (QK.quantize_kv(k, v, dtype=t) for t in (torch.int8, torch.float8_e4m3fn))
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, is_causal=True)
+    with torch.no_grad():
+        row = {"k1": graph_ms(lambda: FA.flash_attention(q, k, v), calls=3, runs=7),
+               "k1_lse": graph_ms(lambda: FA.flash_attention_with_lse(q, k, v), calls=3, runs=7),
+               "k4_int8": graph_ms(lambda: QK.flash_attention_kv_quant(q, kv8), calls=3, runs=7),
+               "k4_fp8": graph_ms(lambda: QK.flash_attention_kv_quant(q, kvf), calls=3, runs=7),
+               "sdpa": graph_ms(lambda: sdpa(q, k, v), calls=3, runs=7)}
+    row["bound"], by = floor_ms(4 * b * h * L * d * 4, 4 * b * h * L * L * d / 2, TF32X3_FLOPS)
+    print(f"{args.label} b{b} h{h} L{L} D{d} fp32 causal device ms", {key: round(x, 4) for key, x in row.items()},
+          f"| K1 {row['bound'] / row['k1']:.1%} of its bound ({by}, 3xTF32), K4 int8 "
+          f"{row['bound'] / row['k4_int8']:.1%}, K1 / SDPA {row['k1'] / row['sdpa']:.2f}x; vs plain at b1 4/2 L300: "
+          + ", ".join(f"{key} {e:.2e}" for key, e in errs.items()), flush=True)
+    return row
+
+
 def training_times(seed: int = 0) -> dict:
     text = synthetic_corpus()
     data = CharTokenizer(text).encode(text)
@@ -143,8 +192,11 @@ def main() -> None:
     _build.library()
     res = {"label": args.label, "checkout": args.tree, "device": name, "smi": smi}
     gen = torch.Generator().manual_seed(11)
-    res["kernels"] = {f"d{d}": kernel_times(gen, d) for d in args.head_dims}
-    if 256 in args.head_dims:
+    if args.dtype == "float32":
+        res["kernels"] = {f"d{d}": fp32_forward_times(gen, d) for d in args.head_dims}
+    else:
+        res["kernels"] = {f"d{d}": kernel_times(gen, d) for d in args.head_dims}
+    if 256 in args.head_dims and args.dtype == "bfloat16":
         res["training"] = training_times()
     print("RESULT " + json.dumps(res), flush=True)
 
