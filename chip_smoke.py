@@ -46,8 +46,8 @@ are 7-9):
               table and NaN past the lengths, GQA 32/8 at D128.
 7. d256     - head dims 160 and 256 (run at 256: the wgmma K1, K4, K2 and
               K3 for bf16/fp16; for fp32 the 3xTF32 K1 and K4 of
-              csrc/flash_fwd_fp32_wide.cuh and the SIMT K2 and K3 of
-              csrc/flash_d256.cuh), 288 and 520 (padded to 512 and 1024:
+              csrc/flash_fwd_fp32_wide.cuh and K2 and K3 of
+              csrc/flash_bwd_fp32_wide.cuh), 288 and 520 (padded to 512 and 1024:
               bf16/fp16 K1 and K4 on the wide wgmma forward of
               csrc/flash_fwd_wide.cuh, K2 and K3 on the wide wgmma
               backward of csrc/flash_bwd_wide.cuh; fp32 as at 256): K1, its
@@ -69,21 +69,26 @@ are 7-9):
               lq < lk), and the 3xTF32 K4 over int8 and fp8 at 5e-5 at
               each padded head dim (GQA L1024, 3 segments at q1014 x
               kv1024), each launching its "_d256_fp32" / "_wide_fp32" key
-              once a call.
+              once a call; and the 3xTF32 K2 and K3 there, the grads of
+              K1 + pre-pass + K2 + K3 through the entry points at 1e-4
+              against plain and vanilla (L1024 GQA 8/2, q129 x kv257 with
+              window 100, GQA and segments, 3 segments at q1014 x kv1024,
+              rows that see no key, non-causal, lq < lk, an lse
+              cotangent), each call launching the "_d256_fp32" /
+              "_wide_fp32" K2 and K3 once.
 8. d256-path - the D256 route through the entry points: a 2-layer GPT at
               GPT-2's width with 3 heads of 256, 6 Trainer steps at b4 x
               T1024 in bf16 (the "_d256" keys, the wgmma K1, K2 and K3 and
               the pre-pass, launched n_layer x steps times each, nothing
               else; the median step ms), then the quant op at D256 over 4
               layers (the wgmma K4 launched 4 times).
-   simt-path - head dims above 256 and fp32 at 256 through the entry
+   wide-path - head dims above 256 and fp32 at 256 through the entry
               points: forward and backward of flash_attention and K4 (int8)
               at b2 h4 L1024 for D288 and D520 bf16 (the wide wgmma K1, K4,
-              K2 and K3) and D256 and D520 fp32 (the 3xTF32 K1 and K4, the
-              SIMT K2 and K3, which read the new forward's lse); the
-              "_wide", "_wide_fp32", "_wide_simt", "_d256_fp32" and
-              "_d256_simt" keys launched as SIMT_PATH_LAUNCHES says; every
-              output and grad against its plain version and fp32 vanilla.
+              K2 and K3) and D256 and D520 fp32 (the 3xTF32 K1, K4, K2 and
+              K3); the "_wide", "_wide_fp32" and "_d256_fp32" keys
+              launched as WIDE_PATH_LAUNCHES says; every output and grad
+              against its plain version and fp32 vanilla.
 9. llama    - the slice: Llama-3 8B at full width and depth (32 layers,
               4096 wide, GQA 32/8 D128, vocab 128256), bf16, random weights
               drawn on the card from the seed, behind the engine with
@@ -183,19 +188,23 @@ are 7-9):
               enqueue.  Each kernel beside its bound: the larger of its bytes
               at 3.35 TB/s and its FLOPs at 989 TFLOP/s (fp32: 165, TF32's
               495 over the three passes of 3xTF32).  Last,
-              at b8 h12 L1024: fp32 D256 (the 3xTF32 K1 and K4, the SIMT
-              K2 and K3); bf16 D512 and D1024 (no plain versions at
+              at b8 h12 L1024: fp32 D256 (the 3xTF32 K1, K4, K2 and K3);
+              bf16 D512 and D1024 (no plain versions at
               D1024): the wide wgmma K1 and K4 beside the SIMT times they
               replaced and SDPA's forward, the pre-pass and the wide wgmma
               K2/K3 beside their bounds, the SIMT times they replaced and
               SDPA's whole backward (pre-pass + K2 + K3 against it); fp32
-              D512 and D1024 (the 3xTF32 K1 and K4, the SIMT K2 and K3);
-              the 3xTF32 K1 (with and without lse) and K4 (int8, fp8) at
-              D256, D512 and D1024 beside their bounds, SDPA's fp32
-              forward and the SIMT forward's times they replaced
-              (SIMT_FP32_WIDE_FWD_MS, an earlier reading); fp32 D64 and
-              D128 (the 3xTF32 K1, K4, K2 and K3 and the pre-pass, beside
-              the SIMT times they replaced and SDPA fp32).
+              D512 and D1024 (the 3xTF32 K1, K4, K2 and K3); the 3xTF32
+              K1 (with and without lse) and K4 (int8, fp8) at D256, D512
+              and D1024 beside their bounds, SDPA's fp32 forward and the
+              SIMT forward's times they replaced (SIMT_FP32_WIDE_FWD_MS,
+              an earlier reading); the pre-pass and the 3xTF32 K2 and K3
+              there beside their bounds, SDPA's fp32 whole backward
+              (pre-pass + K2 + K3 against it) and the SIMT times they
+              replaced (SIMT_FP32_WIDE_BWD_MS, an earlier reading); fp32
+              D64 and D128 (the 3xTF32 K1, K4, K2 and K3 and the
+              pre-pass, beside the SIMT times they replaced and SDPA
+              fp32).
 20. measure - utils.measure on K1 at b8 h12 L1024 D64 bf16: chain_timer
               (a chain of 64 calls in a CUDA graph), ab_compare over K1's
               tiles with the recheck's drift band, graph_ms of the same
@@ -255,8 +264,8 @@ are 7-9):
               decode_loop's, the cache a DTensor.
 
 The line before the last is a JSON summary of the kernels, the "_fp32",
-the D256, the "_d256_fp32", the "_d256_simt", the "_wide", the
-"_wide_fp32" and the "_wide_simt" ones as rows of their own (launches on
+the D256, the "_d256_fp32", the "_wide" and the "_wide_fp32" ones as rows
+of their own (launches on
 their path, max error, device ms, plain ms, bound ms and what sets it,
 library ms or null; K1's row also carries its launches on the Llama path
 and in the chunked, speculative and pipelined GPT-2 bursts and its times
@@ -370,13 +379,13 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "flash_fwd_kv_quant_d256": ("flash_attention_tpu_torch/csrc/flash_fwd_d256.cu",
                                 "flash_attention_tpu/quant/kv.py:98"),
     # fp32 at 256: K1 and K4 on the 3xTF32 forward of
-    # flash_fwd_fp32_wide.cuh (flash_fwd_fp32_wide.cu), K2 and K3 on the SIMT
-    # backward of flash_d256.cuh
+    # flash_fwd_fp32_wide.cuh (flash_fwd_fp32_wide.cu), K2 and K3 on the
+    # 3xTF32 backward of flash_bwd_fp32_wide.cuh (flash_bwd_fp32_wide.cu)
     "flash_fwd_d256_fp32": ("flash_attention_tpu_torch/csrc/flash_fwd_fp32_wide.cu",
                             "flash_attention_tpu/kernels/flash_attention.py:269"),
-    "flash_bwd_dkv_d256_simt": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
+    "flash_bwd_dkv_d256_fp32": ("flash_attention_tpu_torch/csrc/flash_bwd_fp32_wide.cu",
                                 "flash_attention_tpu/kernels/flash_attention.py:637"),
-    "flash_bwd_dq_d256_simt": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
+    "flash_bwd_dq_d256_fp32": ("flash_attention_tpu_torch/csrc/flash_bwd_fp32_wide.cu",
                                "flash_attention_tpu/kernels/flash_attention.py:765"),
     "flash_fwd_kv_quant_d256_fp32": ("flash_attention_tpu_torch/csrc/flash_fwd_fp32_wide.cu",
                                      "flash_attention_tpu/quant/kv.py:98"),
@@ -396,12 +405,13 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                                 "flash_attention_tpu/quant/kv.py:98"),
     # fp32 at 512 / 1024: K1 and K4 on the 3xTF32 forward
     # (flash_fwd_fp32_wide.cu; D = 1024 in flash_fwd_fp32_wide_d1024.cu), K2
-    # and K3 on the SIMT backward
+    # and K3 on the 3xTF32 backward (flash_bwd_fp32_wide.cu; D = 1024 in
+    # flash_bwd_fp32_wide_d1024.cu)
     "flash_fwd_wide_fp32": ("flash_attention_tpu_torch/csrc/flash_fwd_fp32_wide.cu",
                             "flash_attention_tpu/kernels/flash_attention.py:269"),
-    "flash_bwd_dkv_wide_simt": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
+    "flash_bwd_dkv_wide_fp32": ("flash_attention_tpu_torch/csrc/flash_bwd_fp32_wide.cu",
                                 "flash_attention_tpu/kernels/flash_attention.py:637"),
-    "flash_bwd_dq_wide_simt": ("flash_attention_tpu_torch/csrc/flash_simt_bwd.cu",
+    "flash_bwd_dq_wide_fp32": ("flash_attention_tpu_torch/csrc/flash_bwd_fp32_wide.cu",
                                "flash_attention_tpu/kernels/flash_attention.py:765"),
     "flash_fwd_kv_quant_wide_fp32": ("flash_attention_tpu_torch/csrc/flash_fwd_fp32_wide.cu",
                                      "flash_attention_tpu/quant/kv.py:98"),
@@ -784,19 +794,27 @@ def check_grads(label, gen, b, hq, hkv, lq, lk, d, dtype, causal=True, window=No
     random dO (and dlse).  fp32: absolute 1e-4, the source repo's backward
     tier.  bf16/fp16: max error <= 2e-2 x max |grad| of the fp32 reference,
     since P and dS are rounded to the 16-bit type before their products.
-    `no_key_rows`: the first rows see no key (lse = -inf); their dO is 0,
-    since vanilla spreads such a row over every key where the kernels give
-    it P = 0; a P of inf there would turn 0 into NaN; their dQ must be
-    exactly 0.  Returns the worst error of each grad against the plain
-    backward."""
+    Rows that see no key (the plain forward's lse is -inf: the first
+    `no_key_rows`, which must be among them, and rows that a window over
+    segment ids leaves without a key): their dO (and dlse) is 0, since
+    vanilla spreads such a row over every key where the kernels give it P =
+    0; a P of inf there would turn 0 into NaN; their dQ must be exactly 0.
+    Returns the worst error of each grad against the plain backward."""
     q = _rand(gen, (b, hq, lq, d), dtype).requires_grad_()
     k = _rand(gen, (b, hkv, lk, d), dtype).requires_grad_()
     v = _rand(gen, (b, hkv, lk, d), dtype).requires_grad_()
     do = _rand(gen, (b, hq, lq, d), dtype)
-    do[:, :, :no_key_rows] = 0
     dlse = _rand(gen, (b, hq, lq), torch.float32) if with_lse else None
     segs = (_segment_ids(b, lq), _segment_ids(b, lk)) if segments else None
     kw = dict(causal=causal, window=window, segment_ids=segs)
+    with torch.no_grad():
+        o_p, lse_p = FA.flash_attention_reference(q, k, v, **kw)
+    no_key = lse_p == -math.inf
+    if not bool(no_key[:, :, :no_key_rows].all()):
+        raise AssertionError(f"[k2k3] {label}: the first {no_key_rows} rows see a key")
+    do[no_key] = 0
+    if with_lse:
+        dlse[no_key] = 0
     if with_lse:
         out, lse = FA.flash_attention_with_lse(q, k, v, causal=causal)
         torch.autograd.backward((out, lse), (do, dlse))
@@ -804,7 +822,6 @@ def check_grads(label, gen, b, hq, hkv, lq, lk, d, dtype, causal=True, window=No
         FA.flash_attention(q, k, v, **kw).backward(do)
     got = (q.grad, k.grad, v.grad)
     with torch.no_grad():
-        o_p, lse_p = FA.flash_attention_reference(q, k, v, **kw)
         plain = FA.flash_attention_bwd_reference(q, k, v, o_p, lse_p, do, dlse=dlse, **kw)
     g = hq // hkv
     qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
@@ -825,7 +842,7 @@ def check_grads(label, gen, b, hq, hkv, lq, lk, d, dtype, causal=True, window=No
         ok = ok and e_p <= tol and e_d <= tol
         worst[name] = e_p
         parts.append(f"{name} {e_p:.2e}/{e_d:.2e} tol {tol:.2e}")
-    if no_key_rows and bool(got[0][:, :, :no_key_rows].any()):
+    if bool(got[0][no_key].any()):
         raise AssertionError(f"[k2k3] {label}: dq of the rows that see no key is not 0")
     say(f"[k2k3] {label:<34} vs plain/vanilla: {'  '.join(parts)}  {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -1958,20 +1975,20 @@ def _keep_worst(worst: dict, key: str, err: float) -> None:
 
 def phase_d256(seed: int) -> dict:
     """K1, the pre-pass, K2/K3 and K4 at head dims 160 and 256 (both run at
-    256: bf16/fp16 on the wgmma K1, K4, K2 and K3; fp32 K1 and K4 on the
-    3xTF32 forward, K2 and K3 on the SIMT backward), 288 and 520 (padded to
+    256: bf16/fp16 on the wgmma K1, K4, K2 and K3; fp32 on the 3xTF32 K1,
+    K4, K2 and K3), 288 and 520 (padded to
     512 and 1024: bf16/fp16 K1, K4, K2 and K3 on the wide wgmma kernels;
     fp32 as at 256) against their plain versions and fp32 vanilla, with
     GQA 8/2, windows, segment ids, rows that see no key, the tiles' ragged
     edges, lse, non-causal, batch x heads past 32767, and K4 on int8 and
-    fp8; then the 3xTF32 K1 and K4 at D256, D288, D520 and D1024.
+    fp8; then the 3xTF32 K1, K4, K2 and K3 at D256, D288, D520 and D1024.
     Returns each kernel's worst error against its plain version, by
     KERNEL_LAUNCHES key."""
     gen = torch.Generator().manual_seed(seed + 9)
     bf16, f16, f32, i8, f8 = torch.bfloat16, torch.float16, torch.float32, torch.int8, torch.float8_e4m3fn
-    say("[d256] head dims 160 and 256 (the wgmma K1, K4, K2, K3 for bf16/fp16; for fp32 the 3xTF32 K1 and K4 and "
-        "the SIMT K2 and K3), 288 and 520 (zero-padded to 512 and 1024: the wide wgmma K1, K4, K2 and K3 for "
-        "bf16/fp16; fp32 as at 256): tolerances as at 64 / 128")
+    say("[d256] head dims 160 and 256 (the wgmma K1, K4, K2, K3 for bf16/fp16; for fp32 the 3xTF32 K1, K4, K2 "
+        "and K3), 288 and 520 (zero-padded to 512 and 1024: the wide wgmma K1, K4, K2 and K3 for bf16/fp16; fp32 "
+        "as at 256): tolerances as at 64 / 128")
     worst: dict = {}
     for label, b, hq, hkv, lq, lk, d, dtype, causal, atol, kw in (
         ("d256 gqa 8/2 q129 kv257 window 100 bf16", 2, 8, 2, 129, 257, 256, bf16, True, 2e-2, dict(window=100)),
@@ -2074,7 +2091,7 @@ def phase_d256(seed: int) -> dict:
         ("d520 non-causal q200 kv300 fp16", 1, 4, 2, 200, 300, 520, f16, dict(causal=False)),
         ("d520 b2 h16400 gqa /4 L2 bf16", 2, 16400, 4100, 2, 2, 520, bf16, {}),
         ("d288 b2 h16400 gqa /4 L2 fp16", 2, 16400, 4100, 2, 2, 288, f16, {}),
-        # fp32 there: the SIMT family
+        # fp32 there: the 3xTF32 K2 / K3
         ("d288 lse cotangent fp32 b1 h4 L300", 1, 4, 2, 300, 300, 288, f32, dict(with_lse=True)),
         ("d520 no-key rows fp32 q300 kv200", 1, 4, 4, 300, 200, 520, f32, dict(no_key_rows=100)),
     ):
@@ -2127,6 +2144,33 @@ def phase_d256(seed: int) -> dict:
                 launched = {k: n - before[k] for k, n in FA.KERNEL_LAUNCHES.items() if n != before[k]}
                 if launched != {key: 1}:
                     raise AssertionError(f"[d256] fp32 K4 D{d} {qn}: launched {launched}, want {key} once")
+    # The 3xTF32 backward above head dim 128 (csrc/flash_bwd_fp32_wide.cuh):
+    # the grads of K1 + pre-pass + K2 + K3 through the entry points at 1e-4
+    # against plain and vanilla (check_grads), each call launching the
+    # "_d256_fp32" / "_wide_fp32" K2 and K3 once; at D256, D288 and D520
+    # (padded to 512 and 1024; at 1024 on clusters of two blocks) and D1024.
+    # The segment case at q1014 x kv1024 puts the causal diagonal 10 keys
+    # into a KV tile, so the groups of a block end their walks on different
+    # tiles while the producer refills the ring; the window over segment ids
+    # at q129 x kv257 leaves rows in the middle that see no key.
+    for d in (256, 288, 520, 1024):
+        keys = [_key(name, d, f32) for name in ("flash_bwd_dkv", "flash_bwd_dq")]
+        for label, b, hq, hkv, lq, lk, kw in (
+            ("gqa 8/2 b2 L1024", 2, 8, 2, 1024, 1024, {}),
+            ("edges q129 kv257 8/2 w100 3 segments", 2, 8, 2, 129, 257, dict(window=100, segments=True)),
+            ("3 segments q1014 kv1024", 2, 4, 4, 1014, 1024, dict(segments=True)),
+            ("no-key rows q300 kv200 gqa 4/2", 1, 4, 2, 300, 200, dict(no_key_rows=100)),
+            ("non-causal q200 kv300 gqa 4/2", 1, 4, 2, 200, 300, dict(causal=False)),
+            ("lq<lk q128 kv384", 1, 4, 4, 128, 384, {}),
+            ("lse cotangent gqa 8/2 L300", 1, 8, 2, 300, 300, dict(with_lse=True)),
+        ):
+            before = dict(FA.KERNEL_LAUNCHES)
+            r = check_grads(f"fp32 {label} D{d}", gen, b, hq, hkv, lq, lk, d, f32, **kw)
+            launched = {k: n - before[k] for k, n in FA.KERNEL_LAUNCHES.items() if n != before[k]}
+            if any(launched.get(key) != 1 for key in keys):
+                raise AssertionError(f"[d256] fp32 grads {label} D{d}: launched {launched}, want {keys} once each")
+            _keep_worst(worst, keys[0], max(r["dk"], r["dv"]))
+            _keep_worst(worst, keys[1], r["dq"])
     return worst
 
 
@@ -2181,16 +2225,16 @@ def phase_d256_path(seed: int, data: np.ndarray) -> dict:
     return {k: launches[k] for k in (*D256_TRAINING_KERNELS, "flash_fwd_kv_quant_d256")}
 
 
-# The path of head dims above 256 and of fp32 at 256 (`phase_simt_path`):
+# The path of head dims above 256 and of fp32 at 256 (`phase_wide_path`):
 # what it must launch.  bf16 at D288 and D520 runs the wide wgmma K1, K4, K2
-# and K3 ("_wide"); fp32 at D520 the 3xTF32 K1 and K4 ("_wide_fp32") and the
-# SIMT K2 and K3 ("_wide_simt"); the pre-pass of both ("_wide"); fp32 at
-# D256 the "_d256_fp32" K1 and K4 and the "_d256_simt" K2 and K3.
-SIMT_PATH_LAUNCHES = {
+# and K3 ("_wide"); fp32 at D520 the 3xTF32 K1, K4, K2 and K3
+# ("_wide_fp32"); the pre-pass of both ("_wide"); fp32 at D256 the
+# "_d256_fp32" K1, K4, K2 and K3.
+WIDE_PATH_LAUNCHES = {
     "flash_fwd_wide": 2, "flash_bwd_prep_wide": 3, "flash_bwd_dkv_wide": 2, "flash_bwd_dq_wide": 2,
     "flash_fwd_kv_quant_wide": 2, "flash_fwd_wide_fp32": 1, "flash_fwd_kv_quant_wide_fp32": 1,
-    "flash_bwd_dkv_wide_simt": 1, "flash_bwd_dq_wide_simt": 1,
-    "flash_fwd_d256_fp32": 1, "flash_bwd_prep_d256": 1, "flash_bwd_dkv_d256_simt": 1, "flash_bwd_dq_d256_simt": 1,
+    "flash_bwd_dkv_wide_fp32": 1, "flash_bwd_dq_wide_fp32": 1,
+    "flash_fwd_d256_fp32": 1, "flash_bwd_prep_d256": 1, "flash_bwd_dkv_d256_fp32": 1, "flash_bwd_dq_d256_fp32": 1,
     "flash_fwd_kv_quant_d256_fp32": 1,
 }
 
@@ -2199,23 +2243,22 @@ def _hold(label: str, name: str, got: torch.Tensor, plain: torch.Tensor, dense: 
     """`got` against its plain version and fp32 vanilla within `tol`, of
     their shape and finite; returns the two errors and the tolerance."""
     if got.shape != dense.shape or not torch.isfinite(got).all():
-        raise AssertionError(f"[simt-path] {label}: bad {name} {tuple(got.shape)}")
+        raise AssertionError(f"[wide-path] {label}: bad {name} {tuple(got.shape)}")
     e_p = (got.float() - plain.float()).abs().max().item()
     e_d = (got.float() - dense.float()).abs().max().item()
     if not (e_p <= tol and e_d <= tol):
-        raise AssertionError(f"[simt-path] {label}: {name} vs plain {e_p:.3e}, vs vanilla {e_d:.3e}, tol {tol:.3e}")
+        raise AssertionError(f"[wide-path] {label}: {name} vs plain {e_p:.3e}, vs vanilla {e_d:.3e}, tol {tol:.3e}")
     return f"{name} {e_p:.2e}/{e_d:.2e} tol {tol:.2e}"
 
 
-def phase_simt_path(seed: int) -> dict:
+def phase_wide_path(seed: int) -> dict:
     """The kernels a caller with a head dim above 256, or fp32 at 256,
     reaches, through the entry points: a forward and backward step of
     flash_attention at b2 h4 L1024 for head dims 288 (padded to 512) and
     520 (to 1024) in bf16 (the wide wgmma K1, K2 and K3), 256 and 520 in
-    fp32 (the 3xTF32 K1, the SIMT K2 and K3), and flash_attention_kv_quant
-    (int8) at each.  Each "_wide", "_wide_fp32", "_wide_simt", "_d256_fp32"
-    and "_d256_simt" key must launch as SIMT_PATH_LAUNCHES says, and
-    nothing else.  Then every output against
+    fp32 (the 3xTF32 K1, K2 and K3), and flash_attention_kv_quant (int8) at
+    each.  Each "_wide", "_wide_fp32" and "_d256_fp32" key must launch as
+    WIDE_PATH_LAUNCHES says, and nothing else.  Then every output against
     its plain version (flash_attention_reference, flash_attention_bwd_reference,
     flash_attention_kv_quant_reference) and fp32 vanilla on the same inputs
     (K4's on the K/V dequantized the kernel's way): bf16 out and K4 2e-2,
@@ -2237,10 +2280,10 @@ def phase_simt_path(seed: int) -> dict:
         results.append((q, k, v, do, kv, out.detach(), o4, (q.grad, k.grad, v.grad)))
     torch.cuda.synchronize()
     launches = {k: n for k, n in FA.KERNEL_LAUNCHES.items() if n}
-    if launches != SIMT_PATH_LAUNCHES:
-        raise AssertionError(f"[simt-path] launches {launches}, want {SIMT_PATH_LAUNCHES}")
-    # The plain backward at the D64 kernels' tiles: at the SIMT family's
-    # 8-32-row tiles it costs thousands of small launches a call, and the
+    if launches != WIDE_PATH_LAUNCHES:
+        raise AssertionError(f"[wide-path] launches {launches}, want {WIDE_PATH_LAUNCHES}")
+    # The plain backward at the D64 kernels' tiles: at the wide kernels'
+    # 16-64-row tiles it costs thousands of small launches a call, and the
     # tiling changes only the order of its fp32 sums
     # (test_plain_backward_tiling_does_not_change_result).
     bwd_tiles = FA.default_blocks(1024, 1024, 64)
@@ -2261,8 +2304,8 @@ def phase_simt_path(seed: int) -> dict:
         errs += [_hold(label, n, a, p_, r, 1e-4 if fp32 else 2e-2 * r.abs().max().item())
                  for n, a, p_, r in zip(("dq", "dk", "dv"), grads, g_p, g_d)]
         errs.append(_hold(label, "K4 int8", o4, o4_p, o4_d, 5e-5 if fp32 else 2e-2))
-        say(f"[simt-path] {label} vs plain/vanilla: {'  '.join(errs)}  ok")
-    say(f"[simt-path] forward + backward + K4 (int8) at b2 h4 L1024 D288 / D520 bf16 and D256 / D520 fp32: "
+        say(f"[wide-path] {label} vs plain/vanilla: {'  '.join(errs)}  ok")
+    say(f"[wide-path] forward + backward + K4 (int8) at b2 h4 L1024 D288 / D520 bf16 and D256 / D520 fp32: "
         f"launches {launches}")
     return launches
 
@@ -2806,13 +2849,19 @@ SIMT_FP32_FWD_MS = {"flash_fwd_fp32": (1.4926, 3.3879), "flash_fwd_kv_quant_fp32
 # 80GB HBM3, 700.00 W; D256 and D512 in one run, D1024 in a later one):
 # printed on the [timing] line only.
 SIMT_FP32_WIDE_FWD_MS = {"flash_fwd": (5.4546, 12.1646, 39.3718), "flash_fwd_kv_quant": (5.6516, 12.7133, 31.4340)}
+# Device ms of the fp32 SIMT K2 / K3 that the 3xTF32 backward of
+# csrc/flash_bwd_fp32_wide.cuh replaced, at b8 h12 L1024 fp32 causal,
+# {kernel: (D256, D512, D1024)}, read the same way (NVIDIA H100 80GB HBM3,
+# 700.00 W; D256 in one run, D512 in a later one, D1024 in a third):
+# printed on the [timing] line only.
+SIMT_FP32_WIDE_BWD_MS = {"flash_bwd_dkv": (8.6335, 18.8348, 47.9969), "flash_bwd_dq": (7.5863, 16.8841, 42.1545)}
 
 
-def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
+def phase_timing_wide(seed: int, smi: str) -> tuple[dict, dict]:
     """The kernels of head dims above 128 that the D256 timing does not
     cover, and fp32 at 64 and 128, at b8 h12 L1024 (every tensor above L2's
     50 MB, as at the D256 timing shape): fp32 at D256 (the "_d256_fp32" rows
-    of the 3xTF32 K1 and K4, the "_d256_simt" rows of the SIMT K2 and K3);
+    of the 3xTF32 K1, K4, K2 and K3);
     bf16 at D512 (the "_wide" rows: the wide wgmma K1, K4, K2 and
     K3 and the pre-pass; they carry the D1024 times beside them as
     d1024_*), with K1's and K4's speed-up over the SIMT forward they
@@ -2820,13 +2869,16 @@ def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
     line only) and K1's ratio to SDPA's forward, and K2's and K3's beside
     their bounds, SDPA's whole backward and the SIMT K2 / K3 they replaced
     (SIMT_16BIT_BWD_MS, printed only); fp32 at D512 (the "_wide_fp32"
-    rows of the 3xTF32 K1 and K4, the "_wide_simt" rows of the SIMT K2 and
-    K3; they carry the D1024 times, no plain run, beside them as d1024_*),
-    and the 3xTF32 K1 with lse (lse_ms) and K4 over fp8 (fp8_ms) at D256,
-    D512 and D1024, printed beside their bounds, SDPA's fp32 forward and
-    the SIMT forward they replaced (SIMT_FP32_WIDE_FWD_MS, an earlier
-    reading, printed only); fp32 at D64 and D128 (K1, K4, the
-    pre-pass, K2, K3 in the entry points' fp32 kernels, SDPA fp32): the
+    rows of the 3xTF32 K1, K4, K2 and K3; they carry the D1024 times, no
+    plain run, beside them as d1024_*), and the 3xTF32 K1 with lse
+    (lse_ms) and K4 over fp8 (fp8_ms) at D256, D512 and D1024, printed
+    beside their bounds, SDPA's fp32 forward and the SIMT forward they
+    replaced (SIMT_FP32_WIDE_FWD_MS, an earlier reading, printed only), and
+    the pre-pass, K2 and K3 there beside their bounds, SDPA's fp32 whole
+    backward (pre-pass + K2 + K3 against it) and the SIMT K2 / K3 they
+    replaced (SIMT_FP32_WIDE_BWD_MS, printed only); fp32 at D64 and D128
+    (K1, K4, the pre-pass, K2, K3 in the entry points' fp32 kernels, SDPA
+    fp32): the
     "_fp32" rows of the 3xTF32 K1, K4, K2 and K3 (D64, with the D128
     times beside them as d128_*; K1 also with lse as lse_ms), with their
     speed-up over the SIMT kernels they replaced (SIMT_FP32_FWD_MS,
@@ -2837,10 +2889,10 @@ def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
     gen = torch.Generator().manual_seed(seed + 13)
     f32, bf16 = torch.float32, torch.bfloat16
     result = {}
-    fwd_names = ("flash_fwd", "flash_fwd_kv_quant")
-    launched = {_key(name, d, f32): FA.KERNEL_LAUNCHES[_key(name, d, f32)] for name in fwd_names for d in (256, 512)}
-    d256 = _time_family(gen, smi, "fp32 (the 3xTF32 K1 and K4, the SIMT K2 and K3)", 8, 12, 1024, 256, f32,
-                        TF32X3_FLOPS, True)
+    fwd_names, bwd_names = ("flash_fwd", "flash_fwd_kv_quant"), ("flash_bwd_dkv", "flash_bwd_dq")
+    launched = {_key(name, d, f32): FA.KERNEL_LAUNCHES[_key(name, d, f32)]
+                for name in (*fwd_names, *bwd_names) for d in (256, 512)}
+    d256 = _time_family(gen, smi, "fp32 (the 3xTF32 K1, K4, K2 and K3)", 8, 12, 1024, 256, f32, TF32X3_FLOPS, True)
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_kv_quant"):
         result[_key(name, 256, f32)] = d256[name]
     wide = _time_family(gen, smi, "padded head dim 512 (the wide wgmma K1, K4, K2, K3)", 8, 12, 1024, 512, bf16,
@@ -2873,10 +2925,10 @@ def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
         say(f"[timing] {smi} | wide wgmma backward {tag} b8 h12 L1024 bf16 causal: " + "; ".join(parts)
             + f"; pre-pass {prep:.4f} ms; pre-pass + K2 + K3 {prep + k2 + k3:.4f} ms against SDPA's whole backward "
               f"{lib:.4f} ms: {(prep + k2 + k3) / lib:.2f}x")
-    fp32_wide = _time_family(gen, smi, "fp32, padded head dim 512 (the 3xTF32 K1 and K4, the SIMT K2 and K3)", 8,
-                             12, 1024, 512, f32, TF32X3_FLOPS, True)
-    fp32_1024 = _time_family(gen, smi, "fp32, padded head dim 1024 (the 3xTF32 K1 and K4, the SIMT K2 and K3)", 8,
-                             12, 1024, 1024, f32, TF32X3_FLOPS, False)
+    fp32_wide = _time_family(gen, smi, "fp32, padded head dim 512 (the 3xTF32 K1, K4, K2 and K3)", 8, 12, 1024, 512,
+                             f32, TF32X3_FLOPS, True)
+    fp32_1024 = _time_family(gen, smi, "fp32, padded head dim 1024 (the 3xTF32 K1, K4, K2 and K3)", 8, 12, 1024,
+                             1024, f32, TF32X3_FLOPS, False)
     for name in ("flash_fwd", "flash_fwd_kv_quant", "flash_bwd_dkv", "flash_bwd_dq"):
         key = _key(name, 512, f32)
         result[key] = fp32_wide[name]
@@ -2896,7 +2948,7 @@ def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
         del q, k, v, kv8
     launched = {key: FA.KERNEL_LAUNCHES[key] - n for key, n in launched.items()}
     if not all(launched.values()):
-        raise AssertionError(f"[timing] the fp32 timing launched {launched}: a 3xTF32 forward did not run")
+        raise AssertionError(f"[timing] the fp32 timing launched {launched}: a 3xTF32 kernel did not run")
     for name in fwd_names:
         parts = []
         for i, (tag, d, pre) in enumerate((("D256", 256, ""), ("D512", 512, ""), ("D1024", 512, "d1024_"))):
@@ -2908,6 +2960,17 @@ def phase_timing_simt(seed: int, smi: str) -> tuple[dict, dict]:
                          f"SIMT forward's {old} ms, read in an earlier run, not this one, {old / ms:.1f}x{note})")
         say(f"[timing] {smi} | 3xTF32 {name} above head dim 128, b8 h12 L1024 fp32 causal (launched {launched}): "
             + "; ".join(parts))
+    for i, (tag, fam) in enumerate((("D256", d256), ("D512", fp32_wide), ("D1024", fp32_1024))):
+        prep, k2, k3 = (fam[name]["ms"] for name in ("flash_bwd_prep", *bwd_names))
+        lib = fam["flash_bwd_dkv"]["library_ms"]
+        parts = []
+        for name in bwd_names:
+            ms, bound, old = fam[name]["ms"], fam[name]["bound_ms"], SIMT_FP32_WIDE_BWD_MS[name][i]
+            parts.append(f"{name} {ms:.4f} ms ({bound / ms:.1%} of the bound {bound:.4f} ms, operations, 3xTF32; the "
+                         f"SIMT kernel's {old} ms, read in an earlier run, not this one, {old / ms:.1f}x)")
+        say(f"[timing] {smi} | 3xTF32 backward {tag} b8 h12 L1024 fp32 causal: " + "; ".join(parts)
+            + f"; pre-pass {prep:.4f} ms; pre-pass + K2 + K3 {prep + k2 + k3:.4f} ms against SDPA's fp32 whole "
+              f"backward {lib:.4f} ms: {(prep + k2 + k3) / lib:.2f}x")
     extra: dict = {}
     _reset_launches()
     lse_ms = {}
@@ -3581,7 +3644,7 @@ def main() -> None:
     text = synthetic_corpus()
     data = CharTokenizer(text).encode(text)
     d256_launches = phase_d256_path(args.seed, data)
-    simt_launches = phase_simt_path(args.seed)
+    wide_launches = phase_wide_path(args.seed)
     llama_k1 = phase_llama(args.seed, smi)
     llama_parity_k1 = phase_llama_parity(args.seed)
     llama_train = phase_llama_train(args.seed, smi, data)
@@ -3597,12 +3660,12 @@ def main() -> None:
     phase_parity_quant(args.seed)
     launches = phase_training(args.seed, smi, data)
     launches.update({key: n for key, (_, n) in k4.items()}, **decode_launches, **d256_launches)
-    launches.update({k: n for k, n in simt_launches.items() if k not in d256_launches})
+    launches.update({k: n for k, n in wide_launches.items() if k not in d256_launches})
     # the fp32 K1 / K2 / K3: their launches on the fp32 training path
     launches.update(phase_train_parity(args.seed, data))
     llama_times = phase_timing_llama_d256(args.seed, smi)
-    simt_times, fp32_times = phase_timing_simt(args.seed, smi)
-    times = {**phase_timing(args.seed, smi), **phase_timing_quant(args.seed, smi), **llama_times, **simt_times}
+    wide_times, fp32_times = phase_timing_wide(args.seed, smi)
+    times = {**phase_timing(args.seed, smi), **phase_timing_quant(args.seed, smi), **llama_times, **wide_times}
     # the fp32 pre-pass at D64 / D128, beside its base row; the fp32 K1's
     # launches on the fp32 GPT-2 and Llama prefill paths
     for key, rows in fp32_times.items():

@@ -1,7 +1,6 @@
 // Helpers shared by the port's kernels (flash_fwd*.cu, flash_bwd.cu,
-// decode.cu): conversions to and from float, bf16/fp16 packing, exp2, the
-// staging of segment ids for the SIMT family (flash_d256.cuh) and the
-// attention mask of the JAX package (_mask_for_block and _seg_mask in
+// decode.cu): conversions to and from float, bf16/fp16 packing, exp2 and
+// the attention mask of the JAX package (_mask_for_block and _seg_mask in
 // flash_attention_tpu/kernels/flash_attention.py).
 #pragma once
 
@@ -63,14 +62,6 @@ template <> struct Pack<__half> {
     return *reinterpret_cast<uint32_t*>(&h);
   }
 };
-
-// Up to ROWS int32 values from `g` (null: nothing to stage) starting at
-// row0; entries past `n` get `fill`, which matches nothing.
-template <int ROWS, int NTHREADS>
-__device__ __forceinline__ void load_ids(int* s, const int* g, int row0, int n, int fill) {
-  if (g == nullptr) return;
-  for (int i = threadIdx.x; i < ROWS; i += NTHREADS) s[i] = row0 + i < n ? g[row0 + i] : fill;
-}
 
 // The attention mask shared by every kernel: query `row` (of lq) may see
 // key `col` (of lk).  Causal masks align the queries to the end of the

@@ -3,9 +3,9 @@
 // (flash_attention_tpu_torch/kernels/_build.py).  The warp-specialised
 // kernels are in flash_bwd.cuh (K2 and K3 at D = 256 instantiated in
 // flash_bwd_d256.cu) and, at 512 and 1024, flash_bwd_wide.cuh (their own
-// design notes; flash_bwd_wide.cu, flash_bwd_wide_d1024.cu); fp32's at 64
-// and 128 are in flash_bwd_fp32.cuh; the SIMT family that fp32 runs from
-// D = 256 up is in flash_d256.cuh (flash_simt_bwd.cu).
+// design notes; flash_bwd_wide.cu, flash_bwd_wide_d1024.cu); fp32's are in
+// flash_bwd_fp32.cuh at 64 and 128 and flash_bwd_fp32_wide.cuh at 256, 512
+// and 1024 (flash_bwd_fp32_wide.cu, flash_bwd_fp32_wide_d1024.cu).
 //
 // Replaces, in flash_attention_tpu/kernels/flash_attention.py:
 //   * fa_flash_bwd_dkv (K2): _dkv_kernel (:637, launched by _bwd_dkv :890
@@ -238,9 +238,14 @@ int run(int which, const void* q, const void* k, const void* v, const void* dout
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return (int)dispatch<64>(which, dtype, p, s);
   if (head_dim == 128) return (int)dispatch<128>(which, dtype, p, s);
-  // D = 256, 512 and 1024: K2 and K3 for bf16 / fp16 (flash_bwd_d256.cu,
-  // flash_bwd_wide.cu, flash_bwd_wide_d1024.cu); fp32 takes the SIMT
-  // family's entry points (flash_simt_bwd.cu).
+  // D = 256, 512 and 1024: fp32 K2 and K3 in 3xTF32
+  // (flash_bwd_fp32_wide.cu, flash_bwd_fp32_wide_d1024.cu); bf16 / fp16 on
+  // wgmma (flash_bwd_d256.cu, flash_bwd_wide.cu, flash_bwd_wide_d1024.cu).
+  if (dtype == 0) {
+    if (head_dim == 256 || head_dim == 512) return (int)launch_bwd_fp32_wide(which, head_dim, p, s);
+    if (head_dim == 1024) return (int)launch_bwd_fp32_wide_d1024(which, p, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (p.qs == nullptr || (dtype != 1 && dtype != 2)) return (int)cudaErrorInvalidValue;
   if (head_dim == 256) return (int)(which == 0 ? launch_dkv_ws_d256(dtype, p, s) : launch_dq_ws_d256(dtype, p, s));
   if (head_dim == 512) return (int)launch_bwd_wide_d512(which, dtype, p, s);
@@ -268,9 +273,8 @@ cudaError_t dispatch_prep(int dtype, const PrepParams& p, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim: 64 or 128, and
-// 256, 512 and 1024 for bf16 / fp16 (fp32 there takes the SIMT family's
-// fa_flash_bwd_dkv_simt / fa_flash_bwd_dq_simt, flash_simt_bwd.cu).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim: 64, 128, 256,
+// 512 or 1024.
 // lse and di are fp32 [batch, hq, lq] contiguous (lse as flash_fwd wrote
 // it, di as fa_flash_bwd_prep wrote it).  qs is fa_flash_bwd_prep's qs
 // ([batch, hq, lq, head_dim] contiguous, q's dtype): required for bf16 /

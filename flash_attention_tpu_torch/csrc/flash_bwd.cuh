@@ -5,8 +5,9 @@
 // entry points;
 // flash_bwd_d256.cu instantiates both at 256 in a source of its own,
 // flash_bwd_wide.cu / flash_bwd_wide_d1024.cu the wide kernels at 512 and
-// 1024 (flash_bwd_wide.cuh), and flash_simt_bwd.cu the SIMT family's fp32
-// backward (flash_d256.cuh) with BwdParams.
+// 1024 (flash_bwd_wide.cuh), and flash_bwd_fp32_wide.cu /
+// flash_bwd_fp32_wide_d1024.cu the fp32 kernels at 256, 512 and 1024
+// (flash_bwd_fp32_wide.cuh).
 // The design notes are at the top of flash_bwd.cu.
 #pragma once
 
@@ -718,5 +719,10 @@ cudaError_t launch_dq_ws_d256(int dtype, const BwdParams& p, cudaStream_t stream
 // flash_bwd_wide_d1024.cu.
 cudaError_t launch_bwd_wide_d512(int which, int dtype, const BwdParams& p, cudaStream_t stream);
 cudaError_t launch_bwd_wide_d1024(int which, int dtype, const BwdParams& p, cudaStream_t stream);
+// fp32 K2 (which 0) and K3 (1) at D = 256 and 512 and at 1024: the 3xTF32
+// kernels of flash_bwd_fp32_wide.cuh, instantiated in flash_bwd_fp32_wide.cu
+// and flash_bwd_fp32_wide_d1024.cu.
+cudaError_t launch_bwd_fp32_wide(int which, int head_dim, const BwdParams& p, cudaStream_t stream);
+cudaError_t launch_bwd_fp32_wide_d1024(int which, const BwdParams& p, cudaStream_t stream);
 
 }  // namespace fa

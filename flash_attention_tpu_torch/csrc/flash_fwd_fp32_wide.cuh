@@ -14,10 +14,11 @@
 // JAX runs both products at Precision.HIGHEST.  The function is
 // flash_fwd_fp32.cu's: q scaled by sm_scale * log2(e) in fp32, online
 // softmax in the exp2 domain, P kept in fp32 before PV, m, l and O in fp32,
-// one final division with the l == 0 guard, lse in natural log (the SIMT
-// backward of flash_d256.cuh reads it); causal end-aligned masking, window,
-// segment ids, GQA by reading KV head h / group, ragged Lq / Lk, inputs
-// read through their strides; K4's K/V are payload.to(fp32) * scale.
+// one final division with the l == 0 guard, lse in natural log (the
+// 3xTF32 backward of flash_bwd_fp32_wide.cuh reads it); causal end-aligned
+// masking, window, segment ids, GQA by reading KV head h / group, ragged Lq
+// / Lk, inputs read through their strides; K4's K/V are payload.to(fp32) *
+// scale.
 //
 // What bounds it on this card: at b8 h12 L1024 causal the two products are
 // 51.5 / 103 / 206 GFLOP at D = 256 / 512 / 1024, 0.312 / 0.625 / 1.249 ms

@@ -1,10 +1,11 @@
 // 3xTF32 products on mma.sync, shared by the fp32 kernels: the forward
 // (flash_fwd_fp32.cu at head dims 64 and 128, flash_fwd_fp32_wide.cuh at
-// 256, 512 and 1024; K1 and K4) and the backward at 64 and 128
-// (flash_bwd_fp32.cuh, K2 and K3).  Every fp32 operand x is split into hi =
-// x rounded to TF32 and lo = (x - hi) rounded to TF32, and each product is
-// lo hi + hi lo + hi hi, summed in fp32 (lo lo, about 2^-22 of it, is left
-// out): one TF32 pass keeps about three decimal digits, which misses the
+// 256, 512 and 1024; K1 and K4) and the backward (flash_bwd_fp32.cuh at 64
+// and 128, flash_bwd_fp32_wide.cuh above; K2 and K3).  Every fp32 operand x
+// is split into hi = x rounded to TF32 and lo = (x - hi) rounded to TF32
+// (or not rounded: split_tf32), and each product is lo hi + hi lo + hi hi,
+// summed in fp32 (lo lo, about 2^-22 of it, is left out): one TF32 pass
+// keeps about three decimal digits, which misses the
 // fp32 tiers (forward 1e-5, backward 1e-4).  Tiles are fp32 as TMA writes
 // them with the 128-byte swizzle and 32-column boxes (swz); fragments are
 // read with plain shared loads that the swizzle keeps free of bank
@@ -25,11 +26,16 @@ namespace fa {
 // faster with these at head dims 64 and 128; PERF.md).
 __device__ __forceinline__ uint32_t to_tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
 
-// x = hi + lo to about 2^-22 of x: hi is x rounded to TF32, lo the rest
-// rounded to TF32.
+// x = hi + lo to about 2^-22 of x: hi is x rounded to TF32, lo the rest,
+// rounded to TF32 (kRound) or passed as it is: mma.sync reads a TF32
+// operand's top 19 bits, so an unrounded lo differs from the rounded one by
+// at most one TF32 ulp of lo, about 2^-22 of x (the size of the lo lo term
+// left out), for three operations a split instead of five.
+template <bool kRound = true>
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
+  const float rest = x - __uint_as_float(hi);
+  lo = kRound ? to_tf32(rest) : __float_as_uint(rest);
 }
 
 // d += a b on one m16n8k8 tile.  Fragments (g = lane / 4, t = lane % 4):
@@ -118,21 +124,22 @@ __device__ __forceinline__ void frag_b_nk(uint32_t (&hi)[2], uint32_t (&lo)[2], 
 // wants t and t + 4, so the depth is taken in the order 0, 2, 4, 6, 1, 3, 5,
 // 7: depth t is column 2t and depth t + 4 column 2t + 1, and frag_b_kn reads
 // B's rows in the same order.  No value moves between lanes.
+template <bool kRound = true>
 __device__ __forceinline__ void frag_acc(uint32_t (&hi)[4], uint32_t (&lo)[4], const float (&c)[4]) {
-  split_tf32(c[0], hi[0], lo[0]);
-  split_tf32(c[2], hi[1], lo[1]);
-  split_tf32(c[1], hi[2], lo[2]);
-  split_tf32(c[3], hi[3], lo[3]);
+  split_tf32<kRound>(c[0], hi[0], lo[0]);
+  split_tf32<kRound>(c[2], hi[1], lo[1]);
+  split_tf32<kRound>(c[1], hi[2], lo[2]);
+  split_tf32<kRound>(c[3], hi[3], lo[3]);
 }
 
 // The B fragment of (accumulator) X: X a [ROWS, D] tile whose rows [k0, k0
 // + 8) are the depth, in frag_acc's order, and columns [n0, n0 + 8) the
 // product's columns; split.
-template <int ROWS, class Tile>
+template <int ROWS, bool kRound = true, class Tile>
 __device__ __forceinline__ void frag_b_kn(uint32_t (&hi)[2], uint32_t (&lo)[2], const Tile& tile, int k0, int n0,
                                           int g, int t) {
-  split_tf32(tile_at<ROWS>(tile, k0 + 2 * t, n0 + g), hi[0], lo[0]);
-  split_tf32(tile_at<ROWS>(tile, k0 + 2 * t + 1, n0 + g), hi[1], lo[1]);
+  split_tf32<kRound>(tile_at<ROWS>(tile, k0 + 2 * t, n0 + g), hi[0], lo[0]);
+  split_tf32<kRound>(tile_at<ROWS>(tile, k0 + 2 * t + 1, n0 + g), hi[1], lo[1]);
 }
 
 // The A fragment of rows [m0, m0 + 16) and columns [k0, k0 + 8) of a
@@ -213,7 +220,7 @@ __device__ __forceinline__ void scores(float (&s)[NB][4], const float* a, const 
 // magnitude, and the adds into acc round to nearest.  Four column blocks
 // are summed side by side (mma3<4>; 5-6% faster at D = 128 than one at a
 // time, 1% slower at 64).
-template <int K, int D, class Tile>
+template <int K, int D, bool kRound = true, class Tile>
 __device__ __forceinline__ void add_product(float (&acc)[D / 8][4], const uint32_t (&ah)[K / 8][4],
                                             const uint32_t (&al)[K / 8][4], const Tile& tile, int g, int t) {
   constexpr int G = 4;
@@ -229,7 +236,7 @@ __device__ __forceinline__ void add_product(float (&acc)[D / 8][4], const uint32
       uint32_t gh[G][4], gl[G][4], bh[G][2], bl[G][2];
 #pragma unroll
       for (int j = 0; j < G; ++j) {
-        frag_b_kn<K>(bh[j], bl[j], tile, kb * 8, (nd0 + j) * 8, g, t);
+        frag_b_kn<K, kRound>(bh[j], bl[j], tile, kb * 8, (nd0 + j) * 8, g, t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           gh[j][e] = ah[kb][e];
@@ -246,11 +253,11 @@ __device__ __forceinline__ void add_product(float (&acc)[D / 8][4], const uint32
 }
 
 // The split A fragments of every 8-column block of a [16, N] accumulator.
-template <int N>
+template <int N, bool kRound = true>
 __device__ __forceinline__ void frags_of(uint32_t (&hi)[N / 8][4], uint32_t (&lo)[N / 8][4],
                                          const float (&c)[N / 8][4]) {
 #pragma unroll
-  for (int i = 0; i < N / 8; ++i) frag_acc(hi[i], lo[i], c[i]);
+  for (int i = 0; i < N / 8; ++i) frag_acc<kRound>(hi[i], lo[i], c[i]);
 }
 
 }  // namespace fa

@@ -136,10 +136,6 @@ def library() -> ctypes.CDLL:
         lib.fa_flash_bwd_dkv.restype = i
         lib.fa_flash_bwd_dq.argtypes = [p] * 10 + bwd_tail
         lib.fa_flash_bwd_dq.restype = i
-        lib.fa_flash_bwd_dkv_simt.argtypes = lib.fa_flash_bwd_dkv.argtypes
-        lib.fa_flash_bwd_dkv_simt.restype = i
-        lib.fa_flash_bwd_dq_simt.argtypes = lib.fa_flash_bwd_dq.argtypes
-        lib.fa_flash_bwd_dq_simt.restype = i
         lib.fa_flash_bwd_prep.argtypes = [
             p, p, p, p, p, p,  # q, o, dout, dlse, qs, di
             i, i, i, i, i,  # dtype, batch, hq, lq, head_dim

@@ -37,10 +37,17 @@ KERNEL_BWD_PINNED = 128
 KERNEL_BWD_STREAM = 64
 KERNEL_DKV_D256 = (64, 32)  # (pinned KV rows, streamed query rows)
 KERNEL_DQ_D256 = (64, 64)  # (pinned query rows, streamed KV rows)
-# The SIMT backward (csrc/flash_d256.cuh, Cfg): 256 threads pin 256 / (D /
-# 32) rows and stream tiles of the largest power-of-two height whose three
-# fp32 tiles fit; {padded head dim: (pinned, streamed)}.
-KERNEL_SIMT_TILE = {256: (32, 32), 512: (16, 32), 1024: (8, 16)}
+# The fp32 backward above 128 (csrc/flash_bwd_fp32_wide.cuh, bwd32::Tiles):
+# eight warps of 128 gradient columns a block, the columns of a 16-row group
+# split over its warps and, at 1024, over the two blocks of a cluster, so a
+# block pins 16384 x blocks / D rows (KV rows for dK/dV, query rows for dQ)
+# against ring slots of each streamed operand; {kernel: {padded head dim:
+# (rows a streamed tile, ring slots, the partial S and dP double-buffered,
+# blocks of a cluster)}}.
+KERNEL_FP32_WIDE_BWD = {
+    "dkv": {256: (16, 2, True, 1), 512: (16, 1, True, 1), 1024: (16, 1, True, 2)},
+    "dq": {256: (32, 1, False, 1), 512: (16, 1, True, 1), 1024: (16, 1, True, 2)},
+}
 # The fp32 forward above 128 (csrc/flash_fwd_fp32_wide.cuh, wide32::Tiles):
 # eight warps of 128 output columns, D / 128 of them to each 16-row group,
 # so a block pins 16384 / D query rows, against one slot of a K ring and one
@@ -166,6 +173,35 @@ def fp32_wide_forward_smem_bytes(head_dim: int, quantized: bool) -> int:
     slot = 2 * stream * d * elem
     per_slot = stream * 4 * (3 if quantized else 1)
     return q + slot + per_slot + 2 * 8 * 16 * stream * 4 + 5 * 8 + 1024
+
+
+def _fp32_wide_bwd(head_dim: int, kernel: str) -> tuple[int, int, bool, int]:
+    if kernel not in ("dkv", "dq"):
+        raise ValueError(f"kernel must be 'dkv' or 'dq', got {kernel!r}")
+    return KERNEL_FP32_WIDE_BWD[kernel][_padded(head_dim)]
+
+
+def fp32_wide_backward_tile(head_dim: int, kernel: str) -> tuple[int, int]:
+    """(pinned rows, streamed rows) of the fp32 K2 (`kernel` "dkv": KV rows
+    pinned, query rows streamed) or K3 ("dq": the reverse) at padded head
+    dim 256, 512 or 1024 (`KERNEL_FP32_WIDE_BWD`)."""
+    stream, _, _, ctas = _fp32_wide_bwd(head_dim, kernel)
+    return 16384 * ctas // _padded(head_dim), stream
+
+
+def fp32_wide_backward_smem_bytes(head_dim: int, kernel: str) -> int:
+    """Shared memory of a block of the fp32 K2 or K3 at 256, 512 and 1024,
+    as bwd32::Cfg::kSmemBytes lays it out: two pinned operands (fp32, 64 KB
+    each: its pinned rows by its columns, D / blocks of a cluster); the ring
+    slots of the two streamed operands; the eight warps' partial S and dP,
+    16 rows by the streamed rows each, in one or two buffers; per slot the
+    streamed rows' statistics (lse, di and segment ids, 4 bytes each); the
+    mbarriers (the pinned tiles', full and empty of each streamed operand
+    per slot); 1024 bytes to align the base for the 128-byte swizzle."""
+    stream, stages, double, ctas = _fp32_wide_bwd(head_dim, kernel)
+    cols = _padded(head_dim) // ctas
+    return (2 * 16384 * 4 + stages * 2 * stream * cols * 4 + (2 if double else 1) * 8 * 2 * 16 * stream * 4
+            + stages * 3 * stream * 4 + (1 + 4 * stages) * 8 + 1024)
 
 
 def backward_tiles(head_dim: int, kernel: str) -> tuple[int, int]:
@@ -332,8 +368,10 @@ def default_blocks(
     64-row KV tiles (`KERNEL_DQ_D256`): the plain loop's dQ tile sets only
     its order of summation, well inside the bf16 tolerance.  fp32 above
     128 takes the 3xTF32 forward's tile (`fp32_wide_forward_tile`: 64 x
-    32, 32 x 32 and 16 x 16 at 256, 512 and 1024) and
-    the SIMT backward's `KERNEL_SIMT_TILE` in dK/dV and dQ; at 512 and
+    32, 32 x 32 and 16 x 16 at 256, 512 and 1024) and the 3xTF32
+    backward's (`fp32_wide_backward_tile`: dK/dV 64 / 32 / 32 KV rows
+    against 16-row query tiles, dQ 64 / 32 / 32 query rows against 32 /
+    16 / 16 KV rows); at 512 and
     1024 the bf16/fp16 forward takes
     64 query rows against `KERNEL_WIDE_KV` rows, and its backward pins
     `KERNEL_WIDE_DKV` / `KERNEL_WIDE_DQ` rows against 64-row tiles (dK/dV
@@ -350,10 +388,11 @@ def default_blocks(
         return BlockSizes(block_q=KERNEL_WIDE_Q, block_kv=KERNEL_WIDE_KV[d][0], block_q_dkv=stream,
                           block_kv_dkv=KERNEL_WIDE_DKV[d][0], block_q_dq=KERNEL_WIDE_DQ[d][0], block_kv_dq=stream)
     if d > 256 or (d == 256 and dtype == torch.float32):
-        rows, bc = KERNEL_SIMT_TILE[d]
+        kv_rows, q_stream = fp32_wide_backward_tile(d, "dkv")
+        q_rows, kv_stream = fp32_wide_backward_tile(d, "dq")
         fwd_q, fwd_kv = fp32_wide_forward_tile(d)
-        return BlockSizes(block_q=fwd_q, block_kv=fwd_kv, block_q_dkv=bc, block_kv_dkv=rows, block_q_dq=rows,
-                          block_kv_dq=bc)
+        return BlockSizes(block_q=fwd_q, block_kv=fwd_kv, block_q_dkv=q_stream, block_kv_dkv=kv_rows,
+                          block_q_dq=q_rows, block_kv_dq=kv_stream)
     if d == 256:
         pinned, stream = KERNEL_DKV_D256
         return BlockSizes(block_q=kernel_block_q(d, quantized), block_kv=KERNEL_BLOCK_KV, block_q_dkv=stream,

@@ -21,9 +21,9 @@ and `flash_attention_with_lse` look at the device of their inputs
   that the head dim is wgmma's M).  fp32 K1 and K4 are 3xTF32
   tensor-core kernels at every head dim (`csrc/flash_fwd_fp32.cu` at 64
   and 128, `csrc/flash_fwd_fp32_wide.cuh` at 256, 512 and 1024), and so
-  are fp32 K2 and K3 at 64 and 128 (`csrc/flash_bwd_fp32.cuh`), inside
-  the same entry points; fp32 K2 and K3 above 128 take the SIMT backward
-  of `csrc/flash_d256.cuh` through entry points of its own (`_route`).
+  are fp32 K2 and K3 (`csrc/flash_bwd_fp32.cuh` at 64 and 128,
+  `csrc/flash_bwd_fp32_wide.cuh` at 256, 512 and 1024), inside the same
+  entry points (`_route`).
   Nothing falls back: what the kernels do not take raises, a head dim above
   1024 among it.
 * CPU tensors go to the plain versions: `flash_attention_reference` (a tile
@@ -73,8 +73,8 @@ __all__ = [
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 
-# The head dims the CUDA kernels are built for.  1024 is the widest: there
-# the SIMT backward splits a row over a whole warp (32 columns a lane).
+# The head dims the CUDA kernels are built for, every kernel at each of
+# them; 1024 is the widest.
 SUPPORTED_HEAD_DIMS = (64, 128, 256, 512, 1024)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -108,9 +108,9 @@ def _pad_head_dim(x: torch.Tensor, dp: int) -> torch.Tensor:
 # 1024 run other kernels, counted under keys of their own (`_route`):
 # "_d256" for what bf16/fp16 runs at 256 (the wgmma K1, K4, K2 and K3),
 # "_wide" at 512 and 1024 (csrc/flash_fwd_wide.cuh, csrc/flash_bwd_wide.cuh,
-# and the pre-pass); for fp32 "_d256_fp32" / "_wide_fp32" for the 3xTF32
-# K1 and K4 of csrc/flash_fwd_fp32_wide.cuh, and "_d256_simt" /
-# "_wide_simt" for the SIMT K2 and K3.
+# and the pre-pass); for fp32 "_d256_fp32" / "_wide_fp32" (the 3xTF32 K1
+# and K4 of csrc/flash_fwd_fp32_wide.cuh, K2 and K3 of
+# csrc/flash_bwd_fp32_wide.cuh).
 KERNEL_LAUNCHES = {
     "flash_fwd": 0,
     "flash_bwd_prep": 0,
@@ -130,8 +130,8 @@ KERNEL_LAUNCHES = {
     "flash_fwd_kv_quant_d256": 0,
     "flash_fwd_d256_fp32": 0,
     "flash_fwd_kv_quant_d256_fp32": 0,
-    "flash_bwd_dkv_d256_simt": 0,
-    "flash_bwd_dq_d256_simt": 0,
+    "flash_bwd_dkv_d256_fp32": 0,
+    "flash_bwd_dq_d256_fp32": 0,
     "flash_fwd_wide": 0,
     "flash_bwd_prep_wide": 0,
     "flash_bwd_dkv_wide": 0,
@@ -139,8 +139,8 @@ KERNEL_LAUNCHES = {
     "flash_fwd_kv_quant_wide": 0,
     "flash_fwd_wide_fp32": 0,
     "flash_fwd_kv_quant_wide_fp32": 0,
-    "flash_bwd_dkv_wide_simt": 0,
-    "flash_bwd_dq_wide_simt": 0,
+    "flash_bwd_dkv_wide_fp32": 0,
+    "flash_bwd_dq_wide_fp32": 0,
 }
 
 
@@ -153,22 +153,13 @@ def _route(name: str, head_dim: int, dtype: torch.dtype) -> tuple[str, str]:
     ones); "_d256" at 256 and "_wide" at 512 and 1024 for bf16/fp16 K1,
     K4, K2 and K3 (the wgmma kernels of csrc/flash_fwd.cuh,
     csrc/flash_fwd_wide.cuh, csrc/flash_bwd.cuh and csrc/flash_bwd_wide.cuh)
-    and for the pre-pass of every dtype; for fp32 K1 and K4 "_d256_fp32" /
-    "_wide_fp32" (the 3xTF32 kernel of csrc/flash_fwd_fp32_wide.cuh,
-    through the plain entry points), and for fp32 K2 and K3 "_d256_simt" /
-    "_wide_simt", the SIMT backward of csrc/flash_d256.cuh, whose entry
-    points are named with "_simt"."""
-    fp32 = dtype == torch.float32
-    if head_dim <= 128:
-        if fp32 and name != "flash_bwd_prep":
-            return f"{name}_fp32", f"fa_{name}"
-        return name, f"fa_{name}"
-    tier = "_d256" if head_dim == 256 else "_wide"
-    if not fp32 or name == "flash_bwd_prep":
-        return f"{name}{tier}", f"fa_{name}"
-    if name.startswith("flash_fwd"):
-        return f"{name}{tier}_fp32", f"fa_{name}"
-    return f"{name}{tier}_simt", f"fa_{name}_simt"
+    and for the pre-pass of every dtype; for fp32 K1, K4, K2 and K3
+    "_d256_fp32" / "_wide_fp32" (the 3xTF32 kernels of
+    csrc/flash_fwd_fp32_wide.cuh and csrc/flash_bwd_fp32_wide.cuh).  Every
+    kernel is reached through its plain entry point."""
+    fp32 = dtype == torch.float32 and name != "flash_bwd_prep"
+    tier = "" if head_dim <= 128 else "_d256" if head_dim == 256 else "_wide"
+    return f"{name}{tier}{'_fp32' if fp32 else ''}", f"fa_{name}"
 
 
 def _call(entry: str, device: torch.device, *args) -> None:
@@ -505,7 +496,7 @@ def _bwd_args(q, k, v, o, lse, do, dlse, spec: _Spec, segs):
     by the pre-pass, K2 and K3): inputs read through their strides; the
     pre-pass's outputs, di (fp32 [B, Hq, Lq]) and, for bf16/fp16, whose
     wgmma K2/K3 read it at every head dim, qs ([B, Hq, Lq, D] contiguous;
-    the fp32 K2/K3 and the SIMT family scale q themselves); and
+    the fp32 K2/K3 scale S themselves); and
     the grads in [B, L, H, D] memory, as the forward's output, so that the
     grads of the fused projection's q/k/v views are free views too."""
     b, hq, hkv, lq, lk, d = _shapes(q, k, v)
@@ -554,13 +545,13 @@ def _bwd_launch(name: str, args: dict, outs: tuple[torch.Tensor, ...]) -> None:
 
 
 def _launch_bwd_dkv(args: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run K2 (fa_flash_bwd_dkv, or the SIMT backward's; `_route`): (dk, dv)."""
+    """Run K2 (fa_flash_bwd_dkv; `_route`): (dk, dv)."""
     _bwd_launch("flash_bwd_dkv", args, (args["dk"], args["dv"]))
     return args["dk"], args["dv"]
 
 
 def _launch_bwd_dq(args: dict) -> torch.Tensor:
-    """Run K3 (fa_flash_bwd_dq, or the SIMT backward's; `_route`): dq."""
+    """Run K3 (fa_flash_bwd_dq; `_route`): dq."""
     _bwd_launch("flash_bwd_dq", args, (args["dq"],))
     return args["dq"]
 

@@ -148,14 +148,16 @@ def test_default_blocks_is_the_kernel_tile():
     two), for any GQA group; the backward (two
     consumer warpgroups at 64 and 128) 64 query rows against 128 pinned KV
     rows for dK/dV, 128 pinned query rows against 64 KV rows for dQ; at 256
-    dK/dV 32 query rows against 64 pinned KV rows and dQ the SIMT backward's
-    32 x 32.  fp32 from 256 up: the 3xTF32 forward pins 64, 32 and 16 query
-    rows against 32, 32 and 16 KV rows, the SIMT backward pins 256 / (D / 32)
-    rows and streams 32, 32 and 16; at 512 and 1024 the bf16/fp16 forward (the
-    wide wgmma kernel) takes 64 query rows against 32 and 16 KV rows, and
-    its backward (the wide wgmma K2 / K3) pins rows against 64-row tiles:
-    dK/dV 64 query rows against 32 / 16 KV rows, dQ 32 query rows against
-    64 KV rows."""
+    dK/dV 32 query rows against 64 pinned KV rows and dQ 32 x 32.  fp32
+    from 256 up: the 3xTF32 forward pins 64, 32 and 16 query rows against
+    32, 32 and 16 KV rows; the 3xTF32 backward's dK/dV pins 64, 32 and 32
+    KV rows against 16-row query tiles and its dQ 64, 32 and 32 query rows
+    against 32, 16 and 16 KV rows (at 1024 two blocks of a cluster share
+    the rows, each with half the columns); at 512 and 1024 the bf16/fp16
+    forward (the wide wgmma kernel) takes 64 query rows against 32 and 16
+    KV rows, and its backward (the wide wgmma K2 / K3) pins rows against
+    64-row tiles: dK/dV 64 query rows against 32 / 16 KV rows, dQ 32 query
+    rows against 64 KV rows."""
     assert tbs.KERNEL_BLOCK_KV == 64
     bwd = dict(block_q_dkv=64, block_kv_dkv=128, block_q_dq=128, block_kv_dq=64)
     assert tbs.default_blocks(1024, 1024, 64) == tbs.BlockSizes(192, 64, **bwd)
@@ -170,9 +172,9 @@ def test_default_blocks_is_the_kernel_tile():
     for dtype in (None, torch.bfloat16, torch.float16):
         assert tiles(256, dtype) == tiles(160, dtype) == (64, 64, (32, 64), (32, 32))
         assert tiles(256, dtype, quantized=True)[:2] == (128, 64)
-    assert tiles(256, torch.float32) == tiles(129, torch.float32) == (64, 32, (32, 32), (32, 32))
-    assert tiles(512, torch.float32) == tiles(288, torch.float32) == (32, 32, (32, 16), (16, 32))
-    assert tiles(1024, torch.float32) == tiles(520, torch.float32) == (16, 16, (16, 8), (8, 16))
+    assert tiles(256, torch.float32) == tiles(129, torch.float32) == (64, 32, (16, 64), (64, 32))
+    assert tiles(512, torch.float32) == tiles(288, torch.float32) == (32, 32, (16, 32), (32, 16))
+    assert tiles(1024, torch.float32) == tiles(520, torch.float32) == (16, 16, (16, 32), (32, 16))
     for dtype in (None, torch.bfloat16, torch.float16):
         assert tiles(512, dtype) == tiles(288, dtype) == (64, 32, (64, 32), (32, 64))
         assert tiles(1024, dtype) == tiles(520, dtype) == (64, 16, (64, 16), (32, 64))
@@ -182,8 +184,8 @@ def test_default_blocks_is_the_kernel_tile():
 def test_plain_loop_at_the_d256_tiles_matches_jax(dtype):
     """The plain forward and backward at the D256 kernels' tiles, 64 x 64
     forward and 32 x 64 dK/dV for bf16 (the wgmma kernels), 64 x 32 forward
-    (the 3xTF32 kernel) and 32 x 32 dK/dV (the SIMT backward) for fp32, on
-    fp32 inputs at L130 (ragged ends, a GQA
+    and 16 x 64 dK/dV for fp32 (the 3xTF32 kernels), on fp32 inputs at
+    L130 (ragged ends, a GQA
     group of 2 whose tiles cross the causal diagonal): out, lse and the
     grads against the JAX package in interpret mode, fp32, forward 1e-5,
     backward 1e-4."""
@@ -192,7 +194,7 @@ def test_plain_loop_at_the_d256_tiles_matches_jax(dtype):
     do = randn(16, 1, 4, lq, 256)
     blocks = tbs.default_blocks(lq, lk, 256, 2, dtype=getattr(torch, dtype))
     assert (blocks.block_q, blocks.block_kv) == ((64, 64) if dtype == "bfloat16" else (64, 32))
-    assert blocks.bwd_dkv() == ((32, 64) if dtype == "bfloat16" else (32, 32))
+    assert blocks.bwd_dkv() == ((32, 64) if dtype == "bfloat16" else (16, 64))
     jo, jl = jfa.flash_attention_with_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     to, tl = tfa.flash_attention_reference(t(q), t(k), t(v), block_sizes=blocks)
     np.testing.assert_allclose(n(to), n(jo), atol=1e-5, rtol=0)
@@ -276,7 +278,7 @@ def test_fp32_wide_forward_kernel_fits_in_shared_memory(kv, head_dim):
     H100 block's 227 KB: q (64 KB; its lo copy where it is split once),
     the ring's K and V tiles (fp32, or K4's 1-byte payloads), the eight
     warps' partial S double-buffered; its tile is the plain loop's fp32
-    forward tile."""
+    forward tile, and the plain loop's dK/dV tile is the 3xTF32 backward's."""
     quantized = kv != "same"
     used = tbs.fp32_wide_forward_smem_bytes(head_dim, quantized)
     assert used <= tbs.SMEM_PER_BLOCK
@@ -288,7 +290,7 @@ def test_fp32_wide_forward_kernel_fits_in_shared_memory(kv, head_dim):
     assert used >= q + 2 * stream * head_dim * elem + 2 * 8 * 16 * stream * 4
     blocks = tbs.default_blocks(1024, 1024, head_dim, dtype=torch.float32, quantized=quantized)
     assert (blocks.block_q, blocks.block_kv) == (rows, bc)
-    assert blocks.bwd_dkv() == tbs.KERNEL_SIMT_TILE[head_dim][::-1]
+    assert blocks.bwd_dkv() == tbs.fp32_wide_backward_tile(head_dim, "dkv")[::-1]
 
 
 @pytest.mark.parametrize(

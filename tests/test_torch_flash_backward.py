@@ -325,11 +325,10 @@ def test_cuda_route_launches_padded_head_dims(d, entry, monkeypatch):
 
 @pytest.mark.parametrize("entry", ["flash_attention", "with_lse", "kv_quant"])
 def test_cuda_route_raises_above_head_dim_1024(entry, monkeypatch):
-    """No public model config has a head dim above 256, and at 1024 the SIMT
-    backward already splits a row over a whole warp: the kernels are built up
-    to 1024, and on the CUDA route D1040 raises before any launch (the real
-    launchers check the head dim before they build or load the kernels, so
-    no card is needed to see it)."""
+    """No public model config has a head dim above 256: every kernel is
+    built for padded head dims 64 to 1024, and on the CUDA route D1040
+    raises before any launch (the real launchers check the head dim before
+    they build or load the kernels, so no card is needed to see it)."""
     monkeypatch.setattr(tfa, "kernel_route", lambda *ts: "cuda")
     monkeypatch.setattr(tkv, "kernel_route", lambda *ts: "cuda")
     before = dict(tfa.KERNEL_LAUNCHES)
@@ -348,12 +347,11 @@ def test_cuda_route_raises_above_head_dim_1024(entry, monkeypatch):
 # Where each C entry point takes its head dim (the index in its arguments).
 _HEAD_DIM_ARG = {
     "fa_flash_fwd": 13, "fa_flash_fwd_kv_quant": 15, "fa_flash_bwd_prep": 10, "fa_flash_bwd_dkv": 17,
-    "fa_flash_bwd_dkv_simt": 17, "fa_flash_bwd_dq": 16, "fa_flash_bwd_dq_simt": 16,
+    "fa_flash_bwd_dq": 16,
 }
 # Where the backward's entry points take qs (written by the pre-pass, read by
 # the wgmma K2 / K3).
-_QS_ARG = {"fa_flash_bwd_prep": 4, "fa_flash_bwd_dkv": 6, "fa_flash_bwd_dkv_simt": 6, "fa_flash_bwd_dq": 6,
-           "fa_flash_bwd_dq_simt": 6}
+_QS_ARG = {"fa_flash_bwd_prep": 4, "fa_flash_bwd_dkv": 6, "fa_flash_bwd_dq": 6}
 
 
 @pytest.mark.parametrize(
@@ -366,10 +364,10 @@ _QS_ARG = {"fa_flash_bwd_prep": 4, "fa_flash_bwd_dkv": 6, "fa_flash_bwd_dkv_simt
         (160, torch.float16, ("flash_fwd_d256", "fa_flash_fwd"), ("flash_bwd_prep_d256", "fa_flash_bwd_prep"),
          ("flash_bwd_dkv_d256", "fa_flash_bwd_dkv"), ("flash_bwd_dq_d256", "fa_flash_bwd_dq"),
          ("flash_fwd_kv_quant_d256", "fa_flash_fwd_kv_quant")),
-        # fp32 at 256: the 3xTF32 K1 and K4 through the plain entry points,
-        # the SIMT K2 and K3 through their own
+        # fp32 at 256: the 3xTF32 K1, K4, K2 and K3 through the plain entry
+        # points
         (256, torch.float32, ("flash_fwd_d256_fp32", "fa_flash_fwd"), ("flash_bwd_prep_d256", "fa_flash_bwd_prep"),
-         ("flash_bwd_dkv_d256_simt", "fa_flash_bwd_dkv_simt"), ("flash_bwd_dq_d256_simt", "fa_flash_bwd_dq_simt"),
+         ("flash_bwd_dkv_d256_fp32", "fa_flash_bwd_dkv"), ("flash_bwd_dq_d256_fp32", "fa_flash_bwd_dq"),
          ("flash_fwd_kv_quant_d256_fp32", "fa_flash_fwd_kv_quant")),
         # 257-512 and 513-1024, bf16/fp16: the wide wgmma K1, K4, K2 and K3,
         # keys of their own
@@ -377,10 +375,9 @@ _QS_ARG = {"fa_flash_bwd_prep": 4, "fa_flash_bwd_dkv": 6, "fa_flash_bwd_dkv_simt
            ("flash_bwd_dkv_wide", "fa_flash_bwd_dkv"), ("flash_bwd_dq_wide", "fa_flash_bwd_dq"),
            ("flash_fwd_kv_quant_wide", "fa_flash_fwd_kv_quant"))
           for d, dtype in ((288, torch.bfloat16), (520, torch.float16), (1024, torch.bfloat16))),
-        # fp32 there: the 3xTF32 K1 and K4 under "_wide_fp32", the SIMT K2
-        # and K3 under "_wide_simt"
+        # fp32 there: the 3xTF32 K1, K4, K2 and K3 under "_wide_fp32"
         *((d, torch.float32, ("flash_fwd_wide_fp32", "fa_flash_fwd"), ("flash_bwd_prep_wide", "fa_flash_bwd_prep"),
-           ("flash_bwd_dkv_wide_simt", "fa_flash_bwd_dkv_simt"), ("flash_bwd_dq_wide_simt", "fa_flash_bwd_dq_simt"),
+           ("flash_bwd_dkv_wide_fp32", "fa_flash_bwd_dkv"), ("flash_bwd_dq_wide_fp32", "fa_flash_bwd_dq"),
            ("flash_fwd_kv_quant_wide_fp32", "fa_flash_fwd_kv_quant"))
           for d in (512, 1024)),
         # fp32 up to 128: K1, K4, K2 and K3 (the 3xTF32 kernels) under
@@ -485,8 +482,8 @@ def test_wide_fp32_forward_counts_under_its_own_keys(kernel, d, dtype, monkeypat
     1024 (the 3xTF32 kernel of flash_fwd_fp32_wide.cuh), and nothing under
     any other key; bf16 / fp16 count under "_d256" / "_wide" and never
     under an "_fp32" key.  Every launch goes through the plain entry point
-    (no forward entry named "_simt" is left) with the padded head dim and
-    the dtype's code, and fp32 K1 with block_q 0 (its one tile)."""
+    (no key named "_simt" is left) with the padded head dim and the dtype's
+    code, and fp32 K1 with block_q 0 (its one tile)."""
     calls, block_q = [], []
     dtype_arg = {"fa_flash_fwd": 7, "fa_flash_fwd_kv_quant": 8}
 
@@ -516,7 +513,7 @@ def test_wide_fp32_forward_counts_under_its_own_keys(kernel, d, dtype, monkeypat
     key = f"{name}{tier}_fp32" if dtype == torch.float32 else f"{name}{tier}"
     counts = {k_: n - before[k_] for k_, n in tfa.KERNEL_LAUNCHES.items() if n != before[k_]}
     assert counts == {key: 1}
-    assert not any(k_.startswith("flash_fwd") and k_.endswith("_simt") for k_ in tfa.KERNEL_LAUNCHES)
+    assert not any(k_.endswith("_simt") for k_ in tfa.KERNEL_LAUNCHES)
     entry = "fa_flash_fwd_kv_quant" if name == "flash_fwd_kv_quant" else "fa_flash_fwd"
     assert calls == [(entry, dp, tfa._DTYPE_CODES[dtype])]
     if dtype == torch.float32:
@@ -524,38 +521,36 @@ def test_wide_fp32_forward_counts_under_its_own_keys(kernel, d, dtype, monkeypat
 
 
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_fwd_kv_quant", "flash_bwd_dkv", "flash_bwd_dq"])
-def test_d256_route_sends_16_bit_types_to_wgmma_and_fp32_to_simt(name):
+def test_d256_route_sends_16_bit_types_to_wgmma_and_fp32_to_3xtf32(name):
     """At padded head dim 256 each of K1, K4, K2 and K3 sends bf16 and fp16
-    to its wgmma kernel's entry point under the "_d256" key; fp32 K1 and K4
-    go to the same entry point (the 3xTF32 kernel) under a "_d256_fp32" key
-    of their own, and fp32 K2 and K3 to the SIMT backward's (`fa_*_simt`)
-    under "_d256_simt"; at 128 the dtype does not change the entry point."""
+    to its wgmma kernel's entry point under the "_d256" key, and fp32 to the
+    same entry point (the 3xTF32 kernels of flash_fwd_fp32_wide.cuh and
+    flash_bwd_fp32_wide.cuh) under a "_d256_fp32" key of its own; at 128
+    the dtype does not change the entry point.  No key is named "_simt"."""
     for dtype in (torch.bfloat16, torch.float16):
         assert tfa._route(name, 256, dtype) == (f"{name}_d256", f"fa_{name}")
         assert tfa._route(name, 128, dtype) == (name, f"fa_{name}")
-    fwd = name.startswith("flash_fwd")
-    want = (f"{name}_d256_fp32", f"fa_{name}") if fwd else (f"{name}_d256_simt", f"fa_{name}_simt")
+    want = (f"{name}_d256_fp32", f"fa_{name}")
     assert tfa._route(name, 256, torch.float32) == want
     assert want[0] in tfa.KERNEL_LAUNCHES and f"{name}_d256" in tfa.KERNEL_LAUNCHES
-    assert (f"{name}_d256_simt" in tfa.KERNEL_LAUNCHES) != fwd
+    assert f"{name}_d256_simt" not in tfa.KERNEL_LAUNCHES
 
 
 @pytest.mark.parametrize("d", [512, 1024])
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_fwd_kv_quant", "flash_bwd_dkv", "flash_bwd_dq"])
-def test_wide_route_sends_16_bit_forward_to_wgmma_and_the_rest_to_simt(name, d):
+def test_wide_route_sends_16_bit_types_to_wgmma_and_fp32_to_3xtf32(name, d):
     """At padded head dims 512 and 1024 K1, K4, K2 and K3 send bf16 and
     fp16 to their own entry points (the wide wgmma kernels of
-    flash_fwd_wide.cuh and flash_bwd_wide.cuh) under the "_wide" key; fp32
-    K1 and K4 go to the same entry points (the 3xTF32 kernel of
-    flash_fwd_fp32_wide.cuh) under "_wide_fp32", and fp32 K2 and K3 to the
-    SIMT backward's under "_wide_simt"."""
+    flash_fwd_wide.cuh and flash_bwd_wide.cuh) under the "_wide" key, and
+    fp32 to the same entry points (the 3xTF32 kernels of
+    flash_fwd_fp32_wide.cuh and flash_bwd_fp32_wide.cuh) under
+    "_wide_fp32"."""
     for dtype in (torch.bfloat16, torch.float16):
         assert tfa._route(name, d, dtype) == (f"{name}_wide", f"fa_{name}")
-    fwd = name.startswith("flash_fwd")
-    want = (f"{name}_wide_fp32", f"fa_{name}") if fwd else (f"{name}_wide_simt", f"fa_{name}_simt")
+    want = (f"{name}_wide_fp32", f"fa_{name}")
     assert tfa._route(name, d, torch.float32) == want
     assert all(key in tfa.KERNEL_LAUNCHES for key, _ in (tfa._route(name, d, t) for t in (torch.bfloat16, torch.float32)))
-    assert (f"{name}_wide_simt" in tfa.KERNEL_LAUNCHES) != fwd
+    assert f"{name}_wide_simt" not in tfa.KERNEL_LAUNCHES
 
 
 # Where the backward's K2 / K3 entry points take q's dtype code.
@@ -568,11 +563,10 @@ def test_wide_backward_reaches_the_wgmma_entries_with_the_c_arguments(dtype, d, 
     """flash_attention's backward at head dims 288 and 520 (padded to 512
     and 1024) on the CUDA route, the C entry points stood in for by a
     recorder (`_call`): K2 and K3 reach fa_flash_bwd_dkv and fa_flash_bwd_dq
-    (the wide wgmma kernels, not the SIMT family's) with the padded head
-    dim, q's dtype code as the C side reads it and the pre-pass's qs buffer
-    (the one it wrote, not null); q, k, v and dO reach the backward
-    zero-padded to the padded head dim; one launch each under the "_wide"
-    keys."""
+    (the wide wgmma kernels) with the padded head dim, q's dtype code as
+    the C side reads it and the pre-pass's qs buffer (the one it wrote, not
+    null); q, k, v and dO reach the backward zero-padded to the padded head
+    dim; one launch each under the "_wide" keys."""
     calls, seen = [], {}
 
     def record(entry, device, *args):
@@ -613,6 +607,70 @@ def test_wide_backward_reaches_the_wgmma_entries_with_the_c_arguments(dtype, d, 
     assert counts == {"flash_bwd_prep_wide": 1, "flash_bwd_dkv_wide": 1, "flash_bwd_dq_wide": 1}
 
 
+@pytest.mark.parametrize("d", [160, 256, 288, 520, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=["fp32", "bf16", "fp16"])
+def test_wide_fp32_backward_counts_under_its_own_keys(dtype, d, monkeypatch):
+    """flash_attention's backward above head dim 128 on the CUDA route, the
+    C entry points stood in for by a recorder: fp32 counts one launch each
+    of K2 and K3 under "flash_bwd_dkv_d256_fp32" / "flash_bwd_dq_d256_fp32"
+    at padded head dim 256 and "flash_bwd_dkv_wide_fp32" /
+    "flash_bwd_dq_wide_fp32" at 512 and 1024 (the 3xTF32 kernels of
+    flash_bwd_fp32_wide.cuh), the pre-pass under its "_d256" / "_wide" key,
+    and nothing under any other key; bf16 / fp16 count under "_d256" /
+    "_wide" and never under an "_fp32" key.  K2 and K3 go through
+    fa_flash_bwd_dkv and fa_flash_bwd_dq with the padded head dim, the
+    dtype's code, and qs null for fp32 (the pre-pass's qs for bf16 /
+    fp16)."""
+    calls = []
+
+    def record(entry, device, *args):
+        if entry in _BWD_DTYPE_ARG:
+            calls.append((entry, args[_HEAD_DIM_ARG[entry]], args[_BWD_DTYPE_ARG[entry]], args[_QS_ARG[entry]]))
+
+    monkeypatch.setattr(tfa, "kernel_route", lambda *ts: "cuda")
+    monkeypatch.setattr(tfa, "_call", record)
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: 0)
+    q = torch.zeros(1, 4, 130, d, dtype=dtype, requires_grad=True)
+    k, v = (torch.zeros(1, 2, 130, d, dtype=dtype, requires_grad=True) for _ in range(2))
+    out = tfa.flash_attention(q, k, v)
+    before = dict(tfa.KERNEL_LAUNCHES)
+    out.backward(torch.zeros_like(out))
+    dp = tfa.padded_head_dim(d)
+    tier = "_d256" if dp == 256 else "_wide"
+    fp32 = dtype == torch.float32
+    want = {f"flash_bwd_prep{tier}": 1, f"flash_bwd_dkv{tier}{'_fp32' if fp32 else ''}": 1,
+            f"flash_bwd_dq{tier}{'_fp32' if fp32 else ''}": 1}
+    counts = {k_: n_ - before[k_] for k_, n_ in tfa.KERNEL_LAUNCHES.items() if n_ != before[k_]}
+    assert counts == want
+    code, qs = tfa._DTYPE_CODES[dtype], None if fp32 else 0
+    assert calls == [("fa_flash_bwd_dkv", dp, code, qs), ("fa_flash_bwd_dq", dp, code, qs)]
+
+
+@pytest.mark.parametrize("head_dim", [256, 512, 1024])
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+def test_fp32_wide_backward_kernels_fit_in_shared_memory(kernel, head_dim):
+    """K2 and K3 for fp32 above 128 (csrc/flash_bwd_fp32_wide.cuh) fit an
+    H100 block's 227 KB, counted as bwd32::Cfg lays them out
+    (`fp32_wide_backward_smem_bytes`): two pinned operands of 64 KB (the
+    block's pinned rows by its columns: D, or D / 2 at 1024, where the two
+    blocks of a cluster split the columns), the ring slots of the two
+    streamed operands, the eight warps' partial S and dP (double-buffered
+    where they fit, always in a cluster), the streamed rows' statistics, the
+    barriers and the alignment slack; one more slot of each streamed operand
+    would not fit.  Their tiles are the plain loop's fp32 backward tiles."""
+    stream, stages, double, ctas = tbs.KERNEL_FP32_WIDE_BWD[kernel][head_dim]
+    pinned, streamed = tbs.fp32_wide_backward_tile(head_dim, kernel)
+    cols = head_dim // ctas
+    assert streamed == stream and pinned * cols == 128 * 128 and ctas in (1, 2) and (ctas == 1 or double)
+    used = tbs.fp32_wide_backward_smem_bytes(head_dim, kernel)
+    slots = 2 * stream * cols * 4
+    parts = (2 if double else 1) * 8 * 2 * 16 * stream * 4
+    assert 2 * pinned * cols * 4 + stages * slots + parts <= used <= tbs.SMEM_PER_BLOCK
+    assert used + slots > tbs.SMEM_PER_BLOCK
+    blocks = tbs.default_blocks(1024, 1024, head_dim, dtype=torch.float32)
+    assert (blocks.bwd_dkv() if kernel == "dkv" else blocks.bwd_dq()[::-1]) == (streamed, pinned)
+
+
 @pytest.mark.parametrize("head_dim", [512, 1024])
 @pytest.mark.parametrize("kernel", ["dkv", "dq"])
 def test_wide_backward_kernels_fit_in_shared_memory(kernel, head_dim):
@@ -641,8 +699,10 @@ def test_plain_backward_at_the_wide_tiles_matches_jax(d, dtype):
     """The plain backward at the tiles of the kernels that run head dims 288
     and 520 (padded to 512 and 1024): for bf16 the wide wgmma K2 / K3's
     (dK/dV 64 query rows against 32 / 16 pinned KV rows, dQ 32 pinned query
-    rows against 64 KV rows), for fp32 the SIMT family's; on fp32
-    inputs zero-padded to the padded head dim, at L130 (ragged ends) with a
+    rows against 64 KV rows), for fp32 the 3xTF32 K2 / K3's (dK/dV 16 query
+    rows against 32 pinned KV rows, dQ 32 pinned query rows against 16 KV
+    rows); on fp32 inputs zero-padded to the padded head dim, at L130
+    (ragged ends) with a
     GQA group of 2 whose tiles cross the causal diagonal and an lse
     cotangent: the q, k and v grads against jax.grad of the JAX package's
     flash_attention_with_lse at d itself, fp32, 1e-4."""
@@ -659,8 +719,9 @@ def test_plain_backward_at_the_wide_tiles_matches_jax(d, dtype):
     if dtype == "bfloat16":
         assert blocks.bwd_dkv() == (64, 16384 // dp) and blocks.bwd_dq() == (32, 64)
     else:
-        rows, bc = tbs.KERNEL_SIMT_TILE[dp]
-        assert blocks.bwd_dkv() == (bc, rows) and blocks.bwd_dq() == (rows, bc)
+        assert blocks.bwd_dkv() == (16, 32) and blocks.bwd_dq() == (32, 16)
+        assert blocks.bwd_dkv() == tbs.fp32_wide_backward_tile(dp, "dkv")[::-1]
+        assert blocks.bwd_dq() == tbs.fp32_wide_backward_tile(dp, "dq")
     qp, kp, vp, dop = (tfa._pad_head_dim(t(x), dp) for x in (q, k, v, do))
     o, lse = tfa.flash_attention_reference(qp, kp, vp, sm_scale=d ** -0.5, block_sizes=blocks)
     grads = tfa.flash_attention_bwd_reference(qp, kp, vp, o, lse, dop, dlse=t(dlse), sm_scale=d ** -0.5,
@@ -668,6 +729,59 @@ def test_plain_backward_at_the_wide_tiles_matches_jax(d, dtype):
     for name, g, w in zip(("dq", "dk", "dv"), grads, want):
         assert not g[..., d:].any()
         np.testing.assert_allclose(n(g[..., :d]), np.asarray(w), atol=1e-4, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize(
+    "case", ["gqa-q129-kv257", "window-100", "segments", "no-key-rows", "non-causal", "lse-cotangent"]
+)
+@pytest.mark.parametrize("d", [160, 256, 288, 520])
+def test_plain_backward_at_the_fp32_wide_tiles_matches_jax(d, case):
+    """The plain backward at the 3xTF32 K2 / K3's tiles above head dim 128
+    (`fp32_wide_backward_tile`: dK/dV 16 query rows against 64 / 32 pinned
+    KV rows, dQ 64 / 32 pinned query rows against 32 / 16 KV rows at padded
+    head dims 256 / 512 and 1024), on fp32 inputs zero-padded as the entry
+    points pad them, against jax.grad of the JAX package's fp32
+    flash_attention (flash_attention_with_lse for the lse cotangent) in
+    interpret mode at d itself: q, k and v grads at 1e-4.  Cases: ragged
+    q129 x kv257 with a GQA group of 4 whose tiles cross the causal
+    diagonal; a window of 100 over them; 3 segments; rows that see no key
+    (causal q200 x kv120: the first 80, whose dO is 0, as JAX's kernel
+    spreads them over every key, and whose dq is exactly 0); non-causal; an
+    lse cotangent."""
+    lq, lk = {"no-key-rows": (200, 120)}.get(case, (129, 257))
+    q, k, v, do = _inputs(1, 8, 2, lq, lk, d=d, seed=83)
+    keyed = 80 if case == "no-key-rows" else 0
+    do[:, :, :keyed] = 0
+    causal = case != "non-causal"
+    kw_j, kw_t = {}, {}
+    if case == "window-100":
+        kw_j = kw_t = dict(window=100)
+    elif case == "segments":
+        q_ids = np.repeat(np.arange(3, dtype=np.int32), [40, 50, 39])[None]
+        kv_ids = np.repeat(np.arange(3, dtype=np.int32), [100, 100, 57])[None]
+        kw_j = dict(segment_ids=(jnp.asarray(q_ids), jnp.asarray(kv_ids)))
+        kw_t = dict(segment_ids=(t(q_ids), t(kv_ids)))
+    dlse = randn(85, 1, 8, lq) if case == "lse-cotangent" else None
+
+    def loss(q, k, v):
+        if dlse is None:
+            return jnp.sum(jfa.flash_attention(q, k, v, causal=causal, **kw_j) * do)
+        o, lse = jfa.flash_attention_with_lse(q, k, v, causal=causal)
+        return jnp.sum(o * do) + jnp.sum(lse * dlse)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    dp = tfa.padded_head_dim(d)
+    blocks = tbs.default_blocks(lq, lk, dp, 4, dtype=torch.float32)
+    assert blocks.bwd_dkv() == tbs.fp32_wide_backward_tile(dp, "dkv")[::-1]
+    assert blocks.bwd_dq() == tbs.fp32_wide_backward_tile(dp, "dq")
+    qp, kp, vp, dop = (tfa._pad_head_dim(t(x), dp) for x in (q, k, v, do))
+    kw = dict(causal=causal, sm_scale=d ** -0.5, block_sizes=blocks, **kw_t)
+    o, lse = tfa.flash_attention_reference(qp, kp, vp, **kw)
+    grads = tfa.flash_attention_bwd_reference(qp, kp, vp, o, lse, dop, dlse=None if dlse is None else t(dlse), **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert not g[..., d:].any()
+        np.testing.assert_allclose(n(g[..., :d]), np.asarray(w), atol=1e-4, rtol=0, err_msg=name)
+    assert not grads[0][:, :, :keyed].any()
 
 
 # Where fa_flash_fwd_kv_quant takes q's dtype code and the payload's
@@ -682,10 +796,10 @@ _K1_DTYPE_ARG, _K1_BLOCK_Q_ARG = 7, 29
 def test_wide_k4_reaches_the_wgmma_entry_with_the_c_arguments(dtype, qdt, monkeypatch):
     """K4 over int8 and fp8 at head dim 520 on the CUDA route, the C entry
     points stood in for by a recorder: it reaches fa_flash_fwd_kv_quant (the
-    wide wgmma kernel, not the SIMT family's) with head dim 1024, q's and
-    the payload's dtype codes as the C side reads them, and the payloads
-    zero-padded to 1024 bytes a row; K1 at the same head dim reaches
-    fa_flash_fwd with block_q 0, the one tile the wide kernels take."""
+    wide wgmma kernel) with head dim 1024, q's and the payload's dtype codes
+    as the C side reads them, and the payloads zero-padded to 1024 bytes a
+    row; K1 at the same head dim reaches fa_flash_fwd with block_q 0, the
+    one tile the wide kernels take."""
     calls = []
 
     def record(entry, device, *args):
@@ -728,10 +842,10 @@ def test_wide_k4_reaches_the_wgmma_entry_with_the_c_arguments(dtype, qdt, monkey
 def test_d256_backward_launches_k3_on_its_kernel(d, dtype, monkeypatch):
     """flash_attention's backward at head dims 160 and 256 (both run at 256)
     on the CUDA route, the C entry points stood in for by a recorder
-    (`_call`): bf16 and fp16 hand K3 to the wgmma kernel's entry point,
-    fa_flash_bwd_dq, with the pre-pass's qs buffer (the same one the
-    pre-pass wrote) and count one flash_bwd_dq_d256 launch; fp32 hands it to
-    fa_flash_bwd_dq_simt with no qs and counts flash_bwd_dq_d256_simt."""
+    (`_call`): bf16 and fp16 hand K3 to fa_flash_bwd_dq (the wgmma kernel)
+    with the pre-pass's qs buffer (the same one the pre-pass wrote) and
+    count one flash_bwd_dq_d256 launch; fp32 hands it to the same entry
+    point (the 3xTF32 kernel) with no qs and counts flash_bwd_dq_d256_fp32."""
     calls = []
 
     def record(entry, device, *args):
@@ -746,9 +860,9 @@ def test_d256_backward_launches_k3_on_its_kernel(d, dtype, monkeypatch):
     out.backward(torch.zeros_like(out))
     prep, _, dq = calls[1:]
     fp32 = dtype == torch.float32
-    assert dq[:2] == ("fa_flash_bwd_dq_simt" if fp32 else "fa_flash_bwd_dq", 256)
+    assert dq[:2] == ("fa_flash_bwd_dq", 256)
     assert prep[0] == "fa_flash_bwd_prep" and dq[2] == prep[2]
     assert (dq[2] is None) == fp32 and dq[2] != 0
     counts = {key: n - before[key] for key, n in tfa.KERNEL_LAUNCHES.items() if n != before[key]}
-    key = "flash_bwd_dq_d256_simt" if fp32 else "flash_bwd_dq_d256"
+    key = "flash_bwd_dq_d256_fp32" if fp32 else "flash_bwd_dq_d256"
     assert counts == {"flash_bwd_prep_d256": 1, key: 1, key.replace("_dq_", "_dkv_"): 1}

@@ -24,12 +24,17 @@ Then it prints lines of results, the last `RESULT {json}`:
   GPT at GPT-2's width with 3 heads of 256, 2 layers) trained at b4 x
   T1024 in bf16: the median wall time of 10 steps after 3 warm-up steps.
 
-With --dtype float32 it times the fp32 forward alone (the 3xTF32 K1 and
-K4): at each head dim, K1 (output and lse) is held against its plain
+With --dtype float32 it times the fp32 kernels (the 3xTF32 K1, K4, K2 and
+K3): at each head dim, K1 (output and lse) is held against its plain
 version at 1e-5 and K4 over int8 and fp8 K/V at 5e-5 (b1, GQA 4/2, L300),
-each launching once under its KERNEL_LAUNCHES key; then at b8 h12 L1024
-fp32 causal the device time of K1 without and with lse, K4 over int8 and
-over fp8, and torch SDPA's fp32 forward, beside the 3xTF32 bound.
+each launching once under its KERNEL_LAUNCHES key, and the grads of K1 +
+pre-pass + K2 + K3 against the plain backward at 1e-4 (b1, GQA 4/2, q300
+x kv300 and q129 x kv257 with window 100, K2 and K3 launching once each);
+then at b8 h12 L1024 fp32 causal the device time of K1 without and with
+lse, K4 over int8 and over fp8, and torch SDPA's fp32 forward, beside the
+3xTF32 bound; and of the pre-pass, K2, K3 and torch SDPA's fp32 whole
+backward, K2 and K3 beside their 3xTF32 bounds and pre-pass + K2 + K3
+against SDPA's backward.
 
 Compare in one call, in turns (A, B, B, A): times on the host's clock
 spread between calls and between processes, and one process cannot import
@@ -165,6 +170,51 @@ def fp32_forward_times(gen, d: int) -> dict:
     return row
 
 
+def fp32_backward_times(gen, d: int) -> dict:
+    f32 = torch.float32
+    errs = {}
+    for tag, lq, lk, window in (("L300", 300, 300, None), ("q129 kv257 w100", 129, 257, 100)):
+        q, do = (torch.randn((1, 4, lq, d), generator=gen).to("cuda") for _ in range(2))
+        k, v = (torch.randn((1, 2, lk, d), generator=gen).to("cuda") for _ in range(2))
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        before = dict(FA.KERNEL_LAUNCHES)
+        got = torch.autograd.grad(FA.flash_attention(qg, kg, vg, window=window), (qg, kg, vg), do)
+        with torch.no_grad():
+            o_p, lse_p = FA.flash_attention_reference(q, k, v, window=window)
+            plain = FA.flash_attention_bwd_reference(q, k, v, o_p, lse_p, do, window=window)
+        torch.cuda.synchronize()
+        launched = {key: n - before[key] for key, n in FA.KERNEL_LAUNCHES.items() if n != before[key]}
+        errs[tag] = max((a - b_).abs().max().item() for a, b_ in zip(got, plain))
+        want = {FA._route(name, FA.padded_head_dim(d), f32)[0] for name in ("flash_bwd_dkv", "flash_bwd_dq")}
+        if not errs[tag] <= 1e-4 or any(launched.get(key) != 1 for key in want):
+            raise AssertionError(f"{args.label} D{d} fp32 grads {tag}: {errs[tag]:.3e} vs plain (atol 1e-4), "
+                                 f"launched {launched}")
+    b, h, L = 8, 12, 1024
+    q, k, v, do = (torch.randn((b, h, L, d), generator=gen).to("cuda") for _ in range(4))
+    spec = FA._Spec(causal=True, sm_scale=d ** -0.5, window=None, blocks=FA.default_blocks(L, L, d, dtype=f32))
+    with torch.no_grad():
+        o, lse = FA.flash_attention_with_lse(q, k, v)
+    bargs = FA._bwd_args(q, k, v, o, lse, do, None, spec, None)
+    FA._launch_bwd_prep(bargs)
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, is_causal=True)
+    row = {"prep": graph_ms(lambda: FA._launch_bwd_prep(bargs)),
+           "k2": graph_ms(lambda: FA._launch_bwd_dkv(bargs), calls=2, runs=5),
+           "k3": graph_ms(lambda: FA._launch_bwd_dq(bargs), calls=2, runs=5),
+           "sdpa_bwd": graph_ms(smoke._grad_fn(sdpa, q, k, v, do), calls=2, runs=3)}
+    elems, rows, flops = b * h * L * d, b * h * L, 4 * b * h * L * L * d / 2
+    (row["k2_bound"], by2), (row["k3_bound"], by3) = (
+        floor_ms(6 * elems * 4 + 2 * rows * 4, 2 * flops, TF32X3_FLOPS),
+        floor_ms(5 * elems * 4 + 2 * rows * 4, 1.5 * flops, TF32X3_FLOPS))
+    total = row["prep"] + row["k2"] + row["k3"]
+    print(f"{args.label} b{b} h{h} L{L} D{d} fp32 causal backward device ms",
+          {key: round(x, 4) for key, x in row.items()},
+          f"| K2 {row['k2_bound'] / row['k2']:.1%} of its bound ({by2}, 3xTF32), K3 "
+          f"{row['k3_bound'] / row['k3']:.1%} ({by3}), pre-pass + K2 + K3 {total:.4f} ms, / SDPA backward "
+          f"{total / row['sdpa_bwd']:.2f}x; grads vs plain at b1 4/2: "
+          + ", ".join(f"{key} {e:.2e}" for key, e in errs.items()), flush=True)
+    return row
+
+
 def training_times(seed: int = 0) -> dict:
     text = synthetic_corpus()
     data = CharTokenizer(text).encode(text)
@@ -193,7 +243,8 @@ def main() -> None:
     res = {"label": args.label, "checkout": args.tree, "device": name, "smi": smi}
     gen = torch.Generator().manual_seed(11)
     if args.dtype == "float32":
-        res["kernels"] = {f"d{d}": fp32_forward_times(gen, d) for d in args.head_dims}
+        res["kernels"] = {f"d{d}": {**fp32_forward_times(gen, d), **fp32_backward_times(gen, d)}
+                          for d in args.head_dims}
     else:
         res["kernels"] = {f"d{d}": kernel_times(gen, d) for d in args.head_dims}
     if 256 in args.head_dims and args.dtype == "bfloat16":
