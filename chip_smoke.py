@@ -42,8 +42,19 @@ are 7-9):
 6. decode   - K5 (paged) and K6 (slot-major) split-KV decode against their
               plain versions on bf16, fp32, int8 and fp8 caches with ragged
               lengths and at the split's edges (cache lengths 0, chunk - 1,
-              chunk, chunk + 1, capacity - 1), K5 with a permuted page
-              table and NaN past the lengths, GQA 32/8 at D128.
+              chunk, chunk + 1, capacity - 1; also multi-query 16/1 at
+              D128, L1024 and L2048), serving-mqa's layer (8 slots, 16/1
+              D128, L2048, contexts past 1024 so that most of K6's 32
+              splits are live) on bf16 and int8 caches, K5 with a
+              permuted page table and NaN past the lengths, GQA 32/8 at
+              D128; then every other head dim they take (8, 16, 32, 256,
+              384, 512, 640, 768, 896, 1024) at groups 1 and 16 on bf16
+              and int8 caches, fp32 q at D8-D1024, fp16 q over fp16, int8
+              and fp8 caches at D64 and D128, GQA groups 12, 16, 48 and 71
+              (group tiles of up to 8 q heads), K5 permuted with NaN at
+              D16 and D512.  Limits by q's dtype (DECODE_TOL): bf16 atol
+              2e-2 + rtol 1e-2, fp16 2e-3 + 2^-10, fp32 1e-5; every fp16
+              case's outputs rounded to bf16 must fall outside fp16's.
 7. d256     - head dims 160 and 256 (run at 256: the wgmma K1, K4, K2 and
               K3 for bf16/fp16; for fp32 the 3xTF32 K1 and K4 of
               csrc/flash_fwd_fp32_wide.cuh and K2 and K3 of
@@ -152,6 +163,19 @@ are 7-9):
               (quantized in place) on an fp8 cache through K6: one prompt's
               prefill logits within relative L2 0.05 of the bf16 model's,
               then the burst, K6 launched n_layer x decode steps.
+    serving-mqa - multi-query serving at SantaCoder's published widths
+              (24 layers, 16 q heads on one KV head of 128, width 2048,
+              vocab 49280), bf16 weights drawn on the card, 8 slots,
+              max_len 2048: the burst through einsum, through K5 on a bf16
+              cache and K6 on an int8 cache (exact budgets, K5 / K6
+              launched n_layer x decode steps); then fp32 at SantaCoder's
+              widths with 2 layers, 8 slots of 2048 with prompts of
+              16-2030 tokens: paged and fused logits within 1e-3 of
+              einsum's on fp32 and int8 caches.
+    serving-fp16 - GPT-2 124M in fp16: the burst through einsum, K5 on an
+              fp16 cache and K6 on an fp8 cache (fp16 q); fp16 paged /
+              fused logits against einsum's at the 16-bit tier; then fp32
+              GPT-2 124M on fp32 and fp8 caches at 1e-3.
 15. parity  - GPT-2 124M in fp32: prefill logits and 8 teacher-forced
               decode steps against the model's forward on dense attention;
               the prefill launches the 3xTF32 K1 once a layer.
@@ -180,8 +204,12 @@ are 7-9):
               b1/b8 (SDPA forward on bf16 K/V beside it, the same FLOPs but
               not the same function), K5 and K6 at DECODE_SHAPES (8 slots
               with contexts near 512 of 1024 on one layer, L2-hot; GPT-2's
-              12 layers, a long context at 32 slots and a Llama-shaped GQA
-              layer, L2-cold), int8 and bf16, against their plain versions
+              12 layers, a long context at 32 slots, a Llama-shaped GQA
+              layer, SantaCoder's 24 multi-query layers, a Gemma-7B D256
+              layer, a Falcon-40B GQA 128/8 layer, GPT-2's 12 layers with
+              fp16 q (fp16 and fp8 caches), D32, D512 and D1024 layers,
+              L2-cold; SantaCoder's layer also with one group tile of 8 q
+              heads), int8 and bf16, against their plain versions
               and, on a bf16 cache, SDPA with a length mask over the
               slot-major cache.  Device time: a CUDA graph of 20 calls
               between CUDA events (graph_ms); "a call" adds the host's
@@ -279,7 +307,13 @@ SDPA's ms as `tiles_library_ms`, its launches on the autotuned engine
 and trainer paths, and the measure phase's readings; K1, the pre-pass,
 K2 and K3 their ring call shapes as `ring_noncausal_shard` (K1 also
 `ring_causal_lq_lt_lk` and `ring_vs_one_call`) and their launches on the
-context-parallel run as `parallel_launches`); the last line is
+context-parallel run as `parallel_launches`; K5's and K6's rows their
+times at each configuration beyond D64 / D128, bf16 q and groups up to
+8 (NEW_DECODE_SHAPES: santacoder_*, gemma7b_*, falcon40b_*, gpt2_12l_*,
+d32_*, d512_*, d1024_*; int8 caches unsuffixed, others suffixed by the
+store) and their launches in
+serving-mqa and serving-fp16);
+the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -316,7 +350,7 @@ from flash_attention_tpu_torch.inference.model_runner import (  # noqa: E402
 from flash_attention_tpu_torch.kernels import _build  # noqa: E402
 from flash_attention_tpu_torch.kernels.vanilla import vanilla_attention, vanilla_attention_with_lse  # noqa: E402
 from flash_attention_tpu_torch.models import llama  # noqa: E402
-from flash_attention_tpu_torch.models.gpt import GPT, GPT2_124M  # noqa: E402
+from flash_attention_tpu_torch.models.gpt import GPT, GPT2_124M, GPTConfig  # noqa: E402
 from flash_attention_tpu_torch.quant.weights import (  # noqa: E402
     QuantizedLinear,
     quantize_gpt_params,
@@ -363,8 +397,11 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                        "flash_attention_tpu/kernels/flash_attention.py:269"),
     "flash_fwd_kv_quant_fp32": ("flash_attention_tpu_torch/csrc/flash_fwd_fp32.cu", "flash_attention_tpu/quant/kv.py:98"),
     "flash_fwd_kv_quant": ("flash_attention_tpu_torch/csrc/flash_fwd_kv_quant.cu", "flash_attention_tpu/quant/kv.py:98"),
-    "paged_decode": ("flash_attention_tpu_torch/csrc/decode.cu", "flash_attention_tpu/inference/paged_attention.py:34"),
-    "fused_decode": ("flash_attention_tpu_torch/csrc/decode.cu", "flash_attention_tpu/inference/decode_attention.py:195"),
+    # K5 / K6: one template (decode.cuh), instantiated by csrc/decode_*.cu
+    "paged_decode": ("flash_attention_tpu_torch/csrc/decode.cuh",
+                     "flash_attention_tpu/inference/paged_attention.py:34"),
+    "fused_decode": ("flash_attention_tpu_torch/csrc/decode.cuh",
+                     "flash_attention_tpu/inference/decode_attention.py:195"),
     # head dims 129-256, padded to 256, bf16/fp16: the wgmma K1, K4, K2 and
     # K3 (flash_fwd_d256.cu, flash_bwd_d256.cu) and flash_bwd.cu's pre-pass
     # instantiated at 256
@@ -491,17 +528,25 @@ def phase_build() -> None:
         elif "Used" in line and "registers" in line:
             regs = int(re.search(r"Used (\d+) registers", line).group(1))
             entries.append((kernel, regs, spills))
-    decode = []
+    decode, decode_spilled = [], []
     for name, (_, regs, spill) in zip(_demangle([e[0] for e in entries]), entries):
         spilled = not spill.startswith("0 bytes stack frame, 0 bytes spill stores")
-        if "decode_kernel" in name and not spilled:
+        if "decode_kernel" in name:
             decode.append(regs)
+            if spilled:
+                m = re.search(r"decode_kernel<(.*)>", name)
+                stores = re.search(r"(\d+) bytes spill stores", spill)
+                nbytes = stores.group(1) if stores else "?"
+                decode_spilled.append(f"<{m.group(1) if m else name}> {regs} regs {nbytes} B")
         elif not _is_wide(name) and not _is_wide_bwd(name):
             short = name.replace("(anonymous namespace)::", "").replace("(fa::FwdParams)", "").replace("fa::", "")
             say(f"[build] ptxas {short}: {regs} registers; {spill}")
     if decode:
-        say(f"[build] ptxas decode_kernel: {len(decode)} instantiations without spills, "
-            f"{min(decode)}-{max(decode)} registers")
+        say(f"[build] ptxas decode_kernel: {len(decode)} instantiations, {len(decode) - len(decode_spilled)} without "
+            f"spills, {min(decode)}-{max(decode)} registers; nvcc per decode source: "
+            + (", ".join(f"{k} {v:.1f} s" for k, v in per.items() if k.startswith("decode")) or "not run (built)"))
+        say("[build] decode_kernel spills (T, KV, D, rows, paged; spill stores): "
+            + ("; ".join(decode_spilled) or "none"))
     # ptxas reports a kernel whose wgmma it serialises only as an info line
     serial = [line.strip() for line in _build.build_info["ptxas"].splitlines() if "C7518" in line]
     names = _demangle([m.group(1) for line in serial for m in [re.search(r"function '([^']+)'", line)] if m])
@@ -1053,6 +1098,16 @@ def _error(out: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> tu
     return diff.max().item(), bool((diff <= atol + rtol * ref.float().abs()).all())
 
 
+# Decode tolerances by q's dtype, (atol, rtol).  bf16: P * v_scale and the
+# output are rounded to bf16 (2^-8 relative each) where the plain versions
+# round P elsewhere or not at all.  fp16: the output rounded to fp16 on both
+# sides (2^-11 relative each, so rtol 2^-10) and P * v_scale rounded to fp16
+# (2^-11 relative) against |v| up to about 4 (atol 2e-3); an output rounded
+# to bf16 in place of fp16 (2^-8 relative) falls outside it, which the
+# phase's control shows.  fp32: sums in another order.
+DECODE_TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float16: (2e-3, 2 ** -10), torch.float32: (1e-5, 0.0)}
+
+
 def _filled_cache(gen, slots, hkv, max_len, d, store, q_dtype, lengths, layers=1) -> "KVC.KVCache":
     """A cache of `layers` layers on the card with random contents drawn from
     `gen` on its own device (quantized when `store` is int8/fp8) and the
@@ -1073,9 +1128,23 @@ def _filled_cache(gen, slots, hkv, max_len, d, store, q_dtype, lengths, layers=1
     return cache
 
 
-def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths, atol) -> tuple[float, float]:
+def _fp16_control(label: str, outs, plains, atol: float, rtol: float) -> bool:
+    """The control of fp16 q's limit: the kernels' own outputs rounded
+    through bf16 (what a kernel rounding its output to bf16 in place of
+    fp16 would give) held at the same limit; prints its error and returns
+    whether the limit rejects it."""
+    errs = [_error(o.to(torch.bfloat16), r, atol, rtol) for o, r in zip(outs, plains)]
+    rejected = not any(ok for _, ok in errs)
+    say(f"[decode] {label:<42} control, output rounded to bf16: "
+        + "  ".join(f"{e:.3e}" for e, _ in errs) + f"  {'rejected' if rejected else 'NOT rejected'}")
+    return rejected
+
+
+def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths,
+                 controls=None) -> tuple[float, float]:
     """K5 (through decode_attention_paged) and K6 vs their plain versions on
-    one cache; returns their max errors."""
+    one cache at DECODE_TOL; returns their max errors.  For fp16 q, whether
+    the limit rejects the bf16-rounded control goes into `controls`."""
     cache = _filled_cache(gen, slots, hkv, max_len, d, store, q_dtype, lengths)
     q = _rand(gen, (slots, hq, d), q_dtype)
     with torch.no_grad():
@@ -1089,7 +1158,7 @@ def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths
     for o in (out5, out6):
         if o.shape != q.shape or o.dtype != q_dtype or not torch.isfinite(o).all():
             raise AssertionError(f"[decode] {label}: bad output {o.shape} {o.dtype}")
-    rtol = 0.0 if q_dtype == torch.float32 else 1e-2
+    atol, rtol = DECODE_TOL[q_dtype]
     e5, ok5 = _error(out5, plain5, atol, rtol)
     e6, ok6 = _error(out6, plain6, atol, rtol)
     ok = ok5 and ok6
@@ -1097,12 +1166,16 @@ def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"[decode] {label} outside tolerance")
+    if q_dtype == torch.float16 and controls is not None:
+        controls.append(_fp16_control(label, (out5, out6), (plain5, plain6), atol, rtol))
     return e5, e6
 
 
-def check_paged_permuted(label, gen, batch, hq, hkv, d, page_size, pps, store, q_dtype, lengths, atol) -> float:
+def check_paged_permuted(label, gen, batch, hq, hkv, d, page_size, pps, store, q_dtype, lengths,
+                         controls=None) -> float:
     """K5 over a permuted page table with NaN in every page row past each
-    sequence's length (payload, or the scales of a quantized cache)."""
+    sequence's length (payload, or the scales of a quantized cache), at
+    DECODE_TOL; for fp16 q, the control as in check_decode."""
     n_pages = batch * pps + 5
     quant = store in QK.QUANT_DTYPES
     shape = (hkv, n_pages, page_size, d)
@@ -1126,11 +1199,13 @@ def check_paged_permuted(label, gen, batch, hq, hkv, d, page_size, pps, store, q
     torch.cuda.synchronize()
     if out.shape != q.shape or not torch.isfinite(out).all() or not torch.isfinite(plain).all():
         raise AssertionError(f"[decode] {label}: NaN past the length leaked")
-    rtol = 0.0 if q_dtype == torch.float32 else 1e-2
+    atol, rtol = DECODE_TOL[q_dtype]
     err, ok = _error(out, plain, atol, rtol)
     say(f"[decode] {label:<42} K5 vs plain {err:.3e}  atol {atol:g} rtol {rtol:g}  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"[decode] {label} outside tolerance")
+    if q_dtype == torch.float16 and controls is not None:
+        controls.append(_fp16_control(label, (out,), (plain,), atol, rtol))
     return err
 
 
@@ -1138,45 +1213,105 @@ def phase_decode(seed: int) -> dict:
     """Returns K5's and K6's worst errors against their plain versions."""
     gen = torch.Generator().manual_seed(seed + 6)
     bf16, f32, i8, f8 = torch.bfloat16, torch.float32, torch.int8, torch.float8_e4m3fn
-    say("[decode] tolerance: bf16 q atol 2e-2 + rtol 1e-2 (P * v_scale and the output are rounded to bf16, 2^-8 "
-        "relative each; the plain versions round P elsewhere or not at all); fp32 q atol 1e-5 (sums in another order)")
+    say("[decode] tolerance (atol + rtol |plain|): " + "; ".join(
+        f"{str(dt).split('.')[-1]} q atol {a:g} rtol {r:g}" for dt, (a, r) in DECODE_TOL.items())
+        + " (DECODE_TOL says why)")
     ragged = [0, 16, 299, 1022, 511, 63, 799, 127]  # cache lengths: the kernels read lengths + 1 tokens
     k5, k6 = [], []
-    for name, store, q_dtype, atol in (
-        ("bf16", bf16, bf16, 2e-2), ("fp32", f32, f32, 1e-5), ("int8", i8, bf16, 2e-2), ("fp8", f8, bf16, 2e-2),
-        ("int8 fp32 q", i8, f32, 1e-5),
-    ):
+    for name, store, q_dtype in (("bf16", bf16, bf16), ("fp32", f32, f32), ("int8", i8, bf16), ("fp8", f8, bf16),
+                                 ("int8 fp32 q", i8, f32)):
         e5, e6 = check_decode(f"8 slots h12 D64 L1024 {name} cache", gen, 8, 12, 12, 64, 1024, store, q_dtype,
-                              ragged, atol)
+                              ragged)
         k5.append(e5)
         k6.append(e6)
     for name, store in (("int8", i8), ("bf16", bf16)):
         e5, e6 = check_decode(f"gqa hq32 hkv8 D128 L1024 {name} cache", gen, 4, 32, 8, 128, 1024, store, bf16,
-                              [5, 1023, 200, 640], 2e-2)
+                              [5, 1023, 200, 640])
         k5.append(e5)
         k6.append(e6)
     lens = [1, 17, 300, 1023, 512, 0, 800, 1024]
-    for name, store, q_dtype, atol in (("int8", i8, bf16, 2e-2), ("fp8", f8, bf16, 2e-2), ("bf16", bf16, bf16, 2e-2),
-                                       ("fp32", f32, f32, 1e-5)):
+    for name, store, q_dtype in (("int8", i8, bf16), ("fp8", f8, bf16), ("bf16", bf16, bf16), ("fp32", f32, f32)):
         k5.append(check_paged_permuted(f"paged permuted ps16 NaN past length {name}", gen, 8, 12, 12, 64, 16, 64,
-                                       store, q_dtype, lens, atol))
+                                       store, q_dtype, lens))
     # The split's edges: cache lengths 0, chunk - 1, chunk, chunk + 1 (for
     # K5's chunk and K6's) and capacity - 1, so that a sequence reads one
     # token, exactly one or two whole splits, one token of a next split, or
-    # every split; most splits of the short ones are empty.
+    # every split; most splits of the short ones are empty.  The last row is
+    # serving-mqa's layer (8 slots, 16 q heads on one KV head, max_len 2048).
     sms = PA._sm_count(0)
-    for slots, hq, hkv, d in ((8, 12, 12, 64), (8, 32, 8, 128)):
-        c5, _ = PA.decode_split(1024, slots * hkv, 128, sms)
-        c6, _ = PA.decode_split(1024, slots * hkv, PA.DECODE_TILE, sms)
-        edges = [0, c5 - 1, c5, c5 + 1, c6 - 1, c6 + 1, 2 * c6, 1023]
-        for name, store, q_dtype, atol in (("bf16", bf16, bf16, 2e-2), ("fp32", f32, f32, 1e-5),
-                                           ("int8", i8, bf16, 2e-2), ("fp8", f8, bf16, 2e-2)):
-            e5, e6 = check_decode(f"split edges K5 chunk {c5} K6 {c6} hq{hq} hkv{hkv} D{d} {name}", gen, slots, hq,
-                                  hkv, d, 1024, store, q_dtype, edges, atol)
+    for slots, hq, hkv, d, max_len in ((8, 12, 12, 64, 1024), (8, 32, 8, 128, 1024), (8, 16, 1, 128, 1024),
+                                       (8, 16, 1, 128, 2048)):
+        pairs = slots * hkv * PA.group_tiles(hq // hkv)[0]
+        c5, n5 = PA.decode_split(max_len, pairs, 128, sms)
+        c6, n6 = PA.decode_split(max_len, pairs, PA.DECODE_TILE, sms)
+        edges = [0, c5 - 1, c5, c5 + 1, c6 - 1, c6 + 1, 2 * c6, max_len - 1]
+        for name, store, q_dtype in (("bf16", bf16, bf16), ("fp32", f32, f32), ("int8", i8, bf16), ("fp8", f8, bf16)):
+            e5, e6 = check_decode(f"split edges K5 {n5}x{c5} K6 {n6}x{c6} hq{hq} hkv{hkv} D{d} L{max_len} {name}", gen,
+                                  slots, hq, hkv, d, max_len, store, q_dtype, edges)
             k5.append(e5)
             k6.append(e6)
-        say(f"[decode] split edges hq{hq} hkv{hkv} D{d}: cache lengths {edges}")
-    return {"paged_decode": max(k5), "fused_decode": max(k6)}
+        say(f"[decode] split edges hq{hq} hkv{hkv} D{d} L{max_len}: cache lengths {edges}")
+    # serving-mqa's layer with most slots past 1024 tokens, so that K6 has
+    # more than 16 of its splits live (and K5 more than 8 of its pages)
+    mqa_lens = [2047, 1919, 1500, 1100, 1025, 2000, 700, 0]
+    c5, n5 = PA.decode_split(2048, 8 * PA.group_tiles(16)[0], 128, sms)
+    c6, n6 = PA.decode_split(2048, 8 * PA.group_tiles(16)[0], PA.DECODE_TILE, sms)
+    for name, store in (("bf16", bf16), ("int8", i8)):
+        e5, e6 = check_decode(f"serving-mqa layer L2048 K5 {n5}x{c5} K6 {n6}x{c6} {name} cache", gen, 8, 16, 1, 128,
+                              2048, store, bf16, mqa_lens)
+        k5.append(e5)
+        k6.append(e6)
+    say(f"[decode] serving-mqa layer (8 slots hq16 hkv1 D128 L2048): cache lengths {mqa_lens}, K6 splits live "
+        f"{[min(n6, (n + c6) // c6) for n in mqa_lens]} of {n6}")
+    controls = []
+    e5, e6 = check_decode_configs(gen, controls)
+    say(f"[decode] fp16 q control (each case's K5 / K6 outputs rounded to bf16): rejected by fp16's limit in "
+        f"{sum(controls)} of {len(controls)} cases")
+    if not all(controls):
+        raise AssertionError("[decode] fp16 q's limit passes an output rounded to bf16")
+    return {"paged_decode": max(k5 + e5), "fused_decode": max(k6 + e6)}
+
+
+def check_decode_configs(gen, controls: list) -> tuple[list, list]:
+    """K5 and K6 at the configurations the JAX kernels take beyond D64/D128,
+    bf16/fp32 q and groups of up to 8: every other head dim (8, 16 and 32,
+    run at 32; 256; 384 and 512, run at 512; 640-1024, run at 1024) at
+    groups 1 and 16 on bf16 and int8 caches; fp32 q at the narrow and wide
+    widths (D1024's one-stage ring); fp16 q over fp16, int8 and fp8 caches
+    at D64 and D128; GQA groups 12, 16, 48 (StarCoder) and 71 (Falcon-7B),
+    which run in group tiles of up to 8 q heads; K5 over a permuted page
+    table with NaN past the lengths at D16 and D512.  Each against its
+    plain version at DECODE_TOL, fp16 q's cases with their control."""
+    bf16, f16, f32, i8, f8 = torch.bfloat16, torch.float16, torch.float32, torch.int8, torch.float8_e4m3fn
+    ragged = [0, 16, 299, 1022, 511, 63, 799, 127]
+    k5, k6 = [], []
+
+    def one(label, slots, hq, hkv, d, store, q_dtype, lengths=ragged):
+        e5, e6 = check_decode(label, gen, slots, hq, hkv, d, 1024, store, q_dtype, lengths[:slots], controls)
+        k5.append(e5)
+        k6.append(e6)
+
+    for d in (8, 16, 32, 256, 384, 512, 640, 768, 896, 1024):
+        for name, store in (("bf16", bf16), ("int8", i8)):
+            one(f"D{d} group 1 (hq2 hkv2) {name} cache", 8, 2, 2, d, store, bf16)
+            one(f"D{d} group 16 (hq16 hkv1) {name} cache", 4, 16, 1, d, store, bf16)
+    for d in (8, 32, 256, 512, 1024):
+        one(f"D{d} hq8 hkv2 fp32 cache fp32 q", 4, 8, 2, d, f32, f32)
+        one(f"D{d} hq2 hkv2 int8 cache fp32 q", 4, 2, 2, d, i8, f32)
+    for d, hq, hkv in ((64, 12, 12), (128, 32, 8)):
+        for name, store in (("fp16", f16), ("int8", i8), ("fp8", f8)):
+            one(f"fp16 q D{d} hq{hq} hkv{hkv} {name} cache", 8, hq, hkv, d, store, f16)
+    for hq, hkv, d in ((12, 1, 128), (16, 1, 128), (48, 1, 128), (71, 1, 64), (24, 2, 64)):
+        for name, store in (("bf16", bf16), ("int8", i8)):
+            one(f"group {hq // hkv} hq{hq} hkv{hkv} D{d} {name} cache", 8, hq, hkv, d, store, bf16)
+        one(f"group {hq // hkv} hq{hq} hkv{hkv} D{d} fp16 cache fp16 q", 8, hq, hkv, d, f16, f16)
+    one("group 71 hq71 hkv1 D64 fp32 cache fp32 q", 4, 71, 1, 64, f32, f32)
+    lens = [1, 17, 300, 1023, 512, 0, 800, 1024]
+    for d, hq, hkv in ((16, 16, 1), (512, 8, 2)):
+        for name, store, q_dtype in (("int8", i8, bf16), ("fp16", f16, f16)):
+            k5.append(check_paged_permuted(f"paged permuted ps16 NaN past length D{d} hq{hq} hkv{hkv} {name}",
+                                           gen, 8, hq, hkv, d, 16, 64, store, q_dtype, lens, controls))
+    return k5, k6
 
 
 def _reset_launches() -> None:
@@ -1184,7 +1319,7 @@ def _reset_launches() -> None:
         FA.KERNEL_LAUNCHES[key] = 0
 
 
-def _burst(seed: int, tag: str, model: torch.nn.Module, **engine_kw) -> dict:
+def _burst(seed: int, tag: str, model: torch.nn.Module, max_len: int = 1024, **engine_kw) -> dict:
     """The serving burst: 16 requests (prompt lengths 16-900, budgets 32-64, half
     greedy, half sampled; all from `seed`) through an engine on `model` (a
     GPT, or a Llama with prefill_fn / decode_fn in engine_kw).  Every
@@ -1198,7 +1333,7 @@ def _burst(seed: int, tag: str, model: torch.nn.Module, **engine_kw) -> dict:
     ])
     rng.shuffle(lengths)
     budgets = rng.integers(32, 65, 16)
-    eng = InferenceEngine(model, slots=8, max_len=1024, scan_steps=8, device="cuda", rng_seed=seed, **engine_kw)
+    eng = InferenceEngine(model, slots=8, max_len=max_len, scan_steps=8, device="cuda", rng_seed=seed, **engine_kw)
     # warm-up: cuBLAS handles, allocator; not counted
     eng.submit(rng.integers(0, cfg.vocab_size, 200).tolist(), max_new_tokens=4)
     eng.run()
@@ -1276,12 +1411,21 @@ def phase_serving_quant(seed: int, model: GPT, base: dict, smi: str) -> tuple[di
     """The serving burst on an int8 cache decoding through K5 and on an fp8
     cache decoding through K6; returns each decode kernel's launches and
     each engine's tokens/s."""
+    cases = (("int8", torch.int8, "paged", "paged_decode"), ("fp8", torch.float8_e4m3fn, "fused", "fused_decode"))
+    return _decode_bursts(seed, "serving-quant", model, base, smi, cases)
+
+
+def _decode_bursts(seed: int, tag: str, model: GPT, base: dict, smi: str, cases, max_len: int = 1024,
+                   base_label: str = "bf16 cache, einsum, from [serving]") -> tuple[dict, dict]:
+    """The serving burst once for each (cache name, kv_quant_dtype or None,
+    attn_impl, kernel) of `cases`: exact budgets, `kernel` launched n_layer x
+    decode steps, K1 n_layer x prefill dispatches and nothing else; returns
+    each decode kernel's launches and each engine's tokens/s."""
     cfg = model.cfg
     launches, rates = {}, {}
-    for name, qdt, impl, kernel in (("int8", torch.int8, "paged", "paged_decode"),
-                                    ("fp8", torch.float8_e4m3fn, "fused", "fused_decode")):
-        tag = "serving-quant"
-        r = _burst(seed, tag, model, kv_quant_dtype=qdt, decode_fn=functools.partial(decode_step, attn_impl=impl))
+    for name, qdt, impl, kernel in cases:
+        r = _burst(seed, tag, model, max_len=max_len, kv_quant_dtype=qdt,
+                   decode_fn=functools.partial(decode_step, attn_impl=impl))
         want = cfg.n_layer * r["steps"]
         got = r["launches"][kernel]
         others = {k: v for k, v in r["launches"].items() if k not in (kernel, "flash_fwd") and v}
@@ -1294,7 +1438,7 @@ def phase_serving_quant(seed: int, model: GPT, base: dict, smi: str) -> tuple[di
             f"launches {got} = {cfg.n_layer} layers x {r['steps']} decode steps, flash_fwd "
             f"{r['launches']['flash_fwd']} = {cfg.n_layer} x {r['dispatches']} prefill dispatches")
         say(f"[{tag}] {smi} | {name} cache, {impl}: {r['tokens_s']:.1f} tokens/s, TTFT p50 {r['p50'] * 1e3:.1f} ms "
-            f"p95 {r['p95'] * 1e3:.1f} ms (bf16 cache, einsum, from [serving]: {base['tokens_s']:.1f} tokens/s, "
+            f"p95 {r['p95'] * 1e3:.1f} ms ({base_label}: {base['tokens_s']:.1f} tokens/s, "
             f"p50 {base['p50'] * 1e3:.1f} ms, p95 {base['p95'] * 1e3:.1f} ms)")
     return launches, rates
 
@@ -1600,28 +1744,137 @@ def phase_parity_quant(seed: int) -> None:
     rng = np.random.default_rng(seed + 1)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, 300), device="cuda")
     feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, 8), device="cuda", dtype=torch.int32)
-    impls = ("einsum", "paged", "fused")
     with torch.no_grad():
         ref = dense(torch.cat([prompt, feed.long()])[None])[0].float()
-        caches = {}
-        for impl in impls:
-            caches[impl] = init_cache(cfg.n_layer, 1, cfg.kv_heads, 1024, cfg.head_dim, dtype=cfg.dtype,
-                                      quant_dtype=torch.int8, device="cuda")
-            prefill(model, prompt, caches[impl], 0)
-        errs = {impl: 0.0 for impl in impls[1:]}
-        qerr = 0.0
-        for i in range(8):
-            logits = {impl: decode_step(model, feed[i:i + 1], caches[impl], attn_impl=impl)[1][0] for impl in impls}
-            for impl in impls[1:]:
-                errs[impl] = max(errs[impl], (logits[impl] - logits["einsum"]).abs().max().item())
-            qerr = max(qerr, (logits["einsum"] - ref[prompt.numel() + i]).abs().max().item())
-    torch.cuda.synchronize()
+    errs, logits = _impl_parity(model, [prompt], feed[:, None], torch.int8)
+    qerr = max((lg[0] - ref[prompt.numel() + i]).abs().max().item() for i, lg in enumerate(logits))
     worst = max(errs.values())
     say(f"[parity-quant] fp32 GPT-2 124M, int8 cache, prompt 300 + 8 teacher-forced decode steps: paged vs einsum "
         f"{errs['paged']:.3e}, fused vs einsum {errs['fused']:.3e} (atol 1e-3) {'ok' if worst <= 1e-3 else 'FAIL'}; "
         f"int8 quantization error vs the unquantized dense forward: {qerr:.3e}")
     if worst > 1e-3:
         raise AssertionError("[parity-quant] outside tolerance")
+
+
+def _impl_parity(model: GPT, prompts: list, feed: torch.Tensor, quant_dtype=None,
+                 max_len: int = 1024) -> tuple[dict, list]:
+    """Teacher-forced decode steps of `feed` [steps, slots] after `prompts`
+    (one a slot) on each decode path, each filling a cache of its own
+    (`quant_dtype` payloads, or the model's dtype; max_len tokens a slot)
+    with the same tokens: returns the paged and fused paths' max |logit -
+    einsum's| and einsum's logits [slots, vocab] a step."""
+    cfg = model.cfg
+    impls = ("einsum", "paged", "fused")
+    errs = {impl: 0.0 for impl in impls[1:]}
+    steps = []
+    with torch.no_grad():
+        caches = {}
+        for impl in impls:
+            caches[impl] = init_cache(cfg.n_layer, len(prompts), cfg.kv_heads, max_len, cfg.head_dim, dtype=cfg.dtype,
+                                      quant_dtype=quant_dtype, device="cuda")
+            for slot, prompt in enumerate(prompts):
+                prefill(model, prompt, caches[impl], slot)
+        for i in range(feed.shape[0]):
+            logits = {impl: decode_step(model, feed[i], caches[impl], attn_impl=impl)[1] for impl in impls}
+            for impl in impls[1:]:
+                errs[impl] = max(errs[impl], (logits[impl].float() - logits["einsum"].float()).abs().max().item())
+            steps.append(logits["einsum"].float())
+    torch.cuda.synchronize()
+    return errs, steps
+
+
+# SantaCoder (bigcode/gpt_bigcode-santacoder's config.json: GPT-2's
+# architecture with multi_query, n_embd 2048, n_head 16, n_layer 24,
+# n_positions 2048, vocab 49280): one KV head of 128 for 16 q heads
+SANTACODER = dict(vocab_size=49280, block_size=2048, n_layer=24, n_head=16, n_embd=2048, n_kv_head=1)
+
+
+def _check_impl_parity(tag: str, label: str, model: GPT, seed: int, caches, prompt_lens=(300,),
+                       max_len: int = 1024) -> None:
+    """paged and fused logits within 1e-3 of einsum's over 8 teacher-forced
+    decode steps after prompts of `prompt_lens` tokens (one a slot, in a
+    cache of max_len tokens a slot), for each cache of `caches` ((name,
+    quant_dtype or None), fp32 model)."""
+    rng = np.random.default_rng(seed + 12)
+    prompts = [torch.as_tensor(rng.integers(0, model.cfg.vocab_size, n), device="cuda") for n in prompt_lens]
+    feed = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, (8, len(prompts))), device="cuda",
+                           dtype=torch.int32)
+    launches = dict(FA.KERNEL_LAUNCHES)
+    for name, qdt in caches:
+        errs, _ = _impl_parity(model, prompts, feed, qdt, max_len)
+        worst = max(errs.values())
+        say(f"[{tag}] {label}, {name} cache, {len(prompts)} slots of {max_len}, prompts {list(prompt_lens)} + 8 "
+            f"teacher-forced decode steps: paged vs einsum "
+            f"{errs['paged']:.3e}, fused vs einsum {errs['fused']:.3e} (atol 1e-3) {'ok' if worst <= 1e-3 else 'FAIL'}")
+        if worst > 1e-3:
+            raise AssertionError(f"[{tag}] {name} cache: paged/fused logits outside 1e-3 of einsum")
+    for key in ("paged_decode", "fused_decode"):
+        if FA.KERNEL_LAUNCHES[key] == launches[key]:
+            raise AssertionError(f"[{tag}] the fp32 check launched no {key}")
+
+
+def phase_serving_mqa(seed: int, smi: str) -> dict:
+    """Multi-query serving at SantaCoder's published widths (24 layers, 16 q
+    heads on one KV head of 128, vocab 49280), bf16 weights drawn on the
+    card from the seed, behind the engine (8 slots, max_len 2048): the
+    burst on a bf16 cache through einsum, through K5 on a bf16 cache and
+    through K6 on an int8 cache (a group of 16: two group tiles a KV head),
+    exact budgets, K5 / K6 launched n_layer x decode steps; then the fp32
+    check at SantaCoder's widths with 2 of its 24 layers, in the burst's 8
+    slots of 2048 with most prompts past 1024 tokens (K6's 32 splits a
+    group tile, most of them live).  Returns K5's and K6's launches."""
+    tag = "serving-mqa"
+    t0 = time.perf_counter()
+    model = GPT(GPTConfig(**SANTACODER), generator=torch.Generator("cuda").manual_seed(seed), device="cuda")
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"[{tag}] SantaCoder widths: {cfg.n_layer} layers, {cfg.n_head} q heads on {cfg.kv_heads} KV head of "
+        f"{cfg.head_dim}, width {cfg.n_embd}, vocab {cfg.vocab_size}, {cfg.dtype}; {n_params / 1e9:.3f} B random "
+        f"parameters drawn on the card (seed {seed}) in {time.perf_counter() - t0:.1f} s")
+    base = _burst(seed, tag, model, max_len=2048)
+    say(f"[{tag}] bf16 cache, einsum: {_rates(base)}, decode steps {base['steps']}")
+    launches, _ = _decode_bursts(seed, tag, model, base, smi, (("bf16", None, "paged", "paged_decode"),
+                                                               ("int8", torch.int8, "fused", "fused_decode")),
+                                 max_len=2048, base_label="bf16 cache, einsum")
+    del model
+    fp32 = GPT(GPTConfig(**{**SANTACODER, "n_layer": 2, "dtype": torch.float32}),
+               generator=torch.Generator("cuda").manual_seed(seed + 1), device="cuda")
+    _check_impl_parity(tag, "fp32 SantaCoder widths, 2 layers", fp32, seed, (("fp32", None), ("int8", torch.int8)),
+                       prompt_lens=(2030, 1900, 1500, 1100, 1030, 700, 300, 16), max_len=2048)
+    return launches
+
+
+def phase_serving_fp16(seed: int, smi: str) -> dict:
+    """GPT-2 124M in fp16 (weights, activations and cache) behind the engine:
+    the burst through einsum, through K5 on an fp16 cache and through K6 on
+    an fp8 cache (fp16 q), exact budgets, K5 / K6 launched n_layer x decode
+    steps; paged / fused logits against einsum's in fp16 printed; then the
+    fp32 check (fp32 GPT-2 124M on fp32 and fp8 caches).  Returns K5's and
+    K6's launches."""
+    tag = "serving-fp16"
+    model = GPT(dataclasses.replace(GPT2_124M, dtype=torch.float16), generator=torch.Generator().manual_seed(seed),
+                device="cuda")
+    base = _burst(seed, tag, model)
+    say(f"[{tag}] GPT-2 124M fp16, fp16 cache, einsum: {_rates(base)}, decode steps {base['steps']}")
+    launches, _ = _decode_bursts(seed, tag, model, base, smi, (("fp16", None, "paged", "paged_decode"),
+                                                               ("fp8", torch.float8_e4m3fn, "fused", "fused_decode")),
+                                 base_label="fp16 cache, einsum")
+    rng = np.random.default_rng(seed + 13)
+    prompt = torch.as_tensor(rng.integers(0, GPT2_124M.vocab_size, 300), device="cuda")
+    feed = torch.as_tensor(rng.integers(0, GPT2_124M.vocab_size, 8), device="cuda", dtype=torch.int32)
+    errs, steps = _impl_parity(model, [prompt], feed[:, None])
+    scale = max(lg.abs().max().item() for lg in steps)
+    ok = max(errs.values()) <= 2e-2 * max(scale, 1.0)
+    say(f"[{tag}] fp16 model and cache, prompt 300 + 8 teacher-forced decode steps: paged vs einsum "
+        f"{errs['paged']:.3e}, fused vs einsum {errs['fused']:.3e} (max |logit| {scale:.2f}; 16-bit tier, 2e-2 "
+        f"relative) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] fp16 paged/fused logits outside the 16-bit tier of einsum's")
+    del model
+    fp32 = GPT(dataclasses.replace(GPT2_124M, dtype=torch.float32), generator=torch.Generator().manual_seed(seed + 1),
+               device="cuda")
+    _check_impl_parity(tag, "fp32 GPT-2 124M", fp32, seed, (("fp32", None), ("fp8", torch.float8_e4m3fn)))
+    return launches
 
 
 def phase_training(seed: int, smi: str, data: np.ndarray) -> dict:
@@ -1829,12 +2082,13 @@ def phase_timing_quant(seed: int, smi: str) -> dict:
     enqueue time where that is longer) and as device time (graph_ms);
     returns {kernel: row} at b8 (K4) and, for K5 and K6 (`time_decode` at
     every DECODE_SHAPES entry), at the 8-slot L2-hot shape on the int8
-    cache, with that shape's bf16 numbers and the 12-layer L2-cold int8
-    ones beside them.  K4 has no one library call for its function; torch
-    SDPA forward on K/V already dequantized to bf16 is printed beside it as
-    a yardstick of the same FLOPs, not of the same function.  On a bf16
-    cache, SDPA with a boolean length mask over the slot-major cache is one
-    call for K5's and K6's function; on an int8 cache there is none."""
+    cache, with that shape's bf16 numbers, the 12-layer L2-cold int8 ones
+    and every NEW_DECODE_SHAPES row beside them.  K4 has no one library
+    call for its function; torch SDPA forward on K/V already dequantized to
+    bf16 is printed beside it as a yardstick of the same FLOPs, not of the
+    same function.  On a 16-bit cache, SDPA with a boolean length mask over
+    the slot-major cache is one call for K5's and K6's function; on an int8
+    or fp8 cache there is none."""
     gen = torch.Generator().manual_seed(seed + 7)
     result = {}
     for b in (1, 8):
@@ -1862,14 +2116,24 @@ def phase_timing_quant(seed: int, smi: str) -> dict:
     for shape in DECODE_SHAPES:
         for store in shape[-1]:
             rows[shape[0], store] = time_decode(gen, smi, shape, store)
-    hot, hot16 = rows[DECODE_SHAPES[0][0], "int8"], rows[DECODE_SHAPES[0][0], "bf16"]
-    cold = rows[DECODE_SHAPES[1][0], "int8"]
+    # SantaCoder's layer with 8 q heads (one group tile) instead of 16 (two):
+    # the same K/V bytes, so the difference is what the second tile costs
+    one_tile = time_decode(gen, smi, ONE_TILE_SHAPE, "int8")
+    hot, hot16 = rows[GPT2_HOT_SHAPE[0], "int8"], rows[GPT2_HOT_SHAPE[0], "bf16"]
+    cold = rows[GPT2_COLD_SHAPE[0], "int8"]
     for kernel, key in (("paged_decode", "K5"), ("fused_decode", "K6")):
         result[kernel] = dict(
             ms=hot[key], plain_ms=hot[f"{key} plain"], bound_ms=hot["bound"], bound_by=hot["by"], library_ms=None,
             bf16_ms=hot16[key], bf16_plain_ms=hot16[f"{key} plain"], bf16_bound_ms=hot16["bound"],
             bf16_library_ms=hot16["SDPA"], l2_cold_ms=cold[key], l2_cold_bound_ms=cold["bound"],
         )
+        for name, shape in NEW_DECODE_SHAPES.items():
+            for store in shape[-1]:
+                row = rows[shape[0], store]
+                tag = name if store == "int8" else f"{name}_{store.replace(' ', '_')}"
+                result[kernel].update({f"{tag}_ms": row[key], f"{tag}_plain_ms": row[f"{key} plain"],
+                                       f"{tag}_bound_ms": row["bound"], f"{tag}_library_ms": row.get("SDPA")})
+        result[kernel]["santacoder_one_tile_ms"] = one_tile[key]
     return result
 
 
@@ -1882,19 +2146,46 @@ def phase_timing_quant(seed: int, smi: str) -> dict:
 # serving's cache (76 MB at int8), a long context at GPT-2's width (50 MB a
 # layer at int8, 100 MB at bf16) and a Llama-shaped layer (GQA 32/8, D128,
 # 134 MB at int8).
+GPT2_HOT_SHAPE = ("gpt2 8 slots 1 layer L2-hot", 1, 8, 12, 12, 64, 1024, (481, 545), ("int8", "bf16"))
+GPT2_COLD_SHAPE = ("gpt2 8 slots 12 layers L2-cold", 12, 8, 12, 12, 64, 1024, (485, 534), ("int8", "bf16"))
+# the configurations beyond D64 / D128, bf16 q and groups up to 8, by the
+# name the kernels line gives their times (<name>_ms on the int8 cache,
+# <name>_<store>_ms on the others): SantaCoder's multi-query layers (group 16, two group tiles),
+# Gemma-7B's head dim 256 (16 heads, two column slabs), Falcon-40B's GQA
+# 128/8 at D64 (group 16), serving-fp16's configuration (fp16 q over an
+# fp16 cache and over an fp8 one), a narrow head (D32, which also runs
+# d = 8 and 16) and the wide column-slab layouts (D512, D1024), each L2-cold
+NEW_DECODE_SHAPES = {
+    "santacoder": ("santacoder hq16 hkv1 D128 8 slots 24 layers L2-cold", 24, 8, 16, 1, 128, 2048, (1920, 2048),
+                   ("int8", "bf16")),
+    "gemma7b": ("gemma-7b hq16 hkv16 D256 8 slots 2 layers L2-cold", 2, 8, 16, 16, 256, 4096, (3800, 4096),
+                ("int8", "bf16")),
+    "falcon40b": ("falcon-40b hq128 hkv8 D64 8 slots 4 layers L2-cold", 4, 8, 128, 8, 64, 2048, (1920, 2048),
+                  ("int8", "bf16")),
+    "gpt2_12l": ("gpt2 fp16 q 8 slots 12 layers L2-cold", 12, 8, 12, 12, 64, 1024, (485, 534), ("fp16", "fp8 fp16 q")),
+    "d32": ("h16 D32 32 slots 3 layers L2-cold", 3, 32, 16, 16, 32, 1024, (960, 1024), ("int8", "bf16")),
+    "d512": ("hq8 hkv2 D512 8 slots 4 layers L2-cold", 4, 8, 8, 2, 512, 2048, (1920, 2048), ("int8", "bf16")),
+    "d1024": ("hq8 hkv2 D1024 8 slots 4 layers L2-cold", 4, 8, 8, 2, 1024, 2048, (1920, 2048), ("int8", "bf16")),
+}
 DECODE_SHAPES = (
-    ("gpt2 8 slots 1 layer L2-hot", 1, 8, 12, 12, 64, 1024, (481, 545), ("int8", "bf16")),
-    ("gpt2 8 slots 12 layers L2-cold", 12, 8, 12, 12, 64, 1024, (485, 534), ("int8", "bf16")),
+    GPT2_HOT_SHAPE,
+    GPT2_COLD_SHAPE,
     ("h12 D64 32 slots 3 layers L2-cold", 3, 32, 12, 12, 64, 1024, (960, 1024), ("int8", "bf16")),
     ("llama hq32 hkv8 D128 16 slots 2 layers L2-cold", 2, 16, 32, 8, 128, 4096, (3800, 4096), ("int8",)),
-)
-STORES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn, "bf16": torch.bfloat16}
+) + tuple(NEW_DECODE_SHAPES.values())
+# SantaCoder's layer with 8 q heads (one group tile) in place of 16 (two)
+_SANTA = NEW_DECODE_SHAPES["santacoder"]
+ONE_TILE_SHAPE = ("santacoder layer, hq8 hkv1 (one group tile)",) + _SANTA[1:3] + (8,) + _SANTA[4:]
+# store: (cache dtype, q dtype)
+STORES = {"int8": (torch.int8, torch.bfloat16), "fp8": (torch.float8_e4m3fn, torch.bfloat16),
+          "bf16": (torch.bfloat16, torch.bfloat16), "fp16": (torch.float16, torch.float16),
+          "fp8 fp16 q": (torch.float8_e4m3fn, torch.float16)}
 
 
 def time_decode(gen: torch.Generator, smi: str, shape: tuple, store: str) -> dict:
     """K5 and K6 at one of DECODE_SHAPES: device ms a call (a CUDA graph of
     20 walks over the layers, one call a layer, between CUDA events, per
-    call), beside the plain versions and, on a bf16 cache, SDPA with a
+    call), beside the plain versions and, on a 16-bit cache, SDPA with a
     boolean length mask over the slot-major cache (one library call for the
     same function; GQA expanded by SDPA itself), and the byte bound; and ms
     a call as the engine calls them (`decode_attention_paged` /
@@ -1905,8 +2196,9 @@ def time_decode(gen: torch.Generator, smi: str, shape: tuple, store: str) -> dic
     label, layers, slots, hq, hkv, d, max_len, (lo, hi), _ = shape
     dev_gen = torch.Generator(device="cuda").manual_seed(int(torch.randint(1 << 30, (1,), generator=gen)))
     contexts = torch.randint(lo, hi + 1, (slots,), generator=gen)
-    cache = _filled_cache(dev_gen, slots, hkv, max_len, d, STORES[store], torch.bfloat16, contexts - 1, layers)
-    q = torch.randn(slots, hq, d, generator=dev_gen, device="cuda").to(torch.bfloat16)
+    payload, q_dtype = STORES[store]
+    cache = _filled_cache(dev_gen, slots, hkv, max_len, d, payload, q_dtype, contexts - 1, layers)
+    q = torch.randn(slots, hq, d, generator=dev_gen, device="cuda").to(q_dtype)
     views = [KVC.page_view(cache, layer, 128) for layer in range(layers)]
     pi = KVC.identity_page_indices(slots, max_len, 128, device="cuda")
     total = cache.lengths + 1
@@ -1927,7 +2219,7 @@ def time_decode(gen: torch.Generator, smi: str, shape: tuple, store: str) -> dic
         "K6": dev_fns["K6"],
     }
     lib = ""
-    if store == "bf16":
+    if payload == q_dtype:
         mask = (torch.arange(max_len, device="cuda") <= cache.lengths[:, None])[:, None, None, :]
 
         def sdpa(i):
@@ -1952,7 +2244,8 @@ def time_decode(gen: torch.Generator, smi: str, shape: tuple, store: str) -> dic
     nbytes = live * d * cache.k.element_size() * 2 + (live * 8 if cache.quantized else 0) + slots * hq * d * 2 * 2
     res["bound"], res["by"] = floor_ms(nbytes, 4 * live * (hq // hkv) * d)  # q.k and p.v per row read
     say(f"[timing] {smi} | decode {label}, contexts {int(contexts.min())}-{int(contexts.max())} of {max_len}, "
-        f"{store} cache, bf16 q, ms a call on the device (share of the bound; ms a call as the engine calls it): "
+        f"{store} cache, {str(q_dtype).split('.')[-1]} q, ms a call on the device (share of the bound; ms a call as "
+        f"the engine calls it): "
         + ", ".join(f"{k} {res[k]:.4f}" + (f" ({res['bound'] / res[k]:.1%}; {res[k + ' call']:.4f})"
                                            if k in call_fns else "") for k in dev_fns)
         + f"; bound {res['bound']:.4f} ms ({res['by']}, {nbytes / 1e6:.2f} MB a layer){lib}")
@@ -3656,6 +3949,8 @@ def main() -> None:
     pipelined_k1 = phase_serving_pipelined(args.seed, model, base, smi)
     wquant_k6 = phase_serving_wquant(args.seed, model, smi)
     del model
+    mqa_launches = phase_serving_mqa(args.seed, smi)
+    fp16_launches = phase_serving_fp16(args.seed, smi)
     parity_k1 = phase_parity(args.seed)
     phase_parity_quant(args.seed)
     launches = phase_training(args.seed, smi, data)
@@ -3679,6 +3974,8 @@ def main() -> None:
         **{f"llama_{k}": v for k, v in llama_times["llama"].items()},
     )
     times["fused_decode"]["serving_wquant_launches"] = wquant_k6
+    for kernel in ("paged_decode", "fused_decode"):
+        times[kernel].update(serving_mqa_launches=mqa_launches[kernel], serving_fp16_launches=fp16_launches[kernel])
     measured = phase_measure(args.seed, smi)
     phase_memory(smi)
     tiles, tile_err, autotune_k1, tiles_sdpa = phase_autotune(args.seed, smi, data)
@@ -3702,7 +3999,10 @@ def main() -> None:
     # call), with the bf16 cache's beside them (bf16_ms, bf16_plain_ms,
     # bf16_bound_ms, and SDPA with a length mask as bf16_library_ms) and
     # the int8 cache's over GPT-2's 12 layers, L2-cold (l2_cold_ms,
-    # l2_cold_bound_ms), which is what the serving-quant path reads
+    # l2_cold_bound_ms), which is what the serving-quant path reads; at
+    # NEW_DECODE_SHAPES (santacoder_*, ...: int8, and the other stores with
+    # SDPA as *_library_ms on 16-bit caches) and their launches on the
+    # serving-mqa and serving-fp16 paths
     say(json.dumps({"kernels": [
         {"name": key, "route": "cuda", "source": src, "replaces": rep, "launches": launches[key],
          "max_abs_err": errors[key], "floor_ms": times[key]["bound_ms"], **times[key]}

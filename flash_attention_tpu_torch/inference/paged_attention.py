@@ -5,7 +5,7 @@ as pages [kv_heads, total_pages, page_size, head_dim]; each sequence owns a
 `page_indices` row mapping its logical blocks to physical pages.
 `paged_attention` looks at the device of its inputs:
 
-* CUDA tensors go to K5, `fa_paged_decode` (`csrc/decode.cu`), a split-KV
+* CUDA tensors go to K5, `fa_paged_decode` (`csrc/decode.cuh`), a split-KV
   kernel: each (sequence, KV head) is split into chunks of whole pages
   (`decode_split`, from the cache's capacity and the SM count), one thread
   block each; a block stages its chunk's page ids once, streams its rows
@@ -21,7 +21,10 @@ as pages [kv_heads, total_pages, page_size, head_dim]; each sequence owns a
   in plain PyTorch, which the tests hold against the JAX package.
 
 `_launch_decode` is also K6's launcher (`decode_attention.decode_attention_fused`):
-both kernels are one template in `csrc/decode.cu`, with two entry points.
+both kernels are one template in `csrc/decode.cuh`, with two entry points in
+`csrc/decode.cu`.  They take fp32, bf16 and fp16 q, any GQA group (split
+into group tiles of at most 8 q heads, `group_tiles`) and head dims 8, 16,
+32, 64 and every multiple of 128 up to 1024 (`HEAD_DIMS`).
 The TPU kernel's `pages_per_compute_block` (pages per DMA step) has no
 counterpart: the CUDA kernel's chunks are set by the split.
 """
@@ -40,16 +43,21 @@ from ..kernels.flash_attention import _DTYPE_CODES, KERNEL_LAUNCHES
 from ..kernels.vanilla import DEFAULT_MASK_VALUE
 from ..quant.kv import QUANT_DTYPES
 
-__all__ = ["decode_split", "paged_attention", "paged_attention_ref", "paged_attention_split_ref"]
+__all__ = ["decode_split", "group_tiles", "paged_attention", "paged_attention_ref", "paged_attention_split_ref"]
 
-_Q_DTYPES = (torch.float32, torch.bfloat16)  # what csrc/decode.cu instantiates
-_HEAD_DIMS = (64, 128)  # what csrc/decode.cu instantiates
-_MAX_GROUP = 8
-# csrc/decode.cu's split: tokens of a ring tile (kTile), warps of a block
-# (kWarps; each takes every fourth tile of its block's chunk), splits a
-# sequence may have (kMaxSplits), page ids a chunk may hold (kMaxPages)
+_Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # what csrc/decode.cuh instantiates
+# head dims the decode kernels take: 8, 16 and 32 (run at 32), 64, and every
+# multiple of 128 up to 1024 (run at 128, 256, 512 or 1024), as the JAX
+# package's K5 runs in its kernel body (d divides 128, or 128 divides d) up
+# to the 1024 that caps the port's flash kernels
+HEAD_DIMS = (8, 16, 32, 64) + tuple(range(128, 1025, 128))
+# csrc/decode.cuh's split: tokens of a ring tile (kTile), warps of a block
+# (kWarps; each takes every fourth tile of its block's chunk), q rows of a
+# group tile (kMaxRows), splits a sequence may have (kMaxSplits), page ids a
+# chunk may hold (kMaxPages)
 DECODE_TILE = 16
 DECODE_WARPS = 4
+MAX_ROWS = 8
 MAX_SPLITS = 64
 MAX_CHUNK_UNITS = 256
 BLOCKS_PER_SM = 4  # the blocks per SM the split aims at over the whole capacity
@@ -161,12 +169,23 @@ def paged_attention_split_ref(
     return o.reshape(batch, hq, d).to(q.dtype)
 
 
+def group_tiles(group: int) -> tuple[int, int]:
+    """(tiles, rows): a GQA group of `group` q heads runs in `tiles` blocks
+    of `rows` q heads each (the last may hold fewer), at most MAX_ROWS rows
+    a tile and as even as they go (multi-query attention at 16 q heads: 2
+    tiles of 8; Falcon-7B's 71: 9 tiles of 8, the last of 7).  The
+    launcher passes both to the kernels, which launch `tiles` blocks a KV
+    head and only check that the pair covers the group."""
+    tiles = -(-group // MAX_ROWS)
+    return tiles, -(-group // tiles)
+
+
 def decode_split(capacity: int, pairs: int, unit: int, sms: int) -> tuple[int, int]:
     """(chunk, splits) of the decode kernels: the tokens each thread block
-    takes, and the blocks per (sequence, KV head).  Chosen from the cache's
-    capacity, the number of (sequence, KV head) pairs and the SM count, never
-    from the lengths (they live on the card: reading them would cost a
-    sync).  The chunk is the largest power of two, at least one ring tile
+    takes, and the blocks per (sequence, KV head, group tile).  Chosen from
+    the cache's capacity, the number of those triples (`pairs`) and the SM
+    count, never from the lengths (they live on the card: reading them
+    would cost a sync).  The chunk is the largest power of two, at least one ring tile
     per warp, of at most capacity * pairs / (BLOCKS_PER_SM * sms) tokens, rounded up to
     whole `unit`s (K5's page size; K6 passes the tile) and capped at
     MAX_CHUNK_UNITS units (K5 stages a chunk's page ids in shared memory);
@@ -222,11 +241,13 @@ def _stride_array(*strides: int):
 
 def _check_rows(name: str, t: torch.Tensor) -> None:
     """The decode kernels read payload rows with 16-byte copies through the
-    tensor's strides.  A cache view that breaks that raises: copying the
-    cache on every call would hide its whole cost."""
-    vec = 16 // t.element_size()
-    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(st % vec for st in t.stride()[:-1]):
-        raise ValueError(f"{name}: rows must be contiguous and 16-byte aligned, got strides {t.stride()}")
+    tensor's strides (8-byte ones at head dims up to 32, whose int8/fp8 rows
+    at d = 8 are 8 bytes).  A cache view that breaks that raises: copying
+    the cache on every call would hide its whole cost."""
+    align = 8 if t.shape[-1] <= 32 else 16
+    vec = align // t.element_size()
+    if t.stride(-1) != 1 or t.data_ptr() % align or any(st % vec for st in t.stride()[:-1]):
+        raise ValueError(f"{name}: rows must be contiguous and {align}-byte aligned, got strides {t.stride()}")
 
 
 def _int32(t: torch.Tensor) -> torch.Tensor:
@@ -251,21 +272,24 @@ def _launch_decode(
     layer [hkv, slots, max_len, d], page_indices None) on CUDA tensors;
     returns [batch, hq, d] in q's dtype.  Each sequence reads max(lengths +
     len_add, 1) tokens (K6 always adds 1), split across blocks as
-    `decode_split` chooses."""
+    `decode_split` chooses, a GQA group in `group_tiles`.  What the kernels
+    do not take (q dtype, payload, head dim) raises before any launch."""
     batch, hq, d = q.shape
     hkv = k.shape[0]
     quantized = k_scales is not None
     if q.dtype not in _Q_DTYPES:
-        raise TypeError(f"the decode kernels take float32/bfloat16 q, got {q.dtype}")
+        raise TypeError(f"the decode kernels take float32/bfloat16/float16 q, got {q.dtype}")
     if k.dtype != v.dtype or (quantized and k.dtype not in QUANT_DTYPES) or (not quantized and k.dtype != q.dtype):
         raise TypeError(
             f"the decode kernels take K/V in q's dtype, or int8/fp8 with scales; got {k.dtype}/{v.dtype} "
             f"for q {q.dtype}{' with scales' if quantized else ''}"
         )
-    if d not in _HEAD_DIMS:
-        raise NotImplementedError(f"the decode kernels are built for head dims {_HEAD_DIMS}, got {d}")
-    if hq % hkv or hq // hkv > _MAX_GROUP:
-        raise NotImplementedError(f"the decode kernels take GQA groups of 1-{_MAX_GROUP} q heads, got {hq}/{hkv}")
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"the decode kernels take head dims 8, 16, 32, 64 and multiples of 128 up to 1024, got {d}"
+        )
+    if hq % hkv:
+        raise ValueError(f"num_q_heads ({hq}) must be divisible by num_kv_heads ({hkv})")
     tensors = [q, k, v, lengths] + ([k_scales, v_scales] if quantized else [])
     tensors += [page_indices] if page_indices is not None else []
     if kernel_route(*tensors) != "cuda":
@@ -287,10 +311,11 @@ def _launch_decode(
     else:
         capacity, unit = k.shape[2], DECODE_TILE
     device = q.device
-    chunk, splits = decode_split(capacity, batch * hkv, unit, _sm_count(device.index))
+    tiles, rows = group_tiles(hq // hkv)
+    chunk, splits = decode_split(capacity, batch * hkv * tiles, unit, _sm_count(device.index))
     ws, counters = (None, None)
     if splits > 1:
-        ws, counters = _workspace(device, batch * hkv * splits * (hq // hkv) * (d + 2), batch * hkv)
+        ws, counters = _workspace(device, batch * hkv * tiles * splits * rows * (d + 2), batch * hkv * tiles)
     out = torch.empty(batch, hq, d, dtype=q.dtype, device=device)
     sc = k_scales.stride()[:2] if quantized else (0, 0)
     strides = _stride_array(*q.stride()[:2], *out.stride()[:2], *k.stride()[:3], *v.stride()[:3], *sc)
@@ -299,7 +324,7 @@ def _launch_decode(
         v_scales.data_ptr() if quantized else None, lengths.data_ptr(),
     )
     work = (None if ws is None else ws.data_ptr(), None if counters is None else counters.data_ptr())
-    codes = (_DTYPE_CODES[q.dtype], QUANT_DTYPES[k.dtype] if quantized else 0, batch, hq, hkv, d)
+    codes = (_DTYPE_CODES[q.dtype], QUANT_DTYPES[k.dtype] if quantized else 0, batch, hq, hkv, tiles, rows, d)
     stream = torch._C._cuda_getCurrentRawStream(device.index)
     with _on(device):
         if paged:
@@ -348,8 +373,9 @@ def paged_attention(
       k_scales, v_scales: [kv_heads, total_pages, page_size] fp32 per-token
         dequantization scales of quantized pages.
 
-    Returns [batch, q_heads, head_dim] in q's dtype.  On CUDA: float32 or
-    bfloat16 q, head dims 64 and 128, GQA groups of up to 8 q heads.
+    Returns [batch, q_heads, head_dim] in q's dtype.  On CUDA: float32,
+    bfloat16 or float16 q, any GQA group, head dims 8, 16, 32, 64 and every
+    multiple of 128 up to 1024; anything else raises.
     """
     batch, hq, d = q.shape
     hkv = k_pages.shape[0]

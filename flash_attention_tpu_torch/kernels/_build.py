@@ -152,15 +152,16 @@ def library() -> ctypes.CDLL:
         lib.fa_paged_decode.argtypes = [
             p, p, p, p, p, p, p, p,  # q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices, out
             p, p,  # workspace, counters
-            i, i, i, i, i, i, i, i, i,  # q_dtype, kv_dtype, batch, hq, hkv, head_dim, page_size, pages_per_seq, len_add
+            i, i, i, i, i, i, i, i,  # q_dtype, kv_dtype, batch, hq, hkv, group_tiles, group_rows, head_dim
+            i, i, i,  # page_size, pages_per_seq, len_add
             i, i,  # chunk, splits
             ctypes.POINTER(ll), f, p,  # 12 strides, sm_scale, stream
         ]
         lib.fa_paged_decode.restype = i
         lib.fa_fused_decode.argtypes = [
             p, p, p, p, p, p, p, p, p,  # q, k, v, k_scales, v_scales, lengths, out, workspace, counters
-            i, i, i, i, i, i, i,  # q_dtype, kv_dtype, slots, hq, hkv, head_dim, max_len
-            i, i,  # chunk, splits
+            i, i, i, i, i, i, i, i,  # q_dtype, kv_dtype, slots, hq, hkv, group_tiles, group_rows, head_dim
+            i, i, i,  # max_len, chunk, splits
             ctypes.POINTER(ll), f, p,  # 12 strides, sm_scale, stream
         ]
         lib.fa_fused_decode.restype = i

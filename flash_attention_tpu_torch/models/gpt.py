@@ -159,9 +159,10 @@ class Linear(nn.Linear):
 
 def _linear(n_in: int, n_out: int, bias: bool, std: float, dtype: torch.dtype, gen, device) -> Linear:
     """Linear stored in `dtype` with N(0, std) weights drawn from `gen` on
-    the CPU (so a seed gives the same weights on every device)."""
+    its own device (a CPU generator gives the same weights on every
+    device)."""
     lin = Linear(n_in, n_out, bias=bias, device="meta")
-    w = torch.randn(n_out, n_in, generator=gen) * std
+    w = torch.randn(n_out, n_in, generator=gen, device=gen.device) * std
     lin.weight = nn.Parameter(w.to(device=device, dtype=dtype))
     if bias:
         lin.bias = nn.Parameter(torch.zeros(n_out, device=device, dtype=dtype))
@@ -255,8 +256,9 @@ class GPT(nn.Module):
     """GPT-2 with GPT-2 init: N(0, 0.02), residual projections scaled by
     1/sqrt(2 n_layer), zero biases; the LM head is tied to `wte`.
 
-    generator: the torch.Generator all weights are drawn from (CPU);
-    default a fresh one seeded 0.  device: where the weights live, default
+    generator: the torch.Generator all weights are drawn from, on its own
+    device (a CPU one gives the same weights on every device; a CUDA one
+    draws a large model on the card); default a fresh CPU one seeded 0.  device: where the weights live, default
     the card ("cuda", which raises without one; "cpu" when asked for).
     param_dtype: storage of the matmul weights and biases, cast to
     cfg.dtype at each use; default cfg.dtype (serving).  Training passes
@@ -277,8 +279,10 @@ class GPT(nn.Module):
         dtype = param_dtype or cfg.dtype
         self.cfg = cfg
         self.blocks = nn.ModuleList(Block(cfg, gen, device, dtype) for _ in range(cfg.n_layer))
-        self.wte = nn.Parameter((torch.randn(cfg.vocab_size, cfg.n_embd, generator=gen) * 0.02).to(device))
-        self.wpe = nn.Parameter((torch.randn(cfg.block_size, cfg.n_embd, generator=gen) * 0.02).to(device))
+        self.wte = nn.Parameter((torch.randn(cfg.vocab_size, cfg.n_embd, generator=gen, device=gen.device) * 0.02)
+                                .to(device))
+        self.wpe = nn.Parameter((torch.randn(cfg.block_size, cfg.n_embd, generator=gen, device=gen.device) * 0.02)
+                                .to(device))
         self.lnf = LayerNorm(cfg.n_embd, cfg.fast_ln, device)
 
     @property

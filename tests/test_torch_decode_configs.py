@@ -1,0 +1,212 @@
+"""The decode kernels' configurations beyond head dims 64/128, fp32/bf16 q
+and GQA groups of up to 8: head dims 8, 16, 32, 256 and 512, groups 2-71
+(multi-query attention), fp16 q over fp16, int8 and fp8 pages.  The
+kernels' arithmetic in plain PyTorch (`paged_attention_split_ref`: K5's
+scoring, and K6's with `prescale_q=True`) against the JAX package's
+`paged_attention` in Pallas interpret mode and its `decode_attention_fused`
+(interpret mode up to d = 128, its own einsum fallback above); then the
+slice: a 2-layer multi-query GPT's chained decode steps through
+attn_impl="paged" and "fused" against the JAX package's, and their greedy
+tokens.  Inputs are numpy from a seed; fp8 payloads cross as uint8 views.
+fp16 is compared at the module level only: the JAX package's prefill
+computes fp16 in bf16."""
+
+import dataclasses
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import JAX_CFG, TORCH_CFG, from_jax, jax_tree, n, numpy_params, randn, t, torch_cache
+from flash_attention_tpu.inference import kv_cache as jkvc
+from flash_attention_tpu.inference import model_runner as jmr
+from flash_attention_tpu.quant import kv as jq
+from flash_attention_tpu_torch.inference import kv_cache as tkvc
+from flash_attention_tpu_torch.inference import model_runner as tmr
+from flash_attention_tpu_torch.kernels.flash_attention import KERNEL_LAUNCHES
+from flash_attention_tpu_torch.models import gpt as tgpt
+
+# the modules, not the functions that the packages re-export under their names
+jda = importlib.import_module("flash_attention_tpu.inference.decode_attention")
+jpa = importlib.import_module("flash_attention_tpu.inference.paged_attention")
+tpa = importlib.import_module("flash_attention_tpu_torch.inference.paged_attention")
+
+# (q heads, KV heads, head dim): multi-query at SantaCoder's D128 and at a
+# narrow head; Gemma's D256 under one KV head; a group of 12 at D512; groups
+# of 2 at the narrowest heads; Falcon-7B's 71 q heads on one KV head
+CASES = [(16, 1, 128), (16, 1, 32), (8, 1, 256), (24, 2, 512), (4, 2, 8), (4, 2, 16), (71, 1, 64)]
+CASE_IDS = [f"hq{hq}-hkv{hkv}-d{d}" for hq, hkv, d in CASES]
+# (q dtype, payload): fp32 q over fp32 pages, fp16 q over fp16, int8 and fp8
+PAYLOADS = {"fp32": (jnp.float32, None), "fp16": (jnp.float16, None), "fp16-int8": (jnp.float16, jnp.int8),
+            "fp16-fp8": (jnp.float16, jnp.float8_e4m3fn)}
+# fp32: the JAX package's quantized-page tolerance (tests/test_paged_attention.py);
+# fp16: the 16-bit tier (P and the output are rounded to fp16 at other points)
+TOL = {"fp32": (5e-5, 1e-4), "fp16": (2e-2, 0.0)}
+CHUNK = 32  # two pages of 16: the kernels' splits, most of them empty for short sequences
+
+
+def _tol(payload: str) -> tuple[float, float]:
+    return TOL["fp32" if payload == "fp32" else "fp16"]
+
+
+def _pages(hq, hkv, d, payload, batch=3, page_size=16, pps=4, seed=0):
+    """q and pages in the payload's dtypes (quantized with the JAX package's
+    quantize_tokens), a permuted page table over more pages than the
+    sequences use."""
+    qdt, quant = PAYLOADS[payload]
+    n_pages = batch * pps + 3
+    rng = np.random.default_rng(seed)
+    q = jnp.asarray(randn(seed, batch, hq, d), qdt)
+    kp, vp = (jnp.asarray(randn(seed + i, hkv, n_pages, page_size, d)) for i in (1, 2))
+    pi = rng.permutation(n_pages)[: batch * pps].reshape(batch, pps).astype(np.int32)
+    if quant is None:
+        return q, pi, (kp.astype(qdt), vp.astype(qdt), None, None)
+    kq, ks = jq.quantize_tokens(kp, quant)
+    vq, vs = jq.quantize_tokens(vp, quant)
+    return q, pi, (kq, vq, ks, vs)
+
+
+@pytest.mark.parametrize("payload", PAYLOADS)
+@pytest.mark.parametrize("hq,hkv,d", CASES, ids=CASE_IDS)
+def test_k5_split_arithmetic_matches_jax_paged_kernel(hq, hkv, d, payload):
+    """K5's chunk-and-merge arithmetic against JAX's paged kernel (interpret
+    mode) at lengths of one token, a split's edge and the whole capacity."""
+    q, pi, pages = _pages(hq, hkv, d, payload)
+    lengths = np.array([1, CHUNK + 1, 64], np.int32)
+    kw = dict(k_scales=pages[2], v_scales=pages[3])
+    jout = jpa.paged_attention(q, pages[0], pages[1], jnp.asarray(lengths), jnp.asarray(pi),
+                               pages_per_compute_block=2, **kw)
+    kp, vp, ks, vs = (None if a is None else from_jax(a) for a in pages)
+    tq = from_jax(q)
+    before = dict(KERNEL_LAUNCHES)
+    got = tpa.paged_attention_split_ref(tq, kp, vp, t(lengths), t(pi), chunk=CHUNK, k_scales=ks, v_scales=vs)
+    plain = tpa.paged_attention(tq, kp, vp, t(lengths), t(pi), k_scales=ks, v_scales=vs)
+    assert KERNEL_LAUNCHES == before  # CPU tensors take the plain versions
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    atol, rtol = _tol(payload)
+    np.testing.assert_allclose(n(got.float()), np.asarray(jout, np.float32), atol=atol, rtol=rtol)
+    np.testing.assert_allclose(n(plain.float()), np.asarray(jout, np.float32), atol=atol, rtol=rtol)
+
+
+def _jax_cache(hkv, d, payload, lengths=(0, 31, 100), max_len=128, seed=20):
+    """A one-layer JAX cache in the payload's dtypes, filled by its own
+    prefill_write/decode_write: the current token of slot s at lengths[s]."""
+    qdt, quant = PAYLOADS[payload]
+    slots, fill = len(lengths), max(lengths) + 1
+    c = jkvc.init_cache(1, slots, hkv, max_len, d, dtype=qdt, quant_dtype=quant)
+    for s in range(slots):
+        c = jkvc.prefill_write(c, 0, jnp.int32(s), jnp.asarray(randn(seed + s, hkv, fill, d)),
+                               jnp.asarray(randn(seed + s + 5, hkv, fill, d)))
+    pos = jnp.asarray(lengths, jnp.int32)
+    k_new, v_new = (jnp.asarray(randn(seed + i, slots, hkv, d)) for i in (9, 8))
+    c = jkvc.decode_write(c, 0, k_new, v_new, pos)
+    return dataclasses.replace(c, lengths=pos)
+
+
+@pytest.mark.parametrize("payload", PAYLOADS)
+@pytest.mark.parametrize("hq,hkv,d", CASES, ids=CASE_IDS)
+def test_k6_split_arithmetic_matches_jax_fused(hq, hkv, d, payload):
+    """K6's arithmetic (q pre-scaled and rounded to its dtype, lengths + 1)
+    over the slot-major cache's page view against JAX's
+    `decode_attention_fused`: its kernel in interpret mode up to d = 128,
+    its einsum fallback above.  On an fp8 cache the JAX kernel rounds P to
+    fp8 before its PV product (pv_dtype, decode_attention.py:361), which the
+    port does not, so there K6 is held against JAX's einsum
+    `decode_attention`, the function both compute."""
+    qdt, quant = PAYLOADS[payload]
+    jc = _jax_cache(hkv, d, payload)
+    q = jnp.asarray(randn(33, 3, hq, d), qdt)
+    if quant == jnp.float8_e4m3fn:
+        jout = jda.decode_attention(q, jc, 0)
+    else:
+        jout = jda.decode_attention_fused(q, jc, 0, block=64)
+    tc = torch_cache(jc)
+    kp, vp, ks, vs = tkvc.page_view(tc, 0, tc.max_len)
+    pi = tkvc.identity_page_indices(tc.slots, tc.max_len, tc.max_len, device="cpu")
+    got = tpa.paged_attention_split_ref(from_jax(q), kp, vp, tc.lengths + 1, pi, chunk=CHUNK, k_scales=ks,
+                                        v_scales=vs, prescale_q=True)
+    atol, rtol = _tol(payload)
+    np.testing.assert_allclose(n(got.float()), np.asarray(jout, np.float32), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize(
+    "group,want",
+    [(1, (1, 1)), (4, (1, 4)), (8, (1, 8)), (12, (2, 6)), (16, (2, 8)), (18, (3, 6)), (48, (6, 8)), (71, (9, 8))],
+)
+def test_group_tiles(group, want):
+    """A GQA group runs in tiles of at most 8 q heads, as even as they go
+    (the launcher passes both to the kernels and sizes the workspace from
+    them): every head in one tile, no tile empty."""
+    tiles, rows = tpa.group_tiles(group)
+    assert (tiles, rows) == want
+    assert rows <= tpa.MAX_ROWS and tiles * rows >= group > (tiles - 1) * rows
+
+
+def test_group_tiles_cover_every_group():
+    """What the kernels' entry points check of the (tiles, rows) they are
+    given holds for every group up to 1024 q heads a KV head: the rows
+    cover the group with no tile empty, and no more tiles than groups of
+    MAX_ROWS need."""
+    for group in range(1, 1025):
+        tiles, rows = tpa.group_tiles(group)
+        assert 1 <= rows <= min(tpa.MAX_ROWS, group)
+        assert tiles * rows >= group > (tiles - 1) * rows
+        assert tiles == -(-group // tpa.MAX_ROWS)
+
+
+MQA_JAX_CFG = dataclasses.replace(JAX_CFG, n_head=16, n_embd=256, n_kv_head=1)
+MQA_TORCH_CFG = dataclasses.replace(TORCH_CFG, n_head=16, n_embd=256, n_kv_head=1)
+SLOTS, MAX_LEN = 3, 256
+
+
+def _mqa_models(scale: float = 1.0):
+    tree = numpy_params(seed=3, scale=scale, cfg=MQA_JAX_CFG)
+    return jax_tree(tree), tgpt.params_from_jax(tree, MQA_TORCH_CFG, device="cpu")
+
+
+def _mqa_caches():
+    args = (MQA_JAX_CFG.n_layer, SLOTS, MQA_JAX_CFG.kv_heads, MAX_LEN, MQA_JAX_CFG.head_dim)
+    return jkvc.init_cache(*args, dtype=jnp.float32), tkvc.init_cache(*args, dtype=torch.float32, device="cpu")
+
+
+def _prefilled(jp, tm):
+    prompt = np.arange(1, 41, dtype=np.int32) % MQA_JAX_CFG.vocab_size
+    jc, tc = _mqa_caches()
+    for slot, p in ((0, prompt), (1, prompt[:7])):
+        jc, _ = jmr.prefill(jp, jnp.asarray(p), MQA_JAX_CFG, jc, jnp.int32(slot))
+        tc, _ = tmr.prefill(tm, t(p), tc, slot)
+    return jc, tc
+
+
+@pytest.mark.parametrize("attn_impl", ["paged", "fused"])
+def test_mqa_chained_decode_steps_match_jax(attn_impl):
+    """The slice at multi-query width: a 2-layer GPT with 16 q heads on one
+    KV head (head dim 16), 8 teacher-forced decode steps after prefills of
+    40 and 7 tokens, slot 2 inactive; the port's attn_impl path against the
+    JAX package's, at 1e-4 as the chained decode steps of
+    tests/test_torch_inference.py."""
+    jp, tm = _mqa_models()
+    jc, tc = _prefilled(jp, tm)
+    active = np.array([True, True, False])
+    feed = np.random.default_rng(7).integers(0, MQA_JAX_CFG.vocab_size, (8, SLOTS)).astype(np.int32)
+    for step in range(8):
+        jc, jl = jmr.decode_step(jp, jnp.asarray(feed[step]), MQA_JAX_CFG, jc, jnp.asarray(active),
+                                 attn_impl=attn_impl)
+        tc, tl = tmr.decode_step(tm, t(feed[step]), tc, t(active), attn_impl=attn_impl)
+        np.testing.assert_allclose(n(tl)[:2], np.asarray(jl)[:2], atol=1e-4, rtol=0)
+    assert n(tc.lengths).tolist() == [48, 15, 0]
+
+
+@pytest.mark.parametrize("attn_impl", ["paged", "fused"])
+def test_mqa_greedy_tokens_match_jax(attn_impl):
+    """Greedy decoding (decode_loop, 12 steps) through the multi-query
+    slice: the port's tokens equal the JAX package's, on the tests' weights
+    x25 (their top-2 logit gaps sit far above fp32's order of summation)."""
+    jp, tm = _mqa_models(scale=25.0)
+    jc, tc = _prefilled(jp, tm)
+    first = np.array([5, 9, 11], np.int32)
+    _, jt = jmr.decode_loop(jp, MQA_JAX_CFG, jc, jnp.asarray(first), 12, attn_impl=attn_impl)
+    _, tt = tmr.decode_loop(tm, tc, t(first), 12, attn_impl=attn_impl)
+    np.testing.assert_array_equal(n(tt), np.asarray(jt))

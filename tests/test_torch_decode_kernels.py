@@ -171,22 +171,33 @@ def test_jax_fused_kernel_interpret_small_case():
 
 
 def test_decode_launchers_raise_without_a_card():
-    """K5/K6's launcher never falls back: CPU tensors, an unsupported head
-    dim, a GQA group over 8 or an fp16 q raise."""
+    """K5/K6's launcher never falls back: what the kernels do not take (a
+    head dim other than 8, 16, 32, 64 or a multiple of 128 up to 1024, or
+    int8 q) raises before any launch; what they take (d 32, a GQA group of
+    18, fp16 q) passes validation and stops at the device: CPU tensors
+    raise."""
     q, pi, pages = _pages("int8")
     kp, vp, ks, vs = _torch_pages(pages)
     lengths = t(np.array([3, 4, 5, 6], np.int32))
+
+    def launch(q, kp, vp, ks, vs):
+        return tpa._launch_decode("paged_decode", q, kp, vp, ks, vs, lengths, t(pi), sm_scale=0.125, len_add=0)
+
     with pytest.raises(RuntimeError, match="CUDA tensors only"):
-        tpa._launch_decode("paged_decode", t(q), kp, vp, ks, vs, lengths, t(pi), sm_scale=0.125, len_add=0)
-    with pytest.raises(NotImplementedError, match="head dims"):
-        tpa._launch_decode("paged_decode", t(q)[..., :32], kp[..., :32], vp[..., :32], ks, vs, lengths, t(pi),
-                           sm_scale=0.125, len_add=0)
+        launch(t(q), kp, vp, ks, vs)
+    for d in (96, 1040):  # neither JAX kernel runs 96; 1040 is past the port's 1024
+        qd = torch.zeros(4, 8, d)
+        kd = torch.zeros(kp.shape[:-1] + (d,), dtype=torch.int8)
+        with pytest.raises(NotImplementedError, match="head dims"):
+            launch(qd, kd, kd, ks, vs)
+    with pytest.raises(TypeError, match="float32/bfloat16/float16"):
+        launch(t(q).to(torch.int8), kp, vp, ks, vs)
     q18 = t(randn(1, 4, 18, 64))
-    with pytest.raises(NotImplementedError, match="groups"):
-        tpa._launch_decode("paged_decode", q18, kp[:1], vp[:1], ks[:1], vs[:1], lengths, t(pi), sm_scale=0.1,
-                           len_add=0)
-    with pytest.raises(TypeError, match="float32/bfloat16"):
-        tpa._launch_decode("paged_decode", t(q).half(), kp, vp, ks, vs, lengths, t(pi), sm_scale=0.1, len_add=0)
+    for args in ((t(q)[..., :32], kp[..., :32], vp[..., :32], ks, vs),  # head dim 32
+                 (q18, kp[:1], vp[:1], ks[:1], vs[:1]),  # a GQA group of 18 q heads
+                 (t(q).half(), kp, vp, ks, vs)):  # fp16 q
+        with pytest.raises(RuntimeError, match="CUDA tensors only"):
+            launch(*args)
 
 
 # Sequence lengths (current token included) against a split of `chunk`
