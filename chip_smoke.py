@@ -402,6 +402,13 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                      "flash_attention_tpu/inference/paged_attention.py:34"),
     "fused_decode": ("flash_attention_tpu_torch/csrc/decode.cuh",
                      "flash_attention_tpu/inference/decode_attention.py:195"),
+    # K5 / K6 over a GQA group above 8 with bf16 / fp16 q at head dims 64 and
+    # 128: the whole-group kernel (decode_group.cuh), instantiated by
+    # csrc/decode_group_*.cu
+    "paged_decode_group": ("flash_attention_tpu_torch/csrc/decode_group.cuh",
+                           "flash_attention_tpu/inference/paged_attention.py:34"),
+    "fused_decode_group": ("flash_attention_tpu_torch/csrc/decode_group.cuh",
+                           "flash_attention_tpu/inference/decode_attention.py:195"),
     # head dims 129-256, padded to 256, bf16/fp16: the wgmma K1, K4, K2 and
     # K3 (flash_fwd_d256.cu, flash_bwd_d256.cu) and flash_bwd.cu's pre-pass
     # instantiated at 256
@@ -528,10 +535,16 @@ def phase_build() -> None:
         elif "Used" in line and "registers" in line:
             regs = int(re.search(r"Used (\d+) registers", line).group(1))
             entries.append((kernel, regs, spills))
-    decode, decode_spilled = [], []
+    decode, decode_spilled, group, group_spilled = [], [], [], []
     for name, (_, regs, spill) in zip(_demangle([e[0] for e in entries]), entries):
         spilled = not spill.startswith("0 bytes stack frame, 0 bytes spill stores")
-        if "decode_kernel" in name:
+        if "group_kernel" in name:
+            group.append(regs)
+            if spilled:
+                m = re.search(r"group_kernel<(.*)>", name)
+                stores = re.search(r"(\d+) bytes spill stores", spill)
+                group_spilled.append(f"<{m.group(1) if m else name}> {regs} regs {stores.group(1) if stores else '?'} B")
+        elif "decode_kernel" in name:
             decode.append(regs)
             if spilled:
                 m = re.search(r"decode_kernel<(.*)>", name)
@@ -544,9 +557,20 @@ def phase_build() -> None:
     if decode:
         say(f"[build] ptxas decode_kernel: {len(decode)} instantiations, {len(decode) - len(decode_spilled)} without "
             f"spills, {min(decode)}-{max(decode)} registers; nvcc per decode source: "
-            + (", ".join(f"{k} {v:.1f} s" for k, v in per.items() if k.startswith("decode")) or "not run (built)"))
+            + (", ".join(f"{k} {v:.1f} s" for k, v in per.items() if k.startswith("decode") and "group" not in k)
+               or "not run (built)"))
         say("[build] decode_kernel spills (T, KV, D, rows, paged; spill stores): "
             + ("; ".join(decode_spilled) or "none"))
+    # the whole-group decode kernel (decode_group.cuh): its sources' nvcc
+    # seconds, its instantiations' registers and spills
+    say(f"[build] ptxas group_kernel (whole-group K5 / K6): {len(group)} instantiations, "
+        f"{len(group) - len(group_spilled)} without spills, "
+        + (f"{min(group)}-{max(group)} registers" if group else "none found")
+        + "; nvcc per source: "
+        + (", ".join(f"{k} {v:.1f} s" for k, v in per.items() if k.startswith("decode_group")) or "not run (built)")
+        + "; spills (T, KV, D, row-tile groups, paged; spill stores): " + ("; ".join(group_spilled) or "none"))
+    if len(group) != 96:
+        raise AssertionError(f"[build] expected 96 instantiations of the whole-group decode kernel, found {len(group)}")
     # ptxas reports a kernel whose wgmma it serialises only as an info line
     serial = [line.strip() for line in _build.build_info["ptxas"].splitlines() if "C7518" in line]
     names = _demangle([m.group(1) for line in serial for m in [re.search(r"function '([^']+)'", line)] if m])
@@ -1140,13 +1164,38 @@ def _fp16_control(label: str, outs, plains, atol: float, rtol: float) -> bool:
     return rejected
 
 
+def _decode_keys(q_dtype, d: int, group: int) -> tuple[str, str]:
+    """The launch keys of K5 and K6 for a configuration: the whole-group
+    kernel's for a group above 8 with bf16 / fp16 q at D64 / D128."""
+    if PA.uses_group_kernel(q_dtype, d, group):
+        return "paged_decode_group", "fused_decode_group"
+    return "paged_decode", "fused_decode"
+
+
+def _group_split(q_dtype, payload, group: int, d: int, capacity: int, unit: int, pairs: int,
+                 paged: bool) -> tuple[int, int, int]:
+    """The whole-group kernel's (cluster, chunk, walks) for a configuration
+    (`payload`: the cache's dtype), as its launcher chooses them on this
+    card."""
+    _, rows = PA.group_passes(group)
+    resident = PA._resident_clusters(torch.cuda.current_device(), FA._DTYPE_CODES[q_dtype],
+                                     QK.QUANT_DTYPES.get(payload, 0), d, rows, paged)
+    return PA.decode_group_split(capacity, pairs, unit if paged else PA.GROUP_TOKENS, resident, paged)
+
+
 def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths,
-                 controls=None) -> tuple[float, float]:
+                 controls=None) -> dict:
     """K5 (through decode_attention_paged) and K6 vs their plain versions on
-    one cache at DECODE_TOL; returns their max errors.  For fp16 q, whether
-    the limit rejects the bf16-rounded control goes into `controls`."""
+    one cache at DECODE_TOL; returns {launch key: max error}.  Each must
+    launch its kernel once: the whole-group kernel for a group above 8 with
+    bf16 / fp16 q at D64 / D128, which is also held against the plain
+    version of its own plan (`paged_attention_group_ref`: its chunks, its
+    cluster, the merge's order).  For fp16 q, whether the limit rejects the
+    bf16-rounded control goes into `controls`."""
     cache = _filled_cache(gen, slots, hkv, max_len, d, store, q_dtype, lengths)
     q = _rand(gen, (slots, hq, d), q_dtype)
+    key5, key6 = _decode_keys(q_dtype, d, hq // hkv)
+    before = dict(FA.KERNEL_LAUNCHES)
     with torch.no_grad():
         out5 = DA.decode_attention_paged(q, cache, 0, page_size=128)
         kp, vp, ks, vs = KVC.page_view(cache, 0, 128)
@@ -1154,6 +1203,9 @@ def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths
         plain5 = PA.paged_attention_ref(q, kp, vp, cache.lengths + 1, pi, k_scales=ks, v_scales=vs)
         out6 = DA.decode_attention_fused(q, cache, 0)
         plain6 = DA.decode_attention(q, cache, 0)
+    launched = {k: n - before[k] for k, n in FA.KERNEL_LAUNCHES.items() if n != before[k]}
+    if launched != {key5: 1, key6: 1}:
+        raise AssertionError(f"[decode] {label}: launched {launched}, want {key5} and {key6} once each")
     torch.cuda.synchronize()
     for o in (out5, out6):
         if o.shape != q.shape or o.dtype != q_dtype or not torch.isfinite(o).all():
@@ -1162,20 +1214,44 @@ def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths
     e5, ok5 = _error(out5, plain5, atol, rtol)
     e6, ok6 = _error(out6, plain6, atol, rtol)
     ok = ok5 and ok6
-    say(f"[decode] {label:<42} K5 vs plain {e5:.3e}  K6 vs plain {e6:.3e}  atol {atol:g} rtol {rtol:g}  "
+    plan = ""
+    if key5.endswith("_group"):
+        with torch.no_grad():
+            c5, ch5, w5 = _group_split(q_dtype, kp.dtype, hq // hkv, d, max_len, 128, slots * hkv, True)
+            plan5 = PA.paged_attention_group_ref(q, kp, vp, cache.lengths + 1, pi, cluster=c5, chunk=ch5,
+                                                 k_scales=ks, v_scales=vs)
+            kp6, vp6, ks6, vs6 = KVC.page_view(cache, 0, max_len)
+            pi6 = KVC.identity_page_indices(slots, max_len, max_len, device="cuda")
+            c6, ch6, w6 = _group_split(q_dtype, kp.dtype, hq // hkv, d, max_len, max_len, slots * hkv, False)
+            plan6 = PA.paged_attention_group_ref(q, kp6, vp6, cache.lengths + 1, pi6, cluster=c6, chunk=ch6,
+                                                 k_scales=ks6, v_scales=vs6, prescale_q=True)
+        p5, okp5 = _error(out5, plan5, atol, rtol)
+        p6, okp6 = _error(out6, plan6, atol, rtol)
+        ok = ok and okp5 and okp6
+        plan = (f"  vs the plan's plain version {p5:.3e} / {p6:.3e} (K5 {c5} blocks x {w5} chunks of {ch5}, "
+                f"K6 {c6} x {w6} of {ch6})")
+    say(f"[decode] {label:<42} K5 vs plain {e5:.3e}  K6 vs plain {e6:.3e}{plan}  atol {atol:g} rtol {rtol:g}  "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"[decode] {label} outside tolerance")
     if q_dtype == torch.float16 and controls is not None:
         controls.append(_fp16_control(label, (out5, out6), (plain5, plain6), atol, rtol))
-    return e5, e6
+    if plan:
+        e5, e6 = max(e5, p5), max(e6, p6)
+    return {key5: e5, key6: e6}
+
+
+def _gather(errs: dict, got: dict) -> None:
+    for key, err in got.items():
+        errs.setdefault(key, []).append(err)
 
 
 def check_paged_permuted(label, gen, batch, hq, hkv, d, page_size, pps, store, q_dtype, lengths,
-                         controls=None) -> float:
+                         controls=None) -> dict:
     """K5 over a permuted page table with NaN in every page row past each
     sequence's length (payload, or the scales of a quantized cache), at
-    DECODE_TOL; for fp16 q, the control as in check_decode."""
+    DECODE_TOL; for fp16 q, the control as in check_decode.  Returns {launch
+    key: max error}."""
     n_pages = batch * pps + 5
     quant = store in QK.QUANT_DTYPES
     shape = (hkv, n_pages, page_size, d)
@@ -1193,9 +1269,13 @@ def check_paged_permuted(label, gen, batch, hq, hkv, d, page_size, pps, store, q
     for t_ in ((ks, vs) if quant else (kp, vp)):
         t_[:, past] = float("nan")
     q = _rand(gen, (batch, hq, d), q_dtype)
+    key = _decode_keys(q_dtype, d, hq // hkv)[0]
+    before = FA.KERNEL_LAUNCHES[key]
     with torch.no_grad():
         out = PA.paged_attention(q, kp, vp, lens, pi, k_scales=ks, v_scales=vs)
         plain = PA.paged_attention_ref(q, kp, vp, lens, pi, k_scales=ks, v_scales=vs)
+    if FA.KERNEL_LAUNCHES[key] != before + 1:
+        raise AssertionError(f"[decode] {label}: {key} not launched")
     torch.cuda.synchronize()
     if out.shape != q.shape or not torch.isfinite(out).all() or not torch.isfinite(plain).all():
         raise AssertionError(f"[decode] {label}: NaN past the length leaked")
@@ -1206,90 +1286,106 @@ def check_paged_permuted(label, gen, batch, hq, hkv, d, page_size, pps, store, q
         raise AssertionError(f"[decode] {label} outside tolerance")
     if q_dtype == torch.float16 and controls is not None:
         controls.append(_fp16_control(label, (out,), (plain,), atol, rtol))
-    return err
+    return {key: err}
 
 
 def phase_decode(seed: int) -> dict:
-    """Returns K5's and K6's worst errors against their plain versions."""
+    """Returns each decode kernel's worst error against its plain versions,
+    by launch key (K5 / K6 and the whole-group K5 / K6)."""
     gen = torch.Generator().manual_seed(seed + 6)
     bf16, f32, i8, f8 = torch.bfloat16, torch.float32, torch.int8, torch.float8_e4m3fn
     say("[decode] tolerance (atol + rtol |plain|): " + "; ".join(
         f"{str(dt).split('.')[-1]} q atol {a:g} rtol {r:g}" for dt, (a, r) in DECODE_TOL.items())
         + " (DECODE_TOL says why)")
     ragged = [0, 16, 299, 1022, 511, 63, 799, 127]  # cache lengths: the kernels read lengths + 1 tokens
-    k5, k6 = [], []
+    errs = {}
     for name, store, q_dtype in (("bf16", bf16, bf16), ("fp32", f32, f32), ("int8", i8, bf16), ("fp8", f8, bf16),
                                  ("int8 fp32 q", i8, f32)):
-        e5, e6 = check_decode(f"8 slots h12 D64 L1024 {name} cache", gen, 8, 12, 12, 64, 1024, store, q_dtype,
-                              ragged)
-        k5.append(e5)
-        k6.append(e6)
+        _gather(errs, check_decode(f"8 slots h12 D64 L1024 {name} cache", gen, 8, 12, 12, 64, 1024, store, q_dtype,
+                                   ragged))
     for name, store in (("int8", i8), ("bf16", bf16)):
-        e5, e6 = check_decode(f"gqa hq32 hkv8 D128 L1024 {name} cache", gen, 4, 32, 8, 128, 1024, store, bf16,
-                              [5, 1023, 200, 640])
-        k5.append(e5)
-        k6.append(e6)
+        _gather(errs, check_decode(f"gqa hq32 hkv8 D128 L1024 {name} cache", gen, 4, 32, 8, 128, 1024, store, bf16,
+                                   [5, 1023, 200, 640]))
     lens = [1, 17, 300, 1023, 512, 0, 800, 1024]
     for name, store, q_dtype in (("int8", i8, bf16), ("fp8", f8, bf16), ("bf16", bf16, bf16), ("fp32", f32, f32)):
-        k5.append(check_paged_permuted(f"paged permuted ps16 NaN past length {name}", gen, 8, 12, 12, 64, 16, 64,
-                                       store, q_dtype, lens))
+        _gather(errs, check_paged_permuted(f"paged permuted ps16 NaN past length {name}", gen, 8, 12, 12, 64, 16, 64,
+                                           store, q_dtype, lens))
     # The split's edges: cache lengths 0, chunk - 1, chunk, chunk + 1 (for
-    # K5's chunk and K6's) and capacity - 1, so that a sequence reads one
-    # token, exactly one or two whole splits, one token of a next split, or
-    # every split; most splits of the short ones are empty.  The last row is
-    # serving-mqa's layer (8 slots, 16 q heads on one KV head, max_len 2048).
+    # K5's chunk and K6's; for the whole-group kernel its chunk and its
+    # cluster's span of chunks) and capacity - 1, so that a sequence reads
+    # one token, exactly one or two whole splits, one token of a next split,
+    # or every split; most splits of the short ones are empty.  The last row
+    # is serving-mqa's layer (8 slots, 16 q heads on one KV head, max_len
+    # 2048).
     sms = PA._sm_count(0)
     for slots, hq, hkv, d, max_len in ((8, 12, 12, 64, 1024), (8, 32, 8, 128, 1024), (8, 16, 1, 128, 1024),
                                        (8, 16, 1, 128, 2048)):
         pairs = slots * hkv * PA.group_tiles(hq // hkv)[0]
         c5, n5 = PA.decode_split(max_len, pairs, 128, sms)
         c6, n6 = PA.decode_split(max_len, pairs, PA.DECODE_TILE, sms)
-        edges = [0, c5 - 1, c5, c5 + 1, c6 - 1, c6 + 1, 2 * c6, max_len - 1]
         for name, store, q_dtype in (("bf16", bf16, bf16), ("fp32", f32, f32), ("int8", i8, bf16), ("fp8", f8, bf16)):
-            e5, e6 = check_decode(f"split edges K5 {n5}x{c5} K6 {n6}x{c6} hq{hq} hkv{hkv} D{d} L{max_len} {name}", gen,
-                                  slots, hq, hkv, d, max_len, store, q_dtype, edges)
-            k5.append(e5)
-            k6.append(e6)
-        say(f"[decode] split edges hq{hq} hkv{hkv} D{d} L{max_len}: cache lengths {edges}")
-    # serving-mqa's layer with most slots past 1024 tokens, so that K6 has
-    # more than 16 of its splits live (and K5 more than 8 of its pages)
+            if PA.uses_group_kernel(q_dtype, d, hq // hkv):
+                cl, ch, walks = _group_split(q_dtype, store, hq // hkv, d, max_len, 128, slots * hkv, True)
+                span = cl * ch
+                edges = [0, ch - 1, ch, ch + 1, span - 1, span, span + 1, max_len - 1]
+                split = f"whole group {cl} blocks x {walks} chunks of {ch}"
+            else:
+                edges = [0, c5 - 1, c5, c5 + 1, c6 - 1, c6 + 1, 2 * c6, max_len - 1]
+                split = f"K5 {n5}x{c5} K6 {n6}x{c6}"
+            edges = [min(e, max_len - 1) for e in edges]
+            _gather(errs, check_decode(f"split edges {split} hq{hq} hkv{hkv} D{d} L{max_len} {name}", gen, slots, hq,
+                                       hkv, d, max_len, store, q_dtype, edges))
+            say(f"[decode] split edges hq{hq} hkv{hkv} D{d} L{max_len} {name}: cache lengths {edges}")
+    # serving-mqa's layer with most slots past 1024 tokens, so that every
+    # block of most clusters walks two chunks
     mqa_lens = [2047, 1919, 1500, 1100, 1025, 2000, 700, 0]
-    c5, n5 = PA.decode_split(2048, 8 * PA.group_tiles(16)[0], 128, sms)
-    c6, n6 = PA.decode_split(2048, 8 * PA.group_tiles(16)[0], PA.DECODE_TILE, sms)
     for name, store in (("bf16", bf16), ("int8", i8)):
-        e5, e6 = check_decode(f"serving-mqa layer L2048 K5 {n5}x{c5} K6 {n6}x{c6} {name} cache", gen, 8, 16, 1, 128,
-                              2048, store, bf16, mqa_lens)
-        k5.append(e5)
-        k6.append(e6)
-    say(f"[decode] serving-mqa layer (8 slots hq16 hkv1 D128 L2048): cache lengths {mqa_lens}, K6 splits live "
-        f"{[min(n6, (n + c6) // c6) for n in mqa_lens]} of {n6}")
+        _gather(errs, check_decode(f"serving-mqa layer L2048 {name} cache", gen, 8, 16, 1, 128, 2048, store, bf16,
+                                   mqa_lens))
+    say(f"[decode] serving-mqa layer (8 slots hq16 hkv1 D128 L2048): cache lengths {mqa_lens}")
     controls = []
-    e5, e6 = check_decode_configs(gen, controls)
+    for key, got in check_decode_configs(gen, controls).items():
+        errs.setdefault(key, []).extend(got)
     say(f"[decode] fp16 q control (each case's K5 / K6 outputs rounded to bf16): rejected by fp16's limit in "
         f"{sum(controls)} of {len(controls)} cases")
     if not all(controls):
         raise AssertionError("[decode] fp16 q's limit passes an output rounded to bf16")
-    return {"paged_decode": max(k5 + e5), "fused_decode": max(k6 + e6)}
+    return {key: max(got) for key, got in errs.items()}
 
 
-def check_decode_configs(gen, controls: list) -> tuple[list, list]:
+# The whole-group kernel at serving-mqa's own shape (8 slots of 2048, 16 q
+# heads on one KV head of 128) and Falcon-40B's layer (8 slots of 2048, GQA
+# 128/8 at D64): (label, q heads, KV heads, head dim, cache lengths).  The
+# lengths (the kernels read one more) are chosen against each split (both
+# printed): a sequence of one token or a few chunks leaves most blocks of
+# its cluster empty, one of just under cluster x chunk tokens keeps every
+# block live on one chunk, and longer ones have blocks walk several chunks.
+GROUP_SHAPES = (
+    ("serving-mqa shape hq16 hkv1 D128 L2048", 16, 1, 128, [0, 100, 128, 700, 1022, 1100, 1600, 2047]),
+    ("falcon-40b layer hq128 hkv8 D64 L2048", 128, 8, 64, [0, 100, 127, 128, 255, 700, 1500, 2047]),
+)
+
+
+def check_decode_configs(gen, controls: list) -> dict:
     """K5 and K6 at the configurations the JAX kernels take beyond D64/D128,
     bf16/fp32 q and groups of up to 8: every other head dim (8, 16 and 32,
     run at 32; 256; 384 and 512, run at 512; 640-1024, run at 1024) at
     groups 1 and 16 on bf16 and int8 caches; fp32 q at the narrow and wide
     widths (D1024's one-stage ring); fp16 q over fp16, int8 and fp8 caches
     at D64 and D128; GQA groups 12, 16, 48 (StarCoder) and 71 (Falcon-7B),
-    which run in group tiles of up to 8 q heads; K5 over a permuted page
-    table with NaN past the lengths at D16 and D512.  Each against its
-    plain version at DECODE_TOL, fp16 q's cases with their control."""
+    which at D64 / D128 with bf16 / fp16 q run the whole-group kernel, and
+    with fp32 q group tiles of up to 8 q heads; the whole-group kernel at
+    serving-mqa's shape and Falcon-40B's layer on bf16, fp16, int8 and fp8
+    caches (GROUP_SHAPES); K5 over a permuted page table with NaN past the
+    lengths at D16, D128 (group 16) and D512.  Each against its plain
+    version at DECODE_TOL, fp16 q's cases with their control.  Returns
+    {launch key: errors}."""
     bf16, f16, f32, i8, f8 = torch.bfloat16, torch.float16, torch.float32, torch.int8, torch.float8_e4m3fn
     ragged = [0, 16, 299, 1022, 511, 63, 799, 127]
-    k5, k6 = [], []
+    errs = {}
 
-    def one(label, slots, hq, hkv, d, store, q_dtype, lengths=ragged):
-        e5, e6 = check_decode(label, gen, slots, hq, hkv, d, 1024, store, q_dtype, lengths[:slots], controls)
-        k5.append(e5)
-        k6.append(e6)
+    def one(label, slots, hq, hkv, d, store, q_dtype, lengths=ragged, max_len=1024):
+        _gather(errs, check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths[:slots], controls))
 
     for d in (8, 16, 32, 256, 384, 512, 640, 768, 896, 1024):
         for name, store in (("bf16", bf16), ("int8", i8)):
@@ -1306,12 +1402,19 @@ def check_decode_configs(gen, controls: list) -> tuple[list, list]:
             one(f"group {hq // hkv} hq{hq} hkv{hkv} D{d} {name} cache", 8, hq, hkv, d, store, bf16)
         one(f"group {hq // hkv} hq{hq} hkv{hkv} D{d} fp16 cache fp16 q", 8, hq, hkv, d, f16, f16)
     one("group 71 hq71 hkv1 D64 fp32 cache fp32 q", 4, 71, 1, 64, f32, f32)
+    for label, hq, hkv, d, lengths in GROUP_SHAPES:
+        for name, store, q_dtype in (("bf16", bf16, bf16), ("fp16", f16, f16), ("int8", i8, bf16), ("fp8", f8, bf16)):
+            one(f"{label} {name} cache", 8, hq, hkv, d, store, q_dtype, lengths, max_len=2048)
+        cl, ch, walks = _group_split(bf16, bf16, hq // hkv, d, 2048, 128, 8 * hkv, True)
+        say(f"[decode] {label}: cache lengths {lengths}; split {cl} blocks a cluster x {walks} chunks of {ch} "
+            f"tokens; blocks of a cluster live: {[min(cl, -(-(n + 1) // ch)) for n in lengths]}; chunks the busiest "
+            f"block walks: {[-(-(-(-(n + 1) // ch)) // cl) for n in lengths]}")
     lens = [1, 17, 300, 1023, 512, 0, 800, 1024]
-    for d, hq, hkv in ((16, 16, 1), (512, 8, 2)):
+    for d, hq, hkv in ((16, 16, 1), (128, 16, 1), (512, 8, 2)):
         for name, store, q_dtype in (("int8", i8, bf16), ("fp16", f16, f16)):
-            k5.append(check_paged_permuted(f"paged permuted ps16 NaN past length D{d} hq{hq} hkv{hkv} {name}",
-                                           gen, 8, hq, hkv, d, 16, 64, store, q_dtype, lens, controls))
-    return k5, k6
+            _gather(errs, check_paged_permuted(f"paged permuted ps16 NaN past length D{d} hq{hq} hkv{hkv} {name}",
+                                               gen, 8, hq, hkv, d, 16, 64, store, q_dtype, lens, controls))
+    return errs
 
 
 def _reset_launches() -> None:
@@ -1818,11 +1921,12 @@ def phase_serving_mqa(seed: int, smi: str) -> dict:
     heads on one KV head of 128, vocab 49280), bf16 weights drawn on the
     card from the seed, behind the engine (8 slots, max_len 2048): the
     burst on a bf16 cache through einsum, through K5 on a bf16 cache and
-    through K6 on an int8 cache (a group of 16: two group tiles a KV head),
-    exact budgets, K5 / K6 launched n_layer x decode steps; then the fp32
-    check at SantaCoder's widths with 2 of its 24 layers, in the burst's 8
-    slots of 2048 with most prompts past 1024 tokens (K6's 32 splits a
-    group tile, most of them live).  Returns K5's and K6's launches."""
+    through K6 on an int8 cache (a group of 16 with bf16 q: the whole-group
+    kernel), exact budgets, K5 / K6 launched n_layer x decode steps; then the
+    fp32 check at SantaCoder's widths with 2 of its 24 layers, in the
+    burst's 8 slots of 2048 with most prompts past 1024 tokens (fp32 q: the
+    group tiles, K6's 32 splits a tile, most of them live).  Returns the
+    whole-group K5's and K6's launches."""
     tag = "serving-mqa"
     t0 = time.perf_counter()
     model = GPT(GPTConfig(**SANTACODER), generator=torch.Generator("cuda").manual_seed(seed), device="cuda")
@@ -1833,8 +1937,8 @@ def phase_serving_mqa(seed: int, smi: str) -> dict:
         f"parameters drawn on the card (seed {seed}) in {time.perf_counter() - t0:.1f} s")
     base = _burst(seed, tag, model, max_len=2048)
     say(f"[{tag}] bf16 cache, einsum: {_rates(base)}, decode steps {base['steps']}")
-    launches, _ = _decode_bursts(seed, tag, model, base, smi, (("bf16", None, "paged", "paged_decode"),
-                                                               ("int8", torch.int8, "fused", "fused_decode")),
+    launches, _ = _decode_bursts(seed, tag, model, base, smi, (("bf16", None, "paged", "paged_decode_group"),
+                                                               ("int8", torch.int8, "fused", "fused_decode_group")),
                                  max_len=2048, base_label="bf16 cache, einsum")
     del model
     fp32 = GPT(GPTConfig(**{**SANTACODER, "n_layer": 2, "dtype": torch.float32}),
@@ -2121,19 +2225,31 @@ def phase_timing_quant(seed: int, smi: str) -> dict:
     one_tile = time_decode(gen, smi, ONE_TILE_SHAPE, "int8")
     hot, hot16 = rows[GPT2_HOT_SHAPE[0], "int8"], rows[GPT2_HOT_SHAPE[0], "bf16"]
     cold = rows[GPT2_COLD_SHAPE[0], "int8"]
+
+    def add_rows(entry: dict, key: str, names) -> None:
+        for name in names:
+            shape = NEW_DECODE_SHAPES[name]
+            for store in shape[-1]:
+                row = rows[shape[0], store]
+                tag = name if store == "int8" else f"{name}_{store.replace(' ', '_')}"
+                entry.update({f"{tag}_ms": row[key], f"{tag}_plain_ms": row[f"{key} plain"],
+                              f"{tag}_bound_ms": row["bound"], f"{tag}_library_ms": row.get("SDPA")})
+
     for kernel, key in (("paged_decode", "K5"), ("fused_decode", "K6")):
         result[kernel] = dict(
             ms=hot[key], plain_ms=hot[f"{key} plain"], bound_ms=hot["bound"], bound_by=hot["by"], library_ms=None,
             bf16_ms=hot16[key], bf16_plain_ms=hot16[f"{key} plain"], bf16_bound_ms=hot16["bound"],
             bf16_library_ms=hot16["SDPA"], l2_cold_ms=cold[key], l2_cold_bound_ms=cold["bound"],
         )
-        for name, shape in NEW_DECODE_SHAPES.items():
-            for store in shape[-1]:
-                row = rows[shape[0], store]
-                tag = name if store == "int8" else f"{name}_{store.replace(' ', '_')}"
-                result[kernel].update({f"{tag}_ms": row[key], f"{tag}_plain_ms": row[f"{key} plain"],
-                                       f"{tag}_bound_ms": row["bound"], f"{tag}_library_ms": row.get("SDPA")})
+        add_rows(result[kernel], key, [name for name in NEW_DECODE_SHAPES if name not in GROUP_TIMED])
         result[kernel]["santacoder_one_tile_ms"] = one_tile[key]
+    # the whole-group kernel: SantaCoder's layer on the bf16 cache, SDPA beside
+    # it, then its int8 rows and Falcon-40B's
+    santa16 = rows[NEW_DECODE_SHAPES["santacoder"][0], "bf16"]
+    for kernel, key in (("paged_decode_group", "K5"), ("fused_decode_group", "K6")):
+        result[kernel] = dict(ms=santa16[key], plain_ms=santa16[f"{key} plain"], bound_ms=santa16["bound"],
+                              bound_by=santa16["by"], library_ms=santa16["SDPA"])
+        add_rows(result[kernel], key, GROUP_TIMED)
     return result
 
 
@@ -2173,6 +2289,9 @@ DECODE_SHAPES = (
     ("h12 D64 32 slots 3 layers L2-cold", 3, 32, 12, 12, 64, 1024, (960, 1024), ("int8", "bf16")),
     ("llama hq32 hkv8 D128 16 slots 2 layers L2-cold", 2, 16, 32, 8, 128, 4096, (3800, 4096), ("int8",)),
 ) + tuple(NEW_DECODE_SHAPES.values())
+# the NEW_DECODE_SHAPES that run the whole-group kernel (a group above 8, bf16
+# or fp16 q, D64 / D128)
+GROUP_TIMED = ("santacoder", "falcon40b")
 # SantaCoder's layer with 8 q heads (one group tile) in place of 16 (two)
 _SANTA = NEW_DECODE_SHAPES["santacoder"]
 ONE_TILE_SHAPE = ("santacoder layer, hq8 hkv1 (one group tile)",) + _SANTA[1:3] + (8,) + _SANTA[4:]
@@ -3975,7 +4094,9 @@ def main() -> None:
     )
     times["fused_decode"]["serving_wquant_launches"] = wquant_k6
     for kernel in ("paged_decode", "fused_decode"):
-        times[kernel].update(serving_mqa_launches=mqa_launches[kernel], serving_fp16_launches=fp16_launches[kernel])
+        times[kernel]["serving_fp16_launches"] = fp16_launches[kernel]
+    # the whole-group kernel's launches are serving-mqa's: n_layer x decode steps
+    launches.update(mqa_launches)
     measured = phase_measure(args.seed, smi)
     phase_memory(smi)
     tiles, tile_err, autotune_k1, tiles_sdpa = phase_autotune(args.seed, smi, data)

@@ -1,10 +1,13 @@
-// The plain C entry points of K5 (fa_paged_decode) and K6
-// (fa_fused_decode), loaded through ctypes
-// (flash_attention_tpu_torch/kernels/_build.py).  The kernel template and
-// its design are in decode.cuh; its instantiations are built by the
-// decode_*.cu sources, one nvcc each, and declared extern here.
+// The plain C entry points of K5 (fa_paged_decode, fa_paged_decode_group)
+// and K6 (fa_fused_decode, fa_fused_decode_group), loaded through ctypes
+// (flash_attention_tpu_torch/kernels/_build.py).  The group-tile kernel
+// template and its design are in decode.cuh, the whole-group kernel's (GQA
+// groups above 8 with bf16 / fp16 q at head dims 64 and 128) in
+// decode_group.cuh; their instantiations are built by the decode_*.cu
+// sources, one nvcc each, and declared extern here.
 
 #include "decode.cuh"
+#include "decode_group.cuh"
 
 namespace fa {
 namespace decode {
@@ -13,6 +16,10 @@ namespace decode {
   extern template cudaError_t launch_width<T, D>(const DecodeParams&, int, bool, dim3, cudaStream_t);
 FA_DECODE_WIDTHS(FA_DECODE_EXTERN)
 #undef FA_DECODE_EXTERN
+#define FA_GROUP_EXTERN(T, KV, D, P) \
+  extern template cudaError_t group_launch_rows<T, KV, D, P>(const GroupParams&, int, dim3, cudaStream_t, int*);
+FA_GROUP_ALL(FA_GROUP_EXTERN)
+#undef FA_GROUP_EXTERN
 
 namespace {
 
@@ -60,12 +67,56 @@ int launch_decode(DecodeParams& p, int q_dtype, int kv_dtype, int batch, int hq,
   return (int)cudaErrorInvalidValue;
 }
 
+cudaError_t group_dispatch(const GroupParams& p, int q_dtype, int kv_dtype, int head_dim, bool paged, int cluster,
+                           dim3 grid, cudaStream_t s, int* resident) {
+  if (q_dtype == 1) {
+    return head_dim == 64 ? group_launch_width<__nv_bfloat16, 64>(p, kv_dtype, paged, cluster, grid, s, resident)
+                          : group_launch_width<__nv_bfloat16, 128>(p, kv_dtype, paged, cluster, grid, s, resident);
+  }
+  return head_dim == 64 ? group_launch_width<__half, 64>(p, kv_dtype, paged, cluster, grid, s, resident)
+                        : group_launch_width<__half, 128>(p, kv_dtype, paged, cluster, grid, s, resident);
+}
+
+// The whole-group kernel: passes x pass_rows q heads cover the group (every
+// pass live, pass_rows a multiple of 16 up to 128), a cluster of `cluster`
+// blocks per (sequence, KV head, pass), each walking `walks` chunks of
+// `chunk` tokens.
+template <bool kPaged>
+int launch_group(GroupParams& p, int q_dtype, int kv_dtype, int batch, int hq, int hkv, int passes,
+                 int pass_rows, int head_dim, int cluster, const long long* st, cudaStream_t s) {
+  if (batch <= 0 || batch > 65535 || hkv <= 0 || hq <= 0 || hq % hkv != 0 || (head_dim != 64 && head_dim != 128) ||
+      (q_dtype != 1 && q_dtype != 2) || kv_dtype < 0 || kv_dtype > 2 || pass_rows < 16 || pass_rows % 16 != 0 ||
+      pass_rows > kGMaxRows || passes < 1 || (long long)hkv * passes > 65535 ||
+      (long long)passes * pass_rows < hq / hkv || (long long)(passes - 1) * pass_rows >= hq / hkv ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8 && cluster != 16) || p.page_size <= 0 ||
+      p.pages_per_seq <= 0 || p.chunk <= 0 || p.walks <= 0 ||
+      (kv_dtype != 0) != (p.ks != nullptr && p.vs != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int capacity = kPaged ? p.page_size * p.pages_per_seq : p.page_size;
+  if ((long long)cluster * p.chunk * p.walks < capacity ||
+      (kPaged && (p.chunk % p.page_size != 0 || (long long)p.walks * (p.chunk / p.page_size) > kGMaxPages)))
+    return (int)cudaErrorInvalidValue;
+  p.q_sb = st[0]; p.q_sh = st[1];
+  p.o_sb = st[2]; p.o_sh = st[3];
+  p.k_sh = st[4]; p.k_sp = st[5]; p.k_sr = st[6];
+  p.v_sh = st[7]; p.v_sp = st[8]; p.v_sr = st[9];
+  p.s_sh = st[10]; p.s_sp = st[11];
+  p.group = hq / hkv;
+  p.passes = passes;
+  p.pass_rows = pass_rows;
+  const dim3 grid(cluster, hkv * passes, batch);
+  return (int)group_dispatch(p, q_dtype, kv_dtype, head_dim, kPaged, cluster, grid, s, nullptr);
+}
+
 }  // namespace
 }  // namespace decode
 }  // namespace fa
 
 using fa::decode::DecodeParams;
+using fa::decode::GroupParams;
 using fa::decode::launch_decode;
+using fa::decode::group_dispatch;
+using fa::decode::launch_group;
 
 // Common arguments.  q_dtype: 0 = float32, 1 = bfloat16, 2 = float16.
 // kv_dtype: 0 = the payload is q's dtype (no scales), 1 = int8, 2 =
@@ -145,4 +196,86 @@ extern "C" int fa_fused_decode(const void* q, const void* k, const void* v, cons
   p.score_scale = 1.f;
   return launch_decode<false>(p, q_dtype, kv_dtype, slots, hq, hkv, group_tiles, group_rows, head_dim, strides,
                               static_cast<cudaStream_t>(stream));
+}
+
+// The whole-group kernels (decode_group.cuh): a GQA group above 8 with bf16
+// (q_dtype 1) or fp16 (2) q at head_dim 64 or 128.  Arguments as above, but
+// no workspace or counters: the group runs in `passes` passes of
+// `pass_rows` q heads (a multiple of 16, at most 128; every pass live), a
+// cluster of `cluster` blocks (1, 2, 4, 8 or 16) per (sequence, KV head,
+// pass), block c of a cluster walking chunks c, c + cluster, ... of `chunk`
+// tokens, `walks` of them; cluster * chunk * walks >= the capacity; for K5
+// the chunk is whole pages and walks * pages of a chunk <= 2048.
+
+// K5 over a GQA group above 8.
+extern "C" int fa_paged_decode_group(const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
+                                     const void* v_scales, const void* lengths, const void* page_indices, void* out,
+                                     int q_dtype, int kv_dtype, int batch, int hq, int hkv, int passes,
+                                     int pass_rows, int head_dim, int page_size, int pages_per_seq, int len_add,
+                                     int cluster, int chunk, int walks, const long long* strides, float sm_scale,
+                                     void* stream) {
+  GroupParams p{};
+  p.q = q;
+  p.k = k_pages;
+  p.v = v_pages;
+  p.ks = static_cast<const float*>(k_scales);
+  p.vs = static_cast<const float*>(v_scales);
+  p.lengths = static_cast<const int*>(lengths);
+  p.table = static_cast<const int*>(page_indices);
+  p.o = out;
+  p.page_size = page_size;
+  p.pages_per_seq = pages_per_seq;
+  p.len_add = len_add;
+  p.chunk = chunk;
+  p.walks = walks;
+  p.q_scale = 1.f;
+  p.score_scale = sm_scale;
+  if (page_indices == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_group<true>(p, q_dtype, kv_dtype, batch, hq, hkv, passes, pass_rows, head_dim, cluster, strides,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// K6 over a GQA group above 8: one layer of the slot-major cache, lengths
+// exclude the current token.
+extern "C" int fa_fused_decode_group(const void* q, const void* k, const void* v, const void* k_scales,
+                                     const void* v_scales, const void* lengths, void* out, int q_dtype,
+                                     int kv_dtype, int slots, int hq, int hkv, int passes, int pass_rows,
+                                     int head_dim, int max_len, int cluster, int chunk, int walks,
+                                     const long long* strides, float sm_scale, void* stream) {
+  GroupParams p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.ks = static_cast<const float*>(k_scales);
+  p.vs = static_cast<const float*>(v_scales);
+  p.lengths = static_cast<const int*>(lengths);
+  p.table = nullptr;
+  p.o = out;
+  p.page_size = max_len;
+  p.pages_per_seq = 1;
+  p.len_add = 1;
+  p.chunk = chunk;
+  p.walks = walks;
+  p.q_scale = sm_scale;
+  p.score_scale = 1.f;
+  return launch_group<false>(p, q_dtype, kv_dtype, slots, hq, hkv, passes, pass_rows, head_dim, cluster, strides,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of `cluster` blocks of the whole-group kernel for (q
+// dtype, payload, head_dim, pass_rows, K5 or K6) the card holds at once
+// (cudaOccupancyMaxActiveClusters); the host's split keeps a step's
+// clusters within it.  Returns the count, or minus a cudaError_t.
+extern "C" int fa_decode_group_resident(int q_dtype, int kv_dtype, int head_dim, int pass_rows, int paged,
+                                        int cluster) {
+  if ((head_dim != 64 && head_dim != 128) || (q_dtype != 1 && q_dtype != 2) || kv_dtype < 0 || kv_dtype > 2 ||
+      pass_rows < 16 || pass_rows % 16 != 0 || pass_rows > fa::decode::kGMaxRows ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8 && cluster != 16))
+    return -(int)cudaErrorInvalidValue;
+  GroupParams p{};
+  p.pass_rows = pass_rows;
+  int resident = 0;
+  const cudaError_t e =
+      group_dispatch(p, q_dtype, kv_dtype, head_dim, paged != 0, cluster, dim3(cluster), nullptr, &resident);
+  return e != cudaSuccess ? -(int)e : resident;
 }

@@ -1,0 +1,752 @@
+// One-token decode attention for a GQA group of more than 8 q heads
+// (multi-query attention) with bf16 or fp16 q at head dims 64 and 128:
+// K5 (paged, fa_paged_decode_group) and K6 (slot-major, fa_fused_decode_group),
+// two instantiations of one kernel template.  This header holds the
+// template; decode.cu holds the C entry points, and the instantiations are
+// split by q dtype, head dim and entry point over the 8 sources
+// decode_group_<bf16|fp16>_d<64|128>_<k5|k6>.cu.
+//
+// Replaces, for those configurations: flash_attention_tpu/inference/
+// paged_attention.py::_paged_kernel (K5) and flash_attention_tpu/inference/
+// decode_attention.py::_fused_kernel (K6).  Every other configuration (groups
+// of up to 8, fp32 q, head dims 8-32 and 256-1024) runs decode.cuh's group
+// tiles.  The function and its rounding points are decode.cuh's: S = q K^T in
+// fp32 (K5: * sm_scale; K6: q pre-scaled by sm_scale and rounded to q's
+// dtype), times the token's k_scale; natural exp and an online softmax in
+// fp32; p * v_scale rounded to q's dtype before P V; an int8 / fp8 payload
+// read exactly in q's dtype; one final division with the l == 0 guard.  Only
+// the order of summation differs from the plain versions.
+//
+// What bounds it on this card: bytes, and at few (sequence, KV head) pairs
+// latency.  A decode step reads each live token's K and V rows once;
+// SantaCoder's layer (8 slots, 16 q heads on one KV head of 128, ~2000
+// tokens) is 8.2 MB of bf16 cache, 2.4 us at 3.35 TB/s, and holds only 8
+// pairs.  decode.cuh's group tiles read a group of 16 twice (a block per 8 q
+// heads), cut each tile's sequence into 16-32 splits of 64-128 tokens and
+// merge them serially in the last block to arrive.  A step here is a chain
+// of latencies (the launch, q, a DRAM round trip, per stage ldmatrix -> mma
+// -> shuffles -> exp -> mma and three barriers, then the cluster's merge)
+// with an SM holding one or two blocks.  What the design does about it:
+//   * the whole group in one block: ceil(group / 16) m16 row tiles of q heads
+//     (up to 8; a larger group runs in passes of at most 128 q heads, a
+//     cluster each), every K / V tile staged once into shared memory with
+//     `cp.async` and read from there by every row tile;
+//   * S = q K^T and O += P V on mma.sync m16n8k16 with fp32 accumulators.
+//     q's rows are staged once through shared memory (one 16-byte load a
+//     thread, all in flight at once), and its A fragments stay in registers.
+//     K is read as S's B operand as it is stored (row-major by token)
+//     through ldmatrix, V as P V's B operand through ldmatrix.trans;
+//   * the 8 warps of a block split each row tile's 128-token stage two ways,
+//     in one fixed order: for S by 16-token sub-tiles, for P V by output
+//     columns (kRW row-tile groups of 8 / kRW warps, a column slice each).
+//     The sub-tiles' row maxima meet in shared memory (a barrier), every
+//     warp of the row tile takes the same stage maximum, writes its P in T
+//     to the row tile's P tile with its row sums (a barrier), and multiplies
+//     P by its V columns.  So all warps of a row tile share one softmax state
+//     and the block needs no merge of its warps' states; S's k-steps run as
+//     two accumulator chains, and so does P V where a slice has few n-tiles;
+//   * an int8 / fp8 payload is read exactly in q's dtype: K straight from its
+//     bytes into S's B fragments (4 consecutive columns a lane, q's columns
+//     in the same order), V widened by each warp, for its share of the
+//     stage's tokens and its column slice, into a 16-bit tile; so the ring's
+//     slot is free as soon as S is done;
+//   * enough blocks: the blocks of one (sequence, KV head, pass) form one
+//     thread-block cluster of `cluster` blocks, the most up to 8 whose
+//     clusters the card holds all at once (`paged_attention.decode_group_split`
+//     reads cudaOccupancyMaxActiveClusters through fa_decode_group_resident:
+//     a cluster left for a second wave doubles the step).  The capacity is
+//     cut into chunks of one 128-token stage (whole pages for K5), never by
+//     the lengths; block c of a cluster walks chunks c, c + cluster, ...
+//     through one ring of 2-4 stages, all in flight, with one online state;
+//   * a parallel merge in the cluster: each block's state (m, l, acc) is in
+//     its own shared memory; after a cluster barrier each block weighs the
+//     group's rows once (C lanes a row, shuffles), then merges its slice of
+//     the rows x columns, 4 columns a thread, reading its peers' states over
+//     distributed shared memory in rank order, and writes the output.  No
+//     global workspace, no arrival counter, no serial last block: a block
+//     with no live token publishes m = -inf, l = 0 and stays for both cluster
+//     barriers (a block must not leave while a peer reads it).
+
+// The kernel allocates nothing and launches on the caller's stream; the C
+// entry points return the launch's cudaError_t.
+#pragma once
+
+#include "decode.cuh"
+#include "sm90.cuh"
+
+namespace fa {
+namespace decode {
+
+constexpr int kGWarps = 8;                // warps of a block
+constexpr int kGThreads = kGWarps * 32;
+constexpr int kGMaxPages = 1024;          // page ids a block stages (K5; the host keeps to it)
+constexpr int kGMaxCluster = 16;          // blocks of a cluster (above 8 non-portable)
+constexpr int kGMaxRows = kGWarps * 16;   // q heads of a pass: a row tile of 16 a warp
+
+struct GroupParams {
+  const void* q;         // [batch, hq, d], last dim contiguous
+  const void* k;         // payload: paged [hkv, pages, page_size, d] or slot-major [hkv, slots, max_len, d]
+  const void* v;
+  const float* ks;       // scales [hkv, pages or slots, rows]; null unless quantized
+  const float* vs;
+  const int* lengths;    // [batch]
+  const int* table;      // [batch, pages_per_seq] (K5) or null (K6)
+  void* o;               // [batch, hq, d], rows 8-byte aligned (q's 16-byte aligned)
+  long long q_sb, q_sh, o_sb, o_sh;
+  long long k_sh, k_sp, k_sr, v_sh, v_sp, v_sr, s_sh, s_sp;
+  int group, passes, pass_rows;  // q heads a KV head, passes of the group, q heads a pass (a multiple of 16)
+  int page_size, pages_per_seq, len_add;
+  int chunk, walks;      // tokens of a chunk; chunks a block walks
+  float q_scale, score_scale;
+};
+
+// Shared memory of a block, for kRW row-tile groups (below).  While
+// streaming: the ring (K and V payload tiles of kTok tokens, kStages of
+// them: as many as fit 96 KB, 2 to 4), for an 8-bit payload its scales and
+// the 16-bit tile its V is widened into; then each row tile's P [16][kTok]
+// in T and the sub-tiles' row maxima and sums.  While merging, over the
+// ring: the block's state (acc [row][D], m, l), which the cluster's peers
+// read, and the cluster's weights.  After both, the block's page ids.  16-bit
+// tiles store a row's 16-byte chunk c at c ^ (row & 7), so that ldmatrix's
+// 8 rows fall in distinct banks; 8-bit rows likewise (`swizzle`).
+template <typename KV, int D, int kRW>
+struct GroupLayout {
+  static constexpr bool kQuant = sizeof(KV) == 1;
+  static constexpr int kTok = 128;                                 // tokens of a stage of the block's ring
+  static constexpr int kSub = kTok / 16;                           // 16-token sub-tiles of a stage
+  static constexpr int kRow = D * (int)sizeof(KV);                 // payload bytes of a token's row
+  static constexpr int kStage = kTok * kRow;                      // a stage's K (or V) tile
+  static constexpr int kFit = 96 * 1024 / (2 * kStage);
+  static constexpr int kStages = kFit < 2 ? 2 : (kFit > 4 ? 4 : kFit);
+  static constexpr int kRing = 2 * kStages * kStage;
+  static constexpr int kScales = kRing;                            // [stage][2][kTok] fp32
+  static constexpr int kCvt = kScales + (kQuant ? kStages * 2 * kTok * 4 : 0);  // 16-bit V [kTok][D]
+  static constexpr int kCvtScales = kCvt + (kQuant ? kTok * D * 2 : 0);          // [2][kTok] fp32
+  static constexpr int kP = kCvtScales + (kQuant ? 2 * kTok * 4 : 0);            // [kRW][16][kTok] T (q first)
+  static constexpr int kMax = kP + kRW * 16 * kTok * 2;           // [kRW][kSub][16] fp32
+  static constexpr int kSum = kMax + kRW * kSub * 16 * 4;         // [kRW][kSub][16] fp32
+  static constexpr int kTable = kSum + kRW * kSub * 16 * 4;
+  static constexpr int kBytes = kTable + kGMaxPages * 4;
+  static constexpr int kRows = kRW * 16;
+  static constexpr int kStateM = kRows * D * 4;                    // over the ring: acc, m, l
+  static constexpr int kStateL = kStateM + kRows * 4;
+  static constexpr int kWeights = kStateL + kRows * 4;             // [row][block]
+  static constexpr int kSums = kWeights + kRows * kGMaxCluster * 4;  // [row]
+  static_assert(kSums + kRows * 4 <= kRing, "the merge's state fits over the ring");
+  static_assert(D <= kTok, "q's rows fit over the P tiles");
+  static_assert(kBytes <= 227 * 1024, "shared memory of a block");
+};
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Four 8x8 16-bit matrices from shared memory: lanes 8i .. 8i + 7 give the
+// row addresses of matrix i; .trans transposes each.
+template <bool kTrans>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  if constexpr (kTrans) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+  }
+}
+
+// 4 payload bytes (elements e0..e3) as two pairs of T, exactly: int8 into
+// fp16 through the half 1024 + (x + 128), built by a byte permute, minus
+// 1152 (two elements an instruction); otherwise decode.cuh's a_frag.
+template <typename T, typename KV>
+__device__ __forceinline__ void widen4(const unsigned char* s, uint32_t& lo, uint32_t& hi) {
+  if constexpr (std::is_same<KV, int8_t>::value && std::is_same<T, __half>::value) {
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(s) ^ 0x80808080u;  // x + 128, a byte each
+    const uint32_t biased[2] = {__byte_perm(u, 0x64646464u, 0x5140), __byte_perm(u, 0x64646464u, 0x7362)};
+    const __half2 magic = __floats2half2_rn(1152.f, 1152.f);
+    const __half2 x01 = __hsub2(*reinterpret_cast<const __half2*>(&biased[0]), magic);
+    const __half2 x23 = __hsub2(*reinterpret_cast<const __half2*>(&biased[1]), magic);
+    lo = *reinterpret_cast<const uint32_t*>(&x01);
+    hi = *reinterpret_cast<const uint32_t*>(&x23);
+  } else {
+    a_frag<T, KV>(s, lo, hi);
+  }
+}
+
+// The 16-byte chunk that chunk 0 of row r of a tile with kRow-byte rows is
+// stored at, XOR'd with each chunk index: 8 consecutive rows' chunk c land in
+// distinct banks for ldmatrix (rows of 128 bytes or more) and for the 4-byte
+// reads of 8 rows of 64 bytes.
+template <int kRow>
+__device__ __forceinline__ int swizzle(int r) {
+  return kRow >= 128 ? (r & 7) : ((r >> 1) & 3);
+}
+
+template <typename T, typename KV, int D, int kRW, bool kPaged>
+__global__ void __launch_bounds__(kGThreads) group_kernel(const GroupParams p) {
+  using L = GroupLayout<KV, D, kRW>;
+  constexpr bool kQuant = L::kQuant;
+  constexpr int S = L::kStages;
+  constexpr int kTok = L::kTok;                  // tokens of a stage
+  constexpr int kSub = L::kSub;                  // its 16-token sub-tiles, a warp's unit of work
+  constexpr int kCS = kGWarps / kRW;             // warps of a row tile, each a column slice
+  constexpr int kW = D / kCS;                    // columns of a slice
+  constexpr int kU = kSub / kCS;                // sub-tiles whose S a warp computes
+  constexpr int kSliceNt = kW / 8;               // n-tiles of a slice
+  constexpr int kChains = kSliceNt < 4 ? 2 : 1;  // P V's accumulator chains: even and odd k-steps when few n-tiles
+  constexpr int kChunks = L::kRow / 16;          // 16-byte copies of a payload row
+  constexpr int kRowStep = kGThreads / kChunks;  // rows between a thread's copies
+  constexpr int kKs = D / 16;                    // k-steps of S
+  constexpr int kD4 = D / 4;                     // float4 columns of a state row
+  static_assert(D == 64 || D == 128, "head dims 64 and 128");
+  static_assert(sizeof(KV) == 1 || std::is_same<KV, T>::value, "a 16-bit payload is q's dtype");
+  static_assert(kKs % 2 == 0 && kRowStep % 8 == 0 && kTok % kRowStep == 0 && kW >= 8, "tiling");
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int C = (int)cluster_size();
+  const int rank = (int)sm90::cluster_rank();
+  const int hk = blockIdx.y / p.passes, pass = blockIdx.y % p.passes, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g0 = pass * p.pass_rows;
+  const int G = min(p.pass_rows, p.group - g0);  // q rows of this block, at most 16 kRW (the host keeps to it)
+  const int rt = warp / kCS, slice = warp % kCS;  // this warp's row tile and column slice
+  const bool rows_live = rt * 16 < G;
+  const int len = p.lengths[b];
+
+  // q's rows of the pass into shared memory (over the P tiles, which the
+  // stages write later), one 16-byte load a thread, scaled by q_scale and
+  // rounded to T (K6's pre-scaling; K5 passes 1), rows past the group zero;
+  // read beside the length, before anything waits on it.  Then each warp's
+  // A fragments of its row tile by ldmatrix (matrix i: rows 8 (i % 2) ..,
+  // columns 16 ks + 8 (i / 2) ..), kept in registers for the whole chunk.
+  const T* gq = static_cast<const T*>(p.q) + b * p.q_sb + ((long long)hk * p.group + g0) * p.q_sh;
+  unsigned char* sQ = smem + L::kP;
+  for (int i = tid; i < kRW * 16 * (D / 8); i += kGThreads) {
+    const int g = i / (D / 8), c = i % (D / 8);
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (g < G) {
+      w = *reinterpret_cast<const uint4*>(gq + g * p.q_sh + c * 8);
+      if (p.q_scale != 1.f) {
+        uint32_t* h = &w.x;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const T* x = reinterpret_cast<const T*>(h + e);
+          h[e] = Pack<T>::two(to_float(x[0]) * p.q_scale, to_float(x[1]) * p.q_scale);
+        }
+      }
+    }
+    *reinterpret_cast<uint4*>(sQ + g * D * 2 + ((c ^ (g & 7)) * 16)) = w;
+  }
+  __syncthreads();
+  const int qr = lane / 4, qc = 2 * (lane % 4);
+  const int mat = lane / 8, mrow = lane % 8;  // ldmatrix: lane l gives row l % 8 of matrix l / 8
+  uint32_t qa[kKs][4];
+  if constexpr (kQuant) {
+    // An 8-bit K is read as S's B operand straight from its bytes, 4
+    // consecutive columns a lane (below): the mma's k indices 2c, 2c + 1,
+    // 2c + 8, 2c + 9 of k-step ks are taken as the columns 16 ks + 4c ... + 3
+    // (a sum over the columns does not depend on their order), and q's A
+    // fragments follow the same order.
+    auto q_pair = [&](int row, int col) {
+      return *reinterpret_cast<const uint32_t*>(sQ + row * D * 2 + (((col / 8) ^ (row & 7)) * 16) + (col % 8) * 2);
+    };
+    const int c = lane % 4;
+#pragma unroll
+    for (int ks = 0; ks < kKs; ++ks) {
+      const int col = ks * 16 + 4 * c;
+      qa[ks][0] = q_pair(rt * 16 + qr, col);
+      qa[ks][1] = q_pair(rt * 16 + qr + 8, col);
+      qa[ks][2] = q_pair(rt * 16 + qr, col + 2);
+      qa[ks][3] = q_pair(rt * 16 + qr + 8, col + 2);
+    }
+  } else {
+    const int row = rt * 16 + (mat % 2) * 8 + mrow;
+    const uint32_t q_base = smem_u32(sQ) + row * D * 2;
+#pragma unroll
+    for (int ks = 0; ks < kKs; ++ks) ldsm_x4<false>(qa[ks], q_base + (((2 * ks + mat / 2) ^ (row & 7)) * 16));
+  }
+
+  const int capacity = kPaged ? p.page_size * p.pages_per_seq : p.page_size;
+  const int ppc = kPaged ? p.chunk / p.page_size : 1;  // pages of a chunk
+  int* sTable = reinterpret_cast<int*>(smem + L::kTable);
+  if constexpr (kPaged) {
+    // The page ids of the block's chunks, read beside the length (not after
+    // it): entries past the length are read but never used.
+    for (int i = tid; i < p.walks * ppc; i += kGThreads) {
+      const int page = (rank + (i / ppc) * C) * ppc + i % ppc;
+      sTable[i] = page < p.pages_per_seq ? p.table[(long long)b * p.pages_per_seq + page] : 0;
+    }
+  }
+  const int n = min(max(len + p.len_add, 1), capacity);
+  const int live_chunks = (n + p.chunk - 1) / p.chunk;
+  const int mywalks = live_chunks > rank ? min((live_chunks - rank + C - 1) / C, p.walks) : 0;
+  const int spc = (p.chunk + kTok - 1) / kTok;  // stages of a chunk
+  int nstages = 0;
+  if (mywalks > 0) {  // full chunks, then the last live one
+    const int last = rank + (mywalks - 1) * C;
+    nstages = (mywalks - 1) * spc + (min(p.chunk, n - last * p.chunk) + kTok - 1) / kTok;
+  }
+  if constexpr (kPaged) __syncthreads();
+
+  // Stage j: chunk rank + (j / spc) * C, its tokens [t0, tend).
+  auto stage_range = [&](int j, int& t0, int& tend, int& walk, int& c0) {
+    walk = j / spc;
+    c0 = (rank + walk * C) * p.chunk;
+    t0 = c0 + (j % spc) * kTok;
+    tend = min(min(t0 + kTok, c0 + p.chunk), n);
+  };
+
+  unsigned char* ring = smem;
+  float* sScale = reinterpret_cast<float*>(smem + L::kScales);
+  const unsigned char* gk = static_cast<const unsigned char*>(p.k) + hk * p.k_sh * (long long)sizeof(KV);
+  const unsigned char* gv = static_cast<const unsigned char*>(p.v) + hk * p.v_sh * (long long)sizeof(KV);
+  const float* gks = kQuant ? p.ks + hk * p.s_sh : nullptr;
+  const float* gvs = kQuant ? p.vs + hk * p.s_sh : nullptr;
+  // With pages of a multiple of kTok tokens (or no pages) a stage lies in
+  // one page, found once a stage.
+  const bool one_page = !kPaged || p.page_size % kTok == 0;
+  // A thread copies the 16-byte chunk cc of rows r0, r0 + kRowStep, ...:
+  // (row & 7) is r0's, so the chunk's swizzled place is fixed.
+  const int cc = tid % kChunks, r0 = tid / kChunks;
+  const int dst0 = r0 * L::kRow + (cc ^ swizzle<L::kRow>(r0)) * 16;
+
+  // Stage j into ring slot `slot`: rows past the stage's live end are
+  // zero-filled without a read.
+  auto issue = [&](int j, int slot) {
+    int t0, tend, walk, c0;
+    stage_range(j, t0, tend, walk, c0);
+    unsigned char* dk = ring + slot * L::kStage + dst0;
+    unsigned char* dv = ring + (S + slot) * L::kStage + dst0;
+    if (one_page) {
+      const int page = kPaged ? sTable[walk * ppc + (t0 - c0) / p.page_size] : b;
+      const int row = (kPaged ? t0 % p.page_size : t0) + r0;
+      const unsigned char* sk = gk + (page * p.k_sp + row * p.k_sr) * (long long)sizeof(KV) + cc * 16;
+      const unsigned char* sv = gv + (page * p.v_sp + row * p.v_sr) * (long long)sizeof(KV) + cc * 16;
+      const long long kstep = kRowStep * p.k_sr * (long long)sizeof(KV), vstep = kRowStep * p.v_sr * (long long)sizeof(KV);
+#pragma unroll
+      for (int i = 0; i < kTok / kRowStep; ++i) {
+        const bool ok = t0 + r0 + i * kRowStep < tend;
+        cp_async<16>(dk + i * kRowStep * L::kRow, ok ? sk + i * kstep : gk, ok ? 16 : 0);
+        cp_async<16>(dv + i * kRowStep * L::kRow, ok ? sv + i * vstep : gv, ok ? 16 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kTok / kRowStep; ++i) {
+        const int t = t0 + r0 + i * kRowStep;
+        const bool ok = t < tend;
+        long long ko = 0, vo = 0;
+        if (ok) {
+          const int page = sTable[walk * ppc + (t - c0) / p.page_size], row = t % p.page_size;
+          ko = (page * p.k_sp + row * p.k_sr) * (long long)sizeof(KV) + cc * 16;
+          vo = (page * p.v_sp + row * p.v_sr) * (long long)sizeof(KV) + cc * 16;
+        }
+        cp_async<16>(dk + i * kRowStep * L::kRow, gk + ko, ok ? 16 : 0);
+        cp_async<16>(dv + i * kRowStep * L::kRow, gv + vo, ok ? 16 : 0);
+      }
+    }
+    if constexpr (kQuant) {  // i: token i % kTok's K (i < kTok) or V scale
+      for (int i = tid; i < 2 * kTok; i += kGThreads) {
+        const int r = i % kTok, t = t0 + r;
+        const bool ok = t < tend;
+        long long so = 0;
+        if (ok) {
+          const int page = kPaged ? sTable[walk * ppc + (t - c0) / p.page_size] : b;
+          so = page * p.s_sp + (kPaged ? t % p.page_size : t);
+        }
+        cp_async<4>(sScale + slot * 2 * kTok + i, (i < kTok ? gks : gvs) + so, ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    if (j < nstages) issue(j, j);
+    else cp_async_commit();  // empty groups keep the wait counts uniform
+  }
+
+  unsigned char* sP = smem + L::kP + rt * 16 * kTok * 2;           // this row tile's P
+  float* sMax = reinterpret_cast<float*>(smem + L::kMax) + rt * kSub * 16;
+  float* sSum = reinterpret_cast<float*>(smem + L::kSum) + rt * kSub * 16;
+  float o[kChains][kSliceNt][4];  // P V's accumulators, the chains summed at the end
+#pragma unroll
+  for (int c = 0; c < kChains; ++c)
+#pragma unroll
+    for (int nt = 0; nt < kSliceNt; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[c][nt][e] = 0.f;
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_run[2] = {0.f, 0.f};  // rows qr, qr + 8
+
+  for (int j = 0; j < nstages; ++j) {
+    const int slot = j % S;
+    if constexpr (kQuant) {
+      cp_async_wait<S - 1>();
+      __syncthreads();  // stage j has landed; every warp is done with stage j - 1
+    } else {
+      if (j == 0) cp_async_wait<S - 1>();
+      else cp_async_wait<S - 2>();  // one group fewer: stage j - 1 + S is issued below
+      __syncthreads();  // stage j has landed; every warp is done with stage j - 1 and its slot
+      if (j > 0) {
+        if (j - 1 + S < nstages) issue(j - 1 + S, (j - 1) % S);
+        else cp_async_commit();
+      }
+    }
+    const unsigned char* sK = ring + slot * L::kStage;
+    const unsigned char* sV = ring + (S + slot) * L::kStage;
+    const float* sKs = sScale + slot * 2 * kTok;
+    int t0, tend, walk, c0;
+    stage_range(j, t0, tend, walk, c0);
+    const uint32_t k_base = smem_u32(sK);
+    uint32_t v_base = smem_u32(sV);
+    unsigned char* cvt = smem + L::kCvt;
+    float* cvt_scales = reinterpret_cast<float*>(smem + L::kCvtScales);
+    if constexpr (kQuant) {
+      // An 8-bit V into a 16-bit tile (exact), each warp the rows of its
+      // share of the stage's tokens and the columns of its slice, which only
+      // the warps of that slice read (after the barriers below); the scales
+      // beside it, so that the ring's slot is free once S is done.
+      constexpr int kPieces = kW / 4;  // 4-byte pieces of a slice's row
+      const int first = rt * (kTok / kRW);
+#pragma unroll 4
+      for (int i = lane; i < (kTok / kRW) * kPieces; i += 32) {
+        const int r = first + i / kPieces, col = slice * kW + (i % kPieces) * 4;
+        uint2 w;
+        widen4<T, KV>(sV + r * L::kRow + (((col / 16) ^ swizzle<L::kRow>(r)) * 16) + col % 16, w.x, w.y);
+        *reinterpret_cast<uint2*>(cvt + r * D * 2 + (((col / 8) ^ (r & 7)) * 16) + (col % 8) * 2) = w;
+      }
+      for (int i = tid; i < 2 * kTok; i += kGThreads) cvt_scales[i] = sKs[i];
+      v_base = smem_u32(cvt);
+    }
+
+    // S for the warp's sub-tiles slice, slice + kCS, ... of its row tile: 16
+    // q rows x 16 tokens each, the k-steps in two chains (even, odd).  K's B
+    // fragments by ldmatrix: matrix (nt, half) = tokens tok0 + 8 nt .. + 7,
+    // the 16-byte chunk 2 ks + half (an 8-bit K: from its bytes, above).  Each sub-tile's row maxima go to
+    // shared memory (-inf for a sub-tile past the stage's live end).
+    float s[kU][2][4];
+#pragma unroll
+    for (int i = 0; i < kU; ++i) {
+      const int tok0 = (slice + i * kCS) * 16;
+      const bool live = rows_live && t0 + tok0 < tend;
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+      if (live) {
+        float s2[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i][nt][e] = s2[nt][e] = 0.f;
+        const int krow = tok0 + (mat / 2) * 8 + mrow;
+#pragma unroll
+        for (int ks = 0; ks < kKs; ++ks) {
+          uint32_t b0[2], b1[2];
+          if constexpr (kQuant) {  // lane: token tok0 + 8 nt + lane / 4, columns 16 ks + 4 (lane % 4) ... + 3
+            const int r = tok0 + qr, at = 4 * (lane % 4);
+            widen4<T, KV>(sK + r * L::kRow + ((ks ^ swizzle<L::kRow>(r)) * 16) + at, b0[0], b0[1]);
+            widen4<T, KV>(sK + (r + 8) * L::kRow + ((ks ^ swizzle<L::kRow>(r + 8)) * 16) + at, b1[0], b1[1]);
+          } else {
+            uint32_t kb[4];
+            ldsm_x4<false>(kb, k_base + krow * (D * 2) + (((2 * ks + mat % 2) ^ (krow & 7)) * 16));
+            b0[0] = kb[0];
+            b0[1] = kb[1];
+            b1[0] = kb[2];
+            b1[1] = kb[3];
+          }
+          mma16<T>(ks % 2 ? s2[0] : s[i][0], qa[ks], b0);
+          mma16<T>(ks % 2 ? s2[1] : s[i][1], qa[ks], b1);
+        }
+        // s[i][nt][e]: row qr + 8 (e / 2), token tok0 + 8 nt + qc + e % 2
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int tok = tok0 + 8 * nt + qc + e % 2;
+            float x = (s[i][nt][e] + s2[nt][e]) * p.score_scale;
+            if constexpr (kQuant) x *= sKs[tok];
+            s[i][nt][e] = t0 + tok < tend ? x : -CUDART_INF_F;
+            mx[e / 2] = fmaxf(mx[e / 2], s[i][nt][e]);
+          }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+        }
+      }
+      if (rows_live && lane % 4 == 0) {
+        sMax[(slice + i * kCS) * 16 + qr] = mx[0];
+        sMax[(slice + i * kCS) * 16 + qr + 8] = mx[1];
+      }
+    }
+    __syncthreads();  // every sub-tile's row maxima are in (and an 8-bit stage's slot is read)
+    if constexpr (kQuant) {
+      if (j + S < nstages) issue(j + S, slot);
+      else cp_async_commit();
+    }
+
+    // The stage's row maxima, in sub-tile order (every warp of a row tile
+    // the same); P = e^(s - m) * v_scale in T into the row tile's P, and
+    // each sub-tile's row sums of e^(s - m).
+    float m_new[2], alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = m_run[h];
+#pragma unroll
+      for (int u = 0; u < kSub; ++u) m_new[h] = fmaxf(m_new[h], sMax[u * 16 + qr + 8 * h]);
+      alpha[h] = expf(m_run[h] - m_new[h]);  // 0 while m_run is -inf; m_new is finite (token t0 is live)
+    }
+#pragma unroll
+    for (int i = 0; i < kU; ++i) {
+      const int tok0 = (slice + i * kCS) * 16;
+      const bool live = rows_live && t0 + tok0 < tend;
+      float ls[2] = {0.f, 0.f};
+      if (live) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float pv[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int tok = tok0 + 8 * nt + qc + e;
+              const float pe = t0 + tok < tend ? expf(s[i][nt][2 * h + e] - m_new[h]) : 0.f;
+              ls[h] += pe;
+              pv[e] = pe;
+              if constexpr (kQuant) pv[e] *= cvt_scales[kTok + tok];
+            }
+            const int row = qr + 8 * h, tok = tok0 + 8 * nt + qc;
+            *reinterpret_cast<uint32_t*>(sP + row * kTok * 2 + (((tok / 8) ^ (row & 7)) * 16) + (tok % 8) * 2) =
+                Pack<T>::two(pv[0], pv[1]);
+          }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          ls[h] += __shfl_xor_sync(kFull, ls[h], 1);
+          ls[h] += __shfl_xor_sync(kFull, ls[h], 2);
+        }
+      }
+      if (rows_live && lane % 4 == 0) {
+        sSum[(slice + i * kCS) * 16 + qr] = ls[0];
+        sSum[(slice + i * kCS) * 16 + qr + 8] = ls[1];
+      }
+    }
+    __syncthreads();  // P and the row sums are in
+
+    // l = l alpha + the sub-tiles' sums in order; O = O alpha + P V over the
+    // stage's live 16-token k-steps for the warp's column slice.  P's A
+    // fragments by ldmatrix (matrix i: rows 8 (i % 2) .., tokens 8 (i / 2)
+    // ..); V's B fragments by ldmatrix.trans: matrix (nt, half) = tokens 16
+    // ks + 8 half .. + 7, the 16-byte chunk (8 columns) of n-tile nt.
+    if (rows_live) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float l = l_run[h] * alpha[h];
+#pragma unroll
+        for (int u = 0; u < kSub; ++u) l += sSum[u * 16 + qr + 8 * h];
+        l_run[h] = l;
+        m_run[h] = m_new[h];
+      }
+#pragma unroll
+      for (int c = 0; c < kChains; ++c)
+#pragma unroll
+        for (int nt = 0; nt < kSliceNt; ++nt) {
+          o[c][nt][0] *= alpha[0];
+          o[c][nt][1] *= alpha[0];
+          o[c][nt][2] *= alpha[1];
+          o[c][nt][3] *= alpha[1];
+        }
+      const uint32_t p_base = smem_u32(sP);
+      const int nks = (tend - t0 + 15) / 16;
+      const int prow = (mat % 2) * 8 + mrow;
+#pragma unroll
+      for (int ks = 0; ks < kSub; ++ks) {
+        if (ks < nks) {
+          uint32_t pa[4];
+          ldsm_x4<false>(pa, p_base + prow * (kTok * 2) + (((2 * ks + mat / 2) ^ (prow & 7)) * 16));
+          const int vrow = ks * 16 + (mat % 2) * 8 + mrow;
+#pragma unroll
+          for (int nt = 0; nt < kSliceNt; nt += 2) {
+            const int chunk = slice * kSliceNt + nt + (kSliceNt > 1 ? mat / 2 : 0);
+            uint32_t vb[4];
+            ldsm_x4<true>(vb, v_base + vrow * (D * 2) + ((chunk ^ (vrow & 7)) * 16));
+            const uint32_t b0[2] = {vb[0], vb[1]};
+            mma16<T>(o[ks % kChains][nt], pa, b0);
+            if (nt + 1 < kSliceNt) {
+              const uint32_t b1[2] = {vb[2], vb[3]};
+              mma16<T>(o[ks % kChains][nt + 1], pa, b1);
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the rings are free: the block's state goes over them
+
+  // The block's state: each warp its row tile's slice of acc; the first
+  // slice's warp the rows' m and l.
+  float* state = reinterpret_cast<float*>(smem);
+  float* state_m = reinterpret_cast<float*>(smem + L::kStateM);
+  float* state_l = reinterpret_cast<float*>(smem + L::kStateL);
+  if (rows_live) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = rt * 16 + qr + 8 * h;
+#pragma unroll
+      for (int nt = 0; nt < kSliceNt; ++nt) {
+        float2 x = make_float2(o[0][nt][2 * h], o[0][nt][2 * h + 1]);
+        if constexpr (kChains > 1) {
+          x.x += o[1][nt][2 * h];
+          x.y += o[1][nt][2 * h + 1];
+        }
+        *reinterpret_cast<float2*>(state + row * D + slice * kW + nt * 8 + qc) = x;
+      }
+      if (slice == 0 && lane % 4 == 0) {
+        state_m[row] = m_run[h];
+        state_l[row] = l_run[h];
+      }
+    }
+  }
+
+  // Every block's state is in.  Each block weighs the group's rows once,
+  // e^(m_r - M) for each block r of the cluster (C lanes a row, reduced by
+  // shuffles), then merges its slice of the group's rows x columns, the
+  // blocks in rank order, and writes the output.
+  sm90::cluster_sync();
+  float* weights = reinterpret_cast<float*>(smem + L::kWeights);
+  float* sums = reinterpret_cast<float*>(smem + L::kSums);
+  for (int i = tid; i < ((G * C + 31) / 32) * 32; i += kGThreads) {  // whole warps: the shuffles need them
+    const int g = i / C, r = i % C;
+    const bool ok = g < G;
+    const float m = ok ? ld_cluster_f32(sm90::cluster_addr(state_m + g, r)) : -CUDART_INF_F;
+    const float l = ok ? ld_cluster_f32(sm90::cluster_addr(state_l + g, r)) : 0.f;
+    float mx = m;
+    for (int off = 1; off < C; off *= 2) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+    const float w = m == -CUDART_INF_F ? 0.f : expf(m - mx);  // a block without tokens adds nothing
+    float lw = l * w;
+    for (int off = 1; off < C; off *= 2) lw += __shfl_xor_sync(kFull, lw, off);
+    if (ok) {
+      weights[i] = w;
+      if (r == 0) sums[g] = lw == 0.f ? 1.f : lw;
+    }
+  }
+  __syncthreads();
+  T* go = static_cast<T*>(p.o) + b * p.o_sb + ((long long)hk * p.group + g0) * p.o_sh;
+  for (int e = rank * kGThreads + tid; e < G * kD4; e += C * kGThreads) {
+    const int g = e / kD4, c4 = e % kD4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < C; ++r) {
+      const float w = weights[g * C + r];
+      const float4 x = ld_cluster_f4(sm90::cluster_addr(state + g * D + c4 * 4, r));
+      acc.x += x.x * w;
+      acc.y += x.y * w;
+      acc.z += x.z * w;
+      acc.w += x.w * w;
+    }
+    const float l = sums[g];
+    uint2 out;
+    out.x = Pack<T>::two(acc.x / l, acc.y / l);
+    out.y = Pack<T>::two(acc.z / l, acc.w / l);
+    *reinterpret_cast<uint2*>(go + g * p.o_sh + c4 * 4) = out;
+  }
+  sm90::cluster_sync();  // no block leaves while a peer reads its state
+}
+
+// Launches the kernel, or with `resident` non-null only writes there how
+// many clusters of `cluster` blocks the card holds at once (the host's split
+// keeps a step's clusters within that: a cluster left for a second wave
+// doubles the step's time).
+template <typename T, typename KV, int D, int kRW, bool kPaged>
+cudaError_t group_launch_one(const GroupParams& p, int cluster, dim3 grid, cudaStream_t s, int* resident) {
+  constexpr int bytes = GroupLayout<KV, D, kRW>::kBytes;
+  auto kernel = group_kernel<T, KV, D, kRW, kPaged>;
+  // once per device: the opt-in shared memory, all of an SM's shared memory
+  // as such (so that two blocks of about 100 KB share an SM) and clusters
+  // above 8
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64 || !done[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    if (e == cudaSuccess) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    if (dev < 64) done[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kGThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (resident != nullptr) return cudaOccupancyMaxActiveClusters(resident, kernel, &cfg);
+  const cudaError_t launched = cudaLaunchKernelEx(&cfg, kernel, p);
+  return launched != cudaSuccess ? launched : cudaGetLastError();
+}
+
+// The row-tile groups (kRW) of a pass of `rows` q heads: its m16 row tiles
+// rounded up to a power of two, each taking 8 / kRW warps.
+template <typename T, typename KV, int D, bool kPaged>
+cudaError_t group_launch_rows(const GroupParams& p, int cluster, dim3 grid, cudaStream_t s, int* resident) {
+  const int tiles = p.pass_rows / 16;
+  if (tiles <= 1) return group_launch_one<T, KV, D, 1, kPaged>(p, cluster, grid, s, resident);
+  if (tiles <= 2) return group_launch_one<T, KV, D, 2, kPaged>(p, cluster, grid, s, resident);
+  if (tiles <= 4) return group_launch_one<T, KV, D, 4, kPaged>(p, cluster, grid, s, resident);
+  return group_launch_one<T, KV, D, 8, kPaged>(p, cluster, grid, s, resident);
+}
+
+// The payload (kv_dtype 0 = q's dtype, 1 = int8, 2 = fp8 e4m3) and K5 / K6
+// of one q dtype and head dim.  The sources decode_group_<q dtype>_d<D>_<k5|k6>.cu
+// instantiate group_launch_rows for their (q dtype, head dim, K5 or K6), every
+// payload and row-tile group, so that no one nvcc holds the build up;
+// decode.cu declares them extern.
+template <typename T, int D>
+cudaError_t group_launch_width(const GroupParams& p, int kv_dtype, bool paged, int cluster, dim3 grid,
+                               cudaStream_t s, int* resident) {
+  if (kv_dtype == 0) {
+    return paged ? group_launch_rows<T, T, D, true>(p, cluster, grid, s, resident)
+                 : group_launch_rows<T, T, D, false>(p, cluster, grid, s, resident);
+  }
+  if (kv_dtype == 1) {
+    return paged ? group_launch_rows<T, int8_t, D, true>(p, cluster, grid, s, resident)
+                 : group_launch_rows<T, int8_t, D, false>(p, cluster, grid, s, resident);
+  }
+  if (kv_dtype == 2) {
+    return paged ? group_launch_rows<T, __nv_fp8_e4m3, D, true>(p, cluster, grid, s, resident)
+                 : group_launch_rows<T, __nv_fp8_e4m3, D, false>(p, cluster, grid, s, resident);
+  }
+  return cudaErrorInvalidValue;
+}
+
+#define FA_GROUP_ROWS(X, T, D, P) X(T, T, D, P) X(T, int8_t, D, P) X(T, __nv_fp8_e4m3, D, P)
+#define FA_GROUP_ALL(X)                                                                                   \
+  FA_GROUP_ROWS(X, __nv_bfloat16, 64, true) FA_GROUP_ROWS(X, __nv_bfloat16, 64, false)                   \
+  FA_GROUP_ROWS(X, __nv_bfloat16, 128, true) FA_GROUP_ROWS(X, __nv_bfloat16, 128, false)                 \
+  FA_GROUP_ROWS(X, __half, 64, true) FA_GROUP_ROWS(X, __half, 64, false)                                 \
+  FA_GROUP_ROWS(X, __half, 128, true) FA_GROUP_ROWS(X, __half, 128, false)
+
+}  // namespace decode
+}  // namespace fa

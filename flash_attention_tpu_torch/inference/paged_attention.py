@@ -24,7 +24,15 @@ as pages [kv_heads, total_pages, page_size, head_dim]; each sequence owns a
 both kernels are one template in `csrc/decode.cuh`, with two entry points in
 `csrc/decode.cu`.  They take fp32, bf16 and fp16 q, any GQA group (split
 into group tiles of at most 8 q heads, `group_tiles`) and head dims 8, 16,
-32, 64 and every multiple of 128 up to 1024 (`HEAD_DIMS`).
+32, 64 and every multiple of 128 up to 1024 (`HEAD_DIMS`).  A GQA group
+above 8 with bf16 or fp16 q at head dim 64 or 128 (`uses_group_kernel`:
+multi-query attention, Falcon-40B's 16 q heads a KV head) runs instead the
+whole-group kernels of `csrc/decode_group.cuh` (`fa_paged_decode_group`,
+`fa_fused_decode_group`; launch keys "paged_decode_group" /
+"fused_decode_group"): the whole group in one block, S and P V on
+`mma.sync`, and a (sequence, KV head)'s blocks merged in a thread-block
+cluster (`decode_group_split`), with no workspace; their chunk-and-merge
+plan in plain PyTorch is `paged_attention_group_ref`.
 The TPU kernel's `pages_per_compute_block` (pages per DMA step) has no
 counterpart: the CUDA kernel's chunks are set by the split.
 """
@@ -43,7 +51,10 @@ from ..kernels.flash_attention import _DTYPE_CODES, KERNEL_LAUNCHES
 from ..kernels.vanilla import DEFAULT_MASK_VALUE
 from ..quant.kv import QUANT_DTYPES
 
-__all__ = ["decode_split", "group_tiles", "paged_attention", "paged_attention_ref", "paged_attention_split_ref"]
+__all__ = [
+    "decode_group_split", "decode_split", "group_passes", "group_tiles", "paged_attention", "paged_attention_group_ref",
+    "paged_attention_ref", "paged_attention_split_ref", "uses_group_kernel",
+]
 
 _Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # what csrc/decode.cuh instantiates
 # head dims the decode kernels take: 8, 16 and 32 (run at 32), 64, and every
@@ -61,6 +72,14 @@ MAX_ROWS = 8
 MAX_SPLITS = 64
 MAX_CHUNK_UNITS = 256
 BLOCKS_PER_SM = 4  # the blocks per SM the split aims at over the whole capacity
+# csrc/decode_group.cuh's plan: tokens of a ring stage (GroupLayout::kTok; a
+# chunk holds at least one), blocks of a cluster at most (8: the portable
+# size), page ids a block stages (kGMaxPages), q heads of a pass (kGMaxRows,
+# 8 row tiles of 16)
+GROUP_TOKENS = 128
+GROUP_CLUSTER = 8
+GROUP_MAX_PAGES = 1024
+GROUP_MAX_ROWS = 128
 
 
 def paged_attention_ref(
@@ -128,6 +147,42 @@ def paged_attention_split_ref(
     max_len)` and its identity page table, with lengths + 1).  p * v_scale
     is rounded to q's dtype before the PV product; rows past the length are
     never read (masked before any product, so NaN there cannot leak)."""
+    states = _chunk_states(q, k_pages, v_pages, lengths, page_indices, chunk, k_scales, v_scales, sm_scale, prescale_q)
+    return _finish(q, _merge(states))
+
+
+def paged_attention_group_ref(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,
+    page_indices: torch.Tensor,
+    *,
+    cluster: int,
+    chunk: int,
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
+    sm_scale: float | None = None,
+    prescale_q: bool = False,
+) -> torch.Tensor:
+    """Plain version of the whole-group kernels' plan (`csrc/decode_group.cuh`):
+    the whole GQA group at once; each sequence's capacity in chunks of
+    `chunk` tokens (`decode_group_split`), block c of a cluster of `cluster`
+    taking chunks c, c + cluster, ... and merging their softmax states in
+    walk order into its own (m, l, acc); then the cluster's merge, the
+    blocks' states in rank order, with the l == 0 guard.  A block whose
+    chunks hold no live token has m = -inf, l = 0 and adds nothing.
+    Scoring, rounding and `prescale_q` as `paged_attention_split_ref`."""
+    states = _chunk_states(q, k_pages, v_pages, lengths, page_indices, chunk, k_scales, v_scales, sm_scale, prescale_q)
+    blocks = [_merge(states[c::cluster]) for c in range(min(cluster, len(states)))]  # a block past them: empty
+    return _finish(q, _merge(blocks))
+
+
+def _chunk_states(q, k_pages, v_pages, lengths, page_indices, chunk, k_scales, v_scales, sm_scale, prescale_q):
+    """Each chunk's softmax state (m, l, acc) over [batch, hkv, group(, d)],
+    in fp32, for chunks of `chunk` tokens over the page table's capacity:
+    the first max(lengths, 1) tokens live, the rest masked before any
+    product (m = -inf, l = 0 for a chunk without a live token)."""
     batch, hq, d = q.shape
     hkv, _, page_size, _ = k_pages.shape
     group = hq // hkv
@@ -147,7 +202,7 @@ def paged_attention_split_ref(
     q4 = q4.reshape(batch, hkv, group, d)
     n = lengths.long().clamp(min=1, max=cap)
     pos = torch.arange(cap, device=q.device)
-    ms, ls, accs = [], [], []
+    states = []
     for c0 in range(0, cap, chunk):
         c1 = min(c0 + chunk, cap)
         valid = (pos[c0:c1][None, :] < n[:, None])[:, None, :]  # [batch, 1, c]
@@ -158,15 +213,27 @@ def paged_attention_split_ref(
         p = torch.exp(s - torch.where(m == -math.inf, 0.0, m)[..., None])  # 0 where masked
         pr = torch.where(valid[:, :, None], p * vs[:, :, None, c0:c1], 0.0).to(q.dtype).float()
         vc = torch.where(valid[..., None], v[:, :, c0:c1], 0.0)
-        ms.append(m)
-        ls.append(p.sum(dim=-1))
-        accs.append(torch.einsum("bhgl,bhld->bhgd", pr, vc))
-    m = torch.stack(ms)
+        states.append((m, p.sum(dim=-1), torch.einsum("bhgl,bhld->bhgd", pr, vc)))
+    return states
+
+
+def _merge(states):
+    """Softmax states merged with the lse rule, in list order: M = max m_s,
+    l = sum_s l_s e^(m_s - M), acc = sum_s acc_s e^(m_s - M); a state with
+    m = -inf adds nothing (all of them empty: m = -inf, l = 0)."""
+    m = torch.stack([s[0] for s in states])
     top = m.amax(dim=0)
     w = torch.where(m == -math.inf, 0.0, torch.exp(m - top))
-    l = (torch.stack(ls) * w).sum(dim=0)
-    o = (torch.stack(accs) * w[..., None]).sum(dim=0) / torch.where(l == 0.0, 1.0, l)[..., None]
-    return o.reshape(batch, hq, d).to(q.dtype)
+    l = (torch.stack([s[1] for s in states]) * w).sum(dim=0)
+    acc = (torch.stack([s[2] for s in states]) * w[..., None]).sum(dim=0)
+    return top, l, acc
+
+
+def _finish(q, state):
+    """out = acc / l (l == 0 read as 1), [batch, hq, d] in q's dtype."""
+    _, l, acc = state
+    o = acc / torch.where(l == 0.0, 1.0, l)[..., None]
+    return o.reshape(q.shape).to(q.dtype)
 
 
 def group_tiles(group: int) -> tuple[int, int]:
@@ -206,6 +273,82 @@ def decode_split(capacity: int, pairs: int, unit: int, sms: int) -> tuple[int, i
             f"pages; a capacity of {capacity} tokens in pages of {unit} needs {splits}"
         )
     return chunk, splits
+
+
+def uses_group_kernel(q_dtype: torch.dtype, head_dim: int, group: int) -> bool:
+    """Whether a decode call runs the whole-group kernels
+    (`csrc/decode_group.cuh`): a GQA group above MAX_ROWS (8) q heads with
+    bf16 or fp16 q at head dim 64 or 128.  Every other configuration (groups
+    of up to 8, fp32 q, head dims 8-32 and 256-1024) runs the group tiles of
+    `csrc/decode.cuh`."""
+    return q_dtype in (torch.bfloat16, torch.float16) and head_dim in (64, 128) and group > MAX_ROWS
+
+
+def group_passes(group: int) -> tuple[int, int]:
+    """(passes, rows): the whole-group kernels hold at most GROUP_MAX_ROWS
+    (128) q heads a block, in m16 row tiles; a larger group runs in
+    `passes` passes of `rows` q heads (a multiple of 16, as even as they go;
+    the last may hold fewer), a cluster each.  Every real group is one pass:
+    16 -> (1, 16), 71 -> (1, 80), 128 -> (1, 128), 200 -> (2, 112)."""
+    tiles = -(-group // 16)
+    passes = -(-tiles // (GROUP_MAX_ROWS // 16))
+    return passes, 16 * -(-tiles // passes)
+
+
+def decode_group_split(capacity: int, pairs: int, unit: int, resident: dict[int, int],
+                       paged: bool) -> tuple[int, int, int]:
+    """(cluster, chunk, walks) of the whole-group kernels: the blocks of a
+    (sequence, KV head, pass)'s cluster, the tokens of a chunk, and the
+    chunks each block walks (block c takes chunks c, c + cluster, ...).
+    Chosen from the cache's capacity, the number of those `pairs` and what
+    the card holds at once (`resident`: cluster size -> clusters of that
+    size resident together, from the SM count and each block's registers
+    and shared memory), never from the lengths.  A chunk is one ring stage
+    (GROUP_TOKENS) rounded up to whole `unit`s (K5's page size; K6 passes
+    GROUP_TOKENS), so that the live tokens of a sequence spread evenly over
+    its cluster.  The cluster is the largest power of two up to
+    GROUP_CLUSTER whose clusters all fit the card at once (one wave: a
+    cluster left for a second wave doubles a step's time) and that leaves
+    each block a chunk; K5 (`paged`) stages a block's page ids, at most
+    GROUP_MAX_PAGES, which may ask for a larger cluster.  SantaCoder's layer
+    (8 slots, one KV head, 2048 tokens) on an H100: 8 clusters of 8, each
+    block walking 2 chunks of 128 tokens (K5: a page of 128 each);
+    Falcon-40B's (64 pairs at D64): clusters of 2, since 64 clusters of 4
+    do not fit at once (62 do)."""
+    chunk = -(-GROUP_TOKENS // unit) * unit
+    chunks = -(-capacity // chunk)
+    cluster = 1
+    while cluster < GROUP_CLUSTER and cluster * 2 <= chunks and pairs <= resident.get(cluster * 2, 0):
+        cluster *= 2
+    while paged and cluster < GROUP_CLUSTER and -(-chunks // cluster) * (chunk // unit) > GROUP_MAX_PAGES:
+        cluster *= 2
+    walks = -(-chunks // cluster)
+    if paged and walks * (chunk // unit) > GROUP_MAX_PAGES:
+        raise NotImplementedError(
+            f"the whole-group decode kernel stages at most {GROUP_MAX_PAGES} page ids a block, {GROUP_CLUSTER} "
+            f"blocks a sequence; a capacity of {capacity} tokens in pages of {unit} needs {walks * (chunk // unit)}"
+        )
+    return cluster, chunk, walks
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_clusters(index: int, q_code: int, kv_code: int, d: int, rows: int, paged: bool) -> dict[int, int]:
+    """What `decode_group_split` reads: for each cluster size up to
+    GROUP_CLUSTER, how many clusters of the whole-group kernel for this
+    configuration the card `index` holds at once (asked of the CUDA
+    runtime once per configuration)."""
+    from ..kernels._build import library
+
+    resident = {}
+    with _on(torch.device("cuda", index)):
+        for cluster in (1, 2, 4, 8, 16):
+            if cluster > GROUP_CLUSTER:
+                break
+            n = library().fa_decode_group_resident(q_code, kv_code, d, rows, int(paged), cluster)
+            if n < 0:
+                raise RuntimeError(f"decode group kernel: occupancy query failed with cudaError {-n}")
+            resident[cluster] = n
+    return resident
 
 
 @functools.lru_cache(maxsize=None)
@@ -273,7 +416,11 @@ def _launch_decode(
     returns [batch, hq, d] in q's dtype.  Each sequence reads max(lengths +
     len_add, 1) tokens (K6 always adds 1), split across blocks as
     `decode_split` chooses, a GQA group in `group_tiles`.  What the kernels
-    do not take (q dtype, payload, head dim) raises before any launch."""
+    do not take (q dtype, payload, head dim) raises before any launch.  A
+    GQA group above 8 with bf16 / fp16 q at head dim 64 or 128
+    (`uses_group_kernel`) runs the whole-group kernel of the same entry
+    (launch key `entry` + "_group") as `decode_group_split` chooses, with
+    no workspace."""
     batch, hq, d = q.shape
     hkv = k.shape[0]
     quantized = k_scales is not None
@@ -298,8 +445,9 @@ def _launch_decode(
 
     _check_rows("k", k)
     _check_rows("v", v)
-    if q.stride(-1) != 1:
-        q = q.contiguous()
+    if q.stride(-1) != 1 or (uses_group_kernel(q.dtype, d, hq // hkv)
+                             and (q.data_ptr() % 16 or q.stride(0) % 8 or q.stride(1) % 8)):
+        q = q.contiguous()  # the whole-group kernels read q's rows 16 bytes at a time
     if quantized:
         if k_scales.dtype != torch.float32 or k_scales.stride() != v_scales.stride() or k_scales.stride(-1) != 1:
             raise ValueError("k_scales/v_scales must be fp32 with equal strides and contiguous rows")
@@ -311,11 +459,6 @@ def _launch_decode(
     else:
         capacity, unit = k.shape[2], DECODE_TILE
     device = q.device
-    tiles, rows = group_tiles(hq // hkv)
-    chunk, splits = decode_split(capacity, batch * hkv * tiles, unit, _sm_count(device.index))
-    ws, counters = (None, None)
-    if splits > 1:
-        ws, counters = _workspace(device, batch * hkv * tiles * splits * rows * (d + 2), batch * hkv * tiles)
     out = torch.empty(batch, hq, d, dtype=q.dtype, device=device)
     sc = k_scales.stride()[:2] if quantized else (0, 0)
     strides = _stride_array(*q.stride()[:2], *out.stride()[:2], *k.stride()[:3], *v.stride()[:3], *sc)
@@ -323,22 +466,47 @@ def _launch_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scales.data_ptr() if quantized else None,
         v_scales.data_ptr() if quantized else None, lengths.data_ptr(),
     )
-    work = (None if ws is None else ws.data_ptr(), None if counters is None else counters.data_ptr())
-    codes = (_DTYPE_CODES[q.dtype], QUANT_DTYPES[k.dtype] if quantized else 0, batch, hq, hkv, tiles, rows, d)
     stream = torch._C._cuda_getCurrentRawStream(device.index)
-    with _on(device):
-        if paged:
-            err = library().fa_paged_decode(
-                *ptrs, page_indices.data_ptr(), out.data_ptr(), *work, *codes, k.shape[2], page_indices.shape[1],
-                len_add, chunk, splits, strides, sm_scale, stream,
-            )
-        else:
-            err = library().fa_fused_decode(
-                *ptrs, out.data_ptr(), *work, *codes, k.shape[2], chunk, splits, strides, sm_scale, stream,
-            )
+    kv_code = QUANT_DTYPES[k.dtype] if quantized else 0
+    if uses_group_kernel(q.dtype, d, hq // hkv):
+        key = entry + "_group"
+        passes, rows = group_passes(hq // hkv)
+        resident = _resident_clusters(device.index, _DTYPE_CODES[q.dtype], kv_code, d, rows, paged)
+        cluster, chunk, walks = decode_group_split(capacity, batch * hkv * passes, unit if paged else GROUP_TOKENS,
+                                                   resident, paged)
+        codes = (_DTYPE_CODES[q.dtype], kv_code, batch, hq, hkv, passes, rows, d)
+        with _on(device):
+            if paged:
+                err = library().fa_paged_decode_group(
+                    *ptrs, page_indices.data_ptr(), out.data_ptr(), *codes, k.shape[2], page_indices.shape[1],
+                    len_add, cluster, chunk, walks, strides, sm_scale, stream,
+                )
+            else:
+                err = library().fa_fused_decode_group(
+                    *ptrs, out.data_ptr(), *codes, k.shape[2], cluster, chunk, walks, strides, sm_scale, stream,
+                )
+    else:
+        key = entry
+        tiles, rows = group_tiles(hq // hkv)
+        chunk, splits = decode_split(capacity, batch * hkv * tiles, unit, _sm_count(device.index))
+        ws, counters = (None, None)
+        if splits > 1:
+            ws, counters = _workspace(device, batch * hkv * tiles * splits * rows * (d + 2), batch * hkv * tiles)
+        work = (None if ws is None else ws.data_ptr(), None if counters is None else counters.data_ptr())
+        codes = (_DTYPE_CODES[q.dtype], kv_code, batch, hq, hkv, tiles, rows, d)
+        with _on(device):
+            if paged:
+                err = library().fa_paged_decode(
+                    *ptrs, page_indices.data_ptr(), out.data_ptr(), *work, *codes, k.shape[2],
+                    page_indices.shape[1], len_add, chunk, splits, strides, sm_scale, stream,
+                )
+            else:
+                err = library().fa_fused_decode(
+                    *ptrs, out.data_ptr(), *work, *codes, k.shape[2], chunk, splits, strides, sm_scale, stream,
+                )
     if err != 0:
-        raise RuntimeError(f"{entry} launch failed with cudaError {err}")
-    KERNEL_LAUNCHES[entry] += 1
+        raise RuntimeError(f"{key} launch failed with cudaError {err}")
+    KERNEL_LAUNCHES[key] += 1
     return out
 
 

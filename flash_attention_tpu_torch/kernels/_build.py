@@ -165,5 +165,22 @@ def library() -> ctypes.CDLL:
             ctypes.POINTER(ll), f, p,  # 12 strides, sm_scale, stream
         ]
         lib.fa_fused_decode.restype = i
+        lib.fa_paged_decode_group.argtypes = [
+            p, p, p, p, p, p, p, p,  # q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices, out
+            i, i, i, i, i, i, i, i,  # q_dtype, kv_dtype, batch, hq, hkv, passes, pass_rows, head_dim
+            i, i, i,  # page_size, pages_per_seq, len_add
+            i, i, i,  # cluster, chunk, walks
+            ctypes.POINTER(ll), f, p,  # 12 strides, sm_scale, stream
+        ]
+        lib.fa_paged_decode_group.restype = i
+        lib.fa_fused_decode_group.argtypes = [
+            p, p, p, p, p, p, p,  # q, k, v, k_scales, v_scales, lengths, out
+            i, i, i, i, i, i, i, i,  # q_dtype, kv_dtype, slots, hq, hkv, passes, pass_rows, head_dim
+            i, i, i, i,  # max_len, cluster, chunk, walks
+            ctypes.POINTER(ll), f, p,  # 12 strides, sm_scale, stream
+        ]
+        lib.fa_fused_decode_group.restype = i
+        lib.fa_decode_group_resident.argtypes = [i, i, i, i, i, i]  # q_dtype, kv_dtype, head_dim, pass_rows, paged, cluster
+        lib.fa_decode_group_resident.restype = i
         _lib = lib
     return _lib

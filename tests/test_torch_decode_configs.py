@@ -4,8 +4,11 @@ and GQA groups of up to 8: head dims 8, 16, 32, 256 and 512, groups 2-71
 kernels' arithmetic in plain PyTorch (`paged_attention_split_ref`: K5's
 scoring, and K6's with `prescale_q=True`) against the JAX package's
 `paged_attention` in Pallas interpret mode and its `decode_attention_fused`
-(interpret mode up to d = 128, its own einsum fallback above); then the
-slice: a 2-layer multi-query GPT's chained decode steps through
+(interpret mode up to d = 128, its own einsum fallback above); the
+whole-group kernels' plan (`paged_attention_group_ref`: GQA groups above 8
+with bf16 / fp16 q at D64 / D128, the chunks and clusters that
+`decode_group_split` gives) against the same, and their routing and split;
+then the slice: a 2-layer multi-query GPT's chained decode steps through
 attn_impl="paged" and "fused" against the JAX package's, and their greedy
 tokens.  Inputs are numpy from a seed; fp8 payloads cross as uint8 views.
 fp16 is compared at the module level only: the JAX package's prefill
@@ -47,6 +50,17 @@ TOL = {"fp32": (5e-5, 1e-4), "fp16": (2e-2, 0.0)}
 CHUNK = 32  # two pages of 16: the kernels' splits, most of them empty for short sequences
 
 
+# The whole-group kernels' configurations: q's dtype and the payload
+GROUP_PAYLOADS = {"bf16": (jnp.bfloat16, None), "fp16": (jnp.float16, None), "bf16-int8": (jnp.bfloat16, jnp.int8),
+                  "fp16-fp8": (jnp.float16, jnp.float8_e4m3fn)}
+ALL_PAYLOADS = {**PAYLOADS, **GROUP_PAYLOADS}
+# (q heads, KV heads): groups 12 (one padded row tile), 16 (SantaCoder's
+# multi-query), 48 (StarCoder's, 3 row tiles), 71 (Falcon-7B's, 5 row tiles:
+# 8 warps) and 24 / 2 (a group of 12 on two KV heads)
+GROUP_CASES = [(12, 1), (16, 1), (48, 1), (71, 1), (24, 2)]
+GROUP_IDS = [f"hq{hq}-hkv{hkv}" for hq, hkv in GROUP_CASES]
+
+
 def _tol(payload: str) -> tuple[float, float]:
     return TOL["fp32" if payload == "fp32" else "fp16"]
 
@@ -55,7 +69,7 @@ def _pages(hq, hkv, d, payload, batch=3, page_size=16, pps=4, seed=0):
     """q and pages in the payload's dtypes (quantized with the JAX package's
     quantize_tokens), a permuted page table over more pages than the
     sequences use."""
-    qdt, quant = PAYLOADS[payload]
+    qdt, quant = ALL_PAYLOADS[payload]
     n_pages = batch * pps + 3
     rng = np.random.default_rng(seed)
     q = jnp.asarray(randn(seed, batch, hq, d), qdt)
@@ -93,7 +107,7 @@ def test_k5_split_arithmetic_matches_jax_paged_kernel(hq, hkv, d, payload):
 def _jax_cache(hkv, d, payload, lengths=(0, 31, 100), max_len=128, seed=20):
     """A one-layer JAX cache in the payload's dtypes, filled by its own
     prefill_write/decode_write: the current token of slot s at lengths[s]."""
-    qdt, quant = PAYLOADS[payload]
+    qdt, quant = ALL_PAYLOADS[payload]
     slots, fill = len(lengths), max(lengths) + 1
     c = jkvc.init_cache(1, slots, hkv, max_len, d, dtype=qdt, quant_dtype=quant)
     for s in range(slots):
@@ -154,6 +168,113 @@ def test_group_tiles_cover_every_group():
         assert 1 <= rows <= min(tpa.MAX_ROWS, group)
         assert tiles * rows >= group > (tiles - 1) * rows
         assert tiles == -(-group // tpa.MAX_ROWS)
+
+
+# The whole-group plan over a capacity of 512 tokens in chunks of 128 (pages
+# of 16), clusters of 2 (`decode_group_split` on a card that holds every
+# pair's cluster of 2 at once but not of 4), so that each block walks 2
+# chunks.  Lengths (current token included): 0 and 1, a chunk's edges (127,
+# 129), a cluster's edge (256: each block one whole chunk), a block's second
+# chunk partly live (400), the whole capacity.
+GROUP_CAPACITY = 512
+GROUP_LENGTHS = (0, 1, 127, 129, 256, 400, 512)
+
+
+def _group_split(hq, hkv, capacity, unit, paged):
+    passes, _ = tpa.group_passes(hq // hkv)
+    pairs = len(GROUP_LENGTHS) * hkv * passes
+    split = tpa.decode_group_split(capacity, pairs, unit, {1: 2 * pairs, 2: pairs, 4: pairs - 1}, paged)
+    assert split == (2, 128, 2)  # the plan these cases hold: 2 blocks a cluster, 2 chunks a block
+    return split
+
+
+@pytest.mark.parametrize("payload", GROUP_PAYLOADS)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", GROUP_CASES, ids=GROUP_IDS)
+def test_k5_group_plan_matches_jax_paged_kernel(hq, hkv, d, payload):
+    """The whole-group K5's plan in plain PyTorch (`paged_attention_group_ref`:
+    chunks of 128 tokens, 2 blocks a cluster each walking 2 chunks, then the
+    cluster's merge in rank order) against JAX's paged kernel (interpret
+    mode) over a permuted page table, at the 16-bit tier (P and the output
+    are rounded to q's dtype at other points)."""
+    batch = len(GROUP_LENGTHS)
+    q, pi, pages = _pages(hq, hkv, d, payload, batch=batch, pps=GROUP_CAPACITY // 16, seed=d)
+    lengths = np.array(GROUP_LENGTHS, np.int32)
+    jout = jpa.paged_attention(q, pages[0], pages[1], jnp.asarray(lengths), jnp.asarray(pi),
+                               pages_per_compute_block=8, k_scales=pages[2], v_scales=pages[3])
+    kp, vp, ks, vs = (None if a is None else from_jax(a) for a in pages)
+    tq = from_jax(q)
+    cluster, chunk, _ = _group_split(hq, hkv, GROUP_CAPACITY, 16, True)
+    assert tpa.uses_group_kernel(tq.dtype, d, hq // hkv)
+    before = dict(KERNEL_LAUNCHES)
+    got = tpa.paged_attention_group_ref(tq, kp, vp, t(lengths), t(pi), cluster=cluster, chunk=chunk, k_scales=ks,
+                                        v_scales=vs)
+    plain = tpa.paged_attention(tq, kp, vp, t(lengths), t(pi), k_scales=ks, v_scales=vs)
+    assert KERNEL_LAUNCHES == before  # CPU tensors take the plain versions
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    atol, rtol = TOL["fp16"]
+    np.testing.assert_allclose(n(got.float()), np.asarray(jout, np.float32), atol=atol, rtol=rtol)
+    np.testing.assert_allclose(n(got.float()), n(plain.float()), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("payload", GROUP_PAYLOADS)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", GROUP_CASES, ids=GROUP_IDS)
+def test_k6_group_plan_matches_jax_fused(hq, hkv, d, payload):
+    """The whole-group K6's plan (q pre-scaled and rounded to its dtype,
+    lengths + 1, chunks of 128 over the slot-major cache's page view, 2
+    blocks a cluster walking 2 chunks each) against JAX's
+    `decode_attention_fused` (interpret mode), or on an fp8 cache, whose P
+    the JAX kernel rounds to fp8, against JAX's einsum `decode_attention`,
+    the function both compute; the 16-bit tier."""
+    qdt, quant = GROUP_PAYLOADS[payload]
+    jc = _jax_cache(hkv, d, payload, lengths=tuple(max(x - 1, 0) for x in GROUP_LENGTHS), max_len=GROUP_CAPACITY)
+    q = jnp.asarray(randn(34, len(GROUP_LENGTHS), hq, d), qdt)
+    if quant == jnp.float8_e4m3fn:
+        jout = jda.decode_attention(q, jc, 0)
+    else:
+        jout = jda.decode_attention_fused(q, jc, 0, block=64)
+    tc = torch_cache(jc)
+    kp, vp, ks, vs = tkvc.page_view(tc, 0, tc.max_len)
+    pi = tkvc.identity_page_indices(tc.slots, tc.max_len, tc.max_len, device="cpu")
+    cluster, chunk, _ = _group_split(hq, hkv, tc.max_len, tpa.GROUP_TOKENS, False)
+    got = tpa.paged_attention_group_ref(from_jax(q), kp, vp, tc.lengths + 1, pi, cluster=cluster, chunk=chunk,
+                                        k_scales=ks, v_scales=vs, prescale_q=True)
+    atol, rtol = TOL["fp16"]
+    np.testing.assert_allclose(n(got.float()), np.asarray(jout, np.float32), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize(
+    "q_dtype,d,group,want",
+    [
+        (torch.bfloat16, 128, 16, True),  # SantaCoder's layer
+        (torch.float16, 64, 16, True),  # Falcon-40B's group in fp16
+        (torch.bfloat16, 64, 9, True),  # the smallest group above 8
+        (torch.bfloat16, 64, 71, True),  # Falcon-7B
+        (torch.bfloat16, 128, 8, False),  # a group of up to 8: the group tiles
+        (torch.float16, 64, 1, False),
+        (torch.float32, 128, 16, False),  # fp32 q: the group tiles
+        (torch.float32, 64, 71, False),
+        (torch.bfloat16, 32, 16, False),  # D32 (d 8-32): the group tiles
+        (torch.bfloat16, 16, 16, False),
+        (torch.bfloat16, 256, 16, False),  # D256 and above: the group tiles
+        (torch.float16, 1024, 16, False),
+    ],
+)
+def test_group_kernel_routing(q_dtype, d, group, want):
+    """Which decode configurations run the whole-group kernels: a group
+    above 8 with bf16 / fp16 q at head dim 64 or 128, and nothing else."""
+    assert tpa.uses_group_kernel(q_dtype, d, group) is want
+
+
+@pytest.mark.parametrize("group,want", [(9, (1, 16)), (16, (1, 16)), (48, (1, 48)), (71, (1, 80)), (128, (1, 128)),
+                                        (129, (2, 80)), (200, (2, 112)), (1024, (8, 128))])
+def test_group_passes(group, want):
+    """A group runs in passes of at most 128 q heads (a multiple of 16, as
+    even as they go), every pass live: one pass for every real model."""
+    passes, rows = tpa.group_passes(group)
+    assert (passes, rows) == want
+    assert rows % 16 == 0 and rows <= tpa.GROUP_MAX_ROWS and passes * rows >= group > (passes - 1) * rows
 
 
 MQA_JAX_CFG = dataclasses.replace(JAX_CFG, n_head=16, n_embd=256, n_kv_head=1)

@@ -198,6 +198,19 @@ def test_decode_launchers_raise_without_a_card():
                  (t(q).half(), kp, vp, ks, vs)):  # fp16 q
         with pytest.raises(RuntimeError, match="CUDA tensors only"):
             launch(*args)
+    # the whole-group entry points (a group above 8, bf16 / fp16 q, D64 /
+    # D128): K5 over pages and K6 over one slot-major layer
+    slots = lengths.shape[0]
+    for qdt in (torch.bfloat16, torch.float16):
+        qg = q18.to(qdt)
+        assert tpa.uses_group_kernel(qg.dtype, 64, 18)
+        with pytest.raises(RuntimeError, match="CUDA tensors only"):
+            launch(qg, kp[:1], vp[:1], ks[:1], vs[:1])
+        layer = torch.zeros(1, slots, 128, 64, dtype=torch.int8)
+        scales = torch.ones(1, slots, 128)
+        with pytest.raises(RuntimeError, match="CUDA tensors only"):
+            tpa._launch_decode("fused_decode", qg.expand(slots, -1, -1), layer, layer, scales, scales, lengths, None,
+                               sm_scale=0.125, len_add=1)
 
 
 # Sequence lengths (current token included) against a split of `chunk`
@@ -293,6 +306,43 @@ def test_decode_split_choice(capacity, pairs, unit, want):
     chunk, splits = tpa.decode_split(capacity, pairs, unit, 132)
     assert (chunk, splits) == want
     assert chunk % unit == 0 and chunk * splits >= capacity > chunk * (splits - 1) and splits <= tpa.MAX_SPLITS
+
+
+# What the card holds at once of the whole-group kernel's clusters, by
+# cluster size: shaped like an H100's (132 SMs; cudaOccupancyMaxActiveClusters
+# read 15 clusters of 8 at D128 with one block an SM, and 132 of 2, 62 of 4,
+# 30 of 8 at D64 with two), the sizes not read filled in by one (D128) or two
+# (D64) blocks an SM.
+RESIDENT_D128 = {1: 132, 2: 66, 4: 30, 8: 15}
+RESIDENT_D64 = {1: 264, 2: 132, 4: 62, 8: 30}
+
+
+@pytest.mark.parametrize(
+    "capacity,pairs,unit,resident,paged,want",
+    [
+        (2048, 8, 128, RESIDENT_D128, True, (8, 128, 2)),  # SantaCoder's layer, K5: a page of 128 a chunk
+        (2048, 8, 128, RESIDENT_D128, False, (8, 128, 2)),  # the same through K6 (its unit is the stage)
+        (2048, 64, 128, RESIDENT_D64, True, (2, 128, 8)),  # Falcon-40B's layer: 64 clusters of 4 do not fit
+        (2048, 64, 128, RESIDENT_D64, False, (2, 128, 8)),
+        (1024, 8, 16, RESIDENT_D128, True, (8, 128, 1)),  # pages of 16: 8 pages a chunk
+        (128, 8, 128, RESIDENT_D128, True, (1, 128, 1)),  # one chunk: one block
+        (4096, 512, 16, RESIDENT_D64, True, (1, 128, 32)),  # many pairs: clusters of 1, 32 chunks a block
+        (131072, 8, 16, RESIDENT_D128, True, (8, 128, 128)),  # 1024 page ids a block, the most it stages
+        (131072, 1024, 16, RESIDENT_D64, True, (8, 128, 128)),  # the page ids ask for clusters of 8
+        (131072, 1024, 16, RESIDENT_D64, False, (1, 128, 1024)),  # K6 stages none
+    ],
+)
+def test_decode_group_split_choice(capacity, pairs, unit, resident, paged, want):
+    """The whole-group kernels' split (cluster, chunk, walks): the largest
+    cluster of up to 8 whose clusters all fit the card at once and leave each
+    block a chunk; chunks of one 128-token stage in whole units; the
+    capacity covered; K5's page ids within what a block stages."""
+    cluster, chunk, walks = tpa.decode_group_split(capacity, pairs, unit, resident, paged)
+    assert (cluster, chunk, walks) == want
+    assert chunk % unit == 0 and cluster * chunk * walks >= capacity > cluster * chunk * (walks - 1)
+    assert cluster <= tpa.GROUP_CLUSTER and (not paged or walks * chunk // unit <= tpa.GROUP_MAX_PAGES)
+    with pytest.raises(NotImplementedError, match="page ids"):
+        tpa.decode_group_split(262144, 8, 16, RESIDENT_D128, True)
 
 
 def test_decode_split_gives_two_waves_at_the_serving_shape():

@@ -2,7 +2,7 @@
 serving engines of one checkout of the PyTorch port on the card, for an A/B
 between checkouts.
 
-    python3 tools/decode_ab.py <checkout dir> <label>
+    python3 tools/decode_ab.py <checkout dir> <label> [--cluster N]
 
 Imports `flash_attention_tpu_torch` from <checkout dir>, builds its kernels
 there (its own build/torch_kernels/), and prints lines of results, the last
@@ -10,9 +10,11 @@ there (its own build/torch_kernels/), and prints lines of results, the last
 
 * K5 and K6 at every shape of this checkout's `chip_smoke.DECODE_SHAPES`
   (8 slots on one layer, L2-hot; GPT-2's 12 layers, a long context at 32
-  slots and a Llama-shaped GQA layer, L2-cold), int8 and bf16 caches: device
-  ms a call, ms a call as the engine calls them, the plain versions, SDPA
-  with a length mask on a bf16 cache, the byte bound (`time_decode`);
+  slots and a Llama-shaped GQA layer, L2-cold; SantaCoder's and Falcon-40B's
+  layers, which run the whole-group kernel where the checkout has it) and at
+  `ONE_TILE_SHAPE`, on their caches: device ms a call, ms a call as the
+  engine calls them, the plain versions, SDPA with a length mask on a bf16
+  cache, the byte bound (`time_decode`);
 * the serving-quant bursts of `chip_smoke.py` (GPT-2 124M, 16 requests; an
   int8 cache through K5 and an fp8 cache through K6): tokens/s each.
 
@@ -23,10 +25,15 @@ two checkouts are measured alike where that file agrees.  Compare two
 checkouts in one call, in turns (A, B, B, A): times on the host's clock
 spread between calls and between processes, and one process cannot import
 two checkouts' packages.
+
+`--cluster N` (a checkout with the whole-group kernel) forces clusters of N
+blocks (1-16; above 8 non-portable) in place of `decode_group_split`'s
+choice, the chunk kept: the A/B of cluster sizes in one checkout.
 """
 
 from __future__ import annotations
 
+import argparse
 import importlib
 import importlib.util
 import json
@@ -34,7 +41,12 @@ import os
 import sys
 import time
 
-tree, label = sys.argv[1], sys.argv[2]
+parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+parser.add_argument("tree")
+parser.add_argument("label")
+parser.add_argument("--cluster", type=int, default=0, help="force whole-group clusters of this many blocks")
+args = parser.parse_args()
+tree, label = args.tree, args.label
 sys.path.insert(0, os.path.abspath(tree))
 
 import torch  # noqa: E402
@@ -50,14 +62,27 @@ _spec.loader.exec_module(smoke)
 
 from flash_attention_tpu_torch.kernels import _build  # noqa: E402
 
+if args.cluster:
+    PA = importlib.import_module("flash_attention_tpu_torch.inference.paged_attention")
+    _split = PA.decode_group_split
+
+    def _forced(capacity, pairs, unit, resident, paged):
+        _, chunk, _ = _split(capacity, pairs, unit, resident, paged)
+        chunks = -(-capacity // chunk)
+        cluster = min(args.cluster, chunks)
+        return cluster, chunk, -(-chunks // cluster)
+
+    PA.decode_group_split = _forced
+
 
 def main() -> None:
     name, smi = smoke.phase_device()
     t0 = time.perf_counter()
     _build.library()
-    res = {"label": label, "checkout": tree, "device": name, "smi": smi, "build_s": time.perf_counter() - t0}
+    res = {"label": label, "checkout": tree, "device": name, "smi": smi, "build_s": time.perf_counter() - t0,
+           "cluster": args.cluster or "chosen"}
     gen = torch.Generator().manual_seed(7)
-    for shape in smoke.DECODE_SHAPES:
+    for shape in smoke.DECODE_SHAPES + (smoke.ONE_TILE_SHAPE,):
         for store in shape[-1]:
             row = smoke.time_decode(gen, smi, shape, store)
             res[f"{shape[0]} {store}"] = row
