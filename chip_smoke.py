@@ -52,7 +52,17 @@ are 7-9):
               and int8 caches, fp32 q at D8-D1024, fp16 q over fp16, int8
               and fp8 caches at D64 and D128, GQA groups 12, 16, 48 and 71
               (group tiles of up to 8 q heads), K5 permuted with NaN at
-              D16 and D512.  Limits by q's dtype (DECODE_TOL): bf16 atol
+              D16 and D512; above head dim 256 the wide kernels
+              ("paged_decode_wide" / "fused_decode_wide", each held also
+              against the plain version of its plan), also at group 4 on
+              bf16, int8 and fp8 caches, fp32 q over fp8 and fp16 q over
+              fp16, int8 and fp8 caches, and at time_decode's d512 / d1024
+              shape (8 slots, GQA 8/2, L2048; bf16, int8 and fp32) at the
+              timed lengths and at the edges of K5's and K6's splits (0,
+              chunk +- 1, cluster x chunk +- 1, capacity - 1), with K5 over
+              permuted pages of 16 at 2048 tokens, at least one launch
+              each.  Limits
+              by q's dtype (DECODE_TOL): bf16 atol
               2e-2 + rtol 1e-2, fp16 2e-3 + 2^-10, fp32 1e-5; every fp16
               case's outputs rounded to bf16 must fall outside fp16's.
 7. d256     - head dims 160 and 256 (run at 256: the wgmma K1, K4, K2 and
@@ -310,9 +320,10 @@ K2 and K3 their ring call shapes as `ring_noncausal_shard` (K1 also
 context-parallel run as `parallel_launches`; K5's and K6's rows their
 times at each configuration beyond D64 / D128, bf16 q and groups up to
 8 (NEW_DECODE_SHAPES: santacoder_*, gemma7b_*, falcon40b_*, gpt2_12l_*,
-d32_*, d512_*, d1024_*; int8 caches unsuffixed, others suffixed by the
-store) and their launches in
-serving-mqa and serving-fp16);
+d32_*; int8 caches unsuffixed, others suffixed by the store) and their
+launches in serving-mqa and serving-fp16; the wide K5's and K6's rows the
+D1024 bf16 layer's times, with d512_* and d1024_* beside them, and their
+launches in the decode phase);
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -409,6 +420,13 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                            "flash_attention_tpu/inference/paged_attention.py:34"),
     "fused_decode_group": ("flash_attention_tpu_torch/csrc/decode_group.cuh",
                            "flash_attention_tpu/inference/decode_attention.py:195"),
+    # K5 / K6 at head dims above 256 (padded 512 / 1024), every q dtype and
+    # group: the wide cluster kernel (decode_wide.cuh), instantiated by
+    # csrc/decode_wide_*.cu
+    "paged_decode_wide": ("flash_attention_tpu_torch/csrc/decode_wide.cuh",
+                          "flash_attention_tpu/inference/paged_attention.py:34"),
+    "fused_decode_wide": ("flash_attention_tpu_torch/csrc/decode_wide.cuh",
+                          "flash_attention_tpu/inference/decode_attention.py:195"),
     # head dims 129-256, padded to 256, bf16/fp16: the wgmma K1, K4, K2 and
     # K3 (flash_fwd_d256.cu, flash_bwd_d256.cu) and flash_bwd.cu's pre-pass
     # instantiated at 256
@@ -535,10 +553,17 @@ def phase_build() -> None:
         elif "Used" in line and "registers" in line:
             regs = int(re.search(r"Used (\d+) registers", line).group(1))
             entries.append((kernel, regs, spills))
-    decode, decode_spilled, group, group_spilled = [], [], [], []
+    decode, decode_spilled, group, group_spilled, wide_dec, wide_dec_spilled = [], [], [], [], [], []
     for name, (_, regs, spill) in zip(_demangle([e[0] for e in entries]), entries):
         spilled = not spill.startswith("0 bytes stack frame, 0 bytes spill stores")
-        if "group_kernel" in name:
+        if "decode::wide_kernel" in name or "6decode11wide_kernel" in name:
+            wide_dec.append(regs)
+            if spilled:
+                m = re.search(r"wide_kernel<(.*)>", name)
+                stores = re.search(r"(\d+) bytes spill stores", spill)
+                wide_dec_spilled.append(f"<{m.group(1) if m else name}> {regs} regs "
+                                        f"{stores.group(1) if stores else '?'} B")
+        elif "group_kernel" in name:
             group.append(regs)
             if spilled:
                 m = re.search(r"group_kernel<(.*)>", name)
@@ -557,7 +582,8 @@ def phase_build() -> None:
     if decode:
         say(f"[build] ptxas decode_kernel: {len(decode)} instantiations, {len(decode) - len(decode_spilled)} without "
             f"spills, {min(decode)}-{max(decode)} registers; nvcc per decode source: "
-            + (", ".join(f"{k} {v:.1f} s" for k, v in per.items() if k.startswith("decode") and "group" not in k)
+            + (", ".join(f"{k} {v:.1f} s" for k, v in per.items()
+                         if k.startswith("decode") and "group" not in k and "wide" not in k)
                or "not run (built)"))
         say("[build] decode_kernel spills (T, KV, D, rows, paged; spill stores): "
             + ("; ".join(decode_spilled) or "none"))
@@ -571,6 +597,19 @@ def phase_build() -> None:
         + "; spills (T, KV, D, row-tile groups, paged; spill stores): " + ("; ".join(group_spilled) or "none"))
     if len(group) != 96:
         raise AssertionError(f"[build] expected 96 instantiations of the whole-group decode kernel, found {len(group)}")
+    # the wide decode kernel (decode_wide.cuh, head dims above 256): q dtype x
+    # payload x D512 / D1024 x passes of 1, 4 or 8 rows x K5 / K6; the
+    # group-tile kernel keeps D32-D256 (10 instantiations a q dtype, payload
+    # and entry point)
+    say(f"[build] ptxas wide_kernel (wide K5 / K6): {len(wide_dec)} instantiations, "
+        f"{len(wide_dec) - len(wide_dec_spilled)} without spills, "
+        + (f"{min(wide_dec)}-{max(wide_dec)} registers" if wide_dec else "none found")
+        + "; nvcc per source: "
+        + (", ".join(f"{k} {v:.1f} s" for k, v in per.items() if k.startswith("decode_wide")) or "not run (built)")
+        + "; spills (T, KV, D, rows, paged; spill stores): " + ("; ".join(wide_dec_spilled) or "none"))
+    if len(wide_dec) != 108 or len(decode) != 180:
+        raise AssertionError(f"[build] expected 108 instantiations of the wide decode kernel and 180 of the group-tile "
+                             f"one, found {len(wide_dec)} and {len(decode)}")
     # ptxas reports a kernel whose wgmma it serialises only as an info line
     serial = [line.strip() for line in _build.build_info["ptxas"].splitlines() if "C7518" in line]
     names = _demangle([m.group(1) for line in serial for m in [re.search(r"function '([^']+)'", line)] if m])
@@ -1165,22 +1204,23 @@ def _fp16_control(label: str, outs, plains, atol: float, rtol: float) -> bool:
 
 
 def _decode_keys(q_dtype, d: int, group: int) -> tuple[str, str]:
-    """The launch keys of K5 and K6 for a configuration: the whole-group
-    kernel's for a group above 8 with bf16 / fp16 q at D64 / D128."""
+    """The launch keys of K5 and K6 for a configuration: the wide kernel's
+    above head dim 256, the whole-group kernel's for a group above 8 with
+    bf16 / fp16 q at D64 / D128."""
+    if PA.uses_wide_kernel(q_dtype, d, group):
+        return "paged_decode_wide", "fused_decode_wide"
     if PA.uses_group_kernel(q_dtype, d, group):
         return "paged_decode_group", "fused_decode_group"
     return "paged_decode", "fused_decode"
 
 
-def _group_split(q_dtype, payload, group: int, d: int, capacity: int, unit: int, pairs: int,
-                 paged: bool) -> tuple[int, int, int]:
-    """The whole-group kernel's (cluster, chunk, walks) for a configuration
-    (`payload`: the cache's dtype), as its launcher chooses them on this
-    card."""
-    _, rows = PA.group_passes(group)
-    resident = PA._resident_clusters(torch.cuda.current_device(), FA._DTYPE_CODES[q_dtype],
-                                     QK.QUANT_DTYPES.get(payload, 0), d, rows, paged)
-    return PA.decode_group_split(capacity, pairs, unit if paged else PA.GROUP_TOKENS, resident, paged)
+def _cluster_split(q_dtype, payload, group: int, d: int, capacity: int, unit: int, pairs: int,
+                   paged: bool) -> tuple[int, int, int]:
+    """The cluster kernel's (cluster, chunk, walks) for a configuration
+    (`payload`: the cache's dtype; `pairs`: sequences x KV heads), as its
+    launcher chooses them on this card (`paged_attention.cluster_plan`)."""
+    plan = PA.cluster_plan(q_dtype, payload, d, group, capacity, unit, pairs, paged, torch.cuda.current_device())
+    return plan[3:]
 
 
 def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths,
@@ -1188,9 +1228,10 @@ def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths
     """K5 (through decode_attention_paged) and K6 vs their plain versions on
     one cache at DECODE_TOL; returns {launch key: max error}.  Each must
     launch its kernel once: the whole-group kernel for a group above 8 with
-    bf16 / fp16 q at D64 / D128, which is also held against the plain
-    version of its own plan (`paged_attention_group_ref`: its chunks, its
-    cluster, the merge's order).  For fp16 q, whether the limit rejects the
+    bf16 / fp16 q at D64 / D128 and the wide kernel above D256, each also
+    held against the plain version of its own plan
+    (`paged_attention_group_ref`: its chunks, its cluster, the merge's
+    order).  For fp16 q, whether the limit rejects the
     bf16-rounded control goes into `controls`."""
     cache = _filled_cache(gen, slots, hkv, max_len, d, store, q_dtype, lengths)
     q = _rand(gen, (slots, hq, d), q_dtype)
@@ -1215,14 +1256,14 @@ def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths
     e6, ok6 = _error(out6, plain6, atol, rtol)
     ok = ok5 and ok6
     plan = ""
-    if key5.endswith("_group"):
+    if key5.endswith(("_group", "_wide")):
         with torch.no_grad():
-            c5, ch5, w5 = _group_split(q_dtype, kp.dtype, hq // hkv, d, max_len, 128, slots * hkv, True)
+            c5, ch5, w5 = _cluster_split(q_dtype, kp.dtype, hq // hkv, d, max_len, 128, slots * hkv, True)
             plan5 = PA.paged_attention_group_ref(q, kp, vp, cache.lengths + 1, pi, cluster=c5, chunk=ch5,
                                                  k_scales=ks, v_scales=vs)
             kp6, vp6, ks6, vs6 = KVC.page_view(cache, 0, max_len)
             pi6 = KVC.identity_page_indices(slots, max_len, max_len, device="cuda")
-            c6, ch6, w6 = _group_split(q_dtype, kp.dtype, hq // hkv, d, max_len, max_len, slots * hkv, False)
+            c6, ch6, w6 = _cluster_split(q_dtype, kp.dtype, hq // hkv, d, max_len, max_len, slots * hkv, False)
             plan6 = PA.paged_attention_group_ref(q, kp6, vp6, cache.lengths + 1, pi6, cluster=c6, chunk=ch6,
                                                  k_scales=ks6, v_scales=vs6, prescale_q=True)
         p5, okp5 = _error(out5, plan5, atol, rtol)
@@ -1289,9 +1330,11 @@ def check_paged_permuted(label, gen, batch, hq, hkv, d, page_size, pps, store, q
     return {key: err}
 
 
-def phase_decode(seed: int) -> dict:
+def phase_decode(seed: int) -> tuple[dict, dict]:
     """Returns each decode kernel's worst error against its plain versions,
-    by launch key (K5 / K6 and the whole-group K5 / K6)."""
+    by launch key (K5 / K6, the whole-group and the wide K5 / K6), and the
+    wide kernels' launches in the phase (no model path runs them)."""
+    _reset_launches()
     gen = torch.Generator().manual_seed(seed + 6)
     bf16, f32, i8, f8 = torch.bfloat16, torch.float32, torch.int8, torch.float8_e4m3fn
     say("[decode] tolerance (atol + rtol |plain|): " + "; ".join(
@@ -1325,7 +1368,7 @@ def phase_decode(seed: int) -> dict:
         c6, n6 = PA.decode_split(max_len, pairs, PA.DECODE_TILE, sms)
         for name, store, q_dtype in (("bf16", bf16, bf16), ("fp32", f32, f32), ("int8", i8, bf16), ("fp8", f8, bf16)):
             if PA.uses_group_kernel(q_dtype, d, hq // hkv):
-                cl, ch, walks = _group_split(q_dtype, store, hq // hkv, d, max_len, 128, slots * hkv, True)
+                cl, ch, walks = _cluster_split(q_dtype, store, hq // hkv, d, max_len, 128, slots * hkv, True)
                 span = cl * ch
                 edges = [0, ch - 1, ch, ch + 1, span - 1, span, span + 1, max_len - 1]
                 split = f"whole group {cl} blocks x {walks} chunks of {ch}"
@@ -1343,6 +1386,28 @@ def phase_decode(seed: int) -> dict:
         _gather(errs, check_decode(f"serving-mqa layer L2048 {name} cache", gen, 8, 16, 1, 128, 2048, store, bf16,
                                    mqa_lens))
     say(f"[decode] serving-mqa layer (8 slots hq16 hkv1 D128 L2048): cache lengths {mqa_lens}")
+    # The wide kernel at time_decode's d512 / d1024 shape (8 slots, GQA 8/2,
+    # max_len 2048), so that the split it is timed at is also checked: the
+    # cache lengths it times (contexts 1920-2048, every block walking its
+    # most chunks), then the edges of K5's split (pages of 128) and of K6's
+    # (chunks of one stage, 16 tokens for fp32 at D1024): lengths 0, chunk - 1,
+    # chunk, chunk + 1, cluster x chunk - 1, cluster x chunk, cluster x chunk
+    # + 1 and max_len - 1; and K5 over permuted pages of 16 at 2048 tokens
+    for d in (512, 1024):
+        for name, store, q_dtype in (("bf16", bf16, bf16), ("int8", i8, bf16), ("fp32", f32, f32)):
+            timed = torch.randint(1919, 2048, (8,), generator=gen).tolist()
+            _gather(errs, check_decode(f"wide hq8 hkv2 D{d} L2048 timed lengths {name}", gen, 8, 8, 2, d, 2048, store,
+                                       q_dtype, timed))
+            say(f"[decode] wide hq8 hkv2 D{d} L2048 {name}: timed cache lengths {timed}")
+            for kernel, paged, unit in (("K5", True, 128), ("K6", False, 2048)):
+                cl, ch, walks = _cluster_split(q_dtype, store, 4, d, 2048, unit, 16, paged)
+                span = cl * ch
+                edges = [min(e, 2047) for e in (0, ch - 1, ch, ch + 1, span - 1, span, span + 1, 2047)]
+                _gather(errs, check_decode(f"wide D{d} {kernel} edges {cl} blocks x {walks} chunks of {ch} {name}",
+                                           gen, 8, 8, 2, d, 2048, store, q_dtype, edges))
+                say(f"[decode] wide hq8 hkv2 D{d} L2048 {name}: {kernel} split edges, cache lengths {edges}")
+        _gather(errs, check_paged_permuted(f"paged permuted ps16 L2048 NaN past length D{d} hq8 hkv2 int8", gen, 8,
+                                           8, 2, d, 16, 128, i8, bf16, [1, 2048, 1920, 2000, 33, 0, 1500, 2047]))
     controls = []
     for key, got in check_decode_configs(gen, controls).items():
         errs.setdefault(key, []).extend(got)
@@ -1350,7 +1415,14 @@ def phase_decode(seed: int) -> dict:
         f"{sum(controls)} of {len(controls)} cases")
     if not all(controls):
         raise AssertionError("[decode] fp16 q's limit passes an output rounded to bf16")
-    return {key: max(got) for key, got in errs.items()}
+    wide = {key: FA.KERNEL_LAUNCHES[key] for key in WIDE_KEYS}
+    say(f"[decode] wide kernel launches in the phase: {wide}")
+    if not all(wide.values()):
+        raise AssertionError(f"[decode] a wide decode kernel never launched: {wide}")
+    return {key: max(got) for key, got in errs.items()}, wide
+
+
+WIDE_KEYS = ("paged_decode_wide", "fused_decode_wide")
 
 
 # The whole-group kernel at serving-mqa's own shape (8 slots of 2048, 16 q
@@ -1371,8 +1443,10 @@ def check_decode_configs(gen, controls: list) -> dict:
     bf16/fp32 q and groups of up to 8: every other head dim (8, 16 and 32,
     run at 32; 256; 384 and 512, run at 512; 640-1024, run at 1024) at
     groups 1 and 16 on bf16 and int8 caches; fp32 q at the narrow and wide
-    widths (D1024's one-stage ring); fp16 q over fp16, int8 and fp8 caches
-    at D64 and D128; GQA groups 12, 16, 48 (StarCoder) and 71 (Falcon-7B),
+    widths; fp16 q over fp16, int8 and fp8 caches at D64 and D128; above
+    D256 (the wide kernel) group 4 on bf16, int8 and fp8 caches, fp32 q over
+    fp8, fp16 q over fp16, int8 and fp8, and a group of 12 (two passes of 6
+    rows); GQA groups 12, 16, 48 (StarCoder) and 71 (Falcon-7B),
     which at D64 / D128 with bf16 / fp16 q run the whole-group kernel, and
     with fp32 q group tiles of up to 8 q heads; the whole-group kernel at
     serving-mqa's shape and Falcon-40B's layer on bf16, fp16, int8 and fp8
@@ -1402,10 +1476,21 @@ def check_decode_configs(gen, controls: list) -> dict:
             one(f"group {hq // hkv} hq{hq} hkv{hkv} D{d} {name} cache", 8, hq, hkv, d, store, bf16)
         one(f"group {hq // hkv} hq{hq} hkv{hkv} D{d} fp16 cache fp16 q", 8, hq, hkv, d, f16, f16)
     one("group 71 hq71 hkv1 D64 fp32 cache fp32 q", 4, 71, 1, 64, f32, f32)
+    # the wide kernel's other configurations: group 4 on every payload with
+    # bf16 q, fp32 q over fp8, fp16 q over fp16, int8 and fp8 (with their
+    # control), a pass of 6 rows (group 12)
+    for d in (384, 640, 1024):
+        for name, store in (("bf16", bf16), ("int8", i8), ("fp8", f8)):
+            one(f"D{d} group 4 (hq8 hkv2) {name} cache", 8, 8, 2, d, store, bf16)
+    for d in (512, 1024):
+        one(f"D{d} hq8 hkv2 fp8 cache fp32 q", 4, 8, 2, d, f8, f32)
+        for name, store in (("fp16", f16), ("int8", i8), ("fp8", f8)):
+            one(f"fp16 q D{d} hq8 hkv2 {name} cache", 8, 8, 2, d, store, f16)
+    one("D768 group 12 (hq12 hkv1) bf16 cache", 4, 12, 1, 768, bf16, bf16)
     for label, hq, hkv, d, lengths in GROUP_SHAPES:
         for name, store, q_dtype in (("bf16", bf16, bf16), ("fp16", f16, f16), ("int8", i8, bf16), ("fp8", f8, bf16)):
             one(f"{label} {name} cache", 8, hq, hkv, d, store, q_dtype, lengths, max_len=2048)
-        cl, ch, walks = _group_split(bf16, bf16, hq // hkv, d, 2048, 128, 8 * hkv, True)
+        cl, ch, walks = _cluster_split(bf16, bf16, hq // hkv, d, 2048, 128, 8 * hkv, True)
         say(f"[decode] {label}: cache lengths {lengths}; split {cl} blocks a cluster x {walks} chunks of {ch} "
             f"tokens; blocks of a cluster live: {[min(cl, -(-(n + 1) // ch)) for n in lengths]}; chunks the busiest "
             f"block walks: {[-(-(-(-(n + 1) // ch)) // cl) for n in lengths]}")
@@ -2241,7 +2326,7 @@ def phase_timing_quant(seed: int, smi: str) -> dict:
             bf16_ms=hot16[key], bf16_plain_ms=hot16[f"{key} plain"], bf16_bound_ms=hot16["bound"],
             bf16_library_ms=hot16["SDPA"], l2_cold_ms=cold[key], l2_cold_bound_ms=cold["bound"],
         )
-        add_rows(result[kernel], key, [name for name in NEW_DECODE_SHAPES if name not in GROUP_TIMED])
+        add_rows(result[kernel], key, [name for name in NEW_DECODE_SHAPES if name not in GROUP_TIMED + WIDE_TIMED])
         result[kernel]["santacoder_one_tile_ms"] = one_tile[key]
     # the whole-group kernel: SantaCoder's layer on the bf16 cache, SDPA beside
     # it, then its int8 rows and Falcon-40B's
@@ -2250,6 +2335,13 @@ def phase_timing_quant(seed: int, smi: str) -> dict:
         result[kernel] = dict(ms=santa16[key], plain_ms=santa16[f"{key} plain"], bound_ms=santa16["bound"],
                               bound_by=santa16["by"], library_ms=santa16["SDPA"])
         add_rows(result[kernel], key, GROUP_TIMED)
+    # the wide kernel: the D1024 layer on the bf16 cache, SDPA beside it, then
+    # its int8 rows and D512's
+    wide16 = rows[NEW_DECODE_SHAPES["d1024"][0], "bf16"]
+    for kernel, key in (("paged_decode_wide", "K5"), ("fused_decode_wide", "K6")):
+        result[kernel] = dict(ms=wide16[key], plain_ms=wide16[f"{key} plain"], bound_ms=wide16["bound"],
+                              bound_by=wide16["by"], library_ms=wide16["SDPA"])
+        add_rows(result[kernel], key, WIDE_TIMED)
     return result
 
 
@@ -2270,7 +2362,8 @@ GPT2_COLD_SHAPE = ("gpt2 8 slots 12 layers L2-cold", 12, 8, 12, 12, 64, 1024, (4
 # Gemma-7B's head dim 256 (16 heads, two column slabs), Falcon-40B's GQA
 # 128/8 at D64 (group 16), serving-fp16's configuration (fp16 q over an
 # fp16 cache and over an fp8 one), a narrow head (D32, which also runs
-# d = 8 and 16) and the wide column-slab layouts (D512, D1024), each L2-cold
+# d = 8 and 16) and the wide kernel's padded head dims (D512, D1024), each
+# L2-cold
 NEW_DECODE_SHAPES = {
     "santacoder": ("santacoder hq16 hkv1 D128 8 slots 24 layers L2-cold", 24, 8, 16, 1, 128, 2048, (1920, 2048),
                    ("int8", "bf16")),
@@ -2292,6 +2385,8 @@ DECODE_SHAPES = (
 # the NEW_DECODE_SHAPES that run the whole-group kernel (a group above 8, bf16
 # or fp16 q, D64 / D128)
 GROUP_TIMED = ("santacoder", "falcon40b")
+# the NEW_DECODE_SHAPES that run the wide kernel (head dims above 256)
+WIDE_TIMED = ("d512", "d1024")
 # SantaCoder's layer with 8 q heads (one group tile) in place of 16 (two)
 _SANTA = NEW_DECODE_SHAPES["santacoder"]
 ONE_TILE_SHAPE = ("santacoder layer, hq8 hkv1 (one group tile)",) + _SANTA[1:3] + (8,) + _SANTA[4:]
@@ -4051,7 +4146,8 @@ def main() -> None:
     errors = dict(zip(("flash_fwd", "flash_fwd_fp32"), phase_k1(args.seed)), **phase_k2k3(args.seed))
     k4 = phase_k4(args.seed)
     errors.update({key: err for key, (err, _) in k4.items()})
-    errors.update(phase_decode(args.seed))
+    decode_errors, decode_wide_launches = phase_decode(args.seed)
+    errors.update(decode_errors)
     errors.update(phase_d256(args.seed))
     text = synthetic_corpus()
     data = CharTokenizer(text).encode(text)
@@ -4095,8 +4191,9 @@ def main() -> None:
     times["fused_decode"]["serving_wquant_launches"] = wquant_k6
     for kernel in ("paged_decode", "fused_decode"):
         times[kernel]["serving_fp16_launches"] = fp16_launches[kernel]
-    # the whole-group kernel's launches are serving-mqa's: n_layer x decode steps
-    launches.update(mqa_launches)
+    # the whole-group kernel's launches are serving-mqa's: n_layer x decode steps;
+    # the wide kernel's the decode phase's (no model path runs head dims above 256)
+    launches.update(mqa_launches, **decode_wide_launches)
     measured = phase_measure(args.seed, smi)
     phase_memory(smi)
     tiles, tile_err, autotune_k1, tiles_sdpa = phase_autotune(args.seed, smi, data)

@@ -1,13 +1,16 @@
-// The plain C entry points of K5 (fa_paged_decode, fa_paged_decode_group)
-// and K6 (fa_fused_decode, fa_fused_decode_group), loaded through ctypes
+// The plain C entry points of K5 (fa_paged_decode, fa_paged_decode_group,
+// fa_paged_decode_wide) and K6 (fa_fused_decode, fa_fused_decode_group,
+// fa_fused_decode_wide), loaded through ctypes
 // (flash_attention_tpu_torch/kernels/_build.py).  The group-tile kernel
-// template and its design are in decode.cuh, the whole-group kernel's (GQA
-// groups above 8 with bf16 / fp16 q at head dims 64 and 128) in
-// decode_group.cuh; their instantiations are built by the decode_*.cu
+// template and its design are in decode.cuh (head dims up to 256), the
+// whole-group kernel's (GQA groups above 8 with bf16 / fp16 q at head dims
+// 64 and 128) in decode_group.cuh, the wide kernel's (head dims above 256)
+// in decode_wide.cuh; their instantiations are built by the decode_*.cu
 // sources, one nvcc each, and declared extern here.
 
 #include "decode.cuh"
 #include "decode_group.cuh"
+#include "decode_wide.cuh"
 
 namespace fa {
 namespace decode {
@@ -20,6 +23,10 @@ FA_DECODE_WIDTHS(FA_DECODE_EXTERN)
   extern template cudaError_t group_launch_rows<T, KV, D, P>(const GroupParams&, int, dim3, cudaStream_t, int*);
 FA_GROUP_ALL(FA_GROUP_EXTERN)
 #undef FA_GROUP_EXTERN
+#define FA_WIDE_EXTERN(T, D, P) \
+  extern template cudaError_t wide_launch_width<T, D, P>(const WideParams&, int, int, dim3, cudaStream_t, int*);
+FA_WIDE_ALL(FA_WIDE_EXTERN)
+#undef FA_WIDE_EXTERN
 
 namespace {
 
@@ -30,8 +37,6 @@ cudaError_t launch_dtype(const DecodeParams& p, int kv_dtype, bool paged, int wi
     case 64: return launch_width<T, 64>(p, kv_dtype, paged, grid, s);
     case 128: return launch_width<T, 128>(p, kv_dtype, paged, grid, s);
     case 256: return launch_width<T, 256>(p, kv_dtype, paged, grid, s);
-    case 512: return launch_width<T, 512>(p, kv_dtype, paged, grid, s);
-    case 1024: return launch_width<T, 1024>(p, kv_dtype, paged, grid, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -88,13 +93,13 @@ int launch_group(GroupParams& p, int q_dtype, int kv_dtype, int batch, int hq, i
       (q_dtype != 1 && q_dtype != 2) || kv_dtype < 0 || kv_dtype > 2 || pass_rows < 16 || pass_rows % 16 != 0 ||
       pass_rows > kGMaxRows || passes < 1 || (long long)hkv * passes > 65535 ||
       (long long)passes * pass_rows < hq / hkv || (long long)(passes - 1) * pass_rows >= hq / hkv ||
-      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8 && cluster != 16) || p.page_size <= 0 ||
+      cluster < 1 || cluster > kClusterMax || p.page_size <= 0 ||
       p.pages_per_seq <= 0 || p.chunk <= 0 || p.walks <= 0 ||
       (kv_dtype != 0) != (p.ks != nullptr && p.vs != nullptr))
     return (int)cudaErrorInvalidValue;
   const int capacity = kPaged ? p.page_size * p.pages_per_seq : p.page_size;
   if ((long long)cluster * p.chunk * p.walks < capacity ||
-      (kPaged && (p.chunk % p.page_size != 0 || (long long)p.walks * (p.chunk / p.page_size) > kGMaxPages)))
+      (kPaged && (p.chunk % p.page_size != 0 || (long long)p.walks * (p.chunk / p.page_size) > kClusterMaxPages)))
     return (int)cudaErrorInvalidValue;
   p.q_sb = st[0]; p.q_sh = st[1];
   p.o_sb = st[2]; p.o_sh = st[3];
@@ -108,20 +113,78 @@ int launch_group(GroupParams& p, int q_dtype, int kv_dtype, int batch, int hq, i
   return (int)group_dispatch(p, q_dtype, kv_dtype, head_dim, kPaged, cluster, grid, s, nullptr);
 }
 
+template <typename T, int D>
+cudaError_t wide_paged(const WideParams& p, int kv_dtype, bool paged, int cluster, dim3 grid, cudaStream_t s,
+                       int* resident) {
+  return paged ? wide_launch_width<T, D, true>(p, kv_dtype, cluster, grid, s, resident)
+               : wide_launch_width<T, D, false>(p, kv_dtype, cluster, grid, s, resident);
+}
+
+// The padded head dim (512 for d 384 and 512, 1024 for 640-1024) and q's dtype.
+cudaError_t wide_dispatch(const WideParams& p, int q_dtype, int kv_dtype, int head_dim, bool paged, int cluster,
+                          dim3 grid, cudaStream_t s, int* resident) {
+  const bool narrow = head_dim <= 512;
+  if (q_dtype == 0) {
+    return narrow ? wide_paged<float, 512>(p, kv_dtype, paged, cluster, grid, s, resident)
+                  : wide_paged<float, 1024>(p, kv_dtype, paged, cluster, grid, s, resident);
+  }
+  if (q_dtype == 1) {
+    return narrow ? wide_paged<__nv_bfloat16, 512>(p, kv_dtype, paged, cluster, grid, s, resident)
+                  : wide_paged<__nv_bfloat16, 1024>(p, kv_dtype, paged, cluster, grid, s, resident);
+  }
+  return narrow ? wide_paged<__half, 512>(p, kv_dtype, paged, cluster, grid, s, resident)
+                : wide_paged<__half, 1024>(p, kv_dtype, paged, cluster, grid, s, resident);
+}
+
+bool wide_head_dim(int d) { return d >= 384 && d <= 1024 && d % 128 == 0; }
+
+// The wide kernel: passes x pass_rows q heads cover the group (every pass
+// live, pass_rows 1-8), a cluster of `cluster` blocks (1-8) per (sequence,
+// KV head, pass), each walking `walks` chunks of `chunk` tokens.
+template <bool kPaged>
+int launch_wide(WideParams& p, int q_dtype, int kv_dtype, int batch, int hq, int hkv, int passes, int pass_rows,
+                int head_dim, int cluster, const long long* st, cudaStream_t s) {
+  if (batch <= 0 || batch > 65535 || hkv <= 0 || hq <= 0 || hq % hkv != 0 || !wide_head_dim(head_dim) ||
+      q_dtype < 0 || q_dtype > 2 || kv_dtype < 0 || kv_dtype > 2 || pass_rows < 1 || pass_rows > kWMaxRows ||
+      passes < 1 || (long long)hkv * passes > 65535 || (long long)passes * pass_rows < hq / hkv ||
+      (long long)(passes - 1) * pass_rows >= hq / hkv || cluster < 1 || cluster > kClusterMax ||
+      p.page_size <= 0 || p.pages_per_seq <= 0 || p.chunk <= 0 || p.walks <= 0 ||
+      (kv_dtype != 0) != (p.ks != nullptr && p.vs != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int capacity = kPaged ? p.page_size * p.pages_per_seq : p.page_size;
+  if ((long long)cluster * p.chunk * p.walks < capacity ||
+      (kPaged && (p.chunk % p.page_size != 0 || (long long)p.walks * (p.chunk / p.page_size) > kClusterMaxPages)))
+    return (int)cudaErrorInvalidValue;
+  p.q_sb = st[0]; p.q_sh = st[1];
+  p.o_sb = st[2]; p.o_sh = st[3];
+  p.k_sh = st[4]; p.k_sp = st[5]; p.k_sr = st[6];
+  p.v_sh = st[7]; p.v_sp = st[8]; p.v_sr = st[9];
+  p.s_sh = st[10]; p.s_sp = st[11];
+  p.group = hq / hkv;
+  p.passes = passes;
+  p.pass_rows = pass_rows;
+  p.head_dim = head_dim;
+  const dim3 grid(cluster, hkv * passes, batch);
+  return (int)wide_dispatch(p, q_dtype, kv_dtype, head_dim, kPaged, cluster, grid, s, nullptr);
+}
+
 }  // namespace
 }  // namespace decode
 }  // namespace fa
 
 using fa::decode::DecodeParams;
 using fa::decode::GroupParams;
+using fa::decode::WideParams;
 using fa::decode::launch_decode;
 using fa::decode::group_dispatch;
 using fa::decode::launch_group;
+using fa::decode::launch_wide;
+using fa::decode::wide_dispatch;
 
 // Common arguments.  q_dtype: 0 = float32, 1 = bfloat16, 2 = float16.
 // kv_dtype: 0 = the payload is q's dtype (no scales), 1 = int8, 2 =
-// float8_e4m3fn (both with k_scales / v_scales).  head_dim 8, 16, 32, 64 or
-// a multiple of 128 up to 1024; any hq / hkv, run in group_tiles tiles of
+// float8_e4m3fn (both with k_scales / v_scales).  head_dim 8, 16, 32, 64,
+// 128 or 256 (above: the wide entry points, below); any hq / hkv, run in group_tiles tiles of
 // group_rows (1-8) q heads, a block each (the last tile may hold fewer;
 // the caller chooses both, and a pair that does not cover the group with
 // every tile live is refused).  strides (elements): q (batch,
@@ -202,10 +265,10 @@ extern "C" int fa_fused_decode(const void* q, const void* k, const void* v, cons
 // (q_dtype 1) or fp16 (2) q at head_dim 64 or 128.  Arguments as above, but
 // no workspace or counters: the group runs in `passes` passes of
 // `pass_rows` q heads (a multiple of 16, at most 128; every pass live), a
-// cluster of `cluster` blocks (1, 2, 4, 8 or 16) per (sequence, KV head,
+// cluster of `cluster` blocks (1-8) per (sequence, KV head,
 // pass), block c of a cluster walking chunks c, c + cluster, ... of `chunk`
 // tokens, `walks` of them; cluster * chunk * walks >= the capacity; for K5
-// the chunk is whole pages and walks * pages of a chunk <= 2048.
+// the chunk is whole pages and walks * pages of a chunk <= 1024.
 
 // K5 over a GQA group above 8.
 extern "C" int fa_paged_decode_group(const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
@@ -269,13 +332,92 @@ extern "C" int fa_fused_decode_group(const void* q, const void* k, const void* v
 extern "C" int fa_decode_group_resident(int q_dtype, int kv_dtype, int head_dim, int pass_rows, int paged,
                                         int cluster) {
   if ((head_dim != 64 && head_dim != 128) || (q_dtype != 1 && q_dtype != 2) || kv_dtype < 0 || kv_dtype > 2 ||
-      pass_rows < 16 || pass_rows % 16 != 0 || pass_rows > fa::decode::kGMaxRows ||
-      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8 && cluster != 16))
+      pass_rows < 16 || pass_rows % 16 != 0 || pass_rows > fa::decode::kGMaxRows || cluster < 1 ||
+      cluster > fa::decode::kClusterMax)
     return -(int)cudaErrorInvalidValue;
   GroupParams p{};
   p.pass_rows = pass_rows;
   int resident = 0;
   const cudaError_t e =
       group_dispatch(p, q_dtype, kv_dtype, head_dim, paged != 0, cluster, dim3(cluster), nullptr, &resident);
+  return e != cudaSuccess ? -(int)e : resident;
+}
+
+// The wide kernels (decode_wide.cuh): head_dim 384-1024 (a multiple of 128)
+// for every q dtype, payload and group.  Arguments as the whole-group entry
+// points', but passes of `pass_rows` q heads (1-8; every pass live), a
+// cluster of `cluster` blocks (1-8) per (sequence, KV head, pass), block c
+// walking chunks c, c + cluster, ... of `chunk` tokens, `walks` of them;
+// cluster * chunk * walks >= the capacity; for K5 the chunk is whole pages
+// and walks * pages of a chunk <= 1024.  Rows of q, K and V 16-byte aligned.
+
+// K5 at head dims above 256.
+extern "C" int fa_paged_decode_wide(const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
+                                    const void* v_scales, const void* lengths, const void* page_indices, void* out,
+                                    int q_dtype, int kv_dtype, int batch, int hq, int hkv, int passes, int pass_rows,
+                                    int head_dim, int page_size, int pages_per_seq, int len_add, int cluster,
+                                    int chunk, int walks, const long long* strides, float sm_scale, void* stream) {
+  WideParams p{};
+  p.q = q;
+  p.k = k_pages;
+  p.v = v_pages;
+  p.ks = static_cast<const float*>(k_scales);
+  p.vs = static_cast<const float*>(v_scales);
+  p.lengths = static_cast<const int*>(lengths);
+  p.table = static_cast<const int*>(page_indices);
+  p.o = out;
+  p.page_size = page_size;
+  p.pages_per_seq = pages_per_seq;
+  p.len_add = len_add;
+  p.chunk = chunk;
+  p.walks = walks;
+  p.q_scale = 1.f;
+  p.score_scale = sm_scale;
+  if (page_indices == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_wide<true>(p, q_dtype, kv_dtype, batch, hq, hkv, passes, pass_rows, head_dim, cluster, strides,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// K6 at head dims above 256: one layer of the slot-major cache, lengths
+// exclude the current token.
+extern "C" int fa_fused_decode_wide(const void* q, const void* k, const void* v, const void* k_scales,
+                                    const void* v_scales, const void* lengths, void* out, int q_dtype, int kv_dtype,
+                                    int slots, int hq, int hkv, int passes, int pass_rows, int head_dim, int max_len,
+                                    int cluster, int chunk, int walks, const long long* strides, float sm_scale,
+                                    void* stream) {
+  WideParams p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.ks = static_cast<const float*>(k_scales);
+  p.vs = static_cast<const float*>(v_scales);
+  p.lengths = static_cast<const int*>(lengths);
+  p.table = nullptr;
+  p.o = out;
+  p.page_size = max_len;
+  p.pages_per_seq = 1;
+  p.len_add = 1;
+  p.chunk = chunk;
+  p.walks = walks;
+  p.q_scale = sm_scale;
+  p.score_scale = 1.f;
+  return launch_wide<false>(p, q_dtype, kv_dtype, slots, hq, hkv, passes, pass_rows, head_dim, cluster, strides,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of `cluster` blocks of the wide kernel for (q dtype,
+// payload, head_dim, pass_rows, K5 or K6) the card holds at once
+// (cudaOccupancyMaxActiveClusters).  Returns the count, or minus a
+// cudaError_t.
+extern "C" int fa_decode_wide_resident(int q_dtype, int kv_dtype, int head_dim, int pass_rows, int paged,
+                                       int cluster) {
+  if (!fa::decode::wide_head_dim(head_dim) || q_dtype < 0 || q_dtype > 2 || kv_dtype < 0 || kv_dtype > 2 ||
+      pass_rows < 1 || pass_rows > fa::decode::kWMaxRows || cluster < 1 || cluster > fa::decode::kClusterMax)
+    return -(int)cudaErrorInvalidValue;
+  WideParams p{};
+  p.pass_rows = pass_rows;
+  int resident = 0;
+  const cudaError_t e =
+      wide_dispatch(p, q_dtype, kv_dtype, head_dim, paged != 0, cluster, dim3(cluster), nullptr, &resident);
   return e != cudaSuccess ? -(int)e : resident;
 }

@@ -1,10 +1,12 @@
 // One-token decode attention for Hopper (sm_90a): K5, the paged kernel
 // (fa_paged_decode), and K6, the slot-major kernel (fa_fused_decode), two
-// instantiations of one split-KV kernel template.  This header holds the
-// template; decode.cu holds the plain C entry points loaded through ctypes
-// (flash_attention_tpu_torch/kernels/_build.py), and the instantiations are
-// split by q dtype and padded head dim over decode_<fp32|bf16|fp16>_d<D>.cu
-// (18 sources, one nvcc each), so that no one nvcc holds the build up.
+// instantiations of one split-KV kernel template, at head dims up to 256.
+// This header holds the template; decode.cu holds the plain C entry points
+// loaded through ctypes (flash_attention_tpu_torch/kernels/_build.py), and
+// the instantiations are split by q dtype and padded head dim over
+// decode_<fp32|bf16|fp16>_d<D>.cu (12 sources, one nvcc each), so that no
+// one nvcc holds the build up.  Head dims above 256 run decode_wide.cuh, a
+// GQA group above 8 with 16-bit q at D64 / D128 decode_group.cuh.
 //
 // Replaces: flash_attention_tpu/inference/paged_attention.py::_paged_kernel
 // (K5, launched by paged_attention) and
@@ -34,12 +36,10 @@
 // (8, 128) tiles and have no counterpart here.
 //
 // What it takes: q in fp32, bf16 or fp16; K/V in q's dtype, or int8 / fp8
-// e4m3 with scales; any GQA group; head dims 8, 16, 32, 64 and every
-// multiple of 128 up to 1024.  Instantiated widths (Width<D>): D = 32
-// holds d = 8, 16 and 32, D = 512 holds 384, D = 1024 holds 640-896; the
-// columns past d are zero in shared memory and in q, read from nowhere (a
-// cp.async of 0 source bytes), and never stored, so a step's bytes track
-// the true d.
+// e4m3 with scales; any GQA group; head dims 8, 16, 32, 64, 128 and 256.
+// Instantiated widths (Width<D>): D = 32 holds d = 8, 16 and 32; the columns
+// past d are zero in shared memory and in q, read from nowhere (a cp.async
+// of 0 source bytes), and never stored, so a step's bytes track the true d.
 //
 // What bounds it on this card: bytes.  A decode step reads each live
 // token's K and V row once, at 2 FLOPs per byte and q row of the GQA group
@@ -73,14 +73,13 @@
 //     (or 4) of them in flight while the warps compute; a deeper ring for
 //     wider rows fits fewer blocks on an SM and was slower on the H100
 //     (Layout, below);
-//   * above D128 a token's row is split into column slabs (Width<D>::kSlabs:
-//     2 of 128 columns at D256, 4 of 128 or 256 at D512 / D1024), a warp
-//     each: the warps of a slab set take the same tiles, each stages and
+//   * at D256 a token's row is split into column slabs (Width<D>::kSlabs:
+//     2 of 128 columns), a warp each: the warps of a slab set take the same
+//     tiles, each stages and
 //     reads only its own slab of K and V, computes a partial S over it and
 //     P V for its own columns; the partial S are summed through shared
 //     memory in one fixed order (a named barrier of the set per tile), so
-//     every warp of the set holds the same S and the same softmax state.
-//     At fp32 D1024 a warp's ring has one stage (its slab rows are 1 KB);
+//     every warp of the set holds the same S and the same softmax state;
 //   * per tile: S = q K^T with (slab width) / 8 lanes per token, the group's
 //     q rows held in registers in fp32 and the lanes' partial sums
 //     reduce-scattered across the group's rows by shuffles, or, for a GQA
@@ -143,9 +142,9 @@ struct DecodeParams {
 // (8 at D32, whose int8/fp8 rows at d = 8 are 8 bytes).
 template <int D>
 struct Width {
-  static_assert(D == 32 || D == 64 || D == 128 || D == 256 || D == 512 || D == 1024, "instantiated head dims");
-  static constexpr bool kPadded = D == 32 || D == 512 || D == 1024;
-  static constexpr int kSlabs = D <= 128 ? 1 : (D == 256 ? 2 : 4);
+  static_assert(D == 32 || D == 64 || D == 128 || D == 256, "instantiated head dims");
+  static constexpr bool kPadded = D == 32;
+  static constexpr int kSlabs = D <= 128 ? 1 : 2;
   static constexpr int kCols = D / kSlabs;  // columns of a slab
   static constexpr int kCopy = D == 32 ? 8 : 16;
 };
@@ -154,8 +153,6 @@ struct Width {
 inline int instantiated_width(int d) {
   if (d == 8 || d == 16 || d == 32) return 32;
   if (d == 64 || d == 128 || d == 256) return d;
-  if (d == 384 || d == 512) return 512;
-  if (d > 512 && d <= 1024 && d % 128 == 0) return 1024;
   return 0;
 }
 
@@ -266,19 +263,13 @@ __device__ __forceinline__ float reduce_scatter(float (&s)[G], int j) {
   return s[0];
 }
 
-// The A fragment of mma.m16n8k16 from 4 contiguous elements of a K row in
-// shared memory: lo = (e0, e1), hi = (e2, e3) as T pairs (bf16 or fp16),
-// exact for every payload type (int8 through the exact float, whose high
-// half is its bf16; fp8 through the fp8x2 -> half2 conversion).
+// 4 bytes of an 8-bit payload (e0 in the low byte) as T pairs (bf16 or
+// fp16): lo = (e0, e1), hi = (e2, e3), exact (int8 through the exact float,
+// whose high half is its bf16; fp8 through the fp8x2 -> half2 conversion).
 template <typename T, typename KV>
-__device__ __forceinline__ void a_frag(const unsigned char* s, uint32_t& lo, uint32_t& hi) {
-  if constexpr (sizeof(KV) == 2) {
-    static_assert(std::is_same<KV, T>::value, "a 16-bit payload is q's dtype");
-    const uint2 r = *reinterpret_cast<const uint2*>(s);
-    lo = r.x;
-    hi = r.y;
-  } else if constexpr (std::is_same<KV, int8_t>::value) {
-    const uint32_t u = *reinterpret_cast<const uint32_t*>(s) ^ 0x80808080u;  // x + 128, a byte each
+__device__ __forceinline__ void cvt4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  if constexpr (std::is_same<KV, int8_t>::value) {
+    const uint32_t u = w ^ 0x80808080u;  // x + 128, a byte each
     float f[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) f[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + e)) - 8388736.f;
@@ -291,7 +282,6 @@ __device__ __forceinline__ void a_frag(const unsigned char* s, uint32_t& lo, uin
     }
   } else {
     static_assert(std::is_same<KV, __nv_fp8_e4m3>::value, "16-bit q reads its own dtype, int8 or fp8 K");
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(s);
     uint32_t out[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -305,6 +295,21 @@ __device__ __forceinline__ void a_frag(const unsigned char* s, uint32_t& lo, uin
     }
     lo = out[0];
     hi = out[1];
+  }
+}
+
+// The A fragment of mma.m16n8k16 from 4 contiguous elements of a K row in
+// shared memory: lo = (e0, e1), hi = (e2, e3) as T pairs (bf16 or fp16),
+// exact for every payload type.
+template <typename T, typename KV>
+__device__ __forceinline__ void a_frag(const unsigned char* s, uint32_t& lo, uint32_t& hi) {
+  if constexpr (sizeof(KV) == 2) {
+    static_assert(std::is_same<KV, T>::value, "a 16-bit payload is q's dtype");
+    const uint2 r = *reinterpret_cast<const uint2*>(s);
+    lo = r.x;
+    hi = r.y;
+  } else {
+    cvt4<T, KV>(*reinterpret_cast<const uint32_t*>(s), lo, hi);
   }
 }
 
@@ -331,15 +336,14 @@ __device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4], con
 // enough blocks fit on an SM for the other warps to hide a warp's wait:
 // with 3 stages for 128-byte rows a block takes 51 KB instead of 35, 4
 // blocks fit an SM instead of 6, and a long context on a bf16 cache at D64
-// ran slower on the H100.  Rings above 128 KB a block (fp32 at D1024: 1 KB
-// slab rows) get one stage.  With column slabs the partial S are
+// ran slower on the H100.  With column slabs (D256) the partial S are
 // double-buffered (a set's warps write tile j + 1's while a slower one
 // still reads tile j's).
 template <typename KV, int D, int kMaxG>
 struct Layout {
   static constexpr int kRow = Width<D>::kCols * (int)sizeof(KV);   // bytes of a K or V slab row
   static constexpr int kStage = kTile * kRow;                      // bytes of a K or V tile
-  static constexpr int kStages = kRow <= 64 ? 4 : (kWarps * 2 * 2 * kStage <= 128 * 1024 ? 2 : 1);
+  static constexpr int kStages = kRow <= 64 ? 4 : 2;
   static constexpr int kRing = 2 * kStages * kStage;               // a warp's K and V rings
   static constexpr int kSBufs = Width<D>::kSlabs > 1 ? 2 : 1;
   static constexpr int kScales = kWarps * kRing;                   // [warp][2][stage][kTile] fp32
@@ -481,12 +485,10 @@ decode_kernel(const DecodeParams p) {
     cp_async_commit();
   };
 
-  if constexpr (S > 1) {
 #pragma unroll
-    for (int j = 0; j < S - 1; ++j) {
-      if (j < mytiles) issue(j, j);
-      else cp_async_commit();  // empty groups keep the wait counts uniform
-    }
+  for (int j = 0; j < S - 1; ++j) {
+    if (j < mytiles) issue(j, j);
+    else cp_async_commit();  // empty groups keep the wait counts uniform
   }
 
   // kMma: S^T = K q^T on the tensor cores (mma.sync m16n8k16, fp32
@@ -543,17 +545,10 @@ decode_kernel(const DecodeParams p) {
 
   for (int j = 0; j < mytiles; ++j) {
     const int stage = j % S;
-    if constexpr (S == 1) {
-      __syncwarp();  // the warp is done with tile j - 1's slot
-      issue(j, 0);
-      cp_async_wait<0>();
-      __syncwarp();
-    } else {
-      cp_async_wait<S - 2>();
-      __syncwarp();  // the tile has landed; the warp is done with tile j - 1's slot
-      if (j + S - 1 < mytiles) issue(j + S - 1, (j + S - 1) % S);
-      else cp_async_commit();
-    }
+    cp_async_wait<S - 2>();
+    __syncwarp();  // the tile has landed; the warp is done with tile j - 1's slot
+    if (j + S - 1 < mytiles) issue(j + S - 1, (j + S - 1) % S);
+    else cp_async_commit();
     const unsigned char* sK = ring + stage * L::kStage;
     const unsigned char* sV = ring + (S + stage) * L::kStage;
     const int buf = L::kSBufs > 1 ? j & 1 : 0;
@@ -816,11 +811,10 @@ cudaError_t launch_width(const DecodeParams& p, int kv_dtype, bool paged, dim3 g
   return cudaErrorInvalidValue;
 }
 
-#define FA_DECODE_WIDTHS(X)                                                                              \
-  X(float, 32) X(float, 64) X(float, 128) X(float, 256) X(float, 512) X(float, 1024)                     \
-  X(__nv_bfloat16, 32) X(__nv_bfloat16, 64) X(__nv_bfloat16, 128) X(__nv_bfloat16, 256)                 \
-  X(__nv_bfloat16, 512) X(__nv_bfloat16, 1024)                                                           \
-  X(__half, 32) X(__half, 64) X(__half, 128) X(__half, 256) X(__half, 512) X(__half, 1024)
+#define FA_DECODE_WIDTHS(X)                                                                      \
+  X(float, 32) X(float, 64) X(float, 128) X(float, 256)                                          \
+  X(__nv_bfloat16, 32) X(__nv_bfloat16, 64) X(__nv_bfloat16, 128) X(__nv_bfloat16, 256)         \
+  X(__half, 32) X(__half, 64) X(__half, 128) X(__half, 256)
 
 }  // namespace decode
 }  // namespace fa

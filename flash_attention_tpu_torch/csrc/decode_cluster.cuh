@@ -1,0 +1,153 @@
+// What the two cluster decode kernels share: the whole-group kernel
+// (decode_group.cuh) and the wide kernel (decode_wide.cuh) both run a
+// (sequence, KV head, pass) as one thread-block cluster whose blocks walk
+// interleaved chunks of the capacity, and both end in the same merge of the
+// blocks' softmax states over distributed shared memory.  This header holds
+// the cluster's limits, ldmatrix, the merge and the launch.
+#pragma once
+
+#include "decode.cuh"
+#include "sm90.cuh"
+
+namespace fa {
+namespace decode {
+
+constexpr int kClusterMax = 8;          // blocks of a cluster: any of 1-8 (portable sizes)
+constexpr int kClusterMaxPages = 1024;  // page ids a block stages (K5; the host keeps to it)
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Four 8x8 16-bit matrices from shared memory: lanes 8i .. 8i + 7 give the
+// row addresses of matrix i; .trans transposes each.
+template <bool kTrans>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  if constexpr (kTrans) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+  }
+}
+
+// The end of a cluster kernel.  Each block of the cluster (C blocks, this
+// one `rank`) holds its state for the pass's G rows in its own shared
+// memory: acc [row][D] fp32 at `state`, m and l [row] at `state_m` and
+// `state_l`.  After a cluster barrier each block weighs the rows once,
+// e^(m_r - M) for each block r (a row takes C lanes, rounded up to a power of
+// two, reduced by shuffles; a block without tokens, m = -inf, adds nothing),
+// into `weights` [row][kClusterMax] and the rows' l into `sums` [row]; then
+// it merges its slice of the rows x the first d columns, 4 columns a
+// thread, reading its peers' states over distributed shared memory in rank
+// order, and writes out[g * o_sh + c] in T with the l == 0 guard.  The
+// second cluster barrier keeps every block until its peers have read it.
+// Every thread of the block calls it.
+template <typename T, int kThreads, int D>
+__device__ __forceinline__ void cluster_merge(const float* state, const float* state_m, const float* state_l,
+                                              float* weights, float* sums, int G, int d, int C, int rank, int tid,
+                                              T* out, long long o_sh) {
+  static_assert(kThreads % 32 == 0, "whole warps: the shuffles need them");
+  sm90::cluster_sync();
+  int lanes = 1;  // lanes a row: a power of two, so that a row's lanes sit in one warp
+  while (lanes < C) lanes *= 2;
+  for (int i = tid; i < ((G * lanes + 31) / 32) * 32; i += kThreads) {
+    const int g = i / lanes, r = i % lanes;
+    const bool ok = g < G && r < C;
+    const float m = ok ? ld_cluster_f32(sm90::cluster_addr(state_m + g, r)) : -CUDART_INF_F;
+    const float l = ok ? ld_cluster_f32(sm90::cluster_addr(state_l + g, r)) : 0.f;
+    float mx = m;
+    for (int off = 1; off < lanes; off *= 2) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+    const float w = m == -CUDART_INF_F ? 0.f : expf(m - mx);
+    float lw = l * w;
+    for (int off = 1; off < lanes; off *= 2) lw += __shfl_xor_sync(kFull, lw, off);
+    if (ok) {
+      weights[g * kClusterMax + r] = w;
+      if (r == 0) sums[g] = lw == 0.f ? 1.f : lw;
+    }
+  }
+  __syncthreads();
+  const int d4 = d / 4;
+  for (int e = rank * kThreads + tid; e < G * d4; e += C * kThreads) {
+    const int g = e / d4, c4 = e % d4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < C; ++r) {
+      const float w = weights[g * kClusterMax + r];
+      const float4 x = ld_cluster_f4(sm90::cluster_addr(state + g * D + c4 * 4, r));
+      acc.x += x.x * w;
+      acc.y += x.y * w;
+      acc.z += x.z * w;
+      acc.w += x.w * w;
+    }
+    const float l = sums[g];
+    if constexpr (std::is_same<T, float>::value) {
+      *reinterpret_cast<float4*>(out + g * o_sh + c4 * 4) = make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
+    } else {
+      uint2 o;
+      o.x = Pack<T>::two(acc.x / l, acc.y / l);
+      o.y = Pack<T>::two(acc.z / l, acc.w / l);
+      *reinterpret_cast<uint2*>(out + g * o_sh + c4 * 4) = o;
+    }
+  }
+  sm90::cluster_sync();  // no block leaves while a peer reads its state
+}
+
+// Launches kKernel in clusters of `cluster` blocks of kThreads threads and
+// kBytes of dynamic shared memory, or with `resident` non-null only writes
+// there how many such clusters the card holds at once (the host's split
+// keeps a step's clusters within that: a cluster left for a second wave
+// doubles the step's time).
+template <typename Params, void (*kKernel)(Params), int kThreads, int kBytes>
+cudaError_t cluster_launch(const Params& p, int cluster, dim3 grid, cudaStream_t s, int* resident) {
+  // once per device: the opt-in shared memory, and all of an SM's shared
+  // memory as such (so that two blocks of about 100 KB share an SM)
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64 || !done[dev]) {
+    e = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kKernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    if (dev < 64) done[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kBytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (resident != nullptr) return cudaOccupancyMaxActiveClusters(resident, kKernel, &cfg);
+  const cudaError_t launched = cudaLaunchKernelEx(&cfg, kKernel, p);
+  return launched != cudaSuccess ? launched : cudaGetLastError();
+}
+
+}  // namespace decode
+}  // namespace fa

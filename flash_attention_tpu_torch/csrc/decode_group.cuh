@@ -8,9 +8,9 @@
 //
 // Replaces, for those configurations: flash_attention_tpu/inference/
 // paged_attention.py::_paged_kernel (K5) and flash_attention_tpu/inference/
-// decode_attention.py::_fused_kernel (K6).  Every other configuration (groups
-// of up to 8, fp32 q, head dims 8-32 and 256-1024) runs decode.cuh's group
-// tiles.  The function and its rounding points are decode.cuh's: S = q K^T in
+// decode_attention.py::_fused_kernel (K6).  Head dims above 256 run
+// decode_wide.cuh; every other configuration (groups of up to 8, fp32 q, head
+// dims 8-32 and 256) decode.cuh's group tiles.  The function and its rounding points are decode.cuh's: S = q K^T in
 // fp32 (K5: * sm_scale; K6: q pre-scaled by sm_scale and rounded to q's
 // dtype), times the token's k_scale; natural exp and an online softmax in
 // fp32; p * v_scale rounded to q's dtype before P V; an int8 / fp8 payload
@@ -52,17 +52,18 @@
 //     slot is free as soon as S is done;
 //   * enough blocks: the blocks of one (sequence, KV head, pass) form one
 //     thread-block cluster of `cluster` blocks, the most up to 8 whose
-//     clusters the card holds all at once (`paged_attention.decode_group_split`
+//     clusters the card holds all at once (`paged_attention.decode_cluster_split`
 //     reads cudaOccupancyMaxActiveClusters through fa_decode_group_resident:
 //     a cluster left for a second wave doubles the step).  The capacity is
 //     cut into chunks of one 128-token stage (whole pages for K5), never by
 //     the lengths; block c of a cluster walks chunks c, c + cluster, ...
 //     through one ring of 2-4 stages, all in flight, with one online state;
-//   * a parallel merge in the cluster: each block's state (m, l, acc) is in
-//     its own shared memory; after a cluster barrier each block weighs the
-//     group's rows once (C lanes a row, shuffles), then merges its slice of
-//     the rows x columns, 4 columns a thread, reading its peers' states over
-//     distributed shared memory in rank order, and writes the output.  No
+//   * a parallel merge in the cluster (decode_cluster.cuh's cluster_merge,
+//     shared with the wide kernel): each block's state (m, l, acc) is in its
+//     own shared memory; after a cluster barrier each block weighs the
+//     group's rows once, then merges its slice of the rows x columns, 4
+//     columns a thread, reading its peers' states over distributed shared
+//     memory in rank order, and writes the output.  No
 //     global workspace, no arrival counter, no serial last block: a block
 //     with no live token publishes m = -inf, l = 0 and stays for both cluster
 //     barriers (a block must not leave while a peer reads it).
@@ -72,6 +73,7 @@
 #pragma once
 
 #include "decode.cuh"
+#include "decode_cluster.cuh"
 #include "sm90.cuh"
 
 namespace fa {
@@ -79,8 +81,6 @@ namespace decode {
 
 constexpr int kGWarps = 8;                // warps of a block
 constexpr int kGThreads = kGWarps * 32;
-constexpr int kGMaxPages = 1024;          // page ids a block stages (K5; the host keeps to it)
-constexpr int kGMaxCluster = 16;          // blocks of a cluster (above 8 non-portable)
 constexpr int kGMaxRows = kGWarps * 16;   // q heads of a pass: a row tile of 16 a warp
 
 struct GroupParams {
@@ -126,52 +126,16 @@ struct GroupLayout {
   static constexpr int kMax = kP + kRW * 16 * kTok * 2;           // [kRW][kSub][16] fp32
   static constexpr int kSum = kMax + kRW * kSub * 16 * 4;         // [kRW][kSub][16] fp32
   static constexpr int kTable = kSum + kRW * kSub * 16 * 4;
-  static constexpr int kBytes = kTable + kGMaxPages * 4;
+  static constexpr int kBytes = kTable + kClusterMaxPages * 4;
   static constexpr int kRows = kRW * 16;
   static constexpr int kStateM = kRows * D * 4;                    // over the ring: acc, m, l
   static constexpr int kStateL = kStateM + kRows * 4;
   static constexpr int kWeights = kStateL + kRows * 4;             // [row][block]
-  static constexpr int kSums = kWeights + kRows * kGMaxCluster * 4;  // [row]
+  static constexpr int kSums = kWeights + kRows * kClusterMax * 4;  // [row]
   static_assert(kSums + kRows * 4 <= kRing, "the merge's state fits over the ring");
   static_assert(D <= kTok, "q's rows fit over the P tiles");
   static_assert(kBytes <= 227 * 1024, "shared memory of a block");
 };
-
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t n;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
-  return n;
-}
-
-__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(addr)
-               : "memory");
-  return v;
-}
-
-// Four 8x8 16-bit matrices from shared memory: lanes 8i .. 8i + 7 give the
-// row addresses of matrix i; .trans transposes each.
-template <bool kTrans>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  if constexpr (kTrans) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-  } else {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-  }
-}
 
 // 4 payload bytes (elements e0..e3) as two pairs of T, exactly: int8 into
 // fp16 through the half 1024 + (x + 128), built by a byte permute, minus
@@ -215,7 +179,6 @@ __global__ void __launch_bounds__(kGThreads) group_kernel(const GroupParams p) {
   constexpr int kChunks = L::kRow / 16;          // 16-byte copies of a payload row
   constexpr int kRowStep = kGThreads / kChunks;  // rows between a thread's copies
   constexpr int kKs = D / 16;                    // k-steps of S
-  constexpr int kD4 = D / 4;                     // float4 columns of a state row
   static_assert(D == 64 || D == 128, "head dims 64 and 128");
   static_assert(sizeof(KV) == 1 || std::is_same<KV, T>::value, "a 16-bit payload is q's dtype");
   static_assert(kKs % 2 == 0 && kRowStep % 8 == 0 && kTok % kRowStep == 0 && kW >= 8, "tiling");
@@ -623,88 +586,18 @@ __global__ void __launch_bounds__(kGThreads) group_kernel(const GroupParams p) {
     }
   }
 
-  // Every block's state is in.  Each block weighs the group's rows once,
-  // e^(m_r - M) for each block r of the cluster (C lanes a row, reduced by
-  // shuffles), then merges its slice of the group's rows x columns, the
-  // blocks in rank order, and writes the output.
-  sm90::cluster_sync();
-  float* weights = reinterpret_cast<float*>(smem + L::kWeights);
-  float* sums = reinterpret_cast<float*>(smem + L::kSums);
-  for (int i = tid; i < ((G * C + 31) / 32) * 32; i += kGThreads) {  // whole warps: the shuffles need them
-    const int g = i / C, r = i % C;
-    const bool ok = g < G;
-    const float m = ok ? ld_cluster_f32(sm90::cluster_addr(state_m + g, r)) : -CUDART_INF_F;
-    const float l = ok ? ld_cluster_f32(sm90::cluster_addr(state_l + g, r)) : 0.f;
-    float mx = m;
-    for (int off = 1; off < C; off *= 2) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-    const float w = m == -CUDART_INF_F ? 0.f : expf(m - mx);  // a block without tokens adds nothing
-    float lw = l * w;
-    for (int off = 1; off < C; off *= 2) lw += __shfl_xor_sync(kFull, lw, off);
-    if (ok) {
-      weights[i] = w;
-      if (r == 0) sums[g] = lw == 0.f ? 1.f : lw;
-    }
-  }
-  __syncthreads();
-  T* go = static_cast<T*>(p.o) + b * p.o_sb + ((long long)hk * p.group + g0) * p.o_sh;
-  for (int e = rank * kGThreads + tid; e < G * kD4; e += C * kGThreads) {
-    const int g = e / kD4, c4 = e % kD4;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int r = 0; r < C; ++r) {
-      const float w = weights[g * C + r];
-      const float4 x = ld_cluster_f4(sm90::cluster_addr(state + g * D + c4 * 4, r));
-      acc.x += x.x * w;
-      acc.y += x.y * w;
-      acc.z += x.z * w;
-      acc.w += x.w * w;
-    }
-    const float l = sums[g];
-    uint2 out;
-    out.x = Pack<T>::two(acc.x / l, acc.y / l);
-    out.y = Pack<T>::two(acc.z / l, acc.w / l);
-    *reinterpret_cast<uint2*>(go + g * p.o_sh + c4 * 4) = out;
-  }
-  sm90::cluster_sync();  // no block leaves while a peer reads its state
+  // Every block's state is in: merge them over the cluster and write the
+  // output.
+  cluster_merge<T, kGThreads, D>(state, state_m, state_l, reinterpret_cast<float*>(smem + L::kWeights),
+                                 reinterpret_cast<float*>(smem + L::kSums), G, D, C, rank, tid,
+                                 static_cast<T*>(p.o) + b * p.o_sb + ((long long)hk * p.group + g0) * p.o_sh,
+                                 p.o_sh);
 }
 
-// Launches the kernel, or with `resident` non-null only writes there how
-// many clusters of `cluster` blocks the card holds at once (the host's split
-// keeps a step's clusters within that: a cluster left for a second wave
-// doubles the step's time).
 template <typename T, typename KV, int D, int kRW, bool kPaged>
 cudaError_t group_launch_one(const GroupParams& p, int cluster, dim3 grid, cudaStream_t s, int* resident) {
-  constexpr int bytes = GroupLayout<KV, D, kRW>::kBytes;
-  auto kernel = group_kernel<T, KV, D, kRW, kPaged>;
-  // once per device: the opt-in shared memory, all of an SM's shared memory
-  // as such (so that two blocks of about 100 KB share an SM) and clusters
-  // above 8
-  static bool done[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= 64 || !done[dev]) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
-    if (e == cudaSuccess) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return e;
-    if (dev < 64) done[dev] = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kGThreads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (resident != nullptr) return cudaOccupancyMaxActiveClusters(resident, kernel, &cfg);
-  const cudaError_t launched = cudaLaunchKernelEx(&cfg, kernel, p);
-  return launched != cudaSuccess ? launched : cudaGetLastError();
+  return cluster_launch<GroupParams, group_kernel<T, KV, D, kRW, kPaged>, kGThreads, GroupLayout<KV, D, kRW>::kBytes>(
+      p, cluster, grid, s, resident);
 }
 
 // The row-tile groups (kRW) of a pass of `rows` q heads: its m16 row tiles

@@ -24,15 +24,25 @@ as pages [kv_heads, total_pages, page_size, head_dim]; each sequence owns a
 both kernels are one template in `csrc/decode.cuh`, with two entry points in
 `csrc/decode.cu`.  They take fp32, bf16 and fp16 q, any GQA group (split
 into group tiles of at most 8 q heads, `group_tiles`) and head dims 8, 16,
-32, 64 and every multiple of 128 up to 1024 (`HEAD_DIMS`).  A GQA group
-above 8 with bf16 or fp16 q at head dim 64 or 128 (`uses_group_kernel`:
+32, 64, 128 and 256.  Head dims above 256 (384-1024, `uses_wide_kernel`, for
+every q dtype and group) run the wide kernels of `csrc/decode_wide.cuh`
+(`fa_paged_decode_wide`, `fa_fused_decode_wide`; launch keys
+"paged_decode_wide" / "fused_decode_wide"): a (sequence, KV head, pass of at
+most 8 q heads) is a thread-block cluster whose blocks walk chunks of one
+stage and merge over distributed shared memory, a producer warp keeping
+several stages in flight with bulk copies; their plan
+in plain PyTorch is `paged_attention_group_ref` at the wide split's cluster
+and chunk.  `HEAD_DIMS` lists every head dim the decode kernels take.  A GQA
+group above 8 with bf16 or fp16 q at head dim 64 or 128 (`uses_group_kernel`:
 multi-query attention, Falcon-40B's 16 q heads a KV head) runs instead the
 whole-group kernels of `csrc/decode_group.cuh` (`fa_paged_decode_group`,
 `fa_fused_decode_group`; launch keys "paged_decode_group" /
 "fused_decode_group"): the whole group in one block, S and P V on
 `mma.sync`, and a (sequence, KV head)'s blocks merged in a thread-block
-cluster (`decode_group_split`), with no workspace; their chunk-and-merge
-plan in plain PyTorch is `paged_attention_group_ref`.
+cluster, with no workspace; their chunk-and-merge plan in plain PyTorch is
+`paged_attention_group_ref`.  Both cluster kernels share their merge and
+launch (`csrc/decode_cluster.cuh`) and their plan (`cluster_plan`, split by
+`decode_cluster_split`).
 The TPU kernel's `pages_per_compute_block` (pages per DMA step) has no
 counterpart: the CUDA kernel's chunks are set by the split.
 """
@@ -52,8 +62,9 @@ from ..kernels.vanilla import DEFAULT_MASK_VALUE
 from ..quant.kv import QUANT_DTYPES
 
 __all__ = [
-    "decode_group_split", "decode_split", "group_passes", "group_tiles", "paged_attention", "paged_attention_group_ref",
-    "paged_attention_ref", "paged_attention_split_ref", "uses_group_kernel",
+    "cluster_plan", "decode_cluster_split", "decode_split", "group_passes", "group_tiles", "paged_attention",
+    "paged_attention_group_ref", "paged_attention_ref", "paged_attention_split_ref", "uses_group_kernel",
+    "uses_wide_kernel", "wide_passes", "wide_tokens",
 ]
 
 _Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # what csrc/decode.cuh instantiates
@@ -72,14 +83,27 @@ MAX_ROWS = 8
 MAX_SPLITS = 64
 MAX_CHUNK_UNITS = 256
 BLOCKS_PER_SM = 4  # the blocks per SM the split aims at over the whole capacity
+# csrc/decode_cluster.cuh's limits, shared by the whole-group and the wide
+# kernels: blocks of a cluster at most (kClusterMax; the kernels take any
+# size up to it), page ids a block stages (kClusterMaxPages)
+CLUSTER_MAX = 8
+CLUSTER_MAX_PAGES = 1024
+# the cluster sizes the split may choose for each cluster kernel.  The wide
+# kernel takes any (one block an SM: 16 pairs run clusters of 6, where 15 of
+# 7 or 8 fit).  The whole-group kernel's blocks share SMs two at a time, and
+# there a size between the powers of two was slower: Falcon-40B's K5 layer
+# (64 pairs, 16 chunks) in clusters of 3 against 2 (PERF.md §6,
+# `tools/decode_ab.py --cluster 3`)
+CLUSTER_SIZES = {"group": (1, 2, 4, 8), "wide": tuple(range(1, CLUSTER_MAX + 1))}
 # csrc/decode_group.cuh's plan: tokens of a ring stage (GroupLayout::kTok; a
-# chunk holds at least one), blocks of a cluster at most (8: the portable
-# size), page ids a block stages (kGMaxPages), q heads of a pass (kGMaxRows,
-# 8 row tiles of 16)
+# chunk holds at least one), q heads of a pass (kGMaxRows, 8 row tiles of 16)
 GROUP_TOKENS = 128
-GROUP_CLUSTER = 8
-GROUP_MAX_PAGES = 1024
 GROUP_MAX_ROWS = 128
+# csrc/decode_wide.cuh's plan: bytes of a K (or V) ring slot at most
+# (kWSlotBytes; a stage is at most 32 tokens of padded rows), q heads of a
+# pass (kWMaxRows)
+WIDE_SLOT_BYTES = 65536
+WIDE_MAX_ROWS = 8
 
 
 def paged_attention_ref(
@@ -165,11 +189,12 @@ def paged_attention_group_ref(
     sm_scale: float | None = None,
     prescale_q: bool = False,
 ) -> torch.Tensor:
-    """Plain version of the whole-group kernels' plan (`csrc/decode_group.cuh`):
-    the whole GQA group at once; each sequence's capacity in chunks of
-    `chunk` tokens (`decode_group_split`), block c of a cluster of `cluster`
-    taking chunks c, c + cluster, ... and merging their softmax states in
-    walk order into its own (m, l, acc); then the cluster's merge, the
+    """Plain version of the cluster kernels' plan (`csrc/decode_group.cuh`,
+    `csrc/decode_wide.cuh`): the whole GQA group at once; each sequence's
+    capacity in chunks of `chunk` tokens (`decode_cluster_split`), block c
+    of a cluster of `cluster` taking chunks c, c + cluster, ... and merging
+    their softmax states in walk order into its own (m, l, acc); then the
+    cluster's merge, the
     blocks' states in rank order, with the l == 0 guard.  A block whose
     chunks hold no live token has m = -inf, l = 0 and adds nothing.
     Scoring, rounding and `prescale_q` as `paged_attention_split_ref`."""
@@ -278,9 +303,9 @@ def decode_split(capacity: int, pairs: int, unit: int, sms: int) -> tuple[int, i
 def uses_group_kernel(q_dtype: torch.dtype, head_dim: int, group: int) -> bool:
     """Whether a decode call runs the whole-group kernels
     (`csrc/decode_group.cuh`): a GQA group above MAX_ROWS (8) q heads with
-    bf16 or fp16 q at head dim 64 or 128.  Every other configuration (groups
-    of up to 8, fp32 q, head dims 8-32 and 256-1024) runs the group tiles of
-    `csrc/decode.cuh`."""
+    bf16 or fp16 q at head dim 64 or 128.  Head dims above 256 run the wide
+    kernels (`uses_wide_kernel`); every other configuration (groups of up to
+    8, fp32 q, head dims 8-32 and 256) the group tiles of `csrc/decode.cuh`."""
     return q_dtype in (torch.bfloat16, torch.float16) and head_dim in (64, 128) and group > MAX_ROWS
 
 
@@ -295,60 +320,106 @@ def group_passes(group: int) -> tuple[int, int]:
     return passes, 16 * -(-tiles // passes)
 
 
-def decode_group_split(capacity: int, pairs: int, unit: int, resident: dict[int, int],
-                       paged: bool) -> tuple[int, int, int]:
-    """(cluster, chunk, walks) of the whole-group kernels: the blocks of a
-    (sequence, KV head, pass)'s cluster, the tokens of a chunk, and the
-    chunks each block walks (block c takes chunks c, c + cluster, ...).
-    Chosen from the cache's capacity, the number of those `pairs` and what
-    the card holds at once (`resident`: cluster size -> clusters of that
-    size resident together, from the SM count and each block's registers
-    and shared memory), never from the lengths.  A chunk is one ring stage
-    (GROUP_TOKENS) rounded up to whole `unit`s (K5's page size; K6 passes
-    GROUP_TOKENS), so that the live tokens of a sequence spread evenly over
-    its cluster.  The cluster is the largest power of two up to
-    GROUP_CLUSTER whose clusters all fit the card at once (one wave: a
-    cluster left for a second wave doubles a step's time) and that leaves
-    each block a chunk; K5 (`paged`) stages a block's page ids, at most
-    GROUP_MAX_PAGES, which may ask for a larger cluster.  SantaCoder's layer
-    (8 slots, one KV head, 2048 tokens) on an H100: 8 clusters of 8, each
-    block walking 2 chunks of 128 tokens (K5: a page of 128 each);
-    Falcon-40B's (64 pairs at D64): clusters of 2, since 64 clusters of 4
-    do not fit at once (62 do)."""
-    chunk = -(-GROUP_TOKENS // unit) * unit
+def uses_wide_kernel(q_dtype: torch.dtype, head_dim: int, group: int) -> bool:
+    """Whether a decode call runs the wide kernels (`csrc/decode_wide.cuh`):
+    every head dim above 256 (384-1024, run at 512 or 1024), for every q
+    dtype and GQA group."""
+    return head_dim > 256
+
+
+def wide_tokens(head_dim: int, itemsize: int) -> int:
+    """Tokens of a stage of the wide kernels (`WideLayout::kTok`) for a
+    payload of `itemsize` bytes: as many padded rows (512 or 1024 columns) as
+    fill a 64 KB ring slot, at most 32: 32 for every 8- and 16-bit payload,
+    16 for fp32 at 1024."""
+    row = (512 if head_dim <= 512 else 1024) * itemsize
+    return min(32, WIDE_SLOT_BYTES // row)
+
+
+def wide_passes(group: int) -> tuple[int, int]:
+    """(passes, rows): the wide kernels hold at most WIDE_MAX_ROWS (8) q
+    heads a block; a larger group runs in `passes` passes of `rows` q heads
+    (as even as they go; the last may hold fewer), a cluster each: 4 -> (1,
+    4), 16 -> (2, 8), 71 -> (9, 8), 12 -> (2, 6)."""
+    passes = -(-group // WIDE_MAX_ROWS)
+    return passes, -(-group // passes)
+
+
+def decode_cluster_split(capacity: int, pairs: int, unit: int, resident: dict[int, int], paged: bool,
+                         tokens: int) -> tuple[int, int, int]:
+    """(cluster, chunk, walks) of the cluster kernels (the whole-group and
+    the wide kernels): the blocks of a (sequence, KV head, pass)'s cluster,
+    the tokens of a chunk, and the chunks each block walks (block c takes
+    chunks c, c + cluster, ...).  Chosen from the cache's capacity, the
+    number of those `pairs` and what the card holds at once (`resident`:
+    cluster size -> clusters of that size of this kernel resident together,
+    from the SM count and each block's registers and shared memory), never
+    from the lengths; its keys are the sizes the kernel may take,
+    CLUSTER_SIZES).  A chunk is one ring stage of the kernel (`tokens`:
+    GROUP_TOKENS, or `wide_tokens`) rounded up to whole `unit`s (K5's page
+    size; K6 passes the stage), so that the live tokens of a sequence spread
+    evenly over its cluster.  The cluster is the largest of those sizes
+    whose clusters all fit the card at once (one wave: a cluster left for a
+    second wave doubles a step's time) and that leaves each block a chunk;
+    K5 (`paged`) stages a block's page ids, at most CLUSTER_MAX_PAGES, which
+    may ask for a larger cluster.  On an H100: SantaCoder's layer (8 slots,
+    one KV head, 2048 tokens, the whole-group kernel) 8 clusters of 8, each
+    block walking 2 chunks of 128 tokens; 16 pairs of the wide kernel
+    clusters of 6 (17 of 6 fit at once, 15 of 7 or 8), 96 blocks."""
+    chunk = -(-tokens // unit) * unit
     chunks = -(-capacity // chunk)
-    cluster = 1
-    while cluster < GROUP_CLUSTER and cluster * 2 <= chunks and pairs <= resident.get(cluster * 2, 0):
-        cluster *= 2
-    while paged and cluster < GROUP_CLUSTER and -(-chunks // cluster) * (chunk // unit) > GROUP_MAX_PAGES:
-        cluster *= 2
+    sizes = sorted(c for c in resident if c <= CLUSTER_MAX)
+    cluster = max((c for c in sizes if c <= chunks and pairs <= resident[c]), default=1)
+    while paged and cluster < max(sizes, default=1) and -(-chunks // cluster) * (chunk // unit) > CLUSTER_MAX_PAGES:
+        cluster = min(c for c in sizes if c > cluster)
     walks = -(-chunks // cluster)
-    if paged and walks * (chunk // unit) > GROUP_MAX_PAGES:
+    if paged and walks * (chunk // unit) > CLUSTER_MAX_PAGES:
         raise NotImplementedError(
-            f"the whole-group decode kernel stages at most {GROUP_MAX_PAGES} page ids a block, {GROUP_CLUSTER} "
-            f"blocks a sequence; a capacity of {capacity} tokens in pages of {unit} needs {walks * (chunk // unit)}"
+            f"the cluster decode kernels stage at most {CLUSTER_MAX_PAGES} page ids a block, {CLUSTER_MAX} blocks "
+            f"a sequence; a capacity of {capacity} tokens in pages of {unit} needs {walks * (chunk // unit)}"
         )
     return cluster, chunk, walks
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_clusters(index: int, q_code: int, kv_code: int, d: int, rows: int, paged: bool) -> dict[int, int]:
-    """What `decode_group_split` reads: for each cluster size up to
-    GROUP_CLUSTER, how many clusters of the whole-group kernel for this
-    configuration the card `index` holds at once (asked of the CUDA
-    runtime once per configuration)."""
+def _resident_clusters(kind: str, index: int, q_code: int, kv_code: int, d: int, rows: int,
+                       paged: bool) -> dict[int, int]:
+    """What `decode_cluster_split` reads: for each cluster size the `kind`
+    ("group" or "wide") kernel may take (CLUSTER_SIZES), how many clusters
+    of it for this configuration the card `index` holds at once (asked of
+    the CUDA runtime once per configuration)."""
     from ..kernels._build import library
 
+    query = getattr(library(), f"fa_decode_{kind}_resident")
     resident = {}
     with _on(torch.device("cuda", index)):
-        for cluster in (1, 2, 4, 8, 16):
-            if cluster > GROUP_CLUSTER:
-                break
-            n = library().fa_decode_group_resident(q_code, kv_code, d, rows, int(paged), cluster)
+        for cluster in CLUSTER_SIZES[kind]:
+            n = query(q_code, kv_code, d, rows, int(paged), cluster)
             if n < 0:
-                raise RuntimeError(f"decode group kernel: occupancy query failed with cudaError {-n}")
+                raise RuntimeError(f"decode {kind} kernel: occupancy query failed with cudaError {-n}")
             resident[cluster] = n
     return resident
+
+
+def cluster_plan(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int, group: int, capacity: int, unit: int,
+                 pairs: int, paged: bool, index: int) -> tuple[str, int, int, int, int, int] | None:
+    """The launch plan of a decode call that runs a cluster kernel:
+    (kind, passes, rows, cluster, chunk, walks), kind "wide" for a head dim
+    above 256 (`uses_wide_kernel`), "group" for a GQA group above 8 with
+    bf16 / fp16 q at D64 / D128 (`uses_group_kernel`); None for a call that
+    runs decode.cuh's group tiles.  `kv_dtype` is the cache's, `unit` K5's
+    page size (ignored for K6), `pairs` sequences x KV heads and `index`
+    the card the split asks for its residency."""
+    if uses_wide_kernel(q_dtype, head_dim, group):
+        kind, (passes, rows), tokens = "wide", wide_passes(group), wide_tokens(head_dim, kv_dtype.itemsize)
+    elif uses_group_kernel(q_dtype, head_dim, group):
+        kind, (passes, rows), tokens = "group", group_passes(group), GROUP_TOKENS
+    else:
+        return None
+    resident = _resident_clusters(kind, index, _DTYPE_CODES[q_dtype], QUANT_DTYPES.get(kv_dtype, 0), head_dim, rows,
+                                  paged)
+    split = decode_cluster_split(capacity, pairs * passes, unit if paged else tokens, resident, paged, tokens)
+    return (kind, passes, rows) + split
 
 
 @functools.lru_cache(maxsize=None)
@@ -419,8 +490,9 @@ def _launch_decode(
     do not take (q dtype, payload, head dim) raises before any launch.  A
     GQA group above 8 with bf16 / fp16 q at head dim 64 or 128
     (`uses_group_kernel`) runs the whole-group kernel of the same entry
-    (launch key `entry` + "_group") as `decode_group_split` chooses, with
-    no workspace."""
+    (launch key `entry` + "_group"), and a head dim above 256
+    (`uses_wide_kernel`) the wide kernel (`entry` + "_wide"), both as
+    `cluster_plan` chooses and with no workspace."""
     batch, hq, d = q.shape
     hkv = k.shape[0]
     quantized = k_scales is not None
@@ -468,23 +540,20 @@ def _launch_decode(
     )
     stream = torch._C._cuda_getCurrentRawStream(device.index)
     kv_code = QUANT_DTYPES[k.dtype] if quantized else 0
-    if uses_group_kernel(q.dtype, d, hq // hkv):
-        key = entry + "_group"
-        passes, rows = group_passes(hq // hkv)
-        resident = _resident_clusters(device.index, _DTYPE_CODES[q.dtype], kv_code, d, rows, paged)
-        cluster, chunk, walks = decode_group_split(capacity, batch * hkv * passes, unit if paged else GROUP_TOKENS,
-                                                   resident, paged)
+    plan = cluster_plan(q.dtype, k.dtype, d, hq // hkv, capacity, unit, batch * hkv, paged, device.index)
+    if plan is not None:
+        kind, passes, rows, cluster, chunk, walks = plan
+        key = f"{entry}_{kind}"
+        launch = getattr(library(), f"fa_{key}")
         codes = (_DTYPE_CODES[q.dtype], kv_code, batch, hq, hkv, passes, rows, d)
         with _on(device):
             if paged:
-                err = library().fa_paged_decode_group(
+                err = launch(
                     *ptrs, page_indices.data_ptr(), out.data_ptr(), *codes, k.shape[2], page_indices.shape[1],
                     len_add, cluster, chunk, walks, strides, sm_scale, stream,
                 )
             else:
-                err = library().fa_fused_decode_group(
-                    *ptrs, out.data_ptr(), *codes, k.shape[2], cluster, chunk, walks, strides, sm_scale, stream,
-                )
+                err = launch(*ptrs, out.data_ptr(), *codes, k.shape[2], cluster, chunk, walks, strides, sm_scale, stream)
     else:
         key = entry
         tiles, rows = group_tiles(hq // hkv)

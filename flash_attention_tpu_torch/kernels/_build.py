@@ -182,5 +182,12 @@ def library() -> ctypes.CDLL:
         lib.fa_fused_decode_group.restype = i
         lib.fa_decode_group_resident.argtypes = [i, i, i, i, i, i]  # q_dtype, kv_dtype, head_dim, pass_rows, paged, cluster
         lib.fa_decode_group_resident.restype = i
+        # the wide kernels (head dims above 256) take the whole-group kernels' arguments
+        lib.fa_paged_decode_wide.argtypes = lib.fa_paged_decode_group.argtypes
+        lib.fa_paged_decode_wide.restype = i
+        lib.fa_fused_decode_wide.argtypes = lib.fa_fused_decode_group.argtypes
+        lib.fa_fused_decode_wide.restype = i
+        lib.fa_decode_wide_resident.argtypes = [i, i, i, i, i, i]  # q_dtype, kv_dtype, head_dim, pass_rows, paged, cluster
+        lib.fa_decode_wide_resident.restype = i
         _lib = lib
     return _lib

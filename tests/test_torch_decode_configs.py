@@ -7,7 +7,7 @@ scoring, and K6's with `prescale_q=True`) against the JAX package's
 (interpret mode up to d = 128, its own einsum fallback above); the
 whole-group kernels' plan (`paged_attention_group_ref`: GQA groups above 8
 with bf16 / fp16 q at D64 / D128, the chunks and clusters that
-`decode_group_split` gives) against the same, and their routing and split;
+`decode_cluster_split` gives) against the same, and their routing and split;
 then the slice: a 2-layer multi-query GPT's chained decode steps through
 attn_impl="paged" and "fused" against the JAX package's, and their greedy
 tokens.  Inputs are numpy from a seed; fp8 payloads cross as uint8 views.
@@ -171,8 +171,8 @@ def test_group_tiles_cover_every_group():
 
 
 # The whole-group plan over a capacity of 512 tokens in chunks of 128 (pages
-# of 16), clusters of 2 (`decode_group_split` on a card that holds every
-# pair's cluster of 2 at once but not of 4), so that each block walks 2
+# of 16), clusters of 2 (`decode_cluster_split` on a card that holds every
+# pair's cluster of 2 at once but not of 3), so that each block walks 2
 # chunks.  Lengths (current token included): 0 and 1, a chunk's edges (127,
 # 129), a cluster's edge (256: each block one whole chunk), a block's second
 # chunk partly live (400), the whole capacity.
@@ -183,7 +183,8 @@ GROUP_LENGTHS = (0, 1, 127, 129, 256, 400, 512)
 def _group_split(hq, hkv, capacity, unit, paged):
     passes, _ = tpa.group_passes(hq // hkv)
     pairs = len(GROUP_LENGTHS) * hkv * passes
-    split = tpa.decode_group_split(capacity, pairs, unit, {1: 2 * pairs, 2: pairs, 4: pairs - 1}, paged)
+    split = tpa.decode_cluster_split(capacity, pairs, unit, {1: 2 * pairs, 2: pairs, 3: pairs - 1}, paged,
+                                     tpa.GROUP_TOKENS)
     assert split == (2, 128, 2)  # the plan these cases hold: 2 blocks a cluster, 2 chunks a block
     return split
 
@@ -257,7 +258,7 @@ def test_k6_group_plan_matches_jax_fused(hq, hkv, d, payload):
         (torch.float32, 64, 71, False),
         (torch.bfloat16, 32, 16, False),  # D32 (d 8-32): the group tiles
         (torch.bfloat16, 16, 16, False),
-        (torch.bfloat16, 256, 16, False),  # D256 and above: the group tiles
+        (torch.bfloat16, 256, 16, False),  # D256: the group tiles; above it the wide kernels
         (torch.float16, 1024, 16, False),
     ],
 )

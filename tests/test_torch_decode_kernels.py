@@ -174,8 +174,8 @@ def test_decode_launchers_raise_without_a_card():
     """K5/K6's launcher never falls back: what the kernels do not take (a
     head dim other than 8, 16, 32, 64 or a multiple of 128 up to 1024, or
     int8 q) raises before any launch; what they take (d 32, a GQA group of
-    18, fp16 q) passes validation and stops at the device: CPU tensors
-    raise."""
+    18, fp16 q, and the whole-group and wide entry points) passes validation
+    and stops at the device: CPU tensors raise."""
     q, pi, pages = _pages("int8")
     kp, vp, ks, vs = _torch_pages(pages)
     lengths = t(np.array([3, 4, 5, 6], np.int32))
@@ -211,6 +211,19 @@ def test_decode_launchers_raise_without_a_card():
         with pytest.raises(RuntimeError, match="CUDA tensors only"):
             tpa._launch_decode("fused_decode", qg.expand(slots, -1, -1), layer, layer, scales, scales, lengths, None,
                                sm_scale=0.125, len_add=1)
+    # the wide entry points (head dims above 256, every q dtype and group):
+    # K5 over pages and K6 over one slot-major layer at d 384 and 1024
+    for d, qdt in ((384, torch.float32), (1024, torch.bfloat16), (640, torch.float16)):
+        qw = torch.zeros(slots, 8, d, dtype=qdt)
+        pages = torch.zeros(kp.shape[:-1] + (d,), dtype=torch.int8)
+        assert tpa.uses_wide_kernel(qw.dtype, d, 4)
+        with pytest.raises(RuntimeError, match="CUDA tensors only"):
+            launch(qw, pages, pages, ks, vs)
+        layer = torch.zeros(2, slots, 128, d, dtype=torch.int8)
+        scales = torch.ones(2, slots, 128)
+        with pytest.raises(RuntimeError, match="CUDA tensors only"):
+            tpa._launch_decode("fused_decode", qw, layer, layer, scales, scales, lengths, None, sm_scale=0.125,
+                               len_add=1)
 
 
 # Sequence lengths (current token included) against a split of `chunk`
@@ -333,16 +346,17 @@ RESIDENT_D64 = {1: 264, 2: 132, 4: 62, 8: 30}
     ],
 )
 def test_decode_group_split_choice(capacity, pairs, unit, resident, paged, want):
-    """The whole-group kernels' split (cluster, chunk, walks): the largest
-    cluster of up to 8 whose clusters all fit the card at once and leave each
-    block a chunk; chunks of one 128-token stage in whole units; the
-    capacity covered; K5's page ids within what a block stages."""
-    cluster, chunk, walks = tpa.decode_group_split(capacity, pairs, unit, resident, paged)
+    """The whole-group kernels' split (`decode_cluster_split` at their
+    128-token stage): the largest cluster of up to 8 whose clusters all fit
+    the card at once and leave each block a chunk; chunks of one stage in
+    whole units; the capacity covered; K5's page ids within what a block
+    stages."""
+    cluster, chunk, walks = tpa.decode_cluster_split(capacity, pairs, unit, resident, paged, tpa.GROUP_TOKENS)
     assert (cluster, chunk, walks) == want
     assert chunk % unit == 0 and cluster * chunk * walks >= capacity > cluster * chunk * (walks - 1)
-    assert cluster <= tpa.GROUP_CLUSTER and (not paged or walks * chunk // unit <= tpa.GROUP_MAX_PAGES)
+    assert cluster <= tpa.CLUSTER_MAX and (not paged or walks * chunk // unit <= tpa.CLUSTER_MAX_PAGES)
     with pytest.raises(NotImplementedError, match="page ids"):
-        tpa.decode_group_split(262144, 8, 16, RESIDENT_D128, True)
+        tpa.decode_cluster_split(262144, 8, 16, RESIDENT_D128, True, tpa.GROUP_TOKENS)
 
 
 def test_decode_split_gives_two_waves_at_the_serving_shape():

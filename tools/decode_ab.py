@@ -26,9 +26,10 @@ checkouts in one call, in turns (A, B, B, A): times on the host's clock
 spread between calls and between processes, and one process cannot import
 two checkouts' packages.
 
-`--cluster N` (a checkout with the whole-group kernel) forces clusters of N
-blocks (1-16; above 8 non-portable) in place of `decode_group_split`'s
-choice, the chunk kept: the A/B of cluster sizes in one checkout.
+`--cluster N` (a checkout with cluster decode kernels) forces clusters of N
+blocks (1-8) in place of the split's choice (`decode_cluster_split`, or
+`decode_group_split` in a checkout from before it), the chunk kept: the
+A/B of cluster sizes in one checkout.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ import time
 parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 parser.add_argument("tree")
 parser.add_argument("label")
-parser.add_argument("--cluster", type=int, default=0, help="force whole-group clusters of this many blocks")
+parser.add_argument("--cluster", type=int, default=0, help="force the cluster decode kernels' clusters to this many blocks")
 args = parser.parse_args()
 tree, label = args.tree, args.label
 sys.path.insert(0, os.path.abspath(tree))
@@ -64,15 +65,16 @@ from flash_attention_tpu_torch.kernels import _build  # noqa: E402
 
 if args.cluster:
     PA = importlib.import_module("flash_attention_tpu_torch.inference.paged_attention")
-    _split = PA.decode_group_split
+    _name = "decode_cluster_split" if hasattr(PA, "decode_cluster_split") else "decode_group_split"
+    _split = getattr(PA, _name)
 
-    def _forced(capacity, pairs, unit, resident, paged):
-        _, chunk, _ = _split(capacity, pairs, unit, resident, paged)
+    def _forced(capacity, pairs, unit, resident, paged, *tokens):
+        _, chunk, _ = _split(capacity, pairs, unit, resident, paged, *tokens)
         chunks = -(-capacity // chunk)
         cluster = min(args.cluster, chunks)
         return cluster, chunk, -(-chunks // cluster)
 
-    PA.decode_group_split = _forced
+    setattr(PA, _name, _forced)
 
 
 def main() -> None:
