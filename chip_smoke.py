@@ -51,8 +51,13 @@ are 7-9):
               384, 512, 640, 768, 896, 1024) at groups 1 and 16 on bf16
               and int8 caches, fp32 q at D8-D1024, fp16 q over fp16, int8
               and fp8 caches at D64 and D128, GQA groups 12, 16, 48 and 71
-              (group tiles of up to 8 q heads), K5 permuted with NaN at
-              D16 and D512; above head dim 256 the wide kernels
+              (at D64 / D128 the whole-group kernels: "_group" for bf16 /
+              fp16 q, "_group_fp32" for fp32 q, which also runs
+              serving-mqa's shape and Falcon-40B's layer over fp32, int8
+              and fp8 caches at its splits' edges; each held also against
+              the plain version of its plan), K5 permuted with NaN at
+              D16, D128 (also fp32 q over fp32 / int8 / fp8 pages) and
+              D512; above head dim 256 the wide kernels
               ("paged_decode_wide" / "fused_decode_wide", each held also
               against the plain version of its plan), also at group 4 on
               bf16, int8 and fp8 caches, fp32 q over fp8 and fp16 q over
@@ -181,7 +186,9 @@ are 7-9):
               launched n_layer x decode steps); then fp32 at SantaCoder's
               widths with 2 layers, 8 slots of 2048 with prompts of
               16-2030 tokens: paged and fused logits within 1e-3 of
-              einsum's on fp32 and int8 caches.
+              einsum's on fp32 and int8 caches, through the 3xTF32
+              whole-group kernel ("paged_decode_group_fp32" /
+              "fused_decode_group_fp32", each launched).
     serving-fp16 - GPT-2 124M in fp16: the burst through einsum, K5 on an
               fp16 cache and K6 on an fp8 cache (fp16 q); fp16 paged /
               fused logits against einsum's at the 16-bit tier; then fp32
@@ -321,9 +328,12 @@ context-parallel run as `parallel_launches`; K5's and K6's rows their
 times at each configuration beyond D64 / D128, bf16 q and groups up to
 8 (NEW_DECODE_SHAPES: santacoder_*, gemma7b_*, falcon40b_*, gpt2_12l_*,
 d32_*; int8 caches unsuffixed, others suffixed by the store) and their
-launches in serving-mqa and serving-fp16; the wide K5's and K6's rows the
-D1024 bf16 layer's times, with d512_* and d1024_* beside them, and their
-launches in the decode phase);
+launches in serving-mqa and serving-fp16; the fp32 whole-group K5's and
+K6's rows SantaCoder's fp32 layer's times with SDPA's fp32 call, the
+santacoder_fp32_* and falcon40b_fp32_* rows beside them (fp32 and int8
+caches), and their launches in serving-mqa's fp32 check; the wide K5's
+and K6's rows the D1024 bf16 layer's times, with d512_* and d1024_*
+beside them, and their launches in the decode phase);
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -420,6 +430,13 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                            "flash_attention_tpu/inference/paged_attention.py:34"),
     "fused_decode_group": ("flash_attention_tpu_torch/csrc/decode_group.cuh",
                            "flash_attention_tpu/inference/decode_attention.py:195"),
+    # K5 / K6 over a GQA group above 8 with fp32 q at head dims 64 and 128:
+    # the whole-group kernel in 3xTF32 (decode_group_fp32.cuh), instantiated
+    # by csrc/decode_group_fp32_*.cu
+    "paged_decode_group_fp32": ("flash_attention_tpu_torch/csrc/decode_group_fp32.cuh",
+                                "flash_attention_tpu/inference/paged_attention.py:34"),
+    "fused_decode_group_fp32": ("flash_attention_tpu_torch/csrc/decode_group_fp32.cuh",
+                                "flash_attention_tpu/inference/decode_attention.py:195"),
     # K5 / K6 at head dims above 256 (padded 512 / 1024), every q dtype and
     # group: the wide cluster kernel (decode_wide.cuh), instantiated by
     # csrc/decode_wide_*.cu
@@ -554,6 +571,7 @@ def phase_build() -> None:
             regs = int(re.search(r"Used (\d+) registers", line).group(1))
             entries.append((kernel, regs, spills))
     decode, decode_spilled, group, group_spilled, wide_dec, wide_dec_spilled = [], [], [], [], [], []
+    group32 = []
     for name, (_, regs, spill) in zip(_demangle([e[0] for e in entries]), entries):
         spilled = not spill.startswith("0 bytes stack frame, 0 bytes spill stores")
         if "decode::wide_kernel" in name or "6decode11wide_kernel" in name:
@@ -563,6 +581,8 @@ def phase_build() -> None:
                 stores = re.search(r"(\d+) bytes spill stores", spill)
                 wide_dec_spilled.append(f"<{m.group(1) if m else name}> {regs} regs "
                                         f"{stores.group(1) if stores else '?'} B")
+        elif "group_fp32_kernel" in name:
+            group32.append((name, regs, spill))
         elif "group_kernel" in name:
             group.append(regs)
             if spilled:
@@ -593,10 +613,25 @@ def phase_build() -> None:
         f"{len(group) - len(group_spilled)} without spills, "
         + (f"{min(group)}-{max(group)} registers" if group else "none found")
         + "; nvcc per source: "
-        + (", ".join(f"{k} {v:.1f} s" for k, v in per.items() if k.startswith("decode_group")) or "not run (built)")
+        + (", ".join(f"{k} {v:.1f} s" for k, v in per.items() if k.startswith("decode_group") and "fp32" not in k)
+           or "not run (built)")
         + "; spills (T, KV, D, row-tile groups, paged; spill stores): " + ("; ".join(group_spilled) or "none"))
     if len(group) != 96:
         raise AssertionError(f"[build] expected 96 instantiations of the whole-group decode kernel, found {len(group)}")
+    # the whole-group kernel for fp32 q (decode_group_fp32.cuh): payload x
+    # row tiles (1, 2, 4, 8 at D64; 1, 2, 4 at D128) x K5 / K6, each
+    # instantiation's registers and spills
+    clean = sum(re.search(r"(\d+) bytes spill stores", sp).group(1) == "0" for _, _, sp in group32)
+    say(f"[build] ptxas group_fp32_kernel (whole-group K5 / K6, fp32 q): {len(group32)} instantiations, {clean} "
+        f"without spills; nvcc per source: "
+        + (", ".join(f"{k} {v:.1f} s" for k, v in per.items() if k.startswith("decode_group_fp32")) or "not run (built)"))
+    for n, regs, spill in group32:
+        m = re.search(r"group_fp32_kernel<(.*)>", n)
+        say(f"[build]   group_fp32_kernel<{m.group(1) if m else n}> (KV, D, row tiles, paged): {regs} registers; "
+            f"{spill}")
+    if len(group32) != 42:
+        raise AssertionError(f"[build] expected 42 instantiations of the fp32 whole-group decode kernel, found "
+                             f"{len(group32)}")
     # the wide decode kernel (decode_wide.cuh, head dims above 256): q dtype x
     # payload x D512 / D1024 x passes of 1, 4 or 8 rows x K5 / K6; the
     # group-tile kernel keeps D32-D256 (10 instantiations a q dtype, payload
@@ -1205,11 +1240,13 @@ def _fp16_control(label: str, outs, plains, atol: float, rtol: float) -> bool:
 
 def _decode_keys(q_dtype, d: int, group: int) -> tuple[str, str]:
     """The launch keys of K5 and K6 for a configuration: the wide kernel's
-    above head dim 256, the whole-group kernel's for a group above 8 with
-    bf16 / fp16 q at D64 / D128."""
+    above head dim 256, the whole-group kernel's for a group above 8 at D64 /
+    D128 (with fp32 q its keys of its own)."""
     if PA.uses_wide_kernel(q_dtype, d, group):
         return "paged_decode_wide", "fused_decode_wide"
     if PA.uses_group_kernel(q_dtype, d, group):
+        if q_dtype == torch.float32:
+            return "paged_decode_group_fp32", "fused_decode_group_fp32"
         return "paged_decode_group", "fused_decode_group"
     return "paged_decode", "fused_decode"
 
@@ -1227,8 +1264,8 @@ def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths
                  controls=None) -> dict:
     """K5 (through decode_attention_paged) and K6 vs their plain versions on
     one cache at DECODE_TOL; returns {launch key: max error}.  Each must
-    launch its kernel once: the whole-group kernel for a group above 8 with
-    bf16 / fp16 q at D64 / D128 and the wide kernel above D256, each also
+    launch its kernel once: the whole-group kernel for a group above 8 at
+    D64 / D128 and the wide kernel above D256, each also
     held against the plain version of its own plan
     (`paged_attention_group_ref`: its chunks, its cluster, the merge's
     order).  For fp16 q, whether the limit rejects the
@@ -1256,7 +1293,7 @@ def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths
     e6, ok6 = _error(out6, plain6, atol, rtol)
     ok = ok5 and ok6
     plan = ""
-    if key5.endswith(("_group", "_wide")):
+    if key5.endswith(("_group", "_group_fp32", "_wide")):
         with torch.no_grad():
             c5, ch5, w5 = _cluster_split(q_dtype, kp.dtype, hq // hkv, d, max_len, 128, slots * hkv, True)
             plan5 = PA.paged_attention_group_ref(q, kp, vp, cache.lengths + 1, pi, cluster=c5, chunk=ch5,
@@ -1447,11 +1484,14 @@ def check_decode_configs(gen, controls: list) -> dict:
     D256 (the wide kernel) group 4 on bf16, int8 and fp8 caches, fp32 q over
     fp8, fp16 q over fp16, int8 and fp8, and a group of 12 (two passes of 6
     rows); GQA groups 12, 16, 48 (StarCoder) and 71 (Falcon-7B),
-    which at D64 / D128 with bf16 / fp16 q run the whole-group kernel, and
-    with fp32 q group tiles of up to 8 q heads; the whole-group kernel at
+    which at D64 / D128 run the whole-group kernel (fp32 q: the 3xTF32 one,
+    also at groups 12 and 48 at D128, two passes at 71 / D128, and 24 / 2 and
+    48 at D64, over fp32 and int8 caches); the whole-group kernel at
     serving-mqa's shape and Falcon-40B's layer on bf16, fp16, int8 and fp8
-    caches (GROUP_SHAPES); K5 over a permuted page table with NaN past the
-    lengths at D16, D128 (group 16) and D512.  Each against its plain
+    caches and with fp32 q on fp32, int8 and fp8 caches at its splits'
+    edges (GROUP_SHAPES); K5 over a permuted page table with NaN past the
+    lengths at D16, D128 (group 16) and D512, and with fp32 q at D128 (group
+    16) and D64 (group 16 on two KV heads).  Each against its plain
     version at DECODE_TOL, fp16 q's cases with their control.  Returns
     {launch key: errors}."""
     bf16, f16, f32, i8, f8 = torch.bfloat16, torch.float16, torch.float32, torch.int8, torch.float8_e4m3fn
@@ -1476,6 +1516,12 @@ def check_decode_configs(gen, controls: list) -> dict:
             one(f"group {hq // hkv} hq{hq} hkv{hkv} D{d} {name} cache", 8, hq, hkv, d, store, bf16)
         one(f"group {hq // hkv} hq{hq} hkv{hkv} D{d} fp16 cache fp16 q", 8, hq, hkv, d, f16, f16)
     one("group 71 hq71 hkv1 D64 fp32 cache fp32 q", 4, 71, 1, 64, f32, f32)
+    # the fp32 whole-group kernel's other row tilings: a padded row tile
+    # (12), 2 and 4 row tiles (24 / 2, 48), 8 at D64 (71, above) and at
+    # D128 two passes of 48 (71)
+    for hq, hkv, d in ((12, 1, 128), (48, 1, 128), (71, 1, 128), (24, 2, 64), (48, 1, 64)):
+        for name, store in (("fp32", f32), ("int8", i8)):
+            one(f"group {hq // hkv} hq{hq} hkv{hkv} D{d} {name} cache fp32 q", 8, hq, hkv, d, store, f32)
     # the wide kernel's other configurations: group 4 on every payload with
     # bf16 q, fp32 q over fp8, fp16 q over fp16, int8 and fp8 (with their
     # control), a pass of 6 rows (group 12)
@@ -1494,11 +1540,28 @@ def check_decode_configs(gen, controls: list) -> dict:
         say(f"[decode] {label}: cache lengths {lengths}; split {cl} blocks a cluster x {walks} chunks of {ch} "
             f"tokens; blocks of a cluster live: {[min(cl, -(-(n + 1) // ch)) for n in lengths]}; chunks the busiest "
             f"block walks: {[-(-(-(-(n + 1) // ch)) // cl) for n in lengths]}")
+        # fp32 q (the 3xTF32 whole-group kernel) over fp32, int8 and fp8
+        # caches, at cache lengths on the edges of K6's split (chunks of one
+        # stage: 64 tokens for an fp32 cache at D128) and of K5's (pages of
+        # 128): 0, a chunk - 1 and + 1, a cluster's span - 1 (K6); a chunk, a
+        # span and + 1 (K5), the capacity - 1
+        for name, store in (("fp32", f32), ("int8", i8), ("fp8", f8)):
+            c6, ch6, _ = _cluster_split(f32, store, hq // hkv, d, 2048, 2048, 8 * hkv, False)
+            c5, ch5, _ = _cluster_split(f32, store, hq // hkv, d, 2048, 128, 8 * hkv, True)
+            edges = [min(e, 2047) for e in (0, ch6 - 1, ch6 + 1, c6 * ch6 - 1, ch5, c5 * ch5, c5 * ch5 + 1, 2047)]
+            one(f"{label} fp32 q {name} cache", 8, hq, hkv, d, store, f32, edges, max_len=2048)
+            say(f"[decode] {label} fp32 q {name} cache: K6 {c6} blocks x chunks of {ch6}, K5 {c5} blocks x chunks "
+                f"of {ch5}; cache lengths {edges}")
     lens = [1, 17, 300, 1023, 512, 0, 800, 1024]
     for d, hq, hkv in ((16, 16, 1), (128, 16, 1), (512, 8, 2)):
         for name, store, q_dtype in (("int8", i8, bf16), ("fp16", f16, f16)):
             _gather(errs, check_paged_permuted(f"paged permuted ps16 NaN past length D{d} hq{hq} hkv{hkv} {name}",
                                                gen, 8, hq, hkv, d, 16, 64, store, q_dtype, lens, controls))
+    # the fp32 whole-group K5 over pages of 16 (a stage over several pages)
+    for d, hq, hkv in ((128, 16, 1), (64, 32, 2)):
+        for name, store in (("fp32", f32), ("int8 fp32 q", i8), ("fp8 fp32 q", f8)):
+            _gather(errs, check_paged_permuted(f"paged permuted ps16 NaN past length D{d} hq{hq} hkv{hkv} {name}",
+                                               gen, 8, hq, hkv, d, 16, 64, store, f32, lens, controls))
     return errs
 
 
@@ -1978,16 +2041,18 @@ SANTACODER = dict(vocab_size=49280, block_size=2048, n_layer=24, n_head=16, n_em
 
 
 def _check_impl_parity(tag: str, label: str, model: GPT, seed: int, caches, prompt_lens=(300,),
-                       max_len: int = 1024) -> None:
+                       max_len: int = 1024, keys=("paged_decode", "fused_decode")) -> dict:
     """paged and fused logits within 1e-3 of einsum's over 8 teacher-forced
     decode steps after prompts of `prompt_lens` tokens (one a slot, in a
     cache of max_len tokens a slot), for each cache of `caches` ((name,
-    quant_dtype or None), fp32 model)."""
+    quant_dtype or None), fp32 model); the counts set to 0 first, each of
+    `keys` (K5's and K6's launch keys for the model) must launch.  Returns
+    their launches."""
     rng = np.random.default_rng(seed + 12)
     prompts = [torch.as_tensor(rng.integers(0, model.cfg.vocab_size, n), device="cuda") for n in prompt_lens]
     feed = torch.as_tensor(rng.integers(0, model.cfg.vocab_size, (8, len(prompts))), device="cuda",
                            dtype=torch.int32)
-    launches = dict(FA.KERNEL_LAUNCHES)
+    _reset_launches()
     for name, qdt in caches:
         errs, _ = _impl_parity(model, prompts, feed, qdt, max_len)
         worst = max(errs.values())
@@ -1996,9 +2061,11 @@ def _check_impl_parity(tag: str, label: str, model: GPT, seed: int, caches, prom
             f"{errs['paged']:.3e}, fused vs einsum {errs['fused']:.3e} (atol 1e-3) {'ok' if worst <= 1e-3 else 'FAIL'}")
         if worst > 1e-3:
             raise AssertionError(f"[{tag}] {name} cache: paged/fused logits outside 1e-3 of einsum")
-    for key in ("paged_decode", "fused_decode"):
-        if FA.KERNEL_LAUNCHES[key] == launches[key]:
-            raise AssertionError(f"[{tag}] the fp32 check launched no {key}")
+    launched = {key: FA.KERNEL_LAUNCHES[key] for key in keys}
+    say(f"[{tag}] {label}: launches {launched}")
+    if not all(launched.values()):
+        raise AssertionError(f"[{tag}] the fp32 check launched none of a key: {launched}")
+    return launched
 
 
 def phase_serving_mqa(seed: int, smi: str) -> dict:
@@ -2010,8 +2077,9 @@ def phase_serving_mqa(seed: int, smi: str) -> dict:
     kernel), exact budgets, K5 / K6 launched n_layer x decode steps; then the
     fp32 check at SantaCoder's widths with 2 of its 24 layers, in the
     burst's 8 slots of 2048 with most prompts past 1024 tokens (fp32 q: the
-    group tiles, K6's 32 splits a tile, most of them live).  Returns the
-    whole-group K5's and K6's launches."""
+    3xTF32 whole-group kernel, "paged_decode_group_fp32" /
+    "fused_decode_group_fp32").  Returns the whole-group K5's and K6's
+    launches (bf16 in the bursts, fp32 in the check)."""
     tag = "serving-mqa"
     t0 = time.perf_counter()
     model = GPT(GPTConfig(**SANTACODER), generator=torch.Generator("cuda").manual_seed(seed), device="cuda")
@@ -2028,8 +2096,10 @@ def phase_serving_mqa(seed: int, smi: str) -> dict:
     del model
     fp32 = GPT(GPTConfig(**{**SANTACODER, "n_layer": 2, "dtype": torch.float32}),
                generator=torch.Generator("cuda").manual_seed(seed + 1), device="cuda")
-    _check_impl_parity(tag, "fp32 SantaCoder widths, 2 layers", fp32, seed, (("fp32", None), ("int8", torch.int8)),
-                       prompt_lens=(2030, 1900, 1500, 1100, 1030, 700, 300, 16), max_len=2048)
+    launches.update(_check_impl_parity(tag, "fp32 SantaCoder widths, 2 layers", fp32, seed,
+                                       (("fp32", None), ("int8", torch.int8)),
+                                       prompt_lens=(2030, 1900, 1500, 1100, 1030, 700, 300, 16), max_len=2048,
+                                       keys=("paged_decode_group_fp32", "fused_decode_group_fp32")))
     return launches
 
 
@@ -2326,7 +2396,8 @@ def phase_timing_quant(seed: int, smi: str) -> dict:
             bf16_ms=hot16[key], bf16_plain_ms=hot16[f"{key} plain"], bf16_bound_ms=hot16["bound"],
             bf16_library_ms=hot16["SDPA"], l2_cold_ms=cold[key], l2_cold_bound_ms=cold["bound"],
         )
-        add_rows(result[kernel], key, [name for name in NEW_DECODE_SHAPES if name not in GROUP_TIMED + WIDE_TIMED])
+        add_rows(result[kernel], key, [name for name in NEW_DECODE_SHAPES
+                                       if name not in GROUP_TIMED + GROUP_FP32_TIMED + WIDE_TIMED])
         result[kernel]["santacoder_one_tile_ms"] = one_tile[key]
     # the whole-group kernel: SantaCoder's layer on the bf16 cache, SDPA beside
     # it, then its int8 rows and Falcon-40B's
@@ -2335,6 +2406,13 @@ def phase_timing_quant(seed: int, smi: str) -> dict:
         result[kernel] = dict(ms=santa16[key], plain_ms=santa16[f"{key} plain"], bound_ms=santa16["bound"],
                               bound_by=santa16["by"], library_ms=santa16["SDPA"])
         add_rows(result[kernel], key, GROUP_TIMED)
+    # the whole-group kernel with fp32 q: SantaCoder's layer on the fp32 cache,
+    # SDPA's fp32 call beside it, then its int8 row and Falcon-40B's
+    santa32 = rows[NEW_DECODE_SHAPES["santacoder_fp32"][0], "fp32"]
+    for kernel, key in (("paged_decode_group_fp32", "K5"), ("fused_decode_group_fp32", "K6")):
+        result[kernel] = dict(ms=santa32[key], plain_ms=santa32[f"{key} plain"], bound_ms=santa32["bound"],
+                              bound_by=santa32["by"], library_ms=santa32["SDPA"])
+        add_rows(result[kernel], key, GROUP_FP32_TIMED)
     # the wide kernel: the D1024 layer on the bf16 cache, SDPA beside it, then
     # its int8 rows and D512's
     wide16 = rows[NEW_DECODE_SHAPES["d1024"][0], "bf16"]
@@ -2375,6 +2453,12 @@ NEW_DECODE_SHAPES = {
     "d32": ("h16 D32 32 slots 3 layers L2-cold", 3, 32, 16, 16, 32, 1024, (960, 1024), ("int8", "bf16")),
     "d512": ("hq8 hkv2 D512 8 slots 4 layers L2-cold", 4, 8, 8, 2, 512, 2048, (1920, 2048), ("int8", "bf16")),
     "d1024": ("hq8 hkv2 D1024 8 slots 4 layers L2-cold", 4, 8, 8, 2, 1024, 2048, (1920, 2048), ("int8", "bf16")),
+    # SantaCoder's and Falcon-40B's layers with fp32 q, over an fp32 cache and
+    # an int8 one (over 100 MB a walk on both: 8 layers of Falcon-40B's)
+    "santacoder_fp32": ("santacoder fp32 q hq16 hkv1 D128 8 slots 24 layers L2-cold", 24, 8, 16, 1, 128, 2048,
+                        (1920, 2048), ("fp32", "int8 fp32 q")),
+    "falcon40b_fp32": ("falcon-40b fp32 q hq128 hkv8 D64 8 slots 8 layers L2-cold", 8, 8, 128, 8, 64, 2048,
+                       (1920, 2048), ("fp32", "int8 fp32 q")),
 }
 DECODE_SHAPES = (
     GPT2_HOT_SHAPE,
@@ -2385,6 +2469,8 @@ DECODE_SHAPES = (
 # the NEW_DECODE_SHAPES that run the whole-group kernel (a group above 8, bf16
 # or fp16 q, D64 / D128)
 GROUP_TIMED = ("santacoder", "falcon40b")
+# the NEW_DECODE_SHAPES that run the whole-group kernel with fp32 q
+GROUP_FP32_TIMED = ("santacoder_fp32", "falcon40b_fp32")
 # the NEW_DECODE_SHAPES that run the wide kernel (head dims above 256)
 WIDE_TIMED = ("d512", "d1024")
 # SantaCoder's layer with 8 q heads (one group tile) in place of 16 (two)
@@ -2393,7 +2479,17 @@ ONE_TILE_SHAPE = ("santacoder layer, hq8 hkv1 (one group tile)",) + _SANTA[1:3] 
 # store: (cache dtype, q dtype)
 STORES = {"int8": (torch.int8, torch.bfloat16), "fp8": (torch.float8_e4m3fn, torch.bfloat16),
           "bf16": (torch.bfloat16, torch.bfloat16), "fp16": (torch.float16, torch.float16),
-          "fp8 fp16 q": (torch.float8_e4m3fn, torch.float16)}
+          "fp8 fp16 q": (torch.float8_e4m3fn, torch.float16), "fp32": (torch.float32, torch.float32),
+          "int8 fp32 q": (torch.int8, torch.float32)}
+
+
+def _sdpa_backend(*args, **kw) -> str:
+    """The backend torch SDPA picks for these arguments (its own choice
+    function; "unknown" where this torch has none)."""
+    try:
+        return torch.nn.attention.SDPBackend(torch._fused_sdp_choice(*args, **kw)).name
+    except Exception:  # an internal function: absent or of another signature in some torch versions
+        return "unknown"
 
 
 def time_decode(gen: torch.Generator, smi: str, shape: tuple, store: str) -> dict:
@@ -2445,8 +2541,10 @@ def time_decode(gen: torch.Generator, smi: str, shape: tuple, store: str) -> dic
         with torch.no_grad():
             err, ok = _error(sdpa(0), DA.decode_attention(q, cache, 0), 2e-2, 1e-2)
         if not ok:
-            raise AssertionError(f"[timing] SDPA over the bf16 cache is {err:.3e} from the plain decode")
-        lib = f"; SDPA computes the same function within {err:.1e} of the plain decode"
+            raise AssertionError(f"[timing] SDPA over the {store} cache is {err:.3e} from the plain decode")
+        k_c, v_c = (x[0].transpose(0, 1) for x in (cache.k, cache.v))
+        backend = _sdpa_backend(q[:, :, None], k_c, v_c, attn_mask=mask, enable_gqa=hq != hkv)
+        lib = f"; SDPA ({backend} backend) computes the same function within {err:.1e} of the plain decode"
     res = {}
     with torch.no_grad():
         for k, fn in dev_fns.items():
@@ -2454,15 +2552,21 @@ def time_decode(gen: torch.Generator, smi: str, shape: tuple, store: str) -> dic
             res[k] = graph_ms(fn, calls=2 if plain else 20, runs=3 if plain else 10) / layers
         for k, fn in call_fns.items():
             res[f"{k} call"] = time_ms(fn, inner=20) / layers
+    if lib:
+        res["SDPA backend"] = backend
     live = int(contexts.sum()) * hkv  # tokens x KV heads read
-    nbytes = live * d * cache.k.element_size() * 2 + (live * 8 if cache.quantized else 0) + slots * hq * d * 2 * 2
-    res["bound"], res["by"] = floor_ms(nbytes, 4 * live * (hq // hkv) * d)  # q.k and p.v per row read
+    nbytes = (live * d * cache.k.element_size() * 2 + (live * 8 if cache.quantized else 0)
+              + slots * hq * d * q.element_size() * 2)
+    # q.k and p.v per row read, at the peak of q's dtype: fp32 runs 3xTF32 on the tensor cores
+    peak = TF32X3_FLOPS if q_dtype == torch.float32 else BF16_FLOPS
+    res["bound"], res["by"] = floor_ms(nbytes, 4 * live * (hq // hkv) * d, peak)
     say(f"[timing] {smi} | decode {label}, contexts {int(contexts.min())}-{int(contexts.max())} of {max_len}, "
         f"{store} cache, {str(q_dtype).split('.')[-1]} q, ms a call on the device (share of the bound; ms a call as "
         f"the engine calls it): "
         + ", ".join(f"{k} {res[k]:.4f}" + (f" ({res['bound'] / res[k]:.1%}; {res[k + ' call']:.4f})"
                                            if k in call_fns else "") for k in dev_fns)
-        + f"; bound {res['bound']:.4f} ms ({res['by']}, {nbytes / 1e6:.2f} MB a layer){lib}")
+        + f"; bound {res['bound']:.4f} ms ({res['by']}{', 3xTF32' if peak == TF32X3_FLOPS else ''}, "
+          f"{nbytes / 1e6:.2f} MB a layer){lib}")
     return res
 
 

@@ -3,13 +3,15 @@
 // fa_fused_decode_wide), loaded through ctypes
 // (flash_attention_tpu_torch/kernels/_build.py).  The group-tile kernel
 // template and its design are in decode.cuh (head dims up to 256), the
-// whole-group kernel's (GQA groups above 8 with bf16 / fp16 q at head dims
-// 64 and 128) in decode_group.cuh, the wide kernel's (head dims above 256)
-// in decode_wide.cuh; their instantiations are built by the decode_*.cu
-// sources, one nvcc each, and declared extern here.
+// whole-group kernel's (GQA groups above 8 at head dims 64 and 128) in
+// decode_group.cuh (bf16 / fp16 q) and decode_group_fp32.cuh (fp32 q), the
+// wide kernel's (head dims above 256) in decode_wide.cuh; their
+// instantiations are built by the decode_*.cu sources, one nvcc each, and
+// declared extern here.
 
 #include "decode.cuh"
 #include "decode_group.cuh"
+#include "decode_group_fp32.cuh"
 #include "decode_wide.cuh"
 
 namespace fa {
@@ -23,6 +25,10 @@ FA_DECODE_WIDTHS(FA_DECODE_EXTERN)
   extern template cudaError_t group_launch_rows<T, KV, D, P>(const GroupParams&, int, dim3, cudaStream_t, int*);
 FA_GROUP_ALL(FA_GROUP_EXTERN)
 #undef FA_GROUP_EXTERN
+#define FA_GROUP32_EXTERN(KV, D, P) \
+  extern template cudaError_t group32_launch_rows<KV, D, P>(const GroupParams&, int, dim3, cudaStream_t, int*);
+FA_GROUP32_ALL(FA_GROUP32_EXTERN)
+#undef FA_GROUP32_EXTERN
 #define FA_WIDE_EXTERN(T, D, P) \
   extern template cudaError_t wide_launch_width<T, D, P>(const WideParams&, int, int, dim3, cudaStream_t, int*);
 FA_WIDE_ALL(FA_WIDE_EXTERN)
@@ -74,6 +80,10 @@ int launch_decode(DecodeParams& p, int q_dtype, int kv_dtype, int batch, int hq,
 
 cudaError_t group_dispatch(const GroupParams& p, int q_dtype, int kv_dtype, int head_dim, bool paged, int cluster,
                            dim3 grid, cudaStream_t s, int* resident) {
+  if (q_dtype == 0) {
+    return head_dim == 64 ? group32_launch_width<64>(p, kv_dtype, paged, cluster, grid, s, resident)
+                          : group32_launch_width<128>(p, kv_dtype, paged, cluster, grid, s, resident);
+  }
   if (q_dtype == 1) {
     return head_dim == 64 ? group_launch_width<__nv_bfloat16, 64>(p, kv_dtype, paged, cluster, grid, s, resident)
                           : group_launch_width<__nv_bfloat16, 128>(p, kv_dtype, paged, cluster, grid, s, resident);
@@ -82,16 +92,22 @@ cudaError_t group_dispatch(const GroupParams& p, int q_dtype, int kv_dtype, int 
                         : group_launch_width<__half, 128>(p, kv_dtype, paged, cluster, grid, s, resident);
 }
 
+// The q heads a pass of the whole-group kernel holds at most: 128, or 64 for
+// fp32 q at D128 (decode_group_fp32.cuh: a row tile's two warps a token).
+int group_max_rows(int q_dtype, int head_dim) {
+  return q_dtype == 0 && head_dim == 128 ? kGMaxRows32D128 : kGMaxRows;
+}
+
 // The whole-group kernel: passes x pass_rows q heads cover the group (every
-// pass live, pass_rows a multiple of 16 up to 128), a cluster of `cluster`
-// blocks per (sequence, KV head, pass), each walking `walks` chunks of
-// `chunk` tokens.
+// pass live, pass_rows a multiple of 16 up to group_max_rows), a cluster of
+// `cluster` blocks per (sequence, KV head, pass), each walking `walks`
+// chunks of `chunk` tokens.
 template <bool kPaged>
 int launch_group(GroupParams& p, int q_dtype, int kv_dtype, int batch, int hq, int hkv, int passes,
                  int pass_rows, int head_dim, int cluster, const long long* st, cudaStream_t s) {
   if (batch <= 0 || batch > 65535 || hkv <= 0 || hq <= 0 || hq % hkv != 0 || (head_dim != 64 && head_dim != 128) ||
-      (q_dtype != 1 && q_dtype != 2) || kv_dtype < 0 || kv_dtype > 2 || pass_rows < 16 || pass_rows % 16 != 0 ||
-      pass_rows > kGMaxRows || passes < 1 || (long long)hkv * passes > 65535 ||
+      q_dtype < 0 || q_dtype > 2 || kv_dtype < 0 || kv_dtype > 2 || pass_rows < 16 || pass_rows % 16 != 0 ||
+      pass_rows > group_max_rows(q_dtype, head_dim) || passes < 1 || (long long)hkv * passes > 65535 ||
       (long long)passes * pass_rows < hq / hkv || (long long)(passes - 1) * pass_rows >= hq / hkv ||
       cluster < 1 || cluster > kClusterMax || p.page_size <= 0 ||
       p.pages_per_seq <= 0 || p.chunk <= 0 || p.walks <= 0 ||
@@ -177,6 +193,7 @@ using fa::decode::GroupParams;
 using fa::decode::WideParams;
 using fa::decode::launch_decode;
 using fa::decode::group_dispatch;
+using fa::decode::group_max_rows;
 using fa::decode::launch_group;
 using fa::decode::launch_wide;
 using fa::decode::wide_dispatch;
@@ -261,10 +278,11 @@ extern "C" int fa_fused_decode(const void* q, const void* k, const void* v, cons
                               static_cast<cudaStream_t>(stream));
 }
 
-// The whole-group kernels (decode_group.cuh): a GQA group above 8 with bf16
-// (q_dtype 1) or fp16 (2) q at head_dim 64 or 128.  Arguments as above, but
-// no workspace or counters: the group runs in `passes` passes of
-// `pass_rows` q heads (a multiple of 16, at most 128; every pass live), a
+// The whole-group kernels: a GQA group above 8 with fp32 (q_dtype 0;
+// decode_group_fp32.cuh), bf16 (1) or fp16 (2) q (decode_group.cuh) at
+// head_dim 64 or 128.  Arguments as above, but no workspace or counters: the
+// group runs in `passes` passes of `pass_rows` q heads (a multiple of 16, at
+// most 128, 64 for fp32 q at 128; every pass live), a
 // cluster of `cluster` blocks (1-8) per (sequence, KV head,
 // pass), block c of a cluster walking chunks c, c + cluster, ... of `chunk`
 // tokens, `walks` of them; cluster * chunk * walks >= the capacity; for K5
@@ -331,8 +349,8 @@ extern "C" int fa_fused_decode_group(const void* q, const void* k, const void* v
 // clusters within it.  Returns the count, or minus a cudaError_t.
 extern "C" int fa_decode_group_resident(int q_dtype, int kv_dtype, int head_dim, int pass_rows, int paged,
                                         int cluster) {
-  if ((head_dim != 64 && head_dim != 128) || (q_dtype != 1 && q_dtype != 2) || kv_dtype < 0 || kv_dtype > 2 ||
-      pass_rows < 16 || pass_rows % 16 != 0 || pass_rows > fa::decode::kGMaxRows || cluster < 1 ||
+  if ((head_dim != 64 && head_dim != 128) || q_dtype < 0 || q_dtype > 2 || kv_dtype < 0 || kv_dtype > 2 ||
+      pass_rows < 16 || pass_rows % 16 != 0 || pass_rows > group_max_rows(q_dtype, head_dim) || cluster < 1 ||
       cluster > fa::decode::kClusterMax)
     return -(int)cudaErrorInvalidValue;
   GroupParams p{};

@@ -33,14 +33,17 @@ stage and merge over distributed shared memory, a producer warp keeping
 several stages in flight with bulk copies; their plan
 in plain PyTorch is `paged_attention_group_ref` at the wide split's cluster
 and chunk.  `HEAD_DIMS` lists every head dim the decode kernels take.  A GQA
-group above 8 with bf16 or fp16 q at head dim 64 or 128 (`uses_group_kernel`:
-multi-query attention, Falcon-40B's 16 q heads a KV head) runs instead the
-whole-group kernels of `csrc/decode_group.cuh` (`fa_paged_decode_group`,
-`fa_fused_decode_group`; launch keys "paged_decode_group" /
-"fused_decode_group"): the whole group in one block, S and P V on
-`mma.sync`, and a (sequence, KV head)'s blocks merged in a thread-block
-cluster, with no workspace; their chunk-and-merge plan in plain PyTorch is
-`paged_attention_group_ref`.  Both cluster kernels share their merge and
+group above 8 at head dim 64 or 128 (`uses_group_kernel`: multi-query
+attention, Falcon-40B's 16 q heads a KV head) runs instead the whole-group
+kernels (`fa_paged_decode_group`, `fa_fused_decode_group`): with bf16 or
+fp16 q those of `csrc/decode_group.cuh` (launch keys "paged_decode_group" /
+"fused_decode_group", S and P V on `mma.sync`), with fp32 q those of
+`csrc/decode_group_fp32.cuh` (keys "paged_decode_group_fp32" /
+"fused_decode_group_fp32", 3xTF32 on `mma.sync`, two passes over an int8 /
+fp8 payload): the whole group in one block and a (sequence, KV head)'s
+blocks merged in a thread-block cluster, with no workspace; their
+chunk-and-merge plan in plain PyTorch is `paged_attention_group_ref`, at
+stages of `group_tokens`.  Both cluster kernels share their merge and
 launch (`csrc/decode_cluster.cuh`) and their plan (`cluster_plan`, split by
 `decode_cluster_split`).
 The TPU kernel's `pages_per_compute_block` (pages per DMA step) has no
@@ -62,9 +65,9 @@ from ..kernels.vanilla import DEFAULT_MASK_VALUE
 from ..quant.kv import QUANT_DTYPES
 
 __all__ = [
-    "cluster_plan", "decode_cluster_split", "decode_split", "group_passes", "group_tiles", "paged_attention",
-    "paged_attention_group_ref", "paged_attention_ref", "paged_attention_split_ref", "uses_group_kernel",
-    "uses_wide_kernel", "wide_passes", "wide_tokens",
+    "cluster_plan", "decode_cluster_split", "decode_split", "group_max_rows", "group_passes", "group_tiles",
+    "group_tokens", "paged_attention", "paged_attention_group_ref", "paged_attention_ref", "paged_attention_split_ref",
+    "uses_group_kernel", "uses_wide_kernel", "wide_passes", "wide_tokens",
 ]
 
 _Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # what csrc/decode.cuh instantiates
@@ -95,10 +98,14 @@ CLUSTER_MAX_PAGES = 1024
 # (64 pairs, 16 chunks) in clusters of 3 against 2 (PERF.md §6,
 # `tools/decode_ab.py --cluster 3`)
 CLUSTER_SIZES = {"group": (1, 2, 4, 8), "wide": tuple(range(1, CLUSTER_MAX + 1))}
-# csrc/decode_group.cuh's plan: tokens of a ring stage (GroupLayout::kTok; a
-# chunk holds at least one), q heads of a pass (kGMaxRows, 8 row tiles of 16)
+# the whole-group kernels' plan: tokens of a ring stage at most
+# (GroupLayout::kTok, GroupLayout32::kTok; `group_tokens`), bytes of a
+# stage's K tile at most, q heads of a pass (kGMaxRows, 8 row tiles of 16;
+# for fp32 q at D128 kGMaxRows32D128, 4 row tiles, each two warps a token)
 GROUP_TOKENS = 128
+GROUP_STAGE_BYTES = 32768
 GROUP_MAX_ROWS = 128
+GROUP_MAX_ROWS_FP32_D128 = 64
 # csrc/decode_wide.cuh's plan: bytes of a K (or V) ring slot at most
 # (kWSlotBytes; a stage is at most 32 tokens of padded rows), q heads of a
 # pass (kWMaxRows)
@@ -301,23 +308,41 @@ def decode_split(capacity: int, pairs: int, unit: int, sms: int) -> tuple[int, i
 
 
 def uses_group_kernel(q_dtype: torch.dtype, head_dim: int, group: int) -> bool:
-    """Whether a decode call runs the whole-group kernels
-    (`csrc/decode_group.cuh`): a GQA group above MAX_ROWS (8) q heads with
-    bf16 or fp16 q at head dim 64 or 128.  Head dims above 256 run the wide
-    kernels (`uses_wide_kernel`); every other configuration (groups of up to
-    8, fp32 q, head dims 8-32 and 256) the group tiles of `csrc/decode.cuh`."""
-    return q_dtype in (torch.bfloat16, torch.float16) and head_dim in (64, 128) and group > MAX_ROWS
+    """Whether a decode call runs the whole-group kernels: a GQA group above
+    MAX_ROWS (8) q heads at head dim 64 or 128, with bf16 or fp16 q
+    (`csrc/decode_group.cuh`) or fp32 q (`csrc/decode_group_fp32.cuh`).
+    Head dims above 256 run the wide kernels (`uses_wide_kernel`); every
+    other configuration (groups of up to 8, head dims 8-32 and 256) the
+    group tiles of `csrc/decode.cuh`."""
+    return q_dtype in _Q_DTYPES and head_dim in (64, 128) and group > MAX_ROWS
 
 
-def group_passes(group: int) -> tuple[int, int]:
-    """(passes, rows): the whole-group kernels hold at most GROUP_MAX_ROWS
-    (128) q heads a block, in m16 row tiles; a larger group runs in
-    `passes` passes of `rows` q heads (a multiple of 16, as even as they go;
-    the last may hold fewer), a cluster each.  Every real group is one pass:
-    16 -> (1, 16), 71 -> (1, 80), 128 -> (1, 128), 200 -> (2, 112)."""
+def group_max_rows(q_dtype: torch.dtype, head_dim: int) -> int:
+    """The q heads a pass of the whole-group kernels holds at most:
+    GROUP_MAX_ROWS (128), or GROUP_MAX_ROWS_FP32_D128 (64) for fp32 q at
+    head dim 128, where a row tile's head dim is split over two warps."""
+    return GROUP_MAX_ROWS_FP32_D128 if q_dtype == torch.float32 and head_dim == 128 else GROUP_MAX_ROWS
+
+
+def group_passes(group: int, max_rows: int = GROUP_MAX_ROWS) -> tuple[int, int]:
+    """(passes, rows): the whole-group kernels hold at most `max_rows`
+    (`group_max_rows`: 128, or 64 for fp32 q at D128) q heads a block, in
+    m16 row tiles; a larger group runs in `passes` passes of `rows` q heads
+    (a multiple of 16, as even as they go; the last may hold fewer), a
+    cluster each.  At 128 every real group is one pass: 16 -> (1, 16), 71 ->
+    (1, 80), 128 -> (1, 128), 200 -> (2, 112); at 64, 71 -> (2, 48)."""
     tiles = -(-group // 16)
-    passes = -(-tiles // (GROUP_MAX_ROWS // 16))
+    passes = -(-tiles // (max_rows // 16))
     return passes, 16 * -(-tiles // passes)
+
+
+def group_tokens(head_dim: int, itemsize: int) -> int:
+    """Tokens of a stage of the whole-group kernels (`GroupLayout::kTok`,
+    `GroupLayout32::kTok`) for a payload of `itemsize` bytes: as many rows
+    as fill GROUP_STAGE_BYTES (32 KB) of K, at most GROUP_TOKENS (128): 128
+    for every 8- and 16-bit payload and for fp32 at D64, 64 for fp32 at
+    D128.  A chunk of the split holds at least one stage."""
+    return min(GROUP_TOKENS, GROUP_STAGE_BYTES // (head_dim * itemsize))
 
 
 def uses_wide_kernel(q_dtype: torch.dtype, head_dim: int, group: int) -> bool:
@@ -356,7 +381,7 @@ def decode_cluster_split(capacity: int, pairs: int, unit: int, resident: dict[in
     from the SM count and each block's registers and shared memory), never
     from the lengths; its keys are the sizes the kernel may take,
     CLUSTER_SIZES).  A chunk is one ring stage of the kernel (`tokens`:
-    GROUP_TOKENS, or `wide_tokens`) rounded up to whole `unit`s (K5's page
+    `group_tokens`, or `wide_tokens`) rounded up to whole `unit`s (K5's page
     size; K6 passes the stage), so that the live tokens of a sequence spread
     evenly over its cluster.  The cluster is the largest of those sizes
     whose clusters all fit the card at once (one wave: a cluster left for a
@@ -405,15 +430,16 @@ def cluster_plan(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int, gro
                  pairs: int, paged: bool, index: int) -> tuple[str, int, int, int, int, int] | None:
     """The launch plan of a decode call that runs a cluster kernel:
     (kind, passes, rows, cluster, chunk, walks), kind "wide" for a head dim
-    above 256 (`uses_wide_kernel`), "group" for a GQA group above 8 with
-    bf16 / fp16 q at D64 / D128 (`uses_group_kernel`); None for a call that
+    above 256 (`uses_wide_kernel`), "group" for a GQA group above 8 at D64 /
+    D128 (`uses_group_kernel`); None for a call that
     runs decode.cuh's group tiles.  `kv_dtype` is the cache's, `unit` K5's
     page size (ignored for K6), `pairs` sequences x KV heads and `index`
     the card the split asks for its residency."""
     if uses_wide_kernel(q_dtype, head_dim, group):
         kind, (passes, rows), tokens = "wide", wide_passes(group), wide_tokens(head_dim, kv_dtype.itemsize)
     elif uses_group_kernel(q_dtype, head_dim, group):
-        kind, (passes, rows), tokens = "group", group_passes(group), GROUP_TOKENS
+        kind, tokens = "group", group_tokens(head_dim, kv_dtype.itemsize)
+        passes, rows = group_passes(group, group_max_rows(q_dtype, head_dim))
     else:
         return None
     resident = _resident_clusters(kind, index, _DTYPE_CODES[q_dtype], QUANT_DTYPES.get(kv_dtype, 0), head_dim, rows,
@@ -488,9 +514,9 @@ def _launch_decode(
     len_add, 1) tokens (K6 always adds 1), split across blocks as
     `decode_split` chooses, a GQA group in `group_tiles`.  What the kernels
     do not take (q dtype, payload, head dim) raises before any launch.  A
-    GQA group above 8 with bf16 / fp16 q at head dim 64 or 128
-    (`uses_group_kernel`) runs the whole-group kernel of the same entry
-    (launch key `entry` + "_group"), and a head dim above 256
+    GQA group above 8 at head dim 64 or 128 (`uses_group_kernel`) runs the
+    whole-group kernel of the same entry (launch key `entry` + "_group",
+    + "_group_fp32" for fp32 q), and a head dim above 256
     (`uses_wide_kernel`) the wide kernel (`entry` + "_wide"), both as
     `cluster_plan` chooses and with no workspace."""
     batch, hq, d = q.shape
@@ -543,8 +569,8 @@ def _launch_decode(
     plan = cluster_plan(q.dtype, k.dtype, d, hq // hkv, capacity, unit, batch * hkv, paged, device.index)
     if plan is not None:
         kind, passes, rows, cluster, chunk, walks = plan
-        key = f"{entry}_{kind}"
-        launch = getattr(library(), f"fa_{key}")
+        launch = getattr(library(), f"fa_{entry}_{kind}")
+        key = f"{entry}_{kind}" + ("_fp32" if kind == "group" and q.dtype == torch.float32 else "")
         codes = (_DTYPE_CODES[q.dtype], kv_code, batch, hq, hkv, passes, rows, d)
         with _on(device):
             if paged:

@@ -103,7 +103,9 @@ def _pad_head_dim(x: torch.Tensor, dp: int) -> torch.Tensor:
 # launches: K1-K3 and the backward's pre-pass here, K4 in quant/kv.py, K5
 # and K6 in inference/paged_attention.py (a GQA group above 8 with 16-bit q
 # at head dim 64 or 128 under "paged_decode_group" / "fused_decode_group",
-# the whole-group kernels of csrc/decode_group.cuh; head dims above 256 under
+# the whole-group kernels of csrc/decode_group.cuh, with fp32 q under
+# "paged_decode_group_fp32" / "fused_decode_group_fp32", those of
+# csrc/decode_group_fp32.cuh; head dims above 256 under
 # "paged_decode_wide" / "fused_decode_wide", the cluster kernels of
 # csrc/decode_wide.cuh).  fp32 K1, K4, K2 and K3 up to
 # head dim 128 are the 3xTF32 kernels (csrc/flash_fwd_fp32.cu,
@@ -129,6 +131,8 @@ KERNEL_LAUNCHES = {
     "fused_decode": 0,
     "paged_decode_group": 0,
     "fused_decode_group": 0,
+    "paged_decode_group_fp32": 0,
+    "fused_decode_group_fp32": 0,
     "paged_decode_wide": 0,
     "fused_decode_wide": 0,
     "flash_fwd_d256": 0,

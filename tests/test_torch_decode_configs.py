@@ -6,7 +6,8 @@ scoring, and K6's with `prescale_q=True`) against the JAX package's
 `paged_attention` in Pallas interpret mode and its `decode_attention_fused`
 (interpret mode up to d = 128, its own einsum fallback above); the
 whole-group kernels' plan (`paged_attention_group_ref`: GQA groups above 8
-with bf16 / fp16 q at D64 / D128, the chunks and clusters that
+at D64 / D128 with bf16 / fp16 q, and with fp32 q over fp32, int8 and fp8
+pages at the stage `group_tokens` gives; the chunks and clusters that
 `decode_cluster_split` gives) against the same, and their routing and split;
 then the slice: a 2-layer multi-query GPT's chained decode steps through
 attn_impl="paged" and "fused" against the JAX package's, and their greedy
@@ -53,7 +54,11 @@ CHUNK = 32  # two pages of 16: the kernels' splits, most of them empty for short
 # The whole-group kernels' configurations: q's dtype and the payload
 GROUP_PAYLOADS = {"bf16": (jnp.bfloat16, None), "fp16": (jnp.float16, None), "bf16-int8": (jnp.bfloat16, jnp.int8),
                   "fp16-fp8": (jnp.float16, jnp.float8_e4m3fn)}
-ALL_PAYLOADS = {**PAYLOADS, **GROUP_PAYLOADS}
+# the fp32 whole-group kernel's (csrc/decode_group_fp32.cuh): fp32 q over
+# fp32, int8 and fp8 pages
+GROUP_FP32_PAYLOADS = {"fp32": (jnp.float32, None), "fp32-int8": (jnp.float32, jnp.int8),
+                       "fp32-fp8": (jnp.float32, jnp.float8_e4m3fn)}
+ALL_PAYLOADS = {**PAYLOADS, **GROUP_PAYLOADS, **GROUP_FP32_PAYLOADS}
 # (q heads, KV heads): groups 12 (one padded row tile), 16 (SantaCoder's
 # multi-query), 48 (StarCoder's, 3 row tiles), 71 (Falcon-7B's, 5 row tiles:
 # 8 warps) and 24 / 2 (a group of 12 on two KV heads)
@@ -245,6 +250,101 @@ def test_k6_group_plan_matches_jax_fused(hq, hkv, d, payload):
     np.testing.assert_allclose(n(got.float()), np.asarray(jout, np.float32), atol=atol, rtol=rtol)
 
 
+def _fp32_split(hq, hkv, d, payload, capacity, unit, paged):
+    """The fp32 whole-group plan's (cluster, chunk, walks) at a stage of
+    `group_tokens` (64 tokens for fp32 pages at D128, 128 otherwise) on a card
+    that holds every pair's cluster of 2 at once but not of 3, and the
+    stage's tokens.  K6 (`unit` None) takes the stage as its unit."""
+    tokens = tpa.group_tokens(d, 4 if payload == "fp32" else 1)
+    passes, _ = tpa.group_passes(hq // hkv, tpa.group_max_rows(torch.float32, d))
+    pairs = len(_fp32_lengths(tokens)) * hkv * passes
+    split = tpa.decode_cluster_split(capacity, pairs, unit or tokens, {1: 2 * pairs, 2: pairs, 3: pairs - 1}, paged,
+                                     tokens)
+    assert split[:2] == (2, tokens)  # 2 blocks a cluster, chunks of one stage
+    return split, tokens
+
+
+def _fp32_lengths(chunk: int) -> tuple:
+    """Lengths (current token included) on the fp32 plan's edges: 0 and 1,
+    a stage's (a chunk's) edges, a cluster's span (each block one whole
+    chunk), a block's later chunk partly live, the whole capacity."""
+    return (0, 1, chunk - 1, chunk + 1, 2 * chunk, 400, GROUP_CAPACITY)
+
+
+@pytest.mark.parametrize("payload", GROUP_FP32_PAYLOADS)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", GROUP_CASES, ids=GROUP_IDS)
+def test_k5_group_fp32_plan_matches_jax_paged_kernel(hq, hkv, d, payload):
+    """The fp32 whole-group K5's plan in plain PyTorch (chunks of one stage,
+    2 blocks a cluster, then the cluster's merge in rank order) against
+    JAX's paged kernel (interpret mode, fp32 q: P is not rounded) over a
+    permuted page table of pages of 16, at the fp32 tolerance."""
+    (cluster, chunk, _), tokens = _fp32_split(hq, hkv, d, payload, GROUP_CAPACITY, 16, True)
+    lengths = np.array(_fp32_lengths(tokens), np.int32)
+    q, pi, pages = _pages(hq, hkv, d, payload, batch=len(lengths), pps=GROUP_CAPACITY // 16, seed=d + 1)
+    jout = jpa.paged_attention(q, pages[0], pages[1], jnp.asarray(lengths), jnp.asarray(pi),
+                               pages_per_compute_block=8, k_scales=pages[2], v_scales=pages[3])
+    kp, vp, ks, vs = (None if a is None else from_jax(a) for a in pages)
+    tq = from_jax(q)
+    assert tq.dtype == torch.float32 and tpa.uses_group_kernel(tq.dtype, d, hq // hkv)
+    before = dict(KERNEL_LAUNCHES)
+    got = tpa.paged_attention_group_ref(tq, kp, vp, t(lengths), t(pi), cluster=cluster, chunk=chunk, k_scales=ks,
+                                        v_scales=vs)
+    plain = tpa.paged_attention(tq, kp, vp, t(lengths), t(pi), k_scales=ks, v_scales=vs)
+    assert KERNEL_LAUNCHES == before  # CPU tensors take the plain versions
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    atol, rtol = TOL["fp32"]
+    np.testing.assert_allclose(n(got), np.asarray(jout, np.float32), atol=atol, rtol=rtol)
+    np.testing.assert_allclose(n(got), n(plain), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("payload", GROUP_FP32_PAYLOADS)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", GROUP_CASES, ids=GROUP_IDS)
+def test_k6_group_fp32_plan_matches_jax_fused(hq, hkv, d, payload):
+    """The fp32 whole-group K6's plan (q multiplied by sm_scale in fp32,
+    lengths + 1, chunks of one stage over the slot-major cache's page view,
+    2 blocks a cluster) against JAX's `decode_attention_fused` (interpret
+    mode) over fp32 pages, and over int8 / fp8 pages, whose P the JAX
+    kernel rounds (to bf16 / fp8, pv_dtype), against JAX's einsum
+    `decode_attention`, the function both compute; the fp32 tolerance."""
+    (cluster, chunk, _), tokens = _fp32_split(hq, hkv, d, payload, GROUP_CAPACITY, None, False)
+    lengths = _fp32_lengths(tokens)
+    jc = _jax_cache(hkv, d, payload, lengths=tuple(max(x - 1, 0) for x in lengths), max_len=GROUP_CAPACITY)
+    q = jnp.asarray(randn(35, len(lengths), hq, d), jnp.float32)
+    if GROUP_FP32_PAYLOADS[payload][1] is None:
+        jout = jda.decode_attention_fused(q, jc, 0, block=64)
+    else:
+        jout = jda.decode_attention(q, jc, 0)
+    tc = torch_cache(jc)
+    kp, vp, ks, vs = tkvc.page_view(tc, 0, tc.max_len)
+    pi = tkvc.identity_page_indices(tc.slots, tc.max_len, tc.max_len, device="cpu")
+    got = tpa.paged_attention_group_ref(from_jax(q), kp, vp, tc.lengths + 1, pi, cluster=cluster, chunk=chunk,
+                                        k_scales=ks, v_scales=vs, prescale_q=True)
+    atol, rtol = TOL["fp32"]
+    np.testing.assert_allclose(n(got), np.asarray(jout, np.float32), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("d,itemsize,want", [(64, 4, 128), (128, 4, 64), (64, 2, 128), (128, 2, 128), (64, 1, 128),
+                                             (128, 1, 128)])
+def test_group_tokens(d, itemsize, want):
+    """A stage's tokens: rows filling 32 KB of K, at most 128 (64 for fp32
+    pages at D128, whose rows are 512 bytes); the kernels' layouts take the
+    same (GroupLayout::kTok, GroupLayout32::kTok)."""
+    assert tpa.group_tokens(d, itemsize) == want
+    assert want * d * itemsize <= tpa.GROUP_STAGE_BYTES and want <= tpa.GROUP_TOKENS
+
+
+@pytest.mark.parametrize("q_dtype,d,want", [(torch.float32, 128, 64), (torch.float32, 64, 128),
+                                            (torch.bfloat16, 128, 128), (torch.float16, 64, 128)])
+def test_group_max_rows(q_dtype, d, want):
+    """A pass holds at most 128 q heads, 64 for fp32 q at D128 (a row tile's
+    head dim split over two warps, 4 row tiles a block); group 71 there
+    runs in two passes of 48."""
+    assert tpa.group_max_rows(q_dtype, d) == want
+    assert tpa.group_passes(71, want) == ((2, 48) if want == 64 else (1, 80))
+
+
 @pytest.mark.parametrize(
     "q_dtype,d,group,want",
     [
@@ -254,8 +354,10 @@ def test_k6_group_plan_matches_jax_fused(hq, hkv, d, payload):
         (torch.bfloat16, 64, 71, True),  # Falcon-7B
         (torch.bfloat16, 128, 8, False),  # a group of up to 8: the group tiles
         (torch.float16, 64, 1, False),
-        (torch.float32, 128, 16, False),  # fp32 q: the group tiles
-        (torch.float32, 64, 71, False),
+        (torch.float32, 128, 16, True),  # fp32 q: the 3xTF32 whole-group kernel
+        (torch.float32, 64, 71, True),
+        (torch.float32, 128, 8, False),  # fp32 q at a group of up to 8: the group tiles
+        (torch.float32, 32, 16, False),
         (torch.bfloat16, 32, 16, False),  # D32 (d 8-32): the group tiles
         (torch.bfloat16, 16, 16, False),
         (torch.bfloat16, 256, 16, False),  # D256: the group tiles; above it the wide kernels
@@ -264,7 +366,8 @@ def test_k6_group_plan_matches_jax_fused(hq, hkv, d, payload):
 )
 def test_group_kernel_routing(q_dtype, d, group, want):
     """Which decode configurations run the whole-group kernels: a group
-    above 8 with bf16 / fp16 q at head dim 64 or 128, and nothing else."""
+    above 8 at head dim 64 or 128 (bf16 / fp16 q: decode_group.cuh; fp32
+    q: decode_group_fp32.cuh), and nothing else."""
     assert tpa.uses_group_kernel(q_dtype, d, group) is want
 
 

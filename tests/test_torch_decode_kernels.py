@@ -198,10 +198,11 @@ def test_decode_launchers_raise_without_a_card():
                  (t(q).half(), kp, vp, ks, vs)):  # fp16 q
         with pytest.raises(RuntimeError, match="CUDA tensors only"):
             launch(*args)
-    # the whole-group entry points (a group above 8, bf16 / fp16 q, D64 /
-    # D128): K5 over pages and K6 over one slot-major layer
+    # the whole-group entry points (a group above 8, bf16 / fp16 q and the
+    # 3xTF32 kernel's fp32 q, D64 / D128): K5 over pages and K6 over one
+    # slot-major layer
     slots = lengths.shape[0]
-    for qdt in (torch.bfloat16, torch.float16):
+    for qdt in (torch.bfloat16, torch.float16, torch.float32):
         qg = q18.to(qdt)
         assert tpa.uses_group_kernel(qg.dtype, 64, 18)
         with pytest.raises(RuntimeError, match="CUDA tensors only"):
@@ -331,32 +332,37 @@ RESIDENT_D64 = {1: 264, 2: 132, 4: 62, 8: 30}
 
 
 @pytest.mark.parametrize(
-    "capacity,pairs,unit,resident,paged,want",
+    "capacity,pairs,unit,resident,paged,want,tokens",
     [
-        (2048, 8, 128, RESIDENT_D128, True, (8, 128, 2)),  # SantaCoder's layer, K5: a page of 128 a chunk
-        (2048, 8, 128, RESIDENT_D128, False, (8, 128, 2)),  # the same through K6 (its unit is the stage)
-        (2048, 64, 128, RESIDENT_D64, True, (2, 128, 8)),  # Falcon-40B's layer: 64 clusters of 4 do not fit
-        (2048, 64, 128, RESIDENT_D64, False, (2, 128, 8)),
-        (1024, 8, 16, RESIDENT_D128, True, (8, 128, 1)),  # pages of 16: 8 pages a chunk
-        (128, 8, 128, RESIDENT_D128, True, (1, 128, 1)),  # one chunk: one block
-        (4096, 512, 16, RESIDENT_D64, True, (1, 128, 32)),  # many pairs: clusters of 1, 32 chunks a block
-        (131072, 8, 16, RESIDENT_D128, True, (8, 128, 128)),  # 1024 page ids a block, the most it stages
-        (131072, 1024, 16, RESIDENT_D64, True, (8, 128, 128)),  # the page ids ask for clusters of 8
-        (131072, 1024, 16, RESIDENT_D64, False, (1, 128, 1024)),  # K6 stages none
+        (2048, 8, 128, RESIDENT_D128, True, (8, 128, 2), 128),  # SantaCoder's layer, K5: a page of 128 a chunk
+        (2048, 8, 128, RESIDENT_D128, False, (8, 128, 2), 128),  # the same through K6 (its unit is the stage)
+        (2048, 64, 128, RESIDENT_D64, True, (2, 128, 8), 128),  # Falcon-40B's layer: 64 clusters of 4 do not fit
+        (2048, 64, 128, RESIDENT_D64, False, (2, 128, 8), 128),
+        (1024, 8, 16, RESIDENT_D128, True, (8, 128, 1), 128),  # pages of 16: 8 pages a chunk
+        (128, 8, 128, RESIDENT_D128, True, (1, 128, 1), 128),  # one chunk: one block
+        (4096, 512, 16, RESIDENT_D64, True, (1, 128, 32), 128),  # many pairs: clusters of 1, 32 chunks a block
+        (131072, 8, 16, RESIDENT_D128, True, (8, 128, 128), 128),  # 1024 page ids a block, the most it stages
+        (131072, 1024, 16, RESIDENT_D64, True, (8, 128, 128), 128),  # the page ids ask for clusters of 8
+        (131072, 1024, 16, RESIDENT_D64, False, (1, 128, 1024), 128),  # K6 stages none
+        # an fp32 cache at D128 (fp32 q): stages of 64 tokens; K6 takes a chunk of one stage, K5 a page of 128
+        (2048, 8, 128, RESIDENT_D128, True, (8, 128, 2), 64),  # SantaCoder's layer in fp32, K5
+        (2048, 8, 64, RESIDENT_D128, False, (8, 64, 4), 64),  # ... and K6: 4 chunks of 64 a block
+        (2048, 8, 16, RESIDENT_D128, True, (8, 64, 4), 64),  # pages of 16: 4 pages a chunk
+        (131072, 8, 16, RESIDENT_D128, True, (8, 64, 256), 64),  # 1024 page ids a block
     ],
 )
-def test_decode_group_split_choice(capacity, pairs, unit, resident, paged, want):
+def test_decode_group_split_choice(capacity, pairs, unit, resident, paged, want, tokens):
     """The whole-group kernels' split (`decode_cluster_split` at their
-    128-token stage): the largest cluster of up to 8 whose clusters all fit
-    the card at once and leave each block a chunk; chunks of one stage in
-    whole units; the capacity covered; K5's page ids within what a block
-    stages."""
-    cluster, chunk, walks = tpa.decode_cluster_split(capacity, pairs, unit, resident, paged, tpa.GROUP_TOKENS)
+    stage, `group_tokens`: 128 tokens, 64 for an fp32 cache at D128): the
+    largest cluster of up to 8 whose clusters all fit the card at once and
+    leave each block a chunk; chunks of one stage in whole units; the
+    capacity covered; K5's page ids within what a block stages."""
+    cluster, chunk, walks = tpa.decode_cluster_split(capacity, pairs, unit, resident, paged, tokens)
     assert (cluster, chunk, walks) == want
     assert chunk % unit == 0 and cluster * chunk * walks >= capacity > cluster * chunk * (walks - 1)
     assert cluster <= tpa.CLUSTER_MAX and (not paged or walks * chunk // unit <= tpa.CLUSTER_MAX_PAGES)
     with pytest.raises(NotImplementedError, match="page ids"):
-        tpa.decode_cluster_split(262144, 8, 16, RESIDENT_D128, True, tpa.GROUP_TOKENS)
+        tpa.decode_cluster_split(262144, 8, 16, RESIDENT_D128, True, tokens)
 
 
 def test_decode_split_gives_two_waves_at_the_serving_shape():

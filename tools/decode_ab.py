@@ -26,6 +26,10 @@ checkouts in one call, in turns (A, B, B, A): times on the host's clock
 spread between calls and between processes, and one process cannot import
 two checkouts' packages.
 
+`--stores a,b` times only the rows on those caches (`chip_smoke.STORES`
+names, e.g. `fp32,int8 fp32 q`), and `--no-bursts` leaves out the serving
+bursts: a short call that measures a few rows.
+
 `--cluster N` (a checkout with cluster decode kernels) forces clusters of N
 blocks (1-8) in place of the split's choice (`decode_cluster_split`, or
 `decode_group_split` in a checkout from before it), the chunk kept: the
@@ -46,6 +50,8 @@ parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 parser.add_argument("tree")
 parser.add_argument("label")
 parser.add_argument("--cluster", type=int, default=0, help="force the cluster decode kernels' clusters to this many blocks")
+parser.add_argument("--stores", default="", help="time only the rows on these caches (comma-separated)")
+parser.add_argument("--no-bursts", action="store_true", help="leave out the serving bursts")
 args = parser.parse_args()
 tree, label = args.tree, args.label
 sys.path.insert(0, os.path.abspath(tree))
@@ -84,12 +90,18 @@ def main() -> None:
     res = {"label": label, "checkout": tree, "device": name, "smi": smi, "build_s": time.perf_counter() - t0,
            "cluster": args.cluster or "chosen"}
     gen = torch.Generator().manual_seed(7)
+    stores = set(args.stores.split(",")) if args.stores else None
     for shape in smoke.DECODE_SHAPES + (smoke.ONE_TILE_SHAPE,):
         for store in shape[-1]:
+            if stores is not None and store not in stores:
+                continue
             row = smoke.time_decode(gen, smi, shape, store)
             res[f"{shape[0]} {store}"] = row
             print(label, shape[0], store, {k: v if isinstance(v, str) else round(v, 5) for k, v in row.items()},
                   flush=True)
+    if args.no_bursts:
+        print("RESULT " + json.dumps(res), flush=True)
+        return
     model = smoke._gpt2(0)
     base = smoke._burst(0, "serving", model)
     _, rates = smoke.phase_serving_quant(0, model, base, smi)

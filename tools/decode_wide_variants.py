@@ -3,6 +3,7 @@ one slot-major layer), each variant built alone, to see where a step's time
 goes.
 
     python3 tools/decode_wide_variants.py [--kernel wide|tiles] [--tree DIR] [--variants base,timeline,...]
+                                          [--shapes d512,d1024] [--q bf16|fp32]
 
 `--kernel wide` (the default) takes `csrc/decode_wide.cuh`, the cluster
 kernel that runs every decode call at padded D512 / D1024; `--kernel tiles`
@@ -32,10 +33,17 @@ every variant runs the same inputs:
 * wide only: pace (thread 0's stamps as it finds stages 0-7's K landed, in
   us after the launch's first such stamp: the pace of a block's stream).
 
-Shapes: `chip_smoke.NEW_DECODE_SHAPES`' d512 and d1024 rows (8 slots, GQA
-8/2, contexts 1920-2047 of 2048, 4 layers walked in a CUDA graph with one
-call a layer, so that each call finds its layer out of L2), on bf16 and
-int8 caches at bf16 q.  tiles runs at two splits, K6's own (`decode_split`
+Shapes (`--shapes`): `chip_smoke.NEW_DECODE_SHAPES`' d512 and d1024 rows
+(8 slots, GQA 8/2, contexts 1920-2047 of 2048, 4 layers walked in a CUDA
+graph with one call a layer, so that each call finds its layer out of L2),
+on caches in q's dtype and int8, at bf16 q or (`--q fp32`) fp32 q; with
+`--kernel tiles` also SantaCoder's layer (santacoder: 24 layers, 16 q heads
+on one KV head of 128, two group tiles of 8; santacoder8: the same with 8 q
+heads, one tile, so that the difference is the second tile's re-read) and
+Falcon-40B's (falcon40b: 8 layers, GQA 128/8 at D64), which the group
+tiles run with fp32 q at groups above 8 in a checkout from before the
+whole-group kernel took fp32 q (this tree's decode.cuh is that kernel at
+D64 / D128).  tiles runs at two splits, K6's own (`decode_split`
 over 16-token tiles) and K5's (chunks of a 128-token page), to see what the
 split costs; wide at the cluster `decode_cluster_split` picks from the card's
 resident clusters.  Device ms a call from `utils.measure.graph_ms`; the
@@ -71,7 +79,7 @@ _STAMP = ("__device__ __forceinline__ unsigned long long gtime() {\n"
           "gridDim.x + blockIdx.x) * 8 + k] = gtime();\n")
 _PARAMS = ("  float q_scale, score_scale;\n};", "  float q_scale, score_scale;\n  int tag;\n  unsigned long long* times;\n};")
 _COMMON = '''
-// K6 over one slot-major layer, bf16 q.
+// K6 over one slot-major layer, q of type QT.
 extern "C" __attribute__((visibility("default"))) int variant_decode(
     const void* q, const void* k, const void* v, const void* ks, const void* vs, const void* lengths, void* out,
     void* ws, void* counters, int int8, int d, int slots, int hq, int hkv, int max_len, int cluster, int chunk,
@@ -89,25 +97,29 @@ extern "C" __attribute__((visibility("default"))) int variant_decode(
 #endif
   cudaStream_t s = (cudaStream_t)stream;
   SETUP
-  const int D = d > 512 ? 1024 : 512;
-  if (D == 1024) return int8 ? run<int8_t, 1024>(p, cluster, splits, hkv, slots, s, resident)
-                             : run<__nv_bfloat16, 1024>(p, cluster, splits, hkv, slots, s, resident);
-  return int8 ? run<int8_t, 512>(p, cluster, splits, hkv, slots, s, resident)
-              : run<__nv_bfloat16, 512>(p, cluster, splits, hkv, slots, s, resident);
+  DISPATCH
+  return (int)cudaErrorInvalidValue;
 }
 '''
 
+
+def _dispatch(dims) -> str:
+    """The launcher's dispatch on the padded head dim, for the dims run."""
+    return "\n  ".join(f"if (d <= {D} && d > {D // 2}) return int8 ? run<int8_t, {D}>(p, cluster, splits, hkv, slots, s, "
+                       f"resident) : run<QT, {D}>(p, cluster, splits, hkv, slots, s, resident);" for D in dims)
+
 KERNELS = {
-    # decode.cuh's group tiles as a checkout that still runs D512 / D1024 has them: a block of
-    # 4 warps a (sequence, KV head, split), 4 column slabs, 8-row tile
+    # decode.cuh's group tiles (as a checkout that still runs D512 / D1024 has them, or at
+    # D64 / D128): a block of 4 warps a (sequence, KV head, group tile of up to 8 q heads,
+    # split), column slabs above D128
     "tiles": dict(
         header="decode.cuh",
         launcher='#include "decode.cuh"\nusing namespace fa::decode;\nusing P = DecodeParams;\n'
                  "template <typename KV, int D>\n"
                  "cudaError_t run(const P& p, int, int splits, int hkv, int slots, cudaStream_t s, int*) {\n"
-                 "  return launch_one<__nv_bfloat16, KV, D, 8, false>(p, dim3(hkv, slots, splits), s);\n}\n"
+                 "  return launch_one<QT, KV, D, 8, false>(p, dim3(hkv * p.gtiles, slots, splits), s);\n}\n"
                  + _COMMON.replace("SETUP", "p.ws = (float*)ws; p.counters = (int*)counters; p.splits = splits; "
-                                   "p.gtiles = 1; p.rows = hq / hkv;"),
+                                   "p.gtiles = (hq / hkv + 7) / 8; p.rows = (hq / hkv + p.gtiles - 1) / p.gtiles;"),
         timeline=[
             _PARAMS,
             ("template <typename T, typename KV, int D, int kMaxG, bool kPaged>\n__global__",
@@ -143,7 +155,7 @@ KERNELS["wide"] = dict(
              "template <typename KV, int D>\n"
              "cudaError_t run(const P& p0, int cluster, int walks, int hkv, int slots, cudaStream_t s, int* r) {\n"
              "  P p = p0;\n  p.walks = walks;\n  p.passes = 1;\n  p.pass_rows = p.group;\n"
-             "  return wide_launch_one<__nv_bfloat16, KV, D, 4, false>(p, cluster, dim3(cluster, hkv, slots), s, r);\n}\n"
+             "  return wide_launch_one<QT, KV, D, 4, false>(p, cluster, dim3(cluster, hkv, slots), s, r);\n}\n"
              + _COMMON.replace("SETUP", ""),
     timeline=[
         _PARAMS,
@@ -182,10 +194,13 @@ KERNELS["wide"] = dict(
 )
 
 VARIANT_NAMES = ("base", "timeline", "nocompute", "nocopy")
-SHAPES = {"d512": (4, 8, 8, 2, 512, 2048), "d1024": (4, 8, 8, 2, 1024, 2048)}
+SHAPES = {"d512": (4, 8, 8, 2, 512, 2048), "d1024": (4, 8, 8, 2, 1024, 2048),
+          "santacoder": (24, 8, 16, 1, 128, 2048), "santacoder8": (24, 8, 8, 1, 128, 2048),
+          "falcon40b": (8, 8, 128, 8, 64, 2048)}
+Q_TYPES = {"bf16": ("__nv_bfloat16", torch.bfloat16), "fp32": ("float", torch.float32)}
 
 
-def build(kernel: str, tree: str, names: list[str]) -> dict:
+def build(kernel: str, tree: str, names: list[str], q: str, dims) -> dict:
     """Every variant's library, compiled in parallel."""
     spec = KERNELS[kernel]
     csrc = os.path.join(tree, "flash_attention_tpu_torch", "csrc")
@@ -205,7 +220,7 @@ def build(kernel: str, tree: str, names: list[str]) -> dict:
             with open(os.path.join(d, f), "w") as fh:
                 fh.write(src)
         with open(os.path.join(d, "launcher.cu"), "w") as fh:
-            fh.write(spec["launcher"])
+            fh.write(f"#define QT {Q_TYPES[q][0]}\n" + spec["launcher"].replace("DISPATCH", _dispatch(dims)))
         flags = ["-DFA_TIMELINE"] if name in ("timeline", "pace") else []
         procs[name] = subprocess.Popen(
             ["/usr/local/cuda/bin/nvcc", *flags, "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -225,13 +240,15 @@ def build(kernel: str, tree: str, names: list[str]) -> dict:
     return libs
 
 
-def splits(kernel: str, libs: dict, int8: int, d: int, slots: int, hq: int, hkv: int, L: int) -> list[tuple]:
+def splits(kernel: str, libs: dict, int8: int, d: int, slots: int, hq: int, hkv: int, L: int,
+           itemsize: int) -> list[tuple]:
     """(label, cluster, chunk, splits or walks) of each run."""
     if kernel == "tiles":
         sms = torch.cuda.get_device_properties(0).multi_processor_count
+        tiles = PA.group_tiles(hq // hkv)[0]
         out = []
         for label, unit in (("K6 split", PA.DECODE_TILE), ("K5 split", 128)):
-            chunk, n = PA.decode_split(L, slots * hkv, unit, sms)
+            chunk, n = PA.decode_split(L, slots * hkv * tiles, unit, sms)
             out.append((f"{label} {n} x {chunk}", 1, chunk, n))
         return out
     lib = next(iter(libs.values()))
@@ -243,7 +260,7 @@ def splits(kernel: str, libs: dict, int8: int, d: int, slots: int, hq: int, hkv:
         if err:
             raise RuntimeError(f"occupancy query failed with cudaError {err}")
         resident[c] = r.value
-    tokens = PA.wide_tokens(d, 1 if int8 else 2)
+    tokens = PA.wide_tokens(d, 1 if int8 else itemsize)
     cl, chunk, walks = PA.decode_cluster_split(L, slots * hkv, tokens, resident, False, tokens)
     return [(f"cluster {cl} x {walks} chunks of {chunk} (resident {resident})", cl, chunk, walks)]
 
@@ -253,20 +270,31 @@ def main() -> None:
     ap.add_argument("--kernel", default="wide", choices=sorted(KERNELS))
     ap.add_argument("--tree", default=ROOT, help="the checkout whose headers are built")
     ap.add_argument("--variants", default=",".join(VARIANT_NAMES))
+    ap.add_argument("--shapes", default="d512,d1024", help=f"comma-separated, of {', '.join(SHAPES)}")
+    ap.add_argument("--q", default="bf16", choices=sorted(Q_TYPES))
     args = ap.parse_args()
-    if args.kernel == "tiles" and os.path.abspath(args.tree) == ROOT:
-        ap.error("--kernel tiles needs --tree: a checkout whose decode.cuh still runs D512 / D1024 (before the wide "
-                 "kernel), e.g. a parent unpacked under build/parent")
+    shapes = args.shapes.split(",")
+    wide_dims = any(SHAPES[s][4] > 256 for s in shapes)
+    if args.kernel == "tiles" and wide_dims and os.path.abspath(args.tree) == ROOT:
+        ap.error("--kernel tiles at D512 / D1024 needs --tree: a checkout whose decode.cuh still runs them (before "
+                 "the wide kernel), e.g. a parent unpacked under build/parent")
+    if args.kernel == "wide" and not all(SHAPES[s][4] > 256 for s in shapes):
+        ap.error("--kernel wide runs head dims above 256 only")
     names = args.variants.split(",")
+    dims = sorted({512 if SHAPES[s][4] <= 512 and SHAPES[s][4] > 256 else
+                   (1024 if SHAPES[s][4] > 512 else SHAPES[s][4]) for s in shapes})
+    q_dtype = Q_TYPES[args.q][1]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     t0 = time.perf_counter()
-    libs = build(args.kernel, args.tree, names)
+    libs = build(args.kernel, args.tree, names, args.q, dims)
     print(f"[variants] {smi} | {args.kernel}: {len(libs)} variants built in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    times = torch.zeros(8 * MAX_BLOCKS * 8, dtype=torch.int64, device="cuda")
+    max_layers = max(SHAPES[s][0] for s in shapes)
+    times = torch.zeros(max_layers * MAX_BLOCKS * 8, dtype=torch.int64, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for shape, (layers, slots, hq, hkv, d, L) in SHAPES.items():
+    for shape in shapes:
+        layers, slots, hq, hkv, d, L = SHAPES[shape]
         for int8 in (0, 1):
             k = torch.randn(layers, hkv, slots, L, d, device="cuda", generator=gen)
             v = torch.randn(layers, hkv, slots, L, d, device="cuda", generator=gen)
@@ -274,24 +302,25 @@ def main() -> None:
                 ks, vs = k.abs().amax(-1) / 127, v.abs().amax(-1) / 127
                 k, v = (k / ks[..., None]).round().to(torch.int8), (v / vs[..., None]).round().to(torch.int8)
             else:
-                k, v = k.bfloat16(), v.bfloat16()
+                k, v = k.to(q_dtype), v.to(q_dtype)
                 ks = vs = torch.ones(layers, hkv, slots, L, device="cuda")
             lengths = torch.randint(1919, 2047, (slots,), device="cuda", dtype=torch.int32, generator=gen)
-            q = torch.randn(slots, hq, d, device="cuda", generator=gen).bfloat16()
+            q = torch.randn(slots, hq, d, device="cuda", generator=gen).to(q_dtype)
             out = torch.empty_like(q)
             st = (ctypes.c_longlong * 12)(*q.stride()[:2], *out.stride()[:2], *k.stride()[1:4], *v.stride()[1:4],
                                           *ks.stride()[1:3])
-            # the plain decode of layer 0 in fp32: q pre-scaled and rounded as K6 does
+            # the plain decode of layer 0 in fp32: q pre-scaled and rounded to its dtype as K6 does
             kf = k[0].float() * (ks[0][..., None] if int8 else 1)
             vf = v[0].float() * (vs[0][..., None] if int8 else 1)
-            qq = (q.float() * d ** -0.5).bfloat16().float().view(slots, hkv, hq // hkv, d)
+            qq = (q.float() * d ** -0.5).to(q_dtype).float().view(slots, hkv, hq // hkv, d)
             sc = torch.einsum("shgd,hsld->shgl", qq, kf)
             live = torch.arange(L, device="cuda")[None, :] <= lengths[:, None].long()
             sc = torch.where(live[:, None, None, :], sc, -math.inf)
             ref = torch.einsum("shgl,hsld->shgd", torch.softmax(sc, -1), vf).reshape(slots, hq, d)
-            for label, cl, chunk, n in splits(args.kernel, libs, int8, d, slots, hq, hkv, L):
-                ws = torch.empty(slots * hkv * n * (hq // hkv) * (d + 2), device="cuda")
-                counters = torch.zeros(slots * hkv, dtype=torch.int32, device="cuda")
+            tiles, rows = PA.group_tiles(hq // hkv)
+            for label, cl, chunk, n in splits(args.kernel, libs, int8, d, slots, hq, hkv, L, q.element_size()):
+                ws = torch.empty(slots * hkv * tiles * n * rows * (d + 2), device="cuda")
+                counters = torch.zeros(slots * hkv * tiles, dtype=torch.int32, device="cuda")
                 for name, lib in libs.items():
                     def call(i, lib=lib, cl=cl, chunk=chunk, n=n):
                         err = lib.variant_decode(
@@ -306,14 +335,15 @@ def main() -> None:
                     torch.cuda.synchronize()
                     err = (out.float() - ref).abs().max().item()
                     ms = graph_ms(lambda: [call(i) for i in range(layers)], calls=10, runs=5) / layers
-                    print(f"[variants] {smi} | {shape} {'int8' if int8 else 'bf16'} {args.kernel} {label} {name}: "
+                    print(f"[variants] {smi} | {shape} {args.q} q {'int8' if int8 else args.q} cache {args.kernel} "
+                          f"{label} {name}: "
                           f"{ms * 1e3:.2f} us a call on the device, error {err:.2e}", flush=True)
                     if name in ("timeline", "pace"):
                         stamp_lines(call, layers, KERNELS[args.kernel]["stamps" if name == "timeline" else "pace_stamps"],
-                                    times)
+                                    times, max_layers)
 
 
-def stamp_lines(call, layers: int, stamps: tuple, times: torch.Tensor) -> None:
+def stamp_lines(call, layers: int, stamps: tuple, times: torch.Tensor, max_layers: int) -> None:
     """One graph replay of the layers with the stamps on; medians over the
     blocks of a launch that reached each stamp, in us after its first block
     entered."""
@@ -327,7 +357,7 @@ def stamp_lines(call, layers: int, stamps: tuple, times: torch.Tensor) -> None:
     torch.cuda.current_stream().wait_stream(side)
     graph.replay()
     torch.cuda.synchronize()
-    t = times.view(8, MAX_BLOCKS, 8)[:layers].cpu().numpy().astype(np.float64)
+    t = times.view(max_layers, MAX_BLOCKS, 8)[:layers].cpu().numpy().astype(np.float64)
     t[t == 0] = np.nan
     first, last = np.nanmin(t[:, :, 0], axis=1), np.nanmax(t.reshape(layers, -1), axis=1)
     rel = (t - first[:, None, None]) / 1e3
