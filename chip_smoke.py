@@ -51,13 +51,19 @@ are 7-9):
               384, 512, 640, 768, 896, 1024) at groups 1 and 16 on bf16
               and int8 caches, fp32 q at D8-D1024, fp16 q over fp16, int8
               and fp8 caches at D64 and D128, GQA groups 12, 16, 48 and 71
-              (at D64 / D128 the whole-group kernels: "_group" for bf16 /
-              fp16 q, "_group_fp32" for fp32 q, which also runs
-              serving-mqa's shape and Falcon-40B's layer over fp32, int8
-              and fp8 caches at its splits' edges; each held also against
-              the plain version of its plan), K5 permuted with NaN at
-              D16, D128 (also fp32 q over fp32 / int8 / fp8 pages) and
-              D512; above head dim 256 the wide kernels
+              (the whole-group kernels: "_group" for bf16 / fp16 q at
+              D8-D256, also at groups 9, 10, 16 and 48 at D8, D16, D32 and
+              D256 on bf16, fp16, int8 and fp8 caches at its splits' edges,
+              at groups 24 and 71 at D8 / D32, at time_decode's d32_mqa
+              shape and at RecurrentGemma-2B's D256 layer; "_group_fp32"
+              for fp32 q at D64 / D128, which also runs serving-mqa's shape
+              and Falcon-40B's layer over fp32, int8 and fp8 caches at its
+              splits' edges; each held also against the plain version of
+              its plan; fp32 q at groups above 8 at D8-32 and D256 on the
+              group tiles, RecurrentGemma-2B's layer at their splits'
+              edges), K5 permuted with NaN at D16, D128, D256 (also fp32
+              q over fp32 / int8 / fp8 pages at D128) and D512; above head
+              dim 256 the wide kernels
               ("paged_decode_wide" / "fused_decode_wide", each held also
               against the plain version of its plan), also at group 4 on
               bf16, int8 and fp8 caches, fp32 q over fp8 and fp16 q over
@@ -68,8 +74,10 @@ are 7-9):
               permuted pages of 16 at 2048 tokens, at least one launch
               each.  Limits
               by q's dtype (DECODE_TOL): bf16 atol
-              2e-2 + rtol 1e-2, fp16 2e-3 + 2^-10, fp32 1e-5; every fp16
-              case's outputs rounded to bf16 must fall outside fp16's.
+              2e-2 + rtol 1e-2, fp16 2e-3 + 2^-10, and against the
+              exact fp32 versions min(2e-3, 2^-10 x a row's largest
+              |exact|) + 2^-10, fp32 1e-5; every fp16 case's outputs
+              rounded to bf16 must fall outside fp16's exact limit.
 7. d256     - head dims 160 and 256 (run at 256: the wgmma K1, K4, K2 and
               K3 for bf16/fp16; for fp32 the 3xTF32 K1 and K4 of
               csrc/flash_fwd_fp32_wide.cuh and K2 and K3 of
@@ -326,9 +334,12 @@ K2 and K3 their ring call shapes as `ring_noncausal_shard` (K1 also
 `ring_causal_lq_lt_lk` and `ring_vs_one_call`) and their launches on the
 context-parallel run as `parallel_launches`; K5's and K6's rows their
 times at each configuration beyond D64 / D128, bf16 q and groups up to
-8 (NEW_DECODE_SHAPES: santacoder_*, gemma7b_*, falcon40b_*, gpt2_12l_*,
-d32_*; int8 caches unsuffixed, others suffixed by the store) and their
-launches in serving-mqa and serving-fp16; the fp32 whole-group K5's and
+8 that the group tiles run (NEW_DECODE_SHAPES: gemma7b_*, gpt2_12l_*,
+d32_*, recurrentgemma2b_fp32_*; int8 caches unsuffixed, others suffixed by
+the store) and their launches in serving-mqa and serving-fp16; the
+whole-group K5's and K6's rows SantaCoder's bf16 layer's times with
+SDPA's, the santacoder_*, falcon40b_*, recurrentgemma2b_*, palm8b_* and
+d32_mqa_* rows beside them; the fp32 whole-group K5's and
 K6's rows SantaCoder's fp32 layer's times with SDPA's fp32 call, the
 santacoder_fp32_* and falcon40b_fp32_* rows beside them (fp32 and int8
 caches), and their launches in serving-mqa's fp32 check; the wide K5's
@@ -571,7 +582,7 @@ def phase_build() -> None:
             regs = int(re.search(r"Used (\d+) registers", line).group(1))
             entries.append((kernel, regs, spills))
     decode, decode_spilled, group, group_spilled, wide_dec, wide_dec_spilled = [], [], [], [], [], []
-    group32 = []
+    group32, group_new = [], []
     for name, (_, regs, spill) in zip(_demangle([e[0] for e in entries]), entries):
         spilled = not spill.startswith("0 bytes stack frame, 0 bytes spill stores")
         if "decode::wide_kernel" in name or "6decode11wide_kernel" in name:
@@ -585,8 +596,10 @@ def phase_build() -> None:
             group32.append((name, regs, spill))
         elif "group_kernel" in name:
             group.append(regs)
+            m = re.search(r"group_kernel<(.*)>", name)
+            if m and re.search(r", (32|256), \d+, (true|false)$", m.group(1)):
+                group_new.append(f"<{m.group(1)}> {regs}")
             if spilled:
-                m = re.search(r"group_kernel<(.*)>", name)
                 stores = re.search(r"(\d+) bytes spill stores", spill)
                 group_spilled.append(f"<{m.group(1) if m else name}> {regs} regs {stores.group(1) if stores else '?'} B")
         elif "decode_kernel" in name:
@@ -616,8 +629,17 @@ def phase_build() -> None:
         + (", ".join(f"{k} {v:.1f} s" for k, v in per.items() if k.startswith("decode_group") and "fp32" not in k)
            or "not run (built)")
         + "; spills (T, KV, D, row-tile groups, paged; spill stores): " + ("; ".join(group_spilled) or "none"))
-    if len(group) != 96:
-        raise AssertionError(f"[build] expected 96 instantiations of the whole-group decode kernel, found {len(group)}")
+    # each instantiation at D32 (d 8-32) and D256: payload x row-tile groups
+    # (1, 2, 4, 8 at D32; 1, 2 at D256) x K5 / K6 a q dtype; none may spill
+    # (at D64 / D128 those of 8 row-tile groups do: 24 of 96)
+    say(f"[build] ptxas group_kernel at D32 / D256: {len(group_new)} instantiations (T, KV, D, row-tile groups, "
+        "paged; registers): " + "; ".join(group_new))
+    if len(group) != 168 or len(group_new) != 72:
+        raise AssertionError(f"[build] expected 168 instantiations of the whole-group decode kernel, 72 of them at D32 "
+                             f"/ D256; found {len(group)} and {len(group_new)}")
+    new_spilled = [x for x in group_spilled if re.search(r", (32|256), \d+, (true|false)>", x)]
+    if new_spilled:
+        raise AssertionError(f"[build] whole-group decode kernel instantiations at D32 / D256 spill: {new_spilled}")
     # the whole-group kernel for fp32 q (decode_group_fp32.cuh): payload x
     # row tiles (1, 2, 4, 8 at D64; 1, 2, 4 at D128) x K5 / K6, each
     # instantiation's registers and spills
@@ -1190,8 +1212,9 @@ def phase_k4(seed: int) -> dict:
     return {"flash_fwd_kv_quant": (worst, launches), "flash_fwd_kv_quant_fp32": (max(fp32), launches32)}
 
 
-def _error(out: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> tuple[float, bool]:
-    """(max |out - ref|, whether |out - ref| <= atol + rtol |ref| everywhere)."""
+def _error(out: torch.Tensor, ref: torch.Tensor, atol, rtol: float) -> tuple[float, bool]:
+    """(max |out - ref|, whether |out - ref| <= atol + rtol |ref| everywhere;
+    `atol` a float or a tensor that broadcasts against `ref`)."""
     diff = (out.float() - ref.float()).abs()
     return diff.max().item(), bool((diff <= atol + rtol * ref.float().abs()).all())
 
@@ -1200,10 +1223,29 @@ def _error(out: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> tu
 # output are rounded to bf16 (2^-8 relative each) where the plain versions
 # round P elsewhere or not at all.  fp16: the output rounded to fp16 on both
 # sides (2^-11 relative each, so rtol 2^-10) and P * v_scale rounded to fp16
-# (2^-11 relative) against |v| up to about 4 (atol 2e-3); an output rounded
-# to bf16 in place of fp16 (2^-8 relative) falls outside it, which the
-# phase's control shows.  fp32: sums in another order.
+# (2^-11 relative) against |v| up to about 4 (atol 2e-3).  fp32: sums in
+# another order.
 DECODE_TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float16: (2e-3, 2 ** -10), torch.float32: (1e-5, 0.0)}
+# fp16 q's outputs are also held against the exact versions (`_exact_refs`:
+# fp32 throughout, P never rounded) at atol FP16_ROW_ATOL times each row's
+# (q head's) largest |exact|, at most 2e-3, and rtol 2^-10: a kernel's
+# roundings of P * v_scale fall at random over the tokens, so their sum
+# stays near 2^-11 of the row's own size, where 2e-3 alone would pass an
+# output rounded to bf16 at every context of more than a few tokens.  An
+# output rounded to bf16 in place of fp16 (up to 2^-8 relative) falls
+# outside this limit at short and long contexts alike, which the phase's
+# control shows.
+FP16_ROW_ATOL = 2 ** -10
+
+
+def _fp16_error(out: torch.Tensor, exact: torch.Tensor) -> tuple[float, bool]:
+    """`_error` at fp16 q's limit against an exact version [..., d]; the
+    error as the largest share of that limit."""
+    atol, rtol = DECODE_TOL[torch.float16]
+    limit = (exact.float().abs().amax(dim=-1, keepdim=True) * FP16_ROW_ATOL).clamp(max=atol)
+    limit = limit + rtol * exact.float().abs()
+    share = ((out.float() - exact.float()).abs() / limit.clamp(min=1e-30)).max().item()
+    return share, share <= 1.0
 
 
 def _filled_cache(gen, slots, hkv, max_len, d, store, q_dtype, lengths, layers=1) -> "KVC.KVCache":
@@ -1226,15 +1268,27 @@ def _filled_cache(gen, slots, hkv, max_len, d, store, q_dtype, lengths, layers=1
     return cache
 
 
-def _fp16_control(label: str, outs, plains, atol: float, rtol: float) -> bool:
+def _k6_exact(q: torch.Tensor, cache: "KVC.KVCache", slots: int, max_len: int) -> torch.Tensor:
+    """K6's exact version (fp16 q): `paged_attention_ref`, fp32 throughout
+    with P never rounded, over the slot-major cache's view, with q *
+    sm_scale rounded to q's dtype first, as K6 scores.  K5's exact version
+    is its plain one."""
+    kp, vp, ks, vs = KVC.page_view(cache, 0, max_len)
+    pi = KVC.identity_page_indices(slots, max_len, max_len, device="cuda")
+    q6 = (q.float() * float(q.shape[-1]) ** -0.5).to(q.dtype)
+    return PA.paged_attention_ref(q6, kp, vp, cache.lengths + 1, pi, k_scales=ks, v_scales=vs, sm_scale=1.0)
+
+
+def _fp16_control(label: str, outs, exacts) -> bool:
     """The control of fp16 q's limit: the kernels' own outputs rounded
     through bf16 (what a kernel rounding its output to bf16 in place of
-    fp16 would give) held at the same limit; prints its error and returns
-    whether the limit rejects it."""
-    errs = [_error(o.to(torch.bfloat16), r, atol, rtol) for o, r in zip(outs, plains)]
+    fp16 would give) held against the exact versions at fp16's limit
+    (FP16_ROW_ATOL); prints its share of the limit and returns whether the
+    limit rejects it."""
+    errs = [_fp16_error(o.to(torch.bfloat16), r) for o, r in zip(outs, exacts)]
     rejected = not any(ok for _, ok in errs)
-    say(f"[decode] {label:<42} control, output rounded to bf16: "
-        + "  ".join(f"{e:.3e}" for e, _ in errs) + f"  {'rejected' if rejected else 'NOT rejected'}")
+    say(f"[decode] {label:<42} control, output rounded to bf16: share of the limit "
+        + " / ".join(f"{e:.2f}" for e, _ in errs) + f"  {'rejected' if rejected else 'NOT rejected'}")
     return rejected
 
 
@@ -1268,7 +1322,8 @@ def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths
     D64 / D128 and the wide kernel above D256, each also
     held against the plain version of its own plan
     (`paged_attention_group_ref`: its chunks, its cluster, the merge's
-    order).  For fp16 q, whether the limit rejects the
+    order).  For fp16 q both are also held against their exact versions at
+    fp16's limit (FP16_ROW_ATOL), and whether that limit rejects the
     bf16-rounded control goes into `controls`."""
     cache = _filled_cache(gen, slots, hkv, max_len, d, store, q_dtype, lengths)
     q = _rand(gen, (slots, hq, d), q_dtype)
@@ -1308,12 +1363,19 @@ def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths
         ok = ok and okp5 and okp6
         plan = (f"  vs the plan's plain version {p5:.3e} / {p6:.3e} (K5 {c5} blocks x {w5} chunks of {ch5}, "
                 f"K6 {c6} x {w6} of {ch6})")
-    say(f"[decode] {label:<42} K5 vs plain {e5:.3e}  K6 vs plain {e6:.3e}{plan}  atol {atol:g} rtol {rtol:g}  "
+    exact = ""
+    if q_dtype == torch.float16:
+        with torch.no_grad():
+            exacts = (plain5, _k6_exact(q, cache, slots, max_len))
+        (x5, okx5), (x6, okx6) = _fp16_error(out5, exacts[0]), _fp16_error(out6, exacts[1])
+        ok = ok and okx5 and okx6
+        exact = f"  vs the exact versions {x5:.2f} / {x6:.2f} of fp16's limit"
+    say(f"[decode] {label:<42} K5 vs plain {e5:.3e}  K6 vs plain {e6:.3e}{plan}  atol {atol:g} rtol {rtol:g}{exact}  "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"[decode] {label} outside tolerance")
     if q_dtype == torch.float16 and controls is not None:
-        controls.append(_fp16_control(label, (out5, out6), (plain5, plain6), atol, rtol))
+        controls.append(_fp16_control(label, (out5, out6), exacts))
     if plan:
         e5, e6 = max(e5, p5), max(e6, p6)
     return {key5: e5, key6: e6}
@@ -1359,11 +1421,16 @@ def check_paged_permuted(label, gen, batch, hq, hkv, d, page_size, pps, store, q
         raise AssertionError(f"[decode] {label}: NaN past the length leaked")
     atol, rtol = DECODE_TOL[q_dtype]
     err, ok = _error(out, plain, atol, rtol)
-    say(f"[decode] {label:<42} K5 vs plain {err:.3e}  atol {atol:g} rtol {rtol:g}  {'ok' if ok else 'FAIL'}")
+    exact = ""
+    if q_dtype == torch.float16:  # the plain version is K5's exact one
+        share, ok_exact = _fp16_error(out, plain)
+        ok = ok and ok_exact
+        exact = f"  {share:.2f} of fp16's limit"
+    say(f"[decode] {label:<42} K5 vs plain {err:.3e}  atol {atol:g} rtol {rtol:g}{exact}  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"[decode] {label} outside tolerance")
     if q_dtype == torch.float16 and controls is not None:
-        controls.append(_fp16_control(label, (out,), (plain,), atol, rtol))
+        controls.append(_fp16_control(label, (out,), (plain,)))
     return {key: err}
 
 
@@ -1376,7 +1443,8 @@ def phase_decode(seed: int) -> tuple[dict, dict]:
     bf16, f32, i8, f8 = torch.bfloat16, torch.float32, torch.int8, torch.float8_e4m3fn
     say("[decode] tolerance (atol + rtol |plain|): " + "; ".join(
         f"{str(dt).split('.')[-1]} q atol {a:g} rtol {r:g}" for dt, (a, r) in DECODE_TOL.items())
-        + " (DECODE_TOL says why)")
+        + f"; fp16 q also against the exact versions at atol min(2e-3, {FP16_ROW_ATOL:g} x a row's largest |exact|) "
+        "(DECODE_TOL says why)")
     ragged = [0, 16, 299, 1022, 511, 63, 799, 127]  # cache lengths: the kernels read lengths + 1 tokens
     errs = {}
     for name, store, q_dtype in (("bf16", bf16, bf16), ("fp32", f32, f32), ("int8", i8, bf16), ("fp8", f8, bf16),
@@ -1472,6 +1540,9 @@ WIDE_KEYS = ("paged_decode_wide", "fused_decode_wide")
 GROUP_SHAPES = (
     ("serving-mqa shape hq16 hkv1 D128 L2048", 16, 1, 128, [0, 100, 128, 700, 1022, 1100, 1600, 2047]),
     ("falcon-40b layer hq128 hkv8 D64 L2048", 128, 8, 64, [0, 100, 127, 128, 255, 700, 1500, 2047]),
+    # RecurrentGemma-2B's local-attention layer (10 q heads on one KV head of
+    # 256, window 2048): stages of 64 tokens on a 16-bit cache
+    ("recurrentgemma-2b layer hq10 hkv1 D256 L2048", 10, 1, 256, [0, 62, 63, 64, 511, 700, 1919, 2047]),
 )
 
 
@@ -1486,16 +1557,23 @@ def check_decode_configs(gen, controls: list) -> dict:
     rows); GQA groups 12, 16, 48 (StarCoder) and 71 (Falcon-7B),
     which at D64 / D128 run the whole-group kernel (fp32 q: the 3xTF32 one,
     also at groups 12 and 48 at D128, two passes at 71 / D128, and 24 / 2 and
-    48 at D64, over fp32 and int8 caches); the whole-group kernel at
-    serving-mqa's shape and Falcon-40B's layer on bf16, fp16, int8 and fp8
-    caches and with fp32 q on fp32, int8 and fp8 caches at its splits'
-    edges (GROUP_SHAPES); K5 over a permuted page table with NaN past the
-    lengths at D16, D128 (group 16) and D512, and with fp32 q at D128 (group
-    16) and D64 (group 16 on two KV heads).  Each against its plain
-    version at DECODE_TOL, fp16 q's cases with their control.  Returns
-    {launch key: errors}."""
+    48 at D64, over fp32 and int8 caches); fp32 q at group 16 at D8, D32
+    and D256 (the group tiles); the whole-group kernel at serving-mqa's shape
+    and Falcon-40B's layer on bf16, fp16, int8 and fp8 caches and with fp32
+    q on fp32, int8 and fp8 caches at its splits' edges (GROUP_SHAPES, with
+    RecurrentGemma-2B's D256 layer, whose fp32 q runs the group tiles at
+    theirs); the whole-group kernel at D8, D16, D32 and D256 at groups 9,
+    10, 16 and 48 on bf16, fp16, int8 and fp8 caches at its splits' edges
+    (at D8-32 each fp16 case also on 4 KV heads with 1-token slots), at
+    groups 24 and 71 at D8 and D32, and at time_decode's d32_mqa shape; K5
+    over a permuted page table with NaN past the lengths at D16 (group 16
+    on one and on 4 KV heads), D128, D256 (group 16) and D512, and with
+    fp32 q at D128 (group 16) and D64 (group 16 on two KV heads).  Each
+    against its plain version at DECODE_TOL, fp16 q's cases with their
+    control.  Returns {launch key: errors}."""
     bf16, f16, f32, i8, f8 = torch.bfloat16, torch.float16, torch.float32, torch.int8, torch.float8_e4m3fn
     ragged = [0, 16, 299, 1022, 511, 63, 799, 127]
+    sms = PA._sm_count(0)
     errs = {}
 
     def one(label, slots, hq, hkv, d, store, q_dtype, lengths=ragged, max_len=1024):
@@ -1508,6 +1586,11 @@ def check_decode_configs(gen, controls: list) -> dict:
     for d in (8, 32, 256, 512, 1024):
         one(f"D{d} hq8 hkv2 fp32 cache fp32 q", 4, 8, 2, d, f32, f32)
         one(f"D{d} hq2 hkv2 int8 cache fp32 q", 4, 2, 2, d, i8, f32)
+    # fp32 q at a group above 8 at D8-32 and D256: the group tiles (two tiles
+    # of 8 rows), under their own keys
+    for d in (8, 32, 256):
+        for name, store in (("fp32", f32), ("int8", i8)):
+            one(f"D{d} group 16 (hq16 hkv1) {name} cache fp32 q", 4, 16, 1, d, store, f32)
     for d, hq, hkv in ((64, 12, 12), (128, 32, 8)):
         for name, store in (("fp16", f16), ("int8", i8), ("fp8", f8)):
             one(f"fp16 q D{d} hq{hq} hkv{hkv} {name} cache", 8, hq, hkv, d, store, f16)
@@ -1540,20 +1623,72 @@ def check_decode_configs(gen, controls: list) -> dict:
         say(f"[decode] {label}: cache lengths {lengths}; split {cl} blocks a cluster x {walks} chunks of {ch} "
             f"tokens; blocks of a cluster live: {[min(cl, -(-(n + 1) // ch)) for n in lengths]}; chunks the busiest "
             f"block walks: {[-(-(-(-(n + 1) // ch)) // cl) for n in lengths]}")
-        # fp32 q (the 3xTF32 whole-group kernel) over fp32, int8 and fp8
-        # caches, at cache lengths on the edges of K6's split (chunks of one
-        # stage: 64 tokens for an fp32 cache at D128) and of K5's (pages of
-        # 128): 0, a chunk - 1 and + 1, a cluster's span - 1 (K6); a chunk, a
-        # span and + 1 (K5), the capacity - 1
+        # fp32 q over fp32, int8 and fp8 caches: at D64 / D128 the 3xTF32
+        # whole-group kernel, at cache lengths on the edges of K6's split
+        # (chunks of one stage: 64 tokens for an fp32 cache at D128) and of
+        # K5's (pages of 128): 0, a chunk - 1 and + 1, a cluster's span - 1
+        # (K6); a chunk, a span and + 1 (K5), the capacity - 1; at D256 the
+        # group tiles, at the edges of their splits as above
+        fp32_group = PA.uses_group_kernel(f32, d, hq // hkv)
         for name, store in (("fp32", f32), ("int8", i8), ("fp8", f8)):
-            c6, ch6, _ = _cluster_split(f32, store, hq // hkv, d, 2048, 2048, 8 * hkv, False)
-            c5, ch5, _ = _cluster_split(f32, store, hq // hkv, d, 2048, 128, 8 * hkv, True)
-            edges = [min(e, 2047) for e in (0, ch6 - 1, ch6 + 1, c6 * ch6 - 1, ch5, c5 * ch5, c5 * ch5 + 1, 2047)]
+            if fp32_group:
+                c6, ch6, _ = _cluster_split(f32, store, hq // hkv, d, 2048, 2048, 8 * hkv, False)
+                c5, ch5, _ = _cluster_split(f32, store, hq // hkv, d, 2048, 128, 8 * hkv, True)
+                edges = [0, ch6 - 1, ch6 + 1, c6 * ch6 - 1, ch5, c5 * ch5, c5 * ch5 + 1, 2047]
+                split = f"K6 {c6} blocks x chunks of {ch6}, K5 {c5} blocks x chunks of {ch5}"
+            else:
+                pairs = 8 * hkv * PA.group_tiles(hq // hkv)[0]
+                c5, n5 = PA.decode_split(2048, pairs, 128, sms)
+                c6, n6 = PA.decode_split(2048, pairs, PA.DECODE_TILE, sms)
+                edges = [0, c5 - 1, c5, c5 + 1, c6 - 1, c6 + 1, 2 * c6, 2047]
+                split = f"group tiles K5 {n5}x{c5} K6 {n6}x{c6}"
+            edges = [min(e, 2047) for e in edges]
             one(f"{label} fp32 q {name} cache", 8, hq, hkv, d, store, f32, edges, max_len=2048)
-            say(f"[decode] {label} fp32 q {name} cache: K6 {c6} blocks x chunks of {ch6}, K5 {c5} blocks x chunks "
-                f"of {ch5}; cache lengths {edges}")
+            say(f"[decode] {label} fp32 q {name} cache: {split}; cache lengths {edges}")
+    # the whole-group kernel at D8, D16, D32 (all run at 32, P V split by
+    # tokens) and D256 (stages of 64 tokens on a 16-bit cache, passes of at
+    # most 32 q heads: group 48 in two) at groups 9, 10 (on two KV heads),
+    # 16 and 48 on bf16, fp16 (fp16 q, with its control), int8 and fp8
+    # caches, at cache lengths on the edges of K6's split (chunks of one
+    # stage) and K5's (pages of 128): 0, a chunk - 1, a chunk, a chunk + 1, a
+    # cluster's span - 1 and the span (K6), a span + 1 (K5), the capacity - 1.
+    # Beside each fp16 case at D8-32, the same group on 4 KV heads with
+    # three slots of one token, whose outputs are raw V rows (|v| up to
+    # about 4: fp16's limit at its 2e-3 cap)
+    for d in (8, 16, 32, 256):
+        for group, hkv in ((9, 1), (10, 2), (16, 1), (48, 1)):
+            for name, store, q_dtype in (("bf16", bf16, bf16), ("fp16", f16, f16), ("int8", i8, bf16),
+                                         ("fp8", f8, bf16)):
+                c6, ch6, _ = _cluster_split(q_dtype, store, group, d, 2048, 2048, 8 * hkv, False)
+                c5, ch5, _ = _cluster_split(q_dtype, store, group, d, 2048, 128, 8 * hkv, True)
+                edges = [min(e, 2047) for e in (0, ch6 - 1, ch6, ch6 + 1, c6 * ch6 - 1, c6 * ch6, c5 * ch5 + 1, 2047)]
+                one(f"whole group D{d} group {group} hq{group * hkv} hkv{hkv} {name} cache", 8, group * hkv, hkv, d,
+                    store, q_dtype, edges, max_len=2048)
+                if q_dtype == f16 and d <= 32:
+                    c6, ch6, _ = _cluster_split(q_dtype, store, group, d, 2048, 2048, 32, False)
+                    short = [min(e, 2047) for e in (0, 0, 0, 1, ch6 - 1, ch6, ch6 + 1, 2047)]
+                    one(f"whole group D{d} group {group} hq{group * 4} hkv4 fp16 cache 1-token slots", 8, group * 4, 4,
+                        d, store, q_dtype, short, max_len=2048)
+        say(f"[decode] whole group D{d}: K6 chunks of {PA.group_tokens(d, 2)} tokens on a 16-bit cache, "
+            f"{PA.group_tokens(d, 1)} on an 8-bit one; q heads a pass at most {PA.group_max_rows(bf16, d)}")
+    # the D32 kernel's other row-tile groups, 2 (group 24: 4 token groups a
+    # row tile) and 8 (group 71: one token group a row tile, no merge of
+    # token groups), at D8 and D32 on bf16 and int8 caches
+    for d in (8, 32):
+        for group in (24, 71):
+            for name, store in (("bf16", bf16), ("int8", i8)):
+                one(f"whole group D{d} group {group} hq{group} hkv1 {name} cache", 8, group, 1, d, store, bf16)
+    # time_decode's d32_mqa shape (32 slots of 1024, 16 q heads on one KV
+    # head of 32) at its timed lengths, so that the split it is timed at is
+    # also checked
+    timed = torch.randint(960, 1024, (32,), generator=gen).tolist()
+    for name, store in (("bf16", bf16), ("int8", i8)):
+        one(f"d32_mqa shape hq16 hkv1 D32 L1024 32 slots {name} cache", 32, 16, 1, 32, store, bf16, timed)
+    say(f"[decode] d32_mqa shape: timed cache lengths {timed}")
     lens = [1, 17, 300, 1023, 512, 0, 800, 1024]
-    for d, hq, hkv in ((16, 16, 1), (128, 16, 1), (512, 8, 2)):
+    # group 16 at D16 also on 4 KV heads, beside one: four times the raw V
+    # rows of the two 1-token slots
+    for d, hq, hkv in ((16, 16, 1), (16, 64, 4), (128, 16, 1), (256, 16, 1), (512, 8, 2)):
         for name, store, q_dtype in (("int8", i8, bf16), ("fp16", f16, f16)):
             _gather(errs, check_paged_permuted(f"paged permuted ps16 NaN past length D{d} hq{hq} hkv{hkv} {name}",
                                                gen, 8, hq, hkv, d, 16, 64, store, q_dtype, lens, controls))
@@ -2459,6 +2594,18 @@ NEW_DECODE_SHAPES = {
                         (1920, 2048), ("fp32", "int8 fp32 q")),
     "falcon40b_fp32": ("falcon-40b fp32 q hq128 hkv8 D64 8 slots 8 layers L2-cold", 8, 8, 128, 8, 64, 2048,
                        (1920, 2048), ("fp32", "int8 fp32 q")),
+    # GQA groups above 8 at D256 and D32: RecurrentGemma-2B's local-attention
+    # layer (10 q heads on one KV head of 256, window 2048; 16.8 MB a layer on
+    # bf16, 8.4 on int8) and PaLM-8B's multi-query layer (16 heads of 256),
+    # 8 layers each; a multi-query layer at D32 (32 slots of 1024, 32 layers,
+    # 2-4 MB a layer); RecurrentGemma-2B's layer with fp32 q
+    "recurrentgemma2b": ("recurrentgemma-2b hq10 hkv1 D256 8 slots 8 layers L2-cold", 8, 8, 10, 1, 256, 2048,
+                         (1920, 2048), ("int8", "bf16")),
+    "palm8b": ("palm-8b hq16 hkv1 D256 8 slots 8 layers L2-cold", 8, 8, 16, 1, 256, 2048, (1920, 2048),
+               ("int8", "bf16")),
+    "d32_mqa": ("hq16 hkv1 D32 32 slots 32 layers L2-cold", 32, 32, 16, 1, 32, 1024, (960, 1024), ("int8", "bf16")),
+    "recurrentgemma2b_fp32": ("recurrentgemma-2b fp32 q hq10 hkv1 D256 8 slots 8 layers L2-cold", 8, 8, 10, 1, 256,
+                              2048, (1920, 2048), ("fp32", "int8 fp32 q")),
 }
 DECODE_SHAPES = (
     GPT2_HOT_SHAPE,
@@ -2467,8 +2614,8 @@ DECODE_SHAPES = (
     ("llama hq32 hkv8 D128 16 slots 2 layers L2-cold", 2, 16, 32, 8, 128, 4096, (3800, 4096), ("int8",)),
 ) + tuple(NEW_DECODE_SHAPES.values())
 # the NEW_DECODE_SHAPES that run the whole-group kernel (a group above 8, bf16
-# or fp16 q, D64 / D128)
-GROUP_TIMED = ("santacoder", "falcon40b")
+# or fp16 q, D8-D256)
+GROUP_TIMED = ("santacoder", "falcon40b", "recurrentgemma2b", "palm8b", "d32_mqa")
 # the NEW_DECODE_SHAPES that run the whole-group kernel with fp32 q
 GROUP_FP32_TIMED = ("santacoder_fp32", "falcon40b_fp32")
 # the NEW_DECODE_SHAPES that run the wide kernel (head dims above 256)

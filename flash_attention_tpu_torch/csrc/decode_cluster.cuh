@@ -3,7 +3,8 @@
 // (sequence, KV head, pass) as one thread-block cluster whose blocks walk
 // interleaved chunks of the capacity, and both end in the same merge of the
 // blocks' softmax states over distributed shared memory.  This header holds
-// the cluster's limits, ldmatrix, the merge and the launch.
+// the cluster's limits, ldmatrix, the merge, the whole-group kernels' state
+// layout and token-group merge, and the launch.
 #pragma once
 
 #include "decode.cuh"
@@ -111,6 +112,79 @@ __device__ __forceinline__ void cluster_merge(const float* state, const float* s
   }
   sm90::cluster_sync();  // no block leaves while a peer reads its state
 }
+
+// The states that end the whole-group kernels, laid over the ring once the
+// stream is done, for kRows q heads of D columns: the block's state (acc
+// [row][D] fp32 at 0, m and l [row]), which the cluster's peers read,
+// cluster_merge's weights [row][kClusterMax] and sums [row]; and where a row
+// tile's P V runs as kTG > 1 token groups, each with its own online softmax
+// (decode_group.cuh at D32, decode_group_fp32.cuh), each group's state
+// [kTG][row][D] with its m and l [kTG][row].
+template <int kRows, int D, int kTG>
+struct MergeLayout {
+  static constexpr int kStateM = kRows * D * 4;
+  static constexpr int kStateL = kStateM + kRows * 4;
+  static constexpr int kWeights = kStateL + kRows * 4;
+  static constexpr int kSums = kWeights + kRows * kClusterMax * 4;
+  static constexpr int kGroups = kSums + kRows * 4;
+  static constexpr int kGroupM = kGroups + (kTG > 1 ? kTG * kRows * D * 4 : 0);
+  static constexpr int kGroupL = kGroupM + (kTG > 1 ? kTG * kRows * 4 : 0);
+  static constexpr int kEnd = kGroupL + (kTG > 1 ? kTG * kRows * 4 : 0);
+
+  // Token group tg's acc, m and l: its own, or the block's when a row tile
+  // has one group.
+  __device__ static float* group_acc(unsigned char* smem, int tg) {
+    return reinterpret_cast<float*>(smem + (kTG > 1 ? kGroups + tg * kRows * D * 4 : 0));
+  }
+  __device__ static float* group_m(unsigned char* smem, int tg) {
+    return reinterpret_cast<float*>(smem + (kTG > 1 ? kGroupM + tg * kRows * 4 : kStateM));
+  }
+  __device__ static float* group_l(unsigned char* smem, int tg) {
+    return reinterpret_cast<float*>(smem + (kTG > 1 ? kGroupL + tg * kRows * 4 : kStateL));
+  }
+
+  // The token groups' states merged in group order into the block's state
+  // for its first G rows: M = max m, weights e^(m_g - M) (0 for a group
+  // without tokens), acc and l summed with them.  Nothing at kTG 1, whose
+  // one group wrote the block's state.  Every thread of the block calls it
+  // once its group's state is written.
+  template <int kThreads>
+  __device__ static void merge_groups(unsigned char* smem, int G, int tid) {
+    if constexpr (kTG > 1) {
+      __syncthreads();
+      const float* gacc = reinterpret_cast<const float*>(smem + kGroups);
+      const float* gm = reinterpret_cast<const float*>(smem + kGroupM);
+      const float* gl = reinterpret_cast<const float*>(smem + kGroupL);
+      float* state = reinterpret_cast<float*>(smem);
+      float* state_m = reinterpret_cast<float*>(smem + kStateM);
+      float* state_l = reinterpret_cast<float*>(smem + kStateL);
+      for (int e = tid; e < G * (D / 4); e += kThreads) {
+        const int row = e / (D / 4), c4 = e % (D / 4);
+        float M = -CUDART_INF_F;
+#pragma unroll
+        for (int g = 0; g < kTG; ++g) M = fmaxf(M, gm[g * kRows + row]);
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+        float l = 0.f;
+#pragma unroll
+        for (int g = 0; g < kTG; ++g) {
+          const float m = gm[g * kRows + row];
+          const float w = m == -CUDART_INF_F ? 0.f : expf(m - M);
+          const float4 x = *reinterpret_cast<const float4*>(gacc + (g * kRows + row) * D + c4 * 4);
+          acc.x += x.x * w;
+          acc.y += x.y * w;
+          acc.z += x.z * w;
+          acc.w += x.w * w;
+          l += gl[g * kRows + row] * w;
+        }
+        *reinterpret_cast<float4*>(state + row * D + c4 * 4) = acc;
+        if (c4 == 0) {
+          state_m[row] = M;
+          state_l[row] = l;
+        }
+      }
+    }
+  }
+};
 
 // Launches kKernel in clusters of `cluster` blocks of kThreads threads and
 // kBytes of dynamic shared memory, or with `resident` non-null only writes

@@ -81,8 +81,8 @@ constexpr int kFCols = 64;  // head-dim columns a warp takes: all of D64, half o
 // payload's scales, at D128 each warp's two partial-S buffers for its pair,
 // and K5's page ids.  At the end, over all of it: the block's state (acc
 // [row][D], m, l), which the cluster's peers read, the cluster's weights,
-// and before them each token group's own state [kTG][row][D] with its m and
-// l.
+// and each token group's own state [kTG][row][D] with its m and l
+// (MergeLayout, decode_cluster.cuh).
 template <typename KV, int D, int kRW>
 struct GroupLayout32 {
   static constexpr bool kQuant = sizeof(KV) == 1;
@@ -101,15 +101,8 @@ struct GroupLayout32 {
   static constexpr int kTable = kExch + (kSplit > 1 ? kGWarps * 2 * 32 * 8 * 4 : 0);
   static constexpr int kStream = kTable + kClusterMaxPages * 4;
   static constexpr int kRows = kRW * 16;
-  static constexpr int kStateM = kRows * D * 4;
-  static constexpr int kStateL = kStateM + kRows * 4;
-  static constexpr int kWeights = kStateL + kRows * 4;            // [row][block]
-  static constexpr int kSums = kWeights + kRows * kClusterMax * 4;
-  static constexpr int kGroups = kSums + kRows * 4;              // [kTG][row][D]
-  static constexpr int kGroupM = kGroups + (kTG > 1 ? kTG * kRows * D * 4 : 0);
-  static constexpr int kGroupL = kGroupM + kTG * kRows * 4;
-  static constexpr int kEnd = kGroupL + kTG * kRows * 4;
-  static constexpr int kBytes = kStream > kEnd ? kStream : kEnd;
+  using Merge = MergeLayout<kRows, D, kTG>;                      // over all of it at the end (decode_cluster.cuh)
+  static constexpr int kBytes = kStream > Merge::kEnd ? kStream : Merge::kEnd;
   static_assert(kTG >= 1 && kCS % kSplit == 0, "a row tile holds whole warp pairs");
   static_assert(kBytes <= 227 * 1024, "shared memory of a block");
 };
@@ -488,11 +481,11 @@ __global__ void __launch_bounds__(kGThreads, 1) group_fp32_kernel(const GroupPar
   // Each token group's state (the block's, when the row tile has one group):
   // acc [row][D] fp32, with m and l [row] from the columns' first warp.
   float* state = reinterpret_cast<float*>(smem);
-  float* state_m = reinterpret_cast<float*>(smem + L::kStateM);
-  float* state_l = reinterpret_cast<float*>(smem + L::kStateL);
-  float* gacc = kTG > 1 ? reinterpret_cast<float*>(smem + L::kGroups) + tg * L::kRows * D : state;
-  float* gm = kTG > 1 ? reinterpret_cast<float*>(smem + L::kGroupM) + tg * L::kRows : state_m;
-  float* gl = kTG > 1 ? reinterpret_cast<float*>(smem + L::kGroupL) + tg * L::kRows : state_l;
+  float* state_m = reinterpret_cast<float*>(smem + L::Merge::kStateM);
+  float* state_l = reinterpret_cast<float*>(smem + L::Merge::kStateL);
+  float* gacc = L::Merge::group_acc(smem, tg);
+  float* gm = L::Merge::group_m(smem, tg);
+  float* gl = L::Merge::group_l(smem, tg);
   if (rows_live) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -511,44 +504,13 @@ __global__ void __launch_bounds__(kGThreads, 1) group_fp32_kernel(const GroupPar
       }
     }
   }
-  if constexpr (kTG > 1) {
-    // The row tiles' token groups merged in group order into the block's
-    // state: M = max m, weights e^(m_g - M) (0 for a group without tokens),
-    // acc and l summed with them.
-    __syncthreads();
-    const float* gacc0 = reinterpret_cast<const float*>(smem + L::kGroups);
-    const float* gm0 = reinterpret_cast<const float*>(smem + L::kGroupM);
-    const float* gl0 = reinterpret_cast<const float*>(smem + L::kGroupL);
-    for (int e = tid; e < G * (D / 4); e += kGThreads) {
-      const int row = e / (D / 4), c4 = e % (D / 4);
-      float M = -CUDART_INF_F;
-#pragma unroll
-      for (int g = 0; g < kTG; ++g) M = fmaxf(M, gm0[g * L::kRows + row]);
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      float l = 0.f;
-#pragma unroll
-      for (int g = 0; g < kTG; ++g) {
-        const float m = gm0[g * L::kRows + row];
-        const float w = m == -CUDART_INF_F ? 0.f : expf(m - M);
-        const float4 x = *reinterpret_cast<const float4*>(gacc0 + (g * L::kRows + row) * D + c4 * 4);
-        acc.x += x.x * w;
-        acc.y += x.y * w;
-        acc.z += x.z * w;
-        acc.w += x.w * w;
-        l += gl0[g * L::kRows + row] * w;
-      }
-      *reinterpret_cast<float4*>(state + row * D + c4 * 4) = acc;
-      if (c4 == 0) {
-        state_m[row] = M;
-        state_l[row] = l;
-      }
-    }
-  }
+  // The row tiles' token groups merged into the block's state.
+  L::Merge::template merge_groups<kGThreads>(smem, G, tid);
 
   // Every block's state is in: merge them over the cluster and write the
   // output.
-  cluster_merge<float, kGThreads, D>(state, state_m, state_l, reinterpret_cast<float*>(smem + L::kWeights),
-                                     reinterpret_cast<float*>(smem + L::kSums), G, D, C, rank, tid,
+  cluster_merge<float, kGThreads, D>(state, state_m, state_l, reinterpret_cast<float*>(smem + L::Merge::kWeights),
+                                     reinterpret_cast<float*>(smem + L::Merge::kSums), G, D, C, rank, tid,
                                      static_cast<float*>(p.o) + b * p.o_sb + ((long long)hk * p.group + g0) * p.o_sh,
                                      p.o_sh);
 }

@@ -33,19 +33,20 @@ stage and merge over distributed shared memory, a producer warp keeping
 several stages in flight with bulk copies; their plan
 in plain PyTorch is `paged_attention_group_ref` at the wide split's cluster
 and chunk.  `HEAD_DIMS` lists every head dim the decode kernels take.  A GQA
-group above 8 at head dim 64 or 128 (`uses_group_kernel`: multi-query
-attention, Falcon-40B's 16 q heads a KV head) runs instead the whole-group
-kernels (`fa_paged_decode_group`, `fa_fused_decode_group`): with bf16 or
-fp16 q those of `csrc/decode_group.cuh` (launch keys "paged_decode_group" /
-"fused_decode_group", S and P V on `mma.sync`), with fp32 q those of
-`csrc/decode_group_fp32.cuh` (keys "paged_decode_group_fp32" /
-"fused_decode_group_fp32", 3xTF32 on `mma.sync`, two passes over an int8 /
-fp8 payload): the whole group in one block and a (sequence, KV head)'s
-blocks merged in a thread-block cluster, with no workspace; their
-chunk-and-merge plan in plain PyTorch is `paged_attention_group_ref`, at
-stages of `group_tokens`.  Both cluster kernels share their merge and
-launch (`csrc/decode_cluster.cuh`) and their plan (`cluster_plan`, split by
-`decode_cluster_split`).
+group above 8 (`uses_group_kernel`: multi-query attention, Falcon-40B's 16
+q heads a KV head, RecurrentGemma-2B's 10 at D256) runs instead the
+whole-group kernels (`fa_paged_decode_group`, `fa_fused_decode_group`):
+with bf16 or fp16 q at head dims 8-256 those of `csrc/decode_group.cuh`
+(launch keys "paged_decode_group" / "fused_decode_group", S and P V on
+`mma.sync`; 8-32 run at 32, where the warps split P V by tokens), with fp32
+q at 64 and 128 those of `csrc/decode_group_fp32.cuh` (keys
+"paged_decode_group_fp32" / "fused_decode_group_fp32", 3xTF32 on
+`mma.sync`, two passes over an int8 / fp8 payload): the whole group in one
+block and a (sequence, KV head)'s blocks merged in a thread-block cluster,
+with no workspace; their chunk-and-merge plan in plain PyTorch is
+`paged_attention_group_ref`, at stages of `group_tokens`.  Both cluster
+kernels share their merge and launch (`csrc/decode_cluster.cuh`) and their
+plan (`cluster_plan`, split by `decode_cluster_split`).
 The TPU kernel's `pages_per_compute_block` (pages per DMA step) has no
 counterpart: the CUDA kernel's chunks are set by the split.
 """
@@ -101,11 +102,16 @@ CLUSTER_SIZES = {"group": (1, 2, 4, 8), "wide": tuple(range(1, CLUSTER_MAX + 1))
 # the whole-group kernels' plan: tokens of a ring stage at most
 # (GroupLayout::kTok, GroupLayout32::kTok; `group_tokens`), bytes of a
 # stage's K tile at most, q heads of a pass (kGMaxRows, 8 row tiles of 16;
-# for fp32 q at D128 kGMaxRows32D128, 4 row tiles, each two warps a token)
+# for fp32 q at D128 kGMaxRows32D128, 4 row tiles, each two warps a token;
+# for bf16 / fp16 q at D256 kGMaxRowsD256, 2 row tiles), head dims by q's
+# dtype
 GROUP_TOKENS = 128
 GROUP_STAGE_BYTES = 32768
 GROUP_MAX_ROWS = 128
 GROUP_MAX_ROWS_FP32_D128 = 64
+GROUP_MAX_ROWS_D256 = 32
+GROUP_HEAD_DIMS = {torch.float32: (64, 128), torch.bfloat16: (8, 16, 32, 64, 128, 256),
+                   torch.float16: (8, 16, 32, 64, 128, 256)}
 # csrc/decode_wide.cuh's plan: bytes of a K (or V) ring slot at most
 # (kWSlotBytes; a stage is at most 32 tokens of padded rows), q heads of a
 # pass (kWMaxRows)
@@ -309,24 +315,34 @@ def decode_split(capacity: int, pairs: int, unit: int, sms: int) -> tuple[int, i
 
 def uses_group_kernel(q_dtype: torch.dtype, head_dim: int, group: int) -> bool:
     """Whether a decode call runs the whole-group kernels: a GQA group above
-    MAX_ROWS (8) q heads at head dim 64 or 128, with bf16 or fp16 q
-    (`csrc/decode_group.cuh`) or fp32 q (`csrc/decode_group_fp32.cuh`).
-    Head dims above 256 run the wide kernels (`uses_wide_kernel`); every
-    other configuration (groups of up to 8, head dims 8-32 and 256) the
+    MAX_ROWS (8) q heads with bf16 or fp16 q at head dim 8, 16, 32 (run at
+    32), 64, 128 or 256 (`csrc/decode_group.cuh`), or with fp32 q at 64 or
+    128 (`csrc/decode_group_fp32.cuh`); GROUP_HEAD_DIMS.  Head dims above
+    256 run the wide kernels (`uses_wide_kernel`); every other
+    configuration (groups of up to 8, fp32 q at head dims 8-32 and 256) the
     group tiles of `csrc/decode.cuh`."""
-    return q_dtype in _Q_DTYPES and head_dim in (64, 128) and group > MAX_ROWS
+    return group > MAX_ROWS and head_dim in GROUP_HEAD_DIMS.get(q_dtype, ())
 
 
 def group_max_rows(q_dtype: torch.dtype, head_dim: int) -> int:
     """The q heads a pass of the whole-group kernels holds at most:
-    GROUP_MAX_ROWS (128), or GROUP_MAX_ROWS_FP32_D128 (64) for fp32 q at
-    head dim 128, where a row tile's head dim is split over two warps."""
-    return GROUP_MAX_ROWS_FP32_D128 if q_dtype == torch.float32 and head_dim == 128 else GROUP_MAX_ROWS
+    GROUP_MAX_ROWS (128); GROUP_MAX_ROWS_FP32_D128 (64) for fp32 q at head
+    dim 128, where a row tile's head dim is split over two warps; and
+    GROUP_MAX_ROWS_D256 (32) for bf16 / fp16 q at 256, where a warp holds
+    q's A fragments for all 256 columns (64 registers) beside its column
+    slice's accumulators (with 4 row tiles, a slice of 128 columns, they
+    spill)."""
+    if head_dim == 128 and q_dtype == torch.float32:
+        return GROUP_MAX_ROWS_FP32_D128
+    if head_dim == 256 and q_dtype != torch.float32:
+        return GROUP_MAX_ROWS_D256
+    return GROUP_MAX_ROWS
 
 
 def group_passes(group: int, max_rows: int = GROUP_MAX_ROWS) -> tuple[int, int]:
     """(passes, rows): the whole-group kernels hold at most `max_rows`
-    (`group_max_rows`: 128, or 64 for fp32 q at D128) q heads a block, in
+    (`group_max_rows`: 128; 64 for fp32 q at D128, 32 for 16-bit q at
+    D256) q heads a block, in
     m16 row tiles; a larger group runs in `passes` passes of `rows` q heads
     (a multiple of 16, as even as they go; the last may hold fewer), a
     cluster each.  At 128 every real group is one pass: 16 -> (1, 16), 71 ->
@@ -340,8 +356,9 @@ def group_tokens(head_dim: int, itemsize: int) -> int:
     """Tokens of a stage of the whole-group kernels (`GroupLayout::kTok`,
     `GroupLayout32::kTok`) for a payload of `itemsize` bytes: as many rows
     as fill GROUP_STAGE_BYTES (32 KB) of K, at most GROUP_TOKENS (128): 128
-    for every 8- and 16-bit payload and for fp32 at D64, 64 for fp32 at
-    D128.  A chunk of the split holds at least one stage."""
+    at head dims 8-128 for every 8- and 16-bit payload, for fp32 at D64 and
+    for an 8-bit payload at D256; 64 for fp32 at D128 and for a 16-bit
+    payload at D256.  A chunk of the split holds at least one stage."""
     return min(GROUP_TOKENS, GROUP_STAGE_BYTES // (head_dim * itemsize))
 
 
@@ -430,8 +447,8 @@ def cluster_plan(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int, gro
                  pairs: int, paged: bool, index: int) -> tuple[str, int, int, int, int, int] | None:
     """The launch plan of a decode call that runs a cluster kernel:
     (kind, passes, rows, cluster, chunk, walks), kind "wide" for a head dim
-    above 256 (`uses_wide_kernel`), "group" for a GQA group above 8 at D64 /
-    D128 (`uses_group_kernel`); None for a call that
+    above 256 (`uses_wide_kernel`), "group" for a GQA group above 8
+    (`uses_group_kernel`); None for a call that
     runs decode.cuh's group tiles.  `kv_dtype` is the cache's, `unit` K5's
     page size (ignored for K6), `pairs` sequences x KV heads and `index`
     the card the split asks for its residency."""
@@ -514,7 +531,7 @@ def _launch_decode(
     len_add, 1) tokens (K6 always adds 1), split across blocks as
     `decode_split` chooses, a GQA group in `group_tiles`.  What the kernels
     do not take (q dtype, payload, head dim) raises before any launch.  A
-    GQA group above 8 at head dim 64 or 128 (`uses_group_kernel`) runs the
+    GQA group above 8 (`uses_group_kernel`) runs the
     whole-group kernel of the same entry (launch key `entry` + "_group",
     + "_group_fp32" for fp32 q), and a head dim above 256
     (`uses_wide_kernel`) the wide kernel (`entry` + "_wide"), both as

@@ -6,8 +6,9 @@ scoring, and K6's with `prescale_q=True`) against the JAX package's
 `paged_attention` in Pallas interpret mode and its `decode_attention_fused`
 (interpret mode up to d = 128, its own einsum fallback above); the
 whole-group kernels' plan (`paged_attention_group_ref`: GQA groups above 8
-at D64 / D128 with bf16 / fp16 q, and with fp32 q over fp32, int8 and fp8
-pages at the stage `group_tokens` gives; the chunks and clusters that
+at head dims 8-256 with bf16 / fp16 q, and at D64 / D128 with fp32 q over
+fp32, int8 and fp8 pages, at the stage `group_tokens` gives; the chunks and
+clusters that
 `decode_cluster_split` gives) against the same, and their routing and split;
 then the slice: a 2-layer multi-query GPT's chained decode steps through
 attn_impl="paged" and "fused" against the JAX package's, and their greedy
@@ -17,6 +18,8 @@ computes fp16 in bf16."""
 
 import dataclasses
 import importlib
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -175,42 +178,54 @@ def test_group_tiles_cover_every_group():
         assert tiles == -(-group // tpa.MAX_ROWS)
 
 
-# The whole-group plan over a capacity of 512 tokens in chunks of 128 (pages
-# of 16), clusters of 2 (`decode_cluster_split` on a card that holds every
-# pair's cluster of 2 at once but not of 3), so that each block walks 2
-# chunks.  Lengths (current token included): 0 and 1, a chunk's edges (127,
-# 129), a cluster's edge (256: each block one whole chunk), a block's second
-# chunk partly live (400), the whole capacity.
+# The whole-group plan over a capacity of 512 tokens in chunks of one stage
+# (`group_tokens`: 128 tokens, or 64 for a 16-bit payload at D256; pages of
+# 16), clusters of 2 (`decode_cluster_split` on a card that holds every
+# pair's cluster of 2 at once but not of 3), so that each block walks 2 (or
+# 4) chunks.  Lengths (current token included, `_plan_lengths`): 0 and 1, a
+# chunk's edges (127, 129 or 63, 65), a cluster's edge (each block one whole
+# chunk), a block's later chunk partly live (400), the whole capacity.
 GROUP_CAPACITY = 512
-GROUP_LENGTHS = (0, 1, 127, 129, 256, 400, 512)
+# (q heads, KV heads, head dim) of the whole-group plan tests with bf16 /
+# fp16 q: every GROUP_CASES entry at D64 / D128; at 8, 16, 32 (run at 32) and
+# 256 a padded row tile (12), several row tiles (71: 5 at 128 q heads a
+# pass, 3 passes at D256) and two KV heads (24 / 2)
+GROUP_DIM_CASES = ([(hq, hkv, d) for d in (64, 128) for hq, hkv in GROUP_CASES]
+                   + [(hq, hkv, d) for d in (8, 16, 32, 256) for hq, hkv in ((12, 1), (71, 1), (24, 2))])
+GROUP_DIM_IDS = [f"hq{hq}-hkv{hkv}-{d}" for hq, hkv, d in GROUP_DIM_CASES]
 
 
-def _group_split(hq, hkv, capacity, unit, paged):
-    passes, _ = tpa.group_passes(hq // hkv)
-    pairs = len(GROUP_LENGTHS) * hkv * passes
-    split = tpa.decode_cluster_split(capacity, pairs, unit, {1: 2 * pairs, 2: pairs, 3: pairs - 1}, paged,
-                                     tpa.GROUP_TOKENS)
-    assert split == (2, 128, 2)  # the plan these cases hold: 2 blocks a cluster, 2 chunks a block
-    return split
+def _group_split(hq, hkv, d, payload, capacity, unit, paged):
+    """The whole-group plan's (cluster, chunk, walks) for bf16 / fp16 q at
+    a stage of `group_tokens`, and the lengths on its edges.  K6 (`unit`
+    None) takes the stage as its unit."""
+    tokens = tpa.group_tokens(d, 2 if GROUP_PAYLOADS[payload][1] is None else 1)
+    passes, _ = tpa.group_passes(hq // hkv, tpa.group_max_rows(torch.bfloat16, d))
+    lengths = _plan_lengths(tokens)
+    pairs = len(lengths) * hkv * passes
+    split = tpa.decode_cluster_split(capacity, pairs, unit or tokens, {1: 2 * pairs, 2: pairs, 3: pairs - 1}, paged,
+                                     tokens)
+    assert split == (2, tokens, capacity // (2 * tokens))  # 2 blocks a cluster, chunks of one stage
+    return split, lengths
 
 
 @pytest.mark.parametrize("payload", GROUP_PAYLOADS)
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("hq,hkv", GROUP_CASES, ids=GROUP_IDS)
+@pytest.mark.parametrize("hq,hkv,d", GROUP_DIM_CASES, ids=GROUP_DIM_IDS)
 def test_k5_group_plan_matches_jax_paged_kernel(hq, hkv, d, payload):
     """The whole-group K5's plan in plain PyTorch (`paged_attention_group_ref`:
-    chunks of 128 tokens, 2 blocks a cluster each walking 2 chunks, then the
-    cluster's merge in rank order) against JAX's paged kernel (interpret
-    mode) over a permuted page table, at the 16-bit tier (P and the output
-    are rounded to q's dtype at other points)."""
-    batch = len(GROUP_LENGTHS)
+    chunks of one stage, 128 tokens (64 for a 16-bit payload at D256), 2
+    blocks a cluster each walking 2 (4) chunks, then the cluster's merge in
+    rank order) against JAX's paged kernel (interpret mode) over a permuted
+    page table, at the 16-bit tier (P and the output are rounded to q's
+    dtype at other points)."""
+    (cluster, chunk, _), lengths = _group_split(hq, hkv, d, payload, GROUP_CAPACITY, 16, True)
+    batch = len(lengths)
     q, pi, pages = _pages(hq, hkv, d, payload, batch=batch, pps=GROUP_CAPACITY // 16, seed=d)
-    lengths = np.array(GROUP_LENGTHS, np.int32)
+    lengths = np.array(lengths, np.int32)
     jout = jpa.paged_attention(q, pages[0], pages[1], jnp.asarray(lengths), jnp.asarray(pi),
                                pages_per_compute_block=8, k_scales=pages[2], v_scales=pages[3])
     kp, vp, ks, vs = (None if a is None else from_jax(a) for a in pages)
     tq = from_jax(q)
-    cluster, chunk, _ = _group_split(hq, hkv, GROUP_CAPACITY, 16, True)
     assert tpa.uses_group_kernel(tq.dtype, d, hq // hkv)
     before = dict(KERNEL_LAUNCHES)
     got = tpa.paged_attention_group_ref(tq, kp, vp, t(lengths), t(pi), cluster=cluster, chunk=chunk, k_scales=ks,
@@ -224,18 +239,18 @@ def test_k5_group_plan_matches_jax_paged_kernel(hq, hkv, d, payload):
 
 
 @pytest.mark.parametrize("payload", GROUP_PAYLOADS)
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("hq,hkv", GROUP_CASES, ids=GROUP_IDS)
+@pytest.mark.parametrize("hq,hkv,d", GROUP_DIM_CASES, ids=GROUP_DIM_IDS)
 def test_k6_group_plan_matches_jax_fused(hq, hkv, d, payload):
     """The whole-group K6's plan (q pre-scaled and rounded to its dtype,
-    lengths + 1, chunks of 128 over the slot-major cache's page view, 2
-    blocks a cluster walking 2 chunks each) against JAX's
-    `decode_attention_fused` (interpret mode), or on an fp8 cache, whose P
-    the JAX kernel rounds to fp8, against JAX's einsum `decode_attention`,
-    the function both compute; the 16-bit tier."""
+    lengths + 1, chunks of one stage over the slot-major cache's page view,
+    2 blocks a cluster) against JAX's `decode_attention_fused` (interpret
+    mode up to d = 128, its einsum fallback above), or on an fp8 cache,
+    whose P the JAX kernel rounds to fp8, against JAX's einsum
+    `decode_attention`, the function both compute; the 16-bit tier."""
     qdt, quant = GROUP_PAYLOADS[payload]
-    jc = _jax_cache(hkv, d, payload, lengths=tuple(max(x - 1, 0) for x in GROUP_LENGTHS), max_len=GROUP_CAPACITY)
-    q = jnp.asarray(randn(34, len(GROUP_LENGTHS), hq, d), qdt)
+    (cluster, chunk, _), lengths = _group_split(hq, hkv, d, payload, GROUP_CAPACITY, None, False)
+    jc = _jax_cache(hkv, d, payload, lengths=tuple(max(x - 1, 0) for x in lengths), max_len=GROUP_CAPACITY)
+    q = jnp.asarray(randn(34, len(lengths), hq, d), qdt)
     if quant == jnp.float8_e4m3fn:
         jout = jda.decode_attention(q, jc, 0)
     else:
@@ -243,7 +258,6 @@ def test_k6_group_plan_matches_jax_fused(hq, hkv, d, payload):
     tc = torch_cache(jc)
     kp, vp, ks, vs = tkvc.page_view(tc, 0, tc.max_len)
     pi = tkvc.identity_page_indices(tc.slots, tc.max_len, tc.max_len, device="cpu")
-    cluster, chunk, _ = _group_split(hq, hkv, tc.max_len, tpa.GROUP_TOKENS, False)
     got = tpa.paged_attention_group_ref(from_jax(q), kp, vp, tc.lengths + 1, pi, cluster=cluster, chunk=chunk,
                                         k_scales=ks, v_scales=vs, prescale_q=True)
     atol, rtol = TOL["fp16"]
@@ -257,16 +271,16 @@ def _fp32_split(hq, hkv, d, payload, capacity, unit, paged):
     stage's tokens.  K6 (`unit` None) takes the stage as its unit."""
     tokens = tpa.group_tokens(d, 4 if payload == "fp32" else 1)
     passes, _ = tpa.group_passes(hq // hkv, tpa.group_max_rows(torch.float32, d))
-    pairs = len(_fp32_lengths(tokens)) * hkv * passes
+    pairs = len(_plan_lengths(tokens)) * hkv * passes
     split = tpa.decode_cluster_split(capacity, pairs, unit or tokens, {1: 2 * pairs, 2: pairs, 3: pairs - 1}, paged,
                                      tokens)
     assert split[:2] == (2, tokens)  # 2 blocks a cluster, chunks of one stage
     return split, tokens
 
 
-def _fp32_lengths(chunk: int) -> tuple:
-    """Lengths (current token included) on the fp32 plan's edges: 0 and 1,
-    a stage's (a chunk's) edges, a cluster's span (each block one whole
+def _plan_lengths(chunk: int) -> tuple:
+    """Lengths (current token included) on a whole-group plan's edges: 0 and
+    1, a stage's (a chunk's) edges, a cluster's span (each block one whole
     chunk), a block's later chunk partly live, the whole capacity."""
     return (0, 1, chunk - 1, chunk + 1, 2 * chunk, 400, GROUP_CAPACITY)
 
@@ -280,7 +294,7 @@ def test_k5_group_fp32_plan_matches_jax_paged_kernel(hq, hkv, d, payload):
     JAX's paged kernel (interpret mode, fp32 q: P is not rounded) over a
     permuted page table of pages of 16, at the fp32 tolerance."""
     (cluster, chunk, _), tokens = _fp32_split(hq, hkv, d, payload, GROUP_CAPACITY, 16, True)
-    lengths = np.array(_fp32_lengths(tokens), np.int32)
+    lengths = np.array(_plan_lengths(tokens), np.int32)
     q, pi, pages = _pages(hq, hkv, d, payload, batch=len(lengths), pps=GROUP_CAPACITY // 16, seed=d + 1)
     jout = jpa.paged_attention(q, pages[0], pages[1], jnp.asarray(lengths), jnp.asarray(pi),
                                pages_per_compute_block=8, k_scales=pages[2], v_scales=pages[3])
@@ -309,7 +323,7 @@ def test_k6_group_fp32_plan_matches_jax_fused(hq, hkv, d, payload):
     kernel rounds (to bf16 / fp8, pv_dtype), against JAX's einsum
     `decode_attention`, the function both compute; the fp32 tolerance."""
     (cluster, chunk, _), tokens = _fp32_split(hq, hkv, d, payload, GROUP_CAPACITY, None, False)
-    lengths = _fp32_lengths(tokens)
+    lengths = _plan_lengths(tokens)
     jc = _jax_cache(hkv, d, payload, lengths=tuple(max(x - 1, 0) for x in lengths), max_len=GROUP_CAPACITY)
     q = jnp.asarray(randn(35, len(lengths), hq, d), jnp.float32)
     if GROUP_FP32_PAYLOADS[payload][1] is None:
@@ -326,23 +340,29 @@ def test_k6_group_fp32_plan_matches_jax_fused(hq, hkv, d, payload):
 
 
 @pytest.mark.parametrize("d,itemsize,want", [(64, 4, 128), (128, 4, 64), (64, 2, 128), (128, 2, 128), (64, 1, 128),
-                                             (128, 1, 128)])
+                                             (128, 1, 128), (256, 2, 64), (256, 1, 128), (32, 2, 128), (32, 1, 128),
+                                             (8, 1, 128)])
 def test_group_tokens(d, itemsize, want):
     """A stage's tokens: rows filling 32 KB of K, at most 128 (64 for fp32
-    pages at D128, whose rows are 512 bytes); the kernels' layouts take the
-    same (GroupLayout::kTok, GroupLayout32::kTok)."""
+    pages at D128 and 16-bit pages at D256, whose rows are 512 bytes); the
+    kernels' layouts take the same (GroupLayout::kTok, GroupLayout32::kTok;
+    D32's at d = 8-32)."""
     assert tpa.group_tokens(d, itemsize) == want
     assert want * d * itemsize <= tpa.GROUP_STAGE_BYTES and want <= tpa.GROUP_TOKENS
 
 
 @pytest.mark.parametrize("q_dtype,d,want", [(torch.float32, 128, 64), (torch.float32, 64, 128),
-                                            (torch.bfloat16, 128, 128), (torch.float16, 64, 128)])
+                                            (torch.bfloat16, 128, 128), (torch.float16, 64, 128),
+                                            (torch.bfloat16, 256, 32), (torch.float16, 256, 32),
+                                            (torch.bfloat16, 32, 128), (torch.float16, 8, 128)])
 def test_group_max_rows(q_dtype, d, want):
     """A pass holds at most 128 q heads, 64 for fp32 q at D128 (a row tile's
-    head dim split over two warps, 4 row tiles a block); group 71 there
-    runs in two passes of 48."""
+    head dim split over two warps, 4 row tiles a block) and 32 for bf16 /
+    fp16 q at D256 (2 row tiles: q's fragments for 256 columns beside a
+    column slice's accumulators); group 71 runs in two passes of 48 at 64,
+    in three of 32 at 32."""
     assert tpa.group_max_rows(q_dtype, d) == want
-    assert tpa.group_passes(71, want) == ((2, 48) if want == 64 else (1, 80))
+    assert tpa.group_passes(71, want) == {128: (1, 80), 64: (2, 48), 32: (3, 32)}[want]
 
 
 @pytest.mark.parametrize(
@@ -357,17 +377,18 @@ def test_group_max_rows(q_dtype, d, want):
         (torch.float32, 128, 16, True),  # fp32 q: the 3xTF32 whole-group kernel
         (torch.float32, 64, 71, True),
         (torch.float32, 128, 8, False),  # fp32 q at a group of up to 8: the group tiles
-        (torch.float32, 32, 16, False),
-        (torch.bfloat16, 32, 16, False),  # D32 (d 8-32): the group tiles
-        (torch.bfloat16, 16, 16, False),
-        (torch.bfloat16, 256, 16, False),  # D256: the group tiles; above it the wide kernels
+        (torch.float32, 32, 16, False),  # fp32 q at D8-32 and D256: the group tiles
+        (torch.bfloat16, 32, 16, True),  # bf16 / fp16 q at D32 (d 8-32): the whole-group kernel at 32
+        (torch.bfloat16, 16, 16, True),
+        (torch.bfloat16, 256, 16, True),  # D256: the whole-group kernel; above it the wide kernels
+        (torch.float32, 256, 16, False),
         (torch.float16, 1024, 16, False),
     ],
 )
 def test_group_kernel_routing(q_dtype, d, group, want):
     """Which decode configurations run the whole-group kernels: a group
-    above 8 at head dim 64 or 128 (bf16 / fp16 q: decode_group.cuh; fp32
-    q: decode_group_fp32.cuh), and nothing else."""
+    above 8 with bf16 / fp16 q at head dims 8-256 (decode_group.cuh) or
+    with fp32 q at 64 and 128 (decode_group_fp32.cuh), and nothing else."""
     assert tpa.uses_group_kernel(q_dtype, d, group) is want
 
 
@@ -379,6 +400,47 @@ def test_group_passes(group, want):
     passes, rows = tpa.group_passes(group)
     assert (passes, rows) == want
     assert rows % 16 == 0 and rows <= tpa.GROUP_MAX_ROWS and passes * rows >= group > (passes - 1) * rows
+
+
+CSRC = Path(tpa.__file__).resolve().parents[1] / "csrc"
+
+
+def _c_int(text: str, name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+)", text).group(1))
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_group_plan_mirrors_the_kernels(q_dtype):
+    """`uses_group_kernel`'s head dims and `group_max_rows`'s limits are
+    the C side's, which no CPU run can ask: for bf16 / fp16 q the head dims
+    that decode.cuh's instantiated_width pads (decode.cu's group_head_dim),
+    each width among decode.cu's group_width cases and decode_group.cuh's
+    instantiations; for fp32 q decode.cu's group_head_dim clause and
+    decode_group_fp32.cuh's instantiations; the rows of a pass as
+    kGMaxRows, kGMaxRowsD256 and kGMaxRows32D128."""
+    decode_cuh = (CSRC / "decode.cuh").read_text()
+    decode_cu = (CSRC / "decode.cu").read_text()
+    group = (CSRC / "decode_group.cuh").read_text()
+    group32 = (CSRC / "decode_group_fp32.cuh").read_text()
+    if q_dtype == torch.float32:
+        clause = re.search(r"return q_dtype == 0 \? ([^:]*) :", decode_cu).group(1)
+        dims = {int(x) for x in re.findall(r"d == (\d+)", clause)}
+        built = {int(x) for x in re.findall(r"FA_GROUP32_ROWS\(X, (\d+), (?:true|false)\)", group32)}
+        assert set(tpa.GROUP_HEAD_DIMS[q_dtype]) == dims == built
+    else:
+        body = re.search(r"inline int instantiated_width\(int d\) \{(.*?)\n\}", decode_cuh, re.S).group(1)
+        width = {}
+        for cond, ret in re.findall(r"if \(([^)]*)\) return (\w+);", body):
+            for x in re.findall(r"d == (\d+)", cond):
+                width[int(x)] = int(x) if ret == "d" else int(ret)
+        assert set(tpa.GROUP_HEAD_DIMS[q_dtype]) == set(width)
+        assert "instantiated_width(d) != 0" in decode_cu
+        cases = {int(x) for x in re.findall(r"case (\d+): return group_launch_width<T, \1>", decode_cu)}
+        built = {int(x) for x in re.findall(r"FA_GROUP_ROWS\(X, T, (\d+), (?:true|false)\)", group)}
+        assert set(width.values()) == cases == built
+    assert tpa.GROUP_MAX_ROWS == _c_int(group, "kGWarps") * 16
+    assert tpa.GROUP_MAX_ROWS_D256 == _c_int(group, "kGMaxRowsD256")
+    assert tpa.GROUP_MAX_ROWS_FP32_D128 == _c_int(group32, "kGMaxRows32D128")
 
 
 MQA_JAX_CFG = dataclasses.replace(JAX_CFG, n_head=16, n_embd=256, n_kv_head=1)

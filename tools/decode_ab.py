@@ -27,8 +27,10 @@ spread between calls and between processes, and one process cannot import
 two checkouts' packages.
 
 `--stores a,b` times only the rows on those caches (`chip_smoke.STORES`
-names, e.g. `fp32,int8 fp32 q`), and `--no-bursts` leaves out the serving
-bursts: a short call that measures a few rows.
+names, e.g. `fp32,int8 fp32 q`), `--shapes a,b` only those
+`chip_smoke.NEW_DECODE_SHAPES` rows (e.g. `recurrentgemma2b,palm8b`), and
+`--no-bursts` leaves out the serving bursts: a short call that measures a
+few rows.
 
 `--cluster N` (a checkout with cluster decode kernels) forces clusters of N
 blocks (1-8) in place of the split's choice (`decode_cluster_split`, or
@@ -52,6 +54,7 @@ parser.add_argument("label")
 parser.add_argument("--cluster", type=int, default=0, help="force the cluster decode kernels' clusters to this many blocks")
 parser.add_argument("--stores", default="", help="time only the rows on these caches (comma-separated)")
 parser.add_argument("--no-bursts", action="store_true", help="leave out the serving bursts")
+parser.add_argument("--shapes", default="", help="time only these chip_smoke.NEW_DECODE_SHAPES rows (comma-separated)")
 args = parser.parse_args()
 tree, label = args.tree, args.label
 sys.path.insert(0, os.path.abspath(tree))
@@ -91,7 +94,10 @@ def main() -> None:
            "cluster": args.cluster or "chosen"}
     gen = torch.Generator().manual_seed(7)
     stores = set(args.stores.split(",")) if args.stores else None
-    for shape in smoke.DECODE_SHAPES + (smoke.ONE_TILE_SHAPE,):
+    shapes = smoke.DECODE_SHAPES + (smoke.ONE_TILE_SHAPE,)
+    if args.shapes:
+        shapes = tuple(smoke.NEW_DECODE_SHAPES[name] for name in args.shapes.split(","))
+    for shape in shapes:
         for store in shape[-1]:
             if stores is not None and store not in stores:
                 continue

@@ -34,16 +34,22 @@ every variant runs the same inputs:
   us after the launch's first such stamp: the pace of a block's stream).
 
 Shapes (`--shapes`): `chip_smoke.NEW_DECODE_SHAPES`' d512 and d1024 rows
-(8 slots, GQA 8/2, contexts 1920-2047 of 2048, 4 layers walked in a CUDA
-graph with one call a layer, so that each call finds its layer out of L2),
-on caches in q's dtype and int8, at bf16 q or (`--q fp32`) fp32 q; with
-`--kernel tiles` also SantaCoder's layer (santacoder: 24 layers, 16 q heads
-on one KV head of 128, two group tiles of 8; santacoder8: the same with 8 q
-heads, one tile, so that the difference is the second tile's re-read) and
-Falcon-40B's (falcon40b: 8 layers, GQA 128/8 at D64), which the group
-tiles run with fp32 q at groups above 8 in a checkout from before the
-whole-group kernel took fp32 q (this tree's decode.cuh is that kernel at
-D64 / D128).  tiles runs at two splits, K6's own (`decode_split`
+(8 slots, GQA 8/2, contexts in the last 128 tokens of 2048, 4 layers walked
+in a CUDA graph with one call a layer, so that each call finds its layer
+out of L2), on caches in q's dtype and int8, at bf16 q or (`--q fp32`) fp32
+q; with `--kernel tiles` also SantaCoder's layer (santacoder: 24 layers, 16
+q heads on one KV head of 128, two group tiles of 8; santacoder8: the same
+with 8 q heads, one tile, so that the difference is the second tile's
+re-read) and Falcon-40B's (falcon40b: 8 layers, GQA 128/8 at D64), which
+the group tiles run with fp32 q at groups above 8 in a checkout from before
+the whole-group kernel took fp32 q (this tree's decode.cuh is that kernel
+at D64 / D128); and the GQA groups above 8 at D256 and D32 that the group
+tiles run in a checkout from before the whole-group kernel took those head
+dims: RecurrentGemma-2B's layer (recurrentgemma2b: 8 layers, 10 q heads on
+one KV head of 256, two tiles of 5; recurrentgemma2b5 with 5 q heads, one
+tile), PaLM-8B's (palm8b: 16 q heads of 256 on one KV head; palm8b8 with
+8) and a multi-query layer at D32 (d32_mqa: 32 layers of 32 slots of 1024,
+16 q heads on one KV head; d32_mqa8 with 8).  tiles runs at two splits, K6's own (`decode_split`
 over 16-token tiles) and K5's (chunks of a 128-token page), to see what the
 split costs; wide at the cluster `decode_cluster_split` picks from the card's
 resident clusters.  Device ms a call from `utils.measure.graph_ms`; the
@@ -142,6 +148,8 @@ KERNELS = {
              "      for (int pass = 0; pass < 0; ++pass) {"),
             ("    for (int i = 0; i < kTile / kSub; ++i) {\n      const int tok = psub + i * kSub;",
              "    for (int i = 0; i < 0; ++i) {\n      const int tok = psub + i * kSub;"),
+            ("      for (int ks = 0; ks < W::kCols / 16; ++ks) {\n        uint32_t a[4];",
+             "      for (int ks = 0; ks < 0; ++ks) {\n        uint32_t a[4];"),
         ],
         nocopy=[
             ("      cp_async<W::kCopy>(dk + r * L::kRow + ((in / 16) ^ swz(r)) * 16 + in % 16, gk + ko, ok ? bytes : 0);\n"
@@ -196,7 +204,10 @@ KERNELS["wide"] = dict(
 VARIANT_NAMES = ("base", "timeline", "nocompute", "nocopy")
 SHAPES = {"d512": (4, 8, 8, 2, 512, 2048), "d1024": (4, 8, 8, 2, 1024, 2048),
           "santacoder": (24, 8, 16, 1, 128, 2048), "santacoder8": (24, 8, 8, 1, 128, 2048),
-          "falcon40b": (8, 8, 128, 8, 64, 2048)}
+          "falcon40b": (8, 8, 128, 8, 64, 2048),
+          "recurrentgemma2b": (8, 8, 10, 1, 256, 2048), "recurrentgemma2b5": (8, 8, 5, 1, 256, 2048),
+          "palm8b": (8, 8, 16, 1, 256, 2048), "palm8b8": (8, 8, 8, 1, 256, 2048),
+          "d32_mqa": (32, 32, 16, 1, 32, 1024), "d32_mqa8": (32, 32, 8, 1, 32, 1024)}
 Q_TYPES = {"bf16": ("__nv_bfloat16", torch.bfloat16), "fp32": ("float", torch.float32)}
 
 
@@ -304,7 +315,7 @@ def main() -> None:
             else:
                 k, v = k.to(q_dtype), v.to(q_dtype)
                 ks = vs = torch.ones(layers, hkv, slots, L, device="cuda")
-            lengths = torch.randint(1919, 2047, (slots,), device="cuda", dtype=torch.int32, generator=gen)
+            lengths = torch.randint(L - 129, L - 1, (slots,), device="cuda", dtype=torch.int32, generator=gen)
             q = torch.randn(slots, hq, d, device="cuda", generator=gen).to(q_dtype)
             out = torch.empty_like(q)
             st = (ctypes.c_longlong * 12)(*q.stride()[:2], *out.stride()[:2], *k.stride()[1:4], *v.stride()[1:4],
