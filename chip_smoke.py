@@ -335,14 +335,15 @@ K2 and K3 their ring call shapes as `ring_noncausal_shard` (K1 also
 context-parallel run as `parallel_launches`; K5's and K6's rows their
 times at each configuration beyond D64 / D128, bf16 q and groups up to
 8 that the group tiles run (NEW_DECODE_SHAPES: gemma7b_*, gpt2_12l_*,
-d32_*, recurrentgemma2b_fp32_*; int8 caches unsuffixed, others suffixed by
-the store) and their launches in serving-mqa and serving-fp16; the
+d32_*; int8 caches unsuffixed, others suffixed by the store) and their
+launches in serving-mqa and serving-fp16; the
 whole-group K5's and K6's rows SantaCoder's bf16 layer's times with
 SDPA's, the santacoder_*, falcon40b_*, recurrentgemma2b_*, palm8b_* and
 d32_mqa_* rows beside them; the fp32 whole-group K5's and
 K6's rows SantaCoder's fp32 layer's times with SDPA's fp32 call, the
-santacoder_fp32_* and falcon40b_fp32_* rows beside them (fp32 and int8
-caches), and their launches in serving-mqa's fp32 check; the wide K5's
+santacoder_fp32_*, falcon40b_fp32_*, recurrentgemma2b_fp32_*, palm8b_fp32_*
+and d32_mqa_fp32_* rows beside them (fp32 and int8 caches), and their
+launches in serving-mqa's fp32 check; the wide K5's
 and K6's rows the D1024 bf16 layer's times, with d512_* and d1024_*
 beside them, and their launches in the decode phase);
 the last line is
@@ -641,8 +642,9 @@ def phase_build() -> None:
     if new_spilled:
         raise AssertionError(f"[build] whole-group decode kernel instantiations at D32 / D256 spill: {new_spilled}")
     # the whole-group kernel for fp32 q (decode_group_fp32.cuh): payload x
-    # row tiles (1, 2, 4, 8 at D64; 1, 2, 4 at D128) x K5 / K6, each
-    # instantiation's registers and spills
+    # row tiles (1, 2, 4, 8 at D32 / D64; 1, 2, 4 at D128; 1, 2 at D256) x
+    # K5 / K6, each instantiation's registers and spills; none at D32 / D256
+    # may spill
     clean = sum(re.search(r"(\d+) bytes spill stores", sp).group(1) == "0" for _, _, sp in group32)
     say(f"[build] ptxas group_fp32_kernel (whole-group K5 / K6, fp32 q): {len(group32)} instantiations, {clean} "
         f"without spills; nvcc per source: "
@@ -651,9 +653,13 @@ def phase_build() -> None:
         m = re.search(r"group_fp32_kernel<(.*)>", n)
         say(f"[build]   group_fp32_kernel<{m.group(1) if m else n}> (KV, D, row tiles, paged): {regs} registers; "
             f"{spill}")
-    if len(group32) != 42:
-        raise AssertionError(f"[build] expected 42 instantiations of the fp32 whole-group decode kernel, found "
-                             f"{len(group32)}")
+    new32 = [n for n, _, _ in group32 if re.search(r"group_fp32_kernel<[^,]+, (32|256), \d+, (true|false)>", n)]
+    spilled32 = [n for n, _, sp in group32 if n in new32 and re.search(r"(\d+) bytes spill stores", sp).group(1) != "0"]
+    if len(group32) != 78 or len(new32) != 36:
+        raise AssertionError(f"[build] expected 78 instantiations of the fp32 whole-group decode kernel, 36 of them at "
+                             f"D32 / D256; found {len(group32)} and {len(new32)}")
+    if spilled32:
+        raise AssertionError(f"[build] fp32 whole-group decode kernel instantiations at D32 / D256 spill: {spilled32}")
     # the wide decode kernel (decode_wide.cuh, head dims above 256): q dtype x
     # payload x D512 / D1024 x passes of 1, 4 or 8 rows x K5 / K6; the
     # group-tile kernel keeps D32-D256 (10 instantiations a q dtype, payload
@@ -1294,8 +1300,8 @@ def _fp16_control(label: str, outs, exacts) -> bool:
 
 def _decode_keys(q_dtype, d: int, group: int) -> tuple[str, str]:
     """The launch keys of K5 and K6 for a configuration: the wide kernel's
-    above head dim 256, the whole-group kernel's for a group above 8 at D64 /
-    D128 (with fp32 q its keys of its own)."""
+    above head dim 256, the whole-group kernel's for a group above 8 at
+    D8-D256 (with fp32 q its keys of its own)."""
     if PA.uses_wide_kernel(q_dtype, d, group):
         return "paged_decode_wide", "fused_decode_wide"
     if PA.uses_group_kernel(q_dtype, d, group):
@@ -1319,7 +1325,7 @@ def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths
     """K5 (through decode_attention_paged) and K6 vs their plain versions on
     one cache at DECODE_TOL; returns {launch key: max error}.  Each must
     launch its kernel once: the whole-group kernel for a group above 8 at
-    D64 / D128 and the wide kernel above D256, each also
+    D8-D256 and the wide kernel above D256, each also
     held against the plain version of its own plan
     (`paged_attention_group_ref`: its chunks, its cluster, the merge's
     order).  For fp16 q both are also held against their exact versions at
@@ -1558,22 +1564,26 @@ def check_decode_configs(gen, controls: list) -> dict:
     which at D64 / D128 run the whole-group kernel (fp32 q: the 3xTF32 one,
     also at groups 12 and 48 at D128, two passes at 71 / D128, and 24 / 2 and
     48 at D64, over fp32 and int8 caches); fp32 q at group 16 at D8, D32
-    and D256 (the group tiles); the whole-group kernel at serving-mqa's shape
-    and Falcon-40B's layer on bf16, fp16, int8 and fp8 caches and with fp32
-    q on fp32, int8 and fp8 caches at its splits' edges (GROUP_SHAPES, with
-    RecurrentGemma-2B's D256 layer, whose fp32 q runs the group tiles at
-    theirs); the whole-group kernel at D8, D16, D32 and D256 at groups 9,
+    and D256 (the 3xTF32 whole-group kernel since it runs those widths); the
+    whole-group kernel at serving-mqa's shape, Falcon-40B's layer and
+    RecurrentGemma-2B's D256 layer on bf16, fp16, int8 and fp8 caches and
+    with fp32 q on fp32, int8 and fp8 caches at its splits' edges
+    (GROUP_SHAPES); the whole-group kernel at D8, D16, D32 and D256 at groups 9,
     10, 16 and 48 on bf16, fp16, int8 and fp8 caches at its splits' edges
     (at D8-32 each fp16 case also on 4 KV heads with 1-token slots), at
-    groups 24 and 71 at D8 and D32, and at time_decode's d32_mqa shape; K5
-    over a permuted page table with NaN past the lengths at D16 (group 16
-    on one and on 4 KV heads), D128, D256 (group 16) and D512, and with
-    fp32 q at D128 (group 16) and D64 (group 16 on two KV heads).  Each
-    against its plain version at DECODE_TOL, fp16 q's cases with their
-    control.  Returns {launch key: errors}."""
+    groups 24 and 71 at D8 and D32, and at time_decode's d32_mqa shape; the
+    3xTF32 whole-group kernel at D8, D16, D32 and D256 at groups 10 (on two
+    KV heads) and 16, and 48 at D256 (two passes), on fp32, int8 and fp8
+    caches at its splits' edges, at groups 24 and 71 at D8 and D32 (2 and 5
+    row tiles) and 48 at D256 on fp32 and int8 caches, and at time_decode's
+    d32_mqa_fp32 shape; K5 over a permuted page table with NaN past the
+    lengths at D16 (group 16 on one and on 4 KV heads), D128, D256 (group
+    16) and D512, and with fp32 q at D16, D128 and D256 (group 16) and D64
+    (group 16 on two KV heads).  Each against its plain version at
+    DECODE_TOL, fp16 q's cases with their control.  Returns {launch key:
+    errors}."""
     bf16, f16, f32, i8, f8 = torch.bfloat16, torch.float16, torch.float32, torch.int8, torch.float8_e4m3fn
     ragged = [0, 16, 299, 1022, 511, 63, 799, 127]
-    sms = PA._sm_count(0)
     errs = {}
 
     def one(label, slots, hq, hkv, d, store, q_dtype, lengths=ragged, max_len=1024):
@@ -1586,8 +1596,8 @@ def check_decode_configs(gen, controls: list) -> dict:
     for d in (8, 32, 256, 512, 1024):
         one(f"D{d} hq8 hkv2 fp32 cache fp32 q", 4, 8, 2, d, f32, f32)
         one(f"D{d} hq2 hkv2 int8 cache fp32 q", 4, 2, 2, d, i8, f32)
-    # fp32 q at a group above 8 at D8-32 and D256: the group tiles (two tiles
-    # of 8 rows), under their own keys
+    # fp32 q at a group above 8 at D8-32 and D256: the 3xTF32 whole-group
+    # kernel (until it ran those widths, the group tiles)
     for d in (8, 32, 256):
         for name, store in (("fp32", f32), ("int8", i8)):
             one(f"D{d} group 16 (hq16 hkv1) {name} cache fp32 q", 4, 16, 1, d, store, f32)
@@ -1623,28 +1633,18 @@ def check_decode_configs(gen, controls: list) -> dict:
         say(f"[decode] {label}: cache lengths {lengths}; split {cl} blocks a cluster x {walks} chunks of {ch} "
             f"tokens; blocks of a cluster live: {[min(cl, -(-(n + 1) // ch)) for n in lengths]}; chunks the busiest "
             f"block walks: {[-(-(-(-(n + 1) // ch)) // cl) for n in lengths]}")
-        # fp32 q over fp32, int8 and fp8 caches: at D64 / D128 the 3xTF32
-        # whole-group kernel, at cache lengths on the edges of K6's split
-        # (chunks of one stage: 64 tokens for an fp32 cache at D128) and of
-        # K5's (pages of 128): 0, a chunk - 1 and + 1, a cluster's span - 1
-        # (K6); a chunk, a span and + 1 (K5), the capacity - 1; at D256 the
-        # group tiles, at the edges of their splits as above
-        fp32_group = PA.uses_group_kernel(f32, d, hq // hkv)
+        # fp32 q over fp32, int8 and fp8 caches: the 3xTF32 whole-group
+        # kernel, at cache lengths on the edges of K6's split (chunks of one
+        # stage: 64 tokens for an fp32 cache at D128, 32 at D256) and of K5's
+        # (pages of 128): 0, a chunk - 1 and + 1, a cluster's span - 1 (K6);
+        # a chunk, a span and + 1 (K5), the capacity - 1
         for name, store in (("fp32", f32), ("int8", i8), ("fp8", f8)):
-            if fp32_group:
-                c6, ch6, _ = _cluster_split(f32, store, hq // hkv, d, 2048, 2048, 8 * hkv, False)
-                c5, ch5, _ = _cluster_split(f32, store, hq // hkv, d, 2048, 128, 8 * hkv, True)
-                edges = [0, ch6 - 1, ch6 + 1, c6 * ch6 - 1, ch5, c5 * ch5, c5 * ch5 + 1, 2047]
-                split = f"K6 {c6} blocks x chunks of {ch6}, K5 {c5} blocks x chunks of {ch5}"
-            else:
-                pairs = 8 * hkv * PA.group_tiles(hq // hkv)[0]
-                c5, n5 = PA.decode_split(2048, pairs, 128, sms)
-                c6, n6 = PA.decode_split(2048, pairs, PA.DECODE_TILE, sms)
-                edges = [0, c5 - 1, c5, c5 + 1, c6 - 1, c6 + 1, 2 * c6, 2047]
-                split = f"group tiles K5 {n5}x{c5} K6 {n6}x{c6}"
-            edges = [min(e, 2047) for e in edges]
+            c6, ch6, _ = _cluster_split(f32, store, hq // hkv, d, 2048, 2048, 8 * hkv, False)
+            c5, ch5, _ = _cluster_split(f32, store, hq // hkv, d, 2048, 128, 8 * hkv, True)
+            edges = [min(e, 2047) for e in (0, ch6 - 1, ch6 + 1, c6 * ch6 - 1, ch5, c5 * ch5, c5 * ch5 + 1, 2047)]
             one(f"{label} fp32 q {name} cache", 8, hq, hkv, d, store, f32, edges, max_len=2048)
-            say(f"[decode] {label} fp32 q {name} cache: {split}; cache lengths {edges}")
+            say(f"[decode] {label} fp32 q {name} cache: K6 {c6} blocks x chunks of {ch6}, K5 {c5} blocks x chunks "
+                f"of {ch5}; cache lengths {edges}")
     # the whole-group kernel at D8, D16, D32 (all run at 32, P V split by
     # tokens) and D256 (stages of 64 tokens on a 16-bit cache, passes of at
     # most 32 q heads: group 48 in two) at groups 9, 10 (on two KV heads),
@@ -1685,6 +1685,33 @@ def check_decode_configs(gen, controls: list) -> dict:
     for name, store in (("bf16", bf16), ("int8", i8)):
         one(f"d32_mqa shape hq16 hkv1 D32 L1024 32 slots {name} cache", 32, 16, 1, 32, store, bf16, timed)
     say(f"[decode] d32_mqa shape: timed cache lengths {timed}")
+    # the 3xTF32 whole-group kernel at D8, D16, D32 (run at 32: a warp holds
+    # all 32 columns, the row tile's warps are token groups) and D256 (four
+    # warps share a token's columns, stages of 32 fp32 tokens, passes of at
+    # most 32 q heads: group 48 in two) at groups 10 (on two KV heads) and
+    # 16, and 48 at D256, on fp32, int8 and fp8 caches at its splits' edges
+    # (as the 16-bit q cases above); then its other row tilings, groups 24
+    # and 71 at D8 and D32 (2 and 5 row tiles) and 48 at D256, on fp32 and
+    # int8 caches at the ragged lengths; then time_decode's d32_mqa_fp32
+    # shape at its timed lengths
+    for d in (8, 16, 32, 256):
+        for group, hkv in ((10, 2), (16, 1)) + (((48, 1),) if d == 256 else ()):
+            for name, store in (("fp32", f32), ("int8", i8), ("fp8", f8)):
+                c6, ch6, _ = _cluster_split(f32, store, group, d, 2048, 2048, 8 * hkv, False)
+                c5, ch5, _ = _cluster_split(f32, store, group, d, 2048, 128, 8 * hkv, True)
+                edges = [min(e, 2047) for e in (0, ch6 - 1, ch6, ch6 + 1, c6 * ch6 - 1, c6 * ch6, c5 * ch5 + 1, 2047)]
+                one(f"whole group fp32 q D{d} group {group} hq{group * hkv} hkv{hkv} {name} cache", 8, group * hkv,
+                    hkv, d, store, f32, edges, max_len=2048)
+        say(f"[decode] whole group fp32 q D{d}: K6 chunks of {PA.group_tokens(d, 4)} tokens on an fp32 cache, "
+            f"{PA.group_tokens(d, 1)} on an 8-bit one; q heads a pass at most {PA.group_max_rows(f32, d)}")
+    for d, groups in ((8, (24, 71)), (32, (24, 71)), (256, (48,))):
+        for group in groups:
+            for name, store in (("fp32", f32), ("int8", i8)):
+                one(f"whole group fp32 q D{d} group {group} hq{group} hkv1 {name} cache", 8, group, 1, d, store, f32)
+    timed = torch.randint(960, 1024, (32,), generator=gen).tolist()
+    for name, store in (("fp32", f32), ("int8", i8)):
+        one(f"d32_mqa_fp32 shape hq16 hkv1 D32 L1024 32 slots {name} cache", 32, 16, 1, 32, store, f32, timed)
+    say(f"[decode] d32_mqa_fp32 shape: timed cache lengths {timed}")
     lens = [1, 17, 300, 1023, 512, 0, 800, 1024]
     # group 16 at D16 also on 4 KV heads, beside one: four times the raw V
     # rows of the two 1-token slots
@@ -1693,7 +1720,7 @@ def check_decode_configs(gen, controls: list) -> dict:
             _gather(errs, check_paged_permuted(f"paged permuted ps16 NaN past length D{d} hq{hq} hkv{hkv} {name}",
                                                gen, 8, hq, hkv, d, 16, 64, store, q_dtype, lens, controls))
     # the fp32 whole-group K5 over pages of 16 (a stage over several pages)
-    for d, hq, hkv in ((128, 16, 1), (64, 32, 2)):
+    for d, hq, hkv in ((128, 16, 1), (64, 32, 2), (16, 16, 1), (256, 16, 1)):
         for name, store in (("fp32", f32), ("int8 fp32 q", i8), ("fp8 fp32 q", f8)):
             _gather(errs, check_paged_permuted(f"paged permuted ps16 NaN past length D{d} hq{hq} hkv{hkv} {name}",
                                                gen, 8, hq, hkv, d, 16, 64, store, f32, lens, controls))
@@ -2606,6 +2633,12 @@ NEW_DECODE_SHAPES = {
     "d32_mqa": ("hq16 hkv1 D32 32 slots 32 layers L2-cold", 32, 32, 16, 1, 32, 1024, (960, 1024), ("int8", "bf16")),
     "recurrentgemma2b_fp32": ("recurrentgemma-2b fp32 q hq10 hkv1 D256 8 slots 8 layers L2-cold", 8, 8, 10, 1, 256,
                               2048, (1920, 2048), ("fp32", "int8 fp32 q")),
+    # PaLM-8B's multi-query layer and the D32 multi-query layer with fp32 q
+    # (33.6 MB a layer of PaLM-8B's on fp32; 8.4 MB of the D32 one)
+    "palm8b_fp32": ("palm-8b fp32 q hq16 hkv1 D256 8 slots 8 layers L2-cold", 8, 8, 16, 1, 256, 2048, (1920, 2048),
+                    ("fp32", "int8 fp32 q")),
+    "d32_mqa_fp32": ("hq16 hkv1 D32 fp32 q 32 slots 32 layers L2-cold", 32, 32, 16, 1, 32, 1024, (960, 1024),
+                     ("fp32", "int8 fp32 q")),
 }
 DECODE_SHAPES = (
     GPT2_HOT_SHAPE,
@@ -2617,7 +2650,7 @@ DECODE_SHAPES = (
 # or fp16 q, D8-D256)
 GROUP_TIMED = ("santacoder", "falcon40b", "recurrentgemma2b", "palm8b", "d32_mqa")
 # the NEW_DECODE_SHAPES that run the whole-group kernel with fp32 q
-GROUP_FP32_TIMED = ("santacoder_fp32", "falcon40b_fp32")
+GROUP_FP32_TIMED = ("santacoder_fp32", "falcon40b_fp32", "recurrentgemma2b_fp32", "palm8b_fp32", "d32_mqa_fp32")
 # the NEW_DECODE_SHAPES that run the wide kernel (head dims above 256)
 WIDE_TIMED = ("d512", "d1024")
 # SantaCoder's layer with 8 q heads (one group tile) in place of 16 (two)

@@ -3,8 +3,8 @@
 // fa_fused_decode_wide), loaded through ctypes
 // (flash_attention_tpu_torch/kernels/_build.py).  The group-tile kernel
 // template and its design are in decode.cuh (head dims up to 256), the
-// whole-group kernel's (GQA groups above 8) in decode_group.cuh (bf16 / fp16
-// q at head dims 8-256) and decode_group_fp32.cuh (fp32 q at 64 and 128), the
+// whole-group kernel's (GQA groups above 8 at head dims 8-256) in
+// decode_group.cuh (bf16 / fp16 q) and decode_group_fp32.cuh (fp32 q), the
 // wide kernel's (head dims above 256) in decode_wide.cuh; their
 // instantiations are built by the decode_*.cu sources, one nvcc each, and
 // declared extern here.
@@ -90,30 +90,37 @@ cudaError_t group_width(const GroupParams& p, int kv_dtype, int width, bool page
   }
 }
 
+cudaError_t group32_width(const GroupParams& p, int kv_dtype, int width, bool paged, int cluster, dim3 grid,
+                          cudaStream_t s, int* resident) {
+  switch (width) {
+    case 32: return group32_launch_width<32>(p, kv_dtype, paged, cluster, grid, s, resident);
+    case 64: return group32_launch_width<64>(p, kv_dtype, paged, cluster, grid, s, resident);
+    case 128: return group32_launch_width<128>(p, kv_dtype, paged, cluster, grid, s, resident);
+    case 256: return group32_launch_width<256>(p, kv_dtype, paged, cluster, grid, s, resident);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // The whole-group kernel of q's dtype at the padded head dim (32 for d 8-32).
 cudaError_t group_dispatch(const GroupParams& p, int q_dtype, int kv_dtype, int head_dim, bool paged, int cluster,
                            dim3 grid, cudaStream_t s, int* resident) {
-  if (q_dtype == 0) {
-    return head_dim == 64 ? group32_launch_width<64>(p, kv_dtype, paged, cluster, grid, s, resident)
-                          : group32_launch_width<128>(p, kv_dtype, paged, cluster, grid, s, resident);
-  }
   const int width = instantiated_width(head_dim);
+  if (q_dtype == 0) return group32_width(p, kv_dtype, width, paged, cluster, grid, s, resident);
   if (q_dtype == 1) return group_width<__nv_bfloat16>(p, kv_dtype, width, paged, cluster, grid, s, resident);
   return group_width<__half>(p, kv_dtype, width, paged, cluster, grid, s, resident);
 }
 
-// The head dims the whole-group kernel takes: 64 and 128 for fp32 q; 8, 16,
-// 32, 64, 128 and 256 for bf16 / fp16 q.
-bool group_head_dim(int q_dtype, int d) {
-  return q_dtype == 0 ? d == 64 || d == 128 : instantiated_width(d) != 0;
-}
+// The head dims the whole-group kernel takes, for every q dtype: 8, 16, 32,
+// 64, 128 and 256.
+bool group_head_dim(int d) { return instantiated_width(d) != 0; }
 
-// The q heads a pass of the whole-group kernel holds at most: 128, or 64 for
-// fp32 q at D128 (decode_group_fp32.cuh: a row tile's two warps a token), 32
-// for bf16 / fp16 q at D256 (decode_group.cuh: 2 row tiles).
+// The q heads a pass of the whole-group kernel holds at most: 128; for fp32
+// q 64 at D128 and 32 at D256 (decode_group_fp32.cuh: a row tile's two or
+// four warps share a token's columns), for bf16 / fp16 q 32 at D256
+// (decode_group.cuh: 2 row tiles).
 int group_max_rows(int q_dtype, int head_dim) {
-  if (q_dtype == 0 && head_dim == 128) return kGMaxRows32D128;
-  return q_dtype != 0 && head_dim == 256 ? kGMaxRowsD256 : kGMaxRows;
+  if (head_dim == 256) return q_dtype == 0 ? kGMaxRows32D256 : kGMaxRowsD256;
+  return q_dtype == 0 && head_dim == 128 ? kGMaxRows32D128 : kGMaxRows;
 }
 
 // The whole-group kernel: passes x pass_rows q heads cover the group (every
@@ -124,7 +131,7 @@ template <bool kPaged>
 int launch_group(GroupParams& p, int q_dtype, int kv_dtype, int batch, int hq, int hkv, int passes,
                  int pass_rows, int head_dim, int cluster, const long long* st, cudaStream_t s) {
   if (batch <= 0 || batch > 65535 || hkv <= 0 || hq <= 0 || hq % hkv != 0 || q_dtype < 0 || q_dtype > 2 ||
-      !group_head_dim(q_dtype, head_dim) || kv_dtype < 0 || kv_dtype > 2 || pass_rows < 16 || pass_rows % 16 != 0 ||
+      !group_head_dim(head_dim) || kv_dtype < 0 || kv_dtype > 2 || pass_rows < 16 || pass_rows % 16 != 0 ||
       pass_rows > group_max_rows(q_dtype, head_dim) || passes < 1 || (long long)hkv * passes > 65535 ||
       (long long)passes * pass_rows < hq / hkv || (long long)(passes - 1) * pass_rows >= hq / hkv ||
       cluster < 1 || cluster > kClusterMax || p.page_size <= 0 ||
@@ -298,12 +305,12 @@ extern "C" int fa_fused_decode(const void* q, const void* k, const void* v, cons
                               static_cast<cudaStream_t>(stream));
 }
 
-// The whole-group kernels: a GQA group above 8 with fp32 (q_dtype 0;
-// decode_group_fp32.cuh; head_dim 64 or 128), bf16 (1) or fp16 (2) q
-// (decode_group.cuh; head_dim 8, 16, 32, 64, 128 or 256).  Arguments as
-// above, but no workspace or counters: the group runs in `passes` passes of
-// `pass_rows` q heads (a multiple of 16, at most 128, 64 for fp32 q at 128,
-// 32 for bf16 / fp16 q at 256; every pass live), a
+// The whole-group kernels: a GQA group above 8 at head_dim 8, 16, 32, 64,
+// 128 or 256 with fp32 (q_dtype 0; decode_group_fp32.cuh), bf16 (1) or fp16
+// (2) q (decode_group.cuh).  Arguments as above, but no workspace or
+// counters: the group runs in `passes` passes of `pass_rows` q heads (a
+// multiple of 16, at most 128, 64 for fp32 q at 128, 32 at 256; every pass
+// live), a
 // cluster of `cluster` blocks (1-8) per (sequence, KV head,
 // pass), block c of a cluster walking chunks c, c + cluster, ... of `chunk`
 // tokens, `walks` of them; cluster * chunk * walks >= the capacity; for K5
@@ -370,7 +377,7 @@ extern "C" int fa_fused_decode_group(const void* q, const void* k, const void* v
 // clusters within it.  Returns the count, or minus a cudaError_t.
 extern "C" int fa_decode_group_resident(int q_dtype, int kv_dtype, int head_dim, int pass_rows, int paged,
                                         int cluster) {
-  if (q_dtype < 0 || q_dtype > 2 || !group_head_dim(q_dtype, head_dim) || kv_dtype < 0 || kv_dtype > 2 ||
+  if (q_dtype < 0 || q_dtype > 2 || !group_head_dim(head_dim) || kv_dtype < 0 || kv_dtype > 2 ||
       pass_rows < 16 || pass_rows % 16 != 0 || pass_rows > group_max_rows(q_dtype, head_dim) || cluster < 1 ||
       cluster > fa::decode::kClusterMax)
     return -(int)cudaErrorInvalidValue;

@@ -6,9 +6,10 @@
 // the instantiations are split by q dtype and padded head dim over
 // decode_<fp32|bf16|fp16>_d<D>.cu (12 sources, one nvcc each), so that no
 // one nvcc holds the build up.  Head dims above 256 run decode_wide.cuh, a
-// GQA group above 8 at D64 / D128 decode_group.cuh (16-bit q) or
-// decode_group_fp32.cuh (fp32 q): here a group above 8 runs in group tiles
-// only at head dims 8-32 and 256.
+// GQA group above 8 decode_group.cuh (16-bit q) or decode_group_fp32.cuh
+// (fp32 q): the host routes no group above 8 to this kernel's group tiles,
+// which still take one (the entry point checks only that the tiles cover
+// the group).
 //
 // Replaces: flash_attention_tpu/inference/paged_attention.py::_paged_kernel
 // (K5, launched by paged_attention) and

@@ -10,8 +10,7 @@
 // paged_attention.py::_paged_kernel (K5) and flash_attention_tpu/inference/
 // decode_attention.py::_fused_kernel (K6).  Head dims above 256 run
 // decode_wide.cuh, fp32 q decode_group_fp32.cuh (this kernel's plan in
-// 3xTF32, at D64 / D128); every other configuration (groups of up to 8, fp32
-// q at head dims 8-32 and 256) decode.cuh's group tiles.  The function and
+// 3xTF32); groups of up to 8 decode.cuh's group tiles.  The function and
 // its rounding points are decode.cuh's: S = q K^T in
 // fp32 (K5: * sm_scale; K6: q pre-scaled by sm_scale and rounded to q's
 // dtype), times the token's k_scale; natural exp and an online softmax in

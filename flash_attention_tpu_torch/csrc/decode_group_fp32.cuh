@@ -1,10 +1,11 @@
 // One-token decode attention for a GQA group of more than 8 q heads
-// (multi-query attention) with fp32 q at head dims 64 and 128: K5 (paged,
-// fa_paged_decode_group) and K6 (slot-major, fa_fused_decode_group) over an
-// fp32, int8 or fp8 e4m3 cache, two instantiations of one kernel template.
-// This header holds the template; decode.cu's entry points reach it for q
-// dtype 0, and the instantiations are split by head dim and entry point over
-// the 4 sources decode_group_fp32_d<64|128>_<k5|k6>.cu.  bf16 / fp16 q run
+// (multi-query attention) with fp32 q at head dims 8-32 (run at 32), 64, 128
+// and 256: K5 (paged, fa_paged_decode_group) and K6 (slot-major,
+// fa_fused_decode_group) over an fp32, int8 or fp8 e4m3 cache, two
+// instantiations of one kernel template.  This header holds the template;
+// decode.cu's entry points reach it for q dtype 0, and the instantiations are
+// split by head dim and entry point over the 8 sources
+// decode_group_fp32_d<32|64|128|256>_<k5|k6>.cu.  bf16 / fp16 q run
 // decode_group.cuh, whose plan (a cluster per (sequence, KV head, pass),
 // merged over distributed shared memory; GroupParams; decode_cluster.cuh's
 // merge and launch) this kernel shares.
@@ -33,24 +34,27 @@
 // serially in the last block to arrive, with S on FMAs.  What the design
 // does about it:
 //   * the whole group in one block, m16 row tiles of q heads (kRW of them: 1,
-//     2, 4, or 8 at D64; a larger group runs in passes, 128 q heads at D64,
-//     64 at D128), every K / V stage staged once into shared memory with
+//     2, 4 or 8 at D32 / D64, up to 4 at D128, up to 2 at D256; a larger
+//     group runs in passes, 128 q heads at D32 / D64, 64 at D128, 32 at
+//     D256), every K / V stage staged once into shared memory with
 //     `cp.async` and read from there by every row tile; a cluster of blocks
 //     per (sequence, KV head, pass), its blocks walking interleaved chunks
 //     and merged over distributed shared memory (cluster_merge), with no
 //     workspace, counter or serial last block, as decode_group.cuh;
 //   * the 8 warps of a block: kRW row tiles, 8 / kRW warps each.  A warp
 //     holds q's hi / lo A fragments for 64 head-dim columns in registers (64
-//     registers); at D128 the two warps of a pair split the columns, compute
-//     their partial S, exchange it through shared memory (a named barrier of
-//     the pair) and sum it in one fixed order, so both hold the same S.  The
-//     pairs (or, at D64, the warps) of a row tile are its token groups: each
-//     takes every kTG-th 16-token sub-tile of a stage and keeps its own
-//     online-softmax state, so a stage needs one block-wide barrier (its
-//     slot is landed and the last one free), none for the softmax;
+//     registers; at D32 all 32 columns, 32 registers); at D128 (D256) the two
+//     (four) warps of a split group share a token's columns, compute their
+//     partial S, exchange it through shared memory (a named barrier of the
+//     group) and sum it in one fixed order (columns 0-63 first), so that all
+//     hold the same S.  The split groups (at D32 / D64 the warps) of a row
+//     tile are its token groups: each takes every kTG-th 16-token sub-tile
+//     of a stage and keeps its own online-softmax state, so a stage needs
+//     one block-wide barrier (its slot is landed and the last one free),
+//     none for the softmax;
 //   * P goes from S's accumulators straight to P V's A fragments
 //     (tf32x3.cuh's frag_acc: the depth taken in the order 0, 2, 4, 6, 1, 3,
-//     5, 7), and each warp multiplies it by V for its 64 columns; the token
+//     5, 7), and each warp multiplies it by V for its columns; the token
 //     groups' states merge in the block at the end, in group order;
 //   * lane-contiguous reads: the head dim of S is taken in a permuted order,
 //     the same for q's A fragments and K's B fragments, so that a lane reads 4
@@ -59,10 +63,19 @@
 //     so that a lane reads 4 consecutive columns of a V row for 4 n-tiles.  A
 //     row's 16-byte chunk c is stored at c ^ f(row) (group32_swizzle), which
 //     keeps those reads free of bank conflicts (but for an 8-bit V at D64,
-//     two ways);
-//   * a stage is as many tokens as fill 32 KB of K (128, or 64 for an fp32
-//     cache at D128; `paged_attention.group_tokens`), in a ring of 2-4
-//     stages of 96 KB at most (fp32: 2 of 64 KB).
+//     two ways).  8-bit rows at D32 are 32 bytes, four to a 128-byte line:
+//     there each 8-token half of a sub-tile is taken in the order 0, 4, 1, 5,
+//     2, 6, 3, 7 (decode_group.cuh's tok8), so that V's reads of the two
+//     tokens of a depth pair, rows t and t + 4, fall in distinct banks;
+//   * at D32 (d 8, 16, 32) the columns past d are zero in q and, filled
+//     without a read, in the ring (a zero q column would not mask a NaN left
+//     there): rows are copied 16 bytes at a time (an fp32 row at d = 8 is 32
+//     bytes), an 8-bit row 8 bytes at a time (8 bytes at d = 8);
+//   * a stage is as many tokens as fill 32 KB of K (128; 64 for an fp32
+//     cache at D128, 32 at D256; `paged_attention.group_tokens`), in a ring
+//     of 2-4 stages of 96 KB at most (fp32 at D128: 2 of 64 KB); at D256 of
+//     3 stages, 192 KB, one block an SM with two stages in flight while it
+//     computes on the third.
 //
 // The kernel allocates nothing and launches on the caller's stream; the C
 // entry points return the launch's cudaError_t.
@@ -74,26 +87,27 @@
 namespace fa {
 namespace decode {
 
-constexpr int kFCols = 64;  // head-dim columns a warp takes: all of D64, half of D128
+constexpr int kFCols = 64;  // head-dim columns a warp takes at most: all of D64, half of D128, a quarter of D256
 
 // Shared memory of a block, for kRW row tiles.  While streaming: the ring
 // (K and V payload tiles of kTok tokens, kStages of them), an 8-bit
-// payload's scales, at D128 each warp's two partial-S buffers for its pair,
-// and K5's page ids.  At the end, over all of it: the block's state (acc
-// [row][D], m, l), which the cluster's peers read, the cluster's weights,
-// and each token group's own state [kTG][row][D] with its m and l
+// payload's scales, at D128 / D256 each warp's two partial-S buffers for its
+// split group, and K5's page ids.  At the end, over all of it: the block's
+// state (acc [row][D], m, l), which the cluster's peers read, the cluster's
+// weights, and each token group's own state [kTG][row][D] with its m and l
 // (MergeLayout, decode_cluster.cuh).
 template <typename KV, int D, int kRW>
 struct GroupLayout32 {
   static constexpr bool kQuant = sizeof(KV) == 1;
-  static constexpr int kSplit = D / kFCols;                      // warps sharing a token's columns
+  static constexpr int kCols = D < kFCols ? D : kFCols;          // head-dim columns a warp takes
+  static constexpr int kSplit = D / kCols;                       // warps sharing a token's columns
   static constexpr int kCS = kGWarps / kRW;                      // warps of a row tile
   static constexpr int kTG = kCS / kSplit;                       // token groups of a row tile
   static constexpr int kRow = D * (int)sizeof(KV);               // payload bytes of a token's row
   static constexpr int kTok = 128 * kRow > 32768 ? 32768 / kRow : 128;  // tokens of a stage
   static constexpr int kSub = kTok / 16;                         // its 16-token sub-tiles
   static constexpr int kStage = kTok * kRow;
-  static constexpr int kFit = 96 * 1024 / (2 * kStage);
+  static constexpr int kFit = (D == 256 ? 192 : 96) * 1024 / (2 * kStage);
   static constexpr int kStages = kFit < 2 ? 2 : (kFit > 4 ? 4 : kFit);
   static constexpr int kRing = 2 * kStages * kStage;
   static constexpr int kScales = kRing;                          // [stage][2][kTok] fp32
@@ -103,7 +117,7 @@ struct GroupLayout32 {
   static constexpr int kRows = kRW * 16;
   using Merge = MergeLayout<kRows, D, kTG>;                      // over all of it at the end (decode_cluster.cuh)
   static constexpr int kBytes = kStream > Merge::kEnd ? kStream : Merge::kEnd;
-  static_assert(kTG >= 1 && kCS % kSplit == 0, "a row tile holds whole warp pairs");
+  static_assert(kTG >= 1 && kCS % kSplit == 0, "a row tile holds whole split groups");
   static_assert(kBytes <= 227 * 1024, "shared memory of a block");
 };
 
@@ -113,11 +127,20 @@ struct GroupLayout32 {
 // even) fall in different halves of a 128-byte line and rows 0, 2, 4, 6 (or
 // 1, 3, 5, 7) in four distinct quarters: so K's 16-byte reads (rows g, a
 // quarter-warp two rows), its 4-byte reads (8 rows) and V's reads (rows 2t
-// and 2t + 1) touch distinct banks.  64-byte rows (an 8-bit payload at
-// D64), two to a line: decode_group.cuh's swizzle.
+// and 2t + 1, or at D32 rows t and t + 4) touch distinct banks.  64-byte
+// rows (an 8-bit payload at D64), two to a line, and 32-byte rows (8-bit at
+// D32), four: decode_group.cuh's swizzle, which at 32 bytes gives rows r and
+// r + 4 of a line the row's other chunk first.
 template <int kRow>
 __device__ __forceinline__ int group32_swizzle(int r) {
   return kRow >= 128 ? ((r & 7) ^ ((r & 1) << 2)) : swizzle<kRow>(r);
+}
+
+// The token of n index j of an 8-token half of a sub-tile: j, or with
+// kTok8 (8-bit rows at D32) decode_group.cuh's tok8 order.
+template <bool kTok8>
+__device__ __forceinline__ int tok_of(int j) {
+  return kTok8 ? tok8(j) : j;
 }
 
 template <typename KV>
@@ -132,12 +155,16 @@ __global__ void __launch_bounds__(kGThreads, 1) group_fp32_kernel(const GroupPar
   constexpr bool kQuant = L::kQuant;
   constexpr int S = L::kStages;
   constexpr int kTok = L::kTok;
-  constexpr int kSplit = L::kSplit, kCS = L::kCS, kTG = L::kTG;
-  constexpr int kChunks = L::kRow / 16;          // 16-byte copies of a payload row
+  constexpr int kCols = L::kCols, kSplit = L::kSplit, kCS = L::kCS, kTG = L::kTG;
+  constexpr int kJ = kCols / 16;                 // 16-column blocks of a warp's S (two k-steps each)
+  constexpr int kH = kCols / 32;                 // 32-column blocks of its P V (four n-tiles each)
+  constexpr int kCopy = D == 32 && kQuant ? 8 : 16;  // bytes of a payload row's cp.async
+  constexpr int kChunks = L::kRow / kCopy;       // copies of a payload row
   constexpr int kRowStep = kGThreads / kChunks;  // rows between a thread's copies
-  static_assert(D == 64 || D == 128, "head dims 64 and 128");
+  constexpr bool kTok8 = L::kRow == 32;          // 8-bit rows at D32: each 8-token half taken as tok8
+  static_assert(D == 32 || D == 64 || D == 128 || D == 256, "head dims 32 (d 8-32), 64, 128 and 256");
   static_assert(sizeof(KV) == 1 || std::is_same<KV, float>::value, "an fp32 payload, or int8 / fp8");
-  static_assert(kRowStep % 8 == 0 && kTok % kRowStep == 0, "tiling");
+  static_assert(kTok % kRowStep == 0, "tiling");
 
   extern __shared__ __align__(128) unsigned char smem[];
   const int C = (int)cluster_size();
@@ -149,28 +176,30 @@ __global__ void __launch_bounds__(kGThreads, 1) group_fp32_kernel(const GroupPar
   const int G = min(p.pass_rows, p.group - g0);  // q rows of this block, at most 16 kRW (the host keeps to it)
   const int rt = warp / kCS;                     // this warp's row tile,
   const int tg = (warp % kCS) / kSplit;          // its token group
-  const int half = warp % kSplit;                // and its 64 head-dim columns
-  const int col0 = half * kFCols;
+  const int part_of = warp % kSplit;             // and its kCols head-dim columns
+  const int col0 = part_of * kCols;
   const bool rows_live = rt * 16 < G;
+  const int d = D == 32 ? p.head_dim : D;        // the columns past d (D32) are zero in q, K and V
   const int len = p.lengths[b];
 
   // q's A fragments of the warp's row tile and columns, split once; rows past
-  // the group zero.  The head dim is taken in a permuted order: k-steps 2j
-  // and 2j + 1 cover columns col0 + 16 j ... + 15, k index t of step 2j + i
-  // being column 16 j + 4 t + 2 i and k index t + 4 column 16 j + 4 t + 2 i +
-  // 1 (a sum over the columns does not depend on their order); K's B
-  // fragments below follow the same order, so a lane reads 4 consecutive
-  // columns of a row.
-  uint32_t qh[8][4], ql[8][4];
+  // the group and columns past d zero.  The head dim is taken in a permuted
+  // order: k-steps 2j and 2j + 1 cover columns col0 + 16 j ... + 15, k index
+  // t of step 2j + i being column 16 j + 4 t + 2 i and k index t + 4 column
+  // 16 j + 4 t + 2 i + 1 (a sum over the columns does not depend on their
+  // order); K's B fragments below follow the same order, so a lane reads 4
+  // consecutive columns of a row.
+  uint32_t qh[2 * kJ][4], ql[2 * kJ][4];
   {
     const float* gq = static_cast<const float*>(p.q) + b * p.q_sb + ((long long)hk * p.group + g0) * p.q_sh;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = rt * 16 + qg + 8 * r;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kJ; ++j) {
         float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row < G) x = *reinterpret_cast<const float4*>(gq + row * p.q_sh + col0 + 16 * j + 4 * qt);
+        if (row < G && col0 + 16 * j + 4 * qt < d)
+          x = *reinterpret_cast<const float4*>(gq + row * p.q_sh + col0 + 16 * j + 4 * qt);
         split_tf32(x.x * p.q_scale, qh[2 * j][r], ql[2 * j][r]);
         split_tf32(x.y * p.q_scale, qh[2 * j][2 + r], ql[2 * j][2 + r]);
         split_tf32(x.z * p.q_scale, qh[2 * j + 1][r], ql[2 * j + 1][r]);
@@ -218,43 +247,52 @@ __global__ void __launch_bounds__(kGThreads, 1) group_fp32_kernel(const GroupPar
   // With pages of a multiple of kTok tokens (or no pages) a stage lies in
   // one page, found once a stage.
   const bool one_page = !kPaged || p.page_size % kTok == 0;
-  // A thread copies the 16-byte chunk cc of rows r0, r0 + kRowStep, ...:
-  // (row & 7) is r0's, so the chunk's swizzled place is fixed.
+  // A thread copies the kCopy-byte piece cc of rows r0, r0 + kRowStep, ...:
+  // with kRowStep a multiple of 8, (row & 7) is r0's, so the piece's
+  // swizzled place is fixed (an fp32 row at D256 takes 64 threads: there it
+  // is found for each row).  A piece past the row's d columns (D32) is
+  // zero-filled without a read.
   const int cc = tid % kChunks, r0 = tid / kChunks;
-  const int dst0 = r0 * L::kRow + (cc ^ group32_swizzle<L::kRow>(r0)) * 16;
+  const int at = cc * kCopy;  // the piece's byte in the row
+  const bool col_ok = D != 32 || at < d * (int)sizeof(KV);
+  auto dst_of = [&](int i) {  // the ring offset of the piece in row r0 + i kRowStep of a stage
+    const int r = r0 + i * kRowStep;
+    const int row0 = kRowStep % 8 == 0 ? r0 : r;
+    return r * L::kRow + ((at / 16) ^ group32_swizzle<L::kRow>(row0)) * 16 + at % 16;
+  };
 
   // Stage j into ring slot `slot`: rows past the stage's live end are
   // zero-filled without a read.
   auto issue = [&](int j, int slot) {
     int t0, tend, walk, c0;
     stage_range(j, t0, tend, walk, c0);
-    unsigned char* dk = ring + slot * L::kStage + dst0;
-    unsigned char* dv = ring + (S + slot) * L::kStage + dst0;
+    unsigned char* dk = ring + slot * L::kStage;
+    unsigned char* dv = ring + (S + slot) * L::kStage;
     if (one_page) {
       const int page = kPaged ? sTable[walk * ppc + (t0 - c0) / p.page_size] : b;
       const int row = (kPaged ? t0 % p.page_size : t0) + r0;
-      const unsigned char* sk = gk + (page * p.k_sp + row * p.k_sr) * (long long)sizeof(KV) + cc * 16;
-      const unsigned char* sv = gv + (page * p.v_sp + row * p.v_sr) * (long long)sizeof(KV) + cc * 16;
+      const unsigned char* sk = gk + (page * p.k_sp + row * p.k_sr) * (long long)sizeof(KV) + at;
+      const unsigned char* sv = gv + (page * p.v_sp + row * p.v_sr) * (long long)sizeof(KV) + at;
       const long long kstep = kRowStep * p.k_sr * (long long)sizeof(KV), vstep = kRowStep * p.v_sr * (long long)sizeof(KV);
 #pragma unroll
       for (int i = 0; i < kTok / kRowStep; ++i) {
-        const bool ok = t0 + r0 + i * kRowStep < tend;
-        cp_async<16>(dk + i * kRowStep * L::kRow, ok ? sk + i * kstep : gk, ok ? 16 : 0);
-        cp_async<16>(dv + i * kRowStep * L::kRow, ok ? sv + i * vstep : gv, ok ? 16 : 0);
+        const bool ok = col_ok && t0 + r0 + i * kRowStep < tend;
+        cp_async<kCopy>(dk + dst_of(i), ok ? sk + i * kstep : gk, ok ? kCopy : 0);
+        cp_async<kCopy>(dv + dst_of(i), ok ? sv + i * vstep : gv, ok ? kCopy : 0);
       }
     } else {
 #pragma unroll
       for (int i = 0; i < kTok / kRowStep; ++i) {
         const int t = t0 + r0 + i * kRowStep;
-        const bool ok = t < tend;
+        const bool ok = col_ok && t < tend;
         long long ko = 0, vo = 0;
         if (ok) {
           const int page = sTable[walk * ppc + (t - c0) / p.page_size], row = t % p.page_size;
-          ko = (page * p.k_sp + row * p.k_sr) * (long long)sizeof(KV) + cc * 16;
-          vo = (page * p.v_sp + row * p.v_sr) * (long long)sizeof(KV) + cc * 16;
+          ko = (page * p.k_sp + row * p.k_sr) * (long long)sizeof(KV) + at;
+          vo = (page * p.v_sp + row * p.v_sr) * (long long)sizeof(KV) + at;
         }
-        cp_async<16>(dk + i * kRowStep * L::kRow, gk + ko, ok ? 16 : 0);
-        cp_async<16>(dv + i * kRowStep * L::kRow, gv + vo, ok ? 16 : 0);
+        cp_async<kCopy>(dk + dst_of(i), gk + ko, ok ? kCopy : 0);
+        cp_async<kCopy>(dv + dst_of(i), gv + vo, ok ? kCopy : 0);
       }
     }
     if constexpr (kQuant) {  // i: token i % kTok's K (i < kTok) or V scale
@@ -279,18 +317,18 @@ __global__ void __launch_bounds__(kGThreads, 1) group_fp32_kernel(const GroupPar
   }
 
   // The warp's state for its row tile's rows qg and qg + 8, over its token
-  // group's sub-tiles: O [8 n-tiles][4] for its 64 columns (n-tile 4 h + e
-  // holds, at n index i, column col0 + 32 h + 4 i + e: P V's output columns
-  // permuted so that a lane reads 4 consecutive columns of V), the running
-  // maxima and the lane's share of the row sums.
-  float o[8][4];
+  // group's sub-tiles: O [4 kH n-tiles][4] for its kCols columns (n-tile 4 h
+  // + e holds, at n index i, column col0 + 32 h + 4 i + e: P V's output
+  // columns permuted so that a lane reads 4 consecutive columns of V), the
+  // running maxima and the lane's share of the row sums.
+  float o[4 * kH][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int nt = 0; nt < 4 * kH; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
   float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_run[2] = {0.f, 0.f};
   float* exch = reinterpret_cast<float*>(smem + L::kExch);
-  int par = 0;  // which of the pair's two partial-S buffers this sub-tile uses
+  int par = 0;  // which of the split group's two partial-S buffers this sub-tile uses
 
   for (int j = 0; j < nstages; ++j) {
     const int slot = j % S;
@@ -309,21 +347,21 @@ __global__ void __launch_bounds__(kGThreads, 1) group_fp32_kernel(const GroupPar
 
     for (int u = tg; u < L::kSub; u += kTG) {
       const int tok0 = u * 16;
-      if (!rows_live || t0 + tok0 >= tend) break;  // (both warps of a pair alike)
+      if (!rows_live || t0 + tok0 >= tend) break;  // (every warp of a split group alike)
 
-      // S of the sub-tile's 16 tokens (two n-tiles: token tok0 + 8 nt + qg is
-      // n index qg) over the warp's columns: hi hi in s, the cross passes in
-      // c, added at the end (tf32x3.cuh's `scores` says why).
+      // S of the sub-tile's 16 tokens (two n-tiles: token tok0 + 8 nt +
+      // tok_of(qg) is n index qg) over the warp's columns: hi hi in s, the
+      // cross passes in c, added at the end (tf32x3.cuh's `scores` says why).
       float s[2][4], c[2][4];
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nt][e] = c[nt][e] = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < kJ; ++jj) {
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt) {
-          const int r = tok0 + 8 * nt + qg;
+          const int r = tok0 + 8 * nt + tok_of<kTok8>(qg);
           if constexpr (kQuant) {
             const uint32_t w = *reinterpret_cast<const uint32_t*>(
                 sK + r * L::kRow + (((col0 / 16 + jj) ^ group32_swizzle<L::kRow>(r)) * 16) + 4 * qt);
@@ -356,30 +394,49 @@ __global__ void __launch_bounds__(kGThreads, 1) group_fp32_kernel(const GroupPar
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nt][e] += c[nt][e];
       if constexpr (kSplit > 1) {
-        // The pair's partial S: each half's in its buffer, then the sum in
-        // one order (columns 0-63 first) in both warps.
+        // The split group's partial S: each warp's in its buffer, then the
+        // sum in one order (columns 0-63 first, then 64-127, ...) in every
+        // warp of the group, its own part from its registers.
         float4* mine = reinterpret_cast<float4*>(exch + ((warp * 2 + par) * 32 + lane) * 8);
         mine[0] = make_float4(s[0][0], s[0][1], s[0][2], s[0][3]);
         mine[1] = make_float4(s[1][0], s[1][1], s[1][2], s[1][3]);
-        sm90::named_bar_sync(1 + warp / 2, 64);
-        const float4* theirs = reinterpret_cast<const float4*>(exch + (((warp ^ 1) * 2 + par) * 32 + lane) * 8);
-        const float4 t0v = theirs[0], t1v = theirs[1];
-        const float other[2][4] = {{t0v.x, t0v.y, t0v.z, t0v.w}, {t1v.x, t1v.y, t1v.z, t1v.w}};
+        sm90::named_bar_sync(1 + warp / kSplit, 32 * kSplit);
+        float sum[2][4];
+#pragma unroll
+        for (int w = 0; w < kSplit; ++w) {
+          float x[2][4];
+          if (w == part_of) {
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) x[nt][e] = s[nt][e];
+          } else {
+            const float4* theirs =
+                reinterpret_cast<const float4*>(exch + (((warp - part_of + w) * 2 + par) * 32 + lane) * 8);
+            const float4 t0v = theirs[0], t1v = theirs[1];
+            x[0][0] = t0v.x, x[0][1] = t0v.y, x[0][2] = t0v.z, x[0][3] = t0v.w;
+            x[1][0] = t1v.x, x[1][1] = t1v.y, x[1][2] = t1v.z, x[1][3] = t1v.w;
+          }
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sum[nt][e] = w == 0 ? x[nt][e] : sum[nt][e] + x[nt][e];
+        }
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[nt][e] = half == 0 ? s[nt][e] + other[nt][e] : other[nt][e] + s[nt][e];
+          for (int e = 0; e < 4; ++e) s[nt][e] = sum[nt][e];
         par ^= 1;
       }
 
       // One online-softmax step of the token group: s[nt][e] is row qg + 8
-      // (e / 2), token tok0 + 8 nt + 2 qt + e % 2.
+      // (e / 2), token tok0 + 8 nt + tok_of(2 qt + e % 2).
       float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int tok = tok0 + 8 * nt + 2 * qt + e % 2;
+          const int tok = tok0 + 8 * nt + tok_of<kTok8>(2 * qt + e % 2);
           float x = s[nt][e] * p.score_scale;
           if constexpr (kQuant) x *= sKs[tok];
           s[nt][e] = t0 + tok < tend ? x : -CUDART_INF_F;
@@ -399,7 +456,7 @@ __global__ void __launch_bounds__(kGThreads, 1) group_fp32_kernel(const GroupPar
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int tok = tok0 + 8 * nt + 2 * qt + e % 2;
+          const int tok = tok0 + 8 * nt + tok_of<kTok8>(2 * qt + e % 2);
           const float pe = t0 + tok < tend ? expf(s[nt][e] - m_run[e / 2]) : 0.f;
           l_run[e / 2] += pe;
           s[nt][e] = kQuant ? pe * sKs[kTok + tok] : pe;  // P * v_scale, in fp32
@@ -408,28 +465,29 @@ __global__ void __launch_bounds__(kGThreads, 1) group_fp32_kernel(const GroupPar
       // O = O alpha + P V for the warp's columns, the sub-tile's product
       // summed from zero first (the tensor cores truncate what they add; a
       // sub-tile's part loses that only on its own magnitude).  P's A
-      // fragments from S's accumulators (frag_acc: depth t is token 2t of
-      // the n-tile, t + 4 token 2t + 1), V's B fragments from rows tok0 + 8
-      // kk + 2 qt and + 1, a lane's 4 consecutive columns col0 + 32 h + 4 qg
-      // ... + 3 serving n-tiles 4 h ... 4 h + 3.
-      float part[8][4];
+      // fragments from S's accumulators (frag_acc: depth t is n index 2t of
+      // the n-tile, t + 4 n index 2t + 1), V's B fragments from the rows of
+      // those tokens, tok0 + 8 kk + tok_of(2 qt) and tok_of(2 qt + 1), a
+      // lane's 4 consecutive columns col0 + 32 h + 4 qg ... + 3 serving
+      // n-tiles 4 h ... 4 h + 3.
+      float part[4 * kH][4];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < 4 * kH; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[nt][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {
         uint32_t ph[4], pl[4];
         frag_acc<false>(ph, pl, s[kk]);
-        const int vr = tok0 + 8 * kk + 2 * qt;
+        const int vr0 = tok0 + 8 * kk + tok_of<kTok8>(2 * qt), vr1 = tok0 + 8 * kk + tok_of<kTok8>(2 * qt + 1);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
+        for (int h = 0; h < kH; ++h) {
           if constexpr (kQuant) {
-            const int ch = (col0 + 32 * h) / 16 + qg / 4, at = 4 * (qg % 4);  // the lane's chunk, its bytes in it
+            const int ch = (col0 + 32 * h) / 16 + qg / 4, at4 = 4 * (qg % 4);  // the lane's chunk, its bytes in it
             const uint32_t w0 = *reinterpret_cast<const uint32_t*>(
-                sV + vr * L::kRow + ((ch ^ group32_swizzle<L::kRow>(vr)) * 16) + at);
+                sV + vr0 * L::kRow + ((ch ^ group32_swizzle<L::kRow>(vr0)) * 16) + at4);
             const uint32_t w1 = *reinterpret_cast<const uint32_t*>(
-                sV + (vr + 1) * L::kRow + ((ch ^ group32_swizzle<L::kRow>(vr + 1)) * 16) + at);
+                sV + vr1 * L::kRow + ((ch ^ group32_swizzle<L::kRow>(vr1)) * 16) + at4);
             uint32_t x0[4], x1[4];
             payload4<KV>(w0, x0);
             payload4<KV>(w1, x1);
@@ -445,9 +503,9 @@ __global__ void __launch_bounds__(kGThreads, 1) group_fp32_kernel(const GroupPar
             }
           } else {
             const float4 v0 = *reinterpret_cast<const float4*>(
-                sV + vr * L::kRow + (((col0 / 4 + 8 * h + qg) ^ group32_swizzle<L::kRow>(vr)) * 16));
+                sV + vr0 * L::kRow + (((col0 / 4 + 8 * h + qg) ^ group32_swizzle<L::kRow>(vr0)) * 16));
             const float4 v1 = *reinterpret_cast<const float4*>(
-                sV + (vr + 1) * L::kRow + (((col0 / 4 + 8 * h + qg) ^ group32_swizzle<L::kRow>(vr + 1)) * 16));
+                sV + vr1 * L::kRow + (((col0 / 4 + 8 * h + qg) ^ group32_swizzle<L::kRow>(vr1)) * 16));
             const float a0[4] = {v0.x, v0.y, v0.z, v0.w}, a1[4] = {v1.x, v1.y, v1.z, v1.w};
             uint32_t bh[4][2], bl[4][2];
 #pragma unroll
@@ -465,7 +523,7 @@ __global__ void __launch_bounds__(kGThreads, 1) group_fp32_kernel(const GroupPar
         }
       }
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < 4 * kH; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[nt][e] = fmaf(o[nt][e], alpha[e / 2], part[nt][e]);
     }
@@ -491,14 +549,14 @@ __global__ void __launch_bounds__(kGThreads, 1) group_fp32_kernel(const GroupPar
     for (int r = 0; r < 2; ++r) {
       const int row = rt * 16 + qg + 8 * r;
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < kH; ++h)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int e = 2 * r + i;  // n index 2 qt + i of row qg + 8 r
           *reinterpret_cast<float4*>(gacc + row * D + col0 + 32 * h + 4 * (2 * qt + i)) =
               make_float4(o[4 * h][e], o[4 * h + 1][e], o[4 * h + 2][e], o[4 * h + 3][e]);
         }
-      if (half == 0 && qt == 0) {
+      if (part_of == 0 && qt == 0) {
         gm[row] = m_run[r];
         gl[row] = l_run[r];
       }
@@ -508,9 +566,9 @@ __global__ void __launch_bounds__(kGThreads, 1) group_fp32_kernel(const GroupPar
   L::Merge::template merge_groups<kGThreads>(smem, G, tid);
 
   // Every block's state is in: merge them over the cluster and write the
-  // output.
+  // output's d columns.
   cluster_merge<float, kGThreads, D>(state, state_m, state_l, reinterpret_cast<float*>(smem + L::Merge::kWeights),
-                                     reinterpret_cast<float*>(smem + L::Merge::kSums), G, D, C, rank, tid,
+                                     reinterpret_cast<float*>(smem + L::Merge::kSums), G, d, C, rank, tid,
                                      static_cast<float*>(p.o) + b * p.o_sb + ((long long)hk * p.group + g0) * p.o_sh,
                                      p.o_sh);
 }
@@ -521,19 +579,27 @@ cudaError_t group32_launch_one(const GroupParams& p, int cluster, dim3 grid, cud
                         GroupLayout32<KV, D, kRW>::kBytes>(p, cluster, grid, s, resident);
 }
 
+constexpr int kGMaxRows32D128 = 64;  // q heads of a pass for fp32 q at D128 (4 row tiles, a warp pair each)
+constexpr int kGMaxRows32D256 = 32;  // and at D256 (2 row tiles, a group of four warps each)
+
 // The row tiles (kRW) of a pass of `rows` q heads: its m16 row tiles rounded
-// up to a power of two; at D128 at most 4 (a row tile's two warps per token
-// group), so the host's passes hold at most 64 q heads there.
+// up to a power of two; a row tile takes whole split groups (kSplit warps),
+// so at most 4 at D128 and 2 at D256, where the host's passes hold at most
+// kGMaxRows32D128 and kGMaxRows32D256 q heads.
 template <typename KV, int D, bool kPaged>
 cudaError_t group32_launch_rows(const GroupParams& p, int cluster, dim3 grid, cudaStream_t s, int* resident) {
   const int tiles = p.pass_rows / 16;
   if (tiles <= 1) return group32_launch_one<KV, D, 1, kPaged>(p, cluster, grid, s, resident);
   if (tiles <= 2) return group32_launch_one<KV, D, 2, kPaged>(p, cluster, grid, s, resident);
-  if (tiles <= 4) return group32_launch_one<KV, D, 4, kPaged>(p, cluster, grid, s, resident);
-  if constexpr (D == 64) {
-    return group32_launch_one<KV, D, 8, kPaged>(p, cluster, grid, s, resident);
-  } else {
+  if constexpr (D == 256) {
     return cudaErrorInvalidValue;
+  } else {
+    if (tiles <= 4) return group32_launch_one<KV, D, 4, kPaged>(p, cluster, grid, s, resident);
+    if constexpr (D != 128) {
+      return group32_launch_one<KV, D, 8, kPaged>(p, cluster, grid, s, resident);
+    } else {
+      return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -559,11 +625,11 @@ cudaError_t group32_launch_width(const GroupParams& p, int kv_dtype, bool paged,
   return cudaErrorInvalidValue;
 }
 
-constexpr int kGMaxRows32D128 = 64;  // q heads of a pass for fp32 q at D128 (4 row tiles)
-
 #define FA_GROUP32_ROWS(X, D, P) X(float, D, P) X(int8_t, D, P) X(__nv_fp8_e4m3, D, P)
-#define FA_GROUP32_ALL(X) \
-  FA_GROUP32_ROWS(X, 64, true) FA_GROUP32_ROWS(X, 64, false) FA_GROUP32_ROWS(X, 128, true) FA_GROUP32_ROWS(X, 128, false)
+#define FA_GROUP32_ALL(X)                                                                                \
+  FA_GROUP32_ROWS(X, 32, true) FA_GROUP32_ROWS(X, 32, false) FA_GROUP32_ROWS(X, 64, true)                \
+  FA_GROUP32_ROWS(X, 64, false) FA_GROUP32_ROWS(X, 128, true) FA_GROUP32_ROWS(X, 128, false)             \
+  FA_GROUP32_ROWS(X, 256, true) FA_GROUP32_ROWS(X, 256, false)
 
 }  // namespace decode
 }  // namespace fa

@@ -39,7 +39,7 @@ whole-group kernels (`fa_paged_decode_group`, `fa_fused_decode_group`):
 with bf16 or fp16 q at head dims 8-256 those of `csrc/decode_group.cuh`
 (launch keys "paged_decode_group" / "fused_decode_group", S and P V on
 `mma.sync`; 8-32 run at 32, where the warps split P V by tokens), with fp32
-q at 64 and 128 those of `csrc/decode_group_fp32.cuh` (keys
+q at the same head dims those of `csrc/decode_group_fp32.cuh` (keys
 "paged_decode_group_fp32" / "fused_decode_group_fp32", 3xTF32 on
 `mma.sync`, two passes over an int8 / fp8 payload): the whole group in one
 block and a (sequence, KV head)'s blocks merged in a thread-block cluster,
@@ -102,16 +102,16 @@ CLUSTER_SIZES = {"group": (1, 2, 4, 8), "wide": tuple(range(1, CLUSTER_MAX + 1))
 # the whole-group kernels' plan: tokens of a ring stage at most
 # (GroupLayout::kTok, GroupLayout32::kTok; `group_tokens`), bytes of a
 # stage's K tile at most, q heads of a pass (kGMaxRows, 8 row tiles of 16;
-# for fp32 q at D128 kGMaxRows32D128, 4 row tiles, each two warps a token;
-# for bf16 / fp16 q at D256 kGMaxRowsD256, 2 row tiles), head dims by q's
-# dtype
+# for fp32 q at D128 kGMaxRows32D128, 4 row tiles, each two warps a token,
+# and at D256 kGMaxRows32D256, 2 row tiles, each four warps a token; for
+# bf16 / fp16 q at D256 kGMaxRowsD256, 2 row tiles), head dims by q's dtype
 GROUP_TOKENS = 128
 GROUP_STAGE_BYTES = 32768
 GROUP_MAX_ROWS = 128
 GROUP_MAX_ROWS_FP32_D128 = 64
+GROUP_MAX_ROWS_FP32_D256 = 32
 GROUP_MAX_ROWS_D256 = 32
-GROUP_HEAD_DIMS = {torch.float32: (64, 128), torch.bfloat16: (8, 16, 32, 64, 128, 256),
-                   torch.float16: (8, 16, 32, 64, 128, 256)}
+GROUP_HEAD_DIMS = {dtype: (8, 16, 32, 64, 128, 256) for dtype in (torch.float32, torch.bfloat16, torch.float16)}
 # csrc/decode_wide.cuh's plan: bytes of a K (or V) ring slot at most
 # (kWSlotBytes; a stage is at most 32 tokens of padded rows), q heads of a
 # pass (kWMaxRows)
@@ -315,38 +315,36 @@ def decode_split(capacity: int, pairs: int, unit: int, sms: int) -> tuple[int, i
 
 def uses_group_kernel(q_dtype: torch.dtype, head_dim: int, group: int) -> bool:
     """Whether a decode call runs the whole-group kernels: a GQA group above
-    MAX_ROWS (8) q heads with bf16 or fp16 q at head dim 8, 16, 32 (run at
-    32), 64, 128 or 256 (`csrc/decode_group.cuh`), or with fp32 q at 64 or
-    128 (`csrc/decode_group_fp32.cuh`); GROUP_HEAD_DIMS.  Head dims above
-    256 run the wide kernels (`uses_wide_kernel`); every other
-    configuration (groups of up to 8, fp32 q at head dims 8-32 and 256) the
-    group tiles of `csrc/decode.cuh`."""
+    MAX_ROWS (8) q heads at head dim 8, 16, 32 (run at 32), 64, 128 or 256
+    (GROUP_HEAD_DIMS), with bf16 or fp16 q (`csrc/decode_group.cuh`) or fp32
+    q (`csrc/decode_group_fp32.cuh`).  Head dims above 256 run the wide
+    kernels (`uses_wide_kernel`), groups of up to 8 the group tiles of
+    `csrc/decode.cuh`."""
     return group > MAX_ROWS and head_dim in GROUP_HEAD_DIMS.get(q_dtype, ())
 
 
 def group_max_rows(q_dtype: torch.dtype, head_dim: int) -> int:
     """The q heads a pass of the whole-group kernels holds at most:
-    GROUP_MAX_ROWS (128); GROUP_MAX_ROWS_FP32_D128 (64) for fp32 q at head
-    dim 128, where a row tile's head dim is split over two warps; and
+    GROUP_MAX_ROWS (128); for fp32 q GROUP_MAX_ROWS_FP32_D128 (64) at head
+    dim 128 and GROUP_MAX_ROWS_FP32_D256 (32) at 256, where a row tile's
+    head dim is split over two or four of the block's 8 warps; and
     GROUP_MAX_ROWS_D256 (32) for bf16 / fp16 q at 256, where a warp holds
     q's A fragments for all 256 columns (64 registers) beside its column
     slice's accumulators (with 4 row tiles, a slice of 128 columns, they
     spill)."""
-    if head_dim == 128 and q_dtype == torch.float32:
-        return GROUP_MAX_ROWS_FP32_D128
-    if head_dim == 256 and q_dtype != torch.float32:
-        return GROUP_MAX_ROWS_D256
-    return GROUP_MAX_ROWS
+    if q_dtype == torch.float32 and head_dim in (128, 256):
+        return GROUP_MAX_ROWS_FP32_D128 if head_dim == 128 else GROUP_MAX_ROWS_FP32_D256
+    return GROUP_MAX_ROWS_D256 if head_dim == 256 else GROUP_MAX_ROWS
 
 
 def group_passes(group: int, max_rows: int = GROUP_MAX_ROWS) -> tuple[int, int]:
     """(passes, rows): the whole-group kernels hold at most `max_rows`
-    (`group_max_rows`: 128; 64 for fp32 q at D128, 32 for 16-bit q at
-    D256) q heads a block, in
-    m16 row tiles; a larger group runs in `passes` passes of `rows` q heads
-    (a multiple of 16, as even as they go; the last may hold fewer), a
-    cluster each.  At 128 every real group is one pass: 16 -> (1, 16), 71 ->
-    (1, 80), 128 -> (1, 128), 200 -> (2, 112); at 64, 71 -> (2, 48)."""
+    (`group_max_rows`: 128; 64 for fp32 q at D128, 32 at D256) q heads a
+    block, in m16 row tiles; a larger group runs in `passes` passes of
+    `rows` q heads (a multiple of 16, as even as they go; the last may hold
+    fewer), a cluster each.  At 128 every real group is one pass: 16 -> (1,
+    16), 71 -> (1, 80), 128 -> (1, 128), 200 -> (2, 112); at 64, 71 -> (2,
+    48); at 32, 48 -> (2, 32), 71 -> (3, 32)."""
     tiles = -(-group // 16)
     passes = -(-tiles // (max_rows // 16))
     return passes, 16 * -(-tiles // passes)
@@ -356,9 +354,10 @@ def group_tokens(head_dim: int, itemsize: int) -> int:
     """Tokens of a stage of the whole-group kernels (`GroupLayout::kTok`,
     `GroupLayout32::kTok`) for a payload of `itemsize` bytes: as many rows
     as fill GROUP_STAGE_BYTES (32 KB) of K, at most GROUP_TOKENS (128): 128
-    at head dims 8-128 for every 8- and 16-bit payload, for fp32 at D64 and
-    for an 8-bit payload at D256; 64 for fp32 at D128 and for a 16-bit
-    payload at D256.  A chunk of the split holds at least one stage."""
+    at head dims 8-128 for every 8- and 16-bit payload, for fp32 at head dims
+    8-64 and for an 8-bit payload at D256; 64 for fp32 at D128 and for a
+    16-bit payload at D256; 32 for fp32 at D256.  A chunk of the split holds
+    at least one stage."""
     return min(GROUP_TOKENS, GROUP_STAGE_BYTES // (head_dim * itemsize))
 
 

@@ -5,16 +5,13 @@ kernels' arithmetic in plain PyTorch (`paged_attention_split_ref`: K5's
 scoring, and K6's with `prescale_q=True`) against the JAX package's
 `paged_attention` in Pallas interpret mode and its `decode_attention_fused`
 (interpret mode up to d = 128, its own einsum fallback above); the
-whole-group kernels' plan (`paged_attention_group_ref`: GQA groups above 8
-at head dims 8-256 with bf16 / fp16 q, and at D64 / D128 with fp32 q over
-fp32, int8 and fp8 pages, at the stage `group_tokens` gives; the chunks and
-clusters that
-`decode_cluster_split` gives) against the same, and their routing and split;
-then the slice: a 2-layer multi-query GPT's chained decode steps through
-attn_impl="paged" and "fused" against the JAX package's, and their greedy
-tokens.  Inputs are numpy from a seed; fp8 payloads cross as uint8 views.
-fp16 is compared at the module level only: the JAX package's prefill
-computes fp16 in bf16."""
+whole-group kernels' routing, split and plan limits (their plans against
+the JAX package are in test_torch_decode_group_k5.py, _k6.py and
+_fp32.py); then the slice: a 2-layer multi-query GPT's chained decode steps
+through attn_impl="paged" and "fused" against the JAX package's, and their
+greedy tokens.  Inputs are numpy from a seed; fp8 payloads cross as uint8
+views.  fp16 is compared at the module level only: the JAX package's
+prefill computes fp16 in bf16."""
 
 import dataclasses
 import importlib
@@ -26,10 +23,10 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_decode_cases import PAYLOADS, TOL, jax_cache, make_pages
 from _torch_port import JAX_CFG, TORCH_CFG, from_jax, jax_tree, n, numpy_params, randn, t, torch_cache
 from flash_attention_tpu.inference import kv_cache as jkvc
 from flash_attention_tpu.inference import model_runner as jmr
-from flash_attention_tpu.quant import kv as jq
 from flash_attention_tpu_torch.inference import kv_cache as tkvc
 from flash_attention_tpu_torch.inference import model_runner as tmr
 from flash_attention_tpu_torch.kernels.flash_attention import KERNEL_LAUNCHES
@@ -45,49 +42,11 @@ tpa = importlib.import_module("flash_attention_tpu_torch.inference.paged_attenti
 # of 2 at the narrowest heads; Falcon-7B's 71 q heads on one KV head
 CASES = [(16, 1, 128), (16, 1, 32), (8, 1, 256), (24, 2, 512), (4, 2, 8), (4, 2, 16), (71, 1, 64)]
 CASE_IDS = [f"hq{hq}-hkv{hkv}-d{d}" for hq, hkv, d in CASES]
-# (q dtype, payload): fp32 q over fp32 pages, fp16 q over fp16, int8 and fp8
-PAYLOADS = {"fp32": (jnp.float32, None), "fp16": (jnp.float16, None), "fp16-int8": (jnp.float16, jnp.int8),
-            "fp16-fp8": (jnp.float16, jnp.float8_e4m3fn)}
-# fp32: the JAX package's quantized-page tolerance (tests/test_paged_attention.py);
-# fp16: the 16-bit tier (P and the output are rounded to fp16 at other points)
-TOL = {"fp32": (5e-5, 1e-4), "fp16": (2e-2, 0.0)}
 CHUNK = 32  # two pages of 16: the kernels' splits, most of them empty for short sequences
-
-
-# The whole-group kernels' configurations: q's dtype and the payload
-GROUP_PAYLOADS = {"bf16": (jnp.bfloat16, None), "fp16": (jnp.float16, None), "bf16-int8": (jnp.bfloat16, jnp.int8),
-                  "fp16-fp8": (jnp.float16, jnp.float8_e4m3fn)}
-# the fp32 whole-group kernel's (csrc/decode_group_fp32.cuh): fp32 q over
-# fp32, int8 and fp8 pages
-GROUP_FP32_PAYLOADS = {"fp32": (jnp.float32, None), "fp32-int8": (jnp.float32, jnp.int8),
-                       "fp32-fp8": (jnp.float32, jnp.float8_e4m3fn)}
-ALL_PAYLOADS = {**PAYLOADS, **GROUP_PAYLOADS, **GROUP_FP32_PAYLOADS}
-# (q heads, KV heads): groups 12 (one padded row tile), 16 (SantaCoder's
-# multi-query), 48 (StarCoder's, 3 row tiles), 71 (Falcon-7B's, 5 row tiles:
-# 8 warps) and 24 / 2 (a group of 12 on two KV heads)
-GROUP_CASES = [(12, 1), (16, 1), (48, 1), (71, 1), (24, 2)]
-GROUP_IDS = [f"hq{hq}-hkv{hkv}" for hq, hkv in GROUP_CASES]
 
 
 def _tol(payload: str) -> tuple[float, float]:
     return TOL["fp32" if payload == "fp32" else "fp16"]
-
-
-def _pages(hq, hkv, d, payload, batch=3, page_size=16, pps=4, seed=0):
-    """q and pages in the payload's dtypes (quantized with the JAX package's
-    quantize_tokens), a permuted page table over more pages than the
-    sequences use."""
-    qdt, quant = ALL_PAYLOADS[payload]
-    n_pages = batch * pps + 3
-    rng = np.random.default_rng(seed)
-    q = jnp.asarray(randn(seed, batch, hq, d), qdt)
-    kp, vp = (jnp.asarray(randn(seed + i, hkv, n_pages, page_size, d)) for i in (1, 2))
-    pi = rng.permutation(n_pages)[: batch * pps].reshape(batch, pps).astype(np.int32)
-    if quant is None:
-        return q, pi, (kp.astype(qdt), vp.astype(qdt), None, None)
-    kq, ks = jq.quantize_tokens(kp, quant)
-    vq, vs = jq.quantize_tokens(vp, quant)
-    return q, pi, (kq, vq, ks, vs)
 
 
 @pytest.mark.parametrize("payload", PAYLOADS)
@@ -95,7 +54,7 @@ def _pages(hq, hkv, d, payload, batch=3, page_size=16, pps=4, seed=0):
 def test_k5_split_arithmetic_matches_jax_paged_kernel(hq, hkv, d, payload):
     """K5's chunk-and-merge arithmetic against JAX's paged kernel (interpret
     mode) at lengths of one token, a split's edge and the whole capacity."""
-    q, pi, pages = _pages(hq, hkv, d, payload)
+    q, pi, pages = make_pages(hq, hkv, d, payload)
     lengths = np.array([1, CHUNK + 1, 64], np.int32)
     kw = dict(k_scales=pages[2], v_scales=pages[3])
     jout = jpa.paged_attention(q, pages[0], pages[1], jnp.asarray(lengths), jnp.asarray(pi),
@@ -112,21 +71,6 @@ def test_k5_split_arithmetic_matches_jax_paged_kernel(hq, hkv, d, payload):
     np.testing.assert_allclose(n(plain.float()), np.asarray(jout, np.float32), atol=atol, rtol=rtol)
 
 
-def _jax_cache(hkv, d, payload, lengths=(0, 31, 100), max_len=128, seed=20):
-    """A one-layer JAX cache in the payload's dtypes, filled by its own
-    prefill_write/decode_write: the current token of slot s at lengths[s]."""
-    qdt, quant = ALL_PAYLOADS[payload]
-    slots, fill = len(lengths), max(lengths) + 1
-    c = jkvc.init_cache(1, slots, hkv, max_len, d, dtype=qdt, quant_dtype=quant)
-    for s in range(slots):
-        c = jkvc.prefill_write(c, 0, jnp.int32(s), jnp.asarray(randn(seed + s, hkv, fill, d)),
-                               jnp.asarray(randn(seed + s + 5, hkv, fill, d)))
-    pos = jnp.asarray(lengths, jnp.int32)
-    k_new, v_new = (jnp.asarray(randn(seed + i, slots, hkv, d)) for i in (9, 8))
-    c = jkvc.decode_write(c, 0, k_new, v_new, pos)
-    return dataclasses.replace(c, lengths=pos)
-
-
 @pytest.mark.parametrize("payload", PAYLOADS)
 @pytest.mark.parametrize("hq,hkv,d", CASES, ids=CASE_IDS)
 def test_k6_split_arithmetic_matches_jax_fused(hq, hkv, d, payload):
@@ -138,7 +82,7 @@ def test_k6_split_arithmetic_matches_jax_fused(hq, hkv, d, payload):
     port does not, so there K6 is held against JAX's einsum
     `decode_attention`, the function both compute."""
     qdt, quant = PAYLOADS[payload]
-    jc = _jax_cache(hkv, d, payload)
+    jc = jax_cache(hkv, d, payload)
     q = jnp.asarray(randn(33, 3, hq, d), qdt)
     if quant == jnp.float8_e4m3fn:
         jout = jda.decode_attention(q, jc, 0)
@@ -178,175 +122,14 @@ def test_group_tiles_cover_every_group():
         assert tiles == -(-group // tpa.MAX_ROWS)
 
 
-# The whole-group plan over a capacity of 512 tokens in chunks of one stage
-# (`group_tokens`: 128 tokens, or 64 for a 16-bit payload at D256; pages of
-# 16), clusters of 2 (`decode_cluster_split` on a card that holds every
-# pair's cluster of 2 at once but not of 3), so that each block walks 2 (or
-# 4) chunks.  Lengths (current token included, `_plan_lengths`): 0 and 1, a
-# chunk's edges (127, 129 or 63, 65), a cluster's edge (each block one whole
-# chunk), a block's later chunk partly live (400), the whole capacity.
-GROUP_CAPACITY = 512
-# (q heads, KV heads, head dim) of the whole-group plan tests with bf16 /
-# fp16 q: every GROUP_CASES entry at D64 / D128; at 8, 16, 32 (run at 32) and
-# 256 a padded row tile (12), several row tiles (71: 5 at 128 q heads a
-# pass, 3 passes at D256) and two KV heads (24 / 2)
-GROUP_DIM_CASES = ([(hq, hkv, d) for d in (64, 128) for hq, hkv in GROUP_CASES]
-                   + [(hq, hkv, d) for d in (8, 16, 32, 256) for hq, hkv in ((12, 1), (71, 1), (24, 2))])
-GROUP_DIM_IDS = [f"hq{hq}-hkv{hkv}-{d}" for hq, hkv, d in GROUP_DIM_CASES]
-
-
-def _group_split(hq, hkv, d, payload, capacity, unit, paged):
-    """The whole-group plan's (cluster, chunk, walks) for bf16 / fp16 q at
-    a stage of `group_tokens`, and the lengths on its edges.  K6 (`unit`
-    None) takes the stage as its unit."""
-    tokens = tpa.group_tokens(d, 2 if GROUP_PAYLOADS[payload][1] is None else 1)
-    passes, _ = tpa.group_passes(hq // hkv, tpa.group_max_rows(torch.bfloat16, d))
-    lengths = _plan_lengths(tokens)
-    pairs = len(lengths) * hkv * passes
-    split = tpa.decode_cluster_split(capacity, pairs, unit or tokens, {1: 2 * pairs, 2: pairs, 3: pairs - 1}, paged,
-                                     tokens)
-    assert split == (2, tokens, capacity // (2 * tokens))  # 2 blocks a cluster, chunks of one stage
-    return split, lengths
-
-
-@pytest.mark.parametrize("payload", GROUP_PAYLOADS)
-@pytest.mark.parametrize("hq,hkv,d", GROUP_DIM_CASES, ids=GROUP_DIM_IDS)
-def test_k5_group_plan_matches_jax_paged_kernel(hq, hkv, d, payload):
-    """The whole-group K5's plan in plain PyTorch (`paged_attention_group_ref`:
-    chunks of one stage, 128 tokens (64 for a 16-bit payload at D256), 2
-    blocks a cluster each walking 2 (4) chunks, then the cluster's merge in
-    rank order) against JAX's paged kernel (interpret mode) over a permuted
-    page table, at the 16-bit tier (P and the output are rounded to q's
-    dtype at other points)."""
-    (cluster, chunk, _), lengths = _group_split(hq, hkv, d, payload, GROUP_CAPACITY, 16, True)
-    batch = len(lengths)
-    q, pi, pages = _pages(hq, hkv, d, payload, batch=batch, pps=GROUP_CAPACITY // 16, seed=d)
-    lengths = np.array(lengths, np.int32)
-    jout = jpa.paged_attention(q, pages[0], pages[1], jnp.asarray(lengths), jnp.asarray(pi),
-                               pages_per_compute_block=8, k_scales=pages[2], v_scales=pages[3])
-    kp, vp, ks, vs = (None if a is None else from_jax(a) for a in pages)
-    tq = from_jax(q)
-    assert tpa.uses_group_kernel(tq.dtype, d, hq // hkv)
-    before = dict(KERNEL_LAUNCHES)
-    got = tpa.paged_attention_group_ref(tq, kp, vp, t(lengths), t(pi), cluster=cluster, chunk=chunk, k_scales=ks,
-                                        v_scales=vs)
-    plain = tpa.paged_attention(tq, kp, vp, t(lengths), t(pi), k_scales=ks, v_scales=vs)
-    assert KERNEL_LAUNCHES == before  # CPU tensors take the plain versions
-    assert got.shape == tq.shape and got.dtype == tq.dtype
-    atol, rtol = TOL["fp16"]
-    np.testing.assert_allclose(n(got.float()), np.asarray(jout, np.float32), atol=atol, rtol=rtol)
-    np.testing.assert_allclose(n(got.float()), n(plain.float()), atol=atol, rtol=rtol)
-
-
-@pytest.mark.parametrize("payload", GROUP_PAYLOADS)
-@pytest.mark.parametrize("hq,hkv,d", GROUP_DIM_CASES, ids=GROUP_DIM_IDS)
-def test_k6_group_plan_matches_jax_fused(hq, hkv, d, payload):
-    """The whole-group K6's plan (q pre-scaled and rounded to its dtype,
-    lengths + 1, chunks of one stage over the slot-major cache's page view,
-    2 blocks a cluster) against JAX's `decode_attention_fused` (interpret
-    mode up to d = 128, its einsum fallback above), or on an fp8 cache,
-    whose P the JAX kernel rounds to fp8, against JAX's einsum
-    `decode_attention`, the function both compute; the 16-bit tier."""
-    qdt, quant = GROUP_PAYLOADS[payload]
-    (cluster, chunk, _), lengths = _group_split(hq, hkv, d, payload, GROUP_CAPACITY, None, False)
-    jc = _jax_cache(hkv, d, payload, lengths=tuple(max(x - 1, 0) for x in lengths), max_len=GROUP_CAPACITY)
-    q = jnp.asarray(randn(34, len(lengths), hq, d), qdt)
-    if quant == jnp.float8_e4m3fn:
-        jout = jda.decode_attention(q, jc, 0)
-    else:
-        jout = jda.decode_attention_fused(q, jc, 0, block=64)
-    tc = torch_cache(jc)
-    kp, vp, ks, vs = tkvc.page_view(tc, 0, tc.max_len)
-    pi = tkvc.identity_page_indices(tc.slots, tc.max_len, tc.max_len, device="cpu")
-    got = tpa.paged_attention_group_ref(from_jax(q), kp, vp, tc.lengths + 1, pi, cluster=cluster, chunk=chunk,
-                                        k_scales=ks, v_scales=vs, prescale_q=True)
-    atol, rtol = TOL["fp16"]
-    np.testing.assert_allclose(n(got.float()), np.asarray(jout, np.float32), atol=atol, rtol=rtol)
-
-
-def _fp32_split(hq, hkv, d, payload, capacity, unit, paged):
-    """The fp32 whole-group plan's (cluster, chunk, walks) at a stage of
-    `group_tokens` (64 tokens for fp32 pages at D128, 128 otherwise) on a card
-    that holds every pair's cluster of 2 at once but not of 3, and the
-    stage's tokens.  K6 (`unit` None) takes the stage as its unit."""
-    tokens = tpa.group_tokens(d, 4 if payload == "fp32" else 1)
-    passes, _ = tpa.group_passes(hq // hkv, tpa.group_max_rows(torch.float32, d))
-    pairs = len(_plan_lengths(tokens)) * hkv * passes
-    split = tpa.decode_cluster_split(capacity, pairs, unit or tokens, {1: 2 * pairs, 2: pairs, 3: pairs - 1}, paged,
-                                     tokens)
-    assert split[:2] == (2, tokens)  # 2 blocks a cluster, chunks of one stage
-    return split, tokens
-
-
-def _plan_lengths(chunk: int) -> tuple:
-    """Lengths (current token included) on a whole-group plan's edges: 0 and
-    1, a stage's (a chunk's) edges, a cluster's span (each block one whole
-    chunk), a block's later chunk partly live, the whole capacity."""
-    return (0, 1, chunk - 1, chunk + 1, 2 * chunk, 400, GROUP_CAPACITY)
-
-
-@pytest.mark.parametrize("payload", GROUP_FP32_PAYLOADS)
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("hq,hkv", GROUP_CASES, ids=GROUP_IDS)
-def test_k5_group_fp32_plan_matches_jax_paged_kernel(hq, hkv, d, payload):
-    """The fp32 whole-group K5's plan in plain PyTorch (chunks of one stage,
-    2 blocks a cluster, then the cluster's merge in rank order) against
-    JAX's paged kernel (interpret mode, fp32 q: P is not rounded) over a
-    permuted page table of pages of 16, at the fp32 tolerance."""
-    (cluster, chunk, _), tokens = _fp32_split(hq, hkv, d, payload, GROUP_CAPACITY, 16, True)
-    lengths = np.array(_plan_lengths(tokens), np.int32)
-    q, pi, pages = _pages(hq, hkv, d, payload, batch=len(lengths), pps=GROUP_CAPACITY // 16, seed=d + 1)
-    jout = jpa.paged_attention(q, pages[0], pages[1], jnp.asarray(lengths), jnp.asarray(pi),
-                               pages_per_compute_block=8, k_scales=pages[2], v_scales=pages[3])
-    kp, vp, ks, vs = (None if a is None else from_jax(a) for a in pages)
-    tq = from_jax(q)
-    assert tq.dtype == torch.float32 and tpa.uses_group_kernel(tq.dtype, d, hq // hkv)
-    before = dict(KERNEL_LAUNCHES)
-    got = tpa.paged_attention_group_ref(tq, kp, vp, t(lengths), t(pi), cluster=cluster, chunk=chunk, k_scales=ks,
-                                        v_scales=vs)
-    plain = tpa.paged_attention(tq, kp, vp, t(lengths), t(pi), k_scales=ks, v_scales=vs)
-    assert KERNEL_LAUNCHES == before  # CPU tensors take the plain versions
-    assert got.shape == tq.shape and got.dtype == tq.dtype
-    atol, rtol = TOL["fp32"]
-    np.testing.assert_allclose(n(got), np.asarray(jout, np.float32), atol=atol, rtol=rtol)
-    np.testing.assert_allclose(n(got), n(plain), atol=atol, rtol=rtol)
-
-
-@pytest.mark.parametrize("payload", GROUP_FP32_PAYLOADS)
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("hq,hkv", GROUP_CASES, ids=GROUP_IDS)
-def test_k6_group_fp32_plan_matches_jax_fused(hq, hkv, d, payload):
-    """The fp32 whole-group K6's plan (q multiplied by sm_scale in fp32,
-    lengths + 1, chunks of one stage over the slot-major cache's page view,
-    2 blocks a cluster) against JAX's `decode_attention_fused` (interpret
-    mode) over fp32 pages, and over int8 / fp8 pages, whose P the JAX
-    kernel rounds (to bf16 / fp8, pv_dtype), against JAX's einsum
-    `decode_attention`, the function both compute; the fp32 tolerance."""
-    (cluster, chunk, _), tokens = _fp32_split(hq, hkv, d, payload, GROUP_CAPACITY, None, False)
-    lengths = _plan_lengths(tokens)
-    jc = _jax_cache(hkv, d, payload, lengths=tuple(max(x - 1, 0) for x in lengths), max_len=GROUP_CAPACITY)
-    q = jnp.asarray(randn(35, len(lengths), hq, d), jnp.float32)
-    if GROUP_FP32_PAYLOADS[payload][1] is None:
-        jout = jda.decode_attention_fused(q, jc, 0, block=64)
-    else:
-        jout = jda.decode_attention(q, jc, 0)
-    tc = torch_cache(jc)
-    kp, vp, ks, vs = tkvc.page_view(tc, 0, tc.max_len)
-    pi = tkvc.identity_page_indices(tc.slots, tc.max_len, tc.max_len, device="cpu")
-    got = tpa.paged_attention_group_ref(from_jax(q), kp, vp, tc.lengths + 1, pi, cluster=cluster, chunk=chunk,
-                                        k_scales=ks, v_scales=vs, prescale_q=True)
-    atol, rtol = TOL["fp32"]
-    np.testing.assert_allclose(n(got), np.asarray(jout, np.float32), atol=atol, rtol=rtol)
-
-
 @pytest.mark.parametrize("d,itemsize,want", [(64, 4, 128), (128, 4, 64), (64, 2, 128), (128, 2, 128), (64, 1, 128),
                                              (128, 1, 128), (256, 2, 64), (256, 1, 128), (32, 2, 128), (32, 1, 128),
-                                             (8, 1, 128)])
+                                             (8, 1, 128), (256, 4, 32), (32, 4, 128), (16, 4, 128), (8, 4, 128)])
 def test_group_tokens(d, itemsize, want):
     """A stage's tokens: rows filling 32 KB of K, at most 128 (64 for fp32
-    pages at D128 and 16-bit pages at D256, whose rows are 512 bytes); the
-    kernels' layouts take the same (GroupLayout::kTok, GroupLayout32::kTok;
-    D32's at d = 8-32)."""
+    pages at D128 and 16-bit pages at D256, whose rows are 512 bytes; 32 for
+    fp32 pages at D256, 1 KB rows); the kernels' layouts take the same
+    (GroupLayout::kTok, GroupLayout32::kTok; D32's at d = 8-32)."""
     assert tpa.group_tokens(d, itemsize) == want
     assert want * d * itemsize <= tpa.GROUP_STAGE_BYTES and want <= tpa.GROUP_TOKENS
 
@@ -354,13 +137,16 @@ def test_group_tokens(d, itemsize, want):
 @pytest.mark.parametrize("q_dtype,d,want", [(torch.float32, 128, 64), (torch.float32, 64, 128),
                                             (torch.bfloat16, 128, 128), (torch.float16, 64, 128),
                                             (torch.bfloat16, 256, 32), (torch.float16, 256, 32),
-                                            (torch.bfloat16, 32, 128), (torch.float16, 8, 128)])
+                                            (torch.bfloat16, 32, 128), (torch.float16, 8, 128),
+                                            (torch.float32, 256, 32), (torch.float32, 32, 128),
+                                            (torch.float32, 16, 128), (torch.float32, 8, 128)])
 def test_group_max_rows(q_dtype, d, want):
     """A pass holds at most 128 q heads, 64 for fp32 q at D128 (a row tile's
-    head dim split over two warps, 4 row tiles a block) and 32 for bf16 /
-    fp16 q at D256 (2 row tiles: q's fragments for 256 columns beside a
-    column slice's accumulators); group 71 runs in two passes of 48 at 64,
-    in three of 32 at 32."""
+    head dim split over two warps, 4 row tiles a block), 32 for fp32 q at
+    D256 (over four warps, 2 row tiles) and for bf16 / fp16 q at D256 (2 row
+    tiles: q's fragments for 256 columns beside a column slice's
+    accumulators); group 71 runs in two passes of 48 at 64, in three of 32 at
+    32."""
     assert tpa.group_max_rows(q_dtype, d) == want
     assert tpa.group_passes(71, want) == {128: (1, 80), 64: (2, 48), 32: (3, 32)}[want]
 
@@ -377,18 +163,26 @@ def test_group_max_rows(q_dtype, d, want):
         (torch.float32, 128, 16, True),  # fp32 q: the 3xTF32 whole-group kernel
         (torch.float32, 64, 71, True),
         (torch.float32, 128, 8, False),  # fp32 q at a group of up to 8: the group tiles
-        (torch.float32, 32, 16, False),  # fp32 q at D8-32 and D256: the group tiles
+        (torch.float32, 32, 16, True),  # fp32 q at D8-32 and D256: the 3xTF32 whole-group kernel too
+        (torch.float32, 16, 24, True),
+        (torch.float32, 8, 71, True),
+        (torch.float32, 256, 10, True),  # RecurrentGemma-2B's layer
+        (torch.float32, 256, 48, True),
+        (torch.float32, 32, 8, False),  # at a group of up to 8 still the group tiles
+        (torch.float32, 8, 4, False),
+        (torch.float32, 256, 8, False),
+        (torch.float32, 512, 16, False),  # above 256 the wide kernels
         (torch.bfloat16, 32, 16, True),  # bf16 / fp16 q at D32 (d 8-32): the whole-group kernel at 32
         (torch.bfloat16, 16, 16, True),
         (torch.bfloat16, 256, 16, True),  # D256: the whole-group kernel; above it the wide kernels
-        (torch.float32, 256, 16, False),
+        (torch.float32, 256, 16, True),
         (torch.float16, 1024, 16, False),
     ],
 )
 def test_group_kernel_routing(q_dtype, d, group, want):
     """Which decode configurations run the whole-group kernels: a group
-    above 8 with bf16 / fp16 q at head dims 8-256 (decode_group.cuh) or
-    with fp32 q at 64 and 128 (decode_group_fp32.cuh), and nothing else."""
+    above 8 at head dims 8-256, with bf16 / fp16 q (decode_group.cuh) or
+    fp32 q (decode_group_fp32.cuh), and nothing else."""
     assert tpa.uses_group_kernel(q_dtype, d, group) is want
 
 
@@ -412,35 +206,34 @@ def _c_int(text: str, name: str) -> int:
 @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_group_plan_mirrors_the_kernels(q_dtype):
     """`uses_group_kernel`'s head dims and `group_max_rows`'s limits are
-    the C side's, which no CPU run can ask: for bf16 / fp16 q the head dims
+    the C side's, which no CPU run can ask: for every q dtype the head dims
     that decode.cuh's instantiated_width pads (decode.cu's group_head_dim),
-    each width among decode.cu's group_width cases and decode_group.cuh's
-    instantiations; for fp32 q decode.cu's group_head_dim clause and
-    decode_group_fp32.cuh's instantiations; the rows of a pass as
-    kGMaxRows, kGMaxRowsD256 and kGMaxRows32D128."""
+    each width among decode.cu's dispatch cases of q's dtype (group_width
+    for bf16 / fp16, group32_width for fp32) and the instantiations of its
+    header (decode_group.cuh, decode_group_fp32.cuh); the rows of a pass as
+    kGMaxRows, kGMaxRowsD256, kGMaxRows32D128 and kGMaxRows32D256."""
     decode_cuh = (CSRC / "decode.cuh").read_text()
     decode_cu = (CSRC / "decode.cu").read_text()
     group = (CSRC / "decode_group.cuh").read_text()
     group32 = (CSRC / "decode_group_fp32.cuh").read_text()
+    body = re.search(r"inline int instantiated_width\(int d\) \{(.*?)\n\}", decode_cuh, re.S).group(1)
+    width = {}
+    for cond, ret in re.findall(r"if \(([^)]*)\) return (\w+);", body):
+        for x in re.findall(r"d == (\d+)", cond):
+            width[int(x)] = int(x) if ret == "d" else int(ret)
+    assert set(tpa.GROUP_HEAD_DIMS[q_dtype]) == set(width)
+    assert "bool group_head_dim(int d) { return instantiated_width(d) != 0; }" in decode_cu
     if q_dtype == torch.float32:
-        clause = re.search(r"return q_dtype == 0 \? ([^:]*) :", decode_cu).group(1)
-        dims = {int(x) for x in re.findall(r"d == (\d+)", clause)}
+        cases = {int(x) for x in re.findall(r"case (\d+): return group32_launch_width<\1>", decode_cu)}
         built = {int(x) for x in re.findall(r"FA_GROUP32_ROWS\(X, (\d+), (?:true|false)\)", group32)}
-        assert set(tpa.GROUP_HEAD_DIMS[q_dtype]) == dims == built
     else:
-        body = re.search(r"inline int instantiated_width\(int d\) \{(.*?)\n\}", decode_cuh, re.S).group(1)
-        width = {}
-        for cond, ret in re.findall(r"if \(([^)]*)\) return (\w+);", body):
-            for x in re.findall(r"d == (\d+)", cond):
-                width[int(x)] = int(x) if ret == "d" else int(ret)
-        assert set(tpa.GROUP_HEAD_DIMS[q_dtype]) == set(width)
-        assert "instantiated_width(d) != 0" in decode_cu
         cases = {int(x) for x in re.findall(r"case (\d+): return group_launch_width<T, \1>", decode_cu)}
         built = {int(x) for x in re.findall(r"FA_GROUP_ROWS\(X, T, (\d+), (?:true|false)\)", group)}
-        assert set(width.values()) == cases == built
+    assert set(width.values()) == cases == built
     assert tpa.GROUP_MAX_ROWS == _c_int(group, "kGWarps") * 16
     assert tpa.GROUP_MAX_ROWS_D256 == _c_int(group, "kGMaxRowsD256")
     assert tpa.GROUP_MAX_ROWS_FP32_D128 == _c_int(group32, "kGMaxRows32D128")
+    assert tpa.GROUP_MAX_ROWS_FP32_D256 == _c_int(group32, "kGMaxRows32D256")
 
 
 MQA_JAX_CFG = dataclasses.replace(JAX_CFG, n_head=16, n_embd=256, n_kv_head=1)
