@@ -59,9 +59,9 @@ are 7-9):
               for fp32 q at D64 / D128, which also runs serving-mqa's shape
               and Falcon-40B's layer over fp32, int8 and fp8 caches at its
               splits' edges; each held also against the plain version of
-              its plan; fp32 q at groups above 8 at D8-32 and D256 on the
-              group tiles, RecurrentGemma-2B's layer at their splits'
-              edges), K5 permuted with NaN at D16, D128, D256 (also fp32
+              its plan; "_group_fp32" also at groups above 8 at D8-32 and
+              D256, RecurrentGemma-2B's layer at its splits' edges), K5
+              permuted with NaN at D16, D128, D256 (also fp32
               q over fp32 / int8 / fp8 pages at D128) and D512; above head
               dim 256 the wide kernels
               ("paged_decode_wide" / "fused_decode_wide", each held also
@@ -72,7 +72,15 @@ are 7-9):
               timed lengths and at the edges of K5's and K6's splits (0,
               chunk +- 1, cluster x chunk +- 1, capacity - 1), with K5 over
               permuted pages of 16 at 2048 tokens, at least one launch
-              each.  Limits
+              each; at head dims 8-32 for groups of up to 8 the narrow
+              kernels ("paged_decode_narrow" / "fused_decode_narrow", each
+              held also against the plain version of its plan,
+              `paged_attention_narrow_ref`) at groups 1, 2, 4 and 8 on
+              every payload for fp32, bf16 and fp16 q at the edges of
+              their 32-token tiles, chunks and clusters, at time_decode's
+              d32 and d32_gqa4 shapes, and K5 over permuted pages of 16
+              and 48 with NaN past the lengths, at least one launch each.
+              Limits
               by q's dtype (DECODE_TOL): bf16 atol
               2e-2 + rtol 1e-2, fp16 2e-3 + 2^-10, and against the
               exact fp32 versions min(2e-3, 2^-10 x a row's largest
@@ -456,6 +464,13 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                           "flash_attention_tpu/inference/paged_attention.py:34"),
     "fused_decode_wide": ("flash_attention_tpu_torch/csrc/decode_wide.cuh",
                           "flash_attention_tpu/inference/decode_attention.py:195"),
+    # K5 / K6 at head dims 8-32 for GQA groups of up to 8, every q dtype: the
+    # narrow cluster kernel (decode_narrow.cuh), instantiated by
+    # csrc/decode_narrow_*.cu
+    "paged_decode_narrow": ("flash_attention_tpu_torch/csrc/decode_narrow.cuh",
+                            "flash_attention_tpu/inference/paged_attention.py:34"),
+    "fused_decode_narrow": ("flash_attention_tpu_torch/csrc/decode_narrow.cuh",
+                            "flash_attention_tpu/inference/decode_attention.py:195"),
     # head dims 129-256, padded to 256, bf16/fp16: the wgmma K1, K4, K2 and
     # K3 (flash_fwd_d256.cu, flash_bwd_d256.cu) and flash_bwd.cu's pre-pass
     # instantiated at 256
@@ -583,10 +598,13 @@ def phase_build() -> None:
             regs = int(re.search(r"Used (\d+) registers", line).group(1))
             entries.append((kernel, regs, spills))
     decode, decode_spilled, group, group_spilled, wide_dec, wide_dec_spilled = [], [], [], [], [], []
-    group32, group_new = [], []
+    group32, group_new, narrow = [], [], []
     for name, (_, regs, spill) in zip(_demangle([e[0] for e in entries]), entries):
         spilled = not spill.startswith("0 bytes stack frame, 0 bytes spill stores")
-        if "decode::wide_kernel" in name or "6decode11wide_kernel" in name:
+        if "narrow_kernel" in name:
+            m = re.search(r"narrow_kernel<(.*)>", name)
+            narrow.append((m.group(1) if m else name, regs, spill, spilled))
+        elif "decode::wide_kernel" in name or "6decode11wide_kernel" in name:
             wide_dec.append(regs)
             if spilled:
                 m = re.search(r"wide_kernel<(.*)>", name)
@@ -670,9 +688,19 @@ def phase_build() -> None:
         + "; nvcc per source: "
         + (", ".join(f"{k} {v:.1f} s" for k, v in per.items() if k.startswith("decode_wide")) or "not run (built)")
         + "; spills (T, KV, D, rows, paged; spill stores): " + ("; ".join(wide_dec_spilled) or "none"))
-    if len(wide_dec) != 108 or len(decode) != 180:
-        raise AssertionError(f"[build] expected 108 instantiations of the wide decode kernel and 180 of the group-tile "
+    if len(wide_dec) != 108 or len(decode) != 144:
+        raise AssertionError(f"[build] expected 108 instantiations of the wide decode kernel and 144 of the group-tile "
                              f"one, found {len(wide_dec)} and {len(decode)}")
+    # the narrow decode kernel (decode_narrow.cuh, head dims 8-32 at groups of
+    # up to 8): q dtype x payload x q-row capacity 1, 2, 4, 8 x K5 / K6, each
+    # instantiation's registers and spills; none may spill
+    say("[build] ptxas narrow_kernel (narrow K5 / K6): " + f"{len(narrow)} instantiations; nvcc per source: "
+        + (", ".join(f"{k} {v:.1f} s" for k, v in per.items() if k.startswith("decode_narrow")) or "not run (built)"))
+    for n, regs, spill, _ in narrow:
+        say(f"[build]   narrow_kernel<{n}> (T, KV, rows, paged): {regs} registers; {spill}")
+    if len(narrow) != 72 or any(sp for *_, sp in narrow):
+        raise AssertionError(f"[build] expected 72 instantiations of the narrow decode kernel, none spilling; found "
+                             f"{len(narrow)}, {sum(sp for *_, sp in narrow)} spilling")
     # ptxas reports a kernel whose wgmma it serialises only as an info line
     serial = [line.strip() for line in _build.build_info["ptxas"].splitlines() if "C7518" in line]
     names = _demangle([m.group(1) for line in serial for m in [re.search(r"function '([^']+)'", line)] if m])
@@ -1301,9 +1329,12 @@ def _fp16_control(label: str, outs, exacts) -> bool:
 def _decode_keys(q_dtype, d: int, group: int) -> tuple[str, str]:
     """The launch keys of K5 and K6 for a configuration: the wide kernel's
     above head dim 256, the whole-group kernel's for a group above 8 at
-    D8-D256 (with fp32 q its keys of its own)."""
+    D8-D256 (with fp32 q its keys of its own), the narrow kernel's at D8-32
+    for groups of up to 8."""
     if PA.uses_wide_kernel(q_dtype, d, group):
         return "paged_decode_wide", "fused_decode_wide"
+    if PA.uses_narrow_kernel(q_dtype, d, group):
+        return "paged_decode_narrow", "fused_decode_narrow"
     if PA.uses_group_kernel(q_dtype, d, group):
         if q_dtype == torch.float32:
             return "paged_decode_group_fp32", "fused_decode_group_fp32"
@@ -1324,11 +1355,11 @@ def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths
                  controls=None) -> dict:
     """K5 (through decode_attention_paged) and K6 vs their plain versions on
     one cache at DECODE_TOL; returns {launch key: max error}.  Each must
-    launch its kernel once: the whole-group kernel for a group above 8 at
-    D8-D256 and the wide kernel above D256, each also
-    held against the plain version of its own plan
-    (`paged_attention_group_ref`: its chunks, its cluster, the merge's
-    order).  For fp16 q both are also held against their exact versions at
+    launch its kernel once: the narrow kernel at D8-32 for a group of up to
+    8, the whole-group kernel for a group above 8 at D8-D256 and the wide
+    kernel above D256, each also held against the plain version of its own
+    plan (`paged_attention_narrow_ref`, `paged_attention_group_ref`: its
+    chunks, its cluster, the merge's order).  For fp16 q both are also held against their exact versions at
     fp16's limit (FP16_ROW_ATOL), and whether that limit rejects the
     bf16-rounded control goes into `controls`."""
     cache = _filled_cache(gen, slots, hkv, max_len, d, store, q_dtype, lengths)
@@ -1354,16 +1385,16 @@ def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths
     e6, ok6 = _error(out6, plain6, atol, rtol)
     ok = ok5 and ok6
     plan = ""
-    if key5.endswith(("_group", "_group_fp32", "_wide")):
+    if key5.endswith(("_group", "_group_fp32", "_wide", "_narrow")):
+        ref = PA.paged_attention_narrow_ref if key5.endswith("_narrow") else PA.paged_attention_group_ref
         with torch.no_grad():
             c5, ch5, w5 = _cluster_split(q_dtype, kp.dtype, hq // hkv, d, max_len, 128, slots * hkv, True)
-            plan5 = PA.paged_attention_group_ref(q, kp, vp, cache.lengths + 1, pi, cluster=c5, chunk=ch5,
-                                                 k_scales=ks, v_scales=vs)
+            plan5 = ref(q, kp, vp, cache.lengths + 1, pi, cluster=c5, chunk=ch5, k_scales=ks, v_scales=vs)
             kp6, vp6, ks6, vs6 = KVC.page_view(cache, 0, max_len)
             pi6 = KVC.identity_page_indices(slots, max_len, max_len, device="cuda")
             c6, ch6, w6 = _cluster_split(q_dtype, kp.dtype, hq // hkv, d, max_len, max_len, slots * hkv, False)
-            plan6 = PA.paged_attention_group_ref(q, kp6, vp6, cache.lengths + 1, pi6, cluster=c6, chunk=ch6,
-                                                 k_scales=ks6, v_scales=vs6, prescale_q=True)
+            plan6 = ref(q, kp6, vp6, cache.lengths + 1, pi6, cluster=c6, chunk=ch6, k_scales=ks6, v_scales=vs6,
+                        prescale_q=True)
         p5, okp5 = _error(out5, plan5, atol, rtol)
         p6, okp6 = _error(out6, plan6, atol, rtol)
         ok = ok and okp5 and okp6
@@ -1442,8 +1473,9 @@ def check_paged_permuted(label, gen, batch, hq, hkv, d, page_size, pps, store, q
 
 def phase_decode(seed: int) -> tuple[dict, dict]:
     """Returns each decode kernel's worst error against its plain versions,
-    by launch key (K5 / K6, the whole-group and the wide K5 / K6), and the
-    wide kernels' launches in the phase (no model path runs them)."""
+    by launch key (K5 / K6, the narrow, the whole-group and the wide K5 /
+    K6), and the wide and narrow kernels' launches in the phase (no model
+    path runs head dims above 256 or below 64)."""
     _reset_launches()
     gen = torch.Generator().manual_seed(seed + 6)
     bf16, f32, i8, f8 = torch.bfloat16, torch.float32, torch.int8, torch.float8_e4m3fn
@@ -1526,14 +1558,15 @@ def phase_decode(seed: int) -> tuple[dict, dict]:
         f"{sum(controls)} of {len(controls)} cases")
     if not all(controls):
         raise AssertionError("[decode] fp16 q's limit passes an output rounded to bf16")
-    wide = {key: FA.KERNEL_LAUNCHES[key] for key in WIDE_KEYS}
-    say(f"[decode] wide kernel launches in the phase: {wide}")
-    if not all(wide.values()):
-        raise AssertionError(f"[decode] a wide decode kernel never launched: {wide}")
-    return {key: max(got) for key, got in errs.items()}, wide
+    phase = {key: FA.KERNEL_LAUNCHES[key] for key in WIDE_KEYS + NARROW_KEYS}
+    say(f"[decode] wide and narrow kernel launches in the phase: {phase}")
+    if not all(phase.values()):
+        raise AssertionError(f"[decode] a wide or narrow decode kernel never launched: {phase}")
+    return {key: max(got) for key, got in errs.items()}, phase
 
 
 WIDE_KEYS = ("paged_decode_wide", "fused_decode_wide")
+NARROW_KEYS = ("paged_decode_narrow", "fused_decode_narrow")
 
 
 # The whole-group kernel at serving-mqa's own shape (8 slots of 2048, 16 q
@@ -1579,9 +1612,12 @@ def check_decode_configs(gen, controls: list) -> dict:
     d32_mqa_fp32 shape; K5 over a permuted page table with NaN past the
     lengths at D16 (group 16 on one and on 4 KV heads), D128, D256 (group
     16) and D512, and with fp32 q at D16, D128 and D256 (group 16) and D64
-    (group 16 on two KV heads).  Each against its plain version at
-    DECODE_TOL, fp16 q's cases with their control.  Returns {launch key:
-    errors}."""
+    (group 16 on two KV heads); the narrow kernel at D8, D16 and D32 at
+    groups 1, 2, 4 and 8 on every payload for fp32, bf16 and fp16 q at its
+    tiles' and splits' edges, at time_decode's d32 and d32_gqa4 shapes, and
+    K5 over permuted pages of 16 and 48 tokens (tiles across pages) with
+    NaN past the lengths.  Each against its plain version at DECODE_TOL,
+    fp16 q's cases with their control.  Returns {launch key: errors}."""
     bf16, f16, f32, i8, f8 = torch.bfloat16, torch.float16, torch.float32, torch.int8, torch.float8_e4m3fn
     ragged = [0, 16, 299, 1022, 511, 63, 799, 127]
     errs = {}
@@ -1712,7 +1748,46 @@ def check_decode_configs(gen, controls: list) -> dict:
     for name, store in (("fp32", f32), ("int8", i8)):
         one(f"d32_mqa_fp32 shape hq16 hkv1 D32 L1024 32 slots {name} cache", 32, 16, 1, 32, store, f32, timed)
     say(f"[decode] d32_mqa_fp32 shape: timed cache lengths {timed}")
+    # the narrow kernel (head dims 8-32, groups of up to 8): D8, D16 and D32
+    # at groups 1, 2, 4 and 8 (its q-row capacities) on two KV heads, on
+    # every payload for fp32, bf16 and fp16 q (fp16's with its control), at
+    # cache lengths on the edges of its 32-token tiles (the kernels read one
+    # more token: 1, 31, 32 and 33 tokens), of its chunks (128 tokens: K5's
+    # pages of 128, K6's chunk: one chunk and one token past it), one token
+    # past its cluster's span of chunks, and the capacity
+    for d in (8, 16, 32):
+        for group in (1, 2, 4, 8):
+            c6, ch6, _ = _cluster_split(bf16, i8, group, d, 1024, 1024, 16, False)
+            edges = [min(e, 1023) for e in (0, 30, 31, 32, ch6 - 1, ch6, c6 * ch6, 1023)]
+            for q_dtype, payloads in ((f32, (("fp32", f32), ("int8", i8), ("fp8", f8))),
+                                      (bf16, (("bf16", bf16), ("int8", i8), ("fp8", f8))),
+                                      (f16, (("fp16", f16), ("int8", i8), ("fp8", f8)))):
+                for name, store in payloads:
+                    one(f"narrow D{d} group {group} hq{2 * group} hkv2 {name} cache {str(q_dtype)[6:]} q", 8,
+                        2 * group, 2, d, store, q_dtype, edges)
+            say(f"[decode] narrow D{d} group {group}: K6 {c6} blocks x chunks of {ch6} (int8 cache); cache lengths "
+                f"{edges}")
+    # time_decode's d32 and d32_gqa4 shapes (32 slots of 1024, 16 q heads on
+    # 16 and on 4 KV heads) at their timed lengths, so that the splits they
+    # are timed at are also checked
+    timed = torch.randint(959, 1024, (32,), generator=gen).tolist()
+    for hkv in (16, 4):
+        for name, store, q_dtype in (("int8", i8, bf16), ("fp8", f8, bf16), ("bf16", bf16, bf16), ("fp32", f32, f32)):
+            one(f"narrow d32 shape hq16 hkv{hkv} D32 L1024 32 slots {name} cache", 32, 16, hkv, 32, store, q_dtype,
+                timed)
+    say(f"[decode] narrow d32 / d32_gqa4 shapes: timed cache lengths {timed}")
     lens = [1, 17, 300, 1023, 512, 0, 800, 1024]
+    # K5 through the narrow kernel over permuted pages of 16 and 48 tokens
+    # (a tile across pages; chunks of 144 tokens at 48), NaN past the lengths
+    for d, group in ((8, 1), (16, 4), (32, 8), (32, 2)):
+        for page_size in (16, 48):
+            for name, store, q_dtype in (("int8", i8, bf16), ("fp16", f16, f16), ("fp32", f32, f32),
+                                         ("fp8 fp32 q", f8, f32)):
+                pps = -(-1024 // page_size)
+                _gather(errs, check_paged_permuted(
+                    f"narrow paged permuted ps{page_size} NaN past length D{d} group {group} {name}", gen, 8,
+                    2 * group, 2, d, page_size, pps, store, q_dtype, [min(n, pps * page_size) for n in lens],
+                    controls))
     # group 16 at D16 also on 4 KV heads, beside one: four times the raw V
     # rows of the two 1-token slots
     for d, hq, hkv in ((16, 16, 1), (16, 64, 4), (128, 16, 1), (256, 16, 1), (512, 8, 2)):
@@ -2559,7 +2634,7 @@ def phase_timing_quant(seed: int, smi: str) -> dict:
             bf16_library_ms=hot16["SDPA"], l2_cold_ms=cold[key], l2_cold_bound_ms=cold["bound"],
         )
         add_rows(result[kernel], key, [name for name in NEW_DECODE_SHAPES
-                                       if name not in GROUP_TIMED + GROUP_FP32_TIMED + WIDE_TIMED])
+                                       if name not in GROUP_TIMED + GROUP_FP32_TIMED + WIDE_TIMED + NARROW_TIMED])
         result[kernel]["santacoder_one_tile_ms"] = one_tile[key]
     # the whole-group kernel: SantaCoder's layer on the bf16 cache, SDPA beside
     # it, then its int8 rows and Falcon-40B's
@@ -2582,6 +2657,13 @@ def phase_timing_quant(seed: int, smi: str) -> dict:
         result[kernel] = dict(ms=wide16[key], plain_ms=wide16[f"{key} plain"], bound_ms=wide16["bound"],
                               bound_by=wide16["by"], library_ms=wide16["SDPA"])
         add_rows(result[kernel], key, WIDE_TIMED)
+    # the narrow kernel: the D32 layer on the bf16 cache, SDPA beside it, then
+    # its rows on every cache and the GQA 4 layer's
+    narrow16 = rows[NEW_DECODE_SHAPES["d32"][0], "bf16"]
+    for kernel, key in (("paged_decode_narrow", "K5"), ("fused_decode_narrow", "K6")):
+        result[kernel] = dict(ms=narrow16[key], plain_ms=narrow16[f"{key} plain"], bound_ms=narrow16["bound"],
+                              bound_by=narrow16["by"], library_ms=narrow16["SDPA"])
+        add_rows(result[kernel], key, NARROW_TIMED)
     return result
 
 
@@ -2601,9 +2683,9 @@ GPT2_COLD_SHAPE = ("gpt2 8 slots 12 layers L2-cold", 12, 8, 12, 12, 64, 1024, (4
 # <name>_<store>_ms on the others): SantaCoder's multi-query layers (group 16, two group tiles),
 # Gemma-7B's head dim 256 (16 heads, two column slabs), Falcon-40B's GQA
 # 128/8 at D64 (group 16), serving-fp16's configuration (fp16 q over an
-# fp16 cache and over an fp8 one), a narrow head (D32, which also runs
-# d = 8 and 16) and the wide kernel's padded head dims (D512, D1024), each
-# L2-cold
+# fp16 cache and over an fp8 one), a narrow head (D32, the narrow kernel,
+# which also runs d = 8 and 16: on every cache, and at GQA 4) and the wide
+# kernel's padded head dims (D512, D1024), each L2-cold
 NEW_DECODE_SHAPES = {
     "santacoder": ("santacoder hq16 hkv1 D128 8 slots 24 layers L2-cold", 24, 8, 16, 1, 128, 2048, (1920, 2048),
                    ("int8", "bf16")),
@@ -2612,7 +2694,8 @@ NEW_DECODE_SHAPES = {
     "falcon40b": ("falcon-40b hq128 hkv8 D64 8 slots 4 layers L2-cold", 4, 8, 128, 8, 64, 2048, (1920, 2048),
                   ("int8", "bf16")),
     "gpt2_12l": ("gpt2 fp16 q 8 slots 12 layers L2-cold", 12, 8, 12, 12, 64, 1024, (485, 534), ("fp16", "fp8 fp16 q")),
-    "d32": ("h16 D32 32 slots 3 layers L2-cold", 3, 32, 16, 16, 32, 1024, (960, 1024), ("int8", "bf16")),
+    "d32": ("h16 D32 32 slots 3 layers L2-cold", 3, 32, 16, 16, 32, 1024, (960, 1024),
+            ("int8", "fp8", "bf16", "fp16", "fp32", "int8 fp32 q")),
     "d512": ("hq8 hkv2 D512 8 slots 4 layers L2-cold", 4, 8, 8, 2, 512, 2048, (1920, 2048), ("int8", "bf16")),
     "d1024": ("hq8 hkv2 D1024 8 slots 4 layers L2-cold", 4, 8, 8, 2, 1024, 2048, (1920, 2048), ("int8", "bf16")),
     # SantaCoder's and Falcon-40B's layers with fp32 q, over an fp32 cache and
@@ -2630,6 +2713,9 @@ NEW_DECODE_SHAPES = {
                          (1920, 2048), ("int8", "bf16")),
     "palm8b": ("palm-8b hq16 hkv1 D256 8 slots 8 layers L2-cold", 8, 8, 16, 1, 256, 2048, (1920, 2048),
                ("int8", "bf16")),
+    # GQA 4 at D32 (16 q heads on 4 KV heads, 32 slots of 1024, 8 layers:
+    # 9.1 MB a layer on int8, 16.2 MB on bf16): 4 q rows a KV row
+    "d32_gqa4": ("hq16 hkv4 D32 32 slots 8 layers L2-cold", 8, 32, 16, 4, 32, 1024, (960, 1024), ("int8", "bf16")),
     "d32_mqa": ("hq16 hkv1 D32 32 slots 32 layers L2-cold", 32, 32, 16, 1, 32, 1024, (960, 1024), ("int8", "bf16")),
     "recurrentgemma2b_fp32": ("recurrentgemma-2b fp32 q hq10 hkv1 D256 8 slots 8 layers L2-cold", 8, 8, 10, 1, 256,
                               2048, (1920, 2048), ("fp32", "int8 fp32 q")),
@@ -2653,6 +2739,8 @@ GROUP_TIMED = ("santacoder", "falcon40b", "recurrentgemma2b", "palm8b", "d32_mqa
 GROUP_FP32_TIMED = ("santacoder_fp32", "falcon40b_fp32", "recurrentgemma2b_fp32", "palm8b_fp32", "d32_mqa_fp32")
 # the NEW_DECODE_SHAPES that run the wide kernel (head dims above 256)
 WIDE_TIMED = ("d512", "d1024")
+# the NEW_DECODE_SHAPES that run the narrow kernel (head dims 8-32, groups of up to 8)
+NARROW_TIMED = ("d32", "d32_gqa4")
 # SantaCoder's layer with 8 q heads (one group tile) in place of 16 (two)
 _SANTA = NEW_DECODE_SHAPES["santacoder"]
 ONE_TILE_SHAPE = ("santacoder layer, hq8 hkv1 (one group tile)",) + _SANTA[1:3] + (8,) + _SANTA[4:]
@@ -4430,7 +4518,7 @@ def main() -> None:
     errors = dict(zip(("flash_fwd", "flash_fwd_fp32"), phase_k1(args.seed)), **phase_k2k3(args.seed))
     k4 = phase_k4(args.seed)
     errors.update({key: err for key, (err, _) in k4.items()})
-    decode_errors, decode_wide_launches = phase_decode(args.seed)
+    decode_errors, decode_phase_launches = phase_decode(args.seed)
     errors.update(decode_errors)
     errors.update(phase_d256(args.seed))
     text = synthetic_corpus()
@@ -4476,8 +4564,9 @@ def main() -> None:
     for kernel in ("paged_decode", "fused_decode"):
         times[kernel]["serving_fp16_launches"] = fp16_launches[kernel]
     # the whole-group kernel's launches are serving-mqa's: n_layer x decode steps;
-    # the wide kernel's the decode phase's (no model path runs head dims above 256)
-    launches.update(mqa_launches, **decode_wide_launches)
+    # the wide and narrow kernels' the decode phase's (no model path runs head
+    # dims above 256 or below 64)
+    launches.update(mqa_launches, **decode_phase_launches)
     measured = phase_measure(args.seed, smi)
     phase_memory(smi)
     tiles, tile_err, autotune_k1, tiles_sdpa = phase_autotune(args.seed, smi, data)

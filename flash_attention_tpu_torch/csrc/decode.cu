@@ -1,17 +1,19 @@
-// The plain C entry points of K5 (fa_paged_decode, fa_paged_decode_group,
-// fa_paged_decode_wide) and K6 (fa_fused_decode, fa_fused_decode_group,
-// fa_fused_decode_wide), loaded through ctypes
-// (flash_attention_tpu_torch/kernels/_build.py).  The group-tile kernel
-// template and its design are in decode.cuh (head dims up to 256), the
-// whole-group kernel's (GQA groups above 8 at head dims 8-256) in
-// decode_group.cuh (bf16 / fp16 q) and decode_group_fp32.cuh (fp32 q), the
-// wide kernel's (head dims above 256) in decode_wide.cuh; their
-// instantiations are built by the decode_*.cu sources, one nvcc each, and
-// declared extern here.
+// The plain C entry points of K5 (fa_paged_decode, fa_paged_decode_narrow,
+// fa_paged_decode_group, fa_paged_decode_wide) and K6 (fa_fused_decode,
+// fa_fused_decode_narrow, fa_fused_decode_group, fa_fused_decode_wide),
+// loaded through ctypes (flash_attention_tpu_torch/kernels/_build.py).  The
+// group-tile kernel template and its design are in decode.cuh (head dims 64,
+// 128 and 256), the narrow kernel's (head dims 8-32, GQA groups of up to 8)
+// in decode_narrow.cuh, the whole-group kernel's (GQA groups above 8 at
+// head dims 8-256) in decode_group.cuh (bf16 / fp16 q) and
+// decode_group_fp32.cuh (fp32 q), the wide kernel's (head dims above 256)
+// in decode_wide.cuh; their instantiations are built by the decode_*.cu
+// sources, one nvcc each, and declared extern here.
 
 #include "decode.cuh"
 #include "decode_group.cuh"
 #include "decode_group_fp32.cuh"
+#include "decode_narrow.cuh"
 #include "decode_wide.cuh"
 
 namespace fa {
@@ -33,13 +35,16 @@ FA_GROUP32_ALL(FA_GROUP32_EXTERN)
   extern template cudaError_t wide_launch_width<T, D, P>(const WideParams&, int, int, dim3, cudaStream_t, int*);
 FA_WIDE_ALL(FA_WIDE_EXTERN)
 #undef FA_WIDE_EXTERN
+#define FA_NARROW_EXTERN(T) \
+  extern template cudaError_t narrow_launch_dtype<T>(const GroupParams&, int, bool, int, dim3, cudaStream_t, int*);
+FA_NARROW_DTYPES(FA_NARROW_EXTERN)
+#undef FA_NARROW_EXTERN
 
 namespace {
 
 template <typename T>
 cudaError_t launch_dtype(const DecodeParams& p, int kv_dtype, bool paged, int width, dim3 grid, cudaStream_t s) {
   switch (width) {
-    case 32: return launch_width<T, 32>(p, kv_dtype, paged, grid, s);
     case 64: return launch_width<T, 64>(p, kv_dtype, paged, grid, s);
     case 128: return launch_width<T, 128>(p, kv_dtype, paged, grid, s);
     case 256: return launch_width<T, 256>(p, kv_dtype, paged, grid, s);
@@ -50,7 +55,7 @@ cudaError_t launch_dtype(const DecodeParams& p, int kv_dtype, bool paged, int wi
 template <bool kPaged>
 int launch_decode(DecodeParams& p, int q_dtype, int kv_dtype, int batch, int hq, int hkv, int group_tiles,
                   int group_rows, int head_dim, const long long* st, cudaStream_t s) {
-  const int width = instantiated_width(head_dim);
+  const int width = head_dim == 64 || head_dim == 128 || head_dim == 256 ? head_dim : 0;
   if (batch <= 0 || hkv <= 0 || hq <= 0 || hq % hkv != 0 || group_rows < 1 || group_rows > kMaxRows ||
       group_rows > hq / hkv || group_tiles < 1 || (long long)group_tiles * group_rows < hq / hkv ||
       (long long)(group_tiles - 1) * group_rows >= hq / hkv || width == 0 || p.page_size <= 0 ||
@@ -180,6 +185,44 @@ cudaError_t wide_dispatch(const WideParams& p, int q_dtype, int kv_dtype, int he
 
 bool wide_head_dim(int d) { return d >= 384 && d <= 1024 && d % 128 == 0; }
 
+// The narrow kernel of q's dtype (head dims 8, 16 and 32).
+cudaError_t narrow_dispatch(const GroupParams& p, int q_dtype, int kv_dtype, bool paged, int cluster, dim3 grid,
+                            cudaStream_t s, int* resident) {
+  if (q_dtype == 0) return narrow_launch_dtype<float>(p, kv_dtype, paged, cluster, grid, s, resident);
+  if (q_dtype == 1) return narrow_launch_dtype<__nv_bfloat16>(p, kv_dtype, paged, cluster, grid, s, resident);
+  return narrow_launch_dtype<__half>(p, kv_dtype, paged, cluster, grid, s, resident);
+}
+
+bool narrow_head_dim(int d) { return d == 8 || d == 16 || d == 32; }
+
+// The narrow kernel: a GQA group of 1-8 q heads (rows == the group), a
+// cluster of `cluster` blocks (1-8) per (sequence, KV head), each walking
+// `walks` chunks of `chunk` tokens.
+template <bool kPaged>
+int launch_narrow(GroupParams& p, int q_dtype, int kv_dtype, int batch, int hq, int hkv, int passes, int rows,
+                  int head_dim, int cluster, const long long* st, cudaStream_t s) {
+  if (batch <= 0 || batch > 65535 || hkv <= 0 || hkv > 65535 || hq <= 0 || hq % hkv != 0 ||
+      !narrow_head_dim(head_dim) || q_dtype < 0 || q_dtype > 2 || kv_dtype < 0 || kv_dtype > 2 || passes != 1 ||
+      rows != hq / hkv || rows > kNMaxRows || cluster < 1 || cluster > kClusterMax || p.page_size <= 0 ||
+      p.pages_per_seq <= 0 || p.chunk <= 0 || p.walks <= 0 || (kv_dtype != 0) != (p.ks != nullptr && p.vs != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int capacity = kPaged ? p.page_size * p.pages_per_seq : p.page_size;
+  if ((long long)cluster * p.chunk * p.walks < capacity ||
+      (kPaged && (p.chunk % p.page_size != 0 || (long long)p.walks * (p.chunk / p.page_size) > kClusterMaxPages)))
+    return (int)cudaErrorInvalidValue;
+  p.q_sb = st[0]; p.q_sh = st[1];
+  p.o_sb = st[2]; p.o_sh = st[3];
+  p.k_sh = st[4]; p.k_sp = st[5]; p.k_sr = st[6];
+  p.v_sh = st[7]; p.v_sp = st[8]; p.v_sr = st[9];
+  p.s_sh = st[10]; p.s_sp = st[11];
+  p.group = hq / hkv;
+  p.passes = 1;
+  p.pass_rows = rows;
+  p.head_dim = head_dim;
+  const dim3 grid(cluster, hkv, batch);
+  return (int)narrow_dispatch(p, q_dtype, kv_dtype, kPaged, cluster, grid, s, nullptr);
+}
+
 // The wide kernel: passes x pass_rows q heads cover the group (every pass
 // live, pass_rows 1-8), a cluster of `cluster` blocks (1-8) per (sequence,
 // KV head, pass), each walking `walks` chunks of `chunk` tokens.
@@ -222,19 +265,23 @@ using fa::decode::group_dispatch;
 using fa::decode::group_head_dim;
 using fa::decode::group_max_rows;
 using fa::decode::launch_group;
+using fa::decode::launch_narrow;
 using fa::decode::launch_wide;
+using fa::decode::narrow_dispatch;
+using fa::decode::narrow_head_dim;
 using fa::decode::wide_dispatch;
 
 // Common arguments.  q_dtype: 0 = float32, 1 = bfloat16, 2 = float16.
 // kv_dtype: 0 = the payload is q's dtype (no scales), 1 = int8, 2 =
-// float8_e4m3fn (both with k_scales / v_scales).  head_dim 8, 16, 32, 64,
-// 128 or 256 (above: the wide entry points, below); any hq / hkv, run in group_tiles tiles of
+// float8_e4m3fn (both with k_scales / v_scales).  head_dim 64, 128 or 256
+// (8-32 and above 256: the narrow, whole-group and wide entry points,
+// below); any hq / hkv, run in group_tiles tiles of
 // group_rows (1-8) q heads, a block each (the last tile may hold fewer;
 // the caller chooses both, and a pair that does not cover the group with
 // every tile live is refused).  strides (elements): q (batch,
 // head), out (batch, head), k and v (head, page or slot, row), scales
 // (head, page or slot); every last dim is contiguous and payload rows are
-// 16-byte aligned (8-byte at head dims up to 32).  The split: `splits`
+// 16-byte aligned.  The split: `splits`
 // blocks of `chunk` tokens per (sequence, KV head, group tile), chunk *
 // splits >= the capacity, splits <= 64; for K5 the chunk is whole pages, at
 // most 256 of them.  workspace: batch * hkv * group_tiles * splits * group_rows *
@@ -465,5 +512,83 @@ extern "C" int fa_decode_wide_resident(int q_dtype, int kv_dtype, int head_dim, 
   int resident = 0;
   const cudaError_t e =
       wide_dispatch(p, q_dtype, kv_dtype, head_dim, paged != 0, cluster, dim3(cluster), nullptr, &resident);
+  return e != cudaSuccess ? -(int)e : resident;
+}
+
+// The narrow kernels (decode_narrow.cuh): head_dim 8, 16 or 32 at a GQA
+// group of 1-8 q heads, every q dtype and payload.  Arguments as the
+// whole-group entry points', but passes 1 and pass_rows the group; a
+// cluster of `cluster` blocks (1-8) per (sequence, KV head), block c
+// walking chunks c, c + cluster, ... of `chunk` tokens, `walks` of them;
+// cluster * chunk * walks >= the capacity; for K5 the chunk is whole pages
+// and walks * pages of a chunk <= 1024.  Payload rows min(16, d * its
+// itemsize)-byte aligned.
+
+// K5 at head dims 8-32.
+extern "C" int fa_paged_decode_narrow(const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
+                                      const void* v_scales, const void* lengths, const void* page_indices, void* out,
+                                      int q_dtype, int kv_dtype, int batch, int hq, int hkv, int passes, int rows,
+                                      int head_dim, int page_size, int pages_per_seq, int len_add, int cluster,
+                                      int chunk, int walks, const long long* strides, float sm_scale, void* stream) {
+  GroupParams p{};
+  p.q = q;
+  p.k = k_pages;
+  p.v = v_pages;
+  p.ks = static_cast<const float*>(k_scales);
+  p.vs = static_cast<const float*>(v_scales);
+  p.lengths = static_cast<const int*>(lengths);
+  p.table = static_cast<const int*>(page_indices);
+  p.o = out;
+  p.page_size = page_size;
+  p.pages_per_seq = pages_per_seq;
+  p.len_add = len_add;
+  p.chunk = chunk;
+  p.walks = walks;
+  p.q_scale = 1.f;
+  p.score_scale = sm_scale;
+  if (page_indices == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_narrow<true>(p, q_dtype, kv_dtype, batch, hq, hkv, passes, rows, head_dim, cluster, strides,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// K6 at head dims 8-32: one layer of the slot-major cache, lengths exclude
+// the current token.
+extern "C" int fa_fused_decode_narrow(const void* q, const void* k, const void* v, const void* k_scales,
+                                      const void* v_scales, const void* lengths, void* out, int q_dtype,
+                                      int kv_dtype, int slots, int hq, int hkv, int passes, int rows, int head_dim,
+                                      int max_len, int cluster, int chunk, int walks, const long long* strides,
+                                      float sm_scale, void* stream) {
+  GroupParams p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.ks = static_cast<const float*>(k_scales);
+  p.vs = static_cast<const float*>(v_scales);
+  p.lengths = static_cast<const int*>(lengths);
+  p.table = nullptr;
+  p.o = out;
+  p.page_size = max_len;
+  p.pages_per_seq = 1;
+  p.len_add = 1;
+  p.chunk = chunk;
+  p.walks = walks;
+  p.q_scale = sm_scale;
+  p.score_scale = 1.f;
+  return launch_narrow<false>(p, q_dtype, kv_dtype, slots, hq, hkv, passes, rows, head_dim, cluster, strides,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of `cluster` blocks of the narrow kernel for (q dtype,
+// payload, head_dim, rows, K5 or K6) the card holds at once
+// (cudaOccupancyMaxActiveClusters).  Returns the count, or minus a
+// cudaError_t.
+extern "C" int fa_decode_narrow_resident(int q_dtype, int kv_dtype, int head_dim, int rows, int paged, int cluster) {
+  if (!narrow_head_dim(head_dim) || q_dtype < 0 || q_dtype > 2 || kv_dtype < 0 || kv_dtype > 2 || rows < 1 ||
+      rows > fa::decode::kNMaxRows || cluster < 1 || cluster > fa::decode::kClusterMax)
+    return -(int)cudaErrorInvalidValue;
+  GroupParams p{};
+  p.pass_rows = rows;
+  int resident = 0;
+  const cudaError_t e = narrow_dispatch(p, q_dtype, kv_dtype, paged != 0, cluster, dim3(cluster), nullptr, &resident);
   return e != cudaSuccess ? -(int)e : resident;
 }

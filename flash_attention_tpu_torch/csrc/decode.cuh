@@ -1,15 +1,15 @@
 // One-token decode attention for Hopper (sm_90a): K5, the paged kernel
 // (fa_paged_decode), and K6, the slot-major kernel (fa_fused_decode), two
-// instantiations of one split-KV kernel template, at head dims up to 256.
-// This header holds the template; decode.cu holds the plain C entry points
-// loaded through ctypes (flash_attention_tpu_torch/kernels/_build.py), and
-// the instantiations are split by q dtype and padded head dim over
-// decode_<fp32|bf16|fp16>_d<D>.cu (12 sources, one nvcc each), so that no
-// one nvcc holds the build up.  Head dims above 256 run decode_wide.cuh, a
-// GQA group above 8 decode_group.cuh (16-bit q) or decode_group_fp32.cuh
-// (fp32 q): the host routes no group above 8 to this kernel's group tiles,
-// which still take one (the entry point checks only that the tiles cover
-// the group).
+// instantiations of one split-KV kernel template, at head dims 64, 128 and
+// 256.  This header holds the template; decode.cu holds the plain C entry
+// points loaded through ctypes (flash_attention_tpu_torch/kernels/_build.py),
+// and the instantiations are split by q dtype and head dim over
+// decode_<fp32|bf16|fp16>_d<D>.cu (9 sources, one nvcc each), so that no
+// one nvcc holds the build up.  Head dims 8-32 run decode_narrow.cuh (groups
+// of up to 8), head dims above 256 decode_wide.cuh, a GQA group above 8
+// decode_group.cuh (16-bit q) or decode_group_fp32.cuh (fp32 q): the host
+// routes no group above 8 to this kernel's group tiles, which still take
+// one (the entry point checks only that the tiles cover the group).
 //
 // Replaces: flash_attention_tpu/inference/paged_attention.py::_paged_kernel
 // (K5, launched by paged_attention) and
@@ -39,10 +39,7 @@
 // (8, 128) tiles and have no counterpart here.
 //
 // What it takes: q in fp32, bf16 or fp16; K/V in q's dtype, or int8 / fp8
-// e4m3 with scales; any GQA group; head dims 8, 16, 32, 64, 128 and 256.
-// Instantiated widths (Width<D>): D = 32 holds d = 8, 16 and 32; the columns
-// past d are zero in shared memory and in q, read from nowhere (a cp.async
-// of 0 source bytes), and never stored, so a step's bytes track the true d.
+// e4m3 with scales; any GQA group; head dims 64, 128 and 256 (Width<D>).
 //
 // What bounds it on this card: bytes.  A decode step reads each live
 // token's K and V row once, at 2 FLOPs per byte and q row of the GQA group
@@ -68,8 +65,8 @@
 //   * inside a block each of the 4 warps takes every fourth 16-token tile of
 //     the chunk through a shared-memory ring of its own (4 stages for
 //     64-byte rows, 2 for wider ones), filled with 16-byte `cp.async`
-//     copies (8-byte ones at D32, 4-byte ones for the scales of a quantized
-//     cache), rows past the length zero-filled without a read.  A warp
+//     copies (4-byte ones for the scales of a quantized cache), rows past
+//     the length zero-filled without a read.  A warp
 //     computes on one stage while the next ones land, and keeps its own
 //     softmax state: no block-wide barrier until the four warps' states
 //     merge at the end.  So the block's ring has 16 (or 8) tile slots, 12
@@ -139,20 +136,17 @@ struct DecodeParams {
   float q_scale, score_scale;
 };
 
-// The instantiated head dims.  kPadded: d may be narrower than D (the
-// columns past d are zero); kSlabs: the column slabs a token's row is
-// split into (a warp each); kCopy: bytes of one cp.async of a payload row
-// (8 at D32, whose int8/fp8 rows at d = 8 are 8 bytes).
+// The instantiated head dims.  kSlabs: the column slabs a token's row is
+// split into (a warp each).
 template <int D>
 struct Width {
-  static_assert(D == 32 || D == 64 || D == 128 || D == 256, "instantiated head dims");
-  static constexpr bool kPadded = D == 32;
+  static_assert(D == 64 || D == 128 || D == 256, "instantiated head dims");
   static constexpr int kSlabs = D <= 128 ? 1 : 2;
   static constexpr int kCols = D / kSlabs;  // columns of a slab
-  static constexpr int kCopy = D == 32 ? 8 : 16;
 };
 
-// The padded head dim that runs head dim d, or 0 when none does.
+// The padded head dim of the whole-group kernels that runs head dim d (32
+// for d = 8, 16 and 32), or 0 when none does.
 inline int instantiated_width(int d) {
   if (d == 8 || d == 16 || d == 32) return 32;
   if (d == 64 || d == 128 || d == 256) return d;
@@ -372,7 +366,7 @@ decode_kernel(const DecodeParams p) {
   constexpr int kTokPass = 32 / kLanes;      // tokens of one S pass of a warp
   constexpr int kCols = W::kCols / 8;        // column groups of P V, 8 columns each
   constexpr int kSub = 32 / kCols;           // token subsets of a warp's P V
-  constexpr int kCopies = L::kRow / W::kCopy;  // copies of a slab row
+  constexpr int kCopies = L::kRow / 16;       // 16-byte copies of a slab row
   constexpr int kRows2 = (kMaxG + 1) / 2;    // q rows of a half-warp in the softmax
   static_assert(kTile % kTokPass == 0 && kTile % kSub == 0 && kTile == 16 && kWarps % kSlabs == 0, "tiling");
 
@@ -382,7 +376,6 @@ decode_kernel(const DecodeParams p) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int stream = warp / kSlabs, slab = warp % kSlabs;
   const int G = min(p.rows, p.group - gt * p.rows);  // q rows of this block
-  const int d = W::kPadded ? p.head_dim : D;
   const int capacity = kPaged ? p.page_size * p.pages_per_seq : p.page_size;
   const int c0 = split * p.chunk;
   int* sTable = reinterpret_cast<int*>(smem + L::kTable);
@@ -435,11 +428,10 @@ decode_kernel(const DecodeParams p) {
   };
 
   // Stage the warp's slab of the stream's j-th tile, rows past the chunk's
-  // live end and columns past d zero-filled.  With pages of a multiple of
-  // kTile tokens (the host's chunks are whole pages) a tile lies in one
-  // page, found once per tile.
+  // live end zero-filled.  With pages of a multiple of kTile tokens (the
+  // host's chunks are whole pages) a tile lies in one page, found once per
+  // tile.
   const bool one_page = !kPaged || p.page_size % kTile == 0;
-  const int row_bytes = d * (int)sizeof(KV);
   auto issue = [&](int j, int stage) {
     const int t0 = c0 + (stream + j * kStreams) * kTile;
     unsigned char* dk = ring + stage * L::kStage;
@@ -460,9 +452,8 @@ decode_kernel(const DecodeParams p) {
 #pragma unroll
     for (int i = lane; i < kTile * kCopies; i += 32) {
       const int r = i / kCopies, c = i % kCopies;
-      const int at = slab * L::kRow + c * W::kCopy;  // the copy's byte in the whole row
-      const int bytes = W::kPadded ? min(max(row_bytes - at, 0), W::kCopy) : W::kCopy;
-      const bool ok = t0 + r < limit && bytes > 0;
+      const int at = slab * L::kRow + c * 16;  // the copy's byte in the whole row
+      const bool ok = t0 + r < limit;
       long long ko = 0, vo = 0;
       if (ok) {
         int page, row;
@@ -470,9 +461,9 @@ decode_kernel(const DecodeParams p) {
         ko = (page * p.k_sp + row * p.k_sr) * (long long)sizeof(KV) + at;
         vo = (page * p.v_sp + row * p.v_sr) * (long long)sizeof(KV) + at;
       }
-      const int in = c * W::kCopy;  // the copy's byte in the slab row
-      cp_async<W::kCopy>(dk + r * L::kRow + ((in / 16) ^ swz(r)) * 16 + in % 16, gk + ko, ok ? bytes : 0);
-      cp_async<W::kCopy>(dv + r * L::kRow + in, gv + vo, ok ? bytes : 0);
+      const int in = c * 16;  // the copy's byte in the slab row
+      cp_async<16>(dk + r * L::kRow + ((in / 16) ^ swz(r)) * 16, gk + ko, ok ? 16 : 0);
+      cp_async<16>(dv + r * L::kRow + in, gv + vo, ok ? 16 : 0);
     }
     if constexpr (kQuant) {  // lanes 0-15 a K scale each, 16-31 a V scale
       const int r = lane % kTile;
@@ -498,11 +489,11 @@ decode_kernel(const DecodeParams p) {
   // accumulate; every product of 16-bit q and a K payload is exact in
   // fp32), 16 tokens by 8 q rows (the tile's, zero-padded) per tile, q's B
   // fragments of the warp's slab held in registers.  Otherwise fp32 FMAs
-  // (below).  q's columns past d are zero.
+  // (below).
   const T* gq0 = static_cast<const T*>(p.q) + b * p.q_sb + ((long long)hk * p.group + gt * p.rows) * p.q_sh;
   const int col0 = slab * W::kCols;  // the slab's first column
   auto q_at = [&](int g, int col) -> float {
-    return g < G && (!W::kPadded || col < d) ? round_to<T>(to_float(gq0[g * p.q_sh + col]) * p.q_scale) : 0.f;
+    return g < G ? round_to<T>(to_float(gq0[g * p.q_sh + col]) * p.q_scale) : 0.f;
   };
   uint32_t qb[W::kCols / 16][2];
   if constexpr (kMma) {
@@ -706,6 +697,7 @@ decode_kernel(const DecodeParams p) {
 
   T* go = static_cast<T*>(p.o) + b * p.o_sb + ((long long)hk * p.group + gt * p.rows) * p.o_sh;
   const long long pair = (long long)b * gridDim.x + blockIdx.x;
+  constexpr int d = D;
   float* part = live > 1 ? p.ws + (pair * p.splits + split) * p.rows * (d + 2) : nullptr;
   for (int i = tid; i < G * d; i += kThreads) {
     const int g = i / d, col = i % d;
@@ -815,9 +807,9 @@ cudaError_t launch_width(const DecodeParams& p, int kv_dtype, bool paged, dim3 g
 }
 
 #define FA_DECODE_WIDTHS(X)                                                                      \
-  X(float, 32) X(float, 64) X(float, 128) X(float, 256)                                          \
-  X(__nv_bfloat16, 32) X(__nv_bfloat16, 64) X(__nv_bfloat16, 128) X(__nv_bfloat16, 256)         \
-  X(__half, 32) X(__half, 64) X(__half, 128) X(__half, 256)
+  X(float, 64) X(float, 128) X(float, 256)                                                       \
+  X(__nv_bfloat16, 64) X(__nv_bfloat16, 128) X(__nv_bfloat16, 256)                               \
+  X(__half, 64) X(__half, 128) X(__half, 256)
 
 }  // namespace decode
 }  // namespace fa

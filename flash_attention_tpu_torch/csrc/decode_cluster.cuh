@@ -16,6 +16,30 @@ namespace decode {
 constexpr int kClusterMax = 8;          // blocks of a cluster: any of 1-8 (portable sizes)
 constexpr int kClusterMaxPages = 1024;  // page ids a block stages (K5; the host keeps to it)
 
+// The parameters of the cluster kernels that take a whole GQA group a
+// block: the whole-group kernels (decode_group.cuh, decode_group_fp32.cuh)
+// and the narrow kernel (decode_narrow.cuh, one pass of the group's 1-8
+// rows).
+struct GroupParams {
+  const void* q;         // [batch, hq, d], last dim contiguous
+  const void* k;         // payload: paged [hkv, pages, page_size, d] or slot-major [hkv, slots, max_len, d]
+  const void* v;
+  const float* ks;       // scales [hkv, pages or slots, rows]; null unless quantized
+  const float* vs;
+  const int* lengths;    // [batch]
+  const int* table;      // [batch, pages_per_seq] (K5) or null (K6)
+  void* o;               // [batch, hq, d], rows 8-byte aligned (q's 16-byte aligned)
+  long long q_sb, q_sh, o_sb, o_sh;
+  long long k_sh, k_sp, k_sr, v_sh, v_sp, v_sr, s_sh, s_sp;
+  // q heads a KV head, passes of the group, q heads a pass (a multiple of 16
+  // in the whole-group kernels)
+  int group, passes, pass_rows;
+  int page_size, pages_per_seq, len_add;
+  int chunk, walks;      // tokens of a chunk; chunks a block walks
+  int head_dim;          // d, at most the instantiated D (8, 16 or 32 at D32)
+  float q_scale, score_scale;
+};
+
 __device__ __forceinline__ uint32_t cluster_size() {
   uint32_t n;
   asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));

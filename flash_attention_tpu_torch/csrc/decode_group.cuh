@@ -102,24 +102,6 @@ constexpr int kGThreads = kGWarps * 32;
 constexpr int kGMaxRows = kGWarps * 16;   // q heads of a pass: a row tile of 16 a warp
 constexpr int kGMaxRowsD256 = 32;         // at D256: 2 row tiles (q's fragments and a slice's accumulators)
 
-struct GroupParams {
-  const void* q;         // [batch, hq, d], last dim contiguous
-  const void* k;         // payload: paged [hkv, pages, page_size, d] or slot-major [hkv, slots, max_len, d]
-  const void* v;
-  const float* ks;       // scales [hkv, pages or slots, rows]; null unless quantized
-  const float* vs;
-  const int* lengths;    // [batch]
-  const int* table;      // [batch, pages_per_seq] (K5) or null (K6)
-  void* o;               // [batch, hq, d], rows 8-byte aligned (q's 16-byte aligned)
-  long long q_sb, q_sh, o_sb, o_sh;
-  long long k_sh, k_sp, k_sr, v_sh, v_sp, v_sr, s_sh, s_sp;
-  int group, passes, pass_rows;  // q heads a KV head, passes of the group, q heads a pass (a multiple of 16)
-  int page_size, pages_per_seq, len_add;
-  int chunk, walks;      // tokens of a chunk; chunks a block walks
-  int head_dim;          // d, at most the instantiated D (8, 16 or 32 at D32)
-  float q_scale, score_scale;
-};
-
 // Shared memory of a block, for kRW row-tile groups (below).  While
 // streaming: the ring (K and V payload tiles of kTok tokens: as many rows as
 // fill 32 KB of K, at most 128, `paged_attention.group_tokens`; kStages of

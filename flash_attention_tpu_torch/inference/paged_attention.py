@@ -23,8 +23,15 @@ as pages [kv_heads, total_pages, page_size, head_dim]; each sequence owns a
 `_launch_decode` is also K6's launcher (`decode_attention.decode_attention_fused`):
 both kernels are one template in `csrc/decode.cuh`, with two entry points in
 `csrc/decode.cu`.  They take fp32, bf16 and fp16 q, any GQA group (split
-into group tiles of at most 8 q heads, `group_tiles`) and head dims 8, 16,
-32, 64, 128 and 256.  Head dims above 256 (384-1024, `uses_wide_kernel`, for
+into group tiles of at most 8 q heads, `group_tiles`) and head dims 64, 128
+and 256.  Head dims 8, 16 and 32 at GQA groups of up to 8
+(`uses_narrow_kernel`, every q dtype and payload) run the narrow kernels of
+`csrc/decode_narrow.cuh` (`fa_paged_decode_narrow`, `fa_fused_decode_narrow`;
+launch keys "paged_decode_narrow" / "fused_decode_narrow"): a (sequence, KV
+head) is a thread-block cluster whose blocks walk interleaved chunks of 128
+tokens, each warp 32-token tiles with a lane a token, merged over
+distributed shared memory; their plan in plain PyTorch is
+`paged_attention_narrow_ref`.  Head dims above 256 (384-1024, `uses_wide_kernel`, for
 every q dtype and group) run the wide kernels of `csrc/decode_wide.cuh`
 (`fa_paged_decode_wide`, `fa_fused_decode_wide`; launch keys
 "paged_decode_wide" / "fused_decode_wide"): a (sequence, KV head, pass of at
@@ -67,12 +74,14 @@ from ..quant.kv import QUANT_DTYPES
 
 __all__ = [
     "cluster_plan", "decode_cluster_split", "decode_split", "group_max_rows", "group_passes", "group_tiles",
-    "group_tokens", "paged_attention", "paged_attention_group_ref", "paged_attention_ref", "paged_attention_split_ref",
-    "uses_group_kernel", "uses_wide_kernel", "wide_passes", "wide_tokens",
+    "group_tokens", "paged_attention", "paged_attention_group_ref", "paged_attention_narrow_ref", "paged_attention_ref",
+    "paged_attention_split_ref", "uses_group_kernel", "uses_narrow_kernel", "uses_wide_kernel", "wide_passes",
+    "wide_tokens",
 ]
 
 _Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # what csrc/decode.cuh instantiates
-# head dims the decode kernels take: 8, 16 and 32 (run at 32), 64, and every
+# head dims the decode kernels take: 8, 16 and 32 (the narrow kernel; the
+# whole-group kernels run them at 32), 64, and every
 # multiple of 128 up to 1024 (run at 128, 256, 512 or 1024), as the JAX
 # package's K5 runs in its kernel body (d divides 128, or 128 divides d) up
 # to the 1024 that caps the port's flash kernels
@@ -98,7 +107,13 @@ CLUSTER_MAX_PAGES = 1024
 # there a size between the powers of two was slower: Falcon-40B's K5 layer
 # (64 pairs, 16 chunks) in clusters of 3 against 2 (PERF.md §6,
 # `tools/decode_ab.py --cluster 3`)
-CLUSTER_SIZES = {"group": (1, 2, 4, 8), "wide": tuple(range(1, CLUSTER_MAX + 1))}
+CLUSTER_SIZES = {"group": (1, 2, 4, 8), "wide": tuple(range(1, CLUSTER_MAX + 1)), "narrow": (1, 2, 4, 8)}
+# csrc/decode_narrow.cuh's plan: its head dims (at groups of up to
+# MAX_ROWS), the tokens of a warp's tile (kNTile, a lane a token) and of a
+# chunk at least (kNChunk: a tile for each of a block's 4 warps)
+NARROW_HEAD_DIMS = (8, 16, 32)
+NARROW_TILE = 32
+NARROW_TOKENS = DECODE_WARPS * NARROW_TILE
 # the whole-group kernels' plan: tokens of a ring stage at most
 # (GroupLayout::kTok, GroupLayout32::kTok; `group_tokens`), bytes of a
 # stage's K tile at most, q heads of a pass (kGMaxRows, 8 row tiles of 16;
@@ -216,11 +231,72 @@ def paged_attention_group_ref(
     return _finish(q, _merge(blocks))
 
 
-def _chunk_states(q, k_pages, v_pages, lengths, page_indices, chunk, k_scales, v_scales, sm_scale, prescale_q):
-    """Each chunk's softmax state (m, l, acc) over [batch, hkv, group(, d)],
-    in fp32, for chunks of `chunk` tokens over the page table's capacity:
-    the first max(lengths, 1) tokens live, the rest masked before any
-    product (m = -inf, l = 0 for a chunk without a live token)."""
+def paged_attention_narrow_ref(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,
+    page_indices: torch.Tensor,
+    *,
+    cluster: int,
+    chunk: int,
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
+    sm_scale: float | None = None,
+    prescale_q: bool = False,
+) -> torch.Tensor:
+    """Plain version of the narrow kernels' plan (`csrc/decode_narrow.cuh`,
+    head dims 8-32 at groups of up to 8): each sequence's capacity in
+    chunks of `chunk` tokens, block c of a cluster of `cluster` walking
+    chunks c, c + cluster, ...; a chunk in tiles of NARROW_TILE (32) tokens
+    (the last may hold fewer), the block's tiles in walk order dealt to its
+    DECODE_WARPS (4) warps in turn; each warp an online softmax over its
+    tiles (a tile's max joins the running max m, p = e^(s - m) after it, l
+    and acc rescaled by e^(m_old - m), p * v_scale rounded to q's dtype
+    before P V); the warps' states merged in warp order, then the blocks'
+    in rank order, with the l == 0 guard.  A tile at or past a sequence's
+    length is skipped; a warp or block without one has m = -inf, l = 0 and
+    adds nothing.  Scoring, rounding and `prescale_q` as
+    `paged_attention_split_ref`."""
+    q4, score_scale, k, v, ks, vs, n = _gathered(q, k_pages, v_pages, lengths, page_indices, k_scales, v_scales,
+                                                 sm_scale, prescale_q)
+    cap = k.shape[2]
+    pos = torch.arange(cap, device=q.device)
+    blocks = []
+    for c in range(cluster):
+        tiles = [(t0, min(t0 + NARROW_TILE, c0 + chunk, cap)) for c0 in range(c * chunk, cap, cluster * chunk)
+                 for t0 in range(c0, min(c0 + chunk, cap), NARROW_TILE)]
+        warps = []
+        for w in range(DECODE_WARPS):
+            m = torch.full(q4.shape[:3], -math.inf, device=q.device)
+            l = torch.zeros_like(m)
+            acc = torch.zeros_like(q4)
+            for t0, t1 in tiles[w::DECODE_WARPS]:
+                valid = (pos[t0:t1][None, :] < n[:, None])[:, None, :]  # [batch, 1, tile]
+                live = valid[..., 0:1]  # the tile's first token: the tile is the warp's
+                s = torch.einsum("bhgd,bhld->bhgl", q4, torch.where(valid[..., None], k[:, :, t0:t1], 0.0))
+                s = (s * score_scale) * ks[:, :, None, t0:t1]
+                s = torch.where(valid[:, :, None], s, -math.inf)
+                m_new = torch.where(live, torch.maximum(m, s.amax(dim=-1)), m)
+                alpha = torch.where(live, torch.exp(m - m_new), 1.0)  # 0 while m is -inf
+                p = torch.where(valid[:, :, None], torch.exp(s - m_new[..., None]), 0.0)
+                pr = torch.where(valid[:, :, None], p * vs[:, :, None, t0:t1], 0.0).to(q.dtype).float()
+                vt = torch.where(valid[..., None], v[:, :, t0:t1], 0.0)
+                l = l * alpha + p.sum(dim=-1)
+                acc = acc * alpha[..., None] + torch.einsum("bhgl,bhld->bhgd", pr, vt)
+                m = m_new
+            warps.append((m, l, acc))
+        blocks.append(_merge(warps))
+    return _finish(q, _merge(blocks))
+
+
+def _gathered(q, k_pages, v_pages, lengths, page_indices, k_scales, v_scales, sm_scale, prescale_q):
+    """The kernels' inputs in plain form, in fp32: q [batch, hkv, group, d]
+    as scored (K6's pre-scaled and rounded to q's dtype with
+    `prescale_q`) and the score scale that goes with it, K and V [batch,
+    hkv, capacity, d] gathered through the page table, their scales [batch,
+    hkv, capacity] (ones without), and each sequence's live tokens
+    max(lengths, 1) up to the capacity."""
     batch, hq, d = q.shape
     hkv, _, page_size, _ = k_pages.shape
     group = hq // hkv
@@ -239,6 +315,17 @@ def _chunk_states(q, k_pages, v_pages, lengths, page_indices, chunk, k_scales, v
         q4, score_scale = q.float(), sm_scale
     q4 = q4.reshape(batch, hkv, group, d)
     n = lengths.long().clamp(min=1, max=cap)
+    return q4, score_scale, k, v, ks, vs, n
+
+
+def _chunk_states(q, k_pages, v_pages, lengths, page_indices, chunk, k_scales, v_scales, sm_scale, prescale_q):
+    """Each chunk's softmax state (m, l, acc) over [batch, hkv, group(, d)],
+    in fp32, for chunks of `chunk` tokens over the page table's capacity:
+    the first max(lengths, 1) tokens live, the rest masked before any
+    product (m = -inf, l = 0 for a chunk without a live token)."""
+    q4, score_scale, k, v, ks, vs, n = _gathered(q, k_pages, v_pages, lengths, page_indices, k_scales, v_scales,
+                                                 sm_scale, prescale_q)
+    cap = k.shape[2]
     pos = torch.arange(cap, device=q.device)
     states = []
     for c0 in range(0, cap, chunk):
@@ -318,9 +405,19 @@ def uses_group_kernel(q_dtype: torch.dtype, head_dim: int, group: int) -> bool:
     MAX_ROWS (8) q heads at head dim 8, 16, 32 (run at 32), 64, 128 or 256
     (GROUP_HEAD_DIMS), with bf16 or fp16 q (`csrc/decode_group.cuh`) or fp32
     q (`csrc/decode_group_fp32.cuh`).  Head dims above 256 run the wide
-    kernels (`uses_wide_kernel`), groups of up to 8 the group tiles of
-    `csrc/decode.cuh`."""
+    kernels (`uses_wide_kernel`), groups of up to 8 the narrow kernels at
+    head dims 8-32 (`uses_narrow_kernel`) and the group tiles of
+    `csrc/decode.cuh` at 64-256."""
     return group > MAX_ROWS and head_dim in GROUP_HEAD_DIMS.get(q_dtype, ())
+
+
+def uses_narrow_kernel(q_dtype: torch.dtype, head_dim: int, group: int) -> bool:
+    """Whether a decode call runs the narrow kernels
+    (`csrc/decode_narrow.cuh`): head dims 8, 16 and 32 (NARROW_HEAD_DIMS) at
+    GQA groups of up to MAX_ROWS (8) q heads, for every q dtype and
+    payload.  A larger group at those head dims runs the whole-group
+    kernels (`uses_group_kernel`)."""
+    return head_dim in NARROW_HEAD_DIMS and group <= MAX_ROWS
 
 
 def group_max_rows(q_dtype: torch.dtype, head_dim: int) -> int:
@@ -447,8 +544,9 @@ def cluster_plan(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int, gro
     """The launch plan of a decode call that runs a cluster kernel:
     (kind, passes, rows, cluster, chunk, walks), kind "wide" for a head dim
     above 256 (`uses_wide_kernel`), "group" for a GQA group above 8
-    (`uses_group_kernel`); None for a call that
-    runs decode.cuh's group tiles.  `kv_dtype` is the cache's, `unit` K5's
+    (`uses_group_kernel`), "narrow" for head dims 8-32 at groups of up to 8
+    (`uses_narrow_kernel`: one pass of the whole group, chunks of at least
+    NARROW_TOKENS); None for a call that runs decode.cuh's group tiles.  `kv_dtype` is the cache's, `unit` K5's
     page size (ignored for K6), `pairs` sequences x KV heads and `index`
     the card the split asks for its residency."""
     if uses_wide_kernel(q_dtype, head_dim, group):
@@ -456,6 +554,8 @@ def cluster_plan(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int, gro
     elif uses_group_kernel(q_dtype, head_dim, group):
         kind, tokens = "group", group_tokens(head_dim, kv_dtype.itemsize)
         passes, rows = group_passes(group, group_max_rows(q_dtype, head_dim))
+    elif uses_narrow_kernel(q_dtype, head_dim, group):
+        kind, passes, rows, tokens = "narrow", 1, group, NARROW_TOKENS
     else:
         return None
     resident = _resident_clusters(kind, index, _DTYPE_CODES[q_dtype], QUANT_DTYPES.get(kv_dtype, 0), head_dim, rows,
@@ -497,10 +597,11 @@ def _stride_array(*strides: int):
 
 def _check_rows(name: str, t: torch.Tensor) -> None:
     """The decode kernels read payload rows with 16-byte copies through the
-    tensor's strides (8-byte ones at head dims up to 32, whose int8/fp8 rows
-    at d = 8 are 8 bytes).  A cache view that breaks that raises: copying
-    the cache on every call would hide its whole cost."""
-    align = 8 if t.shape[-1] <= 32 else 16
+    tensor's strides (at head dims 8-32 a row's d columns in 16-byte pieces,
+    8-byte ones for the 8-byte rows of an int8/fp8 cache at d = 8).  A
+    cache view that breaks that raises: copying the cache on every call
+    would hide its whole cost."""
+    align = min(16, t.shape[-1] * t.element_size())
     vec = align // t.element_size()
     if t.stride(-1) != 1 or t.data_ptr() % align or any(st % vec for st in t.stride()[:-1]):
         raise ValueError(f"{name}: rows must be contiguous and {align}-byte aligned, got strides {t.stride()}")
@@ -529,11 +630,12 @@ def _launch_decode(
     returns [batch, hq, d] in q's dtype.  Each sequence reads max(lengths +
     len_add, 1) tokens (K6 always adds 1), split across blocks as
     `decode_split` chooses, a GQA group in `group_tiles`.  What the kernels
-    do not take (q dtype, payload, head dim) raises before any launch.  A
-    GQA group above 8 (`uses_group_kernel`) runs the
-    whole-group kernel of the same entry (launch key `entry` + "_group",
-    + "_group_fp32" for fp32 q), and a head dim above 256
-    (`uses_wide_kernel`) the wide kernel (`entry` + "_wide"), both as
+    do not take (q dtype, payload, head dim) raises before any launch.
+    Head dims 8-32 at groups of up to 8 (`uses_narrow_kernel`) run the
+    narrow kernel of the same entry (launch key `entry` + "_narrow"), a GQA
+    group above 8 (`uses_group_kernel`) the whole-group kernel (`entry` +
+    "_group", + "_group_fp32" for fp32 q), and a head dim above 256
+    (`uses_wide_kernel`) the wide kernel (`entry` + "_wide"), each as
     `cluster_plan` chooses and with no workspace."""
     batch, hq, d = q.shape
     hkv = k.shape[0]

@@ -189,5 +189,12 @@ def library() -> ctypes.CDLL:
         lib.fa_fused_decode_wide.restype = i
         lib.fa_decode_wide_resident.argtypes = [i, i, i, i, i, i]  # q_dtype, kv_dtype, head_dim, pass_rows, paged, cluster
         lib.fa_decode_wide_resident.restype = i
+        # the narrow kernels (head dims 8-32, groups of up to 8) too
+        lib.fa_paged_decode_narrow.argtypes = lib.fa_paged_decode_group.argtypes
+        lib.fa_paged_decode_narrow.restype = i
+        lib.fa_fused_decode_narrow.argtypes = lib.fa_fused_decode_group.argtypes
+        lib.fa_fused_decode_narrow.restype = i
+        lib.fa_decode_narrow_resident.argtypes = [i, i, i, i, i, i]  # q_dtype, kv_dtype, head_dim, rows, paged, cluster
+        lib.fa_decode_narrow_resident.restype = i
         _lib = lib
     return _lib

@@ -101,8 +101,10 @@ def _pad_head_dim(x: torch.Tensor, dp: int) -> torch.Tensor:
 
 # Launches of each CUDA kernel of the port, counted by its wrapper where it
 # launches: K1-K3 and the backward's pre-pass here, K4 in quant/kv.py, K5
-# and K6 in inference/paged_attention.py (a GQA group above 8 with 16-bit q
-# at head dim 64 or 128 under "paged_decode_group" / "fused_decode_group",
+# and K6 in inference/paged_attention.py (head dims 8-32 at GQA groups of up
+# to 8 under "paged_decode_narrow" / "fused_decode_narrow", the cluster
+# kernels of csrc/decode_narrow.cuh; a GQA group above 8 with 16-bit q at
+# head dims 8-256 under "paged_decode_group" / "fused_decode_group",
 # the whole-group kernels of csrc/decode_group.cuh, with fp32 q under
 # "paged_decode_group_fp32" / "fused_decode_group_fp32", those of
 # csrc/decode_group_fp32.cuh; head dims above 256 under
@@ -129,6 +131,8 @@ KERNEL_LAUNCHES = {
     "flash_fwd_kv_quant": 0,
     "paged_decode": 0,
     "fused_decode": 0,
+    "paged_decode_narrow": 0,
+    "fused_decode_narrow": 0,
     "paged_decode_group": 0,
     "fused_decode_group": 0,
     "paged_decode_group_fp32": 0,

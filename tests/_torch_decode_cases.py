@@ -38,7 +38,12 @@ GROUP_PAYLOADS = {"bf16": (jnp.bfloat16, None), "fp16": (jnp.float16, None), "bf
 # fp32, int8 and fp8 pages
 GROUP_FP32_PAYLOADS = {"fp32": (jnp.float32, None), "fp32-int8": (jnp.float32, jnp.int8),
                        "fp32-fp8": (jnp.float32, jnp.float8_e4m3fn)}
-ALL_PAYLOADS = {**PAYLOADS, **GROUP_PAYLOADS, **GROUP_FP32_PAYLOADS}
+# the narrow kernel's (csrc/decode_narrow.cuh, head dims 8-32 at groups of
+# up to 8): every q dtype over its own dtype, int8 and fp8 pages
+NARROW_PAYLOADS = {f"{q}{'-' + c if c else ''}": (qdt, quant)
+                   for q, qdt in (("fp32", jnp.float32), ("bf16", jnp.bfloat16), ("fp16", jnp.float16))
+                   for c, quant in (("", None), ("int8", jnp.int8), ("fp8", jnp.float8_e4m3fn))}
+ALL_PAYLOADS = {**PAYLOADS, **GROUP_PAYLOADS, **GROUP_FP32_PAYLOADS, **NARROW_PAYLOADS}
 # (q heads, KV heads): groups 12 (one padded row tile), 16 (SantaCoder's
 # multi-query), 48 (StarCoder's, 3 row tiles), 71 (Falcon-7B's, 5 row tiles:
 # 8 warps) and 24 / 2 (a group of 12 on two KV heads)

@@ -1,9 +1,18 @@
-"""Time variants of the decode kernels at head dims 512 and 1024 (K6 over
-one slot-major layer), each variant built alone, to see where a step's time
-goes.
+"""Time variants of the decode kernels (K6 over one slot-major layer), each
+variant built alone, to see where a step's time goes.
 
-    python3 tools/decode_wide_variants.py [--kernel wide|tiles] [--tree DIR] [--variants base,timeline,...]
-                                          [--shapes d512,d1024] [--q bf16|fp32]
+    python3 tools/decode_wide_variants.py [--kernel wide|tiles|narrow] [--tree DIR] [--variants base,timeline,...]
+                                          [--shapes d512,d1024] [--q bf16|fp32] [--one-split]
+                                          [--clusters 1,2,4] [--chunk N]
+
+`--kernel narrow` takes `csrc/decode_narrow.cuh` (head dims 8-32 at groups
+of up to 8) at the d32 / d32_gqa4 shapes below, with the variants below and
+its own: nosoftmax (the per-tile softmax skipped), st2 / st3 / st4 / st6 (a
+ring of that many stages), w8 (8 warps a block: with `--chunk 256`);
+`--clusters` runs the listed cluster sizes (wide and narrow) in place of the
+split's choice, with chunks of `--chunk` tokens if given.  `--one-split`
+(tiles) adds a run at one split a pair, which has no merge; the tiles kernel
+has a nosoftmax variant too.
 
 `--kernel wide` (the default) takes `csrc/decode_wide.cuh`, the cluster
 kernel that runs every decode call at padded D512 / D1024; `--kernel tiles`
@@ -49,7 +58,9 @@ dims: RecurrentGemma-2B's layer (recurrentgemma2b: 8 layers, 10 q heads on
 one KV head of 256, two tiles of 5; recurrentgemma2b5 with 5 q heads, one
 tile), PaLM-8B's (palm8b: 16 q heads of 256 on one KV head; palm8b8 with
 8) and a multi-query layer at D32 (d32_mqa: 32 layers of 32 slots of 1024,
-16 q heads on one KV head; d32_mqa8 with 8).  tiles runs at two splits, K6's own (`decode_split`
+16 q heads on one KV head; d32_mqa8 with 8), and the d32 (3 layers of 32 slots
+of 1024, 16 heads of 32) and d32_gqa4 (8 layers, 16 q heads on 4 KV heads) rows
+of `chip_smoke.NEW_DECODE_SHAPES`.  tiles runs at two splits, K6's own (`decode_split`
 over 16-token tiles) and K5's (chunks of a 128-token page), to see what the
 split costs; wide at the cluster `decode_cluster_split` picks from the card's
 resident clusters.  Device ms a call from `utils.measure.graph_ms`; the
@@ -123,7 +134,7 @@ KERNELS = {
         launcher='#include "decode.cuh"\nusing namespace fa::decode;\nusing P = DecodeParams;\n'
                  "template <typename KV, int D>\n"
                  "cudaError_t run(const P& p, int, int splits, int hkv, int slots, cudaStream_t s, int*) {\n"
-                 "  return launch_one<QT, KV, D, 8, false>(p, dim3(hkv * p.gtiles, slots, splits), s);\n}\n"
+                 "  return launch_rows<QT, KV, D, false>(p, dim3(hkv * p.gtiles, slots, splits), s);\n}\n"
                  + _COMMON.replace("SETUP", "p.ws = (float*)ws; p.counters = (int*)counters; p.splits = splits; "
                                    "p.gtiles = (hq / hkv + 7) / 8; p.rows = (hq / hkv + p.gtiles - 1) / p.gtiles;"),
         timeline=[
@@ -151,12 +162,57 @@ KERNELS = {
             ("      for (int ks = 0; ks < W::kCols / 16; ++ks) {\n        uint32_t a[4];",
              "      for (int ks = 0; ks < 0; ++ks) {\n        uint32_t a[4];"),
         ],
+        nosoftmax=[
+            ("    for (int i = 0; i < kRows2; ++i) {\n      const int g = min(half + 2 * i, kMaxG - 1);",
+             "    for (int i = 0; i < 0; ++i) {\n      const int g = min(half + 2 * i, kMaxG - 1);"),
+        ],
         nocopy=[
             ("      cp_async<W::kCopy>(dk + r * L::kRow + ((in / 16) ^ swz(r)) * 16 + in % 16, gk + ko, ok ? bytes : 0);\n"
              "      cp_async<W::kCopy>(dv + r * L::kRow + in, gv + vo, ok ? bytes : 0);\n", ""),
         ],
     ),
 }
+KERNELS["narrow"] = dict(
+    header="decode_narrow.cuh",
+    launcher='#include "decode_narrow.cuh"\nusing namespace fa::decode;\nusing P = GroupParams;\n'
+             "template <typename KV, int D>\n"
+             "cudaError_t run(const P& p0, int cluster, int walks, int hkv, int slots, cudaStream_t s, int* r) {\n"
+             "  P p = p0;\n  p.walks = walks;\n  p.passes = 1;\n  p.pass_rows = p.group;\n"
+             "  return narrow_launch_rows<QT, KV, false>(p, cluster, dim3(cluster, hkv, slots), s, r);\n}\n"
+             + _COMMON.replace("SETUP", ""),
+    timeline=[
+        ("decode_cluster.cuh",) + _PARAMS,
+        ("template <typename T, typename KV, int kG, bool kPaged>\n__global__",
+         _STAMP + "template <typename T, typename KV, int kG, bool kPaged>\n__global__"),
+        ("  const int len = p.lengths[b];\n", "  FA_T(0)\n  const int len = p.lengths[b];\n"),
+        ("    __syncwarp();  // the tile has landed", "    if (j == 0) FA_T(1)\n    __syncwarp();  // the tile has landed"),
+        ("  cp_async_wait<0>();\n\n  // The warp's state", "  FA_T(2)\n  cp_async_wait<0>();\n\n  // The warp's state"),
+        ("  M::template merge_groups<kNThreads>(smem, G, tid);\n", "  M::template merge_groups<kNThreads>(smem, G, tid);\n"
+         "  FA_T(3)\n"),
+        ("    return;\n  }\n  cluster_merge", "    FA_T(4)\n    return;\n  }\n  cluster_merge"),
+        ("p.o_sh);\n}\n\ntemplate <typename T, typename KV, int kG, bool kPaged>\ncudaError_t narrow_launch_one",
+         "p.o_sh);\n  FA_T(4)\n}\n\ntemplate <typename T, typename KV, int kG, bool kPaged>\ncudaError_t narrow_launch_one"),
+    ],
+    stamps=("entry", "tile 0 landed (thread 0's warp)", "warp 0's tiles done", "block merged", "exit"),
+    nocompute=[
+        ("    for (int cg = 0; cg < 4; ++cg) {", "    for (int cg = 0; cg < 0; ++cg) {"),
+        ("    for (int i = 0; i < ncols; ++i) {", "    for (int i = 0; i < 0; ++i) {"),
+    ],
+    nocopy=[
+        ("    for (int m = 0; m < per_row; ++m) {", "    for (int m = 0; m < 0; ++m) {"),
+    ],
+    nosoftmax=[
+        ("    for (int g = 0; g < kG; ++g) {\n      const float x = valid", "    for (int g = 0; g < 0; ++g) {\n"
+         "      const float x = valid"),
+    ],
+    # design variants: 2, 3 and 4 stages a ring
+    st2=[("kStages = sizeof(KV) == 1 ? 4 : sizeof(KV) == 2 ? 2 : 3;", "kStages = 2;")],
+    st3=[("kStages = sizeof(KV) == 1 ? 4 : sizeof(KV) == 2 ? 2 : 3;", "kStages = 3;")],
+    st4=[("kStages = sizeof(KV) == 1 ? 4 : sizeof(KV) == 2 ? 2 : 3;", "kStages = 4;")],
+    st6=[("kStages = sizeof(KV) == 1 ? 4 : sizeof(KV) == 2 ? 2 : 3;", "kStages = 6;")],
+    # 8 warps a block (chunks of 256 tokens at least: run with --chunk 256)
+    w8=[("constexpr int kNThreads = 128;", "constexpr int kNThreads = 256;")],
+)
 KERNELS["wide"] = dict(
     header="decode_wide.cuh",
     launcher='#include "decode_wide.cuh"\nusing namespace fa::decode;\nusing P = WideParams;\n'
@@ -201,13 +257,14 @@ KERNELS["wide"] = dict(
     pace_stamps=tuple(f"stage {j} K landed" for j in range(8)),
 )
 
-VARIANT_NAMES = ("base", "timeline", "nocompute", "nocopy")
+VARIANT_NAMES = ("base", "timeline", "nocompute", "nocopy")  # and, tiles only, nosoftmax
 SHAPES = {"d512": (4, 8, 8, 2, 512, 2048), "d1024": (4, 8, 8, 2, 1024, 2048),
           "santacoder": (24, 8, 16, 1, 128, 2048), "santacoder8": (24, 8, 8, 1, 128, 2048),
           "falcon40b": (8, 8, 128, 8, 64, 2048),
           "recurrentgemma2b": (8, 8, 10, 1, 256, 2048), "recurrentgemma2b5": (8, 8, 5, 1, 256, 2048),
           "palm8b": (8, 8, 16, 1, 256, 2048), "palm8b8": (8, 8, 8, 1, 256, 2048),
-          "d32_mqa": (32, 32, 16, 1, 32, 1024), "d32_mqa8": (32, 32, 8, 1, 32, 1024)}
+          "d32_mqa": (32, 32, 16, 1, 32, 1024), "d32_mqa8": (32, 32, 8, 1, 32, 1024),
+          "d32": (3, 32, 16, 16, 32, 1024), "d32_gqa4": (8, 32, 16, 4, 32, 1024)}
 Q_TYPES = {"bf16": ("__nv_bfloat16", torch.bfloat16), "fp32": ("float", torch.float32)}
 
 
@@ -223,8 +280,10 @@ def build(kernel: str, tree: str, names: list[str], q: str, dims) -> dict:
             if not f.endswith(".cuh"):
                 continue
             src = open(os.path.join(csrc, f)).read()
-            if f == spec["header"]:
-                for old, new in spec.get(name, []):
+            # a replacement is (old, new) in the kernel's header or (file, old, new)
+            for rep in spec.get(name, []):
+                target, old, new = rep if len(rep) == 3 else (spec["header"], *rep)
+                if f == target:
                     if old not in src:
                         raise RuntimeError(f"variant {name}: {f} no longer has {old[:60]!r}")
                     src = src.replace(old, new)
@@ -252,8 +311,9 @@ def build(kernel: str, tree: str, names: list[str], q: str, dims) -> dict:
 
 
 def splits(kernel: str, libs: dict, int8: int, d: int, slots: int, hq: int, hkv: int, L: int,
-           itemsize: int) -> list[tuple]:
-    """(label, cluster, chunk, splits or walks) of each run."""
+           itemsize: int, one_split: bool = False) -> list[tuple]:
+    """(label, cluster, chunk, splits or walks) of each run; tiles with
+    `one_split` also one block a (sequence, KV head, group tile): no merge."""
     if kernel == "tiles":
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         tiles = PA.group_tiles(hq // hkv)[0]
@@ -261,6 +321,8 @@ def splits(kernel: str, libs: dict, int8: int, d: int, slots: int, hq: int, hkv:
         for label, unit in (("K6 split", PA.DECODE_TILE), ("K5 split", 128)):
             chunk, n = PA.decode_split(L, slots * hkv * tiles, unit, sms)
             out.append((f"{label} {n} x {chunk}", 1, chunk, n))
+        if one_split:
+            out.append((f"one split 1 x {L}", 1, L, 1))
         return out
     lib = next(iter(libs.values()))
     resident = {}
@@ -271,7 +333,7 @@ def splits(kernel: str, libs: dict, int8: int, d: int, slots: int, hq: int, hkv:
         if err:
             raise RuntimeError(f"occupancy query failed with cudaError {err}")
         resident[c] = r.value
-    tokens = PA.wide_tokens(d, 1 if int8 else itemsize)
+    tokens = PA.NARROW_TOKENS if kernel == "narrow" else PA.wide_tokens(d, 1 if int8 else itemsize)
     cl, chunk, walks = PA.decode_cluster_split(L, slots * hkv, tokens, resident, False, tokens)
     return [(f"cluster {cl} x {walks} chunks of {chunk} (resident {resident})", cl, chunk, walks)]
 
@@ -283,6 +345,10 @@ def main() -> None:
     ap.add_argument("--variants", default=",".join(VARIANT_NAMES))
     ap.add_argument("--shapes", default="d512,d1024", help=f"comma-separated, of {', '.join(SHAPES)}")
     ap.add_argument("--q", default="bf16", choices=sorted(Q_TYPES))
+    ap.add_argument("--one-split", action="store_true", help="tiles: also run one split a pair (no merge)")
+    ap.add_argument("--clusters", default="", help="wide / narrow: run these cluster sizes (comma-separated) in place "
+                    "of the split's choice, its chunk kept")
+    ap.add_argument("--chunk", type=int, default=0, help="with --clusters: chunks of this many tokens")
     args = ap.parse_args()
     shapes = args.shapes.split(",")
     wide_dims = any(SHAPES[s][4] > 256 for s in shapes)
@@ -291,7 +357,12 @@ def main() -> None:
                  "the wide kernel), e.g. a parent unpacked under build/parent")
     if args.kernel == "wide" and not all(SHAPES[s][4] > 256 for s in shapes):
         ap.error("--kernel wide runs head dims above 256 only")
+    if args.kernel == "narrow" and not all(SHAPES[s][4] <= 32 and SHAPES[s][2] // SHAPES[s][3] <= 8 for s in shapes):
+        ap.error("--kernel narrow runs head dims 8-32 at groups of up to 8 only")
     names = args.variants.split(",")
+    unknown = [v for v in names if v != "base" and v not in KERNELS[args.kernel]]
+    if unknown:
+        ap.error(f"--kernel {args.kernel} has no variants {unknown}")
     dims = sorted({512 if SHAPES[s][4] <= 512 and SHAPES[s][4] > 256 else
                    (1024 if SHAPES[s][4] > 512 else SHAPES[s][4]) for s in shapes})
     q_dtype = Q_TYPES[args.q][1]
@@ -329,7 +400,12 @@ def main() -> None:
             sc = torch.where(live[:, None, None, :], sc, -math.inf)
             ref = torch.einsum("shgl,hsld->shgd", torch.softmax(sc, -1), vf).reshape(slots, hq, d)
             tiles, rows = PA.group_tiles(hq // hkv)
-            for label, cl, chunk, n in splits(args.kernel, libs, int8, d, slots, hq, hkv, L, q.element_size()):
+            runs = splits(args.kernel, libs, int8, d, slots, hq, hkv, L, q.element_size(), args.one_split)
+            if args.clusters and args.kernel != "tiles":
+                chunk = args.chunk or runs[0][2]
+                runs = [(f"cluster {c} x {-(-L // (c * chunk))} chunks of {chunk} (forced)", c, chunk,
+                         -(-L // (c * chunk))) for c in map(int, args.clusters.split(","))]
+            for label, cl, chunk, n in runs:
                 ws = torch.empty(slots * hkv * tiles * n * rows * (d + 2), device="cuda")
                 counters = torch.zeros(slots * hkv * tiles, dtype=torch.int32, device="cuda")
                 for name, lib in libs.items():
