@@ -79,8 +79,15 @@ are 7-9):
               every payload for fp32, bf16 and fp16 q at the edges of
               their 32-token tiles, chunks and clusters, at time_decode's
               d32 and d32_gqa4 shapes, and K5 over permuted pages of 16
-              and 48 with NaN past the lengths, at least one launch each.
-              Limits
+              and 48 with NaN past the lengths, at least one launch each;
+              the head dims that run inside a wider instantiation
+              (check_decode_padded: 48, 80, 96, 112, 160, 192, 240 in the
+              group tiles' and whole-group kernels' D64 / D128 / D256, 320
+              and 640 in the wide kernel's D512 / D1024) at every q dtype
+              over every payload, groups 1, 4, 8, 16 and 71, at their
+              splits' edges, K5 over pages of 128 and of 16 (permuted, NaN
+              past the lengths) and K6; D24, D40 and D1040 raise before any
+              launch.  Limits
               by q's dtype (DECODE_TOL): bf16 atol
               2e-2 + rtol 1e-2, fp16 2e-3 + 2^-10, and against the
               exact fp32 versions min(2e-3, 2^-10 x a row's largest
@@ -205,6 +212,15 @@ are 7-9):
               einsum's on fp32 and int8 caches, through the 3xTF32
               whole-group kernel ("paged_decode_group_fp32" /
               "fused_decode_group_fp32", each launched).
+    serving-phi2 - serving at Phi-2's published widths (32 layers, 32 heads
+              of 80, width 2560, vocab 51200), bf16 weights drawn on the
+              card, 8 slots, max_len 2048: the burst through einsum on a
+              bf16 cache, K5 on an int8 cache and K6 on an fp8 cache (head
+              dim 80 in the group tiles' D128; exact budgets, K5 / K6
+              launched n_layer x decode steps); then fp32 at Phi-2's widths
+              with 2 layers, 8 slots of 2048 with prompts of 16-2030
+              tokens: paged and fused logits within 1e-3 of einsum's on
+              fp32 and int8 caches.
     serving-fp16 - GPT-2 124M in fp16: the burst through einsum, K5 on an
               fp16 cache and K6 on an fp8 cache (fp16 q); fp16 paged /
               fused logits against einsum's at the 16-bit tier; then fp32
@@ -241,7 +257,10 @@ are 7-9):
               layer, SantaCoder's 24 multi-query layers, a Gemma-7B D256
               layer, a Falcon-40B GQA 128/8 layer, GPT-2's 12 layers with
               fp16 q (fp16 and fp8 caches), D32, D512 and D1024 layers,
-              L2-cold; SantaCoder's layer also with one group tile of 8 q
+              Phi-2's, GPT-NeoX-20B's, MPT-30B's and StableLM-2-12B's
+              layers and a multi-query D80 layer (head dims inside a wider
+              instantiation; the bound counts d columns), L2-cold;
+              SantaCoder's layer also with one group tile of 8 q
               heads), int8 and bf16, against their plain versions
               and, on a bf16 cache, SDPA with a length mask over the
               slot-major cache.  Device time: a CUDA graph of 20 calls
@@ -343,11 +362,13 @@ K2 and K3 their ring call shapes as `ring_noncausal_shard` (K1 also
 context-parallel run as `parallel_launches`; K5's and K6's rows their
 times at each configuration beyond D64 / D128, bf16 q and groups up to
 8 that the group tiles run (NEW_DECODE_SHAPES: gemma7b_*, gpt2_12l_*,
-d32_*; int8 caches unsuffixed, others suffixed by the store) and their
-launches in serving-mqa and serving-fp16; the
+d32_*, phi2_*, neox20b_*, mpt30b_*, stablelm2_12b_*; int8 caches
+unsuffixed, others suffixed by the store) and their launches in
+serving-fp16 and serving-phi2 (serving_phi2_launches in its bursts,
+serving_phi2_fp32_launches in its fp32 check); the
 whole-group K5's and K6's rows SantaCoder's bf16 layer's times with
-SDPA's, the santacoder_*, falcon40b_*, recurrentgemma2b_*, palm8b_* and
-d32_mqa_* rows beside them; the fp32 whole-group K5's and
+SDPA's, the santacoder_*, falcon40b_*, recurrentgemma2b_*, palm8b_*,
+d32_mqa_* and mqa_d80_* rows beside them; the fp32 whole-group K5's and
 K6's rows SantaCoder's fp32 layer's times with SDPA's fp32 call, the
 santacoder_fp32_*, falcon40b_fp32_*, recurrentgemma2b_fp32_*, palm8b_fp32_*
 and d32_mqa_fp32_* rows beside them (fp32 and int8 caches), and their
@@ -680,8 +701,9 @@ def phase_build() -> None:
         raise AssertionError(f"[build] fp32 whole-group decode kernel instantiations at D32 / D256 spill: {spilled32}")
     # the wide decode kernel (decode_wide.cuh, head dims above 256): q dtype x
     # payload x D512 / D1024 x passes of 1, 4 or 8 rows x K5 / K6; the
-    # group-tile kernel keeps D32-D256 (10 instantiations a q dtype, payload
-    # and entry point)
+    # group-tile kernel (decode.cuh) keeps D64-D256: q dtype x payload x
+    # D64 / D128 / D256 x q-row capacities 1, 4, 8 (1, 8 at D256) x K5 / K6,
+    # 144 in all; the head dims between its widths run inside them
     say(f"[build] ptxas wide_kernel (wide K5 / K6): {len(wide_dec)} instantiations, "
         f"{len(wide_dec) - len(wide_dec_spilled)} without spills, "
         + (f"{min(wide_dec)}-{max(wide_dec)} registers" if wide_dec else "none found")
@@ -1356,12 +1378,14 @@ def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths
     """K5 (through decode_attention_paged) and K6 vs their plain versions on
     one cache at DECODE_TOL; returns {launch key: max error}.  Each must
     launch its kernel once: the narrow kernel at D8-32 for a group of up to
-    8, the whole-group kernel for a group above 8 at D8-D256 and the wide
-    kernel above D256, each also held against the plain version of its own
-    plan (`paged_attention_narrow_ref`, `paged_attention_group_ref`: its
-    chunks, its cluster, the merge's order).  For fp16 q both are also held against their exact versions at
-    fp16's limit (FP16_ROW_ATOL), and whether that limit rejects the
-    bf16-rounded control goes into `controls`."""
+    8, the whole-group kernel for a group above 8 at D8-D256, the wide
+    kernel above D256 and the group tiles otherwise, each also held against
+    the plain version of its own plan (`paged_attention_narrow_ref`,
+    `paged_attention_group_ref`: its chunks, its cluster, the merge's
+    order; `paged_attention_split_ref` at the group tiles' chunks).  For
+    fp16 q both are also held against their exact versions at fp16's limit
+    (FP16_ROW_ATOL), and whether that limit rejects the bf16-rounded control
+    goes into `controls`."""
     cache = _filled_cache(gen, slots, hkv, max_len, d, store, q_dtype, lengths)
     q = _rand(gen, (slots, hq, d), q_dtype)
     key5, key6 = _decode_keys(q_dtype, d, hq // hkv)
@@ -1384,22 +1408,27 @@ def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths
     e5, ok5 = _error(out5, plain5, atol, rtol)
     e6, ok6 = _error(out6, plain6, atol, rtol)
     ok = ok5 and ok6
-    plan = ""
-    if key5.endswith(("_group", "_group_fp32", "_wide", "_narrow")):
-        ref = PA.paged_attention_narrow_ref if key5.endswith("_narrow") else PA.paged_attention_group_ref
-        with torch.no_grad():
+    with torch.no_grad():
+        kp6, vp6, ks6, vs6 = KVC.page_view(cache, 0, max_len)
+        pi6 = KVC.identity_page_indices(slots, max_len, max_len, device="cuda")
+        total = cache.lengths + 1
+        if key5.endswith(("_group", "_group_fp32", "_wide", "_narrow")):
+            ref = PA.paged_attention_narrow_ref if key5.endswith("_narrow") else PA.paged_attention_group_ref
             c5, ch5, w5 = _cluster_split(q_dtype, kp.dtype, hq // hkv, d, max_len, 128, slots * hkv, True)
-            plan5 = ref(q, kp, vp, cache.lengths + 1, pi, cluster=c5, chunk=ch5, k_scales=ks, v_scales=vs)
-            kp6, vp6, ks6, vs6 = KVC.page_view(cache, 0, max_len)
-            pi6 = KVC.identity_page_indices(slots, max_len, max_len, device="cuda")
             c6, ch6, w6 = _cluster_split(q_dtype, kp.dtype, hq // hkv, d, max_len, max_len, slots * hkv, False)
-            plan6 = ref(q, kp6, vp6, cache.lengths + 1, pi6, cluster=c6, chunk=ch6, k_scales=ks6, v_scales=vs6,
-                        prescale_q=True)
-        p5, okp5 = _error(out5, plan5, atol, rtol)
-        p6, okp6 = _error(out6, plan6, atol, rtol)
-        ok = ok and okp5 and okp6
-        plan = (f"  vs the plan's plain version {p5:.3e} / {p6:.3e} (K5 {c5} blocks x {w5} chunks of {ch5}, "
-                f"K6 {c6} x {w6} of {ch6})")
+            plan5 = ref(q, kp, vp, total, pi, cluster=c5, chunk=ch5, k_scales=ks, v_scales=vs)
+            plan6 = ref(q, kp6, vp6, total, pi6, cluster=c6, chunk=ch6, k_scales=ks6, v_scales=vs6, prescale_q=True)
+            split = f"K5 {c5} blocks x {w5} chunks of {ch5}, K6 {c6} x {w6} of {ch6}"
+        else:  # the group tiles: the split-KV arithmetic at the chunks the launcher picks
+            (ch5, n5), (ch6, n6) = _tile_split(slots, hq, hkv, max_len)
+            plan5 = PA.paged_attention_split_ref(q, kp, vp, total, pi, chunk=ch5, k_scales=ks, v_scales=vs)
+            plan6 = PA.paged_attention_split_ref(q, kp6, vp6, total, pi6, chunk=ch6, k_scales=ks6, v_scales=vs6,
+                                                 prescale_q=True)
+            split = f"K5 {n5} splits of {ch5}, K6 {n6} of {ch6}"
+    p5, okp5 = _error(out5, plan5, atol, rtol)
+    p6, okp6 = _error(out6, plan6, atol, rtol)
+    ok = ok and okp5 and okp6
+    plan = f"  vs the plan's plain version {p5:.3e} / {p6:.3e} ({split})"
     exact = ""
     if q_dtype == torch.float16:
         with torch.no_grad():
@@ -1413,9 +1442,7 @@ def check_decode(label, gen, slots, hq, hkv, d, max_len, store, q_dtype, lengths
         raise AssertionError(f"[decode] {label} outside tolerance")
     if q_dtype == torch.float16 and controls is not None:
         controls.append(_fp16_control(label, (out5, out6), exacts))
-    if plan:
-        e5, e6 = max(e5, p5), max(e6, p6)
-    return {key5: e5, key6: e6}
+    return {key5: max(e5, p5), key6: max(e6, p6)}
 
 
 def _gather(errs: dict, got: dict) -> None:
@@ -1553,6 +1580,8 @@ def phase_decode(seed: int) -> tuple[dict, dict]:
                                            8, 2, d, 16, 128, i8, bf16, [1, 2048, 1920, 2000, 33, 0, 1500, 2047]))
     controls = []
     for key, got in check_decode_configs(gen, controls).items():
+        errs.setdefault(key, []).extend(got)
+    for key, got in check_decode_padded(gen, controls).items():
         errs.setdefault(key, []).extend(got)
     say(f"[decode] fp16 q control (each case's K5 / K6 outputs rounded to bf16): rejected by fp16's limit in "
         f"{sum(controls)} of {len(controls)} cases")
@@ -1799,6 +1828,96 @@ def check_decode_configs(gen, controls: list) -> dict:
         for name, store in (("fp32", f32), ("int8 fp32 q", i8), ("fp8 fp32 q", f8)):
             _gather(errs, check_paged_permuted(f"paged permuted ps16 NaN past length D{d} hq{hq} hkv{hkv} {name}",
                                                gen, 8, hq, hkv, d, 16, 64, store, f32, lens, controls))
+    return errs
+
+
+# Head dims below the width the decode kernels are instantiated at
+# (`paged_attention.decode_width`): 48 at D64; Phi-2's 80, GPT-NeoX-20B's 96
+# and MPT-30B's 112 at D128; StableLM-2-12B's 160, 192 and 240 at D256; 320
+# at D512 and 640 at D1024 (the wide kernel, a slab that d ends inside)
+PADDED_DECODE_DIMS = (48, 80, 96, 112, 160, 192, 240, 320, 640)
+# (name, cache, q dtype): every q dtype over its own dtype, int8 and fp8
+PADDED_DECODE_STORES = tuple((f"{name} cache {qn} q", store, q)
+                             for q, qn in ((torch.float32, "fp32"), (torch.bfloat16, "bf16"), (torch.float16, "fp16"))
+                             for name, store in ((qn, q), ("int8", torch.int8), ("fp8", torch.float8_e4m3fn)))
+
+
+def _tile_split(slots: int, hq: int, hkv: int, max_len: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """The group tiles' (chunk, splits) for K5 over pages of 128 and for K6
+    at a capacity of max_len, as their launcher picks them on this card."""
+    pairs = slots * hkv * PA.group_tiles(hq // hkv)[0]
+    sms = PA._sm_count(torch.cuda.current_device())
+    return PA.decode_split(max_len, pairs, 128, sms), PA.decode_split(max_len, pairs, PA.DECODE_TILE, sms)
+
+
+def _split_edges(q_dtype, store, hq: int, hkv: int, d: int, slots: int, max_len: int) -> tuple[list, str]:
+    """Cache lengths on the edges of a configuration's splits, as its
+    launchers choose them on this card (the kernels read one more token):
+    for a cluster kernel 0, K6's chunk - 1, chunk, chunk + 1, its cluster's
+    span - 1 and span, K5's span + 1 (pages of 128) and the capacity - 1;
+    for the group tiles 0, K5's chunk - 1, chunk, chunk + 1, K6's chunk - 1
+    and + 1, two of K6's chunks and the capacity - 1.  Returns them and the
+    split they were taken from."""
+    group = hq // hkv
+    if PA.uses_wide_kernel(q_dtype, d, group) or PA.uses_group_kernel(q_dtype, d, group):
+        c6, ch6, _ = _cluster_split(q_dtype, store, group, d, max_len, max_len, slots * hkv, False)
+        c5, ch5, w5 = _cluster_split(q_dtype, store, group, d, max_len, 128, slots * hkv, True)
+        edges = (0, ch6 - 1, ch6, ch6 + 1, c6 * ch6 - 1, c6 * ch6, c5 * ch5 + 1, max_len - 1)
+        split = f"K5 {c5} blocks x {w5} chunks of {ch5}, K6 {c6} x chunks of {ch6}"
+    else:
+        (c5, n5), (c6, n6) = _tile_split(slots, hq, hkv, max_len)
+        edges = (0, c5 - 1, c5, c5 + 1, c6 - 1, c6 + 1, 2 * c6, max_len - 1)
+        split = f"K5 {n5}x{c5} K6 {n6}x{c6}"
+    return [min(e, max_len - 1) for e in edges], split
+
+
+def check_decode_padded(gen, controls: list) -> dict:
+    """K5 and K6 at the head dims that run inside a wider instantiation
+    (PADDED_DECODE_DIMS: 48-240 in the split-KV and whole-group kernels'
+    D64 / D128 / D256, 320 and 640 in the wide kernel's D512 / D1024): at
+    each head dim every q dtype over every payload (PADDED_DECODE_STORES),
+    once at one of the split-KV kernel's groups 1, 4 and 8 (on 2 KV heads)
+    and once at one of the whole-group kernel's 16 and 71 (on one KV head),
+    the groups taken in turn and shifted by one at each head dim, so that
+    each head dim meets every payload and group and each payload every
+    group; at 320 and 640 the same groups through the wide kernel.  Cache
+    lengths on the edges of each configuration's splits (`_split_edges`); K5 over
+    pages of 128 (`decode_attention_paged`) and K6 against their plain
+    versions and their plan's at DECODE_TOL (`check_decode`), fp16 q's
+    with its control; then K5 over permuted pages of 16 with NaN past the
+    lengths at each head dim, two configurations each; last, head dims 24,
+    40 and 1040 on the card must raise NotImplementedError through both
+    entry points and launch nothing.  Returns {launch key: errors}."""
+    errs = {}
+    for j, d in enumerate(PADDED_DECODE_DIMS):
+        for i, (name, store, q_dtype) in enumerate(PADDED_DECODE_STORES):
+            for group, hkv in (((1, 4, 8)[(i + j) % 3], 2), ((16, 71)[(i + j) % 2], 1)):
+                edges, split = _split_edges(q_dtype, store, group * hkv, hkv, d, 8, 1024)
+                _gather(errs, check_decode(f"D{d} group {group} hq{group * hkv} hkv{hkv} {name}", gen, 8,
+                                           group * hkv, hkv, d, 1024, store, q_dtype, edges, controls))
+                say(f"[decode] D{d} group {group} {name}: {split}; cache lengths {edges}")
+    lens = [1, 17, 300, 1023, 512, 0, 800, 1024]
+    for j, d in enumerate(PADDED_DECODE_DIMS):
+        for k in range(2):
+            name, store, q_dtype = PADDED_DECODE_STORES[(2 * j + 4 * k) % len(PADDED_DECODE_STORES)]
+            group, hkv = ((4, 2), (16, 1))[k]
+            _gather(errs, check_paged_permuted(f"paged permuted ps16 NaN past length D{d} group {group} {name}", gen,
+                                               8, group * hkv, hkv, d, 16, 64, store, q_dtype, lens, controls))
+    before = dict(FA.KERNEL_LAUNCHES)
+    for d in (24, 40, 1040):
+        cache = KVC.init_cache(1, 2, 2, 128, d, dtype=torch.bfloat16, quant_dtype=torch.int8, device="cuda")
+        q = torch.zeros(2, 4, d, dtype=torch.bfloat16, device="cuda")
+        for entry in (DA.decode_attention_paged, DA.decode_attention_fused):
+            try:
+                entry(q, cache, 0)
+            except NotImplementedError as e:
+                raised = str(e)
+            else:
+                raise AssertionError(f"[decode] D{d}: {entry.__name__} on the card did not raise")
+    if FA.KERNEL_LAUNCHES != before:
+        raise AssertionError("[decode] a head dim the kernels do not take launched a kernel")
+    say(f"[decode] D24, D40 and D1040 through decode_attention_paged / _fused on the card: NotImplementedError before "
+        f"any launch ({raised})")
     return errs
 
 
@@ -2340,6 +2459,45 @@ def phase_serving_mqa(seed: int, smi: str) -> dict:
     return launches
 
 
+# Phi-2 (microsoft/phi-2's config.json: hidden_size 2560, num_attention_heads
+# 32, num_hidden_layers 32, vocab_size 51200, max_position_embeddings 2048,
+# intermediate_size 10240, 4 x 2560): heads of 80, which the decode kernels
+# run inside their D128 instantiations.  Its partial rotary and parallel
+# block are not the repo's GPT; its widths are what this path needs.
+PHI2 = dict(vocab_size=51200, block_size=2048, n_layer=32, n_head=32, n_embd=2560)
+
+
+def phase_serving_phi2(seed: int, smi: str) -> tuple[dict, dict]:
+    """Serving at Phi-2's published widths (32 layers, 32 heads of 80, width
+    2560, vocab 51200), bf16 weights drawn on the card from the seed, behind
+    the engine (8 slots, max_len 2048): the burst on a bf16 cache through
+    einsum, through K5 on an int8 cache and through K6 on an fp8 cache (head
+    dim 80 in the split-KV kernel's D128), exact budgets, K5 / K6 launched
+    n_layer x decode steps; then the fp32 check at Phi-2's widths with 2 of
+    its 32 layers, in the burst's 8 slots of 2048 with most prompts past 1024
+    tokens.  Returns K5's and K6's launches in the bursts and in the check."""
+    tag = "serving-phi2"
+    t0 = time.perf_counter()
+    model = GPT(GPTConfig(**PHI2), generator=torch.Generator("cuda").manual_seed(seed), device="cuda")
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"[{tag}] Phi-2 widths: {cfg.n_layer} layers, {cfg.n_head} heads of {cfg.head_dim} (the decode kernels' "
+        f"D{PA.decode_width(cfg.head_dim)}), width {cfg.n_embd}, vocab {cfg.vocab_size}, {cfg.dtype}; "
+        f"{n_params / 1e9:.3f} B random parameters drawn on the card (seed {seed}) in {time.perf_counter() - t0:.1f} s")
+    base = _burst(seed, tag, model, max_len=2048)
+    say(f"[{tag}] {smi} | bf16 cache, einsum: {_rates(base)}, decode steps {base['steps']}")
+    launches, _ = _decode_bursts(seed, tag, model, base, smi, (("int8", torch.int8, "paged", "paged_decode"),
+                                                               ("fp8", torch.float8_e4m3fn, "fused", "fused_decode")),
+                                 max_len=2048, base_label="bf16 cache, einsum")
+    del model
+    fp32 = GPT(GPTConfig(**{**PHI2, "n_layer": 2, "dtype": torch.float32}),
+               generator=torch.Generator("cuda").manual_seed(seed + 1), device="cuda")
+    checked = _check_impl_parity(tag, "fp32 Phi-2 widths, 2 layers", fp32, seed, (("fp32", None), ("int8", torch.int8)),
+                                 prompt_lens=(2030, 1900, 1500, 1100, 1030, 700, 300, 16), max_len=2048)
+    say(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
+    return launches, checked
+
+
 def phase_serving_fp16(seed: int, smi: str) -> dict:
     """GPT-2 124M in fp16 (weights, activations and cache) behind the engine:
     the burst through einsum, through K5 on an fp16 cache and through K6 on
@@ -2725,6 +2883,21 @@ NEW_DECODE_SHAPES = {
                     ("fp32", "int8 fp32 q")),
     "d32_mqa_fp32": ("hq16 hkv1 D32 fp32 q 32 slots 32 layers L2-cold", 32, 32, 16, 1, 32, 1024, (960, 1024),
                      ("fp32", "int8 fp32 q")),
+    # head dims that run inside a wider instantiation, each model's
+    # published layer at 8 slots: Phi-2's (32 heads of 80, run at D128; 84 MB
+    # a layer on int8, 168 on bf16), GPT-NeoX-20B's (64 of 96), MPT-30B's (64
+    # of 112), StableLM-2-12B's (32 q heads of 160 on 8 KV heads, run at D256,
+    # 4096 tokens) through the split-KV kernel, 2 layers each; a multi-query
+    # layer of 80 (16 q heads on one KV head: the whole-group kernel at D128,
+    # 2.6 MB a layer on int8, so 40 layers)
+    "phi2": ("phi-2 hq32 hkv32 D80 8 slots 2 layers L2-cold", 2, 8, 32, 32, 80, 2048, (1920, 2048), ("int8", "bf16")),
+    "neox20b": ("gpt-neox-20b hq64 hkv64 D96 8 slots 2 layers L2-cold", 2, 8, 64, 64, 96, 2048, (1920, 2048),
+                ("int8", "bf16")),
+    "mpt30b": ("mpt-30b hq64 hkv64 D112 8 slots 2 layers L2-cold", 2, 8, 64, 64, 112, 2048, (1920, 2048),
+               ("int8", "bf16")),
+    "stablelm2_12b": ("stablelm-2-12b hq32 hkv8 D160 8 slots 2 layers L2-cold", 2, 8, 32, 8, 160, 4096, (3800, 4096),
+                      ("int8", "bf16")),
+    "mqa_d80": ("hq16 hkv1 D80 8 slots 40 layers L2-cold", 40, 8, 16, 1, 80, 2048, (1920, 2048), ("int8", "bf16")),
 }
 DECODE_SHAPES = (
     GPT2_HOT_SHAPE,
@@ -2734,7 +2907,7 @@ DECODE_SHAPES = (
 ) + tuple(NEW_DECODE_SHAPES.values())
 # the NEW_DECODE_SHAPES that run the whole-group kernel (a group above 8, bf16
 # or fp16 q, D8-D256)
-GROUP_TIMED = ("santacoder", "falcon40b", "recurrentgemma2b", "palm8b", "d32_mqa")
+GROUP_TIMED = ("santacoder", "falcon40b", "recurrentgemma2b", "palm8b", "d32_mqa", "mqa_d80")
 # the NEW_DECODE_SHAPES that run the whole-group kernel with fp32 q
 GROUP_FP32_TIMED = ("santacoder_fp32", "falcon40b_fp32", "recurrentgemma2b_fp32", "palm8b_fp32", "d32_mqa_fp32")
 # the NEW_DECODE_SHAPES that run the wide kernel (head dims above 256)
@@ -4537,6 +4710,7 @@ def main() -> None:
     wquant_k6 = phase_serving_wquant(args.seed, model, smi)
     del model
     mqa_launches = phase_serving_mqa(args.seed, smi)
+    phi2_launches, phi2_fp32_launches = phase_serving_phi2(args.seed, smi)
     fp16_launches = phase_serving_fp16(args.seed, smi)
     parity_k1 = phase_parity(args.seed)
     phase_parity_quant(args.seed)
@@ -4563,6 +4737,8 @@ def main() -> None:
     times["fused_decode"]["serving_wquant_launches"] = wquant_k6
     for kernel in ("paged_decode", "fused_decode"):
         times[kernel]["serving_fp16_launches"] = fp16_launches[kernel]
+        times[kernel]["serving_phi2_launches"] = phi2_launches[kernel]
+        times[kernel]["serving_phi2_fp32_launches"] = phi2_fp32_launches[kernel]
     # the whole-group kernel's launches are serving-mqa's: n_layer x decode steps;
     # the wide and narrow kernels' the decode phase's (no model path runs head
     # dims above 256 or below 64)
@@ -4593,7 +4769,7 @@ def main() -> None:
     # l2_cold_bound_ms), which is what the serving-quant path reads; at
     # NEW_DECODE_SHAPES (santacoder_*, ...: int8, and the other stores with
     # SDPA as *_library_ms on 16-bit caches) and their launches on the
-    # serving-mqa and serving-fp16 paths
+    # serving-mqa, serving-fp16 and serving-phi2 paths
     say(json.dumps({"kernels": [
         {"name": key, "route": "cuda", "source": src, "replaces": rep, "launches": launches[key],
          "max_abs_err": errors[key], "floor_ms": times[key]["bound_ms"], **times[key]}

@@ -2,11 +2,12 @@
 // fa_paged_decode_group, fa_paged_decode_wide) and K6 (fa_fused_decode,
 // fa_fused_decode_narrow, fa_fused_decode_group, fa_fused_decode_wide),
 // loaded through ctypes (flash_attention_tpu_torch/kernels/_build.py).  The
-// group-tile kernel template and its design are in decode.cuh (head dims 64,
-// 128 and 256), the narrow kernel's (head dims 8-32, GQA groups of up to 8)
-// in decode_narrow.cuh, the whole-group kernel's (GQA groups above 8 at
-// head dims 8-256) in decode_group.cuh (bf16 / fp16 q) and
-// decode_group_fp32.cuh (fp32 q), the wide kernel's (head dims above 256)
+// group-tile kernel template and its design are in decode.cuh (head dims
+// 48-256, a multiple of 16, run at 64, 128 or 256), the narrow kernel's (head
+// dims 8-32, GQA groups of up to 8) in decode_narrow.cuh, the whole-group
+// kernel's (GQA groups above 8 at head dims 8, 16, 32 and 48-256) in
+// decode_group.cuh (bf16 / fp16 q) and decode_group_fp32.cuh (fp32 q), the
+// wide kernel's (head dims 272-1024, a multiple of 16, run at 512 or 1024)
 // in decode_wide.cuh; their instantiations are built by the decode_*.cu
 // sources, one nvcc each, and declared extern here.
 
@@ -55,7 +56,7 @@ cudaError_t launch_dtype(const DecodeParams& p, int kv_dtype, bool paged, int wi
 template <bool kPaged>
 int launch_decode(DecodeParams& p, int q_dtype, int kv_dtype, int batch, int hq, int hkv, int group_tiles,
                   int group_rows, int head_dim, const long long* st, cudaStream_t s) {
-  const int width = head_dim == 64 || head_dim == 128 || head_dim == 256 ? head_dim : 0;
+  const int width = head_dim >= 48 ? instantiated_width(head_dim) : 0;  // d 48-256 run at 64, 128 or 256
   if (batch <= 0 || hkv <= 0 || hq <= 0 || hq % hkv != 0 || group_rows < 1 || group_rows > kMaxRows ||
       group_rows > hq / hkv || group_tiles < 1 || (long long)group_tiles * group_rows < hq / hkv ||
       (long long)(group_tiles - 1) * group_rows >= hq / hkv || width == 0 || p.page_size <= 0 ||
@@ -106,7 +107,8 @@ cudaError_t group32_width(const GroupParams& p, int kv_dtype, int width, bool pa
   }
 }
 
-// The whole-group kernel of q's dtype at the padded head dim (32 for d 8-32).
+// The whole-group kernel of q's dtype at the padded head dim (32 for d 8-32,
+// 64, 128 or 256 for a multiple of 16 from 48 to 256).
 cudaError_t group_dispatch(const GroupParams& p, int q_dtype, int kv_dtype, int head_dim, bool paged, int cluster,
                            dim3 grid, cudaStream_t s, int* resident) {
   const int width = instantiated_width(head_dim);
@@ -115,17 +117,18 @@ cudaError_t group_dispatch(const GroupParams& p, int q_dtype, int kv_dtype, int 
   return group_width<__half>(p, kv_dtype, width, paged, cluster, grid, s, resident);
 }
 
-// The head dims the whole-group kernel takes, for every q dtype: 8, 16, 32,
-// 64, 128 and 256.
+// The head dims the whole-group kernel takes, for every q dtype: 8, 16, 32
+// and every multiple of 16 from 48 to 256.
 bool group_head_dim(int d) { return instantiated_width(d) != 0; }
 
-// The q heads a pass of the whole-group kernel holds at most: 128; for fp32
-// q 64 at D128 and 32 at D256 (decode_group_fp32.cuh: a row tile's two or
-// four warps share a token's columns), for bf16 / fp16 q 32 at D256
-// (decode_group.cuh: 2 row tiles).
+// The q heads a pass of the whole-group kernel holds at most, by the padded
+// head dim: 128; for fp32 q 64 at D128 and 32 at D256 (decode_group_fp32.cuh:
+// a row tile's two or four warps share a token's columns), for bf16 / fp16 q
+// 32 at D256 (decode_group.cuh: 2 row tiles).
 int group_max_rows(int q_dtype, int head_dim) {
-  if (head_dim == 256) return q_dtype == 0 ? kGMaxRows32D256 : kGMaxRowsD256;
-  return q_dtype == 0 && head_dim == 128 ? kGMaxRows32D128 : kGMaxRows;
+  const int width = instantiated_width(head_dim);
+  if (width == 256) return q_dtype == 0 ? kGMaxRows32D256 : kGMaxRowsD256;
+  return q_dtype == 0 && width == 128 ? kGMaxRows32D128 : kGMaxRows;
 }
 
 // The whole-group kernel: passes x pass_rows q heads cover the group (every
@@ -167,7 +170,7 @@ cudaError_t wide_paged(const WideParams& p, int kv_dtype, bool paged, int cluste
                : wide_launch_width<T, D, false>(p, kv_dtype, cluster, grid, s, resident);
 }
 
-// The padded head dim (512 for d 384 and 512, 1024 for 640-1024) and q's dtype.
+// The padded head dim (512 for d 272-512, 1024 for 528-1024) and q's dtype.
 cudaError_t wide_dispatch(const WideParams& p, int q_dtype, int kv_dtype, int head_dim, bool paged, int cluster,
                           dim3 grid, cudaStream_t s, int* resident) {
   const bool narrow = head_dim <= 512;
@@ -183,7 +186,7 @@ cudaError_t wide_dispatch(const WideParams& p, int q_dtype, int kv_dtype, int he
                 : wide_paged<__half, 1024>(p, kv_dtype, paged, cluster, grid, s, resident);
 }
 
-bool wide_head_dim(int d) { return d >= 384 && d <= 1024 && d % 128 == 0; }
+bool wide_head_dim(int d) { return d > 256 && d <= 1024 && d % 16 == 0; }
 
 // The narrow kernel of q's dtype (head dims 8, 16 and 32).
 cudaError_t narrow_dispatch(const GroupParams& p, int q_dtype, int kv_dtype, bool paged, int cluster, dim3 grid,
@@ -273,10 +276,10 @@ using fa::decode::wide_dispatch;
 
 // Common arguments.  q_dtype: 0 = float32, 1 = bfloat16, 2 = float16.
 // kv_dtype: 0 = the payload is q's dtype (no scales), 1 = int8, 2 =
-// float8_e4m3fn (both with k_scales / v_scales).  head_dim 64, 128 or 256
-// (8-32 and above 256: the narrow, whole-group and wide entry points,
-// below); any hq / hkv, run in group_tiles tiles of
-// group_rows (1-8) q heads, a block each (the last tile may hold fewer;
+// float8_e4m3fn (both with k_scales / v_scales).  head_dim a multiple of 16
+// from 48 to 256, run at 64, 128 or 256 (8-32 and above 256: the narrow,
+// whole-group and wide entry points, below); any hq / hkv, run in
+// group_tiles tiles of group_rows (1-8) q heads, a block each (the last tile may hold fewer;
 // the caller chooses both, and a pair that does not cover the group with
 // every tile live is refused).  strides (elements): q (batch,
 // head), out (batch, head), k and v (head, page or slot, row), scales
@@ -285,7 +288,7 @@ using fa::decode::wide_dispatch;
 // blocks of `chunk` tokens per (sequence, KV head, group tile), chunk *
 // splits >= the capacity, splits <= 64; for K5 the chunk is whole pages, at
 // most 256 of them.  workspace: batch * hkv * group_tiles * splits * group_rows *
-// (head_dim + 2) fp32; counters:
+// (D + 2) fp32, D the width head_dim runs at (64, 128 or 256); counters:
 // batch * hkv * group_tiles int32, zero before the first launch (each launch
 // leaves them zero); both may be null when splits == 1.  Returns a
 // cudaError_t (0 on success).
@@ -352,9 +355,10 @@ extern "C" int fa_fused_decode(const void* q, const void* k, const void* v, cons
                               static_cast<cudaStream_t>(stream));
 }
 
-// The whole-group kernels: a GQA group above 8 at head_dim 8, 16, 32, 64,
-// 128 or 256 with fp32 (q_dtype 0; decode_group_fp32.cuh), bf16 (1) or fp16
-// (2) q (decode_group.cuh).  Arguments as above, but no workspace or
+// The whole-group kernels: a GQA group above 8 at head_dim 8, 16, 32 or a
+// multiple of 16 from 48 to 256 with fp32 (q_dtype 0;
+// decode_group_fp32.cuh), bf16 (1) or fp16 (2) q (decode_group.cuh).
+// Arguments as above, but no workspace or
 // counters: the group runs in `passes` passes of `pass_rows` q heads (a
 // multiple of 16, at most 128, 64 for fp32 q at 128, 32 at 256; every pass
 // live), a
@@ -436,7 +440,7 @@ extern "C" int fa_decode_group_resident(int q_dtype, int kv_dtype, int head_dim,
   return e != cudaSuccess ? -(int)e : resident;
 }
 
-// The wide kernels (decode_wide.cuh): head_dim 384-1024 (a multiple of 128)
+// The wide kernels (decode_wide.cuh): head_dim 272-1024 (a multiple of 16)
 // for every q dtype, payload and group.  Arguments as the whole-group entry
 // points', but passes of `pass_rows` q heads (1-8; every pass live), a
 // cluster of `cluster` blocks (1-8) per (sequence, KV head, pass), block c

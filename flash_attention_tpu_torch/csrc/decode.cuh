@@ -1,7 +1,8 @@
 // One-token decode attention for Hopper (sm_90a): K5, the paged kernel
 // (fa_paged_decode), and K6, the slot-major kernel (fa_fused_decode), two
-// instantiations of one split-KV kernel template, at head dims 64, 128 and
-// 256.  This header holds the template; decode.cu holds the plain C entry
+// instantiations of one split-KV kernel template, instantiated at head dims
+// 64, 128 and 256 and running every multiple of 16 from 48 to 256 inside
+// them.  This header holds the template; decode.cu holds the plain C entry
 // points loaded through ctypes (flash_attention_tpu_torch/kernels/_build.py),
 // and the instantiations are split by q dtype and head dim over
 // decode_<fp32|bf16|fp16>_d<D>.cu (9 sources, one nvcc each), so that no
@@ -39,7 +40,13 @@
 // (8, 128) tiles and have no counterpart here.
 //
 // What it takes: q in fp32, bf16 or fp16; K/V in q's dtype, or int8 / fp8
-// e4m3 with scales; any GQA group; head dims 64, 128 and 256 (Width<D>).
+// e4m3 with scales; any GQA group; head dims d 48-256, a multiple of 16, run
+// at the instantiated D of 64, 128 or 256 (Width<D>) that holds them
+// (instantiated_width): a row's d columns are copied from the cache in
+// 16-byte pieces (d x 1 byte is whole pieces) and the columns d..D-1
+// zero-filled in shared memory without a read, q's columns past d are
+// zero, and only d output columns (and d workspace columns a row) are
+// written.  So the bytes read track d while S and P V run over D columns.
 //
 // What bounds it on this card: bytes.  A decode step reads each live
 // token's K and V row once, at 2 FLOPs per byte and q row of the GQA group
@@ -126,7 +133,7 @@ struct DecodeParams {
   const int* lengths;    // [batch]
   const int* table;      // [batch, pages_per_seq] (K5) or null (K6)
   void* o;               // [batch, hq, d]
-  float* ws;             // partials [batch, hkv * gtiles, splits, rows, d + 2] (m, l, acc)
+  float* ws;             // partials [batch, hkv * gtiles, splits, rows, D + 2] (m, l, acc)
   int* counters;         // [batch, hkv * gtiles], zero between launches
   long long q_sb, q_sh, o_sb, o_sh;
   long long k_sh, k_sp, k_sr, v_sh, v_sp, v_sr, s_sh, s_sp;
@@ -145,12 +152,17 @@ struct Width {
   static constexpr int kCols = D / kSlabs;  // columns of a slab
 };
 
-// The padded head dim of the whole-group kernels that runs head dim d (32
-// for d = 8, 16 and 32), or 0 when none does.
+// The padded head dim D that runs head dim d (paged_attention.decode_width):
+// 32 for d = 8, 16 and 32 (the whole-group kernels' D32), 64, 128 or 256 for
+// a multiple of 16 from 48 to 256 (the split-KV and whole-group kernels copy
+// a row's d columns and zero-fill the columns d..D-1 in shared memory), or 0
+// when none of these does (above 256: the wide kernel, wide_head_dim).
 inline int instantiated_width(int d) {
   if (d == 8 || d == 16 || d == 32) return 32;
-  if (d == 64 || d == 128 || d == 256) return d;
-  return 0;
+  if (d < 48 || d > 256 || d % 16 != 0) return 0;
+  if (d <= 64) return 64;
+  if (d <= 128) return 128;
+  return 256;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -428,10 +440,15 @@ decode_kernel(const DecodeParams p) {
   };
 
   // Stage the warp's slab of the stream's j-th tile, rows past the chunk's
-  // live end zero-filled.  With pages of a multiple of kTile tokens (the
-  // host's chunks are whole pages) a tile lies in one page, found once per
-  // tile.
+  // live end and the columns past d zero-filled without a read.  With pages
+  // of a multiple of kTile tokens (the host's chunks are whole pages) a tile
+  // lies in one page, found once per tile.  A lane's copies are all the same
+  // 16-byte piece of their rows, so whether it lies in the row's d columns
+  // (whole pieces) is found once; comparing each copy's byte with d's made
+  // ptxas spill at D256.
   const bool one_page = !kPaged || p.page_size % kTile == 0;
+  static_assert(32 % kCopies == 0, "a lane's copies are one piece of their rows");
+  const bool col_live = slab * L::kRow + lane % kCopies * 16 < p.head_dim * (int)sizeof(KV);
   auto issue = [&](int j, int stage) {
     const int t0 = c0 + (stream + j * kStreams) * kTile;
     unsigned char* dk = ring + stage * L::kStage;
@@ -453,7 +470,7 @@ decode_kernel(const DecodeParams p) {
     for (int i = lane; i < kTile * kCopies; i += 32) {
       const int r = i / kCopies, c = i % kCopies;
       const int at = slab * L::kRow + c * 16;  // the copy's byte in the whole row
-      const bool ok = t0 + r < limit;
+      const bool ok = t0 + r < limit && col_live;
       long long ko = 0, vo = 0;
       if (ok) {
         int page, row;
@@ -492,36 +509,43 @@ decode_kernel(const DecodeParams p) {
   // (below).
   const T* gq0 = static_cast<const T*>(p.q) + b * p.q_sb + ((long long)hk * p.group + gt * p.rows) * p.q_sh;
   const int col0 = slab * W::kCols;  // the slab's first column
-  auto q_at = [&](int g, int col) -> float {
-    return g < G ? round_to<T>(to_float(gq0[g * p.q_sh + col]) * p.q_scale) : 0.f;
-  };
   uint32_t qb[W::kCols / 16][2];
-  if constexpr (kMma) {
-    // B fragment of k-step ks, lane (n = lane / 4, c = lane % 4): the mma's
-    // k indices 2c, 2c + 1, 2c + 8, 2c + 9 are taken as the columns
-    // 16 ks + 4c ... + 3 (the sum over the columns does not depend on their
-    // order), so that the A fragment of K is 4 contiguous elements of a row.
-    const int g = lane / 4, c = lane % 4;
-#pragma unroll
-    for (int ks = 0; ks < W::kCols / 16; ++ks) {
-      float x[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) x[e] = q_at(g, col0 + ks * 16 + 4 * c + e);
-      qb[ks][0] = Pack<T>::two(x[0], x[1]);
-      qb[ks][1] = Pack<T>::two(x[2], x[3]);
-    }
-  }
-  // FMAs: this lane's 8 columns of the tile's q rows, scaled by q_scale
-  // and rounded to T (K6's pre-scaling; K5 passes 1, which leaves q as it
-  // is); rows past the tile are zero.
   const int qj = lane % kLanes;
   float q[kMaxG][8];
-  if constexpr (!kMma) {
+  // Rows past the tile and (`masked`) columns past d are zero.  A slab that
+  // lies below d (every slab where d == D) takes the loads without the
+  // column test: with it a Llama int8 K6 step took 4% longer.
+  auto load_q = [&](auto masked) {
+    auto q_at = [&](int g, int col) -> float {
+      if (decltype(masked)::value && col >= p.head_dim) return 0.f;
+      return g < G ? round_to<T>(to_float(gq0[g * p.q_sh + col]) * p.q_scale) : 0.f;
+    };
+    if constexpr (kMma) {
+      // B fragment of k-step ks, lane (n = lane / 4, c = lane % 4): the mma's
+      // k indices 2c, 2c + 1, 2c + 8, 2c + 9 are taken as the columns
+      // 16 ks + 4c ... + 3 (the sum over the columns does not depend on their
+      // order), so that the A fragment of K is 4 contiguous elements of a row.
+      const int g = lane / 4, c = lane % 4;
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g)
+      for (int ks = 0; ks < W::kCols / 16; ++ks) {
+        float x[4];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) q[g][e] = q_at(g, col0 + qj * 8 + e);
-  }
+        for (int e = 0; e < 4; ++e) x[e] = q_at(g, col0 + ks * 16 + 4 * c + e);
+        qb[ks][0] = Pack<T>::two(x[0], x[1]);
+        qb[ks][1] = Pack<T>::two(x[2], x[3]);
+      }
+    } else {
+      // FMAs: this lane's 8 columns of the tile's q rows, scaled by q_scale
+      // and rounded to T (K6's pre-scaling; K5 passes 1, which leaves q as
+      // it is).
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) q[g][e] = q_at(g, col0 + qj * 8 + e);
+    }
+  };
+  if (col0 + W::kCols <= p.head_dim) load_q(std::false_type{});
+  else load_q(std::true_type{});
 
   const int pc = lane % kCols, psub = lane / kCols;  // P V: columns pc * 8 .. + 8, tokens psub + i * kSub
   const int half = lane / 16, ht = lane % 16;        // softmax: rows half + 2 i, token ht
@@ -697,10 +721,15 @@ decode_kernel(const DecodeParams p) {
 
   T* go = static_cast<T*>(p.o) + b * p.o_sb + ((long long)hk * p.group + gt * p.rows) * p.o_sh;
   const long long pair = (long long)b * gridDim.x + blockIdx.x;
-  constexpr int d = D;
-  float* part = live > 1 ? p.ws + (pair * p.splits + split) * p.rows * (d + 2) : nullptr;
-  for (int i = tid; i < G * d; i += kThreads) {
-    const int g = i / d, col = i % d;
+  // The output's d columns; the loops walk D's, so that they divide by a
+  // constant, and skip the columns past d.  A workspace row is D + 2 floats
+  // whatever d (the host sizes it by the instantiated width), so that the
+  // serial merge of many splits addresses it by a constant stride.
+  const int d = p.head_dim;
+  float* part = live > 1 ? p.ws + (pair * p.splits + split) * p.rows * (D + 2) : nullptr;
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int g = i / D, col = i % D;
+    if (col >= d) continue;
     const int sl = col / Dw, cc = col % Dw;  // the column's slab, and its column there
     float mx = -CUDART_INF_F;
 #pragma unroll
@@ -718,10 +747,10 @@ decode_kernel(const DecodeParams p) {
     if (live == 1) {  // the sequence's only live split: write the output
       go[g * p.o_sh + col] = from_float<T>(o / (l == 0.f ? 1.f : l));
     } else {  // publish this split's state
-      part[g * (d + 2) + 2 + col] = o;
+      part[g * (D + 2) + 2 + col] = o;
       if (col == 0) {
-        part[g * (d + 2)] = mx;
-        part[g * (d + 2) + 1] = l;
+        part[g * (D + 2)] = mx;
+        part[g * (D + 2) + 1] = l;
       }
     }
   }
@@ -737,13 +766,14 @@ decode_kernel(const DecodeParams p) {
   // out = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M), merged online in
   // one pass over the splits whose loads do not wait on each other; the
   // other blocks' states are read through L2 (ld.cg), never a stale L1.
-  const float* parts = p.ws + pair * p.splits * p.rows * (d + 2);
-  for (int i = tid; i < G * d; i += kThreads) {
-    const int g = i / d, col = i % d;
+  const float* parts = p.ws + pair * p.splits * p.rows * (D + 2);
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int g = i / D, col = i % D;
+    if (col >= d) continue;
     float mx = -CUDART_INF_F, l = 0.f, o = 0.f;
 #pragma unroll 8
     for (int s = 0; s < live; ++s) {
-      const float* st = parts + ((long long)s * p.rows + g) * (d + 2);
+      const float* st = parts + ((long long)s * p.rows + g) * (D + 2);
       const float m = __ldcg(st), ls = __ldcg(st + 1), os = __ldcg(st + 2 + col);
       const float m_new = fmaxf(mx, m);
       const float a = expf(mx - m_new), w = expf(m - m_new);  // live splits: m finite

@@ -36,7 +36,7 @@ struct GroupParams {
   int group, passes, pass_rows;
   int page_size, pages_per_seq, len_add;
   int chunk, walks;      // tokens of a chunk; chunks a block walks
-  int head_dim;          // d, at most the instantiated D (8, 16 or 32 at D32)
+  int head_dim;          // d, at most the instantiated D (8, 16 or 32 at D32; 48-256, a multiple of 16, at D64-D256)
   float q_scale, score_scale;
 };
 
@@ -112,9 +112,12 @@ __device__ __forceinline__ void cluster_merge(const float* state, const float* s
     }
   }
   __syncthreads();
-  const int d4 = d / 4;
-  for (int e = rank * kThreads + tid; e < G * d4; e += C * kThreads) {
-    const int g = e / d4, c4 = e % d4;
+  // The loop walks D's columns, so that it divides by a constant whatever
+  // d, and skips those past d.
+  constexpr int kD4 = D / 4;
+  for (int e = rank * kThreads + tid; e < G * kD4; e += C * kThreads) {
+    const int g = e / kD4, c4 = e % kD4;
+    if (c4 * 4 >= d) continue;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int r = 0; r < C; ++r) {
       const float w = weights[g * kClusterMax + r];

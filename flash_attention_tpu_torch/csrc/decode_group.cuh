@@ -1,6 +1,7 @@
 // One-token decode attention for a GQA group of more than 8 q heads
-// (multi-query attention) with bf16 or fp16 q at head dims 8-32 (run at 32),
-// 64, 128 and 256: K5 (paged, fa_paged_decode_group) and K6 (slot-major,
+// (multi-query attention) with bf16 or fp16 q at head dims 8-32 (run at 32)
+// and every multiple of 16 from 48 to 256 (run at 64, 128 or 256): K5
+// (paged, fa_paged_decode_group) and K6 (slot-major,
 // fa_fused_decode_group), two instantiations of one kernel template.  This
 // header holds the template; decode.cu holds the C entry points, and the
 // instantiations are split by q dtype, head dim and entry point over the 16
@@ -59,6 +60,12 @@
 //     within a sub-tile's 8-token halves the tokens are taken in the order
 //     0, 4, 1, 5, 2, 6, 3, 7, so that an 8-bit V's 4-byte reads of rows 2t
 //     and 2t + 1 fall in distinct banks;
+//   * a head dim d below the instantiated D (d 8-16 at D32, a multiple of 16
+//     from 48 to 240 at D64 to D256: Phi-2's 80, GPT-NeoX-20B's 96): a row's
+//     d columns are copied from the cache, the columns d..D-1 zero-filled in
+//     the ring without a read (`src_bytes` 0) and zero in q, so that the
+//     bytes read track d and S is exact; an 8-bit V is widened only for its d
+//     columns, and only d output columns are written;
 //   * an int8 / fp8 payload is read exactly in q's dtype: K straight from its
 //     bytes into S's B fragments (4 consecutive columns a lane, q's columns
 //     in the same order); at D64 to D256 V widened by each warp, for its
@@ -215,7 +222,7 @@ __global__ void __launch_bounds__(kGThreads) group_kernel(const GroupParams p) {
   const int G = min(p.pass_rows, p.group - g0);  // q rows of this block, at most 16 kRW (the host keeps to it)
   const int rt = warp / kCS, slice = warp % kCS;  // this warp's row tile and column slice (D32: token group)
   const bool rows_live = rt * 16 < G;
-  const int d = D == 32 ? p.head_dim : D;        // the columns past d (D32) are zero in q, K and V
+  const int d = p.head_dim;                      // the columns past d are zero in q, K and V
   const int len = p.lengths[b];
 
   // q's rows of the pass into shared memory (over the P tiles, which the
@@ -315,10 +322,11 @@ __global__ void __launch_bounds__(kGThreads) group_kernel(const GroupParams p) {
   const bool one_page = !kPaged || p.page_size % kTok == 0;
   // A thread copies the kCopy-byte piece cc of rows r0, r0 + kRowStep, ...:
   // (row & 7) is r0's, so the piece's swizzled place is fixed.  A piece past
-  // the row's d columns (D32) is zero-filled without a read.
+  // the row's d columns is zero-filled without a read (d x the payload's
+  // bytes is whole pieces).
   const int cc = tid % kChunks, r0 = tid / kChunks;
   const int at = cc * kCopy;  // the piece's byte in the row
-  const bool col_ok = D != 32 || at < d * (int)sizeof(KV);
+  const bool col_ok = at < d * (int)sizeof(KV);
   const int dst0 = r0 * L::kRow + ((at / 16) ^ swizzle<L::kRow>(r0)) * 16 + at % 16;
 
   // Stage j into ring slot `slot`: rows past the stage's live end are
@@ -534,15 +542,21 @@ __global__ void __launch_bounds__(kGThreads) group_kernel(const GroupParams p) {
         // An 8-bit V into a 16-bit tile (exact), each warp the rows of its
         // share of the stage's tokens and the columns of its slice, which only
         // the warps of that slice read (after the barriers below); the scales
-        // beside it, so that the ring's slot is free once S is done.
+        // beside it, so that the ring's slot is free once S is done.  Only
+        // the d columns: the columns past d feed only output columns that are
+        // never written.  A lane's pieces are all at one column of their rows
+        // (32 is a multiple of a row's pieces), so that is tested once.
         constexpr int kPieces = kW / 4;  // 4-byte pieces of a slice's row
+        static_assert(32 % kPieces == 0, "a lane's pieces are one column of their rows");
         const int first = rt * (kTok / kRW);
+        if (slice * kW + (lane % kPieces) * 4 < d) {
 #pragma unroll 4
-        for (int i = lane; i < (kTok / kRW) * kPieces; i += 32) {
-          const int r = first + i / kPieces, col = slice * kW + (i % kPieces) * 4;
-          uint2 w;
-          widen4<T, KV>(sV + r * L::kRow + (((col / 16) ^ swizzle<L::kRow>(r)) * 16) + col % 16, w.x, w.y);
-          *reinterpret_cast<uint2*>(cvt + r * D * 2 + (((col / 8) ^ (r & 7)) * 16) + (col % 8) * 2) = w;
+          for (int i = lane; i < (kTok / kRW) * kPieces; i += 32) {
+            const int r = first + i / kPieces, col = slice * kW + (i % kPieces) * 4;
+            uint2 w;
+            widen4<T, KV>(sV + r * L::kRow + (((col / 16) ^ swizzle<L::kRow>(r)) * 16) + col % 16, w.x, w.y);
+            *reinterpret_cast<uint2*>(cvt + r * D * 2 + (((col / 8) ^ (r & 7)) * 16) + (col % 8) * 2) = w;
+          }
         }
         for (int i = tid; i < 2 * kTok; i += kGThreads) cvt_scales[i] = sKs[i];
         v_base = smem_u32(cvt);

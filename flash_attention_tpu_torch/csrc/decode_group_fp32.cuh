@@ -1,6 +1,7 @@
 // One-token decode attention for a GQA group of more than 8 q heads
-// (multi-query attention) with fp32 q at head dims 8-32 (run at 32), 64, 128
-// and 256: K5 (paged, fa_paged_decode_group) and K6 (slot-major,
+// (multi-query attention) with fp32 q at head dims 8-32 (run at 32) and every
+// multiple of 16 from 48 to 256 (run at 64, 128 or 256): K5 (paged,
+// fa_paged_decode_group) and K6 (slot-major,
 // fa_fused_decode_group) over an fp32, int8 or fp8 e4m3 cache, two
 // instantiations of one kernel template.  This header holds the template;
 // decode.cu's entry points reach it for q dtype 0, and the instantiations are
@@ -67,10 +68,13 @@
 //     there each 8-token half of a sub-tile is taken in the order 0, 4, 1, 5,
 //     2, 6, 3, 7 (decode_group.cuh's tok8), so that V's reads of the two
 //     tokens of a depth pair, rows t and t + 4, fall in distinct banks;
-//   * at D32 (d 8, 16, 32) the columns past d are zero in q and, filled
+//   * below the instantiated D (d 8, 16 at D32; a multiple of 16 from 48 to
+//     240 at D64 to D256) the columns past d are zero in q and, filled
 //     without a read, in the ring (a zero q column would not mask a NaN left
-//     there): rows are copied 16 bytes at a time (an fp32 row at d = 8 is 32
-//     bytes), an 8-bit row 8 bytes at a time (8 bytes at d = 8);
+//     there; at D128 / D256 a warp whose columns all lie past d still adds
+//     its zero partial S): rows are copied 16 bytes at a time (an fp32 row at
+//     d = 8 is 32 bytes), an 8-bit row at D32 8 bytes at a time (8 bytes at
+//     d = 8), and only d output columns are written;
 //   * a stage is as many tokens as fill 32 KB of K (128; 64 for an fp32
 //     cache at D128, 32 at D256; `paged_attention.group_tokens`), in a ring
 //     of 2-4 stages of 96 KB at most (fp32 at D128: 2 of 64 KB); at D256 of
@@ -179,7 +183,7 @@ __global__ void __launch_bounds__(kGThreads, 1) group_fp32_kernel(const GroupPar
   const int part_of = warp % kSplit;             // and its kCols head-dim columns
   const int col0 = part_of * kCols;
   const bool rows_live = rt * 16 < G;
-  const int d = D == 32 ? p.head_dim : D;        // the columns past d (D32) are zero in q, K and V
+  const int d = p.head_dim;                      // the columns past d are zero in q, K and V
   const int len = p.lengths[b];
 
   // q's A fragments of the warp's row tile and columns, split once; rows past
@@ -250,11 +254,11 @@ __global__ void __launch_bounds__(kGThreads, 1) group_fp32_kernel(const GroupPar
   // A thread copies the kCopy-byte piece cc of rows r0, r0 + kRowStep, ...:
   // with kRowStep a multiple of 8, (row & 7) is r0's, so the piece's
   // swizzled place is fixed (an fp32 row at D256 takes 64 threads: there it
-  // is found for each row).  A piece past the row's d columns (D32) is
-  // zero-filled without a read.
+  // is found for each row).  A piece past the row's d columns is
+  // zero-filled without a read (d x the payload's bytes is whole pieces).
   const int cc = tid % kChunks, r0 = tid / kChunks;
   const int at = cc * kCopy;  // the piece's byte in the row
-  const bool col_ok = D != 32 || at < d * (int)sizeof(KV);
+  const bool col_ok = at < d * (int)sizeof(KV);
   auto dst_of = [&](int i) {  // the ring offset of the piece in row r0 + i kRowStep of a stage
     const int r = r0 + i * kRowStep;
     const int row0 = kRowStep % 8 == 0 ? r0 : r;

@@ -1,8 +1,9 @@
-// One-token decode attention at head dims above 256 (true d 384-1024, run
-// at padded D = 512 or 1024): K5 (paged, fa_paged_decode_wide) and K6
-// (slot-major, fa_fused_decode_wide), two instantiations of one kernel
-// template, for q in fp32, bf16 and fp16, payloads in q's dtype, int8 and
-// fp8 e4m3 with per-token fp32 scales, and every GQA group.  This header
+// One-token decode attention at head dims above 256 (true d 272-1024, a
+// multiple of 16, run at padded D = 512 or 1024): K5 (paged,
+// fa_paged_decode_wide) and K6 (slot-major, fa_fused_decode_wide), two
+// instantiations of one kernel template, for q in fp32, bf16 and fp16,
+// payloads in q's dtype, int8 and fp8 e4m3 with per-token fp32 scales, and
+// every GQA group.  This header
 // holds the template; decode.cu holds the C entry points, and the
 // instantiations are split by q dtype, D and entry point over the 12 sources
 // decode_wide_<fp32|bf16|fp16>_d<512|1024>_<k5|k6>.cu.
@@ -15,7 +16,9 @@
 // k_scale; natural exp and an online softmax in fp32; p * v_scale rounded to
 // q's dtype before P V; one final division with the l == 0 guard.  Only the
 // order of summation differs from the plain versions.  The columns past d
-// are never read or stored.
+// are never read from the cache or stored; where d ends inside a consumer's
+// slab (d not a multiple of D / 8: 272, 320, 528, ...), that slab's columns
+// past d are zeroed once in every row of the ring, and q's are zero.
 //
 // What bounds it on this card: bytes.  A row of K and V is 0.75-4 KB, so a
 // decode step over a long context reads tens of MB (8 slots of ~2000 tokens
@@ -91,7 +94,7 @@ struct WideParams {
   long long q_sb, q_sh, o_sb, o_sh;
   long long k_sh, k_sp, k_sr, v_sh, v_sp, v_sr, s_sh, s_sp;
   int group, passes, pass_rows;  // q heads a KV head, passes of the group, q heads a pass (1-8)
-  int head_dim;                  // d: 384-1024, a multiple of 128, at most D
+  int head_dim;                  // d: 272-1024, a multiple of 16, at most D
   int page_size, pages_per_seq, len_add;
   int chunk, walks;              // tokens of a chunk; chunks a block walks
   float q_scale, score_scale;
@@ -191,6 +194,18 @@ __global__ void __launch_bounds__(kWThreads, 1) wide_kernel(const WideParams p) 
     for (int i = tid; i < kWConsumers * L::kPWarp / 16; i += kWThreads)
       reinterpret_cast<uint4*>(smem + L::kP)[i] = make_uint4(0u, 0u, 0u, 0u);
   }
+  {
+    // The last live slab's columns past d (where d ends inside it) are read
+    // by its warp but written by no copy (a bulk copy moves a row's d
+    // columns): zero them once in every row of every slot, since 0 times
+    // whatever an earlier kernel left there could be NaN.  d x the payload's
+    // bytes and the slab's are whole 16-byte pieces.
+    const int row_bytes = d * (int)sizeof(KV);
+    const int pieces = (((d + kCols - 1) / kCols) * kCols * (int)sizeof(KV) - row_bytes) / 16;
+    for (int i = tid; i < NS * kTok * pieces; i += kWThreads)
+      *reinterpret_cast<uint4*>(ring + (i / pieces) * L::kRow + row_bytes + (i % pieces) * 16) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
   const int capacity = kPaged ? p.page_size * p.pages_per_seq : p.page_size;
   const int ppc = kPaged ? p.chunk / p.page_size : 1;  // pages of a chunk
   if constexpr (kPaged) {
@@ -203,7 +218,7 @@ __global__ void __launch_bounds__(kWThreads, 1) wide_kernel(const WideParams p) 
   }
 
   // The consumers' q rows of their slab, scaled by q_scale and rounded to T
-  // (K6's pre-scaling; K5 passes 1), rows past the pass and slabs past d
+  // (K6's pre-scaling; K5 passes 1), rows past the pass and columns past d
   // zero; read beside the length.  FMAs: a lane's 8 columns of every row.
   // mma: S^T = K q^T, q the B operand (k = columns, n = q rows), lane (g =
   // lane / 4, c = lane % 4) holding row g's columns 16 ks + 2c, 2c + 1,
@@ -216,7 +231,8 @@ __global__ void __launch_bounds__(kWThreads, 1) wide_kernel(const WideParams p) 
   const bool slab_live = warp < kWConsumers && warp * kCols < d;
   const T* gq = static_cast<const T*>(p.q) + b * p.q_sb + ((long long)hk * p.group + g0) * p.q_sh + warp * kCols;
   auto q_at = [&](int g, int col) -> float {
-    return slab_live && g < G ? round_to<T>(to_float(gq[g * p.q_sh + col]) * p.q_scale) : 0.f;
+    return slab_live && g < G && warp * kCols + col < d ? round_to<T>(to_float(gq[g * p.q_sh + col]) * p.q_scale)
+                                                        : 0.f;
   };
   float q[kMma ? 1 : kMaxG][8];
   uint32_t qb[kMma ? kKs : 1][2];
@@ -320,7 +336,7 @@ __global__ void __launch_bounds__(kWThreads, 1) wide_kernel(const WideParams p) 
     // the warp's own P; then acc = acc alpha + P V over the warp's slab.
     float* sS = reinterpret_cast<float*>(smem + L::kS);
     unsigned char* sP = smem + L::kP + warp * L::kPWarp;
-    const int nslabs = d / kCols;
+    const int nslabs = (d + kCols - 1) / kCols;  // the live slabs, the last maybe partly
     const int tok = lane % kTok;
     const int slab_off = warp * kCols * (int)sizeof(KV);
     for (int j = 0; j < nstages; ++j) {

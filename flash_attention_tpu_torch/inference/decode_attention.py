@@ -15,13 +15,14 @@ implementations of one function, selected by `decode_step(attn_impl=...)`:
 
 Both kernels stop at each slot's length and dequantize int8/fp8 payloads in
 registers.  They take fp32, bf16 and fp16 q, any GQA group (multi-query
-attention included) and head dims 8, 16, 32, 64 and every multiple of 128
-up to 1024 (`paged_attention.HEAD_DIMS`).  On CPU tensors the paged path
-takes K5's plain version (`paged_attention_ref`) and the fused path the
+attention included) and head dims 8, 16, 32 and every multiple of 16 from
+48 to 1024 (`paged_attention.HEAD_DIMS`: Phi-2's 80, GPT-NeoX-20B's 96,
+MPT-30B's 112, StableLM-2-12B's 160 among them).  On CPU tensors the paged
+path takes K5's plain version (`paged_attention_ref`) and the fused path the
 einsum.  The TPU-only fallbacks of the JAX package (to the einsum for head
-dims the TPU could not tile, :172-173, :431-439) are not ported: the fused
-path runs K6 at d = 256 and above, where JAX's fell back (the same
-function), and on CUDA a head dim outside that set raises.
+dims the TPU could not tile, :172-173, :431-439) are not ported: at those
+head dims the kernels run (the same function), and on CUDA a head dim
+outside that set raises rather than run an einsum.
 """
 
 from __future__ import annotations
@@ -93,6 +94,7 @@ def decode_attention_paged(
     cache (`kv_cache.page_view`) and its identity page table.  Reads only
     the pages up to each slot's length + 1 (the current token).  On CUDA it
     takes what `paged_attention` takes (fp32/bf16/fp16 q, any GQA group,
+    head dims 8, 16, 32 and every multiple of 16 from 48 to 1024,
     `paged_attention.HEAD_DIMS`) and raises on anything else."""
     if sm_scale is None:
         sm_scale = float(q.shape[-1]) ** -0.5
@@ -117,7 +119,8 @@ def decode_attention_fused(
     shape.  Reads layer `layer` of the cache in place, each slot only up to
     its length + 1, with q pre-scaled by sm_scale and rounded to its dtype
     as the TPU kernel does.  On CUDA: fp32/bf16/fp16 q, any GQA group and
-    `paged_attention.HEAD_DIMS`, as K5 (anything else raises).  Its plain
+    head dims 8, 16, 32 and every multiple of 16 from 48 to 1024
+    (`paged_attention.HEAD_DIMS`), as K5 (anything else raises).  Its plain
     version, for CPU tensors, is the einsum `decode_attention`."""
     if sm_scale is None:
         sm_scale = float(q.shape[-1]) ** -0.5

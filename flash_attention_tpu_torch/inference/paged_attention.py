@@ -23,16 +23,19 @@ as pages [kv_heads, total_pages, page_size, head_dim]; each sequence owns a
 `_launch_decode` is also K6's launcher (`decode_attention.decode_attention_fused`):
 both kernels are one template in `csrc/decode.cuh`, with two entry points in
 `csrc/decode.cu`.  They take fp32, bf16 and fp16 q, any GQA group (split
-into group tiles of at most 8 q heads, `group_tiles`) and head dims 64, 128
-and 256.  Head dims 8, 16 and 32 at GQA groups of up to 8
+into group tiles of at most 8 q heads, `group_tiles`) and every head dim
+that is a multiple of 16 from 48 to 256, run at 64, 128 or 256
+(`decode_width`: a row's d columns are copied, the columns past them
+zero-filled in shared memory).  Head dims 8, 16 and 32 at GQA groups of up to 8
 (`uses_narrow_kernel`, every q dtype and payload) run the narrow kernels of
 `csrc/decode_narrow.cuh` (`fa_paged_decode_narrow`, `fa_fused_decode_narrow`;
 launch keys "paged_decode_narrow" / "fused_decode_narrow"): a (sequence, KV
 head) is a thread-block cluster whose blocks walk interleaved chunks of 128
 tokens, each warp 32-token tiles with a lane a token, merged over
 distributed shared memory; their plan in plain PyTorch is
-`paged_attention_narrow_ref`.  Head dims above 256 (384-1024, `uses_wide_kernel`, for
-every q dtype and group) run the wide kernels of `csrc/decode_wide.cuh`
+`paged_attention_narrow_ref`.  Head dims above 256 (every multiple of 16
+from 272 to 1024, run at 512 or 1024; `uses_wide_kernel`, for every q dtype
+and group) run the wide kernels of `csrc/decode_wide.cuh`
 (`fa_paged_decode_wide`, `fa_fused_decode_wide`; launch keys
 "paged_decode_wide" / "fused_decode_wide"): a (sequence, KV head, pass of at
 most 8 q heads) is a thread-block cluster whose blocks walk chunks of one
@@ -43,7 +46,8 @@ and chunk.  `HEAD_DIMS` lists every head dim the decode kernels take.  A GQA
 group above 8 (`uses_group_kernel`: multi-query attention, Falcon-40B's 16
 q heads a KV head, RecurrentGemma-2B's 10 at D256) runs instead the
 whole-group kernels (`fa_paged_decode_group`, `fa_fused_decode_group`):
-with bf16 or fp16 q at head dims 8-256 those of `csrc/decode_group.cuh`
+with bf16 or fp16 q at head dims 8-256 (8-32 run at 32, 48-256 at 64, 128
+or 256) those of `csrc/decode_group.cuh`
 (launch keys "paged_decode_group" / "fused_decode_group", S and P V on
 `mma.sync`; 8-32 run at 32, where the warps split P V by tokens), with fp32
 q at the same head dims those of `csrc/decode_group_fp32.cuh` (keys
@@ -73,19 +77,24 @@ from ..kernels.vanilla import DEFAULT_MASK_VALUE
 from ..quant.kv import QUANT_DTYPES
 
 __all__ = [
-    "cluster_plan", "decode_cluster_split", "decode_split", "group_max_rows", "group_passes", "group_tiles",
-    "group_tokens", "paged_attention", "paged_attention_group_ref", "paged_attention_narrow_ref", "paged_attention_ref",
-    "paged_attention_split_ref", "uses_group_kernel", "uses_narrow_kernel", "uses_wide_kernel", "wide_passes",
-    "wide_tokens",
+    "cluster_plan", "decode_cluster_split", "decode_split", "decode_width", "group_max_rows", "group_passes",
+    "group_tiles", "group_tokens", "paged_attention", "paged_attention_group_ref", "paged_attention_narrow_ref",
+    "paged_attention_ref", "paged_attention_split_ref", "uses_group_kernel", "uses_narrow_kernel", "uses_wide_kernel",
+    "wide_passes", "wide_tokens",
 ]
 
 _Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # what csrc/decode.cuh instantiates
 # head dims the decode kernels take: 8, 16 and 32 (the narrow kernel; the
-# whole-group kernels run them at 32), 64, and every
-# multiple of 128 up to 1024 (run at 128, 256, 512 or 1024), as the JAX
-# package's K5 runs in its kernel body (d divides 128, or 128 divides d) up
-# to the 1024 that caps the port's flash kernels
-HEAD_DIMS = (8, 16, 32, 64) + tuple(range(128, 1025, 128))
+# whole-group kernels run them at 32) and every multiple of 16 from 48 to
+# the 1024 that caps the port's flash kernels, each run at `decode_width`.
+# The JAX package's decode entry points answer at every head dim (their
+# kernels where d divides 128 or 128 divides d, their einsum elsewhere); the
+# kernels here copy a row's d columns in 16-byte pieces, so d x 1 byte (an
+# 8-bit row) must be whole pieces: d = 24, 40, 56, ... and d < 8 or above
+# 1024 raise
+HEAD_DIMS = (8, 16, 32) + tuple(range(48, 1025, 16))
+# the head dims the kernel templates are instantiated at (`decode_width`)
+DECODE_WIDTHS = (32, 64, 128, 256, 512, 1024)
 # csrc/decode.cuh's split: tokens of a ring tile (kTile), warps of a block
 # (kWarps; each takes every fourth tile of its block's chunk), q rows of a
 # group tile (kMaxRows), splits a sequence may have (kMaxSplits), page ids a
@@ -126,7 +135,8 @@ GROUP_MAX_ROWS = 128
 GROUP_MAX_ROWS_FP32_D128 = 64
 GROUP_MAX_ROWS_FP32_D256 = 32
 GROUP_MAX_ROWS_D256 = 32
-GROUP_HEAD_DIMS = {dtype: (8, 16, 32, 64, 128, 256) for dtype in (torch.float32, torch.bfloat16, torch.float16)}
+GROUP_HEAD_DIMS = {dtype: (8, 16, 32) + tuple(range(48, 257, 16))
+                   for dtype in (torch.float32, torch.bfloat16, torch.float16)}
 # csrc/decode_wide.cuh's plan: bytes of a K (or V) ring slot at most
 # (kWSlotBytes; a stage is at most 32 tokens of padded rows), q heads of a
 # pass (kWMaxRows)
@@ -400,14 +410,25 @@ def decode_split(capacity: int, pairs: int, unit: int, sms: int) -> tuple[int, i
     return chunk, splits
 
 
+def decode_width(head_dim: int) -> int:
+    """The head dim D that the decode kernels run `head_dim` at: 32 for 8,
+    16 and 32 (the whole-group kernels' D32; the narrow kernel has no D),
+    else the first of 64, 128, 256, 512 and 1024 that holds it, the rule K1
+    pads by (`kernels.flash_attention.padded_head_dim`).  A row's d columns
+    are copied from the cache and the columns d..D-1 zero-filled in shared
+    memory without a read, so that the bytes read track d; the layouts,
+    registers and stage sizes are D's."""
+    return next(w for w in DECODE_WIDTHS if head_dim <= w)
+
+
 def uses_group_kernel(q_dtype: torch.dtype, head_dim: int, group: int) -> bool:
     """Whether a decode call runs the whole-group kernels: a GQA group above
-    MAX_ROWS (8) q heads at head dim 8, 16, 32 (run at 32), 64, 128 or 256
-    (GROUP_HEAD_DIMS), with bf16 or fp16 q (`csrc/decode_group.cuh`) or fp32
-    q (`csrc/decode_group_fp32.cuh`).  Head dims above 256 run the wide
-    kernels (`uses_wide_kernel`), groups of up to 8 the narrow kernels at
-    head dims 8-32 (`uses_narrow_kernel`) and the group tiles of
-    `csrc/decode.cuh` at 64-256."""
+    MAX_ROWS (8) q heads at head dim 8, 16, 32 (run at 32) or a multiple of
+    16 from 48 to 256 (run at 64, 128 or 256; GROUP_HEAD_DIMS), with bf16 or
+    fp16 q (`csrc/decode_group.cuh`) or fp32 q (`csrc/decode_group_fp32.cuh`).
+    Head dims above 256 run the wide kernels (`uses_wide_kernel`), groups of
+    up to 8 the narrow kernels at head dims 8-32 (`uses_narrow_kernel`) and
+    the group tiles of `csrc/decode.cuh` at 48-256."""
     return group > MAX_ROWS and head_dim in GROUP_HEAD_DIMS.get(q_dtype, ())
 
 
@@ -428,10 +449,12 @@ def group_max_rows(q_dtype: torch.dtype, head_dim: int) -> int:
     GROUP_MAX_ROWS_D256 (32) for bf16 / fp16 q at 256, where a warp holds
     q's A fragments for all 256 columns (64 registers) beside its column
     slice's accumulators (with 4 row tiles, a slice of 128 columns, they
-    spill)."""
-    if q_dtype == torch.float32 and head_dim in (128, 256):
-        return GROUP_MAX_ROWS_FP32_D128 if head_dim == 128 else GROUP_MAX_ROWS_FP32_D256
-    return GROUP_MAX_ROWS_D256 if head_dim == 256 else GROUP_MAX_ROWS
+    spill).  The limits are the instantiated width's (`decode_width`): d 80
+    runs in D128's."""
+    width = decode_width(head_dim)
+    if q_dtype == torch.float32 and width in (128, 256):
+        return GROUP_MAX_ROWS_FP32_D128 if width == 128 else GROUP_MAX_ROWS_FP32_D256
+    return GROUP_MAX_ROWS_D256 if width == 256 else GROUP_MAX_ROWS
 
 
 def group_passes(group: int, max_rows: int = GROUP_MAX_ROWS) -> tuple[int, int]:
@@ -454,13 +477,14 @@ def group_tokens(head_dim: int, itemsize: int) -> int:
     at head dims 8-128 for every 8- and 16-bit payload, for fp32 at head dims
     8-64 and for an 8-bit payload at D256; 64 for fp32 at D128 and for a
     16-bit payload at D256; 32 for fp32 at D256.  A chunk of the split holds
-    at least one stage."""
-    return min(GROUP_TOKENS, GROUP_STAGE_BYTES // (head_dim * itemsize))
+    at least one stage.  Rows are the instantiated width's (`decode_width`):
+    an fp32 cache at d 80 takes D128's 64 tokens."""
+    return min(GROUP_TOKENS, GROUP_STAGE_BYTES // (decode_width(head_dim) * itemsize))
 
 
 def uses_wide_kernel(q_dtype: torch.dtype, head_dim: int, group: int) -> bool:
     """Whether a decode call runs the wide kernels (`csrc/decode_wide.cuh`):
-    every head dim above 256 (384-1024, run at 512 or 1024), for every q
+    every head dim above 256 (272-1024, run at 512 or 1024), for every q
     dtype and GQA group."""
     return head_dim > 256
 
@@ -470,7 +494,7 @@ def wide_tokens(head_dim: int, itemsize: int) -> int:
     payload of `itemsize` bytes: as many padded rows (512 or 1024 columns) as
     fill a 64 KB ring slot, at most 32: 32 for every 8- and 16-bit payload,
     16 for fp32 at 1024."""
-    row = (512 if head_dim <= 512 else 1024) * itemsize
+    row = decode_width(head_dim) * itemsize
     return min(32, WIDE_SLOT_BYTES // row)
 
 
@@ -649,7 +673,7 @@ def _launch_decode(
         )
     if d not in HEAD_DIMS:
         raise NotImplementedError(
-            f"the decode kernels take head dims 8, 16, 32, 64 and multiples of 128 up to 1024, got {d}"
+            f"the decode kernels take head dims 8, 16, 32 and every multiple of 16 from 48 to 1024, got {d}"
         )
     if hq % hkv:
         raise ValueError(f"num_q_heads ({hq}) must be divisible by num_kv_heads ({hkv})")
@@ -704,7 +728,9 @@ def _launch_decode(
         chunk, splits = decode_split(capacity, batch * hkv * tiles, unit, _sm_count(device.index))
         ws, counters = (None, None)
         if splits > 1:
-            ws, counters = _workspace(device, batch * hkv * tiles * splits * rows * (d + 2), batch * hkv * tiles)
+            # a partial row is the instantiated width + 2 floats (csrc/decode.cuh), whatever d
+            ws, counters = _workspace(device, batch * hkv * tiles * splits * rows * (decode_width(d) + 2),
+                                      batch * hkv * tiles)
         work = (None if ws is None else ws.data_ptr(), None if counters is None else counters.data_ptr())
         codes = (_DTYPE_CODES[q.dtype], kv_code, batch, hq, hkv, tiles, rows, d)
         with _on(device):
@@ -755,8 +781,8 @@ def paged_attention(
         dequantization scales of quantized pages.
 
     Returns [batch, q_heads, head_dim] in q's dtype.  On CUDA: float32,
-    bfloat16 or float16 q, any GQA group, head dims 8, 16, 32, 64 and every
-    multiple of 128 up to 1024; anything else raises.
+    bfloat16 or float16 q, any GQA group, head dims 8, 16, 32 and every
+    multiple of 16 from 48 to 1024; anything else raises.
     """
     batch, hq, d = q.shape
     hkv = k_pages.shape[0]

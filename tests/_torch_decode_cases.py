@@ -8,6 +8,8 @@ the cases (split by width so that no file holds the tier-1 run up)."""
 
 import dataclasses
 import importlib
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -64,6 +66,19 @@ GROUP_CAPACITY = 512
 # D256) and two KV heads (24 / 2)
 GROUP_CASES_D64_D128 = [(hq, hkv, d) for d in (64, 128) for hq, hkv in GROUP_CASES]
 GROUP_CASES_D32_D256 = [(hq, hkv, d) for d in (8, 16, 32, 256) for hq, hkv in ((12, 1), (71, 1), (24, 2))]
+
+
+def c_instantiated_width():
+    """csrc/decode.cuh's instantiated_width as a Python function of d: its
+    `if (...) return N;` lines and its last `return N;` read as Python, so
+    that a CPU test can ask the C side which width runs a head dim."""
+    body = re.search(r"inline int instantiated_width\(int d\) \{(.*?)\n\}",
+                     (Path(tpa.__file__).resolve().parents[1] / "csrc" / "decode.cuh").read_text(), re.S).group(1)
+    lines = [(cond.replace("||", " or ").replace("&&", " and "), int(ret))
+             for cond, ret in re.findall(r"if \((.*)\) return (\d+);", body)]
+    last = int(re.search(r"\n  return (\d+);", body).group(1))
+    assert len(lines) == body.count("if (")
+    return lambda d: next((ret for cond, ret in lines if eval(cond, {"d": d})), last)
 
 
 def dim_ids(cases) -> list[str]:

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_decode_cases import PAYLOADS, TOL, jax_cache, make_pages
+from _torch_decode_cases import PAYLOADS, TOL, c_instantiated_width, jax_cache, make_pages
 from _torch_port import JAX_CFG, TORCH_CFG, from_jax, jax_tree, n, numpy_params, randn, t, torch_cache
 from flash_attention_tpu.inference import kv_cache as jkvc
 from flash_attention_tpu.inference import model_runner as jmr
@@ -207,21 +207,20 @@ def _c_int(text: str, name: str) -> int:
 def test_group_plan_mirrors_the_kernels(q_dtype):
     """`uses_group_kernel`'s head dims and `group_max_rows`'s limits are
     the C side's, which no CPU run can ask: for every q dtype the head dims
-    that decode.cuh's instantiated_width pads (decode.cu's group_head_dim),
-    each width among decode.cu's dispatch cases of q's dtype (group_width
+    that decode.cuh's instantiated_width pads (decode.cu's group_head_dim;
+    its `if (...) return ...;` lines read as Python and run for d 1-1100)
+    and the widths it pads them to (`decode_width`), each width among
+    decode.cu's dispatch cases of q's dtype (group_width
     for bf16 / fp16, group32_width for fp32) and the instantiations of its
     header (decode_group.cuh, decode_group_fp32.cuh); the rows of a pass as
     kGMaxRows, kGMaxRowsD256, kGMaxRows32D128 and kGMaxRows32D256."""
-    decode_cuh = (CSRC / "decode.cuh").read_text()
     decode_cu = (CSRC / "decode.cu").read_text()
     group = (CSRC / "decode_group.cuh").read_text()
     group32 = (CSRC / "decode_group_fp32.cuh").read_text()
-    body = re.search(r"inline int instantiated_width\(int d\) \{(.*?)\n\}", decode_cuh, re.S).group(1)
-    width = {}
-    for cond, ret in re.findall(r"if \(([^)]*)\) return (\w+);", body):
-        for x in re.findall(r"d == (\d+)", cond):
-            width[int(x)] = int(x) if ret == "d" else int(ret)
+    c_width = c_instantiated_width()
+    width = {d: c_width(d) for d in range(1, 1101) if c_width(d)}
     assert set(tpa.GROUP_HEAD_DIMS[q_dtype]) == set(width)
+    assert all(tpa.decode_width(d) == w for d, w in width.items())
     assert "bool group_head_dim(int d) { return instantiated_width(d) != 0; }" in decode_cu
     if q_dtype == torch.float32:
         cases = {int(x) for x in re.findall(r"case (\d+): return group32_launch_width<\1>", decode_cu)}

@@ -172,7 +172,7 @@ def test_jax_fused_kernel_interpret_small_case():
 
 def test_decode_launchers_raise_without_a_card():
     """K5/K6's launcher never falls back: what the kernels do not take (a
-    head dim other than 8, 16, 32, 64 or a multiple of 128 up to 1024, or
+    head dim other than 8, 16, 32 or a multiple of 16 from 48 to 1024, or
     int8 q) raises before any launch; what they take (d 32, a GQA group of
     18, fp16 q, and the whole-group and wide entry points) passes validation
     and stops at the device: CPU tensors raise."""
@@ -185,7 +185,7 @@ def test_decode_launchers_raise_without_a_card():
 
     with pytest.raises(RuntimeError, match="CUDA tensors only"):
         launch(t(q), kp, vp, ks, vs)
-    for d in (96, 1040):  # neither JAX kernel runs 96; 1040 is past the port's 1024
+    for d in (40, 1040):  # an 8-bit row of 40 bytes is not whole 16-byte pieces; 1040 is past the port's 1024
         qd = torch.zeros(4, 8, d)
         kd = torch.zeros(kp.shape[:-1] + (d,), dtype=torch.int8)
         with pytest.raises(NotImplementedError, match="head dims"):

@@ -27,10 +27,17 @@ spread between calls and between processes, and one process cannot import
 two checkouts' packages.
 
 `--stores a,b` times only the rows on those caches (`chip_smoke.STORES`
-names, e.g. `fp32,int8 fp32 q`), `--shapes a,b` only those
-`chip_smoke.NEW_DECODE_SHAPES` rows (e.g. `recurrentgemma2b,palm8b`), and
+names, e.g. `fp32,int8 fp32 q`), `--shapes a,b` only those rows: a
+`chip_smoke.NEW_DECODE_SHAPES` name (e.g. `recurrentgemma2b,palm8b`) or
+the start of another row's label (e.g. `llama,santacoder layer`), and
 `--no-bursts` leaves out the serving bursts: a short call that measures a
 few rows.
+
+A row at a head dim the checkout's decode kernels do not take
+(`paged_attention.HEAD_DIMS`: a parent from before a head dim ran) is
+skipped, and says so.  Each row draws its data from a seed of its own
+label and cache, so that the rows two checkouts share see the same data
+whatever rows either skips or leaves out.
 
 `--cluster N` (a checkout with cluster decode kernels) forces clusters of N
 blocks (1-8) in place of the split's choice (`decode_cluster_split`, or
@@ -47,6 +54,7 @@ import json
 import os
 import sys
 import time
+import zlib
 
 parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 parser.add_argument("tree")
@@ -92,15 +100,20 @@ def main() -> None:
     _build.library()
     res = {"label": label, "checkout": tree, "device": name, "smi": smi, "build_s": time.perf_counter() - t0,
            "cluster": args.cluster or "chosen"}
-    gen = torch.Generator().manual_seed(7)
     stores = set(args.stores.split(",")) if args.stores else None
     shapes = smoke.DECODE_SHAPES + (smoke.ONE_TILE_SHAPE,)
     if args.shapes:
-        shapes = tuple(smoke.NEW_DECODE_SHAPES[name] for name in args.shapes.split(","))
+        shapes = tuple(smoke.NEW_DECODE_SHAPES.get(name) or next(s for s in shapes if s[0].startswith(name))
+                       for name in args.shapes.split(","))
+    head_dims = importlib.import_module("flash_attention_tpu_torch.inference.paged_attention").HEAD_DIMS
     for shape in shapes:
+        if shape[5] not in head_dims:
+            print(label, shape[0], f"skipped: head dim {shape[5]} is not among this checkout's", flush=True)
+            continue
         for store in shape[-1]:
             if stores is not None and store not in stores:
                 continue
+            gen = torch.Generator().manual_seed(zlib.crc32(f"{shape[0]} {store}".encode()))
             row = smoke.time_decode(gen, smi, shape, store)
             res[f"{shape[0]} {store}"] = row
             print(label, shape[0], store, {k: v if isinstance(v, str) else round(v, 5) for k, v in row.items()},

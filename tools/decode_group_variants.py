@@ -21,6 +21,10 @@ process); every variant runs the same inputs:
   entered, with the gap between launches;
 * nocompute: the stages' S, P and P V skipped (copies and barriers kept);
 * nocopy: the payload's copies skipped (compute on what the ring holds);
+* mergediv: the cluster's merge (`decode_cluster.cuh`) walking the
+  run-time d's columns, a division by d an element, in place of D's;
+* constd: the run-time head dim taken as the instantiated D, so that its
+  column tests fold away (what they cost where d == D);
 * bf16 q only: tok256: 256-token stages at D64 (chunks of 256); tok256q:
   256-token stages for an 8-bit payload;
 * fp32 q only: stages3: 3 stages in the ring for an fp32 cache (2 by
@@ -78,7 +82,7 @@ extern "C" __attribute__((visibility("default"))) int variant_decode(
   p.q_sb = st[0]; p.q_sh = st[1]; p.o_sb = st[2]; p.o_sh = st[3];
   p.k_sh = st[4]; p.k_sp = st[5]; p.k_sr = st[6]; p.v_sh = st[7]; p.v_sp = st[8]; p.v_sr = st[9];
   p.s_sh = st[10]; p.s_sp = st[11];
-  p.group = hq / hkv; p.passes = 1; p.pass_rows = 16;
+  p.group = hq / hkv; p.passes = 1; p.pass_rows = 16; p.head_dim = d;
 #ifdef FA_TIMELINE
   p.tag = tag; p.times = (unsigned long long*)times;
 #endif
@@ -133,6 +137,16 @@ TIMELINE_FP32 = [
 STAMPS = {"bf16": ("entry", "stage 0 landed", "its row maxima", "its P", "stage 1 landed", "stages done",
                    "state written", "exit"),
           "fp32": ("entry", "stage 0 landed", "stage 1 landed", "stages done", "token groups merged", "exit")}
+# the cluster merge dividing by the run-time d in place of the instantiated D
+MERGEDIV = [("decode_cluster.cuh",
+             "  constexpr int kD4 = D / 4;\n  for (int e = rank * kThreads + tid; e < G * kD4; e += C * kThreads) {\n"
+             "    const int g = e / kD4, c4 = e % kD4;\n    if (c4 * 4 >= d) continue;\n",
+             "  const int d4 = d / 4;\n  for (int e = rank * kThreads + tid; e < G * d4; e += C * kThreads) {\n"
+             "    const int g = e / d4, c4 = e % d4;\n")]
+# the run-time head dim taken as the instantiated D (its column tests fold
+# away; wrong where d < D)
+CONSTD = [("  const int d = p.head_dim;                      // the columns past d are zero in q, K and V",
+           "  constexpr int d = D;")]
 VARIANTS = {
     "base": [],
     "timeline": TIMELINE,
@@ -148,6 +162,8 @@ VARIANTS = {
         ("        cp_async<16>(dk + i * kRowStep * L::kRow, ok ? sk + i * kstep : gk, ok ? 16 : 0);\n"
          "        cp_async<16>(dv + i * kRowStep * L::kRow, ok ? sv + i * vstep : gv, ok ? 16 : 0);\n", ""),
     ],
+    "mergediv": MERGEDIV,
+    "constd": CONSTD,
     "tok256": [("  static constexpr int kTok = 128;  ", "  static constexpr int kTok = D == 64 && kRW <= 2 ? 256 : 128;  ")],
     "tok256q": [("  static constexpr int kTok = 128;  ", "  static constexpr int kTok = kQuant ? 256 : 128;  ")],
 }
@@ -156,6 +172,8 @@ VARIANTS_FP32 = {
     "timeline": TIMELINE_FP32,
     "nocompute": [("      if (!rows_live || t0 + tok0 >= tend) break;", "      if (true) break;")],
     "nocopy": VARIANTS["nocopy"],
+    "mergediv": MERGEDIV,
+    "constd": CONSTD,
     "stages3": [("  static constexpr int kFit = 96 * 1024 / (2 * kStage);",
                  "  static constexpr int kFit = (kQuant ? 96 : 192) * 1024 / (2 * kStage);")],
 }

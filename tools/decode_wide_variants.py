@@ -12,7 +12,10 @@ ring of that many stages), w8 (8 warps a block: with `--chunk 256`);
 `--clusters` runs the listed cluster sizes (wide and narrow) in place of the
 split's choice, with chunks of `--chunk` tokens if given.  `--one-split`
 (tiles) adds a run at one split a pair, which has no merge; the tiles kernel
-has a nosoftmax variant too.
+has a nosoftmax variant too, and qmask (q's columns tested at every slab),
+nocolmask and constd (the copies' column test and the output loops'
+run-time d taken out), to see what the tests that a head dim below the
+instantiated width needs cost where d == D.
 
 `--kernel wide` (the default) takes `csrc/decode_wide.cuh`, the cluster
 kernel that runs every decode call at padded D512 / D1024; `--kernel tiles`
@@ -58,7 +61,9 @@ dims: RecurrentGemma-2B's layer (recurrentgemma2b: 8 layers, 10 q heads on
 one KV head of 256, two tiles of 5; recurrentgemma2b5 with 5 q heads, one
 tile), PaLM-8B's (palm8b: 16 q heads of 256 on one KV head; palm8b8 with
 8) and a multi-query layer at D32 (d32_mqa: 32 layers of 32 slots of 1024,
-16 q heads on one KV head; d32_mqa8 with 8), and the d32 (3 layers of 32 slots
+16 q heads on one KV head; d32_mqa8 with 8), Llama-3 8B's layer (llama: 2
+layers of 16 slots of 4096, GQA 32/8 at D128, as `chip_smoke.DECODE_SHAPES`
+has it), and the d32 (3 layers of 32 slots
 of 1024, 16 heads of 32) and d32_gqa4 (8 layers, 16 q heads on 4 KV heads) rows
 of `chip_smoke.NEW_DECODE_SHAPES`.  tiles runs at two splits, K6's own (`decode_split`
 over 16-token tiles) and K5's (chunks of a 128-token page), to see what the
@@ -167,9 +172,17 @@ KERNELS = {
              "    for (int i = 0; i < 0; ++i) {\n      const int g = min(half + 2 * i, kMaxG - 1);"),
         ],
         nocopy=[
-            ("      cp_async<W::kCopy>(dk + r * L::kRow + ((in / 16) ^ swz(r)) * 16 + in % 16, gk + ko, ok ? bytes : 0);\n"
-             "      cp_async<W::kCopy>(dv + r * L::kRow + in, gv + vo, ok ? bytes : 0);\n", ""),
+            ("      cp_async<16>(dk + r * L::kRow + ((in / 16) ^ swz(r)) * 16, gk + ko, ok ? 16 : 0);\n"
+             "      cp_async<16>(dv + r * L::kRow + in, gv + vo, ok ? 16 : 0);\n", ""),
         ],
+        # what a head dim below the instantiated D costs where d == D: q's
+        # columns tested at every slab, not only one that d ends in (qmask);
+        # the copies not masked by d (nocolmask) and the output loops at the
+        # constant D (constd), both wrong where d < D
+        qmask=[("  if (col0 + W::kCols <= p.head_dim) load_q(std::false_type{});\n  else load_q(std::true_type{});",
+                "  load_q(std::true_type{});")],
+        nocolmask=[("      const bool ok = t0 + r < limit && col_live;", "      const bool ok = t0 + r < limit;")],
+        constd=[("  const int d = p.head_dim;\n  float* part", "  constexpr int d = D;\n  float* part")],
     ),
 }
 KERNELS["narrow"] = dict(
@@ -260,6 +273,7 @@ KERNELS["wide"] = dict(
 VARIANT_NAMES = ("base", "timeline", "nocompute", "nocopy")  # and, tiles only, nosoftmax
 SHAPES = {"d512": (4, 8, 8, 2, 512, 2048), "d1024": (4, 8, 8, 2, 1024, 2048),
           "santacoder": (24, 8, 16, 1, 128, 2048), "santacoder8": (24, 8, 8, 1, 128, 2048),
+          "llama": (2, 16, 32, 8, 128, 4096),
           "falcon40b": (8, 8, 128, 8, 64, 2048),
           "recurrentgemma2b": (8, 8, 10, 1, 256, 2048), "recurrentgemma2b5": (8, 8, 5, 1, 256, 2048),
           "palm8b": (8, 8, 16, 1, 256, 2048), "palm8b8": (8, 8, 8, 1, 256, 2048),
